@@ -114,6 +114,31 @@ def apply_updates(
     return new_lb, new_ub, changed
 
 
+def apply_updates_batch(
+    lb, ub, best_lcand, best_ucand, eps: float, inf: float = INF,
+    outward: float = 0.0, active=None,
+):
+    """Batched merge: ``(B, n_pad)`` bounds/candidates -> per-row change.
+
+    Identical elementwise semantics to :func:`apply_updates`; the
+    ``changed`` reduction stays per row (``(B,)`` bool), which lets a
+    batched fixed point converge each row independently.  ``active`` (a
+    ``(B,)`` bool mask) freezes the rows where it is False: they pass
+    through bit for bit and report unchanged.  This is the plain version
+    of the batched merge kernel (``kernels.apply_updates_batch_tiles``)."""
+    take_l = improved_lb(best_lcand, lb, eps)
+    take_u = improved_ub(best_ucand, ub, eps)
+    if active is not None:
+        take_l = take_l & active[:, None]
+        take_u = take_u & active[:, None]
+    if outward:
+        best_lcand, best_ucand = widen_outward(best_lcand, best_ucand, outward)
+    new_lb = torch.where(take_l, best_lcand.clamp(-inf, inf), lb)
+    new_ub = torch.where(take_u, best_ucand.clamp(-inf, inf), ub)
+    changed = take_l.any(dim=-1) | take_u.any(dim=-1)
+    return new_lb, new_ub, changed
+
+
 def progress_measure(lb_old, ub_old, lb_new, ub_new):
     """Per-round *measure of progress* (Sofranac et al., arXiv:2106.07573,
     adapted to sentinel-infinite bounds): the scale-normalized total bound

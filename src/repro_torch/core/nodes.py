@@ -1,0 +1,171 @@
+"""Warm-start node-batch propagation: the tree-search serving shape.
+
+Domain propagation runs at every node of a branch-and-bound search, and a
+node differs from its parent by one branching bound.  So the matrix is
+prepared once per instance (``kernels.prepare_block_ell``, keyed on
+structure) and stays on the device; a :class:`NodeBatch` carries B nodes as
+``(B, n)`` bound planes, the only per-node state; :func:`propagate_nodes`
+runs all B fixed points together over the shared tiles, with a per-node
+active mask (converged nodes cost the kernels nothing) and per-node
+infeasibility reported for pruning.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from .propagator import not_ported
+from .sparse import Problem
+from .types import DEFAULT_CONFIG, PropagationResult, PropagatorConfig
+
+
+class NodeBatchResult(NamedTuple):
+    """Per-node results of one node-batch propagation (node axis leading).
+    ``tier_rounds``, ``telemetry`` and ``fp32_telemetry`` belong to the
+    precision tiers and the telemetry plane, not ported yet: always None."""
+
+    lb: torch.Tensor          # (B, n) propagated lower bounds
+    ub: torch.Tensor          # (B, n) propagated upper bounds
+    rounds: torch.Tensor      # (B,) int32 rounds to each node's fixed point
+    converged: torch.Tensor   # (B,) bool
+    infeasible: torch.Tensor  # (B,) bool: domain emptied -> prune this node
+    progress: torch.Tensor | None = None  # (B,) last-round progress measure
+    tier_rounds: object = None
+    telemetry: object = None
+    fp32_telemetry: object = None
+
+    @property
+    def size(self) -> int:
+        return int(self.lb.shape[0])
+
+    def result(self, i: int) -> PropagationResult:
+        """Node ``i``'s result in single-instance form."""
+        prog = self.progress[i] if self.progress is not None else torch.tensor(
+            math.nan, dtype=self.lb.dtype, device=self.lb.device
+        )
+        return PropagationResult(
+            self.lb[i], self.ub[i], self.rounds[i], self.converged[i],
+            self.infeasible[i], prog,
+        )
+
+    def results(self) -> "list[PropagationResult]":
+        return [self.result(i) for i in range(self.size)]
+
+
+class NodeBatch(NamedTuple):
+    """B nodes of ONE instance: the shared problem + per-node bound planes
+    (host ``(B, n)`` numpy arrays: node bookkeeping is host-side search
+    logic; only propagation runs on the device)."""
+
+    problem: Problem
+    lb: np.ndarray  # (B, n)
+    ub: np.ndarray  # (B, n)
+
+    @property
+    def size(self) -> int:
+        return int(self.lb.shape[0])
+
+    @classmethod
+    def from_root(cls, p: Problem, copies: int = 1) -> "NodeBatch":
+        """``copies`` identical nodes at the problem's root bounds."""
+        lb = np.repeat(np.asarray(p.lb, np.float64)[None, :], copies, axis=0)
+        ub = np.repeat(np.asarray(p.ub, np.float64)[None, :], copies, axis=0)
+        return cls(problem=p, lb=lb, ub=ub)
+
+    @classmethod
+    def from_nodes(cls, p: Problem, nodes: Sequence[tuple]) -> "NodeBatch":
+        """Stack ``(lb_i, ub_i)`` pairs into one batch."""
+        lb = np.stack([np.asarray(l, np.float64) for l, _ in nodes])
+        ub = np.stack([np.asarray(u, np.float64) for _, u in nodes])
+        return cls(problem=p, lb=lb, ub=ub)
+
+    def select(self, mask) -> "NodeBatch":
+        """Keep the nodes where ``mask`` is True (pruning survivors)."""
+        mask = np.asarray(mask)
+        return NodeBatch(self.problem, self.lb[mask], self.ub[mask])
+
+
+def branch_children(lb, ub, var: int, value: float) -> "tuple[tuple, tuple]":
+    """The two children of branching ``x[var]`` at ``value``: the *down*
+    child gets ``ub[var] = floor(value)``, the *up* child ``lb[var] =
+    floor(value) + 1``.  Returns ``((lb_down, ub_down), (lb_up, ub_up))`` as
+    fresh host arrays."""
+    lb = np.asarray(lb, np.float64)
+    ub = np.asarray(ub, np.float64)
+    f = float(np.floor(value))
+    down_lb, down_ub = lb.copy(), ub.copy()
+    down_ub[var] = min(down_ub[var], f)
+    up_lb, up_ub = lb.copy(), ub.copy()
+    up_lb[var] = max(up_lb[var], f + 1.0)
+    return (down_lb, down_ub), (up_lb, up_ub)
+
+
+def pick_most_fractional(lb, ub, is_int) -> "int | None":
+    """Host-side branching rule: the unfixed integer variable whose domain
+    midpoint is most fractional, ties to the lowest index (the host twin of
+    ``kernels.ref.most_fractional_ref``).  ``None`` when every integer
+    variable is fixed."""
+    lb = np.asarray(lb, np.float64)
+    ub = np.asarray(ub, np.float64)
+    cand = np.asarray(is_int, bool) & (ub - lb > 0.5)
+    if not cand.any():
+        return None
+    mid = 0.5 * (lb + ub)
+    frac = mid - np.floor(mid)
+    score = np.where(cand, 0.5 - np.abs(frac - 0.5), -1.0)
+    return int(np.argmax(score))
+
+
+def propagate_nodes(
+    p: Problem,
+    lb_nodes,
+    ub_nodes,
+    cfg: PropagatorConfig = DEFAULT_CONFIG,
+    tile_rows: int = 8,
+    tile_width: int = 128,
+    dtype=None,
+    use_kernels: bool = True,
+    stop_progress: float | None = None,
+    patience: int = 1,
+    policy=None,
+    telemetry: int | None = None,
+    device="cuda",
+    on_sync: Callable[[], None] | None = None,
+) -> NodeBatchResult:
+    """Propagate B warm-started nodes of ONE instance together.
+
+    ``lb_nodes``/``ub_nodes`` are ``(B, n)`` per-node bound planes (or a
+    :class:`NodeBatch`'s fields).  The instance's tiles and hoisted gathers
+    are cached per matrix structure (``kernels.cache_info()`` reports hits),
+    so successive frontiers of one search pay only the two plane uploads.
+    Per-node ``rounds``/``converged`` match each node's own single-instance
+    run, and so do its bounds, bitwise; ``infeasible`` nodes are reported
+    for pruning and leave the other nodes untouched.
+
+    ``use_kernels=False`` runs the kernels' plain PyTorch versions.
+    ``device`` defaults to CUDA and raises where there is none.  ``on_sync``
+    is called once per host read of the loop's exit flag (one per round).
+    Float64 only; ``stop_progress``/``patience``, ``policy`` and
+    ``telemetry`` raise ``NotImplementedError``."""
+    from ..kernels.ops import prepare_block_ell, propagate_nodes_prepared
+
+    if policy is not None or stop_progress is not None or patience != 1:
+        not_ported("policy= / stop_progress= / patience=", "item 5 (precision tiers)")
+    if telemetry is not None:
+        not_ported("telemetry=", "item 6 (observability)")
+    prep = prepare_block_ell(p, tile_rows, tile_width, dtype, device)
+    lb, ub, rounds, converged, infeasible, progress = propagate_nodes_prepared(
+        prep, lb_nodes, ub_nodes, cfg, use_kernels=use_kernels, with_progress=True,
+        on_sync=on_sync,
+    )
+    return NodeBatchResult(lb, ub, rounds, converged, infeasible, progress=progress)
+
+
+def propagate_node_batch(
+    batch: NodeBatch, cfg: PropagatorConfig = DEFAULT_CONFIG, **kwargs
+) -> NodeBatchResult:
+    """:func:`propagate_nodes` over a :class:`NodeBatch`."""
+    return propagate_nodes(batch.problem, batch.lb, batch.ub, cfg, **kwargs)

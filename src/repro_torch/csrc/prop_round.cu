@@ -1,8 +1,9 @@
-// Hopper (sm_90a) kernels of the fused propagation round (paper Alg. 3).
+// Hopper (sm_90a) kernels of the fused propagation round (paper Alg. 3), of
+// its node-batch form and of the solver's node objective.
 //
-// Four kernels, each the CUDA counterpart of one Pallas kernel of the JAX
-// package (src/repro/kernels/prop_round.py) and held against the same
-// plain-PyTorch oracle (src/repro_torch/kernels/ref.py):
+// Each kernel but the combine is the CUDA counterpart of one Pallas kernel
+// of the JAX package (src/repro/kernels/prop_round.py); every kernel is held
+// against a plain-PyTorch oracle (src/repro_torch/kernels/ref.py):
 //
 //   fused_scatter_round  (D)  bound gather, row activities with infinity
 //                             counters, candidates, integrality rounding and
@@ -12,12 +13,27 @@
 //   candidates_scatter   (E)  candidates from completed row aggregates, then
 //                             the column max/min
 //   apply_updates        (F)  the bound merge, in place, with a changed flag
+//   combine_chunk_partials    the long-row combine of A' partials, left to
+//                             right over each row's chunks (not a TPU
+//                             kernel: the reference's XLA segment_sum)
+//   node_fused_scatter_round  (#10) D over a node batch: one matrix, B bound
+//                             planes, an active mask read on the device
+//   apply_updates_batch  (#9) F over (B, n_pad) planes with an active mask
+//                             and a changed flag per row
+//   node_objective       (#16) per node: objective bound, all-fixed and
+//                             crossed flags, by a block reduction
 //
-// Layout: block-ELL tiles (T, R, K) flattened to T*R chunks of K slots.  One
-// warp owns one chunk; each lane walks the slots lane, lane+32, ... so a
-// warp's loads of val/col are coalesced.  Row sums are reduced by warp
-// shuffles.  The TPU kernels' one-hot gather becomes an indexed load (the
-// two (n_pad,) bound vectors stay in L2), and their one-hot column scatter
+// Layout: block-ELL tiles (T, R, K) flattened to T*R chunks of K slots.  A
+// chunk is owned by a group of G lanes, G = K rounded up to a power of two
+// and at most 32 (so a warp holds 32 / G chunks: four at K = 8); each lane
+// walks the slots sl, sl + 32, ... (sl < G) so a group's loads of val/col
+// are coalesced.  Row sums are reduced by shuffles within the group.  For
+// K <= 16 the sum is the same as the one-warp-per-chunk butterfly of
+// ref.warp_order_sum: lanes past K hold +0.0, and adding +0.0 to a lane sum
+// (never -0.0, since each starts at +0.0) leaves it unchanged.  The group
+// width is a template parameter, so the shuffles unroll.  The TPU kernels'
+// one-hot gather becomes an indexed load (the (n_pad,) bound vectors stay
+// in L2), and their one-hot column scatter
 // becomes a double-precision atomic max/min (compare-and-swap loop on the
 // value, so -0.0 and +0.0 compare equal, as they do in the oracle).  Max and
 // min do not depend on order, so the scatter is exact.
@@ -57,14 +73,42 @@ __device__ __forceinline__ Slot load_slot(double v, int c, const double* __restr
   return s;
 }
 
-__device__ __forceinline__ double warp_sum(double x) {
-  for (int off = kWarp / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+// Butterfly sum over aligned groups of G lanes (a power of two); every lane
+// of the warp must take part.
+template <int G, typename T>
+__device__ __forceinline__ T group_sum(T x) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
   return x;
 }
 
-__device__ __forceinline__ int warp_sum(int x) {
-  for (int off = kWarp / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+__device__ __forceinline__ double warp_sum(double x) { return group_sum<kWarp>(x); }
+
+// Lanes per chunk: K rounded up to a power of two, at most a warp.
+int group_width(int k) {
+  int g = 1;
+  while (g < k && g < kWarp) g <<= 1;
+  return g;
+}
+
+// This thread's chunk and its lane within the chunk's group of G lanes.
+// Lanes of a group past the last chunk are not live: they still take part
+// in the shuffles (as empty chunks) but load and store nothing.
+struct Lanes {
+  int64_t chunk;
+  int sl;
+  bool live;
+};
+
+template <int G>
+__device__ __forceinline__ Lanes lanes_for(int64_t n_chunks) {
+  Lanes L;
+  const int lane = threadIdx.x % kWarp;
+  const int64_t warp = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
+  L.chunk = warp * (kWarp / G) + lane / G;
+  L.sl = lane % G;
+  L.live = L.chunk < n_chunks;
+  return L;
 }
 
 struct RowAgg {
@@ -72,24 +116,27 @@ struct RowAgg {
   int mc, xc;
 };
 
-// tile_row_aggregates of one chunk; every lane of the warp gets the result.
+// tile_row_aggregates of one chunk; every lane of the group gets the
+// result.  All lanes of the warp must call it (dead lanes with k = 0).
+template <int G>
 __device__ __forceinline__ RowAgg chunk_aggregates(const double* __restrict__ val,
                                                    const int* __restrict__ col,
                                                    const double* __restrict__ lb,
                                                    const double* __restrict__ ub,
-                                                   int64_t base, int k, int lane, double inf) {
+                                                   int64_t base, int k, const Lanes& L,
+                                                   double inf) {
   RowAgg a{0.0, 0.0, 0, 0};
-  for (int j = lane; j < k; j += kWarp) {
+  for (int j = L.sl; j < k; j += kWarp) {
     const double v = val[base + j];
     if (v == 0.0) continue;  // padding adds nothing; its col is never read
     const Slot s = load_slot(v, col[base + j], lb, ub, inf);
     if (s.min_inf) a.mc += 1; else a.mf += v * s.bmin;
     if (s.max_inf) a.xc += 1; else a.xf += v * s.bmax;
   }
-  a.mf = warp_sum(a.mf);
-  a.xf = warp_sum(a.xf);
-  a.mc = warp_sum(a.mc);
-  a.xc = warp_sum(a.xc);
+  a.mf = group_sum<G>(a.mf);
+  a.xf = group_sum<G>(a.xf);
+  a.mc = group_sum<G>(a.mc);
+  a.xc = group_sum<G>(a.xc);
   return a;
 }
 
@@ -121,9 +168,9 @@ __device__ __forceinline__ double clip(double x, double inf) { return fmin(fmax(
 __device__ __forceinline__ void chunk_candidates_scatter(
     const double* __restrict__ val, const int* __restrict__ col, const int* __restrict__ ii,
     const double* __restrict__ lb, const double* __restrict__ ub, const RowAgg& a, double lhs,
-    double rhs, double* best_l, double* best_u, int64_t base, int k, int lane, double int_eps,
-    double inf) {
-  for (int j = lane; j < k; j += kWarp) {
+    double rhs, double* best_l, double* best_u, int64_t base, int k, const Lanes& L,
+    double int_eps, double inf) {
+  for (int j = L.sl; j < k; j += kWarp) {
     const double v = val[base + j];
     if (v == 0.0) continue;  // padding: both candidates are the sentinel
     const int c = col[base + j];  // col and is_int are read at nonzeros only
@@ -149,38 +196,38 @@ __device__ __forceinline__ void chunk_candidates_scatter(
   }
 }
 
+template <int G>
 __global__ void __launch_bounds__(kThreads)
 fused_scatter_round_kernel(const double* __restrict__ val, const int* __restrict__ col,
                            const int* __restrict__ ii, const double* __restrict__ lhs,
                            const double* __restrict__ rhs, const double* __restrict__ lb,
                            const double* __restrict__ ub, double* best_l, double* best_u,
                            int64_t n_chunks, int k, double int_eps, double inf) {
-  const int64_t chunk = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (chunk >= n_chunks) return;
-  const int lane = threadIdx.x % kWarp;
-  const int64_t base = chunk * k;
-  const RowAgg a = chunk_aggregates(val, col, lb, ub, base, k, lane, inf);
-  chunk_candidates_scatter(val, col, ii, lb, ub, a, lhs[chunk], rhs[chunk], best_l, best_u,
-                           base, k, lane, int_eps, inf);
+  const Lanes L = lanes_for<G>(n_chunks);
+  const int64_t base = L.chunk * k;
+  const RowAgg a = chunk_aggregates<G>(val, col, lb, ub, base, L.live ? k : 0, L, inf);
+  if (!L.live) return;
+  chunk_candidates_scatter(val, col, ii, lb, ub, a, lhs[L.chunk], rhs[L.chunk], best_l, best_u,
+                           base, k, L, int_eps, inf);
 }
 
+template <int G>
 __global__ void __launch_bounds__(kThreads)
 activities_gather_kernel(const double* __restrict__ val, const int* __restrict__ col,
                          const double* __restrict__ lb, const double* __restrict__ ub,
                          double* __restrict__ mf, int* __restrict__ mc, double* __restrict__ xf,
                          int* __restrict__ xc, int64_t n_chunks, int k, double inf) {
-  const int64_t chunk = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (chunk >= n_chunks) return;
-  const int lane = threadIdx.x % kWarp;
-  const RowAgg a = chunk_aggregates(val, col, lb, ub, chunk * k, k, lane, inf);
-  if (lane == 0) {
-    mf[chunk] = a.mf;
-    mc[chunk] = a.mc;
-    xf[chunk] = a.xf;
-    xc[chunk] = a.xc;
+  const Lanes L = lanes_for<G>(n_chunks);
+  const RowAgg a = chunk_aggregates<G>(val, col, lb, ub, L.chunk * k, L.live ? k : 0, L, inf);
+  if (L.live && L.sl == 0) {
+    mf[L.chunk] = a.mf;
+    mc[L.chunk] = a.mc;
+    xf[L.chunk] = a.xf;
+    xc[L.chunk] = a.xc;
   }
 }
 
+template <int G>
 __global__ void __launch_bounds__(kThreads)
 candidates_scatter_kernel(const double* __restrict__ val, const int* __restrict__ col,
                           const int* __restrict__ ii, const double* __restrict__ rmf,
@@ -189,12 +236,12 @@ candidates_scatter_kernel(const double* __restrict__ val, const int* __restrict_
                           const double* __restrict__ rhs, const double* __restrict__ lb,
                           const double* __restrict__ ub, double* best_l, double* best_u,
                           int64_t n_chunks, int k, double int_eps, double inf) {
-  const int64_t chunk = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-  if (chunk >= n_chunks) return;
-  const int lane = threadIdx.x % kWarp;
-  const RowAgg a{rmf[chunk], rxf[chunk], rmc[chunk], rxc[chunk]};
-  chunk_candidates_scatter(val, col, ii, lb, ub, a, lhs[chunk], rhs[chunk], best_l, best_u,
-                           chunk * k, k, lane, int_eps, inf);
+  const Lanes L = lanes_for<G>(n_chunks);
+  if (!L.live) return;
+  const int64_t c = L.chunk;
+  const RowAgg a{rmf[c], rxf[c], rmc[c], rxc[c]};
+  chunk_candidates_scatter(val, col, ii, lb, ub, a, lhs[c], rhs[c], best_l, best_u, c * k, k, L,
+                           int_eps, inf);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -217,9 +264,148 @@ apply_updates_kernel(double* __restrict__ lb, double* __restrict__ ub,
   if (take_l || take_u) *changed = true;
 }
 
-unsigned int chunk_blocks(int64_t n_chunks) {
-  return static_cast<unsigned int>((n_chunks + kWarpsPerBlock - 1) / kWarpsPerBlock);
+// One thread per row segment: its chunk partials summed left to right
+// (chunks of a row are adjacent in the stream), then written back to every
+// chunk of the row.  Fixed order on every run, unlike an atomic segment sum.
+__global__ void __launch_bounds__(kThreads)
+combine_chunk_partials_kernel(const double* __restrict__ mf, const int* __restrict__ mc,
+                              const double* __restrict__ xf, const int* __restrict__ xc,
+                              const int64_t* __restrict__ row_start, double* __restrict__ omf,
+                              int* __restrict__ omc, double* __restrict__ oxf,
+                              int* __restrict__ oxc, int64_t n_seg) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (r >= n_seg) return;
+  const int64_t s = row_start[r], e = row_start[r + 1];
+  double a = 0.0, b = 0.0;
+  int ca = 0, cb = 0;
+  for (int64_t i = s; i < e; ++i) {
+    a += mf[i];
+    ca += mc[i];
+    b += xf[i];
+    cb += xc[i];
+  }
+  for (int64_t i = s; i < e; ++i) {
+    omf[i] = a;
+    omc[i] = ca;
+    oxf[i] = b;
+    oxc[i] = cb;
+  }
 }
+
+// Kernel D for B nodes sharing one matrix.  Each warp reads the active mask
+// 32 nodes at a time (one ballot) and visits only the active nodes; each
+// gathers from and scatters into its own row of the (B, n_pad) planes, with
+// D's arithmetic, so each row equals D's result for that node bit for bit.
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+node_fused_scatter_round_kernel(const double* __restrict__ val, const int* __restrict__ col,
+                                const int* __restrict__ ii, const double* __restrict__ lhs,
+                                const double* __restrict__ rhs, const double* __restrict__ lb,
+                                const double* __restrict__ ub, const bool* __restrict__ active,
+                                double* best_l, double* best_u, int64_t n_chunks, int k,
+                                int64_t bsz, int64_t n_pad, double int_eps, double inf) {
+  const Lanes L = lanes_for<G>(n_chunks);
+  const int lane = threadIdx.x % kWarp;
+  const int64_t base = L.chunk * k;
+  const int kk = L.live ? k : 0;
+  const double lo = L.live ? lhs[L.chunk] : 0.0, hi = L.live ? rhs[L.chunk] : 0.0;
+  for (int64_t b0 = 0; b0 < bsz; b0 += kWarp) {
+    unsigned int todo = __ballot_sync(0xffffffffu, b0 + lane < bsz && active[b0 + lane]);
+    while (todo != 0u) {
+      const int64_t row = (b0 + __ffs(todo) - 1) * n_pad;
+      todo &= todo - 1u;
+      const RowAgg a = chunk_aggregates<G>(val, col, lb + row, ub + row, base, kk, L, inf);
+      if (L.live)
+        chunk_candidates_scatter(val, col, ii, lb + row, ub + row, a, lo, hi, best_l + row,
+                                 best_u + row, base, k, L, int_eps, inf);
+    }
+  }
+}
+
+// Kernel F over (B, n_pad) planes: grid (column blocks, B); the blocks of an
+// inactive row return at once, so it is neither read nor written.
+__global__ void __launch_bounds__(kThreads)
+apply_updates_batch_kernel(double* __restrict__ lb, double* __restrict__ ub,
+                           const double* __restrict__ best_l, const double* __restrict__ best_u,
+                           const bool* __restrict__ active, bool* __restrict__ changed,
+                           int64_t n_pad, double eps, double inf, double outward) {
+  const int64_t b = blockIdx.y;
+  if (!active[b]) return;
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= n_pad) return;
+  const int64_t i = b * n_pad + j;
+  const double l = lb[i], u = ub[i];
+  double bl = best_l[i], bu = best_u[i];
+  const bool take_l = bl > l + eps * fmax(1.0, fabs(l));
+  const bool take_u = bu < u - eps * fmax(1.0, fabs(u));
+  if (outward != 0.0) {
+    bl = bl - outward * fmax(1.0, fabs(bl));
+    bu = bu + outward * fmax(1.0, fabs(bu));
+  }
+  if (take_l) lb[i] = clip(bl, inf);
+  if (take_u) ub[i] = clip(bu, inf);
+  if (take_l || take_u) changed[b] = true;
+}
+
+constexpr int kObjThreads = 1024;
+
+// One block per node: thread t sums the objective contributions of columns
+// t, t + 1024, ... from 0.0, each warp reduces by shuffles, then the first
+// warp reduces the 32 warp sums (ref.block_order_sum is this order).  The
+// three predicates are block-wide OR / AND reductions.
+__global__ void __launch_bounds__(kObjThreads)
+node_objective_kernel(const double* __restrict__ lb, const double* __restrict__ ub,
+                      const double* __restrict__ c, const bool* __restrict__ is_int,
+                      const bool* __restrict__ valid, double* __restrict__ obj,
+                      bool* __restrict__ fixed, bool* __restrict__ crossed, int64_t n_pad,
+                      double feas_eps, double inf) {
+  __shared__ double warp_sums[kObjThreads / kWarp];
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * n_pad;
+  double acc = 0.0;
+  int unbounded = 0, loose = 0, cross = 0;
+  for (int64_t j = threadIdx.x; j < n_pad; j += kObjThreads) {
+    if (!valid[j]) continue;  // invalid columns add 0.0 and flag nothing
+    const double cj = c[j], l = lb[row + j], u = ub[row + j];
+    if (cj != 0.0) acc += cj > 0.0 ? cj * l : cj * u;
+    unbounded |= (cj > 0.0 && l <= -inf) || (cj < 0.0 && u >= inf);
+    loose |= is_int[j] && !(u - l <= 0.5);
+    cross |= l > u + feas_eps;
+  }
+  acc = warp_sum(acc);
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  if (lane == 0) warp_sums[warp] = acc;
+  unbounded = __syncthreads_or(unbounded);
+  loose = __syncthreads_or(loose);
+  cross = __syncthreads_or(cross);
+  if (warp == 0) {
+    const double total = warp_sum(warp_sums[lane]);
+    if (lane == 0) {
+      obj[blockIdx.x] = unbounded ? -inf : total;
+      fixed[blockIdx.x] = !loose;
+      crossed[blockIdx.x] = cross != 0;
+    }
+  }
+}
+
+// Blocks that cover n_chunks chunks of k slots, 32 / G chunks per warp.
+unsigned int chunk_blocks(int64_t n_chunks, int k) {
+  const int64_t per_block = static_cast<int64_t>(kWarpsPerBlock) * (kWarp / group_width(k));
+  return static_cast<unsigned int>((n_chunks + per_block - 1) / per_block);
+}
+
+// Launch KERNEL<G> for the group width of k slots, with ARGS.
+#define LAUNCH_FOR_WIDTH(KERNEL, k, n_chunks, stream, ...)                              \
+  do {                                                                                \
+    const unsigned int blocks_ = chunk_blocks(n_chunks, k);                           \
+    switch (group_width(k)) {                                                         \
+      case 1: KERNEL<1><<<blocks_, kThreads, 0, stream>>>(__VA_ARGS__); break;        \
+      case 2: KERNEL<2><<<blocks_, kThreads, 0, stream>>>(__VA_ARGS__); break;        \
+      case 4: KERNEL<4><<<blocks_, kThreads, 0, stream>>>(__VA_ARGS__); break;        \
+      case 8: KERNEL<8><<<blocks_, kThreads, 0, stream>>>(__VA_ARGS__); break;        \
+      case 16: KERNEL<16><<<blocks_, kThreads, 0, stream>>>(__VA_ARGS__); break;      \
+      default: KERNEL<32><<<blocks_, kThreads, 0, stream>>>(__VA_ARGS__); break;      \
+    }                                                                                 \
+  } while (0)
 
 }  // namespace
 
@@ -231,16 +417,16 @@ int fused_scatter_round(const double* val, const int* col, const int* ii, const 
                         const double* rhs, const double* lb, const double* ub, double* best_l,
                         double* best_u, int64_t n_chunks, int k, double int_eps, double inf,
                         cudaStream_t stream) {
-  fused_scatter_round_kernel<<<chunk_blocks(n_chunks), kThreads, 0, stream>>>(
-      val, col, ii, lhs, rhs, lb, ub, best_l, best_u, n_chunks, k, int_eps, inf);
+  LAUNCH_FOR_WIDTH(fused_scatter_round_kernel, k, n_chunks, stream, val, col, ii, lhs, rhs, lb,
+                   ub, best_l, best_u, n_chunks, k, int_eps, inf);
   return static_cast<int>(cudaGetLastError());
 }
 
 int activities_gather(const double* val, const int* col, const double* lb, const double* ub,
                       double* mf, int* mc, double* xf, int* xc, int64_t n_chunks, int k,
                       double inf, cudaStream_t stream) {
-  activities_gather_kernel<<<chunk_blocks(n_chunks), kThreads, 0, stream>>>(
-      val, col, lb, ub, mf, mc, xf, xc, n_chunks, k, inf);
+  LAUNCH_FOR_WIDTH(activities_gather_kernel, k, n_chunks, stream, val, col, lb, ub, mf, mc, xf,
+                   xc, n_chunks, k, inf);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -249,9 +435,8 @@ int candidates_scatter(const double* val, const int* col, const int* ii, const d
                        const double* rhs, const double* lb, const double* ub, double* best_l,
                        double* best_u, int64_t n_chunks, int k, double int_eps, double inf,
                        cudaStream_t stream) {
-  candidates_scatter_kernel<<<chunk_blocks(n_chunks), kThreads, 0, stream>>>(
-      val, col, ii, rmf, rmc, rxf, rxc, lhs, rhs, lb, ub, best_l, best_u, n_chunks, k, int_eps,
-      inf);
+  LAUNCH_FOR_WIDTH(candidates_scatter_kernel, k, n_chunks, stream, val, col, ii, rmf, rmc, rxf,
+                   rxc, lhs, rhs, lb, ub, best_l, best_u, n_chunks, k, int_eps, inf);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -261,6 +446,43 @@ int apply_updates(double* lb, double* ub, const double* best_l, const double* be
   const unsigned int blocks = static_cast<unsigned int>((n + kThreads - 1) / kThreads);
   apply_updates_kernel<<<blocks, kThreads, 0, stream>>>(lb, ub, best_l, best_u, changed, n, eps,
                                                         inf, outward);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int combine_chunk_partials(const double* mf, const int* mc, const double* xf, const int* xc,
+                           const int64_t* row_start, double* omf, int* omc, double* oxf,
+                           int* oxc, int64_t n_seg, cudaStream_t stream) {
+  const unsigned int blocks = static_cast<unsigned int>((n_seg + kThreads - 1) / kThreads);
+  combine_chunk_partials_kernel<<<blocks, kThreads, 0, stream>>>(mf, mc, xf, xc, row_start, omf,
+                                                                 omc, oxf, oxc, n_seg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int node_fused_scatter_round(const double* val, const int* col, const int* ii, const double* lhs,
+                             const double* rhs, const double* lb, const double* ub,
+                             const bool* active, double* best_l, double* best_u,
+                             int64_t n_chunks, int k, int64_t bsz, int64_t n_pad,
+                             double int_eps, double inf, cudaStream_t stream) {
+  LAUNCH_FOR_WIDTH(node_fused_scatter_round_kernel, k, n_chunks, stream, val, col, ii, lhs, rhs,
+                   lb, ub, active, best_l, best_u, n_chunks, k, bsz, n_pad, int_eps, inf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int apply_updates_batch(double* lb, double* ub, const double* best_l, const double* best_u,
+                        const bool* active, bool* changed, int64_t bsz, int64_t n_pad,
+                        double eps, double inf, double outward, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned int>((n_pad + kThreads - 1) / kThreads),
+                  static_cast<unsigned int>(bsz));
+  apply_updates_batch_kernel<<<grid, kThreads, 0, stream>>>(lb, ub, best_l, best_u, active,
+                                                            changed, n_pad, eps, inf, outward);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int node_objective(const double* lb, const double* ub, const double* c, const bool* is_int,
+                   const bool* valid, double* obj, bool* fixed, bool* crossed, int64_t bsz,
+                   int64_t n_pad, double feas_eps, double inf, cudaStream_t stream) {
+  node_objective_kernel<<<static_cast<unsigned int>(bsz), kObjThreads, 0, stream>>>(
+      lb, ub, c, is_int, valid, obj, fixed, crossed, n_pad, feas_eps, inf);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -34,6 +34,10 @@ SIGNATURES = {
     "activities_gather": [P] * 8 + [I64, I32, F64, P],
     "candidates_scatter": [P] * 13 + [I64, I32, F64, F64, P],
     "apply_updates": [P] * 5 + [I64, F64, F64, F64, P],
+    "combine_chunk_partials": [P] * 9 + [I64, P],
+    "node_fused_scatter_round": [P] * 10 + [I64, I32, I64, I64, F64, F64, P],
+    "apply_updates_batch": [P] * 6 + [I64, I64, F64, F64, F64, P],
+    "node_objective": [P] * 8 + [I64, I64, F64, F64, P],
 }
 
 _lock = threading.Lock()

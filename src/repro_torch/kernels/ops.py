@@ -1,4 +1,6 @@
-"""The single-instance block-ELL propagation engine over the round kernels.
+"""The block-ELL propagation engines over the round kernels: one instance
+(``propagate_block_ell``) and a batch of nodes sharing one matrix
+(``propagate_nodes_prepared``).
 
 The kernel-backed sibling of ``core.propagator``; both share the bound-update
 semantics so they converge to the same fixed points.
@@ -8,8 +10,11 @@ semantics so they converge to the same fixed points.
     ``lhs1[chunk_row]``, ``rhs1[chunk_row]``).
   * The ``"fused"`` round: rows that fit one chunk run kernel D (gather,
     activities, candidates, column max/min) then kernel F (merge, in place);
-    rows that span chunks run kernel A' (chunk partials), a segment sum of the
-    (T, R) partials over rows, kernel E (candidates + column max/min), then F.
+    rows that span chunks run kernel A' (chunk partials), the combine kernel
+    (each row's partials summed left to right), kernel E (candidates +
+    column max/min), then F.
+  * The node round: kernel #10 then the batched merge #9 where rows fit one
+    chunk, else the single-instance round per node, masked.
   * The fixed point runs on private copies of the cached initial bounds, so
     F's in-place merge never touches the cache.
 
@@ -30,6 +35,7 @@ import torch
 from ..core import bounds as bnd
 from ..core.propagator import (
     _result,
+    batched_fixed_point,
     check_dtype,
     fixed_point,
     not_ported,
@@ -38,7 +44,6 @@ from ..core.propagator import (
 )
 from ..core.sparse import Problem, col_pad, csr_to_block_ell
 from ..core.types import DEFAULT_CONFIG, PropagationResult, PropagatorConfig
-from ..core.activities import segment_sum
 from . import prop_round as kern
 from . import ref as kref
 
@@ -152,6 +157,7 @@ class PreparedBlockEll:
     rhs_g: torch.Tensor  # (T, R): rhs1[chunk_row], hoisted
     lb0: torch.Tensor    # (n_pad,) default initial bounds (column-padded)
     ub0: torch.Tensor    # (n_pad,)
+    row_start: torch.Tensor  # (m+2,) int64: first chunk of each row, padding row m too
     m: int
     n: int
     n_pad: int
@@ -217,6 +223,10 @@ def prepare_block_ell(
         rhs_g=d.rhs1[crow],
         lb0=torch.zeros(n_pad, dtype=dt, device=dev),
         ub0=torch.zeros(n_pad, dtype=dt, device=dev),
+        row_start=torch.searchsorted(
+            d.chunk_row.reshape(-1),
+            torch.arange(p.m + 2, dtype=d.chunk_row.dtype, device=dev),
+        ),
         m=p.m,
         n=p.n,
         n_pad=n_pad,
@@ -233,38 +243,46 @@ def clear_prepare_cache() -> None:
     _prep_cache.clear()
 
 
-def _combine_chunk_partials(prep: PreparedBlockEll, mf, mc, xf, xc):
-    """Chunk partials -> completed per-chunk row aggregates (long rows): a
-    segment sum over the m + 1 rows (padding chunks carry row m), gathered
-    back per chunk.  On the GPU ``index_add_`` sums in no fixed order, so for
-    rows of three or more chunks the float sums may differ in the last bits
-    from run to run (exact on integer-valued data)."""
-    crow = prep.d.chunk_row.reshape(-1).long()
-    g = lambda x: segment_sum(x.reshape(-1), crow, prep.m + 1)[crow].reshape(x.shape)
-    return g(mf), g(mc), g(xf), g(xc)
-
-
 class RoundOps(NamedTuple):
-    """The four functions of a round: the kernel wrappers, or their plain
+    """The functions of a round: the kernel wrappers, or their plain
     PyTorch versions."""
 
     fused: Callable       # D: tiles + bounds -> (best_l, best_u)
     activities: Callable  # A': tiles + bounds -> chunk partials
+    combine: Callable     # chunk partials -> completed row aggregates
     candidates: Callable  # E: tiles + row aggregates + bounds -> (best_l, best_u)
     merge: Callable       # F: (lb, ub, best_l, best_u, eps, inf, outward) -> (lb, ub, changed)
+    node_fused: Callable  # #10: tiles + (B, n_pad) planes + active -> (best_l, best_u)
+    merge_batch: Callable  # #9: (lb, ub, best_l, best_u, active, eps, inf, outward)
+
+
+def _plain_node_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, int_eps, inf):
+    return kref.node_fused_scatter_round_ref(
+        val, col, is_int_g, lhs_g, rhs_g, lb, ub, n_pad, int_eps, inf, active=active
+    )
+
+
+def _plain_merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward=0.0):
+    return bnd.apply_updates_batch(lb, ub, best_l, best_u, eps, inf, outward, active=active)
 
 
 KERNEL_OPS = RoundOps(
     kern.fused_scatter_round_tiles,
     kern.activities_gather_tiles,
+    kern.combine_chunk_partials_tiles,
     kern.candidates_scatter_tiles,
     kern.apply_updates_tiles,
+    kern.node_fused_scatter_round_tiles,
+    kern.apply_updates_batch_tiles,
 )
 PLAIN_OPS = RoundOps(
     kref.fused_scatter_round_tiles_ref,
     kref.activities_gather_tiles_ref,
+    kref.combine_chunk_partials_ref,
     kref.candidates_scatter_tiles_ref,
     bnd.apply_updates,
+    _plain_node_fused,
+    _plain_merge_batch,
 )
 
 
@@ -289,10 +307,11 @@ def _prepared_round(
             d.val, d.col, prep.ii_g, prep.lhs_g, prep.rhs_g, lb, ub, prep.n_pad, int_eps, inf,
         )
     else:
-        # Long rows: chunk partials -> segment combine of the (T, R)
-        # aggregates -> candidates + column reduction.
+        # Long rows: chunk partials -> each row's partials summed left to
+        # right (one fixed order on every device, so a node's round equals
+        # its single-instance round bitwise) -> candidates + column reduction.
         partials = ops.activities(d.val, d.col, lb, ub, prep.n_pad, inf)
-        rmf, rmc, rxf, rxc = _combine_chunk_partials(prep, *partials)
+        rmf, rmc, rxf, rxc = ops.combine(*partials, d.chunk_row, prep.row_start)
         best_l, best_u = ops.candidates(
             d.val, d.col, prep.ii_g, rmf, rmc, rxf, rxc,
             prep.lhs_g, prep.rhs_g, lb, ub, prep.n_pad, int_eps, inf,
@@ -395,6 +414,145 @@ def propagate_block_ell(
     lb, ub = _initial_padded_bounds(prep, lb0, ub0)
     lb, ub, rounds, changed, prog = fixed_point(round_fn, lb, ub, cfg.max_rounds, on_sync)
     return _result(lb[: prep.n], ub[: prep.n], rounds, changed, prog, cfg.feas_eps)
+
+
+# ---------------------------------------------------------------------------
+# Node-batch engine: one shared matrix, many bound planes (tree search)
+# ---------------------------------------------------------------------------
+
+
+def _node_round(
+    prep: PreparedBlockEll, lb, ub, active, *, ops: RoundOps, eps: float,
+    int_eps: float, inf: float, outward: float = 0.0,
+):
+    """One round over a node batch: ``(B, n_pad)`` per-node bounds + ``(B,)``
+    active mask -> updated bounds + per-node changed flags, the matrix tiles
+    shared by every node.
+
+    Rows that fit one chunk run kernel #10 then the batched merge #9, which
+    skip inactive nodes on the device.  Otherwise each node runs the
+    single-instance round (A', combine, E, F) on copies of its rows, and the
+    results of inactive nodes are masked out afterwards, as the reference's
+    vmapped round does -- no node is picked on the host."""
+    if prep.fits_one_chunk:
+        d = prep.d
+        best_l, best_u = ops.node_fused(
+            d.val, d.col, prep.ii_g, prep.lhs_g, prep.rhs_g, lb, ub, active,
+            prep.n_pad, int_eps, inf,
+        )
+        return ops.merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward)
+    rows = [
+        _prepared_round(
+            prep, lb[b].clone(), ub[b].clone(), ops=ops, eps=eps, int_eps=int_eps,
+            inf=inf, fused=False, outward=outward,
+        )
+        for b in range(lb.shape[0])
+    ]
+    new_lb = torch.stack([r[0] for r in rows])
+    new_ub = torch.stack([r[1] for r in rows])
+    changed = torch.stack([r[2] for r in rows])
+    keep = active[:, None]
+    return torch.where(keep, new_lb, lb), torch.where(keep, new_ub, ub), changed & active
+
+
+def node_round_fn_for(
+    prep: PreparedBlockEll, cfg: PropagatorConfig = DEFAULT_CONFIG, use_kernels: bool = True
+):
+    """A ``(lb, ub, active) -> (lb, ub, changed)`` node-batch round closure
+    over a prepared instance (bounds ``(B, n_pad)``).  With kernels the
+    planes are updated in place where rows fit one chunk."""
+    if prep.n_pad > SCATTER_MAX_NPAD:
+        not_ported(
+            f"node batches at n_pad={prep.n_pad} > {SCATTER_MAX_NPAD} (the partitioned "
+            "node kernels)", "item 9 (partitioned engine)",
+        )
+    dt = prep.d.val.dtype
+    eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
+    ops = KERNEL_OPS if use_kernels else PLAIN_OPS
+
+    def round_fn(lb, ub, active):
+        return _node_round(
+            prep, lb, ub, active, ops=ops, eps=eps, int_eps=cfg.int_eps, inf=cfg.inf,
+            outward=outward,
+        )
+
+    return round_fn
+
+
+def node_batch_runner(
+    prep: PreparedBlockEll,
+    batch_size: int,
+    cfg: PropagatorConfig = DEFAULT_CONFIG,
+    use_kernels: bool = True,
+    on_sync: Callable[[], None] | None = None,
+):
+    """The node batch's whole fixed point as one function: ``run(lb0, ub0)
+    -> (lb, ub, rounds, converged, infeasible, progress)`` over ``(B,
+    n_pad)`` planes, the node axis leading everywhere.  PyTorch runs
+    eagerly, so nothing is compiled or cached here; the prepared tiles are
+    (see :func:`cache_info`).  ``on_sync`` is called once per host read of
+    the loop's exit flag (one per round)."""
+    round_fn = node_round_fn_for(prep, cfg, use_kernels)
+    col_valid = torch.arange(prep.n_pad, device=prep.lb0.device) < prep.n
+
+    def run(lb0, ub0):
+        if lb0.shape[0] != batch_size:
+            raise ValueError(f"runner for {batch_size} nodes got {lb0.shape[0]}")
+        lb, ub, rounds, converged, progress = batched_fixed_point(
+            round_fn, lb0, ub0, cfg.max_rounds, with_progress=True, on_sync=on_sync
+        )
+        infeasible = ((lb > ub + cfg.feas_eps) & col_valid[None, :]).any(dim=-1)
+        return lb, ub, rounds, converged, infeasible, progress
+
+    return run
+
+
+def _node_planes(prep: PreparedBlockEll, lb_nodes, ub_nodes):
+    """``(B, n)`` caller planes -> private column-padded ``(B, n_pad)``
+    tensors on the prepared device."""
+    dev, dt = prep.lb0.device, prep.lb0.dtype
+    lb_t = torch.as_tensor(lb_nodes, dtype=dt, device=dev)
+    ub_t = torch.as_tensor(ub_nodes, dtype=dt, device=dev)
+    if lb_t.ndim != 2 or lb_t.shape != ub_t.shape:
+        raise ValueError(
+            f"node bound planes must share a (B, n) shape, got "
+            f"{tuple(lb_t.shape)} / {tuple(ub_t.shape)}"
+        )
+    bsz, n = lb_t.shape
+    if n != prep.n:
+        raise ValueError(f"node bounds have n={n}, instance has n={prep.n}")
+    planes = []
+    for t in (lb_t, ub_t):
+        out = torch.zeros((bsz, prep.n_pad), dtype=dt, device=dev)
+        out[:, :n] = t
+        planes.append(out)
+    return planes
+
+
+def propagate_nodes_prepared(
+    prep: PreparedBlockEll,
+    lb_nodes,
+    ub_nodes,
+    cfg: PropagatorConfig = DEFAULT_CONFIG,
+    use_kernels: bool = True,
+    with_progress: bool = False,
+    on_sync: Callable[[], None] | None = None,
+):
+    """Run B warm-started nodes of one prepared instance to their fixed
+    points together.
+
+    ``lb_nodes``/``ub_nodes`` are ``(B, n)`` per-node bound planes (numpy or
+    tensors; the matrix tiles stay resident once).  Returns ``(lb, ub,
+    rounds, converged, infeasible)`` with the node axis leading
+    (``with_progress=True`` appends the ``(B,)`` last-round progress
+    measure); ``infeasible`` marks nodes whose domain emptied.  Each node's
+    result is exactly what its own single-instance warm-started
+    ``propagate_block_ell`` run gives, round counts included."""
+    lb0, ub0 = _node_planes(prep, lb_nodes, ub_nodes)
+    run = node_batch_runner(prep, lb0.shape[0], cfg, use_kernels, on_sync)
+    lb, ub, rounds, converged, infeasible, progress = run(lb0, ub0)
+    out = (lb[:, : prep.n], ub[:, : prep.n], rounds, converged, infeasible)
+    return out + (progress,) if with_progress else out
 
 
 def cache_info() -> dict:

@@ -1,7 +1,9 @@
-"""The four kernels of the fused propagation round, behind PyTorch wrappers.
+"""The kernels of the fused propagation round, of its node-batch form and of
+the solver's node objective, behind PyTorch wrappers.
 
-Each wrapper keeps the signature of its Pallas twin in the JAX package
-(``src/repro/kernels/prop_round.py``) minus ``interpret`` and ``block``.  On
+Each wrapper of a TPU kernel keeps the signature of its Pallas twin in the
+JAX package (``src/repro/kernels/prop_round.py``) minus ``interpret`` and
+``block``; the long-row combine replaces an XLA segment sum.  On
 a CPU tensor it runs the kernel's plain-PyTorch version (``ref.py``); on a
 CUDA tensor it launches the hand-written Hopper kernel of
 ``csrc/prop_round.cu`` on the current stream, or raises -- it never falls
@@ -11,8 +13,9 @@ back.  Each wrapper counts its kernel launches in a plain integer attribute,
 Layout of the tile arguments: ``val`` (T, R, K) float64 with 0 at padding,
 ``col`` (T, R, K) int32 with every id in ``[0, n_pad)``, ``is_int_g``
 (T, R, K) int32 integrality of each slot's column, per-chunk sides and row
-aggregates (T, R), bound vectors (n_pad,) float64.  All contiguous, all on
-one device.
+aggregates (T, R), bound vectors (n_pad,) float64; node batches carry
+(B, n_pad) float64 planes and a (B,) bool ``active`` mask.  All contiguous,
+all on one device.
 """
 from __future__ import annotations
 
@@ -83,8 +86,9 @@ def fused_scatter_round_tiles(
     slot (8 B; its zeros mark the padding), ``col`` and ``is_int_g`` for
     each nonzero only (8 B); the bound vectors (2 x 8 B x n_pad) stay in
     L2.  Design:
-    one warp per chunk, lanes on consecutive slots (coalesced), row sums by
-    warp shuffle, the one-hot gather of the TPU kernel as an indexed load and
+    a group of lanes per chunk (K rounded up to a power of two, at most a
+    warp: four chunks per warp at K = 8), lanes on consecutive slots
+    (coalesced), row sums by shuffles in the group, the one-hot gather of the TPU kernel as an indexed load and
     its one-hot scatter as a float64 atomic max/min that padding and
     sentinel candidates skip.  The accumulators are filled with the sentinel
     before the launch, since blocks run in no order."""
@@ -122,9 +126,9 @@ def activities_gather_tiles(val, col, lb, ub, n_pad: int, inf: float = INF):
     Replaces ``activities_gather_tiles`` / ``_activities_gather_kernel``
     (src/repro/kernels/prop_round.py:269 / :252).  Bound on the H100: the
     bytes of the tile stream (8 B of ``val`` per padded slot, 4 B of ``col``
-    per nonzero).  Design: one
-    warp per chunk, indexed bound loads, warp-shuffle sums; lane 0 writes
-    the chunk's four partials."""
+    per nonzero).  Design: kernel D's
+    lane group per chunk, indexed bound loads, shuffle sums; the group's
+    first lane writes the chunk's four partials."""
     if not _on_cuda(val, col, lb, ub):
         return ref.activities_gather_tiles_ref(val, col, lb, ub, n_pad, inf)
     n_chunks, k = _check_tiles(val, col, lb, ub, n_pad)
@@ -228,11 +232,196 @@ def apply_updates_tiles(lb, ub, best_l, best_u, eps: float, inf: float = INF, ou
 apply_updates_tiles.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# The long-row combine: chunk partials -> completed row aggregates
+# ---------------------------------------------------------------------------
+
+
+def combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start):
+    """Kernel A' partials ``(T, R)`` -> each chunk's completed row aggregates
+    ``(T, R)``: every row's partials summed left to right over its adjacent
+    chunks (``row_start`` ``(m + 2,)`` int64: each row's first chunk, the
+    padding row ``m`` included).
+
+    Replaces the XLA ``segment_sum`` of the reference's
+    ``_combine_chunk_partials`` (src/repro/kernels/ops.py:821), not a Pallas
+    kernel: an atomic segment sum has no fixed order on the card.  Bound on
+    the H100: 48 B per chunk (four partials read, four aggregates written).
+    Design: one thread per row walks its chunks in stream order, twice (sum,
+    then write back)."""
+    operands = (mf, mc, xf, xc, chunk_row, row_start)
+    if not _on_cuda(*operands):
+        return ref.combine_chunk_partials_ref(mf, mc, xf, xc, chunk_row, row_start)
+    shape = tuple(mf.shape)
+    for name, t, dt in (("mf", mf, torch.float64), ("mc", mc, torch.int32),
+                        ("xf", xf, torch.float64), ("xc", xc, torch.int32),
+                        ("chunk_row", chunk_row, torch.int32)):
+        _expect(name, t, dt, shape)
+    _expect("row_start", row_start, torch.int64, (row_start.shape[0],))
+    omf, oxf = torch.empty_like(mf), torch.empty_like(xf)
+    omc, oxc = torch.empty_like(mc), torch.empty_like(xc)
+    err = _build.lib().combine_chunk_partials(
+        _p(mf), _p(mc), _p(xf), _p(xc), _p(row_start), _p(omf), _p(omc), _p(oxf),
+        _p(oxc), row_start.shape[0] - 1, _stream(),
+    )
+    combine_chunk_partials_tiles.launches += 1
+    _build.check(err, "combine_chunk_partials")
+    return omf, omc, oxf, oxc
+
+
+combine_chunk_partials_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel #10: kernel D over a node batch (one matrix, B bound planes)
+# ---------------------------------------------------------------------------
+
+
+def _check_planes(bsz: int, n_pad: int, **planes) -> None:
+    for name, t in planes.items():
+        _expect(name, t, torch.float64, (bsz, n_pad))
+
+
+def node_fused_scatter_round_tiles(
+    val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad: int, int_eps: float,
+    inf: float = INF,
+):
+    """Fully fused round over a node batch: ONE instance's ``(T, R, K)``
+    tiles + ``(B, n_pad)`` per-node bound planes + ``(B,)`` bool ``active``
+    mask -> ``(B, n_pad)`` ``best_l`` / ``best_u``.  Per node exactly
+    :func:`fused_scatter_round_tiles`; inactive nodes get sentinel rows.
+    Requires every row to fit its chunk.
+
+    Replaces ``node_fused_scatter_round_tiles`` /
+    ``_node_fused_scatter_kernel`` (src/repro/kernels/prop_round.py:964 /
+    :923).  Bound on the H100: the tile stream once per launch (it fits the
+    50 MB L2 at the solver's sizes), plus each active node's two bound rows
+    read and two accumulator rows written.  Design: kernel D's lane group
+    per chunk; each warp reads the mask on the device, 32 nodes per ballot,
+    and visits the active nodes only, reusing its tile data from L1; the
+    accumulator planes are filled with the sentinel before the launch."""
+    operands = (val, col, is_int_g, lhs_g, rhs_g, lb, ub, active)
+    if not _on_cuda(*operands):
+        return ref.node_fused_scatter_round_ref(
+            val, col, is_int_g, lhs_g, rhs_g, lb, ub, n_pad, int_eps, inf, active=active
+        )
+    t, r, k = val.shape
+    _expect("val", val, torch.float64, (t, r, k))
+    _expect("col", col, torch.int32, (t, r, k))
+    _expect("is_int_g", is_int_g, torch.int32, (t, r, k))
+    _expect("lhs_g", lhs_g, torch.float64, (t, r))
+    _expect("rhs_g", rhs_g, torch.float64, (t, r))
+    bsz = lb.shape[0]
+    _check_planes(bsz, n_pad, lb=lb, ub=ub)
+    _expect("active", active, torch.bool, (bsz,))
+    best_l = torch.full((bsz, n_pad), -inf, dtype=torch.float64, device=val.device)
+    best_u = torch.full((bsz, n_pad), inf, dtype=torch.float64, device=val.device)
+    err = _build.lib().node_fused_scatter_round(
+        _p(val), _p(col), _p(is_int_g), _p(lhs_g), _p(rhs_g), _p(lb), _p(ub), _p(active),
+        _p(best_l), _p(best_u), t * r, k, bsz, n_pad, int_eps, inf, _stream(),
+    )
+    node_fused_scatter_round_tiles.launches += 1
+    _build.check(err, "node_fused_scatter_round")
+    return best_l, best_u
+
+
+node_fused_scatter_round_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel #9: the batched merge, in place, with an active mask
+# ---------------------------------------------------------------------------
+
+MAX_GRID_Y = 65535
+
+
+def apply_updates_batch_tiles(
+    lb, ub, best_l, best_u, active, eps: float, inf: float = INF, outward: float = 0.0
+):
+    """Batched merge with ``bounds.apply_updates_batch`` semantics, IN
+    PLACE: ``(B, n_pad)`` ``lb``/``ub`` are overwritten and returned with a
+    ``(B,)`` bool ``changed``.  Inactive rows are neither read nor written
+    and report unchanged.
+
+    Replaces ``apply_updates_batch_tiles`` / ``_apply_updates_batch_kernel``
+    (src/repro/kernels/prop_round.py:1666 / :1652), whose bound buffers are
+    donated.  Bound on the H100: 48 B per active (node, column).  Design: a
+    (column block, node) grid whose blocks of inactive nodes return at once;
+    every thread that takes a tightening stores ``true`` to its node's flag,
+    which the wrapper zeroes first."""
+    if not _on_cuda(lb, ub, best_l, best_u, active):
+        new_lb, new_ub, changed = bnd.apply_updates_batch(
+            lb, ub, best_l, best_u, eps, inf, outward, active=active
+        )
+        lb.copy_(new_lb)
+        ub.copy_(new_ub)
+        return lb, ub, changed
+    bsz, n_pad = lb.shape
+    if bsz > MAX_GRID_Y:
+        raise ValueError(f"batch of {bsz} rows exceeds the grid's {MAX_GRID_Y}")
+    _check_planes(bsz, n_pad, lb=lb, ub=ub, best_l=best_l, best_u=best_u)
+    _expect("active", active, torch.bool, (bsz,))
+    changed = torch.zeros((bsz,), dtype=torch.bool, device=lb.device)
+    err = _build.lib().apply_updates_batch(
+        _p(lb), _p(ub), _p(best_l), _p(best_u), _p(active), _p(changed), bsz, n_pad,
+        eps, inf, outward, _stream(),
+    )
+    apply_updates_batch_tiles.launches += 1
+    _build.check(err, "apply_updates_batch")
+    return lb, ub, changed
+
+
+apply_updates_batch_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel #16: the solver's node objective and leaf / prune predicates
+# ---------------------------------------------------------------------------
+
+
+def node_objective_tiles(lb, ub, c, is_int, valid, feas_eps: float, inf: float = INF):
+    """Per-node objective bound + leaf/prune predicates: ``(B, n_pad)``
+    planes + ``(n_pad,)`` objective ``c`` (float64) and ``is_int`` /
+    ``valid`` (bool) -> ``(obj, fixed, crossed)``, each ``(B,)``; semantics
+    of ``ref.node_objective_ref``, whose sum takes the kernel's order.
+
+    Replaces ``node_objective_tiles`` / ``_node_objective_kernel``
+    (src/repro/kernels/prop_round.py:1730 / :1711).  Bound on the H100:
+    16 B per (node, column) plus the three shared vectors (10 B per
+    column).  Design: one 1024-thread block per node, strided column loop,
+    warp-shuffle and shared-memory sum, ``__syncthreads_or`` for the
+    flags."""
+    if not _on_cuda(lb, ub, c, is_int, valid):
+        return ref.node_objective_ref(lb, ub, c, is_int, valid, feas_eps, inf)
+    bsz, n_pad = lb.shape
+    _check_planes(bsz, n_pad, lb=lb, ub=ub)
+    _expect("c", c, torch.float64, (n_pad,))
+    _expect("is_int", is_int, torch.bool, (n_pad,))
+    _expect("valid", valid, torch.bool, (n_pad,))
+    obj = torch.empty((bsz,), dtype=torch.float64, device=lb.device)
+    fixed = torch.empty((bsz,), dtype=torch.bool, device=lb.device)
+    crossed = torch.empty((bsz,), dtype=torch.bool, device=lb.device)
+    err = _build.lib().node_objective(
+        _p(lb), _p(ub), _p(c), _p(is_int), _p(valid), _p(obj), _p(fixed), _p(crossed),
+        bsz, n_pad, feas_eps, inf, _stream(),
+    )
+    node_objective_tiles.launches += 1
+    _build.check(err, "node_objective")
+    return obj, fixed, crossed
+
+
+node_objective_tiles.launches = 0
+
+
 KERNELS = (
     fused_scatter_round_tiles,
     activities_gather_tiles,
     candidates_scatter_tiles,
     apply_updates_tiles,
+    combine_chunk_partials_tiles,
+    node_fused_scatter_round_tiles,
+    apply_updates_batch_tiles,
+    node_objective_tiles,
 )
 
 

@@ -34,10 +34,13 @@ WARP = 32
 def warp_order_sum(x):
     """Sum over the last axis in the order of the CUDA kernels' row sums.
 
-    A warp owns a chunk: lane ``l`` adds slots ``l, l + 32, l + 64, ...`` in
-    turn, then a butterfly of shuffles halves the lanes (``l + 16``, then
-    ``l + 8``, ... ``l + 1``).  Fixing this order makes kernel and plain
-    version round alike on any data, not only where the sums are exact."""
+    As if a warp owned a chunk: lane ``l`` adds slots ``l, l + 32, l + 64,
+    ...`` in turn, then a butterfly of shuffles halves the lanes (``l + 16``,
+    then ``l + 8``, ... ``l + 1``).  The kernels give a chunk of K <= 16
+    slots fewer lanes (K rounded up to a power of two); the lanes they drop
+    would only add +0.0, so the sum is the same.  Fixing this order makes
+    kernel and plain version round alike on any data, not only where the
+    sums are exact."""
     pad = (-x.shape[-1]) % WARP
     if pad:
         x = torch.nn.functional.pad(x, (0, pad))
@@ -199,3 +202,144 @@ def candidates_scatter_tiles_ref(
         lhs_g, rhs_g, int_eps, inf,
     )
     return scatter_round_ref(lcand, ucand, col, n_pad, inf)
+
+
+# ---------------------------------------------------------------------------
+# Long-row combine: chunk partials -> completed row aggregates, fixed order
+# ---------------------------------------------------------------------------
+
+
+def combine_chunk_partials_ref(mf, mc, xf, xc, chunk_row, row_start):
+    """Oracle of the long-row combine: each row's ``(T, R)`` chunk partials
+    summed LEFT TO RIGHT over the row's chunks, which lie next to each other
+    in the stream (``row_start`` ``(m + 2,)`` int64 holds each row's first
+    chunk, padding row ``m`` included), starting from 0, then gathered back
+    per chunk.  One fixed order on every device, so the combine kernel
+    matches it bitwise; rows that ran out of chunks add 0, which leaves a
+    sum started from +0.0 unchanged."""
+    start = row_start[:-1]
+    count = row_start[1:] - start
+    fl = torch.stack([mf.reshape(-1), xf.reshape(-1)])
+    it = torch.stack([mc.reshape(-1), xc.reshape(-1)])
+    acc_f = torch.zeros((2, start.shape[0]), dtype=fl.dtype, device=fl.device)
+    acc_i = torch.zeros((2, start.shape[0]), dtype=it.dtype, device=it.device)
+    for j in range(int(count.max())):
+        has = count > j
+        idx = torch.where(has, start + j, 0)
+        acc_f = acc_f + torch.where(has, fl[:, idx], 0.0)
+        acc_i = acc_i + torch.where(has, it[:, idx], 0)
+    crow = chunk_row.reshape(-1).long()
+    shape = mf.shape
+    return (acc_f[0, crow].reshape(shape), acc_i[0, crow].reshape(shape),
+            acc_f[1, crow].reshape(shape), acc_i[1, crow].reshape(shape))
+
+
+# ---------------------------------------------------------------------------
+# Node batches: one matrix, many bound planes
+# ---------------------------------------------------------------------------
+
+
+def node_fused_scatter_round_ref(
+    val, col, is_int_g, lhs_g, rhs_g, lb, ub, n_pad: int,
+    int_eps: float, inf: float = INF, active=None,
+):
+    """Kernel #10 oracle: ONE instance's ``(T, R, K)`` tiles over ``(B,
+    n_pad)`` bound planes -> ``(B, n_pad)`` best_l / best_u.  Per node this
+    is exactly :func:`fused_scatter_round_tiles_ref`.  ``active`` (``(B,)``
+    bool) leaves the rows of inactive nodes at the sentinel identities; only
+    active rows are computed, one at a time (reading the mask on the host)."""
+    bsz = lb.shape[0]
+    best_l = torch.full((bsz, n_pad), -inf, dtype=lb.dtype, device=lb.device)
+    best_u = torch.full((bsz, n_pad), inf, dtype=ub.dtype, device=ub.device)
+    rows = range(bsz) if active is None else active.nonzero().flatten().tolist()
+    for b in rows:
+        best_l[b], best_u[b] = fused_scatter_round_tiles_ref(
+            val, col, is_int_g, lhs_g, rhs_g, lb[b], ub[b], n_pad, int_eps, inf
+        )
+    return best_l, best_u
+
+
+# ---------------------------------------------------------------------------
+# Solver oracles: node objective bound, branch selection, incumbent update
+# ---------------------------------------------------------------------------
+
+# Threads of the node-objective kernel's block (one block per node).
+OBJ_BLOCK = 1024
+
+
+def block_order_sum(x):
+    """Sum over the last axis in the order of the node-objective kernel:
+    thread ``t`` adds columns ``t, t + 1024, ...`` to 0.0 in turn, each warp
+    reduces its 32 sums by the shuffle butterfly of :func:`warp_order_sum`,
+    and the first warp reduces the 32 warp sums the same way."""
+    lead = x.shape[:-1]
+    pad = (-x.shape[-1]) % OBJ_BLOCK
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    x = x.reshape(*lead, -1, OBJ_BLOCK)
+    acc = torch.zeros((*lead, OBJ_BLOCK), dtype=x.dtype, device=x.device)
+    for j in range(x.shape[-2]):
+        acc = acc + x[..., j, :]
+    return warp_order_sum(warp_order_sum(acc.reshape(*lead, OBJ_BLOCK // WARP, WARP)))
+
+
+def node_objective_ref(lb, ub, c, is_int, valid, feas_eps: float, inf: float = INF):
+    """Kernel #16 oracle: per-node objective lower bound + leaf/prune
+    predicates.
+
+    ``lb``/``ub`` ``(B, n_pad)``; ``c`` ``(n_pad,)`` minimization objective;
+    ``is_int``/``valid`` ``(n_pad,)`` bool.  Returns ``(obj, fixed,
+    crossed)``, each ``(B,)``: the domain-relaxation bound ``sum_j c_j lb_j``
+    (``c_j > 0``) or ``c_j ub_j`` (``c_j < 0``), summed in the kernel's
+    order (:func:`block_order_sum`) and the ``-inf`` sentinel if any
+    contributing bound is infinite; ``fixed``: every valid integer column
+    has ``ub - lb <= 0.5``; ``crossed``: some valid column has ``lb > ub +
+    feas_eps``."""
+    v = valid[None, :]
+    cb = c[None, :]
+    contrib = torch.where(cb > 0, cb * lb, cb * ub)
+    contrib = torch.where(v & (cb != 0), contrib, 0.0)
+    unbounded = v & (((cb > 0) & (lb <= -inf)) | ((cb < 0) & (ub >= inf)))
+    total = block_order_sum(contrib)
+    obj = torch.where(unbounded.any(dim=-1), torch.full_like(total, -inf), total)
+    fixed = (~(v & is_int[None, :]) | (ub - lb <= 0.5)).all(dim=-1)
+    crossed = ((lb > ub + feas_eps) & v).any(dim=-1)
+    return obj, fixed, crossed
+
+
+def most_fractional_ref(lb, ub, is_int, valid):
+    """Most-fractional branching over ``(B, n_pad)`` planes: among valid
+    unfixed integer columns (``ub - lb > 0.5``) the one whose domain
+    midpoint is farthest from an integer, ties to the lowest column.
+    Returns ``(var, has)``; ``var`` is 0 where ``has`` is False."""
+    cand = valid[None, :] & is_int[None, :] & (ub - lb > 0.5)
+    mid = 0.5 * (lb + ub)
+    frac = mid - torch.floor(mid)
+    score = torch.where(cand, 0.5 - (frac - 0.5).abs(), -1.0)
+    return score.argmax(dim=-1), cand.any(dim=-1)
+
+
+def pseudo_cost_select_ref(lb, ub, is_int, valid, pc_sum, pc_cnt, prior: float = 1e-4):
+    """Pseudo-cost branching over ``(B, n_pad)`` planes: the product of the
+    two directions' average bound gains (``(2, n_pad)`` sums and counts,
+    direction 0 = down) plus ``prior``; candidates and ties as
+    :func:`most_fractional_ref`.  Returns ``(var, has)``."""
+    cand = valid[None, :] & is_int[None, :] & (ub - lb > 0.5)
+    avg_d = pc_sum[0] / pc_cnt[0].clamp_min(1.0)
+    avg_u = pc_sum[1] / pc_cnt[1].clamp_min(1.0)
+    score = (avg_d + prior) * (avg_u + prior)
+    score = torch.where(cand, score[None, :], -1.0)
+    return score.argmax(dim=-1), cand.any(dim=-1)
+
+
+def incumbent_update_ref(leaf, obj, inc, inc_x, lb, inf: float = INF):
+    """Incumbent update: the best ``leaf`` node's objective (``min`` and
+    first-index ``argmin``) replaces the 0-d incumbent ``inc`` and its
+    ``lb`` row the ``(n_pad,)`` solution ``inc_x`` on strict improvement.
+    Returns ``(inc, inc_x, improved)``."""
+    leaf_obj = torch.where(leaf, obj, torch.full_like(obj, inf))
+    best = leaf_obj.min()
+    improved = best < inc
+    inc_new = torch.where(improved, best, inc)
+    x_new = torch.where(improved, lb[leaf_obj.argmin()], inc_x)
+    return inc_new, x_new, improved

@@ -176,3 +176,18 @@ def test_device_block_ell_layout_matches_reference():
     assert (prep_t.m, prep_t.n, prep_t.n_pad, prep_t.fits_one_chunk) == (
         prep_r.m, prep_r.n, prep_r.n_pad, prep_r.fits_one_chunk
     )
+
+
+@pytest.mark.parametrize("tile_rows,tile_width", [(4, 16), (8, 4), (2, 1)])
+def test_row_start_marks_each_rows_first_chunk(tile_rows, tile_width):
+    """``row_start`` (read off the chunk stream) holds each row's first chunk
+    by the layout rule: ceil(len / K) chunks per row, one for an empty row,
+    then the padding row m up to the end of the last tile."""
+    pr = rd.make_mixed(m=40, n=30, seed=4)
+    prep = tk.prepare_block_ell(rt.problem_from_reference(pr), tile_rows, tile_width,
+                                device="cpu")
+    lengths = np.diff(pr.csr.row_ptr)
+    per_row = np.maximum(1, -(-lengths // tile_width))
+    total = prep.d.val.shape[0] * tile_rows
+    want = np.concatenate([[0], np.cumsum(per_row), [total]])
+    np.testing.assert_array_equal(prep.row_start.numpy(), want)

@@ -97,7 +97,9 @@ def test_kernels_match_plain_versions(cuda, gen, t, r, k, n, exact):
     assert got[0] is lb and got[1] is ub
     for g, w in zip(got, want):
         _match(g, w)
-    assert tk.launch_counts() == {fn.__name__: 1 for fn in tk.KERNELS}
+    called = {"fused_scatter_round_tiles", "activities_gather_tiles",
+              "candidates_scatter_tiles", "apply_updates_tiles"}
+    assert tk.launch_counts() == {fn.__name__: int(fn.__name__ in called) for fn in tk.KERNELS}
 
 
 def test_wrappers_check_operands(cuda, gen):
@@ -137,3 +139,129 @@ def test_engine_on_card_matches_cpu(cuda, gen_name, kw, tile_width, exact):
         np.testing.assert_array_equal(got.ub.cpu().numpy(), want.ub.numpy())
     else:
         assert rt.bounds_equal(got.lb, got.ub, want.lb, want.ub)
+
+
+def _planes(gen, bsz, n_pad, integer, dev):
+    if integer:
+        lb = gen.integers(-5, 1, size=(bsz, n_pad)).astype(np.float64)
+        ub = gen.integers(0, 6, size=(bsz, n_pad)).astype(np.float64)
+    else:
+        lb, ub = gen.uniform(-5, 0, size=(bsz, n_pad)), gen.uniform(0, 5, size=(bsz, n_pad))
+    lb[gen.random((bsz, n_pad)) < 0.1] = -INF
+    ub[gen.random((bsz, n_pad)) < 0.1] = INF
+    c = lambda x: torch.from_numpy(np.array(x)).to(dev)
+    return c(lb), c(ub)
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("t,r,k,n", SHAPES)
+@pytest.mark.parametrize("bsz", [1, 5])
+def test_node_kernels_match_plain_versions(cuda, gen, t, r, k, n, bsz, exact):
+    x = _tiles(gen, t, r, k, n, exact, cuda)
+    lb, ub = _planes(gen, bsz, x["n_pad"], exact, cuda)
+    for act in (torch.ones(bsz, dtype=torch.bool), torch.arange(bsz) % 2 == 0,
+                torch.zeros(bsz, dtype=torch.bool)):
+        act = act.to(cuda)
+        tk.reset_launch_counts()
+        args = (x["val"], x["col"], x["ii"], x["lhs"], x["rhs"], lb, ub, act, x["n_pad"], 1e-6)
+        got = tk.node_fused_scatter_round_tiles(*args)
+        want = tref.node_fused_scatter_round_ref(*args[:7], x["n_pad"], 1e-6, active=act)
+        for g, w in zip(got, want):
+            _match(g, w)
+        best_l, best_u = want
+        want_m = rt.core.apply_updates_batch(lb, ub, best_l, best_u, 1e-9, active=act)
+        glb, gub = lb.clone(), ub.clone()
+        got_m = tk.apply_updates_batch_tiles(glb, gub, best_l, best_u, act, 1e-9)
+        assert got_m[0] is glb
+        for g, w in zip(got_m, want_m):
+            _match(g, w)
+        counts = tk.launch_counts()
+        assert counts["node_fused_scatter_round_tiles"] == counts["apply_updates_batch_tiles"] == 1
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("bsz,n", [(1, 5), (4, 3000), (3, 60000)])
+def test_node_objective_matches_plain_version(cuda, gen, bsz, n, exact):
+    n_pad = col_pad(n)
+    lb, ub = _planes(gen, bsz, n_pad, exact, cuda)
+    if exact:
+        c = gen.integers(-4, 5, n_pad).astype(np.float64)
+    else:
+        c = gen.standard_normal(n_pad) * 10.0 ** gen.integers(-3, 4, n_pad)
+    valid = np.arange(n_pad) < n
+    c[~valid] = 0.0
+    ub[0] = lb[0]  # a fixed node
+    to = lambda a: torch.from_numpy(np.array(a)).to(cuda)
+    args = (lb, ub, to(c), to(gen.random(n_pad) < 0.7), to(valid), 1e-8)
+    for g, w in zip(tk.node_objective_tiles(*args), tref.node_objective_ref(*args)):
+        _match(g, w)
+
+
+@pytest.mark.parametrize("lengths", [[3, 1, 5, 2], [40, 1, 300, 7]])
+def test_combine_matches_plain_version(cuda, gen, lengths):
+    counts = np.array(lengths)
+    m = len(counts)
+    n_chunks = int(counts.sum()) + 3
+    crow = np.concatenate([np.repeat(np.arange(m), counts), [m] * 3]).astype(np.int32)
+    row_start = np.concatenate([[0], np.cumsum(counts), [n_chunks]]).astype(np.int64)
+    to = lambda a: torch.from_numpy(np.array(a)).to(cuda).reshape(-1, 1)
+    parts = (gen.standard_normal(n_chunks) * 10.0 ** gen.integers(-8, 9, n_chunks),
+             gen.integers(0, 3, n_chunks).astype(np.int32),
+             gen.standard_normal(n_chunks) * 10.0 ** gen.integers(-8, 9, n_chunks),
+             gen.integers(0, 3, n_chunks).astype(np.int32))
+    args = (*map(to, parts), to(crow), to(row_start).reshape(-1))
+    for g, w in zip(tk.combine_chunk_partials_tiles(*args), tref.combine_chunk_partials_ref(*args)):
+        _match(g, w)
+
+
+def _nodes(p, count, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        lb, ub = p.lb.copy(), p.ub.copy()
+        for var in rng.choice(p.n, size=3, replace=False):
+            if p.is_int[var] and lb[var] < ub[var]:
+                down, up = rt.core.branch_children(lb, ub, int(var), lb[var])
+                lb, ub = down if rng.random() < 0.5 else up
+        out.append((lb, ub))
+    return np.stack([a for a, _ in out]), np.stack([b for _, b in out])
+
+
+@pytest.mark.parametrize("gen_name,kw,tile_width", [
+    ("make_pseudo_boolean", dict(n=3000, m=4000, seed=7), 8),
+    ("make_knapsack", dict(n=40, m=10, seed=2), 8),
+    ("make_mixed", dict(m=600, n=450, seed=21), 16),
+])
+def test_nodes_on_card_match_plain_path_and_single_runs(cuda, gen_name, kw, tile_width):
+    p = getattr(td, gen_name)(**kw)
+    lb, ub = _nodes(p, 6)
+    tk.reset_launch_counts()
+    got = rt.propagate_nodes(p, lb, ub, tile_width=tile_width)
+    counts = tk.launch_counts()
+    plain = rt.propagate_nodes(p, lb, ub, tile_width=tile_width, use_kernels=False)
+    if tk.rows_fit_one_chunk(p, tile_width):
+        assert counts["node_fused_scatter_round_tiles"] == int(got.rounds.max())
+    else:
+        assert counts["combine_chunk_partials_tiles"] > 0
+    for f in ("lb", "ub", "rounds", "converged", "infeasible"):
+        _match(getattr(got, f), getattr(plain, f))
+    for i in range(lb.shape[0]):
+        single = rt.propagate_block_ell(p, tile_width=tile_width, lb0=lb[i], ub0=ub[i])
+        _match(got.lb[i], single.lb)
+        _match(got.ub[i], single.ub)
+        assert got.rounds[i].item() == single.rounds.item()
+
+
+def test_solve_on_card_matches_plain_path(cuda):
+    p = td.make_pseudo_boolean(n=40, m=56, seed=3)
+    c = np.arange(1, p.n + 1, dtype=np.float64) * np.where(np.arange(p.n) % 3 == 0, -1.0, 1.0)
+    tk.reset_launch_counts()
+    a = rt.solve(p, c, node_cap=64, max_levels=12)
+    assert tk.launch_counts()["node_objective_tiles"] == a.levels
+    b = rt.solve(p, c, node_cap=64, max_levels=12, use_kernels=False)
+    for f in ("status", "objective", "nodes_expanded", "nodes_created", "leaves",
+              "pruned_bound", "pruned_infeasible", "levels", "host_syncs",
+              "incumbent_trajectory"):
+        assert getattr(a, f) == getattr(b, f), f
+    for x, y in zip(a.carry, b.carry):
+        _match(x, y)

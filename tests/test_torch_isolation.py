@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,7 +19,7 @@ def test_import_loads_no_jax_and_no_reference():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.data, repro_torch.kernels\n"
-        "import repro_torch.kernels._build\n"
+        "import repro_torch.kernels._build, repro_torch.core.nodes, repro_torch.core.solver\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -40,14 +41,23 @@ def test_sources_name_no_jax():
         assert "from repro import" not in text, path
 
 
-@pytest.mark.parametrize("call", ["propagate", "propagate_block_ell", "prepare_block_ell"])
+def _args(call, p):
+    if call == "propagate_nodes":
+        return (p, p.lb[None], p.ub[None])
+    if call == "solve":
+        return (p, np.ones(p.n))
+    return (p,)
+
+
+@pytest.mark.parametrize("call", ["propagate", "propagate_block_ell", "prepare_block_ell",
+                                  "propagate_nodes", "solve"])
 def test_entry_points_default_to_cuda(call):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable here")
     p = td.make_set_cover(n=20, m=8, seed=0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        getattr(rt, call)(p)
-    getattr(rt, call)(p, device="cpu")  # the explicit request runs
+        getattr(rt, call)(*_args(call, p))
+    getattr(rt, call)(*_args(call, p), device="cpu")  # the explicit request runs
 
 
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda():

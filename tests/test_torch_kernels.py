@@ -26,6 +26,7 @@ from repro_torch.kernels import (
     activities_gather_tiles,
     apply_updates_tiles,
     candidates_scatter_tiles,
+    combine_chunk_partials_tiles,
     fused_scatter_round_tiles,
     launch_counts,
     ref as tref,
@@ -211,21 +212,59 @@ def test_wrappers_reject_mixed_devices(rng):
 
 
 def _warp_sum_emulated(row):
-    """The CUDA kernels' row sum, written lane by lane: lane l adds slots
-    l, l + 32, ... from 0.0, then xor shuffles with offsets 16, 8, 4, 2, 1."""
-    lanes = [0.0] * 32
+    """The CUDA kernels' row sum, written lane by lane: a chunk of K slots
+    has a group of G lanes, G = K rounded up to a power of two and at most
+    32; lane l adds slots l, l + 32, ... from 0.0, then xor shuffles with
+    offsets G/2, ..., 2, 1."""
+    g = 1
+    while g < len(row) and g < 32:
+        g *= 2
+    lanes = [0.0] * g
     for j, v in enumerate(row):
         lanes[j % 32] = lanes[j % 32] + v
-    off = 16
+    off = g // 2
     while off:
-        lanes = [lanes[i] + lanes[i ^ off] for i in range(32)]
+        lanes = [lanes[i] + lanes[i ^ off] for i in range(g)]
         off //= 2
     return lanes[0]
 
 
-@pytest.mark.parametrize("k", [1, 4, 32, 128, 200])
+@pytest.mark.parametrize("k", [1, 3, 4, 8, 13, 32, 128, 200])
 def test_warp_order_sum_is_the_kernel_order(k, rng):
     x = rng.standard_normal((6, k)) * 10.0 ** rng.integers(-8, 9, size=(6, k))
+    x[0, : k // 2] = 0.0  # zero partial sums in a lane group
+    x[1, :] = -0.0
     got = tref.warp_order_sum(torch.from_numpy(x)).numpy()
     want = np.array([_warp_sum_emulated(row) for row in x])
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("lengths", [[3, 1, 5, 2], [1, 1, 1], [7], [4, 0, 6, 3, 1]])
+def test_combine_sums_each_row_left_to_right(lengths, rng):
+    """The long-row combine holds each row's chunk partials in stream order:
+    bitwise equal to a left-to-right Python sum from 0.0, on general floats
+    spread over many magnitudes (where another order rounds otherwise)."""
+    counts = np.maximum(1, np.array(lengths))          # every row keeps a chunk
+    n_chunks = int(counts.sum()) + 2                   # two padding chunks (row m)
+    m = len(counts)
+    crow = np.concatenate([np.repeat(np.arange(m), counts), [m, m]]).astype(np.int32)
+    row_start = np.concatenate([[0], np.cumsum(counts), [n_chunks]]).astype(np.int64)
+    mf = rng.standard_normal(n_chunks) * 10.0 ** rng.integers(-8, 9, n_chunks)
+    xf = rng.standard_normal(n_chunks) * 10.0 ** rng.integers(-8, 9, n_chunks)
+    mc = rng.integers(0, 3, n_chunks).astype(np.int32)
+    xc = rng.integers(0, 3, n_chunks).astype(np.int32)
+    shape = (n_chunks, 1)
+    got = combine_chunk_partials_tiles(
+        *(_t(x).reshape(shape) for x in (mf, mc, xf, xc)), _t(crow).reshape(shape),
+        _t(row_start),
+    )
+    for g, x in zip(got, (mf, mc, xf, xc)):
+        want = np.empty_like(x)
+        for r in range(m + 1):
+            s, e = row_start[r], row_start[r + 1]
+            acc = x.dtype.type(0)
+            for i in range(s, e):
+                acc = acc + x[i]
+            want[s:e] = acc
+        np.testing.assert_array_equal(g.numpy().reshape(-1), want)
+

@@ -52,10 +52,11 @@ def assert_results_match(got, want, exact):
         assert rt.bounds_equal(g_lb, g_ub, w_lb, w_ub)
         np.testing.assert_allclose(g_lb, w_lb, rtol=1e-12, atol=1e-12)
         np.testing.assert_allclose(g_ub, w_ub, rtol=1e-12, atol=1e-12)
-    # The reference's pure-jnp host loop reports NaN progress unless an early
-    # stop is armed; every other driver reports the last round's measure.
-    if not np.isnan(float(want.progress)):
-        np.testing.assert_allclose(float(got.progress), float(want.progress), rtol=1e-12)
+    # Both host loops report NaN progress (no early stop is armed); every
+    # other driver reports the last round's measure.
+    np.testing.assert_allclose(
+        float(got.progress), float(want.progress), rtol=1e-12, equal_nan=True
+    )
 
 
 @pytest.mark.parametrize("driver", ["host_loop", "device_loop"])
