@@ -7,8 +7,9 @@ Run from the root of a checkout.  It imports ``src/repro_torch`` (torch and
 numpy only, nothing of JAX) and, on one CUDA card:
 
   1. prints the card's name and power limit, builds the CUDA kernels of
-     ``src/repro_torch/csrc/prop_round.cu`` from source and prints the
-     build time and the compiler's register report;
+     ``src/repro_torch/csrc/prop_round.cu`` and ``slab_round.cu`` from
+     source (one ``nvcc`` per file, in parallel) and prints the build time
+     and the compilers' register report;
   2. generates three instances at n = 60,000 columns, 150,000 rows (the
      paper's Set-5 size): ``pb`` (pseudo-boolean, exact arithmetic, rows in
      one chunk), ``banded`` (rows in one chunk) and ``mixed`` (MIPLIB-like,
@@ -47,7 +48,23 @@ numpy only, nothing of JAX) and, on one CUDA card:
      idle share; then the same search at tile width 4, where rows span two
      chunks and each round runs A', combine, E and F per pool slot, held
      against the tile-width-8 search (result and final pool) and timed;
-  9. prints a ``kernels`` JSON line, and last
+  9. (phase 8) past 2^16 columns, where ``scatter="auto"`` takes the
+     column-slab partitioned engine: builds ``bandw`` and ``pbw``
+     (n = m = 150,000; n_pad 150,016, three slabs of 50,048 columns) and
+     their slab partitions (build seconds printed); holds kernels #11 and
+     #12 (with #15's window merge) against their plain versions on both
+     partitions at K = 128, kernel D + F at n_pad 150,016, and #13, #14 and
+     #15 on pbw's K = 8 partition over a (128, 150,016) pool with 0, 8 and
+     128 active rows, all bitwise, timed; runs ``propagate_block_ell`` with
+     its defaults on both (30 and 6 rounds, as the reference) against the
+     plain path and a second run (bitwise) and the explicit fused engine
+     (``bounds_equal``, differing entries counted), with ms per round for
+     both engines, host syncs and the idle share; ``propagate_nodes`` on 16
+     branched pbw nodes, each bitwise against its single-instance run and
+     the plain path; ``solve`` on pbw (128 slots, 8 levels) against the
+     reference's counts, the plain path and the same search through the
+     fused node round (#10 + #9), same result and final pool;
+ 10. prints a ``kernels`` JSON line, and last
      ``{"ok": true, "device": {...}}``.
 
 Each path runs with the launch counters at zero just before it and read just
@@ -118,7 +135,26 @@ SOLVE_REFERENCE = [
 FULL_SEARCH = dict(node_cap=POOL, expand_width=4, max_levels=16, sync_every=8)
 FULL_REFERENCE = ("level_limit", 59, 119, 16, 2)
 
+# Phase 8, past 2^16 columns, where scatter="auto" takes the partitioned
+# engine: bandw is banded at 2.5 times the columns (rows rarely cross a slab
+# edge: the engine's intended case), pbw is pbf at 2.5 times the columns
+# (rows draw columns from the whole range, so nearly every row straddles
+# slabs: its worst case; pure-integer, so solve runs on it).
+WIDE_SPECS = [
+    ("bandw", "make_banded", dict(n=150_000, m=150_000, row_nnz=24, band=7_500, seed=0)),
+    ("pbw", "make_pseudo_boolean", dict(n=150_000, m=150_000, seed=0, unit_frac=0.002)),
+]
+# The reference's propagate_block_ell (its partitioned engine, on a CPU):
+# rounds; both converge feasible.
+WIDE_ROUNDS = {"bandw": 30, "pbw": 6}
+WIDE_BRANCHED = 4  # 2**4 = 16 pbw nodes
+# The reference's repro.core.solve on pbw with this call (on a CPU, tile
+# width 8): status, expanded, created, levels, host syncs.
+WIDE_SEARCH = dict(node_cap=POOL, expand_width=4, max_levels=8, sync_every=4)
+WIDE_REFERENCE = ("level_limit", 27, 55, 8, 2)
+
 SOURCE = "src/repro_torch/csrc/prop_round.cu"
+SLAB_SOURCE = "src/repro_torch/csrc/slab_round.cu"
 REPLACES = {
     "fused_scatter_round_tiles": "src/repro/kernels/prop_round.py:580",
     "activities_gather_tiles": "src/repro/kernels/prop_round.py:269",
@@ -129,8 +165,14 @@ REPLACES = {
     "node_fused_scatter_round_tiles": "src/repro/kernels/prop_round.py:964",
     "apply_updates_batch_tiles": "src/repro/kernels/prop_round.py:1666",
     "node_objective_tiles": "src/repro/kernels/prop_round.py:1730",
+    "batched_slab_partials_tiles": "src/repro/kernels/prop_round.py:1129",
+    "batched_slab_round_tiles": "src/repro/kernels/prop_round.py:1258",
+    "node_slab_partials_tiles": "src/repro/kernels/prop_round.py:1383",
+    "node_slab_round_tiles": "src/repro/kernels/prop_round.py:1498",
+    "apply_updates_slab_tiles": "src/repro/kernels/prop_round.py:1595",
 }
-# The C entry point that launches each wrapper's kernel.
+# The C entry point that launches each wrapper's kernel (the slab rounds
+# launch two: their scatter, then #15's window merge).
 SYMBOL = {
     "fused_scatter_round_tiles": "fused_scatter_round",
     "activities_gather_tiles": "activities_gather",
@@ -140,6 +182,11 @@ SYMBOL = {
     "node_fused_scatter_round_tiles": "node_fused_scatter_round",
     "apply_updates_batch_tiles": "apply_updates_batch",
     "node_objective_tiles": "node_objective",
+    "batched_slab_partials_tiles": "slab_partials",
+    "batched_slab_round_tiles": "slab_scatter",
+    "node_slab_partials_tiles": "node_slab_partials",
+    "node_slab_round_tiles": "node_slab_scatter",
+    "apply_updates_slab_tiles": "slab_merge",
 }
 # Nominal float64 operations per real nonzero (products, sums, residual
 # subtractions, divisions, rounding) -- the compute side of each bound.
@@ -217,11 +264,12 @@ class EventTimedLib:
         return timed
 
 
-def kernel_ms(torch, build, fn, reps: int = 20, reset=None) -> float:
-    """Median device time of the one kernel launch in each of ``reps`` calls
-    of the wrapper call ``fn``.  Each call is queued behind a sleep on the
-    card, so no host time falls between the events around the launch;
-    ``reset`` (untimed) runs before each call."""
+def kernel_ms(torch, build, fn, reps: int = 20, reset=None, launches: int = 1) -> float:
+    """Median device time of the kernel launches in each of ``reps`` calls
+    of the wrapper call ``fn`` (``launches`` per call, summed: the slab
+    rounds launch their scatter and the window merge).  Each call is queued
+    behind a sleep on the card, so no host time falls between the events
+    around a launch; ``reset`` (untimed) runs before each call."""
     real = build.lib
     timed = EventTimedLib(torch, real())
     build.lib = lambda: timed
@@ -234,9 +282,10 @@ def kernel_ms(torch, build, fn, reps: int = 20, reset=None) -> float:
         torch.cuda.synchronize()
     finally:
         build.lib = real
-    if len(timed.pairs) != reps:
-        fail(f"timed {len(timed.pairs)} launches, expected {reps}")
-    return statistics.median(start.elapsed_time(end) for start, end in timed.pairs)
+    if len(timed.pairs) != reps * launches:
+        fail(f"timed {len(timed.pairs)} launches, expected {reps * launches}")
+    ms = [start.elapsed_time(end) for start, end in timed.pairs]
+    return statistics.median(sum(ms[i : i + launches]) for i in range(0, len(ms), launches))
 
 
 def fresh_inputs(torch, pairs):
@@ -407,7 +456,7 @@ def smoke(torch, dev):
     _build.lib()
     info = _build.build_info
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {info.get('seconds', 0.0):.1f} s, "
-        f"cached={info.get('cached')}) -> {_build.library_path()}")
+        f"cached={info.get('cached')}) -> {_build.build_path()}")
     for line in info.get("log", "").splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log("  ptxas:", line.strip())
@@ -561,6 +610,17 @@ def smoke(torch, dev):
     runs = {f"propagate_block_ell {k}": v for k, v in per_instance.items()}
     runs.update(node_batch_phase(torch, np, rt, tk, pbf, problems, dev))
     runs.update(solve_phase(torch, np, rt, td, tk, pbf, dev))
+    runs.update(wide_phase(torch, np, rt, td, tk, tref, ops, _build, dev, measured))
+    slab_path = ("batched_slab_partials_tiles", "combine_chunk_partials_tiles",
+                 "batched_slab_round_tiles", "apply_updates_slab_tiles")
+    node_slab_path = ("node_slab_partials_tiles", "combine_chunk_partials_tiles",
+                      "node_slab_round_tiles", "apply_updates_slab_tiles")
+    require_launched(runs, {
+        "propagate_block_ell bandw": slab_path,
+        "propagate_block_ell pbw": slab_path,
+        "nodes pbw": node_slab_path,
+        "solve pbw": node_slab_path + ("node_objective_tiles",),
+    })
     require_launched(runs, {
         "nodes pbf": ("node_fused_scatter_round_tiles", "apply_updates_batch_tiles"),
         "nodes banded": ("node_fused_scatter_round_tiles", "apply_updates_batch_tiles"),
@@ -584,13 +644,19 @@ def smoke(torch, dev):
         "node_fused_scatter_round_tiles": f"pbf pool, 8 of {POOL} active",
         "apply_updates_batch_tiles": f"pbf pool, 8 of {POOL} active",
         "node_objective_tiles": f"pbf pool, {POOL} rows",
+        "batched_slab_partials_tiles": "pbw",
+        "batched_slab_round_tiles": "pbw",
+        "node_slab_partials_tiles": f"pbw pool, 8 of {POOL} active",
+        "node_slab_round_tiles": f"pbw pool, 8 of {POOL} active",
+        "apply_updates_slab_tiles": f"pbw pool, 8 of {POOL} active",
     }
     kernels = []
     for fn in tk.KERNELS:
         k = fn.__name__
         r = measured[k][primary[k]]
         kernels.append(dict(
-            name=k, route="cuda", source=SOURCE, replaces=REPLACES[k],
+            name=k, route="cuda", source=SLAB_SOURCE if "slab" in k else SOURCE,
+            replaces=REPLACES[k],
             launches=launches[k],
             max_abs_err=max(v["max_abs_err"] for v in measured[k].values()),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
@@ -882,6 +948,355 @@ def solve_phase(torch, np, rt, td, tk, pbf, dev):
         f"{m_ms / rounds / POOL:.4f} ms per slot and round, "
         f"{multi.nodes_created / (m_ms / 1e3):.1f} nodes/s); same result and final pool as "
         f"tile width {SOLVER_TILE_WIDTH}; launches {runs['solve pbf multi-chunk']}")
+    return runs
+
+# ---------------------------------------------------------------------------
+# Phase 8: past 2^16 columns (the column-slab partitioned engine)
+# ---------------------------------------------------------------------------
+
+
+def log_row(kname, shape, r):
+    log(f"kernel {kname} on {shape}: max_abs_err={r['max_abs_err']} ms={r['ms']:.4f} "
+        f"wrapper_ms={r['wrapper_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+        f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}, {sum(r['bytes'].values())} B: "
+        f"{r['bytes']})")
+
+
+def measured_row(torch, build, got, want, fn_k, fn_p, moved, n_ops, plain_reps=3, reset=None,
+                 launches=1):
+    """Kernel against plain version (equal as values), then timed: the
+    kernel's launches (CUDA events around the C entries), the wrapper call,
+    the plain version; and the bound of ``moved`` bytes and ``n_ops``
+    float64 operations."""
+    b_ms, b_by = bound(sum(moved.values()), n_ops)
+    return dict(max_abs_err=max_abs_err(torch, got, want),
+                ms=kernel_ms(torch, build, fn_k, reset=reset, launches=launches),
+                wrapper_ms=time_ms(torch, fn_k, reps=3, trials=3),
+                plain_ms=time_ms(torch, fn_p, reps=1, trials=plain_reps),
+                bound_ms=b_ms, bound_by=b_by, bytes=moved)
+
+
+def stores(torch, new, old) -> int:
+    """Entries a merge changed: 8 B each of the bytes it must store."""
+    return int(sum((n != o).sum().item() for n, o in zip(new, old)))
+
+
+def check_slab_kernels(torch, tk, tref, ops, build, name, prep, part):
+    """Kernels #11 and #12 (with #15's merge) against their plain versions
+    on the instance's partition at its initial bounds, the single-instance
+    shapes of the main path; timed.  Returns {kernel: row}."""
+    cfg = ops.DEFAULT_CONFIG
+    eps, width = cfg.eps_for(prep.lb0.dtype), prep.n_pad
+    act = torch.ones(1, dtype=torch.bool, device=prep.lb0.device)
+    lbp, ubp = prep.lb0[None].clone(), prep.ub0[None].clone()
+    rows = {}
+    ta, r, k = part.a_val.shape
+    a_nnz = int((part.a_val != 0).sum().item())
+    a_args = (part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_inst,
+              part.a_run_slab, act, lbp, ubp, part.slab, part.a_max_run_len)
+    partials = tref.batched_slab_partials_ref(*a_args)
+    rows["batched_slab_partials_tiles"] = measured_row(
+        torch, build, tk.batched_slab_partials_tiles(*a_args), partials,
+        lambda: tk.batched_slab_partials_tiles(*a_args),
+        lambda: tref.batched_slab_partials_ref(*a_args),
+        dict(val=8 * ta * r * k, col=4 * a_nnz, bounds=16 * width, out=24 * ta * r),
+        4 * a_nnz)
+    segs = prep.straddle_segments(part, 1)
+    strs = tref.straddle_tables(part, *partials, segments=segs)
+    max_abs_err(torch, tref.straddle_tables(part, *partials, segments=segs,
+                                            combine=tk.combine_chunk_partials_tiles), strs)
+    t, r, k = part.val.shape
+    nnz = int((part.val != 0).sum().item())
+    r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
+              part.run_start, part.run_len, part.run_inst, part.run_slab, act)
+    tail = (part.slab, part.max_run_len, eps, cfg.int_eps)
+    want = tref.batched_slab_round_ref(*r_args, lbp, ubp, *tail)
+    got = tk.batched_slab_round_tiles(*r_args, lbp.clone(), ubp.clone(), *tail)
+    lbw, ubw = lbp.clone(), ubp.clone()
+    rows["batched_slab_round_tiles"] = measured_row(
+        torch, build, got, want,
+        lambda: tk.batched_slab_round_tiles(*r_args, lbw, ubw, *tail),
+        lambda: tref.batched_slab_round_ref(*r_args, lbp, ubp, *tail),
+        dict(val=8 * t * r * k, col_ii=8 * nnz, rows=44 * t * r, bounds=16 * width,
+             stores=8 * stores(torch, want[:2], (lbp, ubp)), accumulators=32 * width,
+             flags=4 * part.n_slabs),
+        16 * nnz, reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp)]), launches=2)
+    for kname, row in rows.items():
+        row["instance"] = name
+        log_row(kname, name, row)
+    return rows
+
+
+def check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep, part):
+    """Kernels #13, #14 (with #15's merge) and #15 alone against their plain
+    versions on pbw's K = 8 partition over a (POOL, n_pad) pool of
+    warm-started node bounds, with 0, 8 and POOL rows active; timed.
+    Returns {kernel: {shape: row}}."""
+    cfg = ops.DEFAULT_CONFIG
+    width = prep.n_pad
+    lb_h, ub_h = node_pool(np, rt, pbw, POOL, seed=3)
+    lbp, ubp = ops._node_planes(prep, lb_h, ub_h)
+    eps = cfg.eps_for(lbp.dtype)
+    ta, r, k = part.a_val.shape
+    a_nnz = int((part.a_val != 0).sum().item())
+    t, _, _ = part.val.shape
+    nnz = int((part.val != 0).sum().item())
+    out = {"node_slab_partials_tiles": {}, "node_slab_round_tiles": {},
+           "apply_updates_slab_tiles": {}}
+    fill = time_ms(torch, lambda: (torch.full_like(lbp, -cfg.inf), torch.full_like(ubp, cfg.inf)))
+    log(f"accumulator fill: two ({POOL}, {width}) sentinel planes, {fill:.4f} ms")
+    for n_act in (0, 8, POOL):
+        act = torch.zeros(POOL, dtype=torch.bool, device=lbp.device)
+        if n_act:
+            act[:: POOL // n_act] = True
+        shape = f"pbw pool, {n_act} of {POOL} active"
+        reps = 1 if n_act == POOL else 3
+        a_args = (part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_slab,
+                  act, lbp, ubp, part.slab, part.a_max_run_len)
+        partials = tref.node_slab_partials_ref(*a_args)
+        # The sub-stream is read once per launch (26 MB at K = 8: in L2);
+        # each active node gathers its bound row and writes its partials.
+        # The zero rows of inactive nodes are the wrapper's fill.
+        out["node_slab_partials_tiles"][shape] = measured_row(
+            torch, build, tk.node_slab_partials_tiles(*a_args), partials,
+            lambda: tk.node_slab_partials_tiles(*a_args),
+            lambda: tref.node_slab_partials_ref(*a_args),
+            dict(stream=(8 * ta * r * k + 4 * a_nnz) if n_act else 0,
+                 bounds=16 * n_act * width, out=24 * n_act * ta * r),
+            4 * a_nnz * n_act, plain_reps=reps)
+        strs = tref.straddle_tables(part, *partials, segments=prep.straddle_segments(part, POOL))
+        r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g,
+                  part.rhs_g, part.run_start, part.run_len, part.run_slab, act)
+        tail = (part.slab, part.max_run_len, eps, cfg.int_eps)
+        want = tref.node_slab_round_ref(*r_args, lbp, ubp, *tail)
+        got = tk.node_slab_round_tiles(*r_args, lbp.clone(), ubp.clone(), *tail)
+        for i in act.nonzero().flatten().tolist()[:8]:
+            one = tref.batched_slab_round_ref(
+                part.val, part.col_s, part.ii_g, part.row_done, *(x[i] for x in strs),
+                part.lhs_g, part.rhs_g, part.run_start, part.run_len, part.run_inst,
+                part.run_slab, act[i : i + 1], lbp[i : i + 1], ubp[i : i + 1], *tail)
+            max_abs_err(torch, (got[0][i], got[1][i]), (one[0][0], one[1][0]))
+        lbw, ubw = lbp.clone(), ubp.clone()
+        out["node_slab_round_tiles"][shape] = measured_row(
+            torch, build, got, want,
+            lambda: tk.node_slab_round_tiles(*r_args, lbw, ubw, *tail),
+            lambda: tref.node_slab_round_ref(*r_args, lbp, ubp, *tail),
+            dict(stream=(8 * t * r * k + 8 * nnz + 20 * t * r) if n_act else 0,
+                 aggregates=24 * n_act * t * r, bounds=16 * n_act * width,
+                 stores=8 * stores(torch, want[:2], (lbp, ubp)),
+                 accumulators=32 * n_act * width, flags=4 * POOL * part.n_slabs + POOL),
+            16 * nnz * n_act, plain_reps=reps,
+            reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp)]), launches=2)
+        bl, bu = tref.node_partitioned_round_ref(part, lbp, ubp, cfg.int_eps, cfg.inf,
+                                                 active=act)
+        bl, bu = bl[:, :width].contiguous(), bu[:, :width].contiguous()
+        m_args = (act, part.slab, eps)
+        want_m = tref.apply_updates_slab_ref(lbp, ubp, bl, bu, *m_args)
+        want_m = (*want_m[:2], want_m[2].any(dim=1))
+        got_m = tk.apply_updates_slab_tiles(lbp.clone(), ubp.clone(), bl, bu, *m_args)
+        lbw, ubw = lbp.clone(), ubp.clone()
+        out["apply_updates_slab_tiles"][shape] = measured_row(
+            torch, build, got_m, want_m,
+            lambda: tk.apply_updates_slab_tiles(lbw, ubw, bl, bu, *m_args),
+            lambda: tref.apply_updates_slab_ref(lbp, ubp, bl, bu, *m_args),
+            dict(merge_bytes(torch, ops.bnd, lbp, ubp, bl, bu, eps, act),
+                 flags=4 * POOL * part.n_slabs + POOL),
+            6 * n_act * width, reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp)]))
+        for kname in out:
+            log_row(kname, shape, out[kname][shape])
+    return out
+
+
+def wide_phase(torch, np, rt, td, tk, tref, ops, build, dev, measured):
+    """Phase 8: bandw and pbw past 2^16 columns.  Kernels #11-#15 against
+    their plain versions at the engine's shapes (and D + F at n_pad
+    150,016); propagate_block_ell with its defaults (the partitioned engine)
+    against the plain path, a second run and the explicit fused engine;
+    propagate_nodes on 16 pbw nodes; solve on pbw against the reference's
+    counts, the plain path and the fused node path.  Adds to ``measured``;
+    returns the launch counts of each main-path run."""
+    problems, preps, parts = {}, {}, {}
+    for name, gen, kw in WIDE_SPECS:
+        t = time.perf_counter()
+        p = getattr(td, gen)(**kw)
+        t_gen = time.perf_counter() - t
+        t = time.perf_counter()
+        prep = rt.prepare_block_ell(p, device=dev)
+        torch.cuda.synchronize()
+        t_prep = time.perf_counter() - t
+        t = time.perf_counter()
+        part = prep.slab_partition()
+        torch.cuda.synchronize()
+        t_part = time.perf_counter() - t
+        problems[name], preps[name], parts[name] = p, prep, part
+        log(f"instance {name}: m={p.m} n={p.n} nnz={p.nnz} "
+            f"max_row={int(np.diff(p.csr.row_ptr).max())} tiles={tuple(prep.d.val.shape)} "
+            f"n_pad={prep.n_pad} slab={part.slab} x {part.n_slabs} copies={part.num_copies} "
+            f"straddle_tiles={part.a_val.shape[0]} straddle_rows={part.n_straddle} "
+            f"duplication={part.duplication:.4f} generate={t_gen:.1f}s prepare={t_prep:.2f}s "
+            f"partition_build={t_part:.2f}s")
+        if ops._resolve_scatter("auto", prep) != "partitioned":
+            fail(f"{name}: scatter='auto' does not take the partitioned engine")
+
+    for name, p in problems.items():
+        prep = preps[name]
+        for kname, r in check_kernels(torch, tk, tref, ops, build, name, p, prep, prep.lb0,
+                                      prep.ub0, timed=True).items():
+            log(f"kernel {kname} on {name} (n_pad {prep.n_pad}): max_abs_err="
+                f"{r['max_abs_err']} ms={r['ms']:.4f} wrapper_ms={r['wrapper_ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f}")
+            measured.setdefault(kname, {})[name] = r
+        for kname, r in check_slab_kernels(torch, tk, tref, ops, build, name, prep,
+                                           parts[name]).items():
+            measured.setdefault(kname, {})[name] = r
+
+    runs = {}
+    results = {}
+    for name, p in problems.items():
+        n_sync = [0]
+        tk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = rt.propagate_block_ell(p, device=dev,
+                                   on_sync=lambda: n_sync.__setitem__(0, n_sync[0] + 1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        runs[f"propagate_block_ell {name}"] = tk.launch_counts()
+        results[name] = r
+        rounds = r.rounds.item()
+        if (rounds, r.converged.item(), r.infeasible.item()) != (WIDE_ROUNDS[name], True, False):
+            fail(f"{name}: rounds={rounds} converged={r.converged.item()} "
+                 f"infeasible={r.infeasible.item()}; the reference takes {WIDE_ROUNDS[name]} "
+                 "rounds and converges feasible")
+        check_same(rt, name, r, rt.propagate_block_ell(p, use_kernels=False, device=dev), True,
+                   "the plain-version path")
+        check_same(rt, name, r, rt.propagate_block_ell(p, device=dev), True,
+                   "a second run of the kernel path")
+        fused = rt.propagate_block_ell(p, scatter="fused", device=dev)
+        check_same(rt, name, r, fused, False, "the explicit fused engine")
+        diff = [(getattr(r, f) != getattr(fused, f)).sum().item() for f in ("lb", "ub")]
+        k_ms = time_ms(torch, lambda: rt.propagate_block_ell(p, device=dev), reps=1, trials=3)
+        f_ms = time_ms(torch, lambda: rt.propagate_block_ell(p, scatter="fused", device=dev),
+                       reps=1, trials=3)
+        p_ms = time_ms(torch, lambda: rt.propagate_block_ell(p, use_kernels=False, device=dev),
+                       reps=1, trials=1)
+        fixed = int((r.lb == r.ub).sum().item())
+        log(f"main path {name}: partitioned, rounds={rounds} (reference {WIDE_ROUNDS[name]}) "
+            f"converged feasible, {fixed} variables fixed, host_syncs={n_sync[0]}, first wall "
+            f"{wall * 1e3:.3f} ms; bitwise equal to the plain path and a second run; explicit "
+            f"fused: same rounds, bounds_equal, entries not bitwise equal: lb {diff[0]}, "
+            f"ub {diff[1]}; launches {runs[f'propagate_block_ell {name}']}")
+        log(f"round time {name}: partitioned {k_ms / rounds:.4f} ms/round ({k_ms:.3f} ms), "
+            f"fused {f_ms / rounds:.4f} ms/round ({f_ms:.3f} ms), plain {p_ms / rounds:.4f} "
+            f"ms/round, {rounds} rounds, {n_sync[0]} host syncs")
+        prof = busy_profile(torch, lambda: rt.propagate_block_ell(p, device=dev))
+        if prof is None:
+            log(f"profile {name}: the profiler recorded no device time; idle share not measured")
+        else:
+            busy, top = prof
+            log(f"profile {name}: device busy {busy:.3f} ms of {k_ms:.3f} ms fixed point, "
+                f"idle share {1 - busy / k_ms:.3f}; top: {top}")
+
+    # The node engine and the solver at the solver's tile width.
+    pbw = problems["pbw"]
+    t = time.perf_counter()
+    prep8 = rt.prepare_block_ell(pbw, tile_width=SOLVER_TILE_WIDTH, device=dev)
+    part8 = prep8.slab_partition()
+    torch.cuda.synchronize()
+    log(f"pbw at tile width {SOLVER_TILE_WIDTH}: tiles={tuple(prep8.d.val.shape)} "
+        f"copies={part8.num_copies} straddle_tiles={part8.a_val.shape[0]} "
+        f"straddle_rows={part8.n_straddle} duplication={part8.duplication:.4f} "
+        f"prepare + partition_build={time.perf_counter() - t:.2f}s")
+    for k, rows in check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep8,
+                                           part8).items():
+        measured.setdefault(k, {}).update(rows)
+
+    root = rt.propagate_block_ell(pbw, tile_width=SOLVER_TILE_WIDTH, device=dev)
+    check_same(rt, "pbw at tile width 8", root, results["pbw"], True, "tile width 128")
+    lb_r, ub_r = root.lb.cpu().numpy(), root.ub.cpu().numpy()
+    lb, ub = branched(np, rt, lb_r, ub_r,
+                      most_fractional_order(np, lb_r, ub_r, pbw.is_int)[:WIDE_BRANCHED])
+    reads = [0]
+    tk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = rt.propagate_nodes(pbw, lb, ub, tile_width=SOLVER_TILE_WIDTH, device=dev,
+                             on_sync=lambda: reads.__setitem__(0, reads[0] + 1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    runs["nodes pbw"] = tk.launch_counts()
+    plain = rt.propagate_nodes(pbw, lb, ub, tile_width=SOLVER_TILE_WIDTH, device=dev,
+                               use_kernels=False)
+    for f in ("lb", "ub", "rounds", "converged", "infeasible"):
+        if not torch.equal(getattr(got, f), getattr(plain, f)):
+            fail(f"nodes pbw: {f} differs from the plain-version path")
+    for i in range(lb.shape[0]):
+        one = rt.propagate_block_ell(pbw, tile_width=SOLVER_TILE_WIDTH, lb0=lb[i], ub0=ub[i],
+                                     device=dev)
+        if not (torch.equal(got.lb[i], one.lb) and torch.equal(got.ub[i], one.ub)):
+            fail(f"nodes pbw: node {i} differs from its single-instance run")
+        for f in ("rounds", "converged", "infeasible"):
+            if getattr(got, f)[i].item() != getattr(one, f).item():
+                fail(f"nodes pbw: node {i} {f} differs from its single-instance run")
+    rounds = int(got.rounds.max())
+    k_ms = time_ms(torch, lambda: rt.propagate_nodes(pbw, lb, ub, tile_width=SOLVER_TILE_WIDTH,
+                                                     device=dev), reps=1, trials=3)
+    log(f"nodes pbw: {lb.shape[0]} nodes, rounds {int(got.rounds.min())}-{rounds}, infeasible "
+        f"{int(got.infeasible.sum())}, flag reads {reads[0]}, first wall {wall * 1e3:.3f} ms; "
+        f"kernels {k_ms:.3f} ms ({k_ms / rounds:.4f} ms/round); every node bitwise equal to "
+        f"its single-instance run and to the plain path; launches {runs['nodes pbw']}")
+
+    c = objective(np, pbw.n)
+    reads, syncs = [0], []
+    tk.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = rt.solve(pbw, c, device=dev, on_sync=syncs.append,
+                   on_flag_read=lambda: reads.__setitem__(0, reads[0] + 1), **WIDE_SEARCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    runs["solve pbw"] = tk.launch_counts()
+    got = (res.status, res.nodes_expanded, res.nodes_created, res.levels, res.host_syncs)
+    if got != WIDE_REFERENCE:
+        fail(f"solve pbw: {got} != reference {WIDE_REFERENCE}")
+    plain = rt.solve(pbw, c, device=dev, use_kernels=False, **WIDE_SEARCH)
+    # The same search through the fused node round (#10 + #9): the limit is
+    # raised past pbw's n_pad for this call alone.
+    limit = ops.SCATTER_MAX_NPAD
+    ops.SCATTER_MAX_NPAD = 1 << 18
+    try:
+        tk.reset_launch_counts()
+        fused = rt.solve(pbw, c, device=dev, **WIDE_SEARCH)
+        fused_counts = tk.launch_counts()
+        f_ms = time_ms(torch, lambda: rt.solve(pbw, c, device=dev, **WIDE_SEARCH), reps=1,
+                       trials=3)
+    finally:
+        ops.SCATTER_MAX_NPAD = limit
+    if fused_counts["node_fused_scatter_round_tiles"] <= 0 or fused_counts[
+            "node_slab_round_tiles"] != 0:
+        fail(f"solve pbw through the fused node round launched {fused_counts}")
+    for other, what in ((plain, "the plain path"), (fused, "the fused node path")):
+        for f in SOLVE_FIELDS:
+            if getattr(res, f) != getattr(other, f):
+                fail(f"solve pbw: {f} {getattr(res, f)} != {what} {getattr(other, f)}")
+        for f, x, y in zip(res.carry._fields, res.carry, other.carry):
+            if not torch.equal(x, y):
+                fail(f"solve pbw: final pool {f} differs from {what}")
+    k_ms = time_ms(torch, lambda: rt.solve(pbw, c, device=dev, **WIDE_SEARCH), reps=1, trials=3)
+    log(f"solve pbw: {res.status}, levels {res.levels}, expanded {res.nodes_expanded}, created "
+        f"{res.nodes_created}, host syncs {res.host_syncs}, flag reads {reads[0]} (reference "
+        f"{WIDE_REFERENCE}); partitioned {k_ms:.3f} ms ({k_ms / res.levels:.3f} ms/level, "
+        f"{res.nodes_created / (k_ms / 1e3):.1f} nodes/s; first call {wall * 1e3:.3f} ms), "
+        f"fused node path {f_ms:.3f} ms ({f_ms / res.levels:.3f} ms/level); same result and "
+        f"final pool on the kernel path, the plain path and the fused node path; launches "
+        f"{runs['solve pbw']}")
+    prof = busy_profile(torch, lambda: rt.solve(pbw, c, device=dev, **WIDE_SEARCH))
+    if prof is None:
+        log("profile solve pbw: the profiler recorded no device time; idle share not measured")
+    else:
+        busy, top = prof
+        log(f"profile solve pbw: device busy {busy:.3f} ms of {k_ms:.3f} ms search, idle share "
+            f"{1 - busy / k_ms:.3f}; top: {top}")
     return runs
 
 

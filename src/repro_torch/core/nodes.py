@@ -128,6 +128,7 @@ def propagate_nodes(
     tile_width: int = 128,
     dtype=None,
     use_kernels: bool = True,
+    slab: int | None = None,
     stop_progress: float | None = None,
     patience: int = 1,
     policy=None,
@@ -141,6 +142,8 @@ def propagate_nodes(
     :class:`NodeBatch`'s fields).  The instance's tiles and hoisted gathers
     are cached per matrix structure (``kernels.cache_info()`` reports hits),
     so successive frontiers of one search pay only the two plane uploads.
+    Instances past ``kernels.ops.SCATTER_MAX_NPAD`` ride the column-slab
+    partitioned node kernels (``slab`` overrides the window width).
     Per-node ``rounds``/``converged`` match each node's own single-instance
     run, and so do its bounds, bitwise; ``infeasible`` nodes are reported
     for pruning and leave the other nodes untouched.
@@ -159,7 +162,7 @@ def propagate_nodes(
     prep = prepare_block_ell(p, tile_rows, tile_width, dtype, device)
     lb, ub, rounds, converged, infeasible, progress = propagate_nodes_prepared(
         prep, lb_nodes, ub_nodes, cfg, use_kernels=use_kernels, with_progress=True,
-        on_sync=on_sync,
+        on_sync=on_sync, slab=slab,
     )
     return NodeBatchResult(lb, ub, rounds, converged, infeasible, progress=progress)
 

@@ -1,0 +1,199 @@
+// Device code shared by the chunk kernels of prop_round.cu and
+// slab_round.cu: the lane groups that own a chunk, the chunk's activity
+// aggregates, its candidates with the column max/min scatter, and the bound
+// merge of one column.  See prop_round.cu for the layout and the rounding
+// rules (--fmad=false, division-first candidates).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = kWarp * kWarpsPerBlock;
+
+struct Slot {
+  bool pos, min_inf, max_inf;
+  double bmin, bmax;
+};
+
+// tile_contributions of one real nonzero (val != 0; padding is skipped
+// before its col is read).
+__device__ __forceinline__ Slot load_slot(double v, int c, const double* __restrict__ lb,
+                                          const double* __restrict__ ub, double inf) {
+  Slot s;
+  s.pos = v > 0.0;
+  const double l = lb[c], u = ub[c];
+  s.bmin = s.pos ? l : u;
+  s.bmax = s.pos ? u : l;
+  s.min_inf = fabs(s.bmin) >= inf;
+  s.max_inf = fabs(s.bmax) >= inf;
+  return s;
+}
+
+// Butterfly sum over aligned groups of G lanes (a power of two); every lane
+// of the warp must take part.
+template <int G, typename T>
+__device__ __forceinline__ T group_sum(T x) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+__device__ __forceinline__ double warp_sum(double x) { return group_sum<kWarp>(x); }
+
+// Lanes per chunk: K rounded up to a power of two, at most a warp.
+int group_width(int k) {
+  int g = 1;
+  while (g < k && g < kWarp) g <<= 1;
+  return g;
+}
+
+// This thread's chunk and its lane within the chunk's group of G lanes.
+// Lanes of a group past the last chunk are not live: they still take part
+// in the shuffles (as empty chunks) but load and store nothing.
+struct Lanes {
+  int64_t chunk;
+  int sl;
+  bool live;
+};
+
+template <int G>
+__device__ __forceinline__ Lanes lanes_for(int64_t n_chunks) {
+  Lanes L;
+  const int lane = threadIdx.x % kWarp;
+  const int64_t warp = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
+  L.chunk = warp * (kWarp / G) + lane / G;
+  L.sl = lane % G;
+  L.live = L.chunk < n_chunks;
+  return L;
+}
+
+struct RowAgg {
+  double mf, xf;
+  int mc, xc;
+};
+
+// tile_row_aggregates of one chunk; every lane of the group gets the
+// result.  All lanes of the warp must call it (dead lanes with k = 0).
+template <int G>
+__device__ __forceinline__ RowAgg chunk_aggregates(const double* __restrict__ val,
+                                                   const int* __restrict__ col,
+                                                   const double* __restrict__ lb,
+                                                   const double* __restrict__ ub,
+                                                   int64_t base, int k, const Lanes& L,
+                                                   double inf) {
+  RowAgg a{0.0, 0.0, 0, 0};
+  for (int j = L.sl; j < k; j += kWarp) {
+    const double v = val[base + j];
+    if (v == 0.0) continue;  // padding adds nothing; its col is never read
+    const Slot s = load_slot(v, col[base + j], lb, ub, inf);
+    if (s.min_inf) a.mc += 1; else a.mf += v * s.bmin;
+    if (s.max_inf) a.xc += 1; else a.xf += v * s.bmax;
+  }
+  a.mf = group_sum<G>(a.mf);
+  a.xf = group_sum<G>(a.xf);
+  a.mc = group_sum<G>(a.mc);
+  a.xc = group_sum<G>(a.xc);
+  return a;
+}
+
+__device__ __forceinline__ void atomic_max_f64(double* addr, double v) {
+  unsigned long long* a = reinterpret_cast<unsigned long long*>(addr);
+  unsigned long long old = *a;
+  while (v > __longlong_as_double(old)) {
+    const unsigned long long assumed = old;
+    old = atomicCAS(a, assumed, __double_as_longlong(v));
+    if (old == assumed) break;
+  }
+}
+
+__device__ __forceinline__ void atomic_min_f64(double* addr, double v) {
+  unsigned long long* a = reinterpret_cast<unsigned long long*>(addr);
+  unsigned long long old = *a;
+  while (v < __longlong_as_double(old)) {
+    const unsigned long long assumed = old;
+    old = atomicCAS(a, assumed, __double_as_longlong(v));
+    if (old == assumed) break;
+  }
+}
+
+__device__ __forceinline__ double clip(double x, double inf) { return fmin(fmax(x, -inf), inf); }
+
+// tile_candidates of one chunk followed by the column max/min.  Slots whose
+// candidate is the sentinel (padding, invalid residual or side) skip the
+// atomic: the accumulators start at the sentinel, so skipping is exact.
+__device__ __forceinline__ void chunk_candidates_scatter(
+    const double* __restrict__ val, const int* __restrict__ col, const int* __restrict__ ii,
+    const double* __restrict__ lb, const double* __restrict__ ub, const RowAgg& a, double lhs,
+    double rhs, double* best_l, double* best_u, int64_t base, int k, const Lanes& L,
+    double int_eps, double inf) {
+  for (int j = L.sl; j < k; j += kWarp) {
+    const double v = val[base + j];
+    if (v == 0.0) continue;  // padding: both candidates are the sentinel
+    const int c = col[base + j];  // col and is_int are read at nonzeros only
+    const Slot s = load_slot(v, c, lb, ub, inf);
+    const bool ok_min = s.min_inf ? a.mc == 1 : a.mc == 0;
+    const bool ok_max = s.max_inf ? a.xc == 1 : a.xc == 0;
+    const double inc_min = s.min_inf ? 0.0 : s.bmin;
+    const double inc_max = s.max_inf ? 0.0 : s.bmax;
+    const double q_min = (rhs - a.mf) / v + inc_min;
+    const double q_max = (lhs - a.xf) / v + inc_max;
+    double lc = s.pos ? q_max : q_min;
+    double uc = s.pos ? q_min : q_max;
+    const bool valid_l = s.pos ? (lhs > -inf && ok_max) : (rhs < inf && ok_min);
+    const bool valid_u = s.pos ? (rhs < inf && ok_min) : (lhs > -inf && ok_max);
+    lc = valid_l ? clip(lc, inf) : -inf;
+    uc = valid_u ? clip(uc, inf) : inf;
+    if (ii[base + j] != 0) {
+      if (fabs(lc) < inf) lc = ceil(lc - int_eps);
+      if (fabs(uc) < inf) uc = floor(uc + int_eps);
+    }
+    if (lc > -inf) atomic_max_f64(best_l + c, lc);
+    if (uc < inf) atomic_min_f64(best_u + c, uc);
+  }
+}
+
+
+// bounds.apply_updates for column i, in place; true if a bound tightened.
+__device__ __forceinline__ bool merge_one(double* __restrict__ lb, double* __restrict__ ub,
+                                          const double* __restrict__ best_l,
+                                          const double* __restrict__ best_u, int64_t i,
+                                          double eps, double inf, double outward) {
+  const double l = lb[i], u = ub[i];
+  double bl = best_l[i], bu = best_u[i];
+  const bool take_l = bl > l + eps * fmax(1.0, fabs(l));
+  const bool take_u = bu < u - eps * fmax(1.0, fabs(u));
+  if (outward != 0.0) {
+    bl = bl - outward * fmax(1.0, fabs(bl));
+    bu = bu + outward * fmax(1.0, fabs(bu));
+  }
+  if (take_l) lb[i] = clip(bl, inf);
+  if (take_u) ub[i] = clip(bu, inf);
+  return take_l || take_u;
+}
+
+// Blocks that cover n_chunks chunks of k slots, 32 / G chunks per warp.
+unsigned int chunk_blocks(int64_t n_chunks, int k) {
+  const int64_t per_block = static_cast<int64_t>(kWarpsPerBlock) * (kWarp / group_width(k));
+  return static_cast<unsigned int>((n_chunks + per_block - 1) / per_block);
+}
+
+// Launch KERNEL<G> for the group width of k slots, with ARGS.
+#define LAUNCH_FOR_WIDTH(KERNEL, k, n_chunks, stream, ...)                              \
+  do {                                                                                \
+    const unsigned int blocks_ = chunk_blocks(n_chunks, k);                           \
+    switch (group_width(k)) {                                                         \
+      case 1: KERNEL<1><<<blocks_, kThreads, 0, stream>>>(__VA_ARGS__); break;        \
+      case 2: KERNEL<2><<<blocks_, kThreads, 0, stream>>>(__VA_ARGS__); break;        \
+      case 4: KERNEL<4><<<blocks_, kThreads, 0, stream>>>(__VA_ARGS__); break;        \
+      case 8: KERNEL<8><<<blocks_, kThreads, 0, stream>>>(__VA_ARGS__); break;        \
+      case 16: KERNEL<16><<<blocks_, kThreads, 0, stream>>>(__VA_ARGS__); break;      \
+      default: KERNEL<32><<<blocks_, kThreads, 0, stream>>>(__VA_ARGS__); break;      \
+    }                                                                                 \
+  } while (0)
+
+}  // namespace

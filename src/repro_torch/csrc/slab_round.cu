@@ -1,0 +1,280 @@
+// Hopper (sm_90a) kernels of the column-slab partitioned round, the engine
+// of instances past 2^16 columns (kernels/ops.py, _partitioned_round).
+//
+// Each is the CUDA counterpart of a Pallas kernel of the JAX package
+// (src/repro/kernels/prop_round.py), held against a plain-PyTorch oracle
+// (src/repro_torch/kernels/ref.py):
+//
+//   slab_partials       (#11) per-copy activity partials of the straddle
+//                       sub-stream, each copy gathering from its run's
+//                       (instance, slab) window; the copies of inactive
+//                       instances write zeros
+//   node_slab_partials  (#13) #11 per node of one instance, the (B,) mask
+//                       balloted on the device; the wrapper zeroes the rows
+//                       of inactive nodes
+//   slab_scatter        the first launch of #12: per copy, the local row
+//                       aggregates or, where row_done == 0, the straddle
+//                       row's completed aggregates; candidates; the column
+//                       max/min into (B, W) accumulator planes
+//   node_slab_scatter   the first launch of #14: the same per active node
+//   slab_merge          (#15, and the second launch of #12 and #14)
+//                       bounds.apply_updates over every (instance, slab)
+//                       window, in place, one flag per window
+//
+// The TPU kernels walk a run's copy tiles in grid order, keep the window's
+// accumulators in VMEM and merge at the run's last step.  Blocks of one run
+// run concurrently here, so a round is two launches: the scatter into
+// accumulator planes in global memory (filled with the sentinel by the
+// wrapper; float64 CAS max/min, exact in any order), then the window merge,
+// once every copy has scattered.  Every gather of the round has finished by
+// then, so the merge runs in place.  An empty window's all-padding tile
+// scatters nothing and its merge changes nothing.
+//
+// A copy tile finds its run by a binary search over run_start (runs cover
+// contiguous, ascending tile ranges; the TPU's padded grid steps do not
+// exist here), and its window at inst * W + slab_id * slab of the (B, W)
+// planes.  W is the partition's n_pad_part or the instance's n_pad: no real
+// nonzero reaches past n_pad.  Flat indices are 64-bit wherever two sizes
+// multiply (B * W passes 2^31 at large pools).
+//
+// The chunk arithmetic is kernel D's (round_common.cuh): lane groups of G
+// lanes per chunk, shuffle sums in ref.warp_order_sum's order, division-first
+// candidates, --fmad=false.  Each entry point returns cudaGetLastError().
+
+#include "round_common.cuh"
+
+namespace {
+
+// The run holding copy tile `tile`: the last run starting at or before it.
+__device__ __forceinline__ int run_of(const int* __restrict__ run_start, int n_runs,
+                                      int64_t tile) {
+  int lo = 0, hi = n_runs - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (run_start[mid] <= tile) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// A live lane's copy: its window's instance (0 without run_inst) and the
+// window's flat offset in the (B, W) planes.
+struct Copy {
+  int64_t inst, off;
+};
+
+__device__ __forceinline__ Copy copy_window(const Lanes& L, int r,
+                                            const int* __restrict__ run_start,
+                                            const int* __restrict__ run_inst,
+                                            const int* __restrict__ run_slab, int n_runs,
+                                            int64_t width, int64_t slab) {
+  Copy c{0, 0};
+  if (L.live) {
+    const int run = run_of(run_start, n_runs, L.chunk / r);
+    c.inst = run_inst == nullptr ? 0 : run_inst[run];
+    c.off = c.inst * width + static_cast<int64_t>(run_slab[run]) * slab;
+  }
+  return c;
+}
+
+__device__ __forceinline__ void store_partials(const RowAgg& a, int64_t o, double* mf, int* mc,
+                                               double* xf, int* xc) {
+  mf[o] = a.mf;
+  mc[o] = a.mc;
+  xf[o] = a.xf;
+  xc[o] = a.xc;
+}
+
+// One chunk's round against the window at flat offset `row`: local
+// aggregates, or the straddle aggregates at index `s` where the copy does
+// not hold its whole row; candidates; scatter into the accumulators.  Every
+// lane of the warp calls it (the aggregates shuffle); `use` is false for
+// dead lanes and inactive windows, which scatter nothing.
+template <int G>
+__device__ __forceinline__ void window_round(
+    const double* __restrict__ val, const int* __restrict__ col, const int* __restrict__ ii,
+    const int* __restrict__ done, const double* __restrict__ smf, const int* __restrict__ smc,
+    const double* __restrict__ sxf, const int* __restrict__ sxc,
+    const double* __restrict__ lhs, const double* __restrict__ rhs,
+    const double* __restrict__ lb, const double* __restrict__ ub, double* best_l,
+    double* best_u, const Lanes& L, int64_t row, int64_t s, bool use, int k, double int_eps,
+    double inf) {
+  const int64_t base = L.chunk * k;
+  const bool local = use && done[L.chunk] != 0;
+  RowAgg a = chunk_aggregates<G>(val, col, lb + row, ub + row, base, local ? k : 0, L, inf);
+  if (!use) return;
+  if (!local) a = RowAgg{smf[s], sxf[s], smc[s], sxc[s]};
+  chunk_candidates_scatter(val, col, ii, lb + row, ub + row, a, lhs[L.chunk], rhs[L.chunk],
+                           best_l + row, best_u + row, base, k, L, int_eps, inf);
+}
+
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+slab_partials_kernel(const double* __restrict__ val, const int* __restrict__ col,
+                     const int* __restrict__ run_start, const int* __restrict__ run_inst,
+                     const int* __restrict__ run_slab, const bool* __restrict__ active,
+                     const double* __restrict__ lb, const double* __restrict__ ub,
+                     double* __restrict__ mf, int* __restrict__ mc, double* __restrict__ xf,
+                     int* __restrict__ xc, int n_runs, int64_t n_chunks, int r, int k,
+                     int64_t width, int64_t slab, double inf) {
+  const Lanes L = lanes_for<G>(n_chunks);
+  const Copy c = copy_window(L, r, run_start, run_inst, run_slab, n_runs, width, slab);
+  const bool act = L.live && active[c.inst];
+  // An inactive instance's copies sum nothing: their partials are zeros.
+  const RowAgg a =
+      chunk_aggregates<G>(val, col, lb + c.off, ub + c.off, L.chunk * k, act ? k : 0, L, inf);
+  if (L.live && L.sl == 0) store_partials(a, L.chunk, mf, mc, xf, xc);
+}
+
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+node_slab_partials_kernel(const double* __restrict__ val, const int* __restrict__ col,
+                          const int* __restrict__ run_start, const int* __restrict__ run_slab,
+                          const bool* __restrict__ active, const double* __restrict__ lb,
+                          const double* __restrict__ ub, double* __restrict__ mf,
+                          int* __restrict__ mc, double* __restrict__ xf, int* __restrict__ xc,
+                          int n_runs, int64_t n_chunks, int r, int k, int64_t bsz,
+                          int64_t width, int64_t slab, double inf) {
+  const Lanes L = lanes_for<G>(n_chunks);
+  const int lane = threadIdx.x % kWarp;
+  const Copy c = copy_window(L, r, run_start, nullptr, run_slab, n_runs, width, slab);
+  const int kk = L.live ? k : 0;
+  for (int64_t b0 = 0; b0 < bsz; b0 += kWarp) {
+    unsigned int todo = __ballot_sync(0xffffffffu, b0 + lane < bsz && active[b0 + lane]);
+    while (todo != 0u) {
+      const int64_t b = b0 + __ffs(todo) - 1;
+      todo &= todo - 1u;
+      const int64_t row = b * width + c.off;
+      const RowAgg a = chunk_aggregates<G>(val, col, lb + row, ub + row, L.chunk * k, kk, L, inf);
+      if (L.live && L.sl == 0) store_partials(a, b * n_chunks + L.chunk, mf, mc, xf, xc);
+    }
+  }
+}
+
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+slab_scatter_kernel(const double* __restrict__ val, const int* __restrict__ col,
+                    const int* __restrict__ ii, const int* __restrict__ done,
+                    const double* __restrict__ smf, const int* __restrict__ smc,
+                    const double* __restrict__ sxf, const int* __restrict__ sxc,
+                    const double* __restrict__ lhs, const double* __restrict__ rhs,
+                    const int* __restrict__ run_start, const int* __restrict__ run_inst,
+                    const int* __restrict__ run_slab, const bool* __restrict__ active,
+                    const double* __restrict__ lb, const double* __restrict__ ub,
+                    double* best_l, double* best_u, int n_runs, int64_t n_chunks, int r, int k,
+                    int64_t width, int64_t slab, double int_eps, double inf) {
+  const Lanes L = lanes_for<G>(n_chunks);
+  const Copy c = copy_window(L, r, run_start, run_inst, run_slab, n_runs, width, slab);
+  const bool act = L.live && active[c.inst];
+  window_round<G>(val, col, ii, done, smf, smc, sxf, sxc, lhs, rhs, lb, ub, best_l, best_u, L,
+                  c.off, L.chunk, act, k, int_eps, inf);
+}
+
+// #12's scatter for B nodes of one instance: each warp ballots the mask 32
+// nodes at a time and visits the active nodes only (kernel #10's scheme).
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+node_slab_scatter_kernel(const double* __restrict__ val, const int* __restrict__ col,
+                         const int* __restrict__ ii, const int* __restrict__ done,
+                         const double* __restrict__ smf, const int* __restrict__ smc,
+                         const double* __restrict__ sxf, const int* __restrict__ sxc,
+                         const double* __restrict__ lhs, const double* __restrict__ rhs,
+                         const int* __restrict__ run_start, const int* __restrict__ run_slab,
+                         const bool* __restrict__ active, const double* __restrict__ lb,
+                         const double* __restrict__ ub, double* best_l, double* best_u,
+                         int n_runs, int64_t n_chunks, int r, int k, int64_t bsz,
+                         int64_t width, int64_t slab, double int_eps, double inf) {
+  const Lanes L = lanes_for<G>(n_chunks);
+  const int lane = threadIdx.x % kWarp;
+  const Copy c = copy_window(L, r, run_start, nullptr, run_slab, n_runs, width, slab);
+  for (int64_t b0 = 0; b0 < bsz; b0 += kWarp) {
+    unsigned int todo = __ballot_sync(0xffffffffu, b0 + lane < bsz && active[b0 + lane]);
+    while (todo != 0u) {
+      const int64_t b = b0 + __ffs(todo) - 1;
+      todo &= todo - 1u;
+      window_round<G>(val, col, ii, done, smf, smc, sxf, sxc, lhs, rhs, lb, ub, best_l, best_u,
+                      L, b * width + c.off, b * n_chunks + L.chunk, L.live, k, int_eps, inf);
+    }
+  }
+}
+
+// The window merge over (B, W) planes: grid (column blocks, B); the blocks
+// of an inactive row return at once.  A thread whose column tightens sets
+// its window's flag, which the wrapper zeroes first.
+__global__ void __launch_bounds__(kThreads)
+slab_merge_kernel(double* __restrict__ lb, double* __restrict__ ub,
+                  const double* __restrict__ best_l, const double* __restrict__ best_u,
+                  const bool* __restrict__ active, int* __restrict__ flags, int64_t width,
+                  int64_t slab, int64_t n_slabs, double eps, double inf, double outward) {
+  const int64_t b = blockIdx.y;
+  if (!active[b]) return;
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= width) return;
+  if (merge_one(lb, ub, best_l, best_u, b * width + j, eps, inf, outward))
+    flags[b * n_slabs + j / slab] = 1;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
+
+int slab_partials(const double* val, const int* col, const int* run_start, const int* run_inst,
+                  const int* run_slab, const bool* active, const double* lb, const double* ub,
+                  double* mf, int* mc, double* xf, int* xc, int n_runs, int64_t n_chunks, int r,
+                  int k, int64_t width, int64_t slab, double inf, cudaStream_t stream) {
+  LAUNCH_FOR_WIDTH(slab_partials_kernel, k, n_chunks, stream, val, col, run_start, run_inst,
+                   run_slab, active, lb, ub, mf, mc, xf, xc, n_runs, n_chunks, r, k, width,
+                   slab, inf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int node_slab_partials(const double* val, const int* col, const int* run_start,
+                       const int* run_slab, const bool* active, const double* lb,
+                       const double* ub, double* mf, int* mc, double* xf, int* xc, int n_runs,
+                       int64_t n_chunks, int r, int k, int64_t bsz, int64_t width, int64_t slab,
+                       double inf, cudaStream_t stream) {
+  LAUNCH_FOR_WIDTH(node_slab_partials_kernel, k, n_chunks, stream, val, col, run_start,
+                   run_slab, active, lb, ub, mf, mc, xf, xc, n_runs, n_chunks, r, k, bsz, width,
+                   slab, inf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int slab_scatter(const double* val, const int* col, const int* ii, const int* done,
+                 const double* smf, const int* smc, const double* sxf, const int* sxc,
+                 const double* lhs, const double* rhs, const int* run_start,
+                 const int* run_inst, const int* run_slab, const bool* active, const double* lb,
+                 const double* ub, double* best_l, double* best_u, int n_runs,
+                 int64_t n_chunks, int r, int k, int64_t width, int64_t slab, double int_eps,
+                 double inf, cudaStream_t stream) {
+  LAUNCH_FOR_WIDTH(slab_scatter_kernel, k, n_chunks, stream, val, col, ii, done, smf, smc, sxf,
+                   sxc, lhs, rhs, run_start, run_inst, run_slab, active, lb, ub, best_l, best_u,
+                   n_runs, n_chunks, r, k, width, slab, int_eps, inf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int node_slab_scatter(const double* val, const int* col, const int* ii, const int* done,
+                      const double* smf, const int* smc, const double* sxf, const int* sxc,
+                      const double* lhs, const double* rhs, const int* run_start,
+                      const int* run_slab, const bool* active, const double* lb,
+                      const double* ub, double* best_l, double* best_u, int n_runs,
+                      int64_t n_chunks, int r, int k, int64_t bsz, int64_t width, int64_t slab,
+                      double int_eps, double inf, cudaStream_t stream) {
+  LAUNCH_FOR_WIDTH(node_slab_scatter_kernel, k, n_chunks, stream, val, col, ii, done, smf, smc,
+                   sxf, sxc, lhs, rhs, run_start, run_slab, active, lb, ub, best_l, best_u,
+                   n_runs, n_chunks, r, k, bsz, width, slab, int_eps, inf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int slab_merge(double* lb, double* ub, const double* best_l, const double* best_u,
+               const bool* active, int* flags, int64_t bsz, int64_t width, int64_t slab,
+               double eps, double inf, double outward, cudaStream_t stream) {
+  const int64_t n_slabs = (width + slab - 1) / slab;
+  const dim3 grid(static_cast<unsigned int>((width + kThreads - 1) / kThreads),
+                  static_cast<unsigned int>(bsz));
+  slab_merge_kernel<<<grid, kThreads, 0, stream>>>(lb, ub, best_l, best_u, active, flags, width,
+                                                   slab, n_slabs, eps, inf, outward);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

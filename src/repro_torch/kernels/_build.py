@@ -1,10 +1,12 @@
-"""Build and load the CUDA kernels of ``csrc/prop_round.cu``.
+"""Build and load the CUDA kernels of ``csrc/``.
 
-The source is compiled with ``nvcc`` into a shared library with a plain C
-interface, at first use, into ``build/<hash>/`` beside the package (a
-directory that git ignores), keyed by a hash of the source and the flags, and
-loaded with ``ctypes``.  Nothing is built or loaded when the package is
-imported; a CPU-only installation never reaches this module.
+Each source (``prop_round.cu``, ``slab_round.cu``) is compiled with ``nvcc``
+into a shared library with a plain C interface, at first use, into
+``build/<hash>/`` beside the package (a directory that git ignores), keyed
+by a hash of the sources, the shared header and the flags, and loaded with
+``ctypes``.  The compilers run in parallel, one process per source.
+Nothing is built or loaded when the package is imported; a CPU-only
+installation never reaches this module.
 """
 from __future__ import annotations
 
@@ -17,9 +19,12 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "prop_round.cu"
+CSRC = _PKG / "csrc"
+SOURCES = (CSRC / "prop_round.cu", CSRC / "slab_round.cu")
+HEADERS = (CSRC / "round_common.cuh",)
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -28,20 +33,30 @@ NVCC_FLAGS = (
 )
 
 P, I64, I32, F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
-# C entry points: argument types in order, every one returns a cudaError_t.
+# C entry points of each source: argument types in order, every one returns
+# a cudaError_t.
 SIGNATURES = {
-    "fused_scatter_round": [P] * 9 + [I64, I32, F64, F64, P],
-    "activities_gather": [P] * 8 + [I64, I32, F64, P],
-    "candidates_scatter": [P] * 13 + [I64, I32, F64, F64, P],
-    "apply_updates": [P] * 5 + [I64, F64, F64, F64, P],
-    "combine_chunk_partials": [P] * 9 + [I64, P],
-    "node_fused_scatter_round": [P] * 10 + [I64, I32, I64, I64, F64, F64, P],
-    "apply_updates_batch": [P] * 6 + [I64, I64, F64, F64, F64, P],
-    "node_objective": [P] * 8 + [I64, I64, F64, F64, P],
+    "prop_round.cu": {
+        "fused_scatter_round": [P] * 9 + [I64, I32, F64, F64, P],
+        "activities_gather": [P] * 8 + [I64, I32, F64, P],
+        "candidates_scatter": [P] * 13 + [I64, I32, F64, F64, P],
+        "apply_updates": [P] * 5 + [I64, F64, F64, F64, P],
+        "combine_chunk_partials": [P] * 9 + [I64, P],
+        "node_fused_scatter_round": [P] * 10 + [I64, I32, I64, I64, F64, F64, P],
+        "apply_updates_batch": [P] * 6 + [I64, I64, F64, F64, F64, P],
+        "node_objective": [P] * 8 + [I64, I64, F64, F64, P],
+    },
+    "slab_round.cu": {
+        "slab_partials": [P] * 12 + [I32, I64, I32, I32, I64, I64, F64, P],
+        "node_slab_partials": [P] * 11 + [I32, I64, I32, I32, I64, I64, I64, F64, P],
+        "slab_scatter": [P] * 18 + [I32, I64, I32, I32, I64, I64, F64, F64, P],
+        "node_slab_scatter": [P] * 17 + [I32, I64, I32, I32, I64, I64, I64, F64, F64, P],
+        "slab_merge": [P] * 6 + [I64, I64, I64, F64, F64, F64, P],
+    },
 }
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_lib: SimpleNamespace | None = None
 build_info: dict = {}
 
 
@@ -53,58 +68,84 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / key[:16] / "libprop_round.so"
+def build_path() -> Path:
+    """The build directory of this set of sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (*SOURCES, *HEADERS):
+        h.update(f.name.encode() + f.read_bytes())
+    return BUILD_DIR / h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for this source already exists.
+def library_paths() -> list[Path]:
+    return [build_path() / f"lib{src.stem}.so" for src in SOURCES]
 
-    The compiler writes into a temporary file that is renamed into place, so
-    concurrent processes never load a half-written library.  ``build_info``
-    records the seconds taken and the compiler's register report."""
-    out = library_path()
-    if out.exists():
+
+def build() -> list[Path]:
+    """Compile every source whose library does not exist yet, all at once.
+
+    Each compiler writes into a temporary file that is renamed into place,
+    so concurrent processes never load a half-written library.
+    ``build_info`` records the seconds taken and the compilers' register
+    reports."""
+    outs = library_paths()
+    todo = [(src, out) for src, out in zip(SOURCES, outs) if not out.exists()]
+    if not todo:
         build_info.setdefault("seconds", 0.0)
         build_info.setdefault("cached", True)
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
+        return outs
+    outs[0].parent.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
+    jobs, tmps = [], []
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True, check=False,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)
+        for src, out in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+            os.close(fd)
+            tmps.append(tmp)
+            jobs.append(subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            ))
+        logs = []
+        for (src, out), proc, tmp in zip(todo, jobs, tmps):
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {src.name} ({proc.returncode}):\n{stdout}\n{stderr}"
+                )
+            logs.append(stdout + stderr)
+        for (_, out), tmp in zip(todo, tmps):
+            os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    build_info.update(
-        seconds=time.perf_counter() - t0, cached=False, log=proc.stdout + proc.stderr
-    )
-    return out
+        for proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for tmp in tmps:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    build_info.update(seconds=time.perf_counter() - t0, cached=False, log="".join(logs))
+    return outs
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+def lib() -> SimpleNamespace:
+    """The loaded kernel libraries' entry points, by name (built on first
+    call)."""
     global _lib
     with _lock:
         if _lib is None:
-            handle = ctypes.CDLL(str(build()))
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(handle, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            handle.error_string.argtypes = [ctypes.c_int]
-            handle.error_string.restype = ctypes.c_char_p
-            _lib = handle
+            entries = {}
+            for src, path in zip(SOURCES, build()):
+                handle = ctypes.CDLL(str(path))
+                for name, argtypes in SIGNATURES[src.name].items():
+                    fn = getattr(handle, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    entries[name] = fn
+                if "error_string" not in entries:
+                    handle.error_string.argtypes = [ctypes.c_int]
+                    handle.error_string.restype = ctypes.c_char_p
+                    entries["error_string"] = handle.error_string
+            _lib = SimpleNamespace(**entries)
         return _lib
 
 

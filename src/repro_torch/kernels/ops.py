@@ -13,10 +13,21 @@ semantics so they converge to the same fixed points.
     rows that span chunks run kernel A' (chunk partials), the combine kernel
     (each row's partials summed left to right), kernel E (candidates +
     column max/min), then F.
+  * The ``"partitioned"`` round (``slab.SlabPartition``, built once per slab
+    width on the host): the straddle rows' copy partials (#11), their
+    completed aggregates by the combine kernel in one fixed order, then
+    the slab round (#12: scatter into accumulator planes, then #15's window
+    merge, in place).
+  * ``scatter="auto"`` picks the engine as the reference does: ``fused``
+    while ``n_pad <= SCATTER_MAX_NPAD``, ``partitioned`` beyond.  The limit
+    picks the engine and no longer bounds what the port can run: an
+    explicit ``scatter="fused"`` runs at any ``n_pad``.
   * The node round: kernel #10 then the batched merge #9 where rows fit one
-    chunk, else the single-instance round per node, masked.
+    chunk, else the single-instance round per node, masked; past
+    ``SCATTER_MAX_NPAD`` the partitioned node kernels (#13, the combine,
+    #14 with #15) over the ``(B, n_pad)`` planes, whatever the tile width.
   * The fixed point runs on private copies of the cached initial bounds, so
-    F's in-place merge never touches the cache.
+    the in-place merges never touch the cache.
 
 Per-round device-memory traffic of the fused round: ``val`` (8 B per padded
 slot, its zeros mark the padding), ``col`` and ``is_int`` (8 B per nonzero),
@@ -46,11 +57,18 @@ from ..core.sparse import Problem, col_pad, csr_to_block_ell
 from ..core.types import DEFAULT_CONFIG, PropagationResult, PropagatorConfig
 from . import prop_round as kern
 from . import ref as kref
+from .slab import (  # noqa: F401  (re-exported)
+    SCATTER_MAX_NPAD,
+    SLAB_NPAD,
+    SlabPartition,
+    build_slab_partition,
+    default_slab_width,
+)
 
-# Largest padded column count the fused engine takes.  It is the JAX
-# package's VMEM budget, kept until the H100's own limit is measured; beyond
-# it the reference switches to the column-slab partitioned engine.
-SCATTER_MAX_NPAD = 1 << 16
+# SCATTER_MAX_NPAD and SLAB_NPAD are read from this module at call time, so
+# a caller (or a test) may move the point where ``scatter="auto"`` switches
+# engines.  SCATTER_MAX_NPAD is the JAX package's VMEM budget, kept so that
+# both packages pick the same engine; it limits nothing on the H100.
 
 
 class DeviceBlockEll(NamedTuple):
@@ -162,6 +180,41 @@ class PreparedBlockEll:
     n: int
     n_pad: int
     fits_one_chunk: bool
+    # Slab partitions, built lazily and keyed by slab width, and the
+    # straddle combine's segments keyed by (slab width, planes); shared by
+    # bounds-swapped views of this prep.
+    _slabs: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def slab_partition(self, slab: int | None = None) -> SlabPartition:
+        """This instance's tile stream re-bucketed into ``slab``-wide column
+        windows (default: :func:`default_slab_width` under the module's
+        :data:`SLAB_NPAD`, read at call time), for the partitioned engine.
+        Built once per slab width on the host from the tiles and cached on
+        the prep; its tensors live on the prep's device."""
+        s = default_slab_width(self.n_pad, SLAB_NPAD) if slab is None else int(slab)
+        part = self._slabs.get(s)
+        if part is None:
+            d = self.d
+            is_int_rows = np.zeros((1, self.n_pad), dtype=bool)
+            is_int_rows[0, : self.n] = d.is_int.cpu().numpy()
+            host = lambda x: x.cpu().numpy()
+            part = build_slab_partition(
+                host(d.val), host(d.col), host(d.chunk_row),
+                np.zeros(d.val.shape[0], dtype=np.int32), host(d.lhs1), host(d.rhs1),
+                is_int_rows, self.n_pad, s, np.array([self.m], dtype=np.int32),
+                device=d.val.device,
+            )
+            self._slabs[s] = part
+        return part
+
+    def straddle_segments(self, part: SlabPartition, planes: int):
+        """The straddle combine's segments over ``planes`` bound planes of
+        ``part`` (``ref.straddle_segments``), cached."""
+        key = (part.slab, int(planes))
+        segs = self._slabs.get(key)
+        if segs is None:
+            segs = self._slabs[key] = kref.straddle_segments(part, planes)
+        return segs
 
     def pad_bound(self, arr) -> torch.Tensor:
         """One caller bound vector -> the column-padded ``(n_pad,)`` domain
@@ -254,6 +307,7 @@ class RoundOps(NamedTuple):
     merge: Callable       # F: (lb, ub, best_l, best_u, eps, inf, outward) -> (lb, ub, changed)
     node_fused: Callable  # #10: tiles + (B, n_pad) planes + active -> (best_l, best_u)
     merge_batch: Callable  # #9: (lb, ub, best_l, best_u, active, eps, inf, outward)
+    partitioned: Callable  # (part, lb, ub, active, ...) -> (lb, ub, (B,) changed)
 
 
 def _plain_node_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, int_eps, inf):
@@ -266,6 +320,74 @@ def _plain_merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward=0.0):
     return bnd.apply_updates_batch(lb, ub, best_l, best_u, eps, inf, outward, active=active)
 
 
+def _partitioned_kernel_round(
+    part: SlabPartition, lb, ub, active, *, node: bool, eps: float, int_eps: float,
+    inf: float, outward: float = 0.0, segments=None,
+):
+    """One partitioned round on the kernels over ``(B, W)`` planes (``W`` the
+    instance's ``n_pad``: no real nonzero reaches past it), IN PLACE:
+    straddle-row partials (#11, or #13 per node), their completed
+    aggregates (the combine kernel, each slot's partials left to right in
+    sub-stream order), then the slab round (#12, or #14 per node: scatter,
+    then #15's window merge).  ``node=False`` routes copies to their own
+    instance's plane by the run maps (a single instance passes ``B == 1``);
+    ``node=True`` runs ONE instance's copies against every node's plane.
+    ``segments`` are the combine's cached segments
+    (:meth:`PreparedBlockEll.straddle_segments`).  Returns ``(lb, ub,
+    changed)`` with ``(B,)`` bool flags: the window flags OR-ed per plane."""
+    bsz = lb.shape[0]
+    if part.has_straddle:
+        if node:
+            partials = kern.node_slab_partials_tiles(
+                part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_slab,
+                active, lb, ub, part.slab, part.a_max_run_len, inf,
+            )
+        else:
+            partials = kern.batched_slab_partials_tiles(
+                part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_inst,
+                part.a_run_slab, active, lb, ub, part.slab, part.a_max_run_len, inf,
+            )
+        strs = kref.straddle_tables(part, *partials, segments=segments,
+                                    combine=kern.combine_chunk_partials_tiles)
+    else:
+        shape = ((bsz,) if node else ()) + tuple(part.chunk_row.shape)
+        z = torch.zeros(shape, dtype=lb.dtype, device=lb.device)
+        zi = torch.zeros(shape, dtype=torch.int32, device=lb.device)
+        strs = (z, zi, z, zi)
+    common = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
+              part.run_start, part.run_len)
+    if node:
+        lb, ub, ch = kern.node_slab_round_tiles(
+            *common, part.run_slab, active, lb, ub, part.slab, part.max_run_len, eps, int_eps,
+            inf, outward,
+        )
+    else:
+        lb, ub, ch = kern.batched_slab_round_tiles(
+            *common, part.run_inst, part.run_slab, active, lb, ub, part.slab,
+            part.max_run_len, eps, int_eps, inf, outward,
+        )
+    # Runs lie in window order: (plane, slab).
+    return lb, ub, (ch.reshape(bsz, -1) != 0).any(dim=1)
+
+
+def _partitioned_plain_round(
+    part: SlabPartition, lb, ub, active, *, node: bool, eps: float, int_eps: float,
+    inf: float, outward: float = 0.0, segments=None,
+):
+    """The plain partitioned round, as the reference's ``use_pallas=False``:
+    ``ref.partitioned_round_ref`` (per active node under ``node=True``) and
+    the shared merge; returns new ``(B, W)`` planes and ``(B,)`` flags."""
+    del segments
+    if node:
+        best_l, best_u = kref.node_partitioned_round_ref(part, lb, ub, int_eps, inf,
+                                                         active=active)
+    else:
+        best_l, best_u = kref.partitioned_round_ref(part, lb, ub, int_eps, inf)
+    width = lb.shape[1]
+    return bnd.apply_updates_batch(lb, ub, best_l[:, :width], best_u[:, :width], eps, inf,
+                                   outward, active=active)
+
+
 KERNEL_OPS = RoundOps(
     kern.fused_scatter_round_tiles,
     kern.activities_gather_tiles,
@@ -274,6 +396,7 @@ KERNEL_OPS = RoundOps(
     kern.apply_updates_tiles,
     kern.node_fused_scatter_round_tiles,
     kern.apply_updates_batch_tiles,
+    _partitioned_kernel_round,
 )
 PLAIN_OPS = RoundOps(
     kref.fused_scatter_round_tiles_ref,
@@ -283,6 +406,7 @@ PLAIN_OPS = RoundOps(
     bnd.apply_updates,
     _plain_node_fused,
     _plain_merge_batch,
+    _partitioned_plain_round,
 )
 
 
@@ -297,11 +421,21 @@ def _prepared_round(
     inf: float,
     fused: bool,
     outward: float = 0.0,
+    part: SlabPartition | None = None,
 ):
-    """One fused-scatter round over hoisted constants; (lb, ub) live in the
-    column-padded ``(n_pad,)`` domain.  Returns ``(lb, ub, changed)``; with
-    :data:`KERNEL_OPS` the bounds are updated in place."""
+    """One round over hoisted constants; (lb, ub) live in the column-padded
+    ``(n_pad,)`` domain.  Returns ``(lb, ub, changed)``; with
+    :data:`KERNEL_OPS` the bounds are updated in place.  With a slab
+    partition ``part`` the partitioned round runs (it ignores ``fused``:
+    split rows are straddle rows there)."""
     d = prep.d
+    if part is not None:
+        one = torch.ones((1,), dtype=torch.bool, device=lb.device)
+        new_lb, new_ub, ch = ops.partitioned(
+            part, lb[None], ub[None], one, node=False, eps=eps, int_eps=int_eps, inf=inf,
+            outward=outward, segments=prep.straddle_segments(part, 1),
+        )
+        return new_lb[0], new_ub[0], ch[0]
     if fused:
         best_l, best_u = ops.fused(
             d.val, d.col, prep.ii_g, prep.lhs_g, prep.rhs_g, lb, ub, prep.n_pad, int_eps, inf,
@@ -320,21 +454,18 @@ def _prepared_round(
 
 
 def _resolve_scatter(scatter: str, prep: PreparedBlockEll) -> str:
-    """``auto`` and ``fused`` resolve to the fused round while the padded
-    column count is within :data:`SCATTER_MAX_NPAD`; the other engines of
-    the reference are later slices of the port."""
-    if scatter in ("segment", "partitioned"):
-        entry = {"segment": "item 4 (segment dataflow)",
-                 "partitioned": "item 9 (partitioned engine)"}[scatter]
-        not_ported(f"scatter={scatter!r}", entry)
-    if scatter not in ("auto", "fused"):
+    """The engine decision, as the reference's: ``auto`` keeps the fused
+    round while ``n_pad <= SCATTER_MAX_NPAD`` (read at call time) and takes
+    the column-slab ``partitioned`` round beyond it; ``fused`` and
+    ``partitioned`` run at any ``n_pad``.  ``segment`` is a later slice of
+    the port."""
+    if scatter == "auto":
+        return "fused" if prep.n_pad <= SCATTER_MAX_NPAD else "partitioned"
+    if scatter == "segment":
+        not_ported("scatter='segment'", "item 4 (segment dataflow)")
+    if scatter not in ("fused", "partitioned"):
         raise ValueError(f"unknown scatter mode: {scatter!r}")
-    if prep.n_pad > SCATTER_MAX_NPAD:
-        not_ported(
-            f"n_pad={prep.n_pad} > {SCATTER_MAX_NPAD} (the partitioned engine)",
-            "item 9 (partitioned engine)",
-        )
-    return "fused"
+    return scatter
 
 
 def round_fn_for(
@@ -343,19 +474,23 @@ def round_fn_for(
     use_kernels: bool = True,
     scatter: str = "fused",
     fused: bool | None = None,
+    slab: int | None = None,
 ):
     """A ``(lb, ub) -> (lb, ub, changed)`` round closure over a prepared
-    instance (bounds in the ``(n_pad,)`` domain)."""
-    _resolve_scatter(scatter, prep)
+    instance (bounds in the ``(n_pad,)`` domain).  ``slab`` overrides the
+    partitioned engine's column-slab width (default
+    :func:`default_slab_width`; ignored by the fused engine)."""
+    scatter = _resolve_scatter(scatter, prep)
     do_fuse = prep.fits_one_chunk if fused is None else bool(fused)
     dt = prep.d.val.dtype
     eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
     ops = KERNEL_OPS if use_kernels else PLAIN_OPS
+    part = prep.slab_partition(slab) if scatter == "partitioned" else None
 
     def round_fn(lb, ub):
         return _prepared_round(
             prep, lb, ub, ops=ops, eps=eps, int_eps=cfg.int_eps, inf=cfg.inf,
-            fused=do_fuse, outward=outward,
+            fused=do_fuse, outward=outward, part=part,
         )
 
     return round_fn
@@ -381,6 +516,7 @@ def propagate_block_ell(
     scatter: str = "auto",
     lb0=None,
     ub0=None,
+    slab: int | None = None,
     stop_progress: float | None = None,
     policy=None,
     telemetry=None,
@@ -390,7 +526,10 @@ def propagate_block_ell(
     """Kernel-backed propagation of one instance.
 
     ``fused='auto'`` runs kernel D whenever every row fits one chunk and the
-    A'/E pair otherwise (``'yes'``/``'no'`` force one).  ``use_kernels=False``
+    A'/E pair otherwise (``'yes'``/``'no'`` force one).  ``scatter='auto'``
+    takes that fused engine while ``n_pad <= SCATTER_MAX_NPAD`` and the
+    column-slab ``'partitioned'`` engine beyond it (``slab`` overrides its
+    window width); either may be asked for at any size.  ``use_kernels=False``
     runs the kernels' plain PyTorch versions instead (the counterpart of the
     reference's ``use_pallas=False``); on a CPU device the wrappers run the
     plain versions either way.  ``lb0``/``ub0`` warm-start the fixed point
@@ -410,7 +549,7 @@ def propagate_block_ell(
         not_ported("telemetry=", "item 6 (observability)")
     prep = prepare_block_ell(p, tile_rows, tile_width, dtype, device)
     do_fuse = prep.fits_one_chunk if fused == "auto" else bool(fused == "yes" or fused is True)
-    round_fn = round_fn_for(prep, cfg, use_kernels, scatter, do_fuse)
+    round_fn = round_fn_for(prep, cfg, use_kernels, scatter, do_fuse, slab)
     lb, ub = _initial_padded_bounds(prep, lb0, ub0)
     lb, ub, rounds, changed, prog = fixed_point(round_fn, lb, ub, cfg.max_rounds, on_sync)
     return _result(lb[: prep.n], ub[: prep.n], rounds, changed, prog, cfg.feas_eps)
@@ -423,17 +562,25 @@ def propagate_block_ell(
 
 def _node_round(
     prep: PreparedBlockEll, lb, ub, active, *, ops: RoundOps, eps: float,
-    int_eps: float, inf: float, outward: float = 0.0,
+    int_eps: float, inf: float, outward: float = 0.0, part: SlabPartition | None = None,
 ):
     """One round over a node batch: ``(B, n_pad)`` per-node bounds + ``(B,)``
     active mask -> updated bounds + per-node changed flags, the matrix tiles
     shared by every node.
 
-    Rows that fit one chunk run kernel #10 then the batched merge #9, which
-    skip inactive nodes on the device.  Otherwise each node runs the
-    single-instance round (A', combine, E, F) on copies of its rows, and the
-    results of inactive nodes are masked out afterwards, as the reference's
-    vmapped round does -- no node is picked on the host."""
+    With a slab partition ``part`` (instances past ``SCATTER_MAX_NPAD``)
+    the partitioned node round runs: #13, the combine, #14 and #15's merge,
+    which skip inactive nodes on the device (the plain path: the
+    partitioned oracle per active node).  Else rows that fit one chunk run
+    kernel #10 then the batched merge #9, likewise.  Otherwise each node
+    runs the single-instance round (A', combine, E, F) on copies of its
+    rows, and the results of inactive nodes are masked out afterwards, as
+    the reference's vmapped round does -- no node is picked on the host."""
+    if part is not None:
+        return ops.partitioned(
+            part, lb, ub, active, node=True, eps=eps, int_eps=int_eps, inf=inf,
+            outward=outward, segments=prep.straddle_segments(part, lb.shape[0]),
+        )
     if prep.fits_one_chunk:
         d = prep.d
         best_l, best_u = ops.node_fused(
@@ -456,24 +603,24 @@ def _node_round(
 
 
 def node_round_fn_for(
-    prep: PreparedBlockEll, cfg: PropagatorConfig = DEFAULT_CONFIG, use_kernels: bool = True
+    prep: PreparedBlockEll, cfg: PropagatorConfig = DEFAULT_CONFIG, use_kernels: bool = True,
+    slab: int | None = None,
 ):
     """A ``(lb, ub, active) -> (lb, ub, changed)`` node-batch round closure
-    over a prepared instance (bounds ``(B, n_pad)``).  With kernels the
-    planes are updated in place where rows fit one chunk."""
-    if prep.n_pad > SCATTER_MAX_NPAD:
-        not_ported(
-            f"node batches at n_pad={prep.n_pad} > {SCATTER_MAX_NPAD} (the partitioned "
-            "node kernels)", "item 9 (partitioned engine)",
-        )
+    over a prepared instance (bounds ``(B, n_pad)``).  Past
+    ``SCATTER_MAX_NPAD`` (read at call time) it runs the partitioned node
+    kernels, ``slab`` overriding the window width.  With kernels the planes
+    are updated in place where rows fit one chunk or the instance is
+    partitioned."""
     dt = prep.d.val.dtype
     eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
     ops = KERNEL_OPS if use_kernels else PLAIN_OPS
+    part = prep.slab_partition(slab) if prep.n_pad > SCATTER_MAX_NPAD else None
 
     def round_fn(lb, ub, active):
         return _node_round(
             prep, lb, ub, active, ops=ops, eps=eps, int_eps=cfg.int_eps, inf=cfg.inf,
-            outward=outward,
+            outward=outward, part=part,
         )
 
     return round_fn
@@ -485,14 +632,16 @@ def node_batch_runner(
     cfg: PropagatorConfig = DEFAULT_CONFIG,
     use_kernels: bool = True,
     on_sync: Callable[[], None] | None = None,
+    slab: int | None = None,
 ):
     """The node batch's whole fixed point as one function: ``run(lb0, ub0)
     -> (lb, ub, rounds, converged, infeasible, progress)`` over ``(B,
     n_pad)`` planes, the node axis leading everywhere.  PyTorch runs
-    eagerly, so nothing is compiled or cached here; the prepared tiles are
-    (see :func:`cache_info`).  ``on_sync`` is called once per host read of
-    the loop's exit flag (one per round)."""
-    round_fn = node_round_fn_for(prep, cfg, use_kernels)
+    eagerly, so nothing is compiled or cached here; the prepared tiles and
+    slab partitions are (see :func:`cache_info`).  ``on_sync`` is called
+    once per host read of the loop's exit flag (one per round); ``slab``
+    as in :func:`node_round_fn_for`."""
+    round_fn = node_round_fn_for(prep, cfg, use_kernels, slab)
     col_valid = torch.arange(prep.n_pad, device=prep.lb0.device) < prep.n
 
     def run(lb0, ub0):
@@ -537,6 +686,7 @@ def propagate_nodes_prepared(
     use_kernels: bool = True,
     with_progress: bool = False,
     on_sync: Callable[[], None] | None = None,
+    slab: int | None = None,
 ):
     """Run B warm-started nodes of one prepared instance to their fixed
     points together.
@@ -547,9 +697,11 @@ def propagate_nodes_prepared(
     (``with_progress=True`` appends the ``(B,)`` last-round progress
     measure); ``infeasible`` marks nodes whose domain emptied.  Each node's
     result is exactly what its own single-instance warm-started
-    ``propagate_block_ell`` run gives, round counts included."""
+    ``propagate_block_ell`` run gives, round counts included.  Past
+    ``SCATTER_MAX_NPAD`` the nodes run the partitioned node kernels
+    (``slab`` overrides the window width)."""
     lb0, ub0 = _node_planes(prep, lb_nodes, ub_nodes)
-    run = node_batch_runner(prep, lb0.shape[0], cfg, use_kernels, on_sync)
+    run = node_batch_runner(prep, lb0.shape[0], cfg, use_kernels, on_sync, slab)
     lb, ub, rounds, converged, infeasible, progress = run(lb0, ub0)
     out = (lb[:, : prep.n], ub[:, : prep.n], rounds, converged, infeasible)
     return out + (progress,) if with_progress else out

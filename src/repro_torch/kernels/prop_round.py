@@ -1,21 +1,25 @@
-"""The kernels of the fused propagation round, of its node-batch form and of
-the solver's node objective, behind PyTorch wrappers.
+"""The kernels of the fused propagation round, of its node-batch form, of the
+column-slab partitioned round and of the solver's node objective, behind
+PyTorch wrappers.
 
 Each wrapper of a TPU kernel keeps the signature of its Pallas twin in the
 JAX package (``src/repro/kernels/prop_round.py``) minus ``interpret`` and
 ``block``; the long-row combine replaces an XLA segment sum.  On
 a CPU tensor it runs the kernel's plain-PyTorch version (``ref.py``); on a
 CUDA tensor it launches the hand-written Hopper kernel of
-``csrc/prop_round.cu`` on the current stream, or raises -- it never falls
-back.  Each wrapper counts its kernel launches in a plain integer attribute,
-``<wrapper>.launches`` (see :func:`launch_counts`).
+``csrc/prop_round.cu`` or ``csrc/slab_round.cu`` on the current stream, or
+raises -- it never falls back.  Each wrapper counts its kernel launches in
+a plain integer attribute, ``<wrapper>.launches`` (see
+:func:`launch_counts`).
 
 Layout of the tile arguments: ``val`` (T, R, K) float64 with 0 at padding,
 ``col`` (T, R, K) int32 with every id in ``[0, n_pad)``, ``is_int_g``
 (T, R, K) int32 integrality of each slot's column, per-chunk sides and row
 aggregates (T, R), bound vectors (n_pad,) float64; node batches carry
-(B, n_pad) float64 planes and a (B,) bool ``active`` mask.  All contiguous,
-all on one device.
+(B, n_pad) float64 planes and a (B,) bool ``active`` mask.  The slab
+kernels take a partition's copy tiles (slab-local ``col_s``), its (n_runs,)
+int32 run maps and (B, W) planes (W the partition's ``n_pad_part`` or the
+instance's ``n_pad``).  All contiguous, all on one device.
 """
 from __future__ import annotations
 
@@ -413,6 +417,298 @@ def node_objective_tiles(lb, ub, c, is_int, valid, feas_eps: float, inf: float =
 node_objective_tiles.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# The column-slab partitioned round: kernels #11-#15 (csrc/slab_round.cu)
+# ---------------------------------------------------------------------------
+
+
+def _check_runs(n_tiles: int, **runs) -> int:
+    """Run maps are (n_runs,) int32 and cover the copy tiles; returns
+    n_runs."""
+    n_runs = None
+    for name, t in runs.items():
+        n_runs = t.shape[0] if n_runs is None else n_runs
+        _expect(name, t, torch.int32, (n_runs,))
+    if n_runs == 0 and n_tiles:
+        raise ValueError("copy tiles without runs")
+    return n_runs
+
+
+def _check_copies(val, col_s, lb, ub, active):
+    t, r, k = val.shape
+    _expect("val", val, torch.float64, (t, r, k))
+    _expect("col_s", col_s, torch.int32, (t, r, k))
+    bsz, width = lb.shape
+    _check_planes(bsz, width, lb=lb, ub=ub)
+    _expect("active", active, torch.bool, (bsz,))
+    if bsz > MAX_GRID_Y:
+        raise ValueError(f"{bsz} planes exceed the grid's {MAX_GRID_Y}")
+    return t, r, k, bsz, width
+
+
+def _n_slabs(width: int, slab: int) -> int:
+    return -(-width // slab)
+
+
+def batched_slab_partials_tiles(
+    val, col_s, run_start, run_len, run_inst, run_slab, active, lb, ub, slab: int,
+    max_run_len: int, inf: float = INF,
+):
+    """Per-copy activity partials of a slab-partitioned sub-stream:
+    ``(Ta, R, K)`` copies with slab-local columns + the run maps (one run
+    per populated ``(instance, slab)`` window, ``(n_runs,)`` int32) + ``(B,
+    W)`` bound planes + ``(B,)`` bool ``active`` -> 4 x ``(Ta, R)`` partials
+    (float64 sums, int32 counts); the copies of inactive instances get
+    zeros.  ``W`` is ``n_pad_part`` or the instance's ``n_pad``; a copy's
+    window starts at ``inst * W + slab_id * slab``.  ``max_run_len`` sizes
+    the TPU's grid and is not used here.
+
+    Replaces ``batched_slab_partials_tiles`` /
+    ``_batched_slab_partials_kernel`` (src/repro/kernels/prop_round.py:1129
+    / :1090).  Bound on the H100: the sub-stream's bytes (8 B of ``val`` per
+    slot, 4 B of ``col_s`` per nonzero) plus 24 B of partials per chunk.
+    Design: kernel A''s lane group per chunk; a copy finds its run by a
+    binary search over ``run_start`` and gathers from its window by an
+    indexed load; no grid step is padded."""
+    operands = (val, col_s, run_start, run_len, run_inst, run_slab, active, lb, ub)
+    if not _on_cuda(*operands):
+        return ref.batched_slab_partials_ref(*operands, slab, max_run_len, inf)
+    t, r, k, _, width = _check_copies(val, col_s, lb, ub, active)
+    n_runs = _check_runs(t, run_start=run_start, run_len=run_len, run_inst=run_inst,
+                         run_slab=run_slab)
+    dev = val.device
+    mf = torch.empty((t, r), dtype=torch.float64, device=dev)
+    xf = torch.empty((t, r), dtype=torch.float64, device=dev)
+    mc = torch.empty((t, r), dtype=torch.int32, device=dev)
+    xc = torch.empty((t, r), dtype=torch.int32, device=dev)
+    if t == 0:
+        return mf, mc, xf, xc
+    err = _build.lib().slab_partials(
+        _p(val), _p(col_s), _p(run_start), _p(run_inst), _p(run_slab), _p(active), _p(lb),
+        _p(ub), _p(mf), _p(mc), _p(xf), _p(xc), n_runs, t * r, r, k, width, slab, inf,
+        _stream(),
+    )
+    batched_slab_partials_tiles.launches += 1
+    _build.check(err, "slab_partials")
+    return mf, mc, xf, xc
+
+
+batched_slab_partials_tiles.launches = 0
+
+
+def _slab_merge(lb, ub, best_l, best_u, active, slab: int, eps: float, inf: float,
+                outward: float):
+    """Launch kernel #15 on ``(B, W)`` planes, in place; returns the ``(B,
+    n_slabs)`` int32 window flags.  Counted as a launch of
+    :func:`apply_updates_slab_tiles`, whichever wrapper calls it."""
+    bsz, width = lb.shape
+    flags = torch.zeros((bsz, _n_slabs(width, slab)), dtype=torch.int32, device=lb.device)
+    err = _build.lib().slab_merge(
+        _p(lb), _p(ub), _p(best_l), _p(best_u), _p(active), _p(flags), bsz, width, slab, eps,
+        inf, outward, _stream(),
+    )
+    apply_updates_slab_tiles.launches += 1
+    _build.check(err, "slab_merge")
+    return flags
+
+
+def _check_round(val, col_s, is_int_g, row_done, lhs_g, rhs_g, strs, str_lead, lb, ub, active):
+    t, r, k, bsz, width = _check_copies(val, col_s, lb, ub, active)
+    _expect("is_int_g", is_int_g, torch.int32, (t, r, k))
+    _expect("row_done", row_done, torch.int32, (t, r))
+    _expect("lhs_g", lhs_g, torch.float64, (t, r))
+    _expect("rhs_g", rhs_g, torch.float64, (t, r))
+    for name, x, dt in zip(("str_min_fin", "str_min_cnt", "str_max_fin", "str_max_cnt"), strs,
+                           (torch.float64, torch.int32, torch.float64, torch.int32)):
+        _expect(name, x, dt, (*str_lead, t, r))
+    return t, r, k, bsz, width
+
+
+def batched_slab_round_tiles(
+    val, col_s, is_int_g, row_done, str_min_fin, str_min_cnt, str_max_fin, str_max_cnt,
+    lhs_g, rhs_g, run_start, run_len, run_inst, run_slab, active, lb, ub, slab: int,
+    max_run_len: int, eps: float, int_eps: float, inf: float = INF, outward: float = 0.0,
+):
+    """The slab round over a partitioned stream, IN PLACE: ``(T'', R, K)``
+    copies + ``(T'', R)`` ``row_done`` and straddle aggregates ``str_*``
+    (read where ``row_done == 0``) + sides + the run maps (one run per
+    ``(instance, slab)`` window, in window order) + ``(B, W)`` planes +
+    ``(B,)`` ``active`` -> the planes, updated, and ``(n_runs,)`` int32
+    per-run changed flags (``n_runs == B * n_slabs``).  Inactive instances
+    pass through.
+
+    Replaces ``batched_slab_round_tiles`` / ``_batched_slab_round_kernel``
+    (src/repro/kernels/prop_round.py:1258 / :1195), whose merge at each
+    run's last grid step relies on the TPU running a run's tiles in order.
+    Bound on the H100: the copy stream (8 B of ``val`` per slot, 8 B of
+    ``col_s`` and ``is_int_g`` per kept nonzero, 40 B of row data per
+    chunk), the window bounds read and written, and the accumulator planes
+    written and read once.  Design: two launches -- kernel D's lane groups
+    scatter every copy's candidates into ``(B, W)`` accumulator planes
+    (float64 CAS max/min, filled with the sentinel first), then kernel
+    #15's window merge runs once every copy has scattered, in place (counted
+    as #15's launch)."""
+    strs = (str_min_fin, str_min_cnt, str_max_fin, str_max_cnt)
+    operands = (val, col_s, is_int_g, row_done, *strs, lhs_g, rhs_g, run_start, run_len,
+                run_inst, run_slab, active, lb, ub)
+    if not _on_cuda(*operands):
+        new_lb, new_ub, ch = ref.batched_slab_round_ref(
+            *operands, slab, max_run_len, eps, int_eps, inf, outward
+        )
+        lb.copy_(new_lb)
+        ub.copy_(new_ub)
+        return lb, ub, ch
+    t, r, k, bsz, width = _check_round(val, col_s, is_int_g, row_done, lhs_g, rhs_g, strs, (),
+                                       lb, ub, active)
+    n_runs = _check_runs(t, run_start=run_start, run_len=run_len, run_inst=run_inst,
+                         run_slab=run_slab)
+    if n_runs != bsz * _n_slabs(width, slab):
+        raise ValueError(f"{n_runs} runs, expected one per window ({bsz} x "
+                         f"{_n_slabs(width, slab)})")
+    best_l = torch.full((bsz, width), -inf, dtype=torch.float64, device=val.device)
+    best_u = torch.full((bsz, width), inf, dtype=torch.float64, device=val.device)
+    err = _build.lib().slab_scatter(
+        _p(val), _p(col_s), _p(is_int_g), _p(row_done), *map(_p, strs), _p(lhs_g), _p(rhs_g),
+        _p(run_start), _p(run_inst), _p(run_slab), _p(active), _p(lb), _p(ub), _p(best_l),
+        _p(best_u), n_runs, t * r, r, k, width, slab, int_eps, inf, _stream(),
+    )
+    batched_slab_round_tiles.launches += 1
+    _build.check(err, "slab_scatter")
+    flags = _slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward)
+    return lb, ub, flags.reshape(-1)
+
+
+batched_slab_round_tiles.launches = 0
+
+
+def node_slab_partials_tiles(
+    val, col_s, run_start, run_len, run_slab, active, lb, ub, slab: int, max_run_len: int,
+    inf: float = INF,
+):
+    """Per-copy, per-node activity partials of ONE instance's straddle
+    sub-stream: ``(Ta, R, K)`` copies + run maps + ``(B, W)`` per-node
+    planes + ``(B,)`` ``active`` -> 4 x ``(B, Ta, R)``; inactive nodes get
+    zeros.  Per node exactly :func:`batched_slab_partials_tiles`.
+
+    Replaces ``node_slab_partials_tiles`` / ``_node_slab_partials_kernel``
+    (src/repro/kernels/prop_round.py:1383 / :1351).  Bound on the H100: the
+    sub-stream once per launch (it fits the 50 MB L2 at the solver's
+    sizes) plus each active node's window gathers and 24 B of partials per
+    (node, chunk), and the zeros of the inactive nodes' rows.  Design: #11's
+    lane groups; each warp ballots the mask 32 nodes at a time and visits
+    the active nodes only (kernel #10's scheme); the wrapper zero-fills the
+    outputs."""
+    operands = (val, col_s, run_start, run_len, run_slab, active, lb, ub)
+    if not _on_cuda(*operands):
+        return ref.node_slab_partials_ref(*operands, slab, max_run_len, inf)
+    t, r, k, bsz, width = _check_copies(val, col_s, lb, ub, active)
+    n_runs = _check_runs(t, run_start=run_start, run_len=run_len, run_slab=run_slab)
+    dev = val.device
+    mf = torch.zeros((bsz, t, r), dtype=torch.float64, device=dev)
+    xf = torch.zeros((bsz, t, r), dtype=torch.float64, device=dev)
+    mc = torch.zeros((bsz, t, r), dtype=torch.int32, device=dev)
+    xc = torch.zeros((bsz, t, r), dtype=torch.int32, device=dev)
+    if t == 0:
+        return mf, mc, xf, xc
+    err = _build.lib().node_slab_partials(
+        _p(val), _p(col_s), _p(run_start), _p(run_slab), _p(active), _p(lb), _p(ub), _p(mf),
+        _p(mc), _p(xf), _p(xc), n_runs, t * r, r, k, bsz, width, slab, inf, _stream(),
+    )
+    node_slab_partials_tiles.launches += 1
+    _build.check(err, "node_slab_partials")
+    return mf, mc, xf, xc
+
+
+node_slab_partials_tiles.launches = 0
+
+
+def node_slab_round_tiles(
+    val, col_s, is_int_g, row_done, str_min_fin, str_min_cnt, str_max_fin, str_max_cnt,
+    lhs_g, rhs_g, run_start, run_len, run_slab, active, lb, ub, slab: int, max_run_len: int,
+    eps: float, int_eps: float, inf: float = INF, outward: float = 0.0,
+):
+    """The slab round over a node batch, IN PLACE: ONE instance's ``(T'',
+    R, K)`` copies + ``(B, T'', R)`` per-node straddle aggregates + shared
+    ``row_done`` / sides / run maps + ``(B, W)`` per-node planes + ``(B,)``
+    ``active`` -> the planes, updated, and ``(B, n_runs)`` int32 changed
+    flags.  Per node exactly :func:`batched_slab_round_tiles` at ``B ==
+    1``; inactive nodes pass through.
+
+    Replaces ``node_slab_round_tiles`` / ``_node_slab_round_kernel``
+    (src/repro/kernels/prop_round.py:1498 / :1443).  Bound on the H100: the
+    copy stream once per launch, plus per active node the window bounds
+    read and written, 24 B of straddle aggregates per chunk and the
+    accumulator rows written and read once.  Design: #12's two launches;
+    the scatter ballots the mask 32 nodes per warp and visits the active
+    nodes only; #15's merge skips the inactive rows (counted as #15's
+    launch)."""
+    strs = (str_min_fin, str_min_cnt, str_max_fin, str_max_cnt)
+    operands = (val, col_s, is_int_g, row_done, *strs, lhs_g, rhs_g, run_start, run_len,
+                run_slab, active, lb, ub)
+    if not _on_cuda(*operands):
+        new_lb, new_ub, ch = ref.node_slab_round_ref(
+            *operands, slab, max_run_len, eps, int_eps, inf, outward
+        )
+        lb.copy_(new_lb)
+        ub.copy_(new_ub)
+        return lb, ub, ch
+    bsz = lb.shape[0]
+    t, r, k, bsz, width = _check_round(val, col_s, is_int_g, row_done, lhs_g, rhs_g, strs,
+                                       (bsz,), lb, ub, active)
+    n_runs = _check_runs(t, run_start=run_start, run_len=run_len, run_slab=run_slab)
+    if n_runs != _n_slabs(width, slab):
+        raise ValueError(f"{n_runs} runs, expected one per slab ({_n_slabs(width, slab)})")
+    best_l = torch.full((bsz, width), -inf, dtype=torch.float64, device=val.device)
+    best_u = torch.full((bsz, width), inf, dtype=torch.float64, device=val.device)
+    err = _build.lib().node_slab_scatter(
+        _p(val), _p(col_s), _p(is_int_g), _p(row_done), *map(_p, strs), _p(lhs_g), _p(rhs_g),
+        _p(run_start), _p(run_slab), _p(active), _p(lb), _p(ub), _p(best_l), _p(best_u),
+        n_runs, t * r, r, k, bsz, width, slab, int_eps, inf, _stream(),
+    )
+    node_slab_round_tiles.launches += 1
+    _build.check(err, "node_slab_scatter")
+    flags = _slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward)
+    return lb, ub, flags
+
+
+node_slab_round_tiles.launches = 0
+
+
+def apply_updates_slab_tiles(
+    lb, ub, best_l, best_u, active, slab: int, eps: float, inf: float = INF,
+    outward: float = 0.0,
+):
+    """Merge over ``(instance, slab)`` windows, IN PLACE: ``(B, W)``
+    bounds and best candidates + ``(B,)`` ``active`` -> the planes, updated,
+    and ``(B,)`` bool per-instance changed flags (the per-window flags
+    OR-ed).  ``bounds.apply_updates`` semantics; inactive rows pass
+    through.
+
+    Replaces ``apply_updates_slab_tiles`` / ``_apply_updates_slab_kernel``
+    (src/repro/kernels/prop_round.py:1595 / :1581).  The same kernel is the
+    second launch of #12 and #14.  Bound on the H100: 32 B of reads per
+    active (row, column), 8 B per entry that tightens, and the flags.
+    Design: a (column block, row) grid whose blocks of inactive rows return
+    at once; a thread whose column tightens sets its window's flag."""
+    if not _on_cuda(lb, ub, best_l, best_u, active):
+        new_lb, new_ub, flags = ref.apply_updates_slab_ref(
+            lb, ub, best_l, best_u, active, slab, eps, inf, outward
+        )
+        lb.copy_(new_lb)
+        ub.copy_(new_ub)
+        return lb, ub, flags.any(dim=1)
+    bsz, width = lb.shape
+    if bsz > MAX_GRID_Y:
+        raise ValueError(f"{bsz} planes exceed the grid's {MAX_GRID_Y}")
+    _check_planes(bsz, width, lb=lb, ub=ub, best_l=best_l, best_u=best_u)
+    _expect("active", active, torch.bool, (bsz,))
+    flags = _slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward)
+    return lb, ub, flags.any(dim=1)
+
+
+apply_updates_slab_tiles.launches = 0
+
+
 KERNELS = (
     fused_scatter_round_tiles,
     activities_gather_tiles,
@@ -422,6 +718,11 @@ KERNELS = (
     node_fused_scatter_round_tiles,
     apply_updates_batch_tiles,
     node_objective_tiles,
+    batched_slab_partials_tiles,
+    batched_slab_round_tiles,
+    node_slab_partials_tiles,
+    node_slab_round_tiles,
+    apply_updates_slab_tiles,
 )
 
 

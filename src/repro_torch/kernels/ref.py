@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..core import bounds as bnd
 from ..core.types import INF, int_round_slack
 
 
@@ -256,6 +257,242 @@ def node_fused_scatter_round_ref(
         best_l[b], best_u[b] = fused_scatter_round_tiles_ref(
             val, col, is_int_g, lhs_g, rhs_g, lb[b], ub[b], n_pad, int_eps, inf
         )
+    return best_l, best_u
+
+
+# ---------------------------------------------------------------------------
+# Column-slab partitions: the partitioned engine's kernels (#11-#15)
+# ---------------------------------------------------------------------------
+#
+# Bound planes are (B, W) with W >= every window's end that a real nonzero
+# reaches: the partition's n_pad_part, or the instance's n_pad (the columns
+# in between carry no nonzero, so the reference's zero padding there is
+# never read and its merge never changes anything).  A copy tile's window
+# starts at ``inst * W + slab_id * slab``.
+
+
+def copy_tile_runs(run_start, n_tiles: int):
+    """The run of each of ``n_tiles`` copy tiles: runs cover contiguous,
+    ascending tile ranges, so it is the last run starting at or before the
+    tile (the kernels' binary search)."""
+    tiles = torch.arange(n_tiles, dtype=run_start.dtype, device=run_start.device)
+    return torch.searchsorted(run_start, tiles, right=True) - 1
+
+
+def _copy_windows(run_start, run_inst, run_slab, n_tiles: int, width: int, slab: int):
+    """Per copy tile: its instance (int64, zeros without ``run_inst``) and
+    the flat offset of its window in the ``(B, width)`` planes."""
+    run = copy_tile_runs(run_start, n_tiles)
+    inst = torch.zeros_like(run) if run_inst is None else run_inst.long()[run]
+    return inst, inst * width + run_slab.long()[run] * slab
+
+
+def _window_partials(val, col_s, off, lb, ub, inf):
+    c = col_s.long() + off[:, None, None]
+    lbf, ubf = lb.reshape(-1), ub.reshape(-1)
+    return activities_tiles_ref(val, lbf[c], ubf[c], inf)
+
+
+def _window_candidates(
+    val, col_s, is_int_g, row_done, smf, smc, sxf, sxc, lhs_g, rhs_g, off, lb, ub,
+    int_eps, inf,
+):
+    """Candidates of the copy tiles against their windows: local row
+    aggregates, the straddle aggregates where ``row_done == 0``.  Returns
+    ``(lcand, ucand, flat column ids)``."""
+    c = col_s.long() + off[:, None, None]
+    lbf, ubf = lb.reshape(-1), ub.reshape(-1)
+    lb_g, ub_g = lbf[c], ubf[c]
+    lmf, lmc, lxf, lxc = activities_tiles_ref(val, lb_g, ub_g, inf)
+    done = row_done != 0
+    sel = lambda local, s: torch.where(done, local, s)
+    lcand, ucand = candidates_tiles_ref(
+        val, lb_g, ub_g, is_int_g, sel(lmf, smf), sel(lmc, smc), sel(lxf, sxf),
+        sel(lxc, sxc), lhs_g, rhs_g, int_eps, inf,
+    )
+    return lcand, ucand, c
+
+
+def apply_updates_slab_ref(lb, ub, best_l, best_u, active, slab: int, eps: float,
+                           inf: float = INF, outward: float = 0.0):
+    """Kernel #15 oracle: the ``bounds.apply_updates`` merge over every
+    ``(instance, slab)`` window of ``(B, W)`` planes; inactive rows pass
+    through.  Returns ``(new_lb, new_ub, flags)``, ``flags`` ``(B,
+    n_slabs)`` int32: 1 where the window changed."""
+    bsz, width = lb.shape
+    n_slabs = -(-width // slab)
+    take = (bnd.improved_lb(best_l, lb, eps) | bnd.improved_ub(best_u, ub, eps))
+    take = take & active[:, None]
+    new_lb, new_ub, _ = bnd.apply_updates_batch(lb, ub, best_l, best_u, eps, inf, outward,
+                                                active=active)
+    take = torch.nn.functional.pad(take, (0, n_slabs * slab - width))
+    return new_lb, new_ub, take.reshape(bsz, n_slabs, slab).any(-1).to(torch.int32)
+
+
+def batched_slab_partials_ref(val, col_s, run_start, run_len, run_inst, run_slab, active,
+                              lb, ub, slab: int, max_run_len: int, inf: float = INF):
+    """Kernel #11 oracle: per-copy activity partials of a sub-stream, each
+    tile gathering from its run's ``(instance, slab)`` window of the ``(B,
+    W)`` planes -> 4 x ``(Ta, R)``; the copies of inactive instances get
+    zeros."""
+    del run_len, max_run_len  # runs are contiguous: run_start alone maps tiles
+    inst, off = _copy_windows(run_start, run_inst, run_slab, val.shape[0], lb.shape[1], slab)
+    act = active[inst][:, None]
+    return tuple(torch.where(act, x, torch.zeros_like(x))
+                 for x in _window_partials(val, col_s, off, lb, ub, inf))
+
+
+def batched_slab_round_ref(
+    val, col_s, is_int_g, row_done, str_min_fin, str_min_cnt, str_max_fin, str_max_cnt,
+    lhs_g, rhs_g, run_start, run_len, run_inst, run_slab, active, lb, ub, slab: int,
+    max_run_len: int, eps: float, int_eps: float, inf: float = INF, outward: float = 0.0,
+):
+    """Kernel #12 oracle: candidates of every copy tile against its window
+    (straddle aggregates ``str_*`` ``(T'', R)`` where ``row_done == 0``),
+    the column max/min per window, then #15's merge.  Returns ``(new_lb,
+    new_ub, changed)``, ``changed`` ``(n_runs,)`` int32 per run, which is
+    per window in window order."""
+    del run_len, max_run_len
+    bsz, width = lb.shape
+    inst, off = _copy_windows(run_start, run_inst, run_slab, val.shape[0], width, slab)
+    lcand, ucand, c = _window_candidates(
+        val, col_s, is_int_g, row_done, str_min_fin, str_min_cnt, str_max_fin, str_max_cnt,
+        lhs_g, rhs_g, off, lb, ub, int_eps, inf,
+    )
+    act = active[inst][:, None, None]
+    lcand = torch.where(act, lcand, -inf)
+    ucand = torch.where(act, ucand, inf)
+    best_l, best_u = scatter_round_ref(lcand, ucand, c, bsz * width, inf)
+    new_lb, new_ub, flags = apply_updates_slab_ref(
+        lb, ub, best_l.reshape(bsz, width), best_u.reshape(bsz, width), active, slab, eps,
+        inf, outward,
+    )
+    return new_lb, new_ub, flags.reshape(-1)
+
+
+def node_slab_partials_ref(val, col_s, run_start, run_len, run_slab, active, lb, ub,
+                           slab: int, max_run_len: int, inf: float = INF):
+    """Kernel #13 oracle: #11 per node of ONE instance's sub-stream over
+    ``(B, W)`` per-node planes -> 4 x ``(B, Ta, R)``; inactive nodes get
+    zeros.  Only active nodes are computed, one at a time (reading the mask
+    on the host)."""
+    del run_len, max_run_len
+    t, r, _ = val.shape
+    bsz = lb.shape[0]
+    _, off = _copy_windows(run_start, None, run_slab, t, lb.shape[1], slab)
+    dev = lb.device
+    outs = [torch.zeros((bsz, t, r), dtype=d, device=dev)
+            for d in (lb.dtype, torch.int32, lb.dtype, torch.int32)]
+    for b in active.nonzero().flatten().tolist():
+        for o, x in zip(outs, _window_partials(val, col_s, off, lb[b], ub[b], inf)):
+            o[b] = x
+    return tuple(outs)
+
+
+def node_slab_round_ref(
+    val, col_s, is_int_g, row_done, str_min_fin, str_min_cnt, str_max_fin, str_max_cnt,
+    lhs_g, rhs_g, run_start, run_len, run_slab, active, lb, ub, slab: int, max_run_len: int,
+    eps: float, int_eps: float, inf: float = INF, outward: float = 0.0,
+):
+    """Kernel #14 oracle: #12 per node of ONE instance's copies, with
+    ``(B, T'', R)`` per-node straddle aggregates and ``(B, W)`` per-node
+    planes.  Returns ``(new_lb, new_ub, changed)``, ``changed`` ``(B,
+    n_runs)`` int32; inactive nodes pass through unchanged.  Only active
+    nodes are computed, one at a time."""
+    del run_len, max_run_len
+    bsz, width = lb.shape
+    _, off = _copy_windows(run_start, None, run_slab, val.shape[0], width, slab)
+    best_l = torch.full_like(lb, -inf)
+    best_u = torch.full_like(ub, inf)
+    for b in active.nonzero().flatten().tolist():
+        lcand, ucand, c = _window_candidates(
+            val, col_s, is_int_g, row_done, str_min_fin[b], str_min_cnt[b], str_max_fin[b],
+            str_max_cnt[b], lhs_g, rhs_g, off, lb[b], ub[b], int_eps, inf,
+        )
+        best_l[b], best_u[b] = scatter_round_ref(lcand, ucand, c, width, inf)
+    return apply_updates_slab_ref(lb, ub, best_l, best_u, active, slab, eps, inf, outward)
+
+
+def straddle_segments(part, nb: int):
+    """The segments of the straddle combine over ``nb`` planes of partials
+    taken in ``part.a_order``: ``(chunk_row, row_start)`` in the long-row
+    combine's layout, one segment per (plane, table slot) -- ``(nb * Ta *
+    R,)`` int32 segment ids and ``(nb * (n_straddle + 1) + 1,)`` int64
+    first positions."""
+    length = int(part.a_order.shape[0])
+    nseg = part.n_straddle + 1
+    dev = part.a_seg.device
+    start = part.a_seg[:-1][None, :] + length * torch.arange(nb, device=dev)[:, None]
+    row_start = torch.cat([start.reshape(-1), start.new_full((1,), nb * length)])
+    crow = torch.repeat_interleave(
+        torch.arange(nb * nseg, dtype=torch.int32, device=dev),
+        row_start[1:] - row_start[:-1], output_size=nb * length,
+    )
+    return crow, row_start
+
+
+def straddle_tables(part, mf, mc, xf, xc, segments=None, combine=None):
+    """The straddle combine: per-copy partials ``(..., Ta, R)`` -> each
+    straddle row's completed aggregates, gathered per main-stream chunk
+    ``(..., T'', R)``.  Each slot's partials are taken in ascending
+    sub-stream position (``part.a_order``) and summed left to right from 0
+    by ``combine`` (default the long-row combine's plain version; the engine
+    passes its kernel), so the sums take one order on every device.
+    ``segments`` is :func:`straddle_segments` for the planes, if cached."""
+    combine = combine_chunk_partials_ref if combine is None else combine
+    lead = mf.shape[:-2]
+    flat = [x.reshape(-1, x.shape[-2] * x.shape[-1])[:, part.a_order] for x in (mf, mc, xf, xc)]
+    nb, length = flat[0].shape
+    crow, row_start = straddle_segments(part, nb) if segments is None else segments
+    done = combine(*(x.reshape(-1) for x in flat), crow, row_start)
+    pos = part.agg_pos.reshape(-1)
+    shape = (*lead, *part.agg_pos.shape)
+    return tuple(x.reshape(nb, length)[:, pos].reshape(shape) for x in done)
+
+
+def partitioned_round_ref(part, lb_p, ub_p, int_eps: float, inf: float = INF):
+    """Slab oracle: one round over a slab partition, ``(B, n_pad)`` planes
+    (``B == part.batch``; ``n_pad <= n_pad_part``) -> ``(B, n_pad_part)``
+    best_l / best_u with sentinel identities.  Per copy: local activity
+    partials; straddle rows (``row_done == 0``) take their completed
+    aggregates from :func:`straddle_tables`; candidates; the column
+    max/min over global padded ids."""
+    bsz, n_pad = lb_p.shape
+    width = part.n_pad_part
+    pad = lambda x: torch.nn.functional.pad(x, (0, width - n_pad))
+    lb, ub = pad(lb_p), pad(ub_p)
+    _, off = _copy_windows(part.run_start, part.run_inst, part.run_slab, part.num_copies,
+                           width, part.slab)
+    if part.has_straddle:
+        _, a_off = _copy_windows(part.a_run_start, part.a_run_inst, part.a_run_slab,
+                                 int(part.a_val.shape[0]), width, part.slab)
+        tabs = straddle_tables(part, *_window_partials(part.a_val, part.a_col_s, a_off,
+                                                           lb, ub, inf))
+    else:
+        z = torch.zeros(part.chunk_row.shape, dtype=lb.dtype, device=lb.device)
+        zi = torch.zeros(part.chunk_row.shape, dtype=torch.int32, device=lb.device)
+        tabs = (z, zi, z, zi)
+    lcand, ucand, c = _window_candidates(
+        part.val, part.col_s, part.ii_g, part.row_done, *tabs, part.lhs_g, part.rhs_g, off,
+        lb, ub, int_eps, inf,
+    )
+    best_l, best_u = scatter_round_ref(lcand, ucand, c, bsz * width, inf)
+    return best_l.reshape(bsz, width), best_u.reshape(bsz, width)
+
+
+def node_partitioned_round_ref(part, lb_p, ub_p, int_eps: float, inf: float = INF,
+                               active=None):
+    """Node-batch slab oracle: ONE instance's partition over ``(B, n_pad)``
+    per-node planes; per node exactly :func:`partitioned_round_ref`.
+    Returns ``(B, n_pad_part)`` best_l / best_u; nodes outside ``active``
+    (default: all) keep the sentinel identities."""
+    bsz = lb_p.shape[0]
+    best_l = torch.full((bsz, part.n_pad_part), -inf, dtype=lb_p.dtype, device=lb_p.device)
+    best_u = torch.full_like(best_l, inf)
+    rows = range(bsz) if active is None else active.nonzero().flatten().tolist()
+    for b in rows:
+        bl, bu = partitioned_round_ref(part, lb_p[b][None], ub_p[b][None], int_eps, inf)
+        best_l[b], best_u[b] = bl[0], bu[0]
     return best_l, best_u
 
 

@@ -126,7 +126,6 @@ def test_host_syncs_counted_once_per_round():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(scatter="segment"), "item 4"),
-    (dict(scatter="partitioned"), "item 9"),
     (dict(dtype=torch.float32), "item 5"),
     (dict(policy=object()), "item 5"),
     (dict(stop_progress=1e-3), "item 5"),
@@ -145,8 +144,18 @@ def test_wide_instance_needs_the_partitioned_engine():
     )
     p = rt.Problem(csr, np.array([1.0]), np.array([rc.INF]), np.zeros(n), np.ones(n),
                    np.ones(n, dtype=bool))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        rt.propagate_block_ell(p, device="cpu")
+    prep = tk.prepare_block_ell(p, device="cpu")
+    assert prep.n_pad > tk.SCATTER_MAX_NPAD
+    assert tk.ops._resolve_scatter("auto", prep) == "partitioned"
+    # The row's two nonzeros lie in different slabs: a straddle row.
+    part = prep.slab_partition()
+    assert part.n_slabs == 2 and part.n_straddle == 1
+    auto = rt.propagate_block_ell(p, device="cpu")
+    fused = rt.propagate_block_ell(p, scatter="fused", device="cpu")
+    for got in (auto, fused):
+        assert (int(got.rounds), bool(got.converged), bool(got.infeasible)) == (1, True, False)
+        np.testing.assert_array_equal(got.lb.numpy(), p.lb)
+        np.testing.assert_array_equal(got.ub.numpy(), p.ub)
 
 
 def test_lru_pins_anchors_and_evicts_oldest():

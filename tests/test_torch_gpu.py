@@ -265,3 +265,232 @@ def test_solve_on_card_matches_plain_path(cuda):
         assert getattr(a, f) == getattr(b, f), f
     for x, y in zip(a.carry, b.carry):
         _match(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The column-slab partitioned engine: kernels #11-#15
+# ---------------------------------------------------------------------------
+
+
+def _packed_partition(problems, tile_width, slab, dev):
+    """One slab partition over the tile streams of several instances (run
+    maps route each copy to its own instance's plane row)."""
+    from repro_torch.kernels import build_slab_partition
+
+    preps = [rt.prepare_block_ell(p, tile_width=tile_width, device="cpu") for p in problems]
+    n_pad = max(q.n_pad for q in preps)
+    vals, cols, crows, insts, lhs, rhs, dummies = [], [], [], [], [], [], []
+    is_int = np.zeros((len(preps), n_pad), bool)
+    off = 0
+    for i, q in enumerate(preps):
+        vals.append(q.d.val.numpy())
+        cols.append(q.d.col.numpy())
+        crows.append(q.d.chunk_row.numpy() + off)
+        insts.append(np.full(q.d.val.shape[0], i, np.int32))
+        lhs.append(q.d.lhs1.numpy())
+        rhs.append(q.d.rhs1.numpy())
+        is_int[i, : q.n] = q.d.is_int.numpy()
+        dummies.append(off + q.m)
+        off += q.m + 1
+    return build_slab_partition(
+        np.concatenate(vals), np.concatenate(cols), np.concatenate(crows),
+        np.concatenate(insts), np.concatenate(lhs), np.concatenate(rhs), is_int, n_pad, slab,
+        np.array(dummies, np.int32), device=dev,
+    ), n_pad
+
+
+SLAB_CASES = [
+    # (generator, kwargs, tile width, slab, integer data)
+    ("make_knapsack", dict(n=280, m=8, seed=5), 8, 128, True),
+    ("make_mixed", dict(m=30, n=280, seed=0), 16, 128, False),
+    ("make_banded", dict(n=3000, m=400, row_nnz=12, band=600, seed=1), 128, 256, False),
+]
+
+
+@pytest.mark.parametrize("instances", [1, 3])
+@pytest.mark.parametrize("gen_name,kw,tile_width,slab,exact", SLAB_CASES)
+def test_slab_kernels_match_plain_versions(cuda, gen, gen_name, kw, tile_width, slab, exact,
+                                           instances):
+    problems = [getattr(td, gen_name)(**{**kw, "seed": kw["seed"] + i}) for i in range(instances)]
+    part, n_pad = _packed_partition(problems, tile_width, slab, cuda)
+    assert part.has_straddle
+    for width in (part.n_pad_part, n_pad):
+        lb, ub = _planes(gen, instances, width, exact, cuda)
+        for act in (torch.ones(instances, dtype=torch.bool), torch.arange(instances) % 2 == 0,
+                    torch.zeros(instances, dtype=torch.bool)):
+            act = act.to(cuda)
+            tk.reset_launch_counts()
+            a_args = (part.a_val, part.a_col_s, part.a_run_start, part.a_run_len,
+                      part.a_run_inst, part.a_run_slab, act, lb, ub, slab, part.a_max_run_len)
+            partials = tk.batched_slab_partials_tiles(*a_args)
+            for g, w in zip(partials, tref.batched_slab_partials_ref(*a_args)):
+                _match(g, w)
+            strs = tref.straddle_tables(part, *partials,
+                                        combine=tk.combine_chunk_partials_tiles)
+            for g, w in zip(strs, tref.straddle_tables(part, *partials)):
+                _match(g, w)
+            r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g,
+                      part.rhs_g, part.run_start, part.run_len, part.run_inst, part.run_slab,
+                      act)
+            want = tref.batched_slab_round_ref(*r_args, lb, ub, slab, part.max_run_len, 1e-9,
+                                               1e-6)
+            glb, gub = lb.clone(), ub.clone()
+            got = tk.batched_slab_round_tiles(*r_args, glb, gub, slab, part.max_run_len, 1e-9,
+                                              1e-6)
+            assert got[0] is glb and got[1] is gub
+            for g, w in zip(got, want):
+                _match(g, w)
+            assert tk.launch_counts() == {
+                fn.__name__: int(fn.__name__ in ("batched_slab_partials_tiles",
+                                                 "combine_chunk_partials_tiles",
+                                                 "batched_slab_round_tiles",
+                                                 "apply_updates_slab_tiles"))
+                for fn in tk.KERNELS
+            }
+
+
+@pytest.mark.parametrize("bsz", [1, 5, 40])
+@pytest.mark.parametrize("gen_name,kw,tile_width,slab,exact", SLAB_CASES)
+def test_node_slab_kernels_match_plain_versions(cuda, gen, gen_name, kw, tile_width, slab,
+                                                exact, bsz):
+    p = getattr(td, gen_name)(**kw)
+    prep = rt.prepare_block_ell(p, tile_width=tile_width)
+    part = prep.slab_partition(slab)
+    lb, ub = _planes(gen, bsz, prep.n_pad, exact, cuda)
+    for act in (torch.ones(bsz, dtype=torch.bool), torch.arange(bsz) % 3 == 1,
+                torch.zeros(bsz, dtype=torch.bool)):
+        act = act.to(cuda)
+        tk.reset_launch_counts()
+        a_args = (part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_slab,
+                  act, lb, ub, slab, part.a_max_run_len)
+        partials = tk.node_slab_partials_tiles(*a_args)
+        for g, w in zip(partials, tref.node_slab_partials_ref(*a_args)):
+            _match(g, w)
+        strs = tref.straddle_tables(part, *partials, combine=tk.combine_chunk_partials_tiles)
+        r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g,
+                  part.rhs_g, part.run_start, part.run_len, part.run_slab, act)
+        want = tref.node_slab_round_ref(*r_args, lb, ub, slab, part.max_run_len, 1e-9, 1e-6)
+        glb, gub = lb.clone(), ub.clone()
+        got = tk.node_slab_round_tiles(*r_args, glb, gub, slab, part.max_run_len, 1e-9, 1e-6)
+        for g, w in zip(got, want):
+            _match(g, w)
+        # Each active node equals the single-instance kernels on its plane.
+        for i in act.nonzero().flatten().tolist()[:3]:
+            one = tk.batched_slab_partials_tiles(
+                part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_inst,
+                part.a_run_slab, act[i : i + 1], lb[i : i + 1].contiguous(),
+                ub[i : i + 1].contiguous(), slab, part.a_max_run_len)
+            for g, w in zip(partials, one):
+                _match(g[i], w)
+        counts = tk.launch_counts()
+        assert counts["node_slab_partials_tiles"] == counts["node_slab_round_tiles"] == 1
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("bsz,width", [(1, 512), (4, 300), (3, 150_016)])
+def test_window_merge_matches_plain_version(cuda, gen, bsz, width, exact):
+    lb, ub = _planes(gen, bsz, width, exact, cuda)
+    bl, bu = _planes(gen, bsz, width, exact, cuda)
+    bl, bu = bl - 1.0, bu + 1.0
+    act = (torch.arange(bsz) % 2 == 0).to(cuda)
+    want = tref.apply_updates_slab_ref(lb, ub, bl, bu, act, 128, 1e-9)
+    glb, gub = lb.clone(), ub.clone()
+    tk.reset_launch_counts()
+    got = tk.apply_updates_slab_tiles(glb, gub, bl, bu, act, 128, 1e-9)
+    assert got[0] is glb and tk.launch_counts()["apply_updates_slab_tiles"] == 1
+    _match(got[0], want[0])
+    _match(got[1], want[1])
+    _match(got[2], want[2].any(dim=1))
+
+
+@pytest.mark.parametrize("gen_name,kw,tile_width,exact", [
+    ("make_knapsack", dict(n=280, m=8, seed=5), 8, True),
+    ("make_mixed", dict(m=35, n=300, seed=1), 32, False),
+    ("make_pseudo_boolean", dict(n=3000, m=4000, seed=7), 8, True),
+])
+def test_partitioned_engine_on_card_matches_plain_path(cuda, gen_name, kw, tile_width, exact):
+    p = getattr(td, gen_name)(**kw)
+    tk.reset_launch_counts()
+    got = rt.propagate_block_ell(p, tile_width=tile_width, scatter="partitioned", slab=128)
+    counts = tk.launch_counts()
+    rounds = int(got.rounds)
+    assert counts["batched_slab_round_tiles"] == counts["apply_updates_slab_tiles"] == rounds
+    assert counts["batched_slab_partials_tiles"] == rounds
+    assert counts["fused_scatter_round_tiles"] == 0
+    plain = rt.propagate_block_ell(p, tile_width=tile_width, scatter="partitioned", slab=128,
+                                   use_kernels=False)
+    for f in ("lb", "ub", "rounds", "converged", "infeasible"):
+        _match(getattr(got, f), getattr(plain, f))
+    cpu = rt.propagate_block_ell(p, tile_width=tile_width, scatter="partitioned", slab=128,
+                                 device="cpu")
+    _match(got.lb, cpu.lb.to(cuda))
+    _match(got.ub, cpu.ub.to(cuda))
+
+
+def test_instance_past_the_limit_on_card(cuda):
+    """``auto`` past 2^16 columns takes the partitioned kernels; explicit
+    ``fused`` runs D + F there; both agree with the plain path."""
+    p = td.make_banded(n=tk.SCATTER_MAX_NPAD + 4000, m=3000, row_nnz=8, band=2000, seed=2)
+    tk.reset_launch_counts()
+    got = rt.propagate_block_ell(p)
+    counts = tk.launch_counts()
+    assert counts["batched_slab_round_tiles"] == int(got.rounds) > 0
+    assert counts["fused_scatter_round_tiles"] == 0
+    plain = rt.propagate_block_ell(p, use_kernels=False)
+    for f in ("lb", "ub", "rounds", "converged", "infeasible"):
+        _match(getattr(got, f), getattr(plain, f))
+    fused = rt.propagate_block_ell(p, scatter="fused")
+    assert tk.launch_counts()["fused_scatter_round_tiles"] == int(fused.rounds)
+    for f in ("rounds", "converged", "infeasible"):
+        assert getattr(fused, f).item() == getattr(got, f).item()
+    assert rt.bounds_equal(fused.lb, fused.ub, got.lb, got.ub)
+
+
+@pytest.fixture
+def small_limit(monkeypatch):
+    from repro_torch.kernels import ops
+
+    ops.clear_prepare_cache()
+    monkeypatch.setattr(ops, "SCATTER_MAX_NPAD", 128)
+    monkeypatch.setattr(ops, "SLAB_NPAD", 128)
+    yield
+    ops.clear_prepare_cache()
+
+
+@pytest.mark.parametrize("gen_name,kw,tile_width", [
+    ("make_pseudo_boolean", dict(n=3000, m=4000, seed=7), 8),
+    ("make_mixed", dict(m=600, n=450, seed=21), 16),
+])
+def test_nodes_past_the_limit_on_card(cuda, small_limit, gen_name, kw, tile_width):
+    p = getattr(td, gen_name)(**kw)
+    lb, ub = _nodes(p, 6)
+    tk.reset_launch_counts()
+    got = rt.propagate_nodes(p, lb, ub, tile_width=tile_width)
+    counts = tk.launch_counts()
+    assert counts["node_slab_round_tiles"] == int(got.rounds.max())
+    assert counts["node_slab_partials_tiles"] == int(got.rounds.max())
+    assert counts["node_fused_scatter_round_tiles"] == 0
+    plain = rt.propagate_nodes(p, lb, ub, tile_width=tile_width, use_kernels=False)
+    for f in ("lb", "ub", "rounds", "converged", "infeasible"):
+        _match(getattr(got, f), getattr(plain, f))
+    for i in range(lb.shape[0]):
+        single = rt.propagate_block_ell(p, tile_width=tile_width, lb0=lb[i], ub0=ub[i])
+        _match(got.lb[i], single.lb)
+        _match(got.ub[i], single.ub)
+        assert got.rounds[i].item() == single.rounds.item()
+
+
+def test_solve_past_the_limit_on_card(cuda, small_limit):
+    p = td.make_pseudo_boolean(n=200, m=260, seed=1)
+    c = np.arange(1, p.n + 1, dtype=np.float64) * np.where(np.arange(p.n) % 3 == 0, -1.0, 1.0)
+    tk.reset_launch_counts()
+    a = rt.solve(p, c, node_cap=32)
+    counts = tk.launch_counts()
+    assert counts["node_slab_round_tiles"] > 0 and counts["node_fused_scatter_round_tiles"] == 0
+    b = rt.solve(p, c, node_cap=32, use_kernels=False)
+    for f in ("status", "objective", "nodes_expanded", "nodes_created", "leaves",
+              "pruned_bound", "pruned_infeasible", "levels", "host_syncs",
+              "incumbent_trajectory"):
+        assert getattr(a, f) == getattr(b, f), f
+    for x, y in zip(a.carry, b.carry):
+        _match(x, y)

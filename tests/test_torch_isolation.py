@@ -20,6 +20,7 @@ def test_import_loads_no_jax_and_no_reference():
         "import sys\n"
         "import repro_torch, repro_torch.core, repro_torch.data, repro_torch.kernels\n"
         "import repro_torch.kernels._build, repro_torch.core.nodes, repro_torch.core.solver\n"
+        "import repro_torch.kernels.slab, repro_torch.kernels.prop_round\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
