@@ -64,7 +64,26 @@ numpy only, nothing of JAX) and, on one CUDA card:
      the plain path; ``solve`` on pbw (128 slots, 8 levels) against the
      reference's counts, the plain path and the same search through the
      fused node round (#10 + #9), same result and final pool;
- 10. prints a ``kernels`` JSON line, and last
+ 10. (phase 9) runs ``propagate_batch`` with its defaults on three buckets:
+     ``pb``, ``pbf``, ``banded`` and a second banded instance at n_pad
+     60,032 (kernel #8 then #9), ``mixed`` and a second mixed instance
+     (A', the combine and E over the flat stream, then #9), ``bandw`` and
+     ``pbw`` past 2^16 (the partitioned round with two planes); holds #8
+     against its plain version at the fused bucket's shapes with 0, 2 and
+     4 instances active (timed) and every instance bitwise against its own
+     ``propagate_block_ell`` and the plain path, plus one ``bounds=`` warm
+     start; prints batch and summed single-instance fixed-point times, flag
+     reads and the idle share;
+ 11. (phase 10) serves 24 requests (12 pseudo-boolean at n = 60,000 and 12
+     banded at n = 40,000, 30,000 to 90,000 rows) through
+     ``PropagationService.from_problems(slots=4, size_classes=2,
+     rounds_per_step=8)`` and 4 mixed requests through a 2-slot service;
+     holds every ticket bitwise against a one-shot ``propagate_batch`` on
+     the kernels and on the plain versions; prints instances/s at
+     saturation (pre-packed, all submitted, then drained) against
+     sequential ``propagate_block_ell``, latency percentiles, pumps, flag
+     reads per pump, the idle share and per-bucket stats;
+ 12. prints a ``kernels`` JSON line, and last
      ``{"ok": true, "device": {...}}``.
 
 Each path runs with the launch counters at zero just before it and read just
@@ -153,6 +172,22 @@ WIDE_BRANCHED = 4  # 2**4 = 16 pbw nodes
 WIDE_SEARCH = dict(node_cap=POOL, expand_width=4, max_levels=8, sync_every=4)
 WIDE_REFERENCE = ("level_limit", 27, 55, 8, 2)
 
+# Phase 9: the batched engine's three buckets (instances of earlier phases
+# plus a second banded and a second mixed instance of the same size).
+BANDED1 = dict(n=60_000, m=150_000, row_nnz=24, band=7_500, seed=1)
+MIXED1 = dict(m=150_000, n=60_000, seed=1, density=0.0005)
+# Phase 10: the service's request streams (the paper's Set-3/Set-4 scale):
+# rows drawn from [30,000, 90,000) by default_rng(0), 12 + 12 requests in two
+# col_pad classes split into size classes, and 4 mixed requests whose long
+# rows span chunks.  The reference bench's service settings.
+SERVICE_REQUESTS = 12
+SERVICE_ROWS = (30_000, 90_000)
+SERVICE_SLOTS = 4
+SERVICE_SIZE_CLASSES = 2
+SERVICE_ROUNDS_PER_STEP = 8
+SERVICE_MIXED = 4
+SERVICE_TIMED_RUNS = 2
+
 SOURCE = "src/repro_torch/csrc/prop_round.cu"
 SLAB_SOURCE = "src/repro_torch/csrc/slab_round.cu"
 REPLACES = {
@@ -170,6 +205,7 @@ REPLACES = {
     "node_slab_partials_tiles": "src/repro/kernels/prop_round.py:1383",
     "node_slab_round_tiles": "src/repro/kernels/prop_round.py:1498",
     "apply_updates_slab_tiles": "src/repro/kernels/prop_round.py:1595",
+    "batched_fused_scatter_round_tiles": "src/repro/kernels/prop_round.py:816",
 }
 # The C entry point that launches each wrapper's kernel (the slab rounds
 # launch two: their scatter, then #15's window merge).
@@ -187,6 +223,7 @@ SYMBOL = {
     "node_slab_partials_tiles": "node_slab_partials",
     "node_slab_round_tiles": "node_slab_scatter",
     "apply_updates_slab_tiles": "slab_merge",
+    "batched_fused_scatter_round_tiles": "batched_fused_scatter_round",
 }
 # Nominal float64 operations per real nonzero (products, sums, residual
 # subtractions, divisions, rounding) -- the compute side of each bound.
@@ -610,7 +647,11 @@ def smoke(torch, dev):
     runs = {f"propagate_block_ell {k}": v for k, v in per_instance.items()}
     runs.update(node_batch_phase(torch, np, rt, tk, pbf, problems, dev))
     runs.update(solve_phase(torch, np, rt, td, tk, pbf, dev))
-    runs.update(wide_phase(torch, np, rt, td, tk, tref, ops, _build, dev, measured))
+    wide_runs, wide = wide_phase(torch, np, rt, td, tk, tref, ops, _build, dev, measured)
+    runs.update(wide_runs)
+    runs.update(batch_phase(torch, np, rt, td, tk, tref, ops, _build, dev, measured,
+                            {**problems, "pbf": pbf, **wide}))
+    runs.update(service_phase(torch, np, rt, td, tk, dev))
     slab_path = ("batched_slab_partials_tiles", "combine_chunk_partials_tiles",
                  "batched_slab_round_tiles", "apply_updates_slab_tiles")
     node_slab_path = ("node_slab_partials_tiles", "combine_chunk_partials_tiles",
@@ -620,6 +661,16 @@ def smoke(torch, dev):
         "propagate_block_ell pbw": slab_path,
         "nodes pbw": node_slab_path,
         "solve pbw": node_slab_path + ("node_objective_tiles",),
+    })
+    fused_batch = ("batched_fused_scatter_round_tiles", "apply_updates_batch_tiles")
+    multi_batch = ("activities_gather_tiles", "combine_chunk_partials_tiles",
+                   "candidates_scatter_tiles", "apply_updates_batch_tiles")
+    require_launched(runs, {
+        "batch fused": fused_batch,
+        "batch multi-chunk": multi_batch,
+        "batch partitioned": slab_path,
+        "service stream": fused_batch,
+        "service mixed": multi_batch,
     })
     require_launched(runs, {
         "nodes pbf": ("node_fused_scatter_round_tiles", "apply_updates_batch_tiles"),
@@ -649,6 +700,7 @@ def smoke(torch, dev):
         "node_slab_partials_tiles": f"pbw pool, 8 of {POOL} active",
         "node_slab_round_tiles": f"pbw pool, 8 of {POOL} active",
         "apply_updates_slab_tiles": f"pbw pool, 8 of {POOL} active",
+        "batched_fused_scatter_round_tiles": "fused bucket, 4 of 4 active",
     }
     kernels = []
     for fn in tk.KERNELS:
@@ -1297,6 +1349,320 @@ def wide_phase(torch, np, rt, td, tk, tref, ops, build, dev, measured):
         busy, top = prof
         log(f"profile solve pbw: device busy {busy:.3f} ms of {k_ms:.3f} ms search, idle share "
             f"{1 - busy / k_ms:.3f}; top: {top}")
+    return runs, problems
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the batched engine (propagate_batch)
+# ---------------------------------------------------------------------------
+
+
+def batched_fused_bytes(np, batch, active) -> dict:
+    """Bytes kernel #8 must move on a packed bucket with ``active`` (host
+    bool per instance): for the tiles of active instances ``val`` per padded
+    slot, ``col`` and ``is_int`` per nonzero, the two sides per chunk; per
+    active instance its two bound rows read and its two accumulator rows
+    written; the tile map and the mask."""
+    ell = batch.ell
+    t, r, k = ell.val.shape
+    on = np.asarray(active)[ell.tile_inst]
+    nnz = int((ell.val[on] != 0).sum())
+    tiles = int(on.sum())
+    n_act = int(np.asarray(active).sum())
+    return dict(val=8 * tiles * r * k, col_ii=8 * nnz, sides=16 * tiles * r,
+                planes=32 * n_act * batch.n_pad, maps=4 * t + batch.size), nnz
+
+
+def check_batched_fused(torch, np, rt, tk, tref, build, batch, prep, singles, dev):
+    """Kernel #8 against its plain version at the fused bucket's shapes and
+    initial planes, with 0, 2 and 4 instances active, bitwise; each active
+    row also against kernel D on that instance's own tiles.  Timed: the
+    kernel's launch, the wrapper call, the plain version.  Returns {shape:
+    row}."""
+    d, cfg = prep.d, rt.core.DEFAULT_CONFIG
+    rows = {}
+    for n_act in (0, 2, batch.size):
+        act_h = np.zeros(batch.size, bool)
+        act_h[:: max(1, batch.size // max(n_act, 1))][:n_act] = True
+        act = torch.as_tensor(act_h, device=dev)
+        args = (d.val, d.col, d.ii_g, d.lhs_g, d.rhs_g, d.lb0, d.ub0, d.tile_inst, act,
+                prep.n_pad, cfg.int_eps)
+        got = tk.batched_fused_scatter_round_tiles(*args)
+        want = tref.batched_fused_scatter_round_ref(
+            d.val, d.col_g, d.ii_g, d.lhs_g, d.rhs_g, d.lb0, d.ub0, prep.n_pad, cfg.int_eps,
+            active=act)
+        for i in np.flatnonzero(act_h):
+            sp = singles[i]
+            one = tk.fused_scatter_round_tiles(sp.d.val, sp.d.col, sp.ii_g, sp.lhs_g, sp.rhs_g,
+                                               sp.lb0, sp.ub0, sp.n_pad, cfg.int_eps)
+            max_abs_err(torch, (got[0][i], got[1][i]), one)
+        moved, nnz = batched_fused_bytes(np, batch, act_h)
+        shape = f"fused bucket, {n_act} of {batch.size} active"
+        rows[shape] = r = measured_row(
+            torch, build, got, want, lambda: tk.batched_fused_scatter_round_tiles(*args),
+            lambda: tref.batched_fused_scatter_round_ref(
+                d.val, d.col_g, d.ii_g, d.lhs_g, d.rhs_g, d.lb0, d.ub0, prep.n_pad,
+                cfg.int_eps, active=act),
+            moved, 16 * nnz, plain_reps=1)
+        log_row("batched_fused_scatter_round_tiles", shape, r)
+    fill = time_ms(torch, lambda: (torch.full_like(d.lb0, -cfg.inf),
+                                   torch.full_like(d.ub0, cfg.inf)))
+    log(f"accumulator fill: two {tuple(d.lb0.shape)} sentinel planes, {fill:.4f} ms")
+    return rows
+
+
+def batch_phase(torch, np, rt, td, tk, tref, ops, build, dev, measured, problems):
+    """Phase 9: propagate_batch with its defaults on three buckets -- one
+    fused (#8 + #9), one multi-chunk (A', combine, E over the flat stream,
+    then #9), one past 2^16 columns (the partitioned round with two planes).
+    Every instance bitwise against its own propagate_block_ell and against
+    the plain path; a bounds= warm start; #8 against its plain version,
+    timed.  Adds to ``measured``; returns the launch counts of each run."""
+    t = time.perf_counter()
+    banded1 = td.make_banded(**BANDED1)
+    mixed1 = td.make_mixed(**MIXED1)
+    log(f"instances banded1, mixed1: generate={time.perf_counter() - t:.1f}s")
+    pops = {
+        "fused": [problems["pb"], problems["pbf"], problems["banded"], banded1],
+        "multi-chunk": [problems["mixed"], mixed1],
+        "partitioned": [problems["bandw"], problems["pbw"]],
+    }
+    preps = {}
+    for name, pop in pops.items():
+        t = time.perf_counter()
+        (batch,) = ops.packed_problems(pop)
+        t_pack = time.perf_counter() - t
+        t = time.perf_counter()
+        prep = ops.prepare_problem_batch(batch, device=dev)
+        torch.cuda.synchronize()
+        t_prep = time.perf_counter() - t
+        t = time.perf_counter()
+        extra = ""
+        if prep.n_pad > ops.SCATTER_MAX_NPAD:
+            part = prep.slab_partition()
+            extra = (f" slab={part.slab} x {part.n_slabs} copies={part.num_copies} "
+                     f"straddle_tiles={part.a_val.shape[0]} straddle_rows={part.n_straddle} "
+                     f"partition_build={time.perf_counter() - t:.2f}s")
+        got = ("partitioned" if prep.n_pad > ops.SCATTER_MAX_NPAD
+               else "fused" if prep.fits_one_chunk else "multi-chunk")
+        if got != name:
+            fail(f"batch {name}: the bucket takes the {got} round")
+        preps[name] = (batch, prep)
+        log(f"batch {name}: {batch.size} instances, nnz={[q.nnz for q in pop]}, "
+            f"tiles={tuple(prep.d.val.shape)} "
+            f"n_pad={prep.n_pad} m_total={prep.m_total} fits_one_chunk={prep.fits_one_chunk} "
+            f"pack={t_pack:.2f}s prepare={t_prep:.2f}s{extra}")
+
+    batch, prep = preps["fused"]
+    singles = [rt.prepare_block_ell(p, device=dev) for p in pops["fused"]]
+    measured["batched_fused_scatter_round_tiles"] = check_batched_fused(
+        torch, np, rt, tk, tref, build, batch, prep, singles, dev)
+
+    runs = {}
+    for name, pop in pops.items():
+        reads = [0]
+        tk.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = rt.propagate_batch(pop, device=dev,
+                                 on_sync=lambda: reads.__setitem__(0, reads[0] + 1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        runs[f"batch {name}"] = tk.launch_counts()
+        plain = rt.propagate_batch(pop, device=dev, use_kernels=False)
+        singles = [rt.propagate_block_ell(p, device=dev) for p in pop]
+        for i, (g, w, one) in enumerate(zip(got, plain, singles)):
+            for f in ("lb", "ub", "rounds", "converged", "infeasible"):
+                if not torch.equal(getattr(g, f), getattr(w, f)):
+                    fail(f"batch {name}: instance {i} {f} differs from the plain path")
+                if not torch.equal(getattr(g, f), getattr(one, f)):
+                    fail(f"batch {name}: instance {i} {f} differs from its propagate_block_ell")
+            if not torch.equal(g.progress, w.progress):
+                fail(f"batch {name}: instance {i} progress differs from the plain path")
+        b_ms = time_ms(torch, lambda: rt.propagate_batch(pop, device=dev), reps=1, trials=3)
+        s_ms = [time_ms(torch, lambda p=p: rt.propagate_block_ell(p, device=dev), reps=1,
+                        trials=3) for p in pop]
+        rounds = [int(r.rounds) for r in got]
+        log(f"batch {name}: rounds {rounds}, converged {[bool(r.converged) for r in got]}, "
+            f"infeasible {[bool(r.infeasible) for r in got]}, flag reads {reads[0]}, first wall "
+            f"{wall * 1e3:.3f} ms; batch fixed point {b_ms:.3f} ms ({b_ms / max(rounds):.4f} "
+            f"ms/round), sum of single-instance fixed points {sum(s_ms):.3f} ms "
+            f"({', '.join(f'{x:.3f}' for x in s_ms)}); every instance bitwise equal to its "
+            f"propagate_block_ell and to the plain path; launches {runs[f'batch {name}']}")
+        prof = busy_profile(torch, lambda: rt.propagate_batch(pop, device=dev))
+        if prof is None:
+            log(f"profile batch {name}: the profiler recorded no device time; idle share not "
+                "measured")
+        else:
+            busy, top = prof
+            log(f"profile batch {name}: device busy {busy:.3f} ms of {b_ms:.3f} ms fixed point, "
+                f"idle share {1 - busy / b_ms:.3f}; top: {top}")
+
+    # A warm start of one instance through the same packed tiles.
+    pop = pops["fused"]
+    p = pop[0]
+    rng = np.random.default_rng(1)
+    ub0 = np.array(p.ub)
+    ub0[rng.choice(p.n, size=p.n // 20, replace=False)] = 0.0
+    hits = ops.cache_info()["prepare_problem_batch"]["hits"]
+    warm = rt.propagate_batch(pop, bounds=[(p.lb, ub0), None, None, None], device=dev)
+    if ops.cache_info()["prepare_problem_batch"]["hits"] != hits + 1:
+        fail("the warm start did not reuse the prepared bucket")
+    one = rt.propagate_block_ell(p, lb0=p.lb, ub0=ub0, device=dev)
+    cold = rt.propagate_batch(pop, device=dev)
+    for f in ("lb", "ub", "rounds", "converged", "infeasible"):
+        if not torch.equal(getattr(warm[0], f), getattr(one, f)):
+            fail(f"batch warm start: {f} differs from the warm-started propagate_block_ell")
+        for i in range(1, len(pop)):
+            if not torch.equal(getattr(warm[i], f), getattr(cold[i], f)):
+                fail(f"batch warm start: instance {i} {f} moved")
+    log(f"batch warm start: pb with {p.n // 20} upper bounds at 0, rounds "
+        f"{int(warm[0].rounds)}, infeasible {bool(warm[0].infeasible)}; equal to its "
+        "warm-started propagate_block_ell, the other instances unchanged")
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the continuous-batching service
+# ---------------------------------------------------------------------------
+
+
+def percentiles(np, xs) -> str:
+    q = np.percentile(np.asarray(xs) * 1e3, [50, 95, 99])
+    return f"p50 {q[0]:.3f} / p95 {q[1]:.3f} / p99 {q[2]:.3f} ms"
+
+
+def serve_once(torch, svc, payloads):
+    """Submit every pre-packed payload, then pump until all retired.
+    Returns (tickets, wall seconds, pumps)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tickets = [svc.submit(payload=pay) for pay in payloads]
+    pumps = 0
+    while not all(tk_.done() for tk_ in tickets):
+        svc.pump()
+        pumps += 1
+    torch.cuda.synchronize()
+    return tickets, time.perf_counter() - t, pumps
+
+
+def service_run(torch, np, rt, tk, name, stream, dev, **kw):
+    """One service over ``stream``: build, a checked serve (every ticket
+    bitwise against one-shot propagate_batch on the kernels and on the
+    plain versions), timed saturation runs against sequential
+    propagate_block_ell, profile and stats.  Returns the checked serve's
+    launch counts."""
+    reads = [0]
+    t = time.perf_counter()
+    specs = rt.BucketSpec.for_problems(stream, **{k: v for k, v in kw.items()
+                                                  if k in ("slots", "size_classes")})
+    svc = rt.PropagationService(specs, rounds_per_step=SERVICE_ROUNDS_PER_STEP, device=dev,
+                                on_sync=lambda: reads.__setitem__(0, reads[0] + 1))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t
+    for s in specs:
+        log(f"service {name} bucket: n_pad={s.n_pad} slots={s.slots} slot_tiles={s.slot_tiles} "
+            f"slot_rows={s.slot_rows} tile_width={s.tile_width} "
+            f"fits_one_chunk={s.fits_one_chunk}")
+    spec_of = [next(s for s in specs if s.fits_problem(p)) for p in stream]
+    t = time.perf_counter()
+    payloads = [s.pack(p) for s, p in zip(spec_of, stream)]
+    t_pack = time.perf_counter() - t
+    cc0 = svc.compile_counts()
+
+    tk.reset_launch_counts()
+    reads[0] = 0
+    tickets, wall, pumps = serve_once(torch, svc, payloads)
+    counts = tk.launch_counts()
+    first_reads = reads[0]
+    for i, (p, s, tkt) in enumerate(zip(stream, spec_of, tickets)):
+        r = tkt.result()
+        for use_kernels in (True, False):
+            one = rt.propagate_batch([p], tile_rows=8, tile_width=s.tile_width,
+                                     use_kernels=use_kernels, device=dev)[0]
+            for f in ("lb", "ub", "rounds", "converged", "infeasible", "progress"):
+                if not torch.equal(getattr(r, f), getattr(one, f).cpu()):
+                    fail(f"service {name}: ticket {i} {f} differs from the one-shot batch "
+                         f"({'kernels' if use_kernels else 'plain versions'})")
+    if svc.compile_counts() != cc0:
+        fail(f"service {name}: builds after construction: {cc0} -> {svc.compile_counts()}")
+
+    rates, lat, queue, resident, pump_counts = [], [], [], [], []
+    for _ in range(SERVICE_TIMED_RUNS):
+        reads[0] = 0
+        tickets, wall_t, pumps_t = serve_once(torch, svc, payloads)
+        rates.append(len(stream) / wall_t)
+        pump_counts.append((pumps_t, reads[0]))
+        lat += [x.latency() for x in tickets]
+        queue += [x.queue_latency() for x in tickets]
+        resident += [x.service_latency() for x in tickets]
+    for s, p in zip(spec_of, stream):  # prepare once, outside the timer
+        rt.propagate_block_ell(p, tile_width=s.tile_width, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for s, p in zip(spec_of, stream):
+        rt.propagate_block_ell(p, tile_width=s.tile_width, device=dev)
+    torch.cuda.synchronize()
+    seq = len(stream) / (time.perf_counter() - t)
+    rounds = [int(x.result().rounds) for x in tickets]
+    log(f"service {name}: {len(stream)} requests, rounds {min(rounds)}-{max(rounds)}, "
+        f"build {t_build:.2f}s, pack {t_pack:.2f}s; checked serve {wall * 1e3:.1f} ms, "
+        f"{pumps} pumps, {first_reads} flag reads ({first_reads / pumps:.2f} per pump); every "
+        f"ticket bitwise equal to the one-shot batch on the kernels and on the plain versions; "
+        f"no build after construction {cc0}; launches {counts}")
+    log(f"service {name}: saturation {', '.join(f'{x:.2f}' for x in rates)} instances/s "
+        f"(pumps, flag reads per run: {pump_counts}); sequential propagate_block_ell "
+        f"{seq:.2f} instances/s; latency submit->retire {percentiles(np, lat)}, queue "
+        f"{percentiles(np, queue)}, resident {percentiles(np, resident)}")
+    prof = busy_profile(torch, lambda: serve_once(torch, svc, payloads))
+    if prof is None:
+        log(f"profile service {name}: the profiler recorded no device time; idle share not "
+            "measured")
+    else:
+        busy, top = prof
+        wall_p = len(stream) / statistics.median(rates) * 1e3
+        log(f"profile service {name}: device busy {busy:.3f} ms of {wall_p:.3f} ms saturation "
+            f"run, idle share {1 - busy / wall_p:.3f}; top: {top}")
+    st = svc.stats()
+    for b in st["buckets"]:
+        log(f"service {name} stats: n_pad={b['n_pad']} tile_width={b['tile_width']} "
+            f"slot_tiles={b['slot_tiles']} retired={b['retired']} "
+            f"mean_occupancy={b['mean_occupancy']:.3f}")
+    log(f"service {name} stats: submitted={st['submitted']} retired={st['retired']} "
+        f"pending={st['pending']} occupied={st['occupied']} engine_cache={st['engine_cache']}")
+    if st["retired"] != st["submitted"] or st["occupied"] or st["pending"]:
+        fail(f"service {name}: not drained: {st}")
+    return counts, specs
+
+
+def service_phase(torch, np, rt, td, tk, dev):
+    """Phase 10: the continuous-batching service on two request streams.
+    Returns the launch counts of each checked serve."""
+    rng = np.random.default_rng(0)
+    rows = rng.integers(*SERVICE_ROWS, size=2 * SERVICE_REQUESTS + SERVICE_MIXED)
+    t = time.perf_counter()
+    pbs = [td.make_pseudo_boolean(n=60_000, m=int(m), seed=100 + i, unit_frac=0.002)
+           for i, m in enumerate(rows[:SERVICE_REQUESTS])]
+    bands = [td.make_banded(n=40_000, m=int(m), row_nnz=24, band=5_000, seed=100 + i)
+             for i, m in enumerate(rows[SERVICE_REQUESTS:2 * SERVICE_REQUESTS])]
+    stream = [p for pair in zip(pbs, bands) for p in pair]
+    mixed = [td.make_mixed(m=int(m), n=30_000, seed=100 + i, density=0.0005)
+             for i, m in enumerate(rows[2 * SERVICE_REQUESTS:])]
+    log(f"service streams: {len(stream)} + {len(mixed)} requests, rows "
+        f"{[int(x) for x in rows]}, nnz {sum(p.nnz for p in stream)} + "
+        f"{sum(p.nnz for p in mixed)}, generate={time.perf_counter() - t:.1f}s")
+    runs = {}
+    counts, specs = service_run(torch, np, rt, tk, "stream", stream, dev, slots=SERVICE_SLOTS,
+                                size_classes=SERVICE_SIZE_CLASSES)
+    runs["service stream"] = counts
+    if not any(s.fits_one_chunk for s in specs):
+        fail("service stream: no bucket runs the fused round")
+    if not all(s.fits_one_chunk for s in specs):
+        require_launched({"service stream": counts}, {"service stream": (
+            "activities_gather_tiles", "combine_chunk_partials_tiles",
+            "candidates_scatter_tiles")})
+    counts, _ = service_run(torch, np, rt, tk, "mixed", mixed, dev, slots=2)
+    runs["service mixed"] = counts
     return runs
 
 

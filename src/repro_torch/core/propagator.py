@@ -165,23 +165,27 @@ def fixed_point(
 
 def _batched_rounds(
     round_fn, lb, ub, active, last_changed, rounds, max_rounds: int, *,
-    rounds_hi: int, with_progress: bool, progress, on_sync,
+    rounds_hi: int, with_progress: bool, progress, on_sync, budget: int | None = None,
 ):
     """The loop of :func:`batched_step_rounds`: one round, then one host
-    read of ``active.any()``, until no row is active.  The first round runs
-    unconditionally; with no active row it changes nothing.
+    read of ``active.any()``, until no row is active or ``budget`` rounds
+    ran.  The first round runs unconditionally; with no active row it
+    changes nothing.
 
     Rounds update the bound planes in place where ``round_fn`` does, so the
-    progress measure keeps pre-round copies, and only of the rounds in
-    which an active row may run its last allowed round (``rounds_hi`` is
-    the largest incoming round count of an active row).  A row whose last
+    progress measure keeps pre-round copies, and only of the rounds that
+    may be a row's last in this call: those in which an active row may run
+    its last allowed round (``rounds_hi`` is the largest incoming round
+    count of an active row), and the budget's last round.  A row whose last
     round changed nothing has progress exactly 0.0; a row cut by
-    ``max_rounds`` gets the measure of its last round."""
+    ``max_rounds`` or still active at the budget's end gets the measure of
+    its last round."""
     lb_in = ub_in = None
     ran = torch.zeros_like(active)
     k = 0
     while True:
-        if with_progress and rounds_hi + k + 1 >= max_rounds:
+        last_step = budget is not None and k + 1 >= budget
+        if with_progress and (last_step or rounds_hi + k + 1 >= max_rounds):
             if lb_in is None:
                 lb_in, ub_in = lb.clone(), ub.clone()
             else:
@@ -196,7 +200,7 @@ def _batched_rounds(
         go = bool(active.any())
         if on_sync is not None:
             on_sync()
-        if not go:
+        if not go or last_step:
             break
     if with_progress:
         cut = ran & last_changed
@@ -207,9 +211,7 @@ def _batched_rounds(
     return lb, ub, active, last_changed, rounds, progress
 
 
-def _check_batched_options(budget, stop_progress, patience, plane):
-    if budget is not None:
-        not_ported("budget=", "item 11 (service)")
+def _check_batched_options(stop_progress, patience, plane):
     if stop_progress is not None or patience != 1:
         not_ported("stop_progress= / patience=", "item 5 (precision tiers)")
     if plane is not None:
@@ -224,7 +226,8 @@ def batched_step_rounds(
     plane=None, feas_eps: float | None = None,
     on_sync: Callable[[], None] | None = None,
 ):
-    """Run a batched fixed point from a carried state to the end.
+    """Run up to ``budget`` rounds of a batched fixed point from a carried
+    state (all of them to the end when ``budget`` is None).
 
     ``round_fn(lb, ub, active) -> (lb, ub, changed)`` works on ``(B, n_pad)``
     bound planes and ``(B,)`` masks; it may update the planes in place and
@@ -234,20 +237,25 @@ def batched_step_rounds(
     Returns that state, and with ``with_progress=True`` also ``(progress,
     flat)``: each row's last-round progress measure (the carried
     ``progress``, NaN by default, for rows that ran no round) and the
-    carried low-progress streak.
+    carried low-progress streak.  The state is resumable: feeding one
+    call's output to the next continues every row's trajectory bit for
+    bit, so a fixed point chunked by any budget ends where one call does,
+    progress included.  This is the service's bounded step.
 
     The loop reads ``active.any()`` on the host once per round, reported to
     ``on_sync``; with ``with_progress`` one more read takes the incoming
-    round counts.  ``budget=`` (the service's bounded step),
-    ``stop_progress=``/``patience=`` and ``plane=`` are not ported yet and
-    raise ``NotImplementedError``."""
+    round counts.  ``stop_progress=``/``patience=`` and ``plane=`` are not
+    ported yet and raise ``NotImplementedError``."""
     del feas_eps  # the telemetry probe's tolerance; telemetry is not ported
-    _check_batched_options(budget, stop_progress, patience, plane)
+    _check_batched_options(stop_progress, patience, plane)
     bsz = lb.shape[0]
     if progress is None:
         progress = torch.full((bsz,), math.nan, dtype=lb.dtype, device=lb.device)
     if flat is None:
         flat = torch.zeros((bsz,), dtype=torch.int32, device=lb.device)
+    if budget is not None and budget < 1:
+        out = (lb, ub, active, last_changed, rounds)
+        return out + (progress, flat) if with_progress else out
     rounds_hi = 0
     if with_progress:
         rounds_hi = int(torch.where(active, rounds, 0).max())
@@ -256,7 +264,7 @@ def batched_step_rounds(
     lb, ub, active, last_changed, rounds, progress = _batched_rounds(
         round_fn, lb, ub, active, last_changed, rounds, max_rounds,
         rounds_hi=rounds_hi, with_progress=with_progress, progress=progress,
-        on_sync=on_sync,
+        on_sync=on_sync, budget=budget,
     )
     if with_progress:
         return lb, ub, active, last_changed, rounds, progress, flat
@@ -283,7 +291,7 @@ def batched_fixed_point(
     the per-row last-round progress measure.  One host read of
     ``active.any()`` per round, reported to ``on_sync``."""
     del feas_eps
-    _check_batched_options(None, stop_progress, patience, plane)
+    _check_batched_options(stop_progress, patience, plane)
     bsz = lb0.shape[0]
     dev = lb0.device
     if active0 is None:
@@ -298,6 +306,49 @@ def batched_fixed_point(
     if with_progress:
         return lb, ub, rounds, ~last_changed, progress
     return lb, ub, rounds, ~last_changed
+
+
+def propagate_batch(
+    problems,
+    cfg: PropagatorConfig = DEFAULT_CONFIG,
+    tile_rows: int = 8,
+    tile_width: int = 128,
+    dtype=None,
+    use_kernels: bool = True,
+    driver: str = "device_loop",
+    bounds=None,
+    slab: int | None = None,
+    stop_progress: float | None = None,
+    patience: int = 1,
+    policy=None,
+    telemetry=None,
+    device="cuda",
+    on_sync: Callable[[], None] | None = None,
+) -> "list[PropagationResult]":
+    """Propagate a batch of instances, a whole bucket per fixed point.
+
+    Front end over the batched block-ELL engine: instances are bucketed by
+    padded column width (``core.sparse.pack_problems``), each bucket runs
+    its fixed point with a per-instance convergence mask, and results come
+    back as one ``PropagationResult`` per instance, input order (``(n_i,)``
+    bounds each, tensors on ``device``).  Buckets past
+    ``kernels.ops.SCATTER_MAX_NPAD`` columns run the column-slab
+    partitioned round.  ``bounds`` (one ``(lb_i, ub_i)`` pair or ``None``
+    per problem) warm-starts instances without repacking; packing, upload
+    and runners are cached on the identity of the problem list
+    (``kernels.cache_info()``).  ``use_kernels=False`` runs the kernels'
+    plain versions.  ``device`` defaults to CUDA and raises where there is
+    none.  ``policy=``, ``stop_progress=``, ``patience != 1`` and
+    ``telemetry=`` raise ``NotImplementedError``.  See
+    ``kernels.ops.propagate_batch_block_ell``."""
+    from ..kernels.ops import propagate_batch_block_ell  # lazy: kernels imports core
+
+    return propagate_batch_block_ell(
+        problems, cfg=cfg, tile_rows=tile_rows, tile_width=tile_width, dtype=dtype,
+        use_kernels=use_kernels, driver=driver, bounds=bounds, slab=slab,
+        stop_progress=stop_progress, patience=patience, policy=policy, telemetry=telemetry,
+        device=device, on_sync=on_sync,
+    )
 
 
 def _result(lb, ub, rounds, changed, prog, feas_eps) -> PropagationResult:

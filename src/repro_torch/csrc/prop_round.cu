@@ -18,6 +18,10 @@
 //                             kernel: the reference's XLA segment_sum)
 //   node_fused_scatter_round  (#10) D over a node batch: one matrix, B bound
 //                             planes, an active mask read on the device
+//   batched_fused_scatter_round  (#8) D over a packed batch: each tile's
+//                             instance routes it to its own row of the
+//                             (B, n_pad) planes, an active mask read on the
+//                             device skips converged instances and free slots
 //   apply_updates_batch  (#9) F over (B, n_pad) planes with an active mask
 //                             and a changed flag per row
 //   node_objective       (#16) per node: objective bound, all-fixed and
@@ -167,6 +171,40 @@ node_fused_scatter_round_kernel(const double* __restrict__ val, const int* __res
   }
 }
 
+// Kernel D over a packed batch: one flat stream of T tiles of R chunks, tile t
+// belonging to instance tile_inst[t] (its columns local to that instance's
+// n_pad-wide window).  A lane group reads its chunk's instance and that
+// instance's active flag; an inactive group loads nothing from the tiles,
+// and a warp whose groups are all inactive returns at once.  Active groups
+// gather from and scatter into their instance's rows with D's arithmetic,
+// so each row equals D's result for that instance bit for bit.  Blocks run
+// in no order, so nothing needs an instance's tiles to be contiguous.
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+batched_fused_scatter_round_kernel(const double* __restrict__ val, const int* __restrict__ col,
+                                   const int* __restrict__ ii, const double* __restrict__ lhs,
+                                   const double* __restrict__ rhs, const double* __restrict__ lb,
+                                   const double* __restrict__ ub,
+                                   const int* __restrict__ tile_inst,
+                                   const bool* __restrict__ active, double* best_l,
+                                   double* best_u, int64_t n_chunks, int r, int k, int64_t n_pad,
+                                   double int_eps, double inf) {
+  const Lanes L = lanes_for<G>(n_chunks);
+  bool on = false;
+  int64_t row = 0;
+  if (L.live) {
+    const int64_t inst = tile_inst[L.chunk / r];
+    on = active[inst];
+    row = inst * n_pad;
+  }
+  if (!__any_sync(0xffffffffu, on)) return;  // the whole warp: no shuffle follows
+  const int64_t base = L.chunk * k;
+  const RowAgg a = chunk_aggregates<G>(val, col, lb + row, ub + row, base, on ? k : 0, L, inf);
+  if (!on) return;
+  chunk_candidates_scatter(val, col, ii, lb + row, ub + row, a, lhs[L.chunk], rhs[L.chunk],
+                           best_l + row, best_u + row, base, k, L, int_eps, inf);
+}
+
 // Kernel F over (B, n_pad) planes: grid (column blocks, B); the blocks of an
 // inactive row return at once, so it is neither read nor written.
 __global__ void __launch_bounds__(kThreads)
@@ -279,6 +317,17 @@ int node_fused_scatter_round(const double* val, const int* col, const int* ii, c
                              double int_eps, double inf, cudaStream_t stream) {
   LAUNCH_FOR_WIDTH(node_fused_scatter_round_kernel, k, n_chunks, stream, val, col, ii, lhs, rhs,
                    lb, ub, active, best_l, best_u, n_chunks, k, bsz, n_pad, int_eps, inf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int batched_fused_scatter_round(const double* val, const int* col, const int* ii,
+                                const double* lhs, const double* rhs, const double* lb,
+                                const double* ub, const int* tile_inst, const bool* active,
+                                double* best_l, double* best_u, int64_t n_chunks, int r, int k,
+                                int64_t n_pad, double int_eps, double inf, cudaStream_t stream) {
+  LAUNCH_FOR_WIDTH(batched_fused_scatter_round_kernel, k, n_chunks, stream, val, col, ii, lhs, rhs,
+                   lb, ub, tile_inst, active, best_l, best_u, n_chunks, r, k, n_pad, int_eps,
+                   inf);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -43,6 +43,7 @@ SIGNATURES = {
         "apply_updates": [P] * 5 + [I64, F64, F64, F64, P],
         "combine_chunk_partials": [P] * 9 + [I64, P],
         "node_fused_scatter_round": [P] * 10 + [I64, I32, I64, I64, F64, F64, P],
+        "batched_fused_scatter_round": [P] * 11 + [I64, I32, I32, I64, F64, F64, P],
         "apply_updates_batch": [P] * 6 + [I64, I64, F64, F64, F64, P],
         "node_objective": [P] * 8 + [I64, I64, F64, F64, P],
     },
@@ -58,6 +59,7 @@ SIGNATURES = {
 _lock = threading.Lock()
 _lib: SimpleNamespace | None = None
 build_info: dict = {}
+build_count = 0  # runs of the compilers in this process (the first use, at most)
 
 
 def _nvcc() -> str:
@@ -87,6 +89,7 @@ def build() -> list[Path]:
     so concurrent processes never load a half-written library.
     ``build_info`` records the seconds taken and the compilers' register
     reports."""
+    global build_count
     outs = library_paths()
     todo = [(src, out) for src, out in zip(SOURCES, outs) if not out.exists()]
     if not todo:
@@ -124,6 +127,7 @@ def build() -> list[Path]:
             if os.path.exists(tmp):
                 os.unlink(tmp)
     build_info.update(seconds=time.perf_counter() - t0, cached=False, log="".join(logs))
+    build_count += 1
     return outs
 
 

@@ -1,5 +1,6 @@
 """The block-ELL propagation engines over the round kernels: one instance
-(``propagate_block_ell``) and a batch of nodes sharing one matrix
+(``propagate_block_ell``), a packed batch of instances
+(``propagate_batch_block_ell``) and a batch of nodes sharing one matrix
 (``propagate_nodes_prepared``).
 
 The kernel-backed sibling of ``core.propagator``; both share the bound-update
@@ -22,6 +23,12 @@ semantics so they converge to the same fixed points.
     while ``n_pad <= SCATTER_MAX_NPAD``, ``partitioned`` beyond.  The limit
     picks the engine and no longer bounds what the port can run: an
     explicit ``scatter="fused"`` runs at any ``n_pad``.
+  * The batched round over a packed bucket (``prepare_problem_batch``, one
+    flat tile stream, ``(B, n_pad)`` planes, a per-instance active mask):
+    kernel #8 then #9 where every row fits one chunk; past
+    ``SCATTER_MAX_NPAD`` the partitioned round over the bucket's slab
+    partition; otherwise A', the combine and E over the flat stream with
+    global columns, then #9.
   * The node round: kernel #10 then the batched merge #9 where rows fit one
     chunk, else the single-instance round per node, masked; past
     ``SCATTER_MAX_NPAD`` the partitioned node kernels (#13, the combine,
@@ -53,7 +60,7 @@ from ..core.propagator import (
     resolve_device,
     DRIVERS,
 )
-from ..core.sparse import Problem, col_pad, csr_to_block_ell
+from ..core.sparse import Problem, ProblemBatch, col_pad, csr_to_block_ell, pack_problems
 from ..core.types import DEFAULT_CONFIG, PropagationResult, PropagatorConfig
 from . import prop_round as kern
 from . import ref as kref
@@ -104,6 +111,16 @@ def device_block_ell(
         lb0=t(p.lb),
         ub0=t(p.ub),
     )
+
+
+def _straddle_segments(cache: dict, part: SlabPartition, planes: int):
+    """The straddle combine's segments over ``planes`` bound planes of
+    ``part`` (``ref.straddle_segments``), cached in a prep's ``cache``."""
+    key = (part.slab, int(planes))
+    segs = cache.get(key)
+    if segs is None:
+        segs = cache[key] = kref.straddle_segments(part, planes)
+    return segs
 
 
 def rows_fit_one_chunk(p: Problem, tile_width: int) -> bool:
@@ -208,13 +225,7 @@ class PreparedBlockEll:
         return part
 
     def straddle_segments(self, part: SlabPartition, planes: int):
-        """The straddle combine's segments over ``planes`` bound planes of
-        ``part`` (``ref.straddle_segments``), cached."""
-        key = (part.slab, int(planes))
-        segs = self._slabs.get(key)
-        if segs is None:
-            segs = self._slabs[key] = kref.straddle_segments(part, planes)
-        return segs
+        return _straddle_segments(self._slabs, part, planes)
 
     def pad_bound(self, arr) -> torch.Tensor:
         """One caller bound vector -> the column-padded ``(n_pad,)`` domain
@@ -276,10 +287,7 @@ def prepare_block_ell(
         rhs_g=d.rhs1[crow],
         lb0=torch.zeros(n_pad, dtype=dt, device=dev),
         ub0=torch.zeros(n_pad, dtype=dt, device=dev),
-        row_start=torch.searchsorted(
-            d.chunk_row.reshape(-1),
-            torch.arange(p.m + 2, dtype=d.chunk_row.dtype, device=dev),
-        ),
+        row_start=kref.row_starts(d.chunk_row, p.m + 1),
         m=p.m,
         n=p.n,
         n_pad=n_pad,
@@ -308,11 +316,20 @@ class RoundOps(NamedTuple):
     node_fused: Callable  # #10: tiles + (B, n_pad) planes + active -> (best_l, best_u)
     merge_batch: Callable  # #9: (lb, ub, best_l, best_u, active, eps, inf, outward)
     partitioned: Callable  # (part, lb, ub, active, ...) -> (lb, ub, (B,) changed)
+    batched_fused: Callable  # #8: flat stream + tile_inst + (B, n_pad) planes + active
 
 
 def _plain_node_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, int_eps, inf):
     return kref.node_fused_scatter_round_ref(
         val, col, is_int_g, lhs_g, rhs_g, lb, ub, n_pad, int_eps, inf, active=active
+    )
+
+
+def _plain_batched_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, tile_inst, active, n_pad,
+                         int_eps, inf):
+    return kref.batched_fused_scatter_round_ref(
+        val, kref.global_columns(col, tile_inst, n_pad), is_int_g, lhs_g, rhs_g, lb, ub, n_pad,
+        int_eps, inf, active=active,
     )
 
 
@@ -397,6 +414,7 @@ KERNEL_OPS = RoundOps(
     kern.node_fused_scatter_round_tiles,
     kern.apply_updates_batch_tiles,
     _partitioned_kernel_round,
+    kern.batched_fused_scatter_round_tiles,
 )
 PLAIN_OPS = RoundOps(
     kref.fused_scatter_round_tiles_ref,
@@ -407,6 +425,7 @@ PLAIN_OPS = RoundOps(
     _plain_node_fused,
     _plain_merge_batch,
     _partitioned_plain_round,
+    _plain_batched_fused,
 )
 
 
@@ -553,6 +572,398 @@ def propagate_block_ell(
     lb, ub = _initial_padded_bounds(prep, lb0, ub0)
     lb, ub, rounds, changed, prog = fixed_point(round_fn, lb, ub, cfg.max_rounds, on_sync)
     return _result(lb[: prep.n], ub[: prep.n], rounds, changed, prog, cfg.feas_eps)
+
+
+# ---------------------------------------------------------------------------
+# Batched engine: a whole packed bucket of instances per fixed point
+# ---------------------------------------------------------------------------
+
+
+class DeviceProblemBatch(NamedTuple):
+    """A packed bucket as tensors on one device: the flat tile stream, the
+    hoisted round constants, initial bounds and the real-column mask.
+    ``col`` keeps instance-local columns (kernel #8 routes each tile by
+    ``tile_inst``); ``col_g`` holds the global ids ``col + tile_inst *
+    n_pad`` into the flattened planes for the multi-chunk round."""
+
+    val: torch.Tensor        # (T, R, K) float64
+    col: torch.Tensor        # (T, R, K) int32 instance-local
+    col_g: torch.Tensor      # (T, R, K) int32 global (bound-plane) columns
+    chunk_row: torch.Tensor  # (T, R) int32 global row ids, ascending
+    tile_inst: torch.Tensor  # (T,) int32 instance of each tile
+    ii_g: torch.Tensor       # (T, R, K) int32: is_int at each slot's column, hoisted
+    lhs_g: torch.Tensor      # (T, R): lhs1[chunk_row], hoisted
+    rhs_g: torch.Tensor      # (T, R)
+    lb0: torch.Tensor        # (B, n_pad)
+    ub0: torch.Tensor        # (B, n_pad)
+    col_valid: torch.Tensor  # (B, n_pad) bool: j < n_i (real columns)
+
+
+@dataclasses.dataclass(frozen=True)
+class PreparedBatch:
+    """One packed bucket, on its device: what a batched round reads and
+    never changes.  ``row_start`` is the long-row combine's index over the
+    flat stream's global rows (instance row offsets, one dummy row each)."""
+
+    batch: ProblemBatch
+    d: DeviceProblemBatch
+    size: int
+    m_total: int
+    n_pad: int
+    fits_one_chunk: bool
+    row_start: torch.Tensor  # (m_total + 1,) int64
+    # Slab partitions of the packed stream keyed by slab width, and the
+    # straddle combine's segments keyed by (slab width, planes).
+    _slabs: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def slab_partition(self, slab: int | None = None) -> SlabPartition:
+        """The bucket's flat stream re-bucketed into per-instance
+        ``slab``-wide column windows (default :func:`default_slab_width`
+        under :data:`SLAB_NPAD`, read at call time), built once per width
+        from the host-side packed arrays; instance ``i``'s padding chunks
+        sit on its dummy row, the last of its row range."""
+        s = default_slab_width(self.n_pad, SLAB_NPAD) if slab is None else int(slab)
+        part = self._slabs.get(s)
+        if part is None:
+            ell = self.batch.ell
+            part = self._slabs[s] = build_slab_partition(
+                ell.val, ell.col, ell.chunk_row, ell.tile_inst, self.batch.lhs1,
+                self.batch.rhs1, self.batch.is_int, self.n_pad, s,
+                (ell.row_offset[1:] - 1).astype(np.int32), device=self.d.val.device,
+            )
+        return part
+
+    def straddle_segments(self, part: SlabPartition, planes: int):
+        return _straddle_segments(self._slabs, part, planes)
+
+
+_batch_prep_cache = LRU(maxsize=16)
+
+
+def prepare_problem_batch(batch: ProblemBatch, dtype=None, device="cuda") -> PreparedBatch:
+    """Upload + hoisted round constants of one packed bucket, LRU-cached per
+    ``ProblemBatch`` identity, dtype and device (maxsize 16, see
+    :func:`cache_info`): a serving loop re-propagates the same packed batch
+    with fresh bounds, which every driver takes per call."""
+    dev = resolve_device(device)
+    dt = check_dtype(dtype)
+    key = (id(batch), str(dt), str(dev))
+    hit = _batch_prep_cache.get(key, (batch,))
+    if hit is not None:
+        return hit
+    ell = batch.ell
+    n_pad = batch.n_pad
+    col_g = ell.col + ell.tile_inst[:, None, None] * np.int32(n_pad)
+    t = lambda x, d=dt: torch.as_tensor(np.asarray(x), dtype=d, device=dev)
+    chunk_row = t(ell.chunk_row, torch.int32)
+    d = DeviceProblemBatch(
+        val=t(ell.val),
+        col=t(ell.col, torch.int32),
+        col_g=t(col_g, torch.int32),
+        chunk_row=chunk_row,
+        tile_inst=t(ell.tile_inst, torch.int32),
+        ii_g=t(batch.is_int.reshape(-1)[col_g], torch.int32),
+        lhs_g=t(batch.lhs1[ell.chunk_row]),
+        rhs_g=t(batch.rhs1[ell.chunk_row]),
+        lb0=t(batch.lb),
+        ub0=t(batch.ub),
+        col_valid=t(np.arange(n_pad)[None, :] < ell.n[:, None], torch.bool),
+    )
+    prep = PreparedBatch(
+        batch=batch,
+        d=d,
+        size=batch.size,
+        m_total=batch.m_total,
+        n_pad=n_pad,
+        fits_one_chunk=all(rows_fit_one_chunk(p, ell.tile_width) for p in batch.problems),
+        row_start=kref.row_starts(chunk_row, batch.m_total),
+    )
+    _batch_prep_cache.put(key, (batch,), prep)
+    return prep
+
+
+def batched_reference_round(
+    val, col, col_g, tile_inst, ii_g, chunk_row, row_start, lhs_g, rhs_g, lb, ub, active,
+    *, n_pad: int, fits_one_chunk: bool, eps: float, int_eps: float, inf: float,
+    outward: float = 0.0, ops: RoundOps = KERNEL_OPS,
+):
+    """One batched round over a flat stream, IN PLACE with
+    :data:`KERNEL_OPS`: ``(B, n_pad)`` planes + ``(B,)`` active mask ->
+    ``(lb, ub, (B,) changed)``.  The counterpart of the reference's XLA
+    dataflow ``batched_reference_round`` (src/repro/kernels/ops.py:1492),
+    here on the ported kernels.  Rows that fit one chunk: kernel #8 (which
+    computes exactly the reference's fused dataflow).  Otherwise A', the
+    combine and E on the flat stream with global columns ``col_g`` over the
+    ``(B * n_pad,)`` view of the planes; the candidates of inactive
+    instances are then forced to the sentinel.  Then the batched merge #9,
+    which leaves inactive rows as they are.  The combine's segments
+    ``(chunk_row, row_start)`` are the global rows (``row_start`` from the
+    ascending ``chunk_row``), or any finer split into runs of adjacent
+    chunks that keeps each real row whole (the service's)."""
+    if fits_one_chunk:
+        best_l, best_u = ops.batched_fused(
+            val, col, ii_g, lhs_g, rhs_g, lb, ub, tile_inst, active, n_pad, int_eps, inf
+        )
+    else:
+        bsz = lb.shape[0]
+        width = bsz * n_pad
+        lbf, ubf = lb.view(width), ub.view(width)
+        partials = ops.activities(val, col_g, lbf, ubf, width, inf)
+        aggs = ops.combine(*partials, chunk_row, row_start)
+        best_l, best_u = ops.candidates(val, col_g, ii_g, *aggs, lhs_g, rhs_g, lbf, ubf, width,
+                                        int_eps, inf)
+        on = active[:, None]
+        best_l = torch.where(on, best_l.view(bsz, n_pad), -inf)
+        best_u = torch.where(on, best_u.view(bsz, n_pad), inf)
+    return ops.merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward)
+
+
+def _batched_prepared_round(
+    prep: PreparedBatch, lb, ub, active, *, ops: RoundOps, eps: float, int_eps: float,
+    inf: float, slab: int | None = None, outward: float = 0.0,
+):
+    """One round over a prepared bucket, with the reference's rule: past
+    ``SCATTER_MAX_NPAD`` (read at call time) the partitioned round over the
+    bucket's slab partition (#11, the combine, #12 with #15: copies routed
+    to their instance's plane by the run maps, inactive instances skipped
+    on the device); otherwise :func:`batched_reference_round`."""
+    if prep.n_pad > SCATTER_MAX_NPAD:
+        part = prep.slab_partition(slab)
+        return ops.partitioned(
+            part, lb, ub, active, node=False, eps=eps, int_eps=int_eps, inf=inf,
+            outward=outward, segments=prep.straddle_segments(part, 1),
+        )
+    d = prep.d
+    return batched_reference_round(
+        d.val, d.col, d.col_g, d.tile_inst, d.ii_g, d.chunk_row, prep.row_start, d.lhs_g,
+        d.rhs_g, lb, ub, active, n_pad=prep.n_pad, fits_one_chunk=prep.fits_one_chunk,
+        eps=eps, int_eps=int_eps, inf=inf, outward=outward, ops=ops,
+    )
+
+
+def batched_round_fn_for(
+    prep: PreparedBatch, cfg: PropagatorConfig = DEFAULT_CONFIG, use_kernels: bool = True,
+    slab: int | None = None,
+):
+    """A ``(lb, ub, active) -> (lb, ub, changed)`` round closure over a
+    prepared bucket (``(B, n_pad)`` planes, updated in place with kernels).
+    ``slab`` overrides the partitioned engine's window width."""
+    dt = prep.d.val.dtype
+    eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
+    ops = KERNEL_OPS if use_kernels else PLAIN_OPS
+
+    def round_fn(lb, ub, active):
+        return _batched_prepared_round(
+            prep, lb, ub, active, ops=ops, eps=eps, int_eps=cfg.int_eps, inf=cfg.inf,
+            slab=slab, outward=outward,
+        )
+
+    return round_fn
+
+
+def _unpack_batch_results(prep: PreparedBatch, lb, ub, rounds, converged, infeasible, progress):
+    """One :class:`PropagationResult` per instance (bucket order), each a
+    view of the bucket's tensors, unpadded to the instance's ``n``."""
+    return [
+        PropagationResult(lb[i, : p.n], ub[i, : p.n], rounds[i], converged[i], infeasible[i],
+                          progress[i])
+        for i, p in enumerate(prep.batch.problems)
+    ]
+
+
+# Fixed-point runners, cached per prepared bucket and config (maxsize 64, see
+# :func:`cache_info`).  PyTorch runs eagerly, so a runner is only the round
+# closure and its loop; bounds are per-call arguments.
+_batch_runner_cache = LRU(maxsize=64)
+
+
+def _batch_runner(prep: PreparedBatch, cfg, use_kernels: bool, slab):
+    key = (id(prep), cfg, use_kernels, slab)
+    run = _batch_runner_cache.get(key, (prep,))
+    if run is not None:
+        return run
+    round_fn = batched_round_fn_for(prep, cfg, use_kernels, slab)
+    col_valid = prep.d.col_valid
+
+    def run(lb0, ub0, on_sync: Callable[[], None] | None = None):
+        lb, ub, rounds, converged, progress = batched_fixed_point(
+            round_fn, lb0, ub0, cfg.max_rounds, with_progress=True, on_sync=on_sync
+        )
+        infeasible = ((lb > ub + cfg.feas_eps) & col_valid).any(dim=-1)
+        return lb, ub, rounds, converged, infeasible, progress
+
+    _batch_runner_cache.put(key, (prep,), run)
+    return run
+
+
+def batched_device_runner(
+    prep: PreparedBatch, cfg: PropagatorConfig = DEFAULT_CONFIG, use_kernels: bool = True,
+    slab: int | None = None,
+):
+    """The bucket's whole fixed point as one function, cached: ``run(lb0,
+    ub0, on_sync=None) -> (lb, ub, rounds, converged, infeasible,
+    progress)``, all per instance, over private ``(B, n_pad)`` planes that
+    it updates in place.  The loop reads ``active.any()`` on the host once
+    per round (reported to ``on_sync``)."""
+    return _batch_runner(prep, cfg, use_kernels, slab)
+
+
+def _batch_initial_bounds(prep: PreparedBatch, lb0, ub0):
+    """Per-call ``(B, n_pad)`` bound planes (default: the packed instances'
+    own bounds) -> private tensors that the in-place rounds may overwrite."""
+    d = prep.d
+    out = []
+    for override, default in ((lb0, d.lb0), (ub0, d.ub0)):
+        if override is None:
+            out.append(default.clone())
+            continue
+        arr = torch.as_tensor(override, dtype=default.dtype, device=default.device)
+        if arr.shape != default.shape:
+            raise ValueError(
+                f"bound plane has shape {tuple(arr.shape)}, expected {tuple(default.shape)}"
+            )
+        out.append(arr.clone())
+    return tuple(out)
+
+
+def _refuse_batch_options(stop_progress, patience, telemetry, policy=None) -> None:
+    if policy is not None or stop_progress is not None or patience != 1:
+        not_ported("policy= / stop_progress= / patience=", "item 5 (precision tiers)")
+    if telemetry is not None:
+        not_ported("telemetry=", "item 6 (observability)")
+
+
+def propagate_batch_prepared(
+    prep: PreparedBatch,
+    cfg: PropagatorConfig = DEFAULT_CONFIG,
+    use_kernels: bool = True,
+    driver: str = "device_loop",
+    lb0=None,
+    ub0=None,
+    slab: int | None = None,
+    stop_progress: float | None = None,
+    patience: int = 1,
+    telemetry=None,
+    on_sync: Callable[[], None] | None = None,
+):
+    """Run one prepared bucket to its per-instance fixed points.  Returns one
+    :class:`PropagationResult` per instance, bucket order.
+
+    Both drivers run the batched fixed point with the per-instance mask on
+    the device (:func:`batched_device_runner`), which reads one flag on the
+    host per round (``on_sync``) and measures every round's progress: in
+    this port ``"host_loop"`` is a name for the same loop.
+    ``lb0``/``ub0`` warm-start the bucket from ``(B, n_pad)`` planes through
+    the same prepared tiles.  ``stop_progress=``/``patience != 1`` (item 5)
+    and ``telemetry=`` (item 6) raise ``NotImplementedError``."""
+    if driver not in DRIVERS:
+        raise ValueError(f"unknown driver: {driver!r}")
+    _refuse_batch_options(stop_progress, patience, telemetry)
+    run = _batch_runner(prep, cfg, use_kernels, slab)
+    lb, ub = _batch_initial_bounds(prep, lb0, ub0)
+    return _unpack_batch_results(prep, *run(lb, ub, on_sync))
+
+
+# Packed-batch cache (maxsize 8): serving re-propagates the same request
+# list, and repacking would defeat the prepare and runner caches (both key
+# on object identity).
+_pack_cache = LRU(maxsize=8)
+
+
+def packed_problems(problems, tile_rows: int = 8, tile_width: int = 128):
+    """LRU-cached :func:`~repro_torch.core.sparse.pack_problems`: the same
+    problem list (by identity) packs once."""
+    problems = list(problems)
+    anchors = tuple(problems)
+    key = (tuple(id(p) for p in problems), tile_rows, tile_width)
+    hit = _pack_cache.get(key, anchors)
+    if hit is not None:
+        return hit
+    batches = pack_problems(problems, tile_rows=tile_rows, tile_width=tile_width)
+    _pack_cache.put(key, anchors, batches)
+    return batches
+
+
+def clear_batch_caches() -> None:
+    """Drop packed batches, prepared buckets and batch runners."""
+    _pack_cache.clear()
+    _batch_prep_cache.clear()
+    _batch_runner_cache.clear()
+
+
+def _bound_planes_for_batch(batch: ProblemBatch, bounds):
+    """Per-problem ``(lb, ub)`` overrides (input order; ``None`` keeps the
+    problem's own bounds) -> this bucket's ``(B, n_pad)`` planes, or
+    ``(None, None)`` when no instance of the bucket is overridden."""
+    lb_plane = np.array(batch.lb, copy=True)
+    ub_plane = np.array(batch.ub, copy=True)
+    touched = False
+    for row, (idx, p) in enumerate(zip(batch.indices, batch.problems)):
+        pair = bounds[idx]
+        if pair is None:
+            continue
+        lb_i = np.asarray(pair[0], lb_plane.dtype)
+        ub_i = np.asarray(pair[1], ub_plane.dtype)
+        if lb_i.shape != (p.n,) or ub_i.shape != (p.n,):
+            raise ValueError(
+                f"bounds for instance {idx} have shapes {lb_i.shape}/{ub_i.shape}, "
+                f"expected {(p.n,)}"
+            )
+        lb_plane[row, : p.n] = lb_i
+        ub_plane[row, : p.n] = ub_i
+        touched = True
+    if not touched:
+        return None, None
+    return lb_plane, ub_plane
+
+
+def propagate_batch_block_ell(
+    problems,
+    cfg: PropagatorConfig = DEFAULT_CONFIG,
+    tile_rows: int = 8,
+    tile_width: int = 128,
+    dtype=None,
+    use_kernels: bool = True,
+    driver: str = "device_loop",
+    bounds=None,
+    slab: int | None = None,
+    stop_progress: float | None = None,
+    patience: int = 1,
+    policy=None,
+    telemetry=None,
+    device="cuda",
+    on_sync: Callable[[], None] | None = None,
+) -> "list[PropagationResult]":
+    """Batched kernel-backed propagation: pack (bucketed by ``col_pad(n)``)
+    -> one fixed point per bucket -> one result per instance, input order.
+    Packing, upload and the runners are LRU-cached on the identity of the
+    problem list and packed batch, so a serving loop pays them once.
+    ``bounds`` (one ``(lb, ub)`` pair of ``(n_i,)`` arrays or ``None`` per
+    problem) warm-starts instances through the same packed tiles.  The
+    public front end is ``core.propagate_batch``.
+
+    ``device`` defaults to CUDA and raises where there is none.  ``policy=``,
+    ``stop_progress=``, ``patience != 1`` (item 5) and ``telemetry=`` (item
+    6) raise ``NotImplementedError``."""
+    if driver not in DRIVERS:
+        raise ValueError(f"unknown driver: {driver!r}")
+    _refuse_batch_options(stop_progress, patience, telemetry, policy)
+    problems = list(problems)
+    if bounds is not None:
+        bounds = list(bounds)
+        if len(bounds) != len(problems):
+            raise ValueError(f"bounds has {len(bounds)} entries for {len(problems)} problems")
+    out = [None] * len(problems)
+    for batch in packed_problems(problems, tile_rows=tile_rows, tile_width=tile_width):
+        prep = prepare_problem_batch(batch, dtype, device)
+        lb0 = ub0 = None
+        if bounds is not None:
+            lb0, ub0 = _bound_planes_for_batch(batch, bounds)
+        results = propagate_batch_prepared(prep, cfg, use_kernels, driver, lb0, ub0, slab,
+                                           on_sync=on_sync)
+        for idx, res in zip(batch.indices, results):
+            out[idx] = res
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -708,5 +1119,11 @@ def propagate_nodes_prepared(
 
 
 def cache_info() -> dict:
-    """Hit/miss/size/maxsize counters of the engine's LRU cache."""
-    return {"prepare_block_ell": _prep_cache.info()}
+    """Hit/miss/size/maxsize counters of the engines' LRU caches (prepared
+    instances, packed batches, prepared buckets, batch runners)."""
+    return {
+        "prepare_block_ell": _prep_cache.info(),
+        "packed_problems": _pack_cache.info(),
+        "prepare_problem_batch": _batch_prep_cache.info(),
+        "batch_runner": _batch_runner_cache.info(),
+    }

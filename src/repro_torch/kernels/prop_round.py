@@ -1,6 +1,6 @@
-"""The kernels of the fused propagation round, of its node-batch form, of the
-column-slab partitioned round and of the solver's node objective, behind
-PyTorch wrappers.
+"""The kernels of the fused propagation round, of its node-batch and packed-
+batch forms, of the column-slab partitioned round and of the solver's node
+objective, behind PyTorch wrappers.
 
 Each wrapper of a TPU kernel keeps the signature of its Pallas twin in the
 JAX package (``src/repro/kernels/prop_round.py``) minus ``interpret`` and
@@ -16,7 +16,8 @@ Layout of the tile arguments: ``val`` (T, R, K) float64 with 0 at padding,
 ``col`` (T, R, K) int32 with every id in ``[0, n_pad)``, ``is_int_g``
 (T, R, K) int32 integrality of each slot's column, per-chunk sides and row
 aggregates (T, R), bound vectors (n_pad,) float64; node batches carry
-(B, n_pad) float64 planes and a (B,) bool ``active`` mask.  The slab
+(B, n_pad) float64 planes and a (B,) bool ``active`` mask, packed batches
+also a (T,) int32 ``tile_inst`` map.  The slab
 kernels take a partition's copy tiles (slab-local ``col_s``), its (n_runs,)
 int32 run maps and (B, W) planes (W the partition's ``n_pad_part`` or the
 instance's ``n_pad``).  All contiguous, all on one device.
@@ -333,6 +334,83 @@ node_fused_scatter_round_tiles.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Kernel #8: kernel D over a packed batch (many matrices, one flat stream)
+# ---------------------------------------------------------------------------
+
+
+def batched_fused_scatter_round_tiles(
+    val, col, is_int_g, lhs_g, rhs_g, lb, ub, tile_inst, active, n_pad: int,
+    int_eps: float, inf: float = INF,
+):
+    """Fully fused round over a packed batch: ``(T, R, K)`` flat tile stream
+    (instance-local columns) + ``(B, n_pad)`` bound planes + ``(T,)`` int32
+    ``tile_inst`` + ``(B,)`` bool ``active`` -> ``(B, n_pad)`` ``best_l`` /
+    ``best_u``.  Per instance exactly :func:`fused_scatter_round_tiles`
+    (every row of every instance must fit its chunk); inactive instances
+    get sentinel rows.  ``active`` is also the service's slot-occupancy
+    mask (:func:`batched_occupancy_round_tiles`).
+
+    Replaces ``batched_fused_scatter_round_tiles`` /
+    ``_batched_fused_scatter_kernel`` (src/repro/kernels/prop_round.py:816
+    / :766), whose grid walks the stream in order and flushes its resident
+    accumulator block at each instance boundary.  Bound on the H100: for the
+    tiles of active instances, ``val`` per padded slot (8 B), ``col`` and
+    ``is_int_g`` per nonzero (8 B) and the sides per chunk (16 B); per
+    active instance its two bound rows read and two accumulator rows
+    written.  Design: kernel D's lane group per chunk; a group reads its
+    tile's instance and that instance's flag on the device and, if
+    inactive, loads nothing; the bound gather and the float64 CAS max/min
+    are offset by ``inst * n_pad``.  Blocks run in no order, so the wrapper
+    fills both accumulator planes with the sentinel before the launch (all
+    ``B`` rows) and no instance's tiles need to be contiguous."""
+    operands = (val, col, is_int_g, lhs_g, rhs_g, lb, ub, tile_inst, active)
+    if not _on_cuda(*operands):
+        return ref.batched_fused_scatter_round_ref(
+            val, ref.global_columns(col, tile_inst, n_pad), is_int_g, lhs_g, rhs_g, lb, ub,
+            n_pad, int_eps, inf, active=active,
+        )
+    t, r, k = val.shape
+    _expect("val", val, torch.float64, (t, r, k))
+    _expect("col", col, torch.int32, (t, r, k))
+    _expect("is_int_g", is_int_g, torch.int32, (t, r, k))
+    _expect("lhs_g", lhs_g, torch.float64, (t, r))
+    _expect("rhs_g", rhs_g, torch.float64, (t, r))
+    _expect("tile_inst", tile_inst, torch.int32, (t,))
+    bsz = lb.shape[0]
+    _check_planes(bsz, n_pad, lb=lb, ub=ub)
+    _expect("active", active, torch.bool, (bsz,))
+    best_l = torch.full((bsz, n_pad), -inf, dtype=torch.float64, device=val.device)
+    best_u = torch.full((bsz, n_pad), inf, dtype=torch.float64, device=val.device)
+    err = _build.lib().batched_fused_scatter_round(
+        _p(val), _p(col), _p(is_int_g), _p(lhs_g), _p(rhs_g), _p(lb), _p(ub), _p(tile_inst),
+        _p(active), _p(best_l), _p(best_u), t * r, r, k, n_pad, int_eps, inf, _stream(),
+    )
+    batched_fused_scatter_round_tiles.launches += 1
+    _build.check(err, "batched_fused_scatter_round")
+    return best_l, best_u
+
+
+batched_fused_scatter_round_tiles.launches = 0
+
+
+def batched_occupancy_round_tiles(
+    val, col, is_int_g, lhs_g, rhs_g, lb, ub, tile_inst, occupied, n_pad: int,
+    eps: float, int_eps: float, inf: float = INF, outward: float = 0.0,
+):
+    """One occupancy-masked round over a slot-resident stream, IN PLACE:
+    kernel #8, then the batched merge #9 -> ``(lb, ub, changed)`` with
+    ``(S,)`` per-slot flags.  A free or retired slot is an inactive
+    instance: its tiles compute nothing and its rows pass through.  The
+    counterpart of the reference's ``batched_occupancy_round_tiles``
+    (src/repro/kernels/prop_round.py:878), which launches no kernel of its
+    own."""
+    best_l, best_u = batched_fused_scatter_round_tiles(
+        val, col, is_int_g, lhs_g, rhs_g, lb, ub, tile_inst, occupied, n_pad, int_eps, inf
+    )
+    return apply_updates_batch_tiles(lb, ub, best_l, best_u, occupied, eps, inf, outward)
+
+
+# ---------------------------------------------------------------------------
 # Kernel #9: the batched merge, in place, with an active mask
 # ---------------------------------------------------------------------------
 
@@ -349,7 +427,9 @@ def apply_updates_batch_tiles(
 
     Replaces ``apply_updates_batch_tiles`` / ``_apply_updates_batch_kernel``
     (src/repro/kernels/prop_round.py:1666 / :1652), whose bound buffers are
-    donated.  Bound on the H100: 48 B per active (node, column).  Design: a
+    donated.  Bound on the H100: 32 B of reads per active (node, column)
+    (its bounds and candidates), 8 B per entry that tightens, and the mask
+    and flags.  Design: a
     (column block, node) grid whose blocks of inactive nodes return at once;
     every thread that takes a tightening stores ``true`` to its node's flag,
     which the wrapper zeroes first."""
@@ -718,6 +798,7 @@ KERNELS = (
     node_fused_scatter_round_tiles,
     apply_updates_batch_tiles,
     node_objective_tiles,
+    batched_fused_scatter_round_tiles,
     batched_slab_partials_tiles,
     batched_slab_round_tiles,
     node_slab_partials_tiles,

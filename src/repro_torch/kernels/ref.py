@@ -210,6 +210,17 @@ def candidates_scatter_tiles_ref(
 # ---------------------------------------------------------------------------
 
 
+def row_starts(chunk_row, n_rows: int):
+    """``(n_rows + 1,)`` int64: the first chunk of each of the rows ``0 ..
+    n_rows - 1`` in a stream whose ``chunk_row`` ascends (every row's chunks
+    lie next to each other), then the stream's length -- the ``row_start``
+    of the long-row combine."""
+    flat = chunk_row.reshape(-1)
+    return torch.searchsorted(flat, torch.arange(n_rows + 1, dtype=flat.dtype,
+                                                 device=flat.device))
+
+
+
 def combine_chunk_partials_ref(mf, mc, xf, xc, chunk_row, row_start):
     """Oracle of the long-row combine: each row's ``(T, R)`` chunk partials
     summed LEFT TO RIGHT over the row's chunks, which lie next to each other
@@ -258,6 +269,73 @@ def node_fused_scatter_round_ref(
             val, col, is_int_g, lhs_g, rhs_g, lb[b], ub[b], n_pad, int_eps, inf
         )
     return best_l, best_u
+
+
+# ---------------------------------------------------------------------------
+# Packed batches: one flat tile stream, one column window per instance
+# ---------------------------------------------------------------------------
+#
+# ``col_g`` holds global column ids ``col + tile_inst * n_pad`` into the
+# flattened ``(B, n_pad)`` planes, so instance windows never alias and each
+# instance's arithmetic is exactly its single-instance round.
+
+
+def global_columns(col, tile_inst, n_pad: int):
+    """``(T, R, K)`` int64 global column ids ``col + tile_inst * n_pad`` of a
+    flat stream with instance-local columns."""
+    return col.long() + tile_inst.long()[:, None, None] * n_pad
+
+
+def batched_scatter_round_ref(lcand, ucand, col_g, batch: int, n_pad: int, inf: float = INF):
+    """Column reduction over a whole packed batch -> ``(B, n_pad)`` best_l /
+    best_u, sentinel where a column has no candidate."""
+    best_l, best_u = scatter_round_ref(lcand, ucand, col_g, batch * n_pad, inf)
+    return best_l.reshape(batch, n_pad), best_u.reshape(batch, n_pad)
+
+
+def batched_fused_scatter_round_ref(
+    val, col_g, is_int_g, lhs_g, rhs_g, lb, ub, n_pad: int,
+    int_eps: float, inf: float = INF, active=None,
+):
+    """Kernel #8 oracle: a packed batch's ``(T, R, K)`` flat tile stream
+    (global columns) + ``(B, n_pad)`` bound planes -> ``(B, n_pad)`` x2.
+    Per instance exactly :func:`fused_scatter_round_tiles_ref` (each chunk
+    summed in :func:`warp_order_sum` order).  ``active`` (``(B,)`` bool)
+    leaves the rows of inactive instances at the sentinel identities: their
+    candidates are dropped before the column reduction (a slot's instance
+    is ``col_g // n_pad``, padding included)."""
+    c = col_g.long()
+    lbf, ubf = lb.reshape(-1), ub.reshape(-1)
+    lcand, ucand = fused_round_tiles_ref(
+        val, lbf[c], ubf[c], is_int_g, lhs_g, rhs_g, int_eps, inf
+    )
+    if active is not None:
+        on = active[c // n_pad]
+        lcand = torch.where(on, lcand, -inf)
+        ucand = torch.where(on, ucand, inf)
+    return batched_scatter_round_ref(lcand, ucand, c, lb.shape[0], n_pad, inf)
+
+
+def batched_candidates_scatter_round_ref(
+    val, col_g, is_int_g, chunk_row, lhs_g, rhs_g, lb, ub,
+    m_total: int, n_pad: int, int_eps: float, inf: float = INF,
+):
+    """The batched round for rows spanning several chunks, over the flat
+    stream and the ``(B * n_pad,)`` view of the planes: chunk partials (A'),
+    each GLOBAL row's partials summed left to right (``chunk_row`` ascends:
+    instance row offsets, each instance's padding chunks on its own dummy
+    row, so segments never alias across instances; ``m_total`` rows), then
+    candidates + the column reduction (E).  Per instance exactly the
+    single-instance A' / combine / E round."""
+    batch = lb.shape[0]
+    width = batch * n_pad
+    lbf, ubf = lb.reshape(-1), ub.reshape(-1)
+    partials = activities_gather_tiles_ref(val, col_g, lbf, ubf, width, inf)
+    aggs = combine_chunk_partials_ref(*partials, chunk_row, row_starts(chunk_row, m_total))
+    best_l, best_u = candidates_scatter_tiles_ref(
+        val, col_g, is_int_g, *aggs, lhs_g, rhs_g, lbf, ubf, width, int_eps, inf
+    )
+    return best_l.reshape(batch, n_pad), best_u.reshape(batch, n_pad)
 
 
 # ---------------------------------------------------------------------------

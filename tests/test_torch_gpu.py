@@ -494,3 +494,123 @@ def test_solve_past_the_limit_on_card(cuda, small_limit):
         assert getattr(a, f) == getattr(b, f), f
     for x, y in zip(a.carry, b.carry):
         _match(x, y)
+
+
+# ---------------------------------------------------------------------------
+# Kernel #8, the batched engine and the service
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("mask", ["on", "mixed", "off"])
+@pytest.mark.parametrize("sizes,r,k,n", [((2, 3, 1), 4, 8, 20), ((1, 4, 2), 8, 128, 300),
+                                         ((40, 7, 90), 8, 4, 5000)])
+def test_batched_fused_kernel_matches_plain_version(cuda, gen, sizes, r, k, n, mask, exact):
+    bsz = len(sizes)
+    xs = [_tiles(gen, s, r, k, n, exact, cuda) for s in sizes]
+    cat = lambda f: torch.cat([x[f] for x in xs])
+    val, col, ii, lhs, rhs = cat("val"), cat("col"), cat("ii"), cat("lhs"), cat("rhs")
+    lb = torch.stack([x["lb"] for x in xs])
+    ub = torch.stack([x["ub"] for x in xs])
+    n_pad = xs[0]["n_pad"]
+    tile_inst = torch.repeat_interleave(torch.arange(bsz, dtype=torch.int32, device=cuda),
+                                        torch.tensor(sizes, device=cuda))
+    active = torch.tensor({"on": [True] * 3, "mixed": [True, False, True],
+                           "off": [False] * 3}[mask], device=cuda)
+    tk.reset_launch_counts()
+    got = tk.batched_fused_scatter_round_tiles(val, col, ii, lhs, rhs, lb, ub, tile_inst,
+                                               active, n_pad, 1e-6)
+    assert tk.launch_counts()["batched_fused_scatter_round_tiles"] == 1
+    want = tref.batched_fused_scatter_round_ref(
+        val, tref.global_columns(col, tile_inst, n_pad), ii, lhs, rhs, lb, ub, n_pad, 1e-6,
+        active=active)
+    for g, w in zip(got, want):
+        _match(g, w)
+    for i, x in enumerate(xs):
+        if not active[i]:
+            assert (got[0][i] == -INF).all() and (got[1][i] == INF).all()
+            continue
+        one = tk.fused_scatter_round_tiles(x["val"], x["col"], x["ii"], x["lhs"], x["rhs"],
+                                           x["lb"], x["ub"], n_pad, 1e-6)
+        _match(got[0][i], one[0])
+        _match(got[1][i], one[1])
+    lbw, ubw = lb.clone(), ub.clone()
+    occ = tk.batched_occupancy_round_tiles(val, col, ii, lhs, rhs, lbw, ubw, tile_inst, active,
+                                           n_pad, 1e-9, 1e-6)
+    merged = rt.core.apply_updates_batch(lb, ub, *want, 1e-9, active=active)
+    assert occ[0] is lbw and tk.launch_counts()["apply_updates_batch_tiles"] == 1
+    for g, w in zip(occ, merged):
+        _match(g, w)
+
+
+BATCHES = [
+    # (population, tile width): rows in one chunk (#8 + #9) and spanning chunks.
+    (lambda: [td.make_pseudo_boolean(n=3000, m=4000, seed=s) for s in (7, 8, 9)], 128),
+    (lambda: [td.make_mixed(m=600, n=450, seed=s) for s in (21, 22, 23)], 16),
+    (lambda: [td.make_knapsack(n=200, m=30, seed=s) for s in range(4)], 8),
+]
+
+
+@pytest.mark.parametrize("case", range(len(BATCHES)))
+def test_batch_on_card_matches_plain_path_and_single_runs(cuda, case):
+    make, tile_width = BATCHES[case]
+    probs = make()
+    tk.reset_launch_counts()
+    got = rt.propagate_batch(probs, tile_width=tile_width)
+    counts = tk.launch_counts()
+    fused = all(int(np.diff(p.csr.row_ptr).max()) <= tile_width for p in probs)
+    branch = "batched_fused_scatter_round_tiles" if fused else "combine_chunk_partials_tiles"
+    rounds = max(int(r.rounds) for r in got)
+    assert counts[branch] == counts["apply_updates_batch_tiles"] == rounds
+    plain = rt.propagate_batch(probs, tile_width=tile_width, use_kernels=False)
+    host = rt.propagate_batch(probs, tile_width=tile_width, driver="host_loop")
+    for p, g, w, h in zip(probs, got, plain, host):
+        single = rt.propagate_block_ell(p, tile_width=tile_width)
+        for f in ("lb", "ub", "rounds", "converged", "infeasible"):
+            _match(getattr(g, f), getattr(w, f))
+            _match(getattr(g, f), getattr(h, f))
+            _match(getattr(g, f), getattr(single, f))
+        _match(g.progress, w.progress)
+
+
+def test_batch_past_the_limit_on_card(cuda, small_limit):
+    probs = [td.make_knapsack(n=280, m=8, seed=5), td.make_set_cover(n=270, m=25, seed=6)]
+    tk.reset_launch_counts()
+    got = rt.propagate_batch(probs, tile_rows=2, tile_width=8)
+    counts = tk.launch_counts()
+    assert counts["batched_slab_round_tiles"] == max(int(r.rounds) for r in got) > 0
+    assert counts["batched_fused_scatter_round_tiles"] == 0
+    plain = rt.propagate_batch(probs, tile_rows=2, tile_width=8, use_kernels=False)
+    for p, g, w in zip(probs, got, plain):
+        single = rt.propagate_block_ell(p, tile_rows=2, tile_width=8)
+        for f in ("lb", "ub", "rounds", "converged", "infeasible"):
+            _match(getattr(g, f), getattr(w, f))
+            _match(getattr(g, f), getattr(single, f))
+
+
+@pytest.mark.parametrize("tile_width", [128, 4])
+def test_service_on_card_matches_one_shot(cuda, tile_width):
+    """Fused (#8 + #9 at tile width 128) and multi-chunk (A', combine, E, #9
+    at 4, where rows of 5 to 8 nonzeros span two chunks) buckets through
+    two slots, inline and from the background thread: every ticket bitwise
+    against the one-shot batch; nothing is built after construction."""
+    probs = [td.make_pseudo_boolean(n=3000, m=m, seed=s)
+             for s, m in enumerate((4000, 2500, 3500, 3000, 1800))]
+    svc = rt.PropagationService.from_problems(probs, slots=2, tile_width=tile_width)
+    cc = svc.compile_counts()
+    tk.reset_launch_counts()
+    results = svc.serve(probs)
+    counts = tk.launch_counts()
+    if tile_width == 128:
+        assert counts["batched_fused_scatter_round_tiles"] > 0
+    else:
+        assert counts["activities_gather_tiles"] == counts["candidates_scatter_tiles"] > 0
+    with svc:
+        tickets = [svc.submit(p) for p in probs]
+        threaded = [t.result(timeout=60) for t in tickets]
+    assert svc.compile_counts() == cc
+    for p, r, t in zip(probs, results, threaded):
+        one = rt.propagate_batch([p], tile_width=tile_width)[0]
+        for f in ("lb", "ub", "rounds", "converged", "infeasible", "progress"):
+            _match(getattr(r, f).to(cuda), getattr(one, f))
+            _match(getattr(t, f).to(cuda), getattr(one, f))

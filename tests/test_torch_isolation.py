@@ -21,6 +21,8 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch, repro_torch.core, repro_torch.data, repro_torch.kernels\n"
         "import repro_torch.kernels._build, repro_torch.core.nodes, repro_torch.core.solver\n"
         "import repro_torch.kernels.slab, repro_torch.kernels.prop_round\n"
+        "import repro_torch.core.service, repro_torch.obs, repro_torch.obs.metrics\n"
+        "import repro_torch.obs.trace\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -42,23 +44,28 @@ def test_sources_name_no_jax():
         assert "from repro import" not in text, path
 
 
-def _args(call, p):
-    if call == "propagate_nodes":
-        return (p, p.lb[None], p.ub[None])
-    if call == "solve":
-        return (p, np.ones(p.n))
-    return (p,)
+def _call(name, p, **kw):
+    if name == "propagate_nodes":
+        return rt.propagate_nodes(p, p.lb[None], p.ub[None], **kw)
+    if name == "solve":
+        return rt.solve(p, np.ones(p.n), **kw)
+    if name == "propagate_batch":
+        return rt.propagate_batch([p, p], **kw)
+    if name == "PropagationService":
+        return rt.PropagationService.from_problems([p], slots=2, **kw).serve([p])
+    return getattr(rt, name)(p, **kw)
 
 
 @pytest.mark.parametrize("call", ["propagate", "propagate_block_ell", "prepare_block_ell",
-                                  "propagate_nodes", "solve"])
+                                  "propagate_nodes", "solve", "propagate_batch",
+                                  "PropagationService"])
 def test_entry_points_default_to_cuda(call):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable here")
     p = td.make_set_cover(n=20, m=8, seed=0)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        getattr(rt, call)(*_args(call, p))
-    getattr(rt, call)(*_args(call, p), device="cpu")  # the explicit request runs
+        _call(call, p)
+    _call(call, p, device="cpu")  # the explicit request runs
 
 
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda():

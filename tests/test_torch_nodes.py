@@ -220,6 +220,15 @@ def test_batched_step_rounds_matches_reference():
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12, equal_nan=True)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # A bounded step (the service's) from the same carry: two rounds.
+    want = rc.batched_step_rounds(
+        r_fn, jnp.asarray(lb), jnp.asarray(ub), jnp.asarray(active), jnp.asarray(active),
+        jnp.asarray(rounds), cfg.max_rounds, budget=2, with_progress=True,
+    )
+    got = rt.core.batched_step_rounds(t_fn, t(lb), t(ub), t(active), t(active), t(rounds), 4,
+                                      budget=2, with_progress=True)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12, equal_nan=True)
+    with pytest.raises(NotImplementedError, match="item 5"):
         rt.core.batched_step_rounds(t_fn, t(lb), t(ub), t(active), t(active), t(rounds), 4,
-                                    budget=2)
+                                    budget=2, stop_progress=0.1)
