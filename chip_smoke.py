@@ -64,7 +64,20 @@ numpy only, nothing of JAX) and, on one CUDA card:
      the plain path; ``solve`` on pbw (128 slots, 8 levels) against the
      reference's counts, the plain path and the same search through the
      fused node round (#10 + #9), same result and final pool;
- 10. (phase 9) runs ``propagate_batch`` with its defaults on three buckets:
+ 10. (phase 11, run after phase 8) the segment (seed) dataflow on the
+     instances of phases 2 and 8: kernel C on ``pb`` and ``banded`` and
+     kernels A and B on ``mixed`` against their plain versions (bitwise),
+     timed, with the segment round's column reduction timed over the
+     nonzero slots (as the engine runs it) and over every slot;
+     ``propagate_block_ell(scatter="segment")`` on the three instances,
+     held bitwise (as values, rounds, converged and infeasible exactly)
+     against the fused main-path run and its plain path, with ms per round
+     beside the fused engine's, slots and peak device memory; ``bandw``
+     through ``scatter="auto"`` under ``REPRO_AUTO_LARGE_SCATTER=segment``
+     (kernel C, not #11/#12), against the partitioned run of phase 8 and,
+     bitwise, the explicit fused engine; one ``legacy_round_fn_for`` round
+     on ``pb`` against one prepared segment round;
+ 11. (phase 9) runs ``propagate_batch`` with its defaults on three buckets:
      ``pb``, ``pbf``, ``banded`` and a second banded instance at n_pad
      60,032 (kernel #8 then #9), ``mixed`` and a second mixed instance
      (A', the combine and E over the flat stream, then #9), ``bandw`` and
@@ -74,7 +87,7 @@ numpy only, nothing of JAX) and, on one CUDA card:
      ``propagate_block_ell`` and the plain path, plus one ``bounds=`` warm
      start; prints batch and summed single-instance fixed-point times, flag
      reads and the idle share;
- 11. (phase 10) serves 24 requests (12 pseudo-boolean at n = 60,000 and 12
+ 12. (phase 10) serves 24 requests (12 pseudo-boolean at n = 60,000 and 12
      banded at n = 40,000, 30,000 to 90,000 rows) through
      ``PropagationService.from_problems(slots=4, size_classes=2,
      rounds_per_step=8)`` and 4 mixed requests through a 2-slot service;
@@ -83,7 +96,7 @@ numpy only, nothing of JAX) and, on one CUDA card:
      saturation (pre-packed, all submitted, then drained) against
      sequential ``propagate_block_ell``, latency percentiles, pumps, flag
      reads per pump, the idle share and per-bucket stats;
- 12. prints a ``kernels`` JSON line, and last
+ 13. prints a ``kernels`` JSON line, and last
      ``{"ok": true, "device": {...}}``.
 
 Each path runs with the launch counters at zero just before it and read just
@@ -95,6 +108,7 @@ Without a CUDA device it exits with code 2 before doing anything.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -206,6 +220,9 @@ REPLACES = {
     "node_slab_round_tiles": "src/repro/kernels/prop_round.py:1498",
     "apply_updates_slab_tiles": "src/repro/kernels/prop_round.py:1595",
     "batched_fused_scatter_round_tiles": "src/repro/kernels/prop_round.py:816",
+    "activities_tiles": "src/repro/kernels/prop_round.py:226",
+    "candidates_tiles": "src/repro/kernels/prop_round.py:347",
+    "fused_round_tiles": "src/repro/kernels/prop_round.py:414",
 }
 # The C entry point that launches each wrapper's kernel (the slab rounds
 # launch two: their scatter, then #15's window merge).
@@ -224,6 +241,9 @@ SYMBOL = {
     "node_slab_round_tiles": "node_slab_scatter",
     "apply_updates_slab_tiles": "slab_merge",
     "batched_fused_scatter_round_tiles": "batched_fused_scatter_round",
+    "activities_tiles": "activities",
+    "candidates_tiles": "candidates",
+    "fused_round_tiles": "fused_round",
 }
 # Nominal float64 operations per real nonzero (products, sums, residual
 # subtractions, divisions, rounding) -- the compute side of each bound.
@@ -233,6 +253,9 @@ OPS_PER_NNZ = {
     "candidates_scatter_tiles": 12,
     "apply_updates_tiles": 0,
     "combine_chunk_partials_tiles": 0,  # four adds per chunk: bytes bound it
+    "activities_tiles": 4,
+    "candidates_tiles": 12,
+    "fused_round_tiles": 16,
 }
 
 
@@ -381,7 +404,9 @@ def needed_bytes(kname: str, prep, nnz: int) -> dict:
     """Bytes the kernel's function must move, each input read once and each
     output written once: ``val`` for every padded slot (its zeros mark the
     padding), ``col`` and the integrality marks for each real nonzero only,
-    the per-chunk row data, and the (n_pad,) vectors."""
+    the per-chunk row data, and the (n_pad,) vectors -- for the segment
+    kernels A, B and C the gathered bounds at each nonzero instead, and B's
+    and C's two (T, R, K) candidate outputs."""
     t, r, k = prep.d.val.shape
     slots, chunks, vec = t * r * k, t * r, 8 * prep.n_pad
     if kname == "fused_scatter_round_tiles":
@@ -394,6 +419,12 @@ def needed_bytes(kname: str, prep, nnz: int) -> dict:
                     bounds=2 * vec, out=2 * vec)
     if kname == "combine_chunk_partials_tiles":
         return dict(partials=24 * chunks, row_start=8 * (prep.m + 2), out=24 * chunks)
+    if kname == "activities_tiles":
+        return dict(val=8 * slots, bounds=16 * nnz, out=24 * chunks)
+    if kname == "candidates_tiles":
+        return dict(val=8 * slots, bounds_ii=20 * nnz, rows=40 * chunks, out=16 * slots)
+    if kname == "fused_round_tiles":
+        return dict(val=8 * slots, bounds_ii=20 * nnz, sides=16 * chunks, out=16 * slots)
     raise KeyError(kname)
 
 
@@ -647,8 +678,11 @@ def smoke(torch, dev):
     runs = {f"propagate_block_ell {k}": v for k, v in per_instance.items()}
     runs.update(node_batch_phase(torch, np, rt, tk, pbf, problems, dev))
     runs.update(solve_phase(torch, np, rt, td, tk, pbf, dev))
-    wide_runs, wide = wide_phase(torch, np, rt, td, tk, tref, ops, _build, dev, measured)
+    wide_runs, wide, wide_results = wide_phase(torch, np, rt, td, tk, tref, ops, _build, dev,
+                                               measured)
     runs.update(wide_runs)
+    runs.update(segment_phase(torch, rt, tk, tref, ops, _build, dev, measured, problems, preps,
+                              results, wide["bandw"], wide_results["bandw"]))
     runs.update(batch_phase(torch, np, rt, td, tk, tref, ops, _build, dev, measured,
                             {**problems, "pbf": pbf, **wide}))
     runs.update(service_phase(torch, np, rt, td, tk, dev))
@@ -701,6 +735,7 @@ def smoke(torch, dev):
         "node_slab_round_tiles": f"pbw pool, 8 of {POOL} active",
         "apply_updates_slab_tiles": f"pbw pool, 8 of {POOL} active",
         "batched_fused_scatter_round_tiles": "fused bucket, 4 of 4 active",
+        "fused_round_tiles": "pb", "activities_tiles": "mixed", "candidates_tiles": "mixed",
     }
     kernels = []
     for fn in tk.KERNELS:
@@ -1349,7 +1384,180 @@ def wide_phase(torch, np, rt, td, tk, tref, ops, build, dev, measured):
         busy, top = prof
         log(f"profile solve pbw: device busy {busy:.3f} ms of {k_ms:.3f} ms search, idle share "
             f"{1 - busy / k_ms:.3f}; top: {top}")
-    return runs, problems
+    return runs, problems, results
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the segment (seed) dataflow, kernels A, B and C
+# ---------------------------------------------------------------------------
+
+
+def check_segment_kernels(torch, tk, tref, ops, build, name, prep):
+    """Kernel C (rows in one chunk) or A and B (rows spanning chunks)
+    against their plain versions on the card, at the segment round's shapes
+    and the instance's initial bounds, timed; then the round's column
+    reduction both ways (over the nonzero slots, as the engine runs it, and
+    over every slot), held equal as values and timed.  Returns {kernel:
+    row}."""
+    cfg = ops.DEFAULT_CONFIG
+    d = prep.d
+    nnz = int((d.val != 0).sum().item())
+    lb_g, ub_g = ops.gather_bounds(prep.lb0, prep.ub0, d.col)
+    rows = {}
+
+    def row(kname, got, want, fn_k, fn_p):
+        rows[kname] = r = measured_row(torch, build, got, want, fn_k, fn_p,
+                                       needed_bytes(kname, prep, nnz),
+                                       OPS_PER_NNZ[kname] * nnz)
+        r["instance"] = name
+        log_row(kname, f"{name} (segment)", r)
+
+    if prep.fits_one_chunk:
+        args = (d.val, lb_g, ub_g, prep.ii_g, prep.lhs_g, prep.rhs_g, cfg.int_eps)
+        want = tref.fused_round_tiles_ref(*args)
+        row("fused_round_tiles", tk.fused_round_tiles(*args), want,
+            lambda: tk.fused_round_tiles(*args), lambda: tref.fused_round_tiles_ref(*args))
+    else:
+        a_args = (d.val, lb_g, ub_g)
+        partials = tref.activities_tiles_ref(*a_args)
+        row("activities_tiles", tk.activities_tiles(*a_args), partials,
+            lambda: tk.activities_tiles(*a_args), lambda: tref.activities_tiles_ref(*a_args))
+        aggs = tref.combine_chunk_partials_ref(*partials, d.chunk_row, prep.row_start)
+        b_args = (d.val, lb_g, ub_g, prep.ii_g, *aggs, prep.lhs_g, prep.rhs_g, cfg.int_eps)
+        want = tref.candidates_tiles_ref(*b_args)
+        row("candidates_tiles", tk.candidates_tiles(*b_args), want,
+            lambda: tk.candidates_tiles(*b_args), lambda: tref.candidates_tiles_ref(*b_args))
+    index = prep.segment_index()
+    kept = ops.segment_reduce(*want, index, prep.n_pad, cfg.inf)
+    every = tref.scatter_round_ref(*want, d.col, prep.n_pad, cfg.inf)
+    max_abs_err(torch, kept, every)
+    kept_ms = time_ms(torch, lambda: ops.segment_reduce(*want, index, prep.n_pad, cfg.inf))
+    every_ms = time_ms(torch, lambda: tref.scatter_round_ref(*want, d.col, prep.n_pad, cfg.inf),
+                       reps=1, trials=3)
+    gather_ms = time_ms(torch, lambda: ops.gather_bounds(prep.lb0, prep.ub0, d.col))
+    log(f"segment reduction on {name}: {index[0].numel()} nonzero slots of "
+        f"{d.val.numel()}; over the nonzero slots {kept_ms:.4f} ms, over every slot "
+        f"{every_ms:.4f} ms (equal as values); bound gather {gather_ms:.4f} ms")
+    return rows
+
+
+def segment_phase(torch, rt, tk, tref, ops, build, dev, measured, problems, preps, results,
+                  bandw, bandw_part):
+    """Phase 11: the segment (seed) dataflow on the instances of phases 2
+    and 8.  Kernels C (``pb``, ``banded``), A and B (``mixed``) against
+    their plain versions, timed, with the column reduction both ways;
+    ``propagate_block_ell(scatter="segment")`` on the three instances
+    against the fused main-path run of phase 2 (rounds, converged and
+    infeasible exactly, bounds bitwise as values) and its own plain path;
+    ``bandw`` under ``REPRO_AUTO_LARGE_SCATTER=segment`` through
+    ``scatter="auto"``; one ``legacy_round_fn_for`` round on ``pb``.  Adds
+    to ``measured``; returns the launch counts of each run."""
+    for name in problems:
+        for kname, r in check_segment_kernels(torch, tk, tref, ops, build, name,
+                                              preps[name]).items():
+            measured.setdefault(kname, {})[name] = r
+
+    runs = {}
+    for name, p in problems.items():
+        prep = preps[name]
+        n_sync = [0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        tk.reset_launch_counts()
+        t = time.perf_counter()
+        r = rt.propagate_block_ell(p, scatter="segment", device=dev,
+                                   on_sync=lambda: n_sync.__setitem__(0, n_sync[0] + 1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        runs[f"segment {name}"] = tk.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        # The same summation order and combine as the fused engine: bitwise.
+        check_same(rt, f"segment {name}", r, results[name], True, "the fused main-path run")
+        check_same(rt, f"segment {name}", r,
+                   rt.propagate_block_ell(p, scatter="segment", use_kernels=False, device=dev),
+                   True, "the segment plain-version path")
+        rounds = r.rounds.item()
+        s_ms = time_ms(torch, lambda: rt.propagate_block_ell(p, scatter="segment", device=dev),
+                       reps=1, trials=3)
+        f_ms = time_ms(torch, lambda: rt.propagate_block_ell(p, device=dev), reps=1, trials=3)
+        log(f"segment {name}: rounds={rounds} converged={r.converged.item()} "
+            f"infeasible={r.infeasible.item()} host_syncs={n_sync[0]}; T*R*K="
+            f"{prep.d.val.numel()} slots, peak device memory above the prepared tiles "
+            f"{peak / 2**20:.1f} MiB; bitwise equal to the fused engine and the plain path; "
+            f"first wall {wall * 1e3:.3f} ms; launches {runs[f'segment {name}']}")
+        log(f"round time {name}: segment {s_ms / rounds:.4f} ms/round ({s_ms:.3f} ms), fused "
+            f"{f_ms / rounds:.4f} ms/round ({f_ms:.3f} ms), ratio {s_ms / f_ms:.2f}")
+        prof = busy_profile(torch, lambda: rt.propagate_block_ell(p, scatter="segment",
+                                                                  device=dev))
+        if prof is None:
+            log(f"profile segment {name}: the profiler recorded no device time; idle share "
+                "not measured")
+        else:
+            busy, top = prof
+            log(f"profile segment {name}: device busy {busy:.3f} ms of {s_ms:.3f} ms fixed "
+                f"point, idle share {1 - busy / s_ms:.3f}; top: {top}")
+
+    # Past 2^16 columns the override routes scatter="auto" to the segment
+    # engine; restored afterwards.
+    prep = rt.prepare_block_ell(bandw, device=dev)
+    old = os.environ.get(ops.AUTO_LARGE_SCATTER_ENV)
+    os.environ[ops.AUTO_LARGE_SCATTER_ENV] = "segment"
+    try:
+        if ops._resolve_scatter("auto", prep) != "segment":
+            fail("bandw: the override does not route scatter='auto' to the segment engine")
+        tk.reset_launch_counts()
+        r = rt.propagate_block_ell(bandw, device=dev)
+        torch.cuda.synchronize()
+        runs["segment bandw auto"] = counts = tk.launch_counts()
+        a_ms = time_ms(torch, lambda: rt.propagate_block_ell(bandw, device=dev), reps=1,
+                       trials=3)
+    finally:
+        if old is None:
+            os.environ.pop(ops.AUTO_LARGE_SCATTER_ENV, None)
+        else:
+            os.environ[ops.AUTO_LARGE_SCATTER_ENV] = old
+    if ops._resolve_scatter("auto", prep) != "partitioned":
+        fail("bandw: scatter='auto' did not return to the partitioned engine")
+    if counts["batched_slab_partials_tiles"] or counts["batched_slab_round_tiles"]:
+        fail(f"bandw under the override launched the partitioned kernels: {counts}")
+    # Against the partitioned run of phase 8 (whose straddle rows sum in
+    # another order; bandw's sides are not integral) and bitwise against
+    # the explicit fused engine.
+    check_same(rt, "segment bandw auto", r, bandw_part, False, "the partitioned run")
+    check_same(rt, "segment bandw auto", r,
+               rt.propagate_block_ell(bandw, scatter="fused", device=dev), True,
+               "the explicit fused engine")
+    diff = [(getattr(r, f) != getattr(bandw_part, f)).sum().item() for f in ("lb", "ub")]
+    log(f"segment bandw auto (REPRO_AUTO_LARGE_SCATTER=segment, n_pad {prep.n_pad}): "
+        f"rounds={r.rounds.item()}, {a_ms / r.rounds.item():.4f} ms/round; same rounds and "
+        f"bounds_equal to the partitioned run (entries not bitwise equal: lb {diff[0]}, ub "
+        f"{diff[1]}); bitwise equal to the explicit fused engine; launches {counts}")
+
+    # One seed round in the unpadded (n,) domain against one prepared
+    # segment round on the same bounds.
+    prep = preps["pb"]
+    want = ops.round_fn_for(prep, scatter="segment")(prep.lb0.clone(), prep.ub0.clone())
+    tk.reset_launch_counts()
+    got = ops.legacy_round_fn_for(prep)(prep.d.lb0.clone(), prep.d.ub0.clone())
+    torch.cuda.synchronize()
+    runs["segment legacy pb"] = tk.launch_counts()
+    max_abs_err(torch, got[:2], (want[0][: prep.n], want[1][: prep.n]))
+    if bool(got[2]) != bool(want[2]):
+        fail("legacy round pb: changed flag differs from the prepared segment round")
+    log(f"legacy round pb: equal to one prepared segment round (changed={bool(got[2])}); "
+        f"launches {runs['segment legacy pb']}")
+
+    fused_seg = ("fused_round_tiles", "apply_updates_tiles")
+    require_launched(runs, {
+        "segment pb": fused_seg,
+        "segment banded": fused_seg,
+        "segment mixed": ("activities_tiles", "combine_chunk_partials_tiles",
+                          "candidates_tiles", "apply_updates_tiles"),
+        "segment bandw auto": fused_seg,
+        "segment legacy pb": fused_seg,
+    })
+    return runs
 
 
 # ---------------------------------------------------------------------------

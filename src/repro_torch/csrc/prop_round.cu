@@ -1,5 +1,6 @@
 // Hopper (sm_90a) kernels of the fused propagation round (paper Alg. 3), of
-// its node-batch form and of the solver's node objective.
+// its node-batch and packed-batch forms, of the segment (seed) round and of
+// the solver's node objective.
 //
 // Each kernel but the combine is the CUDA counterpart of one Pallas kernel
 // of the JAX package (src/repro/kernels/prop_round.py); every kernel is held
@@ -26,6 +27,15 @@
 //                             and a changed flag per row
 //   node_objective       (#16) per node: objective bound, all-fixed and
 //                             crossed flags, by a block reduction
+//   activities           (A)  A' on bounds gathered before the launch: each
+//                             slot's bounds read at the slot of (T, R, K)
+//                             tiles (the segment round, rows spanning chunks)
+//   candidates           (B)  E's candidates from completed row aggregates
+//                             and pre-gathered bounds, stored per slot
+//                             instead of scattered
+//   fused_round          (C)  A and B in one pass for rows that fit one
+//                             chunk: D on pre-gathered bounds, candidates
+//                             stored per slot
 //
 // Layout: block-ELL tiles (T, R, K) flattened to T*R chunks of K slots.  A
 // chunk is owned by a group of G lanes, G = K rounded up to a power of two
@@ -259,6 +269,62 @@ node_objective_kernel(const double* __restrict__ lb, const double* __restrict__ 
   }
 }
 
+// Kernels A, B and C of the segment (seed) round: the bounds were gathered
+// at each slot's column before the launch ((T, R, K) lb_g / ub_g), and B and
+// C store both candidates at every slot -- the sentinels at padding -- for
+// the column max/min that follows outside.  The arithmetic is D's, A''s and
+// E's (round_common.cuh), with SlotBounds in place of ColumnBounds, so the
+// same bounds give the same bits.
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+activities_kernel(const double* __restrict__ val, const double* __restrict__ lb_g,
+                  const double* __restrict__ ub_g, double* __restrict__ mf, int* __restrict__ mc,
+                  double* __restrict__ xf, int* __restrict__ xc, int64_t n_chunks, int k,
+                  double inf) {
+  const Lanes L = lanes_for<G>(n_chunks);
+  const RowAgg a = chunk_aggregates<G>(val, SlotBounds{lb_g, ub_g}, L.chunk * k,
+                                       L.live ? k : 0, L, inf);
+  if (L.live && L.sl == 0) {
+    mf[L.chunk] = a.mf;
+    mc[L.chunk] = a.mc;
+    xf[L.chunk] = a.xf;
+    xc[L.chunk] = a.xc;
+  }
+}
+
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+candidates_kernel(const double* __restrict__ val, const double* __restrict__ lb_g,
+                  const double* __restrict__ ub_g, const int* __restrict__ ii,
+                  const double* __restrict__ rmf, const int* __restrict__ rmc,
+                  const double* __restrict__ rxf, const int* __restrict__ rxc,
+                  const double* __restrict__ lhs, const double* __restrict__ rhs,
+                  double* __restrict__ lcand, double* __restrict__ ucand, int64_t n_chunks,
+                  int k, double int_eps, double inf) {
+  const Lanes L = lanes_for<G>(n_chunks);
+  if (!L.live) return;
+  const int64_t c = L.chunk;
+  const RowAgg a{rmf[c], rxf[c], rmc[c], rxc[c]};
+  chunk_candidates_store(val, SlotBounds{lb_g, ub_g}, ii, a, lhs[c], rhs[c], lcand, ucand,
+                         c * k, k, L, int_eps, inf);
+}
+
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+fused_round_kernel(const double* __restrict__ val, const double* __restrict__ lb_g,
+                   const double* __restrict__ ub_g, const int* __restrict__ ii,
+                   const double* __restrict__ lhs, const double* __restrict__ rhs,
+                   double* __restrict__ lcand, double* __restrict__ ucand, int64_t n_chunks,
+                   int k, double int_eps, double inf) {
+  const Lanes L = lanes_for<G>(n_chunks);
+  const SlotBounds b{lb_g, ub_g};
+  const int64_t base = L.chunk * k;
+  const RowAgg a = chunk_aggregates<G>(val, b, base, L.live ? k : 0, L, inf);
+  if (!L.live) return;
+  chunk_candidates_store(val, b, ii, a, lhs[L.chunk], rhs[L.chunk], lcand, ucand, base, k, L,
+                         int_eps, inf);
+}
+
 }  // namespace
 
 extern "C" {
@@ -346,6 +412,30 @@ int node_objective(const double* lb, const double* ub, const double* c, const bo
                    int64_t n_pad, double feas_eps, double inf, cudaStream_t stream) {
   node_objective_kernel<<<static_cast<unsigned int>(bsz), kObjThreads, 0, stream>>>(
       lb, ub, c, is_int, valid, obj, fixed, crossed, n_pad, feas_eps, inf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int activities(const double* val, const double* lb_g, const double* ub_g, double* mf, int* mc,
+               double* xf, int* xc, int64_t n_chunks, int k, double inf, cudaStream_t stream) {
+  LAUNCH_FOR_WIDTH(activities_kernel, k, n_chunks, stream, val, lb_g, ub_g, mf, mc, xf, xc,
+                   n_chunks, k, inf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int candidates(const double* val, const double* lb_g, const double* ub_g, const int* ii,
+               const double* rmf, const int* rmc, const double* rxf, const int* rxc,
+               const double* lhs, const double* rhs, double* lcand, double* ucand,
+               int64_t n_chunks, int k, double int_eps, double inf, cudaStream_t stream) {
+  LAUNCH_FOR_WIDTH(candidates_kernel, k, n_chunks, stream, val, lb_g, ub_g, ii, rmf, rmc, rxf,
+                   rxc, lhs, rhs, lcand, ucand, n_chunks, k, int_eps, inf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int fused_round(const double* val, const double* lb_g, const double* ub_g, const int* ii,
+                const double* lhs, const double* rhs, double* lcand, double* ucand,
+                int64_t n_chunks, int k, double int_eps, double inf, cudaStream_t stream) {
+  LAUNCH_FOR_WIDTH(fused_round_kernel, k, n_chunks, stream, val, lb_g, ub_g, ii, lhs, rhs, lcand,
+                   ucand, n_chunks, k, int_eps, inf);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,9 @@
 // Device code shared by the chunk kernels of prop_round.cu and
-// slab_round.cu: the lane groups that own a chunk, the chunk's activity
-// aggregates, its candidates with the column max/min scatter, and the bound
-// merge of one column.  See prop_round.cu for the layout and the rounding
-// rules (--fmad=false, division-first candidates).
+// slab_round.cu: the lane groups that own a chunk, where a slot's bounds
+// come from (its column, or pre-gathered tiles), the chunk's activity
+// aggregates, its candidates with the column max/min scatter or stored per
+// slot, and the bound merge of one column.  See prop_round.cu for the
+// layout and the rounding rules (--fmad=false, division-first candidates).
 
 #pragma once
 
@@ -20,19 +21,47 @@ struct Slot {
   double bmin, bmax;
 };
 
-// tile_contributions of one real nonzero (val != 0; padding is skipped
-// before its col is read).
-__device__ __forceinline__ Slot load_slot(double v, int c, const double* __restrict__ lb,
-                                          const double* __restrict__ ub, double inf) {
+// tile_contributions of one real nonzero (val != 0) whose column has the
+// bounds l, u.
+__device__ __forceinline__ Slot make_slot(double v, double l, double u, double inf) {
   Slot s;
   s.pos = v > 0.0;
-  const double l = lb[c], u = ub[c];
   s.bmin = s.pos ? l : u;
   s.bmax = s.pos ? u : l;
   s.min_inf = fabs(s.bmin) >= inf;
   s.max_inf = fabs(s.bmax) >= inf;
   return s;
 }
+
+// The same, gathered at column c of the bound vectors (padding is skipped
+// before its col is read).
+__device__ __forceinline__ Slot load_slot(double v, int c, const double* __restrict__ lb,
+                                          const double* __restrict__ ub, double inf) {
+  return make_slot(v, lb[c], ub[c], inf);
+}
+
+// Where a slot's bounds come from.  ColumnBounds gathers them at the slot's
+// column from the (n_pad,) vectors (kernels D, A', E and the slab kernels);
+// SlotBounds reads them at the slot itself from (T, R, K) tiles gathered
+// before the launch (kernels A, B and C of the segment round).  Both feed
+// the same arithmetic.  i is the slot's flat index; only real nonzeros are
+// loaded.
+struct ColumnBounds {
+  const int* col;
+  const double* lb;
+  const double* ub;
+  __device__ __forceinline__ Slot at(double v, int64_t i, double inf) const {
+    return load_slot(v, col[i], lb, ub, inf);
+  }
+};
+
+struct SlotBounds {
+  const double* lb_g;
+  const double* ub_g;
+  __device__ __forceinline__ Slot at(double v, int64_t i, double inf) const {
+    return make_slot(v, lb_g[i], ub_g[i], inf);
+  }
+};
 
 // Butterfly sum over aligned groups of G lanes (a power of two); every lane
 // of the warp must take part.
@@ -77,20 +106,18 @@ struct RowAgg {
   int mc, xc;
 };
 
-// tile_row_aggregates of one chunk; every lane of the group gets the
-// result.  All lanes of the warp must call it (dead lanes with k = 0).
-template <int G>
-__device__ __forceinline__ RowAgg chunk_aggregates(const double* __restrict__ val,
-                                                   const int* __restrict__ col,
-                                                   const double* __restrict__ lb,
-                                                   const double* __restrict__ ub,
+// tile_row_aggregates of one chunk, its bounds from B (ColumnBounds or
+// SlotBounds); every lane of the group gets the result.  All lanes of the
+// warp must call it (dead lanes with k = 0).
+template <int G, typename B>
+__device__ __forceinline__ RowAgg chunk_aggregates(const double* __restrict__ val, const B& b,
                                                    int64_t base, int k, const Lanes& L,
                                                    double inf) {
   RowAgg a{0.0, 0.0, 0, 0};
   for (int j = L.sl; j < k; j += kWarp) {
     const double v = val[base + j];
-    if (v == 0.0) continue;  // padding adds nothing; its col is never read
-    const Slot s = load_slot(v, col[base + j], lb, ub, inf);
+    if (v == 0.0) continue;  // padding adds nothing; its bounds are never read
+    const Slot s = b.at(v, base + j, inf);
     if (s.min_inf) a.mc += 1; else a.mf += v * s.bmin;
     if (s.max_inf) a.xc += 1; else a.xf += v * s.bmax;
   }
@@ -99,6 +126,16 @@ __device__ __forceinline__ RowAgg chunk_aggregates(const double* __restrict__ va
   a.mc = group_sum<G>(a.mc);
   a.xc = group_sum<G>(a.xc);
   return a;
+}
+
+template <int G>
+__device__ __forceinline__ RowAgg chunk_aggregates(const double* __restrict__ val,
+                                                   const int* __restrict__ col,
+                                                   const double* __restrict__ lb,
+                                                   const double* __restrict__ ub,
+                                                   int64_t base, int k, const Lanes& L,
+                                                   double inf) {
+  return chunk_aggregates<G>(val, ColumnBounds{col, lb, ub}, base, k, L, inf);
 }
 
 __device__ __forceinline__ void atomic_max_f64(double* addr, double v) {
@@ -123,6 +160,34 @@ __device__ __forceinline__ void atomic_min_f64(double* addr, double v) {
 
 __device__ __forceinline__ double clip(double x, double inf) { return fmin(fmax(x, -inf), inf); }
 
+struct Cands {
+  double lc, uc;
+};
+
+// tile_candidates of one real nonzero v with bounds s, from its row's
+// completed aggregates a and sides; is_int rounds inward.
+__device__ __forceinline__ Cands slot_candidates(double v, const Slot& s, const RowAgg& a,
+                                                 double lhs, double rhs, bool is_int,
+                                                 double int_eps, double inf) {
+  const bool ok_min = s.min_inf ? a.mc == 1 : a.mc == 0;
+  const bool ok_max = s.max_inf ? a.xc == 1 : a.xc == 0;
+  const double inc_min = s.min_inf ? 0.0 : s.bmin;
+  const double inc_max = s.max_inf ? 0.0 : s.bmax;
+  const double q_min = (rhs - a.mf) / v + inc_min;
+  const double q_max = (lhs - a.xf) / v + inc_max;
+  double lc = s.pos ? q_max : q_min;
+  double uc = s.pos ? q_min : q_max;
+  const bool valid_l = s.pos ? (lhs > -inf && ok_max) : (rhs < inf && ok_min);
+  const bool valid_u = s.pos ? (rhs < inf && ok_min) : (lhs > -inf && ok_max);
+  lc = valid_l ? clip(lc, inf) : -inf;
+  uc = valid_u ? clip(uc, inf) : inf;
+  if (is_int) {
+    if (fabs(lc) < inf) lc = ceil(lc - int_eps);
+    if (fabs(uc) < inf) uc = floor(uc + int_eps);
+  }
+  return Cands{lc, uc};
+}
+
 // tile_candidates of one chunk followed by the column max/min.  Slots whose
 // candidate is the sentinel (padding, invalid residual or side) skip the
 // atomic: the accumulators start at the sentinel, so skipping is exact.
@@ -135,25 +200,28 @@ __device__ __forceinline__ void chunk_candidates_scatter(
     const double v = val[base + j];
     if (v == 0.0) continue;  // padding: both candidates are the sentinel
     const int c = col[base + j];  // col and is_int are read at nonzeros only
-    const Slot s = load_slot(v, c, lb, ub, inf);
-    const bool ok_min = s.min_inf ? a.mc == 1 : a.mc == 0;
-    const bool ok_max = s.max_inf ? a.xc == 1 : a.xc == 0;
-    const double inc_min = s.min_inf ? 0.0 : s.bmin;
-    const double inc_max = s.max_inf ? 0.0 : s.bmax;
-    const double q_min = (rhs - a.mf) / v + inc_min;
-    const double q_max = (lhs - a.xf) / v + inc_max;
-    double lc = s.pos ? q_max : q_min;
-    double uc = s.pos ? q_min : q_max;
-    const bool valid_l = s.pos ? (lhs > -inf && ok_max) : (rhs < inf && ok_min);
-    const bool valid_u = s.pos ? (rhs < inf && ok_min) : (lhs > -inf && ok_max);
-    lc = valid_l ? clip(lc, inf) : -inf;
-    uc = valid_u ? clip(uc, inf) : inf;
-    if (ii[base + j] != 0) {
-      if (fabs(lc) < inf) lc = ceil(lc - int_eps);
-      if (fabs(uc) < inf) uc = floor(uc + int_eps);
-    }
-    if (lc > -inf) atomic_max_f64(best_l + c, lc);
-    if (uc < inf) atomic_min_f64(best_u + c, uc);
+    const Cands q = slot_candidates(v, load_slot(v, c, lb, ub, inf), a, lhs, rhs,
+                                    ii[base + j] != 0, int_eps, inf);
+    if (q.lc > -inf) atomic_max_f64(best_l + c, q.lc);
+    if (q.uc < inf) atomic_min_f64(best_u + c, q.uc);
+  }
+}
+
+// tile_candidates of one chunk, stored at each slot of the (T, R, K)
+// outputs: one store per lane per slot, a group's lanes on consecutive
+// slots.  Padding stores the sentinels without reading its bounds or mark.
+template <typename B>
+__device__ __forceinline__ void chunk_candidates_store(
+    const double* __restrict__ val, const B& b, const int* __restrict__ ii, const RowAgg& a,
+    double lhs, double rhs, double* __restrict__ lcand, double* __restrict__ ucand,
+    int64_t base, int k, const Lanes& L, double int_eps, double inf) {
+  for (int j = L.sl; j < k; j += kWarp) {
+    const int64_t i = base + j;
+    const double v = val[i];
+    Cands q{-inf, inf};
+    if (v != 0.0) q = slot_candidates(v, b.at(v, i, inf), a, lhs, rhs, ii[i] != 0, int_eps, inf);
+    lcand[i] = q.lc;
+    ucand[i] = q.uc;
   }
 }
 

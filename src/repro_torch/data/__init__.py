@@ -1,4 +1,5 @@
-"""Synthetic MIP instance generation (MIPLIB-like structural mixes), numpy."""
+"""Synthetic MIP instance generation (MIPLIB-like structural mixes) and a
+free-format MPS reader/writer, numpy."""
 from .instances import (
     FAMILIES,
     SIZE_SETS,
@@ -15,6 +16,7 @@ from .instances import (
     make_random_mip,
     make_set_cover,
 )
+from .mps import read_mps, write_mps
 
 __all__ = [
     "FAMILIES",
@@ -31,4 +33,6 @@ __all__ = [
     "make_pseudo_boolean",
     "make_random_mip",
     "make_set_cover",
+    "read_mps",
+    "write_mps",
 ]

@@ -46,6 +46,9 @@ SIGNATURES = {
         "batched_fused_scatter_round": [P] * 11 + [I64, I32, I32, I64, F64, F64, P],
         "apply_updates_batch": [P] * 6 + [I64, I64, F64, F64, F64, P],
         "node_objective": [P] * 8 + [I64, I64, F64, F64, P],
+        "activities": [P] * 7 + [I64, I32, F64, P],
+        "candidates": [P] * 12 + [I64, I32, F64, F64, P],
+        "fused_round": [P] * 8 + [I64, I32, F64, F64, P],
     },
     "slab_round.cu": {
         "slab_partials": [P] * 12 + [I32, I64, I32, I32, I64, I64, F64, P],

@@ -19,8 +19,16 @@ semantics so they converge to the same fixed points.
     completed aggregates by the combine kernel in one fixed order, then
     the slab round (#12: scatter into accumulator planes, then #15's window
     merge, in place).
+  * The ``"segment"`` round (the reference's seed dataflow, kept as its
+    cross-validation engine): the bounds gathered at every slot, kernel C
+    (rows in one chunk) or kernel A, the combine and kernel B, the
+    candidates written out, then the column max/min over the nonzero slots
+    (``scatter_reduce_``) and kernel F.  ``block_ell_round`` /
+    ``legacy_round_fn_for`` run the same round in the unpadded ``(n,)``
+    domain with its constant gathers redone every round.
   * ``scatter="auto"`` picks the engine as the reference does: ``fused``
-    while ``n_pad <= SCATTER_MAX_NPAD``, ``partitioned`` beyond.  The limit
+    while ``n_pad <= SCATTER_MAX_NPAD``, ``partitioned`` beyond (or
+    ``segment``, under ``REPRO_AUTO_LARGE_SCATTER=segment``).  The limit
     picks the engine and no longer bounds what the port can run: an
     explicit ``scatter="fused"`` runs at any ``n_pad``.
   * The batched round over a packed bucket (``prepare_problem_batch``, one
@@ -43,6 +51,7 @@ plus O(m + n_pad) for the bound and accumulator vectors and the row data.
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 from collections import OrderedDict
 from typing import Callable, NamedTuple
@@ -61,7 +70,7 @@ from ..core.propagator import (
     DRIVERS,
 )
 from ..core.sparse import Problem, ProblemBatch, col_pad, csr_to_block_ell, pack_problems
-from ..core.types import DEFAULT_CONFIG, PropagationResult, PropagatorConfig
+from ..core.types import DEFAULT_CONFIG, INF, PropagationResult, PropagatorConfig
 from . import prop_round as kern
 from . import ref as kref
 from .slab import (  # noqa: F401  (re-exported)
@@ -201,6 +210,17 @@ class PreparedBlockEll:
     # straddle combine's segments keyed by (slab width, planes); shared by
     # bounds-swapped views of this prep.
     _slabs: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+    # The segment round's reduction index, built at its first use; shared
+    # by bounds-swapped views.
+    _segment: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
+
+    def segment_index(self):
+        """The nonzero slots of the tiles as the segment round's column
+        reduction visits them (:func:`segment_index`), built once."""
+        idx = self._segment.get("index")
+        if idx is None:
+            idx = self._segment["index"] = segment_index(self.d.val, self.d.col)
+        return idx
 
     def slab_partition(self, slab: int | None = None) -> SlabPartition:
         """This instance's tile stream re-bucketed into ``slab``-wide column
@@ -304,6 +324,40 @@ def clear_prepare_cache() -> None:
     _prep_cache.clear()
 
 
+def segment_index(val, col):
+    """``(pos, cols)``: the flat int64 positions of the nonzero slots of
+    (T, R, K) tiles and their int64 columns -- the slots the segment round's
+    column reduction visits.  A padding slot holds column 0 and both
+    sentinel candidates, the identities of max and min over accumulators
+    that start at the sentinels, so leaving it out is exact; reducing it
+    would pile every padding slot of the stream onto column 0."""
+    pos = torch.nonzero(val.reshape(-1) != 0).flatten()
+    return pos, col.reshape(-1)[pos].long()
+
+
+def segment_reduce(lcand, ucand, index, width: int, inf: float):
+    """The segment round's column reduction: the column max of ``lcand`` and
+    min of ``ucand`` over the slots of ``index`` (:func:`segment_index`),
+    from the sentinels -- ``ref.scatter_round_ref`` restricted to the
+    nonzero slots.  The reference's XLA ``segment_max``/``segment_min``
+    (src/repro/kernels/ops.py:1033), not a Pallas kernel: here
+    ``scatter_reduce_``."""
+    pos, cols = index
+    best_l = torch.full((width,), -inf, dtype=lcand.dtype, device=lcand.device)
+    best_u = torch.full((width,), inf, dtype=ucand.dtype, device=ucand.device)
+    best_l.scatter_reduce_(0, cols, lcand.reshape(-1).index_select(0, pos), "amax")
+    best_u.scatter_reduce_(0, cols, ucand.reshape(-1).index_select(0, pos), "amin")
+    return best_l, best_u
+
+
+def gather_bounds(lb, ub, col):
+    """``lb[col]``, ``ub[col]`` as (T, R, K) tiles: the segment round's
+    per-round bound gather (``index_select`` takes the int32 columns as
+    they are)."""
+    flat = col.reshape(-1)
+    return (lb.index_select(0, flat).view(col.shape), ub.index_select(0, flat).view(col.shape))
+
+
 class RoundOps(NamedTuple):
     """The functions of a round: the kernel wrappers, or their plain
     PyTorch versions."""
@@ -317,6 +371,9 @@ class RoundOps(NamedTuple):
     merge_batch: Callable  # #9: (lb, ub, best_l, best_u, active, eps, inf, outward)
     partitioned: Callable  # (part, lb, ub, active, ...) -> (lb, ub, (B,) changed)
     batched_fused: Callable  # #8: flat stream + tile_inst + (B, n_pad) planes + active
+    activities_tiles: Callable   # A: tiles + gathered bounds -> chunk partials
+    candidates_tiles: Callable   # B: ... + row aggregates -> (T, R, K) candidates
+    fused_round_tiles: Callable  # C: tiles + gathered bounds -> (T, R, K) candidates
 
 
 def _plain_node_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, int_eps, inf):
@@ -415,6 +472,9 @@ KERNEL_OPS = RoundOps(
     kern.apply_updates_batch_tiles,
     _partitioned_kernel_round,
     kern.batched_fused_scatter_round_tiles,
+    kern.activities_tiles,
+    kern.candidates_tiles,
+    kern.fused_round_tiles,
 )
 PLAIN_OPS = RoundOps(
     kref.fused_scatter_round_tiles_ref,
@@ -426,7 +486,34 @@ PLAIN_OPS = RoundOps(
     _plain_merge_batch,
     _partitioned_plain_round,
     _plain_batched_fused,
+    kref.activities_tiles_ref,
+    kref.candidates_tiles_ref,
+    kref.fused_round_tiles_ref,
 )
+
+
+def _segment_round(
+    ops: RoundOps, d: DeviceBlockEll, lb, ub, ii_g, lhs_g, rhs_g, row_start, index,
+    width: int, *, fused: bool, eps: float, int_eps: float, inf: float, outward: float = 0.0,
+):
+    """One round of the segment (seed) dataflow over ``(width,)`` bounds:
+    bounds gathered per slot, kernel C (``fused``) or kernel A, the fused
+    engine's fixed-order combine (so both engines sum each row alike) and
+    kernel B, the candidates written out, the column max/min over the slots
+    of ``index`` (:func:`segment_reduce`), then the merge.  The per-slot
+    marks and sides ``ii_g``, ``lhs_g``, ``rhs_g`` and the combine's
+    ``row_start`` come hoisted or per round from the caller.  Returns
+    ``(lb, ub, changed)``; with kernels the bounds are updated in place."""
+    lb_g, ub_g = gather_bounds(lb, ub, d.col)
+    if fused:
+        lcand, ucand = ops.fused_round_tiles(d.val, lb_g, ub_g, ii_g, lhs_g, rhs_g, int_eps, inf)
+    else:
+        partials = ops.activities_tiles(d.val, lb_g, ub_g, inf)
+        aggs = ops.combine(*partials, d.chunk_row, row_start)
+        lcand, ucand = ops.candidates_tiles(d.val, lb_g, ub_g, ii_g, *aggs, lhs_g, rhs_g,
+                                            int_eps, inf)
+    best_l, best_u = segment_reduce(lcand, ucand, index, width, inf)
+    return ops.merge(lb, ub, best_l, best_u, eps, inf, outward)
 
 
 def _prepared_round(
@@ -472,17 +559,34 @@ def _prepared_round(
     return ops.merge(lb, ub, best_l, best_u, eps, inf, outward)
 
 
+# A mirror of the reference's escape hatch, kept for parity only (callers
+# choose an engine with ``scatter=``): REPRO_AUTO_LARGE_SCATTER=segment
+# routes ``propagate_block_ell``'s ``scatter="auto"`` past SCATTER_MAX_NPAD
+# to the segment engine instead of the partitioned one.  Read at call time.
+# The node engine does not read it: past the limit it runs the partitioned
+# round, with kernels or plain, where the reference's plain node round
+# (use_pallas=False) follows the override.
+AUTO_LARGE_SCATTER_ENV = "REPRO_AUTO_LARGE_SCATTER"
+
+
+def _auto_large_scatter() -> str:
+    mode = os.environ.get(AUTO_LARGE_SCATTER_ENV, "partitioned")
+    if mode not in ("partitioned", "segment"):
+        raise ValueError(
+            f"{AUTO_LARGE_SCATTER_ENV}={mode!r}: expected 'partitioned' or 'segment'"
+        )
+    return mode
+
+
 def _resolve_scatter(scatter: str, prep: PreparedBlockEll) -> str:
     """The engine decision, as the reference's: ``auto`` keeps the fused
     round while ``n_pad <= SCATTER_MAX_NPAD`` (read at call time) and takes
-    the column-slab ``partitioned`` round beyond it; ``fused`` and
-    ``partitioned`` run at any ``n_pad``.  ``segment`` is a later slice of
-    the port."""
+    the column-slab ``partitioned`` round beyond it (or the one that
+    :data:`AUTO_LARGE_SCATTER_ENV` names); ``fused``, ``segment`` and
+    ``partitioned`` run at any ``n_pad``."""
     if scatter == "auto":
-        return "fused" if prep.n_pad <= SCATTER_MAX_NPAD else "partitioned"
-    if scatter == "segment":
-        not_ported("scatter='segment'", "item 4 (segment dataflow)")
-    if scatter not in ("fused", "partitioned"):
+        return "fused" if prep.n_pad <= SCATTER_MAX_NPAD else _auto_large_scatter()
+    if scatter not in ("fused", "segment", "partitioned"):
         raise ValueError(f"unknown scatter mode: {scatter!r}")
     return scatter
 
@@ -498,18 +602,78 @@ def round_fn_for(
     """A ``(lb, ub) -> (lb, ub, changed)`` round closure over a prepared
     instance (bounds in the ``(n_pad,)`` domain).  ``slab`` overrides the
     partitioned engine's column-slab width (default
-    :func:`default_slab_width`; ignored by the fused engine)."""
+    :func:`default_slab_width`; ignored by the other engines)."""
     scatter = _resolve_scatter(scatter, prep)
     do_fuse = prep.fits_one_chunk if fused is None else bool(fused)
     dt = prep.d.val.dtype
     eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
     ops = KERNEL_OPS if use_kernels else PLAIN_OPS
+    if scatter == "segment":
+        def round_fn(lb, ub):
+            return _segment_round(
+                ops, prep.d, lb, ub, prep.ii_g, prep.lhs_g, prep.rhs_g, prep.row_start,
+                prep.segment_index(), prep.n_pad, fused=do_fuse, eps=eps,
+                int_eps=cfg.int_eps, inf=cfg.inf, outward=outward,
+            )
+
+        return round_fn
     part = prep.slab_partition(slab) if scatter == "partitioned" else None
 
     def round_fn(lb, ub):
         return _prepared_round(
             prep, lb, ub, ops=ops, eps=eps, int_eps=cfg.int_eps, inf=cfg.inf,
             fused=do_fuse, outward=outward, part=part,
+        )
+
+    return round_fn
+
+
+def block_ell_round(
+    d: DeviceBlockEll,
+    lb,
+    ub,
+    m: int,
+    n: int,
+    eps: float,
+    int_eps: float,
+    inf: float = INF,
+    use_kernels: bool = True,
+    fused: bool = False,
+    outward: float = 0.0,
+):
+    """One propagation round over block-ELL tiles in the seed dataflow, the
+    reference's legacy baseline (src/repro/kernels/ops.py:757): bounds in
+    the unpadded ``(n,)`` domain, the structure work (``is_int[col]``,
+    ``lhs1[chunk_row]``, ``rhs1[chunk_row]``, the combine's row starts and
+    the reduction's :func:`segment_index`) redone every round, kernel C
+    (``fused``) or kernel A, the fixed-order combine and kernel B, the
+    candidates written out, a column reduction over ``n`` columns, then
+    the merge.  Returns ``(lb, ub, changed)``; with kernels the bounds are
+    updated in place."""
+    col = d.col.long()
+    crow = d.chunk_row.long()
+    row_start = None if fused else kref.row_starts(d.chunk_row, m + 1)
+    return _segment_round(
+        KERNEL_OPS if use_kernels else PLAIN_OPS, d, lb, ub, d.is_int[col].to(torch.int32),
+        d.lhs1[crow], d.rhs1[crow], row_start, segment_index(d.val, d.col), n, fused=fused,
+        eps=eps, int_eps=int_eps, inf=inf, outward=outward,
+    )
+
+
+def legacy_round_fn_for(
+    prep: PreparedBlockEll, cfg: PropagatorConfig = DEFAULT_CONFIG, use_kernels: bool = True
+):
+    """The seed round (:func:`block_ell_round`) as a ``(lb, ub) -> (lb, ub,
+    changed)`` closure over a prepared instance, bounds in the unpadded
+    ``(n,)`` domain (src/repro/kernels/ops.py:1038).  Kept as the measured
+    baseline; it reads only the prep's tiles."""
+    dt = prep.d.val.dtype
+    eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
+
+    def round_fn(lb, ub):
+        return block_ell_round(
+            prep.d, lb, ub, prep.m, prep.n, eps, cfg.int_eps, cfg.inf, use_kernels,
+            prep.fits_one_chunk, outward,
         )
 
     return round_fn
@@ -545,10 +709,12 @@ def propagate_block_ell(
     """Kernel-backed propagation of one instance.
 
     ``fused='auto'`` runs kernel D whenever every row fits one chunk and the
-    A'/E pair otherwise (``'yes'``/``'no'`` force one).  ``scatter='auto'``
+    A'/E pair otherwise (``'yes'``/``'no'`` force one; under
+    ``scatter='segment'`` kernel C or the A/B pair).  ``scatter='auto'``
     takes that fused engine while ``n_pad <= SCATTER_MAX_NPAD`` and the
     column-slab ``'partitioned'`` engine beyond it (``slab`` overrides its
-    window width); either may be asked for at any size.  ``use_kernels=False``
+    window width; ``REPRO_AUTO_LARGE_SCATTER=segment`` takes the segment
+    engine there instead); each may be asked for at any size.  ``use_kernels=False``
     runs the kernels' plain PyTorch versions instead (the counterpart of the
     reference's ``use_pallas=False``); on a CPU device the wrappers run the
     plain versions either way.  ``lb0``/``ub0`` warm-start the fixed point

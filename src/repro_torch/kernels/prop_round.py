@@ -1,6 +1,6 @@
 """The kernels of the fused propagation round, of its node-batch and packed-
-batch forms, of the column-slab partitioned round and of the solver's node
-objective, behind PyTorch wrappers.
+batch forms, of the segment (seed) round, of the column-slab partitioned
+round and of the solver's node objective, behind PyTorch wrappers.
 
 Each wrapper of a TPU kernel keeps the signature of its Pallas twin in the
 JAX package (``src/repro/kernels/prop_round.py``) minus ``interpret`` and
@@ -15,7 +15,9 @@ a plain integer attribute, ``<wrapper>.launches`` (see
 Layout of the tile arguments: ``val`` (T, R, K) float64 with 0 at padding,
 ``col`` (T, R, K) int32 with every id in ``[0, n_pad)``, ``is_int_g``
 (T, R, K) int32 integrality of each slot's column, per-chunk sides and row
-aggregates (T, R), bound vectors (n_pad,) float64; node batches carry
+aggregates (T, R), bound vectors (n_pad,) float64, or for the segment
+round's kernels the bounds gathered at each slot, ``lb_g``/``ub_g``
+(T, R, K) float64; node batches carry
 (B, n_pad) float64 planes and a (B,) bool ``active`` mask, packed batches
 also a (T,) int32 ``tile_inst`` map.  The slab
 kernels take a partition's copy tiles (slab-local ``col_s``), its (n_runs,)
@@ -197,6 +199,148 @@ def candidates_scatter_tiles(
 
 
 candidates_scatter_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernels A, B, C: the segment (seed) round over pre-gathered bounds
+# ---------------------------------------------------------------------------
+
+
+def _int_operand(x: torch.Tensor) -> torch.Tensor:
+    """Integrality marks as the kernels take them: bool widens to int32, as
+    the reference's ``_int_operand`` does; other dtypes pass through (and
+    the checks below refuse anything but int32 on the card)."""
+    return x.to(torch.int32) if x.dtype == torch.bool else x
+
+
+def _check_gathered(val, lb_g, ub_g, is_int_g=None):
+    """(T, R, K) tiles with their bounds gathered at each slot; returns
+    (chunks, K)."""
+    t, r, k = val.shape
+    _expect("val", val, torch.float64, (t, r, k))
+    _expect("lb_g", lb_g, torch.float64, (t, r, k))
+    _expect("ub_g", ub_g, torch.float64, (t, r, k))
+    if is_int_g is not None:
+        _expect("is_int_g", is_int_g, torch.int32, (t, r, k))
+    return t * r, k
+
+
+def activities_tiles(val, lb_g, ub_g, inf: float = INF):
+    """Per-chunk activity partials from pre-gathered bounds: (T, R, K)
+    ``val``, ``lb_g``, ``ub_g`` -> ``(mf, mc, xf, xc)``, each (T, R): finite
+    min/max sums (float64, in ``ref.warp_order_sum`` order) and infinity
+    counts (int32).
+
+    Replaces ``activities_tiles`` / ``_activities_kernel``
+    (src/repro/kernels/prop_round.py:226 / :217).  Bound on the H100: 8 B of
+    ``val`` per padded slot, 16 B of bounds per nonzero (padding's are never
+    read) and 24 B of partials per chunk.  Design: kernel A''s lane group
+    per chunk and shuffle sums, each slot's bounds read at the slot instead
+    of gathered at its column; the group's first lane writes the partials."""
+    if not _on_cuda(val, lb_g, ub_g):
+        return ref.activities_tiles_ref(val, lb_g, ub_g, inf)
+    n_chunks, k = _check_gathered(val, lb_g, ub_g)
+    shape, dev = val.shape[:2], val.device
+    mf = torch.empty(shape, dtype=torch.float64, device=dev)
+    xf = torch.empty(shape, dtype=torch.float64, device=dev)
+    mc = torch.empty(shape, dtype=torch.int32, device=dev)
+    xc = torch.empty(shape, dtype=torch.int32, device=dev)
+    if n_chunks == 0:
+        return mf, mc, xf, xc
+    err = _build.lib().activities(
+        _p(val), _p(lb_g), _p(ub_g), _p(mf), _p(mc), _p(xf), _p(xc), n_chunks, k, inf,
+        _stream(),
+    )
+    activities_tiles.launches += 1
+    _build.check(err, "activities")
+    return mf, mc, xf, xc
+
+
+activities_tiles.launches = 0
+
+
+def candidates_tiles(
+    val, lb_g, ub_g, is_int_g,
+    row_min_fin, row_min_cnt, row_max_fin, row_max_cnt,
+    lhs_g, rhs_g, int_eps: float, inf: float = INF,
+):
+    """Candidates from completed row aggregates and pre-gathered bounds,
+    written out: (T, R, K) ``val``, ``lb_g``, ``ub_g``, ``is_int_g`` (int32;
+    bool widens) + (T, R) aggregates and sides -> (T, R, K) ``lcand`` /
+    ``ucand``, the sentinels at padding and at invalid entries.
+
+    Replaces ``candidates_tiles`` / ``_candidates_kernel``
+    (src/repro/kernels/prop_round.py:347 / :314).  Bound on the H100: 8 B of
+    ``val`` per padded slot, 20 B of bounds and mark per nonzero, 40 B of row
+    data per chunk and the two (T, R, K) outputs (16 B per slot).  Design:
+    kernel E's lane group per chunk and its candidate arithmetic, each lane
+    storing both candidates of its slots (coalesced) instead of scattering
+    them."""
+    is_int_g = _int_operand(is_int_g)
+    operands = (val, lb_g, ub_g, is_int_g, row_min_fin, row_min_cnt, row_max_fin,
+                row_max_cnt, lhs_g, rhs_g)
+    if not _on_cuda(*operands):
+        return ref.candidates_tiles_ref(*operands, int_eps, inf)
+    n_chunks, k = _check_gathered(val, lb_g, ub_g, is_int_g)
+    rows = val.shape[:2]
+    _expect("row_min_fin", row_min_fin, torch.float64, rows)
+    _expect("row_min_cnt", row_min_cnt, torch.int32, rows)
+    _expect("row_max_fin", row_max_fin, torch.float64, rows)
+    _expect("row_max_cnt", row_max_cnt, torch.int32, rows)
+    _expect("lhs_g", lhs_g, torch.float64, rows)
+    _expect("rhs_g", rhs_g, torch.float64, rows)
+    lcand = torch.empty_like(val)
+    ucand = torch.empty_like(val)
+    if n_chunks == 0:
+        return lcand, ucand
+    err = _build.lib().candidates(
+        _p(val), _p(lb_g), _p(ub_g), _p(is_int_g), _p(row_min_fin), _p(row_min_cnt),
+        _p(row_max_fin), _p(row_max_cnt), _p(lhs_g), _p(rhs_g), _p(lcand), _p(ucand),
+        n_chunks, k, int_eps, inf, _stream(),
+    )
+    candidates_tiles.launches += 1
+    _build.check(err, "candidates")
+    return lcand, ucand
+
+
+candidates_tiles.launches = 0
+
+
+def fused_round_tiles(val, lb_g, ub_g, is_int_g, lhs_g, rhs_g, int_eps: float,
+                      inf: float = INF):
+    """Activities and candidates in one pass, from pre-gathered bounds,
+    candidates written out: (T, R, K) ``val``, ``lb_g``, ``ub_g``,
+    ``is_int_g`` + (T, R) sides -> (T, R, K) ``lcand`` / ``ucand``.
+    Requires every row to fit its chunk.
+
+    Replaces ``fused_round_tiles`` / ``_fused_round_kernel``
+    (src/repro/kernels/prop_round.py:414 / :400).  Bound on the H100: 8 B of
+    ``val`` per padded slot, 20 B of bounds and mark per nonzero, 16 B of
+    sides per chunk and the two outputs (16 B per slot).  Design: kernel D's
+    lane group per chunk (row sums by shuffles, in ``ref.warp_order_sum``
+    order), each slot's bounds read at the slot, both candidates stored per
+    slot instead of scattered."""
+    is_int_g = _int_operand(is_int_g)
+    operands = (val, lb_g, ub_g, is_int_g, lhs_g, rhs_g)
+    if not _on_cuda(*operands):
+        return ref.fused_round_tiles_ref(*operands, int_eps, inf)
+    n_chunks, k = _check_gathered(val, lb_g, ub_g, is_int_g)
+    _expect("lhs_g", lhs_g, torch.float64, val.shape[:2])
+    _expect("rhs_g", rhs_g, torch.float64, val.shape[:2])
+    lcand = torch.empty_like(val)
+    ucand = torch.empty_like(val)
+    if n_chunks == 0:
+        return lcand, ucand
+    err = _build.lib().fused_round(
+        _p(val), _p(lb_g), _p(ub_g), _p(is_int_g), _p(lhs_g), _p(rhs_g), _p(lcand), _p(ucand),
+        n_chunks, k, int_eps, inf, _stream(),
+    )
+    fused_round_tiles.launches += 1
+    _build.check(err, "fused_round")
+    return lcand, ucand
+
+
+fused_round_tiles.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -804,6 +948,9 @@ KERNELS = (
     node_slab_partials_tiles,
     node_slab_round_tiles,
     apply_updates_slab_tiles,
+    activities_tiles,
+    candidates_tiles,
+    fused_round_tiles,
 )
 
 

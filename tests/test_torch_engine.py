@@ -125,7 +125,7 @@ def test_host_syncs_counted_once_per_round():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(scatter="segment"), "item 4"),
+    (dict(dtype=np.float32), "item 5"),
     (dict(dtype=torch.float32), "item 5"),
     (dict(policy=object()), "item 5"),
     (dict(stop_progress=1e-3), "item 5"),

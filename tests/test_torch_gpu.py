@@ -614,3 +614,112 @@ def test_service_on_card_matches_one_shot(cuda, tile_width):
         for f in ("lb", "ub", "rounds", "converged", "infeasible", "progress"):
             _match(getattr(r, f).to(cuda), getattr(one, f))
             _match(getattr(t, f).to(cuda), getattr(one, f))
+
+
+# ---------------------------------------------------------------------------
+# The segment (seed) round: kernels A, B, C and the segment engine
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("t,r,k,n", SHAPES)
+def test_segment_kernels_match_plain_versions(cuda, gen, t, r, k, n, exact):
+    x = _tiles(gen, t, r, k, n, exact, cuda)
+    c = x["col"].long()
+    lb_g, ub_g = x["lb"][c], x["ub"][c]
+    tk.reset_launch_counts()
+    partials = tk.activities_tiles(x["val"], lb_g, ub_g)
+    for g, w in zip(partials, tref.activities_tiles_ref(x["val"], lb_g, ub_g)):
+        _match(g, w)
+    b_args = (x["val"], lb_g, ub_g, x["ii"], *partials, x["lhs"], x["rhs"], 1e-6)
+    for g, w in zip(tk.candidates_tiles(*b_args), tref.candidates_tiles_ref(*b_args)):
+        _match(g, w)
+    c_args = (x["val"], lb_g, ub_g, x["ii"], x["lhs"], x["rhs"], 1e-6)
+    got = tk.fused_round_tiles(*c_args)
+    for g, w in zip(got, tref.fused_round_tiles_ref(*c_args)):
+        _match(g, w)
+    # Bool marks widen to int32, as the reference's _int_operand does.
+    for g, w in zip(tk.fused_round_tiles(x["val"], lb_g, ub_g, x["ii"] != 0, *c_args[4:]), got):
+        _match(g, w)
+    # C's candidates reduce to kernel D's column max/min.
+    best = tref.scatter_round_ref(*got, x["col"], x["n_pad"])
+    d_args = (x["val"], x["col"], x["ii"], x["lhs"], x["rhs"], x["lb"], x["ub"], x["n_pad"], 1e-6)
+    for g, w in zip(best, tk.fused_scatter_round_tiles(*d_args)):
+        _match(g, w)
+    counts = tk.launch_counts()
+    assert (counts["activities_tiles"], counts["candidates_tiles"],
+            counts["fused_round_tiles"]) == (1, 1, 2)
+
+
+def test_segment_wrappers_check_operands(cuda, gen):
+    x = _tiles(gen, 2, 2, 4, 10, True, cuda)
+    c = x["col"].long()
+    lb_g, ub_g = x["lb"][c], x["ub"][c]
+    with pytest.raises(ValueError, match="lb_g"):
+        tk.activities_tiles(x["val"], x["lb"], ub_g)
+    with pytest.raises(TypeError, match="is_int_g"):
+        tk.fused_round_tiles(x["val"], lb_g, ub_g, x["ii"].long(), x["lhs"], x["rhs"], 1e-6)
+    with pytest.raises(ValueError, match="device"):
+        tk.fused_round_tiles(x["val"], lb_g.cpu(), ub_g, x["ii"], x["lhs"], x["rhs"], 1e-6)
+
+
+@pytest.mark.parametrize("gen_name,kw,tile_width", [
+    ("make_pseudo_boolean", dict(n=3000, m=4000, seed=7), 128),
+    ("make_pseudo_boolean", dict(n=3000, m=4000, seed=7), 4),
+    ("make_cascade_chain", dict(length=40), 4),
+    ("make_mixed", dict(m=600, n=450, seed=21), 128),
+    ("make_mixed", dict(m=600, n=450, seed=21), 16),
+])
+def test_segment_engine_on_card_matches_fused_engine(cuda, gen_name, kw, tile_width):
+    """The segment engine sums each row in the fused engine's order through
+    the same combine: the two give the same rounds and bounds, bitwise."""
+    p = getattr(td, gen_name)(**kw)
+    tk.reset_launch_counts()
+    got = rt.propagate_block_ell(p, tile_width=tile_width, scatter="segment")
+    counts = tk.launch_counts()
+    rounds = int(got.rounds)
+    assert counts["apply_updates_tiles"] == rounds
+    if tk.rows_fit_one_chunk(p, tile_width):
+        assert counts["fused_round_tiles"] == rounds
+    else:
+        assert counts["activities_tiles"] == counts["candidates_tiles"] == rounds
+        assert counts["combine_chunk_partials_tiles"] == rounds
+    assert counts["fused_scatter_round_tiles"] == counts["activities_gather_tiles"] == 0
+    fused = rt.propagate_block_ell(p, tile_width=tile_width, scatter="fused")
+    plain = rt.propagate_block_ell(p, tile_width=tile_width, scatter="segment",
+                                   use_kernels=False)
+    for other in (fused, plain):
+        for f in ("lb", "ub", "rounds", "converged", "infeasible"):
+            _match(getattr(got, f), getattr(other, f))
+
+
+def test_segment_auto_past_the_limit_on_card(cuda, small_limit, monkeypatch):
+    """Under the override ``auto`` takes the segment engine past the limit:
+    bitwise the explicit fused engine, and the partitioned engine's rounds
+    and bounds (``bounds_equal``: its straddle rows sum in another order)."""
+    p = td.make_banded(n=600, m=500, row_nnz=6, band=60, seed=0)
+    part = rt.propagate_block_ell(p)
+    fused = rt.propagate_block_ell(p, scatter="fused")
+    monkeypatch.setenv(tk.AUTO_LARGE_SCATTER_ENV, "segment")
+    tk.reset_launch_counts()
+    got = rt.propagate_block_ell(p)
+    counts = tk.launch_counts()
+    assert counts["fused_round_tiles"] == int(got.rounds) > 0
+    assert counts["batched_slab_round_tiles"] == 0
+    for f in ("lb", "ub", "rounds", "converged", "infeasible"):
+        _match(getattr(got, f), getattr(fused, f))
+    for f in ("rounds", "converged", "infeasible"):
+        _match(getattr(got, f), getattr(part, f))
+    assert rt.bounds_equal(got.lb, got.ub, part.lb, part.ub)
+
+
+@pytest.mark.parametrize("tile_width", [128, 8])
+def test_legacy_round_on_card_matches_segment_round(cuda, tile_width):
+    p = td.make_mixed(m=600, n=450, seed=21)
+    prep = tk.prepare_block_ell(p, tile_width=tile_width)
+    lb, ub = prep.lb0.clone(), prep.ub0.clone()
+    want = tk.round_fn_for(prep, scatter="segment")(lb, ub)
+    got = tk.legacy_round_fn_for(prep)(prep.d.lb0.clone(), prep.d.ub0.clone())
+    _match(got[0], want[0][: prep.n])
+    _match(got[1], want[1][: prep.n])
+    assert bool(got[2]) == bool(want[2])

@@ -22,7 +22,8 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.kernels._build, repro_torch.core.nodes, repro_torch.core.solver\n"
         "import repro_torch.kernels.slab, repro_torch.kernels.prop_round\n"
         "import repro_torch.core.service, repro_torch.obs, repro_torch.obs.metrics\n"
-        "import repro_torch.obs.trace\n"
+        "import repro_torch.obs.trace, repro_torch.core.seq_ref, repro_torch.core.presolve\n"
+        "import repro_torch.data.mps\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
@@ -53,12 +54,15 @@ def _call(name, p, **kw):
         return rt.propagate_batch([p, p], **kw)
     if name == "PropagationService":
         return rt.PropagationService.from_problems([p], slots=2, **kw).serve([p])
+    if name == "analyze_constraints":
+        return rt.core.analyze_constraints(p.csr.row_ids(), p.csr.val, p.csr.col, p.lhs, p.rhs,
+                                           p.lb, p.ub, p.m, **kw)
     return getattr(rt, name)(p, **kw)
 
 
 @pytest.mark.parametrize("call", ["propagate", "propagate_block_ell", "prepare_block_ell",
                                   "propagate_nodes", "solve", "propagate_batch",
-                                  "PropagationService"])
+                                  "PropagationService", "analyze_constraints"])
 def test_entry_points_default_to_cuda(call):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is usable here")

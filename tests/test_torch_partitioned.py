@@ -90,12 +90,10 @@ def test_auto_selects_engine_on_both_sides_of_the_limit():
     assert prep.n_pad > tops.SCATTER_MAX_NPAD
     assert tops._resolve_scatter("auto", prep) == "partitioned"
     assert rops._resolve_scatter("auto", rops.prepare_block_ell(big, 8, 8)) == "partitioned"
-    for mode in ("fused", "partitioned"):
+    for mode in ("fused", "segment", "partitioned"):
         assert tops._resolve_scatter(mode, prep) == mode
     with pytest.raises(ValueError):
         tops._resolve_scatter("bogus", prep)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tops._resolve_scatter("segment", prep)
 
 
 def test_instance_past_the_limit_rides_partitioned_auto():
