@@ -17,7 +17,7 @@ numpy only, nothing of JAX) and, on one CUDA card:
   3. holds each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it, and times both with CUDA events: the
      kernel's own launch, the wrapper call as a whole, and the plain
-     version;
+     version (A' and E beside the times of the kernels they replace);
   4. resets the launch counters, runs ``propagate_block_ell`` with its
      defaults on the three instances (the main path), reads the counters,
      and holds each result against the plain-version path
@@ -35,19 +35,25 @@ numpy only, nothing of JAX) and, on one CUDA card:
      their plain versions at the solver's shapes: the node round (#10) and
      the batched merge (#9) on its (18,750, 8, 8) tiles over a (128, 60,032)
      pool of warm-started node bounds with 0, 8 and 128 active rows, and the
-     node objective (#16) on the same pool, all bitwise, timed;
+     node objective (#16) on the same pool, all bitwise, timed; then (5b)
+     the multi-chunk node round's kernels -- A', the combine and E over a
+     node batch -- on pbf's tiles at tile width 4 over the same pool with 8
+     and 128 active rows, bitwise against their plain versions and, node by
+     node, against the single-instance kernels, timed, and one node round
+     of 4 and of 128 nodes, which must make the same launches;
   7. (phase 6) runs ``propagate_nodes`` on 64 ``pbf`` nodes, 16 ``banded``
-     nodes and 4 ``mixed`` nodes (the multi-chunk branch) and holds every
-     node bitwise against its own single-instance ``propagate_block_ell``
-     and against the plain-version path;
+     nodes and 4 ``mixed`` nodes (the multi-chunk node round) and holds
+     every node bitwise against its own single-instance
+     ``propagate_block_ell`` and against the plain-version path;
   8. (phase 7) runs ``solve`` on the small instances whose reference results
      are hard-coded below and on ``pbf`` at full width (128 pool slots),
      holds the search against the reference's counts and the kernel path
      against the plain path (result and final pool), and prints levels,
      nodes, host syncs, flag reads, ms per level, nodes per second and the
      idle share; then the same search at tile width 4, where rows span two
-     chunks and each round runs A', combine, E and F per pool slot, held
-     against the tile-width-8 search (result and final pool) and timed;
+     chunks and each round runs A', the combine and E over the whole pool
+     and #9 (one launch each per round, checked), held against the
+     tile-width-8 search (result and final pool), timed and profiled;
   9. (phase 8) past 2^16 columns, where ``scatter="auto"`` takes the
      column-slab partitioned engine: builds ``bandw`` and ``pbw``
      (n = m = 150,000; n_pad 150,016, three slabs of 50,048 columns) and
@@ -223,6 +229,11 @@ REPLACES = {
     "activities_tiles": "src/repro/kernels/prop_round.py:226",
     "candidates_tiles": "src/repro/kernels/prop_round.py:347",
     "fused_round_tiles": "src/repro/kernels/prop_round.py:414",
+    # No Pallas twin: the reference vmaps its single-instance jnp round over
+    # the nodes there (A', the XLA combine and E per node).
+    "node_activities_gather_tiles": "src/repro/kernels/ops.py:2031",
+    "node_combine_chunk_partials_tiles": "src/repro/kernels/ops.py:2031",
+    "node_candidates_scatter_tiles": "src/repro/kernels/ops.py:2031",
 }
 # The C entry point that launches each wrapper's kernel (the slab rounds
 # launch two: their scatter, then #15's window merge).
@@ -244,6 +255,9 @@ SYMBOL = {
     "activities_tiles": "activities",
     "candidates_tiles": "candidates",
     "fused_round_tiles": "fused_round",
+    "node_activities_gather_tiles": "node_activities_gather",
+    "node_combine_chunk_partials_tiles": "node_combine_chunk_partials",
+    "node_candidates_scatter_tiles": "node_candidates_scatter",
 }
 # Nominal float64 operations per real nonzero (products, sums, residual
 # subtractions, divisions, rounding) -- the compute side of each bound.
@@ -256,7 +270,14 @@ OPS_PER_NNZ = {
     "activities_tiles": 4,
     "candidates_tiles": 12,
     "fused_round_tiles": 16,
+    "node_activities_gather_tiles": 4,
+    "node_candidates_scatter_tiles": 12,
+    "node_combine_chunk_partials_tiles": 0,
 }
+# Times of A' and E on mixed before their redesign (one dependent chain per
+# stride over every slot, compare-and-swap max/min; NVIDIA H100 80GB HBM3,
+# 700 W), printed beside this run's.
+BEFORE_REDESIGN_MS = {"activities_gather_tiles": 0.1695, "candidates_scatter_tiles": 0.2150}
 
 
 def log(*args):
@@ -406,17 +427,21 @@ def needed_bytes(kname: str, prep, nnz: int) -> dict:
     padding), ``col`` and the integrality marks for each real nonzero only,
     the per-chunk row data, and the (n_pad,) vectors -- for the segment
     kernels A, B and C the gathered bounds at each nonzero instead, and B's
-    and C's two (T, R, K) candidate outputs."""
+    and C's two (T, R, K) candidate outputs.  A' and E stop each chunk at its
+    length (an input, 4 B per chunk), so they need ``val`` at the nonzeros
+    only: :func:`padded_val_bytes` gives their bound with ``val`` at every
+    slot, the one the kernels before the redesign were held to."""
     t, r, k = prep.d.val.shape
     slots, chunks, vec = t * r * k, t * r, 8 * prep.n_pad
     if kname == "fused_scatter_round_tiles":
         return dict(val=8 * slots, col=4 * nnz, is_int=4 * nnz, rows=16 * chunks,
                     bounds=2 * vec, out=2 * vec)
     if kname == "activities_gather_tiles":
-        return dict(val=8 * slots, col=4 * nnz, bounds=2 * vec, out=24 * chunks)
+        return dict(val=8 * nnz, col=4 * nnz, chunk_len=4 * chunks, bounds=2 * vec,
+                    out=24 * chunks)
     if kname == "candidates_scatter_tiles":
-        return dict(val=8 * slots, col=4 * nnz, is_int=4 * nnz, rows=40 * chunks,
-                    bounds=2 * vec, out=2 * vec)
+        return dict(val=8 * nnz, col=4 * nnz, is_int=4 * nnz, chunk_len=4 * chunks,
+                    rows=40 * chunks, bounds=2 * vec, out=2 * vec)
     if kname == "combine_chunk_partials_tiles":
         return dict(partials=24 * chunks, row_start=8 * (prep.m + 2), out=24 * chunks)
     if kname == "activities_tiles":
@@ -426,6 +451,16 @@ def needed_bytes(kname: str, prep, nnz: int) -> dict:
     if kname == "fused_round_tiles":
         return dict(val=8 * slots, bounds_ii=20 * nnz, sides=16 * chunks, out=16 * slots)
     raise KeyError(kname)
+
+
+def padded_val_bytes(moved: dict, prep) -> dict:
+    """A' or E's bytes with ``val`` read at every padded slot and no
+    lengths: the bound of the kernels before the redesign, which walked
+    every slot."""
+    t, r, k = prep.d.val.shape
+    out = {key: v for key, v in moved.items() if key != "chunk_len"}
+    out["val"] = 8 * t * r * k
+    return out
 
 
 def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed):
@@ -445,6 +480,9 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed):
             r.update(ms=kernel_ms(torch, build, fn_k, reset=reset),
                      wrapper_ms=time_ms(torch, fn_k),
                      plain_ms=time_ms(torch, fn_p), bound_ms=b_ms, bound_by=b_by, bytes=moved)
+            if kname in BEFORE_REDESIGN_MS:
+                r["bound_all_slots_ms"] = bound(sum(padded_val_bytes(moved, prep).values()),
+                                                OPS_PER_NNZ[kname] * nnz)[0]
         rows[kname] = r
 
     if prep.fits_one_chunk:
@@ -456,11 +494,13 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed):
             lambda: tref.fused_scatter_round_tiles_ref(*args))
         best_l, best_u = want
     else:
+        # Each chunk's length as the engine hoists it (prepare time).
+        clen = dict(chunk_len=prep.chunk_len)
         a_args = (d.val, d.col, lb, ub, n_pad)
-        got = tk.activities_gather_tiles(*a_args)
+        got = tk.activities_gather_tiles(*a_args, **clen)
         want = tref.activities_gather_tiles_ref(*a_args)
         row("activities_gather_tiles", got, want,
-            lambda: tk.activities_gather_tiles(*a_args),
+            lambda: tk.activities_gather_tiles(*a_args, **clen),
             lambda: tref.activities_gather_tiles_ref(*a_args))
         c_args = (*want, d.chunk_row, prep.row_start)
         got = tk.combine_chunk_partials_tiles(*c_args)
@@ -470,10 +510,10 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed):
             lambda: tref.combine_chunk_partials_ref(*c_args))
         e_args = (d.val, d.col, prep.ii_g, *aggs, prep.lhs_g, prep.rhs_g, lb, ub, n_pad,
                   cfg.int_eps)
-        got = tk.candidates_scatter_tiles(*e_args)
+        got = tk.candidates_scatter_tiles(*e_args, **clen)
         want = tref.candidates_scatter_tiles_ref(*e_args)
         row("candidates_scatter_tiles", got, want,
-            lambda: tk.candidates_scatter_tiles(*e_args),
+            lambda: tk.candidates_scatter_tiles(*e_args, **clen),
             lambda: tref.candidates_scatter_tiles_ref(*e_args))
         best_l, best_u = want
 
@@ -552,10 +592,14 @@ def smoke(torch, dev):
         rows = check_kernels(torch, tk, tref, ops, _build, name, problems[name], prep,
                              prep.lb0, prep.ub0, timed=True)
         for kname, r in rows.items():
+            extra = ""
+            if kname in BEFORE_REDESIGN_MS:
+                extra = (f" bound_all_slots_ms={r['bound_all_slots_ms']:.4f} (before the "
+                         f"redesign: {BEFORE_REDESIGN_MS[kname]:.4f} ms)")
             log(f"kernel {kname} on {name}: max_abs_err={r['max_abs_err']} ms={r['ms']:.4f} "
                 f"wrapper_ms={r['wrapper_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                 f"bound_ms={r['bound_ms']:.4f} "
-                f"({r['bound_by']}, {sum(r['bytes'].values())} B: {r['bytes']})")
+                f"({r['bound_by']}, {sum(r['bytes'].values())} B: {r['bytes']}){extra}")
             measured.setdefault(kname, {})[name] = r
 
     # Phase 2: the main path, with every launch counter at zero before it.
@@ -675,6 +719,8 @@ def smoke(torch, dev):
         f"set-up={time.perf_counter() - t:.1f}s")
     for k, rows in node_kernel_phase(torch, np, rt, tk, tref, ops, _build, pbf, prep8, dev).items():
         measured.setdefault(k, {}).update(rows)
+    for k, rows in node_multichunk_phase(torch, np, rt, tk, tref, ops, _build, pbf, dev).items():
+        measured.setdefault(k, {}).update(rows)
     runs = {f"propagate_block_ell {k}": v for k, v in per_instance.items()}
     runs.update(node_batch_phase(torch, np, rt, tk, pbf, problems, dev))
     runs.update(solve_phase(torch, np, rt, td, tk, pbf, dev))
@@ -706,16 +752,15 @@ def smoke(torch, dev):
         "service stream": fused_batch,
         "service mixed": multi_batch,
     })
+    node_multi = ("node_activities_gather_tiles", "node_combine_chunk_partials_tiles",
+                  "node_candidates_scatter_tiles", "apply_updates_batch_tiles")
     require_launched(runs, {
         "nodes pbf": ("node_fused_scatter_round_tiles", "apply_updates_batch_tiles"),
         "nodes banded": ("node_fused_scatter_round_tiles", "apply_updates_batch_tiles"),
-        "nodes mixed": ("activities_gather_tiles", "combine_chunk_partials_tiles",
-                        "candidates_scatter_tiles", "apply_updates_tiles"),
+        "nodes mixed": node_multi,
         "solve pbf": ("node_fused_scatter_round_tiles", "apply_updates_batch_tiles",
                       "node_objective_tiles"),
-        "solve pbf multi-chunk": ("activities_gather_tiles", "combine_chunk_partials_tiles",
-                                  "candidates_scatter_tiles", "apply_updates_tiles",
-                                  "node_objective_tiles"),
+        "solve pbf multi-chunk": node_multi + ("node_objective_tiles",),
     })
     launches = {fn.__name__: sum(r[fn.__name__] for r in runs.values()) for fn in tk.KERNELS}
     if any(v <= 0 for v in launches.values()):
@@ -736,6 +781,11 @@ def smoke(torch, dev):
         "apply_updates_slab_tiles": f"pbw pool, 8 of {POOL} active",
         "batched_fused_scatter_round_tiles": "fused bucket, 4 of 4 active",
         "fused_round_tiles": "pb", "activities_tiles": "mixed", "candidates_tiles": "mixed",
+        "node_activities_gather_tiles": f"pbf K={MULTI_CHUNK_TILE_WIDTH} pool, 8 of {POOL} active",
+        "node_combine_chunk_partials_tiles":
+            f"pbf K={MULTI_CHUNK_TILE_WIDTH} pool, 8 of {POOL} active",
+        "node_candidates_scatter_tiles":
+            f"pbf K={MULTI_CHUNK_TILE_WIDTH} pool, 8 of {POOL} active",
     }
     kernels = []
     for fn in tk.KERNELS:
@@ -869,6 +919,98 @@ def node_kernel_phase(torch, np, rt, tk, tref, ops, build, pbf, prep, dev):
             lambda: tref.node_objective_ref(*o_args),
             dict(planes=16 * POOL * n_pad, shared=10 * n_pad, out=10 * POOL),
             3 * POOL * n_pad, 10)
+    return out
+
+
+def node_multichunk_phase(torch, np, rt, tk, tref, ops, build, pbf, dev):
+    """Phase 5b: the multi-chunk node round's kernels -- A', the combine and
+    E over a node batch -- against their plain versions on pbf's tiles at
+    tile width MULTI_CHUNK_TILE_WIDTH (rows of 5 to 8 nonzeros span two
+    chunks) and a (POOL, n_pad) pool of warm-started node bounds with 8 and
+    POOL rows active: bitwise on the active nodes' planes (the kernels
+    leave the partials of inactive nodes unwritten) and on every
+    accumulator row; the first eight active nodes also against the
+    single-instance kernels on their own rows.  Timed.  Then one node round
+    over 4 and over POOL nodes, whose launches must be the same.  Returns
+    {kernel: {shape: row of measurements}}."""
+    cfg = ops.DEFAULT_CONFIG
+    t0 = time.perf_counter()
+    prep = rt.prepare_block_ell(pbf, tile_width=MULTI_CHUNK_TILE_WIDTH, device=dev)
+    d, n_pad = prep.d, prep.n_pad
+    t, r, k = d.val.shape
+    chunks = t * r
+    nnz = int((d.val != 0).sum().item())
+    log(f"pbf at tile width {k}: tiles={(t, r, k)} fits_one_chunk={prep.fits_one_chunk} "
+        f"prepare={time.perf_counter() - t0:.2f}s")
+    lb_h, ub_h = node_pool(np, rt, pbf, POOL, seed=3)
+    lbp, ubp = ops._node_planes(prep, lb_h, ub_h)
+    clen = dict(chunk_len=prep.chunk_len)
+    names = ("node_activities_gather_tiles", "node_combine_chunk_partials_tiles",
+             "node_candidates_scatter_tiles")
+    out = {name: {} for name in names}
+    for n_act in (8, POOL):
+        act = torch.zeros(POOL, dtype=torch.bool, device=dev)
+        act[:: POOL // n_act] = True
+        shape = f"pbf K={k} pool, {n_act} of {POOL} active"
+        reps = 1 if n_act == POOL else 3
+        on = lambda xs: tuple(x[act] for x in xs)
+        a_args = (d.val, d.col, lbp, ubp, act, n_pad)
+        parts = tref.node_activities_gather_ref(*a_args)
+        got_p = tk.node_activities_gather_tiles(*a_args, **clen)
+        out[names[0]][shape] = measured_row(
+            torch, build, on(got_p), on(parts),
+            lambda: tk.node_activities_gather_tiles(*a_args, **clen),
+            lambda: tref.node_activities_gather_ref(*a_args),
+            dict(val=8 * nnz, col=4 * nnz, chunk_len=4 * chunks, bounds=16 * n_act * n_pad,
+                 out=24 * n_act * chunks),
+            4 * nnz * n_act, plain_reps=reps)
+        c_args = (*parts, d.chunk_row, prep.row_start, act)
+        aggs = tref.node_combine_chunk_partials_ref(*c_args)
+        got_a = tk.node_combine_chunk_partials_tiles(*c_args)
+        out[names[1]][shape] = measured_row(
+            torch, build, on(got_a), on(aggs),
+            lambda: tk.node_combine_chunk_partials_tiles(*c_args),
+            lambda: tref.node_combine_chunk_partials_ref(*c_args),
+            dict(partials=24 * n_act * chunks, row_start=8 * (prep.m + 2),
+                 out=24 * n_act * chunks, mask=POOL),
+            0, plain_reps=reps)
+        e_args = (d.val, d.col, prep.ii_g, *aggs, prep.lhs_g, prep.rhs_g, lbp, ubp, act, n_pad,
+                  cfg.int_eps)
+        want = tref.node_candidates_scatter_ref(*e_args)
+        got = tk.node_candidates_scatter_tiles(*e_args, **clen)
+        out[names[2]][shape] = measured_row(
+            torch, build, got, want,
+            lambda: tk.node_candidates_scatter_tiles(*e_args, **clen),
+            lambda: tref.node_candidates_scatter_ref(*e_args),
+            dict(val=8 * nnz, col=4 * nnz, is_int=4 * nnz, chunk_len=4 * chunks,
+                 sides=16 * chunks, aggregates=24 * n_act * chunks, bounds=16 * n_act * n_pad,
+                 out=16 * n_act * n_pad),
+            12 * nnz * n_act, plain_reps=reps)
+        for i in act.nonzero().flatten().tolist()[:8]:
+            one = tk.activities_gather_tiles(d.val, d.col, lbp[i], ubp[i], n_pad, **clen)
+            max_abs_err(torch, tuple(x[i] for x in got_p), one)
+            done = tk.combine_chunk_partials_tiles(*one, d.chunk_row, prep.row_start)
+            max_abs_err(torch, tuple(x[i] for x in got_a), done)
+            best = tk.candidates_scatter_tiles(d.val, d.col, prep.ii_g, *done, prep.lhs_g,
+                                               prep.rhs_g, lbp[i], ubp[i], n_pad, cfg.int_eps,
+                                               **clen)
+            max_abs_err(torch, (got[0][i], got[1][i]), best)
+        for name in names:
+            out[name][shape]["instance"] = shape
+            log_row(name, shape, out[name][shape])
+
+    round_fn = ops.node_round_fn_for(prep)
+    counts = {}
+    for bsz in (4, POOL):
+        act = torch.ones(bsz, dtype=torch.bool, device=dev)
+        tk.reset_launch_counts()
+        round_fn(lbp[:bsz].clone(), ubp[:bsz].clone(), act)
+        torch.cuda.synchronize()
+        counts[bsz] = {name: v for name, v in tk.launch_counts().items() if v}
+    if counts[4] != counts[POOL]:
+        fail(f"a multi-chunk node round's launches grow with the batch: {counts}")
+    log(f"multi-chunk node round (tile width {k}): launches with 4 nodes {counts[4]}, with "
+        f"{POOL} nodes {counts[POOL]}: the same")
     return out
 
 
@@ -1010,9 +1152,10 @@ def solve_phase(torch, np, rt, td, tk, pbf, dev):
             f"{1 - busy / k_ms:.3f}; top: {top}")
 
     # The same search at tile width 4, where pbf's rows of 5 to 8 nonzeros
-    # span two chunks: every round runs A', combine, E and F on each of the
-    # POOL slots in turn.  The data are integral, so the search and the final
-    # pool equal the one-chunk search's.
+    # span two chunks: every round runs A', the combine and E over the whole
+    # pool of POOL slots, then #9 -- four launches, whatever the slots hold.
+    # The data are integral, so the search and the final pool equal the
+    # one-chunk search's.
     reads4 = [0]
     tk.reset_launch_counts()
     multi = rt.solve(pbf, c, device=dev, tile_width=MULTI_CHUNK_TILE_WIDTH,
@@ -1027,14 +1170,32 @@ def solve_phase(torch, np, rt, td, tk, pbf, dev):
         if not torch.equal(x, y):
             fail(f"solve pbf at tile width {MULTI_CHUNK_TILE_WIDTH}: final pool {f} differs")
     m_ms = time_ms(torch, lambda: rt.solve(pbf, c, device=dev, tile_width=MULTI_CHUNK_TILE_WIDTH,
-                                           **FULL_SEARCH), reps=1, trials=1)
+                                           **FULL_SEARCH), reps=1, trials=3)
     rounds = reads4[0] - multi.levels  # one flag read per round and one per level
+    counts4 = runs["solve pbf multi-chunk"]
+    for name in ("node_activities_gather_tiles", "node_combine_chunk_partials_tiles",
+                 "node_candidates_scatter_tiles", "apply_updates_batch_tiles"):
+        if counts4[name] != rounds:
+            fail(f"solve pbf multi-chunk: {counts4[name]} launches of {name} in {rounds} rounds")
+    if counts4["activities_gather_tiles"] or counts4["candidates_scatter_tiles"]:
+        fail(f"solve pbf multi-chunk ran the single-instance round: {counts4}")
     log(f"solve pbf multi-chunk (tile width {MULTI_CHUNK_TILE_WIDTH}, {POOL} slots): "
         f"{multi.status}, levels {multi.levels}, rounds {rounds}, flag reads {reads4[0]}; "
         f"{m_ms:.3f} ms ({m_ms / multi.levels:.3f} ms/level, {m_ms / rounds:.3f} ms/round, "
         f"{m_ms / rounds / POOL:.4f} ms per slot and round, "
-        f"{multi.nodes_created / (m_ms / 1e3):.1f} nodes/s); same result and final pool as "
-        f"tile width {SOLVER_TILE_WIDTH}; launches {runs['solve pbf multi-chunk']}")
+        f"{multi.nodes_created / (m_ms / 1e3):.1f} nodes/s; with a per-slot loop: 1808.981 ms); "
+        f"{m_ms / k_ms:.2f}x the tile-width-{SOLVER_TILE_WIDTH} search; one launch of each "
+        f"node kernel per round; same result and final pool as tile width "
+        f"{SOLVER_TILE_WIDTH}; launches {runs['solve pbf multi-chunk']}")
+    prof = busy_profile(torch, lambda: rt.solve(pbf, c, device=dev,
+                                                tile_width=MULTI_CHUNK_TILE_WIDTH, **FULL_SEARCH))
+    if prof is None:
+        log("profile solve pbf multi-chunk: the profiler recorded no device time; idle share not "
+            "measured")
+    else:
+        busy, top = prof
+        log(f"profile solve pbf multi-chunk: device busy {busy:.3f} ms of {m_ms:.3f} ms search, "
+            f"idle share {1 - busy / m_ms:.3f}; top: {top}")
     return runs
 
 # ---------------------------------------------------------------------------
@@ -1435,9 +1596,12 @@ def check_segment_kernels(torch, tk, tref, ops, build, name, prep):
     every_ms = time_ms(torch, lambda: tref.scatter_round_ref(*want, d.col, prep.n_pad, cfg.inf),
                        reps=1, trials=3)
     gather_ms = time_ms(torch, lambda: ops.gather_bounds(prep.lb0, prep.ub0, d.col))
+    # Its bound: the two candidates and the int64 position and column of
+    # each nonzero slot read once, the two (n_pad,) results written once.
+    red_ms, _ = bound(32 * index[0].numel() + 16 * prep.n_pad, 0)
     log(f"segment reduction on {name}: {index[0].numel()} nonzero slots of "
-        f"{d.val.numel()}; over the nonzero slots {kept_ms:.4f} ms, over every slot "
-        f"{every_ms:.4f} ms (equal as values); bound gather {gather_ms:.4f} ms")
+        f"{d.val.numel()}; over the nonzero slots {kept_ms:.4f} ms (bound {red_ms:.4f} ms), "
+        f"over every slot {every_ms:.4f} ms (equal as values); bound gather {gather_ms:.4f} ms")
     return rows
 
 

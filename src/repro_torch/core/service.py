@@ -308,7 +308,7 @@ class _BucketEngine:
 
     def __init__(self, spec: "BucketSpec", cfg: PropagatorConfig, rounds_per_step: int,
                  use_kernels: bool, device: torch.device, key: tuple):
-        from ..kernels import ops as kops  # lazy: kernels imports core
+        from ..kernels import ops as kops, ref as kref  # lazy: kernels imports core
 
         self.spec, self.cfg, self.device, self.key = spec, cfg, device, key
         self.rounds_per_step = rounds_per_step
@@ -333,14 +333,15 @@ class _BucketEngine:
             "slot_ids": z((kmax,), torch.int64), "m": z((kmax,), torch.int32),
         }
         ops = kops.KERNEL_OPS if use_kernels else kops.PLAIN_OPS
+        self.chunk_lengths = kref.chunk_lengths
 
         def round_fn(state, aux, lb, ub, act):
-            col_g, seg, seg_start, _ = aux
+            col_g, seg, seg_start, _, clen = aux
             row_start = None if seg_start is None else seg_start[:-1]
             return kops.batched_reference_round(
                 state[0], state[1], col_g, ti, state[2], seg, row_start, state[4], state[5],
                 lb, ub, act, n_pad=n_pad, fits_one_chunk=spec.fits_one_chunk, eps=eps,
-                int_eps=int_eps, inf=inf, outward=outward, ops=ops,
+                int_eps=int_eps, inf=inf, outward=outward, ops=ops, chunk_len=clen,
             )
 
         self.round_fn = round_fn
@@ -349,8 +350,10 @@ class _BucketEngine:
     def init_state(self) -> "tuple[list, tuple]":
         """A fresh all-empty resident state: zero tiles, every chunk parked
         on its slot's dummy row, every slot inactive (== unoccupied); and
-        its derived tensors ``(col_g, seg, seg_start, dummy)`` for the
-        multi-chunk round (Nones on a bucket whose rows fit one chunk)."""
+        its derived tensors ``(col_g, seg, seg_start, dummy, chunk_len)``
+        for the multi-chunk round (Nones on a bucket whose rows fit one
+        chunk); ``chunk_len`` is where A' and E stop each resident chunk,
+        kept current at each admission."""
         spec, dev = self.spec, self.device
         s, t, r, k = spec.slots, spec.slot_tiles, spec.tile_rows, spec.tile_width
         dt = torch.float64
@@ -368,10 +371,11 @@ class _BucketEngine:
             torch.full((s,), -1, dtype=torch.int32, device=dev),
             torch.full((s,), -1, dtype=torch.int32, device=dev),
         ]
-        aux = (None, None, None, None)
+        aux = (None, None, None, None, None)
         if not spec.fits_one_chunk:
             col_g = state[1] + (self.tile_inst * spec.n_pad)[:, None, None]
-            aux = (col_g, torch.empty_like(crow), self.positions.new_empty(s * t * r + 2), dummy)
+            aux = (col_g, torch.empty_like(crow), self.positions.new_empty(s * t * r + 2), dummy,
+                   z((s * t, r), torch.int32))
             self._resegment(state, aux)
         return state, aux
 
@@ -387,7 +391,7 @@ class _BucketEngine:
         thread of the combine walks them in series.  ``seg`` is each chunk's
         segment id (in place of its row), ``seg_start[:-1]`` the
         ``row_start`` of the segments, padded with empty ones at the end."""
-        _, seg, start, dummy = aux
+        _, seg, start, dummy, _ = aux
         n = seg.numel()
         crow = state[3].view(-1)
         new = crow == dummy.index_select(0, self.chunk_slot)
@@ -424,10 +428,11 @@ class _BucketEngine:
                                (_PROGRESS, float("nan")), (_FLAT, 0), (_TICKS, 0),
                                (_STOPR, -1), (_INFSR, -1)):
                 state[idx].index_fill_(0, ids, value)
-            col_g, _, _, dummy = aux
+            col_g, _, _, dummy, clen = aux
             if col_g is not None:
                 col_g.index_copy_(0, tix, (st["col"] + (ids * spec.n_pad).to(torch.int32)
                                            [:, None, None, None]).view(g * t, r, k))
+                clen.index_copy_(0, tix, self.chunk_lengths(st["val"].view(g * t, r, k)))
                 st["m"].copy_(torch.as_tensor([p.m for p in payloads], dtype=torch.int32))
                 dummy.index_copy_(0, ids, st["m"] + (ids * (spec.slot_rows + 1)).to(torch.int32))
                 self._resegment(state, aux)

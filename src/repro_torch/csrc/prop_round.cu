@@ -12,7 +12,7 @@
 //   activities_gather    (A') per-chunk activity partials, for rows that
 //                             span chunks
 //   candidates_scatter   (E)  candidates from completed row aggregates, then
-//                             the column max/min
+//                             the column max/min (64-bit integer atomics)
 //   apply_updates        (F)  the bound merge, in place, with a changed flag
 //   combine_chunk_partials    the long-row combine of A' partials, left to
 //                             right over each row's chunks (not a TPU
@@ -36,6 +36,12 @@
 //   fused_round          (C)  A and B in one pass for rows that fit one
 //                             chunk: D on pre-gathered bounds, candidates
 //                             stored per slot
+//   node_activities_gather, node_combine_chunk_partials,
+//   node_candidates_scatter   A', the combine and E over a node batch (one
+//                             matrix, B bound planes, an active mask read on
+//                             the device): the multi-chunk node round.  No
+//                             Pallas twin: the reference vmaps its jnp round
+//                             there (src/repro/kernels/ops.py:2031)
 //
 // Layout: block-ELL tiles (T, R, K) flattened to T*R chunks of K slots.  A
 // chunk is owned by a group of G lanes, G = K rounded up to a power of two
@@ -49,8 +55,12 @@
 // one-hot gather becomes an indexed load (the (n_pad,) bound vectors stay
 // in L2), and their one-hot column scatter
 // becomes a double-precision atomic max/min (compare-and-swap loop on the
-// value, so -0.0 and +0.0 compare equal, as they do in the oracle).  Max and
-// min do not depend on order, so the scatter is exact.  The device code the
+// value, so -0.0 and +0.0 compare equal, as they do in the oracle; E and its
+// node form use 64-bit integer atomics instead, red_max_f64 / red_min_f64).
+// Max and min do not depend on order, so the scatter is exact.  A' and E
+// stop each chunk at its length (one past its last nonzero, an (T, R) int32
+// input hoisted from structure) and issue several strides' loads before
+// their bound gathers (round_common.cuh).  The device code the
 // chunk kernels share with slab_round.cu (lane groups, chunk aggregates,
 // candidates + scatter, the one-column merge) is in round_common.cuh.
 //
@@ -80,14 +90,28 @@ fused_scatter_round_kernel(const double* __restrict__ val, const int* __restrict
                            base, k, L, int_eps, inf);
 }
 
+// Kernel A' (and E below) stop each lane group at its chunk's length
+// clen[c], keep U strides' loads in flight and gather each column's two
+// bounds as one pair from the interleaved (n_pad, 2) lub (round_common.cuh).
 template <int G>
 __global__ void __launch_bounds__(kThreads)
 activities_gather_kernel(const double* __restrict__ val, const int* __restrict__ col,
-                         const double* __restrict__ lb, const double* __restrict__ ub,
+                         const int* __restrict__ clen, const double2* __restrict__ lub,
                          double* __restrict__ mf, int* __restrict__ mc, double* __restrict__ xf,
                          int* __restrict__ xc, int64_t n_chunks, int k, double inf) {
+  constexpr int U = Strides<G>::U;
   const Lanes L = lanes_for<G>(n_chunks);
-  const RowAgg a = chunk_aggregates<G>(val, col, lb, ub, L.chunk * k, L.live ? k : 0, L, inf);
+  const int64_t base = L.chunk * k;
+  const int kk = L.live ? k : 0;
+  const int len = L.live ? clen[L.chunk] : 0;
+  RowAgg a{0.0, 0.0, 0, 0};
+  for (int j0 = 0; j0 < kk; j0 += U * kWarp) {
+    if (j0 > 0 && j0 >= len) break;
+    Loaded<U> s;
+    load_strides(s, val, col, nullptr, base, j0, len, kk, L.sl);
+    add_strides(a, s, PairedBounds{lub}, inf);
+  }
+  a = group_reduce<G>(a);
   if (L.live && L.sl == 0) {
     mf[L.chunk] = a.mf;
     mc[L.chunk] = a.mc;
@@ -96,21 +120,33 @@ activities_gather_kernel(const double* __restrict__ val, const int* __restrict__
   }
 }
 
+// E caps its registers at 64 (four blocks, 32 warps an SM): unbounded it
+// takes 66-70 and three blocks, and runs 14% slower on `mixed` on an H100
+// (tools/ae_variants.py).
+constexpr int kEMinBlocks = 4;
+
 template <int G>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kEMinBlocks)
 candidates_scatter_kernel(const double* __restrict__ val, const int* __restrict__ col,
-                          const int* __restrict__ ii, const double* __restrict__ rmf,
-                          const int* __restrict__ rmc, const double* __restrict__ rxf,
-                          const int* __restrict__ rxc, const double* __restrict__ lhs,
-                          const double* __restrict__ rhs, const double* __restrict__ lb,
-                          const double* __restrict__ ub, double* best_l, double* best_u,
+                          const int* __restrict__ ii, const int* __restrict__ clen,
+                          const double* __restrict__ rmf, const int* __restrict__ rmc,
+                          const double* __restrict__ rxf, const int* __restrict__ rxc,
+                          const double* __restrict__ lhs, const double* __restrict__ rhs,
+                          const double2* __restrict__ lub, double* best_l, double* best_u,
                           int64_t n_chunks, int k, double int_eps, double inf) {
+  constexpr int U = Strides<G>::U;
   const Lanes L = lanes_for<G>(n_chunks);
   if (!L.live) return;
   const int64_t c = L.chunk;
   const RowAgg a{rmf[c], rxf[c], rmc[c], rxc[c]};
-  chunk_candidates_scatter(val, col, ii, lb, ub, a, lhs[c], rhs[c], best_l, best_u, c * k, k, L,
-                           int_eps, inf);
+  const double lo = lhs[c], hi = rhs[c];
+  const int len = clen[c];
+  for (int j0 = 0; j0 < k; j0 += U * kWarp) {
+    if (j0 > 0 && j0 >= len) break;
+    Loaded<U> s;
+    load_strides(s, val, col, ii, c * k, j0, len, k, L.sl);
+    scatter_strides(s, PairedBounds{lub}, a, lo, hi, best_l, best_u, int_eps, inf);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -134,20 +170,124 @@ combine_chunk_partials_kernel(const double* __restrict__ mf, const int* __restri
                               int* __restrict__ oxc, int64_t n_seg) {
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= n_seg) return;
+  combine_segment(mf, mc, xf, xc, omf, omc, oxf, oxc, row_start[r], row_start[r + 1]);
+}
+
+// The same over (B, T, R) node planes of one instance: node b's segments
+// are row_start offset by b * n_chunks.  Grid (row blocks, groups of 32
+// nodes): one thread per row segment, each warp reads its group's 32 flags
+// of the active mask (one ballot) and walks its rows for the active nodes
+// only; an inactive node's planes are not written.  (A block per node would
+// launch 75,000 empty blocks for 128 nodes at n_seg 150,000; a single group
+// would walk a full pool's 128 nodes in series.)
+__global__ void __launch_bounds__(kThreads)
+node_combine_chunk_partials_kernel(const double* __restrict__ mf, const int* __restrict__ mc,
+                                   const double* __restrict__ xf, const int* __restrict__ xc,
+                                   const int64_t* __restrict__ row_start,
+                                   const bool* __restrict__ active, double* __restrict__ omf,
+                                   int* __restrict__ omc, double* __restrict__ oxf,
+                                   int* __restrict__ oxc, int64_t n_seg, int64_t n_chunks,
+                                   int64_t bsz) {
+  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x % kWarp;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kWarp;
+  unsigned int todo = __ballot_sync(0xffffffffu, b0 + lane < bsz && active[b0 + lane]);
+  if (r >= n_seg) return;
   const int64_t s = row_start[r], e = row_start[r + 1];
-  double a = 0.0, b = 0.0;
-  int ca = 0, cb = 0;
-  for (int64_t i = s; i < e; ++i) {
-    a += mf[i];
-    ca += mc[i];
-    b += xf[i];
-    cb += xc[i];
+  while (todo != 0u) {
+    const int64_t off = (b0 + __ffs(todo) - 1) * n_chunks;
+    todo &= todo - 1u;
+    combine_segment(mf, mc, xf, xc, omf, omc, oxf, oxc, off + s, off + e);
   }
-  for (int64_t i = s; i < e; ++i) {
-    omf[i] = a;
-    omc[i] = ca;
-    oxf[i] = b;
-    oxc[i] = cb;
+}
+
+// Kernels A' and E for B nodes sharing one matrix (kernel #10's scheme):
+// each warp loads its chunks' first U strides once, reads the active mask
+// 32 nodes at a time (one ballot) and visits only the active nodes, each
+// gathering from its own row of the (B, n_pad) planes.  A' writes node b's
+// partials at [b, chunk] of (B, T, R) planes; E reads b's completed
+// aggregates there and scatters into b's accumulator row.  Per node the
+// arithmetic and its order are A''s and E's, so each node's result equals
+// its single-instance launch bit for bit.  Inactive nodes' rows are not
+// written.
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+node_activities_gather_kernel(const double* __restrict__ val, const int* __restrict__ col,
+                              const int* __restrict__ clen, const double* __restrict__ lb,
+                              const double* __restrict__ ub, const bool* __restrict__ active,
+                              double* __restrict__ mf, int* __restrict__ mc,
+                              double* __restrict__ xf, int* __restrict__ xc, int64_t n_chunks,
+                              int k, int64_t bsz, int64_t n_pad, double inf) {
+  constexpr int U = Strides<G>::U;
+  const Lanes L = lanes_for<G>(n_chunks);
+  const int lane = threadIdx.x % kWarp;
+  const int64_t base = L.chunk * k;
+  const int kk = L.live ? k : 0;
+  const int len = L.live ? clen[L.chunk] : 0;
+  Loaded<U> first;
+  load_strides(first, val, col, nullptr, base, 0, len, kk, L.sl);
+  for (int64_t b0 = 0; b0 < bsz; b0 += kWarp) {
+    unsigned int todo = __ballot_sync(0xffffffffu, b0 + lane < bsz && active[b0 + lane]);
+    while (todo != 0u) {
+      const int64_t b = b0 + __ffs(todo) - 1;
+      todo &= todo - 1u;
+      const SplitBounds bounds{lb + b * n_pad, ub + b * n_pad};
+      RowAgg a{0.0, 0.0, 0, 0};
+      add_strides(a, first, bounds, inf);
+      for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
+        Loaded<U> s;
+        load_strides(s, val, col, nullptr, base, j0, len, kk, L.sl);
+        add_strides(a, s, bounds, inf);
+      }
+      a = group_reduce<G>(a);
+      if (L.live && L.sl == 0) {
+        const int64_t o = b * n_chunks + L.chunk;
+        mf[o] = a.mf;
+        mc[o] = a.mc;
+        xf[o] = a.xf;
+        xc[o] = a.xc;
+      }
+    }
+  }
+}
+
+template <int G>
+__global__ void __launch_bounds__(kThreads, kEMinBlocks)
+node_candidates_scatter_kernel(const double* __restrict__ val, const int* __restrict__ col,
+                               const int* __restrict__ ii, const int* __restrict__ clen,
+                               const double* __restrict__ rmf, const int* __restrict__ rmc,
+                               const double* __restrict__ rxf, const int* __restrict__ rxc,
+                               const double* __restrict__ lhs, const double* __restrict__ rhs,
+                               const double* __restrict__ lb, const double* __restrict__ ub,
+                               const bool* __restrict__ active, double* best_l, double* best_u,
+                               int64_t n_chunks, int k, int64_t bsz, int64_t n_pad,
+                               double int_eps, double inf) {
+  constexpr int U = Strides<G>::U;
+  const Lanes L = lanes_for<G>(n_chunks);
+  const int lane = threadIdx.x % kWarp;
+  const int64_t c = L.chunk;
+  const int kk = L.live ? k : 0;
+  const int len = L.live ? clen[c] : 0;
+  const double lo = L.live ? lhs[c] : 0.0, hi = L.live ? rhs[c] : 0.0;
+  Loaded<U> first;
+  load_strides(first, val, col, ii, c * k, 0, len, kk, L.sl);
+  for (int64_t b0 = 0; b0 < bsz; b0 += kWarp) {
+    // Ballot first: every lane takes part, live or not.
+    unsigned int todo = __ballot_sync(0xffffffffu, b0 + lane < bsz && active[b0 + lane]);
+    if (!L.live) continue;
+    while (todo != 0u) {
+      const int64_t b = b0 + __ffs(todo) - 1;
+      todo &= todo - 1u;
+      const int64_t o = b * n_chunks + c, row = b * n_pad;
+      const RowAgg a{rmf[o], rxf[o], rmc[o], rxc[o]};
+      const SplitBounds bounds{lb + row, ub + row};
+      scatter_strides(first, bounds, a, lo, hi, best_l + row, best_u + row, int_eps, inf);
+      for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
+        Loaded<U> s;
+        load_strides(s, val, col, ii, c * k, j0, len, kk, L.sl);
+        scatter_strides(s, bounds, a, lo, hi, best_l + row, best_u + row, int_eps, inf);
+      }
+    }
   }
 }
 
@@ -340,21 +480,45 @@ int fused_scatter_round(const double* val, const int* col, const int* ii, const 
   return static_cast<int>(cudaGetLastError());
 }
 
-int activities_gather(const double* val, const int* col, const double* lb, const double* ub,
+int activities_gather(const double* val, const int* col, const int* clen, const double* lub,
                       double* mf, int* mc, double* xf, int* xc, int64_t n_chunks, int k,
                       double inf, cudaStream_t stream) {
-  LAUNCH_FOR_WIDTH(activities_gather_kernel, k, n_chunks, stream, val, col, lb, ub, mf, mc, xf,
-                   xc, n_chunks, k, inf);
+  const double2* pairs = reinterpret_cast<const double2*>(lub);
+  LAUNCH_FOR_WIDTH(activities_gather_kernel, k, n_chunks, stream, val, col, clen, pairs, mf, mc,
+                   xf, xc, n_chunks, k, inf);
   return static_cast<int>(cudaGetLastError());
 }
 
-int candidates_scatter(const double* val, const int* col, const int* ii, const double* rmf,
-                       const int* rmc, const double* rxf, const int* rxc, const double* lhs,
-                       const double* rhs, const double* lb, const double* ub, double* best_l,
+int candidates_scatter(const double* val, const int* col, const int* ii, const int* clen,
+                       const double* rmf, const int* rmc, const double* rxf, const int* rxc,
+                       const double* lhs, const double* rhs, const double* lub, double* best_l,
                        double* best_u, int64_t n_chunks, int k, double int_eps, double inf,
                        cudaStream_t stream) {
-  LAUNCH_FOR_WIDTH(candidates_scatter_kernel, k, n_chunks, stream, val, col, ii, rmf, rmc, rxf,
-                   rxc, lhs, rhs, lb, ub, best_l, best_u, n_chunks, k, int_eps, inf);
+  const double2* pairs = reinterpret_cast<const double2*>(lub);
+  LAUNCH_FOR_WIDTH(candidates_scatter_kernel, k, n_chunks, stream, val, col, ii, clen, rmf, rmc,
+                   rxf, rxc, lhs, rhs, pairs, best_l, best_u, n_chunks, k, int_eps, inf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int node_activities_gather(const double* val, const int* col, const int* clen, const double* lb,
+                           const double* ub, const bool* active, double* mf, int* mc,
+                           double* xf, int* xc, int64_t n_chunks, int k, int64_t bsz,
+                           int64_t n_pad, double inf, cudaStream_t stream) {
+  LAUNCH_FOR_WIDTH(node_activities_gather_kernel, k, n_chunks, stream, val, col, clen, lb, ub,
+                   active, mf, mc, xf, xc, n_chunks, k, bsz, n_pad, inf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int node_candidates_scatter(const double* val, const int* col, const int* ii, const int* clen,
+                            const double* rmf, const int* rmc, const double* rxf,
+                            const int* rxc, const double* lhs, const double* rhs,
+                            const double* lb, const double* ub, const bool* active,
+                            double* best_l, double* best_u, int64_t n_chunks, int k,
+                            int64_t bsz, int64_t n_pad, double int_eps, double inf,
+                            cudaStream_t stream) {
+  LAUNCH_FOR_WIDTH(node_candidates_scatter_kernel, k, n_chunks, stream, val, col, ii, clen, rmf,
+                   rmc, rxf, rxc, lhs, rhs, lb, ub, active, best_l, best_u, n_chunks, k, bsz,
+                   n_pad, int_eps, inf);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -373,6 +537,17 @@ int combine_chunk_partials(const double* mf, const int* mc, const double* xf, co
   const unsigned int blocks = static_cast<unsigned int>((n_seg + kThreads - 1) / kThreads);
   combine_chunk_partials_kernel<<<blocks, kThreads, 0, stream>>>(mf, mc, xf, xc, row_start, omf,
                                                                  omc, oxf, oxc, n_seg);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int node_combine_chunk_partials(const double* mf, const int* mc, const double* xf,
+                                const int* xc, const int64_t* row_start, const bool* active,
+                                double* omf, int* omc, double* oxf, int* oxc, int64_t n_seg,
+                                int64_t n_chunks, int64_t bsz, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned int>((n_seg + kThreads - 1) / kThreads),
+                  static_cast<unsigned int>((bsz + kWarp - 1) / kWarp));
+  node_combine_chunk_partials_kernel<<<grid, kThreads, 0, stream>>>(
+      mf, mc, xf, xc, row_start, active, omf, omc, oxf, oxc, n_seg, n_chunks, bsz);
   return static_cast<int>(cudaGetLastError());
 }
 

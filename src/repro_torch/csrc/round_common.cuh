@@ -244,6 +244,180 @@ __device__ __forceinline__ bool merge_one(double* __restrict__ lb, double* __res
   return take_l || take_u;
 }
 
+// ---------------------------------------------------------------------------
+// Kernels A' and E and their node-batched forms.  The loop above runs one
+// dependent chain (val -> col -> lb/ub) per stride and walks every slot of
+// the chunk; these helpers stop each lane group at its chunk's length (one
+// past its last nonzero, hoisted from structure before the round: every
+// slot past it is padding, which the sums skip anyway) and issue the val /
+// col / mark loads of up to U strides before the dependent bound gathers,
+// so a lane keeps U gathers in flight.  A lane still adds its slots in the
+// order j = sl, sl + 32, ... and the group reduces by the same butterfly, so
+// the sums are chunk_aggregates' bit for bit.
+// ---------------------------------------------------------------------------
+
+// Strides a lane holds at once: a group narrower than a warp (K <= 16)
+// covers its chunk in one stride; at K = 128 four strides are the chunk.
+template <int G>
+struct Strides {
+  static constexpr int U = G < kWarp ? 1 : 4;
+};
+
+// One batch of U strides of a lane: slot values, their columns and
+// integrality marks (both read at nonzeros only; 0 elsewhere).
+template <int U>
+struct Loaded {
+  double v[U];
+  int c[U];
+  int m[U];
+};
+
+// The lane's slots j0 + sl + 32u (u < U) below len.  The first stride of the
+// chunk is read up to k whatever len says (past len it holds zeros), so its
+// load does not wait for the length's.  ii may be null (no marks wanted).
+template <int U>
+__device__ __forceinline__ void load_strides(Loaded<U>& s, const double* __restrict__ val,
+                                             const int* __restrict__ col,
+                                             const int* __restrict__ ii, int64_t base, int j0,
+                                             int len, int k, int sl) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int j = j0 + sl + u * kWarp;
+    s.v[u] = j < (j0 == 0 && u == 0 ? k : len) ? val[base + j] : 0.0;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int64_t i = base + j0 + sl + u * kWarp;
+    s.c[u] = s.v[u] != 0.0 ? col[i] : 0;
+    s.m[u] = ii != nullptr && s.v[u] != 0.0 ? ii[i] : 0;
+  }
+}
+
+// Where a batch's bounds come from.  SplitBounds gathers them from the two
+// (n_pad,) vectors, two 8-byte loads per nonzero; PairedBounds from an
+// interleaved (n_pad, 2) copy, one 16-byte load.  On the card the gathers,
+// not the bytes, bound A' and E: each lane's load of a scattered column is a
+// cache-line request of its own, and a pair halves them (A' on `mixed`,
+// an H100 at 700 W: 0.1535 -> 0.0982 ms, tools/ae_variants.py).
+struct SplitBounds {
+  const double* lb;
+  const double* ub;
+  __device__ __forceinline__ double2 at(int c) const {
+    return make_double2(__ldg(lb + c), __ldg(ub + c));
+  }
+};
+
+struct PairedBounds {
+  const double2* lub;
+  __device__ __forceinline__ double2 at(int c) const { return __ldg(lub + c); }
+};
+
+// The bounds of a batch's nonzeros, gathered at their columns, all issued
+// before any is used.
+template <int U, typename B>
+__device__ __forceinline__ void gather_strides(const Loaded<U>& s, const B& b, double (&l)[U],
+                                               double (&h)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const double2 p = s.v[u] != 0.0 ? b.at(s.c[u]) : make_double2(0.0, 0.0);
+    l[u] = p.x;
+    h[u] = p.y;
+  }
+}
+
+// A batch's activity contributions added to the lane's sums, in slot order.
+template <int U, typename B>
+__device__ __forceinline__ void add_strides(RowAgg& a, const Loaded<U>& s, const B& b,
+                                            double inf) {
+  double l[U], h[U];
+  gather_strides(s, b, l, h);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (s.v[u] == 0.0) continue;
+    const Slot t = make_slot(s.v[u], l[u], h[u], inf);
+    if (t.min_inf) a.mc += 1; else a.mf += s.v[u] * t.bmin;
+    if (t.max_inf) a.xc += 1; else a.xf += s.v[u] * t.bmax;
+  }
+}
+
+template <int G>
+__device__ __forceinline__ RowAgg group_reduce(RowAgg a) {
+  a.mf = group_sum<G>(a.mf);
+  a.xf = group_sum<G>(a.xf);
+  a.mc = group_sum<G>(a.mc);
+  a.xc = group_sum<G>(a.xc);
+  return a;
+}
+
+// Column max / min of float64 candidates by the card's 64-bit integer
+// atomics, one fire-and-forget reduction each (no compare-and-swap loop, no
+// returned value).  A non-negative double orders as its bits read as a
+// signed integer; a negative one in reverse as its bits read unsigned, and
+// above every non-negative one: so max takes the signed max for v >= 0 and
+// the unsigned min for v < 0, min the other way round, whatever the stored
+// value.  -0.0 would order below every double, so it enters as +0.0 (equal
+// as a value).  The pre-check reads the accumulator from L2 (not a stale L1
+// line) and skips a candidate that cannot win; accumulators only move
+// towards the candidates, so skipping is exact.
+__device__ __forceinline__ void red_max_f64(double* addr, double v) {
+  if (v == 0.0) v = 0.0;
+  if (!(v > __ldcg(addr))) return;
+  const long long bits = __double_as_longlong(v);
+  if (v >= 0.0) atomicMax(reinterpret_cast<long long*>(addr), bits);
+  else atomicMin(reinterpret_cast<unsigned long long*>(addr), static_cast<unsigned long long>(bits));
+}
+
+__device__ __forceinline__ void red_min_f64(double* addr, double v) {
+  if (v == 0.0) v = 0.0;
+  if (!(v < __ldcg(addr))) return;
+  const long long bits = __double_as_longlong(v);
+  if (v >= 0.0) atomicMin(reinterpret_cast<long long*>(addr), bits);
+  else atomicMax(reinterpret_cast<unsigned long long*>(addr), static_cast<unsigned long long>(bits));
+}
+
+// A batch's candidates from the row's completed aggregates a and sides,
+// scattered into the column max / min.  Sentinel candidates skip the
+// reduction: the accumulators start at the sentinels.
+template <int U, typename B>
+__device__ __forceinline__ void scatter_strides(const Loaded<U>& s, const B& b, const RowAgg& a,
+                                                double lhs, double rhs, double* best_l,
+                                                double* best_u, double int_eps, double inf) {
+  double l[U], h[U];
+  gather_strides(s, b, l, h);
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (s.v[u] == 0.0) continue;
+    const Cands q = slot_candidates(s.v[u], make_slot(s.v[u], l[u], h[u], inf), a, lhs, rhs,
+                                    s.m[u] != 0, int_eps, inf);
+    if (q.lc > -inf) red_max_f64(best_l + s.c[u], q.lc);
+    if (q.uc < inf) red_min_f64(best_u + s.c[u], q.uc);
+  }
+}
+
+// One row segment [s, e) of chunk partials summed left to right from 0
+// (the long-row combine's order), written back to each of its chunks.
+__device__ __forceinline__ void combine_segment(const double* __restrict__ mf,
+                                                const int* __restrict__ mc,
+                                                const double* __restrict__ xf,
+                                                const int* __restrict__ xc, double* __restrict__ omf,
+                                                int* __restrict__ omc, double* __restrict__ oxf,
+                                                int* __restrict__ oxc, int64_t s, int64_t e) {
+  double a = 0.0, b = 0.0;
+  int ca = 0, cb = 0;
+  for (int64_t i = s; i < e; ++i) {
+    a += mf[i];
+    ca += mc[i];
+    b += xf[i];
+    cb += xc[i];
+  }
+  for (int64_t i = s; i < e; ++i) {
+    omf[i] = a;
+    omc[i] = ca;
+    oxf[i] = b;
+    oxc[i] = cb;
+  }
+}
+
 // Blocks that cover n_chunks chunks of k slots, 32 / G chunks per warp.
 unsigned int chunk_blocks(int64_t n_chunks, int k) {
   const int64_t per_block = static_cast<int64_t>(kWarpsPerBlock) * (kWarp / group_width(k));

@@ -40,6 +40,9 @@ SIGNATURES = {
         "fused_scatter_round": [P] * 9 + [I64, I32, F64, F64, P],
         "activities_gather": [P] * 8 + [I64, I32, F64, P],
         "candidates_scatter": [P] * 13 + [I64, I32, F64, F64, P],
+        "node_activities_gather": [P] * 10 + [I64, I32, I64, I64, F64, P],
+        "node_candidates_scatter": [P] * 15 + [I64, I32, I64, I64, F64, F64, P],
+        "node_combine_chunk_partials": [P] * 10 + [I64, I64, I64, P],
         "apply_updates": [P] * 5 + [I64, F64, F64, F64, P],
         "combine_chunk_partials": [P] * 9 + [I64, P],
         "node_fused_scatter_round": [P] * 10 + [I64, I32, I64, I64, F64, F64, P],

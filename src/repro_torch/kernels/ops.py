@@ -38,9 +38,11 @@ semantics so they converge to the same fixed points.
     partition; otherwise A', the combine and E over the flat stream with
     global columns, then #9.
   * The node round: kernel #10 then the batched merge #9 where rows fit one
-    chunk, else the single-instance round per node, masked; past
-    ``SCATTER_MAX_NPAD`` the partitioned node kernels (#13, the combine,
-    #14 with #15) over the ``(B, n_pad)`` planes, whatever the tile width.
+    chunk, else A', the combine and E over the node batch then #9 -- four
+    launches per round whatever the batch size; past ``SCATTER_MAX_NPAD``
+    the partitioned node kernels (#13, the combine, #14 with #15) over the
+    ``(B, n_pad)`` planes, whatever the tile width (the plain path there
+    follows ``REPRO_AUTO_LARGE_SCATTER``, as the reference's does).
   * The fixed point runs on private copies of the cached initial bounds, so
     the in-place merges never touch the cache.
 
@@ -202,6 +204,7 @@ class PreparedBlockEll:
     lb0: torch.Tensor    # (n_pad,) default initial bounds (column-padded)
     ub0: torch.Tensor    # (n_pad,)
     row_start: torch.Tensor  # (m+2,) int64: first chunk of each row, padding row m too
+    chunk_len: torch.Tensor  # (T, R) int32: one past each chunk's last nonzero (A', E)
     m: int
     n: int
     n_pad: int
@@ -308,6 +311,7 @@ def prepare_block_ell(
         lb0=torch.zeros(n_pad, dtype=dt, device=dev),
         ub0=torch.zeros(n_pad, dtype=dt, device=dev),
         row_start=kref.row_starts(d.chunk_row, p.m + 1),
+        chunk_len=kref.chunk_lengths(d.val),
         m=p.m,
         n=p.n,
         n_pad=n_pad,
@@ -374,6 +378,9 @@ class RoundOps(NamedTuple):
     activities_tiles: Callable   # A: tiles + gathered bounds -> chunk partials
     candidates_tiles: Callable   # B: ... + row aggregates -> (T, R, K) candidates
     fused_round_tiles: Callable  # C: tiles + gathered bounds -> (T, R, K) candidates
+    node_activities: Callable  # A' over (B, n_pad) planes + active -> (B, T, R) partials
+    node_combine: Callable     # the combine over (B, T, R) partials + active
+    node_candidates: Callable  # E over (B, T, R) aggregates + planes + active
 
 
 def _plain_node_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, int_eps, inf):
@@ -475,6 +482,9 @@ KERNEL_OPS = RoundOps(
     kern.activities_tiles,
     kern.candidates_tiles,
     kern.fused_round_tiles,
+    kern.node_activities_gather_tiles,
+    kern.node_combine_chunk_partials_tiles,
+    kern.node_candidates_scatter_tiles,
 )
 PLAIN_OPS = RoundOps(
     kref.fused_scatter_round_tiles_ref,
@@ -489,6 +499,9 @@ PLAIN_OPS = RoundOps(
     kref.activities_tiles_ref,
     kref.candidates_tiles_ref,
     kref.fused_round_tiles_ref,
+    kref.node_activities_gather_ref,
+    kref.node_combine_chunk_partials_ref,
+    kref.node_candidates_scatter_ref,
 )
 
 
@@ -550,11 +563,12 @@ def _prepared_round(
         # Long rows: chunk partials -> each row's partials summed left to
         # right (one fixed order on every device, so a node's round equals
         # its single-instance round bitwise) -> candidates + column reduction.
-        partials = ops.activities(d.val, d.col, lb, ub, prep.n_pad, inf)
+        partials = ops.activities(d.val, d.col, lb, ub, prep.n_pad, inf,
+                                  chunk_len=prep.chunk_len)
         rmf, rmc, rxf, rxc = ops.combine(*partials, d.chunk_row, prep.row_start)
         best_l, best_u = ops.candidates(
             d.val, d.col, prep.ii_g, rmf, rmc, rxf, rxc,
-            prep.lhs_g, prep.rhs_g, lb, ub, prep.n_pad, int_eps, inf,
+            prep.lhs_g, prep.rhs_g, lb, ub, prep.n_pad, int_eps, inf, chunk_len=prep.chunk_len,
         )
     return ops.merge(lb, ub, best_l, best_u, eps, inf, outward)
 
@@ -562,10 +576,9 @@ def _prepared_round(
 # A mirror of the reference's escape hatch, kept for parity only (callers
 # choose an engine with ``scatter=``): REPRO_AUTO_LARGE_SCATTER=segment
 # routes ``propagate_block_ell``'s ``scatter="auto"`` past SCATTER_MAX_NPAD
-# to the segment engine instead of the partitioned one.  Read at call time.
-# The node engine does not read it: past the limit it runs the partitioned
-# round, with kernels or plain, where the reference's plain node round
-# (use_pallas=False) follows the override.
+# to the segment engine instead of the partitioned one, and so does the
+# plain node round (``use_kernels=False``); the node round on the kernels
+# ignores it, as the reference's Pallas path does.  Read at call time.
 AUTO_LARGE_SCATTER_ENV = "REPRO_AUTO_LARGE_SCATTER"
 
 
@@ -760,6 +773,7 @@ class DeviceProblemBatch(NamedTuple):
     ii_g: torch.Tensor       # (T, R, K) int32: is_int at each slot's column, hoisted
     lhs_g: torch.Tensor      # (T, R): lhs1[chunk_row], hoisted
     rhs_g: torch.Tensor      # (T, R)
+    chunk_len: torch.Tensor  # (T, R) int32: one past each chunk's last nonzero (A', E)
     lb0: torch.Tensor        # (B, n_pad)
     ub0: torch.Tensor        # (B, n_pad)
     col_valid: torch.Tensor  # (B, n_pad) bool: j < n_i (real columns)
@@ -822,8 +836,9 @@ def prepare_problem_batch(batch: ProblemBatch, dtype=None, device="cuda") -> Pre
     col_g = ell.col + ell.tile_inst[:, None, None] * np.int32(n_pad)
     t = lambda x, d=dt: torch.as_tensor(np.asarray(x), dtype=d, device=dev)
     chunk_row = t(ell.chunk_row, torch.int32)
+    val = t(ell.val)
     d = DeviceProblemBatch(
-        val=t(ell.val),
+        val=val,
         col=t(ell.col, torch.int32),
         col_g=t(col_g, torch.int32),
         chunk_row=chunk_row,
@@ -831,6 +846,7 @@ def prepare_problem_batch(batch: ProblemBatch, dtype=None, device="cuda") -> Pre
         ii_g=t(batch.is_int.reshape(-1)[col_g], torch.int32),
         lhs_g=t(batch.lhs1[ell.chunk_row]),
         rhs_g=t(batch.rhs1[ell.chunk_row]),
+        chunk_len=kref.chunk_lengths(val),
         lb0=t(batch.lb),
         ub0=t(batch.ub),
         col_valid=t(np.arange(n_pad)[None, :] < ell.n[:, None], torch.bool),
@@ -851,7 +867,7 @@ def prepare_problem_batch(batch: ProblemBatch, dtype=None, device="cuda") -> Pre
 def batched_reference_round(
     val, col, col_g, tile_inst, ii_g, chunk_row, row_start, lhs_g, rhs_g, lb, ub, active,
     *, n_pad: int, fits_one_chunk: bool, eps: float, int_eps: float, inf: float,
-    outward: float = 0.0, ops: RoundOps = KERNEL_OPS,
+    outward: float = 0.0, ops: RoundOps = KERNEL_OPS, chunk_len=None,
 ):
     """One batched round over a flat stream, IN PLACE with
     :data:`KERNEL_OPS`: ``(B, n_pad)`` planes + ``(B,)`` active mask ->
@@ -865,7 +881,9 @@ def batched_reference_round(
     which leaves inactive rows as they are.  The combine's segments
     ``(chunk_row, row_start)`` are the global rows (``row_start`` from the
     ascending ``chunk_row``), or any finer split into runs of adjacent
-    chunks that keeps each real row whole (the service's)."""
+    chunks that keeps each real row whole (the service's).  ``chunk_len``
+    (the stream's :func:`ref.chunk_lengths`, hoisted by the caller) is
+    where A' and E stop each chunk; they compute it when it is omitted."""
     if fits_one_chunk:
         best_l, best_u = ops.batched_fused(
             val, col, ii_g, lhs_g, rhs_g, lb, ub, tile_inst, active, n_pad, int_eps, inf
@@ -874,10 +892,10 @@ def batched_reference_round(
         bsz = lb.shape[0]
         width = bsz * n_pad
         lbf, ubf = lb.view(width), ub.view(width)
-        partials = ops.activities(val, col_g, lbf, ubf, width, inf)
+        partials = ops.activities(val, col_g, lbf, ubf, width, inf, chunk_len=chunk_len)
         aggs = ops.combine(*partials, chunk_row, row_start)
         best_l, best_u = ops.candidates(val, col_g, ii_g, *aggs, lhs_g, rhs_g, lbf, ubf, width,
-                                        int_eps, inf)
+                                        int_eps, inf, chunk_len=chunk_len)
         on = active[:, None]
         best_l = torch.where(on, best_l.view(bsz, n_pad), -inf)
         best_u = torch.where(on, best_u.view(bsz, n_pad), inf)
@@ -903,7 +921,7 @@ def _batched_prepared_round(
     return batched_reference_round(
         d.val, d.col, d.col_g, d.tile_inst, d.ii_g, d.chunk_row, prep.row_start, d.lhs_g,
         d.rhs_g, lb, ub, active, n_pad=prep.n_pad, fits_one_chunk=prep.fits_one_chunk,
-        eps=eps, int_eps=int_eps, inf=inf, outward=outward, ops=ops,
+        eps=eps, int_eps=int_eps, inf=inf, outward=outward, ops=ops, chunk_len=d.chunk_len,
     )
 
 
@@ -1137,46 +1155,76 @@ def propagate_batch_block_ell(
 # ---------------------------------------------------------------------------
 
 
+def _node_segment_round(prep: PreparedBlockEll, lb, ub, active, *, eps: float,
+                        int_eps: float, inf: float, outward: float = 0.0):
+    """The plain segment round over a node batch, every node at once: the
+    reference's plain node round past ``SCATTER_MAX_NPAD`` under
+    ``REPRO_AUTO_LARGE_SCATTER=segment`` (its vmapped segment round).  Per
+    node exactly :func:`_segment_round` on the plain versions: bounds
+    gathered at every slot, kernel C's or A's, the combine's and B's plain
+    versions over a leading node axis, the column max/min over the nonzero
+    slots into each node's row, then the batched merge, which leaves
+    inactive nodes as they are."""
+    d = prep.d
+    bsz, width = lb.shape
+    c = d.col.long()
+    lb_g, ub_g = lb[:, c], ub[:, c]
+    if prep.fits_one_chunk:
+        lcand, ucand = kref.fused_round_tiles_ref(d.val, lb_g, ub_g, prep.ii_g, prep.lhs_g,
+                                                  prep.rhs_g, int_eps, inf)
+    else:
+        partials = kref.activities_tiles_ref(d.val, lb_g, ub_g, inf)
+        aggs = kref.combine_chunk_partials_ref(*partials, d.chunk_row, prep.row_start)
+        lcand, ucand = kref.candidates_tiles_ref(d.val, lb_g, ub_g, prep.ii_g, *aggs,
+                                                 prep.lhs_g, prep.rhs_g, int_eps, inf)
+    pos, cols = prep.segment_index()
+    plane = torch.arange(bsz, device=cols.device)[:, None] * width
+    flat = (cols[None, :] + plane).reshape(-1)
+    best_l = torch.full((bsz * width,), -inf, dtype=lb.dtype, device=lb.device)
+    best_u = torch.full((bsz * width,), inf, dtype=ub.dtype, device=ub.device)
+    best_l.scatter_reduce_(0, flat, lcand.reshape(bsz, -1)[:, pos].reshape(-1), "amax")
+    best_u.scatter_reduce_(0, flat, ucand.reshape(bsz, -1)[:, pos].reshape(-1), "amin")
+    return bnd.apply_updates_batch(lb, ub, best_l.view(bsz, width), best_u.view(bsz, width),
+                                   eps, inf, outward, active=active)
+
+
 def _node_round(
     prep: PreparedBlockEll, lb, ub, active, *, ops: RoundOps, eps: float,
     int_eps: float, inf: float, outward: float = 0.0, part: SlabPartition | None = None,
 ):
     """One round over a node batch: ``(B, n_pad)`` per-node bounds + ``(B,)``
     active mask -> updated bounds + per-node changed flags, the matrix tiles
-    shared by every node.
+    shared by every node; inactive nodes pass through, and no node is
+    picked on the host.
 
     With a slab partition ``part`` (instances past ``SCATTER_MAX_NPAD``)
     the partitioned node round runs: #13, the combine, #14 and #15's merge,
     which skip inactive nodes on the device (the plain path: the
     partitioned oracle per active node).  Else rows that fit one chunk run
-    kernel #10 then the batched merge #9, likewise.  Otherwise each node
-    runs the single-instance round (A', combine, E, F) on copies of its
-    rows, and the results of inactive nodes are masked out afterwards, as
-    the reference's vmapped round does -- no node is picked on the host."""
+    kernel #10, and rows that span chunks A', the combine and E over the
+    node batch (where the reference vmaps its single-instance round); then
+    the batched merge #9.  Each launch covers every node, so a round makes
+    the same launches whatever the batch size."""
     if part is not None:
         return ops.partitioned(
             part, lb, ub, active, node=True, eps=eps, int_eps=int_eps, inf=inf,
             outward=outward, segments=prep.straddle_segments(part, lb.shape[0]),
         )
+    d = prep.d
     if prep.fits_one_chunk:
-        d = prep.d
         best_l, best_u = ops.node_fused(
             d.val, d.col, prep.ii_g, prep.lhs_g, prep.rhs_g, lb, ub, active,
             prep.n_pad, int_eps, inf,
         )
-        return ops.merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward)
-    rows = [
-        _prepared_round(
-            prep, lb[b].clone(), ub[b].clone(), ops=ops, eps=eps, int_eps=int_eps,
-            inf=inf, fused=False, outward=outward,
+    else:
+        partials = ops.node_activities(d.val, d.col, lb, ub, active, prep.n_pad, inf,
+                                       chunk_len=prep.chunk_len)
+        aggs = ops.node_combine(*partials, d.chunk_row, prep.row_start, active)
+        best_l, best_u = ops.node_candidates(
+            d.val, d.col, prep.ii_g, *aggs, prep.lhs_g, prep.rhs_g, lb, ub, active,
+            prep.n_pad, int_eps, inf, chunk_len=prep.chunk_len,
         )
-        for b in range(lb.shape[0])
-    ]
-    new_lb = torch.stack([r[0] for r in rows])
-    new_ub = torch.stack([r[1] for r in rows])
-    changed = torch.stack([r[2] for r in rows])
-    keep = active[:, None]
-    return torch.where(keep, new_lb, lb), torch.where(keep, new_ub, ub), changed & active
+    return ops.merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward)
 
 
 def node_round_fn_for(
@@ -1184,15 +1232,23 @@ def node_round_fn_for(
     slab: int | None = None,
 ):
     """A ``(lb, ub, active) -> (lb, ub, changed)`` node-batch round closure
-    over a prepared instance (bounds ``(B, n_pad)``).  Past
-    ``SCATTER_MAX_NPAD`` (read at call time) it runs the partitioned node
-    kernels, ``slab`` overriding the window width.  With kernels the planes
-    are updated in place where rows fit one chunk or the instance is
-    partitioned."""
+    over a prepared instance (bounds ``(B, n_pad)``; with kernels updated
+    in place).  Past ``SCATTER_MAX_NPAD`` (read at call time) it runs the
+    partitioned node kernels, ``slab`` overriding the window width; the
+    plain path there takes the engine of ``scatter="auto"`` as the
+    reference's plain node round does (the segment round under
+    ``REPRO_AUTO_LARGE_SCATTER=segment``, read here)."""
     dt = prep.d.val.dtype
     eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
     ops = KERNEL_OPS if use_kernels else PLAIN_OPS
-    part = prep.slab_partition(slab) if prep.n_pad > SCATTER_MAX_NPAD else None
+    large = prep.n_pad > SCATTER_MAX_NPAD
+    if large and not use_kernels and _auto_large_scatter() == "segment":
+        def round_fn(lb, ub, active):
+            return _node_segment_round(prep, lb, ub, active, eps=eps, int_eps=cfg.int_eps,
+                                       inf=cfg.inf, outward=outward)
+
+        return round_fn
+    part = prep.slab_partition(slab) if large else None
 
     def round_fn(lb, ub, active):
         return _node_round(

@@ -125,28 +125,55 @@ fused_scatter_round_tiles.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def activities_gather_tiles(val, col, lb, ub, n_pad: int, inf: float = INF):
+def _chunk_len(val, chunk_len):
+    """The per-chunk length kernels A' and E stop at: ``chunk_len`` as the
+    caller hoisted it (``(T, R)`` int32, :func:`ref.chunk_lengths`), or
+    computed here from ``val`` when not given."""
+    if chunk_len is None:
+        return ref.chunk_lengths(val)
+    _expect("chunk_len", chunk_len, torch.int32, val.shape[:2])
+    return chunk_len
+
+
+def _paired(lb, ub):
+    """The bound vectors interleaved, ``(n, 2)`` float64: kernels A' and E
+    gather a column's two bounds as one 16-byte pair.  A copy per launch
+    (6 us at n_pad 60,032 on an H100), paid for by halving the gathers."""
+    return torch.stack((lb, ub), dim=-1)
+
+
+def activities_gather_tiles(val, col, lb, ub, n_pad: int, inf: float = INF, chunk_len=None):
     """Per-chunk activity partials with the bound gather inside the kernel:
     (T, R, K) tiles + (n_pad,) bounds -> ``(mf, mc, xf, xc)``, each (T, R):
     finite min/max sums (float64) and infinity counts (int32).
+    ``chunk_len`` ((T, R) int32, one past each chunk's last nonzero) is
+    where each chunk's walk stops; the engines hoist it at prepare time,
+    and it is computed from ``val`` when omitted.
 
     Replaces ``activities_gather_tiles`` / ``_activities_gather_kernel``
     (src/repro/kernels/prop_round.py:269 / :252).  Bound on the H100: the
     bytes of the tile stream (8 B of ``val`` per padded slot, 4 B of ``col``
-    per nonzero).  Design: kernel D's
-    lane group per chunk, indexed bound loads, shuffle sums; the group's
-    first lane writes the chunk's four partials."""
+    per nonzero; at most the slots below each chunk's length are read).  On
+    the card the scattered bound gathers bound it, one cache-line request
+    per lane and load.  Design: kernel D's lane group per chunk; each group
+    stops at its chunk's length; a lane issues the ``val``/``col`` loads of
+    four strides (K = 128) before their bound gathers, and gathers a
+    column's two bounds as one pair from an interleaved copy (half the
+    requests); shuffle sums in the same order; the group's first lane
+    writes the chunk's four partials."""
     if not _on_cuda(val, col, lb, ub):
         return ref.activities_gather_tiles_ref(val, col, lb, ub, n_pad, inf)
     n_chunks, k = _check_tiles(val, col, lb, ub, n_pad)
+    clen = _chunk_len(val, chunk_len)
     shape, dev = val.shape[:2], val.device
     mf = torch.empty(shape, dtype=torch.float64, device=dev)
     xf = torch.empty(shape, dtype=torch.float64, device=dev)
     mc = torch.empty(shape, dtype=torch.int32, device=dev)
     xc = torch.empty(shape, dtype=torch.int32, device=dev)
+    lub = _paired(lb, ub)
     err = _build.lib().activities_gather(
-        _p(val), _p(col), _p(lb), _p(ub), _p(mf), _p(mc), _p(xf), _p(xc),
-        n_chunks, k, inf, _stream(),
+        _p(val), _p(col), _p(clen), _p(lub), _p(mf), _p(mc), _p(xf), _p(xc), n_chunks, k, inf,
+        _stream(),
     )
     activities_gather_tiles.launches += 1
     _build.check(err, "activities_gather")
@@ -161,37 +188,45 @@ activities_gather_tiles.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _check_rows(rows, **tensors):
+    """Row data of shape ``rows``: int32 counts (``*_cnt``), float64 else."""
+    for name, t in tensors.items():
+        _expect(name, t, torch.int32 if name.endswith("_cnt") else torch.float64, rows)
+
+
 def candidates_scatter_tiles(
     val, col, is_int_g,
     row_min_fin, row_min_cnt, row_max_fin, row_max_cnt,
-    lhs_g, rhs_g, lb, ub, n_pad: int, int_eps: float, inf: float = INF,
+    lhs_g, rhs_g, lb, ub, n_pad: int, int_eps: float, inf: float = INF, chunk_len=None,
 ):
     """Candidates + column reduction: (T, R, K) tiles + (T, R) completed row
-    aggregates + (n_pad,) bounds -> (n_pad,) ``best_l`` / ``best_u``.
+    aggregates + (n_pad,) bounds -> (n_pad,) ``best_l`` / ``best_u``
+    (``chunk_len`` as in :func:`activities_gather_tiles`).
 
     Replaces ``candidates_scatter_tiles`` / ``_candidates_scatter_kernel``
     (src/repro/kernels/prop_round.py:651 / :628).  Bound on the H100: the
     bytes of the tile stream (as kernel D's) plus 40 B of row data per
-    chunk.  Design: kernel D's candidate and scatter pass, with the row
-    aggregates read from memory instead of summed in the warp."""
+    chunk.  Design: A''s loads (stopped at each chunk's length, four
+    strides in flight, the bounds as one pair), the candidates of kernel
+    D, and the column max/min by 64-bit integer atomics (one reduction, no
+    compare-and-swap loop) behind a pre-check read from L2 that skips
+    candidates that cannot win.  The accumulators are filled with the
+    sentinel before the launch."""
     operands = (val, col, is_int_g, row_min_fin, row_min_cnt, row_max_fin,
                 row_max_cnt, lhs_g, rhs_g, lb, ub)
     if not _on_cuda(*operands):
         return ref.candidates_scatter_tiles_ref(*operands, n_pad, int_eps, inf)
     n_chunks, k = _check_tiles(val, col, lb, ub, n_pad, is_int_g)
-    rows = val.shape[:2]
-    _expect("row_min_fin", row_min_fin, torch.float64, rows)
-    _expect("row_min_cnt", row_min_cnt, torch.int32, rows)
-    _expect("row_max_fin", row_max_fin, torch.float64, rows)
-    _expect("row_max_cnt", row_max_cnt, torch.int32, rows)
-    _expect("lhs_g", lhs_g, torch.float64, rows)
-    _expect("rhs_g", rhs_g, torch.float64, rows)
+    _check_rows(val.shape[:2], row_min_fin=row_min_fin, row_min_cnt=row_min_cnt,
+                row_max_fin=row_max_fin, row_max_cnt=row_max_cnt, lhs_g=lhs_g, rhs_g=rhs_g)
+    clen = _chunk_len(val, chunk_len)
     best_l = torch.full((n_pad,), -inf, dtype=torch.float64, device=val.device)
     best_u = torch.full((n_pad,), inf, dtype=torch.float64, device=val.device)
+    lub = _paired(lb, ub)
     err = _build.lib().candidates_scatter(
-        _p(val), _p(col), _p(is_int_g), _p(row_min_fin), _p(row_min_cnt),
-        _p(row_max_fin), _p(row_max_cnt), _p(lhs_g), _p(rhs_g), _p(lb), _p(ub),
-        _p(best_l), _p(best_u), n_chunks, k, int_eps, inf, _stream(),
+        _p(val), _p(col), _p(is_int_g), _p(clen), _p(row_min_fin), _p(row_min_cnt),
+        _p(row_max_fin), _p(row_max_cnt), _p(lhs_g), _p(rhs_g), _p(lub), _p(best_l),
+        _p(best_u), n_chunks, k, int_eps, inf, _stream(),
     )
     candidates_scatter_tiles.launches += 1
     _build.check(err, "candidates_scatter")
@@ -475,6 +510,148 @@ def node_fused_scatter_round_tiles(
 
 
 node_fused_scatter_round_tiles.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernels A', the combine and E over a node batch: the multi-chunk node round
+# ---------------------------------------------------------------------------
+#
+# The reference runs its single-instance jnp round vmapped over the nodes
+# here (src/repro/kernels/ops.py:2031): these three have no Pallas twin.
+# Their (B, T, R) partial and aggregate planes are written for the active
+# nodes only; the rows of inactive nodes are left as allocated.
+
+
+def _check_node_tiles(val, col, lb, ub, active, n_pad, is_int_g=None):
+    t, r, k = val.shape
+    _expect("val", val, torch.float64, (t, r, k))
+    _expect("col", col, torch.int32, (t, r, k))
+    if is_int_g is not None:
+        _expect("is_int_g", is_int_g, torch.int32, (t, r, k))
+    bsz = lb.shape[0]
+    _check_planes(bsz, n_pad, lb=lb, ub=ub)
+    _expect("active", active, torch.bool, (bsz,))
+    return t, r, k, bsz
+
+
+def node_activities_gather_tiles(val, col, lb, ub, active, n_pad: int, inf: float = INF,
+                                 chunk_len=None):
+    """Kernel A' over a node batch: ONE instance's ``(T, R, K)`` tiles +
+    ``(B, n_pad)`` per-node bound planes + ``(B,)`` bool ``active`` -> 4 x
+    ``(B, T, R)`` partials (``chunk_len`` as in
+    :func:`activities_gather_tiles`).  Per active node exactly
+    :func:`activities_gather_tiles` on its row; inactive nodes' rows are
+    not written (the plain version leaves them at zero).
+
+    No Pallas twin (the reference vmaps its jnp round over the nodes).
+    Bound on the H100: the tile stream once per launch (in L2 at the
+    solver's sizes), each active node's gathers from its bound rows and 24
+    B of partials per (active node, chunk).  Design: kernel #10's scheme
+    over A''s loads: each warp loads its chunks' strides once, ballots the
+    mask 32 nodes at a time and visits the active nodes only."""
+    if not _on_cuda(val, col, lb, ub, active):
+        return ref.node_activities_gather_ref(val, col, lb, ub, active, n_pad, inf)
+    t, r, k, bsz = _check_node_tiles(val, col, lb, ub, active, n_pad)
+    clen = _chunk_len(val, chunk_len)
+    dev = val.device
+    mf = torch.empty((bsz, t, r), dtype=torch.float64, device=dev)
+    xf = torch.empty((bsz, t, r), dtype=torch.float64, device=dev)
+    mc = torch.empty((bsz, t, r), dtype=torch.int32, device=dev)
+    xc = torch.empty((bsz, t, r), dtype=torch.int32, device=dev)
+    if t == 0 or bsz == 0:
+        return mf, mc, xf, xc
+    err = _build.lib().node_activities_gather(
+        _p(val), _p(col), _p(clen), _p(lb), _p(ub), _p(active), _p(mf), _p(mc), _p(xf),
+        _p(xc), t * r, k, bsz, n_pad, inf, _stream(),
+    )
+    node_activities_gather_tiles.launches += 1
+    _build.check(err, "node_activities_gather")
+    return mf, mc, xf, xc
+
+
+node_activities_gather_tiles.launches = 0
+
+
+def node_combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start, active):
+    """The long-row combine over a node batch: ``(B, T, R)`` partials ->
+    ``(B, T, R)`` completed aggregates, every node's segments those of
+    ``row_start`` (one instance), summed left to right; per active node
+    exactly :func:`combine_chunk_partials_tiles` on its planes, inactive
+    nodes' planes not written (zeros in the plain version).
+
+    No Pallas twin (the reference's XLA ``segment_sum``, vmapped).  Bound
+    on the H100: 48 B per (active node, chunk).  Design: a (row block,
+    group of 32 nodes) grid, one thread per row; each warp ballots its
+    group's flags and, for each active node, walks the row's chunks in
+    stream order, as the single-instance combine does."""
+    operands = (mf, mc, xf, xc, chunk_row, row_start, active)
+    if not _on_cuda(*operands):
+        return ref.node_combine_chunk_partials_ref(*operands)
+    bsz = mf.shape[0]
+    shape = (bsz, *chunk_row.shape)
+    for name, t, dt in (("mf", mf, torch.float64), ("mc", mc, torch.int32),
+                        ("xf", xf, torch.float64), ("xc", xc, torch.int32)):
+        _expect(name, t, dt, shape)
+    _expect("chunk_row", chunk_row, torch.int32, shape[1:])
+    _expect("row_start", row_start, torch.int64, (row_start.shape[0],))
+    _expect("active", active, torch.bool, (bsz,))
+    omf, oxf = torch.empty_like(mf), torch.empty_like(xf)
+    omc, oxc = torch.empty_like(mc), torch.empty_like(xc)
+    if bsz == 0:
+        return omf, omc, oxf, oxc
+    err = _build.lib().node_combine_chunk_partials(
+        _p(mf), _p(mc), _p(xf), _p(xc), _p(row_start), _p(active), _p(omf), _p(omc), _p(oxf),
+        _p(oxc), row_start.shape[0] - 1, chunk_row.numel(), bsz, _stream(),
+    )
+    node_combine_chunk_partials_tiles.launches += 1
+    _build.check(err, "node_combine_chunk_partials")
+    return omf, omc, oxf, oxc
+
+
+node_combine_chunk_partials_tiles.launches = 0
+
+
+def node_candidates_scatter_tiles(
+    val, col, is_int_g, row_min_fin, row_min_cnt, row_max_fin, row_max_cnt, lhs_g, rhs_g,
+    lb, ub, active, n_pad: int, int_eps: float, inf: float = INF, chunk_len=None,
+):
+    """Kernel E over a node batch: ONE instance's ``(T, R, K)`` tiles +
+    ``(B, T, R)`` completed row aggregates + shared ``(T, R)`` sides +
+    ``(B, n_pad)`` planes + ``(B,)`` ``active`` -> ``(B, n_pad)`` ``best_l``
+    / ``best_u``.  Per active node exactly :func:`candidates_scatter_tiles`
+    on its rows; inactive nodes get sentinel rows.
+
+    No Pallas twin (the reference vmaps its jnp round over the nodes).
+    Bound on the H100: the tile stream once per launch (in L2 at the
+    solver's sizes), 32 B of aggregates per (active node, chunk), each
+    active node's bound rows read and accumulator rows written.  Design:
+    kernel #10's ballot over E's loads (strides loaded once per warp) and
+    E's integer-atomic scatter into each node's row; the accumulator
+    planes are filled with the sentinel before the launch."""
+    operands = (val, col, is_int_g, row_min_fin, row_min_cnt, row_max_fin, row_max_cnt,
+                lhs_g, rhs_g, lb, ub, active)
+    if not _on_cuda(*operands):
+        return ref.node_candidates_scatter_ref(*operands, n_pad, int_eps, inf)
+    t, r, k, bsz = _check_node_tiles(val, col, lb, ub, active, n_pad, is_int_g)
+    _check_rows((bsz, t, r), row_min_fin=row_min_fin, row_min_cnt=row_min_cnt,
+                row_max_fin=row_max_fin, row_max_cnt=row_max_cnt)
+    _check_rows((t, r), lhs_g=lhs_g, rhs_g=rhs_g)
+    clen = _chunk_len(val, chunk_len)
+    best_l = torch.full((bsz, n_pad), -inf, dtype=torch.float64, device=val.device)
+    best_u = torch.full((bsz, n_pad), inf, dtype=torch.float64, device=val.device)
+    if t == 0 or bsz == 0:
+        return best_l, best_u
+    err = _build.lib().node_candidates_scatter(
+        _p(val), _p(col), _p(is_int_g), _p(clen), _p(row_min_fin), _p(row_min_cnt),
+        _p(row_max_fin), _p(row_max_cnt), _p(lhs_g), _p(rhs_g), _p(lb), _p(ub), _p(active),
+        _p(best_l), _p(best_u), t * r, k, bsz, n_pad, int_eps, inf, _stream(),
+    )
+    node_candidates_scatter_tiles.launches += 1
+    _build.check(err, "node_candidates_scatter")
+    return best_l, best_u
+
+
+node_candidates_scatter_tiles.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -951,6 +1128,9 @@ KERNELS = (
     activities_tiles,
     candidates_tiles,
     fused_round_tiles,
+    node_activities_gather_tiles,
+    node_combine_chunk_partials_tiles,
+    node_candidates_scatter_tiles,
 )
 
 

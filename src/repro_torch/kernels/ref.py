@@ -182,9 +182,21 @@ def fused_scatter_round_tiles_ref(
     return scatter_round_ref(lcand, ucand, col, n_pad, inf)
 
 
-def activities_gather_tiles_ref(val, col, lb, ub, n_pad: int, inf: float = INF):
-    """Kernel A' oracle: bound gather + activity partials."""
-    del n_pad  # shape bookkeeping only; the gather is by column id
+def chunk_lengths(val):
+    """``(T, R)`` int32: one past the last nonzero slot of each chunk of
+    ``(T, R, K)`` tiles (0 for a chunk of padding) -- where kernels A' and
+    E stop.  Every slot past it is padding, so it is exact whatever the
+    chunk's layout (explicit zeros inside a row included)."""
+    k = val.shape[-1]
+    pos = torch.arange(1, k + 1, dtype=torch.int32, device=val.device)
+    return torch.where(val != 0, pos, 0).amax(dim=-1).to(torch.int32)
+
+
+def activities_gather_tiles_ref(val, col, lb, ub, n_pad: int, inf: float = INF,
+                                chunk_len=None):
+    """Kernel A' oracle: bound gather + activity partials.  ``chunk_len``
+    (the kernel's stopping point) changes nothing: the sums skip padding."""
+    del n_pad, chunk_len  # shape bookkeeping only; the gather is by column id
     c = col.long()
     return activities_tiles_ref(val, lb[c], ub[c], inf)
 
@@ -192,10 +204,11 @@ def activities_gather_tiles_ref(val, col, lb, ub, n_pad: int, inf: float = INF):
 def candidates_scatter_tiles_ref(
     val, col, is_int_g,
     row_min_fin, row_min_cnt, row_max_fin, row_max_cnt,
-    lhs_g, rhs_g, lb, ub, n_pad: int, int_eps: float, inf: float = INF,
+    lhs_g, rhs_g, lb, ub, n_pad: int, int_eps: float, inf: float = INF, chunk_len=None,
 ):
     """Kernel E oracle: bound gather + candidates from row aggregates +
-    column reduction."""
+    column reduction (``chunk_len`` as in :func:`activities_gather_tiles_ref`)."""
+    del chunk_len
     c = col.long()
     lcand, ucand = candidates_tiles_ref(
         val, lb[c], ub[c], is_int_g,
@@ -228,22 +241,28 @@ def combine_chunk_partials_ref(mf, mc, xf, xc, chunk_row, row_start):
     chunk, padding row ``m`` included), starting from 0, then gathered back
     per chunk.  One fixed order on every device, so the combine kernel
     matches it bitwise; rows that ran out of chunks add 0, which leaves a
-    sum started from +0.0 unchanged."""
+    sum started from +0.0 unchanged.  Partials may carry leading node axes
+    before ``chunk_row``'s shape: each node is combined on its own, over the
+    same segments."""
+    lead = mf.shape[: mf.ndim - chunk_row.ndim]
+    nb = 1
+    for d in lead:
+        nb *= d
     start = row_start[:-1]
     count = row_start[1:] - start
-    fl = torch.stack([mf.reshape(-1), xf.reshape(-1)])
-    it = torch.stack([mc.reshape(-1), xc.reshape(-1)])
-    acc_f = torch.zeros((2, start.shape[0]), dtype=fl.dtype, device=fl.device)
-    acc_i = torch.zeros((2, start.shape[0]), dtype=it.dtype, device=it.device)
+    fl = torch.stack([mf.reshape(nb, -1), xf.reshape(nb, -1)])
+    it = torch.stack([mc.reshape(nb, -1), xc.reshape(nb, -1)])
+    acc_f = torch.zeros((2, nb, start.shape[0]), dtype=fl.dtype, device=fl.device)
+    acc_i = torch.zeros((2, nb, start.shape[0]), dtype=it.dtype, device=it.device)
     for j in range(int(count.max())):
         has = count > j
         idx = torch.where(has, start + j, 0)
-        acc_f = acc_f + torch.where(has, fl[:, idx], 0.0)
-        acc_i = acc_i + torch.where(has, it[:, idx], 0)
+        acc_f = acc_f + torch.where(has, fl[..., idx], 0.0)
+        acc_i = acc_i + torch.where(has, it[..., idx], 0)
     crow = chunk_row.reshape(-1).long()
     shape = mf.shape
-    return (acc_f[0, crow].reshape(shape), acc_i[0, crow].reshape(shape),
-            acc_f[1, crow].reshape(shape), acc_i[1, crow].reshape(shape))
+    return (acc_f[0][:, crow].reshape(shape), acc_i[0][:, crow].reshape(shape),
+            acc_f[1][:, crow].reshape(shape), acc_i[1][:, crow].reshape(shape))
 
 
 # ---------------------------------------------------------------------------
@@ -268,6 +287,73 @@ def node_fused_scatter_round_ref(
         best_l[b], best_u[b] = fused_scatter_round_tiles_ref(
             val, col, is_int_g, lhs_g, rhs_g, lb[b], ub[b], n_pad, int_eps, inf
         )
+    return best_l, best_u
+
+
+def _active_rows(active):
+    return active.nonzero().flatten()
+
+
+def node_activities_gather_ref(val, col, lb, ub, active, n_pad: int, inf: float = INF,
+                               chunk_len=None):
+    """Oracle of kernel A' over a node batch: ONE instance's ``(T, R, K)``
+    tiles over ``(B, n_pad)`` bound planes -> 4 x ``(B, T, R)`` partials,
+    the active nodes' at once (each exactly
+    :func:`activities_gather_tiles_ref` on its row), zeros for the others
+    (whose rows the kernel does not write)."""
+    del n_pad, chunk_len
+    bsz = lb.shape[0]
+    t, r, _ = val.shape
+    outs = [torch.zeros((bsz, t, r), dtype=dt, device=lb.device)
+            for dt in (lb.dtype, torch.int32, lb.dtype, torch.int32)]
+    rows = _active_rows(active)
+    if rows.numel():
+        c = col.long()
+        for o, x in zip(outs, activities_tiles_ref(val, lb[rows][:, c], ub[rows][:, c], inf)):
+            o[rows] = x
+    return tuple(outs)
+
+
+def node_combine_chunk_partials_ref(mf, mc, xf, xc, chunk_row, row_start, active):
+    """Oracle of the long-row combine over a node batch: ``(B, T, R)``
+    partials, every node's segments those of ``row_start`` -> ``(B, T, R)``
+    completed aggregates for the active nodes (each exactly
+    :func:`combine_chunk_partials_ref` on its planes), zeros for the
+    others."""
+    outs = [torch.zeros_like(x) for x in (mf, mc, xf, xc)]
+    rows = _active_rows(active)
+    if rows.numel():
+        done = combine_chunk_partials_ref(mf[rows], mc[rows], xf[rows], xc[rows], chunk_row,
+                                          row_start)
+        for o, x in zip(outs, done):
+            o[rows] = x
+    return tuple(outs)
+
+
+def node_candidates_scatter_ref(
+    val, col, is_int_g, row_min_fin, row_min_cnt, row_max_fin, row_max_cnt, lhs_g, rhs_g,
+    lb, ub, active, n_pad: int, int_eps: float, inf: float = INF, chunk_len=None,
+):
+    """Oracle of kernel E over a node batch: ONE instance's tiles, ``(B, T,
+    R)`` completed row aggregates and ``(B, n_pad)`` planes -> ``(B,
+    n_pad)`` best_l / best_u, each active node's exactly
+    :func:`candidates_scatter_tiles_ref` on its rows, the sentinels for the
+    others."""
+    del chunk_len
+    bsz = lb.shape[0]
+    best_l = torch.full((bsz, n_pad), -inf, dtype=lb.dtype, device=lb.device)
+    best_u = torch.full((bsz, n_pad), inf, dtype=ub.dtype, device=ub.device)
+    rows = _active_rows(active)
+    nb = rows.numel()
+    if nb:
+        c = col.long()
+        lcand, ucand = candidates_tiles_ref(
+            val, lb[rows][:, c], ub[rows][:, c], is_int_g, row_min_fin[rows],
+            row_min_cnt[rows], row_max_fin[rows], row_max_cnt[rows], lhs_g, rhs_g, int_eps, inf,
+        )
+        plane = torch.arange(nb, device=c.device)[:, None, None, None] * n_pad
+        bl, bu = scatter_round_ref(lcand, ucand, c[None] + plane, nb * n_pad, inf)
+        best_l[rows], best_u[rows] = bl.view(nb, n_pad), bu.view(nb, n_pad)
     return best_l, best_u
 
 

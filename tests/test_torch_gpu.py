@@ -214,6 +214,161 @@ def test_combine_matches_plain_version(cuda, gen, lengths):
         _match(g, w)
 
 
+def _packed_tiles(gen, t, r, k, n, integer, dev):
+    """Tiles laid out as the block-ELL conversion lays them out, each
+    chunk's nonzeros at its front: lengths 0 (all padding), 1, up to 31
+    (shorter than a stride), half of K and K; bounds and sides as
+    :func:`_tiles`.  ``clen`` holds the lengths."""
+    x = _tiles(gen, t, r, k, n, integer, dev)
+    lengths = gen.choice(sorted({0, 1, min(k, 7), min(k, 31), max(1, k // 2), k}), size=(t, r))
+    keep = np.arange(k) < lengths[..., None]
+    val = np.where(keep, gen.choice([-2.0, -1.0, 1.0, 3.0], size=(t, r, k)), 0.0)
+    col = np.where(keep, gen.integers(0, n, size=(t, r, k)), 0).astype(np.int32)
+    ii = np.where(keep, gen.random((t, r, k)) < 0.5, 0).astype(np.int32)
+    c = lambda a: torch.from_numpy(np.array(a)).to(dev)
+    x.update(val=c(val), col=c(col), ii=c(ii), clen=c(lengths.astype(np.int32)))
+    return x
+
+
+LENGTH_SHAPES = [(3, 4, 8, 20), (2, 8, 16, 150), (5, 8, 128, 300), (64, 8, 128, 5000),
+                 (4, 8, 200, 400)]
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("t,r,k,n", LENGTH_SHAPES)
+def test_stopped_kernels_match_plain_versions(cuda, gen, t, r, k, n, exact):
+    """A' and E stop each chunk at its length: on front-packed tiles (all
+    padding, shorter than one stride, K <= 16, K past 128) with the lengths
+    given and computed, and on tiles with zeros anywhere (the lengths
+    computed), bitwise equal to their plain versions."""
+    x = _packed_tiles(gen, t, r, k, n, exact, cuda)
+    assert torch.equal(tref.chunk_lengths(x["val"]), x["clen"])
+    for y, clen in ((x, x["clen"]), (x, None), (_tiles(gen, t, r, k, n, exact, cuda), None)):
+        tk.reset_launch_counts()
+        a_args = (y["val"], y["col"], y["lb"], y["ub"], y["n_pad"])
+        aggs = tk.activities_gather_tiles(*a_args, chunk_len=clen)
+        for g, w in zip(aggs, tref.activities_gather_tiles_ref(*a_args)):
+            _match(g, w)
+        e_args = (y["val"], y["col"], y["ii"], *aggs, y["lhs"], y["rhs"], y["lb"], y["ub"],
+                  y["n_pad"], 1e-6)
+        for g, w in zip(tk.candidates_scatter_tiles(*e_args, chunk_len=clen),
+                        tref.candidates_scatter_tiles_ref(*e_args)):
+            _match(g, w)
+        counts = tk.launch_counts()
+        assert counts["activities_gather_tiles"] == counts["candidates_scatter_tiles"] == 1
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("t,r,k,n", LENGTH_SHAPES)
+@pytest.mark.parametrize("bsz", [1, 5, 40])
+def test_node_multichunk_kernels_match_plain_versions(cuda, gen, t, r, k, n, bsz, exact):
+    """The node-batched A', combine and E against their plain versions with
+    every, some and no node active: bitwise on the active nodes' planes (the
+    kernels leave the partials of inactive nodes unwritten), bitwise on
+    every accumulator row (inactive: the sentinels); each active node also
+    against the single-instance kernels on its own row."""
+    x = _packed_tiles(gen, t, r, k, n, exact, cuda)
+    lb, ub = _planes(gen, bsz, x["n_pad"], exact, cuda)
+    m = t * r // 3 + 1  # rows of 1-3 adjacent chunks, then the padding row
+    cuts = np.sort(gen.choice(np.arange(1, t * r), size=m - 1, replace=False))
+    crow = np.zeros(t * r, np.int32)
+    crow[cuts] = 1
+    crow = np.cumsum(crow).astype(np.int32)
+    crow_t = torch.from_numpy(crow.reshape(t, r)).to(cuda)
+    row_start = tref.row_starts(crow_t, int(crow.max()) + 1)
+    for act in (torch.ones(bsz, dtype=torch.bool), torch.arange(bsz) % 3 == 1,
+                torch.zeros(bsz, dtype=torch.bool)):
+        act = act.to(cuda)
+        on = act.nonzero().flatten().tolist()
+        tk.reset_launch_counts()
+        a_args = (x["val"], x["col"], lb, ub, act, x["n_pad"])
+        parts = tk.node_activities_gather_tiles(*a_args, chunk_len=x["clen"])
+        want_p = tref.node_activities_gather_ref(*a_args)
+        for g, w in zip(parts, want_p):
+            _match(g[act], w[act])
+        c_args = (*want_p, crow_t, row_start, act)
+        aggs = tk.node_combine_chunk_partials_tiles(*c_args)
+        want_a = tref.node_combine_chunk_partials_ref(*c_args)
+        for g, w in zip(aggs, want_a):
+            _match(g[act], w[act])
+        e_args = (x["val"], x["col"], x["ii"], *want_a, x["lhs"], x["rhs"], lb, ub, act,
+                  x["n_pad"], 1e-6)
+        got = tk.node_candidates_scatter_tiles(*e_args, chunk_len=x["clen"])
+        for g, w in zip(got, tref.node_candidates_scatter_ref(*e_args)):
+            _match(g, w)
+        for i in on[:4]:
+            one = tk.activities_gather_tiles(x["val"], x["col"], lb[i], ub[i], x["n_pad"],
+                                             chunk_len=x["clen"])
+            for g, w in zip(parts, one):
+                _match(g[i], w)
+            single = tk.combine_chunk_partials_tiles(*one, crow_t, row_start)
+            for g, w in zip(aggs, single):
+                _match(g[i], w)
+            best = tk.candidates_scatter_tiles(x["val"], x["col"], x["ii"], *single, x["lhs"],
+                                               x["rhs"], lb[i], ub[i], x["n_pad"], 1e-6,
+                                               chunk_len=x["clen"])
+            for g, w in zip(got, best):
+                _match(g[i], w)
+        counts = tk.launch_counts()
+        assert (counts["node_activities_gather_tiles"] == counts["node_combine_chunk_partials_tiles"]
+                == counts["node_candidates_scatter_tiles"] == 1)
+
+
+@pytest.mark.parametrize("tile_width", [2, 4])
+def test_multichunk_node_round_launches_do_not_grow_with_the_batch(cuda, tile_width):
+    """One multi-chunk node round makes the same launches for B = 4 and B =
+    128 -- A', the combine and E over the batch, then the batched merge --
+    and each node's row equals its own single-instance round."""
+    p = td.make_pseudo_boolean(n=3000, m=4000, seed=7)
+    prep = rt.prepare_block_ell(p, tile_width=tile_width, device=cuda)
+    assert not prep.fits_one_chunk
+    round_fn = tk.node_round_fn_for(prep)
+    per_batch = []
+    for bsz in (4, 128):
+        lb_h, ub_h = _nodes(p, bsz, seed=bsz)
+        lb, ub = tk.ops._node_planes(prep, lb_h, ub_h)
+        act = torch.ones(bsz, dtype=torch.bool, device=cuda)
+        act[1::3] = False
+        want = [tk.round_fn_for(prep)(lb[i].clone(), ub[i].clone()) for i in range(bsz)]
+        tk.reset_launch_counts()
+        new_lb, new_ub, changed = round_fn(lb.clone(), ub.clone(), act)
+        per_batch.append(tk.launch_counts())
+        for i in range(bsz):
+            if act[i]:
+                _match(new_lb[i], want[i][0])
+                _match(new_ub[i], want[i][1])
+                assert bool(changed[i]) == bool(want[i][2])
+            else:
+                _match(new_lb[i], lb[i])
+                assert not bool(changed[i])
+    assert per_batch[0] == per_batch[1]
+    used = {k for k, v in per_batch[0].items() if v}
+    assert used == {"node_activities_gather_tiles", "node_combine_chunk_partials_tiles",
+                    "node_candidates_scatter_tiles", "apply_updates_batch_tiles"}
+    assert all(v in (0, 1) for v in per_batch[0].values())
+
+
+def test_multichunk_solve_on_card_matches_plain_path_and_one_chunk_search(cuda):
+    """solve at tile width 4 (rows span two chunks) through the node-batched
+    kernels: the plain path's search and pool, and the tile-width-8
+    search's (integral data)."""
+    p = td.make_pseudo_boolean(n=40, m=56, seed=3)
+    c = np.arange(1, p.n + 1, dtype=np.float64) * np.where(np.arange(p.n) % 3 == 0, -1.0, 1.0)
+    tk.reset_launch_counts()
+    a = rt.solve(p, c, node_cap=64, max_levels=12, tile_width=4)
+    counts = tk.launch_counts()
+    assert counts["node_candidates_scatter_tiles"] > 0 and counts["candidates_scatter_tiles"] == 0
+    b = rt.solve(p, c, node_cap=64, max_levels=12, tile_width=4, use_kernels=False)
+    one = rt.solve(p, c, node_cap=64, max_levels=12, tile_width=8)
+    for other in (b, one):
+        for f in ("status", "objective", "nodes_expanded", "nodes_created", "leaves",
+                  "pruned_bound", "pruned_infeasible", "levels", "host_syncs",
+                  "incumbent_trajectory"):
+            assert getattr(a, f) == getattr(other, f), f
+        for x, y in zip(a.carry, other.carry):
+            _match(x, y)
+
+
 def _nodes(p, count, seed=0):
     rng = np.random.default_rng(seed)
     out = []
@@ -231,6 +386,8 @@ def _nodes(p, count, seed=0):
     ("make_pseudo_boolean", dict(n=3000, m=4000, seed=7), 8),
     ("make_knapsack", dict(n=40, m=10, seed=2), 8),
     ("make_mixed", dict(m=600, n=450, seed=21), 16),
+    ("make_pseudo_boolean", dict(n=3000, m=4000, seed=7), 4),
+    ("make_mixed", dict(m=600, n=450, seed=21), 128),
 ])
 def test_nodes_on_card_match_plain_path_and_single_runs(cuda, gen_name, kw, tile_width):
     p = getattr(td, gen_name)(**kw)
@@ -239,10 +396,14 @@ def test_nodes_on_card_match_plain_path_and_single_runs(cuda, gen_name, kw, tile
     got = rt.propagate_nodes(p, lb, ub, tile_width=tile_width)
     counts = tk.launch_counts()
     plain = rt.propagate_nodes(p, lb, ub, tile_width=tile_width, use_kernels=False)
+    rounds = int(got.rounds.max())
     if tk.rows_fit_one_chunk(p, tile_width):
-        assert counts["node_fused_scatter_round_tiles"] == int(got.rounds.max())
+        assert counts["node_fused_scatter_round_tiles"] == rounds
     else:
-        assert counts["combine_chunk_partials_tiles"] > 0
+        # The multi-chunk node round: A', the combine and E over the batch.
+        assert (counts["node_activities_gather_tiles"] == counts["node_combine_chunk_partials_tiles"]
+                == counts["node_candidates_scatter_tiles"] == rounds)
+        assert counts["activities_gather_tiles"] == counts["combine_chunk_partials_tiles"] == 0
     for f in ("lb", "ub", "rounds", "converged", "infeasible"):
         _match(getattr(got, f), getattr(plain, f))
     for i in range(lb.shape[0]):

@@ -25,6 +25,9 @@ from repro_torch.core import solver as tsolver
 from repro_torch.kernels import (
     apply_updates_batch_tiles,
     launch_counts,
+    node_activities_gather_tiles,
+    node_candidates_scatter_tiles,
+    node_combine_chunk_partials_tiles,
     node_fused_scatter_round_tiles,
     node_objective_tiles,
     ref as tref,
@@ -261,3 +264,133 @@ def test_plan_expansion_matches_reference(seed, width):
     want = rsolver._plan_expansion(_j(status), _j(depth), _j(nbound), width)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+# ---------------------------------------------------------------------------
+# The multi-chunk node round: A', the combine and E over a node batch
+# ---------------------------------------------------------------------------
+
+
+def _chunk_rows(rng, t, r):
+    """Rows of one to three adjacent chunks over a (T, R) stream, ascending;
+    ``(chunk_row, m)``."""
+    n = t * r
+    starts = np.zeros(n, np.int32)
+    if n > 1:
+        starts[rng.choice(np.arange(1, n), size=max(1, n // 3) - 1 if n > 3 else 0,
+                          replace=False)] = 1
+    crow = np.cumsum(starts).astype(np.int32)
+    return crow.reshape(t, r), int(crow.max()) + 1
+
+
+def _active_match(got, want, act, exact):
+    """The active nodes' rows equal as values (the reference's oracles
+    count in int64 under x64, the port's kernels in int32)."""
+    g, w = got.numpy()[act], np.asarray(want)[act]
+    if g.dtype.kind == "i":
+        w = w.astype(g.dtype)
+    _assert_match(g, w, exact)
+
+
+def _vmapped(fn, *per_node, shared=()):
+    """The reference oracle ``fn`` vmapped over its leading per-node
+    arguments, the ``shared`` ones broadcast."""
+    import jax
+
+    return jax.vmap(lambda *a: fn(*shared, *a))(*map(_j, per_node))
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("bsz,kind", BATCHES)
+@pytest.mark.parametrize("t,r,k,n", SHAPES + [(2, 8, 128, 300)])
+def test_node_multichunk_round_plain_versions_match_reference(t, r, k, n, bsz, kind, exact,
+                                                              rng):
+    """The plain node A', combine and E (what the wrappers run on CPU
+    tensors) against the reference's single-instance oracles vmapped over
+    the nodes, with every, some and no node active: the active nodes'
+    outputs equal (bitwise on integer data), the others' partials zero and
+    accumulators at the sentinels."""
+    import jax
+
+    from repro.kernels import col_pad
+
+    n_pad = col_pad(n)
+    val, col, ii, lhs, rhs = _tiles(rng, t, r, k, n, exact)
+    lb, ub = _planes(rng, bsz, n_pad, exact)
+    act = _mask(rng, bsz, kind)
+    crow, m = _chunk_rows(rng, t, r)
+    row_start = tref.row_starts(_t(crow), m)
+    reset_launch_counts()
+
+    got_p = node_activities_gather_tiles(_t(val), _t(col), _t(lb), _t(ub), _t(act), n_pad)
+    want_p = _vmapped(lambda lb_, ub_: rref.activities_gather_tiles_ref(
+        _j(val), _j(col), lb_, ub_, n_pad), lb, ub)
+    for g, w in zip(got_p, want_p):
+        _active_match(g, w, act, exact)
+        assert not g.numpy()[~act].any()
+
+    def segment_combine(x):  # the reference's _combine_chunk_partials, per node
+        flat = jax.ops.segment_sum(x.reshape(-1), _j(crow).reshape(-1), num_segments=m)
+        return flat[_j(crow)]
+
+    got_a = node_combine_chunk_partials_tiles(*got_p, _t(crow), row_start, _t(act))
+    want_a = [jax.vmap(segment_combine)(_j(x.numpy())) for x in got_p]
+    for g, w in zip(got_a, want_a):
+        _active_match(g, w, act, exact)
+        assert not g.numpy()[~act].any()
+
+    aggs = [x.numpy() for x in got_a]
+    got = node_candidates_scatter_tiles(
+        _t(val), _t(col), _t(ii), *map(_t, aggs), _t(lhs), _t(rhs), _t(lb), _t(ub), _t(act),
+        n_pad, 1e-6,
+    )
+    want = _vmapped(lambda mf, mc, xf, xc, lb_, ub_: rref.candidates_scatter_tiles_ref(
+        _j(val), _j(col), _j(ii), mf, mc, xf, xc, _j(lhs), _j(rhs), lb_, ub_, n_pad, 1e-6),
+        *aggs, lb, ub)
+    for g, w in zip(got, want):
+        _active_match(g, w, act, exact)
+        assert np.all(np.abs(g.numpy()[~act]) == INF)
+    assert set(launch_counts().values()) == {0}  # CPU tensors launch nothing
+
+
+@pytest.mark.parametrize("bsz,kind", BATCHES)
+def test_node_multichunk_plain_versions_equal_single_instance_versions(bsz, kind, rng):
+    """Each active node of the plain node A', combine and E equals the
+    single-instance plain versions on its own row bitwise, on general
+    floats too (one summation order)."""
+    t, r, k, n = 3, 8, 16, 150
+    n_pad = 256
+    val, col, ii, lhs, rhs = _tiles(rng, t, r, k, n, False)
+    lb, ub = _planes(rng, bsz, n_pad, False)
+    act = _mask(rng, bsz, kind)
+    crow, m = _chunk_rows(rng, t, r)
+    args = lambda *a: tuple(map(_t, a))
+    row_start = tref.row_starts(_t(crow), m)
+    parts = node_activities_gather_tiles(*args(val, col, lb, ub, act), n_pad)
+    aggs = node_combine_chunk_partials_tiles(*parts, _t(crow), row_start, _t(act))
+    best = node_candidates_scatter_tiles(*args(val, col, ii), *aggs, *args(lhs, rhs, lb, ub, act),
+                                         n_pad, 1e-6)
+    for i in np.flatnonzero(act):
+        one = tref.activities_gather_tiles_ref(*args(val, col, lb[i], ub[i]), n_pad)
+        for g, w in zip(parts, one):
+            assert torch.equal(g[i], w)
+        done = tref.combine_chunk_partials_ref(*one, _t(crow), row_start)
+        for g, w in zip(aggs, done):
+            assert torch.equal(g[i], w)
+        single = tref.candidates_scatter_tiles_ref(*args(val, col, ii), *done,
+                                                   *args(lhs, rhs, lb[i], ub[i]), n_pad, 1e-6)
+        for g, w in zip(best, single):
+            assert torch.equal(g[i], w)
+
+
+@pytest.mark.parametrize("k", [1, 4, 8, 16, 128])
+def test_chunk_lengths_stop_after_the_last_nonzero(k, rng):
+    """Where A' and E stop: one past each chunk's last nonzero, 0 for a
+    chunk of padding, whatever lies before it (explicit zeros included)."""
+    val = rng.choice([0.0, 0.0, 1.0, -2.0], size=(5, 4, k))
+    val[0] = 0.0
+    got = tref.chunk_lengths(_t(val)).numpy()
+    nz = val != 0
+    want = np.where(nz.any(-1), k - np.argmax(nz[..., ::-1], axis=-1), 0)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.int32

@@ -8,6 +8,7 @@ bitwise (as values); ``rounds``, ``converged`` and ``infeasible`` exactly;
 ``progress`` to ``rtol=1e-12`` (a sum over columns taken in another order),
 NaN included.
 """
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -65,6 +66,11 @@ CASES = {
                    dict(tile_rows=2, tile_width=8)),
     "pseudo_boolean": ("make_pseudo_boolean", dict(n=60, m=80, seed=4), 6,
                        dict(tile_width=8)),
+    # Rows spanning chunks through the node-batched A', combine and E.
+    "multichunk_tw4": ("make_pseudo_boolean", dict(n=60, m=80, seed=4), 6,
+                       dict(tile_rows=2, tile_width=4)),
+    "multichunk_tw8": ("make_knapsack", dict(n=60, m=8, seed=5), 5,
+                       dict(tile_rows=2, tile_width=8)),
 }
 
 
@@ -232,3 +238,45 @@ def test_batched_step_rounds_matches_reference():
     with pytest.raises(NotImplementedError, match="item 5"):
         rt.core.batched_step_rounds(t_fn, t(lb), t(ub), t(active), t(active), t(rounds), 4,
                                     budget=2, stop_progress=0.1)
+
+
+@pytest.mark.parametrize("tile_width", [4, 8])
+def test_multichunk_node_round_with_free_and_inactive_slots(tile_width):
+    """One multi-chunk node round over a pool with FREE (all-zero planes)
+    and inactive slots: the reference's plain node round (its vmapped
+    single-instance round, inactive rows frozen), and each active slot
+    equal to its own single-instance round bitwise; the others pass through
+    unchanged and report no change."""
+    from repro import kernels as rk
+    from repro_torch import kernels as tk
+
+    pr = rd.make_knapsack(n=60, m=8, seed=5) if tile_width == 8 else \
+        rd.make_pseudo_boolean(n=60, m=80, seed=4)
+    nodes = _branched_nodes(pr, 4, seed=2)
+    n_pad = rk.col_pad(pr.n)
+    lb = np.zeros((6, n_pad))
+    ub = np.zeros((6, n_pad))
+    for i, (a, b) in zip((0, 1, 3, 4), nodes):
+        lb[i, : pr.n], ub[i, : pr.n] = a, b
+    active = np.array([True, False, False, True, True, False])  # slots 2, 5 FREE
+    r_prep = rk.prepare_block_ell(pr, tile_rows=2, tile_width=tile_width)
+    assert not r_prep.fits_one_chunk
+    want = rk.node_round_fn_for(r_prep, use_pallas=False)(
+        *(jnp.asarray(x) for x in (lb, ub, active)))
+    p = rt.problem_from_reference(pr)
+    prep = tk.prepare_block_ell(p, tile_rows=2, tile_width=tile_width, device="cpu")
+    t = lambda x: torch.from_numpy(np.array(x))
+    got = tk.node_round_fn_for(prep)(t(lb), t(ub), t(active))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    single = tk.round_fn_for(prep, fused=False)
+    for i in range(6):
+        if active[i]:
+            one = single(t(lb[i]), t(ub[i]))
+            for g, w in zip(got[:2], one[:2]):
+                np.testing.assert_array_equal(g[i].numpy(), w.numpy())
+            assert bool(got[2][i]) == bool(one[2])
+        else:
+            np.testing.assert_array_equal(got[0][i].numpy(), lb[i])
+            np.testing.assert_array_equal(got[1][i].numpy(), ub[i])
+            assert not bool(got[2][i])

@@ -237,3 +237,64 @@ def test_solve_past_the_limit_matches_reference(tiny_budget, name, use_kernels):
             assert getattr(fused, f) == getattr(got, f), f
         for f, x, y in zip(got.carry._fields, got.carry, fused.carry):
             assert torch.equal(x, y), f
+
+
+@pytest.mark.parametrize("gen_name,kw,tile_width,exact", [
+    ("make_mixed", dict(m=25, n=260, seed=4), 128, False),
+    ("make_knapsack", dict(n=200, m=10, seed=3), 8, True),
+])
+def test_plain_nodes_past_the_limit_follow_the_segment_override(tiny_budget, monkeypatch,
+                                                                gen_name, kw, tile_width,
+                                                                exact):
+    """Under ``REPRO_AUTO_LARGE_SCATTER=segment`` the plain node round past
+    the limit runs the segment round per node, as the reference's plain node
+    round does (no slab partition is built); the kernel path ignores the
+    override, as the reference's Pallas path does."""
+    monkeypatch.setenv(tops.AUTO_LARGE_SCATTER_ENV, "segment")
+    root = getattr(rd, gen_name)(**kw)
+    p = rt.problem_from_reference(root)
+    lb, ub = _nodes_of(root)
+    prep = rt.prepare_block_ell(p, tile_width=tile_width, device="cpu")
+    assert prep.n_pad > tops.SCATTER_MAX_NPAD
+    got = rt.propagate_nodes(p, lb, ub, tile_width=tile_width, use_kernels=False, device="cpu")
+    want = rc.propagate_nodes(root, lb, ub, tile_width=tile_width, use_pallas=False)
+    assert not prep._slabs and "index" in prep._segment  # the segment round ran
+    for i in range(3):
+        w = want.result(i)
+        for f in ("rounds", "converged", "infeasible"):
+            assert int(getattr(got, f)[i]) == int(np.asarray(getattr(w, f))), f
+        assert rt.bounds_equal(got.lb[i], got.ub[i], np.asarray(w.lb), np.asarray(w.ub))
+        for g, x in ((got.lb[i], w.lb), (got.ub[i], w.ub)):
+            if exact:
+                np.testing.assert_array_equal(g.numpy(), np.asarray(x))
+            else:
+                np.testing.assert_allclose(g.numpy(), np.asarray(x), rtol=1e-12, atol=1e-12)
+        # The port's own single-instance segment run, bitwise.
+        one = rt.propagate_block_ell(p, tile_width=tile_width, lb0=lb[i], ub0=ub[i],
+                                     scatter="segment", use_kernels=False, device="cpu")
+        np.testing.assert_array_equal(got.lb[i].numpy(), one.lb.numpy())
+        np.testing.assert_array_equal(got.ub[i].numpy(), one.ub.numpy())
+        assert int(got.rounds[i]) == int(one.rounds)
+    kern = rt.propagate_nodes(p, lb, ub, tile_width=tile_width, device="cpu")
+    assert prep._slabs  # the kernel path took the partitioned round
+    for i in range(3):
+        assert int(kern.rounds[i]) == int(got.rounds[i])
+
+
+@pytest.mark.parametrize("name", ["exhausts_pool", "dive"])
+def test_plain_solve_past_the_limit_follows_the_segment_override(tiny_budget, monkeypatch,
+                                                                 name):
+    """solve(use_kernels=False) past the limit under the override equals the
+    reference's plain search under it."""
+    monkeypatch.setenv(tops.AUTO_LARGE_SCATTER_ENV, "segment")
+    seed, rule, kw = SEARCHES[name]
+    pr = rd.make_pseudo_boolean(n=200, m=260, seed=seed)
+    p = rt.problem_from_reference(pr)
+    c = _objective(pr.n)
+    want = rc.solve(pr, c, rule=rc.BranchRule(rule), use_pallas=False, **kw)
+    got = rt.solve(p, c, rule=rt.BranchRule(rule), use_kernels=False, device="cpu", **kw)
+    prep = rt.prepare_block_ell(p, tile_width=8, device="cpu")
+    assert not prep._slabs and "index" in prep._segment
+    for f in SOLVE_FIELDS:
+        assert getattr(got, f) == getattr(want, f), f
+    np.testing.assert_array_equal(got.x, want.x)

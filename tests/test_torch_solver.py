@@ -154,3 +154,16 @@ def test_multi_chunk_search_matches_reference(tile_width):
     one, _, _, _ = _solve_both(pr, tile_width=8)
     for x, y in zip(got.carry, one.carry):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
+
+
+@pytest.mark.parametrize("rule", RULES)
+@pytest.mark.parametrize("seed", [1, 2])
+def test_tile_width_4_search_matches_reference_counts(seed, rule):
+    """solve(tile_width=4): every row of the pseudo-boolean family spans two
+    chunks, so each round runs A', the combine and E over the whole pool
+    (free and finished slots masked on the device); status, objective, node
+    counts, levels, syncs and trajectory are the reference's."""
+    pr = rd.make_pseudo_boolean(n=20, m=28, seed=seed)
+    got, want, t_calls, r_calls = _solve_both(pr, rule, tile_width=4, node_cap=64)
+    _assert_same(got, want)
+    assert len(t_calls) == len(r_calls)
