@@ -40,7 +40,12 @@ numpy only, nothing of JAX) and, on one CUDA card:
      node batch -- on pbf's tiles at tile width 4 over the same pool with 8
      and 128 active rows, bitwise against their plain versions and, node by
      node, against the single-instance kernels, timed, and one node round
-     of 4 and of 128 nodes, which must make the same launches;
+     of 4 and of 128 nodes, which must make the same launches; then the
+     long-row combine at the shapes of its longest rows (5c): the flat form
+     on two of the service's mixed requests packed at tile width 8 (rows of
+     3,000 chunks), the node form on ``mixed`` under 4 node planes (tile
+     width 128, rows of 375 chunks), bitwise and timed beside
+     ``torch.segment_reduce``'s float64 sums and spread (a yardstick);
   7. (phase 6) runs ``propagate_nodes`` on 64 ``pbf`` nodes, 16 ``banded``
      nodes and 4 ``mixed`` nodes (the multi-chunk node round) and holds
      every node bitwise against its own single-instance
@@ -61,7 +66,10 @@ numpy only, nothing of JAX) and, on one CUDA card:
      #12 (with #15's window merge) against their plain versions on both
      partitions at K = 128, kernel D + F at n_pad 150,016, and #13, #14 and
      #15 on pbw's K = 8 partition over a (128, 150,016) pool with 0, 8 and
-     128 active rows, all bitwise, timed; runs ``propagate_block_ell`` with
+     128 active rows, all bitwise, timed; the straddle combine on both
+     single planes and on that pool, bitwise against its plain version on
+     the active planes and against ``straddle_tables`` where ``row_done ==
+     0``, timed; runs ``propagate_block_ell`` with
      its defaults on both (30 and 6 rounds, as the reference) against the
      plain path and a second run (bitwise) and the explicit fused engine
      (``bounds_equal``, differing entries counted), with ms per round for
@@ -89,7 +97,8 @@ numpy only, nothing of JAX) and, on one CUDA card:
      (A', the combine and E over the flat stream, then #9), ``bandw`` and
      ``pbw`` past 2^16 (the partitioned round with two planes); holds #8
      against its plain version at the fused bucket's shapes with 0, 2 and
-     4 instances active (timed) and every instance bitwise against its own
+     4 instances active (timed), and the straddle combine on the
+     partitioned bucket and every instance bitwise against its own
      ``propagate_block_ell`` and the plain path, plus one ``bounds=`` warm
      start; prints batch and summed single-instance fixed-point times, flag
      reads and the idle share;
@@ -234,6 +243,8 @@ REPLACES = {
     "node_activities_gather_tiles": "src/repro/kernels/ops.py:2031",
     "node_combine_chunk_partials_tiles": "src/repro/kernels/ops.py:2031",
     "node_candidates_scatter_tiles": "src/repro/kernels/ops.py:2031",
+    # Not a Pallas kernel: the XLA segment_sum of the straddle aggregates.
+    "straddle_combine_tiles": "src/repro/kernels/ops.py:830",
 }
 # The C entry point that launches each wrapper's kernel (the slab rounds
 # launch two: their scatter, then #15's window merge).
@@ -258,6 +269,7 @@ SYMBOL = {
     "node_activities_gather_tiles": "node_activities_gather",
     "node_combine_chunk_partials_tiles": "node_combine_chunk_partials",
     "node_candidates_scatter_tiles": "node_candidates_scatter",
+    "straddle_combine_tiles": "straddle_combine",
 }
 # Nominal float64 operations per real nonzero (products, sums, residual
 # subtractions, divisions, rounding) -- the compute side of each bound.
@@ -273,6 +285,7 @@ OPS_PER_NNZ = {
     "node_activities_gather_tiles": 4,
     "node_candidates_scatter_tiles": 12,
     "node_combine_chunk_partials_tiles": 0,
+    "straddle_combine_tiles": 0,  # four adds per straddle position: bytes bound it
 }
 # Times of A' and E on mixed before their redesign (one dependent chain per
 # stride over every slot, compare-and-swap max/min; NVIDIA H100 80GB HBM3,
@@ -409,7 +422,8 @@ def max_abs_err(torch, got, want) -> float:
         if not torch.equal(g, w):
             d = (g.double() - w.double()).abs().max().item()
             fail(f"kernel disagrees with its plain version: max abs diff {d}")
-        err = max(err, (g.double() - w.double()).abs().max().item())
+        if g.numel():
+            err = max(err, (g.double() - w.double()).abs().max().item())
     return err
 
 
@@ -443,7 +457,8 @@ def needed_bytes(kname: str, prep, nnz: int) -> dict:
         return dict(val=8 * nnz, col=4 * nnz, is_int=4 * nnz, chunk_len=4 * chunks,
                     rows=40 * chunks, bounds=2 * vec, out=2 * vec)
     if kname == "combine_chunk_partials_tiles":
-        return dict(partials=24 * chunks, row_start=8 * (prep.m + 2), out=24 * chunks)
+        return dict(partials=24 * chunks, row_start=8 * (prep.m + 2), classes=4 * (prep.m + 1),
+                    out=24 * chunks)
     if kname == "activities_tiles":
         return dict(val=8 * slots, bounds=16 * nnz, out=24 * chunks)
     if kname == "candidates_tiles":
@@ -461,6 +476,34 @@ def padded_val_bytes(moved: dict, prep) -> dict:
     out = {key: v for key, v in moved.items() if key != "chunk_len"}
     out["val"] = 8 * t * r * k
     return out
+
+
+def segment_reduce_ms(torch, partials, chunk_row, row_start, active=None):
+    """The long-row combine's yardstick (used nowhere in the port): time of
+    ``torch.segment_reduce``'s float64 sums of the two float partials over
+    the segments (``offsets=row_start``, on the active planes of a node
+    batch), spread back to the chunks; the counts left out, the sums in
+    PyTorch's own order.  None where this PyTorch build has no such
+    reduction on the card."""
+    crow = chunk_row.reshape(-1).long()
+    floats = (partials[0], partials[2])
+    if active is None:
+        data = [x.reshape(-1) for x in floats]
+        offsets, axis = row_start, 0
+    else:
+        data = [x[active].reshape(int(active.sum()), -1) for x in floats]
+        offsets, axis = row_start.expand(data[0].shape[0], -1).contiguous(), 1
+
+    def run():
+        return [torch.segment_reduce(x, "sum", offsets=offsets, axis=axis, unsafe=True)[
+            ..., crow] for x in data]
+
+    try:
+        run()
+    except (RuntimeError, NotImplementedError) as exc:
+        log(f"segment_reduce yardstick not measured: {exc}")
+        return None
+    return time_ms(torch, run)
 
 
 def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed):
@@ -503,11 +546,15 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed):
             lambda: tk.activities_gather_tiles(*a_args, **clen),
             lambda: tref.activities_gather_tiles_ref(*a_args))
         c_args = (*want, d.chunk_row, prep.row_start)
-        got = tk.combine_chunk_partials_tiles(*c_args)
+        cls = dict(classes=prep.seg_classes)  # the split hoisted at prepare time
+        got = tk.combine_chunk_partials_tiles(*c_args, **cls)
         aggs = tref.combine_chunk_partials_ref(*c_args)
         row("combine_chunk_partials_tiles", got, aggs,
-            lambda: tk.combine_chunk_partials_tiles(*c_args),
+            lambda: tk.combine_chunk_partials_tiles(*c_args, **cls),
             lambda: tref.combine_chunk_partials_ref(*c_args))
+        if timed:
+            rows["combine_chunk_partials_tiles"]["segment_reduce_ms"] = segment_reduce_ms(
+                torch, want, d.chunk_row, prep.row_start)
         e_args = (d.val, d.col, prep.ii_g, *aggs, prep.lhs_g, prep.rhs_g, lb, ub, n_pad,
                   cfg.int_eps)
         got = tk.candidates_scatter_tiles(*e_args, **clen)
@@ -721,6 +768,9 @@ def smoke(torch, dev):
         measured.setdefault(k, {}).update(rows)
     for k, rows in node_multichunk_phase(torch, np, rt, tk, tref, ops, _build, pbf, dev).items():
         measured.setdefault(k, {}).update(rows)
+    for k, rows in combine_shapes_phase(torch, np, td, tk, tref, ops, _build, preps["mixed"],
+                                        dev).items():
+        measured.setdefault(k, {}).update(rows)
     runs = {f"propagate_block_ell {k}": v for k, v in per_instance.items()}
     runs.update(node_batch_phase(torch, np, rt, tk, pbf, problems, dev))
     runs.update(solve_phase(torch, np, rt, td, tk, pbf, dev))
@@ -732,9 +782,9 @@ def smoke(torch, dev):
     runs.update(batch_phase(torch, np, rt, td, tk, tref, ops, _build, dev, measured,
                             {**problems, "pbf": pbf, **wide}))
     runs.update(service_phase(torch, np, rt, td, tk, dev))
-    slab_path = ("batched_slab_partials_tiles", "combine_chunk_partials_tiles",
+    slab_path = ("batched_slab_partials_tiles", "straddle_combine_tiles",
                  "batched_slab_round_tiles", "apply_updates_slab_tiles")
-    node_slab_path = ("node_slab_partials_tiles", "combine_chunk_partials_tiles",
+    node_slab_path = ("node_slab_partials_tiles", "straddle_combine_tiles",
                       "node_slab_round_tiles", "apply_updates_slab_tiles")
     require_launched(runs, {
         "propagate_block_ell bandw": slab_path,
@@ -786,6 +836,7 @@ def smoke(torch, dev):
             f"pbf K={MULTI_CHUNK_TILE_WIDTH} pool, 8 of {POOL} active",
         "node_candidates_scatter_tiles":
             f"pbf K={MULTI_CHUNK_TILE_WIDTH} pool, 8 of {POOL} active",
+        "straddle_combine_tiles": f"pbw pool, 8 of {POOL} active",
     }
     kernels = []
     for fn in tk.KERNELS:
@@ -799,26 +850,32 @@ def smoke(torch, dev):
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None, instance=primary[k],
             wrapper_ms=r["wrapper_ms"], bytes=r["bytes"],
+            **{key: r[key] for key in ("segment_reduce_ms",) if key in r},
         ))
     log(json.dumps({"kernels": kernels}))
 
 
-def busy_profile(torch, fn):
+def busy_profile(torch, fn, count=None):
     """``(device busy ms, the four largest items)`` of one profiled call of
-    ``fn``, or None when the profiler recorded no device item."""
+    ``fn``, or None when the profiler recorded no device item.  With
+    ``count`` (a substring of kernel names) the top list ends with the
+    number and time of the items whose names hold it."""
     items = device_items(torch, fn)
     if not items:
         return None
     by_name = {}
     for item, us in items:
         key = item.replace("(anonymous namespace)::", "").split("(")[0][:48]
-        total, count = by_name.get(key, (0.0, 0))
-        by_name[key] = (total + us, count + 1)
+        total, n = by_name.get(key, (0.0, 0))
+        by_name[key] = (total + us, n + 1)
     busy = sum(total for total, _ in by_name.values()) / 1e3
     top = ", ".join(
-        f"{key} {total / 1e3:.3f} ms x{count}"
-        for key, (total, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]
+        f"{key} {total / 1e3:.3f} ms x{n}"
+        for key, (total, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]
     )
+    if count is not None:
+        hits = [us for item, us in items if count in item]
+        top += f"; items named *{count}*: {len(hits)}, {sum(hits) / 1e3:.3f} ms"
     return busy, top
 
 
@@ -965,14 +1022,15 @@ def node_multichunk_phase(torch, np, rt, tk, tref, ops, build, pbf, dev):
                  out=24 * n_act * chunks),
             4 * nnz * n_act, plain_reps=reps)
         c_args = (*parts, d.chunk_row, prep.row_start, act)
+        cls = dict(classes=prep.seg_classes)  # the split the engine hoists
         aggs = tref.node_combine_chunk_partials_ref(*c_args)
-        got_a = tk.node_combine_chunk_partials_tiles(*c_args)
+        got_a = tk.node_combine_chunk_partials_tiles(*c_args, **cls)
         out[names[1]][shape] = measured_row(
             torch, build, on(got_a), on(aggs),
-            lambda: tk.node_combine_chunk_partials_tiles(*c_args),
+            lambda: tk.node_combine_chunk_partials_tiles(*c_args, **cls),
             lambda: tref.node_combine_chunk_partials_ref(*c_args),
             dict(partials=24 * n_act * chunks, row_start=8 * (prep.m + 2),
-                 out=24 * n_act * chunks, mask=POOL),
+                 classes=4 * (prep.m + 1), out=24 * n_act * chunks, mask=POOL),
             0, plain_reps=reps)
         e_args = (d.val, d.col, prep.ii_g, *aggs, prep.lhs_g, prep.rhs_g, lbp, ubp, act, n_pad,
                   cfg.int_eps)
@@ -1011,6 +1069,64 @@ def node_multichunk_phase(torch, np, rt, tk, tref, ops, build, pbf, dev):
         fail(f"a multi-chunk node round's launches grow with the batch: {counts}")
     log(f"multi-chunk node round (tile width {k}): launches with 4 nodes {counts[4]}, with "
         f"{POOL} nodes {counts[POOL]}: the same")
+    return out
+
+
+def combine_shapes_phase(torch, np, td, tk, tref, ops, build, prep, dev):
+    """Phase 5c: the long-row combine at the shapes of its longest rows,
+    each with the segment split its engine hoists: the node form on
+    ``mixed`` (``prep``, tile width 128, rows of up to 375 chunks) under 4
+    node planes, as ``nodes mixed`` runs it; the flat form on the first two
+    of the service's mixed requests packed at tile width 8 (rows of 3,000
+    chunks; the service holds them in two slots, its padding in one-chunk
+    segments).  Bitwise against the plain versions, timed, beside the
+    ``torch.segment_reduce`` yardstick.  Returns {kernel: {shape: row}}."""
+    out = {"combine_chunk_partials_tiles": {}, "node_combine_chunk_partials_tiles": {}}
+
+    def measure(kname, shape, fn_k, fn_p, parts, chunk_row, row_start, planes, act=None):
+        n_seg = row_start.numel() - 1
+        chunks = chunk_row.numel()
+        moved = dict(partials=24 * planes * chunks, row_start=8 * (n_seg + 1),
+                     classes=4 * n_seg, out=24 * planes * chunks,
+                     **({} if act is None else {"mask": act.numel()}))
+        row = measured_row(torch, build, fn_k(), fn_p(), fn_k, fn_p, moved, 0, plain_reps=1)
+        row["segment_reduce_ms"] = segment_reduce_ms(torch, parts, chunk_row, row_start, act)
+        row["instance"] = shape
+        longest = int((row_start[1:] - row_start[:-1]).max().item())
+        log_row(kname, shape, row)
+        log(f"kernel {kname} on {shape}: {n_seg} segments, longest {longest} chunks; "
+            f"segment_reduce yardstick {row['segment_reduce_ms']} ms")
+        out[kname][shape] = row
+
+    d = prep.d
+    bsz = 4
+    act = torch.ones(bsz, dtype=torch.bool, device=dev)
+    parts = tk.node_activities_gather_tiles(d.val, d.col, prep.lb0.repeat(bsz, 1),
+                                            prep.ub0.repeat(bsz, 1), act, prep.n_pad,
+                                            chunk_len=prep.chunk_len)
+    c_args = (*parts, d.chunk_row, prep.row_start, act)
+    measure("node_combine_chunk_partials_tiles", f"nodes mixed K={d.val.shape[2]}, {bsz} nodes",
+            lambda: tk.node_combine_chunk_partials_tiles(*c_args, classes=prep.seg_classes),
+            lambda: tref.node_combine_chunk_partials_ref(*c_args), parts, d.chunk_row,
+            prep.row_start, bsz, act)
+
+    t = time.perf_counter()
+    rows = service_rows(np)[2 * SERVICE_REQUESTS:][:2]
+    mixed = [td.make_mixed(m=int(m), n=30_000, seed=100 + i, density=0.0005)
+             for i, m in enumerate(rows)]
+    (batch,) = ops.packed_problems(mixed, tile_width=8)
+    bp = ops.prepare_problem_batch(batch, device=dev)
+    bd = bp.d
+    width = bp.size * bp.n_pad
+    parts = tk.activities_gather_tiles(bd.val, bd.col_g, bd.lb0.reshape(width),
+                                       bd.ub0.reshape(width), width, chunk_len=bd.chunk_len)
+    log(f"service mixed requests packed at tile width 8: tiles={tuple(bd.val.shape)}, set-up "
+        f"{time.perf_counter() - t:.1f}s")
+    c_args = (*parts, bd.chunk_row, bp.row_start)
+    measure("combine_chunk_partials_tiles", "service mixed K=8, 2 requests",
+            lambda: tk.combine_chunk_partials_tiles(*c_args, classes=bp.seg_classes),
+            lambda: tref.combine_chunk_partials_ref(*c_args), parts, bd.chunk_row,
+            bp.row_start, 1)
     return out
 
 
@@ -1224,15 +1340,45 @@ def measured_row(torch, build, got, want, fn_k, fn_p, moved, n_ops, plain_reps=3
                 bound_ms=b_ms, bound_by=b_by, bytes=moved)
 
 
+def straddle_row(torch, tk, tref, build, part, partials, act, plain_reps=3):
+    """The straddle combine against its plain version on the active planes
+    (all of a single plane, ``act`` None) and against ``straddle_tables``
+    where ``row_done == 0``, then timed.  Its bound counts the active
+    planes only: the partials at the straddle positions and the
+    aggregates, once each, plus the index (``a_order`` at those positions,
+    ``a_seg``, ``agg_slot``) and the mask."""
+    index = (part.a_order, part.a_seg, part.agg_slot)
+    got = tk.straddle_combine_tiles(*partials, *index, act)
+    want = tref.straddle_combine_ref(*partials, *index, act)
+    tables = tref.straddle_tables(part, *partials)
+    done = part.row_done == 0
+    if act is None:
+        on, pick, n_act, mask = (lambda x: x), (lambda x: x[done]), 1, 0
+    else:
+        on, pick, n_act, mask = (lambda x: x[act]), (lambda x: x[act][:, done]), int(
+            act.sum()), act.numel()
+    max_abs_err(torch, tuple(map(pick, got)), tuple(map(pick, tables)))
+    pos = int((part.a_seg[-1] - part.a_seg[1]).item())
+    chunks = part.agg_slot.numel()
+    index_bytes = 8 * pos + 8 * part.a_seg.numel() + 4 * chunks
+    moved = dict(partials=24 * pos * n_act, index=index_bytes if n_act else 0,
+                 out=24 * chunks * n_act, mask=mask)
+    return measured_row(torch, build, tuple(map(on, got)), tuple(map(on, want)),
+                        lambda: tk.straddle_combine_tiles(*partials, *index, act),
+                        lambda: tref.straddle_combine_ref(*partials, *index, act), moved, 0,
+                        plain_reps=plain_reps)
+
+
 def stores(torch, new, old) -> int:
     """Entries a merge changed: 8 B each of the bytes it must store."""
     return int(sum((n != o).sum().item() for n, o in zip(new, old)))
 
 
 def check_slab_kernels(torch, tk, tref, ops, build, name, prep, part):
-    """Kernels #11 and #12 (with #15's merge) against their plain versions
-    on the instance's partition at its initial bounds, the single-instance
-    shapes of the main path; timed.  Returns {kernel: row}."""
+    """Kernels #11, the straddle combine and #12 (with #15's merge) against
+    their plain versions on the instance's partition at its initial bounds,
+    the single-instance shapes of the main path; timed.  Returns {kernel:
+    row}."""
     cfg = ops.DEFAULT_CONFIG
     eps, width = cfg.eps_for(prep.lb0.dtype), prep.n_pad
     act = torch.ones(1, dtype=torch.bool, device=prep.lb0.device)
@@ -1249,10 +1395,8 @@ def check_slab_kernels(torch, tk, tref, ops, build, name, prep, part):
         lambda: tref.batched_slab_partials_ref(*a_args),
         dict(val=8 * ta * r * k, col=4 * a_nnz, bounds=16 * width, out=24 * ta * r),
         4 * a_nnz)
-    segs = prep.straddle_segments(part, 1)
-    strs = tref.straddle_tables(part, *partials, segments=segs)
-    max_abs_err(torch, tref.straddle_tables(part, *partials, segments=segs,
-                                            combine=tk.combine_chunk_partials_tiles), strs)
+    rows["straddle_combine_tiles"] = straddle_row(torch, tk, tref, build, part, partials, None)
+    strs = tref.straddle_tables(part, *partials)
     t, r, k = part.val.shape
     nnz = int((part.val != 0).sum().item())
     r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
@@ -1276,10 +1420,11 @@ def check_slab_kernels(torch, tk, tref, ops, build, name, prep, part):
 
 
 def check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep, part):
-    """Kernels #13, #14 (with #15's merge) and #15 alone against their plain
-    versions on pbw's K = 8 partition over a (POOL, n_pad) pool of
-    warm-started node bounds, with 0, 8 and POOL rows active; timed.
-    Returns {kernel: {shape: row}}."""
+    """Kernels #13, the straddle combine, #14 (with #15's merge) and #15
+    alone against their plain versions on pbw's K = 8 partition over a
+    (POOL, n_pad) pool of warm-started node bounds, with 0, 8 and POOL rows
+    active (#13 and the straddle combine on the active planes: they leave
+    the others unwritten); timed.  Returns {kernel: {shape: row}}."""
     cfg = ops.DEFAULT_CONFIG
     width = prep.n_pad
     lb_h, ub_h = node_pool(np, rt, pbw, POOL, seed=3)
@@ -1289,8 +1434,8 @@ def check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep, part
     a_nnz = int((part.a_val != 0).sum().item())
     t, _, _ = part.val.shape
     nnz = int((part.val != 0).sum().item())
-    out = {"node_slab_partials_tiles": {}, "node_slab_round_tiles": {},
-           "apply_updates_slab_tiles": {}}
+    out = {"node_slab_partials_tiles": {}, "straddle_combine_tiles": {},
+           "node_slab_round_tiles": {}, "apply_updates_slab_tiles": {}}
     fill = time_ms(torch, lambda: (torch.full_like(lbp, -cfg.inf), torch.full_like(ubp, cfg.inf)))
     log(f"accumulator fill: two ({POOL}, {width}) sentinel planes, {fill:.4f} ms")
     for n_act in (0, 8, POOL):
@@ -1302,17 +1447,19 @@ def check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep, part
         a_args = (part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_slab,
                   act, lbp, ubp, part.slab, part.a_max_run_len)
         partials = tref.node_slab_partials_ref(*a_args)
+        on = lambda xs: tuple(x[act] for x in xs)
         # The sub-stream is read once per launch (26 MB at K = 8: in L2);
         # each active node gathers its bound row and writes its partials.
-        # The zero rows of inactive nodes are the wrapper's fill.
         out["node_slab_partials_tiles"][shape] = measured_row(
-            torch, build, tk.node_slab_partials_tiles(*a_args), partials,
+            torch, build, on(tk.node_slab_partials_tiles(*a_args)), on(partials),
             lambda: tk.node_slab_partials_tiles(*a_args),
             lambda: tref.node_slab_partials_ref(*a_args),
             dict(stream=(8 * ta * r * k + 4 * a_nnz) if n_act else 0,
                  bounds=16 * n_act * width, out=24 * n_act * ta * r),
             4 * a_nnz * n_act, plain_reps=reps)
-        strs = tref.straddle_tables(part, *partials, segments=prep.straddle_segments(part, POOL))
+        out["straddle_combine_tiles"][shape] = straddle_row(torch, tk, tref, build, part,
+                                                            partials, act, plain_reps=reps)
+        strs = tref.straddle_tables(part, *partials)
         r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g,
                   part.rhs_g, part.run_start, part.run_len, part.run_slab, act)
         tail = (part.slab, part.max_run_len, eps, cfg.int_eps)
@@ -1538,7 +1685,10 @@ def wide_phase(torch, np, rt, td, tk, tref, ops, build, dev, measured):
         f"fused node path {f_ms:.3f} ms ({f_ms / res.levels:.3f} ms/level); same result and "
         f"final pool on the kernel path, the plain path and the fused node path; launches "
         f"{runs['solve pbw']}")
-    prof = busy_profile(torch, lambda: rt.solve(pbw, c, device=dev, **WIDE_SEARCH))
+    # PyTorch's index gathers (index_elementwise_kernel): eight a round were
+    # the straddle tables' before the straddle combine kernel.
+    prof = busy_profile(torch, lambda: rt.solve(pbw, c, device=dev, **WIDE_SEARCH),
+                        count="index_elementwise")
     if prof is None:
         log("profile solve pbw: the profiler recorded no device time; idle share not measured")
     else:
@@ -1825,6 +1975,19 @@ def batch_phase(torch, np, rt, td, tk, tref, ops, build, dev, measured, problems
             f"n_pad={prep.n_pad} m_total={prep.m_total} fits_one_chunk={prep.fits_one_chunk} "
             f"pack={t_pack:.2f}s prepare={t_prep:.2f}s{extra}")
 
+    # The straddle combine on the partitioned bucket's single plane of
+    # partials (#11's plain version at the initial bounds).
+    _, prep = preps["partitioned"]
+    part = prep.slab_partition()
+    on = torch.ones(prep.size, dtype=torch.bool, device=dev)
+    partials = tref.batched_slab_partials_ref(
+        part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_inst,
+        part.a_run_slab, on, prep.d.lb0, prep.d.ub0, part.slab, part.a_max_run_len)
+    row = straddle_row(torch, tk, tref, build, part, partials, None)
+    row["instance"] = "partitioned bucket"
+    log_row("straddle_combine_tiles", "partitioned bucket", row)
+    measured.setdefault("straddle_combine_tiles", {})["partitioned bucket"] = row
+
     batch, prep = preps["fused"]
     singles = [rt.prepare_block_ell(p, device=dev) for p in pops["fused"]]
     measured["batched_fused_scatter_round_tiles"] = check_batched_fused(
@@ -2007,11 +2170,17 @@ def service_run(torch, np, rt, tk, name, stream, dev, **kw):
     return counts, specs
 
 
+def service_rows(np):
+    """Rows of the service's requests: 12 + 12 + 4 draws from
+    [30,000, 90,000) by default_rng(0)."""
+    rng = np.random.default_rng(0)
+    return rng.integers(*SERVICE_ROWS, size=2 * SERVICE_REQUESTS + SERVICE_MIXED)
+
+
 def service_phase(torch, np, rt, td, tk, dev):
     """Phase 10: the continuous-batching service on two request streams.
     Returns the launch counts of each checked serve."""
-    rng = np.random.default_rng(0)
-    rows = rng.integers(*SERVICE_ROWS, size=2 * SERVICE_REQUESTS + SERVICE_MIXED)
+    rows = service_rows(np)
     t = time.perf_counter()
     pbs = [td.make_pseudo_boolean(n=60_000, m=int(m), seed=100 + i, unit_frac=0.002)
            for i, m in enumerate(rows[:SERVICE_REQUESTS])]

@@ -301,8 +301,8 @@ class _BucketEngine:
     The round is the port's ``batched_reference_round``: kernel #8 then #9
     on a bucket whose rows fit one chunk, otherwise A', the combine and E
     on the flat stream with global columns, then #9, whose combine segments
-    follow the resident rows: recomputed on the device at each admission
-    (:meth:`_resegment`)."""
+    and their short/long classes follow the resident rows: recomputed on
+    the device at each admission (:meth:`_resegment`)."""
 
     builds: "dict[tuple, int]" = {}
 
@@ -334,14 +334,16 @@ class _BucketEngine:
         }
         ops = kops.KERNEL_OPS if use_kernels else kops.PLAIN_OPS
         self.chunk_lengths = kref.chunk_lengths
+        self.segment_classes = kref.segment_classes
 
         def round_fn(state, aux, lb, ub, act):
-            col_g, seg, seg_start, _, clen = aux
+            col_g, seg, seg_start, _, clen, classes = aux
             row_start = None if seg_start is None else seg_start[:-1]
             return kops.batched_reference_round(
                 state[0], state[1], col_g, ti, state[2], seg, row_start, state[4], state[5],
                 lb, ub, act, n_pad=n_pad, fits_one_chunk=spec.fits_one_chunk, eps=eps,
                 int_eps=int_eps, inf=inf, outward=outward, ops=ops, chunk_len=clen,
+                classes=classes,
             )
 
         self.round_fn = round_fn
@@ -350,10 +352,12 @@ class _BucketEngine:
     def init_state(self) -> "tuple[list, tuple]":
         """A fresh all-empty resident state: zero tiles, every chunk parked
         on its slot's dummy row, every slot inactive (== unoccupied); and
-        its derived tensors ``(col_g, seg, seg_start, dummy, chunk_len)``
-        for the multi-chunk round (Nones on a bucket whose rows fit one
-        chunk); ``chunk_len`` is where A' and E stop each resident chunk,
-        kept current at each admission."""
+        its derived tensors ``(col_g, seg, seg_start, dummy, chunk_len,
+        classes)`` for the multi-chunk round (Nones on a bucket whose rows
+        fit one chunk); ``chunk_len`` is where A' and E stop each resident
+        chunk, and ``classes`` (a list) the combine's short and long
+        segments (fixed lengths, padded with -1), both kept current at each
+        admission."""
         spec, dev = self.spec, self.device
         s, t, r, k = spec.slots, spec.slot_tiles, spec.tile_rows, spec.tile_width
         dt = torch.float64
@@ -371,11 +375,11 @@ class _BucketEngine:
             torch.full((s,), -1, dtype=torch.int32, device=dev),
             torch.full((s,), -1, dtype=torch.int32, device=dev),
         ]
-        aux = (None, None, None, None, None)
+        aux = (None, None, None, None, None, None)
         if not spec.fits_one_chunk:
             col_g = state[1] + (self.tile_inst * spec.n_pad)[:, None, None]
             aux = (col_g, torch.empty_like(crow), self.positions.new_empty(s * t * r + 2), dummy,
-                   z((s * t, r), torch.int32))
+                   z((s * t, r), torch.int32), [None, None])
             self._resegment(state, aux)
         return state, aux
 
@@ -390,8 +394,9 @@ class _BucketEngine:
         all on the dummy row, become one-chunk segments (zeros), so no
         thread of the combine walks them in series.  ``seg`` is each chunk's
         segment id (in place of its row), ``seg_start[:-1]`` the
-        ``row_start`` of the segments, padded with empty ones at the end."""
-        _, seg, start, dummy, _ = aux
+        ``row_start`` of the segments, padded with empty ones at the end,
+        and ``classes`` their short and long segments."""
+        _, seg, start, dummy, _, classes = aux
         n = seg.numel()
         crow = state[3].view(-1)
         new = crow == dummy.index_select(0, self.chunk_slot)
@@ -401,6 +406,7 @@ class _BucketEngine:
         seg.view(-1).copy_(ids)
         start.fill_(n)
         start.scatter_(0, torch.where(new, ids, n + 1), self.positions)
+        classes[:] = self.segment_classes(start[:-1], n_chunks=n)
 
     def admit(self, state: list, aux: tuple, payloads: "Sequence[SlotPayload]",
               slot_ids: "Sequence[int]") -> None:
@@ -428,7 +434,7 @@ class _BucketEngine:
                                (_PROGRESS, float("nan")), (_FLAT, 0), (_TICKS, 0),
                                (_STOPR, -1), (_INFSR, -1)):
                 state[idx].index_fill_(0, ids, value)
-            col_g, _, _, dummy, clen = aux
+            col_g, _, _, dummy, clen, _ = aux
             if col_g is not None:
                 col_g.index_copy_(0, tix, (st["col"] + (ids * spec.n_pad).to(torch.int32)
                                            [:, None, None, None]).view(g * t, r, k))

@@ -2,9 +2,9 @@
 // its node-batch and packed-batch forms, of the segment (seed) round and of
 // the solver's node objective.
 //
-// Each kernel but the combine is the CUDA counterpart of one Pallas kernel
-// of the JAX package (src/repro/kernels/prop_round.py); every kernel is held
-// against a plain-PyTorch oracle (src/repro_torch/kernels/ref.py):
+// Each kernel but the two combines is the CUDA counterpart of one Pallas
+// kernel of the JAX package (src/repro/kernels/prop_round.py); every kernel
+// is held against a plain-PyTorch oracle (src/repro_torch/kernels/ref.py):
 //
 //   fused_scatter_round  (D)  bound gather, row activities with infinity
 //                             counters, candidates, integrality rounding and
@@ -16,7 +16,13 @@
 //   apply_updates        (F)  the bound merge, in place, with a changed flag
 //   combine_chunk_partials    the long-row combine of A' partials, left to
 //                             right over each row's chunks (not a TPU
-//                             kernel: the reference's XLA segment_sum)
+//                             kernel: the reference's XLA segment_sum); a
+//                             thread per short row, a warp per long row
+//   straddle_combine          the partitioned round's straddle combine: the
+//                             copy partials of each straddle row summed left
+//                             to right into a compact table, then spread to
+//                             the main stream's chunks, active planes only
+//                             (the reference's XLA segment_sum again)
 //   node_fused_scatter_round  (#10) D over a node batch: one matrix, B bound
 //                             planes, an active mask read on the device
 //   batched_fused_scatter_round  (#8) D over a packed batch: each tile's
@@ -159,45 +165,153 @@ apply_updates_kernel(double* __restrict__ lb, double* __restrict__ ub,
   if (merge_one(lb, ub, best_l, best_u, i, eps, inf, outward)) *changed = true;
 }
 
-// One thread per row segment: its chunk partials summed left to right
-// (chunks of a row are adjacent in the stream), then written back to every
-// chunk of the row.  Fixed order on every run, unlike an atomic segment sum.
+// The long-row combine: each row segment's chunk partials summed left to
+// right from 0 (chunks of a row are adjacent in the stream), then written
+// back to every chunk of the row.  Fixed order on every run, unlike an
+// atomic segment sum.  The segments come classified (hoisted, not per
+// round): the first long_blocks blocks give each long segment one warp
+// (combine_segment_warp, 2 KB of shared memory a warp), first so that the
+// longest chains start at once; the rest give each short segment one
+// thread.  Both take the same sums in the same order.  A class entry of -1
+// is empty.
 __global__ void __launch_bounds__(kThreads)
 combine_chunk_partials_kernel(const double* __restrict__ mf, const int* __restrict__ mc,
                               const double* __restrict__ xf, const int* __restrict__ xc,
-                              const int64_t* __restrict__ row_start, double* __restrict__ omf,
-                              int* __restrict__ omc, double* __restrict__ oxf,
-                              int* __restrict__ oxc, int64_t n_seg) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (r >= n_seg) return;
-  combine_segment(mf, mc, xf, xc, omf, omc, oxf, oxc, row_start[r], row_start[r + 1]);
+                              const int64_t* __restrict__ row_start,
+                              const int* __restrict__ short_seg, const int* __restrict__ long_seg,
+                              double* __restrict__ omf, int* __restrict__ omc,
+                              double* __restrict__ oxf, int* __restrict__ oxc, int64_t n_short,
+                              int64_t n_long, unsigned int long_blocks) {
+  __shared__ double sm[kWarpsPerBlock][2 * kCombineGroup];
+  if (blockIdx.x < long_blocks) {
+    const int64_t w = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
+    if (w >= n_long) return;  // the whole warp
+    const int seg = long_seg[w];
+    if (seg < 0) return;
+    combine_segment_warp(mf, mc, xf, xc, omf, omc, oxf, oxc, row_start[seg],
+                         row_start[seg + 1], threadIdx.x % kWarp, sm[threadIdx.x / kWarp]);
+    return;
+  }
+  const int64_t r = static_cast<int64_t>(blockIdx.x - long_blocks) * blockDim.x + threadIdx.x;
+  if (r >= n_short) return;
+  const int seg = short_seg[r];
+  if (seg < 0) return;
+  combine_segment(mf, mc, xf, xc, omf, omc, oxf, oxc, row_start[seg], row_start[seg + 1]);
 }
 
 // The same over (B, T, R) node planes of one instance: node b's segments
-// are row_start offset by b * n_chunks.  Grid (row blocks, groups of 32
-// nodes): one thread per row segment, each warp reads its group's 32 flags
-// of the active mask (one ballot) and walks its rows for the active nodes
-// only; an inactive node's planes are not written.  (A block per node would
-// launch 75,000 empty blocks for 128 nodes at n_seg 150,000; a single group
-// would walk a full pool's 128 nodes in series.)
+// are row_start offset by b * n_chunks.  Grid (segment blocks, groups of 32
+// nodes): each warp reads its group's 32 flags of the active mask (one
+// ballot) and, for the active nodes only, runs the single-instance
+// combine's thread or warp on the segment; an inactive node's planes are
+// not written.  (A block per node would launch 75,000 empty blocks for 128
+// nodes at 150,000 segments; a single group would walk a full pool's 128
+// nodes in series.)
 __global__ void __launch_bounds__(kThreads)
 node_combine_chunk_partials_kernel(const double* __restrict__ mf, const int* __restrict__ mc,
                                    const double* __restrict__ xf, const int* __restrict__ xc,
                                    const int64_t* __restrict__ row_start,
+                                   const int* __restrict__ short_seg,
+                                   const int* __restrict__ long_seg,
                                    const bool* __restrict__ active, double* __restrict__ omf,
                                    int* __restrict__ omc, double* __restrict__ oxf,
-                                   int* __restrict__ oxc, int64_t n_seg, int64_t n_chunks,
-                                   int64_t bsz) {
-  const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+                                   int* __restrict__ oxc, int64_t n_short, int64_t n_long,
+                                   unsigned int long_blocks, int64_t n_chunks, int64_t bsz) {
+  __shared__ double sm[kWarpsPerBlock][2 * kCombineGroup];
   const int lane = threadIdx.x % kWarp;
   const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kWarp;
   unsigned int todo = __ballot_sync(0xffffffffu, b0 + lane < bsz && active[b0 + lane]);
-  if (r >= n_seg) return;
-  const int64_t s = row_start[r], e = row_start[r + 1];
+  if (blockIdx.x < long_blocks) {
+    const int64_t w = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
+    if (w >= n_long) return;  // the whole warp
+    const int seg = long_seg[w];
+    if (seg < 0) return;
+    const int64_t s = row_start[seg], e = row_start[seg + 1];
+    while (todo != 0u) {
+      const int64_t off = (b0 + __ffs(todo) - 1) * n_chunks;
+      todo &= todo - 1u;
+      combine_segment_warp(mf, mc, xf, xc, omf, omc, oxf, oxc, off + s, off + e, lane,
+                           sm[threadIdx.x / kWarp]);
+    }
+    return;
+  }
+  const int64_t r = static_cast<int64_t>(blockIdx.x - long_blocks) * blockDim.x + threadIdx.x;
+  if (r >= n_short) return;
+  const int seg = short_seg[r];
+  if (seg < 0) return;
+  const int64_t s = row_start[seg], e = row_start[seg + 1];
   while (todo != 0u) {
     const int64_t off = (b0 + __ffs(todo) - 1) * n_chunks;
     todo &= todo - 1u;
     combine_segment(mf, mc, xf, xc, omf, omc, oxf, oxc, off + s, off + e);
+  }
+}
+
+// The straddle combine of the partitioned round, over nb planes of copy
+// partials (n_pos = Ta * R per plane), in two launches.  First the compact
+// table: one thread per (active plane, table slot s) sums the partials at
+// positions a_seg[s] .. a_seg[s + 1] of the slot order a_order left to
+// right from 0, into (nb, n_slots) tables (slot 0, the dummy, gets +0.0 and
+// 0).  Then the spread: one thread per (active plane, main-stream chunk)
+// copies its slot's entry (agg_slot) to the chunk.  Grid (blocks, groups of
+// 32 planes); each warp ballots its group's flags (all planes when active
+// is null), and inactive planes are neither read nor written.
+__global__ void __launch_bounds__(kThreads)
+straddle_table_kernel(const double* __restrict__ mf, const int* __restrict__ mc,
+                      const double* __restrict__ xf, const int* __restrict__ xc,
+                      const int64_t* __restrict__ a_order, const int64_t* __restrict__ a_seg,
+                      const bool* __restrict__ active, double* __restrict__ tmf,
+                      int* __restrict__ tmc, double* __restrict__ txf, int* __restrict__ txc,
+                      int64_t n_slots, int64_t n_pos, int64_t nb) {
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x % kWarp;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kWarp;
+  unsigned int todo =
+      __ballot_sync(0xffffffffu, b0 + lane < nb && (active == nullptr || active[b0 + lane]));
+  if (s >= n_slots) return;
+  const int64_t p0 = s == 0 ? 0 : a_seg[s], p1 = s == 0 ? 0 : a_seg[s + 1];
+  while (todo != 0u) {
+    const int64_t b = b0 + __ffs(todo) - 1;
+    todo &= todo - 1u;
+    const int64_t off = b * n_pos;
+    double a = 0.0, c = 0.0;
+    int ca = 0, cc = 0;
+    for (int64_t p = p0; p < p1; ++p) {
+      const int64_t i = off + a_order[p];
+      a += mf[i];
+      ca += mc[i];
+      c += xf[i];
+      cc += xc[i];
+    }
+    const int64_t o = b * n_slots + s;
+    tmf[o] = a;
+    tmc[o] = ca;
+    txf[o] = c;
+    txc[o] = cc;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+straddle_spread_kernel(const double* __restrict__ tmf, const int* __restrict__ tmc,
+                       const double* __restrict__ txf, const int* __restrict__ txc,
+                       const int* __restrict__ agg_slot, const bool* __restrict__ active,
+                       double* __restrict__ omf, int* __restrict__ omc, double* __restrict__ oxf,
+                       int* __restrict__ oxc, int64_t n_slots, int64_t n_chunks, int64_t nb) {
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x % kWarp;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kWarp;
+  unsigned int todo =
+      __ballot_sync(0xffffffffu, b0 + lane < nb && (active == nullptr || active[b0 + lane]));
+  if (c >= n_chunks) return;
+  const int64_t slot = agg_slot[c];
+  while (todo != 0u) {
+    const int64_t b = b0 + __ffs(todo) - 1;
+    todo &= todo - 1u;
+    const int64_t t = b * n_slots + slot, o = b * n_chunks + c;
+    omf[o] = tmf[t];
+    omc[o] = tmc[t];
+    oxf[o] = txf[t];
+    oxc[o] = txc[t];
   }
 }
 
@@ -465,6 +579,19 @@ fused_round_kernel(const double* __restrict__ val, const double* __restrict__ lb
                          int_eps, inf);
 }
 
+// Blocks of the combine: one warp per long segment, then one thread per
+// short segment.
+struct CombineGrid {
+  unsigned int long_blocks, blocks;
+};
+
+CombineGrid combine_grid(int64_t n_short, int64_t n_long) {
+  const unsigned int sb = static_cast<unsigned int>((n_short + kThreads - 1) / kThreads);
+  const unsigned int lb =
+      static_cast<unsigned int>((n_long + kWarpsPerBlock - 1) / kWarpsPerBlock);
+  return CombineGrid{lb, lb + sb};
+}
+
 }  // namespace
 
 extern "C" {
@@ -532,22 +659,44 @@ int apply_updates(double* lb, double* ub, const double* best_l, const double* be
 }
 
 int combine_chunk_partials(const double* mf, const int* mc, const double* xf, const int* xc,
-                           const int64_t* row_start, double* omf, int* omc, double* oxf,
-                           int* oxc, int64_t n_seg, cudaStream_t stream) {
-  const unsigned int blocks = static_cast<unsigned int>((n_seg + kThreads - 1) / kThreads);
-  combine_chunk_partials_kernel<<<blocks, kThreads, 0, stream>>>(mf, mc, xf, xc, row_start, omf,
-                                                                 omc, oxf, oxc, n_seg);
+                           const int64_t* row_start, const int* short_seg, const int* long_seg,
+                           double* omf, int* omc, double* oxf, int* oxc, int64_t n_short,
+                           int64_t n_long, cudaStream_t stream) {
+  const CombineGrid g = combine_grid(n_short, n_long);
+  combine_chunk_partials_kernel<<<g.blocks, kThreads, 0, stream>>>(
+      mf, mc, xf, xc, row_start, short_seg, long_seg, omf, omc, oxf, oxc, n_short, n_long,
+      g.long_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 
 int node_combine_chunk_partials(const double* mf, const int* mc, const double* xf,
-                                const int* xc, const int64_t* row_start, const bool* active,
-                                double* omf, int* omc, double* oxf, int* oxc, int64_t n_seg,
+                                const int* xc, const int64_t* row_start, const int* short_seg,
+                                const int* long_seg, const bool* active, double* omf, int* omc,
+                                double* oxf, int* oxc, int64_t n_short, int64_t n_long,
                                 int64_t n_chunks, int64_t bsz, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned int>((n_seg + kThreads - 1) / kThreads),
-                  static_cast<unsigned int>((bsz + kWarp - 1) / kWarp));
+  const CombineGrid g = combine_grid(n_short, n_long);
+  const dim3 grid(g.blocks, static_cast<unsigned int>((bsz + kWarp - 1) / kWarp));
   node_combine_chunk_partials_kernel<<<grid, kThreads, 0, stream>>>(
-      mf, mc, xf, xc, row_start, active, omf, omc, oxf, oxc, n_seg, n_chunks, bsz);
+      mf, mc, xf, xc, row_start, short_seg, long_seg, active, omf, omc, oxf, oxc, n_short,
+      n_long, g.long_blocks, n_chunks, bsz);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int straddle_combine(const double* mf, const int* mc, const double* xf, const int* xc,
+                     const int64_t* a_order, const int64_t* a_seg, const int* agg_slot,
+                     const bool* active, double* tmf, int* tmc, double* txf, int* txc,
+                     double* omf, int* omc, double* oxf, int* oxc, int64_t n_slots,
+                     int64_t n_pos, int64_t n_chunks, int64_t nb, cudaStream_t stream) {
+  const unsigned int groups = static_cast<unsigned int>((nb + kWarp - 1) / kWarp);
+  const dim3 tgrid(static_cast<unsigned int>((n_slots + kThreads - 1) / kThreads), groups);
+  straddle_table_kernel<<<tgrid, kThreads, 0, stream>>>(mf, mc, xf, xc, a_order, a_seg, active,
+                                                        tmf, tmc, txf, txc, n_slots, n_pos, nb);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_chunks == 0) return static_cast<int>(err);
+  const dim3 sgrid(static_cast<unsigned int>((n_chunks + kThreads - 1) / kThreads), groups);
+  straddle_spread_kernel<<<sgrid, kThreads, 0, stream>>>(tmf, tmc, txf, txc, agg_slot, active,
+                                                         omf, omc, oxf, oxc, n_slots, n_chunks,
+                                                         nb);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -394,8 +394,9 @@ __device__ __forceinline__ void scatter_strides(const Loaded<U>& s, const B& b, 
   }
 }
 
-// One row segment [s, e) of chunk partials summed left to right from 0
-// (the long-row combine's order), written back to each of its chunks.
+// One short row segment [s, e) of chunk partials summed left to right from
+// 0 by one thread (the long-row combine's order), written back to each of
+// its chunks.
 __device__ __forceinline__ void combine_segment(const double* __restrict__ mf,
                                                 const int* __restrict__ mc,
                                                 const double* __restrict__ xf,
@@ -411,6 +412,90 @@ __device__ __forceinline__ void combine_segment(const double* __restrict__ mf,
     cb += xc[i];
   }
   for (int64_t i = s; i < e; ++i) {
+    omf[i] = a;
+    omc[i] = ca;
+    oxf[i] = b;
+    oxc[i] = cb;
+  }
+}
+
+// Steps of 32 chunks whose partials a warp of the long-row combine loads at
+// once; the next group's loads are in flight during this group's adds.
+constexpr int kCombineSteps = 4;
+constexpr int kCombineGroup = kCombineSteps * kWarp;
+
+template <int U>
+struct StepPartials {
+  double mf[U], xf[U];
+  int mc[U], xc[U];
+};
+
+// Chunks e0 + 32 u + lane of the segment ending at e (0 past it).
+template <int U>
+__device__ __forceinline__ void load_steps(StepPartials<U>& p, const double* __restrict__ mf,
+                                           const int* __restrict__ mc,
+                                           const double* __restrict__ xf,
+                                           const int* __restrict__ xc, int64_t e0, int64_t e,
+                                           int lane) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int64_t i = e0 + u * kWarp + lane;
+    const bool in = i < e;
+    p.mf[u] = in ? mf[i] : 0.0;
+    p.xf[u] = in ? xf[i] : 0.0;
+    p.mc[u] = in ? mc[i] : 0;
+    p.xc[u] = in ? xc[i] : 0;
+  }
+}
+
+// One long row segment [s, e) by a whole warp (every lane calls it with the
+// same s, e; sm is the warp's own 2 * kCombineGroup doubles of shared
+// memory): the partials of kCombineGroup chunks loaded coalesced, the next
+// group's loads in flight while this group is summed; the group's float
+// partials staged in shared memory, from which every lane reads them back
+// in chunk order (broadcast loads), so every lane holds the float sums
+// taken left to right from +0.0, exactly as combine_segment takes them; the
+// integer counts by a warp reduction (exact in any order); then a
+// coalesced write-back to every chunk.
+__device__ __forceinline__ void combine_segment_warp(
+    const double* __restrict__ mf, const int* __restrict__ mc, const double* __restrict__ xf,
+    const int* __restrict__ xc, double* __restrict__ omf, int* __restrict__ omc,
+    double* __restrict__ oxf, int* __restrict__ oxc, int64_t s, int64_t e, int lane,
+    double* sm) {
+  constexpr int U = kCombineSteps;
+  double a = 0.0, b = 0.0;
+  int ca = 0, cb = 0;
+  StepPartials<U> next;
+  load_steps(next, mf, mc, xf, xc, s, e, lane);
+  for (int64_t j0 = s; j0 < e; j0 += kCombineGroup) {
+    const StepPartials<U> cur = next;
+    if (j0 + kCombineGroup < e) load_steps(next, mf, mc, xf, xc, j0 + kCombineGroup, e, lane);
+    __syncwarp();  // every lane has read the previous group
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      sm[u * kWarp + lane] = cur.mf[u];
+      sm[kCombineGroup + u * kWarp + lane] = cur.xf[u];
+      ca += cur.mc[u];
+      cb += cur.xc[u];
+    }
+    __syncwarp();
+    if (e - j0 >= kCombineGroup) {
+#pragma unroll
+      for (int i = 0; i < kCombineGroup; ++i) {
+        a += sm[i];
+        b += sm[kCombineGroup + i];
+      }
+    } else {
+      const int n = static_cast<int>(e - j0);
+      for (int i = 0; i < n; ++i) {
+        a += sm[i];
+        b += sm[kCombineGroup + i];
+      }
+    }
+  }
+  ca = __reduce_add_sync(0xffffffffu, ca);
+  cb = __reduce_add_sync(0xffffffffu, cb);
+  for (int64_t i = s + lane; i < e; i += kWarp) {
     omf[i] = a;
     omc[i] = ca;
     oxf[i] = b;

@@ -42,9 +42,10 @@ SIGNATURES = {
         "candidates_scatter": [P] * 13 + [I64, I32, F64, F64, P],
         "node_activities_gather": [P] * 10 + [I64, I32, I64, I64, F64, P],
         "node_candidates_scatter": [P] * 15 + [I64, I32, I64, I64, F64, F64, P],
-        "node_combine_chunk_partials": [P] * 10 + [I64, I64, I64, P],
+        "node_combine_chunk_partials": [P] * 12 + [I64, I64, I64, I64, P],
         "apply_updates": [P] * 5 + [I64, F64, F64, F64, P],
-        "combine_chunk_partials": [P] * 9 + [I64, P],
+        "combine_chunk_partials": [P] * 11 + [I64, I64, P],
+        "straddle_combine": [P] * 16 + [I64, I64, I64, I64, P],
         "node_fused_scatter_round": [P] * 10 + [I64, I32, I64, I64, F64, F64, P],
         "batched_fused_scatter_round": [P] * 11 + [I64, I32, I32, I64, F64, F64, P],
         "apply_updates_batch": [P] * 6 + [I64, I64, F64, F64, F64, P],

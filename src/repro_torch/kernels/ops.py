@@ -12,13 +12,15 @@ semantics so they converge to the same fixed points.
   * The ``"fused"`` round: rows that fit one chunk run kernel D (gather,
     activities, candidates, column max/min) then kernel F (merge, in place);
     rows that span chunks run kernel A' (chunk partials), the combine kernel
-    (each row's partials summed left to right), kernel E (candidates +
-    column max/min), then F.
+    (each row's partials summed left to right: a thread per short row, a
+    warp per long row, by the segment classes hoisted at prepare time),
+    kernel E (candidates + column max/min), then F.
   * The ``"partitioned"`` round (``slab.SlabPartition``, built once per slab
     width on the host): the straddle rows' copy partials (#11), their
-    completed aggregates by the combine kernel in one fixed order, then
-    the slab round (#12: scatter into accumulator planes, then #15's window
-    merge, in place).
+    completed aggregates by the straddle combine kernel in one fixed order
+    (a compact table per plane, spread to the chunks), then the slab round
+    (#12: scatter into accumulator planes, then #15's window merge, in
+    place).
   * The ``"segment"`` round (the reference's seed dataflow, kept as its
     cross-validation engine): the bounds gathered at every slot, kernel C
     (rows in one chunk) or kernel A, the combine and kernel B, the
@@ -40,9 +42,10 @@ semantics so they converge to the same fixed points.
   * The node round: kernel #10 then the batched merge #9 where rows fit one
     chunk, else A', the combine and E over the node batch then #9 -- four
     launches per round whatever the batch size; past ``SCATTER_MAX_NPAD``
-    the partitioned node kernels (#13, the combine, #14 with #15) over the
-    ``(B, n_pad)`` planes, whatever the tile width (the plain path there
-    follows ``REPRO_AUTO_LARGE_SCATTER``, as the reference's does).
+    the partitioned node kernels (#13, the straddle combine over the active
+    nodes' planes, #14 with #15) over the ``(B, n_pad)`` planes, whatever
+    the tile width (the plain path there follows
+    ``REPRO_AUTO_LARGE_SCATTER``, as the reference's does).
   * The fixed point runs on private copies of the cached initial bounds, so
     the in-place merges never touch the cache.
 
@@ -124,16 +127,6 @@ def device_block_ell(
     )
 
 
-def _straddle_segments(cache: dict, part: SlabPartition, planes: int):
-    """The straddle combine's segments over ``planes`` bound planes of
-    ``part`` (``ref.straddle_segments``), cached in a prep's ``cache``."""
-    key = (part.slab, int(planes))
-    segs = cache.get(key)
-    if segs is None:
-        segs = cache[key] = kref.straddle_segments(part, planes)
-    return segs
-
-
 def rows_fit_one_chunk(p: Problem, tile_width: int) -> bool:
     """True iff every row's nonzeros fit one ``tile_width``-wide chunk -- the
     condition for the single-kernel fused round."""
@@ -204,13 +197,13 @@ class PreparedBlockEll:
     lb0: torch.Tensor    # (n_pad,) default initial bounds (column-padded)
     ub0: torch.Tensor    # (n_pad,)
     row_start: torch.Tensor  # (m+2,) int64: first chunk of each row, padding row m too
+    seg_classes: tuple       # the combine's (short, long) int32 segment ids, hoisted
     chunk_len: torch.Tensor  # (T, R) int32: one past each chunk's last nonzero (A', E)
     m: int
     n: int
     n_pad: int
     fits_one_chunk: bool
-    # Slab partitions, built lazily and keyed by slab width, and the
-    # straddle combine's segments keyed by (slab width, planes); shared by
+    # Slab partitions, built lazily and keyed by slab width; shared by
     # bounds-swapped views of this prep.
     _slabs: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
     # The segment round's reduction index, built at its first use; shared
@@ -246,9 +239,6 @@ class PreparedBlockEll:
             )
             self._slabs[s] = part
         return part
-
-    def straddle_segments(self, part: SlabPartition, planes: int):
-        return _straddle_segments(self._slabs, part, planes)
 
     def pad_bound(self, arr) -> torch.Tensor:
         """One caller bound vector -> the column-padded ``(n_pad,)`` domain
@@ -303,6 +293,7 @@ def prepare_block_ell(
     n_pad = col_pad(p.n)
     col = d.col.long()
     crow = d.chunk_row.long()
+    row_start = kref.row_starts(d.chunk_row, p.m + 1)
     prep = PreparedBlockEll(
         d=d,
         ii_g=d.is_int[col].to(torch.int32),
@@ -310,7 +301,8 @@ def prepare_block_ell(
         rhs_g=d.rhs1[crow],
         lb0=torch.zeros(n_pad, dtype=dt, device=dev),
         ub0=torch.zeros(n_pad, dtype=dt, device=dev),
-        row_start=kref.row_starts(d.chunk_row, p.m + 1),
+        row_start=row_start,
+        seg_classes=kref.segment_classes(row_start),
         chunk_len=kref.chunk_lengths(d.val),
         m=p.m,
         n=p.n,
@@ -403,18 +395,17 @@ def _plain_merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward=0.0):
 
 def _partitioned_kernel_round(
     part: SlabPartition, lb, ub, active, *, node: bool, eps: float, int_eps: float,
-    inf: float, outward: float = 0.0, segments=None,
+    inf: float, outward: float = 0.0,
 ):
     """One partitioned round on the kernels over ``(B, W)`` planes (``W`` the
     instance's ``n_pad``: no real nonzero reaches past it), IN PLACE:
     straddle-row partials (#11, or #13 per node), their completed
-    aggregates (the combine kernel, each slot's partials left to right in
-    sub-stream order), then the slab round (#12, or #14 per node: scatter,
-    then #15's window merge).  ``node=False`` routes copies to their own
-    instance's plane by the run maps (a single instance passes ``B == 1``);
-    ``node=True`` runs ONE instance's copies against every node's plane.
-    ``segments`` are the combine's cached segments
-    (:meth:`PreparedBlockEll.straddle_segments`).  Returns ``(lb, ub,
+    aggregates (the straddle combine kernel, each slot's partials left to
+    right in sub-stream order, on the active nodes' planes), then the slab
+    round (#12, or #14 per node: scatter, then #15's window merge).
+    ``node=False`` routes copies to their own instance's plane by the run
+    maps (a single instance passes ``B == 1``); ``node=True`` runs ONE
+    instance's copies against every node's plane.  Returns ``(lb, ub,
     changed)`` with ``(B,)`` bool flags: the window flags OR-ed per plane."""
     bsz = lb.shape[0]
     if part.has_straddle:
@@ -428,8 +419,8 @@ def _partitioned_kernel_round(
                 part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_inst,
                 part.a_run_slab, active, lb, ub, part.slab, part.a_max_run_len, inf,
             )
-        strs = kref.straddle_tables(part, *partials, segments=segments,
-                                    combine=kern.combine_chunk_partials_tiles)
+        strs = kern.straddle_combine_tiles(*partials, part.a_order, part.a_seg, part.agg_slot,
+                                           active if node else None)
     else:
         shape = ((bsz,) if node else ()) + tuple(part.chunk_row.shape)
         z = torch.zeros(shape, dtype=lb.dtype, device=lb.device)
@@ -453,12 +444,11 @@ def _partitioned_kernel_round(
 
 def _partitioned_plain_round(
     part: SlabPartition, lb, ub, active, *, node: bool, eps: float, int_eps: float,
-    inf: float, outward: float = 0.0, segments=None,
+    inf: float, outward: float = 0.0,
 ):
     """The plain partitioned round, as the reference's ``use_pallas=False``:
     ``ref.partitioned_round_ref`` (per active node under ``node=True``) and
     the shared merge; returns new ``(B, W)`` planes and ``(B,)`` flags."""
-    del segments
     if node:
         best_l, best_u = kref.node_partitioned_round_ref(part, lb, ub, int_eps, inf,
                                                          active=active)
@@ -508,6 +498,7 @@ PLAIN_OPS = RoundOps(
 def _segment_round(
     ops: RoundOps, d: DeviceBlockEll, lb, ub, ii_g, lhs_g, rhs_g, row_start, index,
     width: int, *, fused: bool, eps: float, int_eps: float, inf: float, outward: float = 0.0,
+    classes=None,
 ):
     """One round of the segment (seed) dataflow over ``(width,)`` bounds:
     bounds gathered per slot, kernel C (``fused``) or kernel A, the fused
@@ -515,14 +506,15 @@ def _segment_round(
     kernel B, the candidates written out, the column max/min over the slots
     of ``index`` (:func:`segment_reduce`), then the merge.  The per-slot
     marks and sides ``ii_g``, ``lhs_g``, ``rhs_g`` and the combine's
-    ``row_start`` come hoisted or per round from the caller.  Returns
+    ``row_start`` (and its segment ``classes``) come hoisted or per round
+    from the caller.  Returns
     ``(lb, ub, changed)``; with kernels the bounds are updated in place."""
     lb_g, ub_g = gather_bounds(lb, ub, d.col)
     if fused:
         lcand, ucand = ops.fused_round_tiles(d.val, lb_g, ub_g, ii_g, lhs_g, rhs_g, int_eps, inf)
     else:
         partials = ops.activities_tiles(d.val, lb_g, ub_g, inf)
-        aggs = ops.combine(*partials, d.chunk_row, row_start)
+        aggs = ops.combine(*partials, d.chunk_row, row_start, classes=classes)
         lcand, ucand = ops.candidates_tiles(d.val, lb_g, ub_g, ii_g, *aggs, lhs_g, rhs_g,
                                             int_eps, inf)
     best_l, best_u = segment_reduce(lcand, ucand, index, width, inf)
@@ -552,7 +544,7 @@ def _prepared_round(
         one = torch.ones((1,), dtype=torch.bool, device=lb.device)
         new_lb, new_ub, ch = ops.partitioned(
             part, lb[None], ub[None], one, node=False, eps=eps, int_eps=int_eps, inf=inf,
-            outward=outward, segments=prep.straddle_segments(part, 1),
+            outward=outward,
         )
         return new_lb[0], new_ub[0], ch[0]
     if fused:
@@ -565,7 +557,8 @@ def _prepared_round(
         # its single-instance round bitwise) -> candidates + column reduction.
         partials = ops.activities(d.val, d.col, lb, ub, prep.n_pad, inf,
                                   chunk_len=prep.chunk_len)
-        rmf, rmc, rxf, rxc = ops.combine(*partials, d.chunk_row, prep.row_start)
+        rmf, rmc, rxf, rxc = ops.combine(*partials, d.chunk_row, prep.row_start,
+                                         classes=prep.seg_classes)
         best_l, best_u = ops.candidates(
             d.val, d.col, prep.ii_g, rmf, rmc, rxf, rxc,
             prep.lhs_g, prep.rhs_g, lb, ub, prep.n_pad, int_eps, inf, chunk_len=prep.chunk_len,
@@ -626,7 +619,7 @@ def round_fn_for(
             return _segment_round(
                 ops, prep.d, lb, ub, prep.ii_g, prep.lhs_g, prep.rhs_g, prep.row_start,
                 prep.segment_index(), prep.n_pad, fused=do_fuse, eps=eps,
-                int_eps=cfg.int_eps, inf=cfg.inf, outward=outward,
+                int_eps=cfg.int_eps, inf=cfg.inf, outward=outward, classes=prep.seg_classes,
             )
 
         return round_fn
@@ -792,8 +785,8 @@ class PreparedBatch:
     n_pad: int
     fits_one_chunk: bool
     row_start: torch.Tensor  # (m_total + 1,) int64
-    # Slab partitions of the packed stream keyed by slab width, and the
-    # straddle combine's segments keyed by (slab width, planes).
+    seg_classes: tuple       # the combine's (short, long) int32 segment ids, hoisted
+    # Slab partitions of the packed stream keyed by slab width.
     _slabs: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def slab_partition(self, slab: int | None = None) -> SlabPartition:
@@ -812,9 +805,6 @@ class PreparedBatch:
                 (ell.row_offset[1:] - 1).astype(np.int32), device=self.d.val.device,
             )
         return part
-
-    def straddle_segments(self, part: SlabPartition, planes: int):
-        return _straddle_segments(self._slabs, part, planes)
 
 
 _batch_prep_cache = LRU(maxsize=16)
@@ -851,6 +841,7 @@ def prepare_problem_batch(batch: ProblemBatch, dtype=None, device="cuda") -> Pre
         ub0=t(batch.ub),
         col_valid=t(np.arange(n_pad)[None, :] < ell.n[:, None], torch.bool),
     )
+    row_start = kref.row_starts(chunk_row, batch.m_total)
     prep = PreparedBatch(
         batch=batch,
         d=d,
@@ -858,7 +849,8 @@ def prepare_problem_batch(batch: ProblemBatch, dtype=None, device="cuda") -> Pre
         m_total=batch.m_total,
         n_pad=n_pad,
         fits_one_chunk=all(rows_fit_one_chunk(p, ell.tile_width) for p in batch.problems),
-        row_start=kref.row_starts(chunk_row, batch.m_total),
+        row_start=row_start,
+        seg_classes=kref.segment_classes(row_start),
     )
     _batch_prep_cache.put(key, (batch,), prep)
     return prep
@@ -867,7 +859,7 @@ def prepare_problem_batch(batch: ProblemBatch, dtype=None, device="cuda") -> Pre
 def batched_reference_round(
     val, col, col_g, tile_inst, ii_g, chunk_row, row_start, lhs_g, rhs_g, lb, ub, active,
     *, n_pad: int, fits_one_chunk: bool, eps: float, int_eps: float, inf: float,
-    outward: float = 0.0, ops: RoundOps = KERNEL_OPS, chunk_len=None,
+    outward: float = 0.0, ops: RoundOps = KERNEL_OPS, chunk_len=None, classes=None,
 ):
     """One batched round over a flat stream, IN PLACE with
     :data:`KERNEL_OPS`: ``(B, n_pad)`` planes + ``(B,)`` active mask ->
@@ -881,9 +873,11 @@ def batched_reference_round(
     which leaves inactive rows as they are.  The combine's segments
     ``(chunk_row, row_start)`` are the global rows (``row_start`` from the
     ascending ``chunk_row``), or any finer split into runs of adjacent
-    chunks that keeps each real row whole (the service's).  ``chunk_len``
-    (the stream's :func:`ref.chunk_lengths`, hoisted by the caller) is
-    where A' and E stop each chunk; they compute it when it is omitted."""
+    chunks that keeps each real row whole (the service's), split into short
+    and long by ``classes`` (:func:`ref.segment_classes`).  ``chunk_len``
+    (the stream's :func:`ref.chunk_lengths`) is where A' and E stop each
+    chunk.  Both are hoisted by the caller; the kernels compute them when
+    they are omitted."""
     if fits_one_chunk:
         best_l, best_u = ops.batched_fused(
             val, col, ii_g, lhs_g, rhs_g, lb, ub, tile_inst, active, n_pad, int_eps, inf
@@ -893,7 +887,7 @@ def batched_reference_round(
         width = bsz * n_pad
         lbf, ubf = lb.view(width), ub.view(width)
         partials = ops.activities(val, col_g, lbf, ubf, width, inf, chunk_len=chunk_len)
-        aggs = ops.combine(*partials, chunk_row, row_start)
+        aggs = ops.combine(*partials, chunk_row, row_start, classes=classes)
         best_l, best_u = ops.candidates(val, col_g, ii_g, *aggs, lhs_g, rhs_g, lbf, ubf, width,
                                         int_eps, inf, chunk_len=chunk_len)
         on = active[:, None]
@@ -908,20 +902,22 @@ def _batched_prepared_round(
 ):
     """One round over a prepared bucket, with the reference's rule: past
     ``SCATTER_MAX_NPAD`` (read at call time) the partitioned round over the
-    bucket's slab partition (#11, the combine, #12 with #15: copies routed
-    to their instance's plane by the run maps, inactive instances skipped
-    on the device); otherwise :func:`batched_reference_round`."""
+    bucket's slab partition (#11, the straddle combine, #12 with #15:
+    copies routed to their instance's plane by the run maps, inactive
+    instances skipped on the device); otherwise
+    :func:`batched_reference_round`."""
     if prep.n_pad > SCATTER_MAX_NPAD:
         part = prep.slab_partition(slab)
         return ops.partitioned(
             part, lb, ub, active, node=False, eps=eps, int_eps=int_eps, inf=inf,
-            outward=outward, segments=prep.straddle_segments(part, 1),
+            outward=outward,
         )
     d = prep.d
     return batched_reference_round(
         d.val, d.col, d.col_g, d.tile_inst, d.ii_g, d.chunk_row, prep.row_start, d.lhs_g,
         d.rhs_g, lb, ub, active, n_pad=prep.n_pad, fits_one_chunk=prep.fits_one_chunk,
         eps=eps, int_eps=int_eps, inf=inf, outward=outward, ops=ops, chunk_len=d.chunk_len,
+        classes=prep.seg_classes,
     )
 
 
@@ -1198,8 +1194,8 @@ def _node_round(
     picked on the host.
 
     With a slab partition ``part`` (instances past ``SCATTER_MAX_NPAD``)
-    the partitioned node round runs: #13, the combine, #14 and #15's merge,
-    which skip inactive nodes on the device (the plain path: the
+    the partitioned node round runs: #13, the straddle combine, #14 and
+    #15's merge, which skip inactive nodes on the device (the plain path: the
     partitioned oracle per active node).  Else rows that fit one chunk run
     kernel #10, and rows that span chunks A', the combine and E over the
     node batch (where the reference vmaps its single-instance round); then
@@ -1208,7 +1204,7 @@ def _node_round(
     if part is not None:
         return ops.partitioned(
             part, lb, ub, active, node=True, eps=eps, int_eps=int_eps, inf=inf,
-            outward=outward, segments=prep.straddle_segments(part, lb.shape[0]),
+            outward=outward,
         )
     d = prep.d
     if prep.fits_one_chunk:
@@ -1219,7 +1215,8 @@ def _node_round(
     else:
         partials = ops.node_activities(d.val, d.col, lb, ub, active, prep.n_pad, inf,
                                        chunk_len=prep.chunk_len)
-        aggs = ops.node_combine(*partials, d.chunk_row, prep.row_start, active)
+        aggs = ops.node_combine(*partials, d.chunk_row, prep.row_start, active,
+                                classes=prep.seg_classes)
         best_l, best_u = ops.node_candidates(
             d.val, d.col, prep.ii_g, *aggs, prep.lhs_g, prep.rhs_g, lb, ub, active,
             prep.n_pad, int_eps, inf, chunk_len=prep.chunk_len,

@@ -4,7 +4,7 @@ round and of the solver's node objective, behind PyTorch wrappers.
 
 Each wrapper of a TPU kernel keeps the signature of its Pallas twin in the
 JAX package (``src/repro/kernels/prop_round.py``) minus ``interpret`` and
-``block``; the long-row combine replaces an XLA segment sum.  On
+``block``; the long-row and straddle combines replace XLA segment sums.  On
 a CPU tensor it runs the kernel's plain-PyTorch version (``ref.py``); on a
 CUDA tensor it launches the hand-written Hopper kernel of
 ``csrc/prop_round.cu`` or ``csrc/slab_round.cu`` on the current stream, or
@@ -421,32 +421,57 @@ apply_updates_tiles.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start):
+def _classes(row_start, n_chunks: int, classes):
+    """The combine's segment classes ``(short, long)``: as the caller
+    hoisted them (:func:`ref.segment_classes`, 1-D int32 each), or computed
+    here on the device, padded, when not given."""
+    if classes is None:
+        return ref.segment_classes(row_start, n_chunks=n_chunks)
+    for name, t in zip(("short", "long"), classes):
+        _expect(f"classes[{name}]", t, torch.int32, (t.shape[0],))
+    return classes
+
+
+def _check_partials(mf, mc, xf, xc, shape) -> None:
+    for name, t, dt in (("mf", mf, torch.float64), ("mc", mc, torch.int32),
+                        ("xf", xf, torch.float64), ("xc", xc, torch.int32)):
+        _expect(name, t, dt, shape)
+
+
+def combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start, classes=None):
     """Kernel A' partials ``(T, R)`` -> each chunk's completed row aggregates
     ``(T, R)``: every row's partials summed left to right over its adjacent
     chunks (``row_start`` ``(m + 2,)`` int64: each row's first chunk, the
-    padding row ``m`` included).
+    padding row ``m`` included).  ``classes`` is the segments' split into
+    short and long (:func:`ref.segment_classes`), hoisted by the engines;
+    computed here when omitted.  It decides which segments a warp sums, not
+    the sums.
 
     Replaces the XLA ``segment_sum`` of the reference's
     ``_combine_chunk_partials`` (src/repro/kernels/ops.py:821), not a Pallas
     kernel: an atomic segment sum has no fixed order on the card.  Bound on
     the H100: 48 B per chunk (four partials read, four aggregates written).
-    Design: one thread per row walks its chunks in stream order, twice (sum,
-    then write back)."""
+    A row's sum is one chain of dependent adds, so a row of thousands of
+    chunks walked by one thread costs that thread's load latency per chunk.
+    Design: one thread per short segment walks its chunks in stream order
+    (sum, then write back); one warp per long segment loads 32 chunks'
+    partials per step, coalesced, four steps ahead, and every lane adds the
+    step's 32 values in chunk order by shuffles (the same order, so the same
+    bits); counts by a warp reduction; a coalesced write-back."""
     operands = (mf, mc, xf, xc, chunk_row, row_start)
     if not _on_cuda(*operands):
         return ref.combine_chunk_partials_ref(mf, mc, xf, xc, chunk_row, row_start)
-    shape = tuple(mf.shape)
-    for name, t, dt in (("mf", mf, torch.float64), ("mc", mc, torch.int32),
-                        ("xf", xf, torch.float64), ("xc", xc, torch.int32),
-                        ("chunk_row", chunk_row, torch.int32)):
-        _expect(name, t, dt, shape)
+    _check_partials(mf, mc, xf, xc, tuple(mf.shape))
+    _expect("chunk_row", chunk_row, torch.int32, tuple(mf.shape))
     _expect("row_start", row_start, torch.int64, (row_start.shape[0],))
+    short, long = _classes(row_start, mf.numel(), classes)
     omf, oxf = torch.empty_like(mf), torch.empty_like(xf)
     omc, oxc = torch.empty_like(mc), torch.empty_like(xc)
+    if short.numel() + long.numel() == 0:
+        return omf, omc, oxf, oxc
     err = _build.lib().combine_chunk_partials(
-        _p(mf), _p(mc), _p(xf), _p(xc), _p(row_start), _p(omf), _p(omc), _p(oxf),
-        _p(oxc), row_start.shape[0] - 1, _stream(),
+        _p(mf), _p(mc), _p(xf), _p(xc), _p(row_start), _p(short), _p(long), _p(omf), _p(omc),
+        _p(oxf), _p(oxc), short.numel(), long.numel(), _stream(),
     )
     combine_chunk_partials_tiles.launches += 1
     _build.check(err, "combine_chunk_partials")
@@ -572,36 +597,38 @@ def node_activities_gather_tiles(val, col, lb, ub, active, n_pad: int, inf: floa
 node_activities_gather_tiles.launches = 0
 
 
-def node_combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start, active):
+def node_combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start, active,
+                                      classes=None):
     """The long-row combine over a node batch: ``(B, T, R)`` partials ->
     ``(B, T, R)`` completed aggregates, every node's segments those of
-    ``row_start`` (one instance), summed left to right; per active node
-    exactly :func:`combine_chunk_partials_tiles` on its planes, inactive
-    nodes' planes not written (zeros in the plain version).
+    ``row_start`` (one instance, split by ``classes`` as in
+    :func:`combine_chunk_partials_tiles`), summed left to right; per active
+    node exactly :func:`combine_chunk_partials_tiles` on its planes,
+    inactive nodes' planes not written (zeros in the plain version).
 
     No Pallas twin (the reference's XLA ``segment_sum``, vmapped).  Bound
-    on the H100: 48 B per (active node, chunk).  Design: a (row block,
-    group of 32 nodes) grid, one thread per row; each warp ballots its
-    group's flags and, for each active node, walks the row's chunks in
-    stream order, as the single-instance combine does."""
+    on the H100: 48 B per (active node, chunk).  Design: a (segment block,
+    group of 32 nodes) grid; each warp ballots its group's flags and, for
+    each active node, runs the single-instance combine's thread (short
+    segments) or warp (long segments) on the node's planes."""
     operands = (mf, mc, xf, xc, chunk_row, row_start, active)
     if not _on_cuda(*operands):
         return ref.node_combine_chunk_partials_ref(*operands)
     bsz = mf.shape[0]
     shape = (bsz, *chunk_row.shape)
-    for name, t, dt in (("mf", mf, torch.float64), ("mc", mc, torch.int32),
-                        ("xf", xf, torch.float64), ("xc", xc, torch.int32)):
-        _expect(name, t, dt, shape)
+    _check_partials(mf, mc, xf, xc, shape)
     _expect("chunk_row", chunk_row, torch.int32, shape[1:])
     _expect("row_start", row_start, torch.int64, (row_start.shape[0],))
     _expect("active", active, torch.bool, (bsz,))
+    short, long = _classes(row_start, chunk_row.numel(), classes)
     omf, oxf = torch.empty_like(mf), torch.empty_like(xf)
     omc, oxc = torch.empty_like(mc), torch.empty_like(xc)
-    if bsz == 0:
+    if bsz == 0 or short.numel() + long.numel() == 0:
         return omf, omc, oxf, oxc
     err = _build.lib().node_combine_chunk_partials(
-        _p(mf), _p(mc), _p(xf), _p(xc), _p(row_start), _p(active), _p(omf), _p(omc), _p(oxf),
-        _p(oxc), row_start.shape[0] - 1, chunk_row.numel(), bsz, _stream(),
+        _p(mf), _p(mc), _p(xf), _p(xc), _p(row_start), _p(short), _p(long), _p(active),
+        _p(omf), _p(omc), _p(oxf), _p(oxc), short.numel(), long.numel(), chunk_row.numel(), bsz,
+        _stream(),
     )
     node_combine_chunk_partials_tiles.launches += 1
     _build.check(err, "node_combine_chunk_partials")
@@ -988,27 +1015,28 @@ def node_slab_partials_tiles(
 ):
     """Per-copy, per-node activity partials of ONE instance's straddle
     sub-stream: ``(Ta, R, K)`` copies + run maps + ``(B, W)`` per-node
-    planes + ``(B,)`` ``active`` -> 4 x ``(B, Ta, R)``; inactive nodes get
-    zeros.  Per node exactly :func:`batched_slab_partials_tiles`.
+    planes + ``(B,)`` ``active`` -> 4 x ``(B, Ta, R)``; inactive nodes'
+    planes are not written (zeros in the plain version).  Per node exactly
+    :func:`batched_slab_partials_tiles`.
 
     Replaces ``node_slab_partials_tiles`` / ``_node_slab_partials_kernel``
     (src/repro/kernels/prop_round.py:1383 / :1351).  Bound on the H100: the
     sub-stream once per launch (it fits the 50 MB L2 at the solver's
     sizes) plus each active node's window gathers and 24 B of partials per
-    (node, chunk), and the zeros of the inactive nodes' rows.  Design: #11's
-    lane groups; each warp ballots the mask 32 nodes at a time and visits
-    the active nodes only (kernel #10's scheme); the wrapper zero-fills the
-    outputs."""
+    (node, chunk).  Design: #11's lane groups; each warp ballots the mask 32
+    nodes at a time and visits the active nodes only (kernel #10's scheme);
+    the outputs are allocated, not filled: the straddle combine reads the
+    active planes only."""
     operands = (val, col_s, run_start, run_len, run_slab, active, lb, ub)
     if not _on_cuda(*operands):
         return ref.node_slab_partials_ref(*operands, slab, max_run_len, inf)
     t, r, k, bsz, width = _check_copies(val, col_s, lb, ub, active)
     n_runs = _check_runs(t, run_start=run_start, run_len=run_len, run_slab=run_slab)
     dev = val.device
-    mf = torch.zeros((bsz, t, r), dtype=torch.float64, device=dev)
-    xf = torch.zeros((bsz, t, r), dtype=torch.float64, device=dev)
-    mc = torch.zeros((bsz, t, r), dtype=torch.int32, device=dev)
-    xc = torch.zeros((bsz, t, r), dtype=torch.int32, device=dev)
+    mf = torch.empty((bsz, t, r), dtype=torch.float64, device=dev)
+    xf = torch.empty((bsz, t, r), dtype=torch.float64, device=dev)
+    mc = torch.empty((bsz, t, r), dtype=torch.int32, device=dev)
+    xc = torch.empty((bsz, t, r), dtype=torch.int32, device=dev)
     if t == 0:
         return mf, mc, xf, xc
     err = _build.lib().node_slab_partials(
@@ -1021,6 +1049,74 @@ def node_slab_partials_tiles(
 
 
 node_slab_partials_tiles.launches = 0
+
+
+def straddle_combine_tiles(mf, mc, xf, xc, a_order, a_seg, agg_slot, active=None):
+    """The straddle combine of the partitioned round: per-copy partials of
+    #11 (``(Ta, R)``) or #13 (``(nb, Ta, R)``) + the partition's straddle
+    index (``a_order`` ``(Ta*R,)`` int64, ``a_seg`` ``(n_straddle + 2,)``
+    int64, ``agg_slot`` ``(T'', R)`` int32) + ``(nb,)`` bool ``active``
+    (None: every plane) -> 4 x ``(T'', R)`` or ``(nb, T'', R)`` straddle
+    aggregates, the ``str_*`` inputs of #12 and #14.  On every active plane
+    and every chunk with ``row_done == 0`` (``agg_slot != 0``) bitwise equal
+    to :func:`ref.straddle_tables`: each straddle row's copy partials summed
+    left to right from 0 in sub-stream order.  Chunks with ``row_done ==
+    1`` hold the dummy slot's +0.0 and 0 (#12 and #14 never read them);
+    inactive planes are not written (zeros in the plain version,
+    :func:`ref.straddle_combine_ref`).
+
+    Replaces the reference's straddle ``segment_sum``
+    (``_straddle_aggregates``, src/repro/kernels/ops.py:830), not a Pallas
+    kernel.  Bound on the H100: per active plane the partials at the
+    straddle positions read once and the aggregates written once, plus the
+    index (``a_order`` at those positions, ``a_seg``, ``agg_slot``).
+    Design: two launches and no PyTorch gather -- one thread per (active
+    plane, table slot) walks the slot's positions through ``a_order`` into
+    a compact ``(nb, n_straddle + 1)`` table, then one thread per (active
+    plane, chunk) copies its slot's entry; each warp ballots its group of
+    32 planes' flags."""
+    operands = (mf, mc, xf, xc, a_order, a_seg, agg_slot)
+    if active is not None:
+        operands += (active,)
+    if not _on_cuda(*operands):
+        return ref.straddle_combine_ref(mf, mc, xf, xc, a_order, a_seg, agg_slot, active)
+    lead = tuple(mf.shape[:-2])
+    _check_partials(mf, mc, xf, xc, tuple(mf.shape))
+    if len(lead) > 1:
+        raise ValueError(f"partials: expected (Ta, R) or (nb, Ta, R), got {tuple(mf.shape)}")
+    nb = lead[0] if lead else 1
+    n_pos = mf.shape[-2] * mf.shape[-1]
+    _expect("a_order", a_order, torch.int64, (n_pos,))
+    _expect("a_seg", a_seg, torch.int64, (a_seg.shape[0],))
+    if a_seg.shape[0] < 2:
+        raise ValueError("a_seg: expected n_straddle + 2 >= 2 entries")
+    _expect("agg_slot", agg_slot, torch.int32, (agg_slot.shape[0], agg_slot.shape[1]))
+    if active is not None:
+        _expect("active", active, torch.bool, (nb,))
+    n_slots = a_seg.shape[0] - 1
+    dev = mf.device
+    shape = (*lead, *agg_slot.shape)
+    omf = torch.empty(shape, dtype=torch.float64, device=dev)
+    oxf = torch.empty(shape, dtype=torch.float64, device=dev)
+    omc = torch.empty(shape, dtype=torch.int32, device=dev)
+    oxc = torch.empty(shape, dtype=torch.int32, device=dev)
+    if nb == 0:
+        return omf, omc, oxf, oxc
+    tmf = torch.empty((nb, n_slots), dtype=torch.float64, device=dev)
+    txf = torch.empty((nb, n_slots), dtype=torch.float64, device=dev)
+    tmc = torch.empty((nb, n_slots), dtype=torch.int32, device=dev)
+    txc = torch.empty((nb, n_slots), dtype=torch.int32, device=dev)
+    err = _build.lib().straddle_combine(
+        _p(mf), _p(mc), _p(xf), _p(xc), _p(a_order), _p(a_seg), _p(agg_slot),
+        None if active is None else _p(active), _p(tmf), _p(tmc), _p(txf), _p(txc), _p(omf),
+        _p(omc), _p(oxf), _p(oxc), n_slots, n_pos, agg_slot.numel(), nb, _stream(),
+    )
+    straddle_combine_tiles.launches += 1
+    _build.check(err, "straddle_combine")
+    return omf, omc, oxf, oxc
+
+
+straddle_combine_tiles.launches = 0
 
 
 def node_slab_round_tiles(
@@ -1125,6 +1221,7 @@ KERNELS = (
     node_slab_partials_tiles,
     node_slab_round_tiles,
     apply_updates_slab_tiles,
+    straddle_combine_tiles,
     activities_tiles,
     candidates_tiles,
     fused_round_tiles,

@@ -234,7 +234,49 @@ def row_starts(chunk_row, n_rows: int):
 
 
 
-def combine_chunk_partials_ref(mf, mc, xf, xc, chunk_row, row_start):
+# Segments of more chunks than this are long: the combine kernel gives each
+# one a warp, and each short segment a thread.
+LONG_SEGMENT = 32
+
+
+def segment_classes(row_start, threshold: int = LONG_SEGMENT, n_chunks: int | None = None):
+    """The long-row combine's segments (``row_start`` ``(n_seg + 1,)``
+    int64) in two classes, ``(short, long)`` int32 segment ids in ascending
+    order: long where a segment holds more than ``threshold`` chunks.  Every
+    segment lies in exactly one class.  Built once per layout (prepare
+    time, or the service's admission), not per round; the combine's sums
+    do not depend on it.
+
+    With ``n_chunks`` (the stream's chunks) the lists have fixed lengths
+    and are computed on the device with no host read: ``short`` holds
+    ``n_seg`` entries, ``long`` ``n_chunks // (threshold + 1)`` (as many
+    long segments as fit), each padded with -1 (an empty entry)."""
+    n_seg = row_start.shape[0] - 1
+    is_long = (row_start[1:] - row_start[:-1]) > threshold
+    if n_chunks is None:
+        return tuple(x.nonzero().flatten().to(torch.int32) for x in (~is_long, is_long))
+    ids = torch.arange(n_seg, dtype=torch.int32, device=row_start.device)
+    out = []
+    for mask, cap in ((~is_long, n_seg), (is_long, n_chunks // (threshold + 1))):
+        pos = torch.where(mask, torch.cumsum(mask, 0) - 1, cap)
+        buf = torch.full((cap + 1,), -1, dtype=torch.int32, device=row_start.device)
+        out.append(buf.scatter_(0, pos, ids)[:cap])
+    return tuple(out)
+
+
+def _segment_sums(values, start, count):
+    """``values`` ``(..., L)`` summed LEFT TO RIGHT from 0 over the segments
+    ``[start, start + count)`` -> ``(..., n_seg)``."""
+    acc = torch.zeros((*values.shape[:-1], start.shape[0]), dtype=values.dtype,
+                      device=values.device)
+    for j in range(int(count.max()) if count.numel() else 0):
+        has = count > j
+        idx = torch.where(has, start + j, 0)
+        acc = acc + torch.where(has, values[..., idx], 0)
+    return acc
+
+
+def combine_chunk_partials_ref(mf, mc, xf, xc, chunk_row, row_start, classes=None):
     """Oracle of the long-row combine: each row's ``(T, R)`` chunk partials
     summed LEFT TO RIGHT over the row's chunks, which lie next to each other
     in the stream (``row_start`` ``(m + 2,)`` int64 holds each row's first
@@ -243,22 +285,17 @@ def combine_chunk_partials_ref(mf, mc, xf, xc, chunk_row, row_start):
     matches it bitwise; rows that ran out of chunks add 0, which leaves a
     sum started from +0.0 unchanged.  Partials may carry leading node axes
     before ``chunk_row``'s shape: each node is combined on its own, over the
-    same segments."""
+    same segments.  ``classes`` (:func:`segment_classes`, the kernel's
+    thread/warp split) changes nothing."""
+    del classes
     lead = mf.shape[: mf.ndim - chunk_row.ndim]
     nb = 1
     for d in lead:
         nb *= d
     start = row_start[:-1]
     count = row_start[1:] - start
-    fl = torch.stack([mf.reshape(nb, -1), xf.reshape(nb, -1)])
-    it = torch.stack([mc.reshape(nb, -1), xc.reshape(nb, -1)])
-    acc_f = torch.zeros((2, nb, start.shape[0]), dtype=fl.dtype, device=fl.device)
-    acc_i = torch.zeros((2, nb, start.shape[0]), dtype=it.dtype, device=it.device)
-    for j in range(int(count.max())):
-        has = count > j
-        idx = torch.where(has, start + j, 0)
-        acc_f = acc_f + torch.where(has, fl[..., idx], 0.0)
-        acc_i = acc_i + torch.where(has, it[..., idx], 0)
+    acc_f = _segment_sums(torch.stack([mf.reshape(nb, -1), xf.reshape(nb, -1)]), start, count)
+    acc_i = _segment_sums(torch.stack([mc.reshape(nb, -1), xc.reshape(nb, -1)]), start, count)
     crow = chunk_row.reshape(-1).long()
     shape = mf.shape
     return (acc_f[0][:, crow].reshape(shape), acc_i[0][:, crow].reshape(shape),
@@ -314,12 +351,14 @@ def node_activities_gather_ref(val, col, lb, ub, active, n_pad: int, inf: float 
     return tuple(outs)
 
 
-def node_combine_chunk_partials_ref(mf, mc, xf, xc, chunk_row, row_start, active):
+def node_combine_chunk_partials_ref(mf, mc, xf, xc, chunk_row, row_start, active,
+                                    classes=None):
     """Oracle of the long-row combine over a node batch: ``(B, T, R)``
     partials, every node's segments those of ``row_start`` -> ``(B, T, R)``
     completed aggregates for the active nodes (each exactly
     :func:`combine_chunk_partials_ref` on its planes), zeros for the
-    others."""
+    others.  ``classes`` changes nothing."""
+    del classes
     outs = [torch.zeros_like(x) for x in (mf, mc, xf, xc)]
     rows = _active_rows(active)
     if rows.numel():
@@ -595,23 +634,54 @@ def straddle_segments(part, nb: int):
     return crow, row_start
 
 
-def straddle_tables(part, mf, mc, xf, xc, segments=None, combine=None):
-    """The straddle combine: per-copy partials ``(..., Ta, R)`` -> each
-    straddle row's completed aggregates, gathered per main-stream chunk
-    ``(..., T'', R)``.  Each slot's partials are taken in ascending
-    sub-stream position (``part.a_order``) and summed left to right from 0
-    by ``combine`` (default the long-row combine's plain version; the engine
-    passes its kernel), so the sums take one order on every device.
-    ``segments`` is :func:`straddle_segments` for the planes, if cached."""
-    combine = combine_chunk_partials_ref if combine is None else combine
+def straddle_tables(part, mf, mc, xf, xc):
+    """The straddle combine over every plane: per-copy partials ``(...,
+    Ta, R)`` -> each straddle row's completed aggregates, gathered per
+    main-stream chunk ``(..., T'', R)``.  Each slot's partials are taken in
+    ascending sub-stream position (``part.a_order``) and summed left to
+    right from 0 by the long-row combine's plain version, so the sums take
+    one order on every device.  The plain path's function; the kernel path
+    runs :func:`straddle_combine_ref`'s kernel, equal to it on every chunk
+    that reads it (``row_done == 0``)."""
     lead = mf.shape[:-2]
     flat = [x.reshape(-1, x.shape[-2] * x.shape[-1])[:, part.a_order] for x in (mf, mc, xf, xc)]
     nb, length = flat[0].shape
-    crow, row_start = straddle_segments(part, nb) if segments is None else segments
-    done = combine(*(x.reshape(-1) for x in flat), crow, row_start)
+    crow, row_start = straddle_segments(part, nb)
+    done = combine_chunk_partials_ref(*(x.reshape(-1) for x in flat), crow, row_start)
     pos = part.agg_pos.reshape(-1)
     shape = (*lead, *part.agg_pos.shape)
     return tuple(x.reshape(nb, length)[:, pos].reshape(shape) for x in done)
+
+
+def straddle_combine_ref(mf, mc, xf, xc, a_order, a_seg, agg_slot, active=None):
+    """Oracle of the straddle combine kernel: per-copy partials ``(Ta, R)``
+    or ``(nb, Ta, R)`` + the partition's straddle index (``a_order``
+    ``(Ta*R,)`` int64, ``a_seg`` ``(n_straddle + 2,)`` int64, ``agg_slot``
+    ``(T'', R)`` int32) + ``active`` ``(nb,)`` bool (None: every plane) ->
+    4 x ``(T'', R)`` or ``(nb, T'', R)`` straddle aggregates.  Per active
+    plane: the compact ``(n_straddle + 1,)`` table of each slot's partials
+    summed left to right from 0 in ``a_order`` order (slot 0, the dummy,
+    holds +0.0 and 0), then each chunk's slot entry.  Equal to
+    :func:`straddle_tables` wherever ``agg_slot != 0``, which is every chunk
+    with ``row_done == 0``; inactive planes are zeros."""
+    lead = mf.shape[:-2]
+    nb = 1
+    for d in lead:
+        nb *= d
+    rows = (torch.arange(nb, device=mf.device) if active is None
+            else active.nonzero().flatten())
+    start = a_seg[:-1].clone()
+    count = a_seg[1:] - start
+    start[0], count[0] = 0, 0  # the dummy slot sums nothing
+    slot = agg_slot.reshape(-1).long()
+    outs = []
+    for x in (mf, mc, xf, xc):
+        out = torch.zeros((nb, slot.shape[0]), dtype=x.dtype, device=x.device)
+        if rows.numel():
+            table = _segment_sums(x.reshape(nb, -1)[rows][:, a_order], start, count)
+            out[rows] = table[:, slot]
+        outs.append(out.reshape(*lead, *agg_slot.shape))
+    return tuple(outs)
 
 
 def partitioned_round_ref(part, lb_p, ub_p, int_eps: float, inf: float = INF):

@@ -214,6 +214,78 @@ def test_combine_matches_plain_version(cuda, gen, lengths):
         _match(g, w)
 
 
+def _bits(x):
+    """Bit patterns of a float64 tensor (ints as they are): -0.0 differs
+    from +0.0."""
+    x = x.cpu()
+    return x.view(torch.int64) if x.dtype == torch.float64 else x
+
+
+def _match_bits(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(_bits(got), _bits(want))
+
+
+# Segment lengths of the long-row combine around its thread/warp threshold
+# and up to the longest rows of the smoke instances (3,000 chunks at tile
+# width 8) and beyond.
+COMBINE_LENGTHS = [0, 1, 31, 32, 33, 1000, 3000, 6000, 2, 0]
+
+
+def _combine_partials(gen, n_chunks, kind, lead=()):
+    """Chunk partials of one kind: general floats over 16 decades, mostly
+    explicit zeros, or a mix with -0.0."""
+    shape = (*lead, n_chunks)
+    f = lambda: gen.standard_normal(shape) * 10.0 ** gen.integers(-8, 9, shape)
+    mf, xf = f(), f()
+    if kind == "zeros":
+        mf[gen.random(shape) < 0.8] = 0.0
+        xf[gen.random(shape) < 0.8] = 0.0
+    elif kind == "negzero":
+        mf[gen.random(shape) < 0.5] = -0.0
+        xf[:] = -0.0
+    return (mf, gen.integers(0, 3, shape).astype(np.int32), xf,
+            gen.integers(0, 3, shape).astype(np.int32))
+
+
+@pytest.mark.parametrize("kind", ["float", "zeros", "negzero"])
+@pytest.mark.parametrize("threshold", [tref.LONG_SEGMENT, 0, 1 << 30])
+def test_combine_long_segments_match_plain_version(cuda, gen, kind, threshold):
+    """The flat and node combine at segment lengths 0 to 6,000 chunks: the
+    thread (short) and warp (long) paths bitwise equal (bit patterns) to
+    the unchanged plain version, whatever the threshold that split them,
+    hoisted or computed by the wrapper."""
+    counts = np.array(COMBINE_LENGTHS)
+    m = len(counts)
+    n_chunks = int(counts.sum()) + 3
+    crow = np.concatenate([np.repeat(np.arange(m), counts), [m] * 3]).astype(np.int32)
+    to = lambda a: torch.from_numpy(np.array(a)).to(cuda)
+    crow_t = to(crow).reshape(-1, 1)
+    row_start = tref.row_starts(crow_t, m + 1)
+    classes = tref.segment_classes(row_start, threshold)
+    parts = [to(x).reshape(-1, 1) for x in _combine_partials(gen, n_chunks, kind)]
+    want = tref.combine_chunk_partials_ref(*parts, crow_t, row_start)
+    tk.reset_launch_counts()
+    for got in (tk.combine_chunk_partials_tiles(*parts, crow_t, row_start, classes=classes),
+                tk.combine_chunk_partials_tiles(*parts, crow_t, row_start)):
+        for g, w in zip(got, want):
+            _match_bits(g, w)
+    assert tk.launch_counts()["combine_chunk_partials_tiles"] == 2
+    bsz = 5
+    act = torch.arange(bsz, device=cuda) % 2 == 0
+    nodes = [to(x).reshape(bsz, -1, 1)
+             for x in _combine_partials(gen, n_chunks, kind, lead=(bsz,))]
+    want = tref.node_combine_chunk_partials_ref(*nodes, crow_t, row_start, act)
+    got = tk.node_combine_chunk_partials_tiles(*nodes, crow_t, row_start, act, classes=classes)
+    for g, w in zip(got, want):
+        _match_bits(g[act], w[act])
+    for i in act.nonzero().flatten().tolist():
+        one = tk.combine_chunk_partials_tiles(*(x[i] for x in nodes), crow_t, row_start)
+        for g, w in zip(got, one):
+            _match_bits(g[i], w)
+
+
 def _packed_tiles(gen, t, r, k, n, integer, dev):
     """Tiles laid out as the block-ELL conversion lays them out, each
     chunk's nonzeros at its front: lengths 0 (all padding), 1, up to 31
@@ -486,10 +558,13 @@ def test_slab_kernels_match_plain_versions(cuda, gen, gen_name, kw, tile_width, 
             partials = tk.batched_slab_partials_tiles(*a_args)
             for g, w in zip(partials, tref.batched_slab_partials_ref(*a_args)):
                 _match(g, w)
-            strs = tref.straddle_tables(part, *partials,
-                                        combine=tk.combine_chunk_partials_tiles)
-            for g, w in zip(strs, tref.straddle_tables(part, *partials)):
+            index = (part.a_order, part.a_seg, part.agg_slot)
+            strs = tk.straddle_combine_tiles(*partials, *index)
+            for g, w in zip(strs, tref.straddle_combine_ref(*partials, *index)):
                 _match(g, w)
+            done = part.row_done == 0
+            for g, w in zip(strs, tref.straddle_tables(part, *partials)):
+                _match(g[done], w[done])
             r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g,
                       part.rhs_g, part.run_start, part.run_len, part.run_inst, part.run_slab,
                       act)
@@ -503,7 +578,7 @@ def test_slab_kernels_match_plain_versions(cuda, gen, gen_name, kw, tile_width, 
                 _match(g, w)
             assert tk.launch_counts() == {
                 fn.__name__: int(fn.__name__ in ("batched_slab_partials_tiles",
-                                                 "combine_chunk_partials_tiles",
+                                                 "straddle_combine_tiles",
                                                  "batched_slab_round_tiles",
                                                  "apply_updates_slab_tiles"))
                 for fn in tk.KERNELS
@@ -525,9 +600,16 @@ def test_node_slab_kernels_match_plain_versions(cuda, gen, gen_name, kw, tile_wi
         a_args = (part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_slab,
                   act, lb, ub, slab, part.a_max_run_len)
         partials = tk.node_slab_partials_tiles(*a_args)
+        # Inactive nodes' partials are not written: active planes only.
         for g, w in zip(partials, tref.node_slab_partials_ref(*a_args)):
-            _match(g, w)
-        strs = tref.straddle_tables(part, *partials, combine=tk.combine_chunk_partials_tiles)
+            _match(g[act], w[act])
+        index = (part.a_order, part.a_seg, part.agg_slot)
+        strs = tk.straddle_combine_tiles(*partials, *index, act)
+        done = part.row_done == 0
+        for g, w, t in zip(strs, tref.straddle_combine_ref(*partials, *index, act),
+                           tref.straddle_tables(part, *partials)):
+            _match(g[act], w[act])
+            _match(g[act][:, done], t[act][:, done])
         r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g,
                   part.rhs_g, part.run_start, part.run_len, part.run_slab, act)
         want = tref.node_slab_round_ref(*r_args, lb, ub, slab, part.max_run_len, 1e-9, 1e-6)
@@ -544,7 +626,41 @@ def test_node_slab_kernels_match_plain_versions(cuda, gen, gen_name, kw, tile_wi
             for g, w in zip(partials, one):
                 _match(g[i], w)
         counts = tk.launch_counts()
-        assert counts["node_slab_partials_tiles"] == counts["node_slab_round_tiles"] == 1
+        assert (counts["node_slab_partials_tiles"] == counts["straddle_combine_tiles"]
+                == counts["node_slab_round_tiles"] == 1)
+        assert counts["combine_chunk_partials_tiles"] == 0
+
+
+@pytest.mark.parametrize("kind", ["float", "zeros", "negzero"])
+@pytest.mark.parametrize("n_act", [0, 8, 128])
+def test_straddle_combine_matches_plain_version(cuda, gen, kind, n_act):
+    """The straddle combine over 128 planes with 0, 8 and 128 active:
+    bitwise (bit patterns) equal to its plain version on the active planes,
+    and to ``straddle_tables`` where ``row_done == 0``; the single-plane
+    form (no mask) too."""
+    p = td.make_knapsack(n=280, m=8, seed=5)
+    part = rt.prepare_block_ell(p, tile_width=8).slab_partition(128)
+    assert part.has_straddle
+    ta, r = part.a_slot.shape
+    bsz = 128
+    act = torch.zeros(bsz, dtype=torch.bool, device=cuda)
+    if n_act:
+        act[:: bsz // n_act] = True
+    to = lambda a: torch.from_numpy(np.array(a)).to(cuda).reshape(bsz, ta, r)
+    parts = [to(x) for x in _combine_partials(gen, ta * r, kind, lead=(bsz,))]
+    index = (part.a_order, part.a_seg, part.agg_slot)
+    done = part.row_done == 0
+    tk.reset_launch_counts()
+    got = tk.straddle_combine_tiles(*parts, *index, act)
+    want = tref.straddle_combine_ref(*parts, *index, act)
+    tables = tref.straddle_tables(part, *parts)
+    for g, w, t in zip(got, want, tables):
+        _match_bits(g[act], w[act])
+        _match_bits(g[act][:, done], t[act][:, done])
+    one = tk.straddle_combine_tiles(*(x[0] for x in parts), *index)
+    for g, t in zip(one, tables):
+        _match_bits(g[done], t[0][done])
+    assert tk.launch_counts()["straddle_combine_tiles"] == 2
 
 
 @pytest.mark.parametrize("exact", [True, False], ids=["int", "float"])
