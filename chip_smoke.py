@@ -32,10 +32,14 @@ numpy only, nothing of JAX) and, on one CUDA card:
      share per fixed point;
   6. (phase 5) builds ``pbf``, a pseudo-boolean instance at the same size
      that is feasible at the root, and holds the node-batch kernels against
-     their plain versions at the solver's shapes: the node round (#10) and
-     the batched merge (#9) on its (18,750, 8, 8) tiles over a (128, 60,032)
-     pool of warm-started node bounds with 0, 8 and 128 active rows, and the
-     node objective (#16) on the same pool, all bitwise, timed; then (5b)
+     their plain versions at the solver's shapes: the node round (#10, into
+     accumulator planes kept across its launches as the engine keeps them,
+     reset between timed launches) and the batched merge (#9, which hands
+     the planes back) on its (18,750, 8, 8) tiles over a (128, 60,032) pool
+     of warm-started node bounds with 0, 8 and 128 active rows, #10's bound
+     with ``val`` read at the nonzeros (each chunk stopped at its length)
+     beside the bound with ``val`` at every slot, and the node objective (#16)
+     on the same pool, all bitwise, timed; then (5b)
      the multi-chunk node round's kernels -- A', the combine and E over a
      node batch -- on pbf's tiles at tile width 4 over the same pool with 8
      and 128 active rows, bitwise against their plain versions and, node by
@@ -63,7 +67,8 @@ numpy only, nothing of JAX) and, on one CUDA card:
      column-slab partitioned engine: builds ``bandw`` and ``pbw``
      (n = m = 150,000; n_pad 150,016, three slabs of 50,048 columns) and
      their slab partitions (build seconds printed); holds kernels #11 and
-     #12 (with #15's window merge) against their plain versions on both
+     #12 (with #15's window merge, into kept planes, with the nonzero bound
+     beside the all-slot bound) against their plain versions on both
      partitions at K = 128, kernel D + F at n_pad 150,016, and #13, #14 and
      #15 on pbw's K = 8 partition over a (128, 150,016) pool with 0, 8 and
      128 active rows, all bitwise, timed; the straddle combine on both
@@ -397,18 +402,43 @@ def fresh_inputs(torch, pairs):
     return reset
 
 
-def merge_bytes(torch, bnd, lb, ub, best_l, best_u, eps, active=None) -> dict:
+def merge_bytes(torch, bnd, lb, ub, best_l, best_u, eps, active=None, inf=None) -> dict:
     """Bytes an in-place merge must move on these inputs: the bounds and
     candidates of every active column read, and 8 B for each entry that
-    tightens (most store nothing)."""
+    tightens (most store nothing); with ``inf``, the batched merges'
+    hand-back too: 8 B for each active accumulator entry that holds a
+    candidate (set back to the sentinel ``-inf`` or ``inf``)."""
     take_l, take_u = bnd.improved_lb(best_l, lb, eps), bnd.improved_ub(best_u, ub, eps)
+    held_l, held_u = best_l != -(inf or 0.0), best_u != (inf or 0.0)
     if active is not None:
         take_l, take_u = take_l & active[:, None], take_u & active[:, None]
+        held_l, held_u = held_l & active[:, None], held_u & active[:, None]
         cols = int(active.sum()) * lb.shape[-1]
     else:
         cols = lb.shape[-1]
-    return dict(bounds=16 * cols, best=16 * cols,
-                stores=8 * int(take_l.sum() + take_u.sum()))
+    out = dict(bounds=16 * cols, best=16 * cols, stores=8 * int(take_l.sum() + take_u.sum()))
+    if inf is not None:
+        out["handback"] = 8 * int(held_l.sum() + held_u.sum())
+    return out
+
+
+def call_ms(torch, fn, reset, reps: int = 10) -> float:
+    """Median time of one wrapper call ``fn`` between synchronisations (CUDA
+    events around the call, so the host's work counts where the card waits
+    for it), with ``reset`` (untimed) before each: the kept-plane scatters,
+    whose repeated calls would otherwise find their planes full."""
+    out = []
+    for _ in range(reps):
+        reset()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
 
 
 def max_abs_err(torch, got, want) -> float:
@@ -850,7 +880,7 @@ def smoke(torch, dev):
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None, instance=primary[k],
             wrapper_ms=r["wrapper_ms"], bytes=r["bytes"],
-            **{key: r[key] for key in ("segment_reduce_ms",) if key in r},
+            **{key: r[key] for key in ("segment_reduce_ms", "bound_all_slots_ms") if key in r},
         ))
     log(json.dumps({"kernels": kernels}))
 
@@ -916,18 +946,27 @@ def node_kernel_phase(torch, np, rt, tk, tref, ops, build, pbf, prep, dev):
     out = {"node_fused_scatter_round_tiles": {}, "apply_updates_batch_tiles": {},
            "node_objective_tiles": {}}
 
-    def measure(kname, shape, got, want, fn_k, fn_p, moved, n_ops, plain_reps, reset=None):
+    def measure(kname, shape, got, want, fn_k, fn_p, moved, n_ops, plain_reps, reset=None,
+                all_slots=None, kept=False):
         b_ms, b_by = bound(sum(moved.values()), n_ops)
         row = dict(max_abs_err=max_abs_err(torch, got, want),
                    ms=kernel_ms(torch, build, fn_k, reset=reset),
-                   wrapper_ms=time_ms(torch, fn_k),
+                   wrapper_ms=call_ms(torch, fn_k, reset) if kept else time_ms(torch, fn_k),
                    plain_ms=time_ms(torch, fn_p, reps=plain_reps, trials=3),
                    bound_ms=b_ms, bound_by=b_by, bytes=moved)
+        extra = ""
+        if all_slots is not None:
+            row["bound_all_slots_ms"] = bound(sum(all_slots.values()), n_ops)[0]
+            extra = f" bound_all_slots_ms={row['bound_all_slots_ms']:.4f}"
         out[kname][shape] = row
         log(f"kernel {kname} on {shape}: max_abs_err={row['max_abs_err']} ms={row['ms']:.4f} "
             f"wrapper_ms={row['wrapper_ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-            f"bound_ms={b_ms:.4f} ({b_by}, {sum(moved.values())} B: {moved})")
+            f"bound_ms={b_ms:.4f} ({b_by}, {sum(moved.values())} B: {moved}){extra}")
 
+    # The accumulator planes of #10, kept across the launches as the engine
+    # keeps them across rounds: at the sentinels before each timed launch.
+    acc = tk.accumulator_planes(lbp)
+    sentinels = lambda: (acc[0].fill_(-cfg.inf), acc[1].fill_(cfg.inf))
     for n_act in (0, 8, POOL):
         act = torch.zeros(POOL, dtype=torch.bool, device=dev)
         if n_act:
@@ -935,35 +974,44 @@ def node_kernel_phase(torch, np, rt, tk, tref, ops, build, pbf, prep, dev):
         shape = f"pbf pool, {n_act} of {POOL} active"
         args = (d.val, d.col, prep.ii_g, prep.lhs_g, prep.rhs_g, lbp, ubp, act, n_pad,
                 cfg.int_eps)
-        got = tk.node_fused_scatter_round_tiles(*args)
+        kw = dict(acc=acc, chunk_len=prep.chunk_len, max_chunk_len=prep.max_chunk_len)
+        sentinels()
+        got = tuple(x.clone() for x in tk.node_fused_scatter_round_tiles(*args, **kw))
         want = tref.node_fused_scatter_round_ref(*args[:7], n_pad, cfg.int_eps, active=act)
         for i in act.nonzero().flatten().tolist():
             one = tk.fused_scatter_round_tiles(d.val, d.col, prep.ii_g, prep.lhs_g, prep.rhs_g,
                                                lbp[i], ubp[i], n_pad, cfg.int_eps)
             max_abs_err(torch, (got[0][i], got[1][i]), one)
         # The tile stream is 18 MB: it stays in the 50 MB L2 across the
-        # nodes, so it counts once per launch; each active node reads its
-        # two bound rows and writes its two accumulator rows.
-        moved = dict(tiles=tiles if n_act else 0, bounds=16 * n_act * n_pad,
-                     out=16 * n_act * n_pad)
+        # nodes, so it counts once per launch, with val at the nonzeros (each
+        # chunk stops at its length, 4 B per chunk) or, for the all-slot
+        # bound, at every slot; each active node reads its two bound rows
+        # and writes its two accumulator rows.
+        node_rows = dict(bounds=16 * n_act * n_pad, out=16 * n_act * n_pad)
+        moved = dict(tiles=(16 * nnz + 20 * t * r) if n_act else 0, **node_rows)
         measure("node_fused_scatter_round_tiles", shape, got, want,
-                lambda: tk.node_fused_scatter_round_tiles(*args),
+                lambda: tk.node_fused_scatter_round_tiles(*args, **kw),
                 lambda: tref.node_fused_scatter_round_ref(*args[:7], n_pad, cfg.int_eps,
                                                           active=act),
-                moved, 16 * nnz * n_act, 1)
+                moved, 16 * nnz * n_act, 1, reset=sentinels,
+                all_slots=dict(tiles=tiles if n_act else 0, **node_rows), kept=True)
 
         best_l, best_u = want
         want_m = ops.bnd.apply_updates_batch(lbp, ubp, best_l, best_u, eps, active=act)
-        got_m = tk.apply_updates_batch_tiles(lbp.clone(), ubp.clone(), best_l, best_u, act, eps)
-        # In place on scratch planes, restored before each timed launch; the
-        # mask is read and the per-row flags written.
-        lbw, ubw = lbp.clone(), ubp.clone()
+        got_m = tk.apply_updates_batch_tiles(lbp.clone(), ubp.clone(), best_l.clone(),
+                                             best_u.clone(), act, eps)
+        # In place on scratch planes and candidates (the merge hands the
+        # active rows back at the sentinels), restored before each timed
+        # launch; the mask is read and the per-row flags written.
+        lbw, ubw, blw, buw = lbp.clone(), ubp.clone(), best_l.clone(), best_u.clone()
         measure("apply_updates_batch_tiles", shape, got_m, want_m,
-                lambda: tk.apply_updates_batch_tiles(lbw, ubw, best_l, best_u, act, eps),
+                lambda: tk.apply_updates_batch_tiles(lbw, ubw, blw, buw, act, eps),
                 lambda: ops.bnd.apply_updates_batch(lbp, ubp, best_l, best_u, eps, active=act),
-                dict(merge_bytes(torch, ops.bnd, lbp, ubp, best_l, best_u, eps, act),
+                dict(merge_bytes(torch, ops.bnd, lbp, ubp, best_l, best_u, eps, act, cfg.inf),
                      flags=2 * POOL),
-                6 * n_act * n_pad, 10, reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp)]))
+                6 * n_act * n_pad, 10,
+                reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp), (blw, best_l),
+                                           (buw, best_u)]))
 
     valid = torch.arange(n_pad, device=dev) < n
     ii = torch.zeros(n_pad, dtype=torch.bool, device=dev)
@@ -1320,10 +1368,13 @@ def solve_phase(torch, np, rt, td, tk, pbf, dev):
 
 
 def log_row(kname, shape, r):
+    extra = ""
+    if "bound_all_slots_ms" in r:
+        extra = f" bound_all_slots_ms={r['bound_all_slots_ms']:.4f}"
     log(f"kernel {kname} on {shape}: max_abs_err={r['max_abs_err']} ms={r['ms']:.4f} "
         f"wrapper_ms={r['wrapper_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
         f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}, {sum(r['bytes'].values())} B: "
-        f"{r['bytes']})")
+        f"{r['bytes']}){extra}")
 
 
 def measured_row(torch, build, got, want, fn_k, fn_p, moved, n_ops, plain_reps=3, reset=None,
@@ -1403,16 +1454,33 @@ def check_slab_kernels(torch, tk, tref, ops, build, name, prep, part):
               part.run_start, part.run_len, part.run_inst, part.run_slab, act)
     tail = (part.slab, part.max_run_len, eps, cfg.int_eps)
     want = tref.batched_slab_round_ref(*r_args, lbp, ubp, *tail)
-    got = tk.batched_slab_round_tiles(*r_args, lbp.clone(), ubp.clone(), *tail)
+    # The accumulator planes kept across the launches, as the round closure
+    # keeps them (the merge hands them back); the tile maps and chunk
+    # lengths hoisted by the partition.
+    kw = dict(acc=tk.accumulator_planes(lbp), tiles=(part.tile_inst, part.tile_slab),
+              chunk_len=part.chunk_len, max_chunk_len=part.max_chunk_len)
+    got = tk.batched_slab_round_tiles(*r_args, lbp.clone(), ubp.clone(), *tail, **kw)
     lbw, ubw = lbp.clone(), ubp.clone()
+    held = tref.batched_slab_scatter_ref(
+        part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
+        part.run_start, part.run_inst, part.run_slab, act, lbp, ubp, part.slab, cfg.int_eps)
+    # val at the nonzeros (each copy stops at its length, 4 B per chunk) or,
+    # for the all-slot bound, at every slot; col_s and is_int_g per kept
+    # nonzero; row_done, the straddle aggregates and the sides per chunk;
+    # the window of each tile; the bounds; the accumulators written and read
+    # once and handed back where they hold a candidate.
+    common = dict(col_ii=8 * nnz, rows=44 * t * r, tiles=8 * t, bounds=16 * width,
+                  stores=8 * stores(torch, want[:2], (lbp, ubp)), accumulators=32 * width,
+                  handback=8 * int((held[0] != -cfg.inf).sum() + (held[1] != cfg.inf).sum()),
+                  flags=4 * part.n_slabs)
     rows["batched_slab_round_tiles"] = measured_row(
         torch, build, got, want,
-        lambda: tk.batched_slab_round_tiles(*r_args, lbw, ubw, *tail),
+        lambda: tk.batched_slab_round_tiles(*r_args, lbw, ubw, *tail, **kw),
         lambda: tref.batched_slab_round_ref(*r_args, lbp, ubp, *tail),
-        dict(val=8 * t * r * k, col_ii=8 * nnz, rows=44 * t * r, bounds=16 * width,
-             stores=8 * stores(torch, want[:2], (lbp, ubp)), accumulators=32 * width,
-             flags=4 * part.n_slabs),
+        dict(val=8 * nnz, chunk_len=4 * t * r, **common),
         16 * nnz, reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp)]), launches=2)
+    rows["batched_slab_round_tiles"]["bound_all_slots_ms"] = bound(
+        8 * t * r * k + sum(common.values()), 16 * nnz)[0]
     for kname, row in rows.items():
         row["instance"] = name
         log_row(kname, name, row)
@@ -1488,15 +1556,19 @@ def check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep, part
         m_args = (act, part.slab, eps)
         want_m = tref.apply_updates_slab_ref(lbp, ubp, bl, bu, *m_args)
         want_m = (*want_m[:2], want_m[2].any(dim=1))
-        got_m = tk.apply_updates_slab_tiles(lbp.clone(), ubp.clone(), bl, bu, *m_args)
-        lbw, ubw = lbp.clone(), ubp.clone()
+        got_m = tk.apply_updates_slab_tiles(lbp.clone(), ubp.clone(), bl.clone(), bu.clone(),
+                                            *m_args)
+        # Scratch planes and candidates (the merge hands the active rows
+        # back at the sentinels), restored before each timed launch.
+        lbw, ubw, blw, buw = lbp.clone(), ubp.clone(), bl.clone(), bu.clone()
         out["apply_updates_slab_tiles"][shape] = measured_row(
             torch, build, got_m, want_m,
-            lambda: tk.apply_updates_slab_tiles(lbw, ubw, bl, bu, *m_args),
+            lambda: tk.apply_updates_slab_tiles(lbw, ubw, blw, buw, *m_args),
             lambda: tref.apply_updates_slab_ref(lbp, ubp, bl, bu, *m_args),
-            dict(merge_bytes(torch, ops.bnd, lbp, ubp, bl, bu, eps, act),
+            dict(merge_bytes(torch, ops.bnd, lbp, ubp, bl, bu, eps, act, cfg.inf),
                  flags=4 * POOL * part.n_slabs + POOL),
-            6 * n_act * width, reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp)]))
+            6 * n_act * width,
+            reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp), (blw, bl), (buw, bu)]))
         for kname in out:
             log_row(kname, shape, out[kname][shape])
     return out

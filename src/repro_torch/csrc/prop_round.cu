@@ -24,13 +24,16 @@
 //                             the main stream's chunks, active planes only
 //                             (the reference's XLA segment_sum again)
 //   node_fused_scatter_round  (#10) D over a node batch: one matrix, B bound
-//                             planes, an active mask read on the device
+//                             planes, an active mask read on the device;
+//                             node-major, into accumulator planes kept for
+//                             the whole fixed point
 //   batched_fused_scatter_round  (#8) D over a packed batch: each tile's
 //                             instance routes it to its own row of the
 //                             (B, n_pad) planes, an active mask read on the
 //                             device skips converged instances and free slots
 //   apply_updates_batch  (#9) F over (B, n_pad) planes with an active mask
-//                             and a changed flag per row
+//                             and a changed flag per row; hands the
+//                             accumulator rows it reads back at the sentinel
 //   node_objective       (#16) per node: objective bound, all-fixed and
 //                             crossed flags, by a block reduction
 //   activities           (A)  A' on bounds gathered before the launch: each
@@ -60,15 +63,20 @@
 // width is a template parameter, so the shuffles unroll.  The TPU kernels'
 // one-hot gather becomes an indexed load (the (n_pad,) bound vectors stay
 // in L2), and their one-hot column scatter
-// becomes a double-precision atomic max/min (compare-and-swap loop on the
-// value, so -0.0 and +0.0 compare equal, as they do in the oracle; E and its
-// node form use 64-bit integer atomics instead, red_max_f64 / red_min_f64).
-// Max and min do not depend on order, so the scatter is exact.  A' and E
-// stop each chunk at its length (one past its last nonzero, an (T, R) int32
-// input hoisted from structure) and issue several strides' loads before
-// their bound gathers (round_common.cuh).  The device code the
-// chunk kernels share with slab_round.cu (lane groups, chunk aggregates,
-// candidates + scatter, the one-column merge) is in round_common.cuh.
+// becomes a double-precision atomic max/min: a compare-and-swap loop on the
+// value in D and #8 (so -0.0 and +0.0 compare equal, as they do in the
+// oracle), 64-bit integer atomics in E, #10 and their node forms
+// (red_max_f64 / red_min_f64, -0.0 entering as +0.0).  Max and min do not
+// depend on order, so the scatter is exact.  A', E and #10 stop each chunk
+// at its length (one past its last nonzero, an (T, R) int32 input hoisted
+// from structure) and issue several strides' loads before their bound
+// gathers; #10 gathers each nonzero's bounds once and holds them from the
+// sums to the candidates (chunk_round).  D and #8 accumulate into planes
+// their wrappers fill with the sentinel per launch; #10 into planes the
+// engine keeps for the whole fixed point, which #9 hands back at the
+// sentinel.  The device code the chunk kernels share with slab_round.cu
+// (lane groups, chunk aggregates, candidates + scatter, chunk_round, the
+// one-column merges) is in round_common.cuh.
 //
 // Build with --fmad=false: the activity products and the merge's
 // old + eps * max(1, |old|) must round like the oracle's separate multiply
@@ -405,33 +413,66 @@ node_candidates_scatter_kernel(const double* __restrict__ val, const int* __rest
   }
 }
 
-// Kernel D for B nodes sharing one matrix.  Each warp reads the active mask
-// 32 nodes at a time (one ballot) and visits only the active nodes; each
-// gathers from and scatters into its own row of the (B, n_pad) planes, with
-// D's arithmetic, so each row equals D's result for that node bit for bit.
-template <int G>
+// Kernel D for B nodes sharing one matrix, node-major.  A work item is one
+// (active node, chunk block) pair, chunk blocks being the kThreads-thread
+// blocks of D's grid; items are numbered node by node and the blocks walk
+// them with a grid-stride loop over a grid no larger than one chunk-stream
+// pass (the resident blocks, at most), so the items running at any time
+// belong to one or a few nodes and their bound and accumulator rows stay
+// in L2, where a warp that loops over every node would touch all B rows at
+// once.  Each block first reads the (B,) mask into shared memory, one
+// ballot per 32 nodes, and counts the active nodes by __popc; its items'
+// node ranks only grow, so a cursor over the ballot words finds each
+// item's node.  No active node: the block returns.  Each item runs
+// chunk_round (U strides held) on its node's rows with D's arithmetic, so
+// each row equals D's result for that node bit for bit.
+template <int G, int U>
 __global__ void __launch_bounds__(kThreads)
 node_fused_scatter_round_kernel(const double* __restrict__ val, const int* __restrict__ col,
-                                const int* __restrict__ ii, const double* __restrict__ lhs,
-                                const double* __restrict__ rhs, const double* __restrict__ lb,
-                                const double* __restrict__ ub, const bool* __restrict__ active,
-                                double* best_l, double* best_u, int64_t n_chunks, int k,
-                                int64_t bsz, int64_t n_pad, double int_eps, double inf) {
-  const Lanes L = lanes_for<G>(n_chunks);
-  const int lane = threadIdx.x % kWarp;
-  const int64_t base = L.chunk * k;
-  const int kk = L.live ? k : 0;
-  const double lo = L.live ? lhs[L.chunk] : 0.0, hi = L.live ? rhs[L.chunk] : 0.0;
-  for (int64_t b0 = 0; b0 < bsz; b0 += kWarp) {
-    unsigned int todo = __ballot_sync(0xffffffffu, b0 + lane < bsz && active[b0 + lane]);
-    while (todo != 0u) {
-      const int64_t row = (b0 + __ffs(todo) - 1) * n_pad;
-      todo &= todo - 1u;
-      const RowAgg a = chunk_aggregates<G>(val, col, lb + row, ub + row, base, kk, L, inf);
-      if (L.live)
-        chunk_candidates_scatter(val, col, ii, lb + row, ub + row, a, lo, hi, best_l + row,
-                                 best_u + row, base, k, L, int_eps, inf);
+                                const int* __restrict__ ii, const int* __restrict__ clen,
+                                const double* __restrict__ lhs, const double* __restrict__ rhs,
+                                const double* __restrict__ lb, const double* __restrict__ ub,
+                                const bool* __restrict__ active, double* best_l, double* best_u,
+                                int64_t n_chunks, int k, int64_t bsz, int64_t n_pad,
+                                double int_eps, double inf) {
+  extern __shared__ unsigned int words[];  // ceil(B / 32) ballot words of the mask
+  __shared__ int n_active;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int n_words = static_cast<int>((bsz + kWarp - 1) / kWarp);
+  if (threadIdx.x == 0) n_active = 0;
+  __syncthreads();
+  for (int w = warp; w < n_words; w += kWarpsPerBlock) {
+    const int64_t b = static_cast<int64_t>(w) * kWarp + lane;
+    const unsigned int m = __ballot_sync(0xffffffffu, b < bsz && active[b]);
+    if (lane == 0) {
+      words[w] = m;
+      atomicAdd(&n_active, __popc(m));
     }
+  }
+  __syncthreads();
+  const int64_t per_block = static_cast<int64_t>(kWarpsPerBlock) * (kWarp / G);
+  const int64_t n_blocks = (n_chunks + per_block - 1) / per_block;
+  const int64_t items = n_active * n_blocks;
+  // The cursor: the active node of rank `rank` is word * 32 + the lowest
+  // set bit of `left` (the bits of words[word] not yet passed).
+  int64_t rank = -1;
+  int word = -1;
+  unsigned int left = 0u;
+  for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+    const int64_t want = item / n_blocks;
+    while (rank < want) {
+      left &= left - 1u;
+      while (left == 0u) left = words[++word];
+      ++rank;
+    }
+    const int64_t node = static_cast<int64_t>(word) * kWarp + __ffs(left) - 1;
+    const int64_t chunk = (item % n_blocks) * per_block + warp * (kWarp / G) + lane / G;
+    const bool live = chunk < n_chunks;
+    const int64_t row = node * n_pad;
+    chunk_round<G, U>(val, col, ii, SplitBounds{lb + row, ub + row}, chunk * k, live ? k : 0,
+                      live ? clen[chunk] : 0, true, RowAgg{}, live ? lhs[chunk] : 0.0,
+                      live ? rhs[chunk] : 0.0, best_l + row, best_u + row, lane % G, int_eps,
+                      inf);
   }
 }
 
@@ -470,17 +511,20 @@ batched_fused_scatter_round_kernel(const double* __restrict__ val, const int* __
 }
 
 // Kernel F over (B, n_pad) planes: grid (column blocks, B); the blocks of an
-// inactive row return at once, so it is neither read nor written.
+// inactive row return at once, so it is neither read nor written.  Each
+// accumulator entry it reads goes back to the sentinel (merge_reset), so
+// #10's planes, kept for the whole fixed point, are clean for its next
+// round; the fresh planes of #8 and node E do not mind.
 __global__ void __launch_bounds__(kThreads)
 apply_updates_batch_kernel(double* __restrict__ lb, double* __restrict__ ub,
-                           const double* __restrict__ best_l, const double* __restrict__ best_u,
+                           double* __restrict__ best_l, double* __restrict__ best_u,
                            const bool* __restrict__ active, bool* __restrict__ changed,
                            int64_t n_pad, double eps, double inf, double outward) {
   const int64_t b = blockIdx.y;
   if (!active[b]) return;
   const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (j >= n_pad) return;
-  if (merge_one(lb, ub, best_l, best_u, b * n_pad + j, eps, inf, outward)) changed[b] = true;
+  if (merge_reset(lb, ub, best_l, best_u, b * n_pad + j, eps, inf, outward)) changed[b] = true;
 }
 
 constexpr int kObjThreads = 1024;
@@ -577,6 +621,34 @@ fused_round_kernel(const double* __restrict__ val, const double* __restrict__ lb
   if (!L.live) return;
   chunk_candidates_store(val, b, ii, a, lhs[L.chunk], rhs[L.chunk], lcand, ucand, base, k, L,
                          int_eps, inf);
+}
+
+// The node-major #10 over a grid of at most one chunk-stream pass and at
+// most the blocks the card holds resident at once (counted once per
+// instantiation), so that the items in flight are consecutive in node order.
+template <int G, int U>
+int launch_node_fused(const double* val, const int* col, const int* ii, const int* clen,
+                      const double* lhs, const double* rhs, const double* lb, const double* ub,
+                      const bool* active, double* best_l, double* best_u, int64_t n_chunks,
+                      int k, int64_t bsz, int64_t n_pad, double int_eps, double inf,
+                      cudaStream_t stream) {
+  static int resident = 0;
+  const size_t shm = sizeof(unsigned int) * static_cast<size_t>((bsz + kWarp - 1) / kWarp);
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, node_fused_scatter_round_kernel<G, U>,
+                                                  kThreads, shm);
+    resident = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  const int64_t blocks = chunk_blocks(n_chunks, k);
+  const unsigned int grid = static_cast<unsigned int>(blocks < resident ? blocks : resident);
+  if (grid == 0 || bsz == 0) return static_cast<int>(cudaGetLastError());
+  node_fused_scatter_round_kernel<G, U><<<grid, kThreads, shm, stream>>>(
+      val, col, ii, clen, lhs, rhs, lb, ub, active, best_l, best_u, n_chunks, k, bsz, n_pad,
+      int_eps, inf);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Blocks of the combine: one warp per long segment, then one thread per
@@ -700,14 +772,16 @@ int straddle_combine(const double* mf, const int* mc, const double* xf, const in
   return static_cast<int>(cudaGetLastError());
 }
 
-int node_fused_scatter_round(const double* val, const int* col, const int* ii, const double* lhs,
-                             const double* rhs, const double* lb, const double* ub,
-                             const bool* active, double* best_l, double* best_u,
-                             int64_t n_chunks, int k, int64_t bsz, int64_t n_pad,
-                             double int_eps, double inf, cudaStream_t stream) {
-  LAUNCH_FOR_WIDTH(node_fused_scatter_round_kernel, k, n_chunks, stream, val, col, ii, lhs, rhs,
-                   lb, ub, active, best_l, best_u, n_chunks, k, bsz, n_pad, int_eps, inf);
-  return static_cast<int>(cudaGetLastError());
+int node_fused_scatter_round(const double* val, const int* col, const int* ii, const int* clen,
+                             const double* lhs, const double* rhs, const double* lb,
+                             const double* ub, const bool* active, double* best_l,
+                             double* best_u, int64_t n_chunks, int k, int max_len, int64_t bsz,
+                             int64_t n_pad, double int_eps, double inf, cudaStream_t stream) {
+#define NODE_FUSED(G, U)                                                                     \
+  launch_node_fused<G, U>(val, col, ii, clen, lhs, rhs, lb, ub, active, best_l, best_u,      \
+                          n_chunks, k, bsz, n_pad, int_eps, inf, stream)
+  DISPATCH_HELD(NODE_FUSED, k, held_strides(max_len))
+#undef NODE_FUSED
 }
 
 int batched_fused_scatter_round(const double* val, const int* col, const int* ii,
@@ -721,7 +795,7 @@ int batched_fused_scatter_round(const double* val, const int* col, const int* ii
   return static_cast<int>(cudaGetLastError());
 }
 
-int apply_updates_batch(double* lb, double* ub, const double* best_l, const double* best_u,
+int apply_updates_batch(double* lb, double* ub, double* best_l, double* best_u,
                         const bool* active, bool* changed, int64_t bsz, int64_t n_pad,
                         double eps, double inf, double outward, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned int>((n_pad + kThreads - 1) / kThreads),

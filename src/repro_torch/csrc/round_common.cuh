@@ -2,7 +2,9 @@
 // slab_round.cu: the lane groups that own a chunk, where a slot's bounds
 // come from (its column, or pre-gathered tiles), the chunk's activity
 // aggregates, its candidates with the column max/min scatter or stored per
-// slot, and the bound merge of one column.  See prop_round.cu for the
+// slot, one chunk's whole round with a single bound gather per nonzero
+// (chunk_round, kernels #10 and #12), and the bound merge of one column,
+// with or without handing the accumulator entry back (merge_reset).  See prop_round.cu for the
 // layout and the rounding rules (--fmad=false, division-first candidates).
 
 #pragma once
@@ -226,13 +228,12 @@ __device__ __forceinline__ void chunk_candidates_store(
 }
 
 
-// bounds.apply_updates for column i, in place; true if a bound tightened.
-__device__ __forceinline__ bool merge_one(double* __restrict__ lb, double* __restrict__ ub,
-                                          const double* __restrict__ best_l,
-                                          const double* __restrict__ best_u, int64_t i,
-                                          double eps, double inf, double outward) {
+// bounds.apply_updates for column i with best candidates bl, bu, in place;
+// true if a bound tightened.
+__device__ __forceinline__ bool merge_values(double* __restrict__ lb, double* __restrict__ ub,
+                                             int64_t i, double bl, double bu, double eps,
+                                             double inf, double outward) {
   const double l = lb[i], u = ub[i];
-  double bl = best_l[i], bu = best_u[i];
   const bool take_l = bl > l + eps * fmax(1.0, fabs(l));
   const bool take_u = bu < u - eps * fmax(1.0, fabs(u));
   if (outward != 0.0) {
@@ -242,6 +243,27 @@ __device__ __forceinline__ bool merge_one(double* __restrict__ lb, double* __res
   if (take_l) lb[i] = clip(bl, inf);
   if (take_u) ub[i] = clip(bu, inf);
   return take_l || take_u;
+}
+
+__device__ __forceinline__ bool merge_one(double* __restrict__ lb, double* __restrict__ ub,
+                                          const double* __restrict__ best_l,
+                                          const double* __restrict__ best_u, int64_t i,
+                                          double eps, double inf, double outward) {
+  return merge_values(lb, ub, i, best_l[i], best_u[i], eps, inf, outward);
+}
+
+// merge_one that hands its accumulator entry back: the candidates are read,
+// the entry is set to the sentinel again (a store only where a candidate
+// landed), then merged.  The batched merges (#9, #15) take this form, so
+// that planes kept for a whole fixed point are clean for the next round.
+__device__ __forceinline__ bool merge_reset(double* __restrict__ lb, double* __restrict__ ub,
+                                            double* __restrict__ best_l,
+                                            double* __restrict__ best_u, int64_t i, double eps,
+                                            double inf, double outward) {
+  const double bl = best_l[i], bu = best_u[i];
+  if (bl != -inf) best_l[i] = -inf;
+  if (bu != inf) best_u[i] = inf;
+  return merge_values(lb, ub, i, bl, bu, eps, inf, outward);
 }
 
 // ---------------------------------------------------------------------------
@@ -275,21 +297,27 @@ struct Loaded {
 // The lane's slots j0 + sl + 32u (u < U) below len.  The first stride of the
 // chunk is read up to k whatever len says (past len it holds zeros), so its
 // load does not wait for the length's.  ii may be null (no marks wanted).
-template <int U>
+// Columns and marks are read at nonzeros only, after their values; EAGER
+// reads them with the values (padding holds column 0), so that the bound
+// gather waits for one load instead of two.
+template <int U, bool EAGER = false>
 __device__ __forceinline__ void load_strides(Loaded<U>& s, const double* __restrict__ val,
                                              const int* __restrict__ col,
                                              const int* __restrict__ ii, int64_t base, int j0,
                                              int len, int k, int sl) {
+  bool in[U];
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const int j = j0 + sl + u * kWarp;
-    s.v[u] = j < (j0 == 0 && u == 0 ? k : len) ? val[base + j] : 0.0;
+    in[u] = j < (j0 == 0 && u == 0 ? k : len);
+    s.v[u] = in[u] ? val[base + j] : 0.0;
   }
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const int64_t i = base + j0 + sl + u * kWarp;
-    s.c[u] = s.v[u] != 0.0 ? col[i] : 0;
-    s.m[u] = ii != nullptr && s.v[u] != 0.0 ? ii[i] : 0;
+    const bool read = EAGER ? in[u] : s.v[u] != 0.0;
+    s.c[u] = read ? col[i] : 0;
+    s.m[u] = ii != nullptr && read ? ii[i] : 0;
   }
 }
 
@@ -325,12 +353,11 @@ __device__ __forceinline__ void gather_strides(const Loaded<U>& s, const B& b, d
   }
 }
 
-// A batch's activity contributions added to the lane's sums, in slot order.
-template <int U, typename B>
-__device__ __forceinline__ void add_strides(RowAgg& a, const Loaded<U>& s, const B& b,
-                                            double inf) {
-  double l[U], h[U];
-  gather_strides(s, b, l, h);
+// A batch's activity contributions, from its gathered bounds l, h, added to
+// the lane's sums in slot order.
+template <int U>
+__device__ __forceinline__ void add_gathered(RowAgg& a, const Loaded<U>& s, const double (&l)[U],
+                                             const double (&h)[U], double inf) {
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     if (s.v[u] == 0.0) continue;
@@ -338,6 +365,15 @@ __device__ __forceinline__ void add_strides(RowAgg& a, const Loaded<U>& s, const
     if (t.min_inf) a.mc += 1; else a.mf += s.v[u] * t.bmin;
     if (t.max_inf) a.xc += 1; else a.xf += s.v[u] * t.bmax;
   }
+}
+
+// The same, gathering the batch's bounds first.
+template <int U, typename B>
+__device__ __forceinline__ void add_strides(RowAgg& a, const Loaded<U>& s, const B& b,
+                                            double inf) {
+  double l[U], h[U];
+  gather_strides(s, b, l, h);
+  add_gathered(a, s, l, h, inf);
 }
 
 template <int G>
@@ -356,43 +392,134 @@ __device__ __forceinline__ RowAgg group_reduce(RowAgg a) {
 // above every non-negative one: so max takes the signed max for v >= 0 and
 // the unsigned min for v < 0, min the other way round, whatever the stored
 // value.  -0.0 would order below every double, so it enters as +0.0 (equal
-// as a value).  The pre-check reads the accumulator from L2 (not a stale L1
-// line) and skips a candidate that cannot win; accumulators only move
-// towards the candidates, so skipping is exact.
+// as a value).  CHECK: a pre-check reads the accumulator from L2 (not a
+// stale L1 line) and skips a candidate that cannot win; accumulators only
+// move towards the candidates, so skipping is exact.  E keeps it; #10 and
+// #12 go without, since waiting for the read costs them more than the
+// atomics it saves (tools/round_variants.py).
+template <bool CHECK = true>
 __device__ __forceinline__ void red_max_f64(double* addr, double v) {
   if (v == 0.0) v = 0.0;
-  if (!(v > __ldcg(addr))) return;
+  if (CHECK && !(v > __ldcg(addr))) return;
   const long long bits = __double_as_longlong(v);
   if (v >= 0.0) atomicMax(reinterpret_cast<long long*>(addr), bits);
   else atomicMin(reinterpret_cast<unsigned long long*>(addr), static_cast<unsigned long long>(bits));
 }
 
+template <bool CHECK = true>
 __device__ __forceinline__ void red_min_f64(double* addr, double v) {
   if (v == 0.0) v = 0.0;
-  if (!(v < __ldcg(addr))) return;
+  if (CHECK && !(v < __ldcg(addr))) return;
   const long long bits = __double_as_longlong(v);
   if (v >= 0.0) atomicMin(reinterpret_cast<long long*>(addr), bits);
   else atomicMax(reinterpret_cast<unsigned long long*>(addr), static_cast<unsigned long long>(bits));
 }
 
-// A batch's candidates from the row's completed aggregates a and sides,
-// scattered into the column max / min.  Sentinel candidates skip the
-// reduction: the accumulators start at the sentinels.
-template <int U, typename B>
-__device__ __forceinline__ void scatter_strides(const Loaded<U>& s, const B& b, const RowAgg& a,
-                                                double lhs, double rhs, double* best_l,
-                                                double* best_u, double int_eps, double inf) {
-  double l[U], h[U];
-  gather_strides(s, b, l, h);
+// A batch's candidates, from its gathered bounds l, h and the row's
+// completed aggregates a and sides, scattered into the column max / min.
+// Sentinel candidates skip the reduction: the accumulators start at the
+// sentinels.
+template <int U, bool CHECK = true>
+__device__ __forceinline__ void scatter_gathered(const Loaded<U>& s, const double (&l)[U],
+                                                 const double (&h)[U], const RowAgg& a,
+                                                 double lhs, double rhs, double* best_l,
+                                                 double* best_u, double int_eps, double inf) {
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     if (s.v[u] == 0.0) continue;
     const Cands q = slot_candidates(s.v[u], make_slot(s.v[u], l[u], h[u], inf), a, lhs, rhs,
                                     s.m[u] != 0, int_eps, inf);
-    if (q.lc > -inf) red_max_f64(best_l + s.c[u], q.lc);
-    if (q.uc < inf) red_min_f64(best_u + s.c[u], q.uc);
+    if (q.lc > -inf) red_max_f64<CHECK>(best_l + s.c[u], q.lc);
+    if (q.uc < inf) red_min_f64<CHECK>(best_u + s.c[u], q.uc);
   }
 }
+
+// The same, gathering the batch's bounds first.
+template <int U, bool CHECK = true, typename B>
+__device__ __forceinline__ void scatter_strides(const Loaded<U>& s, const B& b, const RowAgg& a,
+                                                double lhs, double rhs, double* best_l,
+                                                double* best_u, double int_eps, double inf) {
+  double l[U], h[U];
+  gather_strides(s, b, l, h);
+  scatter_gathered<U, CHECK>(s, l, h, a, lhs, rhs, best_l, best_u, int_eps, inf);
+}
+
+// ---------------------------------------------------------------------------
+// Kernels #10 and #12: one chunk's whole round, each nonzero's bounds
+// gathered once.  chunk_aggregates followed by chunk_candidates_scatter
+// (kernel D's routine, which D, #8 and #14 keep) loads every slot of the
+// chunk twice and gathers its two bounds twice, two 8-byte loads each time,
+// and reduces by compare-and-swap loops.  Here a lane loads its first U
+// strides (values, columns and integrality marks together; stopped at the
+// chunk's hoisted length), gathers their bounds once and holds them in
+// registers from the activity sums to the candidates, which go to the
+// column max / min by fire-and-forget integer reductions.  The launch picks
+// U from the longest chunk of the stream (1, 2 or 4 strides of 32 slots:
+// held_strides), so every nonzero of a chunk of up to 128 slots is gathered
+// once; only a wider chunk's slots past the first 128 are gathered again
+// for the candidates.  Holding four strides whatever the chunks need took
+// 104-106 registers a thread, two blocks an SM, and ran #12 at K = 128 25%
+// slower than D's routine, while the copy streams' chunks hold at most 32
+// slots (tools/round_variants.py).  A lane adds its slots in the order sl,
+// sl + 32, ... and the group reduces by the same butterfly, so the sums are
+// ref.warp_order_sum's, as D's are.
+// ---------------------------------------------------------------------------
+
+// Strides a lane holds for chunks of at most max_len slots: 1, 2 or 4.
+inline int held_strides(int max_len) {
+  return max_len <= kWarp ? 1 : max_len <= 2 * kWarp ? 2 : 4;
+}
+
+// One chunk's round, U strides held.  Every lane of the warp calls it (the
+// aggregates shuffle).  len is the chunk's length and kk its width, both 0
+// for a lane with nothing to do (dead, or an inactive node or window),
+// which loads nothing and scatters nothing.  sum: the row's aggregates are
+// the chunk's own sums; else they are given (the straddle aggregates of
+// #12, whose chunk gathers only for its candidates).
+template <int G, int U, typename B>
+__device__ __forceinline__ void chunk_round(const double* __restrict__ val,
+                                            const int* __restrict__ col,
+                                            const int* __restrict__ ii, const B& b,
+                                            int64_t base, int kk, int len, bool sum,
+                                            const RowAgg& given, double lhs, double rhs,
+                                            double* best_l, double* best_u, int sl,
+                                            double int_eps, double inf) {
+  Loaded<U> first;
+  load_strides<U, true>(first, val, col, ii, base, 0, len, kk, sl);
+  double l[U], h[U];
+  gather_strides(first, b, l, h);
+  RowAgg a{0.0, 0.0, 0, 0};
+  if (sum) {
+    add_gathered(a, first, l, h, inf);
+    for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
+      Loaded<U> s;
+      load_strides<U, true>(s, val, col, nullptr, base, j0, len, kk, sl);
+      add_strides(a, s, b, inf);
+    }
+  }
+  a = group_reduce<G>(a);
+  if (kk == 0) return;
+  if (!sum) a = given;
+  scatter_gathered<U, false>(first, l, h, a, lhs, rhs, best_l, best_u, int_eps, inf);
+  for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
+    Loaded<U> s;
+    load_strides<U, true>(s, val, col, ii, base, j0, len, kk, sl);
+    scatter_strides<U, false>(s, b, a, lhs, rhs, best_l, best_u, int_eps, inf);
+  }
+}
+
+// Run LAUNCH(G, U) for the group width of k slots and the strides held,
+// held (1, 2 or 4; a group narrower than a warp covers its chunk in one).
+#define DISPATCH_HELD(LAUNCH, k, held)                                                  \
+  switch (group_width(k)) {                                                             \
+    case 1: return LAUNCH(1, 1);                                                        \
+    case 2: return LAUNCH(2, 1);                                                        \
+    case 4: return LAUNCH(4, 1);                                                        \
+    case 8: return LAUNCH(8, 1);                                                        \
+    case 16: return LAUNCH(16, 1);                                                      \
+    default:                                                                            \
+      return (held) <= 1 ? LAUNCH(32, 1) : (held) == 2 ? LAUNCH(32, 2) : LAUNCH(32, 4); \
+  }
 
 // One short row segment [s, e) of chunk partials summed left to right from
 // 0 by one thread (the long-row combine's order), written back to each of

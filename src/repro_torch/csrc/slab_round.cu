@@ -19,27 +19,37 @@
 //   node_slab_scatter   the first launch of #14: the same per active node
 //   slab_merge          (#15, and the second launch of #12 and #14)
 //                       bounds.apply_updates over every (instance, slab)
-//                       window, in place, one flag per window
+//                       window, in place, one flag per window; each
+//                       accumulator entry it reads goes back to the sentinel
 //
 // The TPU kernels walk a run's copy tiles in grid order, keep the window's
 // accumulators in VMEM and merge at the run's last step.  Blocks of one run
 // run concurrently here, so a round is two launches: the scatter into
-// accumulator planes in global memory (filled with the sentinel by the
-// wrapper; float64 CAS max/min, exact in any order), then the window merge,
-// once every copy has scattered.  Every gather of the round has finished by
-// then, so the merge runs in place.  An empty window's all-padding tile
-// scatters nothing and its merge changes nothing.
+// accumulator planes in global memory, then the window merge, once every
+// copy has scattered.  Every gather of the round has finished by then, so
+// the merge runs in place.  An empty window's all-padding tile scatters
+// nothing and its merge changes nothing.  #12's planes are kept by the
+// engine's round closure for a whole fixed point: filled with the sentinel
+// once, scattered into by 64-bit integer atomics (exact in any order), and
+// set back to the sentinel by the merge that reads them (merge_reset).
+// #14 still gets fresh planes from its wrapper, filled per launch, and
+// reduces by float64 compare-and-swap loops (window_round, kernel D's
+// routine).
 //
-// A copy tile finds its run by a binary search over run_start (runs cover
-// contiguous, ascending tile ranges; the TPU's padded grid steps do not
-// exist here), and its window at inst * W + slab_id * slab of the (B, W)
-// planes.  W is the partition's n_pad_part or the instance's n_pad: no real
-// nonzero reaches past n_pad.  Flat indices are 64-bit wherever two sizes
-// multiply (B * W passes 2^31 at large pools).
+// #12's scatter finds a copy tile's window from tile_inst / tile_slab,
+// hoisted by the partition, at inst * W + slab_id * slab of the (B, W)
+// planes; #11, #13 and #14 find the tile's run by a binary search over
+// run_start (runs cover contiguous, ascending tile ranges; the TPU's padded
+// grid steps do not exist here).  W is the partition's n_pad_part or the
+// instance's n_pad: no real nonzero reaches past n_pad.  Flat indices are
+// 64-bit wherever two sizes multiply (B * W passes 2^31 at large pools).
 //
 // The chunk arithmetic is kernel D's (round_common.cuh): lane groups of G
 // lanes per chunk, shuffle sums in ref.warp_order_sum's order, division-first
-// candidates, --fmad=false.  Each entry point returns cudaGetLastError().
+// candidates, --fmad=false.  #12's scatter runs chunk_round: each nonzero's
+// bounds gathered once and held from the sums to the candidates, each copy
+// stopped at its hoisted length (the partition's chunk_len).  Each entry
+// point returns cudaGetLastError().
 
 #include "round_common.cuh"
 
@@ -150,23 +160,42 @@ node_slab_partials_kernel(const double* __restrict__ val, const int* __restrict_
   }
 }
 
-template <int G>
+// #12's scatter.  A lane's copy tile t = chunk / r gives its window at once,
+// inst = tile_inst[t] and slab tile_slab[t] (hoisted by the partition; no
+// search over the runs), and its chunk stops at the copy stream's hoisted
+// length.  chunk_round gathers each nonzero's bounds once: a chunk whose
+// copy holds its whole row (row_done == 1) sums its own aggregates from
+// them, a straddle chunk reads the completed straddle aggregates and
+// gathers only for its candidates.  A warp with no active lane returns
+// before the shuffles.
+template <int G, int U>
 __global__ void __launch_bounds__(kThreads)
 slab_scatter_kernel(const double* __restrict__ val, const int* __restrict__ col,
-                    const int* __restrict__ ii, const int* __restrict__ done,
-                    const double* __restrict__ smf, const int* __restrict__ smc,
-                    const double* __restrict__ sxf, const int* __restrict__ sxc,
-                    const double* __restrict__ lhs, const double* __restrict__ rhs,
-                    const int* __restrict__ run_start, const int* __restrict__ run_inst,
-                    const int* __restrict__ run_slab, const bool* __restrict__ active,
+                    const int* __restrict__ ii, const int* __restrict__ clen,
+                    const int* __restrict__ done, const double* __restrict__ smf,
+                    const int* __restrict__ smc, const double* __restrict__ sxf,
+                    const int* __restrict__ sxc, const double* __restrict__ lhs,
+                    const double* __restrict__ rhs, const int* __restrict__ tile_inst,
+                    const int* __restrict__ tile_slab, const bool* __restrict__ active,
                     const double* __restrict__ lb, const double* __restrict__ ub,
-                    double* best_l, double* best_u, int n_runs, int64_t n_chunks, int r, int k,
+                    double* best_l, double* best_u, int64_t n_chunks, int r, int k,
                     int64_t width, int64_t slab, double int_eps, double inf) {
   const Lanes L = lanes_for<G>(n_chunks);
-  const Copy c = copy_window(L, r, run_start, run_inst, run_slab, n_runs, width, slab);
-  const bool act = L.live && active[c.inst];
-  window_round<G>(val, col, ii, done, smf, smc, sxf, sxc, lhs, rhs, lb, ub, best_l, best_u, L,
-                  c.off, L.chunk, act, k, int_eps, inf);
+  bool use = false;
+  int64_t off = 0;
+  if (L.live) {
+    const int64_t t = L.chunk / r;
+    const int64_t inst = tile_inst[t];
+    use = active[inst];
+    off = inst * width + static_cast<int64_t>(tile_slab[t]) * slab;
+  }
+  if (!__any_sync(0xffffffffu, use)) return;  // the whole warp: no shuffle follows
+  const int64_t c = L.chunk;
+  const bool local = use && done[c] != 0;
+  const RowAgg given = use && !local ? RowAgg{smf[c], sxf[c], smc[c], sxc[c]} : RowAgg{};
+  chunk_round<G, U>(val, col, ii, SplitBounds{lb + off, ub + off}, c * k, use ? k : 0,
+                    use ? clen[c] : 0, local, given, use ? lhs[c] : 0.0, use ? rhs[c] : 0.0,
+                    best_l + off, best_u + off, L.sl, int_eps, inf);
 }
 
 // #12's scatter for B nodes of one instance: each warp ballots the mask 32
@@ -199,17 +228,19 @@ node_slab_scatter_kernel(const double* __restrict__ val, const int* __restrict__
 
 // The window merge over (B, W) planes: grid (column blocks, B); the blocks
 // of an inactive row return at once.  A thread whose column tightens sets
-// its window's flag, which the wrapper zeroes first.
+// its window's flag, which the wrapper zeroes first.  Each accumulator
+// entry it reads goes back to the sentinel (merge_reset): #12's planes are
+// kept for the whole fixed point; #14's fresh ones do not mind.
 __global__ void __launch_bounds__(kThreads)
-slab_merge_kernel(double* __restrict__ lb, double* __restrict__ ub,
-                  const double* __restrict__ best_l, const double* __restrict__ best_u,
-                  const bool* __restrict__ active, int* __restrict__ flags, int64_t width,
-                  int64_t slab, int64_t n_slabs, double eps, double inf, double outward) {
+slab_merge_kernel(double* __restrict__ lb, double* __restrict__ ub, double* __restrict__ best_l,
+                  double* __restrict__ best_u, const bool* __restrict__ active,
+                  int* __restrict__ flags, int64_t width, int64_t slab, int64_t n_slabs,
+                  double eps, double inf, double outward) {
   const int64_t b = blockIdx.y;
   if (!active[b]) return;
   const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (j >= width) return;
-  if (merge_one(lb, ub, best_l, best_u, b * width + j, eps, inf, outward))
+  if (merge_reset(lb, ub, best_l, best_u, b * width + j, eps, inf, outward))
     flags[b * n_slabs + j / slab] = 1;
 }
 
@@ -240,17 +271,20 @@ int node_slab_partials(const double* val, const int* col, const int* run_start,
   return static_cast<int>(cudaGetLastError());
 }
 
-int slab_scatter(const double* val, const int* col, const int* ii, const int* done,
-                 const double* smf, const int* smc, const double* sxf, const int* sxc,
-                 const double* lhs, const double* rhs, const int* run_start,
-                 const int* run_inst, const int* run_slab, const bool* active, const double* lb,
-                 const double* ub, double* best_l, double* best_u, int n_runs,
-                 int64_t n_chunks, int r, int k, int64_t width, int64_t slab, double int_eps,
-                 double inf, cudaStream_t stream) {
-  LAUNCH_FOR_WIDTH(slab_scatter_kernel, k, n_chunks, stream, val, col, ii, done, smf, smc, sxf,
-                   sxc, lhs, rhs, run_start, run_inst, run_slab, active, lb, ub, best_l, best_u,
-                   n_runs, n_chunks, r, k, width, slab, int_eps, inf);
-  return static_cast<int>(cudaGetLastError());
+int slab_scatter(const double* val, const int* col, const int* ii, const int* clen,
+                 const int* done, const double* smf, const int* smc, const double* sxf,
+                 const int* sxc, const double* lhs, const double* rhs, const int* tile_inst,
+                 const int* tile_slab, const bool* active, const double* lb, const double* ub,
+                 double* best_l, double* best_u, int64_t n_chunks, int r, int k, int max_len,
+                 int64_t width, int64_t slab, double int_eps, double inf, cudaStream_t stream) {
+  const unsigned int blocks = chunk_blocks(n_chunks, k);
+#define SLAB_SCATTER(G, U)                                                                  \
+  (slab_scatter_kernel<G, U><<<blocks, kThreads, 0, stream>>>(                              \
+       val, col, ii, clen, done, smf, smc, sxf, sxc, lhs, rhs, tile_inst, tile_slab, active, \
+       lb, ub, best_l, best_u, n_chunks, r, k, width, slab, int_eps, inf),                  \
+   static_cast<int>(cudaGetLastError()))
+  DISPATCH_HELD(SLAB_SCATTER, k, held_strides(max_len))
+#undef SLAB_SCATTER
 }
 
 int node_slab_scatter(const double* val, const int* col, const int* ii, const int* done,
@@ -266,7 +300,7 @@ int node_slab_scatter(const double* val, const int* col, const int* ii, const in
   return static_cast<int>(cudaGetLastError());
 }
 
-int slab_merge(double* lb, double* ub, const double* best_l, const double* best_u,
+int slab_merge(double* lb, double* ub, double* best_l, double* best_u,
                const bool* active, int* flags, int64_t bsz, int64_t width, int64_t slab,
                double eps, double inf, double outward, cudaStream_t stream) {
   const int64_t n_slabs = (width + slab - 1) / slab;

@@ -46,7 +46,7 @@ SIGNATURES = {
         "apply_updates": [P] * 5 + [I64, F64, F64, F64, P],
         "combine_chunk_partials": [P] * 11 + [I64, I64, P],
         "straddle_combine": [P] * 16 + [I64, I64, I64, I64, P],
-        "node_fused_scatter_round": [P] * 10 + [I64, I32, I64, I64, F64, F64, P],
+        "node_fused_scatter_round": [P] * 11 + [I64, I32, I32, I64, I64, F64, F64, P],
         "batched_fused_scatter_round": [P] * 11 + [I64, I32, I32, I64, F64, F64, P],
         "apply_updates_batch": [P] * 6 + [I64, I64, F64, F64, F64, P],
         "node_objective": [P] * 8 + [I64, I64, F64, F64, P],
@@ -57,7 +57,7 @@ SIGNATURES = {
     "slab_round.cu": {
         "slab_partials": [P] * 12 + [I32, I64, I32, I32, I64, I64, F64, P],
         "node_slab_partials": [P] * 11 + [I32, I64, I32, I32, I64, I64, I64, F64, P],
-        "slab_scatter": [P] * 18 + [I32, I64, I32, I32, I64, I64, F64, F64, P],
+        "slab_scatter": [P] * 18 + [I64, I32, I32, I32, I64, I64, F64, F64, P],
         "node_slab_scatter": [P] * 17 + [I32, I64, I32, I32, I64, I64, I64, F64, F64, P],
         "slab_merge": [P] * 6 + [I64, I64, I64, F64, F64, F64, P],
     },

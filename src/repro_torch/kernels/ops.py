@@ -19,8 +19,9 @@ semantics so they converge to the same fixed points.
     width on the host): the straddle rows' copy partials (#11), their
     completed aggregates by the straddle combine kernel in one fixed order
     (a compact table per plane, spread to the chunks), then the slab round
-    (#12: scatter into accumulator planes, then #15's window merge, in
-    place).
+    (#12: scatter into accumulator planes that the round closure keeps for
+    its whole fixed point, then #15's window merge, in place, which sets
+    them back to the sentinels).
   * The ``"segment"`` round (the reference's seed dataflow, kept as its
     cross-validation engine): the bounds gathered at every slot, kernel C
     (rows in one chunk) or kernel A, the combine and kernel B, the
@@ -39,9 +40,10 @@ semantics so they converge to the same fixed points.
     ``SCATTER_MAX_NPAD`` the partitioned round over the bucket's slab
     partition; otherwise A', the combine and E over the flat stream with
     global columns, then #9.
-  * The node round: kernel #10 then the batched merge #9 where rows fit one
-    chunk, else A', the combine and E over the node batch then #9 -- four
-    launches per round whatever the batch size; past ``SCATTER_MAX_NPAD``
+  * The node round: kernel #10 (into the closure's kept accumulator
+    planes) then the batched merge #9 (which hands them back clean) where
+    rows fit one chunk, else A', the combine and E over the node batch
+    then #9 -- four launches per round whatever the batch size; past ``SCATTER_MAX_NPAD``
     the partitioned node kernels (#13, the straddle combine over the active
     nodes' planes, #14 with #15) over the ``(B, n_pad)`` planes, whatever
     the tile width (the plain path there follows
@@ -198,7 +200,8 @@ class PreparedBlockEll:
     ub0: torch.Tensor    # (n_pad,)
     row_start: torch.Tensor  # (m+2,) int64: first chunk of each row, padding row m too
     seg_classes: tuple       # the combine's (short, long) int32 segment ids, hoisted
-    chunk_len: torch.Tensor  # (T, R) int32: one past each chunk's last nonzero (A', E)
+    chunk_len: torch.Tensor  # (T, R) int32: one past each chunk's last nonzero (A', E, #10)
+    max_chunk_len: int       # its largest entry: the strides #10 holds per lane
     m: int
     n: int
     n_pad: int
@@ -294,6 +297,7 @@ def prepare_block_ell(
     col = d.col.long()
     crow = d.chunk_row.long()
     row_start = kref.row_starts(d.chunk_row, p.m + 1)
+    chunk_len = kref.chunk_lengths(d.val)
     prep = PreparedBlockEll(
         d=d,
         ii_g=d.is_int[col].to(torch.int32),
@@ -303,7 +307,8 @@ def prepare_block_ell(
         ub0=torch.zeros(n_pad, dtype=dt, device=dev),
         row_start=row_start,
         seg_classes=kref.segment_classes(row_start),
-        chunk_len=kref.chunk_lengths(d.val),
+        chunk_len=chunk_len,
+        max_chunk_len=int(chunk_len.max()) if chunk_len.numel() else 0,
         m=p.m,
         n=p.n,
         n_pad=n_pad,
@@ -354,6 +359,48 @@ def gather_bounds(lb, ub, col):
     return (lb.index_select(0, flat).view(col.shape), ub.index_select(0, flat).view(col.shape))
 
 
+class KeptPlanes:
+    """The ``(B, W)`` accumulator planes of kernels #10 and #12, kept by the
+    round closure that owns them for its whole fixed point: allocated and
+    filled with the sentinels at the first round
+    (:func:`prop_round.accumulator_planes`), scattered into by the kernel,
+    and set back to the sentinels by the merge that reads them (#9 or #15,
+    the active rows: the rows the kernel scattered into), so each round
+    finds them clean.  A new shape or device allocates anew.  One pair per
+    thread, since a cached closure may run in several threads; a round that
+    raises drops the pair (it may have scattered without merging)."""
+
+    def __init__(self, inf: float):
+        self.inf = inf
+        self._local = threading.local()
+
+    @property
+    def planes(self):
+        """This thread's pair, or None before the first round."""
+        return getattr(self._local, "planes", None)
+
+    def get(self, like: torch.Tensor):
+        """The pair for bound planes shaped like ``like``."""
+        planes = self.planes
+        if planes is None or planes[0].shape != like.shape or planes[0].device != like.device:
+            planes = self._local.planes = kern.accumulator_planes(like, self.inf)
+        return planes
+
+    def guard(self, round_fn: Callable) -> Callable:
+        """``round_fn``, dropping the planes if it raises; the planes are
+        its ``kept`` attribute."""
+
+        def run(*args):
+            try:
+                return round_fn(*args)
+            except BaseException:
+                self._local.planes = None
+                raise
+
+        run.kept = self
+        return run
+
+
 class RoundOps(NamedTuple):
     """The functions of a round: the kernel wrappers, or their plain
     PyTorch versions."""
@@ -363,9 +410,9 @@ class RoundOps(NamedTuple):
     combine: Callable     # chunk partials -> completed row aggregates
     candidates: Callable  # E: tiles + row aggregates + bounds -> (best_l, best_u)
     merge: Callable       # F: (lb, ub, best_l, best_u, eps, inf, outward) -> (lb, ub, changed)
-    node_fused: Callable  # #10: tiles + (B, n_pad) planes + active -> (best_l, best_u)
+    node_fused: Callable  # #10: tiles + (B, n_pad) planes + active + kept -> (best_l, best_u)
     merge_batch: Callable  # #9: (lb, ub, best_l, best_u, active, eps, inf, outward)
-    partitioned: Callable  # (part, lb, ub, active, ...) -> (lb, ub, (B,) changed)
+    partitioned: Callable  # (part, lb, ub, active, ..., kept) -> (lb, ub, (B,) changed)
     batched_fused: Callable  # #8: flat stream + tile_inst + (B, n_pad) planes + active
     activities_tiles: Callable   # A: tiles + gathered bounds -> chunk partials
     candidates_tiles: Callable   # B: ... + row aggregates -> (T, R, K) candidates
@@ -375,7 +422,17 @@ class RoundOps(NamedTuple):
     node_candidates: Callable  # E over (B, T, R) aggregates + planes + active
 
 
-def _plain_node_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, int_eps, inf):
+def _kernel_node_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, int_eps, inf,
+                       *, kept: KeptPlanes, chunk_len=None, max_chunk_len=None):
+    return kern.node_fused_scatter_round_tiles(
+        val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, int_eps, inf,
+        acc=kept.get(lb), chunk_len=chunk_len, max_chunk_len=max_chunk_len,
+    )
+
+
+def _plain_node_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, int_eps, inf,
+                      *, kept, chunk_len=None, max_chunk_len=None):
+    del kept, chunk_len, max_chunk_len  # the plain round allocates its own planes
     return kref.node_fused_scatter_round_ref(
         val, col, is_int_g, lhs_g, rhs_g, lb, ub, n_pad, int_eps, inf, active=active
     )
@@ -395,7 +452,7 @@ def _plain_merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward=0.0):
 
 def _partitioned_kernel_round(
     part: SlabPartition, lb, ub, active, *, node: bool, eps: float, int_eps: float,
-    inf: float, outward: float = 0.0,
+    inf: float, kept: KeptPlanes, outward: float = 0.0,
 ):
     """One partitioned round on the kernels over ``(B, W)`` planes (``W`` the
     instance's ``n_pad``: no real nonzero reaches past it), IN PLACE:
@@ -405,8 +462,10 @@ def _partitioned_kernel_round(
     round (#12, or #14 per node: scatter, then #15's window merge).
     ``node=False`` routes copies to their own instance's plane by the run
     maps (a single instance passes ``B == 1``); ``node=True`` runs ONE
-    instance's copies against every node's plane.  Returns ``(lb, ub,
-    changed)`` with ``(B,)`` bool flags: the window flags OR-ed per plane."""
+    instance's copies against every node's plane.  #12 scatters into the
+    closure's kept planes ``kept`` (#14 still fills its own).  Returns
+    ``(lb, ub, changed)`` with ``(B,)`` bool flags: the window flags OR-ed
+    per plane."""
     bsz = lb.shape[0]
     if part.has_straddle:
         if node:
@@ -436,7 +495,9 @@ def _partitioned_kernel_round(
     else:
         lb, ub, ch = kern.batched_slab_round_tiles(
             *common, part.run_inst, part.run_slab, active, lb, ub, part.slab,
-            part.max_run_len, eps, int_eps, inf, outward,
+            part.max_run_len, eps, int_eps, inf, outward, acc=kept.get(lb),
+            tiles=(part.tile_inst, part.tile_slab), chunk_len=part.chunk_len,
+            max_chunk_len=part.max_chunk_len,
         )
     # Runs lie in window order: (plane, slab).
     return lb, ub, (ch.reshape(bsz, -1) != 0).any(dim=1)
@@ -444,11 +505,13 @@ def _partitioned_kernel_round(
 
 def _partitioned_plain_round(
     part: SlabPartition, lb, ub, active, *, node: bool, eps: float, int_eps: float,
-    inf: float, outward: float = 0.0,
+    inf: float, kept: KeptPlanes, outward: float = 0.0,
 ):
     """The plain partitioned round, as the reference's ``use_pallas=False``:
     ``ref.partitioned_round_ref`` (per active node under ``node=True``) and
-    the shared merge; returns new ``(B, W)`` planes and ``(B,)`` flags."""
+    the shared merge; returns new ``(B, W)`` planes and ``(B,)`` flags.
+    ``kept`` is not used: the plain round allocates its own planes."""
+    del kept
     if node:
         best_l, best_u = kref.node_partitioned_round_ref(part, lb, ub, int_eps, inf,
                                                          active=active)
@@ -465,7 +528,7 @@ KERNEL_OPS = RoundOps(
     kern.combine_chunk_partials_tiles,
     kern.candidates_scatter_tiles,
     kern.apply_updates_tiles,
-    kern.node_fused_scatter_round_tiles,
+    _kernel_node_fused,
     kern.apply_updates_batch_tiles,
     _partitioned_kernel_round,
     kern.batched_fused_scatter_round_tiles,
@@ -532,19 +595,20 @@ def _prepared_round(
     inf: float,
     fused: bool,
     outward: float = 0.0,
+    kept: KeptPlanes,
     part: SlabPartition | None = None,
 ):
     """One round over hoisted constants; (lb, ub) live in the column-padded
     ``(n_pad,)`` domain.  Returns ``(lb, ub, changed)``; with
     :data:`KERNEL_OPS` the bounds are updated in place.  With a slab
     partition ``part`` the partitioned round runs (it ignores ``fused``:
-    split rows are straddle rows there)."""
+    split rows are straddle rows there), #12 scattering into ``kept``."""
     d = prep.d
     if part is not None:
         one = torch.ones((1,), dtype=torch.bool, device=lb.device)
         new_lb, new_ub, ch = ops.partitioned(
             part, lb[None], ub[None], one, node=False, eps=eps, int_eps=int_eps, inf=inf,
-            outward=outward,
+            outward=outward, kept=kept,
         )
         return new_lb[0], new_ub[0], ch[0]
     if fused:
@@ -624,14 +688,15 @@ def round_fn_for(
 
         return round_fn
     part = prep.slab_partition(slab) if scatter == "partitioned" else None
+    kept = KeptPlanes(cfg.inf)
 
     def round_fn(lb, ub):
         return _prepared_round(
             prep, lb, ub, ops=ops, eps=eps, int_eps=cfg.int_eps, inf=cfg.inf,
-            fused=do_fuse, outward=outward, part=part,
+            fused=do_fuse, outward=outward, part=part, kept=kept,
         )
 
-    return round_fn
+    return kept.guard(round_fn)
 
 
 def block_ell_round(
@@ -898,19 +963,19 @@ def batched_reference_round(
 
 def _batched_prepared_round(
     prep: PreparedBatch, lb, ub, active, *, ops: RoundOps, eps: float, int_eps: float,
-    inf: float, slab: int | None = None, outward: float = 0.0,
+    inf: float, kept: KeptPlanes, slab: int | None = None, outward: float = 0.0,
 ):
     """One round over a prepared bucket, with the reference's rule: past
     ``SCATTER_MAX_NPAD`` (read at call time) the partitioned round over the
     bucket's slab partition (#11, the straddle combine, #12 with #15:
-    copies routed to their instance's plane by the run maps, inactive
-    instances skipped on the device); otherwise
-    :func:`batched_reference_round`."""
+    copies routed to their instance's plane by the hoisted tile maps,
+    inactive instances skipped on the device, #12 scattering into
+    ``kept``); otherwise :func:`batched_reference_round`."""
     if prep.n_pad > SCATTER_MAX_NPAD:
         part = prep.slab_partition(slab)
         return ops.partitioned(
             part, lb, ub, active, node=False, eps=eps, int_eps=int_eps, inf=inf,
-            outward=outward,
+            outward=outward, kept=kept,
         )
     d = prep.d
     return batched_reference_round(
@@ -931,14 +996,15 @@ def batched_round_fn_for(
     dt = prep.d.val.dtype
     eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
     ops = KERNEL_OPS if use_kernels else PLAIN_OPS
+    kept = KeptPlanes(cfg.inf)
 
     def round_fn(lb, ub, active):
         return _batched_prepared_round(
             prep, lb, ub, active, ops=ops, eps=eps, int_eps=cfg.int_eps, inf=cfg.inf,
-            slab=slab, outward=outward,
+            slab=slab, outward=outward, kept=kept,
         )
 
-    return round_fn
+    return kept.guard(round_fn)
 
 
 def _unpack_batch_results(prep: PreparedBatch, lb, ub, rounds, converged, infeasible, progress):
@@ -1186,7 +1252,8 @@ def _node_segment_round(prep: PreparedBlockEll, lb, ub, active, *, eps: float,
 
 def _node_round(
     prep: PreparedBlockEll, lb, ub, active, *, ops: RoundOps, eps: float,
-    int_eps: float, inf: float, outward: float = 0.0, part: SlabPartition | None = None,
+    int_eps: float, inf: float, kept: KeptPlanes, outward: float = 0.0,
+    part: SlabPartition | None = None,
 ):
     """One round over a node batch: ``(B, n_pad)`` per-node bounds + ``(B,)``
     active mask -> updated bounds + per-node changed flags, the matrix tiles
@@ -1200,17 +1267,19 @@ def _node_round(
     kernel #10, and rows that span chunks A', the combine and E over the
     node batch (where the reference vmaps its single-instance round); then
     the batched merge #9.  Each launch covers every node, so a round makes
-    the same launches whatever the batch size."""
+    the same launches whatever the batch size.  #10 scatters into the
+    closure's kept planes ``kept``, which #9 sets back to the sentinels."""
     if part is not None:
         return ops.partitioned(
             part, lb, ub, active, node=True, eps=eps, int_eps=int_eps, inf=inf,
-            outward=outward,
+            kept=kept, outward=outward,
         )
     d = prep.d
     if prep.fits_one_chunk:
         best_l, best_u = ops.node_fused(
             d.val, d.col, prep.ii_g, prep.lhs_g, prep.rhs_g, lb, ub, active,
-            prep.n_pad, int_eps, inf,
+            prep.n_pad, int_eps, inf, kept=kept, chunk_len=prep.chunk_len,
+            max_chunk_len=prep.max_chunk_len,
         )
     else:
         partials = ops.node_activities(d.val, d.col, lb, ub, active, prep.n_pad, inf,
@@ -1246,14 +1315,15 @@ def node_round_fn_for(
 
         return round_fn
     part = prep.slab_partition(slab) if large else None
+    kept = KeptPlanes(cfg.inf)
 
     def round_fn(lb, ub, active):
         return _node_round(
             prep, lb, ub, active, ops=ops, eps=eps, int_eps=cfg.int_eps, inf=cfg.inf,
-            outward=outward, part=part,
+            outward=outward, part=part, kept=kept,
         )
 
-    return round_fn
+    return kept.guard(round_fn)
 
 
 def node_batch_runner(

@@ -4,7 +4,10 @@ round and of the solver's node objective, behind PyTorch wrappers.
 
 Each wrapper of a TPU kernel keeps the signature of its Pallas twin in the
 JAX package (``src/repro/kernels/prop_round.py``) minus ``interpret`` and
-``block``; the long-row and straddle combines replace XLA segment sums.  On
+``block``, plus keyword arguments for what the engines hoist (chunk
+lengths, the copy tiles' windows) and, for #10 and #12, the accumulator
+planes they scatter into (``acc``, :func:`accumulator_planes`); the
+long-row and straddle combines replace XLA segment sums.  On
 a CPU tensor it runs the kernel's plain-PyTorch version (``ref.py``); on a
 CUDA tensor it launches the hand-written Hopper kernel of
 ``csrc/prop_round.cu`` or ``csrc/slab_round.cu`` on the current stream, or
@@ -73,6 +76,34 @@ def _p(t: torch.Tensor) -> int:
     return t.data_ptr()
 
 
+def accumulator_planes(like: torch.Tensor, inf: float = INF):
+    """``(best_l, best_u)``: two float64 planes shaped like the bound planes
+    ``like``, filled with the sentinels ``-inf`` and ``inf``, for kernels
+    #10 and #12 to scatter into (their ``acc``).  The engines allocate one
+    pair per round closure and keep it for the whole fixed point: the merge
+    that reads the planes (#9, #15) sets every entry it reads -- the active
+    rows -- back to the sentinel, so they are clean for the next round."""
+    shape, dev = tuple(like.shape), like.device
+    return (torch.full(shape, -inf, dtype=torch.float64, device=dev),
+            torch.full(shape, inf, dtype=torch.float64, device=dev))
+
+
+def _fold(acc, best):
+    """The plain form of a scatter into kept planes ``acc``: their column
+    max / min with this launch's candidates ``best``, in place."""
+    torch.maximum(acc[0], best[0], out=acc[0])
+    torch.minimum(acc[1], best[1], out=acc[1])
+    return acc
+
+
+def _hand_back(best_l, best_u, active, inf: float) -> None:
+    """The plain form of the batched merges' hand-back: the accumulator rows
+    they read (the active ones) set back to the sentinels, in place."""
+    rows = active[:, None]
+    best_l.masked_fill_(rows, -inf)
+    best_u.masked_fill_(rows, inf)
+
+
 # ---------------------------------------------------------------------------
 # Kernel D: the whole round for rows that fit one chunk
 # ---------------------------------------------------------------------------
@@ -133,6 +164,12 @@ def _chunk_len(val, chunk_len):
         return ref.chunk_lengths(val)
     _expect("chunk_len", chunk_len, torch.int32, val.shape[:2])
     return chunk_len
+
+
+def _max_len(k: int, max_chunk_len) -> int:
+    """The longest chunk a launch of #10 or #12 meets, which sets the
+    strides a lane holds: as hoisted by the caller, or the width K."""
+    return k if max_chunk_len is None else int(max_chunk_len)
 
 
 def _paired(lb, ub):
@@ -493,27 +530,39 @@ def _check_planes(bsz: int, n_pad: int, **planes) -> None:
 
 def node_fused_scatter_round_tiles(
     val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad: int, int_eps: float,
-    inf: float = INF,
+    inf: float = INF, *, acc, chunk_len=None, max_chunk_len: int | None = None,
 ):
     """Fully fused round over a node batch: ONE instance's ``(T, R, K)``
     tiles + ``(B, n_pad)`` per-node bound planes + ``(B,)`` bool ``active``
-    mask -> ``(B, n_pad)`` ``best_l`` / ``best_u``.  Per node exactly
-    :func:`fused_scatter_round_tiles`; inactive nodes get sentinel rows.
-    Requires every row to fit its chunk.
+    mask -> ``(B, n_pad)`` ``best_l`` / ``best_u``, scattered into the
+    accumulator planes ``acc`` (:func:`accumulator_planes`; their active
+    rows must hold the sentinels) and returned.  Per node exactly
+    :func:`fused_scatter_round_tiles`; inactive nodes' rows are not
+    touched.  ``chunk_len`` (``(T, R)`` int32, the prep's, the same tiles
+    as D's) is where each chunk stops; computed from ``val`` when omitted.
+    ``max_chunk_len`` (its largest entry, hoisted with it; K when omitted)
+    sets how many strides of 32 slots a lane holds.  Requires every row to
+    fit its chunk.
 
     Replaces ``node_fused_scatter_round_tiles`` /
     ``_node_fused_scatter_kernel`` (src/repro/kernels/prop_round.py:964 /
     :923).  Bound on the H100: the tile stream once per launch (it fits the
-    50 MB L2 at the solver's sizes), plus each active node's two bound rows
-    read and two accumulator rows written.  Design: kernel D's lane group
-    per chunk; each warp reads the mask on the device, 32 nodes per ballot,
-    and visits the active nodes only, reusing its tile data from L1; the
-    accumulator planes are filled with the sentinel before the launch."""
-    operands = (val, col, is_int_g, lhs_g, rhs_g, lb, ub, active)
+    50 MB L2 at the solver's sizes; ``val`` per slot, or at the nonzeros
+    with the chunks stopped at their length), plus each active node's two
+    bound rows read and two accumulator rows written.  Design: kernel D's
+    lane group per chunk, node-major: each block ballots the mask into
+    shared memory and walks (active node, chunk block) items node by node
+    over a grid of at most the resident blocks, so the items in flight
+    share one or a few nodes' rows in L2; each nonzero's bounds are
+    gathered once and held from the sums to the candidates (as many strides
+    as the longest chunk needs, the values, columns and marks loaded
+    together); the column max/min by fire-and-forget 64-bit integer
+    reductions; no plane is allocated or filled per launch."""
+    operands = (val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, *acc)
     if not _on_cuda(*operands):
-        return ref.node_fused_scatter_round_ref(
+        return _fold(acc, ref.node_fused_scatter_round_ref(
             val, col, is_int_g, lhs_g, rhs_g, lb, ub, n_pad, int_eps, inf, active=active
-        )
+        ))
     t, r, k = val.shape
     _expect("val", val, torch.float64, (t, r, k))
     _expect("col", col, torch.int32, (t, r, k))
@@ -521,13 +570,14 @@ def node_fused_scatter_round_tiles(
     _expect("lhs_g", lhs_g, torch.float64, (t, r))
     _expect("rhs_g", rhs_g, torch.float64, (t, r))
     bsz = lb.shape[0]
-    _check_planes(bsz, n_pad, lb=lb, ub=ub)
+    best_l, best_u = acc
+    _check_planes(bsz, n_pad, lb=lb, ub=ub, best_l=best_l, best_u=best_u)
     _expect("active", active, torch.bool, (bsz,))
-    best_l = torch.full((bsz, n_pad), -inf, dtype=torch.float64, device=val.device)
-    best_u = torch.full((bsz, n_pad), inf, dtype=torch.float64, device=val.device)
+    clen = _chunk_len(val, chunk_len)
     err = _build.lib().node_fused_scatter_round(
-        _p(val), _p(col), _p(is_int_g), _p(lhs_g), _p(rhs_g), _p(lb), _p(ub), _p(active),
-        _p(best_l), _p(best_u), t * r, k, bsz, n_pad, int_eps, inf, _stream(),
+        _p(val), _p(col), _p(is_int_g), _p(clen), _p(lhs_g), _p(rhs_g), _p(lb), _p(ub),
+        _p(active), _p(best_l), _p(best_u), t * r, k, _max_len(k, max_chunk_len), bsz, n_pad,
+        int_eps, inf, _stream(),
     )
     node_fused_scatter_round_tiles.launches += 1
     _build.check(err, "node_fused_scatter_round")
@@ -771,13 +821,16 @@ def apply_updates_batch_tiles(
     """Batched merge with ``bounds.apply_updates_batch`` semantics, IN
     PLACE: ``(B, n_pad)`` ``lb``/``ub`` are overwritten and returned with a
     ``(B,)`` bool ``changed``.  Inactive rows are neither read nor written
-    and report unchanged.
+    and report unchanged.  The active rows of ``best_l``/``best_u`` are set
+    back to the sentinels once read (#10's planes are kept for the whole
+    fixed point).
 
     Replaces ``apply_updates_batch_tiles`` / ``_apply_updates_batch_kernel``
     (src/repro/kernels/prop_round.py:1666 / :1652), whose bound buffers are
     donated.  Bound on the H100: 32 B of reads per active (node, column)
     (its bounds and candidates), 8 B per entry that tightens, and the mask
-    and flags.  Design: a
+    and flags, and 16 B written back per accumulator entry that held a
+    candidate.  Design: a
     (column block, node) grid whose blocks of inactive nodes return at once;
     every thread that takes a tightening stores ``true`` to its node's flag,
     which the wrapper zeroes first."""
@@ -785,6 +838,7 @@ def apply_updates_batch_tiles(
         new_lb, new_ub, changed = bnd.apply_updates_batch(
             lb, ub, best_l, best_u, eps, inf, outward, active=active
         )
+        _hand_back(best_l, best_u, active, inf)
         lb.copy_(new_lb)
         ub.copy_(new_ub)
         return lb, ub, changed
@@ -956,6 +1010,7 @@ def batched_slab_round_tiles(
     val, col_s, is_int_g, row_done, str_min_fin, str_min_cnt, str_max_fin, str_max_cnt,
     lhs_g, rhs_g, run_start, run_len, run_inst, run_slab, active, lb, ub, slab: int,
     max_run_len: int, eps: float, int_eps: float, inf: float = INF, outward: float = 0.0,
+    *, acc, tiles, chunk_len=None, max_chunk_len: int | None = None,
 ):
     """The slab round over a partitioned stream, IN PLACE: ``(T'', R, K)``
     copies + ``(T'', R)`` ``row_done`` and straddle aggregates ``str_*``
@@ -963,29 +1018,43 @@ def batched_slab_round_tiles(
     ``(instance, slab)`` window, in window order) + ``(B, W)`` planes +
     ``(B,)`` ``active`` -> the planes, updated, and ``(n_runs,)`` int32
     per-run changed flags (``n_runs == B * n_slabs``).  Inactive instances
-    pass through.
+    pass through.  ``acc`` is the pair of ``(B, W)`` accumulator planes
+    (:func:`accumulator_planes`; sentinels in every active row), scattered
+    into and set back to the sentinels by the merge; ``tiles`` the copy
+    tiles' ``(tile_inst, tile_slab)``, ``chunk_len`` the copy stream's
+    chunk lengths and ``max_chunk_len`` the longest, all hoisted by the
+    partition (the last two computed from ``val``, and K, when omitted).
 
     Replaces ``batched_slab_round_tiles`` / ``_batched_slab_round_kernel``
     (src/repro/kernels/prop_round.py:1258 / :1195), whose merge at each
     run's last grid step relies on the TPU running a run's tiles in order.
-    Bound on the H100: the copy stream (8 B of ``val`` per slot, 8 B of
-    ``col_s`` and ``is_int_g`` per kept nonzero, 40 B of row data per
-    chunk), the window bounds read and written, and the accumulator planes
-    written and read once.  Design: two launches -- kernel D's lane groups
-    scatter every copy's candidates into ``(B, W)`` accumulator planes
-    (float64 CAS max/min, filled with the sentinel first), then kernel
-    #15's window merge runs once every copy has scattered, in place (counted
-    as #15's launch)."""
+    Bound on the H100: the copy stream (``val`` per slot, or at the
+    nonzeros with the chunks stopped at their length; 8 B of ``col_s`` and
+    ``is_int_g`` per kept nonzero; 44 B of row data per chunk), the window
+    bounds read and written, and the accumulator planes written and read
+    once.  Design: two launches -- the scatter, then kernel #15's window
+    merge once every copy has scattered, in place (counted as #15's
+    launch).  The scatter runs kernel D's lane groups; each lane reads its
+    window from ``tile_inst``/``tile_slab`` (no search over the runs),
+    stops at its chunk's length, loads values, columns and marks together,
+    gathers each nonzero's bounds once and holds them from the sums to the
+    candidates (as many strides as the longest copy needs: one on the
+    copy streams seen so far), and reduces by fire-and-forget 64-bit
+    integer reductions into the kept planes."""
     strs = (str_min_fin, str_min_cnt, str_max_fin, str_max_cnt)
     operands = (val, col_s, is_int_g, row_done, *strs, lhs_g, rhs_g, run_start, run_len,
-                run_inst, run_slab, active, lb, ub)
+                run_inst, run_slab, active, lb, ub, *acc)
     if not _on_cuda(*operands):
-        new_lb, new_ub, ch = ref.batched_slab_round_ref(
-            *operands, slab, max_run_len, eps, int_eps, inf, outward
-        )
+        best_l, best_u = _fold(acc, ref.batched_slab_scatter_ref(
+            val, col_s, is_int_g, row_done, *strs, lhs_g, rhs_g, run_start, run_inst, run_slab,
+            active, lb, ub, slab, int_eps, inf,
+        ))
+        new_lb, new_ub, flags = ref.apply_updates_slab_ref(lb, ub, best_l, best_u, active, slab,
+                                                           eps, inf, outward)
+        _hand_back(best_l, best_u, active, inf)
         lb.copy_(new_lb)
         ub.copy_(new_ub)
-        return lb, ub, ch
+        return lb, ub, flags.reshape(-1)
     t, r, k, bsz, width = _check_round(val, col_s, is_int_g, row_done, lhs_g, rhs_g, strs, (),
                                        lb, ub, active)
     n_runs = _check_runs(t, run_start=run_start, run_len=run_len, run_inst=run_inst,
@@ -993,12 +1062,15 @@ def batched_slab_round_tiles(
     if n_runs != bsz * _n_slabs(width, slab):
         raise ValueError(f"{n_runs} runs, expected one per window ({bsz} x "
                          f"{_n_slabs(width, slab)})")
-    best_l = torch.full((bsz, width), -inf, dtype=torch.float64, device=val.device)
-    best_u = torch.full((bsz, width), inf, dtype=torch.float64, device=val.device)
+    best_l, best_u = acc
+    _check_planes(bsz, width, best_l=best_l, best_u=best_u)
+    for name, x in zip(("tile_inst", "tile_slab"), tiles):
+        _expect(name, x, torch.int32, (t,))
+    clen = _chunk_len(val, chunk_len)
     err = _build.lib().slab_scatter(
-        _p(val), _p(col_s), _p(is_int_g), _p(row_done), *map(_p, strs), _p(lhs_g), _p(rhs_g),
-        _p(run_start), _p(run_inst), _p(run_slab), _p(active), _p(lb), _p(ub), _p(best_l),
-        _p(best_u), n_runs, t * r, r, k, width, slab, int_eps, inf, _stream(),
+        _p(val), _p(col_s), _p(is_int_g), _p(clen), _p(row_done), *map(_p, strs), _p(lhs_g),
+        _p(rhs_g), *map(_p, tiles), _p(active), _p(lb), _p(ub), _p(best_l), _p(best_u), t * r,
+        r, k, _max_len(k, max_chunk_len), width, slab, int_eps, inf, _stream(),
     )
     batched_slab_round_tiles.launches += 1
     _build.check(err, "slab_scatter")
@@ -1179,18 +1251,21 @@ def apply_updates_slab_tiles(
     bounds and best candidates + ``(B,)`` ``active`` -> the planes, updated,
     and ``(B,)`` bool per-instance changed flags (the per-window flags
     OR-ed).  ``bounds.apply_updates`` semantics; inactive rows pass
-    through.
+    through.  The active rows of ``best_l``/``best_u`` are set back to the
+    sentinels once read (#12's planes are kept for the whole fixed point).
 
     Replaces ``apply_updates_slab_tiles`` / ``_apply_updates_slab_kernel``
     (src/repro/kernels/prop_round.py:1595 / :1581).  The same kernel is the
     second launch of #12 and #14.  Bound on the H100: 32 B of reads per
-    active (row, column), 8 B per entry that tightens, and the flags.
+    active (row, column), 8 B per entry that tightens, the flags, and 16 B
+    written back per accumulator entry that held a candidate.
     Design: a (column block, row) grid whose blocks of inactive rows return
     at once; a thread whose column tightens sets its window's flag."""
     if not _on_cuda(lb, ub, best_l, best_u, active):
         new_lb, new_ub, flags = ref.apply_updates_slab_ref(
             lb, ub, best_l, best_u, active, slab, eps, inf, outward
         )
+        _hand_back(best_l, best_u, active, inf)
         lb.copy_(new_lb)
         ub.copy_(new_ub)
         return lb, ub, flags.any(dim=1)

@@ -545,17 +545,16 @@ def batched_slab_partials_ref(val, col_s, run_start, run_len, run_inst, run_slab
                  for x in _window_partials(val, col_s, off, lb, ub, inf))
 
 
-def batched_slab_round_ref(
+def batched_slab_scatter_ref(
     val, col_s, is_int_g, row_done, str_min_fin, str_min_cnt, str_max_fin, str_max_cnt,
-    lhs_g, rhs_g, run_start, run_len, run_inst, run_slab, active, lb, ub, slab: int,
-    max_run_len: int, eps: float, int_eps: float, inf: float = INF, outward: float = 0.0,
+    lhs_g, rhs_g, run_start, run_inst, run_slab, active, lb, ub, slab: int,
+    int_eps: float, inf: float = INF,
 ):
-    """Kernel #12 oracle: candidates of every copy tile against its window
-    (straddle aggregates ``str_*`` ``(T'', R)`` where ``row_done == 0``),
-    the column max/min per window, then #15's merge.  Returns ``(new_lb,
-    new_ub, changed)``, ``changed`` ``(n_runs,)`` int32 per run, which is
-    per window in window order."""
-    del run_len, max_run_len
+    """The scatter of kernel #12: candidates of every copy tile against its
+    window (straddle aggregates ``str_*`` ``(T'', R)`` where ``row_done ==
+    0``), reduced per column -> ``(B, W)`` best_l / best_u, the sentinels
+    where a column has no candidate and in the rows of inactive
+    instances."""
     bsz, width = lb.shape
     inst, off = _copy_windows(run_start, run_inst, run_slab, val.shape[0], width, slab)
     lcand, ucand, c = _window_candidates(
@@ -566,10 +565,26 @@ def batched_slab_round_ref(
     lcand = torch.where(act, lcand, -inf)
     ucand = torch.where(act, ucand, inf)
     best_l, best_u = scatter_round_ref(lcand, ucand, c, bsz * width, inf)
-    new_lb, new_ub, flags = apply_updates_slab_ref(
-        lb, ub, best_l.reshape(bsz, width), best_u.reshape(bsz, width), active, slab, eps,
-        inf, outward,
+    return best_l.reshape(bsz, width), best_u.reshape(bsz, width)
+
+
+def batched_slab_round_ref(
+    val, col_s, is_int_g, row_done, str_min_fin, str_min_cnt, str_max_fin, str_max_cnt,
+    lhs_g, rhs_g, run_start, run_len, run_inst, run_slab, active, lb, ub, slab: int,
+    max_run_len: int, eps: float, int_eps: float, inf: float = INF, outward: float = 0.0,
+):
+    """Kernel #12 oracle: candidates of every copy tile against its window
+    (straddle aggregates ``str_*`` ``(T'', R)`` where ``row_done == 0``),
+    the column max/min per window (:func:`batched_slab_scatter_ref`), then
+    #15's merge.  Returns ``(new_lb, new_ub, changed)``, ``changed``
+    ``(n_runs,)`` int32 per run, which is per window in window order."""
+    del run_len, max_run_len
+    best_l, best_u = batched_slab_scatter_ref(
+        val, col_s, is_int_g, row_done, str_min_fin, str_min_cnt, str_max_fin, str_max_cnt,
+        lhs_g, rhs_g, run_start, run_inst, run_slab, active, lb, ub, slab, int_eps, inf,
     )
+    new_lb, new_ub, flags = apply_updates_slab_ref(lb, ub, best_l, best_u, active, slab, eps,
+                                                   inf, outward)
     return new_lb, new_ub, flags.reshape(-1)
 
 

@@ -11,7 +11,8 @@ port's plain column reduction is a ``scatter_reduce`` ``amax``/``amin``,
 which does not depend on order).  One thing is added: the index of the
 straddle combine (``a_order``, ``a_seg``, ``agg_pos``), which sums each
 straddle row's copy partials left to right in sub-stream order, the same
-order on every device.
+order on every device; and the main stream's chunk lengths (``chunk_len``),
+where kernel #12 stops each copy.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import numpy as np
 import torch
 
 from ..core.sparse import LANE, chunk_stream
+from .ref import chunk_lengths
 
 # Largest padded column count that ``scatter="auto"`` sends to the fused
 # engine; beyond it the partitioned engine runs.  The JAX package's VMEM
@@ -70,7 +72,9 @@ class SlabPartition(NamedTuple):
     next to each other in ascending sub-stream position; ``a_seg`` holds
     each slot's first position in that order (``n_straddle + 2`` entries);
     ``agg_pos`` is, per main-stream chunk, the position of its slot's first
-    partial (0 where ``row_done == 1``)."""
+    partial (0 where ``row_done == 1``).  ``chunk_len`` (also the port's) is
+    :func:`ref.chunk_lengths` of the main stream: a copy keeps only its
+    slab's nonzeros, so its chunks are padded more than the source's."""
 
     # Main stream: every chunk copy, (instance, slab)-grouped and padded.
     val: torch.Tensor        # (T'', R, K) slab-masked copies; 0 == padding
@@ -83,6 +87,7 @@ class SlabPartition(NamedTuple):
     rhs_g: torch.Tensor      # (T'', R)
     row_done: torch.Tensor   # (T'', R) int32: 1 iff copy holds its whole row
     agg_slot: torch.Tensor   # (T'', R) int32 straddle-table slot (0 = dummy)
+    chunk_len: torch.Tensor  # (T'', R) int32 one past each copy's last kept nonzero (#12)
     run_start: torch.Tensor  # (B*n_slabs,) int32 first copy tile of each run
     run_len: torch.Tensor    # (B*n_slabs,) int32 copy tiles per run (>= 1)
     run_inst: torch.Tensor   # (B*n_slabs,) int32 window instance per run
@@ -108,6 +113,7 @@ class SlabPartition(NamedTuple):
     batch: int              # B: instances sharing the stream
     n_straddle: int         # straddle rows (table has n_straddle + 1 slots)
     max_run_len: int        # max(run_len)
+    max_chunk_len: int      # max(chunk_len): the strides #12 holds per lane
     a_max_run_len: int      # max(a_run_len), 0 when no straddle copies
     source_tiles: int       # T of the unpartitioned stream
     source_chunks: int      # nonzero-carrying chunks of the source stream
@@ -311,6 +317,7 @@ def build_slab_partition(
         rhs_g=t_(rhs1[main["row"]]),
         row_done=t_(main["done"]),
         agg_slot=t_(main["slot"]),
+        chunk_len=chunk_lengths(t_(main["val"])),
         run_start=t_(run_start),
         run_len=t_(run_len),
         run_inst=t_(run_inst),
@@ -333,6 +340,7 @@ def build_slab_partition(
         batch=bsz,
         n_straddle=n_straddle,
         max_run_len=int(run_len.max(initial=1)),
+        max_chunk_len=int(np.where(main["val"] != 0, np.arange(1, k + 1), 0).max(initial=0)),
         a_max_run_len=int(a_run_len.max(initial=0)),
         source_tiles=t,
         source_chunks=int(src.sum()),

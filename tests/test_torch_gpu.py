@@ -69,6 +69,12 @@ def _match(got, want):
 SHAPES = [(1, 2, 4, 3), (3, 4, 8, 20), (5, 8, 128, 300), (64, 8, 128, 5000)]
 
 
+def _clean(acc) -> bool:
+    """Accumulator planes (or rows of them) at the sentinels."""
+    torch.cuda.synchronize()
+    return bool((acc[0] == -INF).all() and (acc[1] == INF).all())
+
+
 @pytest.mark.parametrize("exact", [True, False], ids=["int", "float"])
 @pytest.mark.parametrize("t,r,k,n", SHAPES)
 def test_kernels_match_plain_versions(cuda, gen, t, r, k, n, exact):
@@ -164,17 +170,20 @@ def test_node_kernels_match_plain_versions(cuda, gen, t, r, k, n, bsz, exact):
         act = act.to(cuda)
         tk.reset_launch_counts()
         args = (x["val"], x["col"], x["ii"], x["lhs"], x["rhs"], lb, ub, act, x["n_pad"], 1e-6)
-        got = tk.node_fused_scatter_round_tiles(*args)
+        acc = tk.accumulator_planes(lb)
+        got = tk.node_fused_scatter_round_tiles(*args, acc=acc)
         want = tref.node_fused_scatter_round_ref(*args[:7], x["n_pad"], 1e-6, active=act)
         for g, w in zip(got, want):
             _match(g, w)
         best_l, best_u = want
         want_m = rt.core.apply_updates_batch(lb, ub, best_l, best_u, 1e-9, active=act)
         glb, gub = lb.clone(), ub.clone()
-        got_m = tk.apply_updates_batch_tiles(glb, gub, best_l, best_u, act, 1e-9)
+        # The merge reads the kernel's planes and hands them back clean.
+        got_m = tk.apply_updates_batch_tiles(glb, gub, *acc, act, 1e-9)
         assert got_m[0] is glb
         for g, w in zip(got_m, want_m):
             _match(g, w)
+        assert _clean(acc)
         counts = tk.launch_counts()
         assert counts["node_fused_scatter_round_tiles"] == counts["apply_updates_batch_tiles"] == 1
 
@@ -571,11 +580,15 @@ def test_slab_kernels_match_plain_versions(cuda, gen, gen_name, kw, tile_width, 
             want = tref.batched_slab_round_ref(*r_args, lb, ub, slab, part.max_run_len, 1e-9,
                                                1e-6)
             glb, gub = lb.clone(), ub.clone()
+            acc = tk.accumulator_planes(lb)
             got = tk.batched_slab_round_tiles(*r_args, glb, gub, slab, part.max_run_len, 1e-9,
-                                              1e-6)
+                                              1e-6, acc=acc, tiles=(part.tile_inst,
+                                                                    part.tile_slab),
+                                              chunk_len=part.chunk_len)
             assert got[0] is glb and got[1] is gub
             for g, w in zip(got, want):
                 _match(g, w)
+            assert _clean(acc)
             assert tk.launch_counts() == {
                 fn.__name__: int(fn.__name__ in ("batched_slab_partials_tiles",
                                                  "straddle_combine_tiles",
@@ -672,12 +685,17 @@ def test_window_merge_matches_plain_version(cuda, gen, bsz, width, exact):
     act = (torch.arange(bsz) % 2 == 0).to(cuda)
     want = tref.apply_updates_slab_ref(lb, ub, bl, bu, act, 128, 1e-9)
     glb, gub = lb.clone(), ub.clone()
+    old_l, old_u = bl.clone(), bu.clone()
     tk.reset_launch_counts()
     got = tk.apply_updates_slab_tiles(glb, gub, bl, bu, act, 128, 1e-9)
     assert got[0] is glb and tk.launch_counts()["apply_updates_slab_tiles"] == 1
     _match(got[0], want[0])
     _match(got[1], want[1])
     _match(got[2], want[2].any(dim=1))
+    # The merge hands the active rows back at the sentinels.
+    assert _clean((bl[act], bu[act]))
+    _match(bl[~act], old_l[~act])
+    _match(bu[~act], old_u[~act])
 
 
 @pytest.mark.parametrize("gen_name,kw,tile_width,exact", [
@@ -1000,3 +1018,190 @@ def test_legacy_round_on_card_matches_segment_round(cuda, tile_width):
     _match(got[0], want[0][: prep.n])
     _match(got[1], want[1][: prep.n])
     assert bool(got[2]) == bool(want[2])
+
+
+# ---------------------------------------------------------------------------
+# The redesigned #10 and #12: held bounds, integer atomics, chunks stopped at
+# their length, node-major #10, accumulator planes kept across rounds
+# ---------------------------------------------------------------------------
+
+
+def _active(bsz, n_act, dev):
+    act = torch.zeros(bsz, dtype=torch.bool, device=dev)
+    if n_act == "all":
+        act[:] = True
+    elif n_act:
+        act[torch.linspace(0, bsz - 1, n_act).long()] = True
+    return act
+
+
+@pytest.mark.parametrize("bsz", [1, 33, 128, 256])
+@pytest.mark.parametrize("k", [4, 8, 16, 32, 128])
+def test_node_major_round_matches_plain_version(cuda, gen, k, bsz):
+    """#10 at every group width and at batch sizes that are and are not
+    multiples of 32 (256: the solver's default pool), with 0, 1, 8 and all
+    nodes active, one pair of planes kept across the masks and handed back
+    by #9 each time: bitwise equal to its plain version, each active node
+    to kernel D on its row."""
+    x = _tiles(gen, 24, 8, k, 700, False, cuda)
+    n_pad = x["n_pad"]
+    x["val"][0, 0, k // 2 :] = 0.0  # a chunk that stops short of K
+    x["col"][0, 0, k // 2 :] = 0
+    lb, ub = _planes(gen, bsz, n_pad, False, cuda)
+    clen = tref.chunk_lengths(x["val"])
+    acc = tk.accumulator_planes(lb)
+    # Strides held per lane: as the longest chunk needs (hoisted), as K
+    # needs (omitted), or one (a short hint: later strides gathered again).
+    hints = [int(clen.max()), None, 1]
+    for j, n_act in enumerate((0, 1, 8, "all")):
+        act = _active(bsz, n_act, cuda)
+        args = (x["val"], x["col"], x["ii"], x["lhs"], x["rhs"], lb, ub, act, n_pad, 1e-6)
+        tk.reset_launch_counts()
+        got = tk.node_fused_scatter_round_tiles(*args, acc=acc, chunk_len=clen,
+                                                max_chunk_len=hints[j % 3])
+        assert tk.launch_counts()["node_fused_scatter_round_tiles"] == 1
+        want = tref.node_fused_scatter_round_ref(*args[:7], n_pad, 1e-6, active=act)
+        for g, w in zip(got, want):
+            _match(g, w)
+        for i in act.nonzero().flatten().tolist()[:3]:
+            one = tk.fused_scatter_round_tiles(x["val"], x["col"], x["ii"], x["lhs"], x["rhs"],
+                                               lb[i], ub[i], n_pad, 1e-6)
+            _match(got[0][i], one[0])
+            _match(got[1][i], one[1])
+        want_m = rt.core.apply_updates_batch(lb, ub, *want, 1e-9, active=act)
+        glb, gub = lb.clone(), ub.clone()
+        for g, w in zip(tk.apply_updates_batch_tiles(glb, gub, *acc, act, 1e-9), want_m):
+            _match(g, w)
+        assert _clean(acc)
+
+
+WIDE_CASES = [
+    # pbw-like: pseudo-boolean rows at K = 8; bandw-like: banded rows at K = 128.
+    ("make_pseudo_boolean", dict(n=3000, m=4000, seed=7), 8, 1024),
+    ("make_banded", dict(n=3000, m=2000, row_nnz=12, band=600, seed=1), 128, 1024),
+]
+
+
+@pytest.mark.parametrize("instances", [1, 2])
+@pytest.mark.parametrize("gen_name,kw,tile_width,slab", WIDE_CASES)
+def test_slab_scatter_matches_plain_version(cuda, gen, gen_name, kw, tile_width, slab,
+                                            instances):
+    """#12 on small partitions shaped like the card's ``pbw`` and ``bandw``,
+    one and two planes, each instance in turn inactive, the planes kept
+    across the masks: bitwise equal to ``ref.batched_slab_round_ref``, the
+    window flags too; the chunk lengths given (as the engine does) or
+    computed from the copies."""
+    problems = [getattr(td, gen_name)(**{**kw, "seed": kw["seed"] + i})
+                for i in range(instances)]
+    part, n_pad = _packed_partition(problems, tile_width, slab, cuda)
+    lb, ub = _planes(gen, instances, n_pad, gen_name == "make_pseudo_boolean", cuda)
+    strs = tref.straddle_combine_ref(
+        *tref.batched_slab_partials_ref(
+            part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_inst,
+            part.a_run_slab, torch.ones(instances, dtype=torch.bool, device=cuda), lb, ub,
+            slab, part.a_max_run_len),
+        part.a_order, part.a_seg, part.agg_slot)
+    acc = tk.accumulator_planes(lb)
+    masks = [torch.ones(instances, dtype=torch.bool)]
+    masks += [torch.arange(instances) != i for i in range(instances)]
+    for j, act in enumerate(masks):
+        act = act.to(cuda)
+        r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g,
+                  part.rhs_g, part.run_start, part.run_len, part.run_inst, part.run_slab, act)
+        want = tref.batched_slab_round_ref(*r_args, lb, ub, slab, part.max_run_len, 1e-9, 1e-6)
+        glb, gub = lb.clone(), ub.clone()
+        hoisted = dict(chunk_len=part.chunk_len, max_chunk_len=part.max_chunk_len)
+        got = tk.batched_slab_round_tiles(*r_args, glb, gub, slab, part.max_run_len, 1e-9, 1e-6,
+                                          acc=acc, tiles=(part.tile_inst, part.tile_slab),
+                                          **(hoisted if j % 2 == 0 else {}))
+        for g, w in zip(got, want):
+            _match(g, w)
+        assert _clean(acc)
+
+
+@pytest.mark.parametrize("max_chunk_len", [None, 1, 40, 128])
+def test_slab_scatter_holds_the_strides_it_is_told(cuda, gen, max_chunk_len):
+    """#12 on a copy stream whose chunks run to 128 slots (a K = 128
+    knapsack: rows far longer than a slab), whatever number of strides a
+    lane holds (the hint ``max_chunk_len``: one, two or four strides, or K):
+    bitwise equal to its plain version."""
+    p = td.make_knapsack(n=900, m=12, seed=4)
+    part, n_pad = _packed_partition([p], 128, 256, cuda)
+    assert part.max_chunk_len > 64
+    lb, ub = _planes(gen, 1, n_pad, True, cuda)
+    act = torch.ones(1, dtype=torch.bool, device=cuda)
+    strs = tref.straddle_tables(part, *tref.batched_slab_partials_ref(
+        part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_inst,
+        part.a_run_slab, act, lb, ub, 256, part.a_max_run_len))
+    r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
+              part.run_start, part.run_len, part.run_inst, part.run_slab, act)
+    want = tref.batched_slab_round_ref(*r_args, lb, ub, 256, part.max_run_len, 1e-9, 1e-6)
+    acc = tk.accumulator_planes(lb)
+    got = tk.batched_slab_round_tiles(*r_args, lb.clone(), ub.clone(), 256, part.max_run_len,
+                                      1e-9, 1e-6, acc=acc, tiles=(part.tile_inst, part.tile_slab),
+                                      chunk_len=part.chunk_len, max_chunk_len=max_chunk_len)
+    for g, w in zip(got, want):
+        _match(g, w)
+    assert _clean(acc)
+
+
+@pytest.mark.parametrize("merge", ["batch", "slab"])
+def test_merges_hand_kept_planes_back_on_card(cuda, gen, merge):
+    """#9 and #15 set the accumulator entries of the active rows back to the
+    sentinels once read and leave the other rows untouched."""
+    bsz, width = 37, 1000
+    lb, ub = _planes(gen, bsz, width, False, cuda)
+    bl, bu = _planes(gen, bsz, width, False, cuda)
+    bl, bu = bl - 1.0, bu + 1.0
+    act = _active(bsz, 8, cuda)
+    old_l, old_u = bl.clone(), bu.clone()
+    if merge == "batch":
+        want = rt.core.apply_updates_batch(lb, ub, old_l, old_u, 1e-9, active=act)
+        got = tk.apply_updates_batch_tiles(lb.clone(), ub.clone(), bl, bu, act, 1e-9)
+    else:
+        want = tref.apply_updates_slab_ref(lb, ub, old_l, old_u, act, 128, 1e-9)
+        want = (*want[:2], want[2].any(dim=1))
+        got = tk.apply_updates_slab_tiles(lb.clone(), ub.clone(), bl, bu, act, 128, 1e-9)
+    for g, w in zip(got, want):
+        _match(g, w)
+    assert _clean((bl[act], bu[act]))
+    _match(bl[~act], old_l[~act])
+    _match(bu[~act], old_u[~act])
+
+
+def test_search_and_partitioned_batch_keep_planes_on_card(cuda, small_limit):
+    """Fixed points whose active mask changes from round to round through
+    the kept planes: a ``solve`` through #10 + #9 and a partitioned
+    ``propagate_batch`` through #12 + #15, each equal to the plain path;
+    the closures' planes are clean after the runs."""
+    from repro_torch.kernels import ops
+
+    ops.SCATTER_MAX_NPAD = 1 << 16  # the search's fused node round
+    p = td.make_pseudo_boolean(n=300, m=420, seed=3, unit_frac=0.002)  # 10 levels, 71 nodes
+    c = np.arange(1, p.n + 1, dtype=np.float64) * np.where(np.arange(p.n) % 3 == 0, -1.0, 1.0)
+    tk.reset_launch_counts()
+    a = rt.solve(p, c, node_cap=64, expand_width=4, max_levels=10, tile_width=8)
+    assert tk.launch_counts()["node_fused_scatter_round_tiles"] > a.levels
+    b = rt.solve(p, c, node_cap=64, expand_width=4, max_levels=10, tile_width=8,
+                 use_kernels=False)
+    for f in ("status", "objective", "nodes_expanded", "nodes_created", "leaves", "levels",
+              "host_syncs", "incumbent_trajectory"):
+        assert getattr(a, f) == getattr(b, f), f
+    for x, y in zip(a.carry, b.carry):
+        _match(x, y)
+
+    ops.SCATTER_MAX_NPAD = 128  # the batch's partitioned round
+    ops.clear_batch_caches()
+    problems = [td.make_pseudo_boolean(n=200, m=260, seed=s) for s in range(3)]
+    tk.reset_launch_counts()
+    got = rt.core.propagate_batch(problems, tile_width=8)
+    assert tk.launch_counts()["batched_slab_round_tiles"] == max(int(r.rounds) for r in got)
+    assert len({int(r.rounds) for r in got}) > 1
+    plain = rt.core.propagate_batch(problems, tile_width=8, use_kernels=False)
+    for g, w, p_ in zip(got, plain, problems):
+        for f in ("lb", "ub", "rounds", "converged", "infeasible"):
+            _match(getattr(g, f), getattr(w, f))
+        one = rt.propagate_block_ell(p_, tile_width=8)
+        _match(g.lb, one.lb)
+        _match(g.ub, one.ub)
+    ops.clear_batch_caches()

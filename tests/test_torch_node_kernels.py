@@ -23,6 +23,7 @@ from repro.kernels import (
 from repro.kernels import ref as rref
 from repro_torch.core import solver as tsolver
 from repro_torch.kernels import (
+    accumulator_planes,
     apply_updates_batch_tiles,
     launch_counts,
     node_activities_gather_tiles,
@@ -110,10 +111,13 @@ def test_node_round_matches_pallas(t, r, k, n, bsz, kind, exact, rng):
         int_eps=1e-6, interpret=True,
     )
     reset_launch_counts()
+    tlb = _t(lb)
+    acc = accumulator_planes(tlb)
     got = node_fused_scatter_round_tiles(
-        _t(val), _t(col), _t(ii), _t(lhs), _t(rhs), _t(lb), _t(ub), _t(act), n_pad,
-        int_eps=1e-6,
+        _t(val), _t(col), _t(ii), _t(lhs), _t(rhs), tlb, _t(ub), _t(act), n_pad,
+        int_eps=1e-6, acc=acc,
     )
+    assert got[0] is acc[0] and got[1] is acc[1]  # scattered into the planes given
     assert set(launch_counts().values()) == {0}  # CPU tensors launch nothing
     for g, w in zip(got, want):
         _assert_match(g, w, exact)

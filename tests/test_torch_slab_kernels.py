@@ -22,6 +22,7 @@ from repro.kernels import prop_round as rkern
 from repro.kernels import ref as rref
 import repro_torch as rt
 from repro_torch.kernels import (
+    accumulator_planes,
     apply_updates_slab_tiles,
     batched_slab_partials_tiles,
     batched_slab_round_tiles,
@@ -173,12 +174,16 @@ def test_slab_round_matches_pallas(name, kind):
         interpret=True,
     )
     tlb, tub = _t(lb), _t(ub)
+    acc = accumulator_planes(tlb)
     got = batched_slab_round_tiles(
         part.val, part.col_s, part.ii_g, part.row_done, *map(_t, aggs), part.lhs_g,
         part.rhs_g, part.run_start, part.run_len, part.run_inst, part.run_slab, _t(act), tlb,
-        tub, part.slab, part.max_run_len, EPS, INT_EPS,
+        tub, part.slab, part.max_run_len, EPS, INT_EPS, acc=acc,
+        tiles=(part.tile_inst, part.tile_slab), chunk_len=part.chunk_len,
     )
     assert got[0] is tlb and got[1] is tub  # in place
+    # The merge hands the accumulator planes back at the sentinels.
+    assert (acc[0] == -INF).all() and (acc[1] == INF).all()
     for g, w in zip(got, want):
         _match(g, w, integer)
     np.testing.assert_array_equal(tlb.numpy()[~act], lb[~act])
@@ -208,10 +213,12 @@ def test_slab_round_on_planes_of_width_n_pad(name):
         _j(act), _j(pad(lb)), _j(pad(ub)), slab, want_p.max_run_len, EPS, INT_EPS, INF,
         interpret=True,
     )
+    tlb = _t(lb)
     got = batched_slab_round_tiles(
         part.val, part.col_s, part.ii_g, part.row_done, *map(_t, aggs), part.lhs_g,
         part.rhs_g, part.run_start, part.run_len, part.run_inst, part.run_slab, _t(act),
-        _t(lb), _t(ub), slab, part.max_run_len, EPS, INT_EPS,
+        tlb, _t(ub), slab, part.max_run_len, EPS, INT_EPS, acc=accumulator_planes(tlb),
+        tiles=(part.tile_inst, part.tile_slab),
     )
     _match(got[0], np.asarray(want[0])[:, : prep.n_pad], integer)
     _match(got[1], np.asarray(want[1])[:, : prep.n_pad], integer)

@@ -1,0 +1,472 @@
+// Timed variants of kernel #10 (node_fused_scatter_round), of #12's scatter
+// (slab_scatter) and of the batched merges #9 and #15: which design step of
+// their redesign pays.  Built and driven by tools/round_variants.py; not part
+// of the port's kernel library.
+//
+// #10 variants (node_variant), one matrix over B node planes:
+//   0  the kernel before the redesign: each warp ballots the mask and loops
+//      over the active nodes; chunk_aggregates, then
+//      chunk_candidates_scatter (every slot loaded and its bounds gathered
+//      twice, float64 compare-and-swap max/min)
+//   1  the same order; bounds gathered once and held (chunk_round's
+//      routine), compare-and-swap, every slot
+//   2  as 1, 64-bit integer atomics behind the L2 pre-check
+//   3  as 2, each chunk stopped at its hoisted length
+//   4  node-major over at most the resident blocks
+//   5  node-major over one block per chunk block (no resident cap)
+//   6, 7, 8  as 4, at most 64, 40, 32 registers a thread (4, 6, 8 blocks)
+//   9  as 4, columns and marks loaded with the values (EAGER)
+//   10 as 9, no pre-check before the atomics (the port's kernel)
+//   11 as 9, at most 40 registers a thread
+//   12 as 4, no pre-check
+// #12 scatter variants (slab_variant), one copy stream over B planes:
+//   0  the kernel before the redesign: a binary search over the runs, then
+//      window_round (two loads and gathers per slot, compare-and-swap,
+//      every slot)
+//   1  the search; bounds held, compare-and-swap, every slot
+//   2  as 1, integer atomics
+//   3  as 2, stopped at the copy stream's hoisted length
+//   4  the window from tile_inst / tile_slab, no search (four strides held
+//      at K = 128)
+//   5  as 4, at most 64 registers a thread
+//   6  as 4, one stride held (U = 1; later strides gathered again)
+//   7  as 6, EAGER column loads
+//   8  as 7, no pre-check (the port's kernel)
+//   9, 10, 11  as 7, at most 64, 40, 32 registers a thread
+//   12 as 6, no pre-check
+// Merge variants (merge_variant):
+//   0  #9 reading the accumulator planes only (before the redesign)
+//   1  #9 handing them back at the sentinels (the port's)
+//   2  #15 reading only
+//   3  #15 handing back (the port's)
+
+#include "../src/repro_torch/csrc/round_common.cuh"
+
+namespace {
+
+// PRE: the integer atomics behind the L2 pre-check (the port's); without it
+// each candidate goes to the atomic unit.
+template <bool RED, bool PRE>
+__device__ __forceinline__ void put(double* bl, double* bu, const Cands& q, double inf) {
+  if (q.lc > -inf) {
+    if (!RED) {
+      atomic_max_f64(bl, q.lc);
+    } else if (PRE) {
+      red_max_f64(bl, q.lc);
+    } else {
+      const double v = q.lc == 0.0 ? 0.0 : q.lc;
+      const long long bits = __double_as_longlong(v);
+      if (v >= 0.0) atomicMax(reinterpret_cast<long long*>(bl), bits);
+      else atomicMin(reinterpret_cast<unsigned long long*>(bl), static_cast<unsigned long long>(bits));
+    }
+  }
+  if (q.uc < inf) {
+    if (!RED) {
+      atomic_min_f64(bu, q.uc);
+    } else if (PRE) {
+      red_min_f64(bu, q.uc);
+    } else {
+      const double v = q.uc == 0.0 ? 0.0 : q.uc;
+      const long long bits = __double_as_longlong(v);
+      if (v >= 0.0) atomicMin(reinterpret_cast<long long*>(bu), bits);
+      else atomicMax(reinterpret_cast<unsigned long long*>(bu), static_cast<unsigned long long>(bits));
+    }
+  }
+}
+
+template <int U, bool RED, bool PRE>
+__device__ __forceinline__ void put_batch(const Loaded<U>& s, const double (&l)[U],
+                                          const double (&h)[U], const RowAgg& a, double lhs,
+                                          double rhs, double* best_l, double* best_u,
+                                          double int_eps, double inf) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (s.v[u] == 0.0) continue;
+    const Cands q = slot_candidates(s.v[u], make_slot(s.v[u], l[u], h[u], inf), a, lhs, rhs,
+                                    s.m[u] != 0, int_eps, inf);
+    put<RED, PRE>(best_l + s.c[u], best_u + s.c[u], q, inf);
+  }
+}
+
+// load_strides with EAGER: the columns and marks loaded with the values,
+// not after them (padding holds column 0), so the gather waits for one
+// load instead of two.
+template <int U, bool EAGER>
+__device__ __forceinline__ void load_batch(Loaded<U>& s, const double* __restrict__ val,
+                                           const int* __restrict__ col,
+                                           const int* __restrict__ ii, int64_t base, int j0,
+                                           int len, int k, int sl) {
+  if (!EAGER) {
+    load_strides(s, val, col, ii, base, j0, len, k, sl);
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int j = j0 + sl + u * kWarp;
+    const bool in = j < (j0 == 0 && u == 0 ? k : len);
+    const int64_t i = base + j;
+    s.v[u] = in ? val[i] : 0.0;
+    s.c[u] = in ? col[i] : 0;
+    s.m[u] = in && ii != nullptr ? ii[i] : 0;
+  }
+}
+
+// chunk_round with its switches: U strides held (the rest gathered again
+// for the candidates), RED integer atomics (else compare-and-swap), LEN
+// stopped at the chunk's length (else every slot), EAGER column loads, PRE
+// the pre-check.
+template <int G, int U, bool RED, bool LEN, bool EAGER, bool PRE>
+__device__ __forceinline__ void held_chunk(const double* __restrict__ val,
+                                           const int* __restrict__ col,
+                                           const int* __restrict__ ii,
+                                           const int* __restrict__ clen, const double* lb,
+                                           const double* ub, int64_t c, int k, bool use,
+                                           bool sum, const RowAgg& given, double lhs, double rhs,
+                                           double* best_l, double* best_u, int sl,
+                                           double int_eps, double inf) {
+  const SplitBounds b{lb, ub};
+  const int64_t base = c * k;
+  const int kk = use ? k : 0;
+  const int len = use ? (LEN ? clen[c] : k) : 0;
+  Loaded<U> first;
+  load_batch<U, EAGER>(first, val, col, ii, base, 0, len, kk, sl);
+  double l[U], h[U];
+  gather_strides(first, b, l, h);
+  RowAgg a{0.0, 0.0, 0, 0};
+  if (sum) {
+    add_gathered(a, first, l, h, inf);
+    for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
+      Loaded<U> s;
+      load_batch<U, EAGER>(s, val, col, nullptr, base, j0, len, kk, sl);
+      add_strides(a, s, b, inf);
+    }
+  }
+  a = group_reduce<G>(a);
+  if (kk == 0) return;
+  if (!sum) a = given;
+  put_batch<U, RED, PRE>(first, l, h, a, lhs, rhs, best_l, best_u, int_eps, inf);
+  for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
+    Loaded<U> s;
+    load_batch<U, EAGER>(s, val, col, ii, base, j0, len, kk, sl);
+    double l2[U], h2[U];
+    gather_strides(s, b, l2, h2);
+    put_batch<U, RED, PRE>(s, l2, h2, a, lhs, rhs, best_l, best_u, int_eps, inf);
+  }
+}
+
+// chunk_round's steps: U1 strides held (0: Strides<G>::U, four at K > 16),
+// integer atomics, stopped at the length, EAGER, PRE.
+template <int G, int U1, bool EAGER, bool PRE>
+__device__ __forceinline__ void round_variant(const double* __restrict__ val,
+                                              const int* __restrict__ col,
+                                              const int* __restrict__ ii,
+                                              const int* __restrict__ clen, const double* lb,
+                                              const double* ub, int64_t c, int k, bool use,
+                                              bool sum, const RowAgg& given, double lhs,
+                                              double rhs, double* best_l, double* best_u,
+                                              int sl, double int_eps, double inf) {
+  constexpr int U = U1 > 0 ? U1 : Strides<G>::U;
+  held_chunk<G, U, true, true, EAGER, PRE>(val, col, ii, clen, lb, ub, c, k, use, sum, given,
+                                           lhs, rhs, best_l, best_u, sl, int_eps, inf);
+}
+
+// ---- #10 --------------------------------------------------------------------
+
+template <int G, int V>
+__global__ void __launch_bounds__(kThreads)
+node_ballot(const double* __restrict__ val, const int* __restrict__ col,
+            const int* __restrict__ ii, const int* __restrict__ clen,
+            const double* __restrict__ lhs, const double* __restrict__ rhs,
+            const double* __restrict__ lb, const double* __restrict__ ub,
+            const bool* __restrict__ active, double* best_l, double* best_u, int64_t n_chunks,
+            int k, int64_t bsz, int64_t n_pad, double int_eps, double inf) {
+  const Lanes L = lanes_for<G>(n_chunks);
+  const int lane = threadIdx.x % kWarp;
+  const int64_t base = L.chunk * k;
+  const int kk = L.live ? k : 0;
+  const double lo = L.live ? lhs[L.chunk] : 0.0, hi = L.live ? rhs[L.chunk] : 0.0;
+  for (int64_t b0 = 0; b0 < bsz; b0 += kWarp) {
+    unsigned int todo = __ballot_sync(0xffffffffu, b0 + lane < bsz && active[b0 + lane]);
+    while (todo != 0u) {
+      const int64_t row = (b0 + __ffs(todo) - 1) * n_pad;
+      todo &= todo - 1u;
+      if (V == 0) {
+        const RowAgg a = chunk_aggregates<G>(val, col, lb + row, ub + row, base, kk, L, inf);
+        if (L.live)
+          chunk_candidates_scatter(val, col, ii, lb + row, ub + row, a, lo, hi, best_l + row,
+                                   best_u + row, base, k, L, int_eps, inf);
+      } else {
+        held_chunk<G, Strides<G>::U, (V >= 2), (V >= 3), false, true>(
+            val, col, ii, clen, lb + row, ub + row, L.chunk, k, L.live, true, RowAgg{}, lo, hi,
+            best_l + row, best_u + row, L.sl, int_eps, inf);
+      }
+    }
+  }
+}
+
+// The port's node-major kernel body (prop_round.cu), its register budget and
+// its chunk routine's switches parameters (MINB 1, U1 0, EAGER true, PRE
+// false: the port's at K <= 32).
+template <int G, int MINB, int U1, bool EAGER, bool PRE>
+__global__ void __launch_bounds__(kThreads, MINB)
+node_major(const double* __restrict__ val, const int* __restrict__ col,
+           const int* __restrict__ ii, const int* __restrict__ clen,
+           const double* __restrict__ lhs, const double* __restrict__ rhs,
+           const double* __restrict__ lb, const double* __restrict__ ub,
+           const bool* __restrict__ active, double* best_l, double* best_u, int64_t n_chunks,
+           int k, int64_t bsz, int64_t n_pad, double int_eps, double inf) {
+  extern __shared__ unsigned int words[];
+  __shared__ int n_active;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int n_words = static_cast<int>((bsz + kWarp - 1) / kWarp);
+  if (threadIdx.x == 0) n_active = 0;
+  __syncthreads();
+  for (int w = warp; w < n_words; w += kWarpsPerBlock) {
+    const int64_t b = static_cast<int64_t>(w) * kWarp + lane;
+    const unsigned int m = __ballot_sync(0xffffffffu, b < bsz && active[b]);
+    if (lane == 0) {
+      words[w] = m;
+      atomicAdd(&n_active, __popc(m));
+    }
+  }
+  __syncthreads();
+  const int64_t per_block = static_cast<int64_t>(kWarpsPerBlock) * (kWarp / G);
+  const int64_t n_blocks = (n_chunks + per_block - 1) / per_block;
+  const int64_t items = n_active * n_blocks;
+  int64_t rank = -1;
+  int word = -1;
+  unsigned int left = 0u;
+  for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+    const int64_t want = item / n_blocks;
+    while (rank < want) {
+      left &= left - 1u;
+      while (left == 0u) left = words[++word];
+      ++rank;
+    }
+    const int64_t node = static_cast<int64_t>(word) * kWarp + __ffs(left) - 1;
+    const int64_t chunk = (item % n_blocks) * per_block + warp * (kWarp / G) + lane / G;
+    const bool live = chunk < n_chunks;
+    const int64_t row = node * n_pad;
+    round_variant<G, U1, EAGER, PRE>(val, col, ii, clen, lb + row, ub + row, chunk, k, live,
+                                     true, RowAgg{}, live ? lhs[chunk] : 0.0,
+                                     live ? rhs[chunk] : 0.0, best_l + row, best_u + row,
+                                     lane % G, int_eps, inf);
+  }
+}
+
+template <typename Kernel>
+unsigned int resident_blocks(Kernel kernel, size_t shm) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, shm);
+  return static_cast<unsigned int>(sms * per_sm > 0 ? sms * per_sm : 1);
+}
+
+// A node-major launch over at most the resident blocks.
+template <auto Kernel, typename... Args>
+int major(unsigned int blocks, size_t shm, cudaStream_t stream, Args... args) {
+  const unsigned int r = resident_blocks(Kernel, shm);
+  Kernel<<<blocks < r ? blocks : r, kThreads, shm, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int G>
+int node_variant_g(int v, const double* val, const int* col, const int* ii, const int* clen,
+                   const double* lhs, const double* rhs, const double* lb, const double* ub,
+                   const bool* active, double* best_l, double* best_u, int64_t n_chunks, int k,
+                   int64_t bsz, int64_t n_pad, double int_eps, double inf, cudaStream_t stream) {
+  const unsigned int blocks = chunk_blocks(n_chunks, k);
+  const size_t shm = sizeof(unsigned int) * static_cast<size_t>((bsz + kWarp - 1) / kWarp);
+#define ARGS val, col, ii, clen, lhs, rhs, lb, ub, active, best_l, best_u, n_chunks, k, bsz, \
+             n_pad, int_eps, inf
+  switch (v) {
+    case 0: node_ballot<G, 0><<<blocks, kThreads, 0, stream>>>(ARGS); break;
+    case 1: node_ballot<G, 1><<<blocks, kThreads, 0, stream>>>(ARGS); break;
+    case 2: node_ballot<G, 2><<<blocks, kThreads, 0, stream>>>(ARGS); break;
+    case 3: node_ballot<G, 3><<<blocks, kThreads, 0, stream>>>(ARGS); break;
+    case 4: return major<node_major<G, 1, 0, false, true>>(blocks, shm, stream, ARGS);
+    case 5: node_major<G, 1, 0, false, true><<<blocks, kThreads, shm, stream>>>(ARGS); break;
+    case 6: return major<node_major<G, 4, 0, false, true>>(blocks, shm, stream, ARGS);
+    case 7: return major<node_major<G, 6, 0, false, true>>(blocks, shm, stream, ARGS);
+    case 8: return major<node_major<G, 8, 0, false, true>>(blocks, shm, stream, ARGS);
+    case 9: return major<node_major<G, 1, 0, true, true>>(blocks, shm, stream, ARGS);
+    case 10: return major<node_major<G, 1, 0, true, false>>(blocks, shm, stream, ARGS);
+    case 11: return major<node_major<G, 6, 0, true, true>>(blocks, shm, stream, ARGS);
+    case 12: return major<node_major<G, 1, 0, false, false>>(blocks, shm, stream, ARGS);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef ARGS
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- #12's scatter ----------------------------------------------------------
+
+// slab_round.cu before the redesign: the run of a copy tile by a binary
+// search, and the chunk's round by window_round.
+__device__ __forceinline__ int run_of(const int* __restrict__ run_start, int n_runs,
+                                      int64_t tile) {
+  int lo = 0, hi = n_runs - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (run_start[mid] <= tile) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+struct Slab {
+  const double *val, *smf, *sxf, *lhs, *rhs, *lb, *ub;
+  const int *col, *ii, *clen, *done, *smc, *sxc, *run_start, *run_inst, *run_slab, *tile_inst,
+      *tile_slab;
+  const bool* active;
+  double *best_l, *best_u;
+  int n_runs, r, k;
+  int64_t n_chunks, width, slab;
+  double int_eps, inf;
+};
+
+// V: 0 before the redesign, 1-3 the search with the routine's steps, 4 and
+// up the tile maps with the routine's switches U1, EAGER, PRE.
+template <int G, int V, int MINB, int U1 = 0, bool EAGER = false, bool PRE = true>
+__global__ void __launch_bounds__(kThreads, MINB) slab_kernel(const Slab s) {
+  const Lanes L = lanes_for<G>(s.n_chunks);
+  bool use = false;
+  int64_t off = 0;
+  if (L.live) {
+    const int64_t t = L.chunk / s.r;
+    int64_t inst, sl;
+    if (V >= 4) {
+      inst = s.tile_inst[t];
+      sl = s.tile_slab[t];
+    } else {
+      const int run = run_of(s.run_start, s.n_runs, t);
+      inst = s.run_inst[run];
+      sl = s.run_slab[run];
+    }
+    use = s.active[inst];
+    off = inst * s.width + sl * s.slab;
+  }
+  const int64_t c = L.chunk;
+  if (V == 0) {
+    const int64_t base = c * s.k;
+    const bool local = use && s.done[c] != 0;
+    RowAgg a = chunk_aggregates<G>(s.val, s.col, s.lb + off, s.ub + off, base, local ? s.k : 0,
+                                   L, s.inf);
+    if (!use) return;
+    if (!local) a = RowAgg{s.smf[c], s.sxf[c], s.smc[c], s.sxc[c]};
+    chunk_candidates_scatter(s.val, s.col, s.ii, s.lb + off, s.ub + off, a, s.lhs[c], s.rhs[c],
+                             s.best_l + off, s.best_u + off, base, s.k, L, s.int_eps, s.inf);
+    return;
+  }
+  if (!__any_sync(0xffffffffu, use)) return;
+  const bool local = use && s.done[c] != 0;
+  const RowAgg given =
+      use && !local ? RowAgg{s.smf[c], s.sxf[c], s.smc[c], s.sxc[c]} : RowAgg{};
+  if (V >= 4) {
+    round_variant<G, U1, EAGER, PRE>(s.val, s.col, s.ii, s.clen, s.lb + off, s.ub + off, c,
+                                     s.k, use, local, given, use ? s.lhs[c] : 0.0,
+                                     use ? s.rhs[c] : 0.0, s.best_l + off, s.best_u + off,
+                                     L.sl, s.int_eps, s.inf);
+    return;
+  }
+  held_chunk<G, Strides<G>::U, (V >= 2), (V >= 3), false, true>(
+      s.val, s.col, s.ii, s.clen, s.lb + off, s.ub + off, c, s.k, use, local, given,
+      use ? s.lhs[c] : 0.0, use ? s.rhs[c] : 0.0, s.best_l + off, s.best_u + off, L.sl,
+      s.int_eps, s.inf);
+}
+
+template <int G>
+int slab_variant_g(int v, const Slab& s, cudaStream_t stream) {
+  const unsigned int blocks = chunk_blocks(s.n_chunks, s.k);
+  switch (v) {
+    case 0: slab_kernel<G, 0, 1><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 1: slab_kernel<G, 1, 1><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 2: slab_kernel<G, 2, 1><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 3: slab_kernel<G, 3, 1><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 4: slab_kernel<G, 4, 1><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 5: slab_kernel<G, 4, 4><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 6: slab_kernel<G, 4, 1, 1><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 7: slab_kernel<G, 4, 1, 1, true><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 8: slab_kernel<G, 4, 1, 1, true, false><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 9: slab_kernel<G, 4, 4, 1, true><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 10: slab_kernel<G, 4, 6, 1, true><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 11: slab_kernel<G, 4, 8, 1, true><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 12: slab_kernel<G, 4, 1, 1, false, false><<<blocks, kThreads, 0, stream>>>(s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- #9 and #15 -------------------------------------------------------------
+
+template <bool RESET>
+__global__ void __launch_bounds__(kThreads)
+merge_batch(double* __restrict__ lb, double* __restrict__ ub, double* __restrict__ best_l,
+            double* __restrict__ best_u, const bool* __restrict__ active,
+            int* __restrict__ flags, int64_t width, int64_t slab, int64_t n_slabs, double eps,
+            double inf, double outward) {
+  const int64_t b = blockIdx.y;
+  if (!active[b]) return;
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= width) return;
+  const int64_t i = b * width + j;
+  const bool ch = RESET ? merge_reset(lb, ub, best_l, best_u, i, eps, inf, outward)
+                        : merge_one(lb, ub, best_l, best_u, i, eps, inf, outward);
+  if (ch) flags[b * n_slabs + j / slab] = 1;
+}
+
+}  // namespace
+
+extern "C" {
+
+int node_variant(int v, const double* val, const int* col, const int* ii, const int* clen,
+                 const double* lhs, const double* rhs, const double* lb, const double* ub,
+                 const bool* active, double* best_l, double* best_u, int64_t n_chunks, int k,
+                 int64_t bsz, int64_t n_pad, double int_eps, double inf, cudaStream_t stream) {
+  switch (group_width(k)) {
+    case 8:
+      return node_variant_g<8>(v, val, col, ii, clen, lhs, rhs, lb, ub, active, best_l, best_u,
+                               n_chunks, k, bsz, n_pad, int_eps, inf, stream);
+    case 32:
+      return node_variant_g<32>(v, val, col, ii, clen, lhs, rhs, lb, ub, active, best_l,
+                                best_u, n_chunks, k, bsz, n_pad, int_eps, inf, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int slab_variant(int v, const double* val, const int* col, const int* ii, const int* clen,
+                 const int* done, const double* smf, const int* smc, const double* sxf,
+                 const int* sxc, const double* lhs, const double* rhs, const int* run_start,
+                 const int* run_inst, const int* run_slab, const int* tile_inst,
+                 const int* tile_slab, const bool* active, const double* lb, const double* ub,
+                 double* best_l, double* best_u, int n_runs, int64_t n_chunks, int r, int k,
+                 int64_t width, int64_t slab, double int_eps, double inf, cudaStream_t stream) {
+  const Slab s{val, smf, sxf, lhs, rhs, lb, ub, col, ii, clen, done, smc, sxc, run_start,
+               run_inst, run_slab, tile_inst, tile_slab, active, best_l, best_u, n_runs, r, k,
+               n_chunks, width, slab, int_eps, inf};
+  switch (group_width(k)) {
+    case 8: return slab_variant_g<8>(v, s, stream);
+    case 32: return slab_variant_g<32>(v, s, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// v 0/1: #9 over (B, width) planes (one window a row), without / with the
+// hand-back; v 2/3: #15 (windows of `slab` columns), the same.
+int merge_variant(int v, double* lb, double* ub, double* best_l, double* best_u,
+                  const bool* active, int* flags, int64_t bsz, int64_t width, int64_t slab,
+                  double eps, double inf, double outward, cudaStream_t stream) {
+  const int64_t s = v < 2 ? width : slab;
+  const int64_t n_slabs = (width + s - 1) / s;
+  const dim3 grid(static_cast<unsigned int>((width + kThreads - 1) / kThreads),
+                  static_cast<unsigned int>(bsz));
+  if (v % 2 == 0)
+    merge_batch<false><<<grid, kThreads, 0, stream>>>(lb, ub, best_l, best_u, active, flags,
+                                                      width, s, n_slabs, eps, inf, outward);
+  else
+    merge_batch<true><<<grid, kThreads, 0, stream>>>(lb, ub, best_l, best_u, active, flags,
+                                                     width, s, n_slabs, eps, inf, outward);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"
