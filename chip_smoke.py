@@ -69,9 +69,10 @@ numpy only, nothing of JAX) and, on one CUDA card:
      their slab partitions (build seconds printed); holds kernels #11 and
      #12 (with #15's window merge, into kept planes, with the nonzero bound
      beside the all-slot bound) against their plain versions on both
-     partitions at K = 128, kernel D + F at n_pad 150,016, and #13, #14 and
-     #15 on pbw's K = 8 partition over a (128, 150,016) pool with 0, 8 and
-     128 active rows, all bitwise, timed; the straddle combine on both
+     partitions at K = 128, kernel D + F at n_pad 150,016, and #13, #14
+     (into kept planes, both bounds) and #15 on pbw's K = 8 partition over
+     a (128, 150,016) pool with 0, 8 and 128 active rows, all bitwise,
+     timed; the straddle combine on both
      single planes and on that pool, bitwise against its plain version on
      the active planes and against ``straddle_tables`` where ``row_done ==
      0``, timed; runs ``propagate_block_ell`` with
@@ -101,8 +102,9 @@ numpy only, nothing of JAX) and, on one CUDA card:
      60,032 (kernel #8 then #9), ``mixed`` and a second mixed instance
      (A', the combine and E over the flat stream, then #9), ``bandw`` and
      ``pbw`` past 2^16 (the partitioned round with two planes); holds #8
-     against its plain version at the fused bucket's shapes with 0, 2 and
-     4 instances active (timed), and the straddle combine on the
+     (into kept planes, the prep's hoisted chunk ranges and lengths, both
+     bounds) against its plain version at the fused bucket's shapes with
+     0, 2 and 4 instances active (timed), and the straddle combine on the
      partitioned bucket and every instance bitwise against its own
      ``propagate_block_ell`` and the plain path, plus one ``bounds=`` warm
      start; prints batch and summed single-instance fixed-point times, flag
@@ -1505,7 +1507,14 @@ def check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep, part
     out = {"node_slab_partials_tiles": {}, "straddle_combine_tiles": {},
            "node_slab_round_tiles": {}, "apply_updates_slab_tiles": {}}
     fill = time_ms(torch, lambda: (torch.full_like(lbp, -cfg.inf), torch.full_like(ubp, cfg.inf)))
-    log(f"accumulator fill: two ({POOL}, {width}) sentinel planes, {fill:.4f} ms")
+    log(f"accumulator fill #14's wrapper no longer makes per launch: two ({POOL}, {width}) "
+        f"sentinel planes, {fill:.4f} ms")
+    # The accumulator planes kept across the launches, as the round closure
+    # keeps them (#15 hands the active rows back); the tile slabs and chunk
+    # lengths hoisted by the partition.
+    kw = dict(acc=tk.accumulator_planes(lbp), tile_slab=part.tile_slab,
+              chunk_len=part.chunk_len, max_chunk_len=part.max_chunk_len)
+    straddle_chunks = int((part.row_done == 0).sum().item())
     for n_act in (0, 8, POOL):
         act = torch.zeros(POOL, dtype=torch.bool, device=lbp.device)
         if n_act:
@@ -1532,7 +1541,7 @@ def check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep, part
                   part.rhs_g, part.run_start, part.run_len, part.run_slab, act)
         tail = (part.slab, part.max_run_len, eps, cfg.int_eps)
         want = tref.node_slab_round_ref(*r_args, lbp, ubp, *tail)
-        got = tk.node_slab_round_tiles(*r_args, lbp.clone(), ubp.clone(), *tail)
+        got = tk.node_slab_round_tiles(*r_args, lbp.clone(), ubp.clone(), *tail, **kw)
         for i in act.nonzero().flatten().tolist()[:8]:
             one = tref.batched_slab_round_ref(
                 part.val, part.col_s, part.ii_g, part.row_done, *(x[i] for x in strs),
@@ -1540,16 +1549,25 @@ def check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep, part
                 part.run_slab, act[i : i + 1], lbp[i : i + 1], ubp[i : i + 1], *tail)
             max_abs_err(torch, (got[0][i], got[1][i]), (one[0][0], one[1][0]))
         lbw, ubw = lbp.clone(), ubp.clone()
-        out["node_slab_round_tiles"][shape] = measured_row(
+        # The copy stream once (val at the kept nonzeros, each copy stopped
+        # at its length; col_s and is_int_g per kept nonzero; length,
+        # row_done and sides per chunk); per active node the straddle
+        # aggregates of the straddle chunks, the window bounds, the stores,
+        # the accumulators written and read once and handed back.
+        stream = dict(val=8 * nnz, col_ii=8 * nnz, rows=20 * t * r, tiles=4 * t)
+        common = dict(aggregates=24 * n_act * straddle_chunks, bounds=16 * n_act * width,
+                      stores=8 * stores(torch, want[:2], (lbp, ubp)),
+                      accumulators=32 * n_act * width, flags=4 * POOL * part.n_slabs + POOL)
+        row = out["node_slab_round_tiles"][shape] = measured_row(
             torch, build, got, want,
-            lambda: tk.node_slab_round_tiles(*r_args, lbw, ubw, *tail),
+            lambda: tk.node_slab_round_tiles(*r_args, lbw, ubw, *tail, **kw),
             lambda: tref.node_slab_round_ref(*r_args, lbp, ubp, *tail),
-            dict(stream=(8 * t * r * k + 8 * nnz + 20 * t * r) if n_act else 0,
-                 aggregates=24 * n_act * t * r, bounds=16 * n_act * width,
-                 stores=8 * stores(torch, want[:2], (lbp, ubp)),
-                 accumulators=32 * n_act * width, flags=4 * POOL * part.n_slabs + POOL),
+            dict(**(stream if n_act else {}), **common),
             16 * nnz * n_act, plain_reps=reps,
             reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp)]), launches=2)
+        row["bound_all_slots_ms"] = bound(
+            (8 * t * r * k + sum(stream.values()) - stream["val"] if n_act else 0)
+            + sum(common.values()), 16 * nnz * n_act)[0]
         bl, bu = tref.node_partitioned_round_ref(part, lbp, ubp, cfg.int_eps, cfg.inf,
                                                  active=act)
         bl, bu = bl[:, :width].contiguous(), bu[:, :width].contiguous()
@@ -1951,29 +1969,43 @@ def segment_phase(torch, rt, tk, tref, ops, build, dev, measured, problems, prep
 # ---------------------------------------------------------------------------
 
 
-def batched_fused_bytes(np, batch, active) -> dict:
+def batched_fused_bytes(np, batch, active) -> tuple[dict, int, int]:
     """Bytes kernel #8 must move on a packed bucket with ``active`` (host
-    bool per instance): for the tiles of active instances ``val`` per padded
-    slot, ``col`` and ``is_int`` per nonzero, the two sides per chunk; per
-    active instance its two bound rows read and its two accumulator rows
-    written; the tile map and the mask."""
+    bool per instance): for the tiles of active instances ``val`` at the
+    nonzeros (each chunk stops at its length), ``col`` and ``is_int`` per
+    nonzero, the length and the two sides per chunk; per active instance
+    its two bound rows read and its two accumulator rows written; the
+    chunk ranges and the mask.  Also the nonzeros and the bytes of ``val``
+    at every slot of those tiles (the all-slot bound)."""
     ell = batch.ell
     t, r, k = ell.val.shape
     on = np.asarray(active)[ell.tile_inst]
     nnz = int((ell.val[on] != 0).sum())
     tiles = int(on.sum())
     n_act = int(np.asarray(active).sum())
-    return dict(val=8 * tiles * r * k, col_ii=8 * nnz, sides=16 * tiles * r,
-                planes=32 * n_act * batch.n_pad, maps=4 * t + batch.size), nnz
+    return (dict(val=8 * nnz, col_ii=8 * nnz, rows=20 * tiles * r,
+                 planes=32 * n_act * batch.n_pad, maps=8 * (batch.size + 1) + batch.size),
+            nnz, 8 * tiles * r * k)
 
 
 def check_batched_fused(torch, np, rt, tk, tref, build, batch, prep, singles, dev):
     """Kernel #8 against its plain version at the fused bucket's shapes and
     initial planes, with 0, 2 and 4 instances active, bitwise; each active
-    row also against kernel D on that instance's own tiles.  Timed: the
-    kernel's launch, the wrapper call, the plain version.  Returns {shape:
-    row}."""
+    row also against kernel D on that instance's own tiles.  The kernel
+    scatters into one pair of accumulator planes kept across the launches,
+    as the round closure keeps them (#9 hands them back; here they are set
+    back to the sentinels before each timed launch), with the chunk ranges,
+    lengths and longest chunk the prep hoisted.  Timed: the kernel's
+    launch, the wrapper call, the plain version.  Returns {shape: row}."""
     d, cfg = prep.d, rt.core.DEFAULT_CONFIG
+    acc = tk.accumulator_planes(d.lb0)
+    kw = dict(acc=acc, chunk_len=d.chunk_len, max_chunk_len=prep.max_chunk_len,
+              chunks=d.chunks)
+
+    def clean():
+        acc[0].fill_(-cfg.inf)
+        acc[1].fill_(cfg.inf)
+
     rows = {}
     for n_act in (0, 2, batch.size):
         act_h = np.zeros(batch.size, bool)
@@ -1981,7 +2013,8 @@ def check_batched_fused(torch, np, rt, tk, tref, build, batch, prep, singles, de
         act = torch.as_tensor(act_h, device=dev)
         args = (d.val, d.col, d.ii_g, d.lhs_g, d.rhs_g, d.lb0, d.ub0, d.tile_inst, act,
                 prep.n_pad, cfg.int_eps)
-        got = tk.batched_fused_scatter_round_tiles(*args)
+        clean()
+        got = tuple(x.clone() for x in tk.batched_fused_scatter_round_tiles(*args, **kw))
         want = tref.batched_fused_scatter_round_ref(
             d.val, d.col_g, d.ii_g, d.lhs_g, d.rhs_g, d.lb0, d.ub0, prep.n_pad, cfg.int_eps,
             active=act)
@@ -1990,18 +2023,22 @@ def check_batched_fused(torch, np, rt, tk, tref, build, batch, prep, singles, de
             one = tk.fused_scatter_round_tiles(sp.d.val, sp.d.col, sp.ii_g, sp.lhs_g, sp.rhs_g,
                                                sp.lb0, sp.ub0, sp.n_pad, cfg.int_eps)
             max_abs_err(torch, (got[0][i], got[1][i]), one)
-        moved, nnz = batched_fused_bytes(np, batch, act_h)
+        moved, nnz, all_val = batched_fused_bytes(np, batch, act_h)
         shape = f"fused bucket, {n_act} of {batch.size} active"
         rows[shape] = r = measured_row(
-            torch, build, got, want, lambda: tk.batched_fused_scatter_round_tiles(*args),
+            torch, build, got, want, lambda: tk.batched_fused_scatter_round_tiles(*args, **kw),
             lambda: tref.batched_fused_scatter_round_ref(
                 d.val, d.col_g, d.ii_g, d.lhs_g, d.rhs_g, d.lb0, d.ub0, prep.n_pad,
                 cfg.int_eps, active=act),
-            moved, 16 * nnz, plain_reps=1)
+            moved, 16 * nnz, plain_reps=1, reset=clean)
+        r["bound_all_slots_ms"] = bound(sum(moved.values()) - moved["val"] + all_val,
+                                        16 * nnz)[0]
         log_row("batched_fused_scatter_round_tiles", shape, r)
+    clean()
     fill = time_ms(torch, lambda: (torch.full_like(d.lb0, -cfg.inf),
                                    torch.full_like(d.ub0, cfg.inf)))
-    log(f"accumulator fill: two {tuple(d.lb0.shape)} sentinel planes, {fill:.4f} ms")
+    log(f"accumulator fill the wrapper no longer makes per launch: two "
+        f"{tuple(d.lb0.shape)} sentinel planes, {fill:.4f} ms")
     return rows
 
 
@@ -2249,11 +2286,10 @@ def service_rows(np):
     return rng.integers(*SERVICE_ROWS, size=2 * SERVICE_REQUESTS + SERVICE_MIXED)
 
 
-def service_phase(torch, np, rt, td, tk, dev):
-    """Phase 10: the continuous-batching service on two request streams.
-    Returns the launch counts of each checked serve."""
+def service_streams(np, td):
+    """The service's two request streams: 12 pseudo-boolean and 12 banded
+    requests, interleaved, and 4 mixed ones."""
     rows = service_rows(np)
-    t = time.perf_counter()
     pbs = [td.make_pseudo_boolean(n=60_000, m=int(m), seed=100 + i, unit_frac=0.002)
            for i, m in enumerate(rows[:SERVICE_REQUESTS])]
     bands = [td.make_banded(n=40_000, m=int(m), row_nnz=24, band=5_000, seed=100 + i)
@@ -2261,6 +2297,15 @@ def service_phase(torch, np, rt, td, tk, dev):
     stream = [p for pair in zip(pbs, bands) for p in pair]
     mixed = [td.make_mixed(m=int(m), n=30_000, seed=100 + i, density=0.0005)
              for i, m in enumerate(rows[2 * SERVICE_REQUESTS:])]
+    return stream, mixed
+
+
+def service_phase(torch, np, rt, td, tk, dev):
+    """Phase 10: the continuous-batching service on two request streams.
+    Returns the launch counts of each checked serve."""
+    rows = service_rows(np)
+    t = time.perf_counter()
+    stream, mixed = service_streams(np, td)
     log(f"service streams: {len(stream)} + {len(mixed)} requests, rows "
         f"{[int(x) for x in rows]}, nnz {sum(p.nnz for p in stream)} + "
         f"{sum(p.nnz for p in mixed)}, generate={time.perf_counter() - t:.1f}s")

@@ -302,7 +302,13 @@ class _BucketEngine:
     on a bucket whose rows fit one chunk, otherwise A', the combine and E
     on the flat stream with global columns, then #9, whose combine segments
     and their short/long classes follow the resident rows: recomputed on
-    the device at each admission (:meth:`_resegment`)."""
+    the device at each admission (:meth:`_resegment`).  #8 walks each
+    occupied slot's chunk range (slot ``i`` owns chunks ``[i * slot_tiles *
+    R, (i + 1) * slot_tiles * R)``, fixed at construction) and scatters
+    into accumulator planes the engine keeps (``kept``, one pair per thread,
+    shared by the buckets of its shape: #9 hands the rows #8 scattered into
+    back at the sentinels, so every round finds them clean; a round that
+    raises drops them)."""
 
     builds: "dict[tuple, int]" = {}
 
@@ -335,29 +341,33 @@ class _BucketEngine:
         ops = kops.KERNEL_OPS if use_kernels else kops.PLAIN_OPS
         self.chunk_lengths = kref.chunk_lengths
         self.segment_classes = kref.segment_classes
+        slot_chunks = torch.arange(s + 1, dtype=torch.int64, device=device) * (t * r)
+        self.kept = kops.KeptPlanes(inf)
 
         def round_fn(state, aux, lb, ub, act):
-            col_g, seg, seg_start, _, clen, classes = aux
+            col_g, seg, seg_start, _, clen, classes, max_len = aux
             row_start = None if seg_start is None else seg_start[:-1]
             return kops.batched_reference_round(
                 state[0], state[1], col_g, ti, state[2], seg, row_start, state[4], state[5],
                 lb, ub, act, n_pad=n_pad, fits_one_chunk=spec.fits_one_chunk, eps=eps,
-                int_eps=int_eps, inf=inf, outward=outward, ops=ops, chunk_len=clen,
-                classes=classes,
+                int_eps=int_eps, inf=inf, kept=self.kept, outward=outward, ops=ops,
+                chunk_len=clen, max_chunk_len=max_len[0], chunks=slot_chunks, classes=classes,
             )
 
-        self.round_fn = round_fn
+        self.round_fn = self.kept.guard(round_fn)
         _BucketEngine.builds[key] = _BucketEngine.builds.get(key, 0) + 1
 
     def init_state(self) -> "tuple[list, tuple]":
         """A fresh all-empty resident state: zero tiles, every chunk parked
         on its slot's dummy row, every slot inactive (== unoccupied); and
         its derived tensors ``(col_g, seg, seg_start, dummy, chunk_len,
-        classes)`` for the multi-chunk round (Nones on a bucket whose rows
-        fit one chunk); ``chunk_len`` is where A' and E stop each resident
-        chunk, and ``classes`` (a list) the combine's short and long
-        segments (fixed lengths, padded with -1), both kept current at each
-        admission."""
+        classes, max_chunk_len)``: the first four and ``classes`` for the
+        multi-chunk round (Nones on a bucket whose rows fit one chunk);
+        ``chunk_len`` is where #8, or A' and E, stop each resident chunk,
+        ``classes`` (a list) the combine's short and long segments (fixed
+        lengths, padded with -1), and ``max_chunk_len`` (a one-entry list)
+        the longest chunk admitted so far, which only grows; all kept
+        current at each admission."""
         spec, dev = self.spec, self.device
         s, t, r, k = spec.slots, spec.slot_tiles, spec.tile_rows, spec.tile_width
         dt = torch.float64
@@ -375,11 +385,12 @@ class _BucketEngine:
             torch.full((s,), -1, dtype=torch.int32, device=dev),
             torch.full((s,), -1, dtype=torch.int32, device=dev),
         ]
-        aux = (None, None, None, None, None, None)
+        clen = z((s * t, r), torch.int32)
+        aux = (None, None, None, None, clen, None, [0])
         if not spec.fits_one_chunk:
             col_g = state[1] + (self.tile_inst * spec.n_pad)[:, None, None]
             aux = (col_g, torch.empty_like(crow), self.positions.new_empty(s * t * r + 2), dummy,
-                   z((s * t, r), torch.int32), [None, None])
+                   clen, [None, None], [0])
             self._resegment(state, aux)
         return state, aux
 
@@ -396,7 +407,7 @@ class _BucketEngine:
         segment id (in place of its row), ``seg_start[:-1]`` the
         ``row_start`` of the segments, padded with empty ones at the end,
         and ``classes`` their short and long segments."""
-        _, seg, start, dummy, _, classes = aux
+        _, seg, start, dummy, _, classes, _ = aux
         n = seg.numel()
         crow = state[3].view(-1)
         new = crow == dummy.index_select(0, self.chunk_slot)
@@ -413,8 +424,10 @@ class _BucketEngine:
         """Copy ``k`` payloads (a power of two) into slots ``slot_ids``, in
         place: host stacking into the staging buffers, the slot offset of
         each chunk's row added on the device, one ``index_copy_`` per
-        field; the slots' loop state is reset, and the multi-chunk round's
-        ``col_g`` and combine segments follow the new rows."""
+        field; the slots' loop state is reset, the chunk lengths and the
+        longest chunk follow the new tiles (the latter from the host's
+        payloads), and the multi-chunk round's ``col_g`` and combine
+        segments follow the new rows."""
         spec = self.spec
         t, r, k = spec.slot_tiles, spec.tile_rows, spec.tile_width
         g = len(payloads)
@@ -434,11 +447,12 @@ class _BucketEngine:
                                (_PROGRESS, float("nan")), (_FLAT, 0), (_TICKS, 0),
                                (_STOPR, -1), (_INFSR, -1)):
                 state[idx].index_fill_(0, ids, value)
-            col_g, _, _, dummy, clen, _ = aux
+            col_g, _, _, dummy, clen, _, max_len = aux
+            clen.index_copy_(0, tix, self.chunk_lengths(st["val"].view(g * t, r, k)))
+            max_len[0] = max(max_len[0], *(_longest_chunk(p.val) for p in payloads))
             if col_g is not None:
                 col_g.index_copy_(0, tix, (st["col"] + (ids * spec.n_pad).to(torch.int32)
                                            [:, None, None, None]).view(g * t, r, k))
-                clen.index_copy_(0, tix, self.chunk_lengths(st["val"].view(g * t, r, k)))
                 st["m"].copy_(torch.as_tensor([p.m for p in payloads], dtype=torch.int32))
                 dummy.index_copy_(0, ids, st["m"] + (ids * (spec.slot_rows + 1)).to(torch.int32))
                 self._resegment(state, aux)
@@ -469,6 +483,13 @@ class _BucketEngine:
                 _build.lib()
             self.step(*self.init_state())
             self.warmed = True
+
+
+def _longest_chunk(val: np.ndarray) -> int:
+    """One past the last nonzero slot of the longest chunk of ``(T, R, K)``
+    host tiles (0 for all padding): the host's view of ``max(chunk_len)``."""
+    used = np.flatnonzero((val != 0).reshape(-1, val.shape[-1]).any(axis=0))
+    return int(used[-1]) + 1 if used.size else 0
 
 
 _engine_cache = None

@@ -27,10 +27,11 @@
 //                             planes, an active mask read on the device;
 //                             node-major, into accumulator planes kept for
 //                             the whole fixed point
-//   batched_fused_scatter_round  (#8) D over a packed batch: each tile's
-//                             instance routes it to its own row of the
-//                             (B, n_pad) planes, an active mask read on the
-//                             device skips converged instances and free slots
+//   batched_fused_scatter_round  (#8) D over a packed batch: instance-major
+//                             over the active instances' chunk ranges, each
+//                             into its own row of the (B, n_pad) planes kept
+//                             for the whole fixed point; converged instances
+//                             and free slots launch no warp
 //   apply_updates_batch  (#9) F over (B, n_pad) planes with an active mask
 //                             and a changed flag per row; hands the
 //                             accumulator rows it reads back at the sentinel
@@ -64,19 +65,19 @@
 // one-hot gather becomes an indexed load (the (n_pad,) bound vectors stay
 // in L2), and their one-hot column scatter
 // becomes a double-precision atomic max/min: a compare-and-swap loop on the
-// value in D and #8 (so -0.0 and +0.0 compare equal, as they do in the
-// oracle), 64-bit integer atomics in E, #10 and their node forms
-// (red_max_f64 / red_min_f64, -0.0 entering as +0.0).  Max and min do not
-// depend on order, so the scatter is exact.  A', E and #10 stop each chunk
-// at its length (one past its last nonzero, an (T, R) int32 input hoisted
-// from structure) and issue several strides' loads before their bound
-// gathers; #10 gathers each nonzero's bounds once and holds them from the
-// sums to the candidates (chunk_round).  D and #8 accumulate into planes
-// their wrappers fill with the sentinel per launch; #10 into planes the
-// engine keeps for the whole fixed point, which #9 hands back at the
-// sentinel.  The device code the chunk kernels share with slab_round.cu
-// (lane groups, chunk aggregates, candidates + scatter, chunk_round, the
-// one-column merges) is in round_common.cuh.
+// value in D (so -0.0 and +0.0 compare equal, as they do in the oracle),
+// 64-bit integer atomics in E, #8, #10 and their node forms (red_max_f64 /
+// red_min_f64, -0.0 entering as +0.0).  Max and min do not depend on
+// order, so the scatter is exact.  A', E, #8 and #10 stop each chunk at its
+// length (one past its last nonzero, an (T, R) int32 input hoisted from
+// structure) and issue several strides' loads before their bound gathers;
+// #8 and #10 gather each nonzero's bounds once and hold them from the sums
+// to the candidates (chunk_round).  D accumulates into planes its wrapper
+// fills with the sentinel per launch; #8 and #10 into planes the engine
+// keeps for the whole fixed point, which #9 hands back at the sentinel.
+// The device code the chunk kernels share with slab_round.cu (lane groups,
+// chunk aggregates, candidates + scatter, chunk_round, the active-only
+// walk, the one-column merges) is in round_common.cuh.
 //
 // Build with --fmad=false: the activity products and the merge's
 // old + eps * max(1, |old|) must round like the oracle's separate multiply
@@ -413,19 +414,13 @@ node_candidates_scatter_kernel(const double* __restrict__ val, const int* __rest
   }
 }
 
-// Kernel D for B nodes sharing one matrix, node-major.  A work item is one
-// (active node, chunk block) pair, chunk blocks being the kThreads-thread
-// blocks of D's grid; items are numbered node by node and the blocks walk
-// them with a grid-stride loop over a grid no larger than one chunk-stream
-// pass (the resident blocks, at most), so the items running at any time
-// belong to one or a few nodes and their bound and accumulator rows stay
-// in L2, where a warp that loops over every node would touch all B rows at
-// once.  Each block first reads the (B,) mask into shared memory, one
-// ballot per 32 nodes, and counts the active nodes by __popc; its items'
-// node ranks only grow, so a cursor over the ballot words finds each
-// item's node.  No active node: the block returns.  Each item runs
-// chunk_round (U strides held) on its node's rows with D's arithmetic, so
-// each row equals D's result for that node bit for bit.
+// Kernel D for B nodes sharing one matrix, node-major: the active-only walk
+// of round_common.cuh over (active node, chunk block) items, every node's
+// chunks the stream's, so the items running at any time belong to one or a
+// few nodes and their bound and accumulator rows stay in L2, where a warp
+// that loops over every node would touch all B rows at once.  Each item
+// runs chunk_round (U strides held) on its node's rows with D's arithmetic,
+// so each row equals D's result for that node bit for bit.
 template <int G, int U>
 __global__ void __launch_bounds__(kThreads)
 node_fused_scatter_round_kernel(const double* __restrict__ val, const int* __restrict__ col,
@@ -435,86 +430,59 @@ node_fused_scatter_round_kernel(const double* __restrict__ val, const int* __res
                                 const bool* __restrict__ active, double* best_l, double* best_u,
                                 int64_t n_chunks, int k, int64_t bsz, int64_t n_pad,
                                 double int_eps, double inf) {
-  extern __shared__ unsigned int words[];  // ceil(B / 32) ballot words of the mask
-  __shared__ int n_active;
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const int n_words = static_cast<int>((bsz + kWarp - 1) / kWarp);
-  if (threadIdx.x == 0) n_active = 0;
-  __syncthreads();
-  for (int w = warp; w < n_words; w += kWarpsPerBlock) {
-    const int64_t b = static_cast<int64_t>(w) * kWarp + lane;
-    const unsigned int m = __ballot_sync(0xffffffffu, b < bsz && active[b]);
-    if (lane == 0) {
-      words[w] = m;
-      atomicAdd(&n_active, __popc(m));
-    }
-  }
-  __syncthreads();
-  const int64_t per_block = static_cast<int64_t>(kWarpsPerBlock) * (kWarp / G);
-  const int64_t n_blocks = (n_chunks + per_block - 1) / per_block;
-  const int64_t items = n_active * n_blocks;
-  // The cursor: the active node of rank `rank` is word * 32 + the lowest
-  // set bit of `left` (the bits of words[word] not yet passed).
-  int64_t rank = -1;
-  int word = -1;
-  unsigned int left = 0u;
-  for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
-    const int64_t want = item / n_blocks;
-    while (rank < want) {
-      left &= left - 1u;
-      while (left == 0u) left = words[++word];
-      ++rank;
-    }
-    const int64_t node = static_cast<int64_t>(word) * kWarp + __ffs(left) - 1;
-    const int64_t chunk = (item % n_blocks) * per_block + warp * (kWarp / G) + lane / G;
-    const bool live = chunk < n_chunks;
-    const int64_t row = node * n_pad;
-    chunk_round<G, U>(val, col, ii, SplitBounds{lb + row, ub + row}, chunk * k, live ? k : 0,
-                      live ? clen[chunk] : 0, true, RowAgg{}, live ? lhs[chunk] : 0.0,
-                      live ? rhs[chunk] : 0.0, best_l + row, best_u + row, lane % G, int_eps,
-                      inf);
+  const EqualItems items_of{(n_chunks + block_chunks<G>() - 1) / block_chunks<G>()};
+  const Walk walk = ballot_walk(active, bsz, items_of);
+  WalkCursor cur;
+  for (int64_t item = blockIdx.x; item < walk.items; item += gridDim.x) {
+    cur.seek(item, walk, items_of);
+    const WalkLanes L = walk_lanes<G>(item, cur, items_of, n_chunks);
+    const int64_t c = L.chunk, row = cur.plane * n_pad;
+    chunk_round<G, U>(val, col, ii, SplitBounds{lb + row, ub + row}, c * k, L.live ? k : 0,
+                      L.live ? clen[c] : 0, true, RowAgg{}, L.live ? lhs[c] : 0.0,
+                      L.live ? rhs[c] : 0.0, best_l + row, best_u + row, L.sl, int_eps, inf);
   }
 }
 
-// Kernel D over a packed batch: one flat stream of T tiles of R chunks, tile t
-// belonging to instance tile_inst[t] (its columns local to that instance's
-// n_pad-wide window).  A lane group reads its chunk's instance and that
-// instance's active flag; an inactive group loads nothing from the tiles,
-// and a warp whose groups are all inactive returns at once.  Active groups
-// gather from and scatter into their instance's rows with D's arithmetic,
-// so each row equals D's result for that instance bit for bit.  Blocks run
-// in no order, so nothing needs an instance's tiles to be contiguous.
-template <int G>
-__global__ void __launch_bounds__(kThreads)
+// Kernel D over a packed batch, instance-major: one flat stream of T tiles
+// of R chunks, instance b's tiles contiguous, its chunks [start[b],
+// start[b + 1]) (hoisted by the caller) and its columns local to its
+// n_pad-wide window.  The active-only walk of round_common.cuh runs over
+// (active instance, chunk block) items, the instances' item counts summed
+// per ballot word, so no warp is launched over a converged instance's or a
+// free slot's tiles; each item runs chunk_round (U strides held, each chunk
+// stopped at its hoisted length) on its instance's rows with D's
+// arithmetic, so each row equals D's result for that instance bit for bit.
+// At one stride held the kernel is capped at 64 registers, four blocks an
+// SM (71 uncapped, three blocks: 0.3549 -> 0.3007 ms with 4 of 4 active on
+// the fused bucket, tools/round_variants.py).
+template <int G, int U>
+__global__ void __launch_bounds__(kThreads, U == 1 ? 4 : 1)
 batched_fused_scatter_round_kernel(const double* __restrict__ val, const int* __restrict__ col,
-                                   const int* __restrict__ ii, const double* __restrict__ lhs,
-                                   const double* __restrict__ rhs, const double* __restrict__ lb,
-                                   const double* __restrict__ ub,
-                                   const int* __restrict__ tile_inst,
+                                   const int* __restrict__ ii, const int* __restrict__ clen,
+                                   const double* __restrict__ lhs, const double* __restrict__ rhs,
+                                   const double* __restrict__ lb, const double* __restrict__ ub,
+                                   const int64_t* __restrict__ start,
                                    const bool* __restrict__ active, double* best_l,
-                                   double* best_u, int64_t n_chunks, int r, int k, int64_t n_pad,
+                                   double* best_u, int64_t bsz, int k, int64_t n_pad,
                                    double int_eps, double inf) {
-  const Lanes L = lanes_for<G>(n_chunks);
-  bool on = false;
-  int64_t row = 0;
-  if (L.live) {
-    const int64_t inst = tile_inst[L.chunk / r];
-    on = active[inst];
-    row = inst * n_pad;
+  const RangeItems items_of{start, block_chunks<G>()};
+  const Walk walk = ballot_walk(active, bsz, items_of);
+  WalkCursor cur;
+  for (int64_t item = blockIdx.x; item < walk.items; item += gridDim.x) {
+    cur.seek(item, walk, items_of);
+    const WalkLanes L = walk_lanes<G>(item, cur, items_of, 0);
+    const int64_t c = L.chunk, row = cur.plane * n_pad;
+    chunk_round<G, U>(val, col, ii, SplitBounds{lb + row, ub + row}, c * k, L.live ? k : 0,
+                      L.live ? clen[c] : 0, true, RowAgg{}, L.live ? lhs[c] : 0.0,
+                      L.live ? rhs[c] : 0.0, best_l + row, best_u + row, L.sl, int_eps, inf);
   }
-  if (!__any_sync(0xffffffffu, on)) return;  // the whole warp: no shuffle follows
-  const int64_t base = L.chunk * k;
-  const RowAgg a = chunk_aggregates<G>(val, col, lb + row, ub + row, base, on ? k : 0, L, inf);
-  if (!on) return;
-  chunk_candidates_scatter(val, col, ii, lb + row, ub + row, a, lhs[L.chunk], rhs[L.chunk],
-                           best_l + row, best_u + row, base, k, L, int_eps, inf);
 }
 
 // Kernel F over (B, n_pad) planes: grid (column blocks, B); the blocks of an
 // inactive row return at once, so it is neither read nor written.  Each
 // accumulator entry it reads goes back to the sentinel (merge_reset), so
-// #10's planes, kept for the whole fixed point, are clean for its next
-// round; the fresh planes of #8 and node E do not mind.
+// the planes of #8 and #10, kept for the whole fixed point, are clean for
+// their next round; the fresh planes of node E do not mind.
 __global__ void __launch_bounds__(kThreads)
 apply_updates_batch_kernel(double* __restrict__ lb, double* __restrict__ ub,
                            double* __restrict__ best_l, double* __restrict__ best_u,
@@ -621,34 +589,6 @@ fused_round_kernel(const double* __restrict__ val, const double* __restrict__ lb
   if (!L.live) return;
   chunk_candidates_store(val, b, ii, a, lhs[L.chunk], rhs[L.chunk], lcand, ucand, base, k, L,
                          int_eps, inf);
-}
-
-// The node-major #10 over a grid of at most one chunk-stream pass and at
-// most the blocks the card holds resident at once (counted once per
-// instantiation), so that the items in flight are consecutive in node order.
-template <int G, int U>
-int launch_node_fused(const double* val, const int* col, const int* ii, const int* clen,
-                      const double* lhs, const double* rhs, const double* lb, const double* ub,
-                      const bool* active, double* best_l, double* best_u, int64_t n_chunks,
-                      int k, int64_t bsz, int64_t n_pad, double int_eps, double inf,
-                      cudaStream_t stream) {
-  static int resident = 0;
-  const size_t shm = sizeof(unsigned int) * static_cast<size_t>((bsz + kWarp - 1) / kWarp);
-  if (resident == 0) {
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, node_fused_scatter_round_kernel<G, U>,
-                                                  kThreads, shm);
-    resident = sms * per_sm > 0 ? sms * per_sm : 1;
-  }
-  const int64_t blocks = chunk_blocks(n_chunks, k);
-  const unsigned int grid = static_cast<unsigned int>(blocks < resident ? blocks : resident);
-  if (grid == 0 || bsz == 0) return static_cast<int>(cudaGetLastError());
-  node_fused_scatter_round_kernel<G, U><<<grid, kThreads, shm, stream>>>(
-      val, col, ii, clen, lhs, rhs, lb, ub, active, best_l, best_u, n_chunks, k, bsz, n_pad,
-      int_eps, inf);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // Blocks of the combine: one warp per long segment, then one thread per
@@ -777,22 +717,34 @@ int node_fused_scatter_round(const double* val, const int* col, const int* ii, c
                              const double* ub, const bool* active, double* best_l,
                              double* best_u, int64_t n_chunks, int k, int max_len, int64_t bsz,
                              int64_t n_pad, double int_eps, double inf, cudaStream_t stream) {
-#define NODE_FUSED(G, U)                                                                     \
-  launch_node_fused<G, U>(val, col, ii, clen, lhs, rhs, lb, ub, active, best_l, best_u,      \
-                          n_chunks, k, bsz, n_pad, int_eps, inf, stream)
+  // At most one pass over the chunk stream.
+  const int64_t most = chunk_blocks(n_chunks, k);
+#define NODE_FUSED(G, U)                                                                      \
+  launch_walk<node_fused_scatter_round_kernel<G, U>>(most, bsz, stream, val, col, ii, clen, \
+                                                     lhs, rhs, lb, ub, active, best_l,      \
+                                                     best_u, n_chunks, k, bsz, n_pad,       \
+                                                     int_eps, inf)
   DISPATCH_HELD(NODE_FUSED, k, held_strides(max_len))
 #undef NODE_FUSED
 }
 
 int batched_fused_scatter_round(const double* val, const int* col, const int* ii,
-                                const double* lhs, const double* rhs, const double* lb,
-                                const double* ub, const int* tile_inst, const bool* active,
-                                double* best_l, double* best_u, int64_t n_chunks, int r, int k,
+                                const int* clen, const double* lhs, const double* rhs,
+                                const double* lb, const double* ub, const int64_t* start,
+                                const bool* active, double* best_l, double* best_u,
+                                int64_t n_chunks, int k, int max_len, int64_t bsz,
                                 int64_t n_pad, double int_eps, double inf, cudaStream_t stream) {
-  LAUNCH_FOR_WIDTH(batched_fused_scatter_round_kernel, k, n_chunks, stream, val, col, ii, lhs, rhs,
-                   lb, ub, tile_inst, active, best_l, best_u, n_chunks, r, k, n_pad, int_eps,
-                   inf);
-  return static_cast<int>(cudaGetLastError());
+  // At most one pass over the stream: its chunk blocks, plus one partial
+  // block per instance.
+  const int64_t most = chunk_blocks(n_chunks, k) + bsz;
+  if (n_chunks == 0) return static_cast<int>(cudaGetLastError());
+#define BATCHED_FUSED(G, U)                                                                  \
+  launch_walk<batched_fused_scatter_round_kernel<G, U>>(most, bsz, stream, val, col, ii,   \
+                                                        clen, lhs, rhs, lb, ub, start,     \
+                                                        active, best_l, best_u, bsz, k,    \
+                                                        n_pad, int_eps, inf)
+  DISPATCH_HELD(BATCHED_FUSED, k, held_strides(max_len))
+#undef BATCHED_FUSED
 }
 
 int apply_updates_batch(double* lb, double* ub, double* best_l, double* best_u,

@@ -3,9 +3,11 @@
 // come from (its column, or pre-gathered tiles), the chunk's activity
 // aggregates, its candidates with the column max/min scatter or stored per
 // slot, one chunk's whole round with a single bound gather per nonzero
-// (chunk_round, kernels #10 and #12), and the bound merge of one column,
-// with or without handing the accumulator entry back (merge_reset).  See prop_round.cu for the
-// layout and the rounding rules (--fmad=false, division-first candidates).
+// (chunk_round, kernels #8, #10, #12 and #14), the active-only walk over
+// (plane, chunk block) items (#8, #10, #14), and the bound merge of one
+// column, with or without handing the accumulator entry back
+// (merge_reset).  See prop_round.cu for the layout and the rounding rules
+// (--fmad=false, division-first candidates).
 
 #pragma once
 
@@ -445,11 +447,11 @@ __device__ __forceinline__ void scatter_strides(const Loaded<U>& s, const B& b, 
 }
 
 // ---------------------------------------------------------------------------
-// Kernels #10 and #12: one chunk's whole round, each nonzero's bounds
-// gathered once.  chunk_aggregates followed by chunk_candidates_scatter
-// (kernel D's routine, which D, #8 and #14 keep) loads every slot of the
-// chunk twice and gathers its two bounds twice, two 8-byte loads each time,
-// and reduces by compare-and-swap loops.  Here a lane loads its first U
+// Kernels #8, #10, #12 and #14: one chunk's whole round, each nonzero's
+// bounds gathered once.  chunk_aggregates followed by
+// chunk_candidates_scatter (kernel D's routine, which D keeps) loads every
+// slot of the chunk twice and gathers its two bounds twice, two 8-byte
+// loads each time, and reduces by compare-and-swap loops.  Here a lane loads its first U
 // strides (values, columns and integrality marks together; stopped at the
 // chunk's hoisted length), gathers their bounds once and holds them in
 // registers from the activity sums to the candidates, which go to the
@@ -475,7 +477,7 @@ inline int held_strides(int max_len) {
 // for a lane with nothing to do (dead, or an inactive node or window),
 // which loads nothing and scatters nothing.  sum: the row's aggregates are
 // the chunk's own sums; else they are given (the straddle aggregates of
-// #12, whose chunk gathers only for its candidates).
+// #12 and #14, whose chunk gathers only for its candidates).
 template <int G, int U, typename B>
 __device__ __forceinline__ void chunk_round(const double* __restrict__ val,
                                             const int* __restrict__ col,
@@ -520,6 +522,165 @@ __device__ __forceinline__ void chunk_round(const double* __restrict__ val,
     default:                                                                            \
       return (held) <= 1 ? LAUNCH(32, 1) : (held) == 2 ? LAUNCH(32, 2) : LAUNCH(32, 4); \
   }
+
+// ---------------------------------------------------------------------------
+// The active-only walks of #8, #10 and #14.  A work item is one (active
+// plane, chunk block) pair, a chunk block being the chunks of one
+// kThreads-thread block (32 / G per warp); items are numbered plane by
+// plane, and the blocks walk them with a grid-stride loop over a grid of at
+// most the resident blocks, so the items in flight belong to one or a few
+// planes and those planes' rows stay in L2.  Each block first ballots the
+// (B,) mask into shared memory, one word per 32 planes, with the items of
+// each word's active planes summed into an exclusive prefix; a block's
+// items only grow, so a cursor over the words finds each item's plane, and
+// no warp is launched for an inactive plane's chunks.  No active plane:
+// every block returns after the ballot.
+// ---------------------------------------------------------------------------
+
+// Chunks of one chunk block.
+template <int G>
+__device__ __forceinline__ int64_t block_chunks() {
+  return static_cast<int64_t>(kWarpsPerBlock) * (kWarp / G);
+}
+
+// Items of a plane whose chunks are the stream's first n_chunks (#10, #14:
+// one matrix shared by every node).
+struct EqualItems {
+  int64_t n_blocks;
+  __device__ __forceinline__ int64_t operator()(int64_t) const { return n_blocks; }
+  __device__ __forceinline__ int64_t first_chunk(int64_t) const { return 0; }
+  __device__ __forceinline__ int64_t end_chunk(int64_t, int64_t n_chunks) const {
+    return n_chunks;
+  }
+};
+
+// Items of instance b of a packed stream, whose chunks are
+// [start[b], start[b + 1]) (#8: an instance's tiles are contiguous).
+struct RangeItems {
+  const int64_t* start;
+  int64_t per_block;
+  __device__ __forceinline__ int64_t operator()(int64_t b) const {
+    return (start[b + 1] - start[b] + per_block - 1) / per_block;
+  }
+  __device__ __forceinline__ int64_t first_chunk(int64_t b) const { return start[b]; }
+  __device__ __forceinline__ int64_t end_chunk(int64_t b, int64_t) const { return start[b + 1]; }
+};
+
+// Dynamic shared memory of a walk over bsz planes: the item prefix (one
+// entry per word and a total), then the ballot words.
+inline size_t walk_shared(int64_t bsz) {
+  const size_t n_words = static_cast<size_t>((bsz + kWarp - 1) / kWarp);
+  return (n_words + 1) * sizeof(long long) + n_words * sizeof(unsigned int);
+}
+
+struct Walk {
+  const long long* before;  // items of the active planes of words < w
+  const unsigned int* words;
+  int64_t items;
+};
+
+// The block's ballot: every thread calls it.  Warp w takes words w, w + 8,
+// ...; warp 0 then scans the word totals 32 at a time.
+template <typename Items>
+__device__ __forceinline__ Walk ballot_walk(const bool* __restrict__ active, int64_t bsz,
+                                            const Items& items_of) {
+  extern __shared__ long long walk_smem[];
+  const int n_words = static_cast<int>((bsz + kWarp - 1) / kWarp);
+  long long* before = walk_smem;
+  unsigned int* words = reinterpret_cast<unsigned int*>(walk_smem + n_words + 1);
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  for (int w = warp; w < n_words; w += kWarpsPerBlock) {
+    const int64_t b = static_cast<int64_t>(w) * kWarp + lane;
+    const bool on = b < bsz && active[b];
+    const unsigned int m = __ballot_sync(0xffffffffu, on);
+    long long n = on ? static_cast<long long>(items_of(b)) : 0;
+    n = group_sum<kWarp>(n);
+    if (lane == 0) {
+      words[w] = m;
+      before[w + 1] = n;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    long long carry = 0;
+    for (int w0 = 0; w0 < n_words; w0 += kWarp) {
+      const int w = w0 + lane;
+      long long x = w < n_words ? before[w + 1] : 0;
+#pragma unroll
+      for (int off = 1; off < kWarp; off <<= 1) {
+        const long long y = __shfl_up_sync(0xffffffffu, x, off);
+        if (lane >= off) x += y;
+      }
+      if (w < n_words) before[w + 1] = x + carry;
+      carry += __shfl_sync(0xffffffffu, x, kWarp - 1);
+    }
+    if (lane == 0) before[0] = 0;
+  }
+  __syncthreads();
+  return Walk{before, words, static_cast<int64_t>(before[n_words])};
+}
+
+// A block's position in the walk: the plane of its current item and the
+// items before that plane.  seek() takes ascending items only.
+struct WalkCursor {
+  int word = -1;
+  unsigned int left = 0u;  // bits of words[word] not yet passed
+  int64_t plane = -1, first = 0, end = 0;
+
+  template <typename Items>
+  __device__ __forceinline__ void seek(int64_t item, const Walk& walk, const Items& items_of) {
+    while (item >= end) {
+      if (left == 0u) {
+        do ++word; while (walk.before[word + 1] <= item);
+        left = walk.words[word];
+        end = walk.before[word];
+      }
+      plane = static_cast<int64_t>(word) * kWarp + __ffs(left) - 1;
+      left &= left - 1u;
+      first = end;
+      end = first + items_of(plane);
+    }
+  }
+};
+
+// This thread's chunk of item `item` under the cursor, and its lane within
+// the chunk's group; live is false past the plane's last chunk.
+struct WalkLanes {
+  int64_t chunk;
+  int sl;
+  bool live;
+};
+
+template <int G, typename Items>
+__device__ __forceinline__ WalkLanes walk_lanes(int64_t item, const WalkCursor& cur,
+                                                const Items& items_of, int64_t n_chunks) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  WalkLanes L;
+  L.chunk = items_of.first_chunk(cur.plane) + (item - cur.first) * block_chunks<G>() +
+            warp * (kWarp / G) + lane / G;
+  L.sl = lane % G;
+  L.live = L.chunk < items_of.end_chunk(cur.plane, n_chunks);
+  return L;
+}
+
+// Launch a walk kernel over a grid of at most `most` blocks and at most the
+// blocks the card holds resident at once (counted once per instantiation).
+template <auto Kernel, typename... Args>
+int launch_walk(int64_t most, int64_t bsz, cudaStream_t stream, Args... args) {
+  static int resident = 0;
+  const size_t shm = walk_shared(bsz);
+  if (resident == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, kThreads, shm);
+    resident = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  const int64_t grid = most < resident ? most : resident;
+  if (grid <= 0 || bsz == 0) return static_cast<int>(cudaGetLastError());
+  Kernel<<<static_cast<unsigned int>(grid), kThreads, shm, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // One short row segment [s, e) of chunk partials summed left to right from
 // 0 by one thread (the long-row combine's order), written back to each of

@@ -16,7 +16,8 @@
 //                       aggregates or, where row_done == 0, the straddle
 //                       row's completed aggregates; candidates; the column
 //                       max/min into (B, W) accumulator planes
-//   node_slab_scatter   the first launch of #14: the same per active node
+//   node_slab_scatter   the first launch of #14: the same per active node,
+//                       node-major
 //   slab_merge          (#15, and the second launch of #12 and #14)
 //                       bounds.apply_updates over every (instance, slab)
 //                       window, in place, one flag per window; each
@@ -28,28 +29,28 @@
 // accumulator planes in global memory, then the window merge, once every
 // copy has scattered.  Every gather of the round has finished by then, so
 // the merge runs in place.  An empty window's all-padding tile scatters
-// nothing and its merge changes nothing.  #12's planes are kept by the
-// engine's round closure for a whole fixed point: filled with the sentinel
-// once, scattered into by 64-bit integer atomics (exact in any order), and
-// set back to the sentinel by the merge that reads them (merge_reset).
-// #14 still gets fresh planes from its wrapper, filled per launch, and
-// reduces by float64 compare-and-swap loops (window_round, kernel D's
-// routine).
+// nothing and its merge changes nothing.  The planes of #12 and #14 are
+// kept by the engine's round closure for a whole fixed point: filled with
+// the sentinel once, scattered into by 64-bit integer atomics (exact in
+// any order), and set back to the sentinel by the merge that reads them
+// (merge_reset).
 //
-// #12's scatter finds a copy tile's window from tile_inst / tile_slab,
-// hoisted by the partition, at inst * W + slab_id * slab of the (B, W)
-// planes; #11, #13 and #14 find the tile's run by a binary search over
-// run_start (runs cover contiguous, ascending tile ranges; the TPU's padded
-// grid steps do not exist here).  W is the partition's n_pad_part or the
-// instance's n_pad: no real nonzero reaches past n_pad.  Flat indices are
-// 64-bit wherever two sizes multiply (B * W passes 2^31 at large pools).
+// The scatters of #12 and #14 find a copy tile's window from tile_inst /
+// tile_slab, hoisted by the partition, at inst * W + slab_id * slab of the
+// (B, W) planes (#14: node * W + slab_id * slab); #11 and #13 find the
+// tile's run by a binary search over run_start (runs cover contiguous,
+// ascending tile ranges; the TPU's padded grid steps do not exist here).
+// W is the partition's n_pad_part or the instance's n_pad: no real nonzero
+// reaches past n_pad.  Flat indices are 64-bit wherever two sizes multiply
+// (B * W passes 2^31 at large pools).
 //
 // The chunk arithmetic is kernel D's (round_common.cuh): lane groups of G
 // lanes per chunk, shuffle sums in ref.warp_order_sum's order, division-first
-// candidates, --fmad=false.  #12's scatter runs chunk_round: each nonzero's
-// bounds gathered once and held from the sums to the candidates, each copy
-// stopped at its hoisted length (the partition's chunk_len).  Each entry
-// point returns cudaGetLastError().
+// candidates, --fmad=false.  The scatters of #12 and #14 run chunk_round:
+// each nonzero's bounds gathered once and held from the sums to the
+// candidates, each copy stopped at its hoisted length (the partition's
+// chunk_len); #14 walks the active nodes' items only (round_common.cuh).
+// Each entry point returns cudaGetLastError().
 
 #include "round_common.cuh"
 
@@ -92,29 +93,6 @@ __device__ __forceinline__ void store_partials(const RowAgg& a, int64_t o, doubl
   mc[o] = a.mc;
   xf[o] = a.xf;
   xc[o] = a.xc;
-}
-
-// One chunk's round against the window at flat offset `row`: local
-// aggregates, or the straddle aggregates at index `s` where the copy does
-// not hold its whole row; candidates; scatter into the accumulators.  Every
-// lane of the warp calls it (the aggregates shuffle); `use` is false for
-// dead lanes and inactive windows, which scatter nothing.
-template <int G>
-__device__ __forceinline__ void window_round(
-    const double* __restrict__ val, const int* __restrict__ col, const int* __restrict__ ii,
-    const int* __restrict__ done, const double* __restrict__ smf, const int* __restrict__ smc,
-    const double* __restrict__ sxf, const int* __restrict__ sxc,
-    const double* __restrict__ lhs, const double* __restrict__ rhs,
-    const double* __restrict__ lb, const double* __restrict__ ub, double* best_l,
-    double* best_u, const Lanes& L, int64_t row, int64_t s, bool use, int k, double int_eps,
-    double inf) {
-  const int64_t base = L.chunk * k;
-  const bool local = use && done[L.chunk] != 0;
-  RowAgg a = chunk_aggregates<G>(val, col, lb + row, ub + row, base, local ? k : 0, L, inf);
-  if (!use) return;
-  if (!local) a = RowAgg{smf[s], sxf[s], smc[s], sxc[s]};
-  chunk_candidates_scatter(val, col, ii, lb + row, ub + row, a, lhs[L.chunk], rhs[L.chunk],
-                           best_l + row, best_u + row, base, k, L, int_eps, inf);
 }
 
 template <int G>
@@ -198,39 +176,59 @@ slab_scatter_kernel(const double* __restrict__ val, const int* __restrict__ col,
                     best_l + off, best_u + off, L.sl, int_eps, inf);
 }
 
-// #12's scatter for B nodes of one instance: each warp ballots the mask 32
-// nodes at a time and visits the active nodes only (kernel #10's scheme).
-template <int G>
-__global__ void __launch_bounds__(kThreads)
+// #14's scatter: #12's chunk round for B nodes of one instance, node-major.
+// The active-only walk of round_common.cuh runs over (active node, chunk
+// block) items, every node's chunks the copy stream's; an item's copy tile
+// t = chunk / r gives its window at once, tile_slab[t] * slab offset by the
+// node's plane (no search over the runs), each chunk stops at the copy
+// stream's hoisted length, and chunk_round gathers each nonzero's bounds
+// once: a chunk whose copy holds its whole row (row_done == 1) sums its own
+// aggregates, a straddle chunk reads the node's straddle aggregates at b *
+// n_chunks + c and gathers only for its candidates.  At one stride held the
+// kernel is capped at 64 registers, four blocks an SM (72 uncapped, three
+// blocks; the cap pays 16% at 8 of 128 nodes active and 12% at 128 on pbw:
+// tools/round_variants.py).
+template <int G, int U>
+__global__ void __launch_bounds__(kThreads, U == 1 ? 4 : 1)
 node_slab_scatter_kernel(const double* __restrict__ val, const int* __restrict__ col,
-                         const int* __restrict__ ii, const int* __restrict__ done,
-                         const double* __restrict__ smf, const int* __restrict__ smc,
-                         const double* __restrict__ sxf, const int* __restrict__ sxc,
-                         const double* __restrict__ lhs, const double* __restrict__ rhs,
-                         const int* __restrict__ run_start, const int* __restrict__ run_slab,
+                         const int* __restrict__ ii, const int* __restrict__ clen,
+                         const int* __restrict__ done, const double* __restrict__ smf,
+                         const int* __restrict__ smc, const double* __restrict__ sxf,
+                         const int* __restrict__ sxc, const double* __restrict__ lhs,
+                         const double* __restrict__ rhs, const int* __restrict__ tile_slab,
                          const bool* __restrict__ active, const double* __restrict__ lb,
                          const double* __restrict__ ub, double* best_l, double* best_u,
-                         int n_runs, int64_t n_chunks, int r, int k, int64_t bsz,
-                         int64_t width, int64_t slab, double int_eps, double inf) {
-  const Lanes L = lanes_for<G>(n_chunks);
-  const int lane = threadIdx.x % kWarp;
-  const Copy c = copy_window(L, r, run_start, nullptr, run_slab, n_runs, width, slab);
-  for (int64_t b0 = 0; b0 < bsz; b0 += kWarp) {
-    unsigned int todo = __ballot_sync(0xffffffffu, b0 + lane < bsz && active[b0 + lane]);
-    while (todo != 0u) {
-      const int64_t b = b0 + __ffs(todo) - 1;
-      todo &= todo - 1u;
-      window_round<G>(val, col, ii, done, smf, smc, sxf, sxc, lhs, rhs, lb, ub, best_l, best_u,
-                      L, b * width + c.off, b * n_chunks + L.chunk, L.live, k, int_eps, inf);
+                         int64_t n_chunks, int r, int k, int64_t bsz, int64_t width,
+                         int64_t slab, double int_eps, double inf) {
+  const EqualItems items_of{(n_chunks + block_chunks<G>() - 1) / block_chunks<G>()};
+  const Walk walk = ballot_walk(active, bsz, items_of);
+  WalkCursor cur;
+  for (int64_t item = blockIdx.x; item < walk.items; item += gridDim.x) {
+    cur.seek(item, walk, items_of);
+    const WalkLanes L = walk_lanes<G>(item, cur, items_of, n_chunks);
+    const int64_t c = L.chunk;
+    int64_t off = 0;
+    bool local = false;
+    RowAgg given{};
+    if (L.live) {
+      off = cur.plane * width + static_cast<int64_t>(tile_slab[c / r]) * slab;
+      local = done[c] != 0;
+      if (!local) {
+        const int64_t s = cur.plane * n_chunks + c;
+        given = RowAgg{smf[s], sxf[s], smc[s], sxc[s]};
+      }
     }
+    chunk_round<G, U>(val, col, ii, SplitBounds{lb + off, ub + off}, c * k, L.live ? k : 0,
+                      L.live ? clen[c] : 0, local, given, L.live ? lhs[c] : 0.0,
+                      L.live ? rhs[c] : 0.0, best_l + off, best_u + off, L.sl, int_eps, inf);
   }
 }
 
 // The window merge over (B, W) planes: grid (column blocks, B); the blocks
 // of an inactive row return at once.  A thread whose column tightens sets
 // its window's flag, which the wrapper zeroes first.  Each accumulator
-// entry it reads goes back to the sentinel (merge_reset): #12's planes are
-// kept for the whole fixed point; #14's fresh ones do not mind.
+// entry it reads goes back to the sentinel (merge_reset): the planes of
+// #12 and #14 are kept for the whole fixed point.
 __global__ void __launch_bounds__(kThreads)
 slab_merge_kernel(double* __restrict__ lb, double* __restrict__ ub, double* __restrict__ best_l,
                   double* __restrict__ best_u, const bool* __restrict__ active,
@@ -287,17 +285,22 @@ int slab_scatter(const double* val, const int* col, const int* ii, const int* cl
 #undef SLAB_SCATTER
 }
 
-int node_slab_scatter(const double* val, const int* col, const int* ii, const int* done,
-                      const double* smf, const int* smc, const double* sxf, const int* sxc,
-                      const double* lhs, const double* rhs, const int* run_start,
-                      const int* run_slab, const bool* active, const double* lb,
-                      const double* ub, double* best_l, double* best_u, int n_runs,
-                      int64_t n_chunks, int r, int k, int64_t bsz, int64_t width, int64_t slab,
+int node_slab_scatter(const double* val, const int* col, const int* ii, const int* clen,
+                      const int* done, const double* smf, const int* smc, const double* sxf,
+                      const int* sxc, const double* lhs, const double* rhs,
+                      const int* tile_slab, const bool* active, const double* lb,
+                      const double* ub, double* best_l, double* best_u, int64_t n_chunks,
+                      int r, int k, int max_len, int64_t bsz, int64_t width, int64_t slab,
                       double int_eps, double inf, cudaStream_t stream) {
-  LAUNCH_FOR_WIDTH(node_slab_scatter_kernel, k, n_chunks, stream, val, col, ii, done, smf, smc,
-                   sxf, sxc, lhs, rhs, run_start, run_slab, active, lb, ub, best_l, best_u,
-                   n_runs, n_chunks, r, k, bsz, width, slab, int_eps, inf);
-  return static_cast<int>(cudaGetLastError());
+  // At most one pass over the copy stream.
+  const int64_t most = chunk_blocks(n_chunks, k);
+#define NODE_SLAB(G, U)                                                                      \
+  launch_walk<node_slab_scatter_kernel<G, U>>(most, bsz, stream, val, col, ii, clen, done, \
+                                              smf, smc, sxf, sxc, lhs, rhs, tile_slab,     \
+                                              active, lb, ub, best_l, best_u, n_chunks, r, \
+                                              k, bsz, width, slab, int_eps, inf)
+  DISPATCH_HELD(NODE_SLAB, k, held_strides(max_len))
+#undef NODE_SLAB
 }
 
 int slab_merge(double* lb, double* ub, double* best_l, double* best_u,

@@ -47,7 +47,7 @@ SIGNATURES = {
         "combine_chunk_partials": [P] * 11 + [I64, I64, P],
         "straddle_combine": [P] * 16 + [I64, I64, I64, I64, P],
         "node_fused_scatter_round": [P] * 11 + [I64, I32, I32, I64, I64, F64, F64, P],
-        "batched_fused_scatter_round": [P] * 11 + [I64, I32, I32, I64, F64, F64, P],
+        "batched_fused_scatter_round": [P] * 12 + [I64, I32, I32, I64, I64, F64, F64, P],
         "apply_updates_batch": [P] * 6 + [I64, I64, F64, F64, F64, P],
         "node_objective": [P] * 8 + [I64, I64, F64, F64, P],
         "activities": [P] * 7 + [I64, I32, F64, P],
@@ -58,7 +58,7 @@ SIGNATURES = {
         "slab_partials": [P] * 12 + [I32, I64, I32, I32, I64, I64, F64, P],
         "node_slab_partials": [P] * 11 + [I32, I64, I32, I32, I64, I64, I64, F64, P],
         "slab_scatter": [P] * 18 + [I64, I32, I32, I32, I64, I64, F64, F64, P],
-        "node_slab_scatter": [P] * 17 + [I32, I64, I32, I32, I64, I64, I64, F64, F64, P],
+        "node_slab_scatter": [P] * 17 + [I64, I32, I32, I32, I64, I64, I64, F64, F64, P],
         "slab_merge": [P] * 6 + [I64, I64, I64, F64, F64, F64, P],
     },
 }

@@ -36,7 +36,8 @@ semantics so they converge to the same fixed points.
     explicit ``scatter="fused"`` runs at any ``n_pad``.
   * The batched round over a packed bucket (``prepare_problem_batch``, one
     flat tile stream, ``(B, n_pad)`` planes, a per-instance active mask):
-    kernel #8 then #9 where every row fits one chunk; past
+    kernel #8 (into the closure's kept planes, over the active instances'
+    chunk ranges only) then #9 where every row fits one chunk; past
     ``SCATTER_MAX_NPAD`` the partitioned round over the bucket's slab
     partition; otherwise A', the combine and E over the flat stream with
     global columns, then #9.
@@ -45,7 +46,8 @@ semantics so they converge to the same fixed points.
     rows fit one chunk, else A', the combine and E over the node batch
     then #9 -- four launches per round whatever the batch size; past ``SCATTER_MAX_NPAD``
     the partitioned node kernels (#13, the straddle combine over the active
-    nodes' planes, #14 with #15) over the ``(B, n_pad)`` planes, whatever
+    nodes' planes, #14 into the kept planes with #15) over the ``(B,
+    n_pad)`` planes, whatever
     the tile width (the plain path there follows
     ``REPRO_AUTO_LARGE_SCATTER``, as the reference's does).
   * The fixed point runs on private copies of the cached initial bounds, so
@@ -360,8 +362,9 @@ def gather_bounds(lb, ub, col):
 
 
 class KeptPlanes:
-    """The ``(B, W)`` accumulator planes of kernels #10 and #12, kept by the
-    round closure that owns them for its whole fixed point: allocated and
+    """The ``(B, W)`` accumulator planes of kernels #8, #10, #12 and #14,
+    kept by the round closure that owns them (or the service's bucket
+    engine) for its whole fixed point: allocated and
     filled with the sentinels at the first round
     (:func:`prop_round.accumulator_planes`), scattered into by the kernel,
     and set back to the sentinels by the merge that reads them (#9 or #15,
@@ -413,7 +416,7 @@ class RoundOps(NamedTuple):
     node_fused: Callable  # #10: tiles + (B, n_pad) planes + active + kept -> (best_l, best_u)
     merge_batch: Callable  # #9: (lb, ub, best_l, best_u, active, eps, inf, outward)
     partitioned: Callable  # (part, lb, ub, active, ..., kept) -> (lb, ub, (B,) changed)
-    batched_fused: Callable  # #8: flat stream + tile_inst + (B, n_pad) planes + active
+    batched_fused: Callable  # #8: flat stream + tile_inst + (B, n_pad) planes + active + acc
     activities_tiles: Callable   # A: tiles + gathered bounds -> chunk partials
     candidates_tiles: Callable   # B: ... + row aggregates -> (T, R, K) candidates
     fused_round_tiles: Callable  # C: tiles + gathered bounds -> (T, R, K) candidates
@@ -439,15 +442,22 @@ def _plain_node_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, i
 
 
 def _plain_batched_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, tile_inst, active, n_pad,
-                         int_eps, inf):
-    return kref.batched_fused_scatter_round_ref(
+                         int_eps, inf, *, acc, chunk_len=None, max_chunk_len=None, chunks=None):
+    """#8's plain version, folded into the kept planes ``acc`` as the
+    kernel scatters into them (the hoisted fields change nothing)."""
+    del chunk_len, max_chunk_len, chunks
+    return kern._fold(acc, kref.batched_fused_scatter_round_ref(
         val, kref.global_columns(col, tile_inst, n_pad), is_int_g, lhs_g, rhs_g, lb, ub, n_pad,
         int_eps, inf, active=active,
-    )
+    ))
 
 
 def _plain_merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward=0.0):
-    return bnd.apply_updates_batch(lb, ub, best_l, best_u, eps, inf, outward, active=active)
+    """#9's plain version, handing the active rows of the planes back at the
+    sentinels as the kernel does (the kept planes of #8 need it)."""
+    out = bnd.apply_updates_batch(lb, ub, best_l, best_u, eps, inf, outward, active=active)
+    kern._hand_back(best_l, best_u, active, inf)
+    return out
 
 
 def _partitioned_kernel_round(
@@ -462,8 +472,8 @@ def _partitioned_kernel_round(
     round (#12, or #14 per node: scatter, then #15's window merge).
     ``node=False`` routes copies to their own instance's plane by the run
     maps (a single instance passes ``B == 1``); ``node=True`` runs ONE
-    instance's copies against every node's plane.  #12 scatters into the
-    closure's kept planes ``kept`` (#14 still fills its own).  Returns
+    instance's copies against every node's plane.  #12 and #14 scatter
+    into the closure's kept planes ``kept``.  Returns
     ``(lb, ub, changed)`` with ``(B,)`` bool flags: the window flags OR-ed
     per plane."""
     bsz = lb.shape[0]
@@ -487,17 +497,17 @@ def _partitioned_kernel_round(
         strs = (z, zi, z, zi)
     common = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
               part.run_start, part.run_len)
+    hoisted = dict(acc=kept.get(lb), chunk_len=part.chunk_len, max_chunk_len=part.max_chunk_len)
     if node:
         lb, ub, ch = kern.node_slab_round_tiles(
             *common, part.run_slab, active, lb, ub, part.slab, part.max_run_len, eps, int_eps,
-            inf, outward,
+            inf, outward, tile_slab=part.tile_slab, **hoisted,
         )
     else:
         lb, ub, ch = kern.batched_slab_round_tiles(
             *common, part.run_inst, part.run_slab, active, lb, ub, part.slab,
-            part.max_run_len, eps, int_eps, inf, outward, acc=kept.get(lb),
-            tiles=(part.tile_inst, part.tile_slab), chunk_len=part.chunk_len,
-            max_chunk_len=part.max_chunk_len,
+            part.max_run_len, eps, int_eps, inf, outward,
+            tiles=(part.tile_inst, part.tile_slab), **hoisted,
         )
     # Runs lie in window order: (plane, slab).
     return lb, ub, (ch.reshape(bsz, -1) != 0).any(dim=1)
@@ -831,7 +841,8 @@ class DeviceProblemBatch(NamedTuple):
     ii_g: torch.Tensor       # (T, R, K) int32: is_int at each slot's column, hoisted
     lhs_g: torch.Tensor      # (T, R): lhs1[chunk_row], hoisted
     rhs_g: torch.Tensor      # (T, R)
-    chunk_len: torch.Tensor  # (T, R) int32: one past each chunk's last nonzero (A', E)
+    chunk_len: torch.Tensor  # (T, R) int32: one past each chunk's last nonzero (A', E, #8)
+    chunks: torch.Tensor     # (B + 1,) int64: instance i's chunks [chunks[i], chunks[i+1]) (#8)
     lb0: torch.Tensor        # (B, n_pad)
     ub0: torch.Tensor        # (B, n_pad)
     col_valid: torch.Tensor  # (B, n_pad) bool: j < n_i (real columns)
@@ -851,6 +862,7 @@ class PreparedBatch:
     fits_one_chunk: bool
     row_start: torch.Tensor  # (m_total + 1,) int64
     seg_classes: tuple       # the combine's (short, long) int32 segment ids, hoisted
+    max_chunk_len: int       # max(d.chunk_len): the strides #8 holds per lane
     # Slab partitions of the packed stream keyed by slab width.
     _slabs: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
@@ -891,17 +903,19 @@ def prepare_problem_batch(batch: ProblemBatch, dtype=None, device="cuda") -> Pre
     col_g = ell.col + ell.tile_inst[:, None, None] * np.int32(n_pad)
     t = lambda x, d=dt: torch.as_tensor(np.asarray(x), dtype=d, device=dev)
     chunk_row = t(ell.chunk_row, torch.int32)
+    tile_inst = t(ell.tile_inst, torch.int32)
     val = t(ell.val)
     d = DeviceProblemBatch(
         val=val,
         col=t(ell.col, torch.int32),
         col_g=t(col_g, torch.int32),
         chunk_row=chunk_row,
-        tile_inst=t(ell.tile_inst, torch.int32),
+        tile_inst=tile_inst,
         ii_g=t(batch.is_int.reshape(-1)[col_g], torch.int32),
         lhs_g=t(batch.lhs1[ell.chunk_row]),
         rhs_g=t(batch.rhs1[ell.chunk_row]),
         chunk_len=kref.chunk_lengths(val),
+        chunks=kref.instance_chunks(tile_inst, ell.tile_rows, batch.size),
         lb0=t(batch.lb),
         ub0=t(batch.ub),
         col_valid=t(np.arange(n_pad)[None, :] < ell.n[:, None], torch.bool),
@@ -916,6 +930,7 @@ def prepare_problem_batch(batch: ProblemBatch, dtype=None, device="cuda") -> Pre
         fits_one_chunk=all(rows_fit_one_chunk(p, ell.tile_width) for p in batch.problems),
         row_start=row_start,
         seg_classes=kref.segment_classes(row_start),
+        max_chunk_len=int(d.chunk_len.max()) if d.chunk_len.numel() else 0,
     )
     _batch_prep_cache.put(key, (batch,), prep)
     return prep
@@ -924,14 +939,18 @@ def prepare_problem_batch(batch: ProblemBatch, dtype=None, device="cuda") -> Pre
 def batched_reference_round(
     val, col, col_g, tile_inst, ii_g, chunk_row, row_start, lhs_g, rhs_g, lb, ub, active,
     *, n_pad: int, fits_one_chunk: bool, eps: float, int_eps: float, inf: float,
-    outward: float = 0.0, ops: RoundOps = KERNEL_OPS, chunk_len=None, classes=None,
+    kept: KeptPlanes, outward: float = 0.0, ops: RoundOps = KERNEL_OPS, chunk_len=None,
+    max_chunk_len: int | None = None, chunks=None, classes=None,
 ):
     """One batched round over a flat stream, IN PLACE with
     :data:`KERNEL_OPS`: ``(B, n_pad)`` planes + ``(B,)`` active mask ->
     ``(lb, ub, (B,) changed)``.  The counterpart of the reference's XLA
     dataflow ``batched_reference_round`` (src/repro/kernels/ops.py:1492),
     here on the ported kernels.  Rows that fit one chunk: kernel #8 (which
-    computes exactly the reference's fused dataflow).  Otherwise A', the
+    computes exactly the reference's fused dataflow) into the kept planes
+    ``kept``, over each instance's chunk range ``chunks`` (``(B + 1,)``
+    int64, :func:`ref.instance_chunks`), each chunk stopped at its length
+    (``chunk_len``; ``max_chunk_len`` the longest).  Otherwise A', the
     combine and E on the flat stream with global columns ``col_g`` over the
     ``(B * n_pad,)`` view of the planes; the candidates of inactive
     instances are then forced to the sentinel.  Then the batched merge #9,
@@ -941,11 +960,12 @@ def batched_reference_round(
     chunks that keeps each real row whole (the service's), split into short
     and long by ``classes`` (:func:`ref.segment_classes`).  ``chunk_len``
     (the stream's :func:`ref.chunk_lengths`) is where A' and E stop each
-    chunk.  Both are hoisted by the caller; the kernels compute them when
+    chunk.  All are hoisted by the caller; the kernels compute them when
     they are omitted."""
     if fits_one_chunk:
         best_l, best_u = ops.batched_fused(
-            val, col, ii_g, lhs_g, rhs_g, lb, ub, tile_inst, active, n_pad, int_eps, inf
+            val, col, ii_g, lhs_g, rhs_g, lb, ub, tile_inst, active, n_pad, int_eps, inf,
+            acc=kept.get(lb), chunk_len=chunk_len, max_chunk_len=max_chunk_len, chunks=chunks,
         )
     else:
         bsz = lb.shape[0]
@@ -970,7 +990,8 @@ def _batched_prepared_round(
     bucket's slab partition (#11, the straddle combine, #12 with #15:
     copies routed to their instance's plane by the hoisted tile maps,
     inactive instances skipped on the device, #12 scattering into
-    ``kept``); otherwise :func:`batched_reference_round`."""
+    ``kept``); otherwise :func:`batched_reference_round` (#8 scattering
+    into ``kept``)."""
     if prep.n_pad > SCATTER_MAX_NPAD:
         part = prep.slab_partition(slab)
         return ops.partitioned(
@@ -981,7 +1002,8 @@ def _batched_prepared_round(
     return batched_reference_round(
         d.val, d.col, d.col_g, d.tile_inst, d.ii_g, d.chunk_row, prep.row_start, d.lhs_g,
         d.rhs_g, lb, ub, active, n_pad=prep.n_pad, fits_one_chunk=prep.fits_one_chunk,
-        eps=eps, int_eps=int_eps, inf=inf, outward=outward, ops=ops, chunk_len=d.chunk_len,
+        eps=eps, int_eps=int_eps, inf=inf, kept=kept, outward=outward, ops=ops,
+        chunk_len=d.chunk_len, max_chunk_len=prep.max_chunk_len, chunks=d.chunks,
         classes=prep.seg_classes,
     )
 
@@ -1267,8 +1289,9 @@ def _node_round(
     kernel #10, and rows that span chunks A', the combine and E over the
     node batch (where the reference vmaps its single-instance round); then
     the batched merge #9.  Each launch covers every node, so a round makes
-    the same launches whatever the batch size.  #10 scatters into the
-    closure's kept planes ``kept``, which #9 sets back to the sentinels."""
+    the same launches whatever the batch size.  #10 and #14 scatter into the
+    closure's kept planes ``kept``, which #9 / #15 set back to the
+    sentinels."""
     if part is not None:
         return ops.partitioned(
             part, lb, ub, active, node=True, eps=eps, int_eps=int_eps, inf=inf,

@@ -5,8 +5,9 @@ round and of the solver's node objective, behind PyTorch wrappers.
 Each wrapper of a TPU kernel keeps the signature of its Pallas twin in the
 JAX package (``src/repro/kernels/prop_round.py``) minus ``interpret`` and
 ``block``, plus keyword arguments for what the engines hoist (chunk
-lengths, the copy tiles' windows) and, for #10 and #12, the accumulator
-planes they scatter into (``acc``, :func:`accumulator_planes`); the
+lengths, instance chunk ranges, the copy tiles' windows) and, for #8, #10,
+#12 and #14, the accumulator planes they scatter into (``acc``,
+:func:`accumulator_planes`); the
 long-row and straddle combines replace XLA segment sums.  On
 a CPU tensor it runs the kernel's plain-PyTorch version (``ref.py``); on a
 CUDA tensor it launches the hand-written Hopper kernel of
@@ -79,7 +80,7 @@ def _p(t: torch.Tensor) -> int:
 def accumulator_planes(like: torch.Tensor, inf: float = INF):
     """``(best_l, best_u)``: two float64 planes shaped like the bound planes
     ``like``, filled with the sentinels ``-inf`` and ``inf``, for kernels
-    #10 and #12 to scatter into (their ``acc``).  The engines allocate one
+    #8, #10, #12 and #14 to scatter into (their ``acc``).  The engines allocate one
     pair per round closure and keep it for the whole fixed point: the merge
     that reads the planes (#9, #15) sets every entry it reads -- the active
     rows -- back to the sentinel, so they are clean for the next round."""
@@ -167,8 +168,8 @@ def _chunk_len(val, chunk_len):
 
 
 def _max_len(k: int, max_chunk_len) -> int:
-    """The longest chunk a launch of #10 or #12 meets, which sets the
-    strides a lane holds: as hoisted by the caller, or the width K."""
+    """The longest chunk a launch of #8, #10, #12 or #14 meets, which sets
+    the strides a lane holds: as hoisted by the caller, or the width K."""
     return k if max_chunk_len is None else int(max_chunk_len)
 
 
@@ -736,37 +737,61 @@ node_candidates_scatter_tiles.launches = 0
 # ---------------------------------------------------------------------------
 
 
+def _instance_chunks(tile_inst, r: int, bsz: int, chunks):
+    """Each instance's chunk range of a packed stream, ``(B + 1,)`` int64:
+    ``chunks`` as the caller hoisted it, or computed from ``tile_inst``
+    (whose tiles of one instance must be contiguous, in instance order)."""
+    if chunks is None:
+        if tile_inst.numel() > 1 and not bool((tile_inst[1:] >= tile_inst[:-1]).all()):
+            raise ValueError("tile_inst: an instance's tiles must be contiguous, in order")
+        return ref.instance_chunks(tile_inst, r, bsz)
+    _expect("chunks", chunks, torch.int64, (bsz + 1,))
+    return chunks
+
+
 def batched_fused_scatter_round_tiles(
     val, col, is_int_g, lhs_g, rhs_g, lb, ub, tile_inst, active, n_pad: int,
-    int_eps: float, inf: float = INF,
+    int_eps: float, inf: float = INF, *, acc, chunk_len=None,
+    max_chunk_len: int | None = None, chunks=None,
 ):
     """Fully fused round over a packed batch: ``(T, R, K)`` flat tile stream
     (instance-local columns) + ``(B, n_pad)`` bound planes + ``(T,)`` int32
     ``tile_inst`` + ``(B,)`` bool ``active`` -> ``(B, n_pad)`` ``best_l`` /
-    ``best_u``.  Per instance exactly :func:`fused_scatter_round_tiles`
-    (every row of every instance must fit its chunk); inactive instances
-    get sentinel rows.  ``active`` is also the service's slot-occupancy
-    mask (:func:`batched_occupancy_round_tiles`).
+    ``best_u``, scattered into the accumulator planes ``acc``
+    (:func:`accumulator_planes`; their active rows must hold the sentinels)
+    and returned.  Per instance exactly :func:`fused_scatter_round_tiles`
+    (every row of every instance must fit its chunk); inactive instances'
+    rows are not touched.  ``active`` is also the service's slot-occupancy
+    mask (:func:`batched_occupancy_round_tiles`).  An instance's tiles are
+    contiguous and in instance order (packing and the service's slots lay
+    them out so); ``chunks`` is each instance's chunk range (``(B + 1,)``
+    int64, :func:`ref.instance_chunks`), ``chunk_len`` where each chunk
+    stops and ``max_chunk_len`` the longest, all hoisted by the caller
+    (computed from ``tile_inst`` and ``val``, and K, when omitted).
 
     Replaces ``batched_fused_scatter_round_tiles`` /
     ``_batched_fused_scatter_kernel`` (src/repro/kernels/prop_round.py:816
     / :766), whose grid walks the stream in order and flushes its resident
     accumulator block at each instance boundary.  Bound on the H100: for the
-    tiles of active instances, ``val`` per padded slot (8 B), ``col`` and
-    ``is_int_g`` per nonzero (8 B) and the sides per chunk (16 B); per
+    tiles of active instances, ``val`` at the nonzeros (each chunk stopped
+    at its length; or per padded slot, the bound beside it), ``col`` and
+    ``is_int_g`` per nonzero, the length and sides per chunk (20 B); per
     active instance its two bound rows read and two accumulator rows
-    written.  Design: kernel D's lane group per chunk; a group reads its
-    tile's instance and that instance's flag on the device and, if
-    inactive, loads nothing; the bound gather and the float64 CAS max/min
-    are offset by ``inst * n_pad``.  Blocks run in no order, so the wrapper
-    fills both accumulator planes with the sentinel before the launch (all
-    ``B`` rows) and no instance's tiles need to be contiguous."""
-    operands = (val, col, is_int_g, lhs_g, rhs_g, lb, ub, tile_inst, active)
+    written.  Design: kernel D's lane group per chunk, instance-major: each
+    block ballots the mask into shared memory with the active instances'
+    chunk blocks summed per ballot word, and walks (active instance, chunk
+    block) items over a grid of at most the resident blocks, so no warp is
+    launched over a converged instance's tiles; each nonzero's bounds are
+    gathered once and held from the sums to the candidates (values, columns
+    and marks loaded together, each chunk stopped at its length); the
+    column max/min by fire-and-forget 64-bit integer reductions; no plane
+    is allocated or filled per launch."""
+    operands = (val, col, is_int_g, lhs_g, rhs_g, lb, ub, tile_inst, active, *acc)
     if not _on_cuda(*operands):
-        return ref.batched_fused_scatter_round_ref(
+        return _fold(acc, ref.batched_fused_scatter_round_ref(
             val, ref.global_columns(col, tile_inst, n_pad), is_int_g, lhs_g, rhs_g, lb, ub,
             n_pad, int_eps, inf, active=active,
-        )
+        ))
     t, r, k = val.shape
     _expect("val", val, torch.float64, (t, r, k))
     _expect("col", col, torch.int32, (t, r, k))
@@ -775,13 +800,15 @@ def batched_fused_scatter_round_tiles(
     _expect("rhs_g", rhs_g, torch.float64, (t, r))
     _expect("tile_inst", tile_inst, torch.int32, (t,))
     bsz = lb.shape[0]
-    _check_planes(bsz, n_pad, lb=lb, ub=ub)
+    best_l, best_u = acc
+    _check_planes(bsz, n_pad, lb=lb, ub=ub, best_l=best_l, best_u=best_u)
     _expect("active", active, torch.bool, (bsz,))
-    best_l = torch.full((bsz, n_pad), -inf, dtype=torch.float64, device=val.device)
-    best_u = torch.full((bsz, n_pad), inf, dtype=torch.float64, device=val.device)
+    start = _instance_chunks(tile_inst, r, bsz, chunks)
+    clen = _chunk_len(val, chunk_len)
     err = _build.lib().batched_fused_scatter_round(
-        _p(val), _p(col), _p(is_int_g), _p(lhs_g), _p(rhs_g), _p(lb), _p(ub), _p(tile_inst),
-        _p(active), _p(best_l), _p(best_u), t * r, r, k, n_pad, int_eps, inf, _stream(),
+        _p(val), _p(col), _p(is_int_g), _p(clen), _p(lhs_g), _p(rhs_g), _p(lb), _p(ub),
+        _p(start), _p(active), _p(best_l), _p(best_u), t * r, k, _max_len(k, max_chunk_len),
+        bsz, n_pad, int_eps, inf, _stream(),
     )
     batched_fused_scatter_round_tiles.launches += 1
     _build.check(err, "batched_fused_scatter_round")
@@ -793,17 +820,20 @@ batched_fused_scatter_round_tiles.launches = 0
 
 def batched_occupancy_round_tiles(
     val, col, is_int_g, lhs_g, rhs_g, lb, ub, tile_inst, occupied, n_pad: int,
-    eps: float, int_eps: float, inf: float = INF, outward: float = 0.0,
+    eps: float, int_eps: float, inf: float = INF, outward: float = 0.0, *, acc, **hoisted,
 ):
     """One occupancy-masked round over a slot-resident stream, IN PLACE:
-    kernel #8, then the batched merge #9 -> ``(lb, ub, changed)`` with
-    ``(S,)`` per-slot flags.  A free or retired slot is an inactive
-    instance: its tiles compute nothing and its rows pass through.  The
-    counterpart of the reference's ``batched_occupancy_round_tiles``
+    kernel #8 into the kept planes ``acc``, then the batched merge #9,
+    which hands them back -> ``(lb, ub, changed)`` with ``(S,)`` per-slot
+    flags.  A free or retired slot is an inactive instance: its tiles
+    compute nothing and its rows pass through.  ``hoisted`` goes to #8
+    (``chunk_len``, ``max_chunk_len``, ``chunks``).  The counterpart of the
+    reference's ``batched_occupancy_round_tiles``
     (src/repro/kernels/prop_round.py:878), which launches no kernel of its
     own."""
     best_l, best_u = batched_fused_scatter_round_tiles(
-        val, col, is_int_g, lhs_g, rhs_g, lb, ub, tile_inst, occupied, n_pad, int_eps, inf
+        val, col, is_int_g, lhs_g, rhs_g, lb, ub, tile_inst, occupied, n_pad, int_eps, inf,
+        acc=acc, **hoisted,
     )
     return apply_updates_batch_tiles(lb, ub, best_l, best_u, occupied, eps, inf, outward)
 
@@ -822,8 +852,8 @@ def apply_updates_batch_tiles(
     PLACE: ``(B, n_pad)`` ``lb``/``ub`` are overwritten and returned with a
     ``(B,)`` bool ``changed``.  Inactive rows are neither read nor written
     and report unchanged.  The active rows of ``best_l``/``best_u`` are set
-    back to the sentinels once read (#10's planes are kept for the whole
-    fixed point).
+    back to the sentinels once read (the planes of #8 and #10 are kept for
+    the whole fixed point).
 
     Replaces ``apply_updates_batch_tiles`` / ``_apply_updates_batch_kernel``
     (src/repro/kernels/prop_round.py:1666 / :1652), whose bound buffers are
@@ -1195,44 +1225,64 @@ def node_slab_round_tiles(
     val, col_s, is_int_g, row_done, str_min_fin, str_min_cnt, str_max_fin, str_max_cnt,
     lhs_g, rhs_g, run_start, run_len, run_slab, active, lb, ub, slab: int, max_run_len: int,
     eps: float, int_eps: float, inf: float = INF, outward: float = 0.0,
+    *, acc, tile_slab, chunk_len=None, max_chunk_len: int | None = None,
 ):
     """The slab round over a node batch, IN PLACE: ONE instance's ``(T'',
     R, K)`` copies + ``(B, T'', R)`` per-node straddle aggregates + shared
     ``row_done`` / sides / run maps + ``(B, W)`` per-node planes + ``(B,)``
     ``active`` -> the planes, updated, and ``(B, n_runs)`` int32 changed
     flags.  Per node exactly :func:`batched_slab_round_tiles` at ``B ==
-    1``; inactive nodes pass through.
+    1``; inactive nodes pass through.  ``acc`` is the pair of ``(B, W)``
+    accumulator planes (:func:`accumulator_planes`; sentinels in every
+    active row), scattered into and set back to the sentinels by the merge;
+    ``tile_slab`` the copy tiles' slabs, ``chunk_len`` the copy stream's
+    chunk lengths and ``max_chunk_len`` the longest, all hoisted by the
+    partition (the last two computed from ``val``, and K, when omitted).
 
     Replaces ``node_slab_round_tiles`` / ``_node_slab_round_kernel``
     (src/repro/kernels/prop_round.py:1498 / :1443).  Bound on the H100: the
-    copy stream once per launch, plus per active node the window bounds
-    read and written, 24 B of straddle aggregates per chunk and the
-    accumulator rows written and read once.  Design: #12's two launches;
-    the scatter ballots the mask 32 nodes per warp and visits the active
-    nodes only; #15's merge skips the inactive rows (counted as #15's
-    launch)."""
+    copy stream once per launch (``val`` at the kept nonzeros, each copy
+    stopped at its length, or at every slot, the bound beside it; ``col_s``
+    and ``is_int_g`` per kept nonzero; 20 B of length, ``row_done`` and
+    sides per chunk), plus per active node 24 B of straddle aggregates per
+    straddle chunk, the window bounds read and written, and the accumulator
+    rows written and read once.  Design: #12's two launches.  The scatter
+    is node-major, as #10 is: each block ballots the mask into shared
+    memory and walks (active node, chunk block) items node by node over a
+    grid of at most the resident blocks; each item runs #12's chunk round
+    (the window from ``tile_slab``, no search over the runs; each nonzero's
+    bounds gathered once and held; chunks stopped at their length; 64-bit
+    integer reductions) into the kept planes; #15's merge skips the
+    inactive rows and hands the active ones back (counted as #15's
+    launch).  No plane is allocated or filled per launch."""
     strs = (str_min_fin, str_min_cnt, str_max_fin, str_max_cnt)
     operands = (val, col_s, is_int_g, row_done, *strs, lhs_g, rhs_g, run_start, run_len,
-                run_slab, active, lb, ub)
+                run_slab, active, lb, ub, *acc, tile_slab)
     if not _on_cuda(*operands):
-        new_lb, new_ub, ch = ref.node_slab_round_ref(
-            *operands, slab, max_run_len, eps, int_eps, inf, outward
-        )
+        best_l, best_u = _fold(acc, ref.node_slab_scatter_ref(
+            val, col_s, is_int_g, row_done, *strs, lhs_g, rhs_g, run_start, run_slab, active,
+            lb, ub, slab, int_eps, inf,
+        ))
+        new_lb, new_ub, flags = ref.apply_updates_slab_ref(lb, ub, best_l, best_u, active, slab,
+                                                           eps, inf, outward)
+        _hand_back(best_l, best_u, active, inf)
         lb.copy_(new_lb)
         ub.copy_(new_ub)
-        return lb, ub, ch
+        return lb, ub, flags
     bsz = lb.shape[0]
     t, r, k, bsz, width = _check_round(val, col_s, is_int_g, row_done, lhs_g, rhs_g, strs,
                                        (bsz,), lb, ub, active)
     n_runs = _check_runs(t, run_start=run_start, run_len=run_len, run_slab=run_slab)
     if n_runs != _n_slabs(width, slab):
         raise ValueError(f"{n_runs} runs, expected one per slab ({_n_slabs(width, slab)})")
-    best_l = torch.full((bsz, width), -inf, dtype=torch.float64, device=val.device)
-    best_u = torch.full((bsz, width), inf, dtype=torch.float64, device=val.device)
+    best_l, best_u = acc
+    _check_planes(bsz, width, best_l=best_l, best_u=best_u)
+    _expect("tile_slab", tile_slab, torch.int32, (t,))
+    clen = _chunk_len(val, chunk_len)
     err = _build.lib().node_slab_scatter(
-        _p(val), _p(col_s), _p(is_int_g), _p(row_done), *map(_p, strs), _p(lhs_g), _p(rhs_g),
-        _p(run_start), _p(run_slab), _p(active), _p(lb), _p(ub), _p(best_l), _p(best_u),
-        n_runs, t * r, r, k, bsz, width, slab, int_eps, inf, _stream(),
+        _p(val), _p(col_s), _p(is_int_g), _p(clen), _p(row_done), *map(_p, strs), _p(lhs_g),
+        _p(rhs_g), _p(tile_slab), _p(active), _p(lb), _p(ub), _p(best_l), _p(best_u), t * r, r,
+        k, _max_len(k, max_chunk_len), bsz, width, slab, int_eps, inf, _stream(),
     )
     node_slab_round_tiles.launches += 1
     _build.check(err, "node_slab_scatter")
@@ -1252,7 +1302,8 @@ def apply_updates_slab_tiles(
     and ``(B,)`` bool per-instance changed flags (the per-window flags
     OR-ed).  ``bounds.apply_updates`` semantics; inactive rows pass
     through.  The active rows of ``best_l``/``best_u`` are set back to the
-    sentinels once read (#12's planes are kept for the whole fixed point).
+    sentinels once read (the planes of #12 and #14 are kept for the whole
+    fixed point).
 
     Replaces ``apply_updates_slab_tiles`` / ``_apply_updates_slab_kernel``
     (src/repro/kernels/prop_round.py:1595 / :1581).  The same kernel is the

@@ -411,6 +411,16 @@ def global_columns(col, tile_inst, n_pad: int):
     return col.long() + tile_inst.long()[:, None, None] * n_pad
 
 
+def instance_chunks(tile_inst, tile_rows: int, batch: int):
+    """``(B + 1,)`` int64 chunk ranges of a flat stream whose tiles of one
+    instance are contiguous and in instance order (``tile_inst`` non-
+    decreasing, as packing and the service's slots lay them out): instance
+    ``i`` owns chunks ``[start[i], start[i + 1])``, an instance without
+    tiles an empty range.  Kernel #8 walks the active instances' ranges."""
+    bounds = torch.arange(batch + 1, dtype=torch.int32, device=tile_inst.device)
+    return torch.searchsorted(tile_inst.contiguous(), bounds).to(torch.int64) * tile_rows
+
+
 def batched_scatter_round_ref(lcand, ucand, col_g, batch: int, n_pad: int, inf: float = INF):
     """Column reduction over a whole packed batch -> ``(B, n_pad)`` best_l /
     best_u, sentinel where a column has no candidate."""
@@ -607,17 +617,16 @@ def node_slab_partials_ref(val, col_s, run_start, run_len, run_slab, active, lb,
     return tuple(outs)
 
 
-def node_slab_round_ref(
+def node_slab_scatter_ref(
     val, col_s, is_int_g, row_done, str_min_fin, str_min_cnt, str_max_fin, str_max_cnt,
-    lhs_g, rhs_g, run_start, run_len, run_slab, active, lb, ub, slab: int, max_run_len: int,
-    eps: float, int_eps: float, inf: float = INF, outward: float = 0.0,
+    lhs_g, rhs_g, run_start, run_slab, active, lb, ub, slab: int, int_eps: float,
+    inf: float = INF,
 ):
-    """Kernel #14 oracle: #12 per node of ONE instance's copies, with
-    ``(B, T'', R)`` per-node straddle aggregates and ``(B, W)`` per-node
-    planes.  Returns ``(new_lb, new_ub, changed)``, ``changed`` ``(B,
-    n_runs)`` int32; inactive nodes pass through unchanged.  Only active
-    nodes are computed, one at a time."""
-    del run_len, max_run_len
+    """The scatter of #14: #12's scatter per node of ONE instance's copies,
+    with ``(B, T'', R)`` per-node straddle aggregates and ``(B, W)``
+    per-node planes -> ``(B, W)`` ``best_l`` / ``best_u``, the sentinels in
+    the rows of inactive nodes.  Only active nodes are computed, one at a
+    time."""
     bsz, width = lb.shape
     _, off = _copy_windows(run_start, None, run_slab, val.shape[0], width, slab)
     best_l = torch.full_like(lb, -inf)
@@ -628,6 +637,22 @@ def node_slab_round_ref(
             str_max_cnt[b], lhs_g, rhs_g, off, lb[b], ub[b], int_eps, inf,
         )
         best_l[b], best_u[b] = scatter_round_ref(lcand, ucand, c, width, inf)
+    return best_l, best_u
+
+
+def node_slab_round_ref(
+    val, col_s, is_int_g, row_done, str_min_fin, str_min_cnt, str_max_fin, str_max_cnt,
+    lhs_g, rhs_g, run_start, run_len, run_slab, active, lb, ub, slab: int, max_run_len: int,
+    eps: float, int_eps: float, inf: float = INF, outward: float = 0.0,
+):
+    """Kernel #14 oracle: :func:`node_slab_scatter_ref`, then the window
+    merge.  Returns ``(new_lb, new_ub, changed)``, ``changed`` ``(B,
+    n_runs)`` int32; inactive nodes pass through unchanged."""
+    del run_len, max_run_len
+    best_l, best_u = node_slab_scatter_ref(
+        val, col_s, is_int_g, row_done, str_min_fin, str_min_cnt, str_max_fin, str_max_cnt,
+        lhs_g, rhs_g, run_start, run_slab, active, lb, ub, slab, int_eps, inf,
+    )
     return apply_updates_slab_ref(lb, ub, best_l, best_u, active, slab, eps, inf, outward)
 
 

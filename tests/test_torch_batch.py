@@ -26,6 +26,7 @@ from repro.kernels import ref as rref
 import repro_torch as rt
 from repro_torch.core import INF, batch_stats, pack_problems
 from repro_torch.kernels import (
+    accumulator_planes,
     batched_fused_scatter_round_tiles,
     batched_occupancy_round_tiles,
     cache_info,
@@ -192,7 +193,8 @@ def test_batched_fused_round_matches_reference_kernel(rng, sizes, n, mask, integ
     j, t = jnp.asarray, torch.from_numpy
     reset_launch_counts()
     got = batched_fused_scatter_round_tiles(t(val), t(col), t(ii), t(lhs), t(rhs), t(lb),
-                                            t(ub), t(tile_inst), t(active), n_pad, 1e-6)
+                                            t(ub), t(tile_inst), t(active), n_pad, 1e-6,
+                                            acc=accumulator_planes(t(lb)))
     assert set(launch_counts().values()) == {0}  # CPU tensors: the plain version
     want = r_batched_round(j(val), j(col), j(ii != 0), j(lhs), j(rhs), j(lb), j(ub),
                            j(tile_inst), j(active), n_pad, int_eps=1e-6, interpret=True)
@@ -226,15 +228,19 @@ def test_occupancy_round_is_fused_round_then_masked_merge(rng):
     t = torch.from_numpy
     occ = t(np.array([True, False, True]))
     best_l, best_u = batched_fused_scatter_round_tiles(
-        t(val), t(col), t(ii), t(lhs), t(rhs), t(lb), t(ub), t(tile_inst), occ, n_pad, 1e-6)
+        t(val), t(col), t(ii), t(lhs), t(rhs), t(lb), t(ub), t(tile_inst), occ, n_pad, 1e-6,
+        acc=accumulator_planes(t(lb)))
     want = rt.core.apply_updates_batch(t(lb), t(ub), best_l, best_u, 1e-9, active=occ)
     lbw, ubw = t(lb.copy()), t(ub.copy())
+    acc = accumulator_planes(lbw)
     got = batched_occupancy_round_tiles(t(val), t(col), t(ii), t(lhs), t(rhs), lbw, ubw,
-                                        t(tile_inst), occ, n_pad, 1e-9, 1e-6)
+                                        t(tile_inst), occ, n_pad, 1e-9, 1e-6, acc=acc)
     assert got[0] is lbw and got[1] is ubw  # in place
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w.numpy())
     np.testing.assert_array_equal(got[0][1].numpy(), lb[1])
+    # #9 hands the kept planes back at the sentinels.
+    assert (acc[0] == -INF).all() and (acc[1] == INF).all()
 
 
 @pytest.mark.parametrize("integer", [True, False], ids=["int", "float"])
@@ -309,6 +315,61 @@ def test_propagate_batch_matches_reference_pallas_path():
         rd.make_set_cover(n=60, m=22, seed=9), rd.make_cascade_chain(16)]
     want = rc.propagate_batch(probs, use_pallas=True, interpret=True)
     _assert_matches(rt.propagate_batch(_port(probs), device="cpu"), want, True)
+
+
+KEPT_BUCKETS = {
+    # Fits-one-chunk buckets (#8 into kept planes, then #9) whose instances
+    # converge at different rounds.
+    "knapsack": (lambda: [rd.make_knapsack(n=30, m=30, seed=s) for s in range(3)]
+                 + [rd.make_cascade_chain(7)], True),
+    "set_cover": (lambda: [rd.make_set_cover(n=60, m=20 + s, seed=s) for s in range(3)]
+                  + [rd.make_cascade_chain(7)], True),
+    "cascade_chain": (lambda: [rd.make_cascade_chain(16), rd.make_cascade_chain(7),
+                               _free_problem()], True),
+    "mixed": (lambda: [rd.make_mixed(m=40, n=50, seed=s) for s in range(3)]
+              + [_free_problem()], False),
+}
+
+
+@pytest.mark.parametrize("name", list(KEPT_BUCKETS))
+def test_fused_bucket_with_kept_planes_matches_reference(name):
+    """``propagate_batch`` on a bucket whose rows fit one chunk, on the
+    port's kernel path (#8 scattering into the closure's kept planes, over
+    the hoisted instance chunk ranges, #9 handing them back), against the
+    reference's ``propagate_batch``, while the mask changes between rounds."""
+    make, exact = KEPT_BUCKETS[name]
+    probs = make()
+    want = rc.propagate_batch(probs, tile_rows=8, tile_width=64, use_pallas=False)
+    ports = _port(probs)
+    (batch,) = pack_problems(ports, tile_rows=8, tile_width=64)
+    assert tops.prepare_problem_batch(batch, device="cpu").fits_one_chunk
+    reset_launch_counts()
+    got = rt.propagate_batch(ports, tile_rows=8, tile_width=64, device="cpu")
+    assert set(launch_counts().values()) == {0}  # CPU tensors: the plain versions
+    assert len({int(r.rounds) for r in got}) > 1
+    if exact:
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.lb.numpy(), np.asarray(w.lb))
+            np.testing.assert_array_equal(g.ub.numpy(), np.asarray(w.ub))
+    _assert_matches(got, want, exact)
+
+
+def test_fused_service_with_kept_planes_matches_reference_service():
+    """Retire and backfill through two slots of a fits-one-chunk bucket (#8
+    into the engine's kept planes): every ticket against the reference's
+    service, bitwise on integer data, with the same rounds and verdicts."""
+    probs = [rd.make_knapsack(n=60, m=12 + 2 * s, seed=s) for s in range(5)]
+    svc = rt.PropagationService.from_problems(_port(probs), slots=2, tile_width=128,
+                                              device="cpu")
+    assert svc._buckets[0].spec.fits_one_chunk
+    got = svc.serve(_port(probs))
+    want = rc.PropagationService.from_problems(probs, slots=2, tile_width=128).serve(probs)
+    assert svc.stats()["retired"] == len(probs)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.lb.numpy(), np.asarray(w.lb))
+        np.testing.assert_array_equal(g.ub.numpy(), np.asarray(w.ub))
+        for f in ("rounds", "converged", "infeasible"):
+            assert int(getattr(g, f)) == int(np.asarray(getattr(w, f))), f
 
 
 @pytest.fixture

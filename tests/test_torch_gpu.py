@@ -627,9 +627,13 @@ def test_node_slab_kernels_match_plain_versions(cuda, gen, gen_name, kw, tile_wi
                   part.rhs_g, part.run_start, part.run_len, part.run_slab, act)
         want = tref.node_slab_round_ref(*r_args, lb, ub, slab, part.max_run_len, 1e-9, 1e-6)
         glb, gub = lb.clone(), ub.clone()
-        got = tk.node_slab_round_tiles(*r_args, glb, gub, slab, part.max_run_len, 1e-9, 1e-6)
+        acc = tk.accumulator_planes(lb)
+        got = tk.node_slab_round_tiles(*r_args, glb, gub, slab, part.max_run_len, 1e-9, 1e-6,
+                                       acc=acc, tile_slab=part.tile_slab,
+                                       chunk_len=part.chunk_len)
         for g, w in zip(got, want):
             _match(g, w)
+        assert _clean(acc)
         # Each active node equals the single-instance kernels on its plane.
         for i in act.nonzero().flatten().tolist()[:3]:
             one = tk.batched_slab_partials_tiles(
@@ -814,7 +818,8 @@ def test_batched_fused_kernel_matches_plain_version(cuda, gen, sizes, r, k, n, m
                            "off": [False] * 3}[mask], device=cuda)
     tk.reset_launch_counts()
     got = tk.batched_fused_scatter_round_tiles(val, col, ii, lhs, rhs, lb, ub, tile_inst,
-                                               active, n_pad, 1e-6)
+                                               active, n_pad, 1e-6,
+                                               acc=tk.accumulator_planes(lb))
     assert tk.launch_counts()["batched_fused_scatter_round_tiles"] == 1
     want = tref.batched_fused_scatter_round_ref(
         val, tref.global_columns(col, tile_inst, n_pad), ii, lhs, rhs, lb, ub, n_pad, 1e-6,
@@ -830,12 +835,14 @@ def test_batched_fused_kernel_matches_plain_version(cuda, gen, sizes, r, k, n, m
         _match(got[0][i], one[0])
         _match(got[1][i], one[1])
     lbw, ubw = lb.clone(), ub.clone()
+    acc = tk.accumulator_planes(lb)
     occ = tk.batched_occupancy_round_tiles(val, col, ii, lhs, rhs, lbw, ubw, tile_inst, active,
-                                           n_pad, 1e-9, 1e-6)
+                                           n_pad, 1e-9, 1e-6, acc=acc)
     merged = rt.core.apply_updates_batch(lb, ub, *want, 1e-9, active=active)
     assert occ[0] is lbw and tk.launch_counts()["apply_updates_batch_tiles"] == 1
     for g, w in zip(occ, merged):
         _match(g, w)
+    assert _clean(acc)
 
 
 BATCHES = [
@@ -1204,4 +1211,221 @@ def test_search_and_partitioned_batch_keep_planes_on_card(cuda, small_limit):
         one = rt.propagate_block_ell(p_, tile_width=8)
         _match(g.lb, one.lb)
         _match(g.ub, one.ub)
+    ops.clear_batch_caches()
+
+
+# ---------------------------------------------------------------------------
+# #8 and #14: the active-only walks, into kept planes
+# ---------------------------------------------------------------------------
+
+# Active masks over B planes: none, one, some, all, and one that is not
+# contiguous (every third plane, and the last).
+WALK_MASKS = ("none", "one", "some", "all", "gaps")
+
+
+def _walk_mask(bsz, kind, dev):
+    act = torch.zeros(bsz, dtype=torch.bool, device=dev)
+    if kind == "one":
+        act[bsz // 2] = True
+    elif kind == "some":
+        act[: max(1, bsz // 3)] = True
+    elif kind == "all":
+        act[:] = True
+    elif kind == "gaps":
+        act[::3] = True
+        act[-1] = True
+    return act
+
+
+@pytest.mark.parametrize("k", [1, 2, 4, 8, 16, 32, 128])
+@pytest.mark.parametrize("bsz", [1, 5, 40])
+def test_batched_fused_walk_matches_plain_version(cuda, gen, k, bsz):
+    """#8 at every group width (K = 1 to 128), over instances of different
+    sizes (one without tiles), with none, one, some, all and a
+    non-contiguous set of instances active, the strides held as the hoisted
+    longest chunk says, as K says and one (U = 1, 2, 4 at K = 128), one
+    pair of planes kept across the masks and handed back by #9 each time:
+    bitwise equal to its plain version, each active row to kernel D on its
+    instance's own tiles."""
+    sizes = [int(x) for x in gen.integers(1, 6, size=bsz)]
+    if bsz > 1:
+        sizes[1] = 0
+    r = 4
+    xs = [_tiles(gen, s, r, k, 300, bool(i % 2), cuda) for i, s in enumerate(sizes)]
+    n_pad = xs[0]["n_pad"]
+    for x in xs:
+        if x["val"].shape[0]:
+            x["val"][0, 0, (k + 1) // 2 :] = 0.0  # a chunk that stops short of K
+            x["col"][0, 0, (k + 1) // 2 :] = 0
+    cat = lambda f: torch.cat([x[f] for x in xs])
+    val, col, ii, lhs, rhs = cat("val"), cat("col"), cat("ii"), cat("lhs"), cat("rhs")
+    lb = torch.stack([x["lb"] for x in xs])
+    ub = torch.stack([x["ub"] for x in xs])
+    tile_inst = torch.repeat_interleave(torch.arange(bsz, dtype=torch.int32, device=cuda),
+                                        torch.tensor(sizes, device=cuda))
+    clen = tref.chunk_lengths(val)
+    chunks = tref.instance_chunks(tile_inst, r, bsz)
+    _match(chunks, torch.tensor(np.concatenate([[0], np.cumsum(sizes)]) * r, device=cuda))
+    acc = tk.accumulator_planes(lb)
+    hints = [int(clen.max()), None, 1, 33, 65]
+    for j, kind in enumerate(WALK_MASKS):
+        act = _walk_mask(bsz, kind, cuda)
+        args = (val, col, ii, lhs, rhs, lb, ub, tile_inst, act, n_pad, 1e-6)
+        tk.reset_launch_counts()
+        got = tk.batched_fused_scatter_round_tiles(*args, acc=acc, chunk_len=clen,
+                                                   max_chunk_len=hints[j], chunks=chunks)
+        assert tk.launch_counts()["batched_fused_scatter_round_tiles"] == 1
+        want = tref.batched_fused_scatter_round_ref(
+            val, tref.global_columns(col, tile_inst, n_pad), ii, lhs, rhs, lb, ub, n_pad, 1e-6,
+            active=act)
+        for g, w in zip(got, want):
+            _match(g, w)
+        for i in act.nonzero().flatten().tolist()[:3]:
+            x = xs[i]
+            if sizes[i] == 0:  # no tiles: its rows stay at the sentinels (held above)
+                continue
+            one = tk.fused_scatter_round_tiles(x["val"], x["col"], x["ii"], x["lhs"], x["rhs"],
+                                               x["lb"], x["ub"], n_pad, 1e-6)
+            _match(got[0][i], one[0])
+            _match(got[1][i], one[1])
+        want_m = rt.core.apply_updates_batch(lb, ub, *want, 1e-9, active=act)
+        glb, gub = lb.clone(), ub.clone()
+        for g, w in zip(tk.apply_updates_batch_tiles(glb, gub, *acc, act, 1e-9), want_m):
+            _match(g, w)
+        assert _clean(acc)
+
+
+def test_batched_fused_computes_what_it_is_not_given(cuda, gen):
+    """#8 without the hoisted chunk ranges and lengths computes them from
+    ``tile_inst`` and ``val``, and refuses a stream whose instances' tiles
+    are not contiguous."""
+    sizes = [3, 2, 4]
+    xs = [_tiles(gen, s, 4, 8, 200, True, cuda) for s in sizes]
+    val, col, ii, lhs, rhs = (torch.cat([x[f] for x in xs])
+                              for f in ("val", "col", "ii", "lhs", "rhs"))
+    lb = torch.stack([x["lb"] for x in xs])
+    ub = torch.stack([x["ub"] for x in xs])
+    n_pad = xs[0]["n_pad"]
+    tile_inst = torch.tensor([0, 0, 0, 1, 1, 2, 2, 2, 2], dtype=torch.int32, device=cuda)
+    act = torch.ones(3, dtype=torch.bool, device=cuda)
+    args = (val, col, ii, lhs, rhs, lb, ub, tile_inst, act, n_pad, 1e-6)
+    got = tk.batched_fused_scatter_round_tiles(*args, acc=tk.accumulator_planes(lb))
+    want = tref.batched_fused_scatter_round_ref(
+        val, tref.global_columns(col, tile_inst, n_pad), ii, lhs, rhs, lb, ub, n_pad, 1e-6)
+    for g, w in zip(got, want):
+        _match(g, w)
+    shuffled = tile_inst.flip(0).contiguous()
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.batched_fused_scatter_round_tiles(val, col, ii, lhs, rhs, lb, ub, shuffled, act,
+                                             n_pad, 1e-6, acc=tk.accumulator_planes(lb))
+
+
+@pytest.mark.parametrize("tile_width", [1, 2, 4, 8, 16, 32, 128])
+def test_node_slab_walk_matches_plain_version(cuda, gen, tile_width):
+    """#14 at every group width (the copy stream of a knapsack at K = 1 to
+    128, its rows straddling every slab), over 40 node planes with none,
+    one, some, all and a non-contiguous set of nodes active, the strides
+    held as the hoisted longest copy says, as K says and one, two or four,
+    one pair of planes kept across the masks and handed back by #15: bitwise
+    equal to its plain version, the window flags too, each active node to
+    #12 on its own plane."""
+    p = td.make_knapsack(n=600, m=10, seed=4)
+    prep = rt.prepare_block_ell(p, tile_rows=2, tile_width=tile_width)
+    part = prep.slab_partition(128)
+    assert part.has_straddle
+    bsz, width = 40, prep.n_pad
+    lb, ub = _planes(gen, bsz, width, tile_width % 2 == 0, cuda)
+    acc = tk.accumulator_planes(lb)
+    hints = [part.max_chunk_len, None, 1, 33, 65]
+    for j, kind in enumerate(WALK_MASKS):
+        act = _walk_mask(bsz, kind, cuda)
+        partials = tref.node_slab_partials_ref(
+            part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_slab, act,
+            lb, ub, part.slab, part.a_max_run_len)
+        strs = tref.straddle_combine_ref(*partials, part.a_order, part.a_seg, part.agg_slot,
+                                         act)
+        r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g,
+                  part.rhs_g, part.run_start, part.run_len, part.run_slab, act)
+        tail = (part.slab, part.max_run_len, 1e-9, 1e-6)
+        want = tref.node_slab_round_ref(*r_args, lb, ub, *tail)
+        glb, gub = lb.clone(), ub.clone()
+        tk.reset_launch_counts()
+        got = tk.node_slab_round_tiles(*r_args, glb, gub, *tail, acc=acc,
+                                       tile_slab=part.tile_slab, chunk_len=part.chunk_len,
+                                       max_chunk_len=hints[j])
+        counts = tk.launch_counts()
+        assert counts["node_slab_round_tiles"] == counts["apply_updates_slab_tiles"] == 1
+        for g, w in zip(got, want):
+            _match(g, w)
+        assert _clean(acc)
+        for i in act.nonzero().flatten().tolist()[:2]:
+            one = tref.batched_slab_round_ref(
+                part.val, part.col_s, part.ii_g, part.row_done, *(x[i] for x in strs),
+                part.lhs_g, part.rhs_g, part.run_start, part.run_len, part.run_inst,
+                part.run_slab, act[i : i + 1], lb[i : i + 1], ub[i : i + 1], *tail)
+            _match(got[0][i], one[0][0])
+            _match(got[1][i], one[1][0])
+
+
+def test_fixed_points_leave_kept_planes_clean_on_card(cuda, small_limit):
+    """Whole fixed points whose active mask changes from round to round:
+    ``propagate_batch`` on a fused bucket (#8 + #9), the service's fused
+    bucket (#8 + #9 from the engine's planes) and a ``solve`` past the
+    limit (#14 + #15), each equal to its plain path and with the launch
+    counts of its rounds; the closures' and the engine's planes are all at
+    the sentinels afterwards."""
+    from repro_torch.kernels import ops
+
+    ops.SCATTER_MAX_NPAD = 1 << 16
+    ops.clear_batch_caches()
+    probs = [td.make_pseudo_boolean(n=3000, m=m, seed=s)
+             for s, m in enumerate((4000, 2500, 3500))]
+    (batch,) = ops.packed_problems(probs, 8, 128)
+    prep = ops.prepare_problem_batch(batch)
+    assert prep.fits_one_chunk
+    _match(prep.d.chunks, tref.instance_chunks(prep.d.tile_inst, 8, 3))
+    assert prep.max_chunk_len == int(prep.d.chunk_len.max())
+    round_fn = ops.batched_round_fn_for(prep)
+    plain_fn = ops.batched_round_fn_for(prep, use_kernels=False)
+    lb, ub = prep.d.lb0.clone(), prep.d.ub0.clone()
+    plb, pub = lb.clone(), ub.clone()
+    act = torch.ones(3, dtype=torch.bool, device=cuda)
+    tk.reset_launch_counts()
+    rounds = 0
+    while bool(act.any()):
+        lb, ub, ch = round_fn(lb, ub, act)
+        plb, pub, pch = plain_fn(plb, pub, act)
+        _match(lb, plb)
+        _match(ch, pch)
+        assert _clean(round_fn.kept.planes)
+        act = act & ch
+        rounds += 1
+    counts = tk.launch_counts()
+    assert counts["batched_fused_scatter_round_tiles"] == counts[
+        "apply_updates_batch_tiles"] == rounds > 1
+
+    svc = rt.PropagationService.from_problems(probs, slots=2, tile_width=128)
+    results = svc.serve(probs)
+    for p, r in zip(probs, results):
+        one = rt.propagate_batch([p], tile_width=128)[0]
+        _match(r.lb.to(cuda), one.lb)
+        _match(r.ub.to(cuda), one.ub)
+    engines = {id(bk.engine): bk.engine for bk in svc._buckets}
+    assert engines and all(_clean(e.kept.planes) for e in engines.values())
+
+    ops.SCATTER_MAX_NPAD = 128
+    ops.clear_prepare_cache()
+    p = td.make_pseudo_boolean(n=300, m=420, seed=3, unit_frac=0.002)
+    c = np.arange(1, p.n + 1, dtype=np.float64) * np.where(np.arange(p.n) % 3 == 0, -1.0, 1.0)
+    tk.reset_launch_counts()
+    a = rt.solve(p, c, node_cap=64, expand_width=4, max_levels=6, tile_width=8)
+    counts = tk.launch_counts()
+    assert counts["node_slab_round_tiles"] > 0 and counts["node_fused_scatter_round_tiles"] == 0
+    assert counts["apply_updates_slab_tiles"] == counts["node_slab_round_tiles"]
+    b = rt.solve(p, c, node_cap=64, expand_width=4, max_levels=6, tile_width=8,
+                 use_kernels=False)
+    for f in ("status", "objective", "nodes_expanded", "nodes_created", "leaves", "levels",
+              "host_syncs", "incumbent_trajectory"):
+        assert getattr(a, f) == getattr(b, f), f
+    ops.clear_prepare_cache()
     ops.clear_batch_caches()

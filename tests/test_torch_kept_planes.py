@@ -1,13 +1,15 @@
-"""The accumulator planes that kernels #10 and #12 scatter into, kept by the
-round closures for a whole fixed point, on the CPU (where the wrappers run
-their plain versions through the same ownership logic as on the card): the
-merges #9 and #15 hand the active rows back at the sentinels, the scatters
-fold into what the planes hold, the closures' planes are clean after every
-round while the active mask changes, and the engines that use them still
-match the reference's ``propagate_nodes``, ``solve`` and partitioned
-``propagate_block_ell`` / ``propagate_batch``.  Also the copy stream's
-hoisted chunk lengths and tile maps, which #12 now reads instead of
-searching the runs.
+"""The accumulator planes that kernels #8, #10, #12 and #14 scatter into,
+kept by the round closures (and the service's bucket engines) for a whole
+fixed point, on the CPU (where the wrappers run their plain versions
+through the same ownership logic as on the card): the merges #9 and #15
+hand the active rows back at the sentinels, the scatters fold into what the
+planes hold, the closures' planes are clean after every round while the
+active mask changes, and the engines that use them still match the
+reference's ``propagate_nodes``, ``solve`` and partitioned
+``propagate_block_ell`` / ``propagate_batch``.  Also what the engines hoist
+for those kernels: the copy stream's chunk lengths and tile maps (#12, #14),
+a packed bucket's instance chunk ranges and longest chunk (#8), and the
+service's chunk lengths, kept current at each admission.
 
 Contract: bounds bitwise (as values) on integer-valued data, ``rtol=1e-12``
 on general floats against the reference (another summation order), bitwise
@@ -27,8 +29,10 @@ from repro_torch.kernels import (
     accumulator_planes,
     apply_updates_batch_tiles,
     apply_updates_slab_tiles,
+    batched_fused_scatter_round_tiles,
     batched_slab_round_tiles,
     node_fused_scatter_round_tiles,
+    node_slab_round_tiles,
     ops as tops,
     ref as tref,
 )
@@ -220,6 +224,131 @@ def test_plain_slab_round_hands_its_planes_back(name, kind):
         lb, ub = glb, gub
 
 
+@pytest.mark.parametrize("kind", ["on", "off", "mixed"])
+def test_plain_batched_fused_round_folds_into_the_planes(kind):
+    """#8's plain version scatters into the planes it is given: clean active
+    rows end as the oracle's rows, inactive rows are not touched, and a
+    dirty active row (a plane not handed back) shows in the result."""
+    rng = np.random.default_rng(3)
+    problems = [rt.problem_from_reference(rd.make_knapsack(n=40, m=10, seed=s))
+                for s in range(3)]
+    (batch,) = tops.packed_problems(problems, 4, 64)
+    prep = tops.prepare_problem_batch(batch, device="cpu")
+    assert prep.fits_one_chunk
+    d, n_pad = prep.d, prep.n_pad
+    act = _mask(3, kind)
+    args = (d.val, d.col, d.ii_g, d.lhs_g, d.rhs_g, d.lb0, d.ub0, d.tile_inst, act, n_pad,
+            INT_EPS)
+    want = tref.batched_fused_scatter_round_ref(
+        d.val, d.col_g, d.ii_g, d.lhs_g, d.rhs_g, d.lb0, d.ub0, n_pad, INT_EPS, active=act)
+    acc = accumulator_planes(d.lb0)
+    junk = _t(rng.uniform(-3, 3, size=(3, n_pad)))
+    acc[0][~act] = junk[~act]
+    got = batched_fused_scatter_round_tiles(*args, acc=acc, chunk_len=d.chunk_len,
+                                            max_chunk_len=prep.max_chunk_len, chunks=d.chunks)
+    assert got[0] is acc[0] and got[1] is acc[1]
+    assert torch.equal(got[0][act], want[0][act]) and torch.equal(got[1][act], want[1][act])
+    assert torch.equal(got[0][~act], junk[~act]) and (got[1][~act] == INF).all()
+    if act.any():
+        dirty = accumulator_planes(d.lb0)
+        dirty[0][act] = INF / 2
+        batched_fused_scatter_round_tiles(*args, acc=dirty)
+        assert not torch.equal(dirty[0][act], want[0][act])
+
+
+@pytest.mark.parametrize("kind", ["on", "off", "mixed"])
+def test_plain_node_slab_round_hands_its_planes_back(kind):
+    """#14's plain version folds into the planes, merges and hands the
+    active rows back: the planes are clean after the round, and rounds on
+    them equal the oracle's rounds."""
+    rng = np.random.default_rng(4)
+    part = _partition("knapsack")
+    bsz = 5
+    lb, ub = _planes(rng, bsz, part.n_pad_part, True)
+    act = _mask(bsz, kind)
+    shape = (bsz, *part.chunk_row.shape)
+    strs = (_t(rng.integers(-3, 3, size=shape).astype(np.float64)),
+            _t(rng.integers(0, 2, size=shape).astype(np.int32)),
+            _t(rng.integers(-3, 3, size=shape).astype(np.float64)),
+            _t(rng.integers(0, 2, size=shape).astype(np.int32)))
+    r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
+              part.run_start, part.run_len, part.run_slab, act)
+    tail = (part.slab, part.max_run_len, EPS, INT_EPS)
+    acc = accumulator_planes(lb)
+    for _ in range(2):
+        want = tref.node_slab_round_ref(*r_args, lb, ub, *tail)
+        glb, gub = lb.clone(), ub.clone()
+        got = node_slab_round_tiles(*r_args, glb, gub, *tail, acc=acc, tile_slab=part.tile_slab,
+                                    chunk_len=part.chunk_len, max_chunk_len=part.max_chunk_len)
+        assert got[0] is glb and got[1] is gub
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert _is_clean(acc)
+        lb, ub = glb, gub
+
+
+# ---------------------------------------------------------------------------
+# What the engines hoist for #8: chunk ranges, lengths, the longest chunk
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("gen,kw,tile", [
+    ("make_knapsack", dict(n=40, m=10), (4, 64)),
+    ("make_set_cover", dict(n=60, m=20), (2, 8)),
+    ("make_mixed", dict(m=25, n=60), (8, 16)),
+])
+def test_batch_hoists_instance_chunk_ranges(gen, kw, tile):
+    """A packed bucket's instance chunk ranges and longest chunk, hoisted at
+    prepare time, against recomputation from the packed host arrays."""
+    problems = [rt.problem_from_reference(getattr(rd, gen)(**kw, seed=s)) for s in range(4)]
+    (batch,) = tops.packed_problems(problems, *tile)
+    prep = tops.prepare_problem_batch(batch, device="cpu")
+    ell = batch.ell
+    first = [int(np.flatnonzero(ell.tile_inst == i)[0]) for i in range(batch.size)]
+    want = np.array(first + [ell.num_tiles], dtype=np.int64) * ell.tile_rows
+    assert prep.d.chunks.dtype == torch.int64
+    np.testing.assert_array_equal(prep.d.chunks.numpy(), want)
+    for i in range(batch.size):  # each range holds exactly its instance's chunks
+        lo, hi = want[i] // ell.tile_rows, want[i + 1] // ell.tile_rows
+        assert (ell.tile_inst[lo:hi] == i).all()
+    lens = np.where(ell.val != 0, np.arange(1, ell.tile_width + 1), 0).max(axis=-1)
+    np.testing.assert_array_equal(prep.d.chunk_len.numpy(), lens)
+    assert prep.max_chunk_len == int(lens.max())
+
+
+@pytest.mark.parametrize("tile_width", [128, 8])
+def test_service_hoists_chunk_lengths_at_each_admission(monkeypatch, tile_width):
+    """The service's chunk lengths (fits-one-chunk buckets too) equal a
+    recomputation from the resident tiles after every admission, and its
+    longest chunk is the running maximum of the admitted payloads'."""
+    problems = [rt.problem_from_reference(rd.make_knapsack(n=40 + 10 * s, m=8 + s, seed=s))
+                for s in range(5)]
+    svc = rt.PropagationService.from_problems(problems, slots=2, tile_width=tile_width,
+                                              device="cpu")
+    (bk,) = svc._buckets
+    assert bk.spec.fits_one_chunk == (tile_width == 128)
+    engine, admitted, checks = bk.engine, [], []
+    admit = engine.admit
+
+    def checked(state, aux, payloads, slot_ids):
+        admit(state, aux, payloads, slot_ids)
+        admitted.extend(payloads)
+        assert torch.equal(aux[4], tref.chunk_lengths(state[0]))
+        longest = max(int(tref.chunk_lengths(torch.from_numpy(p.val)).max()) for p in admitted)
+        assert aux[6][0] == longest
+        checks.append(longest)
+
+    monkeypatch.setattr(engine, "admit", checked)
+    out = svc.serve(problems)
+    assert len(admitted) == len(problems) and len(checks) >= 3  # backfills happened
+    assert checks == sorted(checks)
+    if bk.spec.fits_one_chunk:  # #8 scattered into the engine's planes
+        assert _is_clean(engine.kept.planes)
+    for p, r in zip(problems, out):
+        one = rt.propagate_batch([p], tile_width=tile_width, device="cpu")[0]
+        assert torch.equal(r.lb, one.lb) and torch.equal(r.ub, one.ub)
+
+
 # ---------------------------------------------------------------------------
 # The round closures: planes clean after every round while ``active`` moves
 # ---------------------------------------------------------------------------
@@ -287,6 +416,23 @@ def test_partitioned_rounds_keep_their_planes_clean(tiny_limit):
     round_fn = tops.batched_round_fn_for(bprep)
     _drive(round_fn, tops.batched_round_fn_for(bprep, use_kernels=False),
            bprep.d.lb0.clone(), bprep.d.ub0.clone(), _masks(3, 6, 1))
+    # ... and a node batch through node_round_fn_for (#13, the straddle
+    # combine, #14 with #15).
+    lb, ub = tops._node_planes(prep, *_branched(p, 5))
+    round_fn = tops.node_round_fn_for(prep)
+    _drive(round_fn, tops.node_round_fn_for(prep, use_kernels=False), lb, ub, _masks(5, 6, 2))
+
+
+def test_fused_batch_round_keeps_its_planes_clean():
+    """#8 + #9 through batched_round_fn_for, the mask moving every round."""
+    problems = [rt.problem_from_reference(rd.make_knapsack(n=40, m=10, seed=s))
+                for s in range(4)]
+    (batch,) = tops.packed_problems(problems, 4, 64)
+    prep = tops.prepare_problem_batch(batch, device="cpu")
+    assert prep.fits_one_chunk
+    round_fn = tops.batched_round_fn_for(prep)
+    _drive(round_fn, tops.batched_round_fn_for(prep, use_kernels=False), prep.d.lb0.clone(),
+           prep.d.ub0.clone(), _masks(4, 6, 3))
 
 
 def test_a_round_that_raises_drops_its_planes(monkeypatch):
@@ -389,3 +535,42 @@ def test_partitioned_fixed_points_with_kept_planes_match_reference(tiny_limit, g
         assert torch.equal(g.lb, one.lb) and torch.equal(g.ub, one.ub)
         rounds.add(int(g.rounds))
     assert len(rounds) > 1  # the batch's active mask changed between rounds
+
+
+@pytest.mark.parametrize("gen,kw,exact", [
+    ("make_knapsack", dict(n=200, m=10, seed=3), True),
+    ("make_mixed", dict(m=25, n=260, seed=4), False),
+])
+def test_partitioned_node_batches_with_kept_planes_match_reference(tiny_limit, gen, kw, exact):
+    """The partitioned node fixed point (#13, the straddle combine, #14 into
+    the closure's kept planes, #15) against the reference's node batch."""
+    pr = getattr(rd, gen)(**kw)
+    p = rt.problem_from_reference(pr)
+    lb, ub = _branched(p, 4, seed=2)
+    want = rc.propagate_nodes(pr, lb, ub, tile_width=8, use_pallas=False)
+    got = rt.propagate_nodes(p, lb, ub, tile_width=8, device="cpu")
+    assert rt.prepare_block_ell(p, tile_width=8, device="cpu").n_pad > tops.SCATTER_MAX_NPAD
+    for f in ("rounds", "converged", "infeasible"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(want, f)))
+    if exact:
+        np.testing.assert_array_equal(got.lb.numpy(), np.asarray(want.lb))
+        np.testing.assert_array_equal(got.ub.numpy(), np.asarray(want.ub))
+    else:
+        for i in range(4):
+            assert rt.bounds_equal(got.lb[i], got.ub[i], np.asarray(want.lb[i]),
+                                   np.asarray(want.ub[i]))
+
+
+def test_partitioned_search_with_kept_planes_matches_reference(tiny_limit):
+    """A search whose node rounds run #14 into kept planes, against the
+    reference's ``solve``: every count exact."""
+    pr = rd.make_pseudo_boolean(n=200, m=260, seed=1)
+    p = rt.problem_from_reference(pr)
+    c = np.arange(1, pr.n + 1) * np.where(np.arange(pr.n) % 3 == 0, -1.0, 1.0)
+    kw = dict(node_cap=16, expand_width=2, max_levels=6, sync_every=3, tile_width=8)
+    want = rc.solve(pr, c, use_pallas=False, **kw)
+    got = rt.solve(p, c, device="cpu", **kw)
+    assert got.levels > 2
+    for f in ("status", "objective", "nodes_expanded", "nodes_created", "leaves", "levels",
+              "host_syncs", "incumbent_trajectory"):
+        assert getattr(got, f) == getattr(want, f), f

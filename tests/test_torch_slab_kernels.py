@@ -277,12 +277,15 @@ def test_node_slab_round_matches_pallas(name, bsz, kind):
         _j(ub), want_p.slab, want_p.max_run_len, EPS, INT_EPS, INF, interpret=True,
     )
     tlb, tub = _t(lb), _t(ub)
+    acc = accumulator_planes(tlb)
     got = node_slab_round_tiles(
         part.val, part.col_s, part.ii_g, part.row_done, *map(_t, aggs), part.lhs_g,
         part.rhs_g, part.run_start, part.run_len, part.run_slab, _t(act), tlb, tub, part.slab,
-        part.max_run_len, EPS, INT_EPS,
+        part.max_run_len, EPS, INT_EPS, acc=acc, tile_slab=part.tile_slab,
+        chunk_len=part.chunk_len,
     )
     assert got[0] is tlb and got[1] is tub
+    assert (acc[0] == -INF).all() and (acc[1] == INF).all()  # handed back by #15
     for g, w in zip(got, want):
         _match(g, w, integer)
     np.testing.assert_array_equal(tlb.numpy()[~act], lb[~act])

@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
-"""Time the main-path runs that kernels #10 and #12 sit on, through the
-port's public entry points only, so that two checkouts can be compared in
-one call on one card (parent, change, change, parent).
+"""Time the main-path runs that kernels #8, #10, #12 and #14 sit on, through
+the port's public entry points only, so that two checkouts can be compared
+in one call on one card (parent, change, change, parent).
 
-    python3 tools/path_times.py [--src DIR] [--reps 5]
+    python3 tools/path_times.py [--src DIR] [--reps 5] [--paths NAME,...]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's); the instances and helpers come from this
-checkout's ``chip_smoke.py``.  The runs: ``propagate_block_ell`` on
+checkout's ``chip_smoke.py``.  The runs (``--paths`` picks some by the
+first word of their name, default all): ``propagate_block_ell`` on
 ``bandw`` and ``pbw`` (the partitioned engine: #11, the straddle combine,
 #12 with #15), ``propagate_nodes`` on the 64 branched ``pbf`` nodes of
-``chip_smoke.py`` phase 6 (#10 with #9), ``solve`` on ``pbf`` with its full
-128-slot search (#10, #9, #16) and ``propagate_batch`` on ``[bandw, pbw]``
-(the batch-partitioned round).  For each it prints the result (rounds,
+``chip_smoke.py`` phase 6 (#10 with #9) and on the 16 branched ``pbw``
+nodes of phase 8 (#13, the straddle combine, #14 with #15), ``solve`` on
+``pbf`` with its full 128-slot search (#10, #9, #16) and on ``pbw`` with
+phase 8's 128-slot search (#14), ``propagate_batch`` on ``[bandw, pbw]``
+(the batch-partitioned round) and on phase 9's fused bucket ``[pb, pbf,
+banded, banded1]`` (#8 with #9), and phase 10's service stream of 24
+requests through 4 slots (#8 with #9, A', the combine and E), served
+once before the timing (construction, admission staging and the
+engines' warm-up are set-up).  For each it prints the result (rounds,
 search counts), the median wall time of ``--reps`` calls (CUDA events
 around the call, host syncs included), the device busy time of one more
 call (``torch.profiler`` device items), the idle share and the largest
@@ -34,7 +41,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--paths", default="")
     args = ap.parse_args()
+    picked = {x for x in args.paths.split(",") if x}
     import numpy as np
     import torch
 
@@ -55,33 +64,59 @@ def main() -> int:
     print(f"gpu: {smi}; port from {src}", flush=True)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
+    want = lambda *names: not picked or any(n in picked for n in names)
     wide = {name: getattr(td, gen)(**kw) for name, gen, kw in cs.WIDE_SPECS}
     pbf = td.make_pseudo_boolean(**cs.PBF)
-    root = rt.propagate_block_ell(pbf, tile_width=cs.SOLVER_TILE_WIDTH, device=dev)
-    lb_r, ub_r = root.lb.cpu().numpy(), root.ub.cpu().numpy()
-    cols = cs.most_fractional_order(np, lb_r, ub_r, pbf.is_int)[:6]
-    lb_n, ub_n = cs.branched(np, rt, lb_r, ub_r, cols)
-    c = cs.objective(np, pbf.n)
-    print(f"set-up: {time.perf_counter() - t0:.1f} s", flush=True)
+    tw = cs.SOLVER_TILE_WIDTH
+
+    def branched(p, count):
+        """``count`` branched nodes of ``p`` below its root at tile width 8."""
+        root = rt.propagate_block_ell(p, tile_width=tw, device=dev)
+        lb_r, ub_r = root.lb.cpu().numpy(), root.ub.cpu().numpy()
+        cols = cs.most_fractional_order(np, lb_r, ub_r, p.is_int)[:count]
+        return cs.branched(np, rt, lb_r, ub_r, cols)
 
     def rounds(r):
         return int(r.rounds.max()) if r.rounds.ndim else int(r.rounds)
 
-    paths = {
-        "propagate_block_ell bandw": (
-            lambda: rt.propagate_block_ell(wide["bandw"], device=dev), rounds),
-        "propagate_block_ell pbw": (
-            lambda: rt.propagate_block_ell(wide["pbw"], device=dev), rounds),
-        "nodes pbf (64 nodes)": (
-            lambda: rt.propagate_nodes(pbf, lb_n, ub_n, tile_width=cs.SOLVER_TILE_WIDTH,
-                                       device=dev), rounds),
-        "solve pbf (128 slots)": (
-            lambda: rt.solve(pbf, c, device=dev, **cs.FULL_SEARCH),
-            lambda r: (r.status, r.nodes_expanded, r.nodes_created, r.levels, r.host_syncs)),
-        "propagate_batch [bandw, pbw]": (
+    search = lambda r: (r.status, r.nodes_expanded, r.nodes_created, r.levels, r.host_syncs)
+    paths = {}
+    if want("propagate_block_ell"):
+        for name in ("bandw", "pbw"):
+            paths[f"propagate_block_ell {name}"] = (
+                lambda p=wide[name]: rt.propagate_block_ell(p, device=dev), rounds)
+    if want("nodes"):
+        nodes_pbf, nodes_pbw = branched(pbf, 6), branched(wide["pbw"], cs.WIDE_BRANCHED)
+        paths["nodes pbf (64 nodes)"] = (
+            lambda: rt.propagate_nodes(pbf, *nodes_pbf, tile_width=tw, device=dev), rounds)
+        paths["nodes pbw (16 nodes)"] = (
+            lambda: rt.propagate_nodes(wide["pbw"], *nodes_pbw, tile_width=tw, device=dev),
+            rounds)
+    if want("solve"):
+        c, cw = cs.objective(np, pbf.n), cs.objective(np, wide["pbw"].n)
+        paths["solve pbf (128 slots)"] = (
+            lambda: rt.solve(pbf, c, device=dev, **cs.FULL_SEARCH), search)
+        paths["solve pbw (128 slots)"] = (
+            lambda: rt.solve(wide["pbw"], cw, device=dev, **cs.WIDE_SEARCH), search)
+    if want("propagate_batch"):
+        paths["propagate_batch [bandw, pbw]"] = (
             lambda: rt.propagate_batch([wide["bandw"], wide["pbw"]], device=dev),
-            lambda rs: [rounds(r) for r in rs]),
-    }
+            lambda rs: [rounds(r) for r in rs])
+        fused = [td.make_pseudo_boolean(**cs.SPECS[0][2]), pbf, td.make_banded(**cs.SPECS[1][2]),
+                 td.make_banded(**cs.BANDED1)]
+        paths["propagate_batch fused [pb, pbf, banded, banded1]"] = (
+            lambda: rt.propagate_batch(fused, device=dev), lambda rs: [rounds(r) for r in rs])
+    if want("service"):
+        stream, _ = cs.service_streams(np, td)
+        specs = rt.BucketSpec.for_problems(stream, slots=cs.SERVICE_SLOTS,
+                                           size_classes=cs.SERVICE_SIZE_CLASSES)
+        svc = rt.PropagationService(specs, rounds_per_step=cs.SERVICE_ROUNDS_PER_STEP,
+                                    device=dev)
+        payloads = [next(s for s in specs if s.fits_problem(p)).pack(p) for p in stream]
+        paths["service stream (24 requests)"] = (
+            lambda: [t.result() for t in cs.serve_once(torch, svc, payloads)[0]],
+            lambda rs: [int(r.rounds) for r in rs])
+    print(f"set-up: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, (fn, summary) in paths.items():
         result = summary(fn())
         torch.cuda.synchronize()

@@ -1,6 +1,7 @@
-// Timed variants of kernel #10 (node_fused_scatter_round), of #12's scatter
-// (slab_scatter) and of the batched merges #9 and #15: which design step of
-// their redesign pays.  Built and driven by tools/round_variants.py; not part
+// Timed variants of kernels #8 (batched_fused_scatter_round) and #10
+// (node_fused_scatter_round), of the scatters of #12 (slab_scatter) and #14
+// (node_slab_scatter), and of the batched merges #9 and #15: which design
+// step of their redesign pays.  Built and driven by tools/round_variants.py; not part
 // of the port's kernel library.
 //
 // #10 variants (node_variant), one matrix over B node planes:
@@ -16,9 +17,12 @@
 //   5  node-major over one block per chunk block (no resident cap)
 //   6, 7, 8  as 4, at most 64, 40, 32 registers a thread (4, 6, 8 blocks)
 //   9  as 4, columns and marks loaded with the values (EAGER)
-//   10 as 9, no pre-check before the atomics (the port's kernel)
+//   10 as 9, no pre-check before the atomics (the port's kernel before it
+//      moved onto the walk #8 and #14 share)
 //   11 as 9, at most 40 registers a thread
 //   12 as 4, no pre-check
+//   13 as 10 on the active-only walk of round_common.cuh (the port's kernel
+//      since #8 and #14 share that walk)
 // #12 scatter variants (slab_variant), one copy stream over B planes:
 //   0  the kernel before the redesign: a binary search over the runs, then
 //      window_round (two loads and gathers per slot, compare-and-swap,
@@ -34,6 +38,34 @@
 //   8  as 7, no pre-check (the port's kernel)
 //   9, 10, 11  as 7, at most 64, 40, 32 registers a thread
 //   12 as 6, no pre-check
+// #8 variants (batched_variant), a packed stream over B instance planes:
+//   0  the kernel before the redesign: a lane group per chunk of the whole
+//      stream, its instance read from tile_inst; chunk_aggregates, then
+//      chunk_candidates_scatter (every slot, compare-and-swap)
+//   1  the same grid; bounds gathered once and held, values, columns and
+//      marks loaded together, compare-and-swap, every slot
+//   2  as 1, integer atomics (no pre-check)
+//   3  as 2, stopped at the chunk length
+//   4  instance-major over the active instances' chunk blocks
+//   5  as 4, at most 64 registers a thread (the port's)
+// #14 scatter variants (node_slab_variant), one copy stream over B node
+// planes:
+//   0  the kernel before the redesign: each warp ballots the mask and loops
+//      over the active nodes; a binary search over the runs, then
+//      window_round (two loads and gathers per slot, compare-and-swap,
+//      every slot)
+//   1  the same order and search; chunk_round (bounds held, integer
+//      atomics, stopped at the length)
+//   2  as 1, the window from tile_slab (no search)
+//   3  node-major over the active nodes' chunk blocks
+//   4  as 3, at most 64 registers, four blocks an SM (the port's)
+//   5  as 3, at most 40 registers, six blocks an SM
+//   6  node-major over groups of 8 active nodes: a warp runs its chunks for
+//      the group's nodes in turn
+//   7  as 6, each chunk's data and first strides loaded once per group
+//   8  as 7, at most 64 registers
+//   9  one group of every active node (ballot order over the resident
+//      blocks), at most 64 registers
 // Merge variants (merge_variant):
 //   0  #9 reading the accumulator planes only (before the redesign)
 //   1  #9 handing them back at the sentinels (the port's)
@@ -254,6 +286,28 @@ node_major(const double* __restrict__ val, const int* __restrict__ col,
   }
 }
 
+// The port's #10 (prop_round.cu) on the walk #8 and #14 share.
+template <int G, int U>
+__global__ void __launch_bounds__(kThreads)
+node_walk(const double* __restrict__ val, const int* __restrict__ col,
+          const int* __restrict__ ii, const int* __restrict__ clen,
+          const double* __restrict__ lhs, const double* __restrict__ rhs,
+          const double* __restrict__ lb, const double* __restrict__ ub,
+          const bool* __restrict__ active, double* best_l, double* best_u, int64_t n_chunks,
+          int k, int64_t bsz, int64_t n_pad, double int_eps, double inf) {
+  const EqualItems items_of{(n_chunks + block_chunks<G>() - 1) / block_chunks<G>()};
+  const Walk walk = ballot_walk(active, bsz, items_of);
+  WalkCursor cur;
+  for (int64_t item = blockIdx.x; item < walk.items; item += gridDim.x) {
+    cur.seek(item, walk, items_of);
+    const WalkLanes L = walk_lanes<G>(item, cur, items_of, n_chunks);
+    const int64_t c = L.chunk, row = cur.plane * n_pad;
+    chunk_round<G, U>(val, col, ii, SplitBounds{lb + row, ub + row}, c * k, L.live ? k : 0,
+                      L.live ? clen[c] : 0, true, RowAgg{}, L.live ? lhs[c] : 0.0,
+                      L.live ? rhs[c] : 0.0, best_l + row, best_u + row, L.sl, int_eps, inf);
+  }
+}
+
 template <typename Kernel>
 unsigned int resident_blocks(Kernel kernel, size_t shm) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -294,6 +348,7 @@ int node_variant_g(int v, const double* val, const int* col, const int* ii, cons
     case 10: return major<node_major<G, 1, 0, true, false>>(blocks, shm, stream, ARGS);
     case 11: return major<node_major<G, 6, 0, true, true>>(blocks, shm, stream, ARGS);
     case 12: return major<node_major<G, 1, 0, false, false>>(blocks, shm, stream, ARGS);
+    case 13: return launch_walk<node_walk<G, Strides<G>::U>>(blocks, bsz, stream, ARGS);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef ARGS
@@ -323,6 +378,7 @@ struct Slab {
   int n_runs, r, k;
   int64_t n_chunks, width, slab;
   double int_eps, inf;
+  int64_t bsz;  // node planes (#14 only)
 };
 
 // V: 0 before the redesign, 1-3 the search with the routine's steps, 4 and
@@ -397,6 +453,292 @@ int slab_variant_g(int v, const Slab& s, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- #8 ---------------------------------------------------------------------
+
+struct Batched {
+  const double *val, *lhs, *rhs, *lb, *ub;
+  const int *col, *ii, *clen, *tile_inst;
+  const int64_t* start;
+  const bool* active;
+  double *best_l, *best_u;
+  int64_t n_chunks, bsz, n_pad;
+  int r, k;
+  double int_eps, inf;
+};
+
+// V 0: the kernel before the redesign; 1-3 chunk_round's steps over the
+// same grid (RED: integer atomics, LEN: stopped at the length).
+template <int G, int U, int V>
+__global__ void __launch_bounds__(kThreads) batched_stream(const Batched s) {
+  const Lanes L = lanes_for<G>(s.n_chunks);
+  bool on = false;
+  int64_t row = 0;
+  if (L.live) {
+    const int64_t inst = s.tile_inst[L.chunk / s.r];
+    on = s.active[inst];
+    row = inst * s.n_pad;
+  }
+  if (!__any_sync(0xffffffffu, on)) return;
+  const int64_t c = L.chunk;
+  if (V == 0) {
+    const int64_t base = c * s.k;
+    const RowAgg a = chunk_aggregates<G>(s.val, s.col, s.lb + row, s.ub + row, base,
+                                         on ? s.k : 0, L, s.inf);
+    if (!on) return;
+    chunk_candidates_scatter(s.val, s.col, s.ii, s.lb + row, s.ub + row, a, s.lhs[c], s.rhs[c],
+                             s.best_l + row, s.best_u + row, base, s.k, L, s.int_eps, s.inf);
+    return;
+  }
+  held_chunk<G, U, (V >= 2), (V >= 3), true, false>(
+      s.val, s.col, s.ii, s.clen, s.lb + row, s.ub + row, c, s.k, on, true, RowAgg{},
+      on ? s.lhs[c] : 0.0, on ? s.rhs[c] : 0.0, s.best_l + row, s.best_u + row, L.sl,
+      s.int_eps, s.inf);
+}
+
+// #8 on the active-only walk over (instance, chunk block) items, chunk_round
+// on each; MINB 4 (at most 64 registers) is the port's (prop_round.cu).
+template <int G, int U, int MINB = 1>
+__global__ void __launch_bounds__(kThreads, MINB) batched_walk(const Batched s) {
+  const RangeItems items_of{s.start, block_chunks<G>()};
+  const Walk walk = ballot_walk(s.active, s.bsz, items_of);
+  WalkCursor cur;
+  for (int64_t item = blockIdx.x; item < walk.items; item += gridDim.x) {
+    cur.seek(item, walk, items_of);
+    const WalkLanes L = walk_lanes<G>(item, cur, items_of, 0);
+    const int64_t c = L.chunk, row = cur.plane * s.n_pad;
+    chunk_round<G, U>(s.val, s.col, s.ii, SplitBounds{s.lb + row, s.ub + row}, c * s.k,
+                      L.live ? s.k : 0, L.live ? s.clen[c] : 0, true, RowAgg{},
+                      L.live ? s.lhs[c] : 0.0, L.live ? s.rhs[c] : 0.0, s.best_l + row,
+                      s.best_u + row, L.sl, s.int_eps, s.inf);
+  }
+}
+
+template <int G, int U>
+int batched_variant_gu(int v, const Batched& s, cudaStream_t stream) {
+  const unsigned int blocks = chunk_blocks(s.n_chunks, s.k);
+  switch (v) {
+    case 0: batched_stream<G, U, 0><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 1: batched_stream<G, U, 1><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 2: batched_stream<G, U, 2><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 3: batched_stream<G, U, 3><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 4: return launch_walk<batched_walk<G, U>>(blocks + s.bsz, s.bsz, stream, s);
+    case 5: return launch_walk<batched_walk<G, U, 4>>(blocks + s.bsz, s.bsz, stream, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- #14's scatter ------------------------------------------------------------
+
+// slab_round.cu before the redesign: a copy's window by the search, and
+// its chunk's round by kernel D's routine (window_round).
+template <int G>
+__device__ __forceinline__ void window_round(const Slab& s, const Lanes& L, int64_t row,
+                                             int64_t agg, bool use) {
+  const int64_t base = L.chunk * s.k;
+  const bool local = use && s.done[L.chunk] != 0;
+  RowAgg a = chunk_aggregates<G>(s.val, s.col, s.lb + row, s.ub + row, base, local ? s.k : 0,
+                                 L, s.inf);
+  if (!use) return;
+  if (!local) a = RowAgg{s.smf[agg], s.sxf[agg], s.smc[agg], s.sxc[agg]};
+  chunk_candidates_scatter(s.val, s.col, s.ii, s.lb + row, s.ub + row, a, s.lhs[L.chunk],
+                           s.rhs[L.chunk], s.best_l + row, s.best_u + row, base, s.k, L,
+                           s.int_eps, s.inf);
+}
+
+// V 0: the kernel before the redesign; 1: the same order and search,
+// chunk_round; 2: as 1, the window from tile_slab.
+template <int G, int U, int V>
+__global__ void __launch_bounds__(kThreads) node_slab_ballot(const Slab s) {
+  const Lanes L = lanes_for<G>(s.n_chunks);
+  const int lane = threadIdx.x % kWarp;
+  int64_t off = 0;
+  if (L.live) {
+    const int64_t t = L.chunk / s.r;
+    off = static_cast<int64_t>(V == 2 ? s.tile_slab[t] : s.run_slab[run_of(s.run_start,
+                                                                            s.n_runs, t)]) *
+          s.slab;
+  }
+  const int64_t c = L.chunk;
+  for (int64_t b0 = 0; b0 < s.bsz; b0 += kWarp) {
+    unsigned int todo = __ballot_sync(0xffffffffu, b0 + lane < s.bsz && s.active[b0 + lane]);
+    while (todo != 0u) {
+      const int64_t b = b0 + __ffs(todo) - 1;
+      todo &= todo - 1u;
+      const int64_t row = b * s.width + off, agg = b * s.n_chunks + c;
+      if (V == 0) {
+        window_round<G>(s, L, row, agg, L.live);
+        continue;
+      }
+      const bool local = L.live && s.done[c] != 0;
+      const RowAgg given = L.live && !local
+                               ? RowAgg{s.smf[agg], s.sxf[agg], s.smc[agg], s.sxc[agg]}
+                               : RowAgg{};
+      chunk_round<G, U>(s.val, s.col, s.ii, SplitBounds{s.lb + row, s.ub + row}, c * s.k,
+                        L.live ? s.k : 0, L.live ? s.clen[c] : 0, local, given,
+                        L.live ? s.lhs[c] : 0.0, L.live ? s.rhs[c] : 0.0, s.best_l + row,
+                        s.best_u + row, L.sl, s.int_eps, s.inf);
+    }
+  }
+}
+
+// #14's scatter on the node-major walk; MINB 4 (at most 64 registers, four
+// blocks an SM) is the port's (slab_round.cu).
+template <int G, int U, int MINB = 1>
+__global__ void __launch_bounds__(kThreads, MINB) node_slab_walk(const Slab s) {
+  const EqualItems items_of{(s.n_chunks + block_chunks<G>() - 1) / block_chunks<G>()};
+  const Walk walk = ballot_walk(s.active, s.bsz, items_of);
+  WalkCursor cur;
+  for (int64_t item = blockIdx.x; item < walk.items; item += gridDim.x) {
+    cur.seek(item, walk, items_of);
+    const WalkLanes L = walk_lanes<G>(item, cur, items_of, s.n_chunks);
+    const int64_t c = L.chunk;
+    int64_t off = 0;
+    bool local = false;
+    RowAgg given{};
+    if (L.live) {
+      off = cur.plane * s.width + static_cast<int64_t>(s.tile_slab[c / s.r]) * s.slab;
+      local = s.done[c] != 0;
+      if (!local) {
+        const int64_t a = cur.plane * s.n_chunks + c;
+        given = RowAgg{s.smf[a], s.sxf[a], s.smc[a], s.sxc[a]};
+      }
+    }
+    chunk_round<G, U>(s.val, s.col, s.ii, SplitBounds{s.lb + off, s.ub + off}, c * s.k,
+                      L.live ? s.k : 0, L.live ? s.clen[c] : 0, local, given,
+                      L.live ? s.lhs[c] : 0.0, L.live ? s.rhs[c] : 0.0, s.best_l + off,
+                      s.best_u + off, L.sl, s.int_eps, s.inf);
+  }
+}
+
+// Node-major over groups of NB active nodes: an item is (group, chunk
+// block); each warp runs its chunks for the group's nodes in turn, so the
+// copy stream's loads after the first node hit L1, and the rows in flight
+// are those of NB nodes.  NB = 1 is the node-major walk.
+template <int G, int U, int NB, int MINB = 1>
+__global__ void __launch_bounds__(kThreads, MINB) node_slab_groups(const Slab s) {
+  const EqualItems ones{1};
+  const Walk walk = ballot_walk(s.active, s.bsz, ones);  // items: the active ranks
+  const int64_t n_blocks = (s.n_chunks + block_chunks<G>() - 1) / block_chunks<G>();
+  const int64_t items = (walk.items + NB - 1) / NB * n_blocks;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  WalkCursor first;
+  for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+    const int64_t g = item / n_blocks;
+    first.seek(g * NB, walk, ones);
+    const int64_t c = (item % n_blocks) * block_chunks<G>() + warp * (kWarp / G) + lane / G;
+    const bool live = c < s.n_chunks;
+    const int sl = lane % G;
+    const int64_t slab_off = live ? static_cast<int64_t>(s.tile_slab[c / s.r]) * s.slab : 0;
+    const bool local = live && s.done[c] != 0;
+    const int kk = live ? s.k : 0, len = live ? s.clen[c] : 0;
+    const double lo = live ? s.lhs[c] : 0.0, hi = live ? s.rhs[c] : 0.0;
+    WalkCursor cur = first;
+    for (int j = 0; j < NB; ++j) {
+      const int64_t rank = g * NB + j;
+      if (rank >= walk.items) break;
+      if (j > 0) cur.seek(rank, walk, ones);
+      const int64_t off = cur.plane * s.width + slab_off;
+      RowAgg given{};
+      if (live && !local) {
+        const int64_t a = cur.plane * s.n_chunks + c;
+        given = RowAgg{s.smf[a], s.sxf[a], s.smc[a], s.sxc[a]};
+      }
+      chunk_round<G, U>(s.val, s.col, s.ii, SplitBounds{s.lb + off, s.ub + off}, c * s.k, kk,
+                        len, local, given, lo, hi, s.best_l + off, s.best_u + off, sl,
+                        s.int_eps, s.inf);
+    }
+  }
+}
+
+// chunk_round with its first U strides loaded by the caller, so that a warp
+// running one chunk for several nodes loads them once.
+template <int G, int U>
+__device__ __forceinline__ void held_round(const Loaded<U>& first, const Slab& s, int64_t c,
+                                           int kk, int len, bool sum, const RowAgg& given,
+                                           double lhs, double rhs, int64_t off, int sl) {
+  const SplitBounds b{s.lb + off, s.ub + off};
+  double l[U], h[U];
+  gather_strides(first, b, l, h);
+  RowAgg a{0.0, 0.0, 0, 0};
+  if (sum) {
+    add_gathered(a, first, l, h, s.inf);
+    for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
+      Loaded<U> t;
+      load_strides<U, true>(t, s.val, s.col, nullptr, c * s.k, j0, len, kk, sl);
+      add_strides(a, t, b, s.inf);
+    }
+  }
+  a = group_reduce<G>(a);
+  if (kk == 0) return;
+  if (!sum) a = given;
+  scatter_gathered<U, false>(first, l, h, a, lhs, rhs, s.best_l + off, s.best_u + off,
+                             s.int_eps, s.inf);
+  for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
+    Loaded<U> t;
+    load_strides<U, true>(t, s.val, s.col, s.ii, c * s.k, j0, len, kk, sl);
+    scatter_strides<U, false>(t, b, a, lhs, rhs, s.best_l + off, s.best_u + off, s.int_eps,
+                              s.inf);
+  }
+}
+
+// As node_slab_groups, each chunk's data (window slab, row_done, length,
+// sides) and first strides loaded once per item and held while the warp
+// runs the group's nodes.
+template <int G, int U, int NB, int MINB = 1>
+__global__ void __launch_bounds__(kThreads, MINB) node_slab_held(const Slab s) {
+  const EqualItems ones{1};
+  const Walk walk = ballot_walk(s.active, s.bsz, ones);
+  const int64_t n_blocks = (s.n_chunks + block_chunks<G>() - 1) / block_chunks<G>();
+  const int64_t items = (walk.items + NB - 1) / NB * n_blocks;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int sl = lane % G;
+  WalkCursor first;
+  for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+    const int64_t g = item / n_blocks;
+    first.seek(g * NB, walk, ones);
+    const int64_t c = (item - g * n_blocks) * block_chunks<G>() + warp * (kWarp / G) + lane / G;
+    const bool live = c < s.n_chunks;
+    const int64_t slab_off = live ? static_cast<int64_t>(s.tile_slab[c / s.r]) * s.slab : 0;
+    const bool local = live && s.done[c] != 0;
+    const int kk = live ? s.k : 0, len = live ? s.clen[c] : 0;
+    const double lo = live ? s.lhs[c] : 0.0, hi = live ? s.rhs[c] : 0.0;
+    Loaded<U> held;
+    load_strides<U, true>(held, s.val, s.col, s.ii, c * s.k, 0, len, kk, sl);
+    WalkCursor cur = first;
+    const int64_t rest = walk.items - g * NB, last = rest < NB ? rest : NB;
+    for (int64_t j = 0; j < last; ++j) {
+      if (j > 0) cur.seek(g * NB + j, walk, ones);
+      RowAgg given{};
+      if (live && !local) {
+        const int64_t a = cur.plane * s.n_chunks + c;
+        given = RowAgg{s.smf[a], s.sxf[a], s.smc[a], s.sxc[a]};
+      }
+      held_round<G, U>(held, s, c, kk, len, local, given, lo, hi,
+                       cur.plane * s.width + slab_off, sl);
+    }
+  }
+}
+
+template <int G, int U>
+int node_slab_variant_gu(int v, const Slab& s, cudaStream_t stream) {
+  const unsigned int blocks = chunk_blocks(s.n_chunks, s.k);
+  switch (v) {
+    case 0: node_slab_ballot<G, U, 0><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 1: node_slab_ballot<G, U, 1><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 2: node_slab_ballot<G, U, 2><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 3: return launch_walk<node_slab_walk<G, U>>(blocks, s.bsz, stream, s);
+    case 4: return launch_walk<node_slab_walk<G, U, 4>>(blocks, s.bsz, stream, s);
+    case 5: return launch_walk<node_slab_walk<G, U, 6>>(blocks, s.bsz, stream, s);
+    case 6: return launch_walk<node_slab_groups<G, U, 8>>(blocks, s.bsz, stream, s);
+    case 7: return launch_walk<node_slab_held<G, U, 8>>(blocks, s.bsz, stream, s);
+    case 8: return launch_walk<node_slab_held<G, U, 8, 4>>(blocks, s.bsz, stream, s);
+    case 9: return launch_walk<node_slab_groups<G, U, 1024, 4>>(blocks, s.bsz, stream, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---- #9 and #15 -------------------------------------------------------------
 
 template <bool RESET>
@@ -447,6 +789,49 @@ int slab_variant(int v, const double* val, const int* col, const int* ii, const 
   switch (group_width(k)) {
     case 8: return slab_variant_g<8>(v, s, stream);
     case 32: return slab_variant_g<32>(v, s, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int batched_variant(int v, const double* val, const int* col, const int* ii, const int* clen,
+                    const double* lhs, const double* rhs, const double* lb, const double* ub,
+                    const int* tile_inst, const int64_t* start, const bool* active,
+                    double* best_l, double* best_u, int64_t n_chunks, int r, int k,
+                    int max_len, int64_t bsz, int64_t n_pad, double int_eps, double inf,
+                    cudaStream_t stream) {
+  const Batched s{val, lhs, rhs, lb, ub, col, ii, clen, tile_inst, start, active, best_l,
+                  best_u, n_chunks, bsz, n_pad, r, k, int_eps, inf};
+  switch (group_width(k)) {
+    case 8: return batched_variant_gu<8, 1>(v, s, stream);
+    case 32: {
+      const int held = held_strides(max_len);
+      return held == 1 ? batched_variant_gu<32, 1>(v, s, stream)
+             : held == 2 ? batched_variant_gu<32, 2>(v, s, stream)
+                         : batched_variant_gu<32, 4>(v, s, stream);
+    }
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int node_slab_variant(int v, const double* val, const int* col, const int* ii, const int* clen,
+                      const int* done, const double* smf, const int* smc, const double* sxf,
+                      const int* sxc, const double* lhs, const double* rhs,
+                      const int* run_start, const int* run_slab, const int* tile_slab,
+                      const bool* active, const double* lb, const double* ub, double* best_l,
+                      double* best_u, int n_runs, int64_t n_chunks, int r, int k, int max_len,
+                      int64_t bsz, int64_t width, int64_t slab, double int_eps, double inf,
+                      cudaStream_t stream) {
+  const Slab s{val, smf, sxf, lhs, rhs, lb, ub, col, ii, clen, done, smc, sxc, run_start,
+               nullptr, run_slab, nullptr, tile_slab, active, best_l, best_u, n_runs, r, k,
+               n_chunks, width, slab, int_eps, inf, bsz};
+  switch (group_width(k)) {
+    case 8: return node_slab_variant_gu<8, 1>(v, s, stream);
+    case 32: {
+      const int held = held_strides(max_len);
+      return held == 1 ? node_slab_variant_gu<32, 1>(v, s, stream)
+             : held == 2 ? node_slab_variant_gu<32, 2>(v, s, stream)
+                         : node_slab_variant_gu<32, 4>(v, s, stream);
+    }
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

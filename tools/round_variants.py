@@ -1,26 +1,32 @@
 #!/usr/bin/env python3
-"""Time variants of kernel #10 (the node round), of #12's scatter (the slab
-round) and of the batched merges #9 and #15, to see which design step of
-their redesign pays (no profiler that counts stalls runs on the card).
+"""Time variants of kernels #8 (the packed batch's round) and #10 (the node
+round), of the scatters of #12 and #14 (the slab rounds) and of the batched
+merges #9 and #15, to see which design step of their redesign pays (no
+profiler that counts stalls runs on the card).
 
-    python3 tools/round_variants.py [--reps 20]
+    python3 tools/round_variants.py [--reps 20] [--only 8,14]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.  It
 builds ``tools/round_variants.cu`` (the kernels before the redesign, and the
 redesigned ones one step at a time: bounds gathered once and held, integer
-atomics, chunks stopped at their length, node-major order or the window
-from the tile maps, a register cap) into
-``src/repro_torch/build/round_variants/``, makes the instances of
+atomics, chunks stopped at their length, node- or instance-major order over
+the active planes only or the window from the tile maps, a register cap)
+into ``src/repro_torch/build/round_variants/``, makes the instances of
 ``chip_smoke.py`` -- ``pbf`` at tile width 8 with its 128-node pool for #10
 and #9, ``bandw`` and ``pbw`` (one plane each, their default slab
-partitions) for #12 and #15 -- holds every variant against the plain
-version of its kernel (bitwise, as values), and prints each variant's
-median time over ``--reps`` launches (CUDA events around the launch, queued
-behind a sleep on the card, the variants taken in turn within each
-repetition; the accumulator planes at the sentinels before each scatter,
-the merges' inputs restored and the L2 evicted before each merge), the time
-of the two ``torch.full`` sentinel planes that the wrappers no longer fill
-per launch, and the card's name and power limit.
+partitions) for #12 and #15, the fused batch bucket (``pb``, ``pbf``,
+``banded`` and a second ``banded``) with 0, 2 and 4 instances active for
+#8, ``pbw`` at tile width 8 with a 128-node pool (0, 8, 32 and 128 nodes
+active) for #14 -- holds every
+variant against the plain version of its kernel (bitwise, as values), and
+prints each variant's median time over ``--reps`` launches (CUDA events
+around the launch, queued behind a sleep on the card, the variants taken in
+turn within each repetition; the accumulator planes at the sentinels before
+each scatter, the merges' inputs restored and the L2 evicted before each
+merge), the time of the two ``torch.full`` sentinel planes that the
+wrappers no longer fill per launch, and the card's name and power limit.
+``--only`` picks the kernels (of 8, 10, 12, 14; the merges ride with 10
+and 12).
 """
 from __future__ import annotations
 
@@ -47,9 +53,10 @@ NODE_VARIANTS = {
     7: "as 4, at most 40 registers a thread",
     8: "as 4, at most 32 registers a thread",
     9: "as 4, columns and marks loaded with the values",
-    10: "as 9, no pre-check before the atomics (the port's #10)",
+    10: "as 9, no pre-check before the atomics (the port's #10 before it shared the walk)",
     11: "as 9, at most 40 registers a thread",
     12: "as 4, no pre-check before the atomics",
+    13: "as 10 on the active-only walk that #8 and #14 share (the port's #10)",
 }
 SLAB_VARIANTS = {
     0: "before the redesign (search over the runs, two gathers per slot, CAS, every slot)",
@@ -65,6 +72,27 @@ SLAB_VARIANTS = {
     10: "as 7, at most 40 registers a thread",
     11: "as 7, at most 32 registers a thread",
     12: "as 6, no pre-check before the atomics",
+}
+BATCHED_VARIANTS = {
+    0: "before the redesign (every chunk's warp launched, two gathers per slot, CAS, every slot)",
+    1: "the same grid, bounds gathered once and held, values/columns/marks together, CAS",
+    2: "as 1, integer atomics",
+    3: "as 2, stopped at the chunk length",
+    4: "instance-major over the active instances' chunk blocks",
+    5: "as 4, at most 64 registers a thread (the port's #8)",
+}
+NODE_SLAB_VARIANTS = {
+    0: "before the redesign (warp ballot order, search over the runs, two gathers, CAS)",
+    1: "ballot order and search, chunk_round (bounds held, integer atomics, stopped)",
+    2: "as 1, the window from tile_slab (no search)",
+    3: "node-major over the active nodes' chunk blocks",
+    4: "as 3, at most 64 registers a thread, 4 blocks an SM (the port's #14 scatter)",
+    5: "as 3, at most 40 registers a thread, 6 blocks an SM",
+    6: "node-major over groups of 8 active nodes (a warp's chunks for each in turn)",
+    7: "as 6, each chunk's data and first strides loaded once for the group",
+    8: "as 7, at most 64 registers a thread",
+    9: "one group of every active node (ballot order over the resident blocks), at most 64 "
+       "registers",
 }
 MERGE_VARIANTS = {
     0: "#9 reading the planes only (before the redesign)",
@@ -83,18 +111,26 @@ def build() -> ctypes.CDLL:
     done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(SOURCE)],
                           check=True, capture_output=True, text=True)
     print(f"build: {time.perf_counter() - t:.1f} s", flush=True)
-    entry = ""
+    entry, spill = "", ""
     for line in (done.stdout + done.stderr).splitlines():
         if "Compiling entry" in line:
             entry = line.split("'")[1] if "'" in line else line
+        elif "spill" in line:
+            spill = line.strip()
         elif "Used" in line:
-            print(f"  ptxas: {entry[:90]}: {line.split('info    :')[-1].strip()}", flush=True)
+            print(f"  ptxas: {entry[:110]}: {line.split('info    :')[-1].strip()}; {spill}",
+                  flush=True)
     lib = ctypes.CDLL(str(out))
     P, I64, I32, F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
     lib.node_variant.argtypes = [I32] + [P] * 11 + [I64, I32, I64, I64, F64, F64, P]
     lib.slab_variant.argtypes = [I32] + [P] * 21 + [I32, I64, I32, I32, I64, I64, F64, F64, P]
     lib.merge_variant.argtypes = [I32] + [P] * 6 + [I64, I64, I64, F64, F64, F64, P]
-    for fn in (lib.node_variant, lib.slab_variant, lib.merge_variant):
+    lib.batched_variant.argtypes = [I32] + [P] * 13 + [I64, I32, I32, I32, I64, I64, F64, F64,
+                                                       P]
+    lib.node_slab_variant.argtypes = [I32] + [P] * 19 + [I32, I64, I32, I32, I32, I64, I64, I64,
+                                                         F64, F64, P]
+    for fn in (lib.node_variant, lib.slab_variant, lib.merge_variant, lib.batched_variant,
+               lib.node_slab_variant):
         fn.restype = I32
     return lib
 
@@ -120,7 +156,9 @@ def event_ms(torch, launch, reset=None) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--only", default="8,10,12,14")
     args = ap.parse_args()
+    only = {int(x) for x in args.only.split(",")}
     import numpy as np
     import torch
 
@@ -152,113 +190,195 @@ def main() -> int:
     times: dict = {}
     cases: list = []  # (label, kind, variant, launch, reset)
 
-    # #10 and #9 on the pbf pool at tile width 8.
-    pbf = td.make_pseudo_boolean(**cs.PBF)
-    prep = rt.prepare_block_ell(pbf, tile_width=cs.SOLVER_TILE_WIDTH, device="cuda")
-    d, n_pad = prep.d, prep.n_pad
-    t, r, k = d.val.shape
-    lbp, ubp = ops._node_planes(prep, *cs.node_pool(np, rt, pbf, cs.POOL, seed=3))
-    acc = accumulator_planes(lbp)
-    print(f"pbf: tiles {(t, r, k)}, {int((d.val != 0).sum())} nonzeros, pool {tuple(lbp.shape)}",
-          flush=True)
-    for n_act in (0, 8, cs.POOL):
-        act = torch.zeros(cs.POOL, dtype=torch.bool, device="cuda")
-        if n_act:
-            act[:: cs.POOL // n_act] = True
-        want = tref.node_fused_scatter_round_ref(d.val, d.col, prep.ii_g, prep.lhs_g,
-                                                 prep.rhs_g, lbp, ubp, n_pad, cfg.int_eps,
-                                                 active=act)
-        label = f"#10 pbf pool, {n_act} of {cs.POOL} active"
-        for v in NODE_VARIANTS:
-            def launch(v=v, act=act):
-                return lib.node_variant(
-                    v, ptr(d.val), ptr(d.col), ptr(prep.ii_g), ptr(prep.chunk_len),
-                    ptr(prep.lhs_g), ptr(prep.rhs_g), ptr(lbp), ptr(ubp), ptr(act), ptr(acc[0]),
-                    ptr(acc[1]), t * r, k, cs.POOL, n_pad, cfg.int_eps, inf, stream())
+    fills = {}
+    if 10 in only:
+        # #10 and #9 on the pbf pool at tile width 8.
+        pbf = td.make_pseudo_boolean(**cs.PBF)
+        prep = rt.prepare_block_ell(pbf, tile_width=cs.SOLVER_TILE_WIDTH, device="cuda")
+        d, n_pad = prep.d, prep.n_pad
+        t, r, k = d.val.shape
+        lbp, ubp = ops._node_planes(prep, *cs.node_pool(np, rt, pbf, cs.POOL, seed=3))
+        acc = accumulator_planes(lbp)
+        print(f"pbf: tiles {(t, r, k)}, {int((d.val != 0).sum())} nonzeros, "
+              f"pool {tuple(lbp.shape)}", flush=True)
+        for n_act in (0, 8, cs.POOL):
+            act = torch.zeros(cs.POOL, dtype=torch.bool, device="cuda")
+            if n_act:
+                act[:: cs.POOL // n_act] = True
+            want = tref.node_fused_scatter_round_ref(d.val, d.col, prep.ii_g, prep.lhs_g,
+                                                     prep.rhs_g, lbp, ubp, n_pad, cfg.int_eps,
+                                                     active=act)
+            label = f"#10 pbf pool, {n_act} of {cs.POOL} active"
+            for v in NODE_VARIANTS:
+                def launch(v=v, act=act):
+                    return lib.node_variant(
+                        v, ptr(d.val), ptr(d.col), ptr(prep.ii_g), ptr(prep.chunk_len),
+                        ptr(prep.lhs_g), ptr(prep.rhs_g), ptr(lbp), ptr(ubp), ptr(act), ptr(acc[0]),
+                        ptr(acc[1]), t * r, k, cs.POOL, n_pad, cfg.int_eps, inf, stream())
 
-            event_ms(torch, launch, lambda: sentinels(acc))
-            if not (torch.equal(acc[0], want[0]) and torch.equal(acc[1], want[1])):
-                raise SystemExit(f"round_variants: {label} variant {v} disagrees with the plain "
-                                 "version")
-            cases.append((label, "node", v, launch, lambda: sentinels(acc)))
-        if n_act:
-            best = [x.clone() for x in want]
-            planes = [lbp.clone(), ubp.clone(), best[0].clone(), best[1].clone()]
-            flags = torch.zeros(cs.POOL, dtype=torch.int32, device="cuda")
+                event_ms(torch, launch, lambda: sentinels(acc))
+                if not (torch.equal(acc[0], want[0]) and torch.equal(acc[1], want[1])):
+                    raise SystemExit(f"round_variants: {label} variant {v} disagrees with "
+                                     "the plain version")
+                cases.append((label, "node", v, launch, lambda: sentinels(acc)))
+            if n_act:
+                best = [x.clone() for x in want]
+                planes = [lbp.clone(), ubp.clone(), best[0].clone(), best[1].clone()]
+                flags = torch.zeros(cs.POOL, dtype=torch.int32, device="cuda")
+                flush = torch.empty(64 << 17, dtype=torch.float64, device="cuda")
+
+                def restore(planes=planes, best=best, flags=flags, flush=flush):
+                    for x, y in zip(planes, (lbp, ubp, *best)):
+                        x.copy_(y)
+                    flags.zero_()
+                    flush.zero_()
+
+                for v in (0, 1):
+                    def launch(v=v, act=act, planes=planes, flags=flags):
+                        return lib.merge_variant(v, *map(ptr, planes), ptr(act), ptr(flags),
+                                                 cs.POOL, n_pad, n_pad, eps, inf, 0.0, stream())
+
+                    cases.append((f"#9 pbf pool, {n_act} of {cs.POOL} active", "merge", v, launch,
+                                  restore))
+        fills["pbf pool"] = statistics.median(event_ms(torch, lambda: fill(lbp))
+                                              for _ in range(args.reps))
+
+    # #12's scatter and #15 on bandw and pbw, one plane each.
+    if 12 in only:
+        for name, gen, kw in cs.WIDE_SPECS:
+            p = getattr(td, gen)(**kw)
+            wprep = rt.prepare_block_ell(p, device="cuda")
+            part = wprep.slab_partition()
+            width = wprep.n_pad
+            lb, ub = wprep.lb0[None].clone(), wprep.ub0[None].clone()
+            one = torch.ones(1, dtype=torch.bool, device="cuda")
+            partials = tref.batched_slab_partials_ref(
+                part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_inst,
+                part.a_run_slab, one, lb, ub, part.slab, part.a_max_run_len)
+            strs = tref.straddle_tables(part, *partials)
+            want = tref.batched_slab_scatter_ref(
+                part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
+                part.run_start, part.run_inst, part.run_slab, one, lb, ub, part.slab, cfg.int_eps)
+            wacc = accumulator_planes(lb)
+            tw, rw, kw_ = part.val.shape
+            print(f"{name}: copy tiles {(tw, rw, kw_)}, "
+                  f"{int((part.val != 0).sum())} kept nonzeros, "
+                  f"slab {part.slab} x {part.n_slabs}, chunks stopped short of K: "
+                  f"{int((part.chunk_len < kw_).sum())} of {tw * rw}", flush=True)
+            for v in SLAB_VARIANTS:
+                def launch(v=v, part=part, strs=strs, lb=lb, ub=ub, wacc=wacc, one=one, width=width,
+                           shape=(tw, rw, kw_)):
+                    tw, rw, kw_ = shape
+                    return lib.slab_variant(
+                        v, ptr(part.val), ptr(part.col_s), ptr(part.ii_g), ptr(part.chunk_len),
+                        ptr(part.row_done), *map(ptr, strs), ptr(part.lhs_g), ptr(part.rhs_g),
+                        ptr(part.run_start), ptr(part.run_inst), ptr(part.run_slab),
+                        ptr(part.tile_inst), ptr(part.tile_slab), ptr(one), ptr(lb), ptr(ub),
+                        ptr(wacc[0]), ptr(wacc[1]), part.run_start.numel(), tw * rw, rw, kw_, width,
+                        part.slab, cfg.int_eps, inf, stream())
+
+                event_ms(torch, launch, lambda wacc=wacc: sentinels(wacc))
+                if not (torch.equal(wacc[0], want[0]) and torch.equal(wacc[1], want[1])):
+                    raise SystemExit(f"round_variants: #12 {name} variant {v} disagrees with the "
+                                     "plain version")
+                cases.append((f"#12 scatter {name}", "slab", v, launch,
+                              lambda wacc=wacc: sentinels(wacc)))
+            planes = [lb.clone(), ub.clone(), want[0].clone(), want[1].clone()]
+            flags = torch.zeros(part.n_slabs, dtype=torch.int32, device="cuda")
             flush = torch.empty(64 << 17, dtype=torch.float64, device="cuda")
 
-            def restore(planes=planes, best=best, flags=flags, flush=flush):
-                for x, y in zip(planes, (lbp, ubp, *best)):
+            def restore(planes=planes, lb=lb, ub=ub, want=want, flags=flags, flush=flush):
+                for x, y in zip(planes, (lb, ub, *want)):
                     x.copy_(y)
                 flags.zero_()
                 flush.zero_()
 
-            for v in (0, 1):
-                def launch(v=v, act=act, planes=planes, flags=flags):
-                    return lib.merge_variant(v, *map(ptr, planes), ptr(act), ptr(flags),
-                                             cs.POOL, n_pad, n_pad, eps, inf, 0.0, stream())
+            for v in (2, 3):
+                def launch(v=v, planes=planes, one=one, flags=flags, width=width, part=part):
+                    return lib.merge_variant(v, *map(ptr, planes), ptr(one), ptr(flags), 1, width,
+                                             part.slab, eps, inf, 0.0, stream())
 
-                cases.append((f"#9 pbf pool, {n_act} of {cs.POOL} active", "merge", v, launch,
-                              restore))
-    fill_node = statistics.median(event_ms(torch, lambda: fill(lbp)) for _ in range(args.reps))
+                cases.append((f"#15 {name}", "merge", v, launch, restore))
+            fills[name] = statistics.median(event_ms(torch, lambda lb=lb: fill(lb))
+                                            for _ in range(args.reps))
 
-    # #12's scatter and #15 on bandw and pbw, one plane each.
-    fills = {}
-    for name, gen, kw in cs.WIDE_SPECS:
-        p = getattr(td, gen)(**kw)
-        wprep = rt.prepare_block_ell(p, device="cuda")
-        part = wprep.slab_partition()
-        width = wprep.n_pad
-        lb, ub = wprep.lb0[None].clone(), wprep.ub0[None].clone()
-        one = torch.ones(1, dtype=torch.bool, device="cuda")
-        partials = tref.batched_slab_partials_ref(
-            part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_inst,
-            part.a_run_slab, one, lb, ub, part.slab, part.a_max_run_len)
-        strs = tref.straddle_tables(part, *partials)
-        want = tref.batched_slab_scatter_ref(
-            part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
-            part.run_start, part.run_inst, part.run_slab, one, lb, ub, part.slab, cfg.int_eps)
-        wacc = accumulator_planes(lb)
-        tw, rw, kw_ = part.val.shape
-        print(f"{name}: copy tiles {(tw, rw, kw_)}, {int((part.val != 0).sum())} kept nonzeros, "
-              f"slab {part.slab} x {part.n_slabs}, chunks stopped short of K: "
-              f"{int((part.chunk_len < kw_).sum())} of {tw * rw}", flush=True)
-        for v in SLAB_VARIANTS:
-            def launch(v=v, part=part, strs=strs, lb=lb, ub=ub, wacc=wacc, one=one, width=width,
-                       shape=(tw, rw, kw_)):
-                tw, rw, kw_ = shape
-                return lib.slab_variant(
-                    v, ptr(part.val), ptr(part.col_s), ptr(part.ii_g), ptr(part.chunk_len),
-                    ptr(part.row_done), *map(ptr, strs), ptr(part.lhs_g), ptr(part.rhs_g),
-                    ptr(part.run_start), ptr(part.run_inst), ptr(part.run_slab),
-                    ptr(part.tile_inst), ptr(part.tile_slab), ptr(one), ptr(lb), ptr(ub),
-                    ptr(wacc[0]), ptr(wacc[1]), part.run_start.numel(), tw * rw, rw, kw_, width,
-                    part.slab, cfg.int_eps, inf, stream())
 
-            event_ms(torch, launch, lambda wacc=wacc: sentinels(wacc))
-            if not (torch.equal(wacc[0], want[0]) and torch.equal(wacc[1], want[1])):
-                raise SystemExit(f"round_variants: #12 {name} variant {v} disagrees with the "
-                                 "plain version")
-            cases.append((f"#12 scatter {name}", "slab", v, launch,
-                          lambda wacc=wacc: sentinels(wacc)))
-        planes = [lb.clone(), ub.clone(), want[0].clone(), want[1].clone()]
-        flags = torch.zeros(part.n_slabs, dtype=torch.int32, device="cuda")
-        flush = torch.empty(64 << 17, dtype=torch.float64, device="cuda")
+    # #8 on the fused batch bucket, 0, 2 and 4 instances active.
+    if 8 in only:
+        pops = [td.make_pseudo_boolean(**cs.SPECS[0][2]), td.make_pseudo_boolean(**cs.PBF),
+                td.make_banded(**cs.SPECS[1][2]), td.make_banded(**cs.BANDED1)]
+        (batch,) = ops.packed_problems(pops)
+        bprep = ops.prepare_problem_batch(batch, device="cuda")
+        assert bprep.fits_one_chunk
+        bd = bprep.d
+        tb, rb, kb = bd.val.shape
+        bacc = accumulator_planes(bd.lb0)
+        print(f"fused bucket: tiles {(tb, rb, kb)}, {int((bd.val != 0).sum())} nonzeros, "
+              f"longest chunk {bprep.max_chunk_len}, planes {tuple(bd.lb0.shape)}", flush=True)
+        for n_act in (0, 2, batch.size):
+            act_h = np.zeros(batch.size, bool)
+            act_h[:: max(1, batch.size // max(n_act, 1))][:n_act] = True
+            act = torch.as_tensor(act_h, device="cuda")
+            want = tref.batched_fused_scatter_round_ref(
+                bd.val, bd.col_g, bd.ii_g, bd.lhs_g, bd.rhs_g, bd.lb0, bd.ub0, bprep.n_pad,
+                cfg.int_eps, active=act)
+            label = f"#8 fused bucket, {n_act} of {batch.size} active"
+            for v in BATCHED_VARIANTS:
+                def launch(v=v, act=act):
+                    return lib.batched_variant(
+                        v, ptr(bd.val), ptr(bd.col), ptr(bd.ii_g), ptr(bd.chunk_len),
+                        ptr(bd.lhs_g), ptr(bd.rhs_g), ptr(bd.lb0), ptr(bd.ub0),
+                        ptr(bd.tile_inst), ptr(bd.chunks), ptr(act), ptr(bacc[0]),
+                        ptr(bacc[1]), tb * rb, rb, kb, bprep.max_chunk_len, batch.size,
+                        bprep.n_pad, cfg.int_eps, inf, stream())
 
-        def restore(planes=planes, lb=lb, ub=ub, want=want, flags=flags, flush=flush):
-            for x, y in zip(planes, (lb, ub, *want)):
-                x.copy_(y)
-            flags.zero_()
-            flush.zero_()
+                event_ms(torch, launch, lambda: sentinels(bacc))
+                if not (torch.equal(bacc[0], want[0]) and torch.equal(bacc[1], want[1])):
+                    raise SystemExit(f"round_variants: {label} variant {v} disagrees with the "
+                                     "plain version")
+                cases.append((label, "batched", v, launch, lambda: sentinels(bacc)))
+        fills["fused bucket"] = statistics.median(event_ms(torch, lambda: fill(bd.lb0))
+                                                  for _ in range(args.reps))
 
-        for v in (2, 3):
-            def launch(v=v, planes=planes, one=one, flags=flags, width=width, part=part):
-                return lib.merge_variant(v, *map(ptr, planes), ptr(one), ptr(flags), 1, width,
-                                         part.slab, eps, inf, 0.0, stream())
+    # #14's scatter on pbw at tile width 8 with a 128-node pool.
+    if 14 in only:
+        pbw = getattr(td, cs.WIDE_SPECS[1][1])(**cs.WIDE_SPECS[1][2])
+        prep8 = rt.prepare_block_ell(pbw, tile_width=cs.SOLVER_TILE_WIDTH, device="cuda")
+        part = prep8.slab_partition()
+        lbw, ubw = ops._node_planes(prep8, *cs.node_pool(np, rt, pbw, cs.POOL, seed=3))
+        nacc = accumulator_planes(lbw)
+        tn, rn, kn = part.val.shape
+        print(f"pbw K = {kn}: copy tiles {(tn, rn, kn)}, {int((part.val != 0).sum())} kept "
+              f"nonzeros, pool {tuple(lbw.shape)}", flush=True)
+        for n_act in (0, 8, 32, cs.POOL):
+            act = torch.zeros(cs.POOL, dtype=torch.bool, device="cuda")
+            if n_act:
+                act[:: cs.POOL // n_act] = True
+            partials = tref.node_slab_partials_ref(
+                part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_slab, act,
+                lbw, ubw, part.slab, part.a_max_run_len)
+            strs = tref.straddle_tables(part, *partials)
+            want = tref.node_slab_scatter_ref(
+                part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
+                part.run_start, part.run_slab, act, lbw, ubw, part.slab, cfg.int_eps)
+            label = f"#14 scatter pbw pool, {n_act} of {cs.POOL} active"
+            for v in NODE_SLAB_VARIANTS:
+                def launch(v=v, act=act, strs=strs):
+                    return lib.node_slab_variant(
+                        v, ptr(part.val), ptr(part.col_s), ptr(part.ii_g), ptr(part.chunk_len),
+                        ptr(part.row_done), *map(ptr, strs), ptr(part.lhs_g), ptr(part.rhs_g),
+                        ptr(part.run_start), ptr(part.run_slab), ptr(part.tile_slab), ptr(act),
+                        ptr(lbw), ptr(ubw), ptr(nacc[0]), ptr(nacc[1]), part.run_start.numel(),
+                        tn * rn, rn, kn, part.max_chunk_len, cs.POOL, lbw.shape[1], part.slab,
+                        cfg.int_eps, inf, stream())
 
-            cases.append((f"#15 {name}", "merge", v, launch, restore))
-        fills[name] = statistics.median(event_ms(torch, lambda lb=lb: fill(lb))
-                                        for _ in range(args.reps))
+                event_ms(torch, launch, lambda: sentinels(nacc))
+                if not (torch.equal(nacc[0], want[0]) and torch.equal(nacc[1], want[1])):
+                    raise SystemExit(f"round_variants: {label} variant {v} disagrees with the "
+                                     "plain version")
+                cases.append((label, "node_slab", v, launch, lambda: sentinels(nacc)))
+        fills["pbw pool"] = statistics.median(event_ms(torch, lambda: fill(lbw))
+                                              for _ in range(args.reps))
 
     for _ in range(args.reps):
         for label, kind, v, launch, reset in cases:
@@ -268,17 +388,16 @@ def main() -> int:
                 print(f"round_variants: {label} variant {v} failed", flush=True)
                 raise
             times.setdefault((label, kind, v), []).append(ms)
-    names = {"node": NODE_VARIANTS, "slab": SLAB_VARIANTS, "merge": MERGE_VARIANTS}
+    names = {"node": NODE_VARIANTS, "slab": SLAB_VARIANTS, "merge": MERGE_VARIANTS,
+             "batched": BATCHED_VARIANTS, "node_slab": NODE_SLAB_VARIANTS}
     rows = []
     for (label, kind, v), ms in times.items():
         row = dict(case=label, variant=v, what=names[kind][v], ms=statistics.median(ms))
         rows.append(row)
         print(f"{label} variant {v}: {row['ms']:.4f} ms  {row['what']}", flush=True)
-    print(f"sentinel planes the wrappers no longer fill per launch: ({cs.POOL}, {n_pad}) pair "
-          f"{fill_node:.4f} ms; " + "; ".join(f"{n} (1, n_pad) pair {ms:.4f} ms"
-                                               for n, ms in fills.items()), flush=True)
-    print(json.dumps({"gpu": smi, "variants": rows, "fill_ms": {"pbf pool": fill_node, **fills}}),
-          flush=True)
+    print("sentinel planes the wrappers no longer fill per launch (a pair of the case's "
+          "planes): " + "; ".join(f"{n} {ms:.4f} ms" for n, ms in fills.items()), flush=True)
+    print(json.dumps({"gpu": smi, "variants": rows, "fill_ms": fills}), flush=True)
     print(f"gpu: {smi}", flush=True)
     return 0
 
