@@ -17,7 +17,13 @@ numpy only, nothing of JAX) and, on one CUDA card:
   3. holds each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it, and times both with CUDA events: the
      kernel's own launch, the wrapper call as a whole, and the plain
-     version (A' and E beside the times of the kernels they replace);
+     version (D, A' and E beside the times of the kernels they replace).
+     D and E scatter into accumulator planes kept as the round closure
+     keeps them (at the sentinels before each timed launch), D with the
+     hoisted chunk lengths and longest chunk (its lanes per chunk printed:
+     chunks of at most 16 slots share a warp), and again into fresh planes
+     and with a warp per chunk; F must hand its planes back at the
+     sentinels;
   4. resets the launch counters, runs ``propagate_block_ell`` with its
      defaults on the three instances (the main path), reads the counters,
      and holds each result against the plain-version path
@@ -27,15 +33,18 @@ numpy only, nothing of JAX) and, on one CUDA card:
      fixed order) and between two runs of the kernel path, under
      ``bounds_equal`` against ``propagate``, which sums in another order; on
      ``pb`` also bitwise against ``propagate`` over the rounds whose sums are
-     exact; then one warm-started branch-and-bound node on ``pb``;
+     exact; the round closure's kept planes must be clean after each of its
+     first three rounds; then one warm-started branch-and-bound node on
+     ``pb``;
   5. prints per-round times, host syncs per fixed point and the card's idle
      share per fixed point;
   6. (phase 5) builds ``pbf``, a pseudo-boolean instance at the same size
      that is feasible at the root, and holds the node-batch kernels against
      their plain versions at the solver's shapes: the node round (#10, into
      accumulator planes kept across its launches as the engine keeps them,
-     reset between timed launches) and the batched merge (#9, which hands
-     the planes back) on its (18,750, 8, 8) tiles over a (128, 60,032) pool
+     reset between timed launches) and the batched merge (#9, which must
+     hand the active rows back and leave the others) on its (18,750, 8, 8)
+     tiles over a (128, 60,032) pool
      of warm-started node bounds with 0, 8 and 128 active rows, #10's bound
      with ``val`` read at the nonzeros (each chunk stopped at its length)
      beside the bound with ``val`` at every slot, and the node objective (#16)
@@ -294,10 +303,15 @@ OPS_PER_NNZ = {
     "node_combine_chunk_partials_tiles": 0,
     "straddle_combine_tiles": 0,  # four adds per straddle position: bytes bound it
 }
-# Times of A' and E on mixed before their redesign (one dependent chain per
-# stride over every slot, compare-and-swap max/min; NVIDIA H100 80GB HBM3,
-# 700 W), printed beside this run's.
-BEFORE_REDESIGN_MS = {"activities_gather_tiles": 0.1695, "candidates_scatter_tiles": 0.2150}
+# Kernels that stop each chunk at its length: their bound counts val at the
+# nonzeros, and the bound with val at every slot is printed beside it.
+STOPPED = ("fused_scatter_round_tiles", "activities_gather_tiles", "candidates_scatter_tiles")
+# Times before their redesign (one dependent chain per stride over every
+# slot, compare-and-swap max/min; NVIDIA H100 80GB HBM3, 700 W): A' and E
+# on mixed, D on pb, printed beside this run's.
+BEFORE_REDESIGN_MS = {("activities_gather_tiles", "mixed"): 0.1695,
+                      ("candidates_scatter_tiles", "mixed"): 0.2150,
+                      ("fused_scatter_round_tiles", "pb"): 0.1430}
 
 
 def log(*args):
@@ -473,15 +487,15 @@ def needed_bytes(kname: str, prep, nnz: int) -> dict:
     padding), ``col`` and the integrality marks for each real nonzero only,
     the per-chunk row data, and the (n_pad,) vectors -- for the segment
     kernels A, B and C the gathered bounds at each nonzero instead, and B's
-    and C's two (T, R, K) candidate outputs.  A' and E stop each chunk at its
-    length (an input, 4 B per chunk), so they need ``val`` at the nonzeros
-    only: :func:`padded_val_bytes` gives their bound with ``val`` at every
-    slot, the one the kernels before the redesign were held to."""
+    and C's two (T, R, K) candidate outputs.  D, A' and E stop each chunk at
+    its length (an input, 4 B per chunk), so they need ``val`` at the
+    nonzeros only: :func:`padded_val_bytes` gives their bound with ``val``
+    at every slot, the one the kernels before the redesign were held to."""
     t, r, k = prep.d.val.shape
     slots, chunks, vec = t * r * k, t * r, 8 * prep.n_pad
     if kname == "fused_scatter_round_tiles":
-        return dict(val=8 * slots, col=4 * nnz, is_int=4 * nnz, rows=16 * chunks,
-                    bounds=2 * vec, out=2 * vec)
+        return dict(val=8 * nnz, col=4 * nnz, is_int=4 * nnz, chunk_len=4 * chunks,
+                    rows=16 * chunks, bounds=2 * vec, out=2 * vec)
     if kname == "activities_gather_tiles":
         return dict(val=8 * nnz, col=4 * nnz, chunk_len=4 * chunks, bounds=2 * vec,
                     out=24 * chunks)
@@ -501,7 +515,7 @@ def needed_bytes(kname: str, prep, nnz: int) -> dict:
 
 
 def padded_val_bytes(moved: dict, prep) -> dict:
-    """A' or E's bytes with ``val`` read at every padded slot and no
+    """D, A' or E's bytes with ``val`` read at every padded slot and no
     lengths: the bound of the kernels before the redesign, which walked
     every slot."""
     t, r, k = prep.d.val.shape
@@ -555,18 +569,35 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed):
             r.update(ms=kernel_ms(torch, build, fn_k, reset=reset),
                      wrapper_ms=time_ms(torch, fn_k),
                      plain_ms=time_ms(torch, fn_p), bound_ms=b_ms, bound_by=b_by, bytes=moved)
-            if kname in BEFORE_REDESIGN_MS:
+            if kname in STOPPED:
                 r["bound_all_slots_ms"] = bound(sum(padded_val_bytes(moved, prep).values()),
                                                 OPS_PER_NNZ[kname] * nnz)[0]
         rows[kname] = r
 
+    # The accumulator planes of D and E, kept as the round closure keeps
+    # them: at the sentinels before each timed launch, as F leaves them (the
+    # wrapper's time is taken over back-to-back calls into the same planes).
+    acc = tk.accumulator_planes(lb)
+    sentinels = lambda: (acc[0].fill_(-cfg.inf), acc[1].fill_(cfg.inf))
+    clean = lambda what: planes_clean(torch, acc, cfg.inf, f"{name}: {what}")
+    k = d.val.shape[-1]
     if prep.fits_one_chunk:
         args = (d.val, d.col, prep.ii_g, prep.lhs_g, prep.rhs_g, lb, ub, n_pad, cfg.int_eps)
-        got = tk.fused_scatter_round_tiles(*args)
+        # The lengths and the longest chunk hoisted at prepare time: where
+        # no chunk holds more than 16 slots, several chunks share a warp.
+        hoisted = dict(chunk_len=prep.chunk_len, max_chunk_len=prep.max_chunk_len)
         want = tref.fused_scatter_round_tiles_ref(*args)
+        got = tk.fused_scatter_round_tiles(*args, acc=acc, **hoisted)
+        # Fresh planes and the lengths computed by the wrapper; and a warp
+        # with four strides per chunk whatever the chunks hold (no packing).
+        max_abs_err(torch, tk.fused_scatter_round_tiles(*args), want)
+        max_abs_err(torch, tk.fused_scatter_round_tiles(*args, chunk_len=prep.chunk_len,
+                                                        max_chunk_len=k), want)
         row("fused_scatter_round_tiles", got, want,
-            lambda: tk.fused_scatter_round_tiles(*args),
-            lambda: tref.fused_scatter_round_tiles_ref(*args))
+            lambda: tk.fused_scatter_round_tiles(*args, acc=acc, **hoisted),
+            lambda: tref.fused_scatter_round_tiles_ref(*args), reset=sentinels)
+        rows["fused_scatter_round_tiles"].update(
+            lanes=lanes_per_chunk(min(prep.max_chunk_len, k)), max_chunk_len=prep.max_chunk_len)
         best_l, best_u = want
     else:
         # Each chunk's length as the engine hoists it (prepare time).
@@ -589,26 +620,49 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed):
                 torch, want, d.chunk_row, prep.row_start)
         e_args = (d.val, d.col, prep.ii_g, *aggs, prep.lhs_g, prep.rhs_g, lb, ub, n_pad,
                   cfg.int_eps)
-        got = tk.candidates_scatter_tiles(*e_args, **clen)
         want = tref.candidates_scatter_tiles_ref(*e_args)
+        got = tk.candidates_scatter_tiles(*e_args, **clen, acc=acc)
+        max_abs_err(torch, tk.candidates_scatter_tiles(*e_args, **clen), want)  # fresh planes
         row("candidates_scatter_tiles", got, want,
-            lambda: tk.candidates_scatter_tiles(*e_args, **clen),
-            lambda: tref.candidates_scatter_tiles_ref(*e_args))
+            lambda: tk.candidates_scatter_tiles(*e_args, **clen, acc=acc),
+            lambda: tref.candidates_scatter_tiles_ref(*e_args), reset=sentinels)
         best_l, best_u = want
 
     eps = cfg.eps_for(lb.dtype)
     want = ops.bnd.apply_updates(lb, ub, best_l, best_u, eps)
-    got = tk.apply_updates_tiles(lb.clone(), ub.clone(), best_l, best_u, eps)
+    # F hands the planes it reads back at the sentinels: here the kept
+    # planes that the scatter filled (and the timing left full).
+    acc[0].copy_(best_l)
+    acc[1].copy_(best_u)
+    got = tk.apply_updates_tiles(lb.clone(), ub.clone(), *acc, eps)
+    clean("F did not hand its planes back")
     # Kernel time on scratch copies restored before each launch; the
-    # wrapper's time on repeated calls, where nothing tightens after the
-    # first.
+    # wrapper's time on repeated calls, where nothing tightens and no
+    # accumulator entry is handed back after the first.
     lbw, ubw = lb.clone(), ub.clone()
     row("apply_updates_tiles", got, want,
-        lambda: tk.apply_updates_tiles(lbw, ubw, best_l, best_u, eps),
+        lambda: tk.apply_updates_tiles(lbw, ubw, *acc, eps),
         lambda: ops.bnd.apply_updates(lb, ub, best_l, best_u, eps),
-        moved=dict(merge_bytes(torch, ops.bnd, lb, ub, best_l, best_u, eps), flag=1),
-        reset=fresh_inputs(torch, [(lbw, lb), (ubw, ub)]))
+        moved=dict(merge_bytes(torch, ops.bnd, lb, ub, best_l, best_u, eps, inf=cfg.inf),
+                   flag=1),
+        reset=fresh_inputs(torch, [(lbw, lb), (ubw, ub), (acc[0], best_l), (acc[1], best_u)]))
     return rows
+
+
+def lanes_per_chunk(max_len: int) -> int:
+    """Kernel D's lanes per chunk for chunks of at most ``max_len`` slots:
+    ``max_len`` rounded up to a power of two, at most a warp."""
+    g = 1
+    while g < max_len and g < 32:
+        g *= 2
+    return g
+
+
+def planes_clean(torch, acc, inf: float, what: str) -> None:
+    """Fail unless every entry of the accumulator planes ``acc`` holds its
+    sentinel (``-inf`` / ``inf``)."""
+    if not (bool((acc[0] == -inf).all()) and bool((acc[1] == inf).all())):
+        fail(what)
 
 
 def check_same(rt, name, got, want, bitwise, what):
@@ -672,9 +726,12 @@ def smoke(torch, dev):
                              prep.lb0, prep.ub0, timed=True)
         for kname, r in rows.items():
             extra = ""
-            if kname in BEFORE_REDESIGN_MS:
-                extra = (f" bound_all_slots_ms={r['bound_all_slots_ms']:.4f} (before the "
-                         f"redesign: {BEFORE_REDESIGN_MS[kname]:.4f} ms)")
+            if kname in STOPPED:
+                extra = f" bound_all_slots_ms={r['bound_all_slots_ms']:.4f}"
+            if (kname, name) in BEFORE_REDESIGN_MS:
+                extra += f" (before the redesign: {BEFORE_REDESIGN_MS[kname, name]:.4f} ms)"
+            if "lanes" in r:
+                extra += f" lanes_per_chunk={r['lanes']} (longest chunk {r['max_chunk_len']})"
             log(f"kernel {kname} on {name}: max_abs_err={r['max_abs_err']} ms={r['ms']:.4f} "
                 f"wrapper_ms={r['wrapper_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
                 f"bound_ms={r['bound_ms']:.4f} "
@@ -720,6 +777,14 @@ def smoke(torch, dev):
                                       timed=True).items():
             log(f"kernel {kname} on {name} at the final bounds: max_abs_err={r['max_abs_err']} "
                 f"ms={r['ms']:.4f} wrapper_ms={r['wrapper_ms']:.4f} plain_ms={r['plain_ms']:.4f}")
+        # The round closure's kept planes after each of its first rounds: F
+        # (after D, or A', the combine and E) hands every entry back.
+        round_fn = ops.round_fn_for(prep)
+        lbr, ubr = prep.lb0.clone(), prep.ub0.clone()
+        for i in range(3):
+            lbr, ubr, _ = round_fn(lbr, ubr)
+            planes_clean(torch, round_fn.kept.planes, ops.DEFAULT_CONFIG.inf,
+                         f"{name}: the closure's planes are not clean after round {i + 1}")
         plain = rt.propagate_block_ell(p, use_kernels=False, device=dev)
         # Same tiles and summation order, long rows included: bitwise.
         check_same(rt, name, results[name], plain, True, "the plain-version path")
@@ -1000,8 +1065,15 @@ def node_kernel_phase(torch, np, rt, tk, tref, ops, build, pbf, prep, dev):
 
         best_l, best_u = want
         want_m = ops.bnd.apply_updates_batch(lbp, ubp, best_l, best_u, eps, active=act)
-        got_m = tk.apply_updates_batch_tiles(lbp.clone(), ubp.clone(), best_l.clone(),
-                                             best_u.clone(), act, eps)
+        handed = (best_l.clone(), best_u.clone())
+        got_m = tk.apply_updates_batch_tiles(lbp.clone(), ubp.clone(), *handed, act, eps)
+        # #9 hands the active rows back at the sentinels and leaves the
+        # others as they were.
+        planes_clean(torch, (handed[0][act], handed[1][act]), cfg.inf,
+                     f"#9 on {shape} did not hand the active rows back")
+        if not (torch.equal(handed[0][~act], best_l[~act])
+                and torch.equal(handed[1][~act], best_u[~act])):
+            fail(f"#9 on {shape} wrote an inactive row")
         # In place on scratch planes and candidates (the merge hands the
         # active rows back at the sentinels), restored before each timed
         # launch; the mask is read and the per-row flags written.

@@ -61,20 +61,22 @@
 // K <= 16 the sum is the same as the one-warp-per-chunk butterfly of
 // ref.warp_order_sum: lanes past K hold +0.0, and adding +0.0 to a lane sum
 // (never -0.0, since each starts at +0.0) leaves it unchanged.  The group
-// width is a template parameter, so the shuffles unroll.  The TPU kernels'
+// width is a template parameter, so the shuffles unroll.  D keys its group
+// width on the longest chunk instead of K: chunks of at most 16 slots are
+// packed 32 / G to a warp at any K, by the same argument.  The TPU kernels'
 // one-hot gather becomes an indexed load (the (n_pad,) bound vectors stay
-// in L2), and their one-hot column scatter
-// becomes a double-precision atomic max/min: a compare-and-swap loop on the
-// value in D (so -0.0 and +0.0 compare equal, as they do in the oracle),
-// 64-bit integer atomics in E, #8, #10 and their node forms (red_max_f64 /
-// red_min_f64, -0.0 entering as +0.0).  Max and min do not depend on
-// order, so the scatter is exact.  A', E, #8 and #10 stop each chunk at its
-// length (one past its last nonzero, an (T, R) int32 input hoisted from
-// structure) and issue several strides' loads before their bound gathers;
-// #8 and #10 gather each nonzero's bounds once and hold them from the sums
-// to the candidates (chunk_round).  D accumulates into planes its wrapper
-// fills with the sentinel per launch; #8 and #10 into planes the engine
-// keeps for the whole fixed point, which #9 hands back at the sentinel.
+// in L2), and their one-hot column scatter becomes a double-precision
+// max/min by 64-bit integer atomics (red_max_f64 / red_min_f64, -0.0
+// entering as +0.0, so -0.0 and +0.0 compare equal, as they do in the
+// oracle).  Max and min do not depend on order, so the scatter is exact.
+// D, A', E, #8 and #10 stop each chunk at its length (one past its last
+// nonzero, an (T, R) int32 input hoisted from structure) and issue several
+// strides' loads before their bound gathers; D, #8 and #10 gather each
+// nonzero's bounds once and hold them from the sums to the candidates
+// (chunk_round).  D and E accumulate into (n_pad,) planes that the round
+// closure keeps for the whole fixed point, which F hands back at the
+// sentinel; #8 and #10 into (B, n_pad) planes kept the same way, which #9
+// hands back.
 // The device code the chunk kernels share with slab_round.cu (lane groups,
 // chunk aggregates, candidates + scatter, chunk_round, the active-only
 // walk, the one-column merges) is in round_common.cuh.
@@ -90,19 +92,34 @@
 
 namespace {
 
-template <int G>
+// Kernel D on chunk_round (round_common.cuh): each nonzero's bounds
+// gathered once and held from the sums to the candidates, values, columns
+// and marks loaded together, each chunk stopped at its hoisted length
+// clen[c], the column max / min by 64-bit integer reductions into the
+// planes best_l / best_u (kept by the round closure: F hands them back at
+// the sentinels).  The group width is keyed on the longest chunk, not on K:
+// where no chunk holds more than 16 slots (pb's hold at most 8 of K = 128)
+// a group of G = group_width(max_len) lanes owns a chunk, 32 / G chunks a
+// warp.  The sums stay ref.warp_order_sum's: every slot of a chunk lies in
+// its group's first stride, lane sl adds slot sl to +0.0, and the 32-lane
+// butterfly over lanes that hold +0.0 past the group reduces to the G-lane
+// one.  Longer chunks take a warp and held_strides(max_len) strides.  At
+// one stride held it takes 52-64 registers, four blocks an SM, without a
+// cap (a cap of 64 changes nothing; one of 40 spills and runs 22% slower
+// on pb: tools/round_variants.py).
+template <int G, int U>
 __global__ void __launch_bounds__(kThreads)
 fused_scatter_round_kernel(const double* __restrict__ val, const int* __restrict__ col,
-                           const int* __restrict__ ii, const double* __restrict__ lhs,
-                           const double* __restrict__ rhs, const double* __restrict__ lb,
-                           const double* __restrict__ ub, double* best_l, double* best_u,
-                           int64_t n_chunks, int k, double int_eps, double inf) {
+                           const int* __restrict__ ii, const int* __restrict__ clen,
+                           const double* __restrict__ lhs, const double* __restrict__ rhs,
+                           const double* __restrict__ lb, const double* __restrict__ ub,
+                           double* best_l, double* best_u, int64_t n_chunks, int k,
+                           double int_eps, double inf) {
   const Lanes L = lanes_for<G>(n_chunks);
-  const int64_t base = L.chunk * k;
-  const RowAgg a = chunk_aggregates<G>(val, col, lb, ub, base, L.live ? k : 0, L, inf);
-  if (!L.live) return;
-  chunk_candidates_scatter(val, col, ii, lb, ub, a, lhs[L.chunk], rhs[L.chunk], best_l, best_u,
-                           base, k, L, int_eps, inf);
+  const int64_t c = L.chunk;
+  chunk_round<G, U>(val, col, ii, SplitBounds{lb, ub}, c * k, L.live ? k : 0,
+                    L.live ? clen[c] : 0, true, RowAgg{}, L.live ? lhs[c] : 0.0,
+                    L.live ? rhs[c] : 0.0, best_l, best_u, L.sl, int_eps, inf);
 }
 
 // Kernel A' (and E below) stop each lane group at its chunk's length
@@ -164,14 +181,18 @@ candidates_scatter_kernel(const double* __restrict__ val, const int* __restrict_
   }
 }
 
+// Kernel F: one thread per column.  Each accumulator entry it reads goes
+// back to the sentinel (merge_reset), so the planes that D and E scatter
+// into, kept by the round closure for the whole fixed point, are clean for
+// the next round.
 __global__ void __launch_bounds__(kThreads)
 apply_updates_kernel(double* __restrict__ lb, double* __restrict__ ub,
-                     const double* __restrict__ best_l, const double* __restrict__ best_u,
+                     double* __restrict__ best_l, double* __restrict__ best_u,
                      bool* __restrict__ changed, int64_t n, double eps, double inf,
                      double outward) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  if (merge_one(lb, ub, best_l, best_u, i, eps, inf, outward)) *changed = true;
+  if (merge_reset(lb, ub, best_l, best_u, i, eps, inf, outward)) *changed = true;
 }
 
 // The long-row combine: each row segment's chunk partials summed left to
@@ -478,21 +499,54 @@ batched_fused_scatter_round_kernel(const double* __restrict__ val, const int* __
   }
 }
 
-// Kernel F over (B, n_pad) planes: grid (column blocks, B); the blocks of an
-// inactive row return at once, so it is neither read nor written.  Each
-// accumulator entry it reads goes back to the sentinel (merge_reset), so
-// the planes of #8 and #10, kept for the whole fixed point, are clean for
-// their next round; the fresh planes of node E do not mind.
+// Kernel F over (B, n_pad) planes, on the active-only walk of
+// round_common.cuh: an item is one (active row, block of kMergeCols *
+// kThreads columns) pair, the items walked row by row over at most the
+// resident blocks, so no block is spent on an inactive row, which is
+// neither read nor written.  (A (column block, row) grid launches every
+// row's blocks: with 8 of 128 rows active, 94% of them read the mask and
+// return.)  A thread loads the bounds and candidates of its kMergeCols
+// columns before it merges any (one column per thread ran 3% slower with a
+// full pool and 22% slower with 4 of 4 rows of the fused batch active:
+// tools/round_variants.py).  Each accumulator entry it reads goes back to
+// the sentinel, so the planes of #8 and #10, kept for the whole fixed
+// point, are clean for their next round; the fresh planes of node E do not
+// mind.  A warp that tightened a bound stores its row's flag once.
+constexpr int kMergeCols = 4;
+
 __global__ void __launch_bounds__(kThreads)
 apply_updates_batch_kernel(double* __restrict__ lb, double* __restrict__ ub,
                            double* __restrict__ best_l, double* __restrict__ best_u,
                            const bool* __restrict__ active, bool* __restrict__ changed,
-                           int64_t n_pad, double eps, double inf, double outward) {
-  const int64_t b = blockIdx.y;
-  if (!active[b]) return;
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= n_pad) return;
-  if (merge_reset(lb, ub, best_l, best_u, b * n_pad + j, eps, inf, outward)) changed[b] = true;
+                           int64_t bsz, int64_t n_pad, double eps, double inf, double outward) {
+  constexpr int64_t kCols = static_cast<int64_t>(kThreads) * kMergeCols;
+  const EqualItems items_of{(n_pad + kCols - 1) / kCols};
+  const Walk walk = ballot_walk(active, bsz, items_of);
+  WalkCursor cur;
+  for (int64_t item = blockIdx.x; item < walk.items; item += gridDim.x) {
+    cur.seek(item, walk, items_of);
+    const int64_t j0 = (item - cur.first) * kCols + threadIdx.x, row = cur.plane * n_pad;
+    double l[kMergeCols], u[kMergeCols], bl[kMergeCols], bu[kMergeCols];
+#pragma unroll
+    for (int v = 0; v < kMergeCols; ++v) {
+      const int64_t j = j0 + v * kThreads;
+      const bool in = j < n_pad;
+      l[v] = in ? lb[row + j] : 0.0;
+      u[v] = in ? ub[row + j] : 0.0;
+      bl[v] = in ? best_l[row + j] : -inf;
+      bu[v] = in ? best_u[row + j] : inf;
+    }
+    bool tightened = false;
+#pragma unroll
+    for (int v = 0; v < kMergeCols; ++v) {
+      const int64_t j = j0 + v * kThreads, i = row + j;
+      if (bl[v] != -inf) best_l[i] = -inf;  // merge_reset's hand-back
+      if (bu[v] != inf) best_u[i] = inf;
+      if (j < n_pad) tightened |= merge_loaded(lb, ub, i, l[v], u[v], bl[v], bu[v], eps, inf,
+                                               outward);
+    }
+    if (__any_sync(0xffffffffu, tightened) && threadIdx.x % kWarp == 0) changed[cur.plane] = true;
+  }
 }
 
 constexpr int kObjThreads = 1024;
@@ -610,13 +664,19 @@ extern "C" {
 
 const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-int fused_scatter_round(const double* val, const int* col, const int* ii, const double* lhs,
-                        const double* rhs, const double* lb, const double* ub, double* best_l,
-                        double* best_u, int64_t n_chunks, int k, double int_eps, double inf,
-                        cudaStream_t stream) {
-  LAUNCH_FOR_WIDTH(fused_scatter_round_kernel, k, n_chunks, stream, val, col, ii, lhs, rhs, lb,
-                   ub, best_l, best_u, n_chunks, k, int_eps, inf);
-  return static_cast<int>(cudaGetLastError());
+int fused_scatter_round(const double* val, const int* col, const int* ii, const int* clen,
+                        const double* lhs, const double* rhs, const double* lb, const double* ub,
+                        double* best_l, double* best_u, int64_t n_chunks, int k, int max_len,
+                        double int_eps, double inf, cudaStream_t stream) {
+  // The group width of the longest chunk (at most K's).
+  const int width = max_len < k ? max_len : k;
+  const unsigned int blocks = chunk_blocks(n_chunks, width);
+#define FUSED(G, U)                                                                          \
+  launch_blocks<fused_scatter_round_kernel<G, U>>(blocks, stream, val, col, ii, clen, lhs, \
+                                                  rhs, lb, ub, best_l, best_u, n_chunks, k, \
+                                                  int_eps, inf)
+  DISPATCH_HELD(FUSED, width, held_strides(max_len))
+#undef FUSED
 }
 
 int activities_gather(const double* val, const int* col, const int* clen, const double* lub,
@@ -661,9 +721,8 @@ int node_candidates_scatter(const double* val, const int* col, const int* ii, co
   return static_cast<int>(cudaGetLastError());
 }
 
-int apply_updates(double* lb, double* ub, const double* best_l, const double* best_u,
-                  bool* changed, int64_t n, double eps, double inf, double outward,
-                  cudaStream_t stream) {
+int apply_updates(double* lb, double* ub, double* best_l, double* best_u, bool* changed,
+                  int64_t n, double eps, double inf, double outward, cudaStream_t stream) {
   const unsigned int blocks = static_cast<unsigned int>((n + kThreads - 1) / kThreads);
   apply_updates_kernel<<<blocks, kThreads, 0, stream>>>(lb, ub, best_l, best_u, changed, n, eps,
                                                         inf, outward);
@@ -750,11 +809,11 @@ int batched_fused_scatter_round(const double* val, const int* col, const int* ii
 int apply_updates_batch(double* lb, double* ub, double* best_l, double* best_u,
                         const bool* active, bool* changed, int64_t bsz, int64_t n_pad,
                         double eps, double inf, double outward, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned int>((n_pad + kThreads - 1) / kThreads),
-                  static_cast<unsigned int>(bsz));
-  apply_updates_batch_kernel<<<grid, kThreads, 0, stream>>>(lb, ub, best_l, best_u, active,
-                                                            changed, n_pad, eps, inf, outward);
-  return static_cast<int>(cudaGetLastError());
+  // At most one block per item.
+  const int64_t most = (n_pad + kThreads * kMergeCols - 1) / (kThreads * kMergeCols) * bsz;
+  return launch_walk<apply_updates_batch_kernel>(most, bsz, stream, lb, ub, best_l, best_u,
+                                                 active, changed, bsz, n_pad, eps, inf,
+                                                 outward);
 }
 
 int node_objective(const double* lb, const double* ub, const double* c, const bool* is_int,

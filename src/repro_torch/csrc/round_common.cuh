@@ -3,8 +3,8 @@
 // come from (its column, or pre-gathered tiles), the chunk's activity
 // aggregates, its candidates with the column max/min scatter or stored per
 // slot, one chunk's whole round with a single bound gather per nonzero
-// (chunk_round, kernels #8, #10, #12 and #14), the active-only walk over
-// (plane, chunk block) items (#8, #10, #14), and the bound merge of one
+// (chunk_round, kernels D, #8, #10, #12 and #14), the active-only walk over
+// (plane, item) pairs (#8, #9, #10, #14), and the bound merge of one
 // column, with or without handing the accumulator entry back
 // (merge_reset).  See prop_round.cu for the layout and the rounding rules
 // (--fmad=false, division-first candidates).
@@ -192,9 +192,12 @@ __device__ __forceinline__ Cands slot_candidates(double v, const Slot& s, const 
   return Cands{lc, uc};
 }
 
-// tile_candidates of one chunk followed by the column max/min.  Slots whose
-// candidate is the sentinel (padding, invalid residual or side) skip the
-// atomic: the accumulators start at the sentinel, so skipping is exact.
+// tile_candidates of one chunk followed by the column max/min by
+// compare-and-swap loops: kernel D's routine before it moved onto
+// chunk_round, kept as the "before" variant of tools/round_variants.cu.
+// Slots whose candidate is the sentinel (padding, invalid residual or side)
+// skip the atomic: the accumulators start at the sentinel, so skipping is
+// exact.
 __device__ __forceinline__ void chunk_candidates_scatter(
     const double* __restrict__ val, const int* __restrict__ col, const int* __restrict__ ii,
     const double* __restrict__ lb, const double* __restrict__ ub, const RowAgg& a, double lhs,
@@ -230,12 +233,12 @@ __device__ __forceinline__ void chunk_candidates_store(
 }
 
 
-// bounds.apply_updates for column i with best candidates bl, bu, in place;
-// true if a bound tightened.
-__device__ __forceinline__ bool merge_values(double* __restrict__ lb, double* __restrict__ ub,
-                                             int64_t i, double bl, double bu, double eps,
-                                             double inf, double outward) {
-  const double l = lb[i], u = ub[i];
+// bounds.apply_updates for column i, whose bounds l, u and best candidates
+// bl, bu are loaded already, in place; true if a bound tightened.
+__device__ __forceinline__ bool merge_loaded(double* __restrict__ lb, double* __restrict__ ub,
+                                             int64_t i, double l, double u, double bl,
+                                             double bu, double eps, double inf,
+                                             double outward) {
   const bool take_l = bl > l + eps * fmax(1.0, fabs(l));
   const bool take_u = bu < u - eps * fmax(1.0, fabs(u));
   if (outward != 0.0) {
@@ -247,6 +250,15 @@ __device__ __forceinline__ bool merge_values(double* __restrict__ lb, double* __
   return take_l || take_u;
 }
 
+// The same, loading the bounds.
+__device__ __forceinline__ bool merge_values(double* __restrict__ lb, double* __restrict__ ub,
+                                             int64_t i, double bl, double bu, double eps,
+                                             double inf, double outward) {
+  return merge_loaded(lb, ub, i, lb[i], ub[i], bl, bu, eps, inf, outward);
+}
+
+// The merge that only reads its accumulator entry (the merges before they
+// handed the planes back; tools/round_variants.cu times it).
 __device__ __forceinline__ bool merge_one(double* __restrict__ lb, double* __restrict__ ub,
                                           const double* __restrict__ best_l,
                                           const double* __restrict__ best_u, int64_t i,
@@ -256,8 +268,8 @@ __device__ __forceinline__ bool merge_one(double* __restrict__ lb, double* __res
 
 // merge_one that hands its accumulator entry back: the candidates are read,
 // the entry is set to the sentinel again (a store only where a candidate
-// landed), then merged.  The batched merges (#9, #15) take this form, so
-// that planes kept for a whole fixed point are clean for the next round.
+// landed), then merged.  The merges (F, #9, #15) take this form, so that
+// planes kept for a whole fixed point are clean for the next round.
 __device__ __forceinline__ bool merge_reset(double* __restrict__ lb, double* __restrict__ ub,
                                             double* __restrict__ best_l,
                                             double* __restrict__ best_u, int64_t i, double eps,
@@ -447,9 +459,9 @@ __device__ __forceinline__ void scatter_strides(const Loaded<U>& s, const B& b, 
 }
 
 // ---------------------------------------------------------------------------
-// Kernels #8, #10, #12 and #14: one chunk's whole round, each nonzero's
+// Kernels D, #8, #10, #12 and #14: one chunk's whole round, each nonzero's
 // bounds gathered once.  chunk_aggregates followed by
-// chunk_candidates_scatter (kernel D's routine, which D keeps) loads every
+// chunk_candidates_scatter (D's routine before) loads every
 // slot of the chunk twice and gathers its two bounds twice, two 8-byte
 // loads each time, and reduces by compare-and-swap loops.  Here a lane loads its first U
 // strides (values, columns and integrality marks together; stopped at the
@@ -464,7 +476,7 @@ __device__ __forceinline__ void scatter_strides(const Loaded<U>& s, const B& b, 
 // slower than D's routine, while the copy streams' chunks hold at most 32
 // slots (tools/round_variants.py).  A lane adds its slots in the order sl,
 // sl + 32, ... and the group reduces by the same butterfly, so the sums are
-// ref.warp_order_sum's, as D's are.
+// ref.warp_order_sum's.
 // ---------------------------------------------------------------------------
 
 // Strides a lane holds for chunks of at most max_len slots: 1, 2 or 4.
@@ -524,9 +536,10 @@ __device__ __forceinline__ void chunk_round(const double* __restrict__ val,
   }
 
 // ---------------------------------------------------------------------------
-// The active-only walks of #8, #10 and #14.  A work item is one (active
+// The active-only walks of #8, #9, #10 and #14.  A work item is one (active
 // plane, chunk block) pair, a chunk block being the chunks of one
-// kThreads-thread block (32 / G per warp); items are numbered plane by
+// kThreads-thread block (32 / G per warp; #9's item is a block of columns,
+// four per thread); items are numbered plane by
 // plane, and the blocks walk them with a grid-stride loop over a grid of at
 // most the resident blocks, so the items in flight belong to one or a few
 // planes and those planes' rows stay in L2.  Each block first ballots the
@@ -544,7 +557,7 @@ __device__ __forceinline__ int64_t block_chunks() {
 }
 
 // Items of a plane whose chunks are the stream's first n_chunks (#10, #14:
-// one matrix shared by every node).
+// one matrix shared by every node; #9: the column blocks of every row).
 struct EqualItems {
   int64_t n_blocks;
   __device__ __forceinline__ int64_t operator()(int64_t) const { return n_blocks; }
@@ -661,6 +674,13 @@ __device__ __forceinline__ WalkLanes walk_lanes(int64_t item, const WalkCursor& 
   L.sl = lane % G;
   L.live = L.chunk < items_of.end_chunk(cur.plane, n_chunks);
   return L;
+}
+
+// Launch Kernel over `blocks` blocks of kThreads (none for an empty grid).
+template <auto Kernel, typename... Args>
+int launch_blocks(unsigned int blocks, cudaStream_t stream, Args... args) {
+  if (blocks > 0) Kernel<<<blocks, kThreads, 0, stream>>>(args...);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launch a walk kernel over a grid of at most `most` blocks and at most the

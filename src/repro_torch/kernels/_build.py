@@ -37,7 +37,7 @@ P, I64, I32, F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_doubl
 # a cudaError_t.
 SIGNATURES = {
     "prop_round.cu": {
-        "fused_scatter_round": [P] * 9 + [I64, I32, F64, F64, P],
+        "fused_scatter_round": [P] * 10 + [I64, I32, I32, F64, F64, P],
         "activities_gather": [P] * 8 + [I64, I32, F64, P],
         "candidates_scatter": [P] * 13 + [I64, I32, F64, F64, P],
         "node_activities_gather": [P] * 10 + [I64, I32, I64, I64, F64, P],

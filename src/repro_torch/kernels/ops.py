@@ -14,7 +14,9 @@ semantics so they converge to the same fixed points.
     rows that span chunks run kernel A' (chunk partials), the combine kernel
     (each row's partials summed left to right: a thread per short row, a
     warp per long row, by the segment classes hoisted at prepare time),
-    kernel E (candidates + column max/min), then F.
+    kernel E (candidates + column max/min), then F.  D and E scatter into
+    accumulator planes that the round closure keeps for its whole fixed
+    point, and F sets them back to the sentinels.
   * The ``"partitioned"`` round (``slab.SlabPartition``, built once per slab
     width on the host): the straddle rows' copy partials (#11), their
     completed aggregates by the straddle combine kernel in one fixed order
@@ -53,9 +55,10 @@ semantics so they converge to the same fixed points.
   * The fixed point runs on private copies of the cached initial bounds, so
     the in-place merges never touch the cache.
 
-Per-round device-memory traffic of the fused round: ``val`` (8 B per padded
-slot, its zeros mark the padding), ``col`` and ``is_int`` (8 B per nonzero),
-plus O(m + n_pad) for the bound and accumulator vectors and the row data.
+Per-round device-memory traffic of the fused round: ``val``, ``col`` and
+``is_int`` at the nonzeros (16 B each; every chunk stops at its hoisted
+length), plus O(m + n_pad) for the lengths, the row data and the bound and
+accumulator vectors.
 """
 from __future__ import annotations
 
@@ -202,8 +205,8 @@ class PreparedBlockEll:
     ub0: torch.Tensor    # (n_pad,)
     row_start: torch.Tensor  # (m+2,) int64: first chunk of each row, padding row m too
     seg_classes: tuple       # the combine's (short, long) int32 segment ids, hoisted
-    chunk_len: torch.Tensor  # (T, R) int32: one past each chunk's last nonzero (A', E, #10)
-    max_chunk_len: int       # its largest entry: the strides #10 holds per lane
+    chunk_len: torch.Tensor  # (T, R) int32: one past each chunk's last nonzero (D, A', E, #10)
+    max_chunk_len: int       # its largest entry: D's lanes per chunk, the strides D and #10 hold
     m: int
     n: int
     n_pad: int
@@ -362,16 +365,17 @@ def gather_bounds(lb, ub, col):
 
 
 class KeptPlanes:
-    """The ``(B, W)`` accumulator planes of kernels #8, #10, #12 and #14,
-    kept by the round closure that owns them (or the service's bucket
-    engine) for its whole fixed point: allocated and
+    """The accumulator planes of kernels D and E (``(n_pad,)``) and #8, #10,
+    #12 and #14 (``(B, W)``), kept by the round closure that owns them (or
+    the service's bucket engine) for its whole fixed point: allocated and
     filled with the sentinels at the first round
     (:func:`prop_round.accumulator_planes`), scattered into by the kernel,
-    and set back to the sentinels by the merge that reads them (#9 or #15,
-    the active rows: the rows the kernel scattered into), so each round
-    finds them clean.  A new shape or device allocates anew.  One pair per
-    thread, since a cached closure may run in several threads; a round that
-    raises drops the pair (it may have scattered without merging)."""
+    and set back to the sentinels by the merge that reads them (F, every
+    column; #9 or #15, the active rows: the rows the kernel scattered
+    into), so each round finds them clean.  A new shape or device
+    allocates anew.  One pair per thread, since a cached closure may run in
+    several threads; a round that raises drops the pair (it may have
+    scattered without merging)."""
 
     def __init__(self, inf: float):
         self.inf = inf
@@ -408,11 +412,12 @@ class RoundOps(NamedTuple):
     """The functions of a round: the kernel wrappers, or their plain
     PyTorch versions."""
 
-    fused: Callable       # D: tiles + bounds -> (best_l, best_u)
+    fused: Callable       # D: tiles + bounds (+ acc, hoisted lengths) -> (best_l, best_u)
     activities: Callable  # A': tiles + bounds -> chunk partials
     combine: Callable     # chunk partials -> completed row aggregates
-    candidates: Callable  # E: tiles + row aggregates + bounds -> (best_l, best_u)
-    merge: Callable       # F: (lb, ub, best_l, best_u, eps, inf, outward) -> (lb, ub, changed)
+    candidates: Callable  # E: tiles + row aggregates + bounds (+ acc) -> (best_l, best_u)
+    merge: Callable       # F: (lb, ub, best_l, best_u, eps, inf, outward) -> (lb, ub, changed);
+                          # hands best_l / best_u back at the sentinels
     node_fused: Callable  # #10: tiles + (B, n_pad) planes + active + kept -> (best_l, best_u)
     merge_batch: Callable  # #9: (lb, ub, best_l, best_u, active, eps, inf, outward)
     partitioned: Callable  # (part, lb, ub, active, ..., kept) -> (lb, ub, (B,) changed)
@@ -431,6 +436,31 @@ def _kernel_node_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, 
         val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, int_eps, inf,
         acc=kept.get(lb), chunk_len=chunk_len, max_chunk_len=max_chunk_len,
     )
+
+
+def _plain_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, n_pad, int_eps, inf=INF, *,
+                 acc=None, chunk_len=None, max_chunk_len=None):
+    """D's plain version, folded into the kept planes ``acc`` as the kernel
+    scatters into them (the hoisted lengths change nothing)."""
+    del chunk_len, max_chunk_len
+    best = kref.fused_scatter_round_tiles_ref(val, col, is_int_g, lhs_g, rhs_g, lb, ub, n_pad,
+                                              int_eps, inf)
+    return best if acc is None else kern._fold(acc, best)
+
+
+def _plain_candidates(*args, chunk_len=None, acc=None):
+    """E's plain version, folded into the kept planes ``acc`` as the kernel
+    scatters into them."""
+    best = kref.candidates_scatter_tiles_ref(*args, chunk_len=chunk_len)
+    return best if acc is None else kern._fold(acc, best)
+
+
+def _plain_merge(lb, ub, best_l, best_u, eps, inf=INF, outward=0.0):
+    """F's plain version, handing every accumulator entry back at the
+    sentinels as the kernel does (the kept planes of D and E need it)."""
+    out = bnd.apply_updates(lb, ub, best_l, best_u, eps, inf, outward)
+    kern._hand_back(best_l, best_u, None, inf)
+    return out
 
 
 def _plain_node_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, int_eps, inf,
@@ -550,11 +580,11 @@ KERNEL_OPS = RoundOps(
     kern.node_candidates_scatter_tiles,
 )
 PLAIN_OPS = RoundOps(
-    kref.fused_scatter_round_tiles_ref,
+    _plain_fused,
     kref.activities_gather_tiles_ref,
     kref.combine_chunk_partials_ref,
-    kref.candidates_scatter_tiles_ref,
-    bnd.apply_updates,
+    _plain_candidates,
+    _plain_merge,
     _plain_node_fused,
     _plain_merge_batch,
     _partitioned_plain_round,
@@ -610,9 +640,12 @@ def _prepared_round(
 ):
     """One round over hoisted constants; (lb, ub) live in the column-padded
     ``(n_pad,)`` domain.  Returns ``(lb, ub, changed)``; with
-    :data:`KERNEL_OPS` the bounds are updated in place.  With a slab
-    partition ``part`` the partitioned round runs (it ignores ``fused``:
-    split rows are straddle rows there), #12 scattering into ``kept``."""
+    :data:`KERNEL_OPS` the bounds are updated in place.  D or E scatters
+    into the closure's kept planes ``kept`` (each chunk stopped at its
+    hoisted length, D's lanes set by the hoisted longest chunk) and F hands
+    them back.  With a slab partition ``part`` the partitioned round runs
+    (it ignores ``fused``: split rows are straddle rows there), #12
+    scattering into ``kept``."""
     d = prep.d
     if part is not None:
         one = torch.ones((1,), dtype=torch.bool, device=lb.device)
@@ -621,9 +654,11 @@ def _prepared_round(
             outward=outward, kept=kept,
         )
         return new_lb[0], new_ub[0], ch[0]
+    acc = kept.get(lb)
     if fused:
         best_l, best_u = ops.fused(
             d.val, d.col, prep.ii_g, prep.lhs_g, prep.rhs_g, lb, ub, prep.n_pad, int_eps, inf,
+            acc=acc, chunk_len=prep.chunk_len, max_chunk_len=prep.max_chunk_len,
         )
     else:
         # Long rows: chunk partials -> each row's partials summed left to
@@ -636,6 +671,7 @@ def _prepared_round(
         best_l, best_u = ops.candidates(
             d.val, d.col, prep.ii_g, rmf, rmc, rxf, rxc,
             prep.lhs_g, prep.rhs_g, lb, ub, prep.n_pad, int_eps, inf, chunk_len=prep.chunk_len,
+            acc=acc,
         )
     return ops.merge(lb, ub, best_l, best_u, eps, inf, outward)
 

@@ -5,9 +5,9 @@ round and of the solver's node objective, behind PyTorch wrappers.
 Each wrapper of a TPU kernel keeps the signature of its Pallas twin in the
 JAX package (``src/repro/kernels/prop_round.py``) minus ``interpret`` and
 ``block``, plus keyword arguments for what the engines hoist (chunk
-lengths, instance chunk ranges, the copy tiles' windows) and, for #8, #10,
-#12 and #14, the accumulator planes they scatter into (``acc``,
-:func:`accumulator_planes`); the
+lengths, the longest chunk, instance chunk ranges, the copy tiles' windows)
+and, for D, E, #8, #10, #12 and #14, the accumulator planes they scatter
+into (``acc``, :func:`accumulator_planes`); the
 long-row and straddle combines replace XLA segment sums.  On
 a CPU tensor it runs the kernel's plain-PyTorch version (``ref.py``); on a
 CUDA tensor it launches the hand-written Hopper kernel of
@@ -78,12 +78,13 @@ def _p(t: torch.Tensor) -> int:
 
 
 def accumulator_planes(like: torch.Tensor, inf: float = INF):
-    """``(best_l, best_u)``: two float64 planes shaped like the bound planes
-    ``like``, filled with the sentinels ``-inf`` and ``inf``, for kernels
-    #8, #10, #12 and #14 to scatter into (their ``acc``).  The engines allocate one
-    pair per round closure and keep it for the whole fixed point: the merge
-    that reads the planes (#9, #15) sets every entry it reads -- the active
-    rows -- back to the sentinel, so they are clean for the next round."""
+    """``(best_l, best_u)``: two float64 planes shaped like the bound
+    vector or planes ``like``, filled with the sentinels ``-inf`` and
+    ``inf``, for kernels D, E, #8, #10, #12 and #14 to scatter into (their
+    ``acc``).  The engines allocate one pair per round closure and keep it
+    for the whole fixed point: the merge that reads the planes (F, #9, #15)
+    sets every entry it reads -- every column, or the active rows -- back
+    to the sentinel, so they are clean for the next round."""
     shape, dev = tuple(like.shape), like.device
     return (torch.full(shape, -inf, dtype=torch.float64, device=dev),
             torch.full(shape, inf, dtype=torch.float64, device=dev))
@@ -98,11 +99,27 @@ def _fold(acc, best):
 
 
 def _hand_back(best_l, best_u, active, inf: float) -> None:
-    """The plain form of the batched merges' hand-back: the accumulator rows
-    they read (the active ones) set back to the sentinels, in place."""
+    """The plain form of the merges' hand-back: the accumulator entries they
+    read set back to the sentinels, in place -- every entry (F, ``active``
+    None) or the active rows (#9, #15)."""
+    if active is None:
+        best_l.fill_(-inf)
+        best_u.fill_(inf)
+        return
     rows = active[:, None]
     best_l.masked_fill_(rows, -inf)
     best_u.masked_fill_(rows, inf)
+
+
+def _acc_vectors(acc, lb, inf: float):
+    """The ``(n_pad,)`` accumulator pair of D or E: the kept pair ``acc``,
+    checked, or a fresh pair at the sentinels, shaped like the bounds
+    ``lb``, when none is given."""
+    if acc is None:
+        return accumulator_planes(lb, inf)
+    for name, t in zip(("acc[0]", "acc[1]"), acc):
+        _expect(name, t, torch.float64, tuple(lb.shape))
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -112,37 +129,52 @@ def _hand_back(best_l, best_u, active, inf: float) -> None:
 
 def fused_scatter_round_tiles(
     val, col, is_int_g, lhs_g, rhs_g, lb, ub, n_pad: int, int_eps: float,
-    inf: float = INF,
+    inf: float = INF, *, acc=None, chunk_len=None, max_chunk_len: int | None = None,
 ):
     """Fully fused round: (T, R, K) tiles + (n_pad,) bounds -> (n_pad,)
     ``best_l`` / ``best_u``, the column max/min of the lower/upper bound
     candidates (sentinel where a column has none).  Requires every row to
-    fit its chunk.
+    fit its chunk.  ``acc`` is the pair of accumulator planes to scatter
+    into (:func:`accumulator_planes`, kept by the round closure; they must
+    hold the sentinels, as F leaves them), returned; without it the wrapper
+    allocates a fresh pair.  ``chunk_len`` (``(T, R)`` int32, one past each
+    chunk's last nonzero) is where each chunk stops and ``max_chunk_len``
+    (its largest entry) sets the lanes and strides a chunk gets; the
+    engines hoist both at prepare time, and they are computed from ``val``
+    when omitted.
 
     Replaces ``fused_scatter_round_tiles`` / ``_fused_scatter_kernel``
     (src/repro/kernels/prop_round.py:580 / :556).  Bound on the H100: the
-    bytes of the tile stream, read once per round: ``val`` for every padded
-    slot (8 B; its zeros mark the padding), ``col`` and ``is_int_g`` for
-    each nonzero only (8 B); the bound vectors (2 x 8 B x n_pad) stay in
-    L2.  Design:
-    a group of lanes per chunk (K rounded up to a power of two, at most a
-    warp: four chunks per warp at K = 8), lanes on consecutive slots
-    (coalesced), row sums by shuffles in the group, the one-hot gather of the TPU kernel as an indexed load and
-    its one-hot scatter as a float64 atomic max/min that padding and
-    sentinel candidates skip.  The accumulators are filled with the sentinel
-    before the launch, since blocks run in no order."""
-    if not _on_cuda(val, col, is_int_g, lhs_g, rhs_g, lb, ub):
-        return ref.fused_scatter_round_tiles_ref(
+    bytes of the tile stream, read once per round: ``val``, ``col`` and
+    ``is_int_g`` at the nonzeros (16 B; each chunk stops at its length) and
+    20 B of length and sides per chunk, or ``val`` at every padded slot
+    for a kernel that walks every slot; the bound and accumulator vectors
+    (4 x 8 B x n_pad).  Design: one bound gather per nonzero, held in
+    registers from the activity sums to the candidates (values, columns
+    and marks loaded together); each chunk stopped at its length; a group
+    of lanes per chunk sized by the longest chunk, not by K (where no chunk
+    holds more than 16 slots, 32 / G chunks share a warp: four at ``pb``'s
+    eight slots of K = 128), lanes on consecutive slots, row sums by
+    shuffles in the group in ``ref.warp_order_sum`` order; the one-hot
+    scatter of the TPU kernel as 64-bit integer max/min reductions that
+    padding and sentinel candidates skip; no plane filled per launch when
+    the planes are kept."""
+    operands = (val, col, is_int_g, lhs_g, rhs_g, lb, ub, *(acc or ()))
+    if not _on_cuda(*operands):
+        best = ref.fused_scatter_round_tiles_ref(
             val, col, is_int_g, lhs_g, rhs_g, lb, ub, n_pad, int_eps, inf
         )
+        return best if acc is None else _fold(acc, best)
     n_chunks, k = _check_tiles(val, col, lb, ub, n_pad, is_int_g)
     _expect("lhs_g", lhs_g, torch.float64, val.shape[:2])
     _expect("rhs_g", rhs_g, torch.float64, val.shape[:2])
-    best_l = torch.full((n_pad,), -inf, dtype=torch.float64, device=val.device)
-    best_u = torch.full((n_pad,), inf, dtype=torch.float64, device=val.device)
+    clen = _chunk_len(val, chunk_len)
+    if max_chunk_len is None:
+        max_chunk_len = int(clen.max()) if n_chunks else 0
+    best_l, best_u = _acc_vectors(acc, lb, inf)
     err = _build.lib().fused_scatter_round(
-        _p(val), _p(col), _p(is_int_g), _p(lhs_g), _p(rhs_g), _p(lb), _p(ub),
-        _p(best_l), _p(best_u), n_chunks, k, int_eps, inf, _stream(),
+        _p(val), _p(col), _p(is_int_g), _p(clen), _p(lhs_g), _p(rhs_g), _p(lb), _p(ub),
+        _p(best_l), _p(best_u), n_chunks, k, int(max_chunk_len), int_eps, inf, _stream(),
     )
     fused_scatter_round_tiles.launches += 1
     _build.check(err, "fused_scatter_round")
@@ -158,7 +190,7 @@ fused_scatter_round_tiles.launches = 0
 
 
 def _chunk_len(val, chunk_len):
-    """The per-chunk length kernels A' and E stop at: ``chunk_len`` as the
+    """The per-chunk length kernels D, A' and E stop at: ``chunk_len`` as the
     caller hoisted it (``(T, R)`` int32, :func:`ref.chunk_lengths`), or
     computed here from ``val`` when not given."""
     if chunk_len is None:
@@ -236,10 +268,13 @@ def candidates_scatter_tiles(
     val, col, is_int_g,
     row_min_fin, row_min_cnt, row_max_fin, row_max_cnt,
     lhs_g, rhs_g, lb, ub, n_pad: int, int_eps: float, inf: float = INF, chunk_len=None,
+    *, acc=None,
 ):
     """Candidates + column reduction: (T, R, K) tiles + (T, R) completed row
     aggregates + (n_pad,) bounds -> (n_pad,) ``best_l`` / ``best_u``
-    (``chunk_len`` as in :func:`activities_gather_tiles`).
+    (``chunk_len`` as in :func:`activities_gather_tiles`), scattered into
+    the kept accumulator planes ``acc`` as in :func:`fused_scatter_round_tiles`,
+    or into a fresh pair when none is given.
 
     Replaces ``candidates_scatter_tiles`` / ``_candidates_scatter_kernel``
     (src/repro/kernels/prop_round.py:651 / :628).  Bound on the H100: the
@@ -248,18 +283,18 @@ def candidates_scatter_tiles(
     strides in flight, the bounds as one pair), the candidates of kernel
     D, and the column max/min by 64-bit integer atomics (one reduction, no
     compare-and-swap loop) behind a pre-check read from L2 that skips
-    candidates that cannot win.  The accumulators are filled with the
-    sentinel before the launch."""
+    candidates that cannot win; no plane filled per launch when the planes
+    are kept."""
     operands = (val, col, is_int_g, row_min_fin, row_min_cnt, row_max_fin,
                 row_max_cnt, lhs_g, rhs_g, lb, ub)
-    if not _on_cuda(*operands):
-        return ref.candidates_scatter_tiles_ref(*operands, n_pad, int_eps, inf)
+    if not _on_cuda(*operands, *(acc or ())):
+        best = ref.candidates_scatter_tiles_ref(*operands, n_pad, int_eps, inf)
+        return best if acc is None else _fold(acc, best)
     n_chunks, k = _check_tiles(val, col, lb, ub, n_pad, is_int_g)
     _check_rows(val.shape[:2], row_min_fin=row_min_fin, row_min_cnt=row_min_cnt,
                 row_max_fin=row_max_fin, row_max_cnt=row_max_cnt, lhs_g=lhs_g, rhs_g=rhs_g)
     clen = _chunk_len(val, chunk_len)
-    best_l = torch.full((n_pad,), -inf, dtype=torch.float64, device=val.device)
-    best_u = torch.full((n_pad,), inf, dtype=torch.float64, device=val.device)
+    best_l, best_u = _acc_vectors(acc, lb, inf)
     lub = _paired(lb, ub)
     err = _build.lib().candidates_scatter(
         _p(val), _p(col), _p(is_int_g), _p(clen), _p(row_min_fin), _p(row_min_cnt),
@@ -424,17 +459,22 @@ fused_round_tiles.launches = 0
 def apply_updates_tiles(lb, ub, best_l, best_u, eps: float, inf: float = INF, outward: float = 0.0):
     """Bound merge with ``bounds.apply_updates`` semantics, IN PLACE:
     ``lb``/``ub`` (n_pad,) are overwritten and returned with a 0-d bool
-    ``changed`` tensor on their device.
+    ``changed`` tensor on their device.  Every entry of ``best_l``/``best_u``
+    is set back to the sentinels once read (the planes of D and E are kept
+    for the whole fixed point): a caller that reads them afterwards clones
+    them first.
 
     Replaces ``apply_updates_tiles`` / ``_apply_updates_kernel``
     (src/repro/kernels/prop_round.py:721 / :710), whose bound buffers are
-    donated.  Bound on the H100: 48 B per column (four vectors read, two
-    written) -- under a microsecond at n_pad = 60,032, so its time is launch
-    latency.  Design: one thread per column; every thread that takes a
-    tightening stores ``true`` to the flag, which the wrapper zeroes
-    first."""
+    donated.  Bound on the H100: 32 B of reads per column (bounds and
+    candidates), 8 B per bound that tightens and 8 B per accumulator entry
+    that held a candidate (set back to the sentinel) -- under a microsecond
+    at n_pad = 60,032, so its time is launch latency.  Design: one thread
+    per column; every thread that takes a tightening stores ``true`` to the
+    flag, which the wrapper zeroes first."""
     if not _on_cuda(lb, ub, best_l, best_u):
         new_lb, new_ub, changed = bnd.apply_updates(lb, ub, best_l, best_u, eps, inf, outward)
+        _hand_back(best_l, best_u, None, inf)
         lb.copy_(new_lb)
         ub.copy_(new_ub)
         return lb, ub, changed
@@ -842,9 +882,6 @@ def batched_occupancy_round_tiles(
 # Kernel #9: the batched merge, in place, with an active mask
 # ---------------------------------------------------------------------------
 
-MAX_GRID_Y = 65535
-
-
 def apply_updates_batch_tiles(
     lb, ub, best_l, best_u, active, eps: float, inf: float = INF, outward: float = 0.0
 ):
@@ -859,11 +896,14 @@ def apply_updates_batch_tiles(
     (src/repro/kernels/prop_round.py:1666 / :1652), whose bound buffers are
     donated.  Bound on the H100: 32 B of reads per active (node, column)
     (its bounds and candidates), 8 B per entry that tightens, and the mask
-    and flags, and 16 B written back per accumulator entry that held a
-    candidate.  Design: a
-    (column block, node) grid whose blocks of inactive nodes return at once;
-    every thread that takes a tightening stores ``true`` to its node's flag,
-    which the wrapper zeroes first."""
+    and flags, and 8 B written back per accumulator entry that held a
+    candidate.  Design: the active-only walk of #8, #10 and #14 over
+    (active row, block of 1,024 columns) items: each block ballots the mask
+    into shared memory and walks the items row by row over a grid of at
+    most the resident blocks, so no block is spent on an inactive row; a
+    thread loads its four columns' bounds and candidates before it merges
+    any; a warp that takes a tightening stores ``true`` to its row's flag
+    once, which the wrapper zeroes first."""
     if not _on_cuda(lb, ub, best_l, best_u, active):
         new_lb, new_ub, changed = bnd.apply_updates_batch(
             lb, ub, best_l, best_u, eps, inf, outward, active=active
@@ -873,8 +913,6 @@ def apply_updates_batch_tiles(
         ub.copy_(new_ub)
         return lb, ub, changed
     bsz, n_pad = lb.shape
-    if bsz > MAX_GRID_Y:
-        raise ValueError(f"batch of {bsz} rows exceeds the grid's {MAX_GRID_Y}")
     _check_planes(bsz, n_pad, lb=lb, ub=ub, best_l=best_l, best_u=best_u)
     _expect("active", active, torch.bool, (bsz,))
     changed = torch.zeros((bsz,), dtype=torch.bool, device=lb.device)
@@ -932,6 +970,8 @@ node_objective_tiles.launches = 0
 # ---------------------------------------------------------------------------
 # The column-slab partitioned round: kernels #11-#15 (csrc/slab_round.cu)
 # ---------------------------------------------------------------------------
+
+MAX_GRID_Y = 65535
 
 
 def _check_runs(n_tiles: int, **runs) -> int:

@@ -1429,3 +1429,112 @@ def test_fixed_points_leave_kept_planes_clean_on_card(cuda, small_limit):
         assert getattr(a, f) == getattr(b, f), f
     ops.clear_prepare_cache()
     ops.clear_batch_caches()
+
+
+# ---------------------------------------------------------------------------
+# D on chunk_round with packed lane groups, into kept planes; #9 on the walk
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("longest", [1, 8, 9, 16, 17, 32, 33])
+def test_fused_packed_groups_match_plain_version(cuda, gen, longest):
+    """Kernel D at K = 128 where the longest chunk holds 1 to 33 slots: lane
+    groups of 1, 8 and 16 lanes packed several to a warp, a warp with one
+    stride, a warp with two; the lengths hoisted and computed by the
+    wrapper, the group keyed on K instead (no packing), fresh and kept
+    planes, integer and general-float data: bitwise equal to its plain
+    version; F then hands the kept planes back at the sentinels."""
+    k = 128
+    for exact in (True, False):
+        x = _tiles(gen, 40, 8, k, 3000, exact, cuda)
+        # Every chunk stops by `longest` (some are empty); one is that long.
+        stop = torch.from_numpy(gen.integers(0, longest + 1, size=(40, 8))).to(cuda)
+        pad = torch.arange(k, device=cuda)[None, None, :] >= stop[..., None]
+        x["val"][pad] = 0.0
+        x["col"][pad] = 0
+        x["ii"][pad] = 0
+        x["val"][0, 0, longest - 1] = 3.0
+        clen = tref.chunk_lengths(x["val"])
+        assert int(clen.max()) == longest
+        args = (x["val"], x["col"], x["ii"], x["lhs"], x["rhs"], x["lb"], x["ub"], x["n_pad"],
+                1e-6)
+        want = tref.fused_scatter_round_tiles_ref(*args)
+        tk.reset_launch_counts()
+        for g, w in zip(tk.fused_scatter_round_tiles(*args), want):
+            _match(g, w)
+        for hint in (longest, k):
+            for g, w in zip(tk.fused_scatter_round_tiles(*args, chunk_len=clen,
+                                                         max_chunk_len=hint), want):
+                _match(g, w)
+        acc = tk.accumulator_planes(x["lb"])
+        got = tk.fused_scatter_round_tiles(*args, acc=acc, chunk_len=clen,
+                                           max_chunk_len=longest)
+        assert got[0] is acc[0] and got[1] is acc[1]
+        for g, w in zip(got, want):
+            _match(g, w)
+        assert tk.launch_counts()["fused_scatter_round_tiles"] == 4
+        want_f = rt.core.apply_updates(x["lb"], x["ub"], *want, 1e-9)
+        for g, w in zip(tk.apply_updates_tiles(x["lb"].clone(), x["ub"].clone(), *acc, 1e-9),
+                        want_f):
+            _match(g, w)
+        assert _clean(acc)
+        # The planes handed back serve the next launch as fresh ones.
+        for g, w in zip(tk.fused_scatter_round_tiles(*args, acc=acc, chunk_len=clen,
+                                                     max_chunk_len=longest), want):
+            _match(g, w)
+
+
+def test_fused_and_candidates_into_kept_planes_reject_bad_planes(cuda, gen):
+    x = _tiles(gen, 2, 2, 8, 10, True, cuda)
+    args = (x["val"], x["col"], x["ii"], x["lhs"], x["rhs"], x["lb"], x["ub"], x["n_pad"], 1e-6)
+    acc = tk.accumulator_planes(x["lb"][:-1])
+    with pytest.raises(ValueError, match="acc"):
+        tk.fused_scatter_round_tiles(*args, acc=acc)
+    aggs = tk.activities_gather_tiles(x["val"], x["col"], x["lb"], x["ub"], x["n_pad"])
+    e_args = (x["val"], x["col"], x["ii"], *aggs, x["lhs"], x["rhs"], x["lb"], x["ub"],
+              x["n_pad"], 1e-6)
+    with pytest.raises(TypeError, match="acc"):
+        tk.candidates_scatter_tiles(*e_args, acc=(acc[0].float(), acc[1]))
+
+
+def _holey_mask(bsz, n_act, dev):
+    """``n_act`` of ``bsz`` rows active, spread evenly over the 32-row
+    ballot words with holes between them, the first and last row of each
+    word left out while the count allows (all rows at ``n_act == bsz``)."""
+    act = np.zeros(bsz, dtype=bool)
+    inner = np.array([i for i in range(bsz) if i % 32 not in (0, 31)])
+    if n_act > len(inner):
+        act[:n_act] = True
+    elif n_act:
+        act[inner[np.linspace(0, len(inner) - 1, n_act).round().astype(int)]] = True
+    assert int(act.sum()) == n_act
+    return torch.from_numpy(act).to(dev)
+
+
+@pytest.mark.parametrize("n_act", [0, 1, 8, 33, 128])
+def test_batched_merge_walk_matches_plain_version(cuda, gen, n_act):
+    """#9 on its active-only walk over a (128, 1,000) pool (the last column
+    block partial) with 0, 1, 8, 33 and 128 rows active, masks with holes in
+    every ballot word: bitwise equal to its plain version, flags exact, the
+    active rows of the planes handed back at the sentinels and every other
+    row neither read nor written."""
+    bsz, width = 128, 1000
+    act = _holey_mask(bsz, n_act, cuda)
+    for exact in (True, False):
+        lb, ub = _planes(gen, bsz, width, exact, cuda)
+        bl, bu = _planes(gen, bsz, width, exact, cuda)
+        bl, bu = bl - 1.0, bu + 1.0
+        bl[:, ::7] = -INF
+        bu[:, ::5] = INF
+        want = rt.core.apply_updates_batch(lb, ub, bl, bu, 1e-9, active=act)
+        planes = (bl.clone(), bu.clone())
+        tk.reset_launch_counts()
+        got = tk.apply_updates_batch_tiles(lb.clone(), ub.clone(), *planes, act, 1e-9)
+        assert tk.launch_counts()["apply_updates_batch_tiles"] == 1
+        for g, w in zip(got, want):
+            _match(g, w)
+        assert _clean((planes[0][act], planes[1][act]))
+        _match(planes[0][~act], bl[~act])
+        _match(planes[1][~act], bu[~act])
+        if n_act:
+            assert bool(got[2].any())

@@ -23,6 +23,7 @@ from repro.kernels import (
 from repro.kernels import ref as rref
 from repro_torch.core import bounds as tbnd
 from repro_torch.kernels import (
+    accumulator_planes,
     activities_gather_tiles,
     apply_updates_tiles,
     candidates_scatter_tiles,
@@ -81,18 +82,30 @@ def _assert_match(got, want, exact):
         np.testing.assert_allclose(got, want, rtol=1e-12, atol=0)
 
 
+@pytest.mark.parametrize("given", ["none", "hoisted", "hoisted+acc"])
 @pytest.mark.parametrize("exact", EXACT, ids=["int", "float"])
 @pytest.mark.parametrize("t,r,k,n", SHAPES)
-def test_fused_scatter_round_matches_pallas(t, r, k, n, exact, rng):
+def test_fused_scatter_round_matches_pallas(t, r, k, n, exact, given, rng):
+    """Kernel D with nothing hoisted, with the chunk lengths and the longest
+    chunk given, and with those and kept accumulator planes (at the
+    sentinels, as F leaves them) to scatter into."""
     x = _tiles(rng, t, r, k, n, exact)
     want = r_fused_scatter(
         _j(x["val"]), _j(x["col"]), _j(x["ii"]), _j(x["lhs"]), _j(x["rhs"]),
         _j(x["lb"]), _j(x["ub"]), x["n_pad"], int_eps=1e-6, interpret=True,
     )
+    kw = {}
+    if given != "none":
+        clen = tref.chunk_lengths(_t(x["val"]))
+        kw = dict(chunk_len=clen, max_chunk_len=int(clen.max()))
+    if given == "hoisted+acc":
+        kw["acc"] = accumulator_planes(_t(x["lb"]))
     got = fused_scatter_round_tiles(
         _t(x["val"]), _t(x["col"]), _t(x["ii"]), _t(x["lhs"]), _t(x["rhs"]),
-        _t(x["lb"]), _t(x["ub"]), x["n_pad"], int_eps=1e-6,
+        _t(x["lb"]), _t(x["ub"]), x["n_pad"], int_eps=1e-6, **kw,
     )
+    if "acc" in kw:
+        assert got[0] is kw["acc"][0] and got[1] is kw["acc"][1]
     for g, w in zip(got, want):
         _assert_match(g, w, exact)
 

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Time the main-path runs that kernels #8, #10, #12 and #14 sit on, through
-the port's public entry points only, so that two checkouts can be compared
-in one call on one card (parent, change, change, parent).
+"""Time the main-path runs that kernels D, #8, #9, #10, #12 and #14 sit on,
+through the port's public entry points only, so that two checkouts can be
+compared in one call on one card (parent, change, change, parent).
 
     python3 tools/path_times.py [--src DIR] [--reps 5] [--paths NAME,...]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
 (default: this checkout's); the instances and helpers come from this
-checkout's ``chip_smoke.py``.  The runs (``--paths`` picks some by the
-first word of their name, default all): ``propagate_block_ell`` on
-``bandw`` and ``pbw`` (the partitioned engine: #11, the straddle combine,
-#12 with #15), ``propagate_nodes`` on the 64 branched ``pbf`` nodes of
+checkout's ``chip_smoke.py``.  The runs (``--paths`` picks some by name
+or by the first words of their name, default all): ``propagate_block_ell`` with its
+defaults on ``pb`` and ``banded`` (D with F), ``mixed`` (A', the combine,
+E with F) and ``bandw`` and ``pbw`` (the partitioned engine: #11, the
+straddle combine, #12 with #15), ``fused``: the explicit fused engine
+(``scatter="fused"``: D with F) on ``bandw`` and ``pbw``,
+``propagate_nodes`` on the 64 branched ``pbf`` nodes of
 ``chip_smoke.py`` phase 6 (#10 with #9) and on the 16 branched ``pbw``
 nodes of phase 8 (#13, the straddle combine, #14 with #15), ``solve`` on
 ``pbf`` with its full 128-slot search (#10, #9, #16) and on ``pbw`` with
@@ -64,8 +67,13 @@ def main() -> int:
     print(f"gpu: {smi}; port from {src}", flush=True)
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    want = lambda *names: not picked or any(n in picked for n in names)
+    # A run is picked by its name or its first words ("nodes", "nodes pbf").
+    want = lambda *names: not picked or any(x.split()[0] in names for x in picked)
+    chosen = lambda name: not picked or any(name == x or name.startswith(x + " ")
+                                            for x in picked)
     wide = {name: getattr(td, gen)(**kw) for name, gen, kw in cs.WIDE_SPECS}
+    main = ({name: getattr(td, gen)(**kw) for name, gen, kw in cs.SPECS}
+            if want("propagate_block_ell") else {})
     pbf = td.make_pseudo_boolean(**cs.PBF)
     tw = cs.SOLVER_TILE_WIDTH
 
@@ -82,9 +90,13 @@ def main() -> int:
     search = lambda r: (r.status, r.nodes_expanded, r.nodes_created, r.levels, r.host_syncs)
     paths = {}
     if want("propagate_block_ell"):
-        for name in ("bandw", "pbw"):
+        for name, p in (*main.items(), *wide.items()):
             paths[f"propagate_block_ell {name}"] = (
-                lambda p=wide[name]: rt.propagate_block_ell(p, device=dev), rounds)
+                lambda p=p: rt.propagate_block_ell(p, device=dev), rounds)
+    if want("fused"):
+        for name, p in wide.items():
+            paths[f"fused {name} (scatter='fused')"] = (
+                lambda p=p: rt.propagate_block_ell(p, scatter="fused", device=dev), rounds)
     if want("nodes"):
         nodes_pbf, nodes_pbw = branched(pbf, 6), branched(wide["pbw"], cs.WIDE_BRANCHED)
         paths["nodes pbf (64 nodes)"] = (
@@ -116,6 +128,7 @@ def main() -> int:
         paths["service stream (24 requests)"] = (
             lambda: [t.result() for t in cs.serve_once(torch, svc, payloads)[0]],
             lambda rs: [int(r.rounds) for r in rs])
+    paths = {name: run for name, run in paths.items() if chosen(name)}
     print(f"set-up: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, (fn, summary) in paths.items():
         result = summary(fn())

@@ -1,9 +1,25 @@
-// Timed variants of kernels #8 (batched_fused_scatter_round) and #10
-// (node_fused_scatter_round), of the scatters of #12 (slab_scatter) and #14
-// (node_slab_scatter), and of the batched merges #9 and #15: which design
-// step of their redesign pays.  Built and driven by tools/round_variants.py; not part
-// of the port's kernel library.
+// Timed variants of kernels D (fused_scatter_round), #8
+// (batched_fused_scatter_round) and #10 (node_fused_scatter_round), of the
+// scatters of #12 (slab_scatter) and #14 (node_slab_scatter), and of the
+// batched merges #9 and #15: which design step of their redesign pays.
+// Built and driven by tools/round_variants.py; not part of the port's
+// kernel library.
 //
+// D variants (fused_variant), one instance's (n_pad,) vectors:
+//   0  the kernel before the redesign: a group of group_width(K) lanes per
+//      chunk; chunk_aggregates, then chunk_candidates_scatter (every slot
+//      loaded and its bounds gathered twice, compare-and-swap max/min)
+//   1  the same grid; bounds gathered once and held, values, columns and
+//      marks loaded together (chunk_round's routine), compare-and-swap,
+//      every slot
+//   2  as 1, each chunk stopped at its hoisted length
+//   3  as 2, 64-bit integer atomics (no pre-check)
+//   4  as 3, packed groups: group_width(longest chunk) lanes per chunk,
+//      32 / G chunks a warp where no chunk holds more than 16 slots (the
+//      port's)
+//   5  as 4, at most 64 registers a thread, four blocks an SM
+//   6  as 4, at most 40 registers a thread, six blocks an SM
+//   7  as 3 (a warp per chunk), at most 64 registers a thread
 // #10 variants (node_variant), one matrix over B node planes:
 //   0  the kernel before the redesign: each warp ballots the mask and loops
 //      over the active nodes; chunk_aggregates, then
@@ -67,10 +83,19 @@
 //   9  one group of every active node (ballot order over the resident
 //      blocks), at most 64 registers
 // Merge variants (merge_variant):
-//   0  #9 reading the accumulator planes only (before the redesign)
-//   1  #9 handing them back at the sentinels (the port's)
+//   0  #9 reading the accumulator planes only (before the hand-back)
+//   1  #9 handing them back at the sentinels, a (column block, row) grid
+//      (the port's #9 before the walk)
 //   2  #15 reading only
 //   3  #15 handing back (the port's)
+//   4  #9 on the active-only walk over (active row, column block) items,
+//      each thread that tightens storing its row's flag
+//   5  as 4, one flag store per warp that tightened
+//   6, 7, 8  as 5, an item of 2, 4, 8 column blocks: a thread loads the
+//      bounds and candidates of its 2, 4, 8 columns before it merges any
+//      (7 is the port's #9)
+//   9  a (column block, group of 32 rows) grid: each warp ballots its
+//      group's flags and merges its column of each active row in turn
 
 #include "../src/repro_torch/csrc/round_common.cuh"
 
@@ -739,7 +764,109 @@ int node_slab_variant_gu(int v, const Slab& s, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- D ----------------------------------------------------------------------
+
+struct Fused {
+  const double *val, *lhs, *rhs, *lb, *ub;
+  const int *col, *ii, *clen;
+  double *best_l, *best_u;
+  int64_t n_chunks;
+  int k;
+  double int_eps, inf;
+};
+
+// V 0: the kernel before the redesign; 1-3 chunk_round's steps over G lanes
+// a chunk (RED: integer atomics, LEN: stopped at the length); MINB blocks
+// an SM.
+template <int G, int U, int V, int MINB = 1>
+__global__ void __launch_bounds__(kThreads, MINB) fused_kernel(const Fused s) {
+  const Lanes L = lanes_for<G>(s.n_chunks);
+  const int64_t c = L.chunk;
+  if (V == 0) {
+    const int64_t base = c * s.k;
+    const RowAgg a = chunk_aggregates<G>(s.val, s.col, s.lb, s.ub, base, L.live ? s.k : 0, L,
+                                         s.inf);
+    if (!L.live) return;
+    chunk_candidates_scatter(s.val, s.col, s.ii, s.lb, s.ub, a, s.lhs[c], s.rhs[c], s.best_l,
+                             s.best_u, base, s.k, L, s.int_eps, s.inf);
+    return;
+  }
+  held_chunk<G, U, (V >= 3), (V >= 2), true, false>(
+      s.val, s.col, s.ii, s.clen, s.lb, s.ub, c, s.k, L.live, true, RowAgg{},
+      L.live ? s.lhs[c] : 0.0, L.live ? s.rhs[c] : 0.0, s.best_l, s.best_u, L.sl, s.int_eps,
+      s.inf);
+}
+
+// The variants of G lanes a chunk and U strides held; v picks the step.
+template <int G, int U>
+int fused_variant_gu(int v, const Fused& s, cudaStream_t stream) {
+  const unsigned int blocks = chunk_blocks(s.n_chunks, G);
+  switch (v) {
+    case 0: fused_kernel<G, U, 0><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 1: fused_kernel<G, U, 1><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 2: fused_kernel<G, U, 2><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 3: case 4: fused_kernel<G, U, 3><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 5: case 7: fused_kernel<G, U, 3, 4><<<blocks, kThreads, 0, stream>>>(s); break;
+    case 6: fused_kernel<G, U, 3, 6><<<blocks, kThreads, 0, stream>>>(s); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int G>
+int fused_variant_g(int v, const Fused& s, int held, cudaStream_t stream) {
+  if constexpr (G < kWarp) {
+    return fused_variant_gu<G, 1>(v, s, stream);
+  } else {
+    return held <= 1   ? fused_variant_gu<G, 1>(v, s, stream)
+           : held == 2 ? fused_variant_gu<G, 2>(v, s, stream)
+                       : fused_variant_gu<G, 4>(v, s, stream);
+  }
+}
+
 // ---- #9 and #15 -------------------------------------------------------------
+
+// #9 on the active-only walk over (active row, V blocks of kThreads
+// columns) items, a thread's V columns loaded before any is merged; ANY:
+// one flag store per warp that tightened (the port's).
+template <bool ANY, int V = 1>
+__global__ void __launch_bounds__(kThreads)
+merge_walk(double* __restrict__ lb, double* __restrict__ ub, double* __restrict__ best_l,
+           double* __restrict__ best_u, const bool* __restrict__ active, int* __restrict__ flags,
+           int64_t bsz, int64_t width, double eps, double inf, double outward) {
+  constexpr int64_t kCols = static_cast<int64_t>(kThreads) * V;
+  const EqualItems items_of{(width + kCols - 1) / kCols};
+  const Walk walk = ballot_walk(active, bsz, items_of);
+  WalkCursor cur;
+  for (int64_t item = blockIdx.x; item < walk.items; item += gridDim.x) {
+    cur.seek(item, walk, items_of);
+    const int64_t j0 = (item - cur.first) * kCols + threadIdx.x, row = cur.plane * width;
+    double l[V], u[V], bl[V], bu[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int64_t j = j0 + v * kThreads;
+      const bool in = j < width;
+      l[v] = in ? lb[row + j] : 0.0;
+      u[v] = in ? ub[row + j] : 0.0;
+      bl[v] = in ? best_l[row + j] : -inf;
+      bu[v] = in ? best_u[row + j] : inf;
+    }
+    bool ch = false;
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const int64_t i = row + j0 + v * kThreads;
+      if (bl[v] != -inf) best_l[i] = -inf;
+      if (bu[v] != inf) best_u[i] = inf;
+      if (j0 + v * kThreads < width)
+        ch |= merge_loaded(lb, ub, i, l[v], u[v], bl[v], bu[v], eps, inf, outward);
+    }
+    if (ANY) {
+      if (__any_sync(0xffffffffu, ch) && threadIdx.x % kWarp == 0) flags[cur.plane] = 1;
+    } else if (ch) {
+      flags[cur.plane] = 1;
+    }
+  }
+}
 
 template <bool RESET>
 __global__ void __launch_bounds__(kThreads)
@@ -755,6 +882,26 @@ merge_batch(double* __restrict__ lb, double* __restrict__ ub, double* __restrict
   const bool ch = RESET ? merge_reset(lb, ub, best_l, best_u, i, eps, inf, outward)
                         : merge_one(lb, ub, best_l, best_u, i, eps, inf, outward);
   if (ch) flags[b * n_slabs + j / slab] = 1;
+}
+
+// #9 over a (column block, group of 32 rows) grid: each warp ballots its
+// group's flags and merges its column of each active row in turn.
+__global__ void __launch_bounds__(kThreads)
+merge_groups(double* __restrict__ lb, double* __restrict__ ub, double* __restrict__ best_l,
+             double* __restrict__ best_u, const bool* __restrict__ active,
+             int* __restrict__ flags, int64_t bsz, int64_t width, double eps, double inf,
+             double outward) {
+  const int lane = threadIdx.x % kWarp;
+  const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kWarp;
+  unsigned int todo = __ballot_sync(0xffffffffu, b0 + lane < bsz && active[b0 + lane]);
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  while (todo != 0u) {
+    const int64_t b = b0 + __ffs(todo) - 1;
+    todo &= todo - 1u;
+    const bool ch =
+        j < width && merge_reset(lb, ub, best_l, best_u, b * width + j, eps, inf, outward);
+    if (__any_sync(0xffffffffu, ch) && lane == 0) flags[b] = 1;
+  }
 }
 
 }  // namespace
@@ -836,11 +983,53 @@ int node_slab_variant(int v, const double* val, const int* col, const int* ii, c
   }
 }
 
+// D over one instance's chunk stream: v 0-3 keep the parent's group of
+// group_width(K) lanes, v 4-6 take group_width(longest chunk), v 7 K's
+// again; every variant holds held_strides(max_len) strides.
+int fused_variant(int v, const double* val, const int* col, const int* ii, const int* clen,
+                  const double* lhs, const double* rhs, const double* lb, const double* ub,
+                  double* best_l, double* best_u, int64_t n_chunks, int k, int max_len,
+                  double int_eps, double inf, cudaStream_t stream) {
+  const Fused s{val, lhs, rhs, lb, ub, col, ii, clen, best_l, best_u, n_chunks, k, int_eps, inf};
+  const int held = held_strides(max_len);
+  const bool packed = v >= 4 && v <= 6;
+  switch (group_width(packed && max_len < k ? max_len : k)) {
+    case 8: return fused_variant_g<8>(v, s, held, stream);
+    case 16: return fused_variant_g<16>(v, s, held, stream);
+    case 32: return fused_variant_g<32>(v, s, held, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // v 0/1: #9 over (B, width) planes (one window a row), without / with the
-// hand-back; v 2/3: #15 (windows of `slab` columns), the same.
+// hand-back; v 2/3: #15 (windows of `slab` columns), the same; v 4/5: #9 on
+// the walk, a flag store per thread / per warp; v 6-8: the walk, 2, 4, 8
+// column blocks an item; v 9: the (column block, group of 32 rows) grid.
 int merge_variant(int v, double* lb, double* ub, double* best_l, double* best_u,
                   const bool* active, int* flags, int64_t bsz, int64_t width, int64_t slab,
                   double eps, double inf, double outward, cudaStream_t stream) {
+  if (v >= 4) {
+    const int64_t most = (width + kThreads - 1) / kThreads * bsz;
+#define WALK(ANY, V)                                                                     \
+  launch_walk<merge_walk<ANY, V>>(most, bsz, stream, lb, ub, best_l, best_u, active, flags, \
+                                  bsz, width, eps, inf, outward)
+    switch (v) {
+      case 4: return WALK(false, 1);
+      case 5: return WALK(true, 1);
+      case 6: return WALK(true, 2);
+      case 7: return WALK(true, 4);
+      case 8: return WALK(true, 8);
+      case 9: {
+        const dim3 grid(static_cast<unsigned int>((width + kThreads - 1) / kThreads),
+                        static_cast<unsigned int>((bsz + kWarp - 1) / kWarp));
+        merge_groups<<<grid, kThreads, 0, stream>>>(lb, ub, best_l, best_u, active, flags, bsz,
+                                                    width, eps, inf, outward);
+        return static_cast<int>(cudaGetLastError());
+      }
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef WALK
+  }
   const int64_t s = v < 2 ? width : slab;
   const int64_t n_slabs = (width + s - 1) / s;
   const dim3 grid(static_cast<unsigned int>((width + kThreads - 1) / kThreads),

@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
-"""Time variants of kernels #8 (the packed batch's round) and #10 (the node
-round), of the scatters of #12 and #14 (the slab rounds) and of the batched
-merges #9 and #15, to see which design step of their redesign pays (no
-profiler that counts stalls runs on the card).
+"""Time variants of kernels D (the single instance's fused round), #8 (the
+packed batch's round) and #10 (the node round), of the scatters of #12 and
+#14 (the slab rounds) and of the batched merges #9 and #15, to see which
+design step of their redesign pays (no profiler that counts stalls runs on
+the card).
 
-    python3 tools/round_variants.py [--reps 20] [--only 8,14]
+    python3 tools/round_variants.py [--reps 20] [--only 1,9]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.  It
 builds ``tools/round_variants.cu`` (the kernels before the redesign, and the
 redesigned ones one step at a time: bounds gathered once and held, integer
-atomics, chunks stopped at their length, node- or instance-major order over
-the active planes only or the window from the tile maps, a register cap)
+atomics, chunks stopped at their length, short-row chunks packed several to
+a warp, node- or instance-major order over the active planes only or the
+window from the tile maps, a register cap)
 into ``src/repro_torch/build/round_variants/``, makes the instances of
-``chip_smoke.py`` -- ``pbf`` at tile width 8 with its 128-node pool for #10
-and #9, ``bandw`` and ``pbw`` (one plane each, their default slab
-partitions) for #12 and #15, the fused batch bucket (``pb``, ``pbf``,
-``banded`` and a second ``banded``) with 0, 2 and 4 instances active for
-#8, ``pbw`` at tile width 8 with a 128-node pool (0, 8, 32 and 128 nodes
-active) for #14 -- holds every
+``chip_smoke.py`` -- ``pb``, ``banded``, ``bandw`` and ``pbw`` (one
+instance each at K = 128, the explicit fused engine's tiles at n_pad
+150,016) for D, ``pbf`` at tile width 8 with its 128-node pool for #10
+and #9 (0, 8 and 128 nodes active), ``bandw`` and ``pbw`` (one plane each,
+their default slab partitions) for #12 and #15, the fused batch bucket
+(``pb``, ``pbf``, ``banded`` and a second ``banded``) with 0, 2 and 4
+instances active for #8, ``pbw`` at tile width 8 with a 128-node pool (0,
+8, 32 and 128 nodes active) for #14 -- holds every
 variant against the plain version of its kernel (bitwise, as values), and
 prints each variant's median time over ``--reps`` launches (CUDA events
 around the launch, queued behind a sleep on the card, the variants taken in
@@ -25,8 +29,8 @@ turn within each repetition; the accumulator planes at the sentinels before
 each scatter, the merges' inputs restored and the L2 evicted before each
 merge), the time of the two ``torch.full`` sentinel planes that the
 wrappers no longer fill per launch, and the card's name and power limit.
-``--only`` picks the kernels (of 8, 10, 12, 14; the merges ride with 10
-and 12).
+``--only`` picks the kernels (of 1 (D), 8, 9, 10, 12, 14; the merge #15
+rides with 12).
 """
 from __future__ import annotations
 
@@ -95,10 +99,28 @@ NODE_SLAB_VARIANTS = {
        "registers",
 }
 MERGE_VARIANTS = {
-    0: "#9 reading the planes only (before the redesign)",
-    1: "#9 handing them back at the sentinels (the port's)",
+    0: "#9 reading the planes only (before the hand-back)",
+    1: "#9 handing them back at the sentinels, (column block, row) grid (before the walk)",
     2: "#15 reading the planes only (before the redesign)",
     3: "#15 handing them back (the port's)",
+    4: "#9 on the active-only walk, a flag store per thread that tightens",
+    5: "as 4, one flag store per warp",
+    6: "as 5, an item of 2 column blocks, a thread's columns loaded before any merge",
+    7: "as 5, an item of 4 column blocks, a thread's columns loaded before any merge (the "
+       "port's #9)",
+    8: "as 5, an item of 8 column blocks, a thread's columns loaded before any merge",
+    9: "a (column block, group of 32 rows) grid, a warp merging its column of each active row",
+}
+FUSED_VARIANTS = {
+    0: "before the redesign (group_width(K) lanes a chunk, two gathers per slot, CAS, every "
+       "slot, planes filled per launch)",
+    1: "the same grid, bounds gathered once and held, values/columns/marks together, CAS",
+    2: "as 1, stopped at the chunk length",
+    3: "as 2, integer atomics",
+    4: "as 3, packed groups (group_width(longest chunk) lanes a chunk; the port's D)",
+    5: "as 4, at most 64 registers a thread",
+    6: "as 4, at most 40 registers a thread",
+    7: "as 3 (a warp a chunk), at most 64 registers a thread",
 }
 
 
@@ -125,12 +147,13 @@ def build() -> ctypes.CDLL:
     lib.node_variant.argtypes = [I32] + [P] * 11 + [I64, I32, I64, I64, F64, F64, P]
     lib.slab_variant.argtypes = [I32] + [P] * 21 + [I32, I64, I32, I32, I64, I64, F64, F64, P]
     lib.merge_variant.argtypes = [I32] + [P] * 6 + [I64, I64, I64, F64, F64, F64, P]
+    lib.fused_variant.argtypes = [I32] + [P] * 10 + [I64, I32, I32, F64, F64, P]
     lib.batched_variant.argtypes = [I32] + [P] * 13 + [I64, I32, I32, I32, I64, I64, F64, F64,
                                                        P]
     lib.node_slab_variant.argtypes = [I32] + [P] * 19 + [I32, I64, I32, I32, I32, I64, I64, I64,
                                                          F64, F64, P]
     for fn in (lib.node_variant, lib.slab_variant, lib.merge_variant, lib.batched_variant,
-               lib.node_slab_variant):
+               lib.node_slab_variant, lib.fused_variant):
         fn.restype = I32
     return lib
 
@@ -156,7 +179,7 @@ def event_ms(torch, launch, reset=None) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", default="8,10,12,14")
+    ap.add_argument("--only", default="1,8,9,10,12,14")
     args = ap.parse_args()
     only = {int(x) for x in args.only.split(",")}
     import numpy as np
@@ -191,7 +214,36 @@ def main() -> int:
     cases: list = []  # (label, kind, variant, launch, reset)
 
     fills = {}
-    if 10 in only:
+    if 1 in only:
+        # D on one instance's (n_pad,) vectors at K = 128: pb and pbw (chunks
+        # of at most 8 slots: packed groups), banded and bandw (24 slots).
+        for name, gen, kw in (*cs.SPECS[:2], *cs.WIDE_SPECS):
+            dprep = rt.prepare_block_ell(getattr(td, gen)(**kw), device="cuda")
+            d = dprep.d
+            t, r, k = d.val.shape
+            want = tref.fused_scatter_round_tiles_ref(
+                d.val, d.col, dprep.ii_g, dprep.lhs_g, dprep.rhs_g, dprep.lb0, dprep.ub0,
+                dprep.n_pad, cfg.int_eps)
+            dacc = accumulator_planes(dprep.lb0)
+            print(f"D {name}: tiles {(t, r, k)}, {int((d.val != 0).sum())} nonzeros, "
+                  f"longest chunk {dprep.max_chunk_len}, n_pad {dprep.n_pad}", flush=True)
+            for v in FUSED_VARIANTS:
+                def launch(v=v, d=d, dprep=dprep, dacc=dacc, chunks=t * r, k=k):
+                    return lib.fused_variant(
+                        v, ptr(d.val), ptr(d.col), ptr(dprep.ii_g), ptr(dprep.chunk_len),
+                        ptr(dprep.lhs_g), ptr(dprep.rhs_g), ptr(dprep.lb0), ptr(dprep.ub0),
+                        ptr(dacc[0]), ptr(dacc[1]), chunks, k, dprep.max_chunk_len,
+                        cfg.int_eps, inf, stream())
+
+                event_ms(torch, launch, lambda dacc=dacc: sentinels(dacc))
+                if not (torch.equal(dacc[0], want[0]) and torch.equal(dacc[1], want[1])):
+                    raise SystemExit(f"round_variants: D {name} variant {v} disagrees with the "
+                                     "plain version")
+                cases.append((f"D {name}", "fused", v, launch, lambda dacc=dacc: sentinels(dacc)))
+            fills[f"D {name}"] = statistics.median(
+                event_ms(torch, lambda lb=dprep.lb0: fill(lb)) for _ in range(args.reps))
+
+    if 9 in only or 10 in only:
         # #10 and #9 on the pbf pool at tile width 8.
         pbf = td.make_pseudo_boolean(**cs.PBF)
         prep = rt.prepare_block_ell(pbf, tile_width=cs.SOLVER_TILE_WIDTH, device="cuda")
@@ -209,7 +261,7 @@ def main() -> int:
                                                      prep.rhs_g, lbp, ubp, n_pad, cfg.int_eps,
                                                      active=act)
             label = f"#10 pbf pool, {n_act} of {cs.POOL} active"
-            for v in NODE_VARIANTS:
+            for v in NODE_VARIANTS if 10 in only else ():
                 def launch(v=v, act=act):
                     return lib.node_variant(
                         v, ptr(d.val), ptr(d.col), ptr(prep.ii_g), ptr(prep.chunk_len),
@@ -221,27 +273,71 @@ def main() -> int:
                     raise SystemExit(f"round_variants: {label} variant {v} disagrees with "
                                      "the plain version")
                 cases.append((label, "node", v, launch, lambda: sentinels(acc)))
-            if n_act:
-                best = [x.clone() for x in want]
-                planes = [lbp.clone(), ubp.clone(), best[0].clone(), best[1].clone()]
-                flags = torch.zeros(cs.POOL, dtype=torch.int32, device="cuda")
-                flush = torch.empty(64 << 17, dtype=torch.float64, device="cuda")
+            best = [x.clone() for x in want]
+            want_m = rt.core.apply_updates_batch(lbp, ubp, *best, eps, active=act)
+            planes = [lbp.clone(), ubp.clone(), best[0].clone(), best[1].clone()]
+            flags = torch.zeros(cs.POOL, dtype=torch.int32, device="cuda")
+            flush = torch.empty(64 << 17, dtype=torch.float64, device="cuda")
 
-                def restore(planes=planes, best=best, flags=flags, flush=flush):
-                    for x, y in zip(planes, (lbp, ubp, *best)):
-                        x.copy_(y)
-                    flags.zero_()
-                    flush.zero_()
+            def restore(planes=planes, best=best, flags=flags, flush=flush):
+                for x, y in zip(planes, (lbp, ubp, *best)):
+                    x.copy_(y)
+                flags.zero_()
+                flush.zero_()
 
-                for v in (0, 1):
-                    def launch(v=v, act=act, planes=planes, flags=flags):
-                        return lib.merge_variant(v, *map(ptr, planes), ptr(act), ptr(flags),
-                                                 cs.POOL, n_pad, n_pad, eps, inf, 0.0, stream())
+            for v in (0, 1, 4, 5, 6, 7, 8, 9) if 9 in only else (0, 1):
+                def launch(v=v, act=act, planes=planes, flags=flags):
+                    return lib.merge_variant(v, *map(ptr, planes), ptr(act), ptr(flags),
+                                             cs.POOL, n_pad, n_pad, eps, inf, 0.0, stream())
 
-                    cases.append((f"#9 pbf pool, {n_act} of {cs.POOL} active", "merge", v, launch,
-                                  restore))
+                label = f"#9 pbf pool, {n_act} of {cs.POOL} active"
+                event_ms(torch, launch, restore)
+                handed = v == 0 or bool((planes[2][act] == -inf).all()
+                                        and (planes[3][act] == inf).all())
+                if not (torch.equal(planes[0], want_m[0]) and torch.equal(planes[1], want_m[1])
+                        and torch.equal(flags != 0, want_m[2]) and handed
+                        and torch.equal(planes[2][~act], best[0][~act])):
+                    raise SystemExit(f"round_variants: {label} variant {v} disagrees with the "
+                                     "plain version")
+                cases.append((label, "merge", v, launch, restore))
         fills["pbf pool"] = statistics.median(event_ms(torch, lambda: fill(lbp))
                                               for _ in range(args.reps))
+
+    if 9 in only:
+        # #9 on the fused batch bucket's (4, 60,032) planes, 1 and 4 active
+        # (pb alone runs rounds 10 to 33 of that batch).
+        pops = [td.make_pseudo_boolean(**cs.SPECS[0][2]), td.make_pseudo_boolean(**cs.PBF),
+                td.make_banded(**cs.SPECS[1][2]), td.make_banded(**cs.BANDED1)]
+        (batch,) = ops.packed_problems(pops)
+        bd = ops.prepare_problem_batch(batch, device="cuda").d
+        bsz, width = bd.lb0.shape
+        for n_act in (1, bsz):
+            act = torch.arange(bsz, device="cuda") < n_act
+            best = tref.batched_fused_scatter_round_ref(
+                bd.val, bd.col_g, bd.ii_g, bd.lhs_g, bd.rhs_g, bd.lb0, bd.ub0, width,
+                cfg.int_eps, active=act)
+            want_m = rt.core.apply_updates_batch(bd.lb0, bd.ub0, *best, eps, active=act)
+            planes = [bd.lb0.clone(), bd.ub0.clone(), best[0].clone(), best[1].clone()]
+            flags = torch.zeros(bsz, dtype=torch.int32, device="cuda")
+            flush = torch.empty(64 << 17, dtype=torch.float64, device="cuda")
+
+            def restore(planes=planes, best=best, flags=flags, flush=flush):
+                for x, y in zip(planes, (bd.lb0, bd.ub0, *best)):
+                    x.copy_(y)
+                flags.zero_()
+                flush.zero_()
+
+            label = f"#9 fused bucket, {n_act} of {bsz} active"
+            for v in (1, 5, 6, 7, 9):
+                def launch(v=v, act=act, planes=planes, flags=flags):
+                    return lib.merge_variant(v, *map(ptr, planes), ptr(act), ptr(flags), bsz,
+                                             width, width, eps, inf, 0.0, stream())
+
+                event_ms(torch, launch, restore)
+                if not (torch.equal(planes[0], want_m[0]) and torch.equal(flags != 0, want_m[2])):
+                    raise SystemExit(f"round_variants: {label} variant {v} disagrees with the "
+                                     "plain version")
+                cases.append((label, "merge", v, launch, restore))
 
     # #12's scatter and #15 on bandw and pbw, one plane each.
     if 12 in only:
@@ -389,7 +485,8 @@ def main() -> int:
                 raise
             times.setdefault((label, kind, v), []).append(ms)
     names = {"node": NODE_VARIANTS, "slab": SLAB_VARIANTS, "merge": MERGE_VARIANTS,
-             "batched": BATCHED_VARIANTS, "node_slab": NODE_SLAB_VARIANTS}
+             "batched": BATCHED_VARIANTS, "node_slab": NODE_SLAB_VARIANTS,
+             "fused": FUSED_VARIANTS}
     rows = []
     for (label, kind, v), ms in times.items():
         row = dict(case=label, variant=v, what=names[kind][v], ms=statistics.median(ms))
