@@ -78,10 +78,12 @@ numpy only, nothing of JAX) and, on one CUDA card:
      their slab partitions (build seconds printed); holds kernels #11 and
      #12 (with #15's window merge, into kept planes, with the nonzero bound
      beside the all-slot bound) against their plain versions on both
-     partitions at K = 128, kernel D + F at n_pad 150,016, and #13, #14
-     (into kept planes, both bounds) and #15 on pbw's K = 8 partition over
-     a (128, 150,016) pool with 0, 8 and 128 active rows, all bitwise,
-     timed; the straddle combine on both
+     partitions at K = 128, #15 alone on both single planes, kernel D + F
+     at n_pad 150,016, and #13 (the partition's hoisted sub-stream tile
+     slabs and copy lengths), #14 (into kept planes) and #15 on pbw's
+     K = 8 partition over a (128, 150,016) pool with 0, 8 and 128 active
+     rows (#13 and #14 with the nonzero bound beside the all-slot bound),
+     all bitwise, timed; the straddle combine on both
      single planes and on that pool, bitwise against its plain version on
      the active planes and against ``straddle_tables`` where ``row_done ==
      0``, timed; runs ``propagate_block_ell`` with
@@ -955,8 +957,8 @@ def smoke(torch, dev):
 def busy_profile(torch, fn, count=None):
     """``(device busy ms, the four largest items)`` of one profiled call of
     ``fn``, or None when the profiler recorded no device item.  With
-    ``count`` (a substring of kernel names) the top list ends with the
-    number and time of the items whose names hold it."""
+    ``count`` (a substring of kernel names, or several) the top list ends
+    with the number and time of the items whose names hold each."""
     items = device_items(torch, fn)
     if not items:
         return None
@@ -970,9 +972,9 @@ def busy_profile(torch, fn, count=None):
         f"{key} {total / 1e3:.3f} ms x{n}"
         for key, (total, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:4]
     )
-    if count is not None:
-        hits = [us for item, us in items if count in item]
-        top += f"; items named *{count}*: {len(hits)}, {sum(hits) / 1e3:.3f} ms"
+    for name in (count,) if isinstance(count, str) else count or ():
+        hits = [us for item, us in items if name in item]
+        top += f"; items named *{name}*: {len(hits)}, {sum(hits) / 1e3:.3f} ms"
     return busy, top
 
 
@@ -1500,10 +1502,10 @@ def stores(torch, new, old) -> int:
 
 
 def check_slab_kernels(torch, tk, tref, ops, build, name, prep, part):
-    """Kernels #11, the straddle combine and #12 (with #15's merge) against
-    their plain versions on the instance's partition at its initial bounds,
-    the single-instance shapes of the main path; timed.  Returns {kernel:
-    row}."""
+    """Kernels #11, the straddle combine, #12 (with #15's merge) and #15
+    alone against their plain versions on the instance's partition at its
+    initial bounds, the single-instance shapes of the main path; timed.
+    Returns {kernel: row}."""
     cfg = ops.DEFAULT_CONFIG
     eps, width = cfg.eps_for(prep.lb0.dtype), prep.n_pad
     act = torch.ones(1, dtype=torch.bool, device=prep.lb0.device)
@@ -1555,6 +1557,23 @@ def check_slab_kernels(torch, tk, tref, ops, build, name, prep, part):
         16 * nnz, reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp)]), launches=2)
     rows["batched_slab_round_tiles"]["bound_all_slots_ms"] = bound(
         8 * t * r * k + sum(common.values()), 16 * nnz)[0]
+    # #15 alone on the single plane, the scatter's candidates as its input
+    # (it hands them back at the sentinels), restored before each timed
+    # launch.
+    m_args = (act, part.slab, eps)
+    want_m = tref.apply_updates_slab_ref(lbp, ubp, *held, *m_args)
+    want_m = (*want_m[:2], want_m[2].any(dim=1))
+    got_m = tk.apply_updates_slab_tiles(lbp.clone(), ubp.clone(), held[0].clone(),
+                                        held[1].clone(), *m_args)
+    lbw, ubw, blw, buw = lbp.clone(), ubp.clone(), held[0].clone(), held[1].clone()
+    rows["apply_updates_slab_tiles"] = measured_row(
+        torch, build, got_m, want_m,
+        lambda: tk.apply_updates_slab_tiles(lbw, ubw, blw, buw, *m_args),
+        lambda: tref.apply_updates_slab_ref(lbp, ubp, *held, *m_args),
+        dict(merge_bytes(torch, ops.bnd, lbp, ubp, *held, eps, act, cfg.inf),
+             flags=4 * part.n_slabs + 1),
+        6 * width,
+        reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp), (blw, held[0]), (buw, held[1])]))
     for kname, row in rows.items():
         row["instance"] = name
         log_row(kname, name, row)
@@ -1586,6 +1605,8 @@ def check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep, part
     # lengths hoisted by the partition.
     kw = dict(acc=tk.accumulator_planes(lbp), tile_slab=part.tile_slab,
               chunk_len=part.chunk_len, max_chunk_len=part.max_chunk_len)
+    a_kw = dict(tile_slab=part.a_tile_slab, chunk_len=part.a_chunk_len,
+                max_chunk_len=part.a_max_chunk_len)
     straddle_chunks = int((part.row_done == 0).sum().item())
     for n_act in (0, 8, POOL):
         act = torch.zeros(POOL, dtype=torch.bool, device=lbp.device)
@@ -1597,15 +1618,20 @@ def check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep, part
                   act, lbp, ubp, part.slab, part.a_max_run_len)
         partials = tref.node_slab_partials_ref(*a_args)
         on = lambda xs: tuple(x[act] for x in xs)
-        # The sub-stream is read once per launch (26 MB at K = 8: in L2);
-        # each active node gathers its bound row and writes its partials.
-        out["node_slab_partials_tiles"][shape] = measured_row(
-            torch, build, on(tk.node_slab_partials_tiles(*a_args)), on(partials),
-            lambda: tk.node_slab_partials_tiles(*a_args),
+        # The sub-stream is read once per launch (val at the nonzeros, each
+        # copy stopped at its hoisted length, col_s per nonzero, the length
+        # per chunk and the slab per tile); each active node gathers its
+        # bound row and writes its partials.
+        sub = dict(val=8 * a_nnz, col=4 * a_nnz, chunk_len=4 * ta * r, tiles=4 * ta)
+        rest = dict(bounds=16 * n_act * width, out=24 * n_act * ta * r)
+        out["node_slab_partials_tiles"][shape] = row = measured_row(
+            torch, build, on(tk.node_slab_partials_tiles(*a_args, **a_kw)), on(partials),
+            lambda: tk.node_slab_partials_tiles(*a_args, **a_kw),
             lambda: tref.node_slab_partials_ref(*a_args),
-            dict(stream=(8 * ta * r * k + 4 * a_nnz) if n_act else 0,
-                 bounds=16 * n_act * width, out=24 * n_act * ta * r),
-            4 * a_nnz * n_act, plain_reps=reps)
+            dict(**(sub if n_act else {}), **rest), 4 * a_nnz * n_act, plain_reps=reps)
+        row["bound_all_slots_ms"] = bound(
+            (8 * ta * r * k + sum(sub.values()) - sub["val"] if n_act else 0)
+            + sum(rest.values()), 4 * a_nnz * n_act)[0]
         out["straddle_combine_tiles"][shape] = straddle_row(torch, tk, tref, build, part,
                                                             partials, act, plain_reps=reps)
         strs = tref.straddle_tables(part, *partials)

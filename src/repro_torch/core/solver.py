@@ -20,7 +20,7 @@ on the host: the inner fixed point reads its ``active.any()`` flag once per
 round, and each level reads once whether any node is OPEN (which is true
 exactly while the search is neither done nor stuck).  Those flag reads are
 counted apart from the outer syncs (``solve(on_flag_read=...)``); removing
-them is ROADMAP Queue 4 item 1.
+them is ROADMAP H1.
 
 Exactness contract, as the reference's: :func:`solve` targets pure-integer
 instances with integral data (coefficients, sides, bounds, objective).
@@ -342,7 +342,7 @@ def solve(
 
     Inside each level the host also reads one flag per propagation round
     and one per level (see the module docstring); ``on_flag_read`` is
-    called for each.  Removing those reads is ROADMAP Queue 4 item 1.
+    called for each.  Removing those reads is ROADMAP H1.
 
     ``rule`` picks the branching rule; ``prune_gap`` widens fathoming to
     ``bound >= incumbent - prune_gap``; ``expand_width`` clamps each

@@ -34,7 +34,10 @@
 //                             and free slots launch no warp
 //   apply_updates_batch  (#9) F over (B, n_pad) planes with an active mask
 //                             and a changed flag per row; hands the
-//                             accumulator rows it reads back at the sentinel
+//                             accumulator rows it reads back at the
+//                             sentinel; active rows only, on the merge
+//                             body it shares with #15 (round_common.cuh):
+//                             the walk, or a grid for a few rows
 //   node_objective       (#16) per node: objective bound, all-fixed and
 //                             crossed flags, by a block reduction
 //   activities           (A)  A' on bounds gathered before the launch: each
@@ -499,56 +502,6 @@ batched_fused_scatter_round_kernel(const double* __restrict__ val, const int* __
   }
 }
 
-// Kernel F over (B, n_pad) planes, on the active-only walk of
-// round_common.cuh: an item is one (active row, block of kMergeCols *
-// kThreads columns) pair, the items walked row by row over at most the
-// resident blocks, so no block is spent on an inactive row, which is
-// neither read nor written.  (A (column block, row) grid launches every
-// row's blocks: with 8 of 128 rows active, 94% of them read the mask and
-// return.)  A thread loads the bounds and candidates of its kMergeCols
-// columns before it merges any (one column per thread ran 3% slower with a
-// full pool and 22% slower with 4 of 4 rows of the fused batch active:
-// tools/round_variants.py).  Each accumulator entry it reads goes back to
-// the sentinel, so the planes of #8 and #10, kept for the whole fixed
-// point, are clean for their next round; the fresh planes of node E do not
-// mind.  A warp that tightened a bound stores its row's flag once.
-constexpr int kMergeCols = 4;
-
-__global__ void __launch_bounds__(kThreads)
-apply_updates_batch_kernel(double* __restrict__ lb, double* __restrict__ ub,
-                           double* __restrict__ best_l, double* __restrict__ best_u,
-                           const bool* __restrict__ active, bool* __restrict__ changed,
-                           int64_t bsz, int64_t n_pad, double eps, double inf, double outward) {
-  constexpr int64_t kCols = static_cast<int64_t>(kThreads) * kMergeCols;
-  const EqualItems items_of{(n_pad + kCols - 1) / kCols};
-  const Walk walk = ballot_walk(active, bsz, items_of);
-  WalkCursor cur;
-  for (int64_t item = blockIdx.x; item < walk.items; item += gridDim.x) {
-    cur.seek(item, walk, items_of);
-    const int64_t j0 = (item - cur.first) * kCols + threadIdx.x, row = cur.plane * n_pad;
-    double l[kMergeCols], u[kMergeCols], bl[kMergeCols], bu[kMergeCols];
-#pragma unroll
-    for (int v = 0; v < kMergeCols; ++v) {
-      const int64_t j = j0 + v * kThreads;
-      const bool in = j < n_pad;
-      l[v] = in ? lb[row + j] : 0.0;
-      u[v] = in ? ub[row + j] : 0.0;
-      bl[v] = in ? best_l[row + j] : -inf;
-      bu[v] = in ? best_u[row + j] : inf;
-    }
-    bool tightened = false;
-#pragma unroll
-    for (int v = 0; v < kMergeCols; ++v) {
-      const int64_t j = j0 + v * kThreads, i = row + j;
-      if (bl[v] != -inf) best_l[i] = -inf;  // merge_reset's hand-back
-      if (bu[v] != inf) best_u[i] = inf;
-      if (j < n_pad) tightened |= merge_loaded(lb, ub, i, l[v], u[v], bl[v], bu[v], eps, inf,
-                                               outward);
-    }
-    if (__any_sync(0xffffffffu, tightened) && threadIdx.x % kWarp == 0) changed[cur.plane] = true;
-  }
-}
-
 constexpr int kObjThreads = 1024;
 
 // One block per node: thread t sums the objective contributions of columns
@@ -809,11 +762,11 @@ int batched_fused_scatter_round(const double* val, const int* col, const int* ii
 int apply_updates_batch(double* lb, double* ub, double* best_l, double* best_u,
                         const bool* active, bool* changed, int64_t bsz, int64_t n_pad,
                         double eps, double inf, double outward, cudaStream_t stream) {
-  // At most one block per item.
-  const int64_t most = (n_pad + kThreads * kMergeCols - 1) / (kThreads * kMergeCols) * bsz;
-  return launch_walk<apply_updates_batch_kernel>(most, bsz, stream, lb, ub, best_l, best_u,
-                                                 active, changed, bsz, n_pad, eps, inf,
-                                                 outward);
+  // Kernel F over (B, n_pad) planes: the merges' body (round_common.cuh),
+  // on the walk or, for a few rows, the grid; a warp that tightened a
+  // bound stores its row's flag once per item.
+  return launch_merge(lb, ub, best_l, best_u, active, RowFlags{changed}, bsz, n_pad, eps, inf,
+                      outward, stream);
 }
 
 int node_objective(const double* lb, const double* ub, const double* c, const bool* is_int,

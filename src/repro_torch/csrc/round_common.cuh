@@ -2,12 +2,14 @@
 // slab_round.cu: the lane groups that own a chunk, where a slot's bounds
 // come from (its column, or pre-gathered tiles), the chunk's activity
 // aggregates, its candidates with the column max/min scatter or stored per
-// slot, one chunk's whole round with a single bound gather per nonzero
-// (chunk_round, kernels D, #8, #10, #12 and #14), the active-only walk over
-// (plane, item) pairs (#8, #9, #10, #14), and the bound merge of one
-// column, with or without handing the accumulator entry back
-// (merge_reset).  See prop_round.cu for the layout and the rounding rules
-// (--fmad=false, division-first candidates).
+// slot, one chunk's activity sums (chunk_sums, #13) and whole
+// round with a single bound gather per nonzero (chunk_round, kernels D, #8,
+// #10, #12 and #14), the active-only walk over (plane, item) pairs (#8, #9,
+// #10, #13, #14, #15), the bound merge of one column, with or without
+// handing the accumulator entry back (merge_reset), and the batched merges'
+// body (#9, #15) on the walk or on a (column block, row) grid.  See
+// prop_round.cu for the layout and the rounding rules (--fmad=false,
+// division-first candidates).
 
 #pragma once
 
@@ -484,6 +486,38 @@ inline int held_strides(int max_len) {
   return max_len <= kWarp ? 1 : max_len <= 2 * kWarp ? 2 : 4;
 }
 
+// One chunk's activity sums, U strides held: the first U strides loaded
+// (values, columns and, where ii is not null, marks together; stopped at
+// the length) into `first` and their bounds gathered into l, h, all issued
+// before any is used, then added with the later strides' when `sum` (else
+// the sums stay zero), and reduced over the group.  The caller may keep
+// first, l, h for the chunk's candidates (chunk_round) or drop them (#13's
+// partials).  Every lane of the warp calls it (the group shuffles); len
+// and kk are 0 for a lane with nothing to do, which loads nothing.  A lane
+// adds its slots in the order sl, sl + 32, ... and the group reduces by
+// chunk_aggregates' butterfly, so the sums are its own bit for bit, and
+// ref.warp_order_sum's.
+template <int G, int U, typename B>
+__device__ __forceinline__ RowAgg chunk_sums(Loaded<U>& first, double (&l)[U], double (&h)[U],
+                                             const double* __restrict__ val,
+                                             const int* __restrict__ col,
+                                             const int* __restrict__ ii, const B& b,
+                                             int64_t base, int kk, int len, bool sum, int sl,
+                                             double inf) {
+  load_strides<U, true>(first, val, col, ii, base, 0, len, kk, sl);
+  gather_strides(first, b, l, h);
+  RowAgg a{0.0, 0.0, 0, 0};
+  if (sum) {
+    add_gathered(a, first, l, h, inf);
+    for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
+      Loaded<U> s;
+      load_strides<U, true>(s, val, col, nullptr, base, j0, len, kk, sl);
+      add_strides(a, s, b, inf);
+    }
+  }
+  return group_reduce<G>(a);
+}
+
 // One chunk's round, U strides held.  Every lane of the warp calls it (the
 // aggregates shuffle).  len is the chunk's length and kk its width, both 0
 // for a lane with nothing to do (dead, or an inactive node or window),
@@ -499,19 +533,8 @@ __device__ __forceinline__ void chunk_round(const double* __restrict__ val,
                                             double* best_l, double* best_u, int sl,
                                             double int_eps, double inf) {
   Loaded<U> first;
-  load_strides<U, true>(first, val, col, ii, base, 0, len, kk, sl);
   double l[U], h[U];
-  gather_strides(first, b, l, h);
-  RowAgg a{0.0, 0.0, 0, 0};
-  if (sum) {
-    add_gathered(a, first, l, h, inf);
-    for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
-      Loaded<U> s;
-      load_strides<U, true>(s, val, col, nullptr, base, j0, len, kk, sl);
-      add_strides(a, s, b, inf);
-    }
-  }
-  a = group_reduce<G>(a);
+  RowAgg a = chunk_sums<G, U>(first, l, h, val, col, ii, b, base, kk, len, sum, sl, inf);
   if (kk == 0) return;
   if (!sum) a = given;
   scatter_gathered<U, false>(first, l, h, a, lhs, rhs, best_l, best_u, int_eps, inf);
@@ -536,10 +559,10 @@ __device__ __forceinline__ void chunk_round(const double* __restrict__ val,
   }
 
 // ---------------------------------------------------------------------------
-// The active-only walks of #8, #9, #10 and #14.  A work item is one (active
-// plane, chunk block) pair, a chunk block being the chunks of one
-// kThreads-thread block (32 / G per warp; #9's item is a block of columns,
-// four per thread); items are numbered plane by
+// The active-only walks of #8, #9, #10, #13, #14 and #15.  A work item is
+// one (active plane, chunk block) pair, a chunk block being the chunks of
+// one kThreads-thread block (32 / G per warp; #9's and #15's item is a
+// block of columns, four per thread); items are numbered plane by
 // plane, and the blocks walk them with a grid-stride loop over a grid of at
 // most the resident blocks, so the items in flight belong to one or a few
 // planes and those planes' rows stay in L2.  Each block first ballots the
@@ -556,8 +579,9 @@ __device__ __forceinline__ int64_t block_chunks() {
   return static_cast<int64_t>(kWarpsPerBlock) * (kWarp / G);
 }
 
-// Items of a plane whose chunks are the stream's first n_chunks (#10, #14:
-// one matrix shared by every node; #9: the column blocks of every row).
+// Items of a plane whose chunks are the stream's first n_chunks (#10, #13,
+// #14: one matrix shared by every node; #9, #15: the column blocks of every
+// row).
 struct EqualItems {
   int64_t n_blocks;
   __device__ __forceinline__ int64_t operator()(int64_t) const { return n_blocks; }
@@ -700,6 +724,159 @@ int launch_walk(int64_t most, int64_t bsz, cudaStream_t stream, Args... args) {
   if (grid <= 0 || bsz == 0) return static_cast<int>(cudaGetLastError());
   Kernel<<<static_cast<unsigned int>(grid), kThreads, shm, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The batched merges #9 and #15: bounds.apply_updates over (B, W) planes,
+// in place.  One body, templated on where a warp's tightenings are
+// flagged, over (row, block of C * kThreads columns) items, C columns a
+// thread: kMergeCols on the walk, the merge's own kGridCols on the grid.
+// A thread loads the bounds and candidates of its C columns j0 + v *
+// kThreads before it merges any (on the walk, one column per thread ran 3%
+// slower with a full pool and 22% slower with 4 of 4 rows of the fused
+// batch active: tools/round_variants.py).  Each accumulator entry it reads
+// goes back to the sentinel (merge_reset's hand-back), so planes kept for
+// the whole fixed point are clean for their next round; fresh planes do
+// not mind.  The flags are zeroed by the wrapper.  An inactive row is
+// neither read nor written.  Two launches of the body, chosen by the row
+// count:
+// - the active-only walk above, for more than kMergeGridRows rows, so no
+//   block is spent on an inactive row (a (column block, row) grid launches
+//   every row's blocks: with 8 of 128 rows active, 94% of them read the
+//   mask and return);
+// - a (column block, row) grid for at most kMergeGridRows rows (a single
+//   instance, a small batch), where those blocks are few and the walk's
+//   ballot and prefix, ahead of the first load, cost more than they save.
+// ---------------------------------------------------------------------------
+
+constexpr int kMergeCols = 4;
+constexpr int64_t kMergeBlock = static_cast<int64_t>(kThreads) * kMergeCols;
+constexpr int64_t kMergeGridRows = 16;
+
+// #9: one changed flag per row, stored once per warp and item.  On the
+// grid it takes four columns a thread (one: 17% slower over the fused
+// batch's 33 rounds on an H100, tools/path_times.py).
+struct RowFlags {
+  static constexpr int kGridCols = 4;
+  bool* changed;
+  template <int C>
+  __device__ __forceinline__ void mark(int64_t plane, int64_t, const bool (&ch)[C]) const {
+    bool any = false;
+#pragma unroll
+    for (int v = 0; v < C; ++v) any |= ch[v];
+    if (__any_sync(0xffffffffu, any) && threadIdx.x % kWarp == 0) changed[plane] = true;
+  }
+};
+
+// #15: one flag per (row, window of `slab` columns), stored once per warp
+// and column stride.  A warp's 32 columns of one stride start at w0, a
+// multiple of 32, so where slab % 32 == 0 (the entry checks it) they lie in
+// one window, w0 / slab.  On the grid it takes one column a thread (four:
+// 9% slower over bandw's 30 rounds and 15% over the partitioned batch's
+// on an H100, tools/path_times.py).
+struct WindowFlags {
+  static constexpr int kGridCols = 1;
+  int* flags;
+  int64_t n_slabs, slab;
+  template <int C>
+  __device__ __forceinline__ void mark(int64_t plane, int64_t w0, const bool (&ch)[C]) const {
+#pragma unroll
+    for (int v = 0; v < C; ++v)
+      if (__any_sync(0xffffffffu, ch[v]) && threadIdx.x % kWarp == 0)
+        flags[plane * n_slabs + (w0 + v * kThreads) / slab] = 1;
+  }
+};
+
+// The merge of block `blk` of C * kThreads columns of row `plane`, C
+// columns a thread; every thread of the block calls it.
+template <int C, typename Flags>
+__device__ __forceinline__ void merge_item(double* __restrict__ lb, double* __restrict__ ub,
+                                           double* __restrict__ best_l,
+                                           double* __restrict__ best_u, const Flags& flags,
+                                           int64_t plane, int64_t blk, int64_t width,
+                                           double eps, double inf, double outward) {
+  const int64_t j0 = blk * C * kThreads + threadIdx.x, row = plane * width;
+  double l[C], u[C], bl[C], bu[C];
+#pragma unroll
+  for (int v = 0; v < C; ++v) {
+    const int64_t j = j0 + v * kThreads;
+    const bool in = j < width;
+    l[v] = in ? lb[row + j] : 0.0;
+    u[v] = in ? ub[row + j] : 0.0;
+    bl[v] = in ? best_l[row + j] : -inf;
+    bu[v] = in ? best_u[row + j] : inf;
+  }
+  bool ch[C];
+#pragma unroll
+  for (int v = 0; v < C; ++v) {
+    const int64_t j = j0 + v * kThreads, i = row + j;
+    if (bl[v] != -inf) best_l[i] = -inf;  // merge_reset's hand-back
+    if (bu[v] != inf) best_u[i] = inf;
+    ch[v] = j < width && merge_loaded(lb, ub, i, l[v], u[v], bl[v], bu[v], eps, inf, outward);
+  }
+  flags.template mark<C>(plane, j0 - threadIdx.x % kWarp, ch);
+}
+
+template <typename Flags>
+__global__ void __launch_bounds__(kThreads)
+merge_walk_kernel(double* __restrict__ lb, double* __restrict__ ub, double* __restrict__ best_l,
+                  double* __restrict__ best_u, const bool* __restrict__ active, Flags flags,
+                  int64_t bsz, int64_t width, double eps, double inf, double outward) {
+  const EqualItems items_of{(width + kMergeBlock - 1) / kMergeBlock};
+  const Walk walk = ballot_walk(active, bsz, items_of);
+  WalkCursor cur;
+  for (int64_t item = blockIdx.x; item < walk.items; item += gridDim.x) {
+    cur.seek(item, walk, items_of);
+    merge_item<kMergeCols>(lb, ub, best_l, best_u, flags, cur.plane, item - cur.first, width, eps,
+                           inf, outward);
+  }
+}
+
+// Grid (column blocks, rows), C columns a thread: the blocks of an
+// inactive row return at once.
+template <int C, typename Flags>
+__global__ void __launch_bounds__(kThreads)
+merge_grid_kernel(double* __restrict__ lb, double* __restrict__ ub, double* __restrict__ best_l,
+                  double* __restrict__ best_u, const bool* __restrict__ active, Flags flags,
+                  int64_t width, double eps, double inf, double outward) {
+  if (!active[blockIdx.y]) return;
+  merge_item<C>(lb, ub, best_l, best_u, flags, blockIdx.y, blockIdx.x, width, eps, inf, outward);
+}
+
+// The merge over (bsz, width) planes on the walk: at most one block per
+// item.
+template <typename Flags>
+int launch_merge_walk(double* lb, double* ub, double* best_l, double* best_u,
+                      const bool* active, Flags flags, int64_t bsz, int64_t width, double eps,
+                      double inf, double outward, cudaStream_t stream) {
+  const int64_t most = (width + kMergeBlock - 1) / kMergeBlock * bsz;
+  return launch_walk<merge_walk_kernel<Flags>>(most, bsz, stream, lb, ub, best_l, best_u, active,
+                                               flags, bsz, width, eps, inf, outward);
+}
+
+// The merge over (bsz, width) planes on the (column block, row) grid, C
+// columns a thread.
+template <typename Flags, int C = Flags::kGridCols>
+int launch_merge_grid(double* lb, double* ub, double* best_l, double* best_u,
+                      const bool* active, Flags flags, int64_t bsz, int64_t width, double eps,
+                      double inf, double outward, cudaStream_t stream) {
+  const int64_t blocks = (width + C * kThreads - 1) / (C * kThreads);
+  if (blocks > 0 && bsz > 0)
+    merge_grid_kernel<C, Flags><<<dim3(static_cast<unsigned int>(blocks),
+                                       static_cast<unsigned int>(bsz)),
+                                  kThreads, 0, stream>>>(lb, ub, best_l, best_u, active, flags,
+                                                         width, eps, inf, outward);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The merge over (bsz, width) planes: the grid for at most kMergeGridRows
+// rows, else the walk.
+template <typename Flags>
+int launch_merge(double* lb, double* ub, double* best_l, double* best_u, const bool* active,
+                 Flags flags, int64_t bsz, int64_t width, double eps, double inf, double outward,
+                 cudaStream_t stream) {
+  return (bsz <= kMergeGridRows ? launch_merge_grid<Flags> : launch_merge_walk<Flags>)(
+      lb, ub, best_l, best_u, active, flags, bsz, width, eps, inf, outward, stream);
 }
 
 // One short row segment [s, e) of chunk partials summed left to right from

@@ -10,8 +10,9 @@
 //                       (instance, slab) window; the copies of inactive
 //                       instances write zeros
 //   node_slab_partials  (#13) #11 per node of one instance, the (B,) mask
-//                       balloted on the device; the wrapper zeroes the rows
-//                       of inactive nodes
+//                       balloted on the device, node-major on the
+//                       active-only walk; inactive nodes' rows are not
+//                       written
 //   slab_scatter        the first launch of #12: per copy, the local row
 //                       aggregates or, where row_done == 0, the straddle
 //                       row's completed aggregates; candidates; the column
@@ -19,9 +20,12 @@
 //   node_slab_scatter   the first launch of #14: the same per active node,
 //                       node-major
 //   slab_merge          (#15, and the second launch of #12 and #14)
-//                       bounds.apply_updates over every (instance, slab)
-//                       window, in place, one flag per window; each
-//                       accumulator entry it reads goes back to the sentinel
+//                       bounds.apply_updates over the active rows'
+//                       (instance, slab) windows, in place, on the merge
+//                       body #9 runs (round_common.cuh: the walk, or a
+//                       grid for a few rows), one flag per window; each
+//                       accumulator entry it reads goes back to the
+//                       sentinel
 //
 // The TPU kernels walk a run's copy tiles in grid order, keep the window's
 // accumulators in VMEM and merge at the run's last step.  Blocks of one run
@@ -35,11 +39,12 @@
 // any order), and set back to the sentinel by the merge that reads them
 // (merge_reset).
 //
-// The scatters of #12 and #14 find a copy tile's window from tile_inst /
-// tile_slab, hoisted by the partition, at inst * W + slab_id * slab of the
-// (B, W) planes (#14: node * W + slab_id * slab); #11 and #13 find the
-// tile's run by a binary search over run_start (runs cover contiguous,
-// ascending tile ranges; the TPU's padded grid steps do not exist here).
+// The scatters of #12 and #14 and the partials of #13 find a copy tile's
+// window from tile_inst / tile_slab (#13: a_tile_slab), hoisted by the
+// partition, at inst * W + slab_id * slab of the (B, W) planes (#13, #14:
+// node * W + slab_id * slab); #11 finds the tile's run by a binary search
+// over run_start (runs cover contiguous, ascending tile ranges; the TPU's
+// padded grid steps do not exist here).
 // W is the partition's n_pad_part or the instance's n_pad: no real nonzero
 // reaches past n_pad.  Flat indices are 64-bit wherever two sizes multiply
 // (B * W passes 2^31 at large pools).
@@ -49,7 +54,9 @@
 // candidates, --fmad=false.  The scatters of #12 and #14 run chunk_round:
 // each nonzero's bounds gathered once and held from the sums to the
 // candidates, each copy stopped at its hoisted length (the partition's
-// chunk_len); #14 walks the active nodes' items only (round_common.cuh).
+// chunk_len); #13 sums by its first half, chunk_sums, each straddle copy
+// stopped at a_chunk_len; #13, #14 and #15 walk the active planes' items
+// only (round_common.cuh).
 // Each entry point returns cudaGetLastError().
 
 #include "round_common.cuh"
@@ -67,8 +74,8 @@ __device__ __forceinline__ int run_of(const int* __restrict__ run_start, int n_r
   return lo;
 }
 
-// A live lane's copy: its window's instance (0 without run_inst) and the
-// window's flat offset in the (B, W) planes.
+// A live lane's copy (#11): its window's instance and the window's flat
+// offset in the (B, W) planes.
 struct Copy {
   int64_t inst, off;
 };
@@ -81,7 +88,7 @@ __device__ __forceinline__ Copy copy_window(const Lanes& L, int r,
   Copy c{0, 0};
   if (L.live) {
     const int run = run_of(run_start, n_runs, L.chunk / r);
-    c.inst = run_inst == nullptr ? 0 : run_inst[run];
+    c.inst = run_inst[run];
     c.off = c.inst * width + static_cast<int64_t>(run_slab[run]) * slab;
   }
   return c;
@@ -113,28 +120,47 @@ slab_partials_kernel(const double* __restrict__ val, const int* __restrict__ col
   if (L.live && L.sl == 0) store_partials(a, L.chunk, mf, mc, xf, xc);
 }
 
-template <int G>
+// #13: #11's partials for B nodes of one instance, on the active-only walk
+// of #14 (round_common.cuh): an item is one (active node, chunk block)
+// pair, node-major, so no warp runs for an inactive node and with no node
+// active every block returns after the ballot.  A lane's copy tile t =
+// chunk / r gives its window at once, node * W + a_tile_slab[t] * slab (no
+// search over the runs); each copy stops at its hoisted length and sums by
+// chunk_sums, the first half of chunk_round (the first strides' values and
+// columns loaded together, their bounds gathered before any is added), so
+// the partials are chunk_aggregates', ref.warp_order_sum's, which the
+// straddle combine and #14 read.  The lane group is keyed on the longest
+// straddle copy, as D's is on the longest chunk: copies of at most 16
+// slots share a warp, 32 / G to a warp, at any K.  Inactive nodes' rows
+// are not written.  Node-major reads the sub-stream once per active node;
+// the kernel before it ran each warp's chunk for every active node in
+// turn, reading it once a launch, and is faster at 2 to 32 of 128 active:
+// over the 15 launches of pbw's search (1 to 8 active) 1.34 ms against
+// node-major's 1.71 on an H100 (tools/round_variants.py --only 13).
+template <int G, int U>
 __global__ void __launch_bounds__(kThreads)
 node_slab_partials_kernel(const double* __restrict__ val, const int* __restrict__ col,
-                          const int* __restrict__ run_start, const int* __restrict__ run_slab,
+                          const int* __restrict__ clen, const int* __restrict__ tile_slab,
                           const bool* __restrict__ active, const double* __restrict__ lb,
                           const double* __restrict__ ub, double* __restrict__ mf,
                           int* __restrict__ mc, double* __restrict__ xf, int* __restrict__ xc,
-                          int n_runs, int64_t n_chunks, int r, int k, int64_t bsz,
-                          int64_t width, int64_t slab, double inf) {
-  const Lanes L = lanes_for<G>(n_chunks);
-  const int lane = threadIdx.x % kWarp;
-  const Copy c = copy_window(L, r, run_start, nullptr, run_slab, n_runs, width, slab);
-  const int kk = L.live ? k : 0;
-  for (int64_t b0 = 0; b0 < bsz; b0 += kWarp) {
-    unsigned int todo = __ballot_sync(0xffffffffu, b0 + lane < bsz && active[b0 + lane]);
-    while (todo != 0u) {
-      const int64_t b = b0 + __ffs(todo) - 1;
-      todo &= todo - 1u;
-      const int64_t row = b * width + c.off;
-      const RowAgg a = chunk_aggregates<G>(val, col, lb + row, ub + row, L.chunk * k, kk, L, inf);
-      if (L.live && L.sl == 0) store_partials(a, b * n_chunks + L.chunk, mf, mc, xf, xc);
-    }
+                          int64_t n_chunks, int r, int k, int64_t bsz, int64_t width,
+                          int64_t slab, double inf) {
+  const EqualItems items_of{(n_chunks + block_chunks<G>() - 1) / block_chunks<G>()};
+  const Walk walk = ballot_walk(active, bsz, items_of);
+  WalkCursor cur;
+  for (int64_t item = blockIdx.x; item < walk.items; item += gridDim.x) {
+    cur.seek(item, walk, items_of);
+    const WalkLanes L = walk_lanes<G>(item, cur, items_of, n_chunks);
+    const int64_t c = L.chunk;
+    const int64_t off =
+        L.live ? cur.plane * width + static_cast<int64_t>(tile_slab[c / r]) * slab : 0;
+    Loaded<U> first;
+    double l[U], h[U];
+    const RowAgg a = chunk_sums<G, U>(first, l, h, val, col, nullptr,
+                                      SplitBounds{lb + off, ub + off}, c * k, L.live ? k : 0,
+                                      L.live ? clen[c] : 0, true, L.sl, inf);
+    if (L.live && L.sl == 0) store_partials(a, cur.plane * n_chunks + c, mf, mc, xf, xc);
   }
 }
 
@@ -224,24 +250,6 @@ node_slab_scatter_kernel(const double* __restrict__ val, const int* __restrict__
   }
 }
 
-// The window merge over (B, W) planes: grid (column blocks, B); the blocks
-// of an inactive row return at once.  A thread whose column tightens sets
-// its window's flag, which the wrapper zeroes first.  Each accumulator
-// entry it reads goes back to the sentinel (merge_reset): the planes of
-// #12 and #14 are kept for the whole fixed point.
-__global__ void __launch_bounds__(kThreads)
-slab_merge_kernel(double* __restrict__ lb, double* __restrict__ ub, double* __restrict__ best_l,
-                  double* __restrict__ best_u, const bool* __restrict__ active,
-                  int* __restrict__ flags, int64_t width, int64_t slab, int64_t n_slabs,
-                  double eps, double inf, double outward) {
-  const int64_t b = blockIdx.y;
-  if (!active[b]) return;
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= width) return;
-  if (merge_reset(lb, ub, best_l, best_u, b * width + j, eps, inf, outward))
-    flags[b * n_slabs + j / slab] = 1;
-}
-
 }  // namespace
 
 extern "C" {
@@ -258,15 +266,21 @@ int slab_partials(const double* val, const int* col, const int* run_start, const
   return static_cast<int>(cudaGetLastError());
 }
 
-int node_slab_partials(const double* val, const int* col, const int* run_start,
-                       const int* run_slab, const bool* active, const double* lb,
-                       const double* ub, double* mf, int* mc, double* xf, int* xc, int n_runs,
-                       int64_t n_chunks, int r, int k, int64_t bsz, int64_t width, int64_t slab,
-                       double inf, cudaStream_t stream) {
-  LAUNCH_FOR_WIDTH(node_slab_partials_kernel, k, n_chunks, stream, val, col, run_start,
-                   run_slab, active, lb, ub, mf, mc, xf, xc, n_runs, n_chunks, r, k, bsz, width,
-                   slab, inf);
-  return static_cast<int>(cudaGetLastError());
+int node_slab_partials(const double* val, const int* col, const int* clen, const int* tile_slab,
+                       const bool* active, const double* lb, const double* ub, double* mf,
+                       int* mc, double* xf, int* xc, int64_t n_chunks, int r, int k,
+                       int max_len, int64_t bsz, int64_t width, int64_t slab, double inf,
+                       cudaStream_t stream) {
+  // The group width of the longest straddle copy (at most K's); at most
+  // one pass over the sub-stream.
+  const int g = max_len < k ? max_len : k;
+  const int64_t most = chunk_blocks(n_chunks, g);
+#define NODE_PARTIALS(G, U)                                                                 \
+  launch_walk<node_slab_partials_kernel<G, U>>(most, bsz, stream, val, col, clen, tile_slab, \
+                                               active, lb, ub, mf, mc, xf, xc, n_chunks, r, \
+                                               k, bsz, width, slab, inf)
+  DISPATCH_HELD(NODE_PARTIALS, g, held_strides(max_len))
+#undef NODE_PARTIALS
 }
 
 int slab_scatter(const double* val, const int* col, const int* ii, const int* clen,
@@ -306,12 +320,11 @@ int node_slab_scatter(const double* val, const int* col, const int* ii, const in
 int slab_merge(double* lb, double* ub, double* best_l, double* best_u,
                const bool* active, int* flags, int64_t bsz, int64_t width, int64_t slab,
                double eps, double inf, double outward, cudaStream_t stream) {
+  // A warp's 32 columns of one stride must lie in one window.
+  if (slab <= 0 || slab % kWarp != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n_slabs = (width + slab - 1) / slab;
-  const dim3 grid(static_cast<unsigned int>((width + kThreads - 1) / kThreads),
-                  static_cast<unsigned int>(bsz));
-  slab_merge_kernel<<<grid, kThreads, 0, stream>>>(lb, ub, best_l, best_u, active, flags, width,
-                                                   slab, n_slabs, eps, inf, outward);
-  return static_cast<int>(cudaGetLastError());
+  return launch_merge(lb, ub, best_l, best_u, active, WindowFlags{flags, n_slabs, slab}, bsz,
+                      width, eps, inf, outward, stream);
 }
 
 }  // extern "C"

@@ -56,7 +56,7 @@ SIGNATURES = {
     },
     "slab_round.cu": {
         "slab_partials": [P] * 12 + [I32, I64, I32, I32, I64, I64, F64, P],
-        "node_slab_partials": [P] * 11 + [I32, I64, I32, I32, I64, I64, I64, F64, P],
+        "node_slab_partials": [P] * 11 + [I64, I32, I32, I32, I64, I64, I64, F64, P],
         "slab_scatter": [P] * 18 + [I64, I32, I32, I32, I64, I64, F64, F64, P],
         "node_slab_scatter": [P] * 17 + [I64, I32, I32, I32, I64, I64, I64, F64, F64, P],
         "slab_merge": [P] * 6 + [I64, I64, I64, F64, F64, F64, P],

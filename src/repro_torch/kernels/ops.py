@@ -511,7 +511,8 @@ def _partitioned_kernel_round(
         if node:
             partials = kern.node_slab_partials_tiles(
                 part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_slab,
-                active, lb, ub, part.slab, part.a_max_run_len, inf,
+                active, lb, ub, part.slab, part.a_max_run_len, inf, tile_slab=part.a_tile_slab,
+                chunk_len=part.a_chunk_len, max_chunk_len=part.a_max_chunk_len,
             )
         else:
             partials = kern.batched_slab_partials_tiles(

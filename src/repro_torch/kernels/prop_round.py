@@ -200,8 +200,9 @@ def _chunk_len(val, chunk_len):
 
 
 def _max_len(k: int, max_chunk_len) -> int:
-    """The longest chunk a launch of #8, #10, #12 or #14 meets, which sets
-    the strides a lane holds: as hoisted by the caller, or the width K."""
+    """The longest chunk a launch of #8, #10, #12, #13 or #14 meets, which
+    sets the strides a lane holds (and #13's lanes per chunk): as hoisted by
+    the caller, or the width K."""
     return k if max_chunk_len is None else int(max_chunk_len)
 
 
@@ -903,7 +904,11 @@ def apply_updates_batch_tiles(
     most the resident blocks, so no block is spent on an inactive row; a
     thread loads its four columns' bounds and candidates before it merges
     any; a warp that takes a tightening stores ``true`` to its row's flag
-    once, which the wrapper zeroes first."""
+    once, which the wrapper zeroes first.  The body is the one #15 runs
+    (``round_common.cuh``), templated on where the flag goes; for at most
+    16 rows (``kMergeGridRows``) it runs on a (column block, row) grid
+    instead, whose few blocks of inactive rows cost less than the walk's
+    ballot ahead of the first load."""
     if not _on_cuda(lb, ub, best_l, best_u, active):
         new_lb, new_ub, changed = bnd.apply_updates_batch(
             lb, ub, best_l, best_u, eps, inf, outward, active=active
@@ -1052,7 +1057,11 @@ def _slab_merge(lb, ub, best_l, best_u, active, slab: int, eps: float, inf: floa
                 outward: float):
     """Launch kernel #15 on ``(B, W)`` planes, in place; returns the ``(B,
     n_slabs)`` int32 window flags.  Counted as a launch of
-    :func:`apply_updates_slab_tiles`, whichever wrapper calls it."""
+    :func:`apply_updates_slab_tiles`, whichever wrapper calls it.  The slab
+    must be a multiple of 32: a warp flags the one window its 32 columns
+    lie in (partition slabs are multiples of LANE, 128)."""
+    if slab <= 0 or slab % ref.WARP:
+        raise ValueError(f"slab={slab}: the window merge takes multiples of {ref.WARP}")
     bsz, width = lb.shape
     flags = torch.zeros((bsz, _n_slabs(width, slab)), dtype=torch.int32, device=lb.device)
     err = _build.lib().slab_merge(
@@ -1153,27 +1162,41 @@ batched_slab_round_tiles.launches = 0
 
 def node_slab_partials_tiles(
     val, col_s, run_start, run_len, run_slab, active, lb, ub, slab: int, max_run_len: int,
-    inf: float = INF,
+    inf: float = INF, *, tile_slab=None, chunk_len=None, max_chunk_len: int | None = None,
 ):
     """Per-copy, per-node activity partials of ONE instance's straddle
     sub-stream: ``(Ta, R, K)`` copies + run maps + ``(B, W)`` per-node
     planes + ``(B,)`` ``active`` -> 4 x ``(B, Ta, R)``; inactive nodes'
     planes are not written (zeros in the plain version).  Per node exactly
-    :func:`batched_slab_partials_tiles`.
+    :func:`batched_slab_partials_tiles`.  ``tile_slab`` is the copy tiles'
+    slabs (``a_tile_slab``), ``chunk_len`` the copies' lengths and
+    ``max_chunk_len`` the longest (``a_chunk_len``, ``a_max_chunk_len``),
+    all hoisted by the partition; computed from the run maps, from ``val``
+    and as K when omitted.
 
     Replaces ``node_slab_partials_tiles`` / ``_node_slab_partials_kernel``
     (src/repro/kernels/prop_round.py:1383 / :1351).  Bound on the H100: the
-    sub-stream once per launch (it fits the 50 MB L2 at the solver's
-    sizes) plus each active node's window gathers and 24 B of partials per
-    (node, chunk).  Design: #11's lane groups; each warp ballots the mask 32
-    nodes at a time and visits the active nodes only (kernel #10's scheme);
-    the outputs are allocated, not filled: the straddle combine reads the
-    active planes only."""
+    sub-stream once per launch (``val`` at the nonzeros, each copy stopped
+    at its length; ``col_s`` per nonzero; it fits the 50 MB L2 at the
+    solver's sizes) plus each active node's window gathers and 24 B of
+    partials per (node, chunk).  Design: the active-only walk of #14 over
+    (active node, chunk block) items, node-major, so with no node active
+    every block returns after its ballot; each copy's window from
+    ``tile_slab`` (no search over the runs); each copy stopped at its
+    length and summed by ``chunk_round``'s routine (values and columns
+    loaded together, every bound gather of a lane issued before any is
+    added), in ``ref.warp_order_sum``'s order; the lane group keyed on the
+    longest copy, as D's is.  The outputs are allocated, not filled: the
+    straddle combine reads the active planes only."""
     operands = (val, col_s, run_start, run_len, run_slab, active, lb, ub)
     if not _on_cuda(*operands):
         return ref.node_slab_partials_ref(*operands, slab, max_run_len, inf)
     t, r, k, bsz, width = _check_copies(val, col_s, lb, ub, active)
-    n_runs = _check_runs(t, run_start=run_start, run_len=run_len, run_slab=run_slab)
+    _check_runs(t, run_start=run_start, run_len=run_len, run_slab=run_slab)
+    if tile_slab is None:
+        tile_slab = torch.repeat_interleave(run_slab, run_len).to(torch.int32)
+    _expect("tile_slab", tile_slab, torch.int32, (t,))
+    clen = _chunk_len(val, chunk_len)
     dev = val.device
     mf = torch.empty((bsz, t, r), dtype=torch.float64, device=dev)
     xf = torch.empty((bsz, t, r), dtype=torch.float64, device=dev)
@@ -1182,8 +1205,9 @@ def node_slab_partials_tiles(
     if t == 0:
         return mf, mc, xf, xc
     err = _build.lib().node_slab_partials(
-        _p(val), _p(col_s), _p(run_start), _p(run_slab), _p(active), _p(lb), _p(ub), _p(mf),
-        _p(mc), _p(xf), _p(xc), n_runs, t * r, r, k, bsz, width, slab, inf, _stream(),
+        _p(val), _p(col_s), _p(clen), _p(tile_slab), _p(active), _p(lb), _p(ub), _p(mf),
+        _p(mc), _p(xf), _p(xc), t * r, r, k, _max_len(k, max_chunk_len), bsz, width, slab, inf,
+        _stream(),
     )
     node_slab_partials_tiles.launches += 1
     _build.check(err, "node_slab_partials")
@@ -1350,8 +1374,13 @@ def apply_updates_slab_tiles(
     second launch of #12 and #14.  Bound on the H100: 32 B of reads per
     active (row, column), 8 B per entry that tightens, the flags, and 16 B
     written back per accumulator entry that held a candidate.
-    Design: a (column block, row) grid whose blocks of inactive rows return
-    at once; a thread whose column tightens sets its window's flag."""
+    Design: #9's merge body on the active-only walk over (active row,
+    block of 1,024 columns) items, so no block is spent on an inactive row
+    (for at most 16 rows, a single instance or a small batch, a (column
+    block, row) grid instead, as #9's); a thread loads its four columns'
+    bounds and candidates before it merges any; a warp that takes a
+    tightening in a column stride stores its window's flag once (``slab``
+    a multiple of 32), the flags zeroed by the wrapper first."""
     if not _on_cuda(lb, ub, best_l, best_u, active):
         new_lb, new_ub, flags = ref.apply_updates_slab_ref(
             lb, ub, best_l, best_u, active, slab, eps, inf, outward

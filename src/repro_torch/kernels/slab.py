@@ -11,8 +11,9 @@ port's plain column reduction is a ``scatter_reduce`` ``amax``/``amin``,
 which does not depend on order).  One thing is added: the index of the
 straddle combine (``a_order``, ``a_seg``, ``agg_pos``), which sums each
 straddle row's copy partials left to right in sub-stream order, the same
-order on every device; and the main stream's chunk lengths (``chunk_len``),
-where kernel #12 stops each copy.
+order on every device; and the chunk lengths of the main stream
+(``chunk_len``), where kernels #12 and #14 stop each copy, and of the
+straddle sub-stream (``a_chunk_len``), where #13 stops each copy.
 """
 from __future__ import annotations
 
@@ -72,9 +73,11 @@ class SlabPartition(NamedTuple):
     next to each other in ascending sub-stream position; ``a_seg`` holds
     each slot's first position in that order (``n_straddle + 2`` entries);
     ``agg_pos`` is, per main-stream chunk, the position of its slot's first
-    partial (0 where ``row_done == 1``).  ``chunk_len`` (also the port's) is
-    :func:`ref.chunk_lengths` of the main stream: a copy keeps only its
-    slab's nonzeros, so its chunks are padded more than the source's."""
+    partial (0 where ``row_done == 1``).  ``chunk_len`` and ``a_chunk_len``
+    (also the port's) are :func:`ref.chunk_lengths` of the main stream and
+    of the sub-stream, ``max_chunk_len`` and ``a_max_chunk_len`` their
+    largest entries: a copy keeps only its slab's nonzeros, so its chunks
+    are padded more than the source's."""
 
     # Main stream: every chunk copy, (instance, slab)-grouped and padded.
     val: torch.Tensor        # (T'', R, K) slab-masked copies; 0 == padding
@@ -102,6 +105,7 @@ class SlabPartition(NamedTuple):
     a_run_len: torch.Tensor    # (n_aruns,) int32
     a_run_inst: torch.Tensor   # (n_aruns,) int32
     a_run_slab: torch.Tensor   # (n_aruns,) int32
+    a_chunk_len: torch.Tensor  # (Ta, R) int32 one past each copy's last nonzero (#13)
     # The straddle combine's index.
     a_order: torch.Tensor    # (Ta*R,) int64 stable argsort of a_slot
     a_seg: torch.Tensor      # (n_straddle + 2,) int64 each slot's first position
@@ -113,8 +117,9 @@ class SlabPartition(NamedTuple):
     batch: int              # B: instances sharing the stream
     n_straddle: int         # straddle rows (table has n_straddle + 1 slots)
     max_run_len: int        # max(run_len)
-    max_chunk_len: int      # max(chunk_len): the strides #12 holds per lane
+    max_chunk_len: int      # max(chunk_len): the strides #12 and #14 hold per lane
     a_max_run_len: int      # max(a_run_len), 0 when no straddle copies
+    a_max_chunk_len: int    # max(a_chunk_len), 0 when no straddle copies: #13's lanes per copy
     source_tiles: int       # T of the unpartitioned stream
     source_chunks: int      # nonzero-carrying chunks of the source stream
     num_chunk_copies: int   # chunk copies before window padding
@@ -204,6 +209,13 @@ def _pack_copy_windows(
         "tile_slab": np.repeat(run_slab, run_len),
     }
     return tiles, run_start, run_len, run_inst, run_slab
+
+
+def _longest_chunk(val: np.ndarray) -> int:
+    """The largest :func:`ref.chunk_lengths` entry of ``(T, R, K)`` tiles
+    (0 for none)."""
+    k = val.shape[-1]
+    return int(np.where(val != 0, np.arange(1, k + 1), 0).max(initial=0))
 
 
 def straddle_combine_index(a_slot: np.ndarray, agg_slot: np.ndarray, n_straddle: int):
@@ -331,6 +343,7 @@ def build_slab_partition(
         a_run_len=t_(a_run_len),
         a_run_inst=t_(a_run_inst),
         a_run_slab=t_(a_run_slab),
+        a_chunk_len=chunk_lengths(t_(sub["val"])),
         a_order=t_(a_order),
         a_seg=t_(a_seg),
         agg_pos=t_(agg_pos),
@@ -340,8 +353,9 @@ def build_slab_partition(
         batch=bsz,
         n_straddle=n_straddle,
         max_run_len=int(run_len.max(initial=1)),
-        max_chunk_len=int(np.where(main["val"] != 0, np.arange(1, k + 1), 0).max(initial=0)),
+        max_chunk_len=_longest_chunk(main["val"]),
         a_max_run_len=int(a_run_len.max(initial=0)),
+        a_max_chunk_len=_longest_chunk(sub["val"]),
         source_tiles=t,
         source_chunks=int(src.sum()),
         num_chunk_copies=int(ch_ids.size),

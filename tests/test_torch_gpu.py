@@ -1538,3 +1538,147 @@ def test_batched_merge_walk_matches_plain_version(cuda, gen, n_act):
         _match(planes[1][~act], bu[~act])
         if n_act:
             assert bool(got[2].any())
+
+
+POOL_ACTIVE = (0, 1, 8, 31, 32, 33, 45)
+
+
+def _straddle_stream(gen, k, longest, tiles, r, slab, n_slabs, dev):
+    """A straddle sub-stream of ``(tiles, r, k)`` copies whose lengths run
+    over every value from 0 to ``longest`` (each copy's last slot a nonzero,
+    zeros inside, general floats), slab-local columns, ``n_slabs``
+    contiguous runs in window order, and the tile slabs, copy lengths and
+    longest copy hoisted as the partition hoists them."""
+    n = tiles * r
+    lengths = np.arange(n) % (longest + 1)
+    gen.shuffle(lengths)
+    val = np.zeros((n, k))
+    col = np.zeros((n, k), np.int32)
+    for i, n_i in enumerate(lengths):
+        if n_i:
+            v = gen.choice([-2.0, -1.0, 0.0, 0.5, 3.0], size=n_i) * 10.0 ** gen.integers(-3, 4, n_i)
+            v[-1] = gen.choice([-1.5, 2.5])
+            val[i, :n_i] = v
+            col[i, :n_i] = gen.integers(0, slab, size=n_i)
+    col[val == 0] = 0
+    cuts = np.sort(gen.choice(np.arange(1, tiles), size=n_slabs - 1, replace=False))
+    run_start = np.concatenate([[0], cuts]).astype(np.int32)
+    run_len = np.diff(np.append(run_start, tiles)).astype(np.int32)
+    run_slab = np.arange(n_slabs, dtype=np.int32)
+    c = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    v = c(val.reshape(tiles, r, k))
+    return dict(val=v, col=c(col.reshape(tiles, r, k)), run_start=c(run_start),
+                run_len=c(run_len), run_slab=c(run_slab),
+                hoisted=dict(tile_slab=c(np.repeat(run_slab, run_len)),
+                             chunk_len=tref.chunk_lengths(v), max_chunk_len=int(lengths.max())))
+
+
+@pytest.mark.parametrize("k,longest", [(8, 8), (128, 8), (128, 16), (128, 33), (128, 128)])
+def test_node_slab_partials_over_a_pool_match_plain_version(cuda, gen, k, longest):
+    """#13 over a pool of 45 node planes (no multiple of 32) with 0, 1, 8,
+    31, 32, 33 and all 45 active, holes in every ballot word (the walk's
+    items skip them), on copies of every length from 0 to the longest --
+    the lane group keyed on it (8, 16 or 32 lanes, one, two or four strides
+    held) -- with the hoisted tile slabs and lengths given and derived:
+    bitwise equal to its plain version on the active planes, on integer and
+    general-float bounds."""
+    bsz, slab, n_slabs = 45, 128, 3
+    s = _straddle_stream(gen, k, longest, 40, 4, slab, n_slabs, cuda)
+    for exact in (True, False):
+        lb, ub = _planes(gen, bsz, slab * n_slabs, exact, cuda)
+        for n_act in POOL_ACTIVE:
+            act = _holey_mask(bsz, n_act, cuda)
+            args = (s["val"], s["col"], s["run_start"], s["run_len"], s["run_slab"], act, lb, ub,
+                    slab, int(s["run_len"].max()))
+            want = tref.node_slab_partials_ref(*args)
+            for kw in (s["hoisted"], {}):
+                tk.reset_launch_counts()
+                got = tk.node_slab_partials_tiles(*args, **kw)
+                assert tk.launch_counts()["node_slab_partials_tiles"] == 1
+                for g, w in zip(got, want):
+                    _match(g[act], w[act])
+
+
+@pytest.mark.parametrize("bsz,width,slab", [(1, 2500, 128), (1, 150_016, 50_048),
+                                            (45, 2500, 256), (45, 1000, 128)])
+def test_window_merge_walk_matches_plain_version(cuda, gen, bsz, width, slab):
+    """#15 on the merge walk it shares with #9: one plane, and a 45-row pool
+    with 0, 1, 8, 31, 32, 33 and all rows active (holes in every ballot
+    word), at widths that are no multiple of 1,024 columns (a partial column
+    block): the bounds and every window flag bitwise equal to its plain
+    version, through the launch and through the wrapper (flags OR-ed per
+    row); the active rows of the planes handed back at the sentinels, the
+    others neither read nor written."""
+    from repro_torch.kernels import prop_round as tpr
+
+    for exact in (True, False):
+        lb, ub = _planes(gen, bsz, width, exact, cuda)
+        bl, bu = _planes(gen, bsz, width, exact, cuda)
+        bl, bu = bl - 1.0, bu + 1.0
+        bl[:, ::7] = -INF
+        bu[:, ::5] = INF
+        for n_act in (0, 1) if bsz == 1 else POOL_ACTIVE:
+            act = _holey_mask(bsz, n_act, cuda)
+            want = tref.apply_updates_slab_ref(lb, ub, bl, bu, act, slab, 1e-9)
+            glb, gub, gbl, gbu = lb.clone(), ub.clone(), bl.clone(), bu.clone()
+            tk.reset_launch_counts()
+            flags = tpr._slab_merge(glb, gub, gbl, gbu, act, slab, 1e-9, INF, 0.0)
+            assert tk.launch_counts()["apply_updates_slab_tiles"] == 1
+            for g, w in zip((glb, gub, flags), want):
+                _match(g, w)
+            assert _clean((gbl[act], gbu[act]))
+            _match(gbl[~act], bl[~act])
+            _match(gbu[~act], bu[~act])
+            got = tk.apply_updates_slab_tiles(lb.clone(), ub.clone(), bl.clone(), bu.clone(), act,
+                                              slab, 1e-9)
+            _match(got[2], want[2].any(dim=1))
+            if n_act:
+                assert bool(want[2].any())
+
+
+@pytest.mark.parametrize("bsz", [1, 2, 16, 17])
+def test_merges_on_the_grid_and_the_walk_match_plain_version(cuda, gen, bsz):
+    """#9 and #15 at row counts around their launch's choice -- a (column
+    block, row) grid for at most 16 rows (``kMergeGridRows``), the
+    active-only walk beyond -- with none, one, half and all rows active
+    (holes where the count allows), at a width that is no multiple of
+    1,024 columns: bounds and flags bitwise equal to their plain versions,
+    the active rows of the planes handed back at the sentinels and every
+    other row neither read nor written."""
+    from repro_torch.kernels import prop_round as tpr
+
+    width, slab = 2500, 128
+    for exact in (True, False):
+        lb, ub = _planes(gen, bsz, width, exact, cuda)
+        bl, bu = _planes(gen, bsz, width, exact, cuda)
+        bl, bu = bl - 1.0, bu + 1.0
+        bl[:, ::7] = -INF
+        bu[:, ::5] = INF
+        for n_act in sorted({0, 1, bsz // 2, bsz}):
+            act = _holey_mask(bsz, n_act, cuda)
+            for merge in ("#9", "#15"):
+                glb, gub, gbl, gbu = lb.clone(), ub.clone(), bl.clone(), bu.clone()
+                if merge == "#9":
+                    want = rt.core.apply_updates_batch(lb, ub, bl, bu, 1e-9, active=act)
+                    got = tk.apply_updates_batch_tiles(glb, gub, gbl, gbu, act, 1e-9)
+                else:
+                    want = tref.apply_updates_slab_ref(lb, ub, bl, bu, act, slab, 1e-9)
+                    got = (glb, gub, tpr._slab_merge(glb, gub, gbl, gbu, act, slab, 1e-9, INF,
+                                                     0.0))
+                for g, w in zip(got, want):
+                    _match(g, w)
+                assert _clean((gbl[act], gbu[act]))
+                _match(gbl[~act], bl[~act])
+                _match(gbu[~act], bu[~act])
+
+
+def test_window_merge_rejects_slabs_of_partial_warps(cuda, gen):
+    """#15 flags a window once per warp, so its slab must be a multiple of
+    32: the wrapper raises on any other before it launches."""
+    lb, ub = _planes(gen, 2, 300, True, cuda)
+    act = torch.ones(2, dtype=torch.bool, device=cuda)
+    tk.reset_launch_counts()
+    for slab in (100, 48):
+        with pytest.raises(ValueError, match="multiples of 32"):
+            tk.apply_updates_slab_tiles(lb, ub, lb - 1.0, ub + 1.0, act, slab, 1e-9)
+    assert tk.launch_counts()["apply_updates_slab_tiles"] == 0

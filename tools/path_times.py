@@ -3,7 +3,7 @@
 through the port's public entry points only, so that two checkouts can be
 compared in one call on one card (parent, change, change, parent).
 
-    python3 tools/path_times.py [--src DIR] [--reps 5] [--paths NAME,...]
+    python3 tools/path_times.py [--src DIR] [--reps 5] [--paths NAME,...] [--count NAME,...]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 ``--src`` names the ``src`` directory whose ``repro_torch`` is timed
@@ -27,7 +27,9 @@ engines' warm-up are set-up).  For each it prints the result (rounds,
 search counts), the median wall time of ``--reps`` calls (CUDA events
 around the call, host syncs included), the device busy time of one more
 call (``torch.profiler`` device items), the idle share and the largest
-device items, and the card's name and power limit.
+device items, with ``--count`` the number and time of the device items
+whose names hold each given substring (e.g. ``node_slab_partials``), and
+the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -45,8 +47,10 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--paths", default="")
+    ap.add_argument("--count", default="")
     args = ap.parse_args()
     picked = {x for x in args.paths.split(",") if x}
+    counted = tuple(x for x in args.count.split(",") if x)
     import numpy as np
     import torch
 
@@ -134,7 +138,7 @@ def main() -> int:
         result = summary(fn())
         torch.cuda.synchronize()
         wall = cs.time_ms(torch, fn, reps=1, trials=args.reps)
-        prof = cs.busy_profile(torch, fn)
+        prof = cs.busy_profile(torch, fn, counted)
         if prof is None:
             busy_txt = "busy not measured (the profiler recorded no device item)"
         else:

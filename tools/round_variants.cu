@@ -1,7 +1,8 @@
 // Timed variants of kernels D (fused_scatter_round), #8
-// (batched_fused_scatter_round) and #10 (node_fused_scatter_round), of the
-// scatters of #12 (slab_scatter) and #14 (node_slab_scatter), and of the
-// batched merges #9 and #15: which design step of their redesign pays.
+// (batched_fused_scatter_round), #10 (node_fused_scatter_round) and #13
+// (node_slab_partials), of the scatters of #12 (slab_scatter) and #14
+// (node_slab_scatter), and of the batched merges #9 and #15: which design
+// step of their redesign pays.
 // Built and driven by tools/round_variants.py; not part of the port's
 // kernel library.
 //
@@ -82,20 +83,44 @@
 //   8  as 7, at most 64 registers
 //   9  one group of every active node (ballot order over the resident
 //      blocks), at most 64 registers
+// #13 variants (partials_variant), one straddle sub-stream over B node
+// planes:
+//   0  the kernel before the redesign: each warp ballots the mask and loops
+//      over the active nodes on its fixed chunk; a binary search over the
+//      runs, chunk_aggregates over every slot (K's group width)
+//   1  node-major on the active-only walk (#14's order), the window from
+//      a_tile_slab, chunk_sums stopped at the copy's length, the group keyed
+//      on the longest copy (the port's)
+//   2  chunk once: an item is (group of 4 active nodes, chunk block); a warp
+//      loads its chunks' values and columns once, issues the bound gathers
+//      of the 4 nodes, then sums each
 // Merge variants (merge_variant):
 //   0  #9 reading the accumulator planes only (before the hand-back)
 //   1  #9 handing them back at the sentinels, a (column block, row) grid
 //      (the port's #9 before the walk)
 //   2  #15 reading only
-//   3  #15 handing back (the port's)
+//   3  #15 handing back, a (column block, row) grid (the port's #15 before
+//      the walk)
 //   4  #9 on the active-only walk over (active row, column block) items,
 //      each thread that tightens storing its row's flag
 //   5  as 4, one flag store per warp that tightened
 //   6, 7, 8  as 5, an item of 2, 4, 8 column blocks: a thread loads the
 //      bounds and candidates of its 2, 4, 8 columns before it merges any
-//      (7 is the port's #9)
+//      (7 is the port's #9, now the body it shares with #15: 11)
 //   9  a (column block, group of 32 rows) grid: each warp ballots its
 //      group's flags and merges its column of each active row in turn
+//   10 #15 on the active-only walk, one column a thread, its window's flag
+//      stored once per warp
+//   11 #15 on the merge body it shares with #9 (round_common.cuh), on the
+//      walk: four columns a thread, loaded before any merge, a flag store
+//      per warp and column stride (the port's for more than kMergeGridRows
+//      rows)
+//   12 as 11 on a (column block, row) grid, four columns a thread
+//   13, 14 #9 on the shared body (a bool flag per row), on the grid at four
+//      columns a thread (the port's #9 for at most kMergeGridRows rows) /
+//      on the walk (past them)
+//   15, 16 #15 / #9 on the shared body's grid, one column a thread (15: the
+//      port's #15 for at most kMergeGridRows rows)
 
 #include "../src/repro_torch/csrc/round_common.cuh"
 
@@ -824,16 +849,149 @@ int fused_variant_g(int v, const Fused& s, int held, cudaStream_t stream) {
   }
 }
 
+// ---- #13 ----------------------------------------------------------------------
+
+struct Partials {
+  const double *val, *lb, *ub;
+  const int *col, *clen, *run_start, *run_slab, *tile_slab;
+  const bool* active;
+  double *mf, *xf;
+  int *mc, *xc;
+  int n_runs, r, k;
+  int64_t n_chunks, bsz, width, slab;
+  double inf;
+};
+
+__device__ __forceinline__ void put_partials(const Partials& s, const RowAgg& a, int64_t o) {
+  s.mf[o] = a.mf;
+  s.mc[o] = a.mc;
+  s.xf[o] = a.xf;
+  s.xc[o] = a.xc;
+}
+
+// The kernel before the redesign: each warp ballots the mask and runs its
+// fixed chunk for every active node in turn; the window by a binary search
+// over the runs, chunk_aggregates over every slot.
+template <int G>
+__global__ void __launch_bounds__(kThreads) partials_ballot(const Partials s) {
+  const Lanes L = lanes_for<G>(s.n_chunks);
+  const int lane = threadIdx.x % kWarp;
+  const int64_t off =
+      L.live ? static_cast<int64_t>(s.run_slab[run_of(s.run_start, s.n_runs, L.chunk / s.r)]) *
+                   s.slab
+             : 0;
+  const int kk = L.live ? s.k : 0;
+  for (int64_t b0 = 0; b0 < s.bsz; b0 += kWarp) {
+    unsigned int todo = __ballot_sync(0xffffffffu, b0 + lane < s.bsz && s.active[b0 + lane]);
+    while (todo != 0u) {
+      const int64_t b = b0 + __ffs(todo) - 1;
+      todo &= todo - 1u;
+      const int64_t row = b * s.width + off;
+      const RowAgg a =
+          chunk_aggregates<G>(s.val, s.col, s.lb + row, s.ub + row, L.chunk * s.k, kk, L, s.inf);
+      if (L.live && L.sl == 0) put_partials(s, a, b * s.n_chunks + L.chunk);
+    }
+  }
+}
+
+// Node-major on the active-only walk (#14's order; the port's #13).
+template <int G, int U>
+__global__ void __launch_bounds__(kThreads) partials_walk(const Partials s) {
+  const EqualItems items_of{(s.n_chunks + block_chunks<G>() - 1) / block_chunks<G>()};
+  const Walk walk = ballot_walk(s.active, s.bsz, items_of);
+  WalkCursor cur;
+  for (int64_t item = blockIdx.x; item < walk.items; item += gridDim.x) {
+    cur.seek(item, walk, items_of);
+    const WalkLanes L = walk_lanes<G>(item, cur, items_of, s.n_chunks);
+    const int64_t c = L.chunk;
+    const int64_t off =
+        L.live ? cur.plane * s.width + static_cast<int64_t>(s.tile_slab[c / s.r]) * s.slab : 0;
+    Loaded<U> first;
+    double l[U], h[U];
+    const RowAgg a = chunk_sums<G, U>(first, l, h, s.val, s.col, nullptr,
+                                      SplitBounds{s.lb + off, s.ub + off}, c * s.k,
+                                      L.live ? s.k : 0, L.live ? s.clen[c] : 0, true, L.sl,
+                                      s.inf);
+    if (L.live && L.sl == 0) put_partials(s, a, cur.plane * s.n_chunks + c);
+  }
+}
+
+// Chunk once: an item is (group of NB active nodes, chunk block).  A warp
+// loads its chunks' first strides once, issues the bound gathers of the
+// group's nodes, then sums each node in turn (strides past the first U are
+// loaded again per node).
+template <int G, int U, int NB>
+__global__ void __launch_bounds__(kThreads) partials_once(const Partials s) {
+  const EqualItems ones{1};
+  const Walk walk = ballot_walk(s.active, s.bsz, ones);  // items: the active ranks
+  const int64_t n_blocks = (s.n_chunks + block_chunks<G>() - 1) / block_chunks<G>();
+  const int64_t items = (walk.items + NB - 1) / NB * n_blocks;
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int sl = lane % G;
+  WalkCursor first;
+  for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+    const int64_t g = item / n_blocks;
+    first.seek(g * NB, walk, ones);
+    const int64_t c = (item - g * n_blocks) * block_chunks<G>() + warp * (kWarp / G) + lane / G;
+    const bool live = c < s.n_chunks;
+    const int64_t slab_off = live ? static_cast<int64_t>(s.tile_slab[c / s.r]) * s.slab : 0;
+    const int kk = live ? s.k : 0, len = live ? s.clen[c] : 0;
+    Loaded<U> held;
+    load_strides<U, true>(held, s.val, s.col, nullptr, c * s.k, 0, len, kk, sl);
+    const int64_t rest = walk.items - g * NB, last = rest < NB ? rest : NB;
+    int64_t plane[NB];
+    double l[NB][U], h[NB][U];
+    WalkCursor cur = first;
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      plane[j] = 0;
+      if (j < last) {
+        if (j > 0) cur.seek(g * NB + j, walk, ones);
+        plane[j] = cur.plane;
+        const int64_t off = cur.plane * s.width + slab_off;
+        gather_strides(held, SplitBounds{s.lb + off, s.ub + off}, l[j], h[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      if (j >= last) break;
+      const int64_t off = plane[j] * s.width + slab_off;
+      const SplitBounds b{s.lb + off, s.ub + off};
+      RowAgg a{0.0, 0.0, 0, 0};
+      add_gathered(a, held, l[j], h[j], s.inf);
+      for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
+        Loaded<U> t;
+        load_strides<U, true>(t, s.val, s.col, nullptr, c * s.k, j0, len, kk, sl);
+        add_strides(a, t, b, s.inf);
+      }
+      a = group_reduce<G>(a);
+      if (live && sl == 0) put_partials(s, a, plane[j] * s.n_chunks + c);
+    }
+  }
+}
+
+template <int G, int U>
+int partials_variant_gu(int v, const Partials& s, cudaStream_t stream) {
+  const int64_t most = chunk_blocks(s.n_chunks, G);
+  switch (v) {
+    case 1: return launch_walk<partials_walk<G, U>>(most, s.bsz, stream, s);
+    case 2: return launch_walk<partials_once<G, U, 4>>(most, s.bsz, stream, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // ---- #9 and #15 -------------------------------------------------------------
 
 // #9 on the active-only walk over (active row, V blocks of kThreads
 // columns) items, a thread's V columns loaded before any is merged; ANY:
-// one flag store per warp that tightened (the port's).
-template <bool ANY, int V = 1>
+// one flag store per warp that tightened (the port's #9 before it shared
+// #15's body); WIN: #15's flags, one per warp and window of `slab` columns.
+template <bool ANY, int V = 1, bool WIN = false>
 __global__ void __launch_bounds__(kThreads)
 merge_walk(double* __restrict__ lb, double* __restrict__ ub, double* __restrict__ best_l,
            double* __restrict__ best_u, const bool* __restrict__ active, int* __restrict__ flags,
-           int64_t bsz, int64_t width, double eps, double inf, double outward) {
+           int64_t bsz, int64_t width, double eps, double inf, double outward, int64_t slab,
+           int64_t n_slabs) {
   constexpr int64_t kCols = static_cast<int64_t>(kThreads) * V;
   const EqualItems items_of{(width + kCols - 1) / kCols};
   const Walk walk = ballot_walk(active, bsz, items_of);
@@ -857,12 +1015,15 @@ merge_walk(double* __restrict__ lb, double* __restrict__ ub, double* __restrict_
       const int64_t i = row + j0 + v * kThreads;
       if (bl[v] != -inf) best_l[i] = -inf;
       if (bu[v] != inf) best_u[i] = inf;
-      if (j0 + v * kThreads < width)
-        ch |= merge_loaded(lb, ub, i, l[v], u[v], bl[v], bu[v], eps, inf, outward);
+      const bool c = j0 + v * kThreads < width &&
+                     merge_loaded(lb, ub, i, l[v], u[v], bl[v], bu[v], eps, inf, outward);
+      ch |= c;
+      if (WIN && __any_sync(0xffffffffu, c) && threadIdx.x % kWarp == 0)
+        flags[cur.plane * n_slabs + (j0 - threadIdx.x % kWarp + v * kThreads) / slab] = 1;
     }
-    if (ANY) {
+    if (!WIN && ANY) {
       if (__any_sync(0xffffffffu, ch) && threadIdx.x % kWarp == 0) flags[cur.plane] = 1;
-    } else if (ch) {
+    } else if (!WIN && ch) {
       flags[cur.plane] = 1;
     }
   }
@@ -983,6 +1144,29 @@ int node_slab_variant(int v, const double* val, const int* col, const int* ii, c
   }
 }
 
+// #13 over one straddle sub-stream: v 0 keeps K's group width, the others
+// take the longest copy's.
+int partials_variant(int v, const double* val, const int* col, const int* clen,
+                     const int* run_start, const int* run_slab, const int* tile_slab,
+                     const bool* active, const double* lb, const double* ub, double* mf,
+                     int* mc, double* xf, int* xc, int n_runs, int64_t n_chunks, int r, int k,
+                     int max_len, int64_t bsz, int64_t width, int64_t slab, double inf,
+                     cudaStream_t stream) {
+  const Partials s{val, lb, ub, col, clen, run_start, run_slab, tile_slab, active, mf, xf, mc,
+                   xc, n_runs, r, k, n_chunks, bsz, width, slab, inf};
+  if (v == 0) {
+    const unsigned int blocks = chunk_blocks(n_chunks, k);
+    switch (group_width(k)) {
+      case 8: return launch_blocks<partials_ballot<8>>(blocks, stream, s);
+      case 32: return launch_blocks<partials_ballot<32>>(blocks, stream, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+#define PARTIALS(G, U) partials_variant_gu<G, U>(v, s, stream)
+  DISPATCH_HELD(PARTIALS, max_len < k ? max_len : k, held_strides(max_len))
+#undef PARTIALS
+}
+
 // D over one instance's chunk stream: v 0-3 keep the parent's group of
 // group_width(K) lanes, v 4-6 take group_width(longest chunk), v 7 K's
 // again; every variant holds held_strides(max_len) strides.
@@ -1004,21 +1188,53 @@ int fused_variant(int v, const double* val, const int* col, const int* ii, const
 // v 0/1: #9 over (B, width) planes (one window a row), without / with the
 // hand-back; v 2/3: #15 (windows of `slab` columns), the same; v 4/5: #9 on
 // the walk, a flag store per thread / per warp; v 6-8: the walk, 2, 4, 8
-// column blocks an item; v 9: the (column block, group of 32 rows) grid.
+// column blocks an item; v 9: the (column block, group of 32 rows) grid;
+// v 10: #15 on the walk, one column a thread; v 11 / 12: #15 on the port's
+// merge body (four columns a thread), walk / grid; v 13 / 14: #9 on it,
+// grid / walk, `flags` then holding one bool per row; v 15 / 16: #15 / #9
+// on its grid, one column a thread.
 int merge_variant(int v, double* lb, double* ub, double* best_l, double* best_u,
                   const bool* active, int* flags, int64_t bsz, int64_t width, int64_t slab,
                   double eps, double inf, double outward, cudaStream_t stream) {
+  const int64_t n_slabs = (width + slab - 1) / slab;
+  const WindowFlags win_flags{flags, n_slabs, slab};
+  const RowFlags rows{reinterpret_cast<bool*>(flags)};
+  switch (v) {
+    case 11:
+      return launch_merge_walk(lb, ub, best_l, best_u, active, win_flags, bsz, width, eps, inf,
+                               outward, stream);
+    case 12:
+      return launch_merge_grid<WindowFlags, 4>(lb, ub, best_l, best_u, active, win_flags, bsz,
+                                               width, eps, inf, outward, stream);
+    case 13:
+      return launch_merge_grid<RowFlags, 4>(lb, ub, best_l, best_u, active, rows, bsz, width,
+                                            eps, inf, outward, stream);
+    case 15:
+      return launch_merge_grid<WindowFlags, 1>(lb, ub, best_l, best_u, active, win_flags, bsz,
+                                               width, eps, inf, outward, stream);
+    case 16:
+      return launch_merge_grid<RowFlags, 1>(lb, ub, best_l, best_u, active, rows, bsz, width,
+                                            eps, inf, outward, stream);
+    case 14:
+      return launch_merge_walk(lb, ub, best_l, best_u, active, rows, bsz, width, eps, inf,
+                               outward, stream);
+    default: break;
+  }
   if (v >= 4) {
     const int64_t most = (width + kThreads - 1) / kThreads * bsz;
 #define WALK(ANY, V)                                                                     \
   launch_walk<merge_walk<ANY, V>>(most, bsz, stream, lb, ub, best_l, best_u, active, flags, \
-                                  bsz, width, eps, inf, outward)
+                                  bsz, width, eps, inf, outward, slab, n_slabs)
     switch (v) {
       case 4: return WALK(false, 1);
       case 5: return WALK(true, 1);
       case 6: return WALK(true, 2);
       case 7: return WALK(true, 4);
       case 8: return WALK(true, 8);
+      case 10:
+        return launch_walk<merge_walk<true, 1, true>>(most, bsz, stream, lb, ub, best_l, best_u,
+                                                      active, flags, bsz, width, eps, inf,
+                                                      outward, slab, n_slabs);
       case 9: {
         const dim3 grid(static_cast<unsigned int>((width + kThreads - 1) / kThreads),
                         static_cast<unsigned int>((bsz + kWarp - 1) / kWarp));
@@ -1031,15 +1247,15 @@ int merge_variant(int v, double* lb, double* ub, double* best_l, double* best_u,
 #undef WALK
   }
   const int64_t s = v < 2 ? width : slab;
-  const int64_t n_slabs = (width + s - 1) / s;
+  const int64_t windows = (width + s - 1) / s;
   const dim3 grid(static_cast<unsigned int>((width + kThreads - 1) / kThreads),
                   static_cast<unsigned int>(bsz));
   if (v % 2 == 0)
     merge_batch<false><<<grid, kThreads, 0, stream>>>(lb, ub, best_l, best_u, active, flags,
-                                                      width, s, n_slabs, eps, inf, outward);
+                                                      width, s, windows, eps, inf, outward);
   else
     merge_batch<true><<<grid, kThreads, 0, stream>>>(lb, ub, best_l, best_u, active, flags,
-                                                     width, s, n_slabs, eps, inf, outward);
+                                                     width, s, windows, eps, inf, outward);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
 """Time variants of kernels D (the single instance's fused round), #8 (the
-packed batch's round) and #10 (the node round), of the scatters of #12 and
-#14 (the slab rounds) and of the batched merges #9 and #15, to see which
-design step of their redesign pays (no profiler that counts stalls runs on
-the card).
+packed batch's round), #10 (the node round) and #13 (the node slab
+partials), of the scatters of #12 and #14 (the slab rounds) and of the
+batched merges #9 and #15, to see which design step of their redesign pays
+(no profiler that counts stalls runs on the card).
 
-    python3 tools/round_variants.py [--reps 20] [--only 1,9]
+    python3 tools/round_variants.py [--reps 20] [--only 13,15]
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.  It
 builds ``tools/round_variants.cu`` (the kernels before the redesign, and the
 redesigned ones one step at a time: bounds gathered once and held, integer
 atomics, chunks stopped at their length, short-row chunks packed several to
 a warp, node- or instance-major order over the active planes only or the
-window from the tile maps, a register cap)
+window from the tile maps, a register cap, a chunk loaded once for several
+nodes)
 into ``src/repro_torch/build/round_variants/``, makes the instances of
 ``chip_smoke.py`` -- ``pb``, ``banded``, ``bandw`` and ``pbw`` (one
 instance each at K = 128, the explicit fused engine's tiles at n_pad
@@ -21,16 +22,19 @@ and #9 (0, 8 and 128 nodes active), ``bandw`` and ``pbw`` (one plane each,
 their default slab partitions) for #12 and #15, the fused batch bucket
 (``pb``, ``pbf``, ``banded`` and a second ``banded``) with 0, 2 and 4
 instances active for #8, ``pbw`` at tile width 8 with a 128-node pool (0,
-8, 32 and 128 nodes active) for #14 -- holds every
+1, 2, 4, 8, 32 and 128 nodes active) for #13, #14 and #15, and for #13
+also the active masks of its launches in ``chip_smoke.py``'s ``pbw``
+search, logged from a run of that search and printed -- holds every
 variant against the plain version of its kernel (bitwise, as values), and
 prints each variant's median time over ``--reps`` launches (CUDA events
 around the launch, queued behind a sleep on the card, the variants taken in
 turn within each repetition; the accumulator planes at the sentinels before
 each scatter, the merges' inputs restored and the L2 evicted before each
-merge), the time of the two ``torch.full`` sentinel planes that the
-wrappers no longer fill per launch, and the card's name and power limit.
-``--only`` picks the kernels (of 1 (D), 8, 9, 10, 12, 14; the merge #15
-rides with 12).
+merge; #13 cold, its outputs filled first, which evicts the L2, and warm,
+the same launch or sequence run untimed just before), the time of the two
+``torch.full`` sentinel planes that the wrappers no longer fill per
+launch, and the card's name and power limit.
+``--only`` picks the kernels (of 1 (D), 8, 9, 10, 12, 13, 14, 15).
 """
 from __future__ import annotations
 
@@ -102,7 +106,7 @@ MERGE_VARIANTS = {
     0: "#9 reading the planes only (before the hand-back)",
     1: "#9 handing them back at the sentinels, (column block, row) grid (before the walk)",
     2: "#15 reading the planes only (before the redesign)",
-    3: "#15 handing them back (the port's)",
+    3: "#15 handing them back, (column block, row) grid (the port's before the walk)",
     4: "#9 on the active-only walk, a flag store per thread that tightens",
     5: "as 4, one flag store per warp",
     6: "as 5, an item of 2 column blocks, a thread's columns loaded before any merge",
@@ -110,6 +114,22 @@ MERGE_VARIANTS = {
        "port's #9)",
     8: "as 5, an item of 8 column blocks, a thread's columns loaded before any merge",
     9: "a (column block, group of 32 rows) grid, a warp merging its column of each active row",
+    10: "#15 on the active-only walk, one column a thread, a window flag store per warp",
+    11: "#15 on the merge body it shares with #9, on the walk: four columns a thread, loaded "
+        "before any merge, a flag store per warp and column stride (the port's past 16 rows)",
+    12: "as 11 on a (column block, row) grid, four columns a thread",
+    13: "#9 on the shared body, (column block, row) grid, four columns a thread (the port's #9 "
+        "for at most 16 rows)",
+    14: "#9 on the shared body, on the walk (the port's #9 past 16 rows)",
+    15: "#15 on the shared body's grid, one column a thread (the port's #15 for at most 16 rows)",
+    16: "#9 on the shared body's grid, one column a thread",
+}
+PARTIALS_VARIANTS = {
+    0: "before the redesign (warp ballot order, search over the runs, every slot, K's group)",
+    1: "node-major on the active-only walk, window from a_tile_slab, chunk_sums stopped at the "
+       "copy length, the longest copy's group (the port's #13)",
+    2: "chunk once: a warp's chunks loaded once for a group of 4 active nodes, their "
+       "gathers issued before any sum",
 }
 FUSED_VARIANTS = {
     0: "before the redesign (group_width(K) lanes a chunk, two gathers per slot, CAS, every "
@@ -131,7 +151,9 @@ def build() -> ctypes.CDLL:
     out.parent.mkdir(parents=True, exist_ok=True)
     t = time.perf_counter()
     done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(SOURCE)],
-                          check=True, capture_output=True, text=True)
+                          capture_output=True, text=True)
+    if done.returncode:
+        raise SystemExit(f"round_variants: nvcc failed:\n{done.stderr[-4000:]}")
     print(f"build: {time.perf_counter() - t:.1f} s", flush=True)
     entry, spill = "", ""
     for line in (done.stdout + done.stderr).splitlines():
@@ -152,8 +174,10 @@ def build() -> ctypes.CDLL:
                                                        P]
     lib.node_slab_variant.argtypes = [I32] + [P] * 19 + [I32, I64, I32, I32, I32, I64, I64, I64,
                                                          F64, F64, P]
+    lib.partials_variant.argtypes = [I32] + [P] * 13 + [I32, I64, I32, I32, I32, I64, I64, I64,
+                                                        F64, P]
     for fn in (lib.node_variant, lib.slab_variant, lib.merge_variant, lib.batched_variant,
-               lib.node_slab_variant, lib.fused_variant):
+               lib.node_slab_variant, lib.fused_variant, lib.partials_variant):
         fn.restype = I32
     return lib
 
@@ -179,7 +203,7 @@ def event_ms(torch, launch, reset=None) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", default="1,8,9,10,12,14")
+    ap.add_argument("--only", default="1,8,9,10,12,13,14,15")
     args = ap.parse_args()
     only = {int(x) for x in args.only.split(",")}
     import numpy as np
@@ -243,6 +267,12 @@ def main() -> int:
             fills[f"D {name}"] = statistics.median(
                 event_ms(torch, lambda lb=dprep.lb0: fill(lb)) for _ in range(args.reps))
 
+    def row_flags(v, flags):
+        """The flags a merge variant writes: the int32 ``flags``, or for the
+        port's body under #9 (13, 14, 16) a bool per row, which ``flags``'
+        first bytes hold (zeroed with it)."""
+        return flags.view(torch.bool)[: flags.numel()] if v in (13, 14, 16) else flags
+
     if 9 in only or 10 in only:
         # #10 and #9 on the pbf pool at tile width 8.
         pbf = td.make_pseudo_boolean(**cs.PBF)
@@ -285,17 +315,18 @@ def main() -> int:
                 flags.zero_()
                 flush.zero_()
 
-            for v in (0, 1, 4, 5, 6, 7, 8, 9) if 9 in only else (0, 1):
+            for v in (0, 1, 4, 5, 6, 7, 8, 9, 13, 14, 16) if 9 in only else (0, 1):
                 def launch(v=v, act=act, planes=planes, flags=flags):
-                    return lib.merge_variant(v, *map(ptr, planes), ptr(act), ptr(flags),
-                                             cs.POOL, n_pad, n_pad, eps, inf, 0.0, stream())
+                    return lib.merge_variant(v, *map(ptr, planes), ptr(act),
+                                             ptr(row_flags(v, flags)), cs.POOL, n_pad, n_pad, eps,
+                                             inf, 0.0, stream())
 
                 label = f"#9 pbf pool, {n_act} of {cs.POOL} active"
                 event_ms(torch, launch, restore)
                 handed = v == 0 or bool((planes[2][act] == -inf).all()
                                         and (planes[3][act] == inf).all())
                 if not (torch.equal(planes[0], want_m[0]) and torch.equal(planes[1], want_m[1])
-                        and torch.equal(flags != 0, want_m[2]) and handed
+                        and torch.equal(row_flags(v, flags) != 0, want_m[2]) and handed
                         and torch.equal(planes[2][~act], best[0][~act])):
                     raise SystemExit(f"round_variants: {label} variant {v} disagrees with the "
                                      "plain version")
@@ -321,26 +352,56 @@ def main() -> int:
             flags = torch.zeros(bsz, dtype=torch.int32, device="cuda")
             flush = torch.empty(64 << 17, dtype=torch.float64, device="cuda")
 
-            def restore(planes=planes, best=best, flags=flags, flush=flush):
+            def restore(planes=planes, best=best, flags=flags, flush=flush, bd=bd):
                 for x, y in zip(planes, (bd.lb0, bd.ub0, *best)):
                     x.copy_(y)
                 flags.zero_()
                 flush.zero_()
 
             label = f"#9 fused bucket, {n_act} of {bsz} active"
-            for v in (1, 5, 6, 7, 9):
-                def launch(v=v, act=act, planes=planes, flags=flags):
-                    return lib.merge_variant(v, *map(ptr, planes), ptr(act), ptr(flags), bsz,
-                                             width, width, eps, inf, 0.0, stream())
+            for v in (1, 5, 6, 7, 9, 13, 14, 16):
+                # Bound now: later cases rebind bsz and width.
+                def launch(v=v, act=act, planes=planes, flags=flags, bsz=bsz, width=width):
+                    return lib.merge_variant(v, *map(ptr, planes), ptr(act),
+                                             ptr(row_flags(v, flags)), bsz, width, width, eps,
+                                             inf, 0.0, stream())
 
                 event_ms(torch, launch, restore)
-                if not (torch.equal(planes[0], want_m[0]) and torch.equal(flags != 0, want_m[2])):
+                if not (torch.equal(planes[0], want_m[0])
+                        and torch.equal(row_flags(v, flags) != 0, want_m[2])):
                     raise SystemExit(f"round_variants: {label} variant {v} disagrees with the "
                                      "plain version")
                 cases.append((label, "merge", v, launch, restore))
 
+    def merge_cases(label, variants, planes, pristine, act, flags, bsz, width, slab, want_m):
+        """#15's variants on ``planes`` (bounds, candidates), each held
+        against ``want_m`` (bounds and window flags) and, but for the
+        variant that only reads, handing the active rows back."""
+        flush = torch.empty(64 << 17, dtype=torch.float64, device="cuda")
+
+        def restore():
+            for x, y in zip(planes, pristine):
+                x.copy_(y)
+            flags.zero_()
+            flush.zero_()
+
+        for v in variants:
+            def launch(v=v):
+                return lib.merge_variant(v, *map(ptr, planes), ptr(act), ptr(flags), bsz, width,
+                                         slab, eps, inf, 0.0, stream())
+
+            event_ms(torch, launch, restore)
+            handed = v == 2 or bool((planes[2][act] == -inf).all()
+                                    and (planes[3][act] == inf).all())
+            if not (torch.equal(planes[0], want_m[0]) and torch.equal(planes[1], want_m[1])
+                    and torch.equal(flags.reshape(want_m[2].shape) != 0, want_m[2] != 0)
+                    and handed):
+                raise SystemExit(f"round_variants: {label} variant {v} disagrees with the "
+                                 "plain version")
+            cases.append((label, "merge", v, launch, restore))
+
     # #12's scatter and #15 on bandw and pbw, one plane each.
-    if 12 in only:
+    if 12 in only or 15 in only:
         for name, gen, kw in cs.WIDE_SPECS:
             p = getattr(td, gen)(**kw)
             wprep = rt.prepare_block_ell(p, device="cuda")
@@ -361,7 +422,7 @@ def main() -> int:
                   f"{int((part.val != 0).sum())} kept nonzeros, "
                   f"slab {part.slab} x {part.n_slabs}, chunks stopped short of K: "
                   f"{int((part.chunk_len < kw_).sum())} of {tw * rw}", flush=True)
-            for v in SLAB_VARIANTS:
+            for v in SLAB_VARIANTS if 12 in only else ():
                 def launch(v=v, part=part, strs=strs, lb=lb, ub=ub, wacc=wacc, one=one, width=width,
                            shape=(tw, rw, kw_)):
                     tw, rw, kw_ = shape
@@ -379,22 +440,13 @@ def main() -> int:
                                      "plain version")
                 cases.append((f"#12 scatter {name}", "slab", v, launch,
                               lambda wacc=wacc: sentinels(wacc)))
-            planes = [lb.clone(), ub.clone(), want[0].clone(), want[1].clone()]
-            flags = torch.zeros(part.n_slabs, dtype=torch.int32, device="cuda")
-            flush = torch.empty(64 << 17, dtype=torch.float64, device="cuda")
-
-            def restore(planes=planes, lb=lb, ub=ub, want=want, flags=flags, flush=flush):
-                for x, y in zip(planes, (lb, ub, *want)):
-                    x.copy_(y)
-                flags.zero_()
-                flush.zero_()
-
-            for v in (2, 3):
-                def launch(v=v, planes=planes, one=one, flags=flags, width=width, part=part):
-                    return lib.merge_variant(v, *map(ptr, planes), ptr(one), ptr(flags), 1, width,
-                                             part.slab, eps, inf, 0.0, stream())
-
-                cases.append((f"#15 {name}", "merge", v, launch, restore))
+            if 15 in only:
+                want_m = tref.apply_updates_slab_ref(lb, ub, *want, one, part.slab, eps)
+                merge_cases(f"#15 {name}, one plane", (2, 3, 10, 11, 12, 15),
+                            [lb.clone(), ub.clone(), want[0].clone(), want[1].clone()],
+                            (lb, ub, *want), one,
+                            torch.zeros(part.n_slabs, dtype=torch.int32, device="cuda"), 1,
+                            width, part.slab, want_m)
             fills[name] = statistics.median(event_ms(torch, lambda lb=lb: fill(lb))
                                             for _ in range(args.reps))
 
@@ -436,8 +488,54 @@ def main() -> int:
         fills["fused bucket"] = statistics.median(event_ms(torch, lambda: fill(bd.lb0))
                                                   for _ in range(args.reps))
 
-    # #14's scatter on pbw at tile width 8 with a 128-node pool.
-    if 14 in only:
+    def search_cases(pbw, part, lbw, ubw, partials_launch):
+        """#13's variants over the masks of its launches in ``chip_smoke.py``'s
+        pbw search (phase 8), in the search's order on the pool's planes:
+        the whole sequence timed once the same sequence has run untimed
+        (warm: the L2 as the search leaves it) and once the outputs have
+        been filled (cold: the L2 evicted)."""
+        from repro_torch.kernels import prop_round
+
+        masks, kernel = [], prop_round.node_slab_partials_tiles
+
+        def logged(*a, **kw):
+            masks.append(a[5].clone())  # the (B,) active mask
+            return kernel(*a, **kw)
+
+        # The engine calls the wrapper through the module, whose launch
+        # counter the wrapper bumps by its module-level name.
+        logged.launches = 0
+        prop_round.node_slab_partials_tiles = logged
+        try:
+            res = rt.solve(pbw, cs.objective(np, pbw.n), device="cuda", **cs.WIDE_SEARCH)
+        finally:
+            prop_round.node_slab_partials_tiles = kernel
+        print(f"#13 in the pbw search {(res.status, res.nodes_expanded, res.levels)}: active "
+              f"nodes at each launch {[int(m.sum()) for m in masks]}", flush=True)
+        ta, ra, _ = part.a_val.shape
+        outs = [torch.empty((cs.POOL, ta, ra), dtype=d, device="cuda")
+                for d in (torch.float64, torch.int32, torch.float64, torch.int32)]
+        spoil = lambda: [o.fill_(-7) for o in outs]
+        wants = [tref.node_slab_partials_ref(
+            part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_slab, m,
+            lbw, ubw, part.slab, part.a_max_run_len) for m in masks]
+        label = f"#13 pbw search's {len(masks)} launches"
+        for v in PARTIALS_VARIANTS:
+            for m, want in zip(masks, wants):
+                spoil()
+                if partials_launch(v, m, outs) or not all(
+                        torch.equal(o[m], w[m]) for o, w in zip(outs, want)):
+                    raise SystemExit(f"round_variants: {label} variant {v} disagrees with the "
+                                     "plain version")
+
+            def sequence(v=v):
+                return next((e for e in (partials_launch(v, m, outs) for m in masks) if e), 0)
+
+            cases.append((f"{label}, warm", "partials", v, sequence, sequence))
+            cases.append((f"{label}, cold", "partials", v, sequence, spoil))
+
+    # #13, #14's scatter and #15 on pbw at tile width 8 with a 128-node pool.
+    if only & {13, 14, 15}:
         pbw = getattr(td, cs.WIDE_SPECS[1][1])(**cs.WIDE_SPECS[1][2])
         prep8 = rt.prepare_block_ell(pbw, tile_width=cs.SOLVER_TILE_WIDTH, device="cuda")
         part = prep8.slab_partition()
@@ -446,19 +544,61 @@ def main() -> int:
         tn, rn, kn = part.val.shape
         print(f"pbw K = {kn}: copy tiles {(tn, rn, kn)}, {int((part.val != 0).sum())} kept "
               f"nonzeros, pool {tuple(lbw.shape)}", flush=True)
-        for n_act in (0, 8, 32, cs.POOL):
+
+        def partials_launch(v, act, outs):
+            ta, ra, ka = part.a_val.shape
+            return lib.partials_variant(
+                v, ptr(part.a_val), ptr(part.a_col_s), ptr(part.a_chunk_len),
+                ptr(part.a_run_start), ptr(part.a_run_slab), ptr(part.a_tile_slab), ptr(act),
+                ptr(lbw), ptr(ubw), *map(ptr, outs), part.a_run_start.numel(), ta * ra, ra, ka,
+                part.a_max_chunk_len, cs.POOL, lbw.shape[1], part.slab, inf, stream())
+
+        if 13 in only:
+            search_cases(pbw, part, lbw, ubw, partials_launch)
+        for n_act in (0, 1, 2, 4, 8, 32, cs.POOL):
             act = torch.zeros(cs.POOL, dtype=torch.bool, device="cuda")
             if n_act:
                 act[:: cs.POOL // n_act] = True
             partials = tref.node_slab_partials_ref(
                 part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_slab, act,
                 lbw, ubw, part.slab, part.a_max_run_len)
+            ta, ra, ka = part.a_val.shape
+            outs = [torch.empty((cs.POOL, ta, ra), dtype=d, device="cuda")
+                    for d in (torch.float64, torch.int32, torch.float64, torch.int32)]
+
+            def spoil(outs=outs):
+                """Garbage in every output, so a variant must write the active rows."""
+                for o in outs:
+                    o.fill_(-7)
+
+            label = f"#13 pbw pool, {n_act} of {cs.POOL} active"
+            for v in PARTIALS_VARIANTS if 13 in only else ():
+                def launch(v=v, act=act, outs=outs):
+                    return partials_launch(v, act, outs)
+
+                event_ms(torch, launch, spoil)
+                if not all(torch.equal(o[act], w[act]) for o, w in zip(outs, partials)):
+                    raise SystemExit(f"round_variants: {label} variant {v} disagrees with the "
+                                     "plain version")
+                cases.append((label, "partials", v, launch, spoil))
+                # Warm: the same launch just before, untimed, leaves the L2
+                # as a run of launches at this count does.
+                cases.append((f"{label}, warm", "partials", v, launch, launch))
+            if not only & {14, 15}:
+                continue
             strs = tref.straddle_tables(part, *partials)
             want = tref.node_slab_scatter_ref(
                 part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
                 part.run_start, part.run_slab, act, lbw, ubw, part.slab, cfg.int_eps)
+            if 15 in only:
+                want_m = tref.apply_updates_slab_ref(lbw, ubw, *want, act, part.slab, eps)
+                merge_cases(f"#15 pbw pool, {n_act} of {cs.POOL} active", (3, 10, 11, 12, 15),
+                            [lbw.clone(), ubw.clone(), want[0].clone(), want[1].clone()],
+                            (lbw, ubw, *want), act,
+                            torch.zeros((cs.POOL, part.n_slabs), dtype=torch.int32,
+                                        device="cuda"), cs.POOL, lbw.shape[1], part.slab, want_m)
             label = f"#14 scatter pbw pool, {n_act} of {cs.POOL} active"
-            for v in NODE_SLAB_VARIANTS:
+            for v in NODE_SLAB_VARIANTS if 14 in only else ():
                 def launch(v=v, act=act, strs=strs):
                     return lib.node_slab_variant(
                         v, ptr(part.val), ptr(part.col_s), ptr(part.ii_g), ptr(part.chunk_len),
@@ -486,7 +626,7 @@ def main() -> int:
             times.setdefault((label, kind, v), []).append(ms)
     names = {"node": NODE_VARIANTS, "slab": SLAB_VARIANTS, "merge": MERGE_VARIANTS,
              "batched": BATCHED_VARIANTS, "node_slab": NODE_SLAB_VARIANTS,
-             "fused": FUSED_VARIANTS}
+             "fused": FUSED_VARIANTS, "partials": PARTIALS_VARIANTS}
     rows = []
     for (label, kind, v), ms in times.items():
         row = dict(case=label, variant=v, what=names[kind][v], ms=statistics.median(ms))
