@@ -129,7 +129,22 @@ numpy only, nothing of JAX) and, on one CUDA card:
      saturation (pre-packed, all submitted, then drained) against
      sequential ``propagate_block_ell``, latency percentiles, pumps, flag
      reads per pump, the idle share and per-bucket stats;
- 13. prints a ``kernels`` JSON line, and last
+ 13. (phase 12, last) the named drivers: kernel F with the loop carry
+     against its plain version over the rounds of one fixed point (groups
+     of 3, through convergence and two rounds enqueued after it: bounds,
+     handed-back planes and the carry bitwise), the round closures of
+     ``banded`` and the partitioned ``pbw`` on the kernels against the plain
+     versions with their carries armed (through convergence); every
+     single-instance fixed point above (``pb``, ``banded``, ``mixed``,
+     ``bandw``, ``pbw``, and the segment engine on the first three) on
+     ``driver="device_loop"`` against its ``host_loop`` run (bitwise,
+     progress included), host reads counted (``pb`` must read fewer times
+     than its 33 rounds); ``DEVICE_LOOP_GROUP`` timed over 1, 2, 4, 8 and
+     16 on those runs (the module's value printed beside the fastest), the
+     gate of D, A', the combine and E on the carry (``ops.GATE_ROUNDS``) on
+     and off, busy time and idle share per driver with F's device items,
+     and ``propagate``'s three drivers on ``pb``;
+ 14. prints a ``kernels`` JSON line, and last
      ``{"ok": true, "device": {...}}``.
 
 Each path runs with the launch counters at zero just before it and read just
@@ -349,7 +364,8 @@ def device_items(torch, fn) -> list[tuple[str, float]]:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
         fn()
         torch.cuda.synchronize()
     return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
@@ -558,6 +574,8 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed):
     """Each kernel of the instance's branch against its plain version on the
     card, on the tiles of ``prep`` and the padded bounds ``lb``/``ub``;
     ``timed`` also times both.  Returns {kernel: row of measurements}."""
+    from repro_torch.core import carry as rt_carry
+
     d = prep.d
     n_pad, cfg = prep.n_pad, ops.DEFAULT_CONFIG
     nnz = int((d.val != 0).sum().item())  # real nonzeros in the tiles
@@ -633,21 +651,30 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed):
     eps = cfg.eps_for(lb.dtype)
     want = ops.bnd.apply_updates(lb, ub, best_l, best_u, eps)
     # F hands the planes it reads back at the sentinels: here the kept
-    # planes that the scatter filled (and the timing left full).
+    # planes that the scatter filled (and the timing left full).  It folds
+    # its flag into a loop carry, kept as the round closure keeps it: the
+    # first round of a check group of two, so the carry's GO stays set and
+    # every timed launch merges.
     acc[0].copy_(best_l)
     acc[1].copy_(best_u)
-    got = tk.apply_updates_tiles(lb.clone(), ub.clone(), *acc, eps)
+    carry = rt_carry.armed_state(lb.device)
+    armed = carry.clone()
+    got = tk.apply_updates_tiles(lb.clone(), ub.clone(), *acc, eps, carry=carry, k=0, unroll=2)
     clean("F did not hand its planes back")
+    changed = bool(want[2])
+    if carry.tolist()[:5] != [0, int(changed), 0, 1, 0]:
+        fail(f"{name}: F left the carry at {carry.tolist()}")
     # Kernel time on scratch copies restored before each launch; the
     # wrapper's time on repeated calls, where nothing tightens and no
     # accumulator entry is handed back after the first.
     lbw, ubw = lb.clone(), ub.clone()
-    row("apply_updates_tiles", got, want,
-        lambda: tk.apply_updates_tiles(lbw, ubw, *acc, eps),
+    row("apply_updates_tiles", got[:2], want[:2],
+        lambda: tk.apply_updates_tiles(lbw, ubw, *acc, eps, carry=carry, k=0, unroll=2),
         lambda: ops.bnd.apply_updates(lb, ub, best_l, best_u, eps),
         moved=dict(merge_bytes(torch, ops.bnd, lb, ub, best_l, best_u, eps, inf=cfg.inf),
-                   flag=1),
-        reset=fresh_inputs(torch, [(lbw, lb), (ubw, ub), (acc[0], best_l), (acc[1], best_u)]))
+                   carry=4 * 5),
+        reset=fresh_inputs(torch, [(lbw, lb), (ubw, ub), (acc[0], best_l), (acc[1], best_u),
+                                   (carry, armed)]))
     return rows
 
 
@@ -881,6 +908,7 @@ def smoke(torch, dev):
     runs.update(batch_phase(torch, np, rt, td, tk, tref, ops, _build, dev, measured,
                             {**problems, "pbf": pbf, **wide}))
     runs.update(service_phase(torch, np, rt, td, tk, dev))
+    runs.update(drivers_phase(torch, np, rt, tk, tref, ops, dev, problems, preps, wide))
     slab_path = ("batched_slab_partials_tiles", "straddle_combine_tiles",
                  "batched_slab_round_tiles", "apply_updates_slab_tiles")
     node_slab_path = ("node_slab_partials_tiles", "straddle_combine_tiles",
@@ -2419,6 +2447,257 @@ def service_phase(torch, np, rt, td, tk, dev):
             "candidates_scatter_tiles")})
     counts, _ = service_run(torch, np, rt, tk, "mixed", mixed, dev, slots=2)
     runs["service mixed"] = counts
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the named drivers, and the loop carry that kernel F keeps
+# ---------------------------------------------------------------------------
+
+DEVICE_LOOP_GROUPS = (1, 2, 4, 8, 16)
+DRIVER_TRIALS = 9
+
+
+def wall_ms(torch, fn) -> float:
+    """One call of ``fn`` between synchronisations, CUDA events around it."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def enqueued(rt_prop, reads, label) -> int:
+    """Rounds that device_loop enqueues (and merges it launches) for the run
+    ``label``: whole read groups, at most max_rounds."""
+    group = rt_prop.DEVICE_LOOP_GROUP
+    return min(-(-reads[label, "rounds"] // group) * group, rt_prop.DEFAULT_CONFIG.max_rounds)
+
+
+def complete_profile(torch, fn, merges: int, tries: int = 5):
+    """:func:`busy_profile` of ``fn`` (F's and #15's carry merges counted),
+    retried until the trace holds all ``merges`` merge launches (a trace
+    late in a long run can miss device items), or None."""
+    for _ in range(tries):
+        prof = busy_profile(torch, fn, count="CarryFlags")
+        if prof is not None and f"items named *CarryFlags*: {merges}," in prof[1]:
+            return prof
+    return None
+
+
+def carry_sequence_check(torch, np, tk, tref, dev):
+    """Kernel F against its plain version over the rounds of one fixed point
+    of check groups of 3 rounds at n_pad 60,032: six rounds whose
+    candidates tighten, three that do not (the loop stops), two enqueued
+    after it whose candidates would tighten; bounds, handed-back planes,
+    the returned GO and the carry bitwise after every round."""
+    from repro_torch.core import carry as rt_carry
+
+    rng = np.random.default_rng(12)
+    n, unroll, inf = 60_032, 3, tk.INF
+    lb = torch.zeros(n, dtype=torch.float64, device=dev)
+    ub = torch.full((n,), 10.0, dtype=torch.float64, device=dev)
+    st_k, st_p = rt_carry.armed_state(dev), rt_carry.armed_state(dev)
+    plan = [True] * 6 + [False] * 3 + [True] * 2
+    for i, tighten in enumerate(plan):
+        bl = torch.full((n,), -inf, dtype=torch.float64, device=dev)
+        bu = torch.full((n,), inf, dtype=torch.float64, device=dev)
+        if tighten:
+            pick = torch.from_numpy(rng.random(n) < 0.3).to(dev)
+            bl[pick] = lb[pick] + 1.0
+            bu[~pick] = ub[~pick] - 0.5
+        want = tref.merge_carry_ref(lb, ub, bl.clone(), bu.clone(), 1e-9, inf, 0.0, st_p,
+                                    i % unroll, unroll)
+        acc = (bl.clone(), bu.clone())
+        got = tk.apply_updates_tiles(lb.clone(), ub.clone(), *acc, 1e-9, inf, 0.0, carry=st_k,
+                                     k=i % unroll, unroll=unroll)
+        max_abs_err(torch, (*got, st_k), (*want, st_p))
+        planes_clean(torch, acc, inf, f"F with the carry: planes not clean after round {i + 1}")
+        lb, ub = want[0], want[1]
+    fields = st_k.tolist()[:5]
+    if fields != [0, 0, 9, 0, 0]:
+        fail(f"F with the carry: fields {fields} after the sequence, expected rounds 9, GO 0")
+    log(f"kernel F with the loop carry: bitwise its plain version over {len(plan)} rounds "
+        f"(groups of {unroll}; converged after 9, two rounds after it changed nothing); "
+        f"carry [flag, any, rounds, go, ticket] = {fields}")
+
+
+def closure_carry_check(torch, ops, prep, name, dev, rounds: int = 16, unroll: int = 4,
+                        scatter: str = "fused"):
+    """The round closure on the kernels against the one on the plain
+    versions, both carries armed for groups of ``unroll``: bounds and carry
+    bitwise, the kept planes clean after every round, through convergence
+    and rounds enqueued after it (D and F gated on the kernels)."""
+    fk = ops.round_fn_for(prep, scatter=scatter)
+    fp = ops.round_fn_for(prep, use_kernels=False, scatter=scatter)
+    lbk, ubk = prep.lb0.clone(), prep.ub0.clone()
+    lbp, ubp = prep.lb0.clone(), prep.ub0.clone()
+    fk.carry.arm(dev, unroll)
+    fp.carry.arm(dev, unroll)
+    try:
+        for i in range(rounds):
+            lbk, ubk, _ = fk(lbk, ubk)
+            lbp, ubp, _ = fp(lbp, ubp)
+            max_abs_err(torch, (lbk, ubk, fk.carry.state), (lbp, ubp, fp.carry.state))
+            planes_clean(torch, fk.kept.planes, ops.DEFAULT_CONFIG.inf,
+                         f"{name}: the closure's planes are not clean after round {i + 1}")
+    finally:
+        fk.carry.release()
+        fp.carry.release()
+    log(f"round closure {name} ({scatter}): kernels bitwise the plain versions over {rounds} "
+        f"rounds in "
+        f"groups of {unroll}; carry [flag, any, rounds, go, ticket] = "
+        f"{fk.carry.state.tolist()[:5]}")
+
+
+def drivers_phase(torch, np, rt, tk, tref, ops, dev, problems, preps, wide):
+    """Phase 12: kernel F with the loop carry against its plain version
+    (direct calls, and the round closure on banded and pbw); each
+    single-instance fixed point on ``device_loop`` against its
+    ``host_loop`` run (bitwise, progress included) with host reads
+    counted; ``DEVICE_LOOP_GROUP`` timed over 1, 2, 4, 8 and 16; the gate
+    of D, A', the combine and E on and off; busy time and idle share per
+    driver; and ``propagate``'s three drivers.  Returns the launch counts
+    of each device_loop run."""
+    from repro_torch.core import propagator as rt_prop
+
+    carry_sequence_check(torch, np, tk, tref, dev)
+    closure_carry_check(torch, ops, preps["banded"], "banded", dev)
+    closure_carry_check(torch, ops, rt.prepare_block_ell(wide["pbw"], device=dev), "pbw", dev,
+                        rounds=9, unroll=2, scatter="partitioned")
+
+    all_problems = {**problems, **wide}
+    cases = [(name, name, {}) for name in ("pb", "banded", "mixed", "bandw", "pbw")]
+    cases += [(f"segment {name}", name, dict(scatter="segment"))
+              for name in ("pb", "banded", "mixed")]
+    runs, reads, host_ms, table = {}, {}, {}, {}
+    for label, name, kw in cases:
+        p = all_problems[name]
+        counts = {}
+        out = {}
+        for driver in ("host_loop", "device_loop"):
+            n = [0]
+            tk.reset_launch_counts()
+            out[driver] = rt.propagate_block_ell(
+                p, driver=driver, device=dev, on_sync=lambda: n.__setitem__(0, n[0] + 1), **kw)
+            torch.cuda.synchronize()
+            counts[driver] = tk.launch_counts()
+            reads[label, driver] = n[0]
+        runs[f"device_loop {label}"] = counts["device_loop"]
+        host, devl = out["host_loop"], out["device_loop"]
+        check_same(rt, f"device_loop {label}", devl, host, True, "its host_loop run")
+        if not torch.equal(devl.progress, host.progress):
+            fail(f"device_loop {label}: progress {devl.progress.item()} != host_loop "
+                 f"{host.progress.item()}")
+        rounds = reads[label, "rounds"] = host.rounds.item()
+        want = -(-rounds // rt_prop.DEVICE_LOOP_GROUP)
+        if reads[label, "host_loop"] != rounds or reads[label, "device_loop"] != want:
+            fail(f"device_loop {label}: {reads[label, 'device_loop']} reads (expected {want}), "
+                 f"host_loop {reads[label, 'host_loop']} (expected {rounds})")
+        f_name = "apply_updates_tiles" if "partitioned" not in label and name not in wide else (
+            "apply_updates_slab_tiles")
+        log(f"drivers {label}: rounds={rounds} converged={host.converged.item()}; device_loop "
+            f"bitwise host_loop (progress included); host reads {reads[label, 'host_loop']} -> "
+            f"{reads[label, 'device_loop']} (DEVICE_LOOP_GROUP {rt_prop.DEVICE_LOOP_GROUP}); "
+            f"merge launches {counts['host_loop'][f_name]} -> {counts['device_loop'][f_name]}")
+    if reads["pb", "device_loop"] >= REFERENCE_ROUNDS["pb"]:
+        fail(f"device_loop pb read the host {reads['pb', 'device_loop']} times")
+
+    # Wall per fixed point (CUDA events, host reads included) by read group,
+    # and with the gate off: every variant of a run once per trial, in an
+    # order that rotates between trials, so the host's drift spreads over
+    # all of them; medians over the trials.
+    saved = rt_prop.DEVICE_LOOP_GROUP
+    variants = [("host_loop", saved, True)] + [("device_loop", g, True)
+                                               for g in DEVICE_LOOP_GROUPS]
+    variants.append(("device_loop", saved, False))
+    samples = {}
+    try:
+        for trial in range(DRIVER_TRIALS):
+            for label, name, kw in cases:
+                p = all_problems[name]
+                order = variants[trial % len(variants):] + variants[:trial % len(variants)]
+                for driver, g, gate in order:
+                    rt_prop.DEVICE_LOOP_GROUP, ops.GATE_ROUNDS = g, gate
+                    samples.setdefault((label, driver, g, gate), []).append(wall_ms(
+                        torch, lambda: rt.propagate_block_ell(p, driver=driver, device=dev,
+                                                              **kw)))
+    finally:
+        rt_prop.DEVICE_LOOP_GROUP, ops.GATE_ROUNDS = saved, True
+    med = {key: statistics.median(v) for key, v in samples.items()}
+    for label, _, _ in cases:
+        host_ms[label] = med[label, "host_loop", saved, True]
+        for g in DEVICE_LOOP_GROUPS:
+            table[label, g] = med[label, "device_loop", g, True]
+        cells = ", ".join(f"{g}: {table[label, g]:.3f}" for g in DEVICE_LOOP_GROUPS)
+        log(f"device_loop wall ms {label} by DEVICE_LOOP_GROUP: {cells}; host_loop "
+            f"{host_ms[label]:.3f}; without the gate (group {saved}) "
+            f"{med[label, 'device_loop', saved, False]:.3f} (medians of {DRIVER_TRIALS})")
+    # The group whose walls, each relative to the host loop's, have the
+    # least geometric mean: over the main path's runs (the fused and
+    # partitioned engines) and over the segment engine's, whose gathers and
+    # column reduction are not gated.
+    for which, labels in (("main path", [c[0] for c in cases if not c[2]]),
+                          ("segment engine", [c[0] for c in cases if c[2]])):
+        score = {g: float(np.exp(np.mean([np.log(table[label, g] / host_ms[label])
+                                          for label in labels])))
+                 for g in DEVICE_LOOP_GROUPS}
+        best = min(score, key=score.get)
+        log(f"DEVICE_LOOP_GROUP over the {which}: {saved} chosen (fastest measured: {best}); "
+            f"geometric mean of device_loop / host_loop wall by group: "
+            + ", ".join(f"{g}: {score[g]:.3f}" for g in DEVICE_LOOP_GROUPS))
+    for label in ("banded", "pb", "mixed"):
+        p = all_problems[label]
+        busy = {}
+        for gate in (True, False):
+            ops.GATE_ROUNDS = gate
+            try:
+                prof = complete_profile(torch, lambda: rt.propagate_block_ell(
+                    p, driver="device_loop", device=dev), enqueued(rt_prop, reads, label))
+            finally:
+                ops.GATE_ROUNDS = True
+            busy[gate] = "not measured" if prof is None else f"{prof[0]:.3f} ms"
+        log(f"gate {label}: device_loop busy with the gate {busy[True]}, without "
+            f"{busy[False]}; wall {table[label, saved]:.3f} / "
+            f"{med[label, 'device_loop', saved, False]:.3f} ms")
+
+    # Busy time and idle share per driver; F's device time per launch.
+    for label, name, kw in cases:
+        p = all_problems[name]
+        for driver in ("host_loop", "device_loop"):
+            wall = host_ms[label] if driver == "host_loop" else table[label, saved]
+            launched = reads[label, "rounds"] if driver == "host_loop" else (
+                enqueued(rt_prop, reads, label))
+            prof = complete_profile(torch, lambda: rt.propagate_block_ell(
+                p, driver=driver, device=dev, **kw), launched)
+            if prof is None:
+                log(f"profile drivers {label} {driver}: no complete trace in 5 tries; idle "
+                    "share not measured")
+                continue
+            busy, top = prof
+            log(f"profile drivers {label} {driver}: reads {reads[label, driver]}, wall "
+                f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}; "
+                f"top: {top}")
+
+    # propagate's three drivers (the plain round, no kernel): rounds and
+    # reads; host_loop and device_loop against each other.
+    p = problems["pb"]
+    res = {}
+    for driver in ("host_loop", "device_loop", "unrolled"):
+        n = [0]
+        res[driver] = rt.propagate(p, driver=driver, device=dev,
+                                   on_sync=lambda: n.__setitem__(0, n[0] + 1))
+        ms = time_ms(torch, lambda: rt.propagate(p, driver=driver, device=dev), reps=1, trials=3)
+        log(f"propagate pb driver={driver}: rounds={res[driver].rounds.item()} "
+            f"converged={res[driver].converged.item()} "
+            f"infeasible={res[driver].infeasible.item()} reads={n[0]} wall {ms:.3f} ms")
+    check_same(rt, "propagate pb device_loop", res["device_loop"], res["host_loop"], False,
+               "its host_loop run")
+    if res["device_loop"].rounds.item() != REFERENCE_ROUNDS["pb"]:
+        fail(f"propagate pb device_loop took {res['device_loop'].rounds.item()} rounds")
     return runs
 
 

@@ -10,12 +10,21 @@ One *round* (Alg. 3 at nonzero granularity):
 This is the port's own oracle for the block-ELL kernel engine
 (``kernels.propagate_block_ell``): it shares no code with the tile layout.
 
-Loop drivers: ``host_loop`` and ``device_loop`` both run one round per
-iteration and read the round's ``changed`` flag on the host to decide the
-exit -- one host sync per round, counted through ``on_sync``.  The batched
-fixed point (``batched_fixed_point``, the node engine's and the solver's
-loop) reads its ``active.any()`` flag the same way, once per round.
-(Deciding the exit on the device is a later slice of the port.)
+Loop drivers (paper §3.7 / App. C), as the reference's:
+
+  * ``host_loop``   -- one round per iteration; the host reads the round's
+                       flag to decide the exit (:func:`fixed_point`).
+  * ``device_loop`` -- the round's last kernel keeps the reference's
+                       ``while_loop`` carry on the device (``core.carry``):
+                       the host enqueues rounds and reads the carry once per
+                       :data:`DEVICE_LOOP_GROUP` check groups
+                       (:func:`device_fixed_point`).  Rounds enqueued after
+                       convergence change nothing and count nothing.
+  * ``unrolled``    -- ``device_loop`` with ``unroll`` rounds per check.
+
+Every host read is reported to ``on_sync``.  The batched fixed point
+(``batched_fixed_point``, the node engine's, the solver's and the service's
+loop) still reads its ``active.any()`` flag on the host once per round.
 """
 from __future__ import annotations
 
@@ -27,10 +36,21 @@ import torch
 
 from . import activities as act
 from . import bounds as bnd
+from .carry import GO, ROUNDS, LoopCarry, fold, go_flag
 from .sparse import Problem
 from .types import DEFAULT_CONFIG, INF, PropagationResult, PropagatorConfig
 
-DRIVERS = ("host_loop", "device_loop")
+# The drivers of ``propagate`` and of ``kernels.propagate_block_ell`` (and
+# the batched front ends), as the reference's.
+DRIVERS = ("host_loop", "device_loop", "unrolled")
+KERNEL_DRIVERS = ("host_loop", "device_loop")
+
+# Check groups that device_fixed_point enqueues between two host reads of
+# the loop carry (read at call time).  More means fewer reads and up to
+# DEVICE_LOOP_GROUP - 1 wasted groups after convergence (skipped by the
+# kernels, each still a launch); chip_smoke.py times 1, 2, 4, 8 and 16 on
+# the H100 (PERF.md).
+DEVICE_LOOP_GROUP = 8
 
 
 def resolve_device(device) -> torch.device:
@@ -143,24 +163,88 @@ def fixed_point(
     so the bounds are copied before the last allowed round alone.
     ``with_progress=False`` skips the measure (progress NaN).  Each round
     reads ``changed`` on the host once (one sync, reported to ``on_sync``).
-    Returns ``(lb, ub, rounds, changed, progress)``."""
+    A round closure with a loop carry (its ``carry``) has it armed for the
+    fixed point, one round per check group.  Returns ``(lb, ub, rounds,
+    changed, progress)``."""
     prog = torch.tensor(math.nan, dtype=lb.dtype, device=lb.device)
     lb_in, ub_in = lb, ub
     rounds, changed = 0, True
-    while changed and rounds < max_rounds:
-        if with_progress and rounds + 1 == max_rounds:
-            lb_in, ub_in = lb.clone(), ub.clone()
-        lb, ub, ch = round_fn(lb, ub)
-        rounds += 1
-        changed = bool(ch)
-        if on_sync is not None:
-            on_sync()
+    carry = getattr(round_fn, "carry", None)
+    if carry is not None:
+        carry.arm(lb.device)
+    try:
+        while changed and rounds < max_rounds:
+            if with_progress and rounds + 1 == max_rounds:
+                lb_in, ub_in = lb.clone(), ub.clone()
+            lb, ub, ch = round_fn(lb, ub)
+            rounds += 1
+            changed = bool(ch)
+            if on_sync is not None:
+                on_sync()
+    finally:
+        if carry is not None:
+            carry.release()
     if rounds and with_progress:
         # A round that changed nothing left its bounds as they were.
         prog = bnd.progress_measure(lb_in, ub_in, lb, ub) if changed else (
             bnd.progress_measure(lb, ub, lb, ub)
         )
     return lb, ub, rounds, changed, prog
+
+
+def device_fixed_point(
+    round_fn, lb, ub, max_rounds: int, unroll: int = 1,
+    on_sync: Callable[[], None] | None = None, with_progress: bool = True,
+):
+    """The reference's ``_device_fixed_point``
+    (src/repro/core/propagator.py:272) over a round closure with a loop
+    carry (``round_fn.carry``, :class:`core.carry.LoopCarry`): check groups
+    of ``unroll`` rounds, each begun while the carry's GO is set, until a
+    group changes nothing or ``ceil(max_rounds / unroll)`` groups ran.
+
+    The host enqueues :data:`DEVICE_LOOP_GROUP` groups (read at call time),
+    then reads the carry once (one pinned copy and a wait, reported to
+    ``on_sync``), and stops when GO is clear or the groups are spent; the
+    round's last kernel keeps the carry, so a group enqueued after
+    convergence changes neither the bounds nor the counts.  ``rounds`` is
+    the reference's: a multiple of ``unroll``, which may pass
+    ``max_rounds``.  The progress measure is the last check group's, which
+    needs its starting bounds only if it changed something, that is only if
+    the cap cut the loop: so the bounds are copied before the last allowed
+    group alone.  Returns ``(lb, ub, rounds, changed, progress)``."""
+    if unroll < 1:
+        raise ValueError(f"unroll={unroll}: a check group holds at least one round")
+    prog = torch.tensor(math.nan, dtype=lb.dtype, device=lb.device)
+    groups = -(-max_rounds // unroll) if max_rounds > 0 else 0
+    if groups == 0:
+        return lb, ub, 0, True, prog
+    carry: LoopCarry = round_fn.carry
+    lb_in = ub_in = None
+    done = 0
+    carry.arm(lb.device, unroll)
+    try:
+        while True:
+            batch = min(DEVICE_LOOP_GROUP, groups - done)
+            for g in range(done, done + batch):
+                if with_progress and g + 1 == groups:
+                    lb_in, ub_in = lb.clone(), ub.clone()
+                for _ in range(unroll):
+                    lb, ub, _ = round_fn(lb, ub)
+            done += batch
+            state = carry.read()
+            if on_sync is not None:
+                on_sync()
+            if not state[GO] or done == groups:
+                break
+    finally:
+        carry.release()
+    changed = bool(state[GO])
+    if with_progress:
+        # A group that changed nothing left its bounds as they were.
+        prog = bnd.progress_measure(lb_in, ub_in, lb, ub) if changed else (
+            bnd.progress_measure(lb, ub, lb, ub)
+        )
+    return lb, ub, state[ROUNDS], changed, prog
 
 
 def _batched_rounds(
@@ -367,6 +451,112 @@ def not_ported(name: str, entry: str):
     raise NotImplementedError(f"{name} is not ported yet: ROADMAP Queue 1 {entry}")
 
 
+def _refuse_options(stop_progress, patience, telemetry, policy=None) -> None:
+    if policy is not None or stop_progress is not None or patience != 1:
+        not_ported("policy= / stop_progress= / patience=", "item 5 (precision tiers)")
+    if telemetry is not None:
+        not_ported("telemetry=", "item 6 (observability)")
+
+
+def _plain_round_fn(dp: DeviceProblem, eps: float, int_eps: float, inf: float,
+                    outward: float):
+    """The plain round (:func:`propagation_round`) as a ``(lb, ub) -> (lb,
+    ub, changed)`` closure with a loop carry (its ``carry``): the round's
+    bounds where the carry's GO is set (else the bounds as they were), its
+    flag folded into the carry (``core.carry.fold``), ``changed`` the
+    carry's GO.  Torch ops only, no kernel."""
+    carry = LoopCarry()
+
+    def round_fn(lb, ub):
+        state, k, unroll = carry.step(lb.device)
+        new_lb, new_ub, ch = propagation_round(
+            dp.row_id, dp.col, dp.val, dp.lhs, dp.rhs, dp.is_int, lb, ub,
+            dp.m, dp.n, eps, int_eps, inf, outward,
+        )
+        go = go_flag(state)
+        new_lb, new_ub = torch.where(go, new_lb, lb), torch.where(go, new_ub, ub)
+        fold(state, ch, k, unroll)
+        return new_lb, new_ub, go
+
+    round_fn.carry = carry
+    return round_fn
+
+
+def _round_fn(dp: DeviceProblem, cfg: PropagatorConfig):
+    return _plain_round_fn(dp, cfg.eps_for(dp.dtype), cfg.int_eps, cfg.inf,
+                           cfg.outward_for(dp.dtype))
+
+
+def propagate_host_loop(
+    dp: DeviceProblem,
+    cfg: PropagatorConfig = DEFAULT_CONFIG,
+    lb0=None,
+    ub0=None,
+    stop_progress: float | None = None,
+    patience: int = 1,
+    telemetry=None,
+    *,
+    on_sync: Callable[[], None] | None = None,
+) -> PropagationResult:
+    """cpu_loop analogue (the reference's, src/repro/core/propagator.py:200):
+    the host runs the plain round and reads its flag once per round
+    (:func:`fixed_point`, each read reported to ``on_sync``).  ``lb0``/
+    ``ub0`` warm-start the fixed point from ``(n,)`` bounds.  Progress is
+    NaN, as the reference's without an early stop;
+    ``stop_progress=``/``patience=`` (item 5) and ``telemetry=`` (item 6)
+    raise ``NotImplementedError``."""
+    _refuse_options(stop_progress, patience, telemetry)
+    lb, ub = initial_bounds((dp.lb0, dp.ub0), lb0, ub0)
+    out = fixed_point(_round_fn(dp, cfg), lb, ub, cfg.max_rounds, on_sync, with_progress=False)
+    return _result(*out, cfg.feas_eps)
+
+
+def propagate_device_loop(
+    dp: DeviceProblem,
+    cfg: PropagatorConfig = DEFAULT_CONFIG,
+    unroll: int = 1,
+    lb0=None,
+    ub0=None,
+    stop_progress: float | None = None,
+    patience: int = 1,
+    telemetry=None,
+    *,
+    on_sync: Callable[[], None] | None = None,
+) -> PropagationResult:
+    """gpu_loop analogue (the reference's, src/repro/core/propagator.py:533):
+    the plain round's check groups of ``unroll`` rounds enqueued against
+    the loop carry on the device (:func:`device_fixed_point`), the carry
+    read on the host once per :data:`DEVICE_LOOP_GROUP` groups (each read
+    reported to ``on_sync``).  ``rounds`` is the reference's (a multiple of
+    ``unroll``), ``progress`` the last check group's measure.  Options as
+    in :func:`propagate_host_loop`."""
+    _refuse_options(stop_progress, patience, telemetry)
+    lb, ub = initial_bounds((dp.lb0, dp.ub0), lb0, ub0)
+    out = device_fixed_point(_round_fn(dp, cfg), lb, ub, cfg.max_rounds, unroll, on_sync)
+    return _result(*out, cfg.feas_eps)
+
+
+def propagate_unrolled(
+    dp: DeviceProblem,
+    cfg: PropagatorConfig = DEFAULT_CONFIG,
+    unroll: int = 4,
+    lb0=None,
+    ub0=None,
+    stop_progress: float | None = None,
+    patience: int = 1,
+    telemetry=None,
+    *,
+    on_sync: Callable[[], None] | None = None,
+) -> PropagationResult:
+    """The reference's megakernel-flavored driver
+    (src/repro/core/propagator.py:578): :func:`propagate_device_loop` with
+    ``unroll`` rounds per convergence check."""
+    return propagate_device_loop(
+        dp, cfg, unroll=unroll, lb0=lb0, ub0=ub0, stop_progress=stop_progress,
+        patience=patience, telemetry=telemetry, on_sync=on_sync,
+    )
+
+
 def propagate(
     p: Problem,
     cfg: PropagatorConfig = DEFAULT_CONFIG,
@@ -382,36 +572,50 @@ def propagate(
     """Problem -> PropagationResult with the plain-PyTorch round (no tiles,
     no kernels).
 
-    ``lb0``/``ub0`` are ``(n,)`` warm-start overrides for this call only.
-    ``device`` defaults to CUDA and raises where there is none; pass
-    ``device="cpu"`` to run on the CPU.  ``on_sync`` is called once per host
-    read of the loop's exit flag.  ``progress`` is the last round's measure
-    on ``device_loop`` and NaN on ``host_loop``, as in the reference."""
+    ``driver`` picks the loop as the reference's does: ``host_loop`` reads
+    a flag on the host each round, ``device_loop`` keeps the loop state on
+    the device and reads it once per :data:`DEVICE_LOOP_GROUP` rounds,
+    ``unrolled`` checks convergence every 4 rounds.  ``lb0``/``ub0`` are
+    ``(n,)`` warm-start overrides for this call only.  ``device`` defaults
+    to CUDA and raises where there is none; pass ``device="cpu"`` to run on
+    the CPU.  ``on_sync`` is called once per host read of the loop state.
+    ``progress`` is the last check's measure on ``device_loop`` and
+    ``unrolled`` and NaN on ``host_loop``, as in the reference.
+    ``policy=`` (item 5) and ``telemetry=`` (item 6) raise
+    ``NotImplementedError``."""
     if policy is not None:
         not_ported("policy=", "item 5 (precision tiers)")
     if telemetry is not None:
         not_ported("telemetry=", "item 6 (observability)")
     if driver not in DRIVERS:
-        if driver == "unrolled":
-            not_ported("driver='unrolled'", "item 2 (propagate_unrolled)")
         raise ValueError(f"unknown driver: {driver}")
     dp = DeviceProblem(p, dtype=dtype, device=device)
-    eps = cfg.eps_for(dp.dtype)
-    outward = cfg.outward_for(dp.dtype)
+    run = {"host_loop": propagate_host_loop, "device_loop": propagate_device_loop,
+           "unrolled": propagate_unrolled}[driver]
+    return run(dp, cfg, lb0=lb0, ub0=ub0, on_sync=on_sync)
 
-    def round_fn(lb, ub):
-        return propagation_round(
-            dp.row_id, dp.col, dp.val, dp.lhs, dp.rhs, dp.is_int, lb, ub,
-            dp.m, dp.n, eps, cfg.int_eps, cfg.inf, outward,
-        )
 
-    lb, ub = initial_bounds((dp.lb0, dp.ub0), lb0, ub0)
-    # As the reference's: the host loop reports NaN progress (it would
-    # measure only for an early stop, which is not ported).
-    out = fixed_point(
-        round_fn, lb, ub, cfg.max_rounds, on_sync, with_progress=driver != "host_loop"
-    )
-    return _result(*out, cfg.feas_eps)
+def fresh_instance_runner(p: Problem, cfg: PropagatorConfig = DEFAULT_CONFIG, device="cuda"):
+    """The reference's re-upload baseline (src/repro/core/propagator.py:724):
+    returns ``propagate_fresh(lb, ub) -> (lb, ub, rounds)``.  Each call
+    expands the CSR row structure on the host again and uploads the whole
+    matrix again, treating the node as a brand-new instance, then runs the
+    plain round's device loop (:func:`device_fixed_point`, one round per
+    check) from ``(n,)`` bounds ``lb``/``ub``.  The round is the
+    reference's: eps of float64, no outward widening.  This is the
+    baseline the warm-start engines are measured against."""
+    dev = resolve_device(device)
+    eps = cfg.eps_for(torch.float64)
+
+    def propagate_fresh(lb, ub):
+        # The per-node repack: row expansion on the host + full re-upload.
+        dp = DeviceProblem(p, device=dev)
+        lb_t, ub_t = initial_bounds((dp.lb0, dp.ub0), lb, ub)
+        out = device_fixed_point(_plain_round_fn(dp, eps, cfg.int_eps, cfg.inf, 0.0), lb_t,
+                                 ub_t, cfg.max_rounds, with_progress=False)
+        return out[0], out[1], torch.tensor(out[2], dtype=torch.int32, device=dev)
+
+    return propagate_fresh
 
 
 def bounds_equal(

@@ -13,7 +13,9 @@
 //                             span chunks
 //   candidates_scatter   (E)  candidates from completed row aggregates, then
 //                             the column max/min (64-bit integer atomics)
-//   apply_updates        (F)  the bound merge, in place, with a changed flag
+//   apply_updates        (F)  the bound merge, in place, on the merges' body
+//                             over one plane; its flag folded into the
+//                             fixed point's loop carry on the device
 //   combine_chunk_partials    the long-row combine of A' partials, left to
 //                             right over each row's chunks (not a TPU
 //                             kernel: the reference's XLA segment_sum); a
@@ -116,8 +118,9 @@ fused_scatter_round_kernel(const double* __restrict__ val, const int* __restrict
                            const int* __restrict__ ii, const int* __restrict__ clen,
                            const double* __restrict__ lhs, const double* __restrict__ rhs,
                            const double* __restrict__ lb, const double* __restrict__ ub,
-                           double* best_l, double* best_u, int64_t n_chunks, int k,
-                           double int_eps, double inf) {
+                           double* best_l, double* best_u, const bool* __restrict__ go,
+                           int64_t n_chunks, int k, double int_eps, double inf) {
+  if (skip_round(go)) return;
   const Lanes L = lanes_for<G>(n_chunks);
   const int64_t c = L.chunk;
   chunk_round<G, U>(val, col, ii, SplitBounds{lb, ub}, c * k, L.live ? k : 0,
@@ -133,7 +136,9 @@ __global__ void __launch_bounds__(kThreads)
 activities_gather_kernel(const double* __restrict__ val, const int* __restrict__ col,
                          const int* __restrict__ clen, const double2* __restrict__ lub,
                          double* __restrict__ mf, int* __restrict__ mc, double* __restrict__ xf,
-                         int* __restrict__ xc, int64_t n_chunks, int k, double inf) {
+                         int* __restrict__ xc, const bool* __restrict__ go, int64_t n_chunks,
+                         int k, double inf) {
+  if (skip_round(go)) return;
   constexpr int U = Strides<G>::U;
   const Lanes L = lanes_for<G>(n_chunks);
   const int64_t base = L.chunk * k;
@@ -168,7 +173,9 @@ candidates_scatter_kernel(const double* __restrict__ val, const int* __restrict_
                           const double* __restrict__ rxf, const int* __restrict__ rxc,
                           const double* __restrict__ lhs, const double* __restrict__ rhs,
                           const double2* __restrict__ lub, double* best_l, double* best_u,
-                          int64_t n_chunks, int k, double int_eps, double inf) {
+                          const bool* __restrict__ go, int64_t n_chunks, int k, double int_eps,
+                          double inf) {
+  if (skip_round(go)) return;
   constexpr int U = Strides<G>::U;
   const Lanes L = lanes_for<G>(n_chunks);
   if (!L.live) return;
@@ -182,20 +189,6 @@ candidates_scatter_kernel(const double* __restrict__ val, const int* __restrict_
     load_strides(s, val, col, ii, c * k, j0, len, k, L.sl);
     scatter_strides(s, PairedBounds{lub}, a, lo, hi, best_l, best_u, int_eps, inf);
   }
-}
-
-// Kernel F: one thread per column.  Each accumulator entry it reads goes
-// back to the sentinel (merge_reset), so the planes that D and E scatter
-// into, kept by the round closure for the whole fixed point, are clean for
-// the next round.
-__global__ void __launch_bounds__(kThreads)
-apply_updates_kernel(double* __restrict__ lb, double* __restrict__ ub,
-                     double* __restrict__ best_l, double* __restrict__ best_u,
-                     bool* __restrict__ changed, int64_t n, double eps, double inf,
-                     double outward) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (merge_reset(lb, ub, best_l, best_u, i, eps, inf, outward)) *changed = true;
 }
 
 // The long-row combine: each row segment's chunk partials summed left to
@@ -213,9 +206,11 @@ combine_chunk_partials_kernel(const double* __restrict__ mf, const int* __restri
                               const int64_t* __restrict__ row_start,
                               const int* __restrict__ short_seg, const int* __restrict__ long_seg,
                               double* __restrict__ omf, int* __restrict__ omc,
-                              double* __restrict__ oxf, int* __restrict__ oxc, int64_t n_short,
-                              int64_t n_long, unsigned int long_blocks) {
+                              double* __restrict__ oxf, int* __restrict__ oxc,
+                              const bool* __restrict__ go, int64_t n_short, int64_t n_long,
+                              unsigned int long_blocks) {
   __shared__ double sm[kWarpsPerBlock][2 * kCombineGroup];
+  if (skip_round(go)) return;
   if (blockIdx.x < long_blocks) {
     const int64_t w = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
     if (w >= n_long) return;  // the whole warp
@@ -619,36 +614,36 @@ const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaEr
 
 int fused_scatter_round(const double* val, const int* col, const int* ii, const int* clen,
                         const double* lhs, const double* rhs, const double* lb, const double* ub,
-                        double* best_l, double* best_u, int64_t n_chunks, int k, int max_len,
-                        double int_eps, double inf, cudaStream_t stream) {
+                        double* best_l, double* best_u, const bool* go, int64_t n_chunks, int k,
+                        int max_len, double int_eps, double inf, cudaStream_t stream) {
   // The group width of the longest chunk (at most K's).
   const int width = max_len < k ? max_len : k;
   const unsigned int blocks = chunk_blocks(n_chunks, width);
 #define FUSED(G, U)                                                                          \
   launch_blocks<fused_scatter_round_kernel<G, U>>(blocks, stream, val, col, ii, clen, lhs, \
-                                                  rhs, lb, ub, best_l, best_u, n_chunks, k, \
-                                                  int_eps, inf)
+                                                  rhs, lb, ub, best_l, best_u, go, n_chunks, \
+                                                  k, int_eps, inf)
   DISPATCH_HELD(FUSED, width, held_strides(max_len))
 #undef FUSED
 }
 
 int activities_gather(const double* val, const int* col, const int* clen, const double* lub,
-                      double* mf, int* mc, double* xf, int* xc, int64_t n_chunks, int k,
-                      double inf, cudaStream_t stream) {
+                      double* mf, int* mc, double* xf, int* xc, const bool* go, int64_t n_chunks,
+                      int k, double inf, cudaStream_t stream) {
   const double2* pairs = reinterpret_cast<const double2*>(lub);
   LAUNCH_FOR_WIDTH(activities_gather_kernel, k, n_chunks, stream, val, col, clen, pairs, mf, mc,
-                   xf, xc, n_chunks, k, inf);
+                   xf, xc, go, n_chunks, k, inf);
   return static_cast<int>(cudaGetLastError());
 }
 
 int candidates_scatter(const double* val, const int* col, const int* ii, const int* clen,
                        const double* rmf, const int* rmc, const double* rxf, const int* rxc,
                        const double* lhs, const double* rhs, const double* lub, double* best_l,
-                       double* best_u, int64_t n_chunks, int k, double int_eps, double inf,
-                       cudaStream_t stream) {
+                       double* best_u, const bool* go, int64_t n_chunks, int k, double int_eps,
+                       double inf, cudaStream_t stream) {
   const double2* pairs = reinterpret_cast<const double2*>(lub);
   LAUNCH_FOR_WIDTH(candidates_scatter_kernel, k, n_chunks, stream, val, col, ii, clen, rmf, rmc,
-                   rxf, rxc, lhs, rhs, pairs, best_l, best_u, n_chunks, k, int_eps, inf);
+                   rxf, rxc, lhs, rhs, pairs, best_l, best_u, go, n_chunks, k, int_eps, inf);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -674,21 +669,23 @@ int node_candidates_scatter(const double* val, const int* col, const int* ii, co
   return static_cast<int>(cudaGetLastError());
 }
 
-int apply_updates(double* lb, double* ub, double* best_l, double* best_u, bool* changed,
-                  int64_t n, double eps, double inf, double outward, cudaStream_t stream) {
-  const unsigned int blocks = static_cast<unsigned int>((n + kThreads - 1) / kThreads);
-  apply_updates_kernel<<<blocks, kThreads, 0, stream>>>(lb, ub, best_l, best_u, changed, n, eps,
-                                                        inf, outward);
-  return static_cast<int>(cudaGetLastError());
+int apply_updates(double* lb, double* ub, double* best_l, double* best_u, int* carry, int64_t n,
+                  int k, int unroll, double eps, double inf, double outward,
+                  cudaStream_t stream) {
+  // Kernel F: the merges' body on a grid over one plane, no mask, four
+  // columns a thread; its flag folded into the loop carry (CarryFlags).
+  return launch_merge_grid<CarryFlags, CarryFlags::kGridCols, false>(
+      lb, ub, best_l, best_u, nullptr, CarryFlags{carry, k, unroll}, 1, n, eps, inf, outward,
+      stream);
 }
 
 int combine_chunk_partials(const double* mf, const int* mc, const double* xf, const int* xc,
                            const int64_t* row_start, const int* short_seg, const int* long_seg,
-                           double* omf, int* omc, double* oxf, int* oxc, int64_t n_short,
-                           int64_t n_long, cudaStream_t stream) {
+                           double* omf, int* omc, double* oxf, int* oxc, const bool* go,
+                           int64_t n_short, int64_t n_long, cudaStream_t stream) {
   const CombineGrid g = combine_grid(n_short, n_long);
   combine_chunk_partials_kernel<<<g.blocks, kThreads, 0, stream>>>(
-      mf, mc, xf, xc, row_start, short_seg, long_seg, omf, omc, oxf, oxc, n_short, n_long,
+      mf, mc, xf, xc, row_start, short_seg, long_seg, omf, omc, oxf, oxc, go, n_short, n_long,
       g.long_blocks);
   return static_cast<int>(cudaGetLastError());
 }
@@ -760,13 +757,15 @@ int batched_fused_scatter_round(const double* val, const int* col, const int* ii
 }
 
 int apply_updates_batch(double* lb, double* ub, double* best_l, double* best_u,
-                        const bool* active, bool* changed, int64_t bsz, int64_t n_pad,
-                        double eps, double inf, double outward, cudaStream_t stream) {
+                        const bool* active, bool* changed, bool* clear, int64_t bsz,
+                        int64_t n_pad, double eps, double inf, double outward,
+                        cudaStream_t stream) {
   // Kernel F over (B, n_pad) planes: the merges' body (round_common.cuh),
   // on the walk or, for a few rows, the grid; a warp that tightened a
-  // bound stores its row's flag once per item.
-  return launch_merge(lb, ub, best_l, best_u, active, RowFlags{changed}, bsz, n_pad, eps, inf,
-                      outward, stream);
+  // bound stores its row's flag once per item, and the launch zeroes the
+  // other flag buffer of the pair (`clear`, bsz entries; null for none).
+  return launch_merge(lb, ub, best_l, best_u, active, RowFlags{changed, clear, bsz}, bsz, n_pad,
+                      eps, inf, outward, stream);
 }
 
 int node_objective(const double* lb, const double* ub, const double* c, const bool* is_int,

@@ -6,8 +6,9 @@
 // round with a single bound gather per nonzero (chunk_round, kernels D, #8,
 // #10, #12 and #14), the active-only walk over (plane, item) pairs (#8, #9,
 // #10, #13, #14, #15), the bound merge of one column, with or without
-// handing the accumulator entry back (merge_reset), and the batched merges'
-// body (#9, #15) on the walk or on a (column block, row) grid.  See
+// handing the accumulator entry back (merge_reset), the merges' body (F,
+// #9, #15) on the walk or on a (column block, row) grid, and the loop
+// carry that F folds its flag into (CarryFlags).  See
 // prop_round.cu for the layout and the rounding rules (--fmad=false,
 // division-first candidates).
 
@@ -21,6 +22,12 @@ namespace {
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarp * kWarpsPerBlock;
+
+// The gate of a round's kernels (D, A', the combine, E): true where the
+// loop carry's `go` (the low byte of its int32 field, passed as a bool
+// pointer; null for no gate) says the fixed point has stopped, so a round
+// enqueued after convergence returns at once.
+__device__ __forceinline__ bool skip_round(const bool* go) { return go != nullptr && !*go; }
 
 struct Slot {
   bool pos, min_inf, max_inf;
@@ -270,8 +277,8 @@ __device__ __forceinline__ bool merge_one(double* __restrict__ lb, double* __res
 
 // merge_one that hands its accumulator entry back: the candidates are read,
 // the entry is set to the sentinel again (a store only where a candidate
-// landed), then merged.  The merges (F, #9, #15) take this form, so that
-// planes kept for a whole fixed point are clean for the next round.
+// landed), then merged: the one-column form of merge_item's hand-back
+// (F's kernel before it ran merge_item; tools/round_variants.cu times it).
 __device__ __forceinline__ bool merge_reset(double* __restrict__ lb, double* __restrict__ ub,
                                             double* __restrict__ best_l,
                                             double* __restrict__ best_u, int64_t i, double eps,
@@ -727,19 +734,18 @@ int launch_walk(int64_t most, int64_t bsz, cudaStream_t stream, Args... args) {
 }
 
 // ---------------------------------------------------------------------------
-// The batched merges #9 and #15: bounds.apply_updates over (B, W) planes,
-// in place.  One body, templated on where a warp's tightenings are
-// flagged, over (row, block of C * kThreads columns) items, C columns a
-// thread: kMergeCols on the walk, the merge's own kGridCols on the grid.
-// A thread loads the bounds and candidates of its C columns j0 + v *
-// kThreads before it merges any (on the walk, one column per thread ran 3%
-// slower with a full pool and 22% slower with 4 of 4 rows of the fused
-// batch active: tools/round_variants.py).  Each accumulator entry it reads
-// goes back to the sentinel (merge_reset's hand-back), so planes kept for
-// the whole fixed point are clean for their next round; fresh planes do
-// not mind.  The flags are zeroed by the wrapper.  An inactive row is
-// neither read nor written.  Two launches of the body, chosen by the row
-// count:
+// The merges F, #9 and #15: bounds.apply_updates over (B, W) planes, in
+// place.  One body, templated on where a warp's tightenings are flagged,
+// over (row, block of C * kThreads columns) items, C columns a thread:
+// kMergeCols on the walk, the merge's own kGridCols on the grid.  A thread
+// loads the bounds and candidates of its C columns j0 + v * kThreads
+// before it merges any (on the walk, one column per thread ran 3% slower
+// with a full pool and 22% slower with 4 of 4 rows of the fused batch
+// active: tools/round_variants.py).  Each accumulator entry it reads goes
+// back to the sentinel (merge_reset's hand-back), so planes kept for the
+// whole fixed point are clean for their next round; fresh planes do not
+// mind.  An inactive row is neither read nor written.  Two launches of the
+// body, chosen by the row count:
 // - the active-only walk above, for more than kMergeGridRows rows, so no
 //   block is spent on an inactive row (a (column block, row) grid launches
 //   every row's blocks: with 8 of 128 rows active, 94% of them read the
@@ -747,11 +753,28 @@ int launch_walk(int64_t most, int64_t bsz, cudaStream_t stream, Args... args) {
 // - a (column block, row) grid for at most kMergeGridRows rows (a single
 //   instance, a small batch), where those blocks are few and the walk's
 //   ballot and prefix, ahead of the first load, cost more than they save.
+//   F is the grid over one plane with no mask at all.
+//
+// The flags: #9 and #15 write theirs into one of two buffers that the
+// round closure keeps and hands over in turn, and zero the other one (the
+// previous launch's, read by then in stream order), so no launch is
+// preceded by a fill.  F, and #15 for a single instance, fold their flag
+// into the loop carry instead (CarryFlags).
 // ---------------------------------------------------------------------------
 
 constexpr int kMergeCols = 4;
 constexpr int64_t kMergeBlock = static_cast<int64_t>(kThreads) * kMergeCols;
 constexpr int64_t kMergeGridRows = 16;
+
+// Zero the n entries of `clear` (the other buffer of a flag pair; null for
+// none), spread over every block of the launch.
+template <typename T>
+__device__ __forceinline__ void clear_flags(T* clear, int64_t n) {
+  if (clear == nullptr) return;
+  const int64_t blk = static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * gridDim.y * blockDim.x;
+  for (int64_t i = blk * blockDim.x + threadIdx.x; i < n; i += step) clear[i] = 0;
+}
 
 // #9: one changed flag per row, stored once per warp and item.  On the
 // grid it takes four columns a thread (one: 17% slower over the fused
@@ -759,6 +782,11 @@ constexpr int64_t kMergeGridRows = 16;
 struct RowFlags {
   static constexpr int kGridCols = 4;
   bool* changed;
+  bool* clear;
+  int64_t n_clear;
+  __device__ __forceinline__ void prologue() const { clear_flags(clear, n_clear); }
+  __device__ __forceinline__ bool live() const { return true; }
+  __device__ __forceinline__ void finish() const {}
   template <int C>
   __device__ __forceinline__ void mark(int64_t plane, int64_t, const bool (&ch)[C]) const {
     bool any = false;
@@ -778,12 +806,77 @@ struct WindowFlags {
   static constexpr int kGridCols = 1;
   int* flags;
   int64_t n_slabs, slab;
+  int* clear;
+  int64_t n_clear;
+  __device__ __forceinline__ void prologue() const { clear_flags(clear, n_clear); }
+  __device__ __forceinline__ bool live() const { return true; }
+  __device__ __forceinline__ void finish() const {}
   template <int C>
   __device__ __forceinline__ void mark(int64_t plane, int64_t w0, const bool (&ch)[C]) const {
 #pragma unroll
     for (int v = 0; v < C; ++v)
       if (__any_sync(0xffffffffu, ch[v]) && threadIdx.x % kWarp == 0)
         flags[plane * n_slabs + (w0 + v * kThreads) / slab] = 1;
+  }
+};
+
+// The loop carry of a single instance's fixed point: int32 fields, kept by
+// the round closure for the whole fixed point (core/carry.py).
+constexpr int kCarryFlag = 0;    // this round tightened a bound
+constexpr int kCarryAny = 1;     // changed_any over the current check group
+constexpr int kCarryRounds = 2;  // rounds counted
+constexpr int kCarryGo = 3;      // the reference's cond: the loop goes on
+constexpr int kCarryTicket = 4;  // blocks of this launch that are done
+
+// F's flags, and #15's for one instance: a warp that tightens stores the
+// carry's flag once.  A launch whose carry says `go` is false (a round
+// enqueued after the fixed point converged) merges nothing and counts
+// nothing.  Otherwise the launch's last block (a ticket taken after a
+// fence) folds the flag into the carry as the reference's while_loop
+// does: changed_any |= flag; at the end of a check group of `unroll`
+// rounds (k == unroll - 1) rounds += unroll and go = changed_any, and
+// changed_any restarts; the flag and the ticket go back to 0.  So no
+// fill precedes a round, and nothing is read on the host.
+struct CarryFlags {
+  static constexpr int kGridCols = 4;
+  int* carry;
+  int k, unroll;
+  __device__ __forceinline__ void prologue() const {}
+  __device__ __forceinline__ bool live() const {
+    return *reinterpret_cast<volatile int*>(carry + kCarryGo) != 0;
+  }
+  template <int C>
+  __device__ __forceinline__ void mark(int64_t, int64_t, const bool (&ch)[C]) const {
+    bool any = false;
+#pragma unroll
+    for (int v = 0; v < C; ++v) any |= ch[v];
+    if (__any_sync(0xffffffffu, any) && threadIdx.x % kWarp == 0) carry[kCarryFlag] = 1;
+  }
+  // Every thread of every live block calls it, last.  Every thread fences
+  // before the barrier, so the ticket is taken once the block's flag stores
+  // are visible to the card (fencing only the storing lanes was 7% slower
+  // on pb's first round on an H100: tools/f_variants.py).
+  __device__ __forceinline__ void finish() const {
+    __shared__ bool last;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int blocks = static_cast<int>(gridDim.x * gridDim.y);
+      last = atomicAdd(carry + kCarryTicket, 1) == blocks - 1;
+    }
+    __syncthreads();
+    if (!last || threadIdx.x != 0) return;
+    __threadfence();
+    volatile int* c = carry;
+    int any = c[kCarryAny] | c[kCarryFlag];
+    if (k == unroll - 1) {
+      c[kCarryRounds] = c[kCarryRounds] + unroll;
+      c[kCarryGo] = any;
+      any = 0;
+    }
+    c[kCarryAny] = any;
+    c[kCarryFlag] = 0;
+    c[kCarryTicket] = 0;
   }
 };
 
@@ -817,11 +910,28 @@ __device__ __forceinline__ void merge_item(double* __restrict__ lb, double* __re
   flags.template mark<C>(plane, j0 - threadIdx.x % kWarp, ch);
 }
 
+// The hand-back alone, for a launch that merges nothing (F after the fixed
+// point converged: D or E may still have scattered).
+template <int C>
+__device__ __forceinline__ void hand_back_item(double* __restrict__ best_l,
+                                               double* __restrict__ best_u, int64_t plane,
+                                               int64_t blk, int64_t width, double inf) {
+  const int64_t j0 = blk * C * kThreads + threadIdx.x, row = plane * width;
+#pragma unroll
+  for (int v = 0; v < C; ++v) {
+    const int64_t j = j0 + v * kThreads;
+    if (j >= width) break;
+    if (best_l[row + j] != -inf) best_l[row + j] = -inf;
+    if (best_u[row + j] != inf) best_u[row + j] = inf;
+  }
+}
+
 template <typename Flags>
 __global__ void __launch_bounds__(kThreads)
 merge_walk_kernel(double* __restrict__ lb, double* __restrict__ ub, double* __restrict__ best_l,
                   double* __restrict__ best_u, const bool* __restrict__ active, Flags flags,
                   int64_t bsz, int64_t width, double eps, double inf, double outward) {
+  flags.prologue();
   const EqualItems items_of{(width + kMergeBlock - 1) / kMergeBlock};
   const Walk walk = ballot_walk(active, bsz, items_of);
   WalkCursor cur;
@@ -833,14 +943,28 @@ merge_walk_kernel(double* __restrict__ lb, double* __restrict__ ub, double* __re
 }
 
 // Grid (column blocks, rows), C columns a thread: the blocks of an
-// inactive row return at once.
-template <int C, typename Flags>
+// inactive row return at once.  kMasked false (F) reads no mask.  A block
+// whose flags are not live (a converged carry) only hands its entries back.
+template <int C, typename Flags, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 merge_grid_kernel(double* __restrict__ lb, double* __restrict__ ub, double* __restrict__ best_l,
                   double* __restrict__ best_u, const bool* __restrict__ active, Flags flags,
                   int64_t width, double eps, double inf, double outward) {
-  if (!active[blockIdx.y]) return;
+  flags.prologue();
+  if (kMasked && !active[blockIdx.y]) return;
+  if (!flags.live()) {
+    hand_back_item<C>(best_l, best_u, blockIdx.y, blockIdx.x, width, inf);
+    return;
+  }
   merge_item<C>(lb, ub, best_l, best_u, flags, blockIdx.y, blockIdx.x, width, eps, inf, outward);
+  flags.finish();
+}
+
+// Zero a flag buffer where the launch has no block to do it.
+template <typename T>
+inline cudaError_t clear_without_blocks(T* clear, int64_t n, cudaStream_t stream) {
+  if (clear == nullptr || n <= 0) return cudaSuccess;
+  return cudaMemsetAsync(clear, 0, static_cast<size_t>(n) * sizeof(T), stream);
 }
 
 // The merge over (bsz, width) planes on the walk: at most one block per
@@ -850,22 +974,23 @@ int launch_merge_walk(double* lb, double* ub, double* best_l, double* best_u,
                       const bool* active, Flags flags, int64_t bsz, int64_t width, double eps,
                       double inf, double outward, cudaStream_t stream) {
   const int64_t most = (width + kMergeBlock - 1) / kMergeBlock * bsz;
+  if (most <= 0) clear_without_blocks(flags.clear, flags.n_clear, stream);
   return launch_walk<merge_walk_kernel<Flags>>(most, bsz, stream, lb, ub, best_l, best_u, active,
                                                flags, bsz, width, eps, inf, outward);
 }
 
 // The merge over (bsz, width) planes on the (column block, row) grid, C
-// columns a thread.
-template <typename Flags, int C = Flags::kGridCols>
+// columns a thread; no mask read where kMasked is false.
+template <typename Flags, int C = Flags::kGridCols, bool kMasked = true>
 int launch_merge_grid(double* lb, double* ub, double* best_l, double* best_u,
                       const bool* active, Flags flags, int64_t bsz, int64_t width, double eps,
                       double inf, double outward, cudaStream_t stream) {
   const int64_t blocks = (width + C * kThreads - 1) / (C * kThreads);
   if (blocks > 0 && bsz > 0)
-    merge_grid_kernel<C, Flags><<<dim3(static_cast<unsigned int>(blocks),
-                                       static_cast<unsigned int>(bsz)),
-                                  kThreads, 0, stream>>>(lb, ub, best_l, best_u, active, flags,
-                                                         width, eps, inf, outward);
+    merge_grid_kernel<C, Flags, kMasked><<<dim3(static_cast<unsigned int>(blocks),
+                                                static_cast<unsigned int>(bsz)),
+                                           kThreads, 0, stream>>>(
+        lb, ub, best_l, best_u, active, flags, width, eps, inf, outward);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -875,8 +1000,15 @@ template <typename Flags>
 int launch_merge(double* lb, double* ub, double* best_l, double* best_u, const bool* active,
                  Flags flags, int64_t bsz, int64_t width, double eps, double inf, double outward,
                  cudaStream_t stream) {
-  return (bsz <= kMergeGridRows ? launch_merge_grid<Flags> : launch_merge_walk<Flags>)(
-      lb, ub, best_l, best_u, active, flags, bsz, width, eps, inf, outward, stream);
+  if (bsz <= kMergeGridRows) {
+    const int64_t blocks = (width + Flags::kGridCols * kThreads - 1) /
+                           (Flags::kGridCols * kThreads);
+    if (blocks <= 0 || bsz <= 0) clear_without_blocks(flags.clear, flags.n_clear, stream);
+    return launch_merge_grid<Flags>(lb, ub, best_l, best_u, active, flags, bsz, width, eps, inf,
+                                    outward, stream);
+  }
+  return launch_merge_walk<Flags>(lb, ub, best_l, best_u, active, flags, bsz, width, eps, inf,
+                                  outward, stream);
 }
 
 // One short row segment [s, e) of chunk partials summed left to right from

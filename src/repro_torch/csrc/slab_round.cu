@@ -23,8 +23,9 @@
 //                       bounds.apply_updates over the active rows'
 //                       (instance, slab) windows, in place, on the merge
 //                       body #9 runs (round_common.cuh: the walk, or a
-//                       grid for a few rows), one flag per window; each
-//                       accumulator entry it reads goes back to the
+//                       grid for a few rows), one flag per window (for
+//                       a single instance, its loop carry's flag, as F's);
+//                       each accumulator entry it reads goes back to the
 //                       sentinel
 //
 // The TPU kernels walk a run's copy tiles in grid order, keep the window's
@@ -37,7 +38,7 @@
 // kept by the engine's round closure for a whole fixed point: filled with
 // the sentinel once, scattered into by 64-bit integer atomics (exact in
 // any order), and set back to the sentinel by the merge that reads them
-// (merge_reset).
+// (merge_item's hand-back).
 //
 // The scatters of #12 and #14 and the partials of #13 find a copy tile's
 // window from tile_inst / tile_slab (#13: a_tile_slab), hoisted by the
@@ -317,14 +318,25 @@ int node_slab_scatter(const double* val, const int* col, const int* ii, const in
 #undef NODE_SLAB
 }
 
-int slab_merge(double* lb, double* ub, double* best_l, double* best_u,
-               const bool* active, int* flags, int64_t bsz, int64_t width, int64_t slab,
-               double eps, double inf, double outward, cudaStream_t stream) {
+int slab_merge(double* lb, double* ub, double* best_l, double* best_u, const bool* active,
+               int* flags, int* clear, int* carry, int64_t bsz, int64_t width, int64_t slab,
+               int k, int unroll, double eps, double inf, double outward, cudaStream_t stream) {
   // A warp's 32 columns of one stride must lie in one window.
   if (slab <= 0 || slab % kWarp != 0) return static_cast<int>(cudaErrorInvalidValue);
+  // One instance's fixed point: the flag folded into its loop carry (the
+  // mask is the carry's go, so a converged instance's blocks return at
+  // once, as an inactive one's do).
+  if (carry != nullptr) {
+    if (bsz != 1) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_merge_grid<CarryFlags, WindowFlags::kGridCols>(
+        lb, ub, best_l, best_u, active, CarryFlags{carry, k, unroll}, 1, width, eps, inf,
+        outward, stream);
+  }
+  // Else one flag per window into `flags`, the pair's other buffer zeroed.
   const int64_t n_slabs = (width + slab - 1) / slab;
-  return launch_merge(lb, ub, best_l, best_u, active, WindowFlags{flags, n_slabs, slab}, bsz,
-                      width, eps, inf, outward, stream);
+  return launch_merge(lb, ub, best_l, best_u, active,
+                      WindowFlags{flags, n_slabs, slab, clear, bsz * n_slabs}, bsz, width, eps,
+                      inf, outward, stream);
 }
 
 }  // extern "C"

@@ -37,18 +37,18 @@ P, I64, I32, F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_doubl
 # a cudaError_t.
 SIGNATURES = {
     "prop_round.cu": {
-        "fused_scatter_round": [P] * 10 + [I64, I32, I32, F64, F64, P],
-        "activities_gather": [P] * 8 + [I64, I32, F64, P],
-        "candidates_scatter": [P] * 13 + [I64, I32, F64, F64, P],
+        "fused_scatter_round": [P] * 11 + [I64, I32, I32, F64, F64, P],
+        "activities_gather": [P] * 9 + [I64, I32, F64, P],
+        "candidates_scatter": [P] * 14 + [I64, I32, F64, F64, P],
         "node_activities_gather": [P] * 10 + [I64, I32, I64, I64, F64, P],
         "node_candidates_scatter": [P] * 15 + [I64, I32, I64, I64, F64, F64, P],
         "node_combine_chunk_partials": [P] * 12 + [I64, I64, I64, I64, P],
-        "apply_updates": [P] * 5 + [I64, F64, F64, F64, P],
-        "combine_chunk_partials": [P] * 11 + [I64, I64, P],
+        "apply_updates": [P] * 5 + [I64, I32, I32, F64, F64, F64, P],
+        "combine_chunk_partials": [P] * 12 + [I64, I64, P],
         "straddle_combine": [P] * 16 + [I64, I64, I64, I64, P],
         "node_fused_scatter_round": [P] * 11 + [I64, I32, I32, I64, I64, F64, F64, P],
         "batched_fused_scatter_round": [P] * 12 + [I64, I32, I32, I64, I64, F64, F64, P],
-        "apply_updates_batch": [P] * 6 + [I64, I64, F64, F64, F64, P],
+        "apply_updates_batch": [P] * 7 + [I64, I64, F64, F64, F64, P],
         "node_objective": [P] * 8 + [I64, I64, F64, F64, P],
         "activities": [P] * 7 + [I64, I32, F64, P],
         "candidates": [P] * 12 + [I64, I32, F64, F64, P],
@@ -59,7 +59,7 @@ SIGNATURES = {
         "node_slab_partials": [P] * 11 + [I64, I32, I32, I32, I64, I64, I64, F64, P],
         "slab_scatter": [P] * 18 + [I64, I32, I32, I32, I64, I64, F64, F64, P],
         "node_slab_scatter": [P] * 17 + [I64, I32, I32, I32, I64, I64, I64, F64, F64, P],
-        "slab_merge": [P] * 6 + [I64, I64, I64, F64, F64, F64, P],
+        "slab_merge": [P] * 8 + [I64, I64, I64, I32, I32, F64, F64, F64, P],
     },
 }
 

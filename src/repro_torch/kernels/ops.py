@@ -72,14 +72,18 @@ import numpy as np
 import torch
 
 from ..core import bounds as bnd
+from ..core import carry as _carry
+from ..core.carry import LoopCarry
 from ..core.propagator import (
+    _refuse_options,
     _result,
     batched_fixed_point,
     check_dtype,
+    device_fixed_point,
     fixed_point,
     not_ported,
     resolve_device,
-    DRIVERS,
+    KERNEL_DRIVERS,
 )
 from ..core.sparse import Problem, ProblemBatch, col_pad, csr_to_block_ell, pack_problems
 from ..core.types import DEFAULT_CONFIG, INF, PropagationResult, PropagatorConfig
@@ -97,6 +101,13 @@ from .slab import (  # noqa: F401  (re-exported)
 # a caller (or a test) may move the point where ``scatter="auto"`` switches
 # engines.  SCATTER_MAX_NPAD is the JAX package's VMEM budget, kept so that
 # both packages pick the same engine; it limits nothing on the H100.
+
+# Whether the single instance's fused round gates D, A', the combine and E
+# on the loop carry's GO (read when round_fn_for makes a closure): a round
+# enqueued after the fixed point converged then returns at once instead of
+# scattering what F would not merge.  F itself always checks GO.
+# chip_smoke.py times device_loop both ways (PERF.md).
+GATE_ROUNDS = True
 
 
 class DeviceBlockEll(NamedTuple):
@@ -375,7 +386,10 @@ class KeptPlanes:
     into), so each round finds them clean.  A new shape or device
     allocates anew.  One pair per thread, since a cached closure may run in
     several threads; a round that raises drops the pair (it may have
-    scattered without merging)."""
+    scattered without merging).  The merges #9 and #15 also take their
+    flags from here: a :class:`prop_round.FlagPair` per shape, written in
+    turn (:meth:`flags`); and the partitioned round its straddle partials
+    and aggregates (:meth:`scratch`)."""
 
     def __init__(self, inf: float):
         self.inf = inf
@@ -393,15 +407,43 @@ class KeptPlanes:
             planes = self._local.planes = kern.accumulator_planes(like, self.inf)
         return planes
 
+    def scratch(self, key, specs, like: torch.Tensor) -> tuple:
+        """This thread's tensors of ``specs`` (``(shape, dtype)`` each) for
+        ``key`` on ``like``'s device: a kernel's outputs that a round reads
+        within the round, allocated (zeroed) once instead of every round."""
+        bufs = getattr(self._local, "scratch", None)
+        if bufs is None:
+            bufs = self._local.scratch = {}
+        full = (key, tuple(specs), like.device)
+        out = bufs.get(full)
+        if out is None:
+            out = bufs[full] = tuple(torch.zeros(shape, dtype=dt, device=like.device)
+                                     for shape, dt in specs)
+        return out
+
+    def flags(self, shape, dtype: torch.dtype, like: torch.Tensor) -> "kern.FlagPair":
+        """This thread's flag pair of ``shape`` and ``dtype`` on ``like``'s
+        device, allocated zeroed at its first use."""
+        pairs = getattr(self._local, "flag_pairs", None)
+        if pairs is None:
+            pairs = self._local.flag_pairs = {}
+        key = (tuple(shape), dtype, like.device)
+        pair = pairs.get(key)
+        if pair is None:
+            pair = pairs[key] = kern.FlagPair(shape, dtype, like.device)
+        return pair
+
     def guard(self, round_fn: Callable) -> Callable:
-        """``round_fn``, dropping the planes if it raises; the planes are
-        its ``kept`` attribute."""
+        """``round_fn``, dropping the planes and flag pairs if it raises; the
+        planes are its ``kept`` attribute."""
 
         def run(*args):
             try:
                 return round_fn(*args)
             except BaseException:
                 self._local.planes = None
+                self._local.flag_pairs = None
+                self._local.scratch = None
                 raise
 
         run.kept = self
@@ -416,11 +458,11 @@ class RoundOps(NamedTuple):
     activities: Callable  # A': tiles + bounds -> chunk partials
     combine: Callable     # chunk partials -> completed row aggregates
     candidates: Callable  # E: tiles + row aggregates + bounds (+ acc) -> (best_l, best_u)
-    merge: Callable       # F: (lb, ub, best_l, best_u, eps, inf, outward) -> (lb, ub, changed);
-                          # hands best_l / best_u back at the sentinels
+    merge: Callable       # F: (lb, ub, best_l, best_u, eps, inf, outward, carry=, k=, unroll=)
+                          # -> (lb, ub, GO); hands best_l / best_u back at the sentinels
     node_fused: Callable  # #10: tiles + (B, n_pad) planes + active + kept -> (best_l, best_u)
-    merge_batch: Callable  # #9: (lb, ub, best_l, best_u, active, eps, inf, outward)
-    partitioned: Callable  # (part, lb, ub, active, ..., kept) -> (lb, ub, (B,) changed)
+    merge_batch: Callable  # #9: (lb, ub, best_l, best_u, active, eps, inf, outward, flags=)
+    partitioned: Callable  # (part, lb, ub, active, ..., kept, carry=) -> (lb, ub, (B,) changed)
     batched_fused: Callable  # #8: flat stream + tile_inst + (B, n_pad) planes + active + acc
     activities_tiles: Callable   # A: tiles + gathered bounds -> chunk partials
     candidates_tiles: Callable   # B: ... + row aggregates -> (T, R, K) candidates
@@ -455,12 +497,15 @@ def _plain_candidates(*args, chunk_len=None, acc=None):
     return best if acc is None else kern._fold(acc, best)
 
 
-def _plain_merge(lb, ub, best_l, best_u, eps, inf=INF, outward=0.0):
-    """F's plain version, handing every accumulator entry back at the
-    sentinels as the kernel does (the kept planes of D and E need it)."""
-    out = bnd.apply_updates(lb, ub, best_l, best_u, eps, inf, outward)
-    kern._hand_back(best_l, best_u, None, inf)
-    return out
+def _plain_merge(lb, ub, best_l, best_u, eps, inf=INF, outward=0.0, *, carry=None, k=0,
+                unroll=1):
+    """F's plain version (:func:`ref.merge_carry_ref`), handing every
+    accumulator entry back at the sentinels as the kernel does (the kept
+    planes of D and E need it) and folding its flag into the loop carry
+    (a fresh one without ``carry``)."""
+    if carry is None:
+        carry, k, unroll = _carry.armed_state(lb.device), 0, 1
+    return kref.merge_carry_ref(lb, ub, best_l, best_u, eps, inf, outward, carry, k, unroll)
 
 
 def _plain_node_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, int_eps, inf,
@@ -482,9 +527,11 @@ def _plain_batched_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, tile_inst, ac
     ))
 
 
-def _plain_merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward=0.0):
+def _plain_merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward=0.0, *, flags=None):
     """#9's plain version, handing the active rows of the planes back at the
-    sentinels as the kernel does (the kept planes of #8 need it)."""
+    sentinels as the kernel does (the kept planes of #8 need it); its flags
+    are fresh (``flags``, the kernel's kept pair, is not used)."""
+    del flags
     out = bnd.apply_updates_batch(lb, ub, best_l, best_u, eps, inf, outward, active=active)
     kern._hand_back(best_l, best_u, active, inf)
     return out
@@ -492,7 +539,7 @@ def _plain_merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward=0.0):
 
 def _partitioned_kernel_round(
     part: SlabPartition, lb, ub, active, *, node: bool, eps: float, int_eps: float,
-    inf: float, kept: KeptPlanes, outward: float = 0.0,
+    inf: float, kept: KeptPlanes, outward: float = 0.0, carry=None,
 ):
     """One partitioned round on the kernels over ``(B, W)`` planes (``W`` the
     instance's ``n_pad``: no real nonzero reaches past it), IN PLACE:
@@ -503,9 +550,11 @@ def _partitioned_kernel_round(
     ``node=False`` routes copies to their own instance's plane by the run
     maps (a single instance passes ``B == 1``); ``node=True`` runs ONE
     instance's copies against every node's plane.  #12 and #14 scatter
-    into the closure's kept planes ``kept``.  Returns
-    ``(lb, ub, changed)`` with ``(B,)`` bool flags: the window flags OR-ed
-    per plane."""
+    into the closure's kept planes ``kept``, and #15 writes its window flags
+    into a pair kept there.  Returns ``(lb, ub, changed)`` with ``(B,)``
+    bool flags: the window flags OR-ed per plane.  With ``carry`` (``(state,
+    k, unroll)`` of a single instance's loop carry, ``active`` its ``GO``)
+    #15 folds its flags into the carry and ``changed`` is None."""
     bsz = lb.shape[0]
     if part.has_straddle:
         if node:
@@ -514,44 +563,59 @@ def _partitioned_kernel_round(
                 active, lb, ub, part.slab, part.a_max_run_len, inf, tile_slab=part.a_tile_slab,
                 chunk_len=part.a_chunk_len, max_chunk_len=part.a_max_chunk_len,
             )
+            strs = kern.straddle_combine_tiles(*partials, part.a_order, part.a_seg,
+                                               part.agg_slot, active)
         else:
+            # Kept across rounds: the single-instance and batch rounds
+            # allocate nothing per round.
             partials = kern.batched_slab_partials_tiles(
                 part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_inst,
                 part.a_run_slab, active, lb, ub, part.slab, part.a_max_run_len, inf,
+                out=kept.scratch("slab_partials", kern.partial_specs(part.a_val.shape[:2]), lb),
             )
-        strs = kern.straddle_combine_tiles(*partials, part.a_order, part.a_seg, part.agg_slot,
-                                           active if node else None)
+            specs = kern.straddle_specs(tuple(partials[0].shape), tuple(part.agg_slot.shape),
+                                        part.a_seg.shape[0] - 1)
+            strs = kern.straddle_combine_tiles(*partials, part.a_order, part.a_seg,
+                                               part.agg_slot, None,
+                                               out=kept.scratch("straddle", specs, lb))
     else:
         shape = ((bsz,) if node else ()) + tuple(part.chunk_row.shape)
-        z = torch.zeros(shape, dtype=lb.dtype, device=lb.device)
-        zi = torch.zeros(shape, dtype=torch.int32, device=lb.device)
+        z, zi = kept.scratch("no_straddle", ((shape, lb.dtype), (shape, torch.int32)), lb)
         strs = (z, zi, z, zi)
     common = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
               part.run_start, part.run_len)
     hoisted = dict(acc=kept.get(lb), chunk_len=part.chunk_len, max_chunk_len=part.max_chunk_len)
+    if carry is None:
+        n_slabs = -(-lb.shape[1] // part.slab)
+        hoisted["flags"] = kept.flags((bsz, n_slabs), torch.int32, lb)
     if node:
         lb, ub, ch = kern.node_slab_round_tiles(
             *common, part.run_slab, active, lb, ub, part.slab, part.max_run_len, eps, int_eps,
             inf, outward, tile_slab=part.tile_slab, **hoisted,
         )
     else:
+        state, k, unroll = carry if carry is not None else (None, 0, 1)
         lb, ub, ch = kern.batched_slab_round_tiles(
             *common, part.run_inst, part.run_slab, active, lb, ub, part.slab,
             part.max_run_len, eps, int_eps, inf, outward,
-            tiles=(part.tile_inst, part.tile_slab), **hoisted,
+            tiles=(part.tile_inst, part.tile_slab), carry=state, k=k, unroll=unroll, **hoisted,
         )
+        if carry is not None:
+            return lb, ub, None
     # Runs lie in window order: (plane, slab).
     return lb, ub, (ch.reshape(bsz, -1) != 0).any(dim=1)
 
 
 def _partitioned_plain_round(
     part: SlabPartition, lb, ub, active, *, node: bool, eps: float, int_eps: float,
-    inf: float, kept: KeptPlanes, outward: float = 0.0,
+    inf: float, kept: KeptPlanes, outward: float = 0.0, carry=None,
 ):
     """The plain partitioned round, as the reference's ``use_pallas=False``:
     ``ref.partitioned_round_ref`` (per active node under ``node=True``) and
-    the shared merge; returns new ``(B, W)`` planes and ``(B,)`` flags.
-    ``kept`` is not used: the plain round allocates its own planes."""
+    the shared merge; returns new ``(B, W)`` planes and ``(B,)`` flags, or
+    with ``carry`` (as in :func:`_partitioned_kernel_round`) folds the
+    flags into it and returns None for them.  ``kept`` is not used: the
+    plain round allocates its own planes."""
     del kept
     if node:
         best_l, best_u = kref.node_partitioned_round_ref(part, lb, ub, int_eps, inf,
@@ -559,8 +623,12 @@ def _partitioned_plain_round(
     else:
         best_l, best_u = kref.partitioned_round_ref(part, lb, ub, int_eps, inf)
     width = lb.shape[1]
-    return bnd.apply_updates_batch(lb, ub, best_l[:, :width], best_u[:, :width], eps, inf,
-                                   outward, active=active)
+    new_lb, new_ub, ch = bnd.apply_updates_batch(lb, ub, best_l[:, :width], best_u[:, :width],
+                                                 eps, inf, outward, active=active)
+    if carry is None:
+        return new_lb, new_ub, ch
+    _carry.fold(carry[0], ch.any(), carry[1], carry[2])
+    return new_lb, new_ub, None
 
 
 KERNEL_OPS = RoundOps(
@@ -602,7 +670,7 @@ PLAIN_OPS = RoundOps(
 def _segment_round(
     ops: RoundOps, d: DeviceBlockEll, lb, ub, ii_g, lhs_g, rhs_g, row_start, index,
     width: int, *, fused: bool, eps: float, int_eps: float, inf: float, outward: float = 0.0,
-    classes=None,
+    classes=None, carry=None,
 ):
     """One round of the segment (seed) dataflow over ``(width,)`` bounds:
     bounds gathered per slot, kernel C (``fused``) or kernel A, the fused
@@ -611,8 +679,10 @@ def _segment_round(
     of ``index`` (:func:`segment_reduce`), then the merge.  The per-slot
     marks and sides ``ii_g``, ``lhs_g``, ``rhs_g`` and the combine's
     ``row_start`` (and its segment ``classes``) come hoisted or per round
-    from the caller.  Returns
-    ``(lb, ub, changed)``; with kernels the bounds are updated in place."""
+    from the caller.  F folds its flag into the loop carry ``carry``
+    (``(state, k, unroll)``; a fresh one when None).  Returns ``(lb, ub,
+    changed)``, ``changed`` the carry's ``GO``; with kernels the bounds are
+    updated in place."""
     lb_g, ub_g = gather_bounds(lb, ub, d.col)
     if fused:
         lcand, ucand = ops.fused_round_tiles(d.val, lb_g, ub_g, ii_g, lhs_g, rhs_g, int_eps, inf)
@@ -622,7 +692,8 @@ def _segment_round(
         lcand, ucand = ops.candidates_tiles(d.val, lb_g, ub_g, ii_g, *aggs, lhs_g, rhs_g,
                                             int_eps, inf)
     best_l, best_u = segment_reduce(lcand, ucand, index, width, inf)
-    return ops.merge(lb, ub, best_l, best_u, eps, inf, outward)
+    state, k, unroll = carry if carry is not None else (None, 0, 1)
+    return ops.merge(lb, ub, best_l, best_u, eps, inf, outward, carry=state, k=k, unroll=unroll)
 
 
 def _prepared_round(
@@ -637,44 +708,52 @@ def _prepared_round(
     fused: bool,
     outward: float = 0.0,
     kept: KeptPlanes,
+    carry: tuple,
     part: SlabPartition | None = None,
+    gate: bool = False,
 ):
     """One round over hoisted constants; (lb, ub) live in the column-padded
-    ``(n_pad,)`` domain.  Returns ``(lb, ub, changed)``; with
-    :data:`KERNEL_OPS` the bounds are updated in place.  D or E scatters
-    into the closure's kept planes ``kept`` (each chunk stopped at its
-    hoisted length, D's lanes set by the hoisted longest chunk) and F hands
-    them back.  With a slab partition ``part`` the partitioned round runs
-    (it ignores ``fused``: split rows are straddle rows there), #12
-    scattering into ``kept``."""
+    ``(n_pad,)`` domain.  Returns ``(lb, ub, changed)``, ``changed`` the
+    loop carry's ``GO`` (:mod:`core.carry`); with :data:`KERNEL_OPS` the
+    bounds are updated in place.  D or E scatters into the closure's kept
+    planes ``kept`` (each chunk stopped at its hoisted length, D's lanes set
+    by the hoisted longest chunk) and F hands them back and folds its flag
+    into the carry ``carry`` (``(state, k, unroll)``).  With ``gate`` (the
+    kernels only) the kernels before F return at once where the carry's GO
+    is false.  With a slab partition ``part`` the partitioned
+    round runs (it ignores ``fused``: split rows are straddle rows there),
+    the carry's GO as the instance's active mask, #12 scattering into
+    ``kept`` and #15 folding its flags into the carry."""
     d = prep.d
+    state, k, unroll = carry
+    go = _carry.go_mask(state)
     if part is not None:
-        one = torch.ones((1,), dtype=torch.bool, device=lb.device)
-        new_lb, new_ub, ch = ops.partitioned(
-            part, lb[None], ub[None], one, node=False, eps=eps, int_eps=int_eps, inf=inf,
-            outward=outward, kept=kept,
+        new_lb, new_ub, _ = ops.partitioned(
+            part, lb[None], ub[None], go, node=False, eps=eps, int_eps=int_eps, inf=inf,
+            outward=outward, kept=kept, carry=carry,
         )
-        return new_lb[0], new_ub[0], ch[0]
+        return new_lb[0], new_ub[0], _carry.go_flag(state)
     acc = kept.get(lb)
+    gate = dict(go=go) if gate else {}
     if fused:
         best_l, best_u = ops.fused(
             d.val, d.col, prep.ii_g, prep.lhs_g, prep.rhs_g, lb, ub, prep.n_pad, int_eps, inf,
-            acc=acc, chunk_len=prep.chunk_len, max_chunk_len=prep.max_chunk_len,
+            acc=acc, chunk_len=prep.chunk_len, max_chunk_len=prep.max_chunk_len, **gate,
         )
     else:
         # Long rows: chunk partials -> each row's partials summed left to
         # right (one fixed order on every device, so a node's round equals
         # its single-instance round bitwise) -> candidates + column reduction.
         partials = ops.activities(d.val, d.col, lb, ub, prep.n_pad, inf,
-                                  chunk_len=prep.chunk_len)
+                                  chunk_len=prep.chunk_len, **gate)
         rmf, rmc, rxf, rxc = ops.combine(*partials, d.chunk_row, prep.row_start,
-                                         classes=prep.seg_classes)
+                                         classes=prep.seg_classes, **gate)
         best_l, best_u = ops.candidates(
             d.val, d.col, prep.ii_g, rmf, rmc, rxf, rxc,
             prep.lhs_g, prep.rhs_g, lb, ub, prep.n_pad, int_eps, inf, chunk_len=prep.chunk_len,
-            acc=acc,
+            acc=acc, **gate,
         )
-    return ops.merge(lb, ub, best_l, best_u, eps, inf, outward)
+    return ops.merge(lb, ub, best_l, best_u, eps, inf, outward, carry=state, k=k, unroll=unroll)
 
 
 # A mirror of the reference's escape hatch, kept for parity only (callers
@@ -719,31 +798,48 @@ def round_fn_for(
     """A ``(lb, ub) -> (lb, ub, changed)`` round closure over a prepared
     instance (bounds in the ``(n_pad,)`` domain).  ``slab`` overrides the
     partitioned engine's column-slab width (default
-    :func:`default_slab_width`; ignored by the other engines)."""
+    :func:`default_slab_width`; ignored by the other engines).  With the
+    kernels, :data:`GATE_ROUNDS` (read here) gates the fused round's kernels
+    on the carry.
+
+    The closure owns a loop carry (its ``carry``, :class:`core.carry.
+    LoopCarry`) that the round's last kernel updates on the device.  A
+    driver arms it for a fixed point (:func:`core.propagator.fixed_point`,
+    :func:`core.propagator.device_fixed_point`); then ``changed`` is a view
+    of the carry's GO, which the next round overwrites.  A call outside a
+    driver is a fixed point of its own: a fresh carry, and ``changed``
+    says whether the round tightened a bound."""
     scatter = _resolve_scatter(scatter, prep)
     do_fuse = prep.fits_one_chunk if fused is None else bool(fused)
     dt = prep.d.val.dtype
     eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
     ops = KERNEL_OPS if use_kernels else PLAIN_OPS
+    carry = LoopCarry()
     if scatter == "segment":
         def round_fn(lb, ub):
             return _segment_round(
                 ops, prep.d, lb, ub, prep.ii_g, prep.lhs_g, prep.rhs_g, prep.row_start,
                 prep.segment_index(), prep.n_pad, fused=do_fuse, eps=eps,
                 int_eps=cfg.int_eps, inf=cfg.inf, outward=outward, classes=prep.seg_classes,
+                carry=carry.step(lb.device),
             )
 
+        round_fn.carry = carry
         return round_fn
     part = prep.slab_partition(slab) if scatter == "partitioned" else None
     kept = KeptPlanes(cfg.inf)
+    gate = use_kernels and GATE_ROUNDS
 
     def round_fn(lb, ub):
         return _prepared_round(
             prep, lb, ub, ops=ops, eps=eps, int_eps=cfg.int_eps, inf=cfg.inf,
-            fused=do_fuse, outward=outward, part=part, kept=kept,
+            fused=do_fuse, outward=outward, part=part, kept=kept, carry=carry.step(lb.device),
+            gate=gate,
         )
 
-    return kept.guard(round_fn)
+    run = kept.guard(round_fn)
+    run.carry = carry
+    return run
 
 
 def block_ell_round(
@@ -840,11 +936,16 @@ def propagate_block_ell(
 
     ``device`` defaults to CUDA and raises where there is none; pass
     ``device="cpu"`` to run on the CPU.  ``driver`` takes the reference's
-    names, but in this slice ``"host_loop"`` is an alias of
-    ``"device_loop"``: both read the round's ``changed`` flag on the host
-    once per round, and ``on_sync`` is called for each such read.  Float64 only: ``dtype``, ``policy``, ``stop_progress``
-    and ``telemetry`` outside this slice raise ``NotImplementedError``."""
-    if driver not in DRIVERS:
+    two: ``"host_loop"`` reads the round's flag on the host once per round;
+    ``"device_loop"`` (:func:`core.propagator.device_fixed_point`, one
+    round per check) enqueues rounds whose last kernel keeps the loop state
+    in the round closure's carry on the device, and reads it once per
+    ``core.propagator.DEVICE_LOOP_GROUP`` rounds.  Both give the same
+    rounds, flags and bounds, bit for bit; ``on_sync`` is called once per
+    host read.  ``"unrolled"`` raises ``ValueError``, as the reference's
+    does.  Float64 only: ``dtype``, ``policy``, ``stop_progress`` and
+    ``telemetry`` outside this slice raise ``NotImplementedError``."""
+    if driver not in KERNEL_DRIVERS:
         raise ValueError(f"unknown driver: {driver!r}")
     if policy is not None or stop_progress is not None:
         not_ported("policy= / stop_progress=", "item 5 (precision tiers)")
@@ -854,7 +955,11 @@ def propagate_block_ell(
     do_fuse = prep.fits_one_chunk if fused == "auto" else bool(fused == "yes" or fused is True)
     round_fn = round_fn_for(prep, cfg, use_kernels, scatter, do_fuse, slab)
     lb, ub = _initial_padded_bounds(prep, lb0, ub0)
-    lb, ub, rounds, changed, prog = fixed_point(round_fn, lb, ub, cfg.max_rounds, on_sync)
+    if driver == "host_loop":
+        out = fixed_point(round_fn, lb, ub, cfg.max_rounds, on_sync)
+    else:
+        out = device_fixed_point(round_fn, lb, ub, cfg.max_rounds, on_sync=on_sync)
+    lb, ub, rounds, changed, prog = out
     return _result(lb[: prep.n], ub[: prep.n], rounds, changed, prog, cfg.feas_eps)
 
 
@@ -991,7 +1096,8 @@ def batched_reference_round(
     combine and E on the flat stream with global columns ``col_g`` over the
     ``(B * n_pad,)`` view of the planes; the candidates of inactive
     instances are then forced to the sentinel.  Then the batched merge #9,
-    which leaves inactive rows as they are.  The combine's segments
+    which leaves inactive rows as they are and writes its flags into a
+    pair kept in ``kept`` (valid until the next round).  The combine's segments
     ``(chunk_row, row_start)`` are the global rows (``row_start`` from the
     ascending ``chunk_row``), or any finer split into runs of adjacent
     chunks that keeps each real row whole (the service's), split into short
@@ -1015,7 +1121,8 @@ def batched_reference_round(
         on = active[:, None]
         best_l = torch.where(on, best_l.view(bsz, n_pad), -inf)
         best_u = torch.where(on, best_u.view(bsz, n_pad), inf)
-    return ops.merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward)
+    return ops.merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward,
+                           flags=kept.flags(active.shape, torch.bool, lb))
 
 
 def _batched_prepared_round(
@@ -1131,13 +1238,6 @@ def _batch_initial_bounds(prep: PreparedBatch, lb0, ub0):
     return tuple(out)
 
 
-def _refuse_batch_options(stop_progress, patience, telemetry, policy=None) -> None:
-    if policy is not None or stop_progress is not None or patience != 1:
-        not_ported("policy= / stop_progress= / patience=", "item 5 (precision tiers)")
-    if telemetry is not None:
-        not_ported("telemetry=", "item 6 (observability)")
-
-
 def propagate_batch_prepared(
     prep: PreparedBatch,
     cfg: PropagatorConfig = DEFAULT_CONFIG,
@@ -1161,9 +1261,9 @@ def propagate_batch_prepared(
     ``lb0``/``ub0`` warm-start the bucket from ``(B, n_pad)`` planes through
     the same prepared tiles.  ``stop_progress=``/``patience != 1`` (item 5)
     and ``telemetry=`` (item 6) raise ``NotImplementedError``."""
-    if driver not in DRIVERS:
+    if driver not in KERNEL_DRIVERS:
         raise ValueError(f"unknown driver: {driver!r}")
-    _refuse_batch_options(stop_progress, patience, telemetry)
+    _refuse_options(stop_progress, patience, telemetry)
     run = _batch_runner(prep, cfg, use_kernels, slab)
     lb, ub = _batch_initial_bounds(prep, lb0, ub0)
     return _unpack_batch_results(prep, *run(lb, ub, on_sync))
@@ -1250,9 +1350,9 @@ def propagate_batch_block_ell(
     ``device`` defaults to CUDA and raises where there is none.  ``policy=``,
     ``stop_progress=``, ``patience != 1`` (item 5) and ``telemetry=`` (item
     6) raise ``NotImplementedError``."""
-    if driver not in DRIVERS:
+    if driver not in KERNEL_DRIVERS:
         raise ValueError(f"unknown driver: {driver!r}")
-    _refuse_batch_options(stop_progress, patience, telemetry, policy)
+    _refuse_options(stop_progress, patience, telemetry, policy)
     problems = list(problems)
     if bounds is not None:
         bounds = list(bounds)
@@ -1350,7 +1450,8 @@ def _node_round(
             d.val, d.col, prep.ii_g, *aggs, prep.lhs_g, prep.rhs_g, lb, ub, active,
             prep.n_pad, int_eps, inf, chunk_len=prep.chunk_len,
         )
-    return ops.merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward)
+    return ops.merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward,
+                           flags=kept.flags(active.shape, torch.bool, lb))
 
 
 def node_round_fn_for(

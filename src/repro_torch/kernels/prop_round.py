@@ -7,8 +7,11 @@ JAX package (``src/repro/kernels/prop_round.py``) minus ``interpret`` and
 ``block``, plus keyword arguments for what the engines hoist (chunk
 lengths, the longest chunk, instance chunk ranges, the copy tiles' windows)
 and, for D, E, #8, #10, #12 and #14, the accumulator planes they scatter
-into (``acc``, :func:`accumulator_planes`); the
-long-row and straddle combines replace XLA segment sums.  On
+into (``acc``, :func:`accumulator_planes`), for F (and #12 with #15 for
+one instance) the fixed point's loop carry (``carry``, ``core/carry.py``),
+for #9 and #15 a kept pair of flag buffers (``flags``,
+:class:`FlagPair`), and for D, A', the combine and E the carry's gate
+(``go``); the long-row and straddle combines replace XLA segment sums.  On
 a CPU tensor it runs the kernel's plain-PyTorch version (``ref.py``); on a
 CUDA tensor it launches the hand-written Hopper kernel of
 ``csrc/prop_round.cu`` or ``csrc/slab_round.cu`` on the current stream, or
@@ -33,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from ..core import bounds as bnd
+from ..core import carry as _carry
 from ..core.types import INF
 from . import _build
 from . import ref
@@ -40,6 +44,13 @@ from . import ref
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
     """True for CUDA operands, False for CPU ones; anything else raises."""
+    first = tensors[0]
+    if first.is_cuda:
+        idx = first.get_device()
+        if all(t.is_cuda and t.get_device() == idx for t in tensors):
+            return True
+    elif all(t.device.type == "cpu" for t in tensors):
+        return False
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"operands lie on several devices: {sorted(map(str, devices))}")
@@ -69,7 +80,14 @@ def _check_tiles(val, col, lb, ub, n_pad, is_int_g=None):
     return t * r, k
 
 
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def _stream() -> int:
+    """The current CUDA stream's handle, the one a kernel launches on (read
+    without building a ``torch.cuda.Stream`` where PyTorch allows)."""
+    if _raw_stream is not None:
+        return _raw_stream(torch._C._cuda_getDevice())
     return torch.cuda.current_stream().cuda_stream
 
 
@@ -99,16 +117,62 @@ def _fold(acc, best):
 
 
 def _hand_back(best_l, best_u, active, inf: float) -> None:
-    """The plain form of the merges' hand-back: the accumulator entries they
-    read set back to the sentinels, in place -- every entry (F, ``active``
-    None) or the active rows (#9, #15)."""
-    if active is None:
-        best_l.fill_(-inf)
-        best_u.fill_(inf)
-        return
+    """The plain form of the batched merges' hand-back: the active rows of
+    the accumulator planes set back to the sentinels, in place (#9, #15;
+    F's is :func:`ref.merge_carry_ref`)."""
     rows = active[:, None]
     best_l.masked_fill_(rows, -inf)
     best_u.masked_fill_(rows, inf)
+
+
+def _go(go):
+    """The gate of a round's kernel (D, A', the combine, E): the pointer to
+    the loop carry's ``GO`` as a ``(1,)`` bool view
+    (:func:`~repro_torch.core.carry.go_mask`), or null for no gate."""
+    if go is None:
+        return None
+    _expect("go", go, torch.bool, (1,))
+    return _p(go)
+
+
+class FlagPair:
+    """Two flag buffers that a merge kept across rounds (#9, #15) writes in
+    turn: each launch writes one and zeroes the other, the previous
+    launch's, which its caller has read by then in stream order.  So no
+    launch is preceded by a fill.  A launch's flags stay valid until the
+    next launch with the pair.  Both start at 0."""
+
+    def __init__(self, shape, dtype: torch.dtype, device):
+        self.bufs = (torch.zeros(shape, dtype=dtype, device=device),
+                     torch.zeros(shape, dtype=dtype, device=device))
+        self.turn = 0
+
+    def take(self):
+        """``(out, clear)``: the buffer this launch writes and the one it
+        zeroes."""
+        out, clear = self.bufs[self.turn], self.bufs[1 - self.turn]
+        self.turn ^= 1
+        return out, clear
+
+
+def _flag_buffers(flags: FlagPair | None, shape, dtype, device):
+    """``(out, clear)`` of a merge's launch: from the kept pair, or a fresh
+    zeroed buffer and nothing to clear."""
+    if flags is None:
+        return torch.zeros(shape, dtype=dtype, device=device), None
+    out, clear = flags.take()
+    _expect("flags", out, dtype, shape)
+    return out, clear
+
+
+def _plain_flags(flags: FlagPair | None, result):
+    """The CPU branch's flags, through the kept pair as the kernel's are."""
+    if flags is None:
+        return result
+    out, clear = flags.take()
+    out.copy_(result)
+    clear.zero_()
+    return out
 
 
 def _acc_vectors(acc, lb, inf: float):
@@ -129,7 +193,7 @@ def _acc_vectors(acc, lb, inf: float):
 
 def fused_scatter_round_tiles(
     val, col, is_int_g, lhs_g, rhs_g, lb, ub, n_pad: int, int_eps: float,
-    inf: float = INF, *, acc=None, chunk_len=None, max_chunk_len: int | None = None,
+    inf: float = INF, *, acc=None, chunk_len=None, max_chunk_len: int | None = None, go=None,
 ):
     """Fully fused round: (T, R, K) tiles + (n_pad,) bounds -> (n_pad,)
     ``best_l`` / ``best_u``, the column max/min of the lower/upper bound
@@ -141,7 +205,9 @@ def fused_scatter_round_tiles(
     chunk's last nonzero) is where each chunk stops and ``max_chunk_len``
     (its largest entry) sets the lanes and strides a chunk gets; the
     engines hoist both at prepare time, and they are computed from ``val``
-    when omitted.
+    when omitted.  ``go`` (the loop carry's ``GO``, :func:`_go`) gates the
+    launch: where it is false the kernel returns at once and scatters
+    nothing.  The plain version ignores it (F's merges nothing then).
 
     Replaces ``fused_scatter_round_tiles`` / ``_fused_scatter_kernel``
     (src/repro/kernels/prop_round.py:580 / :556).  Bound on the H100: the
@@ -174,7 +240,8 @@ def fused_scatter_round_tiles(
     best_l, best_u = _acc_vectors(acc, lb, inf)
     err = _build.lib().fused_scatter_round(
         _p(val), _p(col), _p(is_int_g), _p(clen), _p(lhs_g), _p(rhs_g), _p(lb), _p(ub),
-        _p(best_l), _p(best_u), n_chunks, k, int(max_chunk_len), int_eps, inf, _stream(),
+        _p(best_l), _p(best_u), _go(go), n_chunks, k, int(max_chunk_len), int_eps, inf,
+        _stream(),
     )
     fused_scatter_round_tiles.launches += 1
     _build.check(err, "fused_scatter_round")
@@ -213,13 +280,15 @@ def _paired(lb, ub):
     return torch.stack((lb, ub), dim=-1)
 
 
-def activities_gather_tiles(val, col, lb, ub, n_pad: int, inf: float = INF, chunk_len=None):
+def activities_gather_tiles(val, col, lb, ub, n_pad: int, inf: float = INF, chunk_len=None,
+                            *, go=None):
     """Per-chunk activity partials with the bound gather inside the kernel:
     (T, R, K) tiles + (n_pad,) bounds -> ``(mf, mc, xf, xc)``, each (T, R):
     finite min/max sums (float64) and infinity counts (int32).
     ``chunk_len`` ((T, R) int32, one past each chunk's last nonzero) is
     where each chunk's walk stops; the engines hoist it at prepare time,
-    and it is computed from ``val`` when omitted.
+    and it is computed from ``val`` when omitted.  ``go`` gates the launch
+    as D's does (the partials are then left unwritten).
 
     Replaces ``activities_gather_tiles`` / ``_activities_gather_kernel``
     (src/repro/kernels/prop_round.py:269 / :252).  Bound on the H100: the
@@ -243,8 +312,8 @@ def activities_gather_tiles(val, col, lb, ub, n_pad: int, inf: float = INF, chun
     xc = torch.empty(shape, dtype=torch.int32, device=dev)
     lub = _paired(lb, ub)
     err = _build.lib().activities_gather(
-        _p(val), _p(col), _p(clen), _p(lub), _p(mf), _p(mc), _p(xf), _p(xc), n_chunks, k, inf,
-        _stream(),
+        _p(val), _p(col), _p(clen), _p(lub), _p(mf), _p(mc), _p(xf), _p(xc), _go(go), n_chunks,
+        k, inf, _stream(),
     )
     activities_gather_tiles.launches += 1
     _build.check(err, "activities_gather")
@@ -269,13 +338,14 @@ def candidates_scatter_tiles(
     val, col, is_int_g,
     row_min_fin, row_min_cnt, row_max_fin, row_max_cnt,
     lhs_g, rhs_g, lb, ub, n_pad: int, int_eps: float, inf: float = INF, chunk_len=None,
-    *, acc=None,
+    *, acc=None, go=None,
 ):
     """Candidates + column reduction: (T, R, K) tiles + (T, R) completed row
     aggregates + (n_pad,) bounds -> (n_pad,) ``best_l`` / ``best_u``
     (``chunk_len`` as in :func:`activities_gather_tiles`), scattered into
     the kept accumulator planes ``acc`` as in :func:`fused_scatter_round_tiles`,
-    or into a fresh pair when none is given.
+    or into a fresh pair when none is given.  ``go`` gates the launch as
+    D's does.
 
     Replaces ``candidates_scatter_tiles`` / ``_candidates_scatter_kernel``
     (src/repro/kernels/prop_round.py:651 / :628).  Bound on the H100: the
@@ -300,7 +370,7 @@ def candidates_scatter_tiles(
     err = _build.lib().candidates_scatter(
         _p(val), _p(col), _p(is_int_g), _p(clen), _p(row_min_fin), _p(row_min_cnt),
         _p(row_max_fin), _p(row_max_cnt), _p(lhs_g), _p(rhs_g), _p(lub), _p(best_l),
-        _p(best_u), n_chunks, k, int_eps, inf, _stream(),
+        _p(best_u), _go(go), n_chunks, k, int_eps, inf, _stream(),
     )
     candidates_scatter_tiles.launches += 1
     _build.check(err, "candidates_scatter")
@@ -457,39 +527,56 @@ fused_round_tiles.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def apply_updates_tiles(lb, ub, best_l, best_u, eps: float, inf: float = INF, outward: float = 0.0):
-    """Bound merge with ``bounds.apply_updates`` semantics, IN PLACE:
-    ``lb``/``ub`` (n_pad,) are overwritten and returned with a 0-d bool
-    ``changed`` tensor on their device.  Every entry of ``best_l``/``best_u``
-    is set back to the sentinels once read (the planes of D and E are kept
-    for the whole fixed point): a caller that reads them afterwards clones
-    them first.
+def apply_updates_tiles(lb, ub, best_l, best_u, eps: float, inf: float = INF, outward: float = 0.0,
+                        *, carry=None, k: int = 0, unroll: int = 1):
+    """Bound merge with ``bounds.apply_updates`` semantics, IN PLACE, folded
+    into a fixed point's loop carry: ``lb``/``ub`` (n_pad,) are overwritten
+    and returned with the carry's ``GO`` as a 0-d bool view
+    (:func:`~repro_torch.core.carry.go_flag`).  ``carry`` is the round
+    closure's int32 carry (:mod:`repro_torch.core.carry`), ``k`` the round's
+    index within its check group of ``unroll`` rounds; where the carry's
+    ``GO`` is already false (a round enqueued after convergence) nothing is
+    merged or counted.  Without a carry the wrapper arms a fresh one, so
+    the returned flag says whether this round tightened a bound.  Every
+    entry of ``best_l``/``best_u`` is set back to the sentinels once read
+    (the planes of D and E are kept for the whole fixed point): a caller
+    that reads them afterwards clones them first.
 
     Replaces ``apply_updates_tiles`` / ``_apply_updates_kernel``
     (src/repro/kernels/prop_round.py:721 / :710), whose bound buffers are
-    donated.  Bound on the H100: 32 B of reads per column (bounds and
-    candidates), 8 B per bound that tightens and 8 B per accumulator entry
-    that held a candidate (set back to the sentinel) -- under a microsecond
-    at n_pad = 60,032, so its time is launch latency.  Design: one thread
-    per column; every thread that takes a tightening stores ``true`` to the
-    flag, which the wrapper zeroes first."""
-    if not _on_cuda(lb, ub, best_l, best_u):
-        new_lb, new_ub, changed = bnd.apply_updates(lb, ub, best_l, best_u, eps, inf, outward)
-        _hand_back(best_l, best_u, None, inf)
+    donated; the loop state is the reference's ``while_loop`` carry
+    (src/repro/core/propagator.py:272).  Bound on the H100: 32 B of reads
+    per column (bounds and candidates), 8 B per bound that tightens and 8 B
+    per accumulator entry that held a candidate (set back to the sentinel)
+    -- under a microsecond at n_pad = 60,032, so its time is launch
+    latency.  Design: the merge body of #9 and #15 (``round_common.cuh``
+    ``merge_item``) on a grid over one plane, no mask read, four columns a
+    thread, loaded before any is merged; a warp that tightens stores the
+    carry's flag once, and the launch's last block (an atomic ticket)
+    folds the flag into the carry and clears it: no fill before the launch,
+    one launch per round."""
+    own = carry is None
+    if own:
+        carry, k, unroll = _carry.armed_state(lb.device), 0, 1
+    if not _on_cuda(lb, ub, best_l, best_u, carry):
+        new_lb, new_ub, go = ref.merge_carry_ref(lb, ub, best_l, best_u, eps, inf, outward,
+                                                 carry, k, unroll)
         lb.copy_(new_lb)
         ub.copy_(new_ub)
-        return lb, ub, changed
+        return lb, ub, go
     (n,) = lb.shape
     for name, t in (("lb", lb), ("ub", ub), ("best_l", best_l), ("best_u", best_u)):
-        _expect(name, t, torch.float64, (n,))
-    changed = torch.zeros((), dtype=torch.bool, device=lb.device)
+        if t.dtype is not torch.float64 or t.shape != lb.shape or not t.is_contiguous():
+            _expect(name, t, torch.float64, (n,))
+    if carry.dtype is not torch.int32 or carry.shape != (_carry.FIELDS,):
+        _expect("carry", carry, torch.int32, (_carry.FIELDS,))
     err = _build.lib().apply_updates(
-        _p(lb), _p(ub), _p(best_l), _p(best_u), _p(changed), n, eps, inf, outward,
+        _p(lb), _p(ub), _p(best_l), _p(best_u), _p(carry), n, k, unroll, eps, inf, outward,
         _stream(),
     )
     apply_updates_tiles.launches += 1
     _build.check(err, "apply_updates")
-    return lb, ub, changed
+    return lb, ub, _carry.go_flag(carry)
 
 
 apply_updates_tiles.launches = 0
@@ -517,14 +604,15 @@ def _check_partials(mf, mc, xf, xc, shape) -> None:
         _expect(name, t, dt, shape)
 
 
-def combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start, classes=None):
+def combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start, classes=None, *,
+                                 go=None):
     """Kernel A' partials ``(T, R)`` -> each chunk's completed row aggregates
     ``(T, R)``: every row's partials summed left to right over its adjacent
     chunks (``row_start`` ``(m + 2,)`` int64: each row's first chunk, the
     padding row ``m`` included).  ``classes`` is the segments' split into
     short and long (:func:`ref.segment_classes`), hoisted by the engines;
     computed here when omitted.  It decides which segments a warp sums, not
-    the sums.
+    the sums.  ``go`` gates the launch as D's does.
 
     Replaces the XLA ``segment_sum`` of the reference's
     ``_combine_chunk_partials`` (src/repro/kernels/ops.py:821), not a Pallas
@@ -550,7 +638,7 @@ def combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start, classes=N
         return omf, omc, oxf, oxc
     err = _build.lib().combine_chunk_partials(
         _p(mf), _p(mc), _p(xf), _p(xc), _p(row_start), _p(short), _p(long), _p(omf), _p(omc),
-        _p(oxf), _p(oxc), short.numel(), long.numel(), _stream(),
+        _p(oxf), _p(oxc), _go(go), short.numel(), long.numel(), _stream(),
     )
     combine_chunk_partials_tiles.launches += 1
     _build.check(err, "combine_chunk_partials")
@@ -884,14 +972,18 @@ def batched_occupancy_round_tiles(
 # ---------------------------------------------------------------------------
 
 def apply_updates_batch_tiles(
-    lb, ub, best_l, best_u, active, eps: float, inf: float = INF, outward: float = 0.0
+    lb, ub, best_l, best_u, active, eps: float, inf: float = INF, outward: float = 0.0,
+    *, flags: FlagPair | None = None,
 ):
     """Batched merge with ``bounds.apply_updates_batch`` semantics, IN
     PLACE: ``(B, n_pad)`` ``lb``/``ub`` are overwritten and returned with a
     ``(B,)`` bool ``changed``.  Inactive rows are neither read nor written
     and report unchanged.  The active rows of ``best_l``/``best_u`` are set
     back to the sentinels once read (the planes of #8 and #10 are kept for
-    the whole fixed point).
+    the whole fixed point).  ``flags`` is the ``(B,)`` bool pair that the
+    round closure keeps (:class:`FlagPair`): the flags are written into one
+    buffer, which is returned, and the other is zeroed, so no fill precedes
+    the launch; without it the wrapper allocates zeroed flags.
 
     Replaces ``apply_updates_batch_tiles`` / ``_apply_updates_batch_kernel``
     (src/repro/kernels/prop_round.py:1666 / :1652), whose bound buffers are
@@ -904,7 +996,7 @@ def apply_updates_batch_tiles(
     most the resident blocks, so no block is spent on an inactive row; a
     thread loads its four columns' bounds and candidates before it merges
     any; a warp that takes a tightening stores ``true`` to its row's flag
-    once, which the wrapper zeroes first.  The body is the one #15 runs
+    once, into flags zeroed by the previous launch.  The body is the one #15 runs
     (``round_common.cuh``), templated on where the flag goes; for at most
     16 rows (``kMergeGridRows``) it runs on a (column block, row) grid
     instead, whose few blocks of inactive rows cost less than the walk's
@@ -916,14 +1008,14 @@ def apply_updates_batch_tiles(
         _hand_back(best_l, best_u, active, inf)
         lb.copy_(new_lb)
         ub.copy_(new_ub)
-        return lb, ub, changed
+        return lb, ub, _plain_flags(flags, changed)
     bsz, n_pad = lb.shape
     _check_planes(bsz, n_pad, lb=lb, ub=ub, best_l=best_l, best_u=best_u)
     _expect("active", active, torch.bool, (bsz,))
-    changed = torch.zeros((bsz,), dtype=torch.bool, device=lb.device)
+    changed, clear = _flag_buffers(flags, (bsz,), torch.bool, lb.device)
     err = _build.lib().apply_updates_batch(
-        _p(lb), _p(ub), _p(best_l), _p(best_u), _p(active), _p(changed), bsz, n_pad,
-        eps, inf, outward, _stream(),
+        _p(lb), _p(ub), _p(best_l), _p(best_u), _p(active), _p(changed),
+        None if clear is None else _p(clear), bsz, n_pad, eps, inf, outward, _stream(),
     )
     apply_updates_batch_tiles.launches += 1
     _build.check(err, "apply_updates_batch")
@@ -1007,9 +1099,20 @@ def _n_slabs(width: int, slab: int) -> int:
     return -(-width // slab)
 
 
+def _outputs(out, specs, dev):
+    """A wrapper's output tensors: ``out`` (kept by the caller across
+    rounds, each checked against its ``(shape, dtype)`` of ``specs``), or
+    fresh ones."""
+    if out is None:
+        return tuple(torch.empty(shape, dtype=dt, device=dev) for shape, dt in specs)
+    for i, (t, (shape, dt)) in enumerate(zip(out, specs)):
+        _expect(f"out[{i}]", t, dt, shape)
+    return tuple(out)
+
+
 def batched_slab_partials_tiles(
     val, col_s, run_start, run_len, run_inst, run_slab, active, lb, ub, slab: int,
-    max_run_len: int, inf: float = INF,
+    max_run_len: int, inf: float = INF, *, out=None,
 ):
     """Per-copy activity partials of a slab-partitioned sub-stream:
     ``(Ta, R, K)`` copies with slab-local columns + the run maps (one run
@@ -1018,7 +1121,8 @@ def batched_slab_partials_tiles(
     (float64 sums, int32 counts); the copies of inactive instances get
     zeros.  ``W`` is ``n_pad_part`` or the instance's ``n_pad``; a copy's
     window starts at ``inst * W + slab_id * slab``.  ``max_run_len`` sizes
-    the TPU's grid and is not used here.
+    the TPU's grid and is not used here.  ``out`` (the four partials, kept
+    by the round closure) is written instead of fresh tensors.
 
     Replaces ``batched_slab_partials_tiles`` /
     ``_batched_slab_partials_kernel`` (src/repro/kernels/prop_round.py:1129
@@ -1033,11 +1137,7 @@ def batched_slab_partials_tiles(
     t, r, k, _, width = _check_copies(val, col_s, lb, ub, active)
     n_runs = _check_runs(t, run_start=run_start, run_len=run_len, run_inst=run_inst,
                          run_slab=run_slab)
-    dev = val.device
-    mf = torch.empty((t, r), dtype=torch.float64, device=dev)
-    xf = torch.empty((t, r), dtype=torch.float64, device=dev)
-    mc = torch.empty((t, r), dtype=torch.int32, device=dev)
-    xc = torch.empty((t, r), dtype=torch.int32, device=dev)
+    mf, mc, xf, xc = _outputs(out, partial_specs((t, r)), val.device)
     if t == 0:
         return mf, mc, xf, xc
     err = _build.lib().slab_partials(
@@ -1054,23 +1154,33 @@ batched_slab_partials_tiles.launches = 0
 
 
 def _slab_merge(lb, ub, best_l, best_u, active, slab: int, eps: float, inf: float,
-                outward: float):
+                outward: float, flags: FlagPair | None = None, carry=None, k: int = 0,
+                unroll: int = 1):
     """Launch kernel #15 on ``(B, W)`` planes, in place; returns the ``(B,
-    n_slabs)`` int32 window flags.  Counted as a launch of
-    :func:`apply_updates_slab_tiles`, whichever wrapper calls it.  The slab
-    must be a multiple of 32: a warp flags the one window its 32 columns
-    lie in (partition slabs are multiples of LANE, 128)."""
+    n_slabs)`` int32 window flags (from the pair ``flags`` where given), or
+    with a loop ``carry`` (one instance, ``active`` its ``GO``) folds the
+    flag into it, as F does, and returns the carry's ``GO``.  Counted as a
+    launch of :func:`apply_updates_slab_tiles`, whichever wrapper calls it.
+    The slab must be a multiple of 32: a warp flags the one window its 32
+    columns lie in (partition slabs are multiples of LANE, 128)."""
     if slab <= 0 or slab % ref.WARP:
         raise ValueError(f"slab={slab}: the window merge takes multiples of {ref.WARP}")
     bsz, width = lb.shape
-    flags = torch.zeros((bsz, _n_slabs(width, slab)), dtype=torch.int32, device=lb.device)
+    if carry is not None:
+        if bsz != 1:
+            raise ValueError(f"a loop carry folds one instance's flags, got {bsz} planes")
+        _expect("carry", carry, torch.int32, (_carry.FIELDS,))
+        out = clear = None
+    else:
+        out, clear = _flag_buffers(flags, (bsz, _n_slabs(width, slab)), torch.int32, lb.device)
+    ptr = lambda t: None if t is None else _p(t)
     err = _build.lib().slab_merge(
-        _p(lb), _p(ub), _p(best_l), _p(best_u), _p(active), _p(flags), bsz, width, slab, eps,
-        inf, outward, _stream(),
+        _p(lb), _p(ub), _p(best_l), _p(best_u), _p(active), ptr(out), ptr(clear), ptr(carry),
+        bsz, width, slab, k, unroll, eps, inf, outward, _stream(),
     )
     apply_updates_slab_tiles.launches += 1
     _build.check(err, "slab_merge")
-    return flags
+    return _carry.go_flag(carry) if carry is not None else out
 
 
 def _check_round(val, col_s, is_int_g, row_done, lhs_g, rhs_g, strs, str_lead, lb, ub, active):
@@ -1090,6 +1200,7 @@ def batched_slab_round_tiles(
     lhs_g, rhs_g, run_start, run_len, run_inst, run_slab, active, lb, ub, slab: int,
     max_run_len: int, eps: float, int_eps: float, inf: float = INF, outward: float = 0.0,
     *, acc, tiles, chunk_len=None, max_chunk_len: int | None = None,
+    flags: FlagPair | None = None, carry=None, k: int = 0, unroll: int = 1,
 ):
     """The slab round over a partitioned stream, IN PLACE: ``(T'', R, K)``
     copies + ``(T'', R)`` ``row_done`` and straddle aggregates ``str_*``
@@ -1103,6 +1214,12 @@ def batched_slab_round_tiles(
     tiles' ``(tile_inst, tile_slab)``, ``chunk_len`` the copy stream's
     chunk lengths and ``max_chunk_len`` the longest, all hoisted by the
     partition (the last two computed from ``val``, and K, when omitted).
+    ``flags`` is the window flags' pair kept by the round closure
+    (:class:`FlagPair`, ``(B, n_slabs)`` int32).  With a loop ``carry``
+    (``B == 1``: a single instance's fixed point, ``active`` its ``GO``,
+    ``k``/``unroll`` as for F) the window flags are folded into the carry
+    instead, as F folds its flag, and the third output is the carry's
+    ``GO``.
 
     Replaces ``batched_slab_round_tiles`` / ``_batched_slab_round_kernel``
     (src/repro/kernels/prop_round.py:1258 / :1195), whose merge at each
@@ -1128,14 +1245,17 @@ def batched_slab_round_tiles(
             val, col_s, is_int_g, row_done, *strs, lhs_g, rhs_g, run_start, run_inst, run_slab,
             active, lb, ub, slab, int_eps, inf,
         ))
-        new_lb, new_ub, flags = ref.apply_updates_slab_ref(lb, ub, best_l, best_u, active, slab,
-                                                           eps, inf, outward)
+        new_lb, new_ub, win = ref.apply_updates_slab_ref(lb, ub, best_l, best_u, active, slab,
+                                                         eps, inf, outward)
         _hand_back(best_l, best_u, active, inf)
         lb.copy_(new_lb)
         ub.copy_(new_ub)
-        return lb, ub, flags.reshape(-1)
-    t, r, k, bsz, width = _check_round(val, col_s, is_int_g, row_done, lhs_g, rhs_g, strs, (),
-                                       lb, ub, active)
+        if carry is not None:
+            _carry.fold(carry, win.any(), k, unroll)
+            return lb, ub, _carry.go_flag(carry)
+        return lb, ub, _plain_flags(flags, win).reshape(-1)
+    t, r, kw, bsz, width = _check_round(val, col_s, is_int_g, row_done, lhs_g, rhs_g, strs, (),
+                                        lb, ub, active)
     n_runs = _check_runs(t, run_start=run_start, run_len=run_len, run_inst=run_inst,
                          run_slab=run_slab)
     if n_runs != bsz * _n_slabs(width, slab):
@@ -1149,12 +1269,13 @@ def batched_slab_round_tiles(
     err = _build.lib().slab_scatter(
         _p(val), _p(col_s), _p(is_int_g), _p(clen), _p(row_done), *map(_p, strs), _p(lhs_g),
         _p(rhs_g), *map(_p, tiles), _p(active), _p(lb), _p(ub), _p(best_l), _p(best_u), t * r,
-        r, k, _max_len(k, max_chunk_len), width, slab, int_eps, inf, _stream(),
+        r, kw, _max_len(kw, max_chunk_len), width, slab, int_eps, inf, _stream(),
     )
     batched_slab_round_tiles.launches += 1
     _build.check(err, "slab_scatter")
-    flags = _slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward)
-    return lb, ub, flags.reshape(-1)
+    out = _slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward, flags, carry, k,
+                      unroll)
+    return lb, ub, out if carry is not None else out.reshape(-1)
 
 
 batched_slab_round_tiles.launches = 0
@@ -1217,7 +1338,23 @@ def node_slab_partials_tiles(
 node_slab_partials_tiles.launches = 0
 
 
-def straddle_combine_tiles(mf, mc, xf, xc, a_order, a_seg, agg_slot, active=None):
+def partial_specs(shape) -> tuple:
+    """``(shape, dtype)`` of the four partials or aggregates: min sums,
+    min counts, max sums, max counts."""
+    return ((shape, torch.float64), (shape, torch.int32), (shape, torch.float64),
+            (shape, torch.int32))
+
+
+def straddle_specs(part_shape, agg_shape, n_slots: int) -> tuple:
+    """``(shape, dtype)`` of the straddle combine's outputs (the aggregates
+    spread to ``agg_shape``, leading node axis included) and of its
+    compact tables, for partials of ``part_shape``."""
+    nb = part_shape[0] if len(part_shape) == 3 else 1
+    return partial_specs(tuple(agg_shape)) + partial_specs((nb, n_slots))
+
+
+def straddle_combine_tiles(mf, mc, xf, xc, a_order, a_seg, agg_slot, active=None, *,
+                           out=None):
     """The straddle combine of the partitioned round: per-copy partials of
     #11 (``(Ta, R)``) or #13 (``(nb, Ta, R)``) + the partition's straddle
     index (``a_order`` ``(Ta*R,)`` int64, ``a_seg`` ``(n_straddle + 2,)``
@@ -1229,7 +1366,9 @@ def straddle_combine_tiles(mf, mc, xf, xc, a_order, a_seg, agg_slot, active=None
     left to right from 0 in sub-stream order.  Chunks with ``row_done ==
     1`` hold the dummy slot's +0.0 and 0 (#12 and #14 never read them);
     inactive planes are not written (zeros in the plain version,
-    :func:`ref.straddle_combine_ref`).
+    :func:`ref.straddle_combine_ref`).  ``out`` (the four aggregates and
+    the four compact tables, :func:`straddle_specs`, kept by the round
+    closure) is written instead of fresh tensors.
 
     Replaces the reference's straddle ``segment_sum``
     (``_straddle_aggregates``, src/repro/kernels/ops.py:830), not a Pallas
@@ -1261,17 +1400,10 @@ def straddle_combine_tiles(mf, mc, xf, xc, a_order, a_seg, agg_slot, active=None
         _expect("active", active, torch.bool, (nb,))
     n_slots = a_seg.shape[0] - 1
     dev = mf.device
-    shape = (*lead, *agg_slot.shape)
-    omf = torch.empty(shape, dtype=torch.float64, device=dev)
-    oxf = torch.empty(shape, dtype=torch.float64, device=dev)
-    omc = torch.empty(shape, dtype=torch.int32, device=dev)
-    oxc = torch.empty(shape, dtype=torch.int32, device=dev)
+    specs = straddle_specs(tuple(mf.shape), (*lead, *agg_slot.shape), n_slots)
+    omf, omc, oxf, oxc, tmf, tmc, txf, txc = _outputs(out, specs, dev)
     if nb == 0:
         return omf, omc, oxf, oxc
-    tmf = torch.empty((nb, n_slots), dtype=torch.float64, device=dev)
-    txf = torch.empty((nb, n_slots), dtype=torch.float64, device=dev)
-    tmc = torch.empty((nb, n_slots), dtype=torch.int32, device=dev)
-    txc = torch.empty((nb, n_slots), dtype=torch.int32, device=dev)
     err = _build.lib().straddle_combine(
         _p(mf), _p(mc), _p(xf), _p(xc), _p(a_order), _p(a_seg), _p(agg_slot),
         None if active is None else _p(active), _p(tmf), _p(tmc), _p(txf), _p(txc), _p(omf),
@@ -1290,6 +1422,7 @@ def node_slab_round_tiles(
     lhs_g, rhs_g, run_start, run_len, run_slab, active, lb, ub, slab: int, max_run_len: int,
     eps: float, int_eps: float, inf: float = INF, outward: float = 0.0,
     *, acc, tile_slab, chunk_len=None, max_chunk_len: int | None = None,
+    flags: FlagPair | None = None,
 ):
     """The slab round over a node batch, IN PLACE: ONE instance's ``(T'',
     R, K)`` copies + ``(B, T'', R)`` per-node straddle aggregates + shared
@@ -1301,7 +1434,9 @@ def node_slab_round_tiles(
     active row), scattered into and set back to the sentinels by the merge;
     ``tile_slab`` the copy tiles' slabs, ``chunk_len`` the copy stream's
     chunk lengths and ``max_chunk_len`` the longest, all hoisted by the
-    partition (the last two computed from ``val``, and K, when omitted).
+    partition (the last two computed from ``val``, and K, when omitted);
+    ``flags`` the window flags' pair kept by the round closure
+    (:class:`FlagPair`).
 
     Replaces ``node_slab_round_tiles`` / ``_node_slab_round_kernel``
     (src/repro/kernels/prop_round.py:1498 / :1443).  Bound on the H100: the
@@ -1327,12 +1462,12 @@ def node_slab_round_tiles(
             val, col_s, is_int_g, row_done, *strs, lhs_g, rhs_g, run_start, run_slab, active,
             lb, ub, slab, int_eps, inf,
         ))
-        new_lb, new_ub, flags = ref.apply_updates_slab_ref(lb, ub, best_l, best_u, active, slab,
-                                                           eps, inf, outward)
+        new_lb, new_ub, win = ref.apply_updates_slab_ref(lb, ub, best_l, best_u, active, slab,
+                                                         eps, inf, outward)
         _hand_back(best_l, best_u, active, inf)
         lb.copy_(new_lb)
         ub.copy_(new_ub)
-        return lb, ub, flags
+        return lb, ub, _plain_flags(flags, win)
     bsz = lb.shape[0]
     t, r, k, bsz, width = _check_round(val, col_s, is_int_g, row_done, lhs_g, rhs_g, strs,
                                        (bsz,), lb, ub, active)
@@ -1350,8 +1485,7 @@ def node_slab_round_tiles(
     )
     node_slab_round_tiles.launches += 1
     _build.check(err, "node_slab_scatter")
-    flags = _slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward)
-    return lb, ub, flags
+    return lb, ub, _slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward, flags)
 
 
 node_slab_round_tiles.launches = 0
@@ -1359,7 +1493,7 @@ node_slab_round_tiles.launches = 0
 
 def apply_updates_slab_tiles(
     lb, ub, best_l, best_u, active, slab: int, eps: float, inf: float = INF,
-    outward: float = 0.0,
+    outward: float = 0.0, *, flags: FlagPair | None = None,
 ):
     """Merge over ``(instance, slab)`` windows, IN PLACE: ``(B, W)``
     bounds and best candidates + ``(B,)`` ``active`` -> the planes, updated,
@@ -1367,7 +1501,8 @@ def apply_updates_slab_tiles(
     OR-ed).  ``bounds.apply_updates`` semantics; inactive rows pass
     through.  The active rows of ``best_l``/``best_u`` are set back to the
     sentinels once read (the planes of #12 and #14 are kept for the whole
-    fixed point).
+    fixed point).  ``flags`` is a kept pair for the window flags
+    (:class:`FlagPair`, ``(B, n_slabs)`` int32).
 
     Replaces ``apply_updates_slab_tiles`` / ``_apply_updates_slab_kernel``
     (src/repro/kernels/prop_round.py:1595 / :1581).  The same kernel is the
@@ -1380,22 +1515,25 @@ def apply_updates_slab_tiles(
     block, row) grid instead, as #9's); a thread loads its four columns'
     bounds and candidates before it merges any; a warp that takes a
     tightening in a column stride stores its window's flag once (``slab``
-    a multiple of 32), the flags zeroed by the wrapper first."""
+    a multiple of 32), into flags zeroed by the previous launch with the
+    pair (or allocated zeroed without one).  For one instance's fixed
+    point #12 folds the flags into the loop carry instead (F's
+    ``CarryFlags``)."""
     if not _on_cuda(lb, ub, best_l, best_u, active):
-        new_lb, new_ub, flags = ref.apply_updates_slab_ref(
+        new_lb, new_ub, win = ref.apply_updates_slab_ref(
             lb, ub, best_l, best_u, active, slab, eps, inf, outward
         )
         _hand_back(best_l, best_u, active, inf)
         lb.copy_(new_lb)
         ub.copy_(new_ub)
-        return lb, ub, flags.any(dim=1)
+        return lb, ub, _plain_flags(flags, win).any(dim=1)
     bsz, width = lb.shape
     if bsz > MAX_GRID_Y:
         raise ValueError(f"{bsz} planes exceed the grid's {MAX_GRID_Y}")
     _check_planes(bsz, width, lb=lb, ub=ub, best_l=best_l, best_u=best_u)
     _expect("active", active, torch.bool, (bsz,))
-    flags = _slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward)
-    return lb, ub, flags.any(dim=1)
+    win = _slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward, flags)
+    return lb, ub, win.any(dim=1)
 
 
 apply_updates_slab_tiles.launches = 0

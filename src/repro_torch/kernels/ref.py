@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..core import bounds as bnd
+from ..core import carry as _carry
 from ..core.types import INF, int_round_slack
 
 
@@ -180,6 +181,22 @@ def fused_scatter_round_tiles_ref(
         val, lb[c], ub[c], is_int_g, lhs_g, rhs_g, int_eps, inf
     )
     return scatter_round_ref(lcand, ucand, col, n_pad, inf)
+
+
+def merge_carry_ref(lb, ub, best_l, best_u, eps: float, inf: float, outward: float, carry,
+                    k: int, unroll: int):
+    """Kernel F's plain version: ``bounds.apply_updates`` where the loop
+    carry's ``GO`` is set (else the bounds as they were), the round's flag
+    folded into ``carry`` (:func:`~repro_torch.core.carry.fold`, in place),
+    and every accumulator entry set back to the sentinel (in place).
+    Returns new ``(lb, ub)`` and the carry's ``GO`` (a 0-d bool view)."""
+    new_lb, new_ub, changed = bnd.apply_updates(lb, ub, best_l, best_u, eps, inf, outward)
+    best_l.fill_(-inf)
+    best_u.fill_(inf)
+    go = _carry.go_flag(carry)
+    new_lb, new_ub = torch.where(go, new_lb, lb), torch.where(go, new_ub, ub)
+    _carry.fold(carry, changed, k, unroll)
+    return new_lb, new_ub, go
 
 
 def chunk_lengths(val):

@@ -118,10 +118,17 @@ def test_warm_start_and_prepare_cache_hit():
 
 
 def test_host_syncs_counted_once_per_round():
+    """One read per round on the host loop; on the device loop (the
+    default) one read of the carry per DEVICE_LOOP_GROUP rounds."""
     pt = rt.problem_from_reference(rd.make_cascade_chain(length=12))
     syncs = []
-    r = rt.propagate_block_ell(pt, tile_width=4, device="cpu", on_sync=lambda: syncs.append(1))
+    r = rt.propagate_block_ell(pt, tile_width=4, driver="host_loop", device="cpu",
+                               on_sync=lambda: syncs.append(1))
     assert len(syncs) == int(r.rounds) == 14
+    syncs.clear()
+    r = rt.propagate_block_ell(pt, tile_width=4, device="cpu", on_sync=lambda: syncs.append(1))
+    group = rt.core.propagator.DEVICE_LOOP_GROUP
+    assert int(r.rounds) == 14 and len(syncs) == -(-14 // group)
 
 
 @pytest.mark.parametrize("kw,match", [

@@ -37,6 +37,15 @@ def gen():
     return np.random.default_rng(0)
 
 
+def _enqueued(rounds: int) -> int:
+    """Rounds that the device loop (``propagate_block_ell``'s default)
+    enqueues for a fixed point of ``rounds``: whole read groups of
+    ``DEVICE_LOOP_GROUP``, at most ``max_rounds``.  Those after convergence
+    still launch (and return at once)."""
+    group = rt.core.propagator.DEVICE_LOOP_GROUP
+    return min(-(-rounds // group) * group, rt.core.DEFAULT_CONFIG.max_rounds)
+
+
 def _tiles(gen, t, r, k, n, integer, dev):
     val = gen.choice([-2.0, -1.0, 0.0, 1.0, 3.0], size=(t, r, k))
     col = gen.integers(0, n, size=(t, r, k)).astype(np.int32)
@@ -131,11 +140,11 @@ def test_engine_on_card_matches_cpu(cuda, gen_name, kw, tile_width, exact):
     got = rt.propagate_block_ell(p, tile_width=tile_width)
     want = rt.propagate_block_ell(p, tile_width=tile_width, device="cpu")
     counts = tk.launch_counts()
-    assert counts["apply_updates_tiles"] == int(got.rounds)
+    rounds = _enqueued(int(got.rounds))
+    assert counts["apply_updates_tiles"] == rounds
     if tk.rows_fit_one_chunk(p, tile_width):
-        assert counts["fused_scatter_round_tiles"] == int(got.rounds)
+        assert counts["fused_scatter_round_tiles"] == rounds
     else:
-        rounds = int(got.rounds)
         assert counts["activities_gather_tiles"] == counts["candidates_scatter_tiles"] == rounds
     assert got.lb.device.type == "cuda"
     for f in ("rounds", "converged", "infeasible"):
@@ -712,7 +721,7 @@ def test_partitioned_engine_on_card_matches_plain_path(cuda, gen_name, kw, tile_
     tk.reset_launch_counts()
     got = rt.propagate_block_ell(p, tile_width=tile_width, scatter="partitioned", slab=128)
     counts = tk.launch_counts()
-    rounds = int(got.rounds)
+    rounds = _enqueued(int(got.rounds))
     assert counts["batched_slab_round_tiles"] == counts["apply_updates_slab_tiles"] == rounds
     assert counts["batched_slab_partials_tiles"] == rounds
     assert counts["fused_scatter_round_tiles"] == 0
@@ -733,13 +742,13 @@ def test_instance_past_the_limit_on_card(cuda):
     tk.reset_launch_counts()
     got = rt.propagate_block_ell(p)
     counts = tk.launch_counts()
-    assert counts["batched_slab_round_tiles"] == int(got.rounds) > 0
+    assert counts["batched_slab_round_tiles"] == _enqueued(int(got.rounds)) > 0
     assert counts["fused_scatter_round_tiles"] == 0
     plain = rt.propagate_block_ell(p, use_kernels=False)
     for f in ("lb", "ub", "rounds", "converged", "infeasible"):
         _match(getattr(got, f), getattr(plain, f))
     fused = rt.propagate_block_ell(p, scatter="fused")
-    assert tk.launch_counts()["fused_scatter_round_tiles"] == int(fused.rounds)
+    assert tk.launch_counts()["fused_scatter_round_tiles"] == _enqueued(int(fused.rounds))
     for f in ("rounds", "converged", "infeasible"):
         assert getattr(fused, f).item() == getattr(got, f).item()
     assert rt.bounds_equal(fused.lb, fused.ub, got.lb, got.ub)
@@ -979,7 +988,7 @@ def test_segment_engine_on_card_matches_fused_engine(cuda, gen_name, kw, tile_wi
     tk.reset_launch_counts()
     got = rt.propagate_block_ell(p, tile_width=tile_width, scatter="segment")
     counts = tk.launch_counts()
-    rounds = int(got.rounds)
+    rounds = _enqueued(int(got.rounds))
     assert counts["apply_updates_tiles"] == rounds
     if tk.rows_fit_one_chunk(p, tile_width):
         assert counts["fused_round_tiles"] == rounds
@@ -1006,7 +1015,7 @@ def test_segment_auto_past_the_limit_on_card(cuda, small_limit, monkeypatch):
     tk.reset_launch_counts()
     got = rt.propagate_block_ell(p)
     counts = tk.launch_counts()
-    assert counts["fused_round_tiles"] == int(got.rounds) > 0
+    assert counts["fused_round_tiles"] == _enqueued(int(got.rounds)) > 0
     assert counts["batched_slab_round_tiles"] == 0
     for f in ("lb", "ub", "rounds", "converged", "infeasible"):
         _match(getattr(got, f), getattr(fused, f))
@@ -1682,3 +1691,80 @@ def test_window_merge_rejects_slabs_of_partial_warps(cuda, gen):
         with pytest.raises(ValueError, match="multiples of 32"):
             tk.apply_updates_slab_tiles(lb, ub, lb - 1.0, ub + 1.0, act, slab, 1e-9)
     assert tk.launch_counts()["apply_updates_slab_tiles"] == 0
+
+
+# ---------------------------------------------------------------------------
+# The loop carry (kernel F, #15 for one instance) and the kept flag pairs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("unroll", [1, 3])
+def test_merge_keeps_the_carry_on_card(cuda, gen, unroll):
+    """F against its plain version over the rounds of one fixed point:
+    bounds, handed-back planes, the returned GO and the carry bitwise,
+    through convergence and rounds enqueued after it."""
+    from repro_torch.core import carry as tcarry
+
+    n = 60_032
+    lb = torch.zeros(n, dtype=torch.float64, device=cuda)
+    ub = torch.full((n,), 10.0, dtype=torch.float64, device=cuda)
+    st_k, st_p = tcarry.armed_state(cuda), tcarry.armed_state(cuda)
+    plan = [True] * (2 * unroll) + [False] * unroll + [True] * 2
+    for i, tighten in enumerate(plan):
+        bl = torch.full((n,), -INF, dtype=torch.float64, device=cuda)
+        bu = torch.full((n,), INF, dtype=torch.float64, device=cuda)
+        if tighten:
+            pick = torch.from_numpy(gen.random(n) < 0.3).to(cuda)
+            bl[pick] = lb[pick] + 1.0
+        want = tref.merge_carry_ref(lb, ub, bl.clone(), bu.clone(), 1e-9, INF, 0.0, st_p,
+                                    i % unroll, unroll)
+        acc = (bl.clone(), bu.clone())
+        got = tk.apply_updates_tiles(lb.clone(), ub.clone(), *acc, 1e-9, INF, 0.0, carry=st_k,
+                                     k=i % unroll, unroll=unroll)
+        for g, w in zip((*got, st_k), (*want, st_p)):
+            _match(g, w)
+        assert _clean(acc)
+        lb, ub = want[0], want[1]
+    assert st_k.tolist()[tcarry.ROUNDS] == 3 * unroll
+
+
+@pytest.mark.parametrize("engine,gen_name,kw,tile_width,scatter", [
+    ("fused", "make_pseudo_boolean", dict(n=3000, m=4000, seed=7), 128, "auto"),
+    ("multi-chunk", "make_mixed", dict(m=600, n=450, seed=21), 16, "auto"),
+    ("partitioned", "make_pseudo_boolean", dict(n=3000, m=4000, seed=7), 8, "partitioned"),
+    ("segment", "make_mixed", dict(m=600, n=450, seed=21), 16, "segment"),
+])
+def test_device_loop_on_card_equals_host_loop(cuda, monkeypatch, engine, gen_name, kw,
+                                              tile_width, scatter):
+    monkeypatch.setattr(rt.core.propagator, "DEVICE_LOOP_GROUP", 3)
+    p = getattr(td, gen_name)(**kw)
+    args = dict(tile_width=tile_width, scatter=scatter, slab=128)
+    syncs = {"host_loop": [], "device_loop": []}
+    out = {d: rt.propagate_block_ell(p, driver=d, on_sync=lambda d=d: syncs[d].append(1),
+                                     **args) for d in syncs}
+    for f in ("lb", "ub", "rounds", "converged", "infeasible", "progress"):
+        _match(getattr(out["device_loop"], f), getattr(out["host_loop"], f))
+    rounds = int(out["host_loop"].rounds)
+    assert len(syncs["host_loop"]) == rounds and len(syncs["device_loop"]) == -(-rounds // 3)
+
+
+def test_kept_flag_pairs_on_card(cuda, gen):
+    """#9 and #15 through kept flag pairs: the flags of fresh ones, the
+    other buffer zeroed by each launch."""
+    bsz, width = 20, 1000
+    active = torch.from_numpy(gen.random(bsz) < 0.5).to(cuda)
+    pairs = {"batch": tk.FlagPair((bsz,), torch.bool, cuda),
+             "slab": tk.FlagPair((bsz, 8), torch.int32, cuda)}
+    for _ in range(3):
+        lb = torch.from_numpy(gen.uniform(-5, 0, (bsz, width))).to(cuda)
+        ub = torch.from_numpy(gen.uniform(0, 5, (bsz, width))).to(cuda)
+        bl = torch.from_numpy(gen.uniform(-6, 2, (bsz, width))).to(cuda)
+        bu = torch.full((bsz, width), INF, dtype=torch.float64, device=cuda)
+        for name, pair in pairs.items():
+            fn = (tk.apply_updates_batch_tiles if name == "batch" else
+                  lambda *a, **k: tk.apply_updates_slab_tiles(*a[:5], 128, *a[5:], **k))
+            want = fn(lb.clone(), ub.clone(), bl.clone(), bu.clone(), active, 1e-9)
+            got = fn(lb.clone(), ub.clone(), bl.clone(), bu.clone(), active, 1e-9, flags=pair)
+            for g, w in zip(got, want):
+                _match(g, w)
+            assert not bool(pair.bufs[pair.turn].any())  # the next launch's, zeroed
