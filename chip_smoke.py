@@ -133,17 +133,20 @@ numpy only, nothing of JAX) and, on one CUDA card:
      against its plain version over the rounds of one fixed point (groups
      of 3, through convergence and two rounds enqueued after it: bounds,
      handed-back planes and the carry bitwise), the round closures of
-     ``banded`` and the partitioned ``pbw`` on the kernels against the plain
-     versions with their carries armed (through convergence); every
-     single-instance fixed point above (``pb``, ``banded``, ``mixed``,
-     ``bandw``, ``pbw``, and the segment engine on the first three) on
-     ``driver="device_loop"`` against its ``host_loop`` run (bitwise,
-     progress included), host reads counted (``pb`` must read fewer times
-     than its 33 rounds); ``DEVICE_LOOP_GROUP`` timed over 1, 2, 4, 8 and
-     16 on those runs (the module's value printed beside the fastest), the
-     gate of D, A', the combine and E on the carry (``ops.GATE_ROUNDS``) on
-     and off, busy time and idle share per driver with F's device items,
-     and ``propagate``'s three drivers on ``pb``;
+     ``banded``, the partitioned ``pbw`` and the segment engine on
+     ``mixed`` on the kernels against the plain versions with their
+     carries armed (through convergence and rounds enqueued after it);
+     every single-instance fixed point above (``pb``, ``banded``,
+     ``mixed``, ``bandw``, ``pbw``, and the segment engine on the first
+     three) on ``driver="device_loop"`` against its ``host_loop`` run
+     (bitwise, progress included), host reads counted (``pb`` must read
+     fewer times than its 33 rounds); the read groups
+     (``DEVICE_LOOP_GROUP`` for the gated engines, ``UNGATED_LOOP_GROUP``
+     for the segment engine and the plain round) timed over 1, 2, 4, 8 and
+     16 on those runs and on ``propagate``'s plain round (the module's
+     values printed beside the fastest); ``propagate``'s three drivers on
+     ``pb`` (``tools/driver_profile.py`` traces the same runs per driver
+     in a fresh process);
  14. prints a ``kernels`` JSON line, and last
      ``{"ok": true, "device": {...}}``.
 
@@ -2470,24 +2473,6 @@ def wall_ms(torch, fn) -> float:
     return start.elapsed_time(end)
 
 
-def enqueued(rt_prop, reads, label) -> int:
-    """Rounds that device_loop enqueues (and merges it launches) for the run
-    ``label``: whole read groups, at most max_rounds."""
-    group = rt_prop.DEVICE_LOOP_GROUP
-    return min(-(-reads[label, "rounds"] // group) * group, rt_prop.DEFAULT_CONFIG.max_rounds)
-
-
-def complete_profile(torch, fn, merges: int, tries: int = 5):
-    """:func:`busy_profile` of ``fn`` (F's and #15's carry merges counted),
-    retried until the trace holds all ``merges`` merge launches (a trace
-    late in a long run can miss device items), or None."""
-    for _ in range(tries):
-        prof = busy_profile(torch, fn, count="CarryFlags")
-        if prof is not None and f"items named *CarryFlags*: {merges}," in prof[1]:
-            return prof
-    return None
-
-
 def carry_sequence_check(torch, np, tk, tref, dev):
     """Kernel F against its plain version over the rounds of one fixed point
     of check groups of 3 rounds at n_pad 60,032: six rounds whose
@@ -2529,8 +2514,9 @@ def closure_carry_check(torch, ops, prep, name, dev, rounds: int = 16, unroll: i
                         scatter: str = "fused"):
     """The round closure on the kernels against the one on the plain
     versions, both carries armed for groups of ``unroll``: bounds and carry
-    bitwise, the kept planes clean after every round, through convergence
-    and rounds enqueued after it (D and F gated on the kernels)."""
+    bitwise, the kept planes (where the engine keeps them) clean after
+    every round, through convergence and rounds enqueued after it (every
+    kernel gated on the carry)."""
     fk = ops.round_fn_for(prep, scatter=scatter)
     fp = ops.round_fn_for(prep, use_kernels=False, scatter=scatter)
     lbk, ubk = prep.lb0.clone(), prep.ub0.clone()
@@ -2542,8 +2528,9 @@ def closure_carry_check(torch, ops, prep, name, dev, rounds: int = 16, unroll: i
             lbk, ubk, _ = fk(lbk, ubk)
             lbp, ubp, _ = fp(lbp, ubp)
             max_abs_err(torch, (lbk, ubk, fk.carry.state), (lbp, ubp, fp.carry.state))
-            planes_clean(torch, fk.kept.planes, ops.DEFAULT_CONFIG.inf,
-                         f"{name}: the closure's planes are not clean after round {i + 1}")
+            if hasattr(fk, "kept"):
+                planes_clean(torch, fk.kept.planes, ops.DEFAULT_CONFIG.inf,
+                             f"{name}: the closure's planes are not clean after round {i + 1}")
     finally:
         fk.carry.release()
         fp.carry.release()
@@ -2555,24 +2542,28 @@ def closure_carry_check(torch, ops, prep, name, dev, rounds: int = 16, unroll: i
 
 def drivers_phase(torch, np, rt, tk, tref, ops, dev, problems, preps, wide):
     """Phase 12: kernel F with the loop carry against its plain version
-    (direct calls, and the round closure on banded and pbw); each
-    single-instance fixed point on ``device_loop`` against its
-    ``host_loop`` run (bitwise, progress included) with host reads
-    counted; ``DEVICE_LOOP_GROUP`` timed over 1, 2, 4, 8 and 16; the gate
-    of D, A', the combine and E on and off; busy time and idle share per
-    driver; and ``propagate``'s three drivers.  Returns the launch counts
-    of each device_loop run."""
+    (direct calls, and the round closures of banded, pbw and the segment
+    engine); each single-instance fixed point on ``device_loop`` against
+    its ``host_loop`` run (bitwise, progress included) with host reads
+    counted; the read groups timed over 1, 2, 4, 8 and 16; and
+    ``propagate``'s three drivers.  Returns the launch counts of each
+    device_loop run."""
     from repro_torch.core import propagator as rt_prop
 
     carry_sequence_check(torch, np, tk, tref, dev)
     closure_carry_check(torch, ops, preps["banded"], "banded", dev)
     closure_carry_check(torch, ops, rt.prepare_block_ell(wide["pbw"], device=dev), "pbw", dev,
                         rounds=9, unroll=2, scatter="partitioned")
+    closure_carry_check(torch, ops, preps["mixed"], "mixed", dev, rounds=18, unroll=3,
+                        scatter="segment")
 
     all_problems = {**problems, **wide}
     cases = [(name, name, {}) for name in ("pb", "banded", "mixed", "bandw", "pbw")]
     cases += [(f"segment {name}", name, dict(scatter="segment"))
               for name in ("pb", "banded", "mixed")]
+    gated = {label: not kw for label, _, kw in cases}
+    group_of = lambda label: (rt_prop.DEVICE_LOOP_GROUP if gated[label]
+                              else rt_prop.UNGATED_LOOP_GROUP)
     runs, reads, host_ms, table = {}, {}, {}, {}
     for label, name, kw in cases:
         p = all_problems[name]
@@ -2593,94 +2584,69 @@ def drivers_phase(torch, np, rt, tk, tref, ops, dev, problems, preps, wide):
             fail(f"device_loop {label}: progress {devl.progress.item()} != host_loop "
                  f"{host.progress.item()}")
         rounds = reads[label, "rounds"] = host.rounds.item()
-        want = -(-rounds // rt_prop.DEVICE_LOOP_GROUP)
+        want = -(-rounds // group_of(label))
         if reads[label, "host_loop"] != rounds or reads[label, "device_loop"] != want:
             fail(f"device_loop {label}: {reads[label, 'device_loop']} reads (expected {want}), "
                  f"host_loop {reads[label, 'host_loop']} (expected {rounds})")
-        f_name = "apply_updates_tiles" if "partitioned" not in label and name not in wide else (
-            "apply_updates_slab_tiles")
+        f_name = "apply_updates_tiles" if name not in wide else "apply_updates_slab_tiles"
         log(f"drivers {label}: rounds={rounds} converged={host.converged.item()}; device_loop "
             f"bitwise host_loop (progress included); host reads {reads[label, 'host_loop']} -> "
-            f"{reads[label, 'device_loop']} (DEVICE_LOOP_GROUP {rt_prop.DEVICE_LOOP_GROUP}); "
+            f"{reads[label, 'device_loop']} (read group {group_of(label)}, "
+            f"{'gated' if gated[label] else 'not gated'}); "
             f"merge launches {counts['host_loop'][f_name]} -> {counts['device_loop'][f_name]}")
     if reads["pb", "device_loop"] >= REFERENCE_ROUNDS["pb"]:
         fail(f"device_loop pb read the host {reads['pb', 'device_loop']} times")
 
-    # Wall per fixed point (CUDA events, host reads included) by read group,
-    # and with the gate off: every variant of a run once per trial, in an
-    # order that rotates between trials, so the host's drift spreads over
-    # all of them; medians over the trials.
-    saved = rt_prop.DEVICE_LOOP_GROUP
-    variants = [("host_loop", saved, True)] + [("device_loop", g, True)
-                                               for g in DEVICE_LOOP_GROUPS]
-    variants.append(("device_loop", saved, False))
+    # Wall per fixed point (CUDA events, host reads included) by read group
+    # (both module groups set alike: each run reads its engine's), with
+    # propagate's plain round on pb: every variant of a run once per trial,
+    # in an order that rotates between trials, so the host's drift spreads
+    # over all of them; medians over the trials.
+    saved = rt_prop.DEVICE_LOOP_GROUP, rt_prop.UNGATED_LOOP_GROUP
+    variants = [("host_loop", None)] + [("device_loop", g) for g in DEVICE_LOOP_GROUPS]
+    plain_variants = variants + [("unrolled", None)]
+    timed = [(label, (lambda p=all_problems[name], kw=kw: lambda driver: rt.propagate_block_ell(
+        p, driver=driver, device=dev, **kw))(), variants) for label, name, kw in cases]
+    timed.append(("propagate pb", lambda driver: rt.propagate(problems["pb"], driver=driver,
+                                                              device=dev), plain_variants))
+    gated["propagate pb"] = False
     samples = {}
     try:
         for trial in range(DRIVER_TRIALS):
-            for label, name, kw in cases:
-                p = all_problems[name]
-                order = variants[trial % len(variants):] + variants[:trial % len(variants)]
-                for driver, g, gate in order:
-                    rt_prop.DEVICE_LOOP_GROUP, ops.GATE_ROUNDS = g, gate
-                    samples.setdefault((label, driver, g, gate), []).append(wall_ms(
-                        torch, lambda: rt.propagate_block_ell(p, driver=driver, device=dev,
-                                                              **kw)))
+            for label, run, vs in timed:
+                order = vs[trial % len(vs):] + vs[:trial % len(vs)]
+                for driver, g in order:
+                    rt_prop.DEVICE_LOOP_GROUP, rt_prop.UNGATED_LOOP_GROUP = (
+                        saved if g is None else (g, g))
+                    samples.setdefault((label, driver, g), []).append(
+                        wall_ms(torch, lambda: run(driver)))
     finally:
-        rt_prop.DEVICE_LOOP_GROUP, ops.GATE_ROUNDS = saved, True
+        rt_prop.DEVICE_LOOP_GROUP, rt_prop.UNGATED_LOOP_GROUP = saved
     med = {key: statistics.median(v) for key, v in samples.items()}
-    for label, _, _ in cases:
-        host_ms[label] = med[label, "host_loop", saved, True]
+    for label, _, vs in timed:
+        host_ms[label] = med[label, "host_loop", None]
         for g in DEVICE_LOOP_GROUPS:
-            table[label, g] = med[label, "device_loop", g, True]
+            table[label, g] = med[label, "device_loop", g]
         cells = ", ".join(f"{g}: {table[label, g]:.3f}" for g in DEVICE_LOOP_GROUPS)
-        log(f"device_loop wall ms {label} by DEVICE_LOOP_GROUP: {cells}; host_loop "
-            f"{host_ms[label]:.3f}; without the gate (group {saved}) "
-            f"{med[label, 'device_loop', saved, False]:.3f} (medians of {DRIVER_TRIALS})")
+        extra = (f"; unrolled (group {saved[1]}) {med[label, 'unrolled', None]:.3f}"
+                 if (label, "unrolled", None) in med else "")
+        log(f"device_loop wall ms {label} by read group: {cells}; host_loop "
+            f"{host_ms[label]:.3f}{extra} (medians of {DRIVER_TRIALS})")
     # The group whose walls, each relative to the host loop's, have the
-    # least geometric mean: over the main path's runs (the fused and
-    # partitioned engines) and over the segment engine's, whose gathers and
-    # column reduction are not gated.
-    for which, labels in (("main path", [c[0] for c in cases if not c[2]]),
-                          ("segment engine", [c[0] for c in cases if c[2]])):
+    # least geometric mean: over the gated runs (the fused and partitioned
+    # engines: DEVICE_LOOP_GROUP) and over the others (the segment engine,
+    # whose gathers and column reduction are not gated, and the plain
+    # round: UNGATED_LOOP_GROUP).
+    for which, value, want_gated in (("gated runs", saved[0], True),
+                                     ("ungated runs", saved[1], False)):
+        labels = [label for label, _, _ in timed if gated[label] == want_gated]
         score = {g: float(np.exp(np.mean([np.log(table[label, g] / host_ms[label])
                                           for label in labels])))
                  for g in DEVICE_LOOP_GROUPS}
         best = min(score, key=score.get)
-        log(f"DEVICE_LOOP_GROUP over the {which}: {saved} chosen (fastest measured: {best}); "
-            f"geometric mean of device_loop / host_loop wall by group: "
+        log(f"read group over the {which} ({', '.join(labels)}): {value} chosen (fastest "
+            f"measured: {best}); geometric mean of device_loop / host_loop wall by group: "
             + ", ".join(f"{g}: {score[g]:.3f}" for g in DEVICE_LOOP_GROUPS))
-    for label in ("banded", "pb", "mixed"):
-        p = all_problems[label]
-        busy = {}
-        for gate in (True, False):
-            ops.GATE_ROUNDS = gate
-            try:
-                prof = complete_profile(torch, lambda: rt.propagate_block_ell(
-                    p, driver="device_loop", device=dev), enqueued(rt_prop, reads, label))
-            finally:
-                ops.GATE_ROUNDS = True
-            busy[gate] = "not measured" if prof is None else f"{prof[0]:.3f} ms"
-        log(f"gate {label}: device_loop busy with the gate {busy[True]}, without "
-            f"{busy[False]}; wall {table[label, saved]:.3f} / "
-            f"{med[label, 'device_loop', saved, False]:.3f} ms")
-
-    # Busy time and idle share per driver; F's device time per launch.
-    for label, name, kw in cases:
-        p = all_problems[name]
-        for driver in ("host_loop", "device_loop"):
-            wall = host_ms[label] if driver == "host_loop" else table[label, saved]
-            launched = reads[label, "rounds"] if driver == "host_loop" else (
-                enqueued(rt_prop, reads, label))
-            prof = complete_profile(torch, lambda: rt.propagate_block_ell(
-                p, driver=driver, device=dev, **kw), launched)
-            if prof is None:
-                log(f"profile drivers {label} {driver}: no complete trace in 5 tries; idle "
-                    "share not measured")
-                continue
-            busy, top = prof
-            log(f"profile drivers {label} {driver}: reads {reads[label, driver]}, wall "
-                f"{wall:.3f} ms, device busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}; "
-                f"top: {top}")
 
     # propagate's three drivers (the plain round, no kernel): rounds and
     # reads; host_loop and device_loop against each other.
@@ -2690,10 +2656,11 @@ def drivers_phase(torch, np, rt, tk, tref, ops, dev, problems, preps, wide):
         n = [0]
         res[driver] = rt.propagate(p, driver=driver, device=dev,
                                    on_sync=lambda: n.__setitem__(0, n[0] + 1))
-        ms = time_ms(torch, lambda: rt.propagate(p, driver=driver, device=dev), reps=1, trials=3)
+        g = saved[1] if driver == "device_loop" else None
         log(f"propagate pb driver={driver}: rounds={res[driver].rounds.item()} "
             f"converged={res[driver].converged.item()} "
-            f"infeasible={res[driver].infeasible.item()} reads={n[0]} wall {ms:.3f} ms")
+            f"infeasible={res[driver].infeasible.item()} reads={n[0]} wall "
+            f"{med['propagate pb', driver, g]:.3f} ms (median of {DRIVER_TRIALS})")
     check_same(rt, "propagate pb device_loop", res["device_loop"], res["host_loop"], False,
                "its host_loop run")
     if res["device_loop"].rounds.item() != REFERENCE_ROUNDS["pb"]:

@@ -30,27 +30,49 @@ FLAG, ANY, ROUNDS, GO, TICKET = range(5)
 FIELDS = 8  # int32 fields, padded to 32 bytes
 
 
+# One armed carry per device, which a fresh or re-armed carry copies: one
+# launch.
+_armed: dict = {}
+
+
+def _armed_template(device) -> torch.Tensor:
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    template = _armed.get(dev)
+    if template is None:
+        template = torch.zeros(FIELDS, dtype=torch.int32, device=dev)
+        template[GO] = 1
+        _armed[dev] = template
+    return template
+
+
 def armed_state(device) -> torch.Tensor:
     """A fresh carry at the start of a fixed point: GO set, the rest 0."""
-    state = torch.zeros(FIELDS, dtype=torch.int32, device=device)
-    state[GO] = 1
-    return state
+    return _armed_template(device).clone()
 
 
-# The views of recent carries, by storage address: each round takes them,
-# and building a view costs a few microseconds of host time.  An entry is
-# used only for the identical tensor.
+# The views of the carries that drivers arm, by storage address: each round
+# takes them, and building a view costs a few microseconds of host time.  An
+# entry is used only for the identical tensor; a fresh carry's views are
+# built and not kept.
 _views: dict = {}
+
+
+def _make_views(state: torch.Tensor) -> tuple:
+    as_bool = state.view(torch.bool)
+    return state, as_bool[4 * GO : 4 * GO + 1], as_bool[4 * GO]
+
+
+def _keep_views(state: torch.Tensor) -> None:
+    if len(_views) >= 64:
+        _views.clear()
+    _views[state.data_ptr()] = _make_views(state)
 
 
 def _go_views(state: torch.Tensor) -> tuple:
     hit = _views.get(state.data_ptr())
-    if hit is None or hit[0] is not state:
-        if len(_views) >= 64:
-            _views.clear()
-        as_bool = state.view(torch.bool)
-        hit = _views[state.data_ptr()] = (state, as_bool[4 * GO : 4 * GO + 1], as_bool[4 * GO])
-    return hit
+    return hit if hit is not None and hit[0] is state else _make_views(state)
 
 
 def go_mask(state: torch.Tensor) -> torch.Tensor:
@@ -92,7 +114,8 @@ class LoopCarry:
     :meth:`read` and releases it at the end.  Between, each round takes
     ``(state, k, unroll)`` from :meth:`step`: the carry, the round's index
     within its check group and the group's length.  A round run outside a
-    driver gets a fresh carry of its own (one round, one group)."""
+    driver gets a fresh carry of its own (one round, one group), so its
+    ``changed`` view is not overwritten by a later round."""
 
     def __init__(self):
         self._local = threading.local()
@@ -117,8 +140,8 @@ class LoopCarry:
         state = getattr(loc, "state", None)
         if state is None or state.device != dev:
             state = loc.state = torch.empty(FIELDS, dtype=torch.int32, device=dev)
-        state.zero_()
-        state[GO] = 1
+        state.copy_(_armed_template(dev))
+        _keep_views(state)
         loc.k, loc.unroll, loc.armed = 0, unroll, True
 
     def release(self) -> None:

@@ -17,7 +17,7 @@ Loop drivers (paper §3.7 / App. C), as the reference's:
   * ``device_loop`` -- the round's last kernel keeps the reference's
                        ``while_loop`` carry on the device (``core.carry``):
                        the host enqueues rounds and reads the carry once per
-                       :data:`DEVICE_LOOP_GROUP` check groups
+                       :func:`loop_group` check groups
                        (:func:`device_fixed_point`).  Rounds enqueued after
                        convergence change nothing and count nothing.
   * ``unrolled``    -- ``device_loop`` with ``unroll`` rounds per check.
@@ -46,11 +46,23 @@ DRIVERS = ("host_loop", "device_loop", "unrolled")
 KERNEL_DRIVERS = ("host_loop", "device_loop")
 
 # Check groups that device_fixed_point enqueues between two host reads of
-# the loop carry (read at call time).  More means fewer reads and up to
-# DEVICE_LOOP_GROUP - 1 wasted groups after convergence (skipped by the
-# kernels, each still a launch); chip_smoke.py times 1, 2, 4, 8 and 16 on
-# the H100 (PERF.md).
+# the loop carry (read at call time, by loop_group).  More means fewer
+# reads and up to that many groups less one enqueued after convergence.
+# Where every kernel of such a round returns at once (a closure whose
+# ``gated`` is true) a wasted round costs its launches; elsewhere (the
+# plain rounds, the segment engine's gather and column reduction) it costs
+# a whole round.  chip_smoke.py times 1, 2, 4, 8 and 16 for both on the
+# H100 (PERF.md).
 DEVICE_LOOP_GROUP = 8
+UNGATED_LOOP_GROUP = 2
+
+
+def loop_group(round_fn) -> int:
+    """Check groups between two host reads of the device loop for the round
+    closure ``round_fn``: :data:`DEVICE_LOOP_GROUP` where a round enqueued
+    after convergence is skipped on the device (``round_fn.gated``), else
+    :data:`UNGATED_LOOP_GROUP`."""
+    return DEVICE_LOOP_GROUP if getattr(round_fn, "gated", False) else UNGATED_LOOP_GROUP
 
 
 def resolve_device(device) -> torch.device:
@@ -202,8 +214,8 @@ def device_fixed_point(
     of ``unroll`` rounds, each begun while the carry's GO is set, until a
     group changes nothing or ``ceil(max_rounds / unroll)`` groups ran.
 
-    The host enqueues :data:`DEVICE_LOOP_GROUP` groups (read at call time),
-    then reads the carry once (one pinned copy and a wait, reported to
+    The host enqueues :func:`loop_group` groups (read at call time), then
+    reads the carry once (one pinned copy and a wait, reported to
     ``on_sync``), and stops when GO is clear or the groups are spent; the
     round's last kernel keeps the carry, so a group enqueued after
     convergence changes neither the bounds nor the counts.  ``rounds`` is
@@ -220,11 +232,11 @@ def device_fixed_point(
         return lb, ub, 0, True, prog
     carry: LoopCarry = round_fn.carry
     lb_in = ub_in = None
-    done = 0
+    done, per_read = 0, loop_group(round_fn)
     carry.arm(lb.device, unroll)
     try:
         while True:
-            batch = min(DEVICE_LOOP_GROUP, groups - done)
+            batch = min(per_read, groups - done)
             for g in range(done, done + batch):
                 if with_progress and g + 1 == groups:
                     lb_in, ub_in = lb.clone(), ub.clone()
@@ -526,7 +538,7 @@ def propagate_device_loop(
     """gpu_loop analogue (the reference's, src/repro/core/propagator.py:533):
     the plain round's check groups of ``unroll`` rounds enqueued against
     the loop carry on the device (:func:`device_fixed_point`), the carry
-    read on the host once per :data:`DEVICE_LOOP_GROUP` groups (each read
+    read on the host once per :data:`UNGATED_LOOP_GROUP` groups (each read
     reported to ``on_sync``).  ``rounds`` is the reference's (a multiple of
     ``unroll``), ``progress`` the last check group's measure.  Options as
     in :func:`propagate_host_loop`."""
@@ -574,7 +586,7 @@ def propagate(
 
     ``driver`` picks the loop as the reference's does: ``host_loop`` reads
     a flag on the host each round, ``device_loop`` keeps the loop state on
-    the device and reads it once per :data:`DEVICE_LOOP_GROUP` rounds,
+    the device and reads it once per :data:`UNGATED_LOOP_GROUP` rounds,
     ``unrolled`` checks convergence every 4 rounds.  ``lb0``/``ub0`` are
     ``(n,)`` warm-start overrides for this call only.  ``device`` defaults
     to CUDA and raises where there is none; pass ``device="cpu"`` to run on

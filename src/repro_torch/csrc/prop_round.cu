@@ -296,7 +296,7 @@ straddle_table_kernel(const double* __restrict__ mf, const int* __restrict__ mc,
   const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kWarp;
   unsigned int todo =
       __ballot_sync(0xffffffffu, b0 + lane < nb && (active == nullptr || active[b0 + lane]));
-  if (s >= n_slots) return;
+  if (s >= n_slots || todo == 0u) return;
   const int64_t p0 = s == 0 ? 0 : a_seg[s], p1 = s == 0 ? 0 : a_seg[s + 1];
   while (todo != 0u) {
     const int64_t b = b0 + __ffs(todo) - 1;
@@ -330,7 +330,7 @@ straddle_spread_kernel(const double* __restrict__ tmf, const int* __restrict__ t
   const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kWarp;
   unsigned int todo =
       __ballot_sync(0xffffffffu, b0 + lane < nb && (active == nullptr || active[b0 + lane]));
-  if (c >= n_chunks) return;
+  if (c >= n_chunks || todo == 0u) return;
   const int64_t slot = agg_slot[c];
   while (todo != 0u) {
     const int64_t b = b0 + __ffs(todo) - 1;
@@ -542,13 +542,16 @@ node_objective_kernel(const double* __restrict__ lb, const double* __restrict__ 
 // C store both candidates at every slot -- the sentinels at padding -- for
 // the column max/min that follows outside.  The arithmetic is D's, A''s and
 // E's (round_common.cuh), with SlotBounds in place of ColumnBounds, so the
-// same bounds give the same bits.
+// same bounds give the same bits.  Each returns at once on a clear `go` (a
+// round enqueued after the fixed point converged), as D does: its outputs
+// are then not written, and F merges nothing.
 template <int G>
 __global__ void __launch_bounds__(kThreads)
 activities_kernel(const double* __restrict__ val, const double* __restrict__ lb_g,
                   const double* __restrict__ ub_g, double* __restrict__ mf, int* __restrict__ mc,
-                  double* __restrict__ xf, int* __restrict__ xc, int64_t n_chunks, int k,
-                  double inf) {
+                  double* __restrict__ xf, int* __restrict__ xc, const bool* __restrict__ go,
+                  int64_t n_chunks, int k, double inf) {
+  if (skip_round(go)) return;
   const Lanes L = lanes_for<G>(n_chunks);
   const RowAgg a = chunk_aggregates<G>(val, SlotBounds{lb_g, ub_g}, L.chunk * k,
                                        L.live ? k : 0, L, inf);
@@ -567,8 +570,10 @@ candidates_kernel(const double* __restrict__ val, const double* __restrict__ lb_
                   const double* __restrict__ rmf, const int* __restrict__ rmc,
                   const double* __restrict__ rxf, const int* __restrict__ rxc,
                   const double* __restrict__ lhs, const double* __restrict__ rhs,
-                  double* __restrict__ lcand, double* __restrict__ ucand, int64_t n_chunks,
-                  int k, double int_eps, double inf) {
+                  double* __restrict__ lcand, double* __restrict__ ucand,
+                  const bool* __restrict__ go, int64_t n_chunks, int k, double int_eps,
+                  double inf) {
+  if (skip_round(go)) return;
   const Lanes L = lanes_for<G>(n_chunks);
   if (!L.live) return;
   const int64_t c = L.chunk;
@@ -582,8 +587,10 @@ __global__ void __launch_bounds__(kThreads)
 fused_round_kernel(const double* __restrict__ val, const double* __restrict__ lb_g,
                    const double* __restrict__ ub_g, const int* __restrict__ ii,
                    const double* __restrict__ lhs, const double* __restrict__ rhs,
-                   double* __restrict__ lcand, double* __restrict__ ucand, int64_t n_chunks,
-                   int k, double int_eps, double inf) {
+                   double* __restrict__ lcand, double* __restrict__ ucand,
+                   const bool* __restrict__ go, int64_t n_chunks, int k, double int_eps,
+                   double inf) {
+  if (skip_round(go)) return;
   const Lanes L = lanes_for<G>(n_chunks);
   const SlotBounds b{lb_g, ub_g};
   const int64_t base = L.chunk * k;
@@ -777,8 +784,9 @@ int node_objective(const double* lb, const double* ub, const double* c, const bo
 }
 
 int activities(const double* val, const double* lb_g, const double* ub_g, double* mf, int* mc,
-               double* xf, int* xc, int64_t n_chunks, int k, double inf, cudaStream_t stream) {
-  LAUNCH_FOR_WIDTH(activities_kernel, k, n_chunks, stream, val, lb_g, ub_g, mf, mc, xf, xc,
+               double* xf, int* xc, const bool* go, int64_t n_chunks, int k, double inf,
+               cudaStream_t stream) {
+  LAUNCH_FOR_WIDTH(activities_kernel, k, n_chunks, stream, val, lb_g, ub_g, mf, mc, xf, xc, go,
                    n_chunks, k, inf);
   return static_cast<int>(cudaGetLastError());
 }
@@ -786,17 +794,19 @@ int activities(const double* val, const double* lb_g, const double* ub_g, double
 int candidates(const double* val, const double* lb_g, const double* ub_g, const int* ii,
                const double* rmf, const int* rmc, const double* rxf, const int* rxc,
                const double* lhs, const double* rhs, double* lcand, double* ucand,
-               int64_t n_chunks, int k, double int_eps, double inf, cudaStream_t stream) {
+               const bool* go, int64_t n_chunks, int k, double int_eps, double inf,
+               cudaStream_t stream) {
   LAUNCH_FOR_WIDTH(candidates_kernel, k, n_chunks, stream, val, lb_g, ub_g, ii, rmf, rmc, rxf,
-                   rxc, lhs, rhs, lcand, ucand, n_chunks, k, int_eps, inf);
+                   rxc, lhs, rhs, lcand, ucand, go, n_chunks, k, int_eps, inf);
   return static_cast<int>(cudaGetLastError());
 }
 
 int fused_round(const double* val, const double* lb_g, const double* ub_g, const int* ii,
                 const double* lhs, const double* rhs, double* lcand, double* ucand,
-                int64_t n_chunks, int k, double int_eps, double inf, cudaStream_t stream) {
+                const bool* go, int64_t n_chunks, int k, double int_eps, double inf,
+                cudaStream_t stream) {
   LAUNCH_FOR_WIDTH(fused_round_kernel, k, n_chunks, stream, val, lb_g, ub_g, ii, lhs, rhs, lcand,
-                   ucand, n_chunks, k, int_eps, inf);
+                   ucand, go, n_chunks, k, int_eps, inf);
   return static_cast<int>(cudaGetLastError());
 }
 

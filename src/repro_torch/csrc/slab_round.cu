@@ -58,6 +58,9 @@
 // chunk_len); #13 sums by its first half, chunk_sums, each straddle copy
 // stopped at a_chunk_len; #13, #14 and #15 walk the active planes' items
 // only (round_common.cuh).
+// #11 and #12 take a single instance's loop carry's `go` (null in a batch):
+// on a clear one (a round enqueued after its fixed point converged) every
+// block returns before it reads a tile, as D's do, and #15 merges nothing.
 // Each entry point returns cudaGetLastError().
 
 #include "round_common.cuh"
@@ -110,8 +113,9 @@ slab_partials_kernel(const double* __restrict__ val, const int* __restrict__ col
                      const int* __restrict__ run_slab, const bool* __restrict__ active,
                      const double* __restrict__ lb, const double* __restrict__ ub,
                      double* __restrict__ mf, int* __restrict__ mc, double* __restrict__ xf,
-                     int* __restrict__ xc, int n_runs, int64_t n_chunks, int r, int k,
-                     int64_t width, int64_t slab, double inf) {
+                     int* __restrict__ xc, const bool* __restrict__ go, int n_runs,
+                     int64_t n_chunks, int r, int k, int64_t width, int64_t slab, double inf) {
+  if (skip_round(go)) return;
   const Lanes L = lanes_for<G>(n_chunks);
   const Copy c = copy_window(L, r, run_start, run_inst, run_slab, n_runs, width, slab);
   const bool act = L.live && active[c.inst];
@@ -183,8 +187,10 @@ slab_scatter_kernel(const double* __restrict__ val, const int* __restrict__ col,
                     const double* __restrict__ rhs, const int* __restrict__ tile_inst,
                     const int* __restrict__ tile_slab, const bool* __restrict__ active,
                     const double* __restrict__ lb, const double* __restrict__ ub,
-                    double* best_l, double* best_u, int64_t n_chunks, int r, int k,
-                    int64_t width, int64_t slab, double int_eps, double inf) {
+                    double* best_l, double* best_u, const bool* __restrict__ go,
+                    int64_t n_chunks, int r, int k, int64_t width, int64_t slab,
+                    double int_eps, double inf) {
+  if (skip_round(go)) return;
   const Lanes L = lanes_for<G>(n_chunks);
   bool use = false;
   int64_t off = 0;
@@ -259,10 +265,11 @@ const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaEr
 
 int slab_partials(const double* val, const int* col, const int* run_start, const int* run_inst,
                   const int* run_slab, const bool* active, const double* lb, const double* ub,
-                  double* mf, int* mc, double* xf, int* xc, int n_runs, int64_t n_chunks, int r,
-                  int k, int64_t width, int64_t slab, double inf, cudaStream_t stream) {
+                  double* mf, int* mc, double* xf, int* xc, const bool* go, int n_runs,
+                  int64_t n_chunks, int r, int k, int64_t width, int64_t slab, double inf,
+                  cudaStream_t stream) {
   LAUNCH_FOR_WIDTH(slab_partials_kernel, k, n_chunks, stream, val, col, run_start, run_inst,
-                   run_slab, active, lb, ub, mf, mc, xf, xc, n_runs, n_chunks, r, k, width,
+                   run_slab, active, lb, ub, mf, mc, xf, xc, go, n_runs, n_chunks, r, k, width,
                    slab, inf);
   return static_cast<int>(cudaGetLastError());
 }
@@ -288,13 +295,14 @@ int slab_scatter(const double* val, const int* col, const int* ii, const int* cl
                  const int* done, const double* smf, const int* smc, const double* sxf,
                  const int* sxc, const double* lhs, const double* rhs, const int* tile_inst,
                  const int* tile_slab, const bool* active, const double* lb, const double* ub,
-                 double* best_l, double* best_u, int64_t n_chunks, int r, int k, int max_len,
-                 int64_t width, int64_t slab, double int_eps, double inf, cudaStream_t stream) {
+                 double* best_l, double* best_u, const bool* go, int64_t n_chunks, int r, int k,
+                 int max_len, int64_t width, int64_t slab, double int_eps, double inf,
+                 cudaStream_t stream) {
   const unsigned int blocks = chunk_blocks(n_chunks, k);
 #define SLAB_SCATTER(G, U)                                                                  \
   (slab_scatter_kernel<G, U><<<blocks, kThreads, 0, stream>>>(                              \
        val, col, ii, clen, done, smf, smc, sxf, sxc, lhs, rhs, tile_inst, tile_slab, active, \
-       lb, ub, best_l, best_u, n_chunks, r, k, width, slab, int_eps, inf),                  \
+       lb, ub, best_l, best_u, go, n_chunks, r, k, width, slab, int_eps, inf),              \
    static_cast<int>(cudaGetLastError()))
   DISPATCH_HELD(SLAB_SCATTER, k, held_strides(max_len))
 #undef SLAB_SCATTER

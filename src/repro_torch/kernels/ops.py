@@ -102,13 +102,6 @@ from .slab import (  # noqa: F401  (re-exported)
 # engines.  SCATTER_MAX_NPAD is the JAX package's VMEM budget, kept so that
 # both packages pick the same engine; it limits nothing on the H100.
 
-# Whether the single instance's fused round gates D, A', the combine and E
-# on the loop carry's GO (read when round_fn_for makes a closure): a round
-# enqueued after the fixed point converged then returns at once instead of
-# scattering what F would not merge.  F itself always checks GO.
-# chip_smoke.py times device_loop both ways (PERF.md).
-GATE_ROUNDS = True
-
 
 class DeviceBlockEll(NamedTuple):
     """One instance's block-ELL tiles and vectors as tensors on one device."""
@@ -554,8 +547,10 @@ def _partitioned_kernel_round(
     into a pair kept there.  Returns ``(lb, ub, changed)`` with ``(B,)``
     bool flags: the window flags OR-ed per plane.  With ``carry`` (``(state,
     k, unroll)`` of a single instance's loop carry, ``active`` its ``GO``)
+    #11, the straddle combine and #12 return at once where ``GO`` is false,
     #15 folds its flags into the carry and ``changed`` is None."""
     bsz = lb.shape[0]
+    go = active if carry is not None else None
     if part.has_straddle:
         if node:
             partials = kern.node_slab_partials_tiles(
@@ -572,11 +567,12 @@ def _partitioned_kernel_round(
                 part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_inst,
                 part.a_run_slab, active, lb, ub, part.slab, part.a_max_run_len, inf,
                 out=kept.scratch("slab_partials", kern.partial_specs(part.a_val.shape[:2]), lb),
+                go=go,
             )
             specs = kern.straddle_specs(tuple(partials[0].shape), tuple(part.agg_slot.shape),
                                         part.a_seg.shape[0] - 1)
             strs = kern.straddle_combine_tiles(*partials, part.a_order, part.a_seg,
-                                               part.agg_slot, None,
+                                               part.agg_slot, go,
                                                out=kept.scratch("straddle", specs, lb))
     else:
         shape = ((bsz,) if node else ()) + tuple(part.chunk_row.shape)
@@ -598,7 +594,8 @@ def _partitioned_kernel_round(
         lb, ub, ch = kern.batched_slab_round_tiles(
             *common, part.run_inst, part.run_slab, active, lb, ub, part.slab,
             part.max_run_len, eps, int_eps, inf, outward,
-            tiles=(part.tile_inst, part.tile_slab), carry=state, k=k, unroll=unroll, **hoisted,
+            tiles=(part.tile_inst, part.tile_slab), carry=state, k=k, unroll=unroll, go=go,
+            **hoisted,
         )
         if carry is not None:
             return lb, ub, None
@@ -670,7 +667,7 @@ PLAIN_OPS = RoundOps(
 def _segment_round(
     ops: RoundOps, d: DeviceBlockEll, lb, ub, ii_g, lhs_g, rhs_g, row_start, index,
     width: int, *, fused: bool, eps: float, int_eps: float, inf: float, outward: float = 0.0,
-    classes=None, carry=None,
+    classes=None, carry=None, gate: bool = False,
 ):
     """One round of the segment (seed) dataflow over ``(width,)`` bounds:
     bounds gathered per slot, kernel C (``fused``) or kernel A, the fused
@@ -680,19 +677,23 @@ def _segment_round(
     marks and sides ``ii_g``, ``lhs_g``, ``rhs_g`` and the combine's
     ``row_start`` (and its segment ``classes``) come hoisted or per round
     from the caller.  F folds its flag into the loop carry ``carry``
-    (``(state, k, unroll)``; a fresh one when None).  Returns ``(lb, ub,
-    changed)``, ``changed`` the carry's ``GO``; with kernels the bounds are
-    updated in place."""
+    (``(state, k, unroll)``; a fresh one when None).  With ``gate`` (the
+    kernels and a carry) C, A, the combine and B return at once where the
+    carry's GO is false; the bound gather and the column reduction, in
+    PyTorch, still run.  Returns ``(lb, ub, changed)``, ``changed`` the
+    carry's ``GO``; with kernels the bounds are updated in place."""
+    state, k, unroll = carry if carry is not None else (None, 0, 1)
+    gate = dict(go=_carry.go_mask(state)) if gate and state is not None else {}
     lb_g, ub_g = gather_bounds(lb, ub, d.col)
     if fused:
-        lcand, ucand = ops.fused_round_tiles(d.val, lb_g, ub_g, ii_g, lhs_g, rhs_g, int_eps, inf)
+        lcand, ucand = ops.fused_round_tiles(d.val, lb_g, ub_g, ii_g, lhs_g, rhs_g, int_eps, inf,
+                                             **gate)
     else:
-        partials = ops.activities_tiles(d.val, lb_g, ub_g, inf)
-        aggs = ops.combine(*partials, d.chunk_row, row_start, classes=classes)
+        partials = ops.activities_tiles(d.val, lb_g, ub_g, inf, **gate)
+        aggs = ops.combine(*partials, d.chunk_row, row_start, classes=classes, **gate)
         lcand, ucand = ops.candidates_tiles(d.val, lb_g, ub_g, ii_g, *aggs, lhs_g, rhs_g,
-                                            int_eps, inf)
+                                            int_eps, inf, **gate)
     best_l, best_u = segment_reduce(lcand, ucand, index, width, inf)
-    state, k, unroll = carry if carry is not None else (None, 0, 1)
     return ops.merge(lb, ub, best_l, best_u, eps, inf, outward, carry=state, k=k, unroll=unroll)
 
 
@@ -798,17 +799,22 @@ def round_fn_for(
     """A ``(lb, ub) -> (lb, ub, changed)`` round closure over a prepared
     instance (bounds in the ``(n_pad,)`` domain).  ``slab`` overrides the
     partitioned engine's column-slab width (default
-    :func:`default_slab_width`; ignored by the other engines).  With the
-    kernels, :data:`GATE_ROUNDS` (read here) gates the fused round's kernels
-    on the carry.
+    :func:`default_slab_width`; ignored by the other engines).
 
     The closure owns a loop carry (its ``carry``, :class:`core.carry.
     LoopCarry`) that the round's last kernel updates on the device.  A
     driver arms it for a fixed point (:func:`core.propagator.fixed_point`,
     :func:`core.propagator.device_fixed_point`); then ``changed`` is a view
-    of the carry's GO, which the next round overwrites.  A call outside a
-    driver is a fixed point of its own: a fresh carry, and ``changed``
-    says whether the round tightened a bound."""
+    of the carry's GO, which the next round overwrites: read it before the
+    next call.  A call outside a driver is a fixed point of its own: a
+    fresh carry, and ``changed`` (a view of that carry alone) says whether
+    the round tightened a bound.  On the kernels every kernel of the round
+    returns at once where the carry's GO is false (a round enqueued after
+    convergence); the closure's ``gated`` says whether that is all the
+    round does then (the fused and partitioned engines), which the device
+    loop reads to size its read groups (:func:`core.propagator.loop_group`).
+    The segment engine's bound gather and column reduction and the plain
+    versions run in full."""
     scatter = _resolve_scatter(scatter, prep)
     do_fuse = prep.fits_one_chunk if fused is None else bool(fused)
     dt = prep.d.val.dtype
@@ -821,24 +827,23 @@ def round_fn_for(
                 ops, prep.d, lb, ub, prep.ii_g, prep.lhs_g, prep.rhs_g, prep.row_start,
                 prep.segment_index(), prep.n_pad, fused=do_fuse, eps=eps,
                 int_eps=cfg.int_eps, inf=cfg.inf, outward=outward, classes=prep.seg_classes,
-                carry=carry.step(lb.device),
+                carry=carry.step(lb.device), gate=use_kernels,
             )
 
-        round_fn.carry = carry
+        round_fn.carry, round_fn.gated = carry, False
         return round_fn
     part = prep.slab_partition(slab) if scatter == "partitioned" else None
     kept = KeptPlanes(cfg.inf)
-    gate = use_kernels and GATE_ROUNDS
 
     def round_fn(lb, ub):
         return _prepared_round(
             prep, lb, ub, ops=ops, eps=eps, int_eps=cfg.int_eps, inf=cfg.inf,
             fused=do_fuse, outward=outward, part=part, kept=kept, carry=carry.step(lb.device),
-            gate=gate,
+            gate=use_kernels,
         )
 
     run = kept.guard(round_fn)
-    run.carry = carry
+    run.carry, run.gated = carry, use_kernels
     return run
 
 
@@ -940,7 +945,7 @@ def propagate_block_ell(
     ``"device_loop"`` (:func:`core.propagator.device_fixed_point`, one
     round per check) enqueues rounds whose last kernel keeps the loop state
     in the round closure's carry on the device, and reads it once per
-    ``core.propagator.DEVICE_LOOP_GROUP`` rounds.  Both give the same
+    :func:`core.propagator.loop_group` rounds.  Both give the same
     rounds, flags and bounds, bit for bit; ``on_sync`` is called once per
     host read.  ``"unrolled"`` raises ``ValueError``, as the reference's
     does.  Float64 only: ``dtype``, ``policy``, ``stop_progress`` and

@@ -404,11 +404,12 @@ def _check_gathered(val, lb_g, ub_g, is_int_g=None):
     return t * r, k
 
 
-def activities_tiles(val, lb_g, ub_g, inf: float = INF):
+def activities_tiles(val, lb_g, ub_g, inf: float = INF, *, go=None):
     """Per-chunk activity partials from pre-gathered bounds: (T, R, K)
     ``val``, ``lb_g``, ``ub_g`` -> ``(mf, mc, xf, xc)``, each (T, R): finite
     min/max sums (float64, in ``ref.warp_order_sum`` order) and infinity
-    counts (int32).
+    counts (int32).  ``go`` (the loop carry's ``GO``, as for D) skips the
+    launch's work where it is false; the outputs are then not written.
 
     Replaces ``activities_tiles`` / ``_activities_kernel``
     (src/repro/kernels/prop_round.py:226 / :217).  Bound on the H100: 8 B of
@@ -427,8 +428,8 @@ def activities_tiles(val, lb_g, ub_g, inf: float = INF):
     if n_chunks == 0:
         return mf, mc, xf, xc
     err = _build.lib().activities(
-        _p(val), _p(lb_g), _p(ub_g), _p(mf), _p(mc), _p(xf), _p(xc), n_chunks, k, inf,
-        _stream(),
+        _p(val), _p(lb_g), _p(ub_g), _p(mf), _p(mc), _p(xf), _p(xc), _go(go), n_chunks, k,
+        inf, _stream(),
     )
     activities_tiles.launches += 1
     _build.check(err, "activities")
@@ -441,12 +442,13 @@ activities_tiles.launches = 0
 def candidates_tiles(
     val, lb_g, ub_g, is_int_g,
     row_min_fin, row_min_cnt, row_max_fin, row_max_cnt,
-    lhs_g, rhs_g, int_eps: float, inf: float = INF,
+    lhs_g, rhs_g, int_eps: float, inf: float = INF, *, go=None,
 ):
     """Candidates from completed row aggregates and pre-gathered bounds,
     written out: (T, R, K) ``val``, ``lb_g``, ``ub_g``, ``is_int_g`` (int32;
     bool widens) + (T, R) aggregates and sides -> (T, R, K) ``lcand`` /
-    ``ucand``, the sentinels at padding and at invalid entries.
+    ``ucand``, the sentinels at padding and at invalid entries.  ``go`` as
+    in :func:`activities_tiles`.
 
     Replaces ``candidates_tiles`` / ``_candidates_kernel``
     (src/repro/kernels/prop_round.py:347 / :314).  Bound on the H100: 8 B of
@@ -475,7 +477,7 @@ def candidates_tiles(
     err = _build.lib().candidates(
         _p(val), _p(lb_g), _p(ub_g), _p(is_int_g), _p(row_min_fin), _p(row_min_cnt),
         _p(row_max_fin), _p(row_max_cnt), _p(lhs_g), _p(rhs_g), _p(lcand), _p(ucand),
-        n_chunks, k, int_eps, inf, _stream(),
+        _go(go), n_chunks, k, int_eps, inf, _stream(),
     )
     candidates_tiles.launches += 1
     _build.check(err, "candidates")
@@ -486,11 +488,12 @@ candidates_tiles.launches = 0
 
 
 def fused_round_tiles(val, lb_g, ub_g, is_int_g, lhs_g, rhs_g, int_eps: float,
-                      inf: float = INF):
+                      inf: float = INF, *, go=None):
     """Activities and candidates in one pass, from pre-gathered bounds,
     candidates written out: (T, R, K) ``val``, ``lb_g``, ``ub_g``,
     ``is_int_g`` + (T, R) sides -> (T, R, K) ``lcand`` / ``ucand``.
-    Requires every row to fit its chunk.
+    Requires every row to fit its chunk.  ``go`` as in
+    :func:`activities_tiles`.
 
     Replaces ``fused_round_tiles`` / ``_fused_round_kernel``
     (src/repro/kernels/prop_round.py:414 / :400).  Bound on the H100: 8 B of
@@ -512,7 +515,7 @@ def fused_round_tiles(val, lb_g, ub_g, is_int_g, lhs_g, rhs_g, int_eps: float,
         return lcand, ucand
     err = _build.lib().fused_round(
         _p(val), _p(lb_g), _p(ub_g), _p(is_int_g), _p(lhs_g), _p(rhs_g), _p(lcand), _p(ucand),
-        n_chunks, k, int_eps, inf, _stream(),
+        _go(go), n_chunks, k, int_eps, inf, _stream(),
     )
     fused_round_tiles.launches += 1
     _build.check(err, "fused_round")
@@ -1112,7 +1115,7 @@ def _outputs(out, specs, dev):
 
 def batched_slab_partials_tiles(
     val, col_s, run_start, run_len, run_inst, run_slab, active, lb, ub, slab: int,
-    max_run_len: int, inf: float = INF, *, out=None,
+    max_run_len: int, inf: float = INF, *, out=None, go=None,
 ):
     """Per-copy activity partials of a slab-partitioned sub-stream:
     ``(Ta, R, K)`` copies with slab-local columns + the run maps (one run
@@ -1122,7 +1125,9 @@ def batched_slab_partials_tiles(
     zeros.  ``W`` is ``n_pad_part`` or the instance's ``n_pad``; a copy's
     window starts at ``inst * W + slab_id * slab``.  ``max_run_len`` sizes
     the TPU's grid and is not used here.  ``out`` (the four partials, kept
-    by the round closure) is written instead of fresh tensors.
+    by the round closure) is written instead of fresh tensors.  ``go`` (a
+    single instance's loop carry's ``GO``, as for D) skips the launch's
+    work where it is false; the partials are then not written.
 
     Replaces ``batched_slab_partials_tiles`` /
     ``_batched_slab_partials_kernel`` (src/repro/kernels/prop_round.py:1129
@@ -1142,7 +1147,7 @@ def batched_slab_partials_tiles(
         return mf, mc, xf, xc
     err = _build.lib().slab_partials(
         _p(val), _p(col_s), _p(run_start), _p(run_inst), _p(run_slab), _p(active), _p(lb),
-        _p(ub), _p(mf), _p(mc), _p(xf), _p(xc), n_runs, t * r, r, k, width, slab, inf,
+        _p(ub), _p(mf), _p(mc), _p(xf), _p(xc), _go(go), n_runs, t * r, r, k, width, slab, inf,
         _stream(),
     )
     batched_slab_partials_tiles.launches += 1
@@ -1200,7 +1205,7 @@ def batched_slab_round_tiles(
     lhs_g, rhs_g, run_start, run_len, run_inst, run_slab, active, lb, ub, slab: int,
     max_run_len: int, eps: float, int_eps: float, inf: float = INF, outward: float = 0.0,
     *, acc, tiles, chunk_len=None, max_chunk_len: int | None = None,
-    flags: FlagPair | None = None, carry=None, k: int = 0, unroll: int = 1,
+    flags: FlagPair | None = None, carry=None, k: int = 0, unroll: int = 1, go=None,
 ):
     """The slab round over a partitioned stream, IN PLACE: ``(T'', R, K)``
     copies + ``(T'', R)`` ``row_done`` and straddle aggregates ``str_*``
@@ -1219,7 +1224,8 @@ def batched_slab_round_tiles(
     (``B == 1``: a single instance's fixed point, ``active`` its ``GO``,
     ``k``/``unroll`` as for F) the window flags are folded into the carry
     instead, as F folds its flag, and the third output is the carry's
-    ``GO``.
+    ``GO``; ``go`` (that ``GO``) then skips the scatter's work where it is
+    false.
 
     Replaces ``batched_slab_round_tiles`` / ``_batched_slab_round_kernel``
     (src/repro/kernels/prop_round.py:1258 / :1195), whose merge at each
@@ -1268,8 +1274,8 @@ def batched_slab_round_tiles(
     clen = _chunk_len(val, chunk_len)
     err = _build.lib().slab_scatter(
         _p(val), _p(col_s), _p(is_int_g), _p(clen), _p(row_done), *map(_p, strs), _p(lhs_g),
-        _p(rhs_g), *map(_p, tiles), _p(active), _p(lb), _p(ub), _p(best_l), _p(best_u), t * r,
-        r, kw, _max_len(kw, max_chunk_len), width, slab, int_eps, inf, _stream(),
+        _p(rhs_g), *map(_p, tiles), _p(active), _p(lb), _p(ub), _p(best_l), _p(best_u), _go(go),
+        t * r, r, kw, _max_len(kw, max_chunk_len), width, slab, int_eps, inf, _stream(),
     )
     batched_slab_round_tiles.launches += 1
     _build.check(err, "slab_scatter")

@@ -10,7 +10,8 @@ that kernel F keeps on the device.
     exact families bitwise, float families ``bounds_equal`` and
     ``allclose(1e-12)``;
   * round caps that end inside a check group and across the host's read
-    groups (``DEVICE_LOOP_GROUP`` monkeypatched);
+    groups (``DEVICE_LOOP_GROUP`` and ``UNGATED_LOOP_GROUP`` monkeypatched),
+    and which of the two each engine's closure reads;
   * ``propagate_block_ell``'s ``device_loop`` bitwise equal to its
     ``host_loop`` on every engine, on the kernels' CPU branches and on the
     plain versions;
@@ -49,6 +50,12 @@ def expected_reads(driver: str, rounds: int, group: int) -> int:
     return math.ceil(rounds // UNROLL[driver] / group)
 
 
+def _set_groups(monkeypatch, group: int) -> None:
+    """Both read groups of the device loop set to ``group``."""
+    monkeypatch.setattr(tprop, "DEVICE_LOOP_GROUP", group)
+    monkeypatch.setattr(tprop, "UNGATED_LOOP_GROUP", group)
+
+
 def _counter():
     n = [0]
     return n, lambda: n.__setitem__(0, n[0] + 1)
@@ -64,7 +71,7 @@ def test_propagate_drivers_match_reference(case, exact, driver):
     got = rt.propagate(rt.problem_from_reference(pr), driver=driver, device="cpu",
                        on_sync=count)
     assert_results_match(got, want, exact)
-    assert n[0] == expected_reads(driver, int(got.rounds), tprop.DEVICE_LOOP_GROUP)
+    assert n[0] == expected_reads(driver, int(got.rounds), tprop.UNGATED_LOOP_GROUP)
 
 
 NAMED = {
@@ -96,7 +103,7 @@ def test_round_caps_across_check_groups(monkeypatch, max_rounds, group):
     whole group, past the cap) and inside the host's read group; and with
     one round per check.  The cascade chain changes a bound every round,
     so the cap cuts every run, and progress is the last group's measure."""
-    monkeypatch.setattr(tprop, "DEVICE_LOOP_GROUP", group)
+    _set_groups(monkeypatch, group)
     pr = rd.make_cascade_chain(length=24)
     dp = rt.core.DeviceProblem(rt.problem_from_reference(pr), device="cpu")
     cfg_r = rc.PropagatorConfig(max_rounds=max_rounds)
@@ -114,7 +121,7 @@ def test_round_caps_across_check_groups(monkeypatch, max_rounds, group):
 def test_convergence_inside_a_read_group(monkeypatch, group):
     """Groups enqueued after convergence, before the host's read, change
     neither the bounds nor the counts: bitwise the host loop's result."""
-    monkeypatch.setattr(tprop, "DEVICE_LOOP_GROUP", group)
+    _set_groups(monkeypatch, group)
     p = rt.problem_from_reference(rd.make_pseudo_boolean(n=300, m=400, seed=4))
     host = rt.propagate(p, driver="host_loop", device="cpu")
     n, count = _counter()
@@ -199,7 +206,7 @@ ENGINES = {
 @pytest.mark.parametrize("engine", list(ENGINES))
 def test_block_ell_device_loop_equals_host_loop(monkeypatch, tiny_limit, engine, use_kernels):
     gen, kw, tile_width, scatter = ENGINES[engine]
-    monkeypatch.setattr(tprop, "DEVICE_LOOP_GROUP", 3)
+    _set_groups(monkeypatch, 3)
     p = rt.problem_from_reference(getattr(rd, gen)(**kw))
     kw = dict(tile_width=tile_width, scatter=scatter, use_kernels=use_kernels, device="cpu")
     n_host, count_host = _counter()
@@ -213,6 +220,57 @@ def test_block_ell_device_loop_equals_host_loop(monkeypatch, tiny_limit, engine,
     cap = rt.core.PropagatorConfig(max_rounds=rounds - 1)
     _assert_same_result(rt.propagate_block_ell(p, cap, driver="device_loop", **kw),
                         rt.propagate_block_ell(p, cap, driver="host_loop", **kw))
+
+
+@pytest.mark.parametrize("use_kernels", [True, False], ids=["kernels", "plain"])
+@pytest.mark.parametrize("engine", list(ENGINES))
+def test_read_group_follows_the_engine(monkeypatch, tiny_limit, engine, use_kernels):
+    """The device loop reads the carry once per DEVICE_LOOP_GROUP rounds
+    where every kernel of a round enqueued after convergence returns at
+    once (the fused and partitioned engines on the kernels), and once per
+    UNGATED_LOOP_GROUP rounds where such a round still runs in full (the
+    segment engine's gather and column reduction, the plain versions)."""
+    gen, kw, tile_width, scatter = ENGINES[engine]
+    monkeypatch.setattr(tprop, "DEVICE_LOOP_GROUP", 5)
+    monkeypatch.setattr(tprop, "UNGATED_LOOP_GROUP", 2)
+    p = rt.problem_from_reference(getattr(rd, gen)(**kw))
+    prep = rt.prepare_block_ell(p, tile_width=tile_width, device="cpu")
+    gated = use_kernels and engine != "segment"
+    round_fn = tops.round_fn_for(prep, use_kernels=use_kernels, scatter=scatter)
+    assert round_fn.gated == gated and tprop.loop_group(round_fn) == (5 if gated else 2)
+    n, count = _counter()
+    got = rt.propagate_block_ell(p, tile_width=tile_width, scatter=scatter,
+                                 use_kernels=use_kernels, device="cpu", on_sync=count)
+    assert n[0] == math.ceil(int(got.rounds) / (5 if gated else 2))
+
+
+def test_plain_round_reads_the_ungated_group(monkeypatch):
+    """propagate's plain round has no kernel to skip a wasted round: its
+    device loops read once per UNGATED_LOOP_GROUP check groups."""
+    monkeypatch.setattr(tprop, "DEVICE_LOOP_GROUP", 5)
+    monkeypatch.setattr(tprop, "UNGATED_LOOP_GROUP", 3)
+    p = rt.problem_from_reference(rd.make_pseudo_boolean(n=300, m=400, seed=4))
+    dp = rt.core.DeviceProblem(p, device="cpu")
+    assert tprop.loop_group(tprop._round_fn(dp, rt.core.DEFAULT_CONFIG)) == 3
+    for driver, unroll in (("device_loop", 1), ("unrolled", 4)):
+        n, count = _counter()
+        got = rt.propagate(p, driver=driver, device="cpu", on_sync=count)
+        assert n[0] == math.ceil(int(got.rounds) // unroll / 3)
+
+
+def test_unarmed_round_flags_stay_their_own():
+    """Outside a driver each round runs on a fresh carry, so a round's
+    ``changed`` keeps its value after later rounds."""
+    p = rt.problem_from_reference(rd.make_cascade_chain(length=12))
+    prep = rt.prepare_block_ell(p, tile_width=4, device="cpu")
+    for scatter in ("fused", "segment"):
+        round_fn = tops.round_fn_for(prep, scatter=scatter)
+        lb, ub = prep.lb0.clone(), prep.ub0.clone()
+        flags = [round_fn(lb, ub)[2] for _ in range(16)]
+        assert [bool(f) for f in flags] == [True] * 13 + [False] * 3
+    fresh = [tcarry.armed_state("cpu") for _ in range(2)]
+    assert fresh[0].data_ptr() != fresh[1].data_ptr()
+    assert fresh[0].tolist() == [0, 0, 0, 1, 0, 0, 0, 0]
 
 
 def test_block_ell_rejects_unrolled():

@@ -37,12 +37,14 @@ def gen():
     return np.random.default_rng(0)
 
 
-def _enqueued(rounds: int) -> int:
+def _enqueued(rounds: int, gated: bool = True) -> int:
     """Rounds that the device loop (``propagate_block_ell``'s default)
     enqueues for a fixed point of ``rounds``: whole read groups of
-    ``DEVICE_LOOP_GROUP``, at most ``max_rounds``.  Those after convergence
-    still launch (and return at once)."""
-    group = rt.core.propagator.DEVICE_LOOP_GROUP
+    ``DEVICE_LOOP_GROUP`` (``UNGATED_LOOP_GROUP`` for the segment engine),
+    at most ``max_rounds``.  Those after convergence still launch (and
+    return at once)."""
+    prop = rt.core.propagator
+    group = prop.DEVICE_LOOP_GROUP if gated else prop.UNGATED_LOOP_GROUP
     return min(-(-rounds // group) * group, rt.core.DEFAULT_CONFIG.max_rounds)
 
 
@@ -988,7 +990,7 @@ def test_segment_engine_on_card_matches_fused_engine(cuda, gen_name, kw, tile_wi
     tk.reset_launch_counts()
     got = rt.propagate_block_ell(p, tile_width=tile_width, scatter="segment")
     counts = tk.launch_counts()
-    rounds = _enqueued(int(got.rounds))
+    rounds = _enqueued(int(got.rounds), gated=False)
     assert counts["apply_updates_tiles"] == rounds
     if tk.rows_fit_one_chunk(p, tile_width):
         assert counts["fused_round_tiles"] == rounds
@@ -1015,7 +1017,7 @@ def test_segment_auto_past_the_limit_on_card(cuda, small_limit, monkeypatch):
     tk.reset_launch_counts()
     got = rt.propagate_block_ell(p)
     counts = tk.launch_counts()
-    assert counts["fused_round_tiles"] == _enqueued(int(got.rounds)) > 0
+    assert counts["fused_round_tiles"] == _enqueued(int(got.rounds), gated=False) > 0
     assert counts["batched_slab_round_tiles"] == 0
     for f in ("lb", "ub", "rounds", "converged", "infeasible"):
         _match(getattr(got, f), getattr(fused, f))
@@ -1737,6 +1739,7 @@ def test_merge_keeps_the_carry_on_card(cuda, gen, unroll):
 def test_device_loop_on_card_equals_host_loop(cuda, monkeypatch, engine, gen_name, kw,
                                               tile_width, scatter):
     monkeypatch.setattr(rt.core.propagator, "DEVICE_LOOP_GROUP", 3)
+    monkeypatch.setattr(rt.core.propagator, "UNGATED_LOOP_GROUP", 3)
     p = getattr(td, gen_name)(**kw)
     args = dict(tile_width=tile_width, scatter=scatter, slab=128)
     syncs = {"host_loop": [], "device_loop": []}
@@ -1746,6 +1749,49 @@ def test_device_loop_on_card_equals_host_loop(cuda, monkeypatch, engine, gen_nam
         _match(getattr(out["device_loop"], f), getattr(out["host_loop"], f))
     rounds = int(out["host_loop"].rounds)
     assert len(syncs["host_loop"]) == rounds and len(syncs["device_loop"]) == -(-rounds // 3)
+
+
+@pytest.mark.parametrize("engine,gen_name,kw,tile_width,scatter", [
+    ("fused", "make_pseudo_boolean", dict(n=3000, m=4000, seed=7), 128, "fused"),
+    ("multi-chunk", "make_mixed", dict(m=600, n=450, seed=21), 16, "fused"),
+    ("partitioned", "make_pseudo_boolean", dict(n=3000, m=4000, seed=7), 8, "partitioned"),
+    ("segment-C", "make_pseudo_boolean", dict(n=3000, m=4000, seed=7), 128, "segment"),
+    ("segment-AB", "make_mixed", dict(m=600, n=450, seed=21), 16, "segment"),
+])
+def test_gated_rounds_on_card_equal_plain_rounds(cuda, engine, gen_name, kw, tile_width,
+                                                 scatter):
+    """The round closure on the kernels against the one on the plain
+    versions, carries armed for groups of 3, through convergence and 12
+    rounds enqueued after it, where every kernel returns at once on the
+    carry's clear GO: bounds and carry bitwise after every round."""
+    from repro_torch.core import carry as tcarry
+    from repro_torch.kernels import ops as tops
+
+    p = getattr(td, gen_name)(**kw)
+    prep = rt.prepare_block_ell(p, tile_width=tile_width)
+    fk = tops.round_fn_for(prep, scatter=scatter, slab=128)
+    fp = tops.round_fn_for(prep, use_kernels=False, scatter=scatter, slab=128)
+    assert fk.gated == (scatter != "segment") and not fp.gated
+    lbk, ubk = prep.lb0.clone(), prep.ub0.clone()
+    lbp, ubp = prep.lb0.clone(), prep.ub0.clone()
+    fk.carry.arm(cuda, 3)
+    fp.carry.arm(cuda, 3)
+    try:
+        go = []
+        for _ in range(int(rt.propagate_block_ell(p, tile_width=tile_width, scatter=scatter,
+                                                  slab=128).rounds) + 12):
+            lbk, ubk, _ = fk(lbk, ubk)
+            lbp, ubp, _ = fp(lbp, ubp)
+            for g, w in ((lbk, lbp), (ubk, ubp), (fk.carry.state, fp.carry.state)):
+                _match(g, w)
+            go.append(fk.carry.state.tolist()[tcarry.GO])
+    finally:
+        fk.carry.release()
+        fp.carry.release()
+    # GO clears, for good, at the end of the first check group of 3 in which
+    # no round changed a bound: at most four rounds after the host loop's
+    # last round (the one that changed nothing).
+    assert go == sorted(go, reverse=True) and go.count(0) >= 8
 
 
 def test_kept_flag_pairs_on_card(cuda, gen):

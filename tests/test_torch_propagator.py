@@ -77,8 +77,8 @@ def test_propagate_matches_reference(case, exact, driver):
     assert_results_match(got, want, exact)
     rounds = int(got.rounds)
     # The host loop reads a flag per round; the device loop reads its carry
-    # once per DEVICE_LOOP_GROUP rounds.
-    group = rt.core.propagator.DEVICE_LOOP_GROUP
+    # once per UNGATED_LOOP_GROUP rounds (the plain round is not gated).
+    group = rt.core.propagator.UNGATED_LOOP_GROUP
     assert len(syncs) == (rounds if driver == "host_loop" else -(-rounds // group))
 
 

@@ -1,23 +1,14 @@
-// Timed variants of kernel F (apply_updates, the single instance's bound
-// merge) and of the loop-carry fold it ends with: which step of its
-// redesign costs or saves what.  Built and driven by tools/f_variants.py;
-// not part of the port's kernel library.
+// Kernel F (apply_updates, the single instance's bound merge) before its
+// redesign and as the port ships it, timed side by side.  Built and driven
+// by tools/f_variants.py; not part of the port's kernel library.
 //
 //   0  the kernel before the redesign: one thread per column (merge_reset);
 //      every thread that tightens a bound stores the bool flag, which a
 //      fill zeroes before the launch
-//   1  the merge body of #9 and #15 (merge_item) on a grid over one plane,
-//      four columns a thread, no mask; one flag store per warp (RowFlags),
-//      the flag still zeroed by a fill
-//   2  as 1, the flag folded into the loop carry by the launch's last block
-//      (an atomic ticket), every thread fencing before the ticket (the
-//      port's F)
-//   3  as 2, only the lanes that store the flag and the ticket's thread
-//      fencing
-//   4  as 2, the last block folding by one atomic exchange of the flag and
-//      fire-and-forget stores (no loads of the carry)
-//   5  as 2, eight columns a thread
-//   6  as 2, one column a thread
+//   1  the port's F: the merge body of #9 and #15 (merge_item) on a grid
+//      over one plane, four columns a thread, no mask, one flag store per
+//      warp, the flag folded into the loop carry by the launch's last block
+//      (an atomic ticket)
 #include "../src/repro_torch/csrc/round_common.cuh"
 
 namespace {
@@ -31,69 +22,6 @@ f_before_kernel(double* __restrict__ lb, double* __restrict__ ub, double* __rest
   if (merge_reset(lb, ub, best_l, best_u, i, eps, inf, outward)) *changed = true;
 }
 
-// Variant 3: only the storing lanes fence.
-struct CarryStoreFence : CarryFlags {
-  template <int C>
-  __device__ __forceinline__ void mark(int64_t, int64_t, const bool (&ch)[C]) const {
-    bool any = false;
-#pragma unroll
-    for (int v = 0; v < C; ++v) any |= ch[v];
-    if (__any_sync(0xffffffffu, any) && threadIdx.x % kWarp == 0) {
-      carry[kCarryFlag] = 1;
-      __threadfence();
-    }
-  }
-  __device__ __forceinline__ void finish() const {
-    __shared__ bool last;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      __threadfence();
-      last = atomicAdd(carry + kCarryTicket, 1) == static_cast<int>(gridDim.x * gridDim.y) - 1;
-    }
-    __syncthreads();
-    if (!last || threadIdx.x != 0) return;
-    __threadfence();
-    volatile int* c = carry;
-    int any = c[kCarryAny] | c[kCarryFlag];
-    if (k == unroll - 1) {
-      c[kCarryRounds] = c[kCarryRounds] + unroll;
-      c[kCarryGo] = any;
-      any = 0;
-    }
-    c[kCarryAny] = any;
-    c[kCarryFlag] = 0;
-    c[kCarryTicket] = 0;
-  }
-};
-
-// Variant 4: the fold by an atomic exchange.
-struct CarryExchange : CarryFlags {
-  __device__ __forceinline__ void finish() const {
-    __shared__ bool last;
-    __threadfence();
-    __syncthreads();
-    if (threadIdx.x == 0)
-      last = atomicAdd(carry + kCarryTicket, 1) == static_cast<int>(gridDim.x * gridDim.y) - 1;
-    __syncthreads();
-    if (!last || threadIdx.x != 0) return;
-    __threadfence();
-    const int flag = atomicExch(carry + kCarryFlag, 0);
-    if (unroll == 1) {
-      atomicAdd(carry + kCarryRounds, 1);
-      carry[kCarryGo] = flag;
-    } else {
-      const int any = atomicExch(carry + kCarryAny, 0) | flag;
-      if (k == unroll - 1) {
-        atomicAdd(carry + kCarryRounds, unroll);
-        carry[kCarryGo] = any;
-      } else {
-        carry[kCarryAny] = any;
-      }
-    }
-    carry[kCarryTicket] = 0;
-  }
-};
-
 }  // namespace
 
 extern "C" {
@@ -103,7 +31,6 @@ const char* error_string(int err) { return cudaGetErrorString(static_cast<cudaEr
 int f_variant(int variant, double* lb, double* ub, double* best_l, double* best_u,
               bool* changed, int* carry, int64_t n, double eps, double inf,
               cudaStream_t stream) {
-  const CarryFlags c{carry, 0, 1};
   switch (variant) {
     case 0: {
       const unsigned int blocks = static_cast<unsigned int>((n + kThreads - 1) / kThreads);
@@ -112,26 +39,9 @@ int f_variant(int variant, double* lb, double* ub, double* best_l, double* best_
       return static_cast<int>(cudaGetLastError());
     }
     case 1:
-      return launch_merge_grid<RowFlags, 4, false>(lb, ub, best_l, best_u, nullptr,
-                                                   RowFlags{changed, nullptr, 0}, 1, n, eps, inf,
-                                                   0.0, stream);
-    case 2:
-      return launch_merge_grid<CarryFlags, 4, false>(lb, ub, best_l, best_u, nullptr, c, 1, n,
-                                                     eps, inf, 0.0, stream);
-    case 3:
-      return launch_merge_grid<CarryStoreFence, 4, false>(lb, ub, best_l, best_u, nullptr,
-                                                          CarryStoreFence{c}, 1, n, eps, inf,
-                                                          0.0, stream);
-    case 4:
-      return launch_merge_grid<CarryExchange, 4, false>(lb, ub, best_l, best_u, nullptr,
-                                                        CarryExchange{c}, 1, n, eps, inf, 0.0,
-                                                        stream);
-    case 5:
-      return launch_merge_grid<CarryFlags, 8, false>(lb, ub, best_l, best_u, nullptr, c, 1, n,
-                                                     eps, inf, 0.0, stream);
-    case 6:
-      return launch_merge_grid<CarryFlags, 1, false>(lb, ub, best_l, best_u, nullptr, c, 1, n,
-                                                     eps, inf, 0.0, stream);
+      return launch_merge_grid<CarryFlags, 4, false>(lb, ub, best_l, best_u, nullptr,
+                                                     CarryFlags{carry, 0, 1}, 1, n, eps, inf,
+                                                     0.0, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,9 +1,8 @@
 #!/usr/bin/env python3
-"""Time variants of kernel F (the single instance's bound merge) and of the
-loop-carry fold it ends with, on ``pb`` of ``chip_smoke.py``: the kernel
-before the redesign, the merge body of #9 and #15 on one plane, and that
-body with the fold's fences and tail done several ways (see
-``tools/f_variants.cu``).
+"""Time kernel F (the single instance's bound merge) before its redesign
+and as the port ships it, on ``pb`` of ``chip_smoke.py``: a thread per
+column with a fill before each launch, against the merge body of #9 and
+#15 on one plane with the loop carry's fold (see ``tools/f_variants.cu``).
 
     python3 tools/f_variants.py [--reps 30]
 
@@ -34,16 +33,10 @@ SOURCE = ROOT / "tools" / "f_variants.cu"
 VARIANTS = {
     0: "before the redesign: a thread per column, every tightening thread stores the flag "
        "(zeroed by a fill)",
-    1: "merge body of #9/#15 on one plane, four columns a thread, one store per warp "
-       "(flag zeroed by a fill)",
-    2: "as 1, folded into the loop carry by the last block, every thread fencing "
-       "(the port's F)",
-    3: "as 2, only the storing lanes and the ticket's thread fencing",
-    4: "as 2, the fold by an atomic exchange of the flag",
-    5: "as 2, eight columns a thread",
-    6: "as 2, one column a thread",
+    1: "the port's F: merge body of #9/#15 on one plane, four columns a thread, one store "
+       "per warp, folded into the loop carry by the last block",
 }
-CARRY = (2, 3, 4, 5, 6)
+CARRY = (1,)
 
 
 def build() -> ctypes.CDLL:
@@ -105,7 +98,7 @@ def main() -> int:
 
     def launch(v):
         lb, ub, bl, bu, carry, flag = scratch
-        if v in (0, 1):
+        if v == 0:
             flag.zero_()  # the fill of the redesign's predecessor, before each launch
         err = lib.f_variant(v, *map(ptr, (lb, ub, bl, bu, flag, carry)), prep.n_pad, eps, inf,
                             stream())
@@ -163,7 +156,7 @@ def main() -> int:
         print(f"variant {v}: device {statistics.median(device[v]):.2f} us, events "
               f"{statistics.median(events[v]) * 1e3:.2f} us -- {what}")
     if fills:
-        print(f"the flag's fill before each launch (variants 0, 1): device "
+        print(f"the flag's fill before each launch (variant 0): device "
               f"{statistics.median(fills):.2f} us")
     return 0
 
