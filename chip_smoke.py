@@ -7,9 +7,9 @@ Run from the root of a checkout.  It imports ``src/repro_torch`` (torch and
 numpy only, nothing of JAX) and, on one CUDA card:
 
   1. prints the card's name and power limit, builds the CUDA kernels of
-     ``src/repro_torch/csrc/prop_round.cu`` and ``slab_round.cu`` from
-     source (one ``nvcc`` per file, in parallel) and prints the build time
-     and the compilers' register report;
+     ``src/repro_torch/csrc/prop_round.cu``, ``slab_round.cu`` and
+     ``tier_round.cu`` from source (one ``nvcc`` per file, in parallel) and
+     prints the build time and the compilers' register report;
   2. generates three instances at n = 60,000 columns, 150,000 rows (the
      paper's Set-5 size): ``pb`` (pseudo-boolean, exact arithmetic, rows in
      one chunk), ``banded`` (rows in one chunk) and ``mixed`` (MIPLIB-like,
@@ -147,8 +147,24 @@ numpy only, nothing of JAX) and, on one CUDA card:
      values printed beside the fastest); ``propagate``'s three drivers on
      ``pb`` (``tools/driver_profile.py`` traces the same runs per driver
      in a fresh process);
- 14. prints a ``kernels`` JSON line, and last
-     ``{"ok": true, "device": {...}}``.
+ 14. (phase 13, last) the precision tiers: the float32 forms of D, A', the
+     combine, E and F (int32 ids on ``pb`` and ``mixed``, the compact int16
+     / int8 streams on ``pb30`` and ``mixed30``, n_pad 30,080; the float64
+     forms timed on the same instances) and F with the early stop (float64
+     and float32) against their plain versions, bitwise, with their times
+     and bounds at 4 B a value, 2 B a compact column and 1 B a compact
+     mark; then, with the launch counters at zero, the float32-only fixed
+     points on both drivers against the plain float32 path on the card
+     (rounds, flags, bounds and progress bitwise), the two-tier runs
+     (``TierPolicy()``) on ``pb`` (infeasible: the guard path), ``pbf``
+     and ``mixed`` against the float64-only runs (same verdict, integer
+     bounds bitwise, continuous ones within 1e-6 (1 + |b|), at least one
+     fp32 round), and the early stop (``TierPolicy(two_tier=False,
+     stop_progress=0.05, patience=1)``) on both drivers (same rounds and
+     bounds); every float form must have been launched; the walls of the
+     float64-only, float32-only and two-tier fixed points by driver;
+ 15. prints a ``kernels`` JSON line (the float forms as ``<wrapper>[<form>]``),
+     and last ``{"ok": true, "device": {...}}``.
 
 Each path runs with the launch counters at zero just before it and read just
 after; every kernel must have been launched by the main-path runs.
@@ -166,10 +182,12 @@ import sys
 import time
 from pathlib import Path
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and dense float64 rate
-# outside the tensor cores, the rate of this f64 vector arithmetic.
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the dense float64
+# and float32 rates outside the tensor cores, the rates of this vector
+# arithmetic.
 HBM_BYTES_PER_S = 3.35e12
 F64_FLOPS = 34e12
+F32_FLOPS = 67e12
 
 # The three smoke instances: (name, generator, kwargs).
 SPECS = [
@@ -255,6 +273,7 @@ SERVICE_TIMED_RUNS = 2
 
 SOURCE = "src/repro_torch/csrc/prop_round.cu"
 SLAB_SOURCE = "src/repro_torch/csrc/slab_round.cu"
+TIER_SOURCE = "src/repro_torch/csrc/tier_round.cu"
 REPLACES = {
     "fused_scatter_round_tiles": "src/repro/kernels/prop_round.py:580",
     "activities_gather_tiles": "src/repro/kernels/prop_round.py:269",
@@ -381,11 +400,15 @@ class EventTimedLib:
     pair holds the kernel's own device time, not the wrapper's fills."""
 
     def __init__(self, torch, lib):
+        from repro_torch.kernels import _build
+
         self.torch, self.lib, self.pairs = torch, lib, []
+        # The kernels' entry points: SYMBOL's and the float forms'.
+        self.timed = set(SYMBOL.values()) | set(_build.SIGNATURES["tier_round.cu"])
 
     def __getattr__(self, name):
         entry = getattr(self.lib, name)
-        if name not in SYMBOL.values():
+        if name not in self.timed:
             return entry
 
         def timed(*args):
@@ -441,10 +464,11 @@ def fresh_inputs(torch, pairs):
 
 def merge_bytes(torch, bnd, lb, ub, best_l, best_u, eps, active=None, inf=None) -> dict:
     """Bytes an in-place merge must move on these inputs: the bounds and
-    candidates of every active column read, and 8 B for each entry that
-    tightens (most store nothing); with ``inf``, the batched merges'
-    hand-back too: 8 B for each active accumulator entry that holds a
-    candidate (set back to the sentinel ``-inf`` or ``inf``)."""
+    candidates of every active column read, and a value (8 B at float64, 4
+    at float32) for each entry that tightens (most store nothing); with
+    ``inf``, the batched merges' hand-back too: a value for each active
+    accumulator entry that holds a candidate (set back to the sentinel
+    ``-inf`` or ``inf``)."""
     take_l, take_u = bnd.improved_lb(best_l, lb, eps), bnd.improved_ub(best_u, ub, eps)
     held_l, held_u = best_l != -(inf or 0.0), best_u != (inf or 0.0)
     if active is not None:
@@ -453,9 +477,11 @@ def merge_bytes(torch, bnd, lb, ub, best_l, best_u, eps, active=None, inf=None) 
         cols = int(active.sum()) * lb.shape[-1]
     else:
         cols = lb.shape[-1]
-    out = dict(bounds=16 * cols, best=16 * cols, stores=8 * int(take_l.sum() + take_u.sum()))
+    v = lb.element_size()
+    out = dict(bounds=2 * v * cols, best=2 * v * cols,
+               stores=v * int(take_l.sum() + take_u.sum()))
     if inf is not None:
-        out["handback"] = 8 * int(held_l.sum() + held_u.sum())
+        out["handback"] = v * int(held_l.sum() + held_u.sum())
     return out
 
 
@@ -494,11 +520,12 @@ def max_abs_err(torch, got, want) -> float:
     return err
 
 
-def bound(nbytes: int, ops: float) -> tuple[float, str]:
+def bound(nbytes: int, ops: float, flops: float = F64_FLOPS) -> tuple[float, str]:
     """The least time for ``nbytes`` of device memory traffic and ``ops``
-    float64 operations, and which of the two sets it."""
+    operations at the rate ``flops`` (float64's by default), and which of
+    the two sets it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F64_FLOPS * 1e3
+    t_ops = ops / flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -511,21 +538,25 @@ def needed_bytes(kname: str, prep, nnz: int) -> dict:
     and C's two (T, R, K) candidate outputs.  D, A' and E stop each chunk at
     its length (an input, 4 B per chunk), so they need ``val`` at the
     nonzeros only: :func:`padded_val_bytes` gives their bound with ``val``
-    at every slot, the one the kernels before the redesign were held to."""
+    at every slot, the one the kernels before the redesign were held to.
+    Values take the prep's width (8 B at float64, 4 at float32), columns
+    and marks theirs (4 B, or 2 B and 1 B on the compact float32 streams).
+    """
     t, r, k = prep.d.val.shape
-    slots, chunks, vec = t * r * k, t * r, 8 * prep.n_pad
+    v, c, mk = prep.d.val.element_size(), prep.d.col.element_size(), prep.ii_g.element_size()
+    slots, chunks, vec = t * r * k, t * r, v * prep.n_pad
     if kname == "fused_scatter_round_tiles":
-        return dict(val=8 * nnz, col=4 * nnz, is_int=4 * nnz, chunk_len=4 * chunks,
-                    rows=16 * chunks, bounds=2 * vec, out=2 * vec)
+        return dict(val=v * nnz, col=c * nnz, is_int=mk * nnz, chunk_len=4 * chunks,
+                    rows=2 * v * chunks, bounds=2 * vec, out=2 * vec)
     if kname == "activities_gather_tiles":
-        return dict(val=8 * nnz, col=4 * nnz, chunk_len=4 * chunks, bounds=2 * vec,
-                    out=24 * chunks)
+        return dict(val=v * nnz, col=c * nnz, chunk_len=4 * chunks, bounds=2 * vec,
+                    out=(2 * v + 8) * chunks)
     if kname == "candidates_scatter_tiles":
-        return dict(val=8 * nnz, col=4 * nnz, is_int=4 * nnz, chunk_len=4 * chunks,
-                    rows=40 * chunks, bounds=2 * vec, out=2 * vec)
+        return dict(val=v * nnz, col=c * nnz, is_int=mk * nnz, chunk_len=4 * chunks,
+                    rows=(4 * v + 8) * chunks, bounds=2 * vec, out=2 * vec)
     if kname == "combine_chunk_partials_tiles":
-        return dict(partials=24 * chunks, row_start=8 * (prep.m + 2), classes=4 * (prep.m + 1),
-                    out=24 * chunks)
+        return dict(partials=(2 * v + 8) * chunks, row_start=8 * (prep.m + 2),
+                    classes=4 * (prep.m + 1), out=(2 * v + 8) * chunks)
     if kname == "activities_tiles":
         return dict(val=8 * slots, bounds=16 * nnz, out=24 * chunks)
     if kname == "candidates_tiles":
@@ -541,7 +572,7 @@ def padded_val_bytes(moved: dict, prep) -> dict:
     every slot."""
     t, r, k = prep.d.val.shape
     out = {key: v for key, v in moved.items() if key != "chunk_len"}
-    out["val"] = 8 * t * r * k
+    out["val"] = prep.d.val.element_size() * t * r * k
     return out
 
 
@@ -573,28 +604,31 @@ def segment_reduce_ms(torch, partials, chunk_row, row_start, active=None):
     return time_ms(torch, run)
 
 
-def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed):
+def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed, plain_trials=5):
     """Each kernel of the instance's branch against its plain version on the
     card, on the tiles of ``prep`` and the padded bounds ``lb``/``ub``;
-    ``timed`` also times both.  Returns {kernel: row of measurements}."""
+    ``timed`` also times both (the plain version over ``plain_trials``).
+    Returns {kernel: row of measurements}."""
     from repro_torch.core import carry as rt_carry
 
     d = prep.d
     n_pad, cfg = prep.n_pad, ops.DEFAULT_CONFIG
     nnz = int((d.val != 0).sum().item())  # real nonzeros in the tiles
+    flops = F64_FLOPS if d.val.dtype == torch.float64 else F32_FLOPS
     rows = {}
 
     def row(kname, got, want, fn_k, fn_p, moved=None, reset=None):
         r = dict(instance=name, max_abs_err=max_abs_err(torch, got, want))
         if timed:
             moved = moved or needed_bytes(kname, prep, nnz)
-            b_ms, b_by = bound(sum(moved.values()), OPS_PER_NNZ[kname] * nnz)
+            b_ms, b_by = bound(sum(moved.values()), OPS_PER_NNZ[kname] * nnz, flops)
             r.update(ms=kernel_ms(torch, build, fn_k, reset=reset),
                      wrapper_ms=time_ms(torch, fn_k),
-                     plain_ms=time_ms(torch, fn_p), bound_ms=b_ms, bound_by=b_by, bytes=moved)
+                     plain_ms=time_ms(torch, fn_p, trials=plain_trials), bound_ms=b_ms,
+                     bound_by=b_by, bytes=moved)
             if kname in STOPPED:
                 r["bound_all_slots_ms"] = bound(sum(padded_val_bytes(moved, prep).values()),
-                                                OPS_PER_NNZ[kname] * nnz)[0]
+                                                OPS_PER_NNZ[kname] * nnz, flops)[0]
         rows[kname] = r
 
     # The accumulator planes of D and E, kept as the round closure keeps
@@ -651,8 +685,8 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed):
             lambda: tref.candidates_scatter_tiles_ref(*e_args), reset=sentinels)
         best_l, best_u = want
 
-    eps = cfg.eps_for(lb.dtype)
-    want = ops.bnd.apply_updates(lb, ub, best_l, best_u, eps)
+    eps, outward = cfg.eps_for(lb.dtype), cfg.outward_for(lb.dtype)
+    want = ops.bnd.apply_updates(lb, ub, best_l, best_u, eps, cfg.inf, outward)
     # F hands the planes it reads back at the sentinels: here the kept
     # planes that the scatter filled (and the timing left full).  It folds
     # its flag into a loop carry, kept as the round closure keeps it: the
@@ -662,7 +696,8 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed):
     acc[1].copy_(best_u)
     carry = rt_carry.armed_state(lb.device)
     armed = carry.clone()
-    got = tk.apply_updates_tiles(lb.clone(), ub.clone(), *acc, eps, carry=carry, k=0, unroll=2)
+    got = tk.apply_updates_tiles(lb.clone(), ub.clone(), *acc, eps, cfg.inf, outward, carry=carry,
+                                 k=0, unroll=2)
     clean("F did not hand its planes back")
     changed = bool(want[2])
     if carry.tolist()[:5] != [0, int(changed), 0, 1, 0]:
@@ -672,8 +707,9 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed):
     # accumulator entry is handed back after the first.
     lbw, ubw = lb.clone(), ub.clone()
     row("apply_updates_tiles", got[:2], want[:2],
-        lambda: tk.apply_updates_tiles(lbw, ubw, *acc, eps, carry=carry, k=0, unroll=2),
-        lambda: ops.bnd.apply_updates(lb, ub, best_l, best_u, eps),
+        lambda: tk.apply_updates_tiles(lbw, ubw, *acc, eps, cfg.inf, outward, carry=carry, k=0,
+                                       unroll=2),
+        lambda: ops.bnd.apply_updates(lb, ub, best_l, best_u, eps, cfg.inf, outward),
         moved=dict(merge_bytes(torch, ops.bnd, lb, ub, best_l, best_u, eps, inf=cfg.inf),
                    carry=4 * 5),
         reset=fresh_inputs(torch, [(lbw, lb), (ubw, ub), (acc[0], best_l), (acc[1], best_u),
@@ -912,6 +948,8 @@ def smoke(torch, dev):
                             {**problems, "pbf": pbf, **wide}))
     runs.update(service_phase(torch, np, rt, td, tk, dev))
     runs.update(drivers_phase(torch, np, rt, tk, tref, ops, dev, problems, preps, wide))
+    tier_rows, tier_launches = precision_phase(torch, np, rt, td, tk, tref, ops, _build, dev,
+                                               problems, preps, results, pbf, measured)
     slab_path = ("batched_slab_partials_tiles", "straddle_combine_tiles",
                  "batched_slab_round_tiles", "apply_updates_slab_tiles")
     node_slab_path = ("node_slab_partials_tiles", "straddle_combine_tiles",
@@ -981,6 +1019,15 @@ def smoke(torch, dev):
             bound_by=r["bound_by"], library_ms=None, instance=primary[k],
             wrapper_ms=r["wrapper_ms"], bytes=r["bytes"],
             **{key: r[key] for key in ("segment_reduce_ms", "bound_all_slots_ms") if key in r},
+        ))
+    for key, (r, inst) in tier_rows.items():
+        base = key.split("[")[0]
+        kernels.append(dict(
+            name=key, route="cuda", source=TIER_SOURCE, replaces=REPLACES[base],
+            launches=tier_launches[key], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=None, instance=inst, wrapper_ms=r["wrapper_ms"], bytes=r["bytes"],
+            float64_ms=r.get("float64_ms"),
         ))
     log(json.dumps({"kernels": kernels}))
 
@@ -2458,7 +2505,7 @@ def service_phase(torch, np, rt, td, tk, dev):
 # ---------------------------------------------------------------------------
 
 DEVICE_LOOP_GROUPS = (1, 2, 4, 8, 16)
-DRIVER_TRIALS = 9
+DRIVER_TRIALS = 7
 
 
 def wall_ms(torch, fn) -> float:
@@ -2666,6 +2713,266 @@ def drivers_phase(torch, np, rt, tk, tref, ops, dev, problems, preps, wide):
     if res["device_loop"].rounds.item() != REFERENCE_ROUNDS["pb"]:
         fail(f"propagate pb device_loop took {res['device_loop'].rounds.item()} rounds")
     return runs
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the precision tiers (float32 forms, the early stop, two tiers)
+# ---------------------------------------------------------------------------
+
+# Instances whose n_pad (30,080) fits int16, so their float32 preps hold the
+# compact index streams (int16 columns, int8 marks): pb and mixed at half the
+# columns and rows.
+COMPACT_SPECS = [
+    ("pb30", "make_pseudo_boolean", dict(n=30_000, m=75_000, seed=0)),
+    ("mixed30", "make_mixed", dict(m=75_000, n=30_000, seed=0, density=0.0005)),
+]
+# The two-tier contract of tests/test_precision.py: continuous bounds of the
+# tiered run within this band (relative, 1 + |b|) of the float64-only run's.
+F32_BAND = 1e-6
+EARLY_STOP = dict(two_tier=False, stop_progress=0.05, patience=1)
+TIER_TRIALS = 5
+# The instance each float form's kernels-line entry is measured on.
+TIER_PRIMARY = {
+    "fused_scatter_round_tiles[f32]": "pb", "fused_scatter_round_tiles[f32c]": "pb30",
+    "activities_gather_tiles[f32]": "mixed", "activities_gather_tiles[f32c]": "mixed30",
+    "combine_chunk_partials_tiles[f32]": "mixed",
+    "candidates_scatter_tiles[f32]": "mixed", "candidates_scatter_tiles[f32c]": "mixed30",
+    "apply_updates_tiles[f32]": "pb", "apply_updates_tiles[f32+stop]": "pb",
+    "apply_updates_tiles[f64+stop]": "pb",
+}
+
+
+def form_of(prep) -> str:
+    """The tier form of a prep's D, A' and E: f64, f32 or f32c (compact)."""
+    import torch
+
+    if prep.d.val.dtype == torch.float64:
+        return "f64"
+    return "f32c" if prep.d.col.dtype == torch.int16 else "f32"
+
+
+def f_stop_check(torch, tk, tref, ops, build, name, lb, ub, best, timed):
+    """Kernel F with the early stop armed against its plain version on the
+    candidates ``best`` of a round from ``lb``/``ub``: a round that merges
+    them, then one with no candidate (its measure 0 stops the loop): bounds,
+    handed-back planes and the whole carry (its progress bits included)
+    bitwise.  Returns the timed row."""
+    from repro_torch.core import carry as rt_carry
+
+    cfg = ops.DEFAULT_CONFIG
+    eps, outward, inf = cfg.eps_for(lb.dtype), cfg.outward_for(lb.dtype), cfg.inf
+    # A threshold that only the second round's zero measure falls below.
+    stop = rt_carry.EarlyStop(1e-30, 1)
+    st_k, st_p = rt_carry.armed_state(lb.device), rt_carry.armed_state(lb.device)
+    cur_k, cur_p = (lb.clone(), ub.clone()), (lb.clone(), ub.clone())
+    empty = (torch.full_like(lb, -inf), torch.full_like(ub, inf))
+    for cand in (best, empty):
+        acc = (cand[0].clone(), cand[1].clone())
+        got = tk.apply_updates_tiles(*cur_k, *acc, eps, inf, outward, carry=st_k, stop=stop)
+        want = tref.merge_carry_ref(*cur_p, cand[0].clone(), cand[1].clone(), eps, inf, outward,
+                                    st_p, 0, 1, stop)
+        err = max_abs_err(torch, (*got[:2], st_k), (*want[:2], st_p))
+        planes_clean(torch, acc, inf, f"{name}: F with the early stop kept a candidate")
+        cur_p = want[:2]
+    fields = st_k.tolist()
+    if fields[rt_carry.GO] != 0 or fields[rt_carry.ROUNDS] != 2:
+        fail(f"{name}: F with the early stop left the carry at {fields[:8]}")
+    row = dict(instance=name, max_abs_err=err)
+    if timed:
+        armed = rt_carry.armed_state(lb.device)
+        carry = armed.clone()
+        lbw, ubw = lb.clone(), ub.clone()
+        acc = (best[0].clone(), best[1].clone())
+        partials = torch.empty(-(-lb.numel() // tref.MERGE_BLOCK), dtype=lb.dtype,
+                               device=lb.device)
+        reset = fresh_inputs(torch, [(lbw, lb), (ubw, ub), (acc[0], best[0]), (acc[1], best[1]),
+                                     (carry, armed)])
+        moved = dict(merge_bytes(torch, ops.bnd, lb, ub, best[0], best[1], eps, inf=inf),
+                     carry=4 * 8, partials=2 * lb.element_size() * partials.numel())
+        b_ms, b_by = bound(sum(moved.values()), 10 * lb.numel(),
+                           F64_FLOPS if lb.dtype == torch.float64 else F32_FLOPS)
+        run = lambda: tk.apply_updates_tiles(lbw, ubw, *acc, eps, inf, outward, carry=carry,
+                                             stop=stop, partials=partials)
+        row.update(ms=kernel_ms(torch, build, run, reset=reset),
+                   wrapper_ms=call_ms(torch, run, reset),
+                   plain_ms=time_ms(torch, lambda: tref.merge_carry_ref(
+                       lb, ub, best[0].clone(), best[1].clone(), eps, inf, outward,
+                       armed.clone(), 0, 1, stop)),
+                   bound_ms=b_ms, bound_by=b_by, bytes=moved)
+    return row
+
+
+def tier_kernel_rows(torch, tk, tref, ops, build, problems, preps32, preps64, measured):
+    """Each float form of D, A', the combine, E and F (and F with the early
+    stop) against its plain version at the instances' initial bounds,
+    timed, beside the float64 form on the same instance (phase 1's rows
+    where it timed the instance).  Returns {form key: {instance: row}}."""
+    rows = {}
+    for name, prep in preps32.items():
+        got = check_kernels(torch, tk, tref, ops, build, name, problems[name], prep, prep.lb0,
+                            prep.ub0, timed=True, plain_trials=2)
+        if all(name in measured.get(k, {}) for k in got):
+            base = {k: measured[k][name] for k in got}
+        else:
+            base = check_kernels(torch, tk, tref, ops, build, name, problems[name],
+                                 preps64[name], preps64[name].lb0, preps64[name].ub0,
+                                 timed=True, plain_trials=2)
+        form = form_of(prep)
+        for kname, r in got.items():
+            key = f"{kname}[{'f32' if kname in NO_INDEX_STREAMS else form}]"
+            r["float64_ms"] = base[kname]["ms"]
+            rows.setdefault(key, {})[name] = r
+            log(f"kernel {key} on {name}: max_abs_err={r['max_abs_err']} ms={r['ms']:.4f} "
+                f"(float64 form {r['float64_ms']:.4f}) wrapper_ms={r['wrapper_ms']:.4f} "
+                f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}, "
+                f"{sum(r['bytes'].values())} B: {r['bytes']})")
+        if prep.fits_one_chunk:
+            for label, pr in (("f32", prep), ("f64", preps64[name])):
+                best = tref.fused_scatter_round_tiles_ref(
+                    pr.d.val, pr.d.col, pr.ii_g, pr.lhs_g, pr.rhs_g, pr.lb0, pr.ub0, pr.n_pad,
+                    ops.DEFAULT_CONFIG.int_eps)
+                r = f_stop_check(torch, tk, tref, ops, build, name, pr.lb0, pr.ub0, best,
+                                 timed=name == "pb")
+                if "ms" in r:
+                    key = f"apply_updates_tiles[{label}+stop]"
+                    rows.setdefault(key, {})[name] = r
+                    log(f"kernel {key} on {name}: max_abs_err={r['max_abs_err']} "
+                        f"ms={r['ms']:.4f} wrapper_ms={r['wrapper_ms']:.4f} "
+                        f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+                        f"({r['bound_by']}, {sum(r['bytes'].values())} B: {r['bytes']})")
+                else:
+                    log(f"kernel apply_updates_tiles[{label}+stop] on {name}: bitwise its plain "
+                        "version over two rounds (carry included)")
+    rows["apply_updates_tiles[f64+stop]"]["pb"]["float64_ms"] = None
+    rows["apply_updates_tiles[f32+stop]"]["pb"]["float64_ms"] = (
+        rows["apply_updates_tiles[f64+stop]"]["pb"]["ms"])
+    return rows
+
+
+# Kernels of the tier whose form does not depend on the index streams.
+NO_INDEX_STREAMS = ("apply_updates_tiles", "combine_chunk_partials_tiles")
+
+
+def check_tier_contract(torch, np, name, p, tiered, base):
+    """Two-tier against float64-only: the same verdict; where feasible,
+    integer bounds bitwise and continuous ones within F32_BAND (1 + |b|);
+    at least one fp32 round.  Returns the largest relative gap."""
+    if bool(tiered.infeasible) != bool(base.infeasible):
+        fail(f"two-tier {name}: infeasible {bool(tiered.infeasible)} != {bool(base.infeasible)}")
+    if int(tiered.tier_rounds) < 1:
+        fail(f"two-tier {name}: no fp32 round ran")
+    if bool(base.infeasible):
+        return 0.0
+    is_int = np.asarray(p.is_int, bool)
+    gap = 0.0
+    for f in ("lb", "ub"):
+        t = getattr(tiered, f).cpu().numpy()
+        b = getattr(base, f).cpu().numpy()
+        if not np.array_equal(t[is_int], b[is_int]):
+            fail(f"two-tier {name}: integer {f} differ from the float64-only run")
+        rel = np.abs(t - b) / (1.0 + np.abs(b))
+        if (rel > F32_BAND).any():
+            fail(f"two-tier {name}: continuous {f} off by {rel.max():.3e} relative")
+        gap = max(gap, float(rel.max(initial=0.0)))
+    return gap
+
+
+def precision_phase(torch, np, rt, td, tk, tref, ops, build, dev, problems, preps, results, pbf,
+                    measured):
+    """Phase 13: the precision tiers.  Returns ({form key: (row, instance)},
+    {form key: launches on the phase's main-path runs})."""
+    t_phase = time.perf_counter()
+    probs = {"pb": problems["pb"], "mixed": problems["mixed"], "pbf": pbf}
+    for name, gen, kw in COMPACT_SPECS:
+        t = time.perf_counter()
+        probs[name] = getattr(td, gen)(**kw)
+        log(f"instance {name}: m={probs[name].m} n={probs[name].n} nnz={probs[name].nnz} "
+            f"generate={time.perf_counter() - t:.1f}s")
+    kernel_names = ("pb", "mixed", "pb30", "mixed30")
+    preps32 = {n: rt.prepare_block_ell(probs[n], dtype=torch.float32, device=dev)
+               for n in kernel_names}
+    preps64 = {n: preps[n] if n in preps else rt.prepare_block_ell(probs[n], device=dev)
+               for n in kernel_names}
+    for n, pr in preps32.items():
+        log(f"float32 prep {n}: n_pad={pr.n_pad} col {pr.d.col.dtype} ii_g {pr.ii_g.dtype} "
+            f"form {form_of(pr)} fits_one_chunk={pr.fits_one_chunk}")
+    rows = tier_kernel_rows(torch, tk, tref, ops, build, probs, preps32, preps64, measured)
+
+    policy = rt.core.TierPolicy()
+    stop = rt.core.TierPolicy(**EARLY_STOP)
+    tk.reset_launch_counts()
+    # Float32-only fixed points: each driver against the plain float32 path.
+    for n in kernel_names:
+        plain = rt.propagate_block_ell(probs[n], dtype=torch.float32, driver="host_loop",
+                                       use_kernels=False, device=dev)
+        out = {}
+        for driver in ("host_loop", "device_loop"):
+            out[driver] = rt.propagate_block_ell(probs[n], dtype=torch.float32, driver=driver,
+                                                 device=dev)
+            check_same(rt, f"float32 {n} {driver}", out[driver], plain, True,
+                       "the plain float32 path")
+            if not torch.equal(out[driver].progress, plain.progress):
+                fail(f"float32 {n} {driver}: progress differs from the plain float32 path")
+        r = out["device_loop"]
+        log(f"float32 {n}: rounds={r.rounds.item()} converged={r.converged.item()} "
+            f"infeasible={r.infeasible.item()}; both drivers bitwise the plain float32 path")
+    # Two tiers against float64-only.
+    tiered = {}
+    for n in ("pb", "pbf", "mixed"):
+        base = results[n] if n in results else rt.propagate_block_ell(probs[n], device=dev)
+        out = {d: rt.propagate_block_ell(probs[n], policy=policy, driver=d, device=dev)
+               for d in ("host_loop", "device_loop")}
+        check_same(rt, f"two-tier {n} device_loop", out["device_loop"], out["host_loop"], True,
+                   "its host_loop run")
+        gap = check_tier_contract(torch, np, n, probs[n], out["device_loop"], base)
+        r = tiered[n] = out["device_loop"]
+        path = "guard (fp32 verdict infeasible, endgame from the root)" if (
+            r.rounds.item() == base.rounds.item() and bool(base.infeasible)) else "promotion"
+        log(f"two-tier {n}: rounds={r.rounds.item()} tier_rounds={r.tier_rounds.item()} "
+            f"infeasible={r.infeasible.item()} (float64-only: rounds={base.rounds.item()}); "
+            f"path: {path}; largest continuous gap {gap:.3e}")
+    # The early stop, both dtypes: host_loop against device_loop.
+    for n, dtype in (("pb", torch.float64), ("mixed", torch.float64), ("pbf", torch.float64),
+                     ("mixed30", torch.float32)):
+        out = {d: rt.propagate_block_ell(probs[n], policy=stop, dtype=dtype, driver=d, device=dev)
+               for d in ("host_loop", "device_loop")}
+        check_same(rt, f"early stop {n}", out["device_loop"], out["host_loop"], True,
+                   "its host_loop run")
+        if not torch.equal(out["device_loop"].progress, out["host_loop"].progress):
+            fail(f"early stop {n}: progress differs between the drivers")
+        r = out["device_loop"]
+        log(f"early stop {n} ({str(dtype).removeprefix('torch.')}): rounds={r.rounds.item()} "
+            f"converged={r.converged.item()} progress={r.progress.item():.6g}; device_loop "
+            "bitwise host_loop")
+    launches = tk.form_counts()
+    log(f"phase 13 launches by form: {json.dumps(launches)}")
+    missing = [k for k in TIER_PRIMARY if launches.get(k, 0) <= 0]
+    if missing:
+        fail(f"the precision tiers' runs never launched {missing}")
+
+    # Walls by driver: float64-only, float32-only and two-tier, every
+    # variant once per trial in an order that rotates between trials.
+    variants = [("float64", {}), ("float32", dict(dtype=torch.float32)), ("two-tier",
+                                                                           dict(policy=policy))]
+    runs = [(n, v, d) for n in ("pb", "pbf", "mixed") for v in variants
+            for d in ("host_loop", "device_loop")]
+    samples = {}
+    for trial in range(TIER_TRIALS):
+        order = runs[trial % len(runs):] + runs[: trial % len(runs)]
+        for n, (label, kw), d in order:
+            samples.setdefault((n, label, d), []).append(wall_ms(
+                torch, lambda: rt.propagate_block_ell(probs[n], driver=d, device=dev, **kw)))
+    for n in ("pb", "pbf", "mixed"):
+        cells = "; ".join(
+            f"{label} " + ", ".join(f"{d} {statistics.median(samples[n, label, d]):.3f}"
+                                    for d in ("host_loop", "device_loop"))
+            for label, _ in variants)
+        log(f"tier walls {n} (ms, medians of {TIER_TRIALS}): {cells}")
+    out_rows = {key: (rows[key][inst], inst) for key, inst in TIER_PRIMARY.items()}
+    for key, (r, _) in out_rows.items():
+        r["max_abs_err"] = max(v["max_abs_err"] for v in rows[key].values())
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return out_rows, {key: launches.get(key, 0) for key in TIER_PRIMARY}
 
 
 def main() -> int:

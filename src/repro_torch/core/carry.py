@@ -17,17 +17,61 @@ host only enqueues rounds and reads the carry now and then:
   ``TICKET``  blocks of the merge's launch that are done; its last block
               folds ``FLAG`` into the rest and sets it back to 0
 
+With the progress-based early stop armed (:class:`EarlyStop`: the
+reference's ``stop_progress`` and ``patience``,
+``src/repro/kernels/ops.py:1292-1308``) a check group's end also keeps:
+
+  ``PROG``    the group's progress measure, in the bounds' dtype, as raw
+              bits at int32 field 8 (fields 8-9 for float64)
+  ``FLAT``    consecutive check groups whose measure fell below the
+              threshold; GO clears once it reaches ``patience``
+  ``LAST``    the group's ``changed_any`` (the result's ``converged`` is
+              its negation: GO no longer says it once the stop fired)
+
 :func:`fold` is the plain form of that last block's work.  Nothing here
 allocates or fills per round: the carry is armed once per fixed point.
 """
 from __future__ import annotations
 
 import threading
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
-FLAG, ANY, ROUNDS, GO, TICKET = range(5)
-FIELDS = 8  # int32 fields, padded to 32 bytes
+FLAG, ANY, ROUNDS, GO, TICKET, FLAT, LAST = range(7)
+PROG = 8     # the progress measure's first int32 field (byte offset 32)
+FIELDS = 16  # int32 fields, padded to 64 bytes
+
+
+class EarlyStop(NamedTuple):
+    """The progress-based early stop of a fixed point: stop once the
+    progress measure of ``patience`` consecutive check groups falls below
+    ``progress`` (compared in the bounds' dtype)."""
+
+    progress: float
+    patience: int = 1
+
+
+def early_stop(stop_progress: float | None, patience: int = 1) -> EarlyStop | None:
+    """The :class:`EarlyStop` of a driver's ``stop_progress=`` /
+    ``patience=``, or None where no threshold is given."""
+    return None if stop_progress is None else EarlyStop(float(stop_progress), int(patience))
+
+
+def progress_view(state: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The carry's ``PROG`` slot as a ``(1,)`` tensor of ``dtype`` (a view
+    of ``state``, on its device)."""
+    width = torch.empty((), dtype=dtype).element_size() // 4
+    return state[PROG : PROG + width].view(dtype)
+
+
+def progress_of(fields: list, dtype: torch.dtype) -> float:
+    """The ``PROG`` slot of the carry's fields as read on the host
+    (:meth:`LoopCarry.read`), as a float of ``dtype``."""
+    np_dt = np.dtype(str(dtype).removeprefix("torch."))
+    width = np_dt.itemsize // 4
+    return float(np.array(fields[PROG : PROG + width], dtype=np.int32).view(np_dt)[0])
 
 
 # One armed carry per device, which a fresh or re-armed carry copies: one
@@ -88,17 +132,32 @@ def go_flag(state: torch.Tensor) -> torch.Tensor:
     return _go_views(state)[2]
 
 
-def fold(state: torch.Tensor, flag: torch.Tensor, k: int, unroll: int) -> None:
+def fold(state: torch.Tensor, flag: torch.Tensor, k: int, unroll: int,
+         stop: EarlyStop | None = None, prog: torch.Tensor | None = None) -> None:
     """Fold a round's ``changed`` flag into the carry, in place, as the
     merge's last block does on the card: nothing while GO is 0; else
     ``ANY |= flag`` and, for the last round of a check group (``k ==
     unroll - 1``), ``ROUNDS += unroll``, ``GO = ANY`` and ``ANY = 0``.
-    Torch ops only, so the carry stays on its device."""
+    With an early stop ``stop`` armed, the group's end also stores its
+    progress measure ``prog`` (a 0-d tensor of the bounds' dtype, needed
+    then only), counts ``FLAT`` (``prog < stop.progress``, compared in that
+    dtype), keeps ``LAST = ANY`` and clears GO once ``FLAT`` reaches
+    ``stop.patience``.  Torch ops only, so the carry stays on its device."""
     go = state[GO : GO + 1]
     any_ = state[ANY : ANY + 1] | (flag.reshape(1).to(torch.int32) & go)
     if k == unroll - 1:
         state[ROUNDS : ROUNDS + 1] += unroll * go
-        state[GO : GO + 1] = any_ & go
+        if stop is None:
+            state[GO : GO + 1] = any_ & go
+        else:
+            on = go.bool()
+            slot = progress_view(state, prog.dtype)
+            slot.copy_(torch.where(on, prog.reshape(1), slot))
+            low = (prog.reshape(1) < stop.progress).to(torch.int32)
+            flat = torch.where(on, (state[FLAT : FLAT + 1] + 1) * low, state[FLAT : FLAT + 1])
+            state[FLAT : FLAT + 1] = flat
+            state[LAST : LAST + 1] = torch.where(on, any_, state[LAST : LAST + 1])
+            state[GO : GO + 1] = any_ & go & (flat < stop.patience).to(torch.int32)
         state[ANY] = 0
     else:
         state[ANY : ANY + 1] = any_
@@ -129,10 +188,15 @@ class LoopCarry:
     def armed(self) -> bool:
         return getattr(self._local, "armed", False)
 
-    def arm(self, device, unroll: int = 1) -> None:
+    @property
+    def stop(self) -> EarlyStop | None:
+        """The early stop the armed fixed point runs with, or None."""
+        return getattr(self._local, "stop", None) if self.armed else None
+
+    def arm(self, device, unroll: int = 1, stop: EarlyStop | None = None) -> None:
         """Start a fixed point of check groups of ``unroll`` rounds: the
         carry set to :func:`armed_state` (allocated at the first use on
-        ``device``)."""
+        ``device``), with the early stop ``stop`` armed where given."""
         if unroll < 1:
             raise ValueError(f"unroll={unroll}: a check group holds at least one round")
         loc = self._local
@@ -142,7 +206,7 @@ class LoopCarry:
             state = loc.state = torch.empty(FIELDS, dtype=torch.int32, device=dev)
         state.copy_(_armed_template(dev))
         _keep_views(state)
-        loc.k, loc.unroll, loc.armed = 0, unroll, True
+        loc.k, loc.unroll, loc.stop, loc.armed = 0, unroll, stop, True
 
     def release(self) -> None:
         self._local.armed = False

@@ -17,7 +17,7 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from .propagator import not_ported
+from .propagator import TIERS_REMAINDER, check_float64, not_ported
 from .sparse import Problem
 from .types import DEFAULT_CONFIG, PropagationResult, PropagatorConfig
 
@@ -48,7 +48,7 @@ class NodeBatchResult(NamedTuple):
         )
         return PropagationResult(
             self.lb[i], self.ub[i], self.rounds[i], self.converged[i],
-            self.infeasible[i], prog,
+            self.infeasible[i], prog, torch.zeros_like(self.rounds[i]),
         )
 
     def results(self) -> "list[PropagationResult]":
@@ -156,9 +156,10 @@ def propagate_nodes(
     from ..kernels.ops import prepare_block_ell, propagate_nodes_prepared
 
     if policy is not None or stop_progress is not None or patience != 1:
-        not_ported("policy= / stop_progress= / patience=", "item 5 (precision tiers)")
+        not_ported("policy= / stop_progress= / patience= on node batches", TIERS_REMAINDER)
     if telemetry is not None:
         not_ported("telemetry=", "item 6 (observability)")
+    check_float64(dtype, "node batches")
     prep = prepare_block_ell(p, tile_rows, tile_width, dtype, device)
     lb, ub, rounds, converged, infeasible, progress = propagate_nodes_prepared(
         prep, lb_nodes, ub_nodes, cfg, use_kernels=use_kernels, with_progress=True,

@@ -25,10 +25,20 @@ Loop drivers (paper §3.7 / App. C), as the reference's:
 Every host read is reported to ``on_sync``.  The batched fixed point
 (``batched_fixed_point``, the node engine's, the solver's and the service's
 loop) still reads its ``active.any()`` flag on the host once per round.
+
+The precision tiers (the reference's, src/repro/core/propagator.py:595):
+every driver takes the progress-based early stop (``stop_progress``,
+``patience``: the loop carry's ``FLAT``, folded by the round's last kernel
+or by :func:`core.carry.fold`), and :func:`propagate` the two-tier
+:class:`~repro_torch.core.types.TierPolicy` (:func:`run_tiers`): a float32
+tier that stops below ``switch_progress``, promotion by exact cast, and the
+float64 endgame.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
+import threading
 from typing import Callable
 
 import numpy as np
@@ -36,9 +46,9 @@ import torch
 
 from . import activities as act
 from . import bounds as bnd
-from .carry import GO, ROUNDS, LoopCarry, fold, go_flag
+from .carry import GO, LAST, ROUNDS, EarlyStop, LoopCarry, early_stop, fold, go_flag, progress_of
 from .sparse import Problem
-from .types import DEFAULT_CONFIG, INF, PropagationResult, PropagatorConfig
+from .types import DEFAULT_CONFIG, INF, PropagationResult, PropagatorConfig, TierPolicy
 
 # The drivers of ``propagate`` and of ``kernels.propagate_block_ell`` (and
 # the batched front ends), as the reference's.
@@ -76,16 +86,46 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+# The part of ROADMAP Queue 1 item 5 (precision tiers) still to port: float32
+# on the batched, node, service, segment and partitioned engines, the
+# service's early retire, and every value type but float32 and float64.
+TIERS_REMAINDER = "item 5, remainder"
+
+_DTYPES = {"float64": torch.float64, "float32": torch.float32, "float16": torch.float16,
+           "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(dtype) -> torch.dtype | None:
+    """``dtype`` (a torch or numpy dtype, or None for float64) as a torch
+    dtype; None for a type that is none of the floats."""
+    if dtype is None:
+        return torch.float64
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    try:
+        return _DTYPES.get(np.dtype(dtype).name)
+    except TypeError:
+        return None
+
+
 def check_dtype(dtype) -> torch.dtype:
-    """This slice of the port runs float64 only."""
-    if dtype is None or dtype is torch.float64:
-        return torch.float64
-    if not isinstance(dtype, torch.dtype) and np.dtype(dtype) == np.float64:
-        return torch.float64
+    """The value type of a fixed point: float64 (the default) or float32 (the
+    fp32 tier); any other raises ``NotImplementedError``."""
+    dt = torch_dtype(dtype)
+    if dt in (torch.float64, torch.float32):
+        return dt
     raise NotImplementedError(
-        f"dtype={dtype!r}: only float64 is ported; lower precision tiers are "
-        "ROADMAP Queue 1 item 5 (precision tiers)"
+        f"dtype={dtype!r}: float64 and float32 are ported; other value types are "
+        f"ROADMAP Queue 1 {TIERS_REMAINDER}"
     )
+
+
+def check_float64(dtype, what: str) -> torch.dtype:
+    """:func:`check_dtype`, for an engine that runs float64 only so far."""
+    dt = check_dtype(dtype)
+    if dt != torch.float64:
+        not_ported(f"dtype={dt} on {what}", TIERS_REMAINDER)
+    return dt
 
 
 class DeviceProblem:
@@ -162,9 +202,24 @@ def initial_bounds(defaults, lb0=None, ub0=None):
     return pick(lb0, default_lb), pick(ub0, default_ub)
 
 
+def _stop_carry(round_fn, stop: EarlyStop | None):
+    """The loop carry of ``round_fn`` (None if it has none); an early stop
+    needs one."""
+    carry = getattr(round_fn, "carry", None)
+    if stop is not None and carry is None:
+        raise ValueError("the early stop needs a round closure with a loop carry")
+    return carry
+
+
+def _carried_progress(state: list, like: torch.Tensor) -> torch.Tensor:
+    """The progress measure the carry kept (read on the host as ``state``),
+    as a 0-d tensor of ``like``'s dtype and device."""
+    return torch.tensor(progress_of(state, like.dtype), dtype=like.dtype, device=like.device)
+
+
 def fixed_point(
     round_fn, lb, ub, max_rounds: int, on_sync: Callable[[], None] | None = None,
-    with_progress: bool = True,
+    with_progress: bool = True, stop: EarlyStop | None = None,
 ):
     """Iterate ``round_fn(lb, ub) -> (lb, ub, changed)`` until a round changes
     nothing or ``max_rounds`` rounds ran.
@@ -176,27 +231,40 @@ def fixed_point(
     ``with_progress=False`` skips the measure (progress NaN).  Each round
     reads ``changed`` on the host once (one sync, reported to ``on_sync``).
     A round closure with a loop carry (its ``carry``) has it armed for the
-    fixed point, one round per check group.  Returns ``(lb, ub, rounds,
+    fixed point, one round per check group.  With an early stop ``stop``
+    (:class:`core.carry.EarlyStop`) armed in that carry, each round's last
+    kernel (or :func:`core.carry.fold`) computes the round's measure and
+    clears GO once it stayed low ``stop.patience`` rounds: the host reads
+    the whole carry instead of the flag (still one read a round) and stops
+    on GO, and the measure is the carry's.  Returns ``(lb, ub, rounds,
     changed, progress)``."""
     prog = torch.tensor(math.nan, dtype=lb.dtype, device=lb.device)
     lb_in, ub_in = lb, ub
     rounds, changed = 0, True
-    carry = getattr(round_fn, "carry", None)
+    carry = _stop_carry(round_fn, stop)
     if carry is not None:
-        carry.arm(lb.device)
+        carry.arm(lb.device, stop=stop)
     try:
         while changed and rounds < max_rounds:
-            if with_progress and rounds + 1 == max_rounds:
+            if with_progress and stop is None and rounds + 1 == max_rounds:
                 lb_in, ub_in = lb.clone(), ub.clone()
             lb, ub, ch = round_fn(lb, ub)
             rounds += 1
-            changed = bool(ch)
+            if stop is None:
+                changed = bool(ch)
+            else:
+                state = carry.read()
+                changed = bool(state[LAST])
             if on_sync is not None:
                 on_sync()
+            if stop is not None and not state[GO]:
+                break
     finally:
         if carry is not None:
             carry.release()
-    if rounds and with_progress:
+    if rounds and stop is not None:
+        prog = _carried_progress(state, lb)
+    elif rounds and with_progress:
         # A round that changed nothing left its bounds as they were.
         prog = bnd.progress_measure(lb_in, ub_in, lb, ub) if changed else (
             bnd.progress_measure(lb, ub, lb, ub)
@@ -207,6 +275,7 @@ def fixed_point(
 def device_fixed_point(
     round_fn, lb, ub, max_rounds: int, unroll: int = 1,
     on_sync: Callable[[], None] | None = None, with_progress: bool = True,
+    stop: EarlyStop | None = None,
 ):
     """The reference's ``_device_fixed_point``
     (src/repro/core/propagator.py:272) over a round closure with a loop
@@ -223,22 +292,26 @@ def device_fixed_point(
     ``max_rounds``.  The progress measure is the last check group's, which
     needs its starting bounds only if it changed something, that is only if
     the cap cut the loop: so the bounds are copied before the last allowed
-    group alone.  Returns ``(lb, ub, rounds, changed, progress)``."""
+    group alone.  With an early stop ``stop`` armed in the carry (as in
+    :func:`fixed_point`, per check group) GO also clears once the measure
+    stayed low ``stop.patience`` groups; ``changed`` is then the carry's
+    ``LAST`` and the measure its own.  Returns ``(lb, ub, rounds, changed,
+    progress)``."""
     if unroll < 1:
         raise ValueError(f"unroll={unroll}: a check group holds at least one round")
     prog = torch.tensor(math.nan, dtype=lb.dtype, device=lb.device)
     groups = -(-max_rounds // unroll) if max_rounds > 0 else 0
     if groups == 0:
         return lb, ub, 0, True, prog
-    carry: LoopCarry = round_fn.carry
+    carry: LoopCarry = _stop_carry(round_fn, stop) or round_fn.carry
     lb_in = ub_in = None
     done, per_read = 0, loop_group(round_fn)
-    carry.arm(lb.device, unroll)
+    carry.arm(lb.device, unroll, stop)
     try:
         while True:
             batch = min(per_read, groups - done)
             for g in range(done, done + batch):
-                if with_progress and g + 1 == groups:
+                if with_progress and stop is None and g + 1 == groups:
                     lb_in, ub_in = lb.clone(), ub.clone()
                 for _ in range(unroll):
                     lb, ub, _ = round_fn(lb, ub)
@@ -250,6 +323,8 @@ def device_fixed_point(
                 break
     finally:
         carry.release()
+    if stop is not None:
+        return lb, ub, state[ROUNDS], bool(state[LAST]), _carried_progress(state, lb)
     changed = bool(state[GO])
     if with_progress:
         # A group that changed nothing left its bounds as they were.
@@ -309,7 +384,7 @@ def _batched_rounds(
 
 def _check_batched_options(stop_progress, patience, plane):
     if stop_progress is not None or patience != 1:
-        not_ported("stop_progress= / patience=", "item 5 (precision tiers)")
+        not_ported("stop_progress= / patience= on the batched fixed point", TIERS_REMAINDER)
     if plane is not None:
         not_ported("plane=", "item 6 (observability)")
 
@@ -456,6 +531,7 @@ def _result(lb, ub, rounds, changed, prog, feas_eps) -> PropagationResult:
         converged=torch.tensor(not changed, device=dev),
         infeasible=check_infeasible(lb, ub, feas_eps),
         progress=prog,
+        tier_rounds=torch.zeros((), dtype=torch.int32, device=dev),
     )
 
 
@@ -464,8 +540,15 @@ def not_ported(name: str, entry: str):
 
 
 def _refuse_options(stop_progress, patience, telemetry, policy=None) -> None:
+    """The options the batched and node engines do not take yet."""
     if policy is not None or stop_progress is not None or patience != 1:
-        not_ported("policy= / stop_progress= / patience=", "item 5 (precision tiers)")
+        not_ported("policy= / stop_progress= / patience= on the batched engines",
+                   TIERS_REMAINDER)
+    if telemetry is not None:
+        not_ported("telemetry=", "item 6 (observability)")
+
+
+def _refuse_telemetry(telemetry) -> None:
     if telemetry is not None:
         not_ported("telemetry=", "item 6 (observability)")
 
@@ -476,18 +559,28 @@ def _plain_round_fn(dp: DeviceProblem, eps: float, int_eps: float, inf: float,
     ub, changed)`` closure with a loop carry (its ``carry``): the round's
     bounds where the carry's GO is set (else the bounds as they were), its
     flag folded into the carry (``core.carry.fold``), ``changed`` the
-    carry's GO.  Torch ops only, no kernel."""
+    carry's GO.  With an early stop armed in the carry, the last round of
+    each check group folds the group's progress measure
+    (:func:`bounds.progress_measure` from the bounds the group started
+    from).  Torch ops only, no kernel."""
     carry = LoopCarry()
+    group = threading.local()  # the bounds each check group starts from
 
     def round_fn(lb, ub):
         state, k, unroll = carry.step(lb.device)
+        stop = carry.stop
+        if stop is not None and k == 0:
+            group.start = (lb, ub)  # the round allocates its outputs
         new_lb, new_ub, ch = propagation_round(
             dp.row_id, dp.col, dp.val, dp.lhs, dp.rhs, dp.is_int, lb, ub,
             dp.m, dp.n, eps, int_eps, inf, outward,
         )
         go = go_flag(state)
         new_lb, new_ub = torch.where(go, new_lb, lb), torch.where(go, new_ub, ub)
-        fold(state, ch, k, unroll)
+        prog = None
+        if stop is not None and k == unroll - 1:
+            prog = bnd.progress_measure(*group.start, new_lb, new_ub)
+        fold(state, ch, k, unroll, stop, prog)
         return new_lb, new_ub, go
 
     round_fn.carry = carry
@@ -513,13 +606,15 @@ def propagate_host_loop(
     """cpu_loop analogue (the reference's, src/repro/core/propagator.py:200):
     the host runs the plain round and reads its flag once per round
     (:func:`fixed_point`, each read reported to ``on_sync``).  ``lb0``/
-    ``ub0`` warm-start the fixed point from ``(n,)`` bounds.  Progress is
-    NaN, as the reference's without an early stop;
-    ``stop_progress=``/``patience=`` (item 5) and ``telemetry=`` (item 6)
-    raise ``NotImplementedError``."""
-    _refuse_options(stop_progress, patience, telemetry)
+    ``ub0`` warm-start the fixed point from ``(n,)`` bounds.
+    ``stop_progress``/``patience`` arm the progress-based early stop (the
+    round's measure read with its flag, in the same read); progress is NaN
+    without it, as the reference's.  ``telemetry=`` (item 6) raises
+    ``NotImplementedError``."""
+    _refuse_telemetry(telemetry)
     lb, ub = initial_bounds((dp.lb0, dp.ub0), lb0, ub0)
-    out = fixed_point(_round_fn(dp, cfg), lb, ub, cfg.max_rounds, on_sync, with_progress=False)
+    out = fixed_point(_round_fn(dp, cfg), lb, ub, cfg.max_rounds, on_sync, with_progress=False,
+                      stop=early_stop(stop_progress, patience))
     return _result(*out, cfg.feas_eps)
 
 
@@ -541,10 +636,11 @@ def propagate_device_loop(
     read on the host once per :data:`UNGATED_LOOP_GROUP` groups (each read
     reported to ``on_sync``).  ``rounds`` is the reference's (a multiple of
     ``unroll``), ``progress`` the last check group's measure.  Options as
-    in :func:`propagate_host_loop`."""
-    _refuse_options(stop_progress, patience, telemetry)
+    in :func:`propagate_host_loop` (the early stop per check group)."""
+    _refuse_telemetry(telemetry)
     lb, ub = initial_bounds((dp.lb0, dp.ub0), lb0, ub0)
-    out = device_fixed_point(_round_fn(dp, cfg), lb, ub, cfg.max_rounds, unroll, on_sync)
+    out = device_fixed_point(_round_fn(dp, cfg), lb, ub, cfg.max_rounds, unroll, on_sync,
+                             stop=early_stop(stop_progress, patience))
     return _result(*out, cfg.feas_eps)
 
 
@@ -569,6 +665,62 @@ def propagate_unrolled(
     )
 
 
+def two_tier_bounds_dtypes(policy: TierPolicy, dtype):
+    """The ``(fp32 tier, endgame)`` dtype pair of a tiered run, or None where
+    the policy degenerates to one tier (disabled, or the requested dtype is
+    already low-precision): the reference's
+    (src/repro/core/propagator.py:595)."""
+    final = torch_dtype(dtype)
+    if final is None:
+        check_dtype(dtype)  # raises: not a float type
+    if not policy.two_tier or final in (torch.float32, torch.bfloat16):
+        return None
+    return torch.float32, final
+
+
+def run_tiers(single: Callable, cfg: PropagatorConfig, dtype, lb0, ub0, policy,
+              stop_progress: float | None = None, patience: int = 1,
+              on_sync: Callable[[], None] | None = None) -> PropagationResult:
+    """The two-tier front end of :func:`propagate` and
+    ``kernels.propagate_block_ell`` (the reference's,
+    src/repro/core/propagator.py:612-680 and src/repro/kernels/ops.py:1201-1245)
+    over ``single(cfg, dtype, lb0, ub0, stop_progress, patience) ->
+    PropagationResult``, one single-dtype fixed point.
+
+    Without a two-tier ``policy`` one fixed point runs, with the policy's
+    early stop where one is given.  Otherwise a float32 tier of at most
+    ``max(1, int(max_rounds * fp32_round_frac))`` rounds runs, early-stopped
+    below ``switch_progress`` for ``patience`` rounds (its merges widen
+    outward, so its bounds never pass the float64 fixed point).  An fp32
+    infeasible verdict is never trusted: the endgame reruns from the
+    original bounds in the final dtype.  Otherwise the tier's bounds are
+    promoted by an exact cast with the infinite sentinels restored
+    (:func:`bounds.canonical_infinite`), and the endgame runs at most
+    ``max(1, max_rounds - tier_rounds)`` rounds from them; ``rounds`` is
+    both tiers' and ``tier_rounds`` the tier's.  The tier's verdict and
+    round count are read on the host at once (one read, reported to
+    ``on_sync``)."""
+    pair = two_tier_bounds_dtypes(policy, dtype) if policy is not None else None
+    if pair is None:
+        if policy is not None:
+            stop_progress, patience = policy.stop_progress, policy.patience
+        return single(cfg, dtype, lb0, ub0, stop_progress, patience)
+    dt32, final = pair
+    cap32 = max(1, int(cfg.max_rounds * policy.fp32_round_frac))
+    r32 = single(dataclasses.replace(cfg, max_rounds=cap32), dt32, lb0, ub0,
+                 policy.switch_progress, policy.patience)
+    infeasible, tier_rounds = torch.stack([r32.infeasible.to(torch.int32), r32.rounds]).tolist()
+    if on_sync is not None:
+        on_sync()
+    if infeasible:
+        r = single(cfg, final, lb0, ub0, policy.stop_progress, policy.patience)
+        return r._replace(tier_rounds=r32.rounds)
+    rem = dataclasses.replace(cfg, max_rounds=max(1, cfg.max_rounds - tier_rounds))
+    warm_lb, warm_ub = bnd.canonical_infinite(r32.lb.to(final), r32.ub.to(final))
+    r = single(rem, final, warm_lb, warm_ub, policy.stop_progress, policy.patience)
+    return r._replace(rounds=r.rounds + r32.rounds, tier_rounds=r32.rounds)
+
+
 def propagate(
     p: Problem,
     cfg: PropagatorConfig = DEFAULT_CONFIG,
@@ -576,7 +728,7 @@ def propagate(
     dtype=None,
     lb0=None,
     ub0=None,
-    policy=None,
+    policy: TierPolicy | None = None,
     telemetry=None,
     device="cuda",
     on_sync: Callable[[], None] | None = None,
@@ -587,24 +739,41 @@ def propagate(
     ``driver`` picks the loop as the reference's does: ``host_loop`` reads
     a flag on the host each round, ``device_loop`` keeps the loop state on
     the device and reads it once per :data:`UNGATED_LOOP_GROUP` rounds,
-    ``unrolled`` checks convergence every 4 rounds.  ``lb0``/``ub0`` are
-    ``(n,)`` warm-start overrides for this call only.  ``device`` defaults
-    to CUDA and raises where there is none; pass ``device="cpu"`` to run on
-    the CPU.  ``on_sync`` is called once per host read of the loop state.
+    ``unrolled`` checks convergence every 4 rounds.  ``dtype`` is float64
+    (the default) or float32.  ``lb0``/``ub0`` are ``(n,)`` warm-start
+    overrides for this call only.  ``device`` defaults to CUDA and raises
+    where there is none; pass ``device="cpu"`` to run on the CPU.
+    ``on_sync`` is called once per host read of the loop state.
     ``progress`` is the last check's measure on ``device_loop`` and
     ``unrolled`` and NaN on ``host_loop``, as in the reference.
-    ``policy=`` (item 5) and ``telemetry=`` (item 6) raise
-    ``NotImplementedError``."""
-    if policy is not None:
-        not_ported("policy=", "item 5 (precision tiers)")
-    if telemetry is not None:
-        not_ported("telemetry=", "item 6 (observability)")
+
+    ``policy`` (a :class:`TierPolicy`) turns on the runtime progress
+    control: with ``two_tier`` an fp32 tier, promotion and the endgame in
+    ``dtype`` (:func:`run_tiers`; ``result.tier_rounds`` counts the tier's
+    rounds), and ``stop_progress`` early-stops flatlined runs.
+    ``telemetry=`` (item 6) raises ``NotImplementedError``."""
+    _refuse_telemetry(telemetry)
     if driver not in DRIVERS:
         raise ValueError(f"unknown driver: {driver}")
+
+    def single(cfg_, dtype_, lb0_, ub0_, stop_progress, patience):
+        return _propagate_single(p, cfg_, driver, dtype_, lb0_, ub0_, stop_progress, patience,
+                                 device=device, on_sync=on_sync)
+
+    return run_tiers(single, cfg, dtype, lb0, ub0, policy, on_sync=on_sync)
+
+
+def _propagate_single(
+    p: Problem, cfg, driver, dtype, lb0, ub0, stop_progress=None, patience: int = 1, *,
+    device="cuda", on_sync: Callable[[], None] | None = None,
+) -> PropagationResult:
+    """One single-dtype fixed point of :func:`propagate` (the tiered front
+    end calls this twice)."""
     dp = DeviceProblem(p, dtype=dtype, device=device)
     run = {"host_loop": propagate_host_loop, "device_loop": propagate_device_loop,
            "unrolled": propagate_unrolled}[driver]
-    return run(dp, cfg, lb0=lb0, ub0=ub0, on_sync=on_sync)
+    return run(dp, cfg, lb0=lb0, ub0=ub0, stop_progress=stop_progress, patience=patience,
+               on_sync=on_sync)
 
 
 def fresh_instance_runner(p: Problem, cfg: PropagatorConfig = DEFAULT_CONFIG, device="cuda"):

@@ -54,7 +54,13 @@ import torch
 
 from ..obs.metrics import default_registry
 from ..obs.trace import NULL_TRACER
-from .propagator import batched_step_rounds, check_dtype, not_ported, resolve_device
+from .propagator import (
+    TIERS_REMAINDER,
+    batched_step_rounds,
+    check_float64,
+    not_ported,
+    resolve_device,
+)
 from .sparse import Problem, SlotPayload, col_pad, pack_into_slot
 from .types import DEFAULT_CONFIG, PropagationResult, PropagatorConfig
 
@@ -586,10 +592,10 @@ class PropagationService:
         if not specs:
             raise ValueError("PropagationService needs at least one BucketSpec")
         if stop_progress is not None or patience != 1:
-            not_ported("stop_progress= / patience=", "item 5 (precision tiers)")
+            not_ported("stop_progress= / patience= (the service's early retire)", TIERS_REMAINDER)
         if telemetry:
             not_ported("telemetry=", "item 6 (observability)")
-        check_dtype(dtype)
+        check_float64(dtype, "the service")
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             # The pump thread selects this card by index (``start``).
@@ -727,7 +733,7 @@ class PropagationService:
                     tk._result = PropagationResult(
                         lb=lb_i, ub=ub_i, rounds=rd_h[j].clone(), converged=~lc_h[j],
                         infeasible=(lb_i > ub_i + self._cfg.feas_eps).any(),
-                        progress=pg_h[j].clone(),
+                        progress=pg_h[j].clone(), tier_rounds=torch.zeros_like(rd_h[j]),
                     )
                     tk.done_t = now
                     tr.record(

@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 # SCIP-style infinity sentinel.  Values beyond this magnitude are "infinite".
@@ -63,6 +64,35 @@ class PropagatorConfig:
 DEFAULT_CONFIG = PropagatorConfig()
 
 
+@dataclasses.dataclass(frozen=True)
+class TierPolicy:
+    """Runtime policy for two-tier adaptive precision + progress control
+    (the reference's, src/repro/core/types.py:84).
+
+    The *measure of progress* (``bounds.progress_measure``) is a per-round
+    device scalar, the scale-normalized total bound movement of the round.
+    Two decisions hang off it:
+
+      * **tier switch** (``two_tier``): rounds run in float32 while the
+        per-round progress stays >= ``switch_progress``; once it drops below
+        for ``patience`` consecutive rounds the bounds are promoted (an
+        exact cast: they are outward-rounded, so never inside the float64
+        fixed point) and the float64 engine finishes the endgame.
+      * **early stop** (``stop_progress``): a fixed point whose progress
+        stays below this for ``patience`` rounds stops even though
+        epsilon-level changes continue.  ``None`` disables it.
+    """
+
+    two_tier: bool = True          # run an fp32 tier before the fp64 endgame
+    switch_progress: float = 1e-3  # fp32 tier: promote below this progress
+    stop_progress: float | None = None  # early stop threshold (None = off)
+    patience: int = 2              # consecutive low-progress rounds to act
+    fp32_round_frac: float = 0.5   # fp32 tier's share of the round cap
+
+
+DEFAULT_TIER_POLICY = TierPolicy()
+
+
 class Bounds(NamedTuple):
     """Variable domains ``lb <= x <= ub`` (sentinel-infinite)."""
 
@@ -96,3 +126,27 @@ class PropagationResult(NamedTuple):
     converged: torch.Tensor   # () bool: fixed point reached within the cap
     infeasible: torch.Tensor  # () bool: some variable domain became empty
     progress: torch.Tensor    # () last round's progress measure (NaN if none)
+    tier_rounds: torch.Tensor  # () int32: rounds run in the fp32 tier (0 if none ran)
+
+
+def is_pos_inf(v, inf: float = INF):
+    return v >= inf
+
+
+def is_neg_inf(v, inf: float = INF):
+    return v <= -inf
+
+
+def is_inf(v, inf: float = INF):
+    return v.abs() >= inf if isinstance(v, torch.Tensor) else abs(v) >= inf
+
+
+def clamp_to_sentinel(v, inf: float = INF):
+    """Clamp values into the representable range [-INF, INF] (a tensor in
+    the dtype of ``v``, float64 for Python floats)."""
+    t = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+    return torch.clamp(t, -inf, inf)
+
+
+def np_is_inf(v: np.ndarray, inf: float = INF) -> np.ndarray:
+    return np.abs(v) >= inf

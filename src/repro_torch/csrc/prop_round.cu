@@ -71,7 +71,7 @@
 // packed 32 / G to a warp at any K, by the same argument.  The TPU kernels'
 // one-hot gather becomes an indexed load (the (n_pad,) bound vectors stay
 // in L2), and their one-hot column scatter becomes a double-precision
-// max/min by 64-bit integer atomics (red_max_f64 / red_min_f64, -0.0
+// max/min by 64-bit integer atomics (red_max / red_min, -0.0
 // entering as +0.0, so -0.0 and +0.0 compare equal, as they do in the
 // oracle).  Max and min do not depend on order, so the scatter is exact.
 // D, A', E, #8 and #10 stop each chunk at its length (one past its last
@@ -84,7 +84,9 @@
 // hands back.
 // The device code the chunk kernels share with slab_round.cu (lane groups,
 // chunk aggregates, candidates + scatter, chunk_round, the active-only
-// walk, the one-column merges) is in round_common.cuh.
+// walk, the one-column merges) is in round_common.cuh; kernels D, A', E and
+// the long-row combine are in single_round.cuh, templated on the value and
+// index types, which tier_round.cu instantiates at float32.
 //
 // Build with --fmad=false: the activity products and the merge's
 // old + eps * max(1, |old|) must round like the oracle's separate multiply
@@ -93,139 +95,9 @@
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
-#include "round_common.cuh"
+#include "single_round.cuh"
 
 namespace {
-
-// Kernel D on chunk_round (round_common.cuh): each nonzero's bounds
-// gathered once and held from the sums to the candidates, values, columns
-// and marks loaded together, each chunk stopped at its hoisted length
-// clen[c], the column max / min by 64-bit integer reductions into the
-// planes best_l / best_u (kept by the round closure: F hands them back at
-// the sentinels).  The group width is keyed on the longest chunk, not on K:
-// where no chunk holds more than 16 slots (pb's hold at most 8 of K = 128)
-// a group of G = group_width(max_len) lanes owns a chunk, 32 / G chunks a
-// warp.  The sums stay ref.warp_order_sum's: every slot of a chunk lies in
-// its group's first stride, lane sl adds slot sl to +0.0, and the 32-lane
-// butterfly over lanes that hold +0.0 past the group reduces to the G-lane
-// one.  Longer chunks take a warp and held_strides(max_len) strides.  At
-// one stride held it takes 52-64 registers, four blocks an SM, without a
-// cap (a cap of 64 changes nothing; one of 40 spills and runs 22% slower
-// on pb: tools/round_variants.py).
-template <int G, int U>
-__global__ void __launch_bounds__(kThreads)
-fused_scatter_round_kernel(const double* __restrict__ val, const int* __restrict__ col,
-                           const int* __restrict__ ii, const int* __restrict__ clen,
-                           const double* __restrict__ lhs, const double* __restrict__ rhs,
-                           const double* __restrict__ lb, const double* __restrict__ ub,
-                           double* best_l, double* best_u, const bool* __restrict__ go,
-                           int64_t n_chunks, int k, double int_eps, double inf) {
-  if (skip_round(go)) return;
-  const Lanes L = lanes_for<G>(n_chunks);
-  const int64_t c = L.chunk;
-  chunk_round<G, U>(val, col, ii, SplitBounds{lb, ub}, c * k, L.live ? k : 0,
-                    L.live ? clen[c] : 0, true, RowAgg{}, L.live ? lhs[c] : 0.0,
-                    L.live ? rhs[c] : 0.0, best_l, best_u, L.sl, int_eps, inf);
-}
-
-// Kernel A' (and E below) stop each lane group at its chunk's length
-// clen[c], keep U strides' loads in flight and gather each column's two
-// bounds as one pair from the interleaved (n_pad, 2) lub (round_common.cuh).
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-activities_gather_kernel(const double* __restrict__ val, const int* __restrict__ col,
-                         const int* __restrict__ clen, const double2* __restrict__ lub,
-                         double* __restrict__ mf, int* __restrict__ mc, double* __restrict__ xf,
-                         int* __restrict__ xc, const bool* __restrict__ go, int64_t n_chunks,
-                         int k, double inf) {
-  if (skip_round(go)) return;
-  constexpr int U = Strides<G>::U;
-  const Lanes L = lanes_for<G>(n_chunks);
-  const int64_t base = L.chunk * k;
-  const int kk = L.live ? k : 0;
-  const int len = L.live ? clen[L.chunk] : 0;
-  RowAgg a{0.0, 0.0, 0, 0};
-  for (int j0 = 0; j0 < kk; j0 += U * kWarp) {
-    if (j0 > 0 && j0 >= len) break;
-    Loaded<U> s;
-    load_strides(s, val, col, nullptr, base, j0, len, kk, L.sl);
-    add_strides(a, s, PairedBounds{lub}, inf);
-  }
-  a = group_reduce<G>(a);
-  if (L.live && L.sl == 0) {
-    mf[L.chunk] = a.mf;
-    mc[L.chunk] = a.mc;
-    xf[L.chunk] = a.xf;
-    xc[L.chunk] = a.xc;
-  }
-}
-
-// E caps its registers at 64 (four blocks, 32 warps an SM): unbounded it
-// takes 66-70 and three blocks, and runs 14% slower on `mixed` on an H100
-// (tools/ae_variants.py).
-constexpr int kEMinBlocks = 4;
-
-template <int G>
-__global__ void __launch_bounds__(kThreads, kEMinBlocks)
-candidates_scatter_kernel(const double* __restrict__ val, const int* __restrict__ col,
-                          const int* __restrict__ ii, const int* __restrict__ clen,
-                          const double* __restrict__ rmf, const int* __restrict__ rmc,
-                          const double* __restrict__ rxf, const int* __restrict__ rxc,
-                          const double* __restrict__ lhs, const double* __restrict__ rhs,
-                          const double2* __restrict__ lub, double* best_l, double* best_u,
-                          const bool* __restrict__ go, int64_t n_chunks, int k, double int_eps,
-                          double inf) {
-  if (skip_round(go)) return;
-  constexpr int U = Strides<G>::U;
-  const Lanes L = lanes_for<G>(n_chunks);
-  if (!L.live) return;
-  const int64_t c = L.chunk;
-  const RowAgg a{rmf[c], rxf[c], rmc[c], rxc[c]};
-  const double lo = lhs[c], hi = rhs[c];
-  const int len = clen[c];
-  for (int j0 = 0; j0 < k; j0 += U * kWarp) {
-    if (j0 > 0 && j0 >= len) break;
-    Loaded<U> s;
-    load_strides(s, val, col, ii, c * k, j0, len, k, L.sl);
-    scatter_strides(s, PairedBounds{lub}, a, lo, hi, best_l, best_u, int_eps, inf);
-  }
-}
-
-// The long-row combine: each row segment's chunk partials summed left to
-// right from 0 (chunks of a row are adjacent in the stream), then written
-// back to every chunk of the row.  Fixed order on every run, unlike an
-// atomic segment sum.  The segments come classified (hoisted, not per
-// round): the first long_blocks blocks give each long segment one warp
-// (combine_segment_warp, 2 KB of shared memory a warp), first so that the
-// longest chains start at once; the rest give each short segment one
-// thread.  Both take the same sums in the same order.  A class entry of -1
-// is empty.
-__global__ void __launch_bounds__(kThreads)
-combine_chunk_partials_kernel(const double* __restrict__ mf, const int* __restrict__ mc,
-                              const double* __restrict__ xf, const int* __restrict__ xc,
-                              const int64_t* __restrict__ row_start,
-                              const int* __restrict__ short_seg, const int* __restrict__ long_seg,
-                              double* __restrict__ omf, int* __restrict__ omc,
-                              double* __restrict__ oxf, int* __restrict__ oxc,
-                              const bool* __restrict__ go, int64_t n_short, int64_t n_long,
-                              unsigned int long_blocks) {
-  __shared__ double sm[kWarpsPerBlock][2 * kCombineGroup];
-  if (skip_round(go)) return;
-  if (blockIdx.x < long_blocks) {
-    const int64_t w = static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + threadIdx.x / kWarp;
-    if (w >= n_long) return;  // the whole warp
-    const int seg = long_seg[w];
-    if (seg < 0) return;
-    combine_segment_warp(mf, mc, xf, xc, omf, omc, oxf, oxc, row_start[seg],
-                         row_start[seg + 1], threadIdx.x % kWarp, sm[threadIdx.x / kWarp]);
-    return;
-  }
-  const int64_t r = static_cast<int64_t>(blockIdx.x - long_blocks) * blockDim.x + threadIdx.x;
-  if (r >= n_short) return;
-  const int seg = short_seg[r];
-  if (seg < 0) return;
-  combine_segment(mf, mc, xf, xc, omf, omc, oxf, oxc, row_start[seg], row_start[seg + 1]);
-}
 
 // The same over (B, T, R) node planes of one instance: node b's segments
 // are row_start offset by b * n_chunks.  Grid (segment blocks, groups of 32
@@ -600,19 +472,6 @@ fused_round_kernel(const double* __restrict__ val, const double* __restrict__ lb
                          int_eps, inf);
 }
 
-// Blocks of the combine: one warp per long segment, then one thread per
-// short segment.
-struct CombineGrid {
-  unsigned int long_blocks, blocks;
-};
-
-CombineGrid combine_grid(int64_t n_short, int64_t n_long) {
-  const unsigned int sb = static_cast<unsigned int>((n_short + kThreads - 1) / kThreads);
-  const unsigned int lb =
-      static_cast<unsigned int>((n_long + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  return CombineGrid{lb, lb + sb};
-}
-
 }  // namespace
 
 extern "C" {
@@ -623,24 +482,15 @@ int fused_scatter_round(const double* val, const int* col, const int* ii, const 
                         const double* lhs, const double* rhs, const double* lb, const double* ub,
                         double* best_l, double* best_u, const bool* go, int64_t n_chunks, int k,
                         int max_len, double int_eps, double inf, cudaStream_t stream) {
-  // The group width of the longest chunk (at most K's).
-  const int width = max_len < k ? max_len : k;
-  const unsigned int blocks = chunk_blocks(n_chunks, width);
-#define FUSED(G, U)                                                                          \
-  launch_blocks<fused_scatter_round_kernel<G, U>>(blocks, stream, val, col, ii, clen, lhs, \
-                                                  rhs, lb, ub, best_l, best_u, go, n_chunks, \
-                                                  k, int_eps, inf)
-  DISPATCH_HELD(FUSED, width, held_strides(max_len))
-#undef FUSED
+  return launch_fused_scatter_round(val, col, ii, clen, lhs, rhs, lb, ub, best_l, best_u, go,
+                                    n_chunks, k, max_len, int_eps, inf, stream);
 }
 
 int activities_gather(const double* val, const int* col, const int* clen, const double* lub,
                       double* mf, int* mc, double* xf, int* xc, const bool* go, int64_t n_chunks,
                       int k, double inf, cudaStream_t stream) {
-  const double2* pairs = reinterpret_cast<const double2*>(lub);
-  LAUNCH_FOR_WIDTH(activities_gather_kernel, k, n_chunks, stream, val, col, clen, pairs, mf, mc,
-                   xf, xc, go, n_chunks, k, inf);
-  return static_cast<int>(cudaGetLastError());
+  return launch_activities_gather(val, col, clen, lub, mf, mc, xf, xc, go, n_chunks, k, inf,
+                                  stream);
 }
 
 int candidates_scatter(const double* val, const int* col, const int* ii, const int* clen,
@@ -648,10 +498,8 @@ int candidates_scatter(const double* val, const int* col, const int* ii, const i
                        const double* lhs, const double* rhs, const double* lub, double* best_l,
                        double* best_u, const bool* go, int64_t n_chunks, int k, double int_eps,
                        double inf, cudaStream_t stream) {
-  const double2* pairs = reinterpret_cast<const double2*>(lub);
-  LAUNCH_FOR_WIDTH(candidates_scatter_kernel, k, n_chunks, stream, val, col, ii, clen, rmf, rmc,
-                   rxf, rxc, lhs, rhs, pairs, best_l, best_u, go, n_chunks, k, int_eps, inf);
-  return static_cast<int>(cudaGetLastError());
+  return launch_candidates_scatter(val, col, ii, clen, rmf, rmc, rxf, rxc, lhs, rhs, lub, best_l,
+                                   best_u, go, n_chunks, k, int_eps, inf, stream);
 }
 
 int node_activities_gather(const double* val, const int* col, const int* clen, const double* lb,
@@ -690,11 +538,8 @@ int combine_chunk_partials(const double* mf, const int* mc, const double* xf, co
                            const int64_t* row_start, const int* short_seg, const int* long_seg,
                            double* omf, int* omc, double* oxf, int* oxc, const bool* go,
                            int64_t n_short, int64_t n_long, cudaStream_t stream) {
-  const CombineGrid g = combine_grid(n_short, n_long);
-  combine_chunk_partials_kernel<<<g.blocks, kThreads, 0, stream>>>(
-      mf, mc, xf, xc, row_start, short_seg, long_seg, omf, omc, oxf, oxc, go, n_short, n_long,
-      g.long_blocks);
-  return static_cast<int>(cudaGetLastError());
+  return launch_combine_chunk_partials(mf, mc, xf, xc, row_start, short_seg, long_seg, omf, omc,
+                                       oxf, oxc, go, n_short, n_long, stream);
 }
 
 int node_combine_chunk_partials(const double* mf, const int* mc, const double* xf,

@@ -8,7 +8,12 @@
 // #10, #13, #14, #15), the bound merge of one column, with or without
 // handing the accumulator entry back (merge_reset), the merges' body (F,
 // #9, #15) on the walk or on a (column block, row) grid, and the loop
-// carry that F folds its flag into (CarryFlags).  See
+// carry that F folds its flag into (CarryFlags), with the early stop's
+// progress measure where one is armed (StopCarryFlags).  The routines of
+// the single instance's round (D, A', E, the combine, F) are templated on
+// the value type T (double, or float for the fp32 tier) and on the index
+// types (int32 columns and marks, or the compact int16 / int8 streams);
+// the other kernels instantiate them at double and int32 only.  See
 // prop_round.cu for the layout and the rounding rules (--fmad=false,
 // division-first candidates).
 
@@ -17,11 +22,60 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <cstddef>
+
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarp * kWarpsPerBlock;
+
+// The value types of the precision tiers: float64 (the propagation
+// contract) and float32 (the fp32 tier).  Pair: a column's two bounds as
+// one vector load; SBits / UBits: the integer words of the
+// order-preserving column max / min (64-bit for double, 32-bit for float);
+// kExact: integrality rounding without the tier's slack
+// (core.types.int_round_slack), float64's exact `ceil(l - int_eps)`.  A
+// kernel does all its arithmetic in T: its scalars (eps, int_eps, inf,
+// outward) arrive already rounded to T, as the reference's weakly typed
+// Python scalars are.
+template <typename T>
+struct Num;
+
+template <>
+struct Num<double> {
+  using Pair = double2;
+  using SBits = long long;
+  using UBits = unsigned long long;
+  static constexpr bool kExact = true;
+  static constexpr double kSlack = 0.0;
+  __device__ static __forceinline__ Pair pair(double a, double b) { return make_double2(a, b); }
+  __device__ static __forceinline__ SBits bits(double v) { return __double_as_longlong(v); }
+};
+
+template <>
+struct Num<float> {
+  using Pair = float2;
+  using SBits = int;
+  using UBits = unsigned int;
+  static constexpr bool kExact = false;
+  static constexpr float kSlack = 7.62939453125e-06f;  // 2**-17
+  __device__ static __forceinline__ Pair pair(float a, float b) { return make_float2(a, b); }
+  __device__ static __forceinline__ SBits bits(float v) { return __float_as_int(v); }
+};
+
+// The math of both value types, by overload (so a float is never promoted
+// to double by a double literal or a double function).
+__device__ __forceinline__ double vabs(double x) { return fabs(x); }
+__device__ __forceinline__ float vabs(float x) { return fabsf(x); }
+__device__ __forceinline__ double vmax(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ float vmax(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double vmin(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ float vmin(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double vceil(double x) { return ceil(x); }
+__device__ __forceinline__ float vceil(float x) { return ceilf(x); }
+__device__ __forceinline__ double vfloor(double x) { return floor(x); }
+__device__ __forceinline__ float vfloor(float x) { return floorf(x); }
 
 // The gate of a round's kernels (D, A', the combine, E): true where the
 // loop carry's `go` (the low byte of its int32 field, passed as a bool
@@ -29,27 +83,31 @@ constexpr int kThreads = kWarp * kWarpsPerBlock;
 // enqueued after convergence returns at once.
 __device__ __forceinline__ bool skip_round(const bool* go) { return go != nullptr && !*go; }
 
-struct Slot {
+template <typename T>
+struct SlotT {
   bool pos, min_inf, max_inf;
-  double bmin, bmax;
+  T bmin, bmax;
 };
+using Slot = SlotT<double>;
 
 // tile_contributions of one real nonzero (val != 0) whose column has the
 // bounds l, u.
-__device__ __forceinline__ Slot make_slot(double v, double l, double u, double inf) {
-  Slot s;
-  s.pos = v > 0.0;
+template <typename T>
+__device__ __forceinline__ SlotT<T> make_slot(T v, T l, T u, T inf) {
+  SlotT<T> s;
+  s.pos = v > T(0);
   s.bmin = s.pos ? l : u;
   s.bmax = s.pos ? u : l;
-  s.min_inf = fabs(s.bmin) >= inf;
-  s.max_inf = fabs(s.bmax) >= inf;
+  s.min_inf = vabs(s.bmin) >= inf;
+  s.max_inf = vabs(s.bmax) >= inf;
   return s;
 }
 
 // The same, gathered at column c of the bound vectors (padding is skipped
 // before its col is read).
-__device__ __forceinline__ Slot load_slot(double v, int c, const double* __restrict__ lb,
-                                          const double* __restrict__ ub, double inf) {
+template <typename T>
+__device__ __forceinline__ SlotT<T> load_slot(T v, int c, const T* __restrict__ lb,
+                                              const T* __restrict__ ub, T inf) {
   return make_slot(v, lb[c], ub[c], inf);
 }
 
@@ -114,10 +172,12 @@ __device__ __forceinline__ Lanes lanes_for(int64_t n_chunks) {
   return L;
 }
 
-struct RowAgg {
-  double mf, xf;
+template <typename T>
+struct RowAggT {
+  T mf, xf;
   int mc, xc;
 };
+using RowAgg = RowAggT<double>;
 
 // tile_row_aggregates of one chunk, its bounds from B (ColumnBounds or
 // SlotBounds); every lane of the group gets the result.  All lanes of the
@@ -171,34 +231,51 @@ __device__ __forceinline__ void atomic_min_f64(double* addr, double v) {
   }
 }
 
-__device__ __forceinline__ double clip(double x, double inf) { return fmin(fmax(x, -inf), inf); }
+template <typename T>
+__device__ __forceinline__ T clip(T x, T inf) { return vmin(vmax(x, -inf), inf); }
 
-struct Cands {
-  double lc, uc;
+template <typename T>
+struct CandsT {
+  T lc, uc;
 };
+using Cands = CandsT<double>;
+
+// The integrality rounding's margin below a lower candidate c (above an
+// upper one): int_eps, plus the tier's slack * max(1, |c|) where the tier
+// is not exact (round_candidates: a separate multiply and add, so
+// --fmad=false rounds them as the plain version does).
+template <typename T>
+__device__ __forceinline__ T round_margin(T c, T int_eps) {
+  if constexpr (Num<T>::kExact) {
+    return int_eps;
+  } else {
+    return int_eps + Num<T>::kSlack * vmax(T(1), vabs(c));
+  }
+}
 
 // tile_candidates of one real nonzero v with bounds s, from its row's
 // completed aggregates a and sides; is_int rounds inward.
-__device__ __forceinline__ Cands slot_candidates(double v, const Slot& s, const RowAgg& a,
-                                                 double lhs, double rhs, bool is_int,
-                                                 double int_eps, double inf) {
+template <typename T>
+__device__ __forceinline__ CandsT<T> slot_candidates(T v, const SlotT<T>& s, const RowAggT<T>& a,
+                                                     T lhs, T rhs, bool is_int, T int_eps,
+                                                     T inf) {
   const bool ok_min = s.min_inf ? a.mc == 1 : a.mc == 0;
   const bool ok_max = s.max_inf ? a.xc == 1 : a.xc == 0;
-  const double inc_min = s.min_inf ? 0.0 : s.bmin;
-  const double inc_max = s.max_inf ? 0.0 : s.bmax;
-  const double q_min = (rhs - a.mf) / v + inc_min;
-  const double q_max = (lhs - a.xf) / v + inc_max;
-  double lc = s.pos ? q_max : q_min;
-  double uc = s.pos ? q_min : q_max;
+  const T inc_min = s.min_inf ? T(0) : s.bmin;
+  const T inc_max = s.max_inf ? T(0) : s.bmax;
+  const T q_min = (rhs - a.mf) / v + inc_min;
+  const T q_max = (lhs - a.xf) / v + inc_max;
+  T lc = s.pos ? q_max : q_min;
+  T uc = s.pos ? q_min : q_max;
   const bool valid_l = s.pos ? (lhs > -inf && ok_max) : (rhs < inf && ok_min);
   const bool valid_u = s.pos ? (rhs < inf && ok_min) : (lhs > -inf && ok_max);
   lc = valid_l ? clip(lc, inf) : -inf;
   uc = valid_u ? clip(uc, inf) : inf;
   if (is_int) {
-    if (fabs(lc) < inf) lc = ceil(lc - int_eps);
-    if (fabs(uc) < inf) uc = floor(uc + int_eps);
+    if (vabs(lc) < inf) lc = vceil(lc - round_margin(lc, int_eps));
+    if (vabs(uc) < inf) uc = vfloor(uc + round_margin(uc, int_eps));
   }
-  return Cands{lc, uc};
+  return CandsT<T>{lc, uc};
 }
 
 // tile_candidates of one chunk followed by the column max/min by
@@ -244,25 +321,37 @@ __device__ __forceinline__ void chunk_candidates_store(
 
 // bounds.apply_updates for column i, whose bounds l, u and best candidates
 // bl, bu are loaded already, in place; true if a bound tightened.
-__device__ __forceinline__ bool merge_loaded(double* __restrict__ lb, double* __restrict__ ub,
-                                             int64_t i, double l, double u, double bl,
-                                             double bu, double eps, double inf,
-                                             double outward) {
-  const bool take_l = bl > l + eps * fmax(1.0, fabs(l));
-  const bool take_u = bu < u - eps * fmax(1.0, fabs(u));
-  if (outward != 0.0) {
-    bl = bl - outward * fmax(1.0, fabs(bl));
-    bu = bu + outward * fmax(1.0, fabs(bu));
+// The merged bounds come back in nl, nu (the early stop's progress measure
+// reads them).
+template <typename T>
+__device__ __forceinline__ bool merge_loaded_into(T* __restrict__ lb, T* __restrict__ ub,
+                                                  int64_t i, T l, T u, T bl, T bu, T eps, T inf,
+                                                  T outward, T& nl, T& nu) {
+  const bool take_l = bl > l + eps * vmax(T(1), vabs(l));
+  const bool take_u = bu < u - eps * vmax(T(1), vabs(u));
+  if (outward != T(0)) {
+    bl = bl - outward * vmax(T(1), vabs(bl));
+    bu = bu + outward * vmax(T(1), vabs(bu));
   }
-  if (take_l) lb[i] = clip(bl, inf);
-  if (take_u) ub[i] = clip(bu, inf);
+  nl = take_l ? clip(bl, inf) : l;
+  nu = take_u ? clip(bu, inf) : u;
+  if (take_l) lb[i] = nl;
+  if (take_u) ub[i] = nu;
   return take_l || take_u;
 }
 
+// The same without them.
+template <typename T>
+__device__ __forceinline__ bool merge_loaded(T* __restrict__ lb, T* __restrict__ ub, int64_t i,
+                                             T l, T u, T bl, T bu, T eps, T inf, T outward) {
+  T nl, nu;
+  return merge_loaded_into(lb, ub, i, l, u, bl, bu, eps, inf, outward, nl, nu);
+}
+
 // The same, loading the bounds.
-__device__ __forceinline__ bool merge_values(double* __restrict__ lb, double* __restrict__ ub,
-                                             int64_t i, double bl, double bu, double eps,
-                                             double inf, double outward) {
+template <typename T>
+__device__ __forceinline__ bool merge_values(T* __restrict__ lb, T* __restrict__ ub, int64_t i,
+                                             T bl, T bu, T eps, T inf, T outward) {
   return merge_loaded(lb, ub, i, lb[i], ub[i], bl, bu, eps, inf, outward);
 }
 
@@ -309,10 +398,12 @@ struct Strides {
 };
 
 // One batch of U strides of a lane: slot values, their columns and
-// integrality marks (both read at nonzeros only; 0 elsewhere).
-template <int U>
+// integrality marks (both read at nonzeros only; 0 elsewhere), the ids
+// widened to int in registers whatever their width in memory (int32, or
+// the fp32 tier's compact int16 columns and int8 marks).
+template <int U, typename T = double>
 struct Loaded {
-  double v[U];
+  T v[U];
   int c[U];
   int m[U];
 };
@@ -323,25 +414,33 @@ struct Loaded {
 // Columns and marks are read at nonzeros only, after their values; EAGER
 // reads them with the values (padding holds column 0), so that the bound
 // gather waits for one load instead of two.
-template <int U, bool EAGER = false>
-__device__ __forceinline__ void load_strides(Loaded<U>& s, const double* __restrict__ val,
-                                             const int* __restrict__ col,
-                                             const int* __restrict__ ii, int64_t base, int j0,
+template <int U, bool EAGER = false, typename T, typename C, typename M>
+__device__ __forceinline__ void load_strides(Loaded<U, T>& s, const T* __restrict__ val,
+                                             const C* __restrict__ col,
+                                             const M* __restrict__ ii, int64_t base, int j0,
                                              int len, int k, int sl) {
   bool in[U];
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const int j = j0 + sl + u * kWarp;
     in[u] = j < (j0 == 0 && u == 0 ? k : len);
-    s.v[u] = in[u] ? val[base + j] : 0.0;
+    s.v[u] = in[u] ? val[base + j] : T(0);
   }
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const int64_t i = base + j0 + sl + u * kWarp;
-    const bool read = EAGER ? in[u] : s.v[u] != 0.0;
-    s.c[u] = read ? col[i] : 0;
-    s.m[u] = ii != nullptr && read ? ii[i] : 0;
+    const bool read = EAGER ? in[u] : s.v[u] != T(0);
+    s.c[u] = read ? static_cast<int>(col[i]) : 0;
+    s.m[u] = ii != nullptr && read ? static_cast<int>(ii[i]) : 0;
   }
+}
+
+// The same without marks.
+template <int U, bool EAGER = false, typename T, typename C>
+__device__ __forceinline__ void load_strides(Loaded<U, T>& s, const T* __restrict__ val,
+                                             const C* __restrict__ col, std::nullptr_t,
+                                             int64_t base, int j0, int len, int k, int sl) {
+  load_strides<U, EAGER>(s, val, col, static_cast<const int*>(nullptr), base, j0, len, k, sl);
 }
 
 // Where a batch's bounds come from.  SplitBounds gathers them from the two
@@ -350,27 +449,33 @@ __device__ __forceinline__ void load_strides(Loaded<U>& s, const double* __restr
 // not the bytes, bound A' and E: each lane's load of a scattered column is a
 // cache-line request of its own, and a pair halves them (A' on `mixed`,
 // an H100 at 700 W: 0.1535 -> 0.0982 ms, tools/ae_variants.py).
-struct SplitBounds {
-  const double* lb;
-  const double* ub;
-  __device__ __forceinline__ double2 at(int c) const {
-    return make_double2(__ldg(lb + c), __ldg(ub + c));
+// (Both also in float32: a float pair is one 8-byte load, aligned since
+// the (n_pad, 2) copy starts a fresh allocation.)
+template <typename T>
+struct SplitBoundsT {
+  const T* lb;
+  const T* ub;
+  __device__ __forceinline__ typename Num<T>::Pair at(int c) const {
+    return Num<T>::pair(__ldg(lb + c), __ldg(ub + c));
   }
 };
+using SplitBounds = SplitBoundsT<double>;
 
-struct PairedBounds {
-  const double2* lub;
-  __device__ __forceinline__ double2 at(int c) const { return __ldg(lub + c); }
+template <typename T>
+struct PairedBoundsT {
+  const typename Num<T>::Pair* lub;
+  __device__ __forceinline__ typename Num<T>::Pair at(int c) const { return __ldg(lub + c); }
 };
+using PairedBounds = PairedBoundsT<double>;
 
 // The bounds of a batch's nonzeros, gathered at their columns, all issued
 // before any is used.
-template <int U, typename B>
-__device__ __forceinline__ void gather_strides(const Loaded<U>& s, const B& b, double (&l)[U],
-                                               double (&h)[U]) {
+template <int U, typename B, typename T>
+__device__ __forceinline__ void gather_strides(const Loaded<U, T>& s, const B& b, T (&l)[U],
+                                               T (&h)[U]) {
 #pragma unroll
   for (int u = 0; u < U; ++u) {
-    const double2 p = s.v[u] != 0.0 ? b.at(s.c[u]) : make_double2(0.0, 0.0);
+    const typename Num<T>::Pair p = s.v[u] != T(0) ? b.at(s.c[u]) : Num<T>::pair(T(0), T(0));
     l[u] = p.x;
     h[u] = p.y;
   }
@@ -378,29 +483,29 @@ __device__ __forceinline__ void gather_strides(const Loaded<U>& s, const B& b, d
 
 // A batch's activity contributions, from its gathered bounds l, h, added to
 // the lane's sums in slot order.
-template <int U>
-__device__ __forceinline__ void add_gathered(RowAgg& a, const Loaded<U>& s, const double (&l)[U],
-                                             const double (&h)[U], double inf) {
+template <int U, typename T>
+__device__ __forceinline__ void add_gathered(RowAggT<T>& a, const Loaded<U, T>& s,
+                                             const T (&l)[U], const T (&h)[U], T inf) {
 #pragma unroll
   for (int u = 0; u < U; ++u) {
-    if (s.v[u] == 0.0) continue;
-    const Slot t = make_slot(s.v[u], l[u], h[u], inf);
+    if (s.v[u] == T(0)) continue;
+    const SlotT<T> t = make_slot(s.v[u], l[u], h[u], inf);
     if (t.min_inf) a.mc += 1; else a.mf += s.v[u] * t.bmin;
     if (t.max_inf) a.xc += 1; else a.xf += s.v[u] * t.bmax;
   }
 }
 
 // The same, gathering the batch's bounds first.
-template <int U, typename B>
-__device__ __forceinline__ void add_strides(RowAgg& a, const Loaded<U>& s, const B& b,
-                                            double inf) {
-  double l[U], h[U];
+template <int U, typename B, typename T>
+__device__ __forceinline__ void add_strides(RowAggT<T>& a, const Loaded<U, T>& s, const B& b,
+                                            T inf) {
+  T l[U], h[U];
   gather_strides(s, b, l, h);
   add_gathered(a, s, l, h, inf);
 }
 
-template <int G>
-__device__ __forceinline__ RowAgg group_reduce(RowAgg a) {
+template <int G, typename T>
+__device__ __forceinline__ RowAggT<T> group_reduce(RowAggT<T> a) {
   a.mf = group_sum<G>(a.mf);
   a.xf = group_sum<G>(a.xf);
   a.mc = group_sum<G>(a.mc);
@@ -408,61 +513,65 @@ __device__ __forceinline__ RowAgg group_reduce(RowAgg a) {
   return a;
 }
 
-// Column max / min of float64 candidates by the card's 64-bit integer
-// atomics, one fire-and-forget reduction each (no compare-and-swap loop, no
-// returned value).  A non-negative double orders as its bits read as a
-// signed integer; a negative one in reverse as its bits read unsigned, and
-// above every non-negative one: so max takes the signed max for v >= 0 and
-// the unsigned min for v < 0, min the other way round, whatever the stored
-// value.  -0.0 would order below every double, so it enters as +0.0 (equal
-// as a value).  CHECK: a pre-check reads the accumulator from L2 (not a
-// stale L1 line) and skips a candidate that cannot win; accumulators only
-// move towards the candidates, so skipping is exact.  E keeps it; #10 and
-// #12 go without, since waiting for the read costs them more than the
-// atomics it saves (tools/round_variants.py).
-template <bool CHECK = true>
-__device__ __forceinline__ void red_max_f64(double* addr, double v) {
-  if (v == 0.0) v = 0.0;
+// Column max / min of candidates by the card's integer atomics (64-bit
+// words for float64, 32-bit for float32), one fire-and-forget reduction
+// each (no compare-and-swap loop, no returned value).  A non-negative
+// float orders as its bits read as a signed integer; a negative one in
+// reverse as its bits read unsigned, and above every non-negative one: so
+// max takes the signed max for v >= 0 and the unsigned min for v < 0, min
+// the other way round, whatever the stored value.  -0.0 would order below
+// every float, so it enters as +0.0 (equal as a value).  CHECK: a
+// pre-check reads the accumulator from L2 (not a stale L1 line) and skips
+// a candidate that cannot win; accumulators only move towards the
+// candidates, so skipping is exact.  E keeps it; #10 and #12 go without,
+// since waiting for the read costs them more than the atomics it saves
+// (tools/round_variants.py).
+template <bool CHECK = true, typename T>
+__device__ __forceinline__ void red_max(T* addr, T v) {
+  using SB = typename Num<T>::SBits;
+  using UB = typename Num<T>::UBits;
+  if (v == T(0)) v = T(0);
   if (CHECK && !(v > __ldcg(addr))) return;
-  const long long bits = __double_as_longlong(v);
-  if (v >= 0.0) atomicMax(reinterpret_cast<long long*>(addr), bits);
-  else atomicMin(reinterpret_cast<unsigned long long*>(addr), static_cast<unsigned long long>(bits));
+  const SB bits = Num<T>::bits(v);
+  if (v >= T(0)) atomicMax(reinterpret_cast<SB*>(addr), bits);
+  else atomicMin(reinterpret_cast<UB*>(addr), static_cast<UB>(bits));
 }
 
-template <bool CHECK = true>
-__device__ __forceinline__ void red_min_f64(double* addr, double v) {
-  if (v == 0.0) v = 0.0;
+template <bool CHECK = true, typename T>
+__device__ __forceinline__ void red_min(T* addr, T v) {
+  using SB = typename Num<T>::SBits;
+  using UB = typename Num<T>::UBits;
+  if (v == T(0)) v = T(0);
   if (CHECK && !(v < __ldcg(addr))) return;
-  const long long bits = __double_as_longlong(v);
-  if (v >= 0.0) atomicMin(reinterpret_cast<long long*>(addr), bits);
-  else atomicMax(reinterpret_cast<unsigned long long*>(addr), static_cast<unsigned long long>(bits));
+  const SB bits = Num<T>::bits(v);
+  if (v >= T(0)) atomicMin(reinterpret_cast<SB*>(addr), bits);
+  else atomicMax(reinterpret_cast<UB*>(addr), static_cast<UB>(bits));
 }
 
 // A batch's candidates, from its gathered bounds l, h and the row's
 // completed aggregates a and sides, scattered into the column max / min.
 // Sentinel candidates skip the reduction: the accumulators start at the
 // sentinels.
-template <int U, bool CHECK = true>
-__device__ __forceinline__ void scatter_gathered(const Loaded<U>& s, const double (&l)[U],
-                                                 const double (&h)[U], const RowAgg& a,
-                                                 double lhs, double rhs, double* best_l,
-                                                 double* best_u, double int_eps, double inf) {
+template <int U, bool CHECK = true, typename T>
+__device__ __forceinline__ void scatter_gathered(const Loaded<U, T>& s, const T (&l)[U],
+                                                 const T (&h)[U], const RowAggT<T>& a, T lhs,
+                                                 T rhs, T* best_l, T* best_u, T int_eps, T inf) {
 #pragma unroll
   for (int u = 0; u < U; ++u) {
-    if (s.v[u] == 0.0) continue;
-    const Cands q = slot_candidates(s.v[u], make_slot(s.v[u], l[u], h[u], inf), a, lhs, rhs,
-                                    s.m[u] != 0, int_eps, inf);
-    if (q.lc > -inf) red_max_f64<CHECK>(best_l + s.c[u], q.lc);
-    if (q.uc < inf) red_min_f64<CHECK>(best_u + s.c[u], q.uc);
+    if (s.v[u] == T(0)) continue;
+    const CandsT<T> q = slot_candidates(s.v[u], make_slot(s.v[u], l[u], h[u], inf), a, lhs, rhs,
+                                        s.m[u] != 0, int_eps, inf);
+    if (q.lc > -inf) red_max<CHECK>(best_l + s.c[u], q.lc);
+    if (q.uc < inf) red_min<CHECK>(best_u + s.c[u], q.uc);
   }
 }
 
 // The same, gathering the batch's bounds first.
-template <int U, bool CHECK = true, typename B>
-__device__ __forceinline__ void scatter_strides(const Loaded<U>& s, const B& b, const RowAgg& a,
-                                                double lhs, double rhs, double* best_l,
-                                                double* best_u, double int_eps, double inf) {
-  double l[U], h[U];
+template <int U, bool CHECK = true, typename B, typename T>
+__device__ __forceinline__ void scatter_strides(const Loaded<U, T>& s, const B& b,
+                                                const RowAggT<T>& a, T lhs, T rhs, T* best_l,
+                                                T* best_u, T int_eps, T inf) {
+  T l[U], h[U];
   gather_strides(s, b, l, h);
   scatter_gathered<U, CHECK>(s, l, h, a, lhs, rhs, best_l, best_u, int_eps, inf);
 }
@@ -504,20 +613,19 @@ inline int held_strides(int max_len) {
 // adds its slots in the order sl, sl + 32, ... and the group reduces by
 // chunk_aggregates' butterfly, so the sums are its own bit for bit, and
 // ref.warp_order_sum's.
-template <int G, int U, typename B>
-__device__ __forceinline__ RowAgg chunk_sums(Loaded<U>& first, double (&l)[U], double (&h)[U],
-                                             const double* __restrict__ val,
-                                             const int* __restrict__ col,
-                                             const int* __restrict__ ii, const B& b,
-                                             int64_t base, int kk, int len, bool sum, int sl,
-                                             double inf) {
+template <int G, int U, typename T, typename C, typename MP, typename B>
+__device__ __forceinline__ RowAggT<T> chunk_sums(Loaded<U, T>& first, T (&l)[U], T (&h)[U],
+                                                 const T* __restrict__ val,
+                                                 const C* __restrict__ col, MP ii, const B& b,
+                                                 int64_t base, int kk, int len, bool sum,
+                                                 int sl, T inf) {
   load_strides<U, true>(first, val, col, ii, base, 0, len, kk, sl);
   gather_strides(first, b, l, h);
-  RowAgg a{0.0, 0.0, 0, 0};
+  RowAggT<T> a{T(0), T(0), 0, 0};
   if (sum) {
     add_gathered(a, first, l, h, inf);
     for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
-      Loaded<U> s;
+      Loaded<U, T> s;
       load_strides<U, true>(s, val, col, nullptr, base, j0, len, kk, sl);
       add_strides(a, s, b, inf);
     }
@@ -531,22 +639,21 @@ __device__ __forceinline__ RowAgg chunk_sums(Loaded<U>& first, double (&l)[U], d
 // which loads nothing and scatters nothing.  sum: the row's aggregates are
 // the chunk's own sums; else they are given (the straddle aggregates of
 // #12 and #14, whose chunk gathers only for its candidates).
-template <int G, int U, typename B>
-__device__ __forceinline__ void chunk_round(const double* __restrict__ val,
-                                            const int* __restrict__ col,
-                                            const int* __restrict__ ii, const B& b,
+template <int G, int U, typename T, typename C, typename M, typename B>
+__device__ __forceinline__ void chunk_round(const T* __restrict__ val,
+                                            const C* __restrict__ col,
+                                            const M* __restrict__ ii, const B& b,
                                             int64_t base, int kk, int len, bool sum,
-                                            const RowAgg& given, double lhs, double rhs,
-                                            double* best_l, double* best_u, int sl,
-                                            double int_eps, double inf) {
-  Loaded<U> first;
-  double l[U], h[U];
-  RowAgg a = chunk_sums<G, U>(first, l, h, val, col, ii, b, base, kk, len, sum, sl, inf);
+                                            const RowAggT<T>& given, T lhs, T rhs, T* best_l,
+                                            T* best_u, int sl, T int_eps, T inf) {
+  Loaded<U, T> first;
+  T l[U], h[U];
+  RowAggT<T> a = chunk_sums<G, U>(first, l, h, val, col, ii, b, base, kk, len, sum, sl, inf);
   if (kk == 0) return;
   if (!sum) a = given;
   scatter_gathered<U, false>(first, l, h, a, lhs, rhs, best_l, best_u, int_eps, inf);
   for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
-    Loaded<U> s;
+    Loaded<U, T> s;
     load_strides<U, true>(s, val, col, ii, base, j0, len, kk, sl);
     scatter_strides<U, false>(s, b, a, lhs, rhs, best_l, best_u, int_eps, inf);
   }
@@ -781,6 +888,7 @@ __device__ __forceinline__ void clear_flags(T* clear, int64_t n) {
 // batch's 33 rounds on an H100, tools/path_times.py).
 struct RowFlags {
   static constexpr int kGridCols = 4;
+  static constexpr bool kProgress = false;
   bool* changed;
   bool* clear;
   int64_t n_clear;
@@ -804,6 +912,7 @@ struct RowFlags {
 // on an H100, tools/path_times.py).
 struct WindowFlags {
   static constexpr int kGridCols = 1;
+  static constexpr bool kProgress = false;
   int* flags;
   int64_t n_slabs, slab;
   int* clear;
@@ -827,6 +936,9 @@ constexpr int kCarryAny = 1;     // changed_any over the current check group
 constexpr int kCarryRounds = 2;  // rounds counted
 constexpr int kCarryGo = 3;      // the reference's cond: the loop goes on
 constexpr int kCarryTicket = 4;  // blocks of this launch that are done
+constexpr int kCarryFlat = 5;    // the early stop: consecutive low-progress check groups
+constexpr int kCarryLast = 6;    // the early stop: the last check group's changed_any
+constexpr int kCarryProg = 8;    // the early stop: the last round's progress, a T at int 8
 
 // F's flags, and #15's for one instance: a warp that tightens stores the
 // carry's flag once.  A launch whose carry says `go` is false (a round
@@ -839,6 +951,7 @@ constexpr int kCarryTicket = 4;  // blocks of this launch that are done
 // fill precedes a round, and nothing is read on the host.
 struct CarryFlags {
   static constexpr int kGridCols = 4;
+  static constexpr bool kProgress = false;
   int* carry;
   int k, unroll;
   __device__ __forceinline__ void prologue() const {}
@@ -880,42 +993,128 @@ struct CarryFlags {
   }
 };
 
+// F's flags with the early stop armed (the reference's
+// `flat = prog < stop ? flat + 1 : 0` and `cond &= flat < patience`,
+// src/repro/kernels/ops.py:1292-1308): CarryFlags, and the round's
+// progress measure over the columns the launch merges, in one fixed order.
+// Each block sums its threads' terms (merge_item: each thread its C
+// columns in order), then each warp by the butterfly of group_sum, then
+// its eight warp sums left to right, into its entry of `partials` (one per
+// block, kept by the round closure: nothing allocated per round).  The
+// last block's first warp sums the partials in block order as
+// ref.warp_order_sum does (lane l takes blocks l, l + 32, ..., then the
+// butterfly) and folds: rounds += 1, the measure stored at kCarryProg, flat
+// updated, last = changed_any, go = changed_any && flat < patience.
+// ref.merge_order_sum is this order.  A check group is one round here (the
+// wrapper takes unroll 1 only).
+template <typename T>
+struct StopCarryFlags {
+  static constexpr int kGridCols = 4;
+  static constexpr bool kProgress = true;
+  int* carry;
+  T* partials;
+  T stop;
+  int patience;
+  __device__ __forceinline__ void prologue() const {}
+  __device__ __forceinline__ bool live() const {
+    return *reinterpret_cast<volatile int*>(carry + kCarryGo) != 0;
+  }
+  template <int C>
+  __device__ __forceinline__ void mark(int64_t, int64_t, const bool (&ch)[C]) const {
+    bool any = false;
+#pragma unroll
+    for (int v = 0; v < C; ++v) any |= ch[v];
+    if (__any_sync(0xffffffffu, any) && threadIdx.x % kWarp == 0) carry[kCarryFlag] = 1;
+  }
+  // Every thread of every live block calls it, last, with its own sum.
+  __device__ __forceinline__ void finish_progress(T prog) const {
+    __shared__ T warp_sums[kWarpsPerBlock];
+    __shared__ bool last;
+    const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+    prog = group_sum<kWarp>(prog);
+    if (lane == 0) warp_sums[warp] = prog;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      T sum = warp_sums[0];
+#pragma unroll
+      for (int w = 1; w < kWarpsPerBlock; ++w) sum += warp_sums[w];
+      partials[static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x] = sum;
+    }
+    __threadfence();
+    __syncthreads();
+    const int blocks = static_cast<int>(gridDim.x * gridDim.y);
+    if (threadIdx.x == 0) last = atomicAdd(carry + kCarryTicket, 1) == blocks - 1;
+    __syncthreads();
+    if (!last || warp != 0) return;
+    __threadfence();
+    T total = T(0);
+    for (int b = lane; b < blocks; b += kWarp) total += __ldcg(partials + b);
+    total = group_sum<kWarp>(total);
+    if (lane != 0) return;
+    volatile int* c = carry;
+    const int any = c[kCarryAny] | c[kCarryFlag];
+    *reinterpret_cast<volatile T*>(carry + kCarryProg) = total;
+    const int flat = total < stop ? c[kCarryFlat] + 1 : 0;
+    c[kCarryRounds] = c[kCarryRounds] + 1;
+    c[kCarryFlat] = flat;
+    c[kCarryLast] = any;
+    c[kCarryGo] = any != 0 && flat < patience;
+    c[kCarryAny] = 0;
+    c[kCarryFlag] = 0;
+    c[kCarryTicket] = 0;
+  }
+};
+
 // The merge of block `blk` of C * kThreads columns of row `plane`, C
-// columns a thread; every thread of the block calls it.
-template <int C, typename Flags>
-__device__ __forceinline__ void merge_item(double* __restrict__ lb, double* __restrict__ ub,
-                                           double* __restrict__ best_l,
-                                           double* __restrict__ best_u, const Flags& flags,
-                                           int64_t plane, int64_t blk, int64_t width,
-                                           double eps, double inf, double outward) {
+// columns a thread; every thread of the block calls it.  Where the flags
+// take the early stop's progress (Flags::kProgress), it returns this
+// thread's sum of the progress measure's terms over its columns, in column
+// order from +0.0 (bounds.progress_measure's term: (l' - l) / (1 + max(|l|,
+// |l'|)) + (u - u') / (1 + max(|u|, |u'|))); else 0.
+template <int C, typename Flags, typename T>
+__device__ __forceinline__ T merge_item(T* __restrict__ lb, T* __restrict__ ub,
+                                        T* __restrict__ best_l, T* __restrict__ best_u,
+                                        const Flags& flags, int64_t plane, int64_t blk,
+                                        int64_t width, T eps, T inf, T outward) {
   const int64_t j0 = blk * C * kThreads + threadIdx.x, row = plane * width;
-  double l[C], u[C], bl[C], bu[C];
+  T l[C], u[C], bl[C], bu[C];
 #pragma unroll
   for (int v = 0; v < C; ++v) {
     const int64_t j = j0 + v * kThreads;
     const bool in = j < width;
-    l[v] = in ? lb[row + j] : 0.0;
-    u[v] = in ? ub[row + j] : 0.0;
+    l[v] = in ? lb[row + j] : T(0);
+    u[v] = in ? ub[row + j] : T(0);
     bl[v] = in ? best_l[row + j] : -inf;
     bu[v] = in ? best_u[row + j] : inf;
   }
   bool ch[C];
+  T prog = T(0);
 #pragma unroll
   for (int v = 0; v < C; ++v) {
     const int64_t j = j0 + v * kThreads, i = row + j;
     if (bl[v] != -inf) best_l[i] = -inf;  // merge_reset's hand-back
     if (bu[v] != inf) best_u[i] = inf;
-    ch[v] = j < width && merge_loaded(lb, ub, i, l[v], u[v], bl[v], bu[v], eps, inf, outward);
+    if constexpr (Flags::kProgress) {
+      T nl = l[v], nu = u[v];
+      ch[v] = j < width &&
+              merge_loaded_into(lb, ub, i, l[v], u[v], bl[v], bu[v], eps, inf, outward, nl, nu);
+      if (j < width)
+        prog += (nl - l[v]) / (T(1) + vmax(vabs(l[v]), vabs(nl))) +
+                (u[v] - nu) / (T(1) + vmax(vabs(u[v]), vabs(nu)));
+    } else {
+      ch[v] = j < width && merge_loaded(lb, ub, i, l[v], u[v], bl[v], bu[v], eps, inf, outward);
+    }
   }
   flags.template mark<C>(plane, j0 - threadIdx.x % kWarp, ch);
+  return prog;
 }
 
 // The hand-back alone, for a launch that merges nothing (F after the fixed
 // point converged: D or E may still have scattered).
-template <int C>
-__device__ __forceinline__ void hand_back_item(double* __restrict__ best_l,
-                                               double* __restrict__ best_u, int64_t plane,
-                                               int64_t blk, int64_t width, double inf) {
+template <int C, typename T>
+__device__ __forceinline__ void hand_back_item(T* __restrict__ best_l, T* __restrict__ best_u,
+                                               int64_t plane, int64_t blk, int64_t width,
+                                               T inf) {
   const int64_t j0 = blk * C * kThreads + threadIdx.x, row = plane * width;
 #pragma unroll
   for (int v = 0; v < C; ++v) {
@@ -926,11 +1125,11 @@ __device__ __forceinline__ void hand_back_item(double* __restrict__ best_l,
   }
 }
 
-template <typename Flags>
+template <typename Flags, typename T>
 __global__ void __launch_bounds__(kThreads)
-merge_walk_kernel(double* __restrict__ lb, double* __restrict__ ub, double* __restrict__ best_l,
-                  double* __restrict__ best_u, const bool* __restrict__ active, Flags flags,
-                  int64_t bsz, int64_t width, double eps, double inf, double outward) {
+merge_walk_kernel(T* __restrict__ lb, T* __restrict__ ub, T* __restrict__ best_l,
+                  T* __restrict__ best_u, const bool* __restrict__ active, Flags flags,
+                  int64_t bsz, int64_t width, T eps, T inf, T outward) {
   flags.prologue();
   const EqualItems items_of{(width + kMergeBlock - 1) / kMergeBlock};
   const Walk walk = ballot_walk(active, bsz, items_of);
@@ -945,19 +1144,24 @@ merge_walk_kernel(double* __restrict__ lb, double* __restrict__ ub, double* __re
 // Grid (column blocks, rows), C columns a thread: the blocks of an
 // inactive row return at once.  kMasked false (F) reads no mask.  A block
 // whose flags are not live (a converged carry) only hands its entries back.
-template <int C, typename Flags, bool kMasked>
+template <int C, typename Flags, bool kMasked, typename T>
 __global__ void __launch_bounds__(kThreads)
-merge_grid_kernel(double* __restrict__ lb, double* __restrict__ ub, double* __restrict__ best_l,
-                  double* __restrict__ best_u, const bool* __restrict__ active, Flags flags,
-                  int64_t width, double eps, double inf, double outward) {
+merge_grid_kernel(T* __restrict__ lb, T* __restrict__ ub, T* __restrict__ best_l,
+                  T* __restrict__ best_u, const bool* __restrict__ active, Flags flags,
+                  int64_t width, T eps, T inf, T outward) {
   flags.prologue();
   if (kMasked && !active[blockIdx.y]) return;
   if (!flags.live()) {
     hand_back_item<C>(best_l, best_u, blockIdx.y, blockIdx.x, width, inf);
     return;
   }
-  merge_item<C>(lb, ub, best_l, best_u, flags, blockIdx.y, blockIdx.x, width, eps, inf, outward);
-  flags.finish();
+  const T prog = merge_item<C>(lb, ub, best_l, best_u, flags, blockIdx.y, blockIdx.x, width, eps,
+                               inf, outward);
+  if constexpr (Flags::kProgress) {
+    flags.finish_progress(prog);
+  } else {
+    flags.finish();
+  }
 }
 
 // Zero a flag buffer where the launch has no block to do it.
@@ -969,37 +1173,34 @@ inline cudaError_t clear_without_blocks(T* clear, int64_t n, cudaStream_t stream
 
 // The merge over (bsz, width) planes on the walk: at most one block per
 // item.
-template <typename Flags>
-int launch_merge_walk(double* lb, double* ub, double* best_l, double* best_u,
-                      const bool* active, Flags flags, int64_t bsz, int64_t width, double eps,
-                      double inf, double outward, cudaStream_t stream) {
+template <typename Flags, typename T>
+int launch_merge_walk(T* lb, T* ub, T* best_l, T* best_u, const bool* active, Flags flags,
+                      int64_t bsz, int64_t width, T eps, T inf, T outward, cudaStream_t stream) {
   const int64_t most = (width + kMergeBlock - 1) / kMergeBlock * bsz;
   if (most <= 0) clear_without_blocks(flags.clear, flags.n_clear, stream);
-  return launch_walk<merge_walk_kernel<Flags>>(most, bsz, stream, lb, ub, best_l, best_u, active,
-                                               flags, bsz, width, eps, inf, outward);
+  return launch_walk<merge_walk_kernel<Flags, T>>(most, bsz, stream, lb, ub, best_l, best_u,
+                                                  active, flags, bsz, width, eps, inf, outward);
 }
 
 // The merge over (bsz, width) planes on the (column block, row) grid, C
 // columns a thread; no mask read where kMasked is false.
-template <typename Flags, int C = Flags::kGridCols, bool kMasked = true>
-int launch_merge_grid(double* lb, double* ub, double* best_l, double* best_u,
-                      const bool* active, Flags flags, int64_t bsz, int64_t width, double eps,
-                      double inf, double outward, cudaStream_t stream) {
+template <typename Flags, int C = Flags::kGridCols, bool kMasked = true, typename T>
+int launch_merge_grid(T* lb, T* ub, T* best_l, T* best_u, const bool* active, Flags flags,
+                      int64_t bsz, int64_t width, T eps, T inf, T outward, cudaStream_t stream) {
   const int64_t blocks = (width + C * kThreads - 1) / (C * kThreads);
   if (blocks > 0 && bsz > 0)
-    merge_grid_kernel<C, Flags, kMasked><<<dim3(static_cast<unsigned int>(blocks),
-                                                static_cast<unsigned int>(bsz)),
-                                           kThreads, 0, stream>>>(
+    merge_grid_kernel<C, Flags, kMasked, T><<<dim3(static_cast<unsigned int>(blocks),
+                                                   static_cast<unsigned int>(bsz)),
+                                              kThreads, 0, stream>>>(
         lb, ub, best_l, best_u, active, flags, width, eps, inf, outward);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The merge over (bsz, width) planes: the grid for at most kMergeGridRows
 // rows, else the walk.
-template <typename Flags>
-int launch_merge(double* lb, double* ub, double* best_l, double* best_u, const bool* active,
-                 Flags flags, int64_t bsz, int64_t width, double eps, double inf, double outward,
-                 cudaStream_t stream) {
+template <typename Flags, typename T>
+int launch_merge(T* lb, T* ub, T* best_l, T* best_u, const bool* active, Flags flags,
+                 int64_t bsz, int64_t width, T eps, T inf, T outward, cudaStream_t stream) {
   if (bsz <= kMergeGridRows) {
     const int64_t blocks = (width + Flags::kGridCols * kThreads - 1) /
                            (Flags::kGridCols * kThreads);
@@ -1014,13 +1215,14 @@ int launch_merge(double* lb, double* ub, double* best_l, double* best_u, const b
 // One short row segment [s, e) of chunk partials summed left to right from
 // 0 by one thread (the long-row combine's order), written back to each of
 // its chunks.
-__device__ __forceinline__ void combine_segment(const double* __restrict__ mf,
+template <typename T>
+__device__ __forceinline__ void combine_segment(const T* __restrict__ mf,
                                                 const int* __restrict__ mc,
-                                                const double* __restrict__ xf,
-                                                const int* __restrict__ xc, double* __restrict__ omf,
-                                                int* __restrict__ omc, double* __restrict__ oxf,
+                                                const T* __restrict__ xf,
+                                                const int* __restrict__ xc, T* __restrict__ omf,
+                                                int* __restrict__ omc, T* __restrict__ oxf,
                                                 int* __restrict__ oxc, int64_t s, int64_t e) {
-  double a = 0.0, b = 0.0;
+  T a = T(0), b = T(0);
   int ca = 0, cb = 0;
   for (int64_t i = s; i < e; ++i) {
     a += mf[i];
@@ -1041,32 +1243,32 @@ __device__ __forceinline__ void combine_segment(const double* __restrict__ mf,
 constexpr int kCombineSteps = 4;
 constexpr int kCombineGroup = kCombineSteps * kWarp;
 
-template <int U>
+template <int U, typename T = double>
 struct StepPartials {
-  double mf[U], xf[U];
+  T mf[U], xf[U];
   int mc[U], xc[U];
 };
 
 // Chunks e0 + 32 u + lane of the segment ending at e (0 past it).
-template <int U>
-__device__ __forceinline__ void load_steps(StepPartials<U>& p, const double* __restrict__ mf,
+template <int U, typename T>
+__device__ __forceinline__ void load_steps(StepPartials<U, T>& p, const T* __restrict__ mf,
                                            const int* __restrict__ mc,
-                                           const double* __restrict__ xf,
+                                           const T* __restrict__ xf,
                                            const int* __restrict__ xc, int64_t e0, int64_t e,
                                            int lane) {
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     const int64_t i = e0 + u * kWarp + lane;
     const bool in = i < e;
-    p.mf[u] = in ? mf[i] : 0.0;
-    p.xf[u] = in ? xf[i] : 0.0;
+    p.mf[u] = in ? mf[i] : T(0);
+    p.xf[u] = in ? xf[i] : T(0);
     p.mc[u] = in ? mc[i] : 0;
     p.xc[u] = in ? xc[i] : 0;
   }
 }
 
 // One long row segment [s, e) by a whole warp (every lane calls it with the
-// same s, e; sm is the warp's own 2 * kCombineGroup doubles of shared
+// same s, e; sm is the warp's own 2 * kCombineGroup values of shared
 // memory): the partials of kCombineGroup chunks loaded coalesced, the next
 // group's loads in flight while this group is summed; the group's float
 // partials staged in shared memory, from which every lane reads them back
@@ -1074,18 +1276,18 @@ __device__ __forceinline__ void load_steps(StepPartials<U>& p, const double* __r
 // taken left to right from +0.0, exactly as combine_segment takes them; the
 // integer counts by a warp reduction (exact in any order); then a
 // coalesced write-back to every chunk.
+template <typename T>
 __device__ __forceinline__ void combine_segment_warp(
-    const double* __restrict__ mf, const int* __restrict__ mc, const double* __restrict__ xf,
-    const int* __restrict__ xc, double* __restrict__ omf, int* __restrict__ omc,
-    double* __restrict__ oxf, int* __restrict__ oxc, int64_t s, int64_t e, int lane,
-    double* sm) {
+    const T* __restrict__ mf, const int* __restrict__ mc, const T* __restrict__ xf,
+    const int* __restrict__ xc, T* __restrict__ omf, int* __restrict__ omc,
+    T* __restrict__ oxf, int* __restrict__ oxc, int64_t s, int64_t e, int lane, T* sm) {
   constexpr int U = kCombineSteps;
-  double a = 0.0, b = 0.0;
+  T a = T(0), b = T(0);
   int ca = 0, cb = 0;
-  StepPartials<U> next;
+  StepPartials<U, T> next;
   load_steps(next, mf, mc, xf, xc, s, e, lane);
   for (int64_t j0 = s; j0 < e; j0 += kCombineGroup) {
-    const StepPartials<U> cur = next;
+    const StepPartials<U, T> cur = next;
     if (j0 + kCombineGroup < e) load_steps(next, mf, mc, xf, xc, j0 + kCombineGroup, e, lane);
     __syncwarp();  // every lane has read the previous group
 #pragma unroll

@@ -1,6 +1,7 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-Each source (``prop_round.cu``, ``slab_round.cu``) is compiled with ``nvcc``
+Each source (``prop_round.cu``, ``slab_round.cu``, ``tier_round.cu``) is
+compiled with ``nvcc``
 into a shared library with a plain C interface, at first use, into
 ``build/<hash>/`` beside the package (a directory that git ignores), keyed
 by a hash of the sources, the shared header and the flags, and loaded with
@@ -23,8 +24,8 @@ from types import SimpleNamespace
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "prop_round.cu", CSRC / "slab_round.cu")
-HEADERS = (CSRC / "round_common.cuh",)
+SOURCES = (CSRC / "prop_round.cu", CSRC / "slab_round.cu", CSRC / "tier_round.cu")
+HEADERS = (CSRC / "round_common.cuh", CSRC / "single_round.cuh")
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -33,6 +34,7 @@ NVCC_FLAGS = (
 )
 
 P, I64, I32, F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
+F32 = ctypes.c_float  # the float32 entries' scalars, rounded to float by ctypes
 # C entry points of each source: argument types in order, every one returns
 # a cudaError_t.
 SIGNATURES = {
@@ -60,6 +62,18 @@ SIGNATURES = {
         "slab_scatter": [P] * 19 + [I64, I32, I32, I32, I64, I64, F64, F64, P],
         "node_slab_scatter": [P] * 17 + [I64, I32, I32, I32, I64, I64, I64, F64, F64, P],
         "slab_merge": [P] * 8 + [I64, I64, I64, I32, I32, F64, F64, F64, P],
+    },
+    "tier_round.cu": {
+        "fused_scatter_round_f32": [P] * 11 + [I64, I32, I32, F32, F32, P],
+        "fused_scatter_round_f32c": [P] * 11 + [I64, I32, I32, F32, F32, P],
+        "activities_gather_f32": [P] * 9 + [I64, I32, F32, P],
+        "activities_gather_f32c": [P] * 9 + [I64, I32, F32, P],
+        "candidates_scatter_f32": [P] * 14 + [I64, I32, F32, F32, P],
+        "candidates_scatter_f32c": [P] * 14 + [I64, I32, F32, F32, P],
+        "combine_chunk_partials_f32": [P] * 12 + [I64, I64, P],
+        "apply_updates_f32": [P] * 5 + [I64, I32, I32, F32, F32, F32, P],
+        "apply_updates_stop": [P] * 6 + [I64, F64, F64, F64, F64, I32, P],
+        "apply_updates_stop_f32": [P] * 6 + [I64, F32, F32, F32, F32, I32, P],
     },
 }
 

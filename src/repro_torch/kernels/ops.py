@@ -54,6 +54,13 @@ semantics so they converge to the same fixed points.
     ``REPRO_AUTO_LARGE_SCATTER``, as the reference's does).
   * The fixed point runs on private copies of the cached initial bounds, so
     the in-place merges never touch the cache.
+  * The precision tiers (ROADMAP Queue 1 item 5): ``prepare_block_ell`` at
+    float32 (the fp32 tier) narrows the index streams where ``n_pad <=
+    2**15`` (``col`` int16, ``ii_g`` int8), and the fused and multi-chunk
+    rounds run the float32 forms of D, A', the combine, E and F;
+    ``propagate_block_ell`` takes the two-tier ``policy`` and the
+    progress-based early stop (F folds the round's measure into the loop
+    carry).  The other engines run float64 only so far.
 
 Per-round device-memory traffic of the fused round: ``val``, ``col`` and
 ``is_int`` at the nonzeros (16 B each; every chunk stops at its hoisted
@@ -74,15 +81,20 @@ import torch
 from ..core import bounds as bnd
 from ..core import carry as _carry
 from ..core.carry import LoopCarry
+from ..core.carry import EarlyStop, early_stop
 from ..core.propagator import (
+    TIERS_REMAINDER,
     _refuse_options,
+    _refuse_telemetry,
     _result,
     batched_fixed_point,
     check_dtype,
+    check_float64,
     device_fixed_point,
     fixed_point,
     not_ported,
     resolve_device,
+    run_tiers,
     KERNEL_DRIVERS,
 )
 from ..core.sparse import Problem, ProblemBatch, col_pad, csr_to_block_ell, pack_problems
@@ -102,12 +114,18 @@ from .slab import (  # noqa: F401  (re-exported)
 # engines.  SCATTER_MAX_NPAD is the JAX package's VMEM budget, kept so that
 # both packages pick the same engine; it limits nothing on the H100.
 
+# Compact index streams (the reference's, src/repro/kernels/ops.py:97): a
+# float32 tier whose padded column space fits int16 narrows its
+# per-nonzero index streams, ``col`` to int16 and the hoisted ``is_int``
+# gather to int8; the kernels widen them in registers.
+_COMPACT_COL_MAX_NPAD = 1 << 15
+
 
 class DeviceBlockEll(NamedTuple):
     """One instance's block-ELL tiles and vectors as tensors on one device."""
 
-    val: torch.Tensor        # (T, R, K) float64; 0 == padding
-    col: torch.Tensor        # (T, R, K) int32; 0 at padding
+    val: torch.Tensor        # (T, R, K) float64 or float32; 0 == padding
+    col: torch.Tensor        # (T, R, K) int32 (int16 on compact float32 tiers); 0 at padding
     chunk_row: torch.Tensor  # (T, R) int32 in [0, m]; m == padding
     lhs1: torch.Tensor       # (m+1,) sides padded with one dummy slot at index m
     rhs1: torch.Tensor       # (m+1,)
@@ -202,7 +220,7 @@ class PreparedBlockEll:
     so one prepared engine serves any bounds."""
 
     d: DeviceBlockEll
-    ii_g: torch.Tensor   # (T, R, K) int32: is_int[col], hoisted
+    ii_g: torch.Tensor   # (T, R, K) int32 (int8 on compact float32 tiers): is_int[col], hoisted
     lhs_g: torch.Tensor  # (T, R): lhs1[chunk_row], hoisted
     rhs_g: torch.Tensor  # (T, R): rhs1[chunk_row], hoisted
     lb0: torch.Tensor    # (n_pad,) default initial bounds (column-padded)
@@ -284,7 +302,10 @@ def prepare_block_ell(
     dtype and device -- maxsize 32, see :func:`cache_info`).
 
     A hit from a problem whose bounds differ from the cached defaults
-    returns a bounds-swapped view sharing every device tile."""
+    returns a bounds-swapped view sharing every device tile.  ``dtype`` is
+    float64 (the default) or float32; a float32 prep whose ``n_pad`` fits
+    int16 (:data:`_COMPACT_COL_MAX_NPAD`) holds ``d.col`` as int16 and
+    ``ii_g`` as int8."""
     dev = resolve_device(device)
     dt = check_dtype(dtype)
     anchors = _structure_anchors(p)
@@ -303,13 +324,17 @@ def prepare_block_ell(
 
     d = device_block_ell(p, tile_rows, tile_width, dt, dev)
     n_pad = col_pad(p.n)
+    compact = dt == torch.float32 and n_pad <= _COMPACT_COL_MAX_NPAD
     col = d.col.long()
     crow = d.chunk_row.long()
     row_start = kref.row_starts(d.chunk_row, p.m + 1)
     chunk_len = kref.chunk_lengths(d.val)
+    ii_g = d.is_int[col].to(torch.int8 if compact else torch.int32)
+    if compact:
+        d = d._replace(col=d.col.to(torch.int16))
     prep = PreparedBlockEll(
         d=d,
-        ii_g=d.is_int[col].to(torch.int32),
+        ii_g=ii_g,
         lhs_g=d.lhs1[crow],
         rhs_g=d.rhs1[crow],
         lb0=torch.zeros(n_pad, dtype=dt, device=dev),
@@ -394,9 +419,10 @@ class KeptPlanes:
         return getattr(self._local, "planes", None)
 
     def get(self, like: torch.Tensor):
-        """The pair for bound planes shaped like ``like``."""
+        """The pair for bound planes shaped like ``like`` (and of its dtype)."""
         planes = self.planes
-        if planes is None or planes[0].shape != like.shape or planes[0].device != like.device:
+        if (planes is None or planes[0].shape != like.shape or planes[0].device != like.device
+                or planes[0].dtype != like.dtype):
             planes = self._local.planes = kern.accumulator_planes(like, self.inf)
         return planes
 
@@ -451,8 +477,8 @@ class RoundOps(NamedTuple):
     activities: Callable  # A': tiles + bounds -> chunk partials
     combine: Callable     # chunk partials -> completed row aggregates
     candidates: Callable  # E: tiles + row aggregates + bounds (+ acc) -> (best_l, best_u)
-    merge: Callable       # F: (lb, ub, best_l, best_u, eps, inf, outward, carry=, k=, unroll=)
-                          # -> (lb, ub, GO); hands best_l / best_u back at the sentinels
+    merge: Callable       # F: (lb, ub, best_l, best_u, eps, inf, outward, carry=, k=, unroll=,
+                          # stop=, partials=) -> (lb, ub, GO); hands best_l / best_u back
     node_fused: Callable  # #10: tiles + (B, n_pad) planes + active + kept -> (best_l, best_u)
     merge_batch: Callable  # #9: (lb, ub, best_l, best_u, active, eps, inf, outward, flags=)
     partitioned: Callable  # (part, lb, ub, active, ..., kept, carry=) -> (lb, ub, (B,) changed)
@@ -491,14 +517,18 @@ def _plain_candidates(*args, chunk_len=None, acc=None):
 
 
 def _plain_merge(lb, ub, best_l, best_u, eps, inf=INF, outward=0.0, *, carry=None, k=0,
-                unroll=1):
+                unroll=1, stop=None, partials=None):
     """F's plain version (:func:`ref.merge_carry_ref`), handing every
     accumulator entry back at the sentinels as the kernel does (the kept
-    planes of D and E need it) and folding its flag into the loop carry
-    (a fresh one without ``carry``)."""
+    planes of D and E need it) and folding its flag (and, with the early
+    stop ``stop``, the round's progress measure in the kernel's order) into
+    the loop carry (a fresh one without ``carry``).  ``partials``, the
+    kernel's per-block sums, is not used."""
+    del partials
     if carry is None:
         carry, k, unroll = _carry.armed_state(lb.device), 0, 1
-    return kref.merge_carry_ref(lb, ub, best_l, best_u, eps, inf, outward, carry, k, unroll)
+    return kref.merge_carry_ref(lb, ub, best_l, best_u, eps, inf, outward, carry, k, unroll,
+                                stop)
 
 
 def _plain_node_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, int_eps, inf,
@@ -667,7 +697,7 @@ PLAIN_OPS = RoundOps(
 def _segment_round(
     ops: RoundOps, d: DeviceBlockEll, lb, ub, ii_g, lhs_g, rhs_g, row_start, index,
     width: int, *, fused: bool, eps: float, int_eps: float, inf: float, outward: float = 0.0,
-    classes=None, carry=None, gate: bool = False,
+    classes=None, carry=None, gate: bool = False, stop: EarlyStop | None = None,
 ):
     """One round of the segment (seed) dataflow over ``(width,)`` bounds:
     bounds gathered per slot, kernel C (``fused``) or kernel A, the fused
@@ -680,8 +710,9 @@ def _segment_round(
     (``(state, k, unroll)``; a fresh one when None).  With ``gate`` (the
     kernels and a carry) C, A, the combine and B return at once where the
     carry's GO is false; the bound gather and the column reduction, in
-    PyTorch, still run.  Returns ``(lb, ub, changed)``, ``changed`` the
-    carry's ``GO``; with kernels the bounds are updated in place."""
+    PyTorch, still run.  ``stop`` (the carry's early stop) goes to F.
+    Returns ``(lb, ub, changed)``, ``changed`` the carry's ``GO``; with
+    kernels the bounds are updated in place."""
     state, k, unroll = carry if carry is not None else (None, 0, 1)
     gate = dict(go=_carry.go_mask(state)) if gate and state is not None else {}
     lb_g, ub_g = gather_bounds(lb, ub, d.col)
@@ -694,7 +725,19 @@ def _segment_round(
         lcand, ucand = ops.candidates_tiles(d.val, lb_g, ub_g, ii_g, *aggs, lhs_g, rhs_g,
                                             int_eps, inf, **gate)
     best_l, best_u = segment_reduce(lcand, ucand, index, width, inf)
-    return ops.merge(lb, ub, best_l, best_u, eps, inf, outward, carry=state, k=k, unroll=unroll)
+    return ops.merge(lb, ub, best_l, best_u, eps, inf, outward, carry=state, k=k, unroll=unroll,
+                     **_merge_stop(stop, unroll))
+
+
+def _merge_stop(stop: EarlyStop | None, unroll: int, partials=None) -> dict:
+    """F's early-stop arguments for a round with the carry's ``stop``:
+    none without one.  F measures one round, so a check group of several
+    rounds cannot take it."""
+    if stop is None:
+        return {}
+    if unroll != 1:
+        raise ValueError(f"unroll={unroll}: kernel F's early stop takes one round a check group")
+    return dict(stop=stop, partials=partials)
 
 
 def _prepared_round(
@@ -712,6 +755,7 @@ def _prepared_round(
     carry: tuple,
     part: SlabPartition | None = None,
     gate: bool = False,
+    stop: EarlyStop | None = None,
 ):
     """One round over hoisted constants; (lb, ub) live in the column-padded
     ``(n_pad,)`` domain.  Returns ``(lb, ub, changed)``, ``changed`` the
@@ -724,10 +768,15 @@ def _prepared_round(
     is false.  With a slab partition ``part`` the partitioned
     round runs (it ignores ``fused``: split rows are straddle rows there),
     the carry's GO as the instance's active mask, #12 scattering into
-    ``kept`` and #15 folding its flags into the carry."""
+    ``kept`` and #15 folding its flags into the carry.  With the carry's
+    early stop ``stop`` F also folds the round's progress measure, each
+    block's sum into a buffer kept in ``kept`` (the partitioned round does
+    not take it yet)."""
     d = prep.d
     state, k, unroll = carry
     go = _carry.go_mask(state)
+    if part is not None and stop is not None:
+        not_ported("stop_progress= on the partitioned engine", TIERS_REMAINDER)
     if part is not None:
         new_lb, new_ub, _ = ops.partitioned(
             part, lb[None], ub[None], go, node=False, eps=eps, int_eps=int_eps, inf=inf,
@@ -754,7 +803,12 @@ def _prepared_round(
             prep.lhs_g, prep.rhs_g, lb, ub, prep.n_pad, int_eps, inf, chunk_len=prep.chunk_len,
             acc=acc, **gate,
         )
-    return ops.merge(lb, ub, best_l, best_u, eps, inf, outward, carry=state, k=k, unroll=unroll)
+    partials = None
+    if stop is not None:
+        blocks = -(-prep.n_pad // kref.MERGE_BLOCK)
+        (partials,) = kept.scratch("progress", (((blocks,), lb.dtype),), lb)
+    return ops.merge(lb, ub, best_l, best_u, eps, inf, outward, carry=state, k=k, unroll=unroll,
+                     **_merge_stop(stop, unroll, partials))
 
 
 # A mirror of the reference's escape hatch, kept for parity only (callers
@@ -780,11 +834,14 @@ def _resolve_scatter(scatter: str, prep: PreparedBlockEll) -> str:
     round while ``n_pad <= SCATTER_MAX_NPAD`` (read at call time) and takes
     the column-slab ``partitioned`` round beyond it (or the one that
     :data:`AUTO_LARGE_SCATTER_ENV` names); ``fused``, ``segment`` and
-    ``partitioned`` run at any ``n_pad``."""
+    ``partitioned`` run at any ``n_pad``.  At float32 only the fused engine
+    runs so far (the others raise ``NotImplementedError``)."""
     if scatter == "auto":
-        return "fused" if prep.n_pad <= SCATTER_MAX_NPAD else _auto_large_scatter()
+        scatter = "fused" if prep.n_pad <= SCATTER_MAX_NPAD else _auto_large_scatter()
     if scatter not in ("fused", "segment", "partitioned"):
         raise ValueError(f"unknown scatter mode: {scatter!r}")
+    if scatter != "fused" and prep.d.val.dtype != torch.float64:
+        not_ported(f"float32 on the {scatter} engine", TIERS_REMAINDER)
     return scatter
 
 
@@ -827,7 +884,7 @@ def round_fn_for(
                 ops, prep.d, lb, ub, prep.ii_g, prep.lhs_g, prep.rhs_g, prep.row_start,
                 prep.segment_index(), prep.n_pad, fused=do_fuse, eps=eps,
                 int_eps=cfg.int_eps, inf=cfg.inf, outward=outward, classes=prep.seg_classes,
-                carry=carry.step(lb.device), gate=use_kernels,
+                carry=carry.step(lb.device), gate=use_kernels, stop=carry.stop,
             )
 
         round_fn.carry, round_fn.gated = carry, False
@@ -839,7 +896,7 @@ def round_fn_for(
         return _prepared_round(
             prep, lb, ub, ops=ops, eps=eps, int_eps=cfg.int_eps, inf=cfg.inf,
             fused=do_fuse, outward=outward, part=part, kept=kept, carry=carry.step(lb.device),
-            gate=use_kernels,
+            gate=use_kernels, stop=carry.stop,
         )
 
     run = kept.guard(round_fn)
@@ -885,8 +942,10 @@ def legacy_round_fn_for(
     """The seed round (:func:`block_ell_round`) as a ``(lb, ub) -> (lb, ub,
     changed)`` closure over a prepared instance, bounds in the unpadded
     ``(n,)`` domain (src/repro/kernels/ops.py:1038).  Kept as the measured
-    baseline; it reads only the prep's tiles."""
+    baseline; it reads only the prep's tiles (float64 only so far)."""
     dt = prep.d.val.dtype
+    if dt != torch.float64:
+        not_ported("float32 on the legacy round", TIERS_REMAINDER)
     eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
 
     def round_fn(lb, ub):
@@ -920,6 +979,7 @@ def propagate_block_ell(
     ub0=None,
     slab: int | None = None,
     stop_progress: float | None = None,
+    patience: int = 1,
     policy=None,
     telemetry=None,
     device="cuda",
@@ -948,22 +1008,45 @@ def propagate_block_ell(
     :func:`core.propagator.loop_group` rounds.  Both give the same
     rounds, flags and bounds, bit for bit; ``on_sync`` is called once per
     host read.  ``"unrolled"`` raises ``ValueError``, as the reference's
-    does.  Float64 only: ``dtype``, ``policy``, ``stop_progress`` and
-    ``telemetry`` outside this slice raise ``NotImplementedError``."""
+    does.
+
+    ``dtype`` is float64 (the default) or float32 (the fused engine only,
+    below and past ``SCATTER_MAX_NPAD`` by name; ``auto`` past it, the
+    segment and the partitioned engine raise ``NotImplementedError``).
+    ``stop_progress``/``patience`` arm the progress-based early stop: F
+    folds each round's measure into the loop carry and clears its GO once
+    it stayed below ``stop_progress`` for ``patience`` rounds (not on the
+    partitioned engine yet).  ``policy`` (a
+    :class:`~repro_torch.core.types.TierPolicy`) runs the reference's
+    two-tier scheme (:func:`core.propagator.run_tiers`): a float32 tier
+    early-stopped at ``policy.switch_progress``, promotion, and the endgame
+    in ``dtype``; each tier runs on its own dtype-keyed prep and round
+    closure.  ``telemetry`` raises ``NotImplementedError`` (item 6)."""
     if driver not in KERNEL_DRIVERS:
         raise ValueError(f"unknown driver: {driver!r}")
-    if policy is not None or stop_progress is not None:
-        not_ported("policy= / stop_progress=", "item 5 (precision tiers)")
-    if telemetry is not None:
-        not_ported("telemetry=", "item 6 (observability)")
-    prep = prepare_block_ell(p, tile_rows, tile_width, dtype, device)
+    _refuse_telemetry(telemetry)
+
+    def single(cfg_, dtype_, lb0_, ub0_, stop_progress_, patience_):
+        return _propagate_prepared(
+            prepare_block_ell(p, tile_rows, tile_width, dtype_, device), cfg_, use_kernels,
+            fused, driver, scatter, lb0_, ub0_, slab, early_stop(stop_progress_, patience_),
+            on_sync,
+        )
+
+    return run_tiers(single, cfg, dtype, lb0, ub0, policy, stop_progress, patience, on_sync)
+
+
+def _propagate_prepared(prep: PreparedBlockEll, cfg: PropagatorConfig, use_kernels: bool,
+                        fused: str, driver: str, scatter: str, lb0, ub0, slab: int | None,
+                        stop: EarlyStop | None, on_sync) -> PropagationResult:
+    """One single-dtype fixed point of :func:`propagate_block_ell`."""
     do_fuse = prep.fits_one_chunk if fused == "auto" else bool(fused == "yes" or fused is True)
     round_fn = round_fn_for(prep, cfg, use_kernels, scatter, do_fuse, slab)
     lb, ub = _initial_padded_bounds(prep, lb0, ub0)
     if driver == "host_loop":
-        out = fixed_point(round_fn, lb, ub, cfg.max_rounds, on_sync)
+        out = fixed_point(round_fn, lb, ub, cfg.max_rounds, on_sync, stop=stop)
     else:
-        out = device_fixed_point(round_fn, lb, ub, cfg.max_rounds, on_sync=on_sync)
+        out = device_fixed_point(round_fn, lb, ub, cfg.max_rounds, on_sync=on_sync, stop=stop)
     lb, ub, rounds, changed, prog = out
     return _result(lb[: prep.n], ub[: prep.n], rounds, changed, prog, cfg.feas_eps)
 
@@ -1040,7 +1123,7 @@ def prepare_problem_batch(batch: ProblemBatch, dtype=None, device="cuda") -> Pre
     :func:`cache_info`): a serving loop re-propagates the same packed batch
     with fresh bounds, which every driver takes per call."""
     dev = resolve_device(device)
-    dt = check_dtype(dtype)
+    dt = check_float64(dtype, "the batched engine")
     key = (id(batch), str(dt), str(dev))
     hit = _batch_prep_cache.get(key, (batch,))
     if hit is not None:
@@ -1181,9 +1264,10 @@ def batched_round_fn_for(
 def _unpack_batch_results(prep: PreparedBatch, lb, ub, rounds, converged, infeasible, progress):
     """One :class:`PropagationResult` per instance (bucket order), each a
     view of the bucket's tensors, unpadded to the instance's ``n``."""
+    no_tier = torch.zeros_like(rounds)
     return [
         PropagationResult(lb[i, : p.n], ub[i, : p.n], rounds[i], converged[i], infeasible[i],
-                          progress[i])
+                          progress[i], no_tier[i])
         for i, p in enumerate(prep.batch.problems)
     ]
 

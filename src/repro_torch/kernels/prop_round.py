@@ -14,10 +14,16 @@ for #9 and #15 a kept pair of flag buffers (``flags``,
 (``go``); the long-row and straddle combines replace XLA segment sums.  On
 a CPU tensor it runs the kernel's plain-PyTorch version (``ref.py``); on a
 CUDA tensor it launches the hand-written Hopper kernel of
-``csrc/prop_round.cu`` or ``csrc/slab_round.cu`` on the current stream, or
-raises -- it never falls back.  Each wrapper counts its kernel launches in
-a plain integer attribute, ``<wrapper>.launches`` (see
-:func:`launch_counts`).
+``csrc/prop_round.cu``, ``csrc/slab_round.cu`` or ``csrc/tier_round.cu`` on
+the current stream, or raises -- it never falls back.  Each wrapper counts
+its kernel launches in a plain integer attribute, ``<wrapper>.launches``
+(see :func:`launch_counts`), and by form (:func:`form_counts`).
+
+The precision tiers (ROADMAP Queue 1 item 5): D, A', E, F and the long-row
+combine also take float32 values (the fp32 tier), with int32 columns and
+marks or, where the tier's ``n_pad`` fits int16, the compact int16 columns
+and int8 marks (:data:`TIER_FORMS`), and F takes the progress-based early
+stop (``stop``).  Every other wrapper takes float64 and int32 only.
 
 Layout of the tile arguments: ``val`` (T, R, K) float64 with 0 at padding,
 ``col`` (T, R, K) int32 with every id in ``[0, n_pad)``, ``is_int_g``
@@ -80,6 +86,56 @@ def _check_tiles(val, col, lb, ub, n_pad, is_int_g=None):
     return t * r, k
 
 
+# The forms of the tier kernels (D, A', E, F, the long-row combine): float64
+# values with int32 columns and marks, float32 with int32, and float32 with
+# the compact int16 columns and int8 marks; their C entry points carry the
+# suffix.  F's early stop adds "+stop" to the form it counts.
+TIER_FORMS = ("f64", "f32", "f32c")
+_FORM_SUFFIX = {"f64": "", "f32": "_f32", "f32c": "_f32c"}
+_FLOATS = (torch.float64, torch.float32)
+
+
+def _float_dtype(name: str, t: torch.Tensor) -> torch.dtype:
+    """The value type of a tier kernel's operand ``t``: float64 or float32."""
+    if t.dtype not in _FLOATS:
+        raise TypeError(f"{name}: expected float64 or float32, got {t.dtype}")
+    return t.dtype
+
+
+def _check_tier_tiles(val, col, lb, ub, n_pad, is_int_g=None):
+    """The tiles and bound vectors of D, A' or E in one of :data:`TIER_FORMS`
+    (the compact ids only with float32 values); returns ``(chunks, K,
+    form)``."""
+    t, r, k = val.shape
+    dt = _float_dtype("val", val)
+    compact = dt == torch.float32 and col.dtype == torch.int16
+    _expect("val", val, dt, (t, r, k))
+    _expect("col", col, torch.int16 if compact else torch.int32, (t, r, k))
+    if is_int_g is not None:
+        _expect("is_int_g", is_int_g, torch.int8 if compact else torch.int32, (t, r, k))
+    _expect("lb", lb, dt, (n_pad,))
+    _expect("ub", ub, dt, (n_pad,))
+    form = "f64" if dt == torch.float64 else "f32c" if compact else "f32"
+    return t * r, k, form
+
+
+def _tier_entry(name: str, form: str):
+    """The C entry point of a tier kernel's form, and its name."""
+    symbol = name + _FORM_SUFFIX[form]
+    return getattr(_build.lib(), symbol), symbol
+
+
+# Launches per (wrapper, form) since the last reset_launch_counts.
+FORM_LAUNCHES: dict = {}
+
+
+def _launched(fn, form: str = "f64") -> None:
+    """Count one launch of ``fn``'s kernel, in its total and by form."""
+    fn.launches += 1
+    key = (fn.__name__, form)
+    FORM_LAUNCHES[key] = FORM_LAUNCHES.get(key, 0) + 1
+
+
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
@@ -96,16 +152,16 @@ def _p(t: torch.Tensor) -> int:
 
 
 def accumulator_planes(like: torch.Tensor, inf: float = INF):
-    """``(best_l, best_u)``: two float64 planes shaped like the bound
+    """``(best_l, best_u)``: two planes of the dtype and shape of the bound
     vector or planes ``like``, filled with the sentinels ``-inf`` and
     ``inf``, for kernels D, E, #8, #10, #12 and #14 to scatter into (their
     ``acc``).  The engines allocate one pair per round closure and keep it
     for the whole fixed point: the merge that reads the planes (F, #9, #15)
     sets every entry it reads -- every column, or the active rows -- back
     to the sentinel, so they are clean for the next round."""
-    shape, dev = tuple(like.shape), like.device
-    return (torch.full(shape, -inf, dtype=torch.float64, device=dev),
-            torch.full(shape, inf, dtype=torch.float64, device=dev))
+    shape, dev, dt = tuple(like.shape), like.device, like.dtype
+    return (torch.full(shape, -inf, dtype=dt, device=dev),
+            torch.full(shape, inf, dtype=dt, device=dev))
 
 
 def _fold(acc, best):
@@ -182,7 +238,7 @@ def _acc_vectors(acc, lb, inf: float):
     if acc is None:
         return accumulator_planes(lb, inf)
     for name, t in zip(("acc[0]", "acc[1]"), acc):
-        _expect(name, t, torch.float64, tuple(lb.shape))
+        _expect(name, t, lb.dtype, tuple(lb.shape))
     return acc
 
 
@@ -215,7 +271,10 @@ def fused_scatter_round_tiles(
     ``is_int_g`` at the nonzeros (16 B; each chunk stops at its length) and
     20 B of length and sides per chunk, or ``val`` at every padded slot
     for a kernel that walks every slot; the bound and accumulator vectors
-    (4 x 8 B x n_pad).  Design: one bound gather per nonzero, held in
+    (4 x 8 B x n_pad).  At float32 (``csrc/tier_round.cu``, the same
+    template) values take 4 B, and the compact streams (``col`` int16,
+    ``is_int_g`` int8, where ``n_pad <= 2**15``) 2 B and 1 B.  Design: one
+    bound gather per nonzero, held in
     registers from the activity sums to the candidates (values, columns
     and marks loaded together); each chunk stopped at its length; a group
     of lanes per chunk sized by the longest chunk, not by K (where no chunk
@@ -231,20 +290,21 @@ def fused_scatter_round_tiles(
             val, col, is_int_g, lhs_g, rhs_g, lb, ub, n_pad, int_eps, inf
         )
         return best if acc is None else _fold(acc, best)
-    n_chunks, k = _check_tiles(val, col, lb, ub, n_pad, is_int_g)
-    _expect("lhs_g", lhs_g, torch.float64, val.shape[:2])
-    _expect("rhs_g", rhs_g, torch.float64, val.shape[:2])
+    n_chunks, k, form = _check_tier_tiles(val, col, lb, ub, n_pad, is_int_g)
+    _expect("lhs_g", lhs_g, val.dtype, val.shape[:2])
+    _expect("rhs_g", rhs_g, val.dtype, val.shape[:2])
     clen = _chunk_len(val, chunk_len)
     if max_chunk_len is None:
         max_chunk_len = int(clen.max()) if n_chunks else 0
     best_l, best_u = _acc_vectors(acc, lb, inf)
-    err = _build.lib().fused_scatter_round(
+    entry, symbol = _tier_entry("fused_scatter_round", form)
+    err = entry(
         _p(val), _p(col), _p(is_int_g), _p(clen), _p(lhs_g), _p(rhs_g), _p(lb), _p(ub),
         _p(best_l), _p(best_u), _go(go), n_chunks, k, int(max_chunk_len), int_eps, inf,
         _stream(),
     )
-    fused_scatter_round_tiles.launches += 1
-    _build.check(err, "fused_scatter_round")
+    _launched(fused_scatter_round_tiles, form)
+    _build.check(err, symbol)
     return best_l, best_u
 
 
@@ -274,8 +334,9 @@ def _max_len(k: int, max_chunk_len) -> int:
 
 
 def _paired(lb, ub):
-    """The bound vectors interleaved, ``(n, 2)`` float64: kernels A' and E
-    gather a column's two bounds as one 16-byte pair.  A copy per launch
+    """The bound vectors interleaved, ``(n, 2)``: kernels A' and E gather a
+    column's two bounds as one 16-byte pair (8 bytes at float32; a fresh
+    allocation, so every pair is aligned to its size).  A copy per launch
     (6 us at n_pad 60,032 on an H100), paid for by halving the gathers."""
     return torch.stack((lb, ub), dim=-1)
 
@@ -303,20 +364,21 @@ def activities_gather_tiles(val, col, lb, ub, n_pad: int, inf: float = INF, chun
     writes the chunk's four partials."""
     if not _on_cuda(val, col, lb, ub):
         return ref.activities_gather_tiles_ref(val, col, lb, ub, n_pad, inf)
-    n_chunks, k = _check_tiles(val, col, lb, ub, n_pad)
+    n_chunks, k, form = _check_tier_tiles(val, col, lb, ub, n_pad)
     clen = _chunk_len(val, chunk_len)
     shape, dev = val.shape[:2], val.device
-    mf = torch.empty(shape, dtype=torch.float64, device=dev)
-    xf = torch.empty(shape, dtype=torch.float64, device=dev)
+    mf = torch.empty(shape, dtype=val.dtype, device=dev)
+    xf = torch.empty(shape, dtype=val.dtype, device=dev)
     mc = torch.empty(shape, dtype=torch.int32, device=dev)
     xc = torch.empty(shape, dtype=torch.int32, device=dev)
     lub = _paired(lb, ub)
-    err = _build.lib().activities_gather(
+    entry, symbol = _tier_entry("activities_gather", form)
+    err = entry(
         _p(val), _p(col), _p(clen), _p(lub), _p(mf), _p(mc), _p(xf), _p(xc), _go(go), n_chunks,
         k, inf, _stream(),
     )
-    activities_gather_tiles.launches += 1
-    _build.check(err, "activities_gather")
+    _launched(activities_gather_tiles, form)
+    _build.check(err, symbol)
     return mf, mc, xf, xc
 
 
@@ -328,10 +390,10 @@ activities_gather_tiles.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _check_rows(rows, **tensors):
-    """Row data of shape ``rows``: int32 counts (``*_cnt``), float64 else."""
+def _check_rows(rows, dtype=torch.float64, **tensors):
+    """Row data of shape ``rows``: int32 counts (``*_cnt``), ``dtype`` else."""
     for name, t in tensors.items():
-        _expect(name, t, torch.int32 if name.endswith("_cnt") else torch.float64, rows)
+        _expect(name, t, torch.int32 if name.endswith("_cnt") else dtype, rows)
 
 
 def candidates_scatter_tiles(
@@ -361,19 +423,20 @@ def candidates_scatter_tiles(
     if not _on_cuda(*operands, *(acc or ())):
         best = ref.candidates_scatter_tiles_ref(*operands, n_pad, int_eps, inf)
         return best if acc is None else _fold(acc, best)
-    n_chunks, k = _check_tiles(val, col, lb, ub, n_pad, is_int_g)
-    _check_rows(val.shape[:2], row_min_fin=row_min_fin, row_min_cnt=row_min_cnt,
+    n_chunks, k, form = _check_tier_tiles(val, col, lb, ub, n_pad, is_int_g)
+    _check_rows(val.shape[:2], val.dtype, row_min_fin=row_min_fin, row_min_cnt=row_min_cnt,
                 row_max_fin=row_max_fin, row_max_cnt=row_max_cnt, lhs_g=lhs_g, rhs_g=rhs_g)
     clen = _chunk_len(val, chunk_len)
     best_l, best_u = _acc_vectors(acc, lb, inf)
     lub = _paired(lb, ub)
-    err = _build.lib().candidates_scatter(
+    entry, symbol = _tier_entry("candidates_scatter", form)
+    err = entry(
         _p(val), _p(col), _p(is_int_g), _p(clen), _p(row_min_fin), _p(row_min_cnt),
         _p(row_max_fin), _p(row_max_cnt), _p(lhs_g), _p(rhs_g), _p(lub), _p(best_l),
         _p(best_u), _go(go), n_chunks, k, int_eps, inf, _stream(),
     )
-    candidates_scatter_tiles.launches += 1
-    _build.check(err, "candidates_scatter")
+    _launched(candidates_scatter_tiles, form)
+    _build.check(err, symbol)
     return best_l, best_u
 
 
@@ -531,7 +594,7 @@ fused_round_tiles.launches = 0
 
 
 def apply_updates_tiles(lb, ub, best_l, best_u, eps: float, inf: float = INF, outward: float = 0.0,
-                        *, carry=None, k: int = 0, unroll: int = 1):
+                        *, carry=None, k: int = 0, unroll: int = 1, stop=None, partials=None):
     """Bound merge with ``bounds.apply_updates`` semantics, IN PLACE, folded
     into a fixed point's loop carry: ``lb``/``ub`` (n_pad,) are overwritten
     and returned with the carry's ``GO`` as a 0-d bool view
@@ -557,28 +620,55 @@ def apply_updates_tiles(lb, ub, best_l, best_u, eps: float, inf: float = INF, ou
     thread, loaded before any is merged; a warp that tightens stores the
     carry's flag once, and the launch's last block (an atomic ticket)
     folds the flag into the carry and clears it: no fill before the launch,
-    one launch per round."""
+    one launch per round.
+
+    Float64 or float32 (the fp32 tier, whose merges widen outward by
+    ``outward``).  ``stop`` (a :class:`~repro_torch.core.carry.EarlyStop`,
+    one round per check group) arms the progress-based early stop: the
+    kernel (``csrc/tier_round.cu`` ``apply_updates_stop``) also sums the
+    round's progress measure over the columns it merges, each block into
+    ``partials`` (``(ceil(n / ref.MERGE_BLOCK),)`` of the bounds' dtype,
+    kept by the round closure; allocated here when omitted), and its last
+    block sums them in block order (``ref.merge_order_sum``) and folds the
+    measure into the carry, clearing GO once it stayed below
+    ``stop.progress`` for ``stop.patience`` rounds.  Without it F runs as
+    before, to the bit."""
     own = carry is None
     if own:
         carry, k, unroll = _carry.armed_state(lb.device), 0, 1
+    if stop is not None and unroll != 1:
+        raise ValueError(f"unroll={unroll}: kernel F's early stop takes one round a check group")
     if not _on_cuda(lb, ub, best_l, best_u, carry):
         new_lb, new_ub, go = ref.merge_carry_ref(lb, ub, best_l, best_u, eps, inf, outward,
-                                                 carry, k, unroll)
+                                                 carry, k, unroll, stop)
         lb.copy_(new_lb)
         ub.copy_(new_ub)
         return lb, ub, go
     (n,) = lb.shape
+    dt = lb.dtype
     for name, t in (("lb", lb), ("ub", ub), ("best_l", best_l), ("best_u", best_u)):
-        if t.dtype is not torch.float64 or t.shape != lb.shape or not t.is_contiguous():
-            _expect(name, t, torch.float64, (n,))
+        if t.dtype is not dt or dt not in _FLOATS or t.shape != lb.shape or not t.is_contiguous():
+            _expect(name, t, _float_dtype("lb", lb), (n,))
     if carry.dtype is not torch.int32 or carry.shape != (_carry.FIELDS,):
         _expect("carry", carry, torch.int32, (_carry.FIELDS,))
-    err = _build.lib().apply_updates(
-        _p(lb), _p(ub), _p(best_l), _p(best_u), _p(carry), n, k, unroll, eps, inf, outward,
-        _stream(),
-    )
-    apply_updates_tiles.launches += 1
-    _build.check(err, "apply_updates")
+    form = "f64" if dt is torch.float64 else "f32"
+    if stop is None:
+        entry, symbol = _tier_entry("apply_updates", form)
+        err = entry(_p(lb), _p(ub), _p(best_l), _p(best_u), _p(carry), n, k, unroll, eps, inf,
+                    outward, _stream())
+    else:
+        blocks = -(-n // ref.MERGE_BLOCK)
+        if partials is None:
+            partials = torch.empty(blocks, dtype=dt, device=lb.device)
+        _expect("partials", partials, dt, (blocks,))
+        symbol = "apply_updates_stop" + ("" if form == "f64" else "_f32")
+        err = getattr(_build.lib(), symbol)(
+            _p(lb), _p(ub), _p(best_l), _p(best_u), _p(carry), _p(partials), n, eps, inf,
+            outward, stop.progress, int(stop.patience), _stream(),
+        )
+        form += "+stop"
+    _launched(apply_updates_tiles, form)
+    _build.check(err, symbol)
     return lb, ub, _carry.go_flag(carry)
 
 
@@ -601,9 +691,9 @@ def _classes(row_start, n_chunks: int, classes):
     return classes
 
 
-def _check_partials(mf, mc, xf, xc, shape) -> None:
-    for name, t, dt in (("mf", mf, torch.float64), ("mc", mc, torch.int32),
-                        ("xf", xf, torch.float64), ("xc", xc, torch.int32)):
+def _check_partials(mf, mc, xf, xc, shape, dtype=torch.float64) -> None:
+    for name, t, dt in (("mf", mf, dtype), ("mc", mc, torch.int32),
+                        ("xf", xf, dtype), ("xc", xc, torch.int32)):
         _expect(name, t, dt, shape)
 
 
@@ -631,7 +721,8 @@ def combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start, classes=N
     operands = (mf, mc, xf, xc, chunk_row, row_start)
     if not _on_cuda(*operands):
         return ref.combine_chunk_partials_ref(mf, mc, xf, xc, chunk_row, row_start)
-    _check_partials(mf, mc, xf, xc, tuple(mf.shape))
+    form = "f64" if _float_dtype("mf", mf) is torch.float64 else "f32"
+    _check_partials(mf, mc, xf, xc, tuple(mf.shape), mf.dtype)
     _expect("chunk_row", chunk_row, torch.int32, tuple(mf.shape))
     _expect("row_start", row_start, torch.int64, (row_start.shape[0],))
     short, long = _classes(row_start, mf.numel(), classes)
@@ -639,12 +730,13 @@ def combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start, classes=N
     omc, oxc = torch.empty_like(mc), torch.empty_like(xc)
     if short.numel() + long.numel() == 0:
         return omf, omc, oxf, oxc
-    err = _build.lib().combine_chunk_partials(
+    entry, symbol = _tier_entry("combine_chunk_partials", form)
+    err = entry(
         _p(mf), _p(mc), _p(xf), _p(xc), _p(row_start), _p(short), _p(long), _p(omf), _p(omc),
         _p(oxf), _p(oxc), _go(go), short.numel(), long.numel(), _stream(),
     )
-    combine_chunk_partials_tiles.launches += 1
-    _build.check(err, "combine_chunk_partials")
+    _launched(combine_chunk_partials_tiles, form)
+    _build.check(err, symbol)
     return omf, omc, oxf, oxc
 
 
@@ -1575,6 +1667,15 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
 
 
+def form_counts() -> dict:
+    """Launches of the tier kernels (D, A', E, F, the long-row combine) by
+    form since the last :func:`reset_launch_counts`, keyed
+    ``"<wrapper>[<form>]"`` (:data:`TIER_FORMS`, F's early stop as
+    ``"+stop"``)."""
+    return {f"{name}[{form}]": n for (name, form), n in FORM_LAUNCHES.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS:
         fn.launches = 0
+    FORM_LAUNCHES.clear()

@@ -183,19 +183,63 @@ def fused_scatter_round_tiles_ref(
     return scatter_round_ref(lcand, ucand, col, n_pad, inf)
 
 
+# Kernel F's grid: blocks of MERGE_THREADS threads, MERGE_COLUMNS columns a
+# thread (round_common.cuh's merge body: thread t of block b takes columns
+# b * MERGE_BLOCK + v * MERGE_THREADS + t, v < MERGE_COLUMNS).
+MERGE_THREADS = 256
+MERGE_COLUMNS = 4
+MERGE_BLOCK = MERGE_THREADS * MERGE_COLUMNS
+
+
+def merge_order_sum(x):
+    """Sum of the ``(n,)`` vector ``x`` in the order of kernel F's early
+    stop (``csrc/round_common.cuh`` ``StopCarryFlags``): each thread adds
+    its columns in order, each warp reduces its 32 sums by the butterfly
+    of :func:`warp_order_sum`, each block adds its 8 warp sums left to
+    right, and the block sums are reduced as :func:`warp_order_sum` reduces
+    a row.  Padding columns add +0.0, which changes no sum of these
+    non-negative terms."""
+    pad = (-x.shape[-1]) % MERGE_BLOCK
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    x = x.reshape(-1, MERGE_COLUMNS, MERGE_THREADS)
+    acc = x[:, 0]
+    for v in range(1, MERGE_COLUMNS):
+        acc = acc + x[:, v]
+    warps = warp_order_sum(acc.reshape(-1, MERGE_THREADS // WARP, WARP))
+    block = warps[:, 0]
+    for w in range(1, warps.shape[1]):
+        block = block + warps[:, w]
+    return warp_order_sum(block)
+
+
+def merge_progress(lb, ub, new_lb, new_ub):
+    """The progress measure of one merge (``bounds.progress_measure``'s
+    terms) summed in kernel F's order (:func:`merge_order_sum`)."""
+    dl = new_lb - lb
+    du = ub - new_ub
+    sl = 1.0 + torch.maximum(lb.abs(), new_lb.abs())
+    su = 1.0 + torch.maximum(ub.abs(), new_ub.abs())
+    return merge_order_sum(dl / sl + du / su)
+
+
 def merge_carry_ref(lb, ub, best_l, best_u, eps: float, inf: float, outward: float, carry,
-                    k: int, unroll: int):
+                    k: int, unroll: int, stop=None):
     """Kernel F's plain version: ``bounds.apply_updates`` where the loop
     carry's ``GO`` is set (else the bounds as they were), the round's flag
     folded into ``carry`` (:func:`~repro_torch.core.carry.fold`, in place),
-    and every accumulator entry set back to the sentinel (in place).
-    Returns new ``(lb, ub)`` and the carry's ``GO`` (a 0-d bool view)."""
+    and every accumulator entry set back to the sentinel (in place).  With
+    an early stop ``stop`` (one round a check group) the fold also takes
+    the round's progress measure in the kernel's order
+    (:func:`merge_progress`).  Returns new ``(lb, ub)`` and the carry's
+    ``GO`` (a 0-d bool view)."""
     new_lb, new_ub, changed = bnd.apply_updates(lb, ub, best_l, best_u, eps, inf, outward)
     best_l.fill_(-inf)
     best_u.fill_(inf)
     go = _carry.go_flag(carry)
+    prog = merge_progress(lb, ub, new_lb, new_ub) if stop is not None else None
     new_lb, new_ub = torch.where(go, new_lb, lb), torch.where(go, new_ub, ub)
-    _carry.fold(carry, changed, k, unroll)
+    _carry.fold(carry, changed, k, unroll, stop, prog)
     return new_lb, new_ub, go
 
 

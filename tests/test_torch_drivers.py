@@ -270,7 +270,7 @@ def test_unarmed_round_flags_stay_their_own():
         assert [bool(f) for f in flags] == [True] * 13 + [False] * 3
     fresh = [tcarry.armed_state("cpu") for _ in range(2)]
     assert fresh[0].data_ptr() != fresh[1].data_ptr()
-    assert fresh[0].tolist() == [0, 0, 0, 1, 0, 0, 0, 0]
+    assert fresh[0].tolist() == [0, 0, 0, 1] + [0] * (tcarry.FIELDS - 4)
 
 
 def test_block_ell_rejects_unrolled():
@@ -411,7 +411,14 @@ def test_kept_flag_pairs_alternate(merge):
 @pytest.mark.parametrize("fn", ["propagate_host_loop", "propagate_device_loop",
                                 "propagate_unrolled"])
 def test_named_drivers_refuse_unported_options(fn, kw, item):
-    p = rt.problem_from_reference(rd.make_set_cover(n=20, m=8, seed=0))
-    dp = rt.core.DeviceProblem(p, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        getattr(rt.core, fn)(dp, **kw)
+    """Telemetry (item 6) raises.  The early stop's ``stop_progress`` and
+    ``patience`` (item 5, ported since) run and give the reference's named
+    driver's result: rounds, flags, bounds and progress."""
+    pr = rd.make_set_cover(n=20, m=8, seed=0)
+    dp = rt.core.DeviceProblem(rt.problem_from_reference(pr), device="cpu")
+    if item == "item 6":
+        with pytest.raises(NotImplementedError, match=item):
+            getattr(rt.core, fn)(dp, **kw)
+        return
+    want = getattr(rc, fn)(rc.DeviceProblem(pr), **kw)
+    assert_results_match(getattr(rt.core, fn)(dp, **kw), want, exact=True)

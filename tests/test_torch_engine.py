@@ -134,14 +134,35 @@ def test_host_syncs_counted_once_per_round():
 @pytest.mark.parametrize("kw,match", [
     (dict(dtype=np.float32), "item 5"),
     (dict(dtype=torch.float32), "item 5"),
-    (dict(policy=object()), "item 5"),
+    (dict(policy=rt.core.TierPolicy()), "item 5"),
     (dict(stop_progress=1e-3), "item 5"),
     (dict(telemetry=8), "item 6"),
 ])
 def test_requests_outside_the_slice_raise(kw, match):
-    pt = rt.problem_from_reference(rd.make_set_cover(n=20, m=8, seed=0))
-    with pytest.raises(NotImplementedError, match=match):
-        rt.propagate_block_ell(pt, device="cpu", **kw)
+    """Telemetry (item 6) raises.  Item 5's options, ported since (the
+    precision tiers), run and give the reference's rounds, flags and
+    bounds: float32 and the two-tier policy against the reference's
+    ``propagate`` (whose fp32 tier widens outward as the port's does), the
+    early stop against its ``propagate_block_ell``."""
+    pr = rd.make_set_cover(n=20, m=8, seed=0)
+    pt = rt.problem_from_reference(pr)
+    if match == "item 6":
+        with pytest.raises(NotImplementedError, match=match):
+            rt.propagate_block_ell(pt, device="cpu", **kw)
+        return
+    got = rt.propagate_block_ell(pt, device="cpu", **kw)
+    if "stop_progress" in kw:
+        want = rk.propagate_block_ell(pr, **kw)
+    elif "policy" in kw:
+        want = rc.propagate(pr, policy=rc.TierPolicy())
+        assert int(got.tier_rounds) == int(want.tier_rounds) >= 1
+    else:
+        want = rc.propagate(pr, dtype=np.float32)
+        assert got.lb.dtype == torch.float32
+    for f in ("rounds", "converged", "infeasible"):
+        assert int(getattr(got, f)) == int(getattr(want, f))
+    np.testing.assert_array_equal(got.lb.double().numpy(), np.asarray(want.lb, np.float64))
+    np.testing.assert_array_equal(got.ub.double().numpy(), np.asarray(want.ub, np.float64))
 
 
 def test_wide_instance_needs_the_partitioned_engine():

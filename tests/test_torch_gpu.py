@@ -235,10 +235,11 @@ def test_combine_matches_plain_version(cuda, gen, lengths):
 
 
 def _bits(x):
-    """Bit patterns of a float64 tensor (ints as they are): -0.0 differs
-    from +0.0."""
+    """Bit patterns of a float64 or float32 tensor (ints as they are): -0.0
+    differs from +0.0."""
     x = x.cpu()
-    return x.view(torch.int64) if x.dtype == torch.float64 else x
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+    return x.view(ints[x.dtype]) if x.dtype in ints else x
 
 
 def _match_bits(got, want):
@@ -1814,3 +1815,152 @@ def test_kept_flag_pairs_on_card(cuda, gen):
             for g, w in zip(got, want):
                 _match(g, w)
             assert not bool(pair.bufs[pair.turn].any())  # the next launch's, zeroed
+
+
+# ---------------------------------------------------------------------------
+# The precision tiers: the float32 forms of D, A', the combine, E and F
+# (int32 and compact int16 / int8 index streams) and F with the early stop
+# ---------------------------------------------------------------------------
+
+
+def _tier_tiles(x, compact):
+    """Tiles of :func:`_tiles` / :func:`_packed_tiles` at float32, with the
+    compact index streams (int16 columns, int8 marks) or int32 ones."""
+    f = lambda t: t.to(torch.float32)
+    y = dict(x, val=f(x["val"]), lb=f(x["lb"]), ub=f(x["ub"]), lhs=f(x["lhs"]),
+             rhs=f(x["rhs"]))
+    if compact:
+        y.update(col=x["col"].to(torch.int16), ii=x["ii"].to(torch.int8))
+    return y
+
+
+@pytest.mark.parametrize("compact", [True, False], ids=["f32c", "f32"])
+@pytest.mark.parametrize("exact", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("t,r,k,n", LENGTH_SHAPES)
+def test_float32_kernels_match_plain_versions(cuda, gen, t, r, k, n, exact, compact):
+    """D, A', E and F (with the tier's outward widening) at float32 on both
+    index forms, bitwise equal to their plain versions, each launching its
+    float form; front-packed tiles with their lengths, and tiles with zeros
+    anywhere."""
+    cfg = rt.core.DEFAULT_CONFIG
+    eps, outward = cfg.eps_for(torch.float32), cfg.outward_for(torch.float32)
+    form = "f32c" if compact else "f32"
+    packed = _tier_tiles(_packed_tiles(gen, t, r, k, n, exact, cuda), compact)
+    for x, clen in ((packed, packed["clen"]), (_tier_tiles(_tiles(gen, t, r, k, n, exact, cuda),
+                                                           compact), None)):
+        tk.reset_launch_counts()
+        d_args = (x["val"], x["col"], x["ii"], x["lhs"], x["rhs"], x["lb"], x["ub"], x["n_pad"],
+                  1e-6)
+        best = tref.fused_scatter_round_tiles_ref(*d_args)
+        for g, w in zip(tk.fused_scatter_round_tiles(*d_args, chunk_len=clen), best):
+            _match(g, w)
+        a_args = (x["val"], x["col"], x["lb"], x["ub"], x["n_pad"])
+        aggs = tk.activities_gather_tiles(*a_args, chunk_len=clen)
+        for g, w in zip(aggs, tref.activities_gather_tiles_ref(*a_args)):
+            _match(g, w)
+        e_args = (x["val"], x["col"], x["ii"], *aggs, x["lhs"], x["rhs"], x["lb"], x["ub"],
+                  x["n_pad"], 1e-6)
+        for g, w in zip(tk.candidates_scatter_tiles(*e_args, chunk_len=clen),
+                        tref.candidates_scatter_tiles_ref(*e_args)):
+            _match(g, w)
+        want = rt.core.apply_updates(x["lb"], x["ub"], *best, eps, INF, outward)
+        got = tk.apply_updates_tiles(x["lb"].clone(), x["ub"].clone(), best[0].clone(),
+                                     best[1].clone(), eps, INF, outward)
+        for g, w in zip(got, want):
+            _match(g, w)
+        assert tk.form_counts() == {
+            f"fused_scatter_round_tiles[{form}]": 1, f"activities_gather_tiles[{form}]": 1,
+            f"candidates_scatter_tiles[{form}]": 1, "apply_updates_tiles[f32]": 1}
+
+
+@pytest.mark.parametrize("lengths", [[3, 1, 5, 2], [40, 1, 300, 7], COMBINE_LENGTHS])
+def test_float32_combine_matches_plain_version(cuda, gen, lengths):
+    counts = np.array(lengths)
+    m = len(counts)
+    n_chunks = int(counts.sum()) + 3
+    crow = np.concatenate([np.repeat(np.arange(m), counts), [m] * 3]).astype(np.int32)
+    row_start = np.concatenate([[0], np.cumsum(counts), [n_chunks]]).astype(np.int64)
+    to = lambda a: torch.from_numpy(np.array(a)).to(cuda).reshape(-1, 1)
+    mf, mc, xf, xc = _combine_partials(gen, n_chunks, "float")
+    parts = (mf.astype(np.float32), mc, xf.astype(np.float32), xc)
+    args = (*map(to, parts), to(crow), to(row_start).reshape(-1))
+    tk.reset_launch_counts()
+    got = tk.combine_chunk_partials_tiles(*args)
+    for g, w in zip(got, tref.combine_chunk_partials_ref(*args)):
+        _match(g, w)
+    assert tk.form_counts() == {"combine_chunk_partials_tiles[f32]": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [5, 1_000, 60_032])
+def test_f_early_stop_matches_plain_version(cuda, gen, n, dtype):
+    """F with the early stop armed over a fixed point's rounds against its
+    plain version: bounds, handed-back planes and the carry (the measure's
+    bits, the low-progress streak, the last group's flag) bitwise; two
+    rounds of large progress, two of low (three columns tightened by 1e-3,
+    a measure under 0.05), which stop the loop at patience 2 though they
+    changed bounds, and two rounds enqueued after the stop."""
+    from repro_torch.core import carry as tcarry
+
+    cfg = rt.core.DEFAULT_CONFIG
+    eps, outward = cfg.eps_for(dtype), cfg.outward_for(dtype)
+    stop = tcarry.EarlyStop(0.05, 2)
+    lb = torch.zeros(n, dtype=dtype, device=cuda)
+    ub = torch.full((n,), 10.0, dtype=dtype, device=cuda)
+    st_k, st_p = tcarry.armed_state(cuda), tcarry.armed_state(cuda)
+    partials = torch.empty(-(-n // tref.MERGE_BLOCK), dtype=dtype, device=cuda)
+    tk.reset_launch_counts()
+    for i, big in enumerate((True, True, False, False, True, True)):
+        if big:  # a third of the columns, other ones each round
+            pick = torch.arange(n, device=cuda) % 3 == i % 3
+            step_l, step_u = 0.5, 0.25
+        else:
+            pick = torch.zeros(n, dtype=torch.bool, device=cuda)
+            pick[torch.from_numpy(gen.choice(n, min(3, n), replace=False)).to(cuda)] = True
+            step_l, step_u = 1e-3, 1e-3
+        bl = torch.where(pick, lb + step_l, torch.full_like(lb, -INF))
+        bu = torch.where(pick, ub - step_u, torch.full_like(ub, INF))
+        acc = (bl.clone(), bu.clone())
+        got = tk.apply_updates_tiles(lb.clone(), ub.clone(), *acc, eps, INF, outward, carry=st_k,
+                                     stop=stop, partials=partials)
+        want = tref.merge_carry_ref(lb, ub, bl.clone(), bu.clone(), eps, INF, outward, st_p, 0, 1,
+                                    stop)
+        for g, w in zip((*got[:2], st_k), (*want[:2], st_p)):
+            _match_bits(g, w)
+        assert _clean(acc)
+        lb, ub = want[0], want[1]
+    fields = st_k.tolist()
+    assert fields[tcarry.GO] == 0 and fields[tcarry.LAST] == 1
+    assert fields[tcarry.FLAT] == 2 and fields[tcarry.ROUNDS] == 4
+    form = "f64+stop" if dtype == torch.float64 else "f32+stop"
+    assert tk.form_counts() == {f"apply_updates_tiles[{form}]": 6}
+
+
+@pytest.mark.parametrize("gen_name,kw,tile_width,exact", [
+    ("make_pseudo_boolean", dict(n=3000, m=4000, seed=7), 128, True),
+    ("make_cascade_chain", dict(length=40), 4, True),
+    ("make_mixed", dict(m=600, n=450, seed=21), 16, False),
+    ("make_mixed", dict(m=6000, n=40_000, seed=3, density=0.002), 128, False),
+])
+def test_tiers_on_card_match_cpu(cuda, gen_name, kw, tile_width, exact):
+    """float32-only, two-tier and early-stopped fixed points on the card
+    against the same runs on the CPU (the plain versions, in the kernels'
+    order): rounds, flags, tier rounds and bounds (bitwise on exact data),
+    both drivers; the compact streams below n_pad 2**15 and int32 above."""
+    p = getattr(td, gen_name)(**kw)
+    runs = [dict(dtype=torch.float32), dict(policy=rt.core.TierPolicy()),
+            dict(policy=rt.core.TierPolicy(two_tier=False, stop_progress=0.05, patience=1)),
+            dict(dtype=torch.float32, stop_progress=0.01, patience=2)]
+    for run in runs:
+        for driver in ("host_loop", "device_loop"):
+            got = rt.propagate_block_ell(p, tile_width=tile_width, driver=driver, **run)
+            want = rt.propagate_block_ell(p, tile_width=tile_width, driver=driver,
+                                          device="cpu", **run)
+            for f in ("rounds", "converged", "infeasible", "tier_rounds"):
+                assert getattr(got, f).item() == getattr(want, f).item(), (run, driver, f)
+            assert got.lb.dtype == want.lb.dtype
+            if exact:
+                _match(got.lb, want.lb)
+                _match(got.ub, want.ub)
+            else:
+                assert rt.bounds_equal(got.lb, got.ub, want.lb, want.ub)

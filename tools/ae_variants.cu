@@ -111,7 +111,7 @@ __device__ __forceinline__ void put(double* bl, double* bu, const Cands& q, doub
     if (ATOM == 0) {
       atomic_max_f64(bl, q.lc);
     } else if (ATOM == 1) {
-      red_max_f64(bl, q.lc);
+      red_max(bl, q.lc);
     } else if (ATOM == 3) {
       const double v = q.lc == 0.0 ? 0.0 : q.lc;
       if (v > *bl) {
@@ -130,7 +130,7 @@ __device__ __forceinline__ void put(double* bl, double* bu, const Cands& q, doub
     if (ATOM == 0) {
       atomic_min_f64(bu, q.uc);
     } else if (ATOM == 1) {
-      red_min_f64(bu, q.uc);
+      red_min(bu, q.uc);
     } else if (ATOM == 3) {
       const double v = q.uc == 0.0 ? 0.0 : q.uc;
       if (v < *bu) {

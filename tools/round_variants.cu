@@ -134,7 +134,7 @@ __device__ __forceinline__ void put(double* bl, double* bu, const Cands& q, doub
     if (!RED) {
       atomic_max_f64(bl, q.lc);
     } else if (PRE) {
-      red_max_f64(bl, q.lc);
+      red_max(bl, q.lc);
     } else {
       const double v = q.lc == 0.0 ? 0.0 : q.lc;
       const long long bits = __double_as_longlong(v);
@@ -146,7 +146,7 @@ __device__ __forceinline__ void put(double* bl, double* bu, const Cands& q, doub
     if (!RED) {
       atomic_min_f64(bu, q.uc);
     } else if (PRE) {
-      red_min_f64(bu, q.uc);
+      red_min(bu, q.uc);
     } else {
       const double v = q.uc == 0.0 ? 0.0 : q.uc;
       const long long bits = __double_as_longlong(v);
