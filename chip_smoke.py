@@ -7,8 +7,9 @@ Run from the root of a checkout.  It imports ``src/repro_torch`` (torch and
 numpy only, nothing of JAX) and, on one CUDA card:
 
   1. prints the card's name and power limit, builds the CUDA kernels of
-     ``src/repro_torch/csrc/prop_round.cu``, ``slab_round.cu`` and
-     ``tier_round.cu`` from source (one ``nvcc`` per file, in parallel) and
+     ``src/repro_torch/csrc/prop_round.cu``, ``slab_round.cu``,
+     ``tier_round.cu`` and ``batch_tier_round.cu`` from source (one ``nvcc``
+     per file, in parallel) and
      prints the build time and the compilers' register report;
   2. generates three instances at n = 60,000 columns, 150,000 rows (the
      paper's Set-5 size): ``pb`` (pseudo-boolean, exact arithmetic, rows in
@@ -147,7 +148,7 @@ numpy only, nothing of JAX) and, on one CUDA card:
      values printed beside the fastest); ``propagate``'s three drivers on
      ``pb`` (``tools/driver_profile.py`` traces the same runs per driver
      in a fresh process);
- 14. (phase 13, last) the precision tiers: the float32 forms of D, A', the
+ 14. (phase 13) the precision tiers: the float32 forms of D, A', the
      combine, E and F (int32 ids on ``pb`` and ``mixed``, the compact int16
      / int8 streams on ``pb30`` and ``mixed30``, n_pad 30,080; the float64
      forms timed on the same instances) and F with the early stop (float64
@@ -163,7 +164,25 @@ numpy only, nothing of JAX) and, on one CUDA card:
      stop_progress=0.05, patience=1)``) on both drivers (same rounds and
      bounds); every float form must have been launched; the walls of the
      float64-only, float32-only and two-tier fixed points by driver;
- 15. prints a ``kernels`` JSON line (the float forms as ``<wrapper>[<form>]``),
+ 15. (phase 14, last) the precision tiers on the batched engines: the float32
+     forms of #8 (phase 9's fused bucket, 2 and 4 of 4 active), of #10 and
+     the node-batched A', combine and E (128-slot pools of ``pbf``, int32
+     ids, and ``pb30``, compact, with 8 and 128 active) and of #9, the flat
+     A', combine and E at float32 on phase 9's multi-chunk bucket, and #9
+     with the early stop's measure (float64 and float32, through two rounds
+     of a stop: partials, measure and the streak) against their plain
+     versions, bitwise, timed beside the float64 forms; then, with the
+     launches counted, ``propagate_batch`` (the fused bucket at float32,
+     under ``TierPolicy()`` and with ``stop_progress=0.05``; the multi-chunk
+     bucket at float32), ``propagate_nodes`` (8 nodes of ``pbf`` and
+     ``pb30`` at tile widths 8 and 4) and a four-request service stream (at
+     float32 and with the early retire, ``early_stopped >= 1``) against
+     the plain path (bitwise) and the float64-only runs (never falsely
+     infeasible at float32; two tiers: the same verdict, integer bounds
+     bitwise, continuous within 1e-6 (1 + |b|); the early stop: no more
+     rounds, an uncut run bitwise); the walls of the fused batch and the
+     ``pbf`` nodes by variant; every float form must have been launched;
+ 16. prints a ``kernels`` JSON line (the float forms as ``<wrapper>[<form>]``),
      and last ``{"ok": true, "device": {...}}``.
 
 Each path runs with the launch counters at zero just before it and read just
@@ -274,6 +293,7 @@ SERVICE_TIMED_RUNS = 2
 SOURCE = "src/repro_torch/csrc/prop_round.cu"
 SLAB_SOURCE = "src/repro_torch/csrc/slab_round.cu"
 TIER_SOURCE = "src/repro_torch/csrc/tier_round.cu"
+BATCH_TIER_SOURCE = "src/repro_torch/csrc/batch_tier_round.cu"
 REPLACES = {
     "fused_scatter_round_tiles": "src/repro/kernels/prop_round.py:580",
     "activities_gather_tiles": "src/repro/kernels/prop_round.py:269",
@@ -404,7 +424,8 @@ class EventTimedLib:
 
         self.torch, self.lib, self.pairs = torch, lib, []
         # The kernels' entry points: SYMBOL's and the float forms'.
-        self.timed = set(SYMBOL.values()) | set(_build.SIGNATURES["tier_round.cu"])
+        self.timed = (set(SYMBOL.values()) | set(_build.SIGNATURES["tier_round.cu"])
+                      | set(_build.SIGNATURES["batch_tier_round.cu"]))
 
     def __getattr__(self, name):
         entry = getattr(self.lib, name)
@@ -944,12 +965,17 @@ def smoke(torch, dev):
     runs.update(wide_runs)
     runs.update(segment_phase(torch, rt, tk, tref, ops, _build, dev, measured, problems, preps,
                               results, wide["bandw"], wide_results["bandw"]))
-    runs.update(batch_phase(torch, np, rt, td, tk, tref, ops, _build, dev, measured,
-                            {**problems, "pbf": pbf, **wide}))
+    batch_runs, batch_pops = batch_phase(torch, np, rt, td, tk, tref, ops, _build, dev, measured,
+                                         {**problems, "pbf": pbf, **wide})
+    runs.update(batch_runs)
     runs.update(service_phase(torch, np, rt, td, tk, dev))
     runs.update(drivers_phase(torch, np, rt, tk, tref, ops, dev, problems, preps, wide))
-    tier_rows, tier_launches = precision_phase(torch, np, rt, td, tk, tref, ops, _build, dev,
-                                               problems, preps, results, pbf, measured)
+    tier_rows, tier_launches, tier_probs = precision_phase(torch, np, rt, td, tk, tref, ops,
+                                                           _build, dev, problems, preps, results,
+                                                           pbf, measured)
+    batch_tier_rows, batch_tier_launches = batch_tiers_phase(
+        torch, np, rt, tk, tref, ops, _build, dev, batch_pops, pbf, prep8, tier_probs, results,
+        measured)
     slab_path = ("batched_slab_partials_tiles", "straddle_combine_tiles",
                  "batched_slab_round_tiles", "apply_updates_slab_tiles")
     node_slab_path = ("node_slab_partials_tiles", "straddle_combine_tiles",
@@ -1025,6 +1051,15 @@ def smoke(torch, dev):
         kernels.append(dict(
             name=key, route="cuda", source=TIER_SOURCE, replaces=REPLACES[base],
             launches=tier_launches[key], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=None, instance=inst, wrapper_ms=r["wrapper_ms"], bytes=r["bytes"],
+            float64_ms=r.get("float64_ms"),
+        ))
+    for key, (r, inst) in batch_tier_rows.items():
+        base = key.split("[")[0]
+        kernels.append(dict(
+            name=key, route="cuda", source=BATCH_TIER_SOURCE, replaces=REPLACES[base],
+            launches=batch_tier_launches[key], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, instance=inst, wrapper_ms=r["wrapper_ms"], bytes=r["bytes"],
             float64_ms=r.get("float64_ms"),
@@ -2224,7 +2259,8 @@ def batch_phase(torch, np, rt, td, tk, tref, ops, build, dev, measured, problems
     then #9), one past 2^16 columns (the partitioned round with two planes).
     Every instance bitwise against its own propagate_block_ell and against
     the plain path; a bounds= warm start; #8 against its plain version,
-    timed.  Adds to ``measured``; returns the launch counts of each run."""
+    timed.  Adds to ``measured``; returns the launch counts of each run and
+    the three populations."""
     t = time.perf_counter()
     banded1 = td.make_banded(**BANDED1)
     mixed1 = td.make_mixed(**MIXED1)
@@ -2339,7 +2375,7 @@ def batch_phase(torch, np, rt, td, tk, tref, ops, build, dev, measured, problems
     log(f"batch warm start: pb with {p.n // 20} upper bounds at 0, rounds "
         f"{int(warm[0].rounds)}, infeasible {bool(warm[0].infeasible)}; equal to its "
         "warm-started propagate_block_ell, the other instances unchanged")
-    return runs
+    return runs, pops
 
 
 # ---------------------------------------------------------------------------
@@ -2880,7 +2916,7 @@ def check_tier_contract(torch, np, name, p, tiered, base):
 def precision_phase(torch, np, rt, td, tk, tref, ops, build, dev, problems, preps, results, pbf,
                     measured):
     """Phase 13: the precision tiers.  Returns ({form key: (row, instance)},
-    {form key: launches on the phase's main-path runs})."""
+    {form key: launches on the phase's main-path runs}, the instances)."""
     t_phase = time.perf_counter()
     probs = {"pb": problems["pb"], "mixed": problems["mixed"], "pbf": pbf}
     for name, gen, kw in COMPACT_SPECS:
@@ -2972,7 +3008,534 @@ def precision_phase(torch, np, rt, td, tk, tref, ops, build, dev, problems, prep
     for key, (r, _) in out_rows.items():
         r["max_abs_err"] = max(v["max_abs_err"] for v in rows[key].values())
     log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
-    return out_rows, {key: launches.get(key, 0) for key in TIER_PRIMARY}
+    return out_rows, {key: launches.get(key, 0) for key in TIER_PRIMARY}, probs
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the precision tiers on the batched engines
+# ---------------------------------------------------------------------------
+
+# The float32 forms of #8, #9, #10 and the node-batched A', combine and E,
+# and #9 with the early stop, each with the instance its kernels-line entry
+# is measured on.
+BATCH_TIER_PRIMARY = {
+    "batched_fused_scatter_round_tiles[f32]": "fused bucket, 4 of 4 active",
+    "node_fused_scatter_round_tiles[f32]": f"pbf pool, 8 of {POOL} active",
+    "node_fused_scatter_round_tiles[f32c]": f"pb30 pool, 8 of {POOL} active",
+    "node_activities_gather_tiles[f32]": f"pbf K=4 pool, 8 of {POOL} active",
+    "node_activities_gather_tiles[f32c]": f"pb30 K=4 pool, 8 of {POOL} active",
+    "node_combine_chunk_partials_tiles[f32]": f"pbf K=4 pool, 8 of {POOL} active",
+    "node_candidates_scatter_tiles[f32]": f"pbf K=4 pool, 8 of {POOL} active",
+    "node_candidates_scatter_tiles[f32c]": f"pb30 K=4 pool, 8 of {POOL} active",
+    "apply_updates_batch_tiles[f32]": f"pbf pool, 8 of {POOL} active",
+    "apply_updates_batch_tiles[f64+stop]": f"pbf pool, 8 of {POOL} active",
+    "apply_updates_batch_tiles[f32+stop]": f"pbf pool, 8 of {POOL} active",
+}
+BATCH_STOP = dict(stop_progress=0.05, patience=1)
+# Nodes of the phase's propagate_nodes runs (random branchings of the root).
+TIER_NODES = 8
+
+
+def tier_row(torch, build, got, want, fn_k, fn_p, moved, n_ops, dtype, reset=None,
+             plain_reps=3, float64_ms=None):
+    """A float form against its plain version (equal as values), timed as
+    :func:`measured_row` times a float64 kernel, its bound at the rate of
+    ``dtype``, beside the float64 form's time ``float64_ms``."""
+    flops = F64_FLOPS if dtype == torch.float64 else F32_FLOPS
+    b_ms, b_by = bound(sum(moved.values()), n_ops, flops)
+    return dict(max_abs_err=max_abs_err(torch, got, want),
+                ms=kernel_ms(torch, build, fn_k, reset=reset),
+                wrapper_ms=(call_ms(torch, fn_k, reset) if reset is not None
+                            else time_ms(torch, fn_k, reps=3, trials=3)),
+                plain_ms=time_ms(torch, fn_p, reps=1, trials=plain_reps),
+                bound_ms=b_ms, bound_by=b_by, bytes=moved, float64_ms=float64_ms)
+
+
+def log_tier_row(key, inst, r):
+    f64 = r.get("float64_ms")
+    log(f"kernel {key} on {inst}: max_abs_err={r['max_abs_err']} ms={r['ms']:.4f} "
+        f"(float64 form {'not measured' if f64 is None else f'{f64:.4f}'}) "
+        f"wrapper_ms={r['wrapper_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+        f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}, {sum(r['bytes'].values())} B: "
+        f"{r['bytes']})")
+
+
+def pool_mask(torch, n_act, dev):
+    act = torch.zeros(POOL, dtype=torch.bool, device=dev)
+    if n_act:
+        act[:: POOL // n_act] = True
+    return act
+
+
+def stream_bytes(prep, nnz: int) -> dict:
+    """Bytes of a node round's shared tile stream at the prep's widths:
+    the values at the nonzeros, the ids per nonzero (2 B + 1 B compact, 4 B
+    + 4 B else), the length and sides per chunk."""
+    d = prep.d
+    chunks = d.val.shape[0] * d.val.shape[1]
+    v = d.val.element_size()
+    return dict(val=v * nnz, col_ii=(d.col.element_size() + prep.ii_g.element_size()) * nnz,
+                rows=(4 + 2 * v) * chunks)
+
+
+def batched_tier_kernels(torch, np, rt, tk, tref, ops, build, dev, pops, pbf, prep8_64, pb30,
+                         measured):
+    """Phase 14's kernel checks.  Returns {form key: {instance: row}}."""
+    cfg = ops.DEFAULT_CONFIG
+    f32 = torch.float32
+    rows = {}
+
+    def add(key, inst, r):
+        rows.setdefault(key, {})[inst] = r
+        log_tier_row(key, inst, r)
+
+    # #8 at float32 on phase 9's fused bucket, 2 and 4 of 4 active.
+    (batch,) = ops.packed_problems(pops["fused"])
+    prep = ops.prepare_problem_batch(batch, f32, device=dev)
+    d = prep.d
+    acc = tk.accumulator_planes(d.lb0)
+    clean = lambda: (acc[0].fill_(-cfg.inf), acc[1].fill_(cfg.inf))
+    kw = dict(acc=acc, chunk_len=d.chunk_len, max_chunk_len=prep.max_chunk_len, chunks=d.chunks)
+    for n_act in (2, batch.size):
+        act_h = np.zeros(batch.size, bool)
+        act_h[:: max(1, batch.size // n_act)][:n_act] = True
+        act = torch.as_tensor(act_h, device=dev)
+        args = (d.val, d.col, d.ii_g, d.lhs_g, d.rhs_g, d.lb0, d.ub0, d.tile_inst, act,
+                prep.n_pad, cfg.int_eps)
+        clean()
+        got = tuple(x.clone() for x in tk.batched_fused_scatter_round_tiles(*args, **kw))
+        plain = lambda: tref.batched_fused_scatter_round_ref(  # noqa: E731
+            d.val, d.col_g, d.ii_g, d.lhs_g, d.rhs_g, d.lb0, d.ub0, prep.n_pad, cfg.int_eps,
+            active=act)
+        m64, nnz, _ = batched_fused_bytes(np, batch, act_h)
+        moved = dict(val=m64["val"] // 2, col_ii=m64["col_ii"], rows=m64["rows"] * 12 // 20,
+                     planes=m64["planes"] // 2, maps=m64["maps"])
+        shape = f"fused bucket, {n_act} of {batch.size} active"
+        add("batched_fused_scatter_round_tiles[f32]", shape, tier_row(
+            torch, build, got, plain(), lambda: tk.batched_fused_scatter_round_tiles(*args, **kw),
+            plain, moved, 16 * nnz, f32, reset=clean, plain_reps=1,
+            float64_ms=measured["batched_fused_scatter_round_tiles"][shape]["ms"]))
+    clean()
+
+    # The flat A', combine and E at float32 on phase 9's multi-chunk bucket
+    # (global int32 columns over the (B * n_pad,) planes).
+    (mbatch,) = ops.packed_problems(pops["multi-chunk"])
+    mprep = ops.prepare_problem_batch(mbatch, f32, device=dev)
+    md = mprep.d
+    width = mprep.size * mprep.n_pad
+    lbf, ubf = md.lb0.reshape(-1), md.ub0.reshape(-1)
+    want_p = tref.activities_gather_tiles_ref(md.val, md.col_g, lbf, ubf, width)
+    err = max_abs_err(torch, tk.activities_gather_tiles(md.val, md.col_g, lbf, ubf, width,
+                                                        chunk_len=md.chunk_len), want_p)
+    want_a = tref.combine_chunk_partials_ref(*want_p, md.chunk_row, mprep.row_start)
+    err = max(err, max_abs_err(torch, tk.combine_chunk_partials_tiles(
+        *want_p, md.chunk_row, mprep.row_start, classes=mprep.seg_classes), want_a))
+    e_args = (md.val, md.col_g, md.ii_g, *want_a, md.lhs_g, md.rhs_g, lbf, ubf, width,
+              cfg.int_eps)
+    err = max(err, max_abs_err(torch, tk.candidates_scatter_tiles(*e_args,
+                                                                  chunk_len=md.chunk_len),
+                               tref.candidates_scatter_tiles_ref(*e_args)))
+    log(f"flat A', combine and E at float32 on the multi-chunk bucket ({tuple(md.val.shape)} "
+        f"tiles, {width} columns): bitwise their plain versions (max_abs_err {err})")
+
+    # #10 at float32 on pbf (n_pad 60,032: int32 ids) and on pb30 (n_pad
+    # 30,080: the compact ids), then #9 at float32 and #9's stop forms.
+    lb_h, ub_h = node_pool(np, rt, pbf, POOL, seed=3)
+    lb30, ub30 = node_pool(np, rt, pb30, POOL, seed=3)
+    node_sets = [
+        ("pbf", rt.prepare_block_ell(pbf, tile_width=SOLVER_TILE_WIDTH, dtype=f32, device=dev),
+         (lb_h, ub_h), prep8_64),
+        ("pb30", rt.prepare_block_ell(pb30, tile_width=SOLVER_TILE_WIDTH, dtype=f32, device=dev),
+         (lb30, ub30), rt.prepare_block_ell(pb30, tile_width=SOLVER_TILE_WIDTH, device=dev)),
+    ]
+    best8 = {}
+    for name, pr, (lbh, ubh), pr64 in node_sets:
+        form = "f32c" if pr.d.col.dtype == torch.int16 else "f32"
+        lbp, ubp = ops._node_planes(pr, lbh, ubh)
+        nacc = tk.accumulator_planes(lbp)
+        sentinels = lambda nacc=nacc: (nacc[0].fill_(-cfg.inf), nacc[1].fill_(cfg.inf))
+        nnz = int((pr.d.val != 0).sum().item())
+        for n_act in (8, POOL):
+            act = pool_mask(torch, n_act, dev)
+            args = (pr.d.val, pr.d.col, pr.ii_g, pr.lhs_g, pr.rhs_g, lbp, ubp, act, pr.n_pad,
+                    cfg.int_eps)
+            nkw = dict(acc=nacc, chunk_len=pr.chunk_len, max_chunk_len=pr.max_chunk_len)
+            sentinels()
+            got = tuple(x.clone() for x in tk.node_fused_scatter_round_tiles(*args, **nkw))
+            want = tref.node_fused_scatter_round_ref(*args[:7], pr.n_pad, cfg.int_eps,
+                                                     active=act)
+            shape = f"{name} pool, {n_act} of {POOL} active"
+            if n_act != 8:
+                log(f"kernel node_fused_scatter_round_tiles[{form}] on {shape}: max_abs_err="
+                    f"{max_abs_err(torch, got, want)}")
+                continue
+            best8[name] = (want, act, lbp, ubp)
+            if name == "pbf":
+                f64 = measured["node_fused_scatter_round_tiles"][shape]["ms"]
+            else:  # the float64 form on the same pool and nodes
+                lb64, ub64 = ops._node_planes(pr64, lbh, ubh)
+                acc64 = tk.accumulator_planes(lb64)
+                a64 = (pr64.d.val, pr64.d.col, pr64.ii_g, pr64.lhs_g, pr64.rhs_g, lb64, ub64, act,
+                       pr64.n_pad, cfg.int_eps)
+                k64 = dict(acc=acc64, chunk_len=pr64.chunk_len, max_chunk_len=pr64.max_chunk_len)
+                f64 = kernel_ms(torch, build, lambda: tk.node_fused_scatter_round_tiles(
+                    *a64, **k64), reset=lambda: (acc64[0].fill_(-cfg.inf),
+                                                 acc64[1].fill_(cfg.inf)))
+            moved = dict(stream_bytes(pr, nnz), bounds=8 * n_act * pr.n_pad,
+                         out=8 * n_act * pr.n_pad)
+            add(f"node_fused_scatter_round_tiles[{form}]", shape, tier_row(
+                torch, build, got, want, lambda: tk.node_fused_scatter_round_tiles(*args, **nkw),
+                lambda: tref.node_fused_scatter_round_ref(*args[:7], pr.n_pad, cfg.int_eps,
+                                                          active=act),
+                moved, 16 * nnz * n_act, f32, reset=sentinels, plain_reps=1, float64_ms=f64))
+        sentinels()
+
+    # #9 at float32 on the pbf pool's #10 candidates, 8 active.
+    want, act, lbp, ubp = best8["pbf"]
+    eps, outward = cfg.eps_for(f32), cfg.outward_for(f32)
+    shape = f"pbf pool, 8 of {POOL} active"
+    lbw, ubw, blw, buw = lbp.clone(), ubp.clone(), want[0].clone(), want[1].clone()
+    reset = fresh_inputs(torch, [(lbw, lbp), (ubw, ubp), (blw, want[0]), (buw, want[1])])
+    got_m = tk.apply_updates_batch_tiles(lbp.clone(), ubp.clone(), want[0].clone(),
+                                         want[1].clone(), act, eps, cfg.inf, outward)
+    want_m = ops.bnd.apply_updates_batch(lbp, ubp, *want, eps, cfg.inf, outward, active=act)
+    moved = dict(merge_bytes(torch, ops.bnd, lbp, ubp, *want, eps, act, cfg.inf), flags=2 * POOL)
+    add("apply_updates_batch_tiles[f32]", shape, tier_row(
+        torch, build, got_m, want_m,
+        lambda: tk.apply_updates_batch_tiles(lbw, ubw, blw, buw, act, eps, cfg.inf, outward),
+        lambda: ops.bnd.apply_updates_batch(lbp, ubp, *want, eps, cfg.inf, outward, active=act),
+        moved, 6 * 8 * lbp.shape[1], f32, reset=reset, plain_reps=3,
+        float64_ms=measured["apply_updates_batch_tiles"][shape]["ms"]))
+    stop_rows = merge_stop_checks(torch, np, tk, tref, ops, build, dev, pbf, prep8_64,
+                                  node_sets[0][1], lb_h, ub_h)
+    for key, r in stop_rows.items():
+        add(key, shape, r)
+
+    # The node-batched A', combine and E at float32 on pbf (int32 ids) and
+    # pb30 (compact) at tile width 4.
+    for name, p, (lbh, ubh) in (("pbf", pbf, (lb_h, ub_h)), ("pb30", pb30, (lb30, ub30))):
+        pr = rt.prepare_block_ell(p, tile_width=MULTI_CHUNK_TILE_WIDTH, dtype=f32, device=dev)
+        form = "f32c" if pr.d.col.dtype == torch.int16 else "f32"
+        t, r, _ = pr.d.val.shape
+        chunks, nnz = t * r, int((pr.d.val != 0).sum().item())
+        lbp, ubp = ops._node_planes(pr, lbh, ubh)
+        for n_act in (8, POOL):
+            act = pool_mask(torch, n_act, dev)
+            shape = f"{name} K={MULTI_CHUNK_TILE_WIDTH} pool, {n_act} of {POOL} active"
+            on = lambda xs, act=act: tuple(x[act] for x in xs)
+            a_args = (pr.d.val, pr.d.col, lbp, ubp, act, pr.n_pad)
+            parts = tref.node_activities_gather_ref(*a_args)
+            got_p = tk.node_activities_gather_tiles(*a_args, chunk_len=pr.chunk_len)
+            c_args = (*parts, pr.d.chunk_row, pr.row_start, act)
+            aggs = tref.node_combine_chunk_partials_ref(*c_args)
+            got_a = tk.node_combine_chunk_partials_tiles(*c_args, classes=pr.seg_classes)
+            e_args = (pr.d.val, pr.d.col, pr.ii_g, *aggs, pr.lhs_g, pr.rhs_g, lbp, ubp, act,
+                      pr.n_pad, cfg.int_eps)
+            got_e = tk.node_candidates_scatter_tiles(*e_args, chunk_len=pr.chunk_len)
+            want_e = tref.node_candidates_scatter_ref(*e_args)
+            if n_act != 8:
+                err = max(max_abs_err(torch, on(got_p), on(parts)),
+                          max_abs_err(torch, on(got_a), on(aggs)),
+                          max_abs_err(torch, got_e, want_e))
+                log(f"kernels node_activities_gather_tiles[{form}], "
+                    f"node_combine_chunk_partials_tiles[f32], node_candidates_scatter_tiles"
+                    f"[{form}] on {shape}: max_abs_err={err}")
+                continue
+            base = lambda k: (measured[k].get(shape, {}).get("ms") if name == "pbf" else None)
+            ids = stream_bytes(pr, nnz)
+            add(f"node_activities_gather_tiles[{form}]", shape, tier_row(
+                torch, build, on(got_p), on(parts),
+                lambda: tk.node_activities_gather_tiles(*a_args, chunk_len=pr.chunk_len),
+                lambda: tref.node_activities_gather_ref(*a_args),
+                dict(val=ids["val"], col=pr.d.col.element_size() * nnz, chunk_len=4 * chunks,
+                     bounds=8 * n_act * pr.n_pad, out=16 * n_act * chunks),
+                4 * nnz * n_act, f32, float64_ms=base("node_activities_gather_tiles")))
+            if form == "f32":
+                add("node_combine_chunk_partials_tiles[f32]", shape, tier_row(
+                    torch, build, on(got_a), on(aggs),
+                    lambda: tk.node_combine_chunk_partials_tiles(*c_args,
+                                                                 classes=pr.seg_classes),
+                    lambda: tref.node_combine_chunk_partials_ref(*c_args),
+                    dict(partials=16 * n_act * chunks, row_start=8 * (pr.m + 2),
+                         classes=4 * (pr.m + 1), out=16 * n_act * chunks, mask=POOL),
+                    0, f32, float64_ms=base("node_combine_chunk_partials_tiles")))
+            else:
+                max_abs_err(torch, on(got_a), on(aggs))
+            add(f"node_candidates_scatter_tiles[{form}]", shape, tier_row(
+                torch, build, got_e, want_e,
+                lambda: tk.node_candidates_scatter_tiles(*e_args, chunk_len=pr.chunk_len),
+                lambda: tref.node_candidates_scatter_ref(*e_args),
+                dict(ids, aggregates=16 * n_act * chunks, bounds=8 * n_act * pr.n_pad,
+                     out=8 * n_act * pr.n_pad),
+                12 * nnz * n_act, f32, float64_ms=base("node_candidates_scatter_tiles")))
+    return rows
+
+
+def merge_stop_checks(torch, np, tk, tref, ops, build, dev, pbf, prep64, prep32, lb_h, ub_h):
+    """#9 with the early stop's measure, float64 and float32, on the pbf
+    pool with 8 and POOL rows active, through two rounds of a stop (the #10
+    candidates of the pool, then none: a measure of 0): bounds, flags, each
+    active row's block partials and measure bitwise the plain version's,
+    and the streak ``flat`` folded from either the same; inactive rows'
+    entries untouched, the ticket back at 0.  Timed at 8 active.  Returns
+    {form key: row}."""
+    cfg = ops.DEFAULT_CONFIG
+    out = {}
+    for dt, prep in ((torch.float64, prep64), (torch.float32, prep32)):
+        eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
+        lbp, ubp = ops._node_planes(prep, lb_h, ub_h)
+        blocks = -(-prep.n_pad // tref.MERGE_BLOCK)
+        key = f"apply_updates_batch_tiles[{'f64' if dt == torch.float64 else 'f32'}+stop]"
+        for n_act in (8, POOL):
+            act = pool_mask(torch, n_act, dev)
+            best = tref.node_fused_scatter_round_ref(
+                prep.d.val, prep.d.col, prep.ii_g, prep.lhs_g, prep.rhs_g, lbp, ubp, prep.n_pad,
+                cfg.int_eps, active=act)
+            none = (torch.full_like(lbp, -cfg.inf), torch.full_like(ubp, cfg.inf))
+            prog_k = torch.zeros(POOL, dtype=dt, device=dev)
+            prog_p = prog_k.clone()
+            part_k = torch.zeros((POOL, blocks), dtype=dt, device=dev)
+            ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+            flat_k = torch.zeros(POOL, dtype=torch.int32, device=dev)
+            flat_p = flat_k.clone()
+            lk, uk, lp, up = lbp.clone(), ubp.clone(), lbp, ubp
+            for cand in (best, none):
+                got = tk.apply_updates_batch_tiles(lk, uk, cand[0].clone(), cand[1].clone(), act,
+                                                   eps, cfg.inf, outward, progress=prog_k,
+                                                   partials=part_k, ticket=ticket)
+                new = ops.bnd.apply_updates_batch(lp, up, *cand, eps, cfg.inf, outward,
+                                                  active=act)
+                blocks_p, rows_p = tref.merge_rows_progress(lp, up, new[0], new[1])
+                prog_p = torch.where(act, rows_p, prog_p)
+                err = max_abs_err(torch, (*got, prog_k, part_k[act]),
+                                  (*new, prog_p, blocks_p[act]))
+                for flat, prog in ((flat_k, prog_k), (flat_p, prog_p)):
+                    flat.copy_(torch.where(act, torch.where(prog < BATCH_STOP["stop_progress"],
+                                                            flat + 1, 0), flat))
+                if not torch.equal(flat_k, flat_p) or int(ticket.item()) != 0:
+                    fail(f"{key}: flat or the ticket differs from the plain fold")
+                lk, uk, lp, up = got[0], got[1], new[0], new[1]
+            if bool((part_k[~act] != 0).any()) or bool((prog_k[~act] != 0).any()):
+                fail(f"{key}: an inactive row's partials or measure were written")
+            if not bool((flat_k[act] == 1).all()):
+                fail(f"{key}: the round without candidates did not count as low progress")
+            log(f"kernel {key} on pbf pool, {n_act} of {POOL} active: two rounds of a stop "
+                f"bitwise the plain version (bounds, flags, partials, measure {prog_k[act][:2]}, "
+                f"flat {flat_k[act][:2].tolist()}); max_abs_err={err}")
+            if n_act != 8:
+                continue
+            lbw, ubw = lbp.clone(), ubp.clone()
+            blw, buw = best[0].clone(), best[1].clone()
+            reset = fresh_inputs(torch, [(lbw, lbp), (ubw, ubp), (blw, best[0]), (buw, best[1])])
+            moved = dict(merge_bytes(torch, ops.bnd, lbp, ubp, *best, eps, act, cfg.inf),
+                         flags=2 * POOL, partials=2 * lbp.element_size() * n_act * blocks,
+                         measure=lbp.element_size() * n_act)
+            plain = lambda: tref.merge_rows_progress(  # noqa: E731
+                lbp, ubp, *ops.bnd.apply_updates_batch(lbp, ubp, *best, eps, cfg.inf, outward,
+                                                       active=act)[:2])
+            out[key] = tier_row(
+                torch, build, (prog_k,), (prog_p,),
+                lambda: tk.apply_updates_batch_tiles(lbw, ubw, blw, buw, act, eps, cfg.inf,
+                                                     outward, progress=prog_k, partials=part_k,
+                                                     ticket=ticket),
+                plain, moved, 16 * n_act * lbp.shape[1], dt, reset=reset)
+    out["apply_updates_batch_tiles[f32+stop]"]["float64_ms"] = (
+        out["apply_updates_batch_tiles[f64+stop]"]["ms"])
+    return out
+
+
+def check_tier_runs(torch, np, label, mode, got, base, is_int):
+    """Batched tier runs against their float64-only runs, per instance or
+    node (``got``/``base``: lists of ``(lb, ub, rounds, converged,
+    infeasible, tier_rounds)``).  Float32: never falsely infeasible (an
+    fp32 infeasible verdict only where float64 says so).  Two tiers: the
+    same verdict; where feasible, integer bounds bitwise, continuous ones
+    within F32_BAND (1 + |b|), and at least one fp32 round.  The early stop:
+    no more rounds than float64; a run the stop did not cut (converged)
+    bitwise the float64 run.  Returns the largest relative gap."""
+    is_int = np.asarray(is_int, bool)
+    gap = 0.0
+    for i, (g, b) in enumerate(zip(got, base)):
+        g_lb, g_ub, g_rounds, g_conv, g_inf, g_tier = g
+        b_lb, b_ub, b_rounds, _, b_inf, _ = b
+        where = f"{label} #{i}"
+        if mode == "float32" and bool(g_inf) and not bool(b_inf):
+            fail(f"{where}: float32 infeasible where float64 is feasible")
+        if mode == "early stop":
+            if int(g_rounds) > int(b_rounds):
+                fail(f"{where}: the early stop ran past the float64 run's rounds")
+            if bool(g_conv) and not (int(g_rounds) == int(b_rounds) and torch.equal(g_lb, b_lb)
+                                     and torch.equal(g_ub, b_ub)):
+                fail(f"{where}: a run the stop did not cut differs from the float64 run")
+        if mode != "two-tier":
+            continue
+        if bool(g_inf) != bool(b_inf):
+            fail(f"{where}: infeasible {bool(g_inf)} != float64-only {bool(b_inf)}")
+        if bool(b_inf):
+            continue
+        if int(g_tier) < 1:
+            fail(f"{where}: no fp32 round ran")
+        for t, w in ((g_lb, b_lb), (g_ub, b_ub)):
+            t, w = t.double().cpu().numpy(), w.double().cpu().numpy()
+            if not np.array_equal(t[is_int], w[is_int]):
+                fail(f"{where}: integer bounds differ from the float64-only run")
+            rel = np.abs(t - w) / (1.0 + np.abs(w))
+            if (rel > F32_BAND).any():
+                fail(f"{where}: continuous bounds off by {rel.max():.3e} relative")
+            gap = max(gap, float(rel.max(initial=0.0)))
+    return gap
+
+
+def same_results(torch, label, got, want, fields):
+    for i, (g, w) in enumerate(zip(got, want)):
+        for f in fields:
+            a, b = getattr(g, f), getattr(w, f)
+            if isinstance(a, torch.Tensor) and a.is_floating_point():
+                ok = torch.equal(a.isnan(), b.isnan()) and torch.equal(a.nan_to_num(),
+                                                                      b.nan_to_num())
+            else:
+                ok = torch.equal(torch.as_tensor(a), torch.as_tensor(b))
+            if not ok:
+                fail(f"{label}: #{i} {f} differs from the plain float path")
+
+
+def batch_tiers_phase(torch, np, rt, tk, tref, ops, build, dev, pops, pbf, prep8_64, probs13,
+                      results, measured):
+    """Phase 14: the precision tiers on the batched engines.  The float32
+    forms of #8, #9, #10 and the node-batched A', combine and E and #9's
+    early-stop forms against their plain versions, timed; then, with the
+    launch counters at zero, propagate_batch, propagate_nodes and a short
+    service stream at float32, under TierPolicy() and with the early stop,
+    against the plain path (bitwise) and the float64-only runs.  Returns
+    ({form key: (row, instance)}, {form key: launches on the phase's
+    main-path runs})."""
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    pb30 = probs13["pb30"]
+    rows = batched_tier_kernels(torch, np, rt, tk, tref, ops, build, dev, pops, pbf, prep8_64,
+                                pb30, measured)
+    policy = rt.core.TierPolicy()
+    fields = ("lb", "ub", "rounds", "converged", "infeasible", "progress", "tier_rounds")
+    modes_kw = {"float32": dict(dtype=f32), "two-tier": dict(policy=policy),
+                "early stop": dict(BATCH_STOP)}
+    launches = {}
+
+    def main_path(fn):
+        """Run one main-path call, adding its launches by form."""
+        before = tk.form_counts()
+        out = fn()
+        for k, v in tk.form_counts().items():
+            launches[k] = launches.get(k, 0) + v - before.get(k, 0)
+        return out
+
+    # propagate_batch on phase 9's fused and multi-chunk buckets.
+    for bucket, modes in (("fused", ("float32", "two-tier", "early stop")),
+                          ("multi-chunk", ("float32",))):
+        pop = pops[bucket]
+        base = rt.propagate_batch(pop, device=dev)
+        for mode in modes:
+            kw = modes_kw[mode]
+            got = main_path(lambda: rt.propagate_batch(pop, device=dev, **kw))
+            plain = rt.propagate_batch(pop, device=dev, use_kernels=False, **kw)
+            label = f"batch {bucket} {mode}"
+            same_results(torch, label, got, plain, fields)
+            for p, g, b in zip(pop, got, base):
+                check_tier_runs(torch, np, label, mode,
+                                [(g.lb, g.ub, g.rounds, g.converged, g.infeasible,
+                                  g.tier_rounds)],
+                                [(b.lb, b.ub, b.rounds, b.converged, b.infeasible,
+                                  b.tier_rounds)], p.is_int)
+            log(f"{label}: rounds {[int(r.rounds) for r in got]} (float64-only "
+                f"{[int(r.rounds) for r in base]}), tier_rounds "
+                f"{[int(r.tier_rounds) for r in got]}, converged "
+                f"{[bool(r.converged) for r in got]}, infeasible "
+                f"{[bool(r.infeasible) for r in got]} (float64-only "
+                f"{[bool(r.infeasible) for r in base]}); bitwise the plain path")
+    # propagate_nodes on pbf (int32 ids) and pb30 (compact), at the solver's
+    # tile width and at the multi-chunk width.
+    node_runs = [("pbf", pbf, SOLVER_TILE_WIDTH, ("float32", "two-tier", "early stop")),
+                 ("pb30", pb30, SOLVER_TILE_WIDTH, ("float32",)),
+                 ("pbf", pbf, MULTI_CHUNK_TILE_WIDTH, ("float32",)),
+                 ("pb30", pb30, MULTI_CHUNK_TILE_WIDTH, ("float32",))]
+    for name, p, tw, modes in node_runs:
+        lb, ub = node_pool(np, rt, p, TIER_NODES, seed=5)
+        base = rt.propagate_nodes(p, lb, ub, tile_width=tw, device=dev)
+        zeros = torch.zeros(TIER_NODES, dtype=torch.int32)
+        for mode in modes:
+            kw = modes_kw[mode]
+            got = main_path(lambda: rt.propagate_nodes(p, lb, ub, tile_width=tw, device=dev,
+                                                       **kw))
+            plain = rt.propagate_nodes(p, lb, ub, tile_width=tw, device=dev, use_kernels=False,
+                                       **kw)
+            label = f"nodes {name} K={tw} {mode}"
+            same_results(torch, label, [got], [plain], fields[:-1])
+            if not torch.equal(torch.as_tensor(got.tier_rounds).cpu(),
+                               torch.as_tensor(plain.tier_rounds).cpu()):
+                fail(f"{label}: tier_rounds differ from the plain path")
+            tr = got.tier_rounds if mode == "two-tier" else zeros
+            gap = check_tier_runs(
+                torch, np, label, mode,
+                list(zip(got.lb, got.ub, got.rounds, got.converged, got.infeasible, tr)),
+                list(zip(base.lb, base.ub, base.rounds, base.converged, base.infeasible, zeros)),
+                p.is_int)
+            log(f"{label}: {TIER_NODES} nodes, rounds {got.rounds.tolist()} (float64-only "
+                f"{base.rounds.tolist()}), infeasible {int(got.infeasible.sum())} (float64-only "
+                f"{int(base.infeasible.sum())}); bitwise the plain path; largest continuous "
+                f"gap {gap:.3e}")
+    # Walls of the fused batch and the pbf nodes by variant, every variant
+    # once per trial in an order that rotates between trials.
+    nodes_pbf = node_pool(np, rt, pbf, TIER_NODES, seed=5)
+    walls = [(label, kind, kw) for kind in ("batch fused", "nodes pbf")
+             for label, kw in (("float64", {}), *modes_kw.items())]
+    samples = {}
+    for trial in range(TIER_TRIALS):
+        order = walls[trial % len(walls):] + walls[: trial % len(walls)]
+        for label, kind, kw in order:
+            run = (lambda kw=kw: rt.propagate_batch(pops["fused"], device=dev, **kw)) if (
+                kind == "batch fused") else (lambda kw=kw: rt.propagate_nodes(
+                    pbf, *nodes_pbf, tile_width=SOLVER_TILE_WIDTH, device=dev, **kw))
+            samples.setdefault((kind, label), []).append(wall_ms(torch, run))
+    for kind in ("batch fused", "nodes pbf"):
+        cells = ", ".join(f"{label} {statistics.median(samples[kind, label]):.3f}"
+                          for label in ("float64", *modes_kw))
+        log(f"tier walls {kind} (ms, medians of {TIER_TRIALS}): {cells}")
+    # A short service stream (one multi-chunk bucket: mixed, mixed1, pb,
+    # banded through 2 slots) at float32 and with the early retire.
+    stream = pops["multi-chunk"] + pops["fused"][:1] + pops["fused"][2:3]
+    specs = rt.BucketSpec.for_problems(stream, slots=2)
+    spec_of = [next(s for s in specs if s.fits_problem(p)) for p in stream]
+    for mode, kw in (("float32", dict(dtype=f32)), ("early retire", dict(BATCH_STOP))):
+        svc = rt.PropagationService(specs, rounds_per_step=SERVICE_ROUNDS_PER_STEP, device=dev,
+                                    **kw)
+        t = time.perf_counter()
+        out = main_path(lambda: svc.serve(stream))
+        wall = time.perf_counter() - t
+        for i, (p, s, r) in enumerate(zip(stream, spec_of, out)):
+            one = rt.propagate_batch([p], tile_width=s.tile_width, device=dev, **kw)[0]
+            for f in ("lb", "ub", "rounds", "converged", "infeasible"):
+                if not torch.equal(getattr(r, f), getattr(one, f).cpu()):
+                    fail(f"service {mode}: ticket {i} {f} differs from the one-shot batch")
+        st = svc.stats()
+        early = sum(1 for r in out if not bool(r.converged)
+                    and int(r.rounds) < rt.core.DEFAULT_CONFIG.max_rounds)
+        if st["early_stopped"] != (early if mode == "early retire" else 0):
+            fail(f"service {mode}: early_stopped {st['early_stopped']}, evidence {early}")
+        if mode == "early retire" and early < 1:
+            fail("service early retire: no slot retired early")
+        log(f"service {mode}: {len(stream)} requests (tile width {specs[0].tile_width}, "
+            f"fits_one_chunk {specs[0].fits_one_chunk}), rounds {[int(r.rounds) for r in out]}, "
+            f"converged {[bool(r.converged) for r in out]}, early_stopped "
+            f"{st['early_stopped']}, wall {wall * 1e3:.1f} ms; every ticket bitwise its "
+            "one-shot batch")
+    log(f"phase 14 launches by form: {json.dumps(launches)}")
+    missing = [k for k in BATCH_TIER_PRIMARY if launches.get(k, 0) <= 0]
+    if missing:
+        fail(f"the batched tiers' runs never launched {missing}")
+    out_rows = {key: (rows[key][inst], inst) for key, inst in BATCH_TIER_PRIMARY.items()}
+    for key, (r, _) in out_rows.items():
+        r["max_abs_err"] = max(v["max_abs_err"] for v in rows[key].values())
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return out_rows, {key: launches.get(key, 0) for key in BATCH_TIER_PRIMARY}
 
 
 def main() -> int:

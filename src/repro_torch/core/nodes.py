@@ -11,21 +11,22 @@ infeasibility reported for pruning.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Callable, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
-from .propagator import TIERS_REMAINDER, check_float64, not_ported
+from .propagator import not_ported, two_tier_bounds_dtypes
 from .sparse import Problem
-from .types import DEFAULT_CONFIG, PropagationResult, PropagatorConfig
+from .types import DEFAULT_CONFIG, INF, PropagationResult, PropagatorConfig, TierPolicy
 
 
 class NodeBatchResult(NamedTuple):
     """Per-node results of one node-batch propagation (node axis leading).
-    ``tier_rounds``, ``telemetry`` and ``fp32_telemetry`` belong to the
-    precision tiers and the telemetry plane, not ported yet: always None."""
+    ``telemetry`` and ``fp32_telemetry`` belong to the telemetry plane (item
+    6), not ported yet: always None."""
 
     lb: torch.Tensor          # (B, n) propagated lower bounds
     ub: torch.Tensor          # (B, n) propagated upper bounds
@@ -33,7 +34,7 @@ class NodeBatchResult(NamedTuple):
     converged: torch.Tensor   # (B,) bool
     infeasible: torch.Tensor  # (B,) bool: domain emptied -> prune this node
     progress: torch.Tensor | None = None  # (B,) last-round progress measure
-    tier_rounds: object = None
+    tier_rounds: object = 0   # (B,) int32 fp32-tier rounds (two-tier runs), else 0
     telemetry: object = None
     fp32_telemetry: object = None
 
@@ -131,7 +132,7 @@ def propagate_nodes(
     slab: int | None = None,
     stop_progress: float | None = None,
     patience: int = 1,
-    policy=None,
+    policy: TierPolicy | None = None,
     telemetry: int | None = None,
     device="cuda",
     on_sync: Callable[[], None] | None = None,
@@ -151,19 +152,55 @@ def propagate_nodes(
     ``use_kernels=False`` runs the kernels' plain PyTorch versions.
     ``device`` defaults to CUDA and raises where there is none.  ``on_sync``
     is called once per host read of the loop's exit flag (one per round).
-    Float64 only; ``stop_progress``/``patience``, ``policy`` and
-    ``telemetry`` raise ``NotImplementedError``."""
+    ``dtype`` is float64 (the default) or float32.  ``stop_progress``/
+    ``patience`` arm the per-node early stop; ``policy`` (a
+    :class:`TierPolicy`) runs the frontier through the two tiers, as the
+    reference's (src/repro/core/nodes.py:203-241): a float32 pass of at
+    most ``max(1, int(max_rounds * fp32_round_frac))`` rounds stopped per
+    node below ``switch_progress``, per-node promotion by an exact cast
+    with the infinite sentinels restored (a node with an fp32 infeasible
+    verdict restarts from its original bounds, its ``tier_rounds`` 0), and
+    the endgame of at most ``max(1, max_rounds - cap)`` rounds in
+    ``dtype``; ``rounds`` includes ``tier_rounds``.  Float32 or the early
+    stop past ``SCATTER_MAX_NPAD`` (item 5, remainder) and ``telemetry``
+    (item 6) raise ``NotImplementedError``."""
     from ..kernels.ops import prepare_block_ell, propagate_nodes_prepared
 
-    if policy is not None or stop_progress is not None or patience != 1:
-        not_ported("policy= / stop_progress= / patience= on node batches", TIERS_REMAINDER)
     if telemetry is not None:
         not_ported("telemetry=", "item 6 (observability)")
-    check_float64(dtype, "node batches")
+    run = dict(use_kernels=use_kernels, with_progress=True, on_sync=on_sync, slab=slab)
+    pair = two_tier_bounds_dtypes(policy, dtype) if policy is not None else None
+    if pair is not None:
+        dt32, final = pair
+        cap32 = max(1, int(cfg.max_rounds * policy.fp32_round_frac))
+        prep32 = prepare_block_ell(p, tile_rows, tile_width, dt32, device)
+        lb32, ub32, r32, _, inf32, _ = propagate_nodes_prepared(
+            prep32, lb_nodes, ub_nodes, dataclasses.replace(cfg, max_rounds=cap32),
+            stop_progress=policy.switch_progress, patience=policy.patience, **run,
+        )
+        # Per-node promotion in float64; a node whose fp32 tier declared
+        # infeasibility restarts from its original bounds.
+        dev = lb32.device
+        bad = inf32[:, None]
+        as64 = lambda x: torch.as_tensor(x, dtype=torch.float64, device=dev)
+        warm_lb = torch.where(bad, as64(lb_nodes), lb32.to(torch.float64))
+        warm_ub = torch.where(bad, as64(ub_nodes), ub32.to(torch.float64))
+        warm_lb = torch.where(warm_lb <= -INF, -INF, warm_lb)
+        warm_ub = torch.where(warm_ub >= INF, INF, warm_ub)
+        r32 = torch.where(inf32, 0, r32).to(torch.int32)
+        rem = dataclasses.replace(cfg, max_rounds=max(1, cfg.max_rounds - cap32))
+        prep = prepare_block_ell(p, tile_rows, tile_width, final, device)
+        lb, ub, rounds, converged, infeasible, progress = propagate_nodes_prepared(
+            prep, warm_lb, warm_ub, rem, stop_progress=policy.stop_progress,
+            patience=policy.patience, **run,
+        )
+        return NodeBatchResult(lb, ub, rounds + r32, converged, infeasible, progress=progress,
+                               tier_rounds=r32)
+    if policy is not None:
+        stop_progress, patience = policy.stop_progress, policy.patience
     prep = prepare_block_ell(p, tile_rows, tile_width, dtype, device)
     lb, ub, rounds, converged, infeasible, progress = propagate_nodes_prepared(
-        prep, lb_nodes, ub_nodes, cfg, use_kernels=use_kernels, with_progress=True,
-        on_sync=on_sync, slab=slab,
+        prep, lb_nodes, ub_nodes, cfg, stop_progress=stop_progress, patience=patience, **run,
     )
     return NodeBatchResult(lb, ub, rounds, converged, infeasible, progress=progress)
 

@@ -24,7 +24,10 @@ Loop drivers (paper §3.7 / App. C), as the reference's:
 
 Every host read is reported to ``on_sync``.  The batched fixed point
 (``batched_fixed_point``, the node engine's, the solver's and the service's
-loop) still reads its ``active.any()`` flag on the host once per round.
+loop) still reads its ``active.any()`` flag on the host once per round; its
+per-row early stop (``stop_progress``) follows the reference's loop body,
+each row's measure taken by the round's merge (#9) where the round closure
+is ``measured``.
 
 The precision tiers (the reference's, src/repro/core/propagator.py:595):
 every driver takes the progress-based early stop (``stop_progress``,
@@ -87,8 +90,9 @@ def resolve_device(device) -> torch.device:
 
 
 # The part of ROADMAP Queue 1 item 5 (precision tiers) still to port: float32
-# on the batched, node, service, segment and partitioned engines, the
-# service's early retire, and every value type but float32 and float64.
+# on the segment and partitioned engines (the batched and node rounds past
+# SCATTER_MAX_NPAD included), the early stop on the partitioned engine, and
+# every value type but float32 and float64.
 TIERS_REMAINDER = "item 5, remainder"
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32, "float16": torch.float16,
@@ -118,14 +122,6 @@ def check_dtype(dtype) -> torch.dtype:
         f"dtype={dtype!r}: float64 and float32 are ported; other value types are "
         f"ROADMAP Queue 1 {TIERS_REMAINDER}"
     )
-
-
-def check_float64(dtype, what: str) -> torch.dtype:
-    """:func:`check_dtype`, for an engine that runs float64 only so far."""
-    dt = check_dtype(dtype)
-    if dt != torch.float64:
-        not_ported(f"dtype={dt} on {what}", TIERS_REMAINDER)
-    return dt
 
 
 class DeviceProblem:
@@ -382,9 +378,45 @@ def _batched_rounds(
     return lb, ub, active, last_changed, rounds, progress
 
 
-def _check_batched_options(stop_progress, patience, plane):
-    if stop_progress is not None or patience != 1:
-        not_ported("stop_progress= / patience= on the batched fixed point", TIERS_REMAINDER)
+def _batched_stop_rounds(
+    round_fn, lb, ub, active, last_changed, rounds, max_rounds: int, *, stop: EarlyStop,
+    progress, flat, on_sync, budget: int | None = None,
+):
+    """The loop of :func:`batched_step_rounds` with the per-row early stop
+    armed: the reference's loop body (src/repro/core/propagator.py:388-414).
+    Every round measures each active row's progress: by the round's merge
+    where ``round_fn`` is ``measured`` (it takes ``progress=``, a ``(B,)``
+    tensor, and writes the active rows' measures into it: #9's kernel, or
+    its plain version in the same order), else from copies of the planes
+    (:func:`bounds.progress_measure`).  Then, as ``(B,)`` operations on the
+    device, ``flat = where(active, where(prog < stop, flat + 1, 0), flat)``
+    and ``active &= changed & (rounds < max_rounds) & (flat < patience)``;
+    one host read of ``active.any()`` a round.  Returns the state and
+    ``(progress, flat)``."""
+    measured = getattr(round_fn, "measured", False)
+    progress = progress.clone()
+    k = 0
+    while True:
+        if measured:
+            lb, ub, changed = round_fn(lb, ub, active, progress=progress)
+        else:
+            lb_in, ub_in = lb.clone(), ub.clone()
+            lb, ub, changed = round_fn(lb, ub, active)
+            progress = torch.where(active, bnd.progress_measure(lb_in, ub_in, lb, ub), progress)
+        rounds = rounds + active.to(rounds.dtype)
+        last_changed = torch.where(active, changed, last_changed)
+        flat = torch.where(active, torch.where(progress < stop.progress, flat + 1, 0), flat)
+        active = active & changed & (rounds < max_rounds) & (flat < stop.patience)
+        k += 1
+        go = bool(active.any())
+        if on_sync is not None:
+            on_sync()
+        if not go or (budget is not None and k >= budget):
+            break
+    return lb, ub, active, last_changed, rounds, progress, flat
+
+
+def _check_plane(plane):
     if plane is not None:
         not_ported("plane=", "item 6 (observability)")
 
@@ -413,12 +445,20 @@ def batched_step_rounds(
     bit, so a fixed point chunked by any budget ends where one call does,
     progress included.  This is the service's bounded step.
 
+    ``stop_progress``/``patience`` arm the per-row early stop, as the
+    reference's: a row whose round's progress measure stays below
+    ``stop_progress`` for ``patience`` consecutive rounds drops out of
+    ``active`` with ``last_changed`` still true (stopped, not converged);
+    every round a row runs is then measured, and ``(progress, flat)`` are
+    carried as the rest of the state (:func:`_batched_stop_rounds`).
+
     The loop reads ``active.any()`` on the host once per round, reported to
-    ``on_sync``; with ``with_progress`` one more read takes the incoming
-    round counts.  ``stop_progress=``/``patience=`` and ``plane=`` are not
-    ported yet and raise ``NotImplementedError``."""
+    ``on_sync``; without a stop, ``with_progress`` takes one more read of
+    the incoming round counts.  ``plane=`` (item 6) raises
+    ``NotImplementedError``."""
     del feas_eps  # the telemetry probe's tolerance; telemetry is not ported
-    _check_batched_options(stop_progress, patience, plane)
+    _check_plane(plane)
+    stop = early_stop(stop_progress, patience)
     bsz = lb.shape[0]
     if progress is None:
         progress = torch.full((bsz,), math.nan, dtype=lb.dtype, device=lb.device)
@@ -427,6 +467,11 @@ def batched_step_rounds(
     if budget is not None and budget < 1:
         out = (lb, ub, active, last_changed, rounds)
         return out + (progress, flat) if with_progress else out
+    if stop is not None:
+        out = _batched_stop_rounds(round_fn, lb, ub, active, last_changed, rounds, max_rounds,
+                                   stop=stop, progress=progress, flat=flat, on_sync=on_sync,
+                                   budget=budget)
+        return out if with_progress else out[:5]
     rounds_hi = 0
     if with_progress:
         rounds_hi = int(torch.where(active, rounds, 0).max())
@@ -459,15 +504,27 @@ def batched_fixed_point(
     rows from the start.
 
     Returns ``(lb, ub, rounds, converged)``; ``with_progress=True`` appends
-    the per-row last-round progress measure.  One host read of
-    ``active.any()`` per round, reported to ``on_sync``."""
+    the per-row last-round progress measure.  ``stop_progress``/
+    ``patience`` arm the per-row early stop (:func:`batched_step_rounds`):
+    a stopped row reports ``converged=False`` at ``rounds < max_rounds``.
+    One host read of ``active.any()`` per round, reported to
+    ``on_sync``."""
     del feas_eps
-    _check_batched_options(stop_progress, patience, plane)
+    _check_plane(plane)
     bsz = lb0.shape[0]
     dev = lb0.device
     if active0 is None:
         active0 = torch.ones((bsz,), dtype=torch.bool, device=dev)
     progress = torch.full((bsz,), math.nan, dtype=lb0.dtype, device=dev)
+    stop = early_stop(stop_progress, patience)
+    if stop is not None:
+        lb, ub, _, last_changed, rounds, progress, _ = _batched_stop_rounds(
+            round_fn, lb0, ub0, active0, active0,
+            torch.zeros((bsz,), dtype=torch.int32, device=dev), max_rounds, stop=stop,
+            progress=progress, flat=torch.zeros((bsz,), dtype=torch.int32, device=dev),
+            on_sync=on_sync,
+        )
+        return (lb, ub, rounds, ~last_changed) + ((progress,) if with_progress else ())
     lb, ub, _, last_changed, rounds, progress = _batched_rounds(
         round_fn, lb0, ub0, active0, active0,
         torch.zeros((bsz,), dtype=torch.int32, device=dev), max_rounds,
@@ -509,8 +566,10 @@ def propagate_batch(
     and runners are cached on the identity of the problem list
     (``kernels.cache_info()``).  ``use_kernels=False`` runs the kernels'
     plain versions.  ``device`` defaults to CUDA and raises where there is
-    none.  ``policy=``, ``stop_progress=``, ``patience != 1`` and
-    ``telemetry=`` raise ``NotImplementedError``.  See
+    none.  ``dtype`` is float64 (the default) or float32;
+    ``stop_progress``/``patience`` arm the per-instance early stop and
+    ``policy`` (a :class:`TierPolicy`) the two tiers (``tier_rounds`` per
+    instance).  ``telemetry=`` raises ``NotImplementedError``.  See
     ``kernels.ops.propagate_batch_block_ell``."""
     from ..kernels.ops import propagate_batch_block_ell  # lazy: kernels imports core
 
@@ -537,15 +596,6 @@ def _result(lb, ub, rounds, changed, prog, feas_eps) -> PropagationResult:
 
 def not_ported(name: str, entry: str):
     raise NotImplementedError(f"{name} is not ported yet: ROADMAP Queue 1 {entry}")
-
-
-def _refuse_options(stop_progress, patience, telemetry, policy=None) -> None:
-    """The options the batched and node engines do not take yet."""
-    if policy is not None or stop_progress is not None or patience != 1:
-        not_ported("policy= / stop_progress= / patience= on the batched engines",
-                   TIERS_REMAINDER)
-    if telemetry is not None:
-        not_ported("telemetry=", "item 6 (observability)")
 
 
 def _refuse_telemetry(telemetry) -> None:

@@ -34,12 +34,19 @@ order, a long row's chunks left to right), and the budgeted step is
 resumable bit for bit, so co-residents and step boundaries cannot change
 an instance's arithmetic.
 
+Precision tiers (the reference's, src/repro/core/service.py:580-606): the
+whole service runs at ``dtype=np.float32`` (the engines widen the merge
+outward), and ``stop_progress``/``patience`` arm the progress-based early
+retire: a slot whose per-round progress measure stays below
+``stop_progress`` for ``patience`` rounds drops out of the occupancy mask
+inside the step and retires stopped, not converged (``stats()`` counts
+``early_stopped``).
+
 Observability: a host-side tracer (``obs.trace``) emits
 pump/admit/step/readback spans and one ``ticket`` span per request, and
 ``stats()`` carries a metrics-registry snapshot (``obs.metrics``).  The
-device telemetry plane (``telemetry=``) and the progress-based early
-retire (``stop_progress=``) are ROADMAP Queue 1 items 6 and 5; the
-resident state keeps their entries, zero-width or idle.
+device telemetry plane (``telemetry=``) is ROADMAP Queue 1 item 6; the
+resident state keeps its entries, zero-width or idle.
 """
 from __future__ import annotations
 
@@ -54,13 +61,7 @@ import torch
 
 from ..obs.metrics import default_registry
 from ..obs.trace import NULL_TRACER
-from .propagator import (
-    TIERS_REMAINDER,
-    batched_step_rounds,
-    check_float64,
-    not_ported,
-    resolve_device,
-)
+from .propagator import batched_step_rounds, check_dtype, not_ported, resolve_device
 from .sparse import Problem, SlotPayload, col_pad, pack_into_slot
 from .types import DEFAULT_CONFIG, PropagationResult, PropagatorConfig
 
@@ -78,7 +79,7 @@ from .types import DEFAULT_CONFIG, PropagationResult, PropagatorConfig
 #   9 last_changed (slots,) bool      convergence evidence (as in fixed point)
 #  10 rounds (slots,) int32           per-slot rounds executed
 #  11 progress (slots,)               last round's progress measure (NaN fresh)
-#  12 flat   (slots,) int32           consecutive low-progress rounds (item 5)
+#  12 flat   (slots,) int32           consecutive low-progress rounds (the early retire)
 #  13 ring   (slots, 0)               telemetry progress rings (item 6: zero-width)
 #  14 ticks  (slots,) int32           telemetry rounds recorded per slot
 #  15 stop_round (slots,) int32       early-stop round latch (-1 = never)
@@ -314,20 +315,26 @@ class _BucketEngine:
     into accumulator planes the engine keeps (``kept``, one pair per thread,
     shared by the buckets of its shape: #9 hands the rows #8 scattered into
     back at the sentinels, so every round finds them clean; a round that
-    raises drops them)."""
+    raises drops them).  The engine runs at ``dtype`` (float64 or float32:
+    tiles, bounds and the round's eps and outward widening); with
+    ``stop_progress`` its step arms the per-slot early stop, #9 measuring
+    every round (its partials kept with the planes)."""
 
     builds: "dict[tuple, int]" = {}
 
     def __init__(self, spec: "BucketSpec", cfg: PropagatorConfig, rounds_per_step: int,
-                 use_kernels: bool, device: torch.device, key: tuple):
+                 use_kernels: bool, device: torch.device, key: tuple,
+                 dtype: torch.dtype = torch.float64, stop_progress: float | None = None,
+                 patience: int = 1):
         from ..kernels import ops as kops, ref as kref  # lazy: kernels imports core
 
         self.spec, self.cfg, self.device, self.key = spec, cfg, device, key
         self.rounds_per_step = rounds_per_step
+        self.dtype, self.stop_progress, self.patience = dtype, stop_progress, patience
         self._lock = threading.RLock()
         self.warmed = False
         s, t, r, k = spec.slots, spec.slot_tiles, spec.tile_rows, spec.tile_width
-        dt = torch.float64
+        dt = dtype
         n_pad, eps, int_eps, inf = spec.n_pad, cfg.eps_for(dt), cfg.int_eps, cfg.inf
         outward = cfg.outward_for(dt)
         ti = torch.arange(s, dtype=torch.int32, device=device).repeat_interleave(t)
@@ -350,7 +357,7 @@ class _BucketEngine:
         slot_chunks = torch.arange(s + 1, dtype=torch.int64, device=device) * (t * r)
         self.kept = kops.KeptPlanes(inf)
 
-        def round_fn(state, aux, lb, ub, act):
+        def round_fn(state, aux, lb, ub, act, progress=None):
             col_g, seg, seg_start, _, clen, classes, max_len = aux
             row_start = None if seg_start is None else seg_start[:-1]
             return kops.batched_reference_round(
@@ -358,6 +365,7 @@ class _BucketEngine:
                 lb, ub, act, n_pad=n_pad, fits_one_chunk=spec.fits_one_chunk, eps=eps,
                 int_eps=int_eps, inf=inf, kept=self.kept, outward=outward, ops=ops,
                 chunk_len=clen, max_chunk_len=max_len[0], chunks=slot_chunks, classes=classes,
+                progress=progress,
             )
 
         self.round_fn = self.kept.guard(round_fn)
@@ -376,7 +384,7 @@ class _BucketEngine:
         current at each admission."""
         spec, dev = self.spec, self.device
         s, t, r, k = spec.slots, spec.slot_tiles, spec.tile_rows, spec.tile_width
-        dt = torch.float64
+        dt = self.dtype
         z = lambda shape, d=dt: torch.zeros(shape, dtype=d, device=dev)
         dummy = torch.arange(s, dtype=torch.int32, device=dev) * (spec.slot_rows + 1)
         dummy += spec.slot_rows
@@ -465,11 +473,17 @@ class _BucketEngine:
 
     def step(self, state: list, aux: tuple, on_sync: Callable[[], None] | None = None) -> None:
         """Up to ``rounds_per_step`` occupancy-masked rounds over the
-        resident state, in place (bounds and loop state)."""
+        resident state, in place (bounds and loop state), with the early
+        stop where the engine arms one."""
         planes = state[_LB:_FLAT + 1]
+
+        def round_fn(lb, ub, act, **kw):
+            return self.round_fn(state, aux, lb, ub, act, **kw)
+
+        round_fn.measured = True
         out = batched_step_rounds(
-            lambda lb, ub, act: self.round_fn(state, aux, lb, ub, act),
-            *planes[:5], self.cfg.max_rounds, budget=self.rounds_per_step,
+            round_fn, *planes[:5], self.cfg.max_rounds, budget=self.rounds_per_step,
+            stop_progress=self.stop_progress, patience=self.patience,
             progress=planes[5], flat=planes[6], with_progress=True, on_sync=on_sync,
         )
         for dst, src in zip(planes, out):
@@ -513,13 +527,17 @@ def _engine_lru():
         return _engine_cache
 
 
-def _get_engine(spec, cfg, rounds_per_step, use_kernels, device) -> _BucketEngine:
-    """Fetch-or-build the warmed engine of one bucket shape."""
-    key = (spec, dataclasses.astuple(cfg), rounds_per_step, use_kernels, str(device))
+def _get_engine(spec, cfg, rounds_per_step, use_kernels, device, dtype=torch.float64,
+                stop_progress=None, patience=1) -> _BucketEngine:
+    """Fetch-or-build the warmed engine of one bucket shape, dtype and early
+    stop."""
+    key = (spec, dataclasses.astuple(cfg), rounds_per_step, use_kernels, str(device), str(dtype),
+           stop_progress, patience)
     lru = _engine_lru()
     eng = lru.get(key, ())
     if eng is None:
-        eng = _BucketEngine(spec, cfg, rounds_per_step, use_kernels, device, key)
+        eng = _BucketEngine(spec, cfg, rounds_per_step, use_kernels, device, key, dtype,
+                            stop_progress, patience)
         lru.put(key, (), eng)
     eng.warm()
     return eng
@@ -562,10 +580,16 @@ class PropagationService:
     ``device`` defaults to CUDA and raises where there is none;
     ``use_kernels=False`` runs the kernels' plain versions.  ``on_sync`` is
     called for every host read of a flag: each round of a step reads
-    ``active.any()`` (and each step once more for the round counts), and
-    each pump reads a stepped bucket's ``active`` mask once.
-    ``stop_progress=``/``patience != 1`` (item 5) and ``telemetry=`` (item
-    6) raise ``NotImplementedError``.
+    ``active.any()`` (and, without an early stop, each step once more for
+    the round counts), and each pump reads a stepped bucket's ``active``
+    mask once.  ``dtype`` is float64 (the default) or float32 (the whole
+    service's fp32 tier; payloads are packed at it).  ``stop_progress``/
+    ``patience`` arm the early retire: a slot whose progress measure stays
+    below ``stop_progress`` for ``patience`` rounds retires stopped, not
+    converged, counted in ``stats()["early_stopped"]`` (a retired slot with
+    ``last_changed`` set and ``rounds < max_rounds``).  There is no
+    per-slot tier promotion (no ``policy=``), as in the reference.
+    ``telemetry=`` (item 6) raises ``NotImplementedError``.
 
     Observability: ``tracer`` (an ``obs.trace.Tracer``) records a span for
     every pump/admit/step/readback plus one ``ticket`` span per retired
@@ -591,11 +615,11 @@ class PropagationService:
     ):
         if not specs:
             raise ValueError("PropagationService needs at least one BucketSpec")
-        if stop_progress is not None or patience != 1:
-            not_ported("stop_progress= / patience= (the service's early retire)", TIERS_REMAINDER)
         if telemetry:
             not_ported("telemetry=", "item 6 (observability)")
-        check_float64(dtype, "the service")
+        self._dtype = check_dtype(dtype)
+        self._np_dtype = np.float32 if self._dtype == torch.float32 else np.float64
+        self._stop_progress = stop_progress
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             # The pump thread selects this card by index (``start``).
@@ -610,7 +634,8 @@ class PropagationService:
         self._thread: threading.Thread | None = None
         self._submitted = 0
         self._buckets = [
-            _Bucket(spec, _get_engine(spec, cfg, rounds_per_step, use_kernels, self._device))
+            _Bucket(spec, _get_engine(spec, cfg, rounds_per_step, use_kernels, self._device,
+                                      self._dtype, stop_progress, patience))
             for spec in specs
         ]
         self.metrics = default_registry()
@@ -654,7 +679,7 @@ class PropagationService:
                 raise ValueError("submit() needs a problem or a payload")
             for bk in self._buckets:
                 if bk.spec.fits_problem(problem):
-                    payload = bk.spec.pack(problem)
+                    payload = bk.spec.pack(problem, dtype=self._np_dtype)
                     break
             else:
                 raise ValueError(f"no bucket fits instance m={problem.m} n={problem.n}")
@@ -729,7 +754,12 @@ class PropagationService:
                     tk = bk.slot_tickets[i]
                     n = tk.payload.n
                     lb_i, ub_i = lb_h[j, :n].clone(), ub_h[j, :n].clone()
+                    # An early-retired slot leaves last_changed set with
+                    # rounds below the cap: stopped, not converged.
                     conv = not bool(lc_h[j])
+                    if (self._stop_progress is not None and not conv
+                            and int(rd_h[j]) < self._cfg.max_rounds):
+                        bk.early_stopped += 1
                     tk._result = PropagationResult(
                         lb=lb_i, ub=ub_i, rounds=rd_h[j].clone(), converged=~lc_h[j],
                         infeasible=(lb_i > ub_i + self._cfg.feas_eps).any(),

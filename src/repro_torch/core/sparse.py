@@ -173,6 +173,27 @@ def csr_to_csc(csr: CSR) -> CSC:
     )
 
 
+def permute_problem(p: Problem, row_perm: np.ndarray, col_perm: np.ndarray) -> Problem:
+    """Apply row and column permutations (the paper's App. B ordering
+    experiment): row ``i`` of the result is row ``row_perm[i]`` of ``p``,
+    column ``j`` is column ``col_perm[j]``; permuted in sparse form."""
+    csr = p.csr
+    inv_col = np.empty_like(col_perm)
+    inv_col[col_perm] = np.arange(col_perm.shape[0])
+    inv_row = np.empty_like(row_perm)
+    inv_row[row_perm] = np.arange(row_perm.shape[0])
+    new_csr = csr_from_coo(inv_row[csr.row_ids()], inv_col[csr.col], csr.val.copy(), csr.m,
+                           csr.n)
+    return Problem(
+        csr=new_csr,
+        lhs=p.lhs[row_perm],
+        rhs=p.rhs[row_perm],
+        lb=p.lb[col_perm],
+        ub=p.ub[col_perm],
+        is_int=p.is_int[col_perm],
+    )
+
+
 def csr_to_block_ell(csr: CSR, tile_rows: int = 8, tile_width: int = 128) -> BlockEll:
     """Convert CSR to length-bucketed block-ELL.
 
@@ -604,6 +625,20 @@ def evict_slot(
         tiles_used=0,
         max_row_nnz=0,
     )
+
+
+def block_ell_stats(b: BlockEll) -> dict:
+    """Layout diagnostics of one block-ELL conversion: tile counts, tile
+    shape, nnz, padded slots and the padding fraction."""
+    nnz = int((b.val != 0).sum())
+    return {
+        "tiles": b.num_tiles,
+        "tile_rows": b.tile_rows,
+        "tile_width": b.tile_width,
+        "nnz": nnz,
+        "padded_slots": int(b.val.size),
+        "padding_fraction": b.padding_fraction(),
+    }
 
 
 def problem_from_reference(obj) -> Problem:

@@ -9,8 +9,10 @@
 // handing the accumulator entry back (merge_reset), the merges' body (F,
 // #9, #15) on the walk or on a (column block, row) grid, and the loop
 // carry that F folds its flag into (CarryFlags), with the early stop's
-// progress measure where one is armed (StopCarryFlags).  The routines of
-// the single instance's round (D, A', E, the combine, F) are templated on
+// progress measure where one is armed (StopCarryFlags), and #9's per-row
+// measure of the batched early stop (RowStopFlags).  The routines of the
+// single instance's round (D, A', E, the combine, F) and of the batched
+// rounds (#8, #10, the node-batched A', combine and E, #9) are templated on
 // the value type T (double, or float for the fp32 tier) and on the index
 // types (int32 columns and marks, or the compact int16 / int8 streams);
 // the other kernels instantiate them at double and int32 only.  See
@@ -889,6 +891,7 @@ __device__ __forceinline__ void clear_flags(T* clear, int64_t n) {
 struct RowFlags {
   static constexpr int kGridCols = 4;
   static constexpr bool kProgress = false;
+  static constexpr bool kRowProgress = false;
   bool* changed;
   bool* clear;
   int64_t n_clear;
@@ -913,6 +916,7 @@ struct RowFlags {
 struct WindowFlags {
   static constexpr int kGridCols = 1;
   static constexpr bool kProgress = false;
+  static constexpr bool kRowProgress = false;
   int* flags;
   int64_t n_slabs, slab;
   int* clear;
@@ -952,6 +956,7 @@ constexpr int kCarryProg = 8;    // the early stop: the last round's progress, a
 struct CarryFlags {
   static constexpr int kGridCols = 4;
   static constexpr bool kProgress = false;
+  static constexpr bool kRowProgress = false;
   int* carry;
   int k, unroll;
   __device__ __forceinline__ void prologue() const {}
@@ -1011,6 +1016,7 @@ template <typename T>
 struct StopCarryFlags {
   static constexpr int kGridCols = 4;
   static constexpr bool kProgress = true;
+  static constexpr bool kRowProgress = false;
   int* carry;
   T* partials;
   T stop;
@@ -1062,6 +1068,93 @@ struct StopCarryFlags {
     c[kCarryAny] = 0;
     c[kCarryFlag] = 0;
     c[kCarryTicket] = 0;
+  }
+};
+
+// #9's flags with the early stop's measure armed (the reference's per-row
+// stop, src/repro/core/propagator.py:388-414): RowFlags, and each active
+// row's progress measure over its columns, in one fixed order.  Each
+// (row, block of 1,024 columns) item sums its threads' terms (merge_item:
+// each thread its four columns in order), then each warp by the butterfly
+// of group_sum, then its eight warp sums left to right, into its entry of
+// the (bsz, n_blocks) `partials` (kept by the round closure: nothing
+// allocated per round).  The launch's last block (an atomic ticket taken
+// after every block's fence, reset by that block) sums each active row's
+// partials in block order as ref.warp_order_sum does (a warp per row: lane
+// l takes blocks l, l + 32, ..., then the butterfly; the warps ballot the
+// mask a word at a time) into prog[row];
+// ref.merge_order_sum is this order, row by row.  Inactive rows' partials
+// and prog entries are not written.  The walk (kMergeCols) and the grid
+// (kGridCols) both take 1,024 columns an item, so one layout serves both.
+// The streak and the mask are the caller's (B,) operations on prog.
+template <typename T>
+struct RowStopFlags {
+  static constexpr int kGridCols = 4;
+  static constexpr bool kProgress = true;
+  static constexpr bool kRowProgress = true;
+  bool* changed;
+  bool* clear;
+  int64_t n_clear;
+  T* partials;
+  T* prog;
+  int* ticket;
+  const bool* active;
+  int64_t n_blocks;
+  __device__ __forceinline__ void prologue() const { clear_flags(clear, n_clear); }
+  __device__ __forceinline__ bool live() const { return true; }
+  __device__ __forceinline__ void finish() const {}
+  template <int C>
+  __device__ __forceinline__ void mark(int64_t plane, int64_t, const bool (&ch)[C]) const {
+    bool any = false;
+#pragma unroll
+    for (int v = 0; v < C; ++v) any |= ch[v];
+    if (__any_sync(0xffffffffu, any) && threadIdx.x % kWarp == 0) changed[plane] = true;
+  }
+  // Every thread of the block calls it after each item, with its own sum.
+  __device__ __forceinline__ void item_progress(T prog_t, int64_t plane, int64_t blk) const {
+    __shared__ T warp_sums[kWarpsPerBlock];
+    const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+    prog_t = group_sum<kWarp>(prog_t);
+    if (lane == 0) warp_sums[warp] = prog_t;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      T sum = warp_sums[0];
+#pragma unroll
+      for (int w = 1; w < kWarpsPerBlock; ++w) sum += warp_sums[w];
+      partials[plane * n_blocks + blk] = sum;
+    }
+    __syncthreads();  // warp_sums serves the block's next item
+  }
+  // Every thread of every block calls it, last (the blocks of an inactive
+  // row on the grid included).
+  __device__ __forceinline__ void finish_rows(int64_t bsz) const {
+    __shared__ bool last;
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      const int blocks = static_cast<int>(gridDim.x * gridDim.y);
+      last = atomicAdd(ticket, 1) == blocks - 1;
+    }
+    __syncthreads();
+    if (!last) return;
+    __threadfence();
+    if (threadIdx.x == 0) *ticket = 0;
+    // Warp w takes the mask's words w, w + 8, ...: one ballot reads its 32
+    // flags at once, then it sums each active row of the word in turn.
+    const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+    for (int64_t b0 = static_cast<int64_t>(warp) * kWarp; b0 < bsz;
+         b0 += static_cast<int64_t>(kWarpsPerBlock) * kWarp) {
+      unsigned int todo = __ballot_sync(0xffffffffu, b0 + lane < bsz && active[b0 + lane]);
+      while (todo != 0u) {
+        const int64_t b = b0 + __ffs(todo) - 1;
+        todo &= todo - 1u;
+        const T* row = partials + b * n_blocks;
+        T total = T(0);
+        for (int64_t i = lane; i < n_blocks; i += kWarp) total += __ldcg(row + i);
+        total = group_sum<kWarp>(total);
+        if (lane == 0) prog[b] = total;
+      }
+    }
   }
 };
 
@@ -1136,9 +1229,11 @@ merge_walk_kernel(T* __restrict__ lb, T* __restrict__ ub, T* __restrict__ best_l
   WalkCursor cur;
   for (int64_t item = blockIdx.x; item < walk.items; item += gridDim.x) {
     cur.seek(item, walk, items_of);
-    merge_item<kMergeCols>(lb, ub, best_l, best_u, flags, cur.plane, item - cur.first, width, eps,
-                           inf, outward);
+    const T prog = merge_item<kMergeCols>(lb, ub, best_l, best_u, flags, cur.plane,
+                                          item - cur.first, width, eps, inf, outward);
+    if constexpr (Flags::kRowProgress) flags.item_progress(prog, cur.plane, item - cur.first);
   }
+  if constexpr (Flags::kRowProgress) flags.finish_rows(bsz);
 }
 
 // Grid (column blocks, rows), C columns a thread: the blocks of an
@@ -1150,14 +1245,20 @@ merge_grid_kernel(T* __restrict__ lb, T* __restrict__ ub, T* __restrict__ best_l
                   T* __restrict__ best_u, const bool* __restrict__ active, Flags flags,
                   int64_t width, T eps, T inf, T outward) {
   flags.prologue();
-  if (kMasked && !active[blockIdx.y]) return;
+  if (kMasked && !active[blockIdx.y]) {
+    if constexpr (Flags::kRowProgress) flags.finish_rows(gridDim.y);
+    return;
+  }
   if (!flags.live()) {
     hand_back_item<C>(best_l, best_u, blockIdx.y, blockIdx.x, width, inf);
     return;
   }
   const T prog = merge_item<C>(lb, ub, best_l, best_u, flags, blockIdx.y, blockIdx.x, width, eps,
                                inf, outward);
-  if constexpr (Flags::kProgress) {
+  if constexpr (Flags::kRowProgress) {
+    flags.item_progress(prog, blockIdx.y, blockIdx.x);
+    flags.finish_rows(gridDim.y);
+  } else if constexpr (Flags::kProgress) {
     flags.finish_progress(prog);
   } else {
     flags.finish();

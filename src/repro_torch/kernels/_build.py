@@ -1,7 +1,7 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-Each source (``prop_round.cu``, ``slab_round.cu``, ``tier_round.cu``) is
-compiled with ``nvcc``
+Each source (``prop_round.cu``, ``slab_round.cu``, ``tier_round.cu``,
+``batch_tier_round.cu``) is compiled with ``nvcc``
 into a shared library with a plain C interface, at first use, into
 ``build/<hash>/`` beside the package (a directory that git ignores), keyed
 by a hash of the sources, the shared header and the flags, and loaded with
@@ -24,8 +24,9 @@ from types import SimpleNamespace
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = (CSRC / "prop_round.cu", CSRC / "slab_round.cu", CSRC / "tier_round.cu")
-HEADERS = (CSRC / "round_common.cuh", CSRC / "single_round.cuh")
+SOURCES = (CSRC / "prop_round.cu", CSRC / "slab_round.cu", CSRC / "tier_round.cu",
+           CSRC / "batch_tier_round.cu")
+HEADERS = (CSRC / "round_common.cuh", CSRC / "single_round.cuh", CSRC / "batch_round.cuh")
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -74,6 +75,19 @@ SIGNATURES = {
         "apply_updates_f32": [P] * 5 + [I64, I32, I32, F32, F32, F32, P],
         "apply_updates_stop": [P] * 6 + [I64, F64, F64, F64, F64, I32, P],
         "apply_updates_stop_f32": [P] * 6 + [I64, F32, F32, F32, F32, I32, P],
+    },
+    "batch_tier_round.cu": {
+        "batched_fused_scatter_round_f32": [P] * 12 + [I64, I32, I32, I64, I64, F32, F32, P],
+        "node_fused_scatter_round_f32": [P] * 11 + [I64, I32, I32, I64, I64, F32, F32, P],
+        "node_fused_scatter_round_f32c": [P] * 11 + [I64, I32, I32, I64, I64, F32, F32, P],
+        "node_activities_gather_f32": [P] * 10 + [I64, I32, I64, I64, F32, P],
+        "node_activities_gather_f32c": [P] * 10 + [I64, I32, I64, I64, F32, P],
+        "node_combine_chunk_partials_f32": [P] * 12 + [I64, I64, I64, I64, P],
+        "node_candidates_scatter_f32": [P] * 15 + [I64, I32, I64, I64, F32, F32, P],
+        "node_candidates_scatter_f32c": [P] * 15 + [I64, I32, I64, I64, F32, F32, P],
+        "apply_updates_batch_f32": [P] * 7 + [I64, I64, F32, F32, F32, P],
+        "apply_updates_batch_stop": [P] * 10 + [I64, I64, F64, F64, F64, P],
+        "apply_updates_batch_stop_f32": [P] * 10 + [I64, I64, F32, F32, F32, P],
     },
 }
 

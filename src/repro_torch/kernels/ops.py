@@ -60,7 +60,12 @@ semantics so they converge to the same fixed points.
     rounds run the float32 forms of D, A', the combine, E and F;
     ``propagate_block_ell`` takes the two-tier ``policy`` and the
     progress-based early stop (F folds the round's measure into the loop
-    carry).  The other engines run float64 only so far.
+    carry).  ``prepare_problem_batch`` at float32 keeps int32 ids; the
+    batched and node rounds run the float32 forms of #8, #10, the
+    node-batched A', combine and E and #9, and under a per-row early stop
+    #9 measures each active row's round (``propagate_batch_block_ell`` and
+    ``core.nodes.propagate_nodes`` take ``policy`` too).  The segment and
+    partitioned engines run float64 only so far.
 
 Per-round device-memory traffic of the fused round: ``val``, ``col`` and
 ``is_int`` at the nonzeros (16 B each; every chunk stops at its hoisted
@@ -84,21 +89,20 @@ from ..core.carry import LoopCarry
 from ..core.carry import EarlyStop, early_stop
 from ..core.propagator import (
     TIERS_REMAINDER,
-    _refuse_options,
     _refuse_telemetry,
     _result,
     batched_fixed_point,
     check_dtype,
-    check_float64,
     device_fixed_point,
     fixed_point,
     not_ported,
     resolve_device,
     run_tiers,
+    two_tier_bounds_dtypes,
     KERNEL_DRIVERS,
 )
 from ..core.sparse import Problem, ProblemBatch, col_pad, csr_to_block_ell, pack_problems
-from ..core.types import DEFAULT_CONFIG, INF, PropagationResult, PropagatorConfig
+from ..core.types import DEFAULT_CONFIG, INF, PropagationResult, PropagatorConfig, TierPolicy
 from . import prop_round as kern
 from . import ref as kref
 from .slab import (  # noqa: F401  (re-exported)
@@ -440,6 +444,16 @@ class KeptPlanes:
                                      for shape, dt in specs)
         return out
 
+    def stop_buffers(self, like: torch.Tensor) -> dict:
+        """#9's early-stop buffers for ``(B, W)`` planes shaped like
+        ``like`` (:func:`prop_round.apply_updates_batch_tiles`): the block
+        partials and the zeroed ticket, kept like the scratch."""
+        bsz, width = like.shape
+        blocks = -(-width // kref.MERGE_BLOCK)
+        partials, ticket = self.scratch("row_progress", (((bsz, blocks), like.dtype),
+                                                         ((1,), torch.int32)), like)
+        return dict(partials=partials, ticket=ticket)
+
     def flags(self, shape, dtype: torch.dtype, like: torch.Tensor) -> "kern.FlagPair":
         """This thread's flag pair of ``shape`` and ``dtype`` on ``like``'s
         device, allocated zeroed at its first use."""
@@ -456,9 +470,9 @@ class KeptPlanes:
         """``round_fn``, dropping the planes and flag pairs if it raises; the
         planes are its ``kept`` attribute."""
 
-        def run(*args):
+        def run(*args, **kwargs):
             try:
-                return round_fn(*args)
+                return round_fn(*args, **kwargs)
             except BaseException:
                 self._local.planes = None
                 self._local.flag_pairs = None
@@ -480,7 +494,8 @@ class RoundOps(NamedTuple):
     merge: Callable       # F: (lb, ub, best_l, best_u, eps, inf, outward, carry=, k=, unroll=,
                           # stop=, partials=) -> (lb, ub, GO); hands best_l / best_u back
     node_fused: Callable  # #10: tiles + (B, n_pad) planes + active + kept -> (best_l, best_u)
-    merge_batch: Callable  # #9: (lb, ub, best_l, best_u, active, eps, inf, outward, flags=)
+    merge_batch: Callable  # #9: (lb, ub, best_l, best_u, active, eps, inf, outward, flags=,
+                           # progress=, partials=, ticket=)
     partitioned: Callable  # (part, lb, ub, active, ..., kept, carry=) -> (lb, ub, (B,) changed)
     batched_fused: Callable  # #8: flat stream + tile_inst + (B, n_pad) planes + active + acc
     activities_tiles: Callable   # A: tiles + gathered bounds -> chunk partials
@@ -550,12 +565,19 @@ def _plain_batched_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, tile_inst, ac
     ))
 
 
-def _plain_merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward=0.0, *, flags=None):
+def _plain_merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward=0.0, *, flags=None,
+                       progress=None, partials=None, ticket=None):
     """#9's plain version, handing the active rows of the planes back at the
     sentinels as the kernel does (the kept planes of #8 need it); its flags
-    are fresh (``flags``, the kernel's kept pair, is not used)."""
-    del flags
+    are fresh (``flags``, the kernel's kept pair, is not used).  With
+    ``progress`` each active row's early-stop measure is written into it in
+    the kernel's order (:func:`ref.merge_rows_progress`); ``partials`` and
+    ``ticket`` are not used."""
+    del flags, partials, ticket
     out = bnd.apply_updates_batch(lb, ub, best_l, best_u, eps, inf, outward, active=active)
+    if progress is not None:
+        _, prog = kref.merge_rows_progress(lb, ub, out[0], out[1])
+        progress.copy_(torch.where(active, prog, progress))
     kern._hand_back(best_l, best_u, active, inf)
     return out
 
@@ -1063,7 +1085,7 @@ class DeviceProblemBatch(NamedTuple):
     ``tile_inst``); ``col_g`` holds the global ids ``col + tile_inst *
     n_pad`` into the flattened planes for the multi-chunk round."""
 
-    val: torch.Tensor        # (T, R, K) float64
+    val: torch.Tensor        # (T, R, K) float64 or float32
     col: torch.Tensor        # (T, R, K) int32 instance-local
     col_g: torch.Tensor      # (T, R, K) int32 global (bound-plane) columns
     chunk_row: torch.Tensor  # (T, R) int32 global row ids, ascending
@@ -1121,9 +1143,11 @@ def prepare_problem_batch(batch: ProblemBatch, dtype=None, device="cuda") -> Pre
     """Upload + hoisted round constants of one packed bucket, LRU-cached per
     ``ProblemBatch`` identity, dtype and device (maxsize 16, see
     :func:`cache_info`): a serving loop re-propagates the same packed batch
-    with fresh bounds, which every driver takes per call."""
+    with fresh bounds, which every driver takes per call.  ``dtype`` is
+    float64 (the default) or float32 (the fp32 tier; the ids stay int32,
+    as the reference's packed batch keeps them)."""
     dev = resolve_device(device)
-    dt = check_float64(dtype, "the batched engine")
+    dt = check_dtype(dtype)
     key = (id(batch), str(dt), str(dev))
     hit = _batch_prep_cache.get(key, (batch,))
     if hit is not None:
@@ -1170,7 +1194,7 @@ def batched_reference_round(
     val, col, col_g, tile_inst, ii_g, chunk_row, row_start, lhs_g, rhs_g, lb, ub, active,
     *, n_pad: int, fits_one_chunk: bool, eps: float, int_eps: float, inf: float,
     kept: KeptPlanes, outward: float = 0.0, ops: RoundOps = KERNEL_OPS, chunk_len=None,
-    max_chunk_len: int | None = None, chunks=None, classes=None,
+    max_chunk_len: int | None = None, chunks=None, classes=None, progress=None,
 ):
     """One batched round over a flat stream, IN PLACE with
     :data:`KERNEL_OPS`: ``(B, n_pad)`` planes + ``(B,)`` active mask ->
@@ -1192,7 +1216,9 @@ def batched_reference_round(
     and long by ``classes`` (:func:`ref.segment_classes`).  ``chunk_len``
     (the stream's :func:`ref.chunk_lengths`) is where A' and E stop each
     chunk.  All are hoisted by the caller; the kernels compute them when
-    they are omitted."""
+    they are omitted.  With ``progress`` (a ``(B,)`` tensor of the planes'
+    dtype) #9 also writes each active row's early-stop measure of the
+    round into it (its partials and ticket kept in ``kept``)."""
     if fits_one_chunk:
         best_l, best_u = ops.batched_fused(
             val, col, ii_g, lhs_g, rhs_g, lb, ub, tile_inst, active, n_pad, int_eps, inf,
@@ -1210,21 +1236,44 @@ def batched_reference_round(
         best_l = torch.where(on, best_l.view(bsz, n_pad), -inf)
         best_u = torch.where(on, best_u.view(bsz, n_pad), inf)
     return ops.merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward,
-                           flags=kept.flags(active.shape, torch.bool, lb))
+                           flags=kept.flags(active.shape, torch.bool, lb),
+                           **_row_stop(kept, lb, progress))
+
+
+def _row_stop(kept: KeptPlanes, lb, progress) -> dict:
+    """#9's early-stop arguments for a round whose loop measures every
+    round (``progress``, the loop's ``(B,)`` measure): none without it."""
+    if progress is None:
+        return {}
+    return dict(progress=progress, **kept.stop_buffers(lb))
+
+
+def _refuse_past_limit(dtype: torch.dtype, progress) -> None:
+    """The batched and node rounds past ``SCATTER_MAX_NPAD`` (the
+    partitioned round) run float64 without the early stop only so far."""
+    if dtype != torch.float64:
+        not_ported(f"dtype={dtype} past SCATTER_MAX_NPAD (the partitioned batched round)",
+                   TIERS_REMAINDER)
+    if progress is not None:
+        not_ported("stop_progress= past SCATTER_MAX_NPAD (the partitioned batched round)",
+                   TIERS_REMAINDER)
 
 
 def _batched_prepared_round(
     prep: PreparedBatch, lb, ub, active, *, ops: RoundOps, eps: float, int_eps: float,
     inf: float, kept: KeptPlanes, slab: int | None = None, outward: float = 0.0,
+    progress=None,
 ):
     """One round over a prepared bucket, with the reference's rule: past
     ``SCATTER_MAX_NPAD`` (read at call time) the partitioned round over the
     bucket's slab partition (#11, the straddle combine, #12 with #15:
     copies routed to their instance's plane by the hoisted tile maps,
     inactive instances skipped on the device, #12 scattering into
-    ``kept``); otherwise :func:`batched_reference_round` (#8 scattering
-    into ``kept``)."""
+    ``kept``; float64 without the early stop only, else
+    ``NotImplementedError``); otherwise :func:`batched_reference_round` (#8
+    scattering into ``kept``; ``progress`` as there)."""
     if prep.n_pad > SCATTER_MAX_NPAD:
+        _refuse_past_limit(lb.dtype, progress)
         part = prep.slab_partition(slab)
         return ops.partitioned(
             part, lb, ub, active, node=False, eps=eps, int_eps=int_eps, inf=inf,
@@ -1236,7 +1285,7 @@ def _batched_prepared_round(
         d.rhs_g, lb, ub, active, n_pad=prep.n_pad, fits_one_chunk=prep.fits_one_chunk,
         eps=eps, int_eps=int_eps, inf=inf, kept=kept, outward=outward, ops=ops,
         chunk_len=d.chunk_len, max_chunk_len=prep.max_chunk_len, chunks=d.chunks,
-        classes=prep.seg_classes,
+        classes=prep.seg_classes, progress=progress,
     )
 
 
@@ -1246,19 +1295,29 @@ def batched_round_fn_for(
 ):
     """A ``(lb, ub, active) -> (lb, ub, changed)`` round closure over a
     prepared bucket (``(B, n_pad)`` planes, updated in place with kernels).
-    ``slab`` overrides the partitioned engine's window width."""
+    ``slab`` overrides the partitioned engine's window width.  The closure
+    is ``measured``: with ``progress=`` (a ``(B,)`` tensor) #9 writes each
+    active row's early-stop measure of the round into it
+    (``core.propagator.batched_step_rounds`` passes it under a stop)."""
     dt = prep.d.val.dtype
     eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
     ops = KERNEL_OPS if use_kernels else PLAIN_OPS
     kept = KeptPlanes(cfg.inf)
 
-    def round_fn(lb, ub, active):
+    def round_fn(lb, ub, active, progress=None):
         return _batched_prepared_round(
             prep, lb, ub, active, ops=ops, eps=eps, int_eps=cfg.int_eps, inf=cfg.inf,
-            slab=slab, outward=outward, kept=kept,
+            slab=slab, outward=outward, kept=kept, progress=progress,
         )
 
-    return kept.guard(round_fn)
+    return _measured(kept.guard(round_fn))
+
+
+def _measured(round_fn: Callable) -> Callable:
+    """Mark a batched round closure as taking ``progress=`` (its merge
+    measures the round for the early stop)."""
+    round_fn.measured = True
+    return round_fn
 
 
 def _unpack_batch_results(prep: PreparedBatch, lb, ub, rounds, converged, infeasible, progress):
@@ -1278,8 +1337,9 @@ def _unpack_batch_results(prep: PreparedBatch, lb, ub, rounds, converged, infeas
 _batch_runner_cache = LRU(maxsize=64)
 
 
-def _batch_runner(prep: PreparedBatch, cfg, use_kernels: bool, slab):
-    key = (id(prep), cfg, use_kernels, slab)
+def _batch_runner(prep: PreparedBatch, cfg, use_kernels: bool, slab,
+                  stop_progress: float | None = None, patience: int = 1):
+    key = (id(prep), cfg, use_kernels, slab, stop_progress, patience)
     run = _batch_runner_cache.get(key, (prep,))
     if run is not None:
         return run
@@ -1288,7 +1348,8 @@ def _batch_runner(prep: PreparedBatch, cfg, use_kernels: bool, slab):
 
     def run(lb0, ub0, on_sync: Callable[[], None] | None = None):
         lb, ub, rounds, converged, progress = batched_fixed_point(
-            round_fn, lb0, ub0, cfg.max_rounds, with_progress=True, on_sync=on_sync
+            round_fn, lb0, ub0, cfg.max_rounds, stop_progress=stop_progress,
+            patience=patience, with_progress=True, on_sync=on_sync
         )
         infeasible = ((lb > ub + cfg.feas_eps) & col_valid).any(dim=-1)
         return lb, ub, rounds, converged, infeasible, progress
@@ -1299,14 +1360,15 @@ def _batch_runner(prep: PreparedBatch, cfg, use_kernels: bool, slab):
 
 def batched_device_runner(
     prep: PreparedBatch, cfg: PropagatorConfig = DEFAULT_CONFIG, use_kernels: bool = True,
-    slab: int | None = None,
+    slab: int | None = None, stop_progress: float | None = None, patience: int = 1,
 ):
     """The bucket's whole fixed point as one function, cached: ``run(lb0,
     ub0, on_sync=None) -> (lb, ub, rounds, converged, infeasible,
     progress)``, all per instance, over private ``(B, n_pad)`` planes that
     it updates in place.  The loop reads ``active.any()`` on the host once
-    per round (reported to ``on_sync``)."""
-    return _batch_runner(prep, cfg, use_kernels, slab)
+    per round (reported to ``on_sync``).  ``stop_progress``/``patience``
+    arm the per-instance early stop (#9 measures every round)."""
+    return _batch_runner(prep, cfg, use_kernels, slab, stop_progress, patience)
 
 
 def _batch_initial_bounds(prep: PreparedBatch, lb0, ub0):
@@ -1348,12 +1410,14 @@ def propagate_batch_prepared(
     host per round (``on_sync``) and measures every round's progress: in
     this port ``"host_loop"`` is a name for the same loop.
     ``lb0``/``ub0`` warm-start the bucket from ``(B, n_pad)`` planes through
-    the same prepared tiles.  ``stop_progress=``/``patience != 1`` (item 5)
-    and ``telemetry=`` (item 6) raise ``NotImplementedError``."""
+    the same prepared tiles.  ``stop_progress``/``patience`` arm the
+    per-instance early stop: an instance whose round's progress measure
+    stays below ``stop_progress`` for ``patience`` rounds stops (not
+    converged).  ``telemetry=`` (item 6) raises ``NotImplementedError``."""
     if driver not in KERNEL_DRIVERS:
         raise ValueError(f"unknown driver: {driver!r}")
-    _refuse_options(stop_progress, patience, telemetry)
-    run = _batch_runner(prep, cfg, use_kernels, slab)
+    _refuse_telemetry(telemetry)
+    run = _batch_runner(prep, cfg, use_kernels, slab, stop_progress, patience)
     lb, ub = _batch_initial_bounds(prep, lb0, ub0)
     return _unpack_batch_results(prep, *run(lb, ub, on_sync))
 
@@ -1385,23 +1449,24 @@ def clear_batch_caches() -> None:
     _batch_runner_cache.clear()
 
 
-def _bound_planes_for_batch(batch: ProblemBatch, bounds):
+def _bound_planes_for_batch(prep: PreparedBatch, bounds):
     """Per-problem ``(lb, ub)`` overrides (input order; ``None`` keeps the
-    problem's own bounds) -> this bucket's ``(B, n_pad)`` planes, or
-    ``(None, None)`` when no instance of the bucket is overridden."""
-    lb_plane = np.array(batch.lb, copy=True)
-    ub_plane = np.array(batch.ub, copy=True)
+    problem's own bounds; arrays or tensors, cast to the prep's dtype) ->
+    the bucket's ``(B, n_pad)`` planes on its device, or ``(None, None)``
+    when no instance of the bucket is overridden."""
+    batch = prep.batch
+    lb_plane, ub_plane = prep.d.lb0.clone(), prep.d.ub0.clone()
+    as_plane = lambda x: torch.as_tensor(x, dtype=lb_plane.dtype, device=lb_plane.device)
     touched = False
     for row, (idx, p) in enumerate(zip(batch.indices, batch.problems)):
         pair = bounds[idx]
         if pair is None:
             continue
-        lb_i = np.asarray(pair[0], lb_plane.dtype)
-        ub_i = np.asarray(pair[1], ub_plane.dtype)
-        if lb_i.shape != (p.n,) or ub_i.shape != (p.n,):
+        lb_i, ub_i = as_plane(pair[0]), as_plane(pair[1])
+        if tuple(lb_i.shape) != (p.n,) or tuple(ub_i.shape) != (p.n,):
             raise ValueError(
-                f"bounds for instance {idx} have shapes {lb_i.shape}/{ub_i.shape}, "
-                f"expected {(p.n,)}"
+                f"bounds for instance {idx} have shapes {tuple(lb_i.shape)}/"
+                f"{tuple(ub_i.shape)}, expected {(p.n,)}"
             )
         lb_plane[row, : p.n] = lb_i
         ub_plane[row, : p.n] = ub_i
@@ -1423,7 +1488,7 @@ def propagate_batch_block_ell(
     slab: int | None = None,
     stop_progress: float | None = None,
     patience: int = 1,
-    policy=None,
+    policy: TierPolicy | None = None,
     telemetry=None,
     device="cuda",
     on_sync: Callable[[], None] | None = None,
@@ -1432,17 +1497,52 @@ def propagate_batch_block_ell(
     -> one fixed point per bucket -> one result per instance, input order.
     Packing, upload and the runners are LRU-cached on the identity of the
     problem list and packed batch, so a serving loop pays them once.
-    ``bounds`` (one ``(lb, ub)`` pair of ``(n_i,)`` arrays or ``None`` per
-    problem) warm-starts instances through the same packed tiles.  The
-    public front end is ``core.propagate_batch``.
+    ``bounds`` (one ``(lb, ub)`` pair of ``(n_i,)`` arrays or tensors, or
+    ``None``, per problem) warm-starts instances through the same packed
+    tiles.  The public front end is ``core.propagate_batch``.
 
-    ``device`` defaults to CUDA and raises where there is none.  ``policy=``,
-    ``stop_progress=``, ``patience != 1`` (item 5) and ``telemetry=`` (item
-    6) raise ``NotImplementedError``."""
+    ``dtype`` is float64 (the default) or float32.  ``stop_progress``/
+    ``patience`` arm the per-instance early stop.  ``policy`` (a
+    :class:`TierPolicy`) runs the whole batch through the two tiers, as
+    the reference's (src/repro/kernels/ops.py:1917-1963): a float32 pass
+    of at most ``max(1, int(max_rounds * fp32_round_frac))`` rounds,
+    stopped per instance below ``switch_progress``; each instance promoted
+    by an exact cast with the infinite sentinels restored, except that an
+    instance with an fp32 infeasible verdict restarts from its original
+    bounds; the endgame of at most ``max(1, max_rounds - cap)`` rounds in
+    ``dtype`` with the policy's ``stop_progress``.  ``rounds`` adds the
+    tier's rounds where it was trusted, and ``tier_rounds`` is the tier's.
+    The tier's verdicts are read on the host at once (reported to
+    ``on_sync``).  ``device`` defaults to CUDA and raises where there is
+    none.  Float32 or the early stop past ``SCATTER_MAX_NPAD`` (item 5,
+    remainder) and ``telemetry=`` (item 6) raise ``NotImplementedError``."""
     if driver not in KERNEL_DRIVERS:
         raise ValueError(f"unknown driver: {driver!r}")
-    _refuse_options(stop_progress, patience, telemetry, policy)
+    _refuse_telemetry(telemetry)
     problems = list(problems)
+    pair = two_tier_bounds_dtypes(policy, dtype) if policy is not None else None
+    if pair is not None:
+        dt32, final = pair
+        kw = dict(tile_rows=tile_rows, tile_width=tile_width, use_kernels=use_kernels,
+                  driver=driver, slab=slab, patience=policy.patience, device=device,
+                  on_sync=on_sync)
+        cap32 = max(1, int(cfg.max_rounds * policy.fp32_round_frac))
+        r32 = propagate_batch_block_ell(problems, dataclasses.replace(cfg, max_rounds=cap32),
+                                        dtype=dt32, bounds=bounds,
+                                        stop_progress=policy.switch_progress, **kw)
+        bad = torch.stack([t.infeasible for t in r32]).tolist() if r32 else []
+        if on_sync is not None:
+            on_sync()
+        orig = list(bounds) if bounds is not None else [None] * len(problems)
+        warm = [o if b else bnd.canonical_infinite(t.lb.to(final), t.ub.to(final))
+                for t, b, o in zip(r32, bad, orig)]
+        rem = dataclasses.replace(cfg, max_rounds=max(1, cfg.max_rounds - cap32))
+        res = propagate_batch_block_ell(problems, rem, dtype=final, bounds=warm,
+                                        stop_progress=policy.stop_progress, **kw)
+        return [r._replace(rounds=r.rounds + (0 if b else t.rounds), tier_rounds=t.rounds)
+                for r, t, b in zip(res, r32, bad)]
+    if policy is not None:
+        stop_progress, patience = policy.stop_progress, policy.patience
     if bounds is not None:
         bounds = list(bounds)
         if len(bounds) != len(problems):
@@ -1452,9 +1552,9 @@ def propagate_batch_block_ell(
         prep = prepare_problem_batch(batch, dtype, device)
         lb0 = ub0 = None
         if bounds is not None:
-            lb0, ub0 = _bound_planes_for_batch(batch, bounds)
+            lb0, ub0 = _bound_planes_for_batch(prep, bounds)
         results = propagate_batch_prepared(prep, cfg, use_kernels, driver, lb0, ub0, slab,
-                                           on_sync=on_sync)
+                                           stop_progress, patience, on_sync=on_sync)
         for idx, res in zip(batch.indices, results):
             out[idx] = res
     return out
@@ -1501,7 +1601,7 @@ def _node_segment_round(prep: PreparedBlockEll, lb, ub, active, *, eps: float,
 def _node_round(
     prep: PreparedBlockEll, lb, ub, active, *, ops: RoundOps, eps: float,
     int_eps: float, inf: float, kept: KeptPlanes, outward: float = 0.0,
-    part: SlabPartition | None = None,
+    part: SlabPartition | None = None, progress=None,
 ):
     """One round over a node batch: ``(B, n_pad)`` per-node bounds + ``(B,)``
     active mask -> updated bounds + per-node changed flags, the matrix tiles
@@ -1517,8 +1617,11 @@ def _node_round(
     the batched merge #9.  Each launch covers every node, so a round makes
     the same launches whatever the batch size.  #10 and #14 scatter into the
     closure's kept planes ``kept``, which #9 / #15 set back to the
-    sentinels."""
+    sentinels.  With ``progress`` (a ``(B,)`` tensor) #9 also writes each
+    active node's early-stop measure of the round into it (the partitioned
+    round takes neither it nor float32 yet)."""
     if part is not None:
+        _refuse_past_limit(lb.dtype, progress)
         return ops.partitioned(
             part, lb, ub, active, node=True, eps=eps, int_eps=int_eps, inf=inf,
             kept=kept, outward=outward,
@@ -1540,7 +1643,8 @@ def _node_round(
             prep.n_pad, int_eps, inf, chunk_len=prep.chunk_len,
         )
     return ops.merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward,
-                           flags=kept.flags(active.shape, torch.bool, lb))
+                           flags=kept.flags(active.shape, torch.bool, lb),
+                           **_row_stop(kept, lb, progress))
 
 
 def node_round_fn_for(
@@ -1553,11 +1657,16 @@ def node_round_fn_for(
     partitioned node kernels, ``slab`` overriding the window width; the
     plain path there takes the engine of ``scatter="auto"`` as the
     reference's plain node round does (the segment round under
-    ``REPRO_AUTO_LARGE_SCATTER=segment``, read here)."""
+    ``REPRO_AUTO_LARGE_SCATTER=segment``, read here).  A float32 prep
+    past ``SCATTER_MAX_NPAD`` raises ``NotImplementedError`` (item 5,
+    remainder).  The closure is ``measured`` as
+    :func:`batched_round_fn_for`'s (``progress=``)."""
     dt = prep.d.val.dtype
     eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
     ops = KERNEL_OPS if use_kernels else PLAIN_OPS
     large = prep.n_pad > SCATTER_MAX_NPAD
+    if large:
+        _refuse_past_limit(dt, None)
     if large and not use_kernels and _auto_large_scatter() == "segment":
         def round_fn(lb, ub, active):
             return _node_segment_round(prep, lb, ub, active, eps=eps, int_eps=cfg.int_eps,
@@ -1567,13 +1676,13 @@ def node_round_fn_for(
     part = prep.slab_partition(slab) if large else None
     kept = KeptPlanes(cfg.inf)
 
-    def round_fn(lb, ub, active):
+    def round_fn(lb, ub, active, progress=None):
         return _node_round(
             prep, lb, ub, active, ops=ops, eps=eps, int_eps=cfg.int_eps, inf=cfg.inf,
-            outward=outward, part=part, kept=kept,
+            outward=outward, part=part, kept=kept, progress=progress,
         )
 
-    return kept.guard(round_fn)
+    return _measured(kept.guard(round_fn))
 
 
 def node_batch_runner(
@@ -1583,6 +1692,8 @@ def node_batch_runner(
     use_kernels: bool = True,
     on_sync: Callable[[], None] | None = None,
     slab: int | None = None,
+    stop_progress: float | None = None,
+    patience: int = 1,
 ):
     """The node batch's whole fixed point as one function: ``run(lb0, ub0)
     -> (lb, ub, rounds, converged, infeasible, progress)`` over ``(B,
@@ -1590,7 +1701,8 @@ def node_batch_runner(
     eagerly, so nothing is compiled or cached here; the prepared tiles and
     slab partitions are (see :func:`cache_info`).  ``on_sync`` is called
     once per host read of the loop's exit flag (one per round); ``slab``
-    as in :func:`node_round_fn_for`."""
+    as in :func:`node_round_fn_for`; ``stop_progress``/``patience`` arm the
+    per-node early stop."""
     round_fn = node_round_fn_for(prep, cfg, use_kernels, slab)
     col_valid = torch.arange(prep.n_pad, device=prep.lb0.device) < prep.n
 
@@ -1598,7 +1710,8 @@ def node_batch_runner(
         if lb0.shape[0] != batch_size:
             raise ValueError(f"runner for {batch_size} nodes got {lb0.shape[0]}")
         lb, ub, rounds, converged, progress = batched_fixed_point(
-            round_fn, lb0, ub0, cfg.max_rounds, with_progress=True, on_sync=on_sync
+            round_fn, lb0, ub0, cfg.max_rounds, stop_progress=stop_progress,
+            patience=patience, with_progress=True, on_sync=on_sync
         )
         infeasible = ((lb > ub + cfg.feas_eps) & col_valid[None, :]).any(dim=-1)
         return lb, ub, rounds, converged, infeasible, progress
@@ -1637,6 +1750,8 @@ def propagate_nodes_prepared(
     with_progress: bool = False,
     on_sync: Callable[[], None] | None = None,
     slab: int | None = None,
+    stop_progress: float | None = None,
+    patience: int = 1,
 ):
     """Run B warm-started nodes of one prepared instance to their fixed
     points together.
@@ -1649,9 +1764,11 @@ def propagate_nodes_prepared(
     result is exactly what its own single-instance warm-started
     ``propagate_block_ell`` run gives, round counts included.  Past
     ``SCATTER_MAX_NPAD`` the nodes run the partitioned node kernels
-    (``slab`` overrides the window width)."""
+    (``slab`` overrides the window width).  ``stop_progress``/``patience``
+    arm the per-node early stop.  The planes take the prep's dtype."""
     lb0, ub0 = _node_planes(prep, lb_nodes, ub_nodes)
-    run = node_batch_runner(prep, lb0.shape[0], cfg, use_kernels, on_sync, slab)
+    run = node_batch_runner(prep, lb0.shape[0], cfg, use_kernels, on_sync, slab, stop_progress,
+                            patience)
     lb, ub, rounds, converged, infeasible, progress = run(lb0, ub0)
     out = (lb[:, : prep.n], ub[:, : prep.n], rounds, converged, infeasible)
     return out + (progress,) if with_progress else out

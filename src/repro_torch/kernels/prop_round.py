@@ -14,16 +14,19 @@ for #9 and #15 a kept pair of flag buffers (``flags``,
 (``go``); the long-row and straddle combines replace XLA segment sums.  On
 a CPU tensor it runs the kernel's plain-PyTorch version (``ref.py``); on a
 CUDA tensor it launches the hand-written Hopper kernel of
-``csrc/prop_round.cu``, ``csrc/slab_round.cu`` or ``csrc/tier_round.cu`` on
-the current stream, or raises -- it never falls back.  Each wrapper counts
+``csrc/prop_round.cu``, ``csrc/slab_round.cu``, ``csrc/tier_round.cu`` or
+``csrc/batch_tier_round.cu`` on the current stream, or raises -- it never
+falls back.  Each wrapper counts
 its kernel launches in a plain integer attribute, ``<wrapper>.launches``
 (see :func:`launch_counts`), and by form (:func:`form_counts`).
 
-The precision tiers (ROADMAP Queue 1 item 5): D, A', E, F and the long-row
-combine also take float32 values (the fp32 tier), with int32 columns and
-marks or, where the tier's ``n_pad`` fits int16, the compact int16 columns
-and int8 marks (:data:`TIER_FORMS`), and F takes the progress-based early
-stop (``stop``).  Every other wrapper takes float64 and int32 only.
+The precision tiers (ROADMAP Queue 1 item 5): D, A', E, F, the long-row
+combine, #8, #9, #10 and the node-batched A', combine and E also take
+float32 values (the fp32 tier), with int32 columns and marks or, where the
+tier's ``n_pad`` fits int16 (D, A', E and the node forms), the compact
+int16 columns and int8 marks (:data:`TIER_FORMS`); F takes the
+progress-based early stop (``stop``) and #9 the batched one's per-row
+measure (``progress``).  Every other wrapper takes float64 and int32 only.
 
 Layout of the tile arguments: ``val`` (T, R, K) float64 with 0 at padding,
 ``col`` (T, R, K) int32 with every id in ``[0, n_pad)``, ``is_int_g``
@@ -86,10 +89,11 @@ def _check_tiles(val, col, lb, ub, n_pad, is_int_g=None):
     return t * r, k
 
 
-# The forms of the tier kernels (D, A', E, F, the long-row combine): float64
-# values with int32 columns and marks, float32 with int32, and float32 with
-# the compact int16 columns and int8 marks; their C entry points carry the
-# suffix.  F's early stop adds "+stop" to the form it counts.
+# The forms of the tier kernels (D, A', E, F, the long-row combine, #8, #9,
+# #10 and the node-batched A', combine and E): float64 values with int32
+# columns and marks, float32 with int32, and float32 with the compact int16
+# columns and int8 marks; their C entry points carry the suffix.  The early
+# stop of F and #9 adds "+stop" to the form it counts.
 TIER_FORMS = ("f64", "f32", "f32c")
 _FORM_SUFFIX = {"f64": "", "f32": "_f32", "f32c": "_f32c"}
 _FLOATS = (torch.float64, torch.float32)
@@ -102,21 +106,35 @@ def _float_dtype(name: str, t: torch.Tensor) -> torch.dtype:
     return t.dtype
 
 
-def _check_tier_tiles(val, col, lb, ub, n_pad, is_int_g=None):
-    """The tiles and bound vectors of D, A' or E in one of :data:`TIER_FORMS`
-    (the compact ids only with float32 values); returns ``(chunks, K,
+def _check_tier_stream(val, col, is_int_g=None, compact_ok: bool = True):
+    """A tile stream in one of :data:`TIER_FORMS` (the compact ids only with
+    float32 values, and only where ``compact_ok``); returns ``(T, R, K,
     form)``."""
     t, r, k = val.shape
     dt = _float_dtype("val", val)
-    compact = dt == torch.float32 and col.dtype == torch.int16
+    compact = compact_ok and dt == torch.float32 and col.dtype == torch.int16
     _expect("val", val, dt, (t, r, k))
     _expect("col", col, torch.int16 if compact else torch.int32, (t, r, k))
     if is_int_g is not None:
         _expect("is_int_g", is_int_g, torch.int8 if compact else torch.int32, (t, r, k))
-    _expect("lb", lb, dt, (n_pad,))
-    _expect("ub", ub, dt, (n_pad,))
     form = "f64" if dt == torch.float64 else "f32c" if compact else "f32"
+    return t, r, k, form
+
+
+def _check_tier_tiles(val, col, lb, ub, n_pad, is_int_g=None):
+    """The tiles and bound vectors of D, A' or E in one of :data:`TIER_FORMS`
+    (the compact ids only with float32 values); returns ``(chunks, K,
+    form)``."""
+    t, r, k, form = _check_tier_stream(val, col, is_int_g)
+    _expect("lb", lb, val.dtype, (n_pad,))
+    _expect("ub", ub, val.dtype, (n_pad,))
     return t * r, k, form
+
+
+def _value_form(name: str, t: torch.Tensor) -> str:
+    """The form of a kernel without index streams (the merges, the
+    combines): f64 or f32, by the value type of ``t``."""
+    return "f64" if _float_dtype(name, t) is torch.float64 else "f32"
 
 
 def _tier_entry(name: str, form: str):
@@ -721,7 +739,7 @@ def combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start, classes=N
     operands = (mf, mc, xf, xc, chunk_row, row_start)
     if not _on_cuda(*operands):
         return ref.combine_chunk_partials_ref(mf, mc, xf, xc, chunk_row, row_start)
-    form = "f64" if _float_dtype("mf", mf) is torch.float64 else "f32"
+    form = _value_form("mf", mf)
     _check_partials(mf, mc, xf, xc, tuple(mf.shape), mf.dtype)
     _expect("chunk_row", chunk_row, torch.int32, tuple(mf.shape))
     _expect("row_start", row_start, torch.int64, (row_start.shape[0],))
@@ -748,9 +766,9 @@ combine_chunk_partials_tiles.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _check_planes(bsz: int, n_pad: int, **planes) -> None:
+def _check_planes(bsz: int, n_pad: int, dtype=torch.float64, **planes) -> None:
     for name, t in planes.items():
-        _expect(name, t, torch.float64, (bsz, n_pad))
+        _expect(name, t, dtype, (bsz, n_pad))
 
 
 def node_fused_scatter_round_tiles(
@@ -782,30 +800,31 @@ def node_fused_scatter_round_tiles(
     gathered once and held from the sums to the candidates (as many strides
     as the longest chunk needs, the values, columns and marks loaded
     together); the column max/min by fire-and-forget 64-bit integer
-    reductions; no plane is allocated or filled per launch."""
+    reductions; no plane is allocated or filled per launch.  Float64 or
+    float32 (``csrc/batch_tier_round.cu``, the same template; with the
+    compact ids of a float32 prep whose ``n_pad`` fits int16), at 4 B a
+    value, 2 B a compact column and 1 B a compact mark."""
     operands = (val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, *acc)
     if not _on_cuda(*operands):
         return _fold(acc, ref.node_fused_scatter_round_ref(
             val, col, is_int_g, lhs_g, rhs_g, lb, ub, n_pad, int_eps, inf, active=active
         ))
-    t, r, k = val.shape
-    _expect("val", val, torch.float64, (t, r, k))
-    _expect("col", col, torch.int32, (t, r, k))
-    _expect("is_int_g", is_int_g, torch.int32, (t, r, k))
-    _expect("lhs_g", lhs_g, torch.float64, (t, r))
-    _expect("rhs_g", rhs_g, torch.float64, (t, r))
+    t, r, k, form = _check_tier_stream(val, col, is_int_g)
+    _expect("lhs_g", lhs_g, val.dtype, (t, r))
+    _expect("rhs_g", rhs_g, val.dtype, (t, r))
     bsz = lb.shape[0]
     best_l, best_u = acc
-    _check_planes(bsz, n_pad, lb=lb, ub=ub, best_l=best_l, best_u=best_u)
+    _check_planes(bsz, n_pad, val.dtype, lb=lb, ub=ub, best_l=best_l, best_u=best_u)
     _expect("active", active, torch.bool, (bsz,))
     clen = _chunk_len(val, chunk_len)
-    err = _build.lib().node_fused_scatter_round(
+    entry, symbol = _tier_entry("node_fused_scatter_round", form)
+    err = entry(
         _p(val), _p(col), _p(is_int_g), _p(clen), _p(lhs_g), _p(rhs_g), _p(lb), _p(ub),
         _p(active), _p(best_l), _p(best_u), t * r, k, _max_len(k, max_chunk_len), bsz, n_pad,
         int_eps, inf, _stream(),
     )
-    node_fused_scatter_round_tiles.launches += 1
-    _build.check(err, "node_fused_scatter_round")
+    _launched(node_fused_scatter_round_tiles, form)
+    _build.check(err, symbol)
     return best_l, best_u
 
 
@@ -823,15 +842,13 @@ node_fused_scatter_round_tiles.launches = 0
 
 
 def _check_node_tiles(val, col, lb, ub, active, n_pad, is_int_g=None):
-    t, r, k = val.shape
-    _expect("val", val, torch.float64, (t, r, k))
-    _expect("col", col, torch.int32, (t, r, k))
-    if is_int_g is not None:
-        _expect("is_int_g", is_int_g, torch.int32, (t, r, k))
+    """One instance's tiles in one of :data:`TIER_FORMS` and its node
+    planes; returns ``(T, R, K, B, form)``."""
+    t, r, k, form = _check_tier_stream(val, col, is_int_g)
     bsz = lb.shape[0]
-    _check_planes(bsz, n_pad, lb=lb, ub=ub)
+    _check_planes(bsz, n_pad, val.dtype, lb=lb, ub=ub)
     _expect("active", active, torch.bool, (bsz,))
-    return t, r, k, bsz
+    return t, r, k, bsz, form
 
 
 def node_activities_gather_tiles(val, col, lb, ub, active, n_pad: int, inf: float = INF,
@@ -848,24 +865,27 @@ def node_activities_gather_tiles(val, col, lb, ub, active, n_pad: int, inf: floa
     solver's sizes), each active node's gathers from its bound rows and 24
     B of partials per (active node, chunk).  Design: kernel #10's scheme
     over A''s loads: each warp loads its chunks' strides once, ballots the
-    mask 32 nodes at a time and visits the active nodes only."""
+    mask 32 nodes at a time and visits the active nodes only.  Float64 or
+    float32 (``csrc/batch_tier_round.cu``), with the compact ids as
+    #10's."""
     if not _on_cuda(val, col, lb, ub, active):
         return ref.node_activities_gather_ref(val, col, lb, ub, active, n_pad, inf)
-    t, r, k, bsz = _check_node_tiles(val, col, lb, ub, active, n_pad)
+    t, r, k, bsz, form = _check_node_tiles(val, col, lb, ub, active, n_pad)
     clen = _chunk_len(val, chunk_len)
     dev = val.device
-    mf = torch.empty((bsz, t, r), dtype=torch.float64, device=dev)
-    xf = torch.empty((bsz, t, r), dtype=torch.float64, device=dev)
+    mf = torch.empty((bsz, t, r), dtype=val.dtype, device=dev)
+    xf = torch.empty((bsz, t, r), dtype=val.dtype, device=dev)
     mc = torch.empty((bsz, t, r), dtype=torch.int32, device=dev)
     xc = torch.empty((bsz, t, r), dtype=torch.int32, device=dev)
     if t == 0 or bsz == 0:
         return mf, mc, xf, xc
-    err = _build.lib().node_activities_gather(
+    entry, symbol = _tier_entry("node_activities_gather", form)
+    err = entry(
         _p(val), _p(col), _p(clen), _p(lb), _p(ub), _p(active), _p(mf), _p(mc), _p(xf),
         _p(xc), t * r, k, bsz, n_pad, inf, _stream(),
     )
-    node_activities_gather_tiles.launches += 1
-    _build.check(err, "node_activities_gather")
+    _launched(node_activities_gather_tiles, form)
+    _build.check(err, symbol)
     return mf, mc, xf, xc
 
 
@@ -882,16 +902,18 @@ def node_combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start, acti
     inactive nodes' planes not written (zeros in the plain version).
 
     No Pallas twin (the reference's XLA ``segment_sum``, vmapped).  Bound
-    on the H100: 48 B per (active node, chunk).  Design: a (segment block,
-    group of 32 nodes) grid; each warp ballots its group's flags and, for
-    each active node, runs the single-instance combine's thread (short
-    segments) or warp (long segments) on the node's planes."""
+    on the H100: 48 B per (active node, chunk) (32 B at float32).  Design:
+    a (segment block, group of 32 nodes) grid; each warp ballots its
+    group's flags and, for each active node, runs the single-instance
+    combine's thread (short segments) or warp (long segments) on the
+    node's planes.  Float64 or float32 (``csrc/batch_tier_round.cu``)."""
     operands = (mf, mc, xf, xc, chunk_row, row_start, active)
     if not _on_cuda(*operands):
         return ref.node_combine_chunk_partials_ref(*operands)
     bsz = mf.shape[0]
     shape = (bsz, *chunk_row.shape)
-    _check_partials(mf, mc, xf, xc, shape)
+    form = _value_form("mf", mf)
+    _check_partials(mf, mc, xf, xc, shape, mf.dtype)
     _expect("chunk_row", chunk_row, torch.int32, shape[1:])
     _expect("row_start", row_start, torch.int64, (row_start.shape[0],))
     _expect("active", active, torch.bool, (bsz,))
@@ -900,13 +922,14 @@ def node_combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start, acti
     omc, oxc = torch.empty_like(mc), torch.empty_like(xc)
     if bsz == 0 or short.numel() + long.numel() == 0:
         return omf, omc, oxf, oxc
-    err = _build.lib().node_combine_chunk_partials(
+    entry, symbol = _tier_entry("node_combine_chunk_partials", form)
+    err = entry(
         _p(mf), _p(mc), _p(xf), _p(xc), _p(row_start), _p(short), _p(long), _p(active),
         _p(omf), _p(omc), _p(oxf), _p(oxc), short.numel(), long.numel(), chunk_row.numel(), bsz,
         _stream(),
     )
-    node_combine_chunk_partials_tiles.launches += 1
-    _build.check(err, "node_combine_chunk_partials")
+    _launched(node_combine_chunk_partials_tiles, form)
+    _build.check(err, symbol)
     return omf, omc, oxf, oxc
 
 
@@ -929,27 +952,30 @@ def node_candidates_scatter_tiles(
     active node's bound rows read and accumulator rows written.  Design:
     kernel #10's ballot over E's loads (strides loaded once per warp) and
     E's integer-atomic scatter into each node's row; the accumulator
-    planes are filled with the sentinel before the launch."""
+    planes are filled with the sentinel before the launch.  Float64 or
+    float32 (``csrc/batch_tier_round.cu``), with the compact ids as
+    #10's."""
     operands = (val, col, is_int_g, row_min_fin, row_min_cnt, row_max_fin, row_max_cnt,
                 lhs_g, rhs_g, lb, ub, active)
     if not _on_cuda(*operands):
         return ref.node_candidates_scatter_ref(*operands, n_pad, int_eps, inf)
-    t, r, k, bsz = _check_node_tiles(val, col, lb, ub, active, n_pad, is_int_g)
-    _check_rows((bsz, t, r), row_min_fin=row_min_fin, row_min_cnt=row_min_cnt,
+    t, r, k, bsz, form = _check_node_tiles(val, col, lb, ub, active, n_pad, is_int_g)
+    _check_rows((bsz, t, r), val.dtype, row_min_fin=row_min_fin, row_min_cnt=row_min_cnt,
                 row_max_fin=row_max_fin, row_max_cnt=row_max_cnt)
-    _check_rows((t, r), lhs_g=lhs_g, rhs_g=rhs_g)
+    _check_rows((t, r), val.dtype, lhs_g=lhs_g, rhs_g=rhs_g)
     clen = _chunk_len(val, chunk_len)
-    best_l = torch.full((bsz, n_pad), -inf, dtype=torch.float64, device=val.device)
-    best_u = torch.full((bsz, n_pad), inf, dtype=torch.float64, device=val.device)
+    best_l = torch.full((bsz, n_pad), -inf, dtype=val.dtype, device=val.device)
+    best_u = torch.full((bsz, n_pad), inf, dtype=val.dtype, device=val.device)
     if t == 0 or bsz == 0:
         return best_l, best_u
-    err = _build.lib().node_candidates_scatter(
+    entry, symbol = _tier_entry("node_candidates_scatter", form)
+    err = entry(
         _p(val), _p(col), _p(is_int_g), _p(clen), _p(row_min_fin), _p(row_min_cnt),
         _p(row_max_fin), _p(row_max_cnt), _p(lhs_g), _p(rhs_g), _p(lb), _p(ub), _p(active),
         _p(best_l), _p(best_u), t * r, k, bsz, n_pad, int_eps, inf, _stream(),
     )
-    node_candidates_scatter_tiles.launches += 1
-    _build.check(err, "node_candidates_scatter")
+    _launched(node_candidates_scatter_tiles, form)
+    _build.check(err, symbol)
     return best_l, best_u
 
 
@@ -1009,33 +1035,33 @@ def batched_fused_scatter_round_tiles(
     gathered once and held from the sums to the candidates (values, columns
     and marks loaded together, each chunk stopped at its length); the
     column max/min by fire-and-forget 64-bit integer reductions; no plane
-    is allocated or filled per launch."""
+    is allocated or filled per launch.  Float64 or float32
+    (``csrc/batch_tier_round.cu``, the same template, int32 ids as the
+    reference's packed batch keeps them), at 4 B a value."""
     operands = (val, col, is_int_g, lhs_g, rhs_g, lb, ub, tile_inst, active, *acc)
     if not _on_cuda(*operands):
         return _fold(acc, ref.batched_fused_scatter_round_ref(
             val, ref.global_columns(col, tile_inst, n_pad), is_int_g, lhs_g, rhs_g, lb, ub,
             n_pad, int_eps, inf, active=active,
         ))
-    t, r, k = val.shape
-    _expect("val", val, torch.float64, (t, r, k))
-    _expect("col", col, torch.int32, (t, r, k))
-    _expect("is_int_g", is_int_g, torch.int32, (t, r, k))
-    _expect("lhs_g", lhs_g, torch.float64, (t, r))
-    _expect("rhs_g", rhs_g, torch.float64, (t, r))
+    t, r, k, form = _check_tier_stream(val, col, is_int_g, compact_ok=False)
+    _expect("lhs_g", lhs_g, val.dtype, (t, r))
+    _expect("rhs_g", rhs_g, val.dtype, (t, r))
     _expect("tile_inst", tile_inst, torch.int32, (t,))
     bsz = lb.shape[0]
     best_l, best_u = acc
-    _check_planes(bsz, n_pad, lb=lb, ub=ub, best_l=best_l, best_u=best_u)
+    _check_planes(bsz, n_pad, val.dtype, lb=lb, ub=ub, best_l=best_l, best_u=best_u)
     _expect("active", active, torch.bool, (bsz,))
     start = _instance_chunks(tile_inst, r, bsz, chunks)
     clen = _chunk_len(val, chunk_len)
-    err = _build.lib().batched_fused_scatter_round(
+    entry, symbol = _tier_entry("batched_fused_scatter_round", form)
+    err = entry(
         _p(val), _p(col), _p(is_int_g), _p(clen), _p(lhs_g), _p(rhs_g), _p(lb), _p(ub),
         _p(start), _p(active), _p(best_l), _p(best_u), t * r, k, _max_len(k, max_chunk_len),
         bsz, n_pad, int_eps, inf, _stream(),
     )
-    batched_fused_scatter_round_tiles.launches += 1
-    _build.check(err, "batched_fused_scatter_round")
+    _launched(batched_fused_scatter_round_tiles, form)
+    _build.check(err, symbol)
     return best_l, best_u
 
 
@@ -1068,7 +1094,7 @@ def batched_occupancy_round_tiles(
 
 def apply_updates_batch_tiles(
     lb, ub, best_l, best_u, active, eps: float, inf: float = INF, outward: float = 0.0,
-    *, flags: FlagPair | None = None,
+    *, flags: FlagPair | None = None, progress=None, partials=None, ticket=None,
 ):
     """Batched merge with ``bounds.apply_updates_batch`` semantics, IN
     PLACE: ``(B, n_pad)`` ``lb``/``ub`` are overwritten and returned with a
@@ -1095,25 +1121,62 @@ def apply_updates_batch_tiles(
     (``round_common.cuh``), templated on where the flag goes; for at most
     16 rows (``kMergeGridRows``) it runs on a (column block, row) grid
     instead, whose few blocks of inactive rows cost less than the walk's
-    ballot ahead of the first load."""
+    ballot ahead of the first load.
+
+    Float64 or float32 (the fp32 tier, whose merges widen outward by
+    ``outward``; ``csrc/batch_tier_round.cu``), at 4 B a value.
+    ``progress`` (a ``(B,)`` tensor of the bounds' dtype) arms the batched
+    early stop's measure: the kernel (``apply_updates_batch_stop``) also
+    writes each active row's progress measure of this merge into it, in
+    place, summed in the order of ``ref.merge_order_sum`` per row: each
+    (row, block of 1,024 columns) item's sum into ``partials`` (``(B,
+    ceil(n_pad / ref.MERGE_BLOCK))``, kept by the round closure; allocated
+    here when omitted), then the launch's last block sums each active
+    row's in block order.  ``ticket`` (a ``(1,)`` int32 holding 0, kept
+    with them; the last block sets it back to 0) counts the blocks.
+    Inactive rows' entries are not written.  The streak and the mask are
+    the caller's (``core.propagator.batched_step_rounds``).  Without it #9
+    runs as before, to the bit."""
     if not _on_cuda(lb, ub, best_l, best_u, active):
         new_lb, new_ub, changed = bnd.apply_updates_batch(
             lb, ub, best_l, best_u, eps, inf, outward, active=active
         )
+        if progress is not None:
+            blocks, prog = ref.merge_rows_progress(lb, ub, new_lb, new_ub)
+            progress.copy_(torch.where(active, prog, progress))
+            if partials is not None:
+                partials.copy_(torch.where(active[:, None], blocks, partials))
         _hand_back(best_l, best_u, active, inf)
         lb.copy_(new_lb)
         ub.copy_(new_ub)
         return lb, ub, _plain_flags(flags, changed)
     bsz, n_pad = lb.shape
-    _check_planes(bsz, n_pad, lb=lb, ub=ub, best_l=best_l, best_u=best_u)
+    form = _value_form("lb", lb)
+    _check_planes(bsz, n_pad, lb.dtype, lb=lb, ub=ub, best_l=best_l, best_u=best_u)
     _expect("active", active, torch.bool, (bsz,))
     changed, clear = _flag_buffers(flags, (bsz,), torch.bool, lb.device)
-    err = _build.lib().apply_updates_batch(
-        _p(lb), _p(ub), _p(best_l), _p(best_u), _p(active), _p(changed),
-        None if clear is None else _p(clear), bsz, n_pad, eps, inf, outward, _stream(),
-    )
-    apply_updates_batch_tiles.launches += 1
-    _build.check(err, "apply_updates_batch")
+    head = (_p(lb), _p(ub), _p(best_l), _p(best_u), _p(active), _p(changed),
+            None if clear is None else _p(clear))
+    if progress is None:
+        entry, symbol = _tier_entry("apply_updates_batch", form)
+        err = entry(*head, bsz, n_pad, eps, inf, outward, _stream())
+    else:
+        blocks = -(-n_pad // ref.MERGE_BLOCK)
+        if partials is None:
+            partials = torch.empty((bsz, blocks), dtype=lb.dtype, device=lb.device)
+        if ticket is None:
+            ticket = torch.zeros(1, dtype=torch.int32, device=lb.device)
+        _expect("progress", progress, lb.dtype, (bsz,))
+        _expect("partials", partials, lb.dtype, (bsz, blocks))
+        _expect("ticket", ticket, torch.int32, (1,))
+        symbol = "apply_updates_batch_stop" + ("" if form == "f64" else "_f32")
+        err = getattr(_build.lib(), symbol)(
+            *head, _p(partials), _p(progress), _p(ticket), bsz, n_pad, eps, inf, outward,
+            _stream(),
+        )
+        form += "+stop"
+    _launched(apply_updates_batch_tiles, form)
+    _build.check(err, symbol)
     return lb, ub, changed
 
 
@@ -1668,10 +1731,10 @@ def launch_counts() -> dict:
 
 
 def form_counts() -> dict:
-    """Launches of the tier kernels (D, A', E, F, the long-row combine) by
-    form since the last :func:`reset_launch_counts`, keyed
-    ``"<wrapper>[<form>]"`` (:data:`TIER_FORMS`, F's early stop as
-    ``"+stop"``)."""
+    """Launches of the tier kernels (D, A', E, F, the long-row combine, #8,
+    #9, #10 and the node-batched A', combine and E) by form since the last
+    :func:`reset_launch_counts`, keyed ``"<wrapper>[<form>]"``
+    (:data:`TIER_FORMS`, the early stop of F and #9 as ``"+stop"``)."""
     return {f"{name}[{form}]": n for (name, form), n in FORM_LAUNCHES.items()}
 
 

@@ -191,36 +191,58 @@ MERGE_COLUMNS = 4
 MERGE_BLOCK = MERGE_THREADS * MERGE_COLUMNS
 
 
-def merge_order_sum(x):
-    """Sum of the ``(n,)`` vector ``x`` in the order of kernel F's early
-    stop (``csrc/round_common.cuh`` ``StopCarryFlags``): each thread adds
-    its columns in order, each warp reduces its 32 sums by the butterfly
-    of :func:`warp_order_sum`, each block adds its 8 warp sums left to
-    right, and the block sums are reduced as :func:`warp_order_sum` reduces
-    a row.  Padding columns add +0.0, which changes no sum of these
-    non-negative terms."""
+def merge_block_sums(x):
+    """Block sums of the last axis of ``x`` (``(..., n)``) in the order of
+    the merges' early-stop measure (``csrc/round_common.cuh``
+    ``StopCarryFlags`` and ``RowStopFlags``): each thread adds its columns
+    in order, each warp reduces its 32 sums by the butterfly of
+    :func:`warp_order_sum`, each block adds its 8 warp sums left to right.
+    Returns ``(..., ceil(n / MERGE_BLOCK))``.  Padding columns add +0.0,
+    which changes no sum of these non-negative terms."""
     pad = (-x.shape[-1]) % MERGE_BLOCK
     if pad:
         x = torch.nn.functional.pad(x, (0, pad))
-    x = x.reshape(-1, MERGE_COLUMNS, MERGE_THREADS)
-    acc = x[:, 0]
+    x = x.reshape(*x.shape[:-1], -1, MERGE_COLUMNS, MERGE_THREADS)
+    acc = x[..., 0, :]
     for v in range(1, MERGE_COLUMNS):
-        acc = acc + x[:, v]
-    warps = warp_order_sum(acc.reshape(-1, MERGE_THREADS // WARP, WARP))
-    block = warps[:, 0]
-    for w in range(1, warps.shape[1]):
-        block = block + warps[:, w]
-    return warp_order_sum(block)
+        acc = acc + x[..., v, :]
+    warps = warp_order_sum(acc.reshape(*acc.shape[:-1], MERGE_THREADS // WARP, WARP))
+    block = warps[..., 0]
+    for w in range(1, warps.shape[-1]):
+        block = block + warps[..., w]
+    return block
 
 
-def merge_progress(lb, ub, new_lb, new_ub):
-    """The progress measure of one merge (``bounds.progress_measure``'s
-    terms) summed in kernel F's order (:func:`merge_order_sum`)."""
+def merge_order_sum(x):
+    """Sum of the last axis of ``x`` in the order of the merges' early stop:
+    the block sums of :func:`merge_block_sums`, reduced as
+    :func:`warp_order_sum` reduces a row (kernel F's last block, and #9's
+    per row)."""
+    return warp_order_sum(merge_block_sums(x))
+
+
+def _progress_terms(lb, ub, new_lb, new_ub):
+    """``bounds.progress_measure``'s terms, one per column."""
     dl = new_lb - lb
     du = ub - new_ub
     sl = 1.0 + torch.maximum(lb.abs(), new_lb.abs())
     su = 1.0 + torch.maximum(ub.abs(), new_ub.abs())
-    return merge_order_sum(dl / sl + du / su)
+    return dl / sl + du / su
+
+
+def merge_progress(lb, ub, new_lb, new_ub):
+    """The progress measure of one merge (``bounds.progress_measure``'s
+    terms) summed in kernel F's order (:func:`merge_order_sum`); over the
+    last axis, so ``(B, n)`` planes give one measure per row (#9's)."""
+    return merge_order_sum(_progress_terms(lb, ub, new_lb, new_ub))
+
+
+def merge_rows_progress(lb, ub, new_lb, new_ub):
+    """#9's early-stop measure of one merge of ``(B, n)`` planes: each row's
+    block sums ``(B, ceil(n / MERGE_BLOCK))`` (the kernel's partials) and
+    their sum in block order ``(B,)`` (the row's measure)."""
+    blocks = merge_block_sums(_progress_terms(lb, ub, new_lb, new_ub))
+    return blocks, warp_order_sum(blocks)
 
 
 def merge_carry_ref(lb, ub, best_l, best_u, eps: float, inf: float, outward: float, carry,

@@ -523,12 +523,27 @@ def test_results_unpadded_and_repeat_stable():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(policy=object()), "item 5"),
+    (dict(policy="TierPolicy"), "item 5"),
     (dict(stop_progress=0.1), "item 5"),
     (dict(patience=2), "item 5"),
     (dict(telemetry=8), "item 6"),
     (dict(dtype=np.float32), "item 5"),
 ])
 def test_options_outside_the_slice_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        rt.propagate_batch(_port([rd.make_knapsack(n=20, m=8, seed=0)]), device="cpu", **kw)
+    """``telemetry=`` (item 6) still raises; the precision-tier options of
+    item 5 now run and are held to the reference's result (flags, tier
+    rounds and bounds, bitwise on the knapsack)."""
+    pr = rd.make_knapsack(n=20, m=8, seed=0)
+    if "telemetry" in kw:
+        with pytest.raises(NotImplementedError, match=item):
+            rt.propagate_batch(_port([pr]), device="cpu", **kw)
+        return
+    port_kw, ref_kw = dict(kw), dict(kw)
+    if "policy" in kw:
+        port_kw["policy"], ref_kw["policy"] = rt.core.TierPolicy(), rc.TierPolicy()
+    (got,) = rt.propagate_batch(_port([pr]), device="cpu", **port_kw)
+    (want,) = rc.propagate_batch([pr], use_pallas=False, **ref_kw)
+    for f in ("rounds", "converged", "infeasible", "tier_rounds"):
+        assert int(getattr(got, f)) == int(getattr(want, f)), f
+    np.testing.assert_array_equal(got.lb.double().numpy(), np.asarray(want.lb, np.float64))
+    np.testing.assert_array_equal(got.ub.double().numpy(), np.asarray(want.ub, np.float64))

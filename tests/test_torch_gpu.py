@@ -1964,3 +1964,209 @@ def test_tiers_on_card_match_cpu(cuda, gen_name, kw, tile_width, exact):
                 _match(got.ub, want.ub)
             else:
                 assert rt.bounds_equal(got.lb, got.ub, want.lb, want.ub)
+
+
+# ---------------------------------------------------------------------------
+# The precision tiers on the batched engines: the float32 forms of #8, #9,
+# #10 and the node-batched A', combine and E, and #9 with the early stop
+# ---------------------------------------------------------------------------
+
+
+def _tier_planes(lb, ub):
+    return lb.to(torch.float32), ub.to(torch.float32)
+
+
+@pytest.mark.parametrize("compact", [True, False], ids=["f32c", "f32"])
+@pytest.mark.parametrize("exact", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("t,r,k,n", LENGTH_SHAPES)
+def test_float32_node_kernels_match_plain_versions(cuda, gen, t, r, k, n, exact, compact):
+    """#10, the node-batched A', combine and E and #9 (with the tier's
+    widening) at float32 on both index forms, over five nodes with every,
+    some and no node active: bitwise equal to their plain versions (the
+    partials of inactive nodes unwritten), each launching its float form."""
+    cfg = rt.core.DEFAULT_CONFIG
+    eps, outward = cfg.eps_for(torch.float32), cfg.outward_for(torch.float32)
+    form = "f32c" if compact else "f32"
+    x = _tier_tiles(_packed_tiles(gen, t, r, k, n, exact, cuda), compact)
+    lb, ub = _tier_planes(*_planes(gen, 5, x["n_pad"], exact, cuda))
+    m = t * r // 3 + 1
+    cuts = np.sort(gen.choice(np.arange(1, t * r), size=m - 1, replace=False))
+    crow = np.zeros(t * r, np.int32)
+    crow[cuts] = 1
+    crow_t = torch.from_numpy(np.cumsum(crow).astype(np.int32).reshape(t, r)).to(cuda)
+    row_start = tref.row_starts(crow_t, int(crow_t.max()) + 1)
+    for act in (torch.ones(5, dtype=torch.bool), torch.arange(5) % 2 == 0,
+                torch.zeros(5, dtype=torch.bool)):
+        act = act.to(cuda)
+        tk.reset_launch_counts()
+        args = (x["val"], x["col"], x["ii"], x["lhs"], x["rhs"], lb, ub, act, x["n_pad"], 1e-6)
+        acc = tk.accumulator_planes(lb)
+        got = tk.node_fused_scatter_round_tiles(*args, acc=acc, chunk_len=x["clen"])
+        want = tref.node_fused_scatter_round_ref(*args[:7], x["n_pad"], 1e-6, active=act)
+        for g, w in zip(got, want):
+            _match(g, w)
+        want_m = rt.core.apply_updates_batch(lb, ub, *want, eps, INF, outward, active=act)
+        got_m = tk.apply_updates_batch_tiles(lb.clone(), ub.clone(), *acc, act, eps, INF,
+                                             outward)
+        for g, w in zip(got_m, want_m):
+            _match(g, w)
+        assert _clean(acc)
+        a_args = (x["val"], x["col"], lb, ub, act, x["n_pad"])
+        parts = tk.node_activities_gather_tiles(*a_args, chunk_len=x["clen"])
+        want_p = tref.node_activities_gather_ref(*a_args)
+        for g, w in zip(parts, want_p):
+            _match(g[act], w[act])
+        c_args = (*want_p, crow_t, row_start, act)
+        aggs = tk.node_combine_chunk_partials_tiles(*c_args)
+        want_a = tref.node_combine_chunk_partials_ref(*c_args)
+        for g, w in zip(aggs, want_a):
+            _match(g[act], w[act])
+        e_args = (x["val"], x["col"], x["ii"], *want_a, x["lhs"], x["rhs"], lb, ub, act,
+                  x["n_pad"], 1e-6)
+        for g, w in zip(tk.node_candidates_scatter_tiles(*e_args, chunk_len=x["clen"]),
+                        tref.node_candidates_scatter_ref(*e_args)):
+            _match(g, w)
+        assert tk.form_counts() == {
+            f"node_fused_scatter_round_tiles[{form}]": 1, "apply_updates_batch_tiles[f32]": 1,
+            f"node_activities_gather_tiles[{form}]": 1,
+            "node_combine_chunk_partials_tiles[f32]": 1,
+            f"node_candidates_scatter_tiles[{form}]": 1}
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("mask", ["on", "mixed", "off"])
+@pytest.mark.parametrize("sizes,r,k,n", [((2, 3, 1), 4, 8, 20), ((1, 4, 2), 8, 128, 300),
+                                         ((40, 7, 90), 8, 4, 5000)])
+def test_float32_batched_fused_kernel_matches_plain_version(cuda, gen, sizes, r, k, n, mask,
+                                                            exact):
+    """#8 at float32 (int32 ids) into kept planes, then #9 at float32,
+    bitwise equal to their plain versions; each active row also equal to
+    D's float32 form on that instance."""
+    cfg = rt.core.DEFAULT_CONFIG
+    eps, outward = cfg.eps_for(torch.float32), cfg.outward_for(torch.float32)
+    bsz = len(sizes)
+    xs = [_tier_tiles(_tiles(gen, s, r, k, n, exact, cuda), False) for s in sizes]
+    cat = lambda f: torch.cat([x[f] for x in xs])
+    val, col, ii, lhs, rhs = cat("val"), cat("col"), cat("ii"), cat("lhs"), cat("rhs")
+    lb = torch.stack([x["lb"] for x in xs])
+    ub = torch.stack([x["ub"] for x in xs])
+    n_pad = xs[0]["n_pad"]
+    tile_inst = torch.repeat_interleave(torch.arange(bsz, dtype=torch.int32, device=cuda),
+                                        torch.tensor(sizes, device=cuda))
+    active = torch.tensor({"on": [True] * 3, "mixed": [True, False, True],
+                           "off": [False] * 3}[mask], device=cuda)
+    tk.reset_launch_counts()
+    acc = tk.accumulator_planes(lb)
+    got = tk.batched_fused_scatter_round_tiles(val, col, ii, lhs, rhs, lb, ub, tile_inst,
+                                               active, n_pad, 1e-6, acc=acc)
+    want = tref.batched_fused_scatter_round_ref(
+        val, tref.global_columns(col, tile_inst, n_pad), ii, lhs, rhs, lb, ub, n_pad, 1e-6,
+        active=active)
+    for g, w in zip(got, want):
+        _match(g, w)
+    for i, x in enumerate(xs):
+        if active[i]:
+            one = tk.fused_scatter_round_tiles(x["val"], x["col"], x["ii"], x["lhs"], x["rhs"],
+                                               x["lb"], x["ub"], n_pad, 1e-6)
+            _match(got[0][i], one[0])
+            _match(got[1][i], one[1])
+    merged = rt.core.apply_updates_batch(lb, ub, *want, eps, INF, outward, active=active)
+    for g, w in zip(tk.apply_updates_batch_tiles(lb.clone(), ub.clone(), *acc, active, eps, INF,
+                                                 outward), merged):
+        _match(g, w)
+    assert _clean(acc)
+    counts = tk.form_counts()
+    assert counts["batched_fused_scatter_round_tiles[f32]"] == 1
+    assert counts["apply_updates_batch_tiles[f32]"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("bsz,n_act,width", [(5, 3, 1000), (16, 16, 3000), (128, 0, 1000),
+                                             (128, 33, 5000), (128, 128, 60_032)])
+def test_batched_merge_stop_matches_plain_version(cuda, gen, dtype, bsz, n_act, width):
+    """#9 with the early stop's measure, on the grid (at most 16 rows) and
+    on the walk, through three rounds with one ticket and one partials
+    buffer: bounds, flags, each active row's block partials and measure
+    bitwise its plain version's; inactive rows' entries untouched; the
+    ticket back at 0 after every launch."""
+    cfg = rt.core.DEFAULT_CONFIG
+    eps, outward = cfg.eps_for(dtype), cfg.outward_for(dtype)
+    act = _holey_mask(bsz, n_act, cuda)
+    lb, ub = _planes(gen, bsz, width, False, cuda)
+    lb, ub = lb.to(dtype), ub.to(dtype)
+    blocks = -(-width // tref.MERGE_BLOCK)
+    part_k = torch.full((bsz, blocks), 7.0, dtype=dtype, device=cuda)
+    part_p = part_k.clone()
+    prog_k = torch.full((bsz,), 9.0, dtype=dtype, device=cuda)
+    prog_p = prog_k.clone()
+    ticket = torch.zeros(1, dtype=torch.int32, device=cuda)
+    tk.reset_launch_counts()
+    for step in (0.5, 1e-3, 0.25):
+        pick = torch.from_numpy(gen.random((bsz, width)) < 0.3).to(cuda)
+        bl = torch.where(pick, lb + step, torch.full_like(lb, -INF))
+        bu = torch.where(~pick, ub - step, torch.full_like(ub, INF))
+        got = tk.apply_updates_batch_tiles(lb.clone(), ub.clone(), bl.clone(), bu.clone(), act,
+                                           eps, INF, outward, progress=prog_k, partials=part_k,
+                                           ticket=ticket)
+        prog_w, part_w = prog_p.cpu(), part_p.cpu()
+        want = tk.apply_updates_batch_tiles(lb.cpu(), ub.cpu(), bl.cpu(), bu.cpu(), act.cpu(),
+                                            eps, INF, outward, progress=prog_w, partials=part_w)
+        _match_bits(got[0], want[0].to(cuda))
+        _match_bits(got[1], want[1].to(cuda))
+        _match(got[2], want[2].to(cuda))
+        _match_bits(prog_k, prog_w.to(cuda))
+        _match_bits(part_k[act], part_w.to(cuda)[act])
+        prog_p, part_p = prog_w.to(cuda), part_w.to(cuda)
+        assert int(ticket.item()) == 0
+        lb, ub = got[0], got[1]
+    assert bool((part_k[~act] == 7.0).all()) and bool((prog_k[~act] == 9.0).all())
+    form = "f64+stop" if dtype == torch.float64 else "f32+stop"
+    assert tk.form_counts() == {f"apply_updates_batch_tiles[{form}]": 3}
+
+
+BATCH_TIER_RUNS = [dict(dtype=torch.float32), dict(policy=rt.core.TierPolicy()),
+                   dict(stop_progress=0.05, patience=1),
+                   dict(dtype=torch.float32, stop_progress=0.01, patience=2)]
+
+
+@pytest.mark.parametrize("case", range(len(BATCHES)))
+def test_batch_tiers_on_card_match_cpu(cuda, case):
+    """propagate_batch at float32, under TierPolicy() and with the early stop
+    on the card against the same runs on the CPU (the plain versions in the
+    kernels' order): every instance's flags, tier rounds, progress and
+    bounds bitwise."""
+    make, tile_width = BATCHES[case]
+    pop = make()
+    for run in BATCH_TIER_RUNS:
+        got = rt.propagate_batch(pop, tile_width=tile_width, **run)
+        want = rt.propagate_batch(pop, tile_width=tile_width, device="cpu", **run)
+        for g, w in zip(got, want):
+            for f in ("rounds", "converged", "infeasible", "tier_rounds", "lb", "ub"):
+                _match(getattr(g, f), getattr(w, f))
+            _match_bits(g.progress, w.progress)
+
+
+@pytest.mark.parametrize("tile_width", [8, 4])
+def test_node_and_service_tiers_on_card_match_cpu(cuda, tile_width):
+    """propagate_nodes and the service at float32, under TierPolicy() (nodes)
+    and with the early stop / early retire on the card against the CPU:
+    flags, tier rounds and bounds bitwise; the service's early-stop count
+    equal."""
+    p = td.make_pseudo_boolean(n=3000, m=4000, seed=7, unit_frac=0.002)
+    lb, ub = _nodes(p, 6)
+    for run in BATCH_TIER_RUNS:
+        got = rt.propagate_nodes(p, lb, ub, tile_width=tile_width, **run)
+        want = rt.propagate_nodes(p, lb, ub, tile_width=tile_width, device="cpu", **run)
+        for f in ("rounds", "converged", "infeasible", "lb", "ub"):
+            _match(getattr(got, f), getattr(want, f))
+        if "policy" in run:
+            _match(got.tier_rounds, want.tier_rounds)
+    pop = [td.make_pseudo_boolean(n=3000, m=4000, seed=s, unit_frac=0.002) for s in (7, 8, 9)]
+    for run in (dict(dtype=torch.float32), dict(stop_progress=0.05, patience=1)):
+        svc = rt.PropagationService.from_problems(pop, slots=2, tile_width=tile_width, **run)
+        ref = rt.PropagationService.from_problems(pop, slots=2, tile_width=tile_width,
+                                                  device="cpu", **run)
+        for g, w in zip(svc.serve(pop), ref.serve(pop)):
+            for f in ("rounds", "converged", "lb", "ub"):
+                _match(getattr(g, f), getattr(w, f))
+        assert svc.stats()["early_stopped"] == ref.stats()["early_stopped"]

@@ -147,7 +147,7 @@ def test_node_batch_api_and_branching_helpers():
     res = tn.propagate_node_batch(nb2, device="cpu")
     survivors = nb2.select(~res.infeasible.numpy())
     assert survivors.size == int((~res.infeasible.numpy()).sum())
-    assert res.tier_rounds is None and res.telemetry is None
+    assert res.tier_rounds == 0 and res.telemetry is None
 
 
 def test_pick_most_fractional_matches_reference(rng):
@@ -184,12 +184,24 @@ def test_batched_fixed_point_counts_one_read_per_round():
     assert len(reads) == int(got.rounds.max())
 
 
-@pytest.mark.parametrize("kw", [dict(policy=object()), dict(stop_progress=1e-3),
+@pytest.mark.parametrize("kw", [dict(policy="TierPolicy"), dict(stop_progress=1e-3),
                                 dict(telemetry=8), dict(patience=2)])
 def test_node_requests_outside_the_slice_raise(kw):
-    p = rt.problem_from_reference(rd.make_knapsack(n=10, m=4, seed=0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.propagate_nodes(p, p.lb[None], p.ub[None], device="cpu", **kw)
+    """``telemetry=`` (item 6) still raises; the precision-tier options now
+    run and are held to the reference's result."""
+    pr = rd.make_knapsack(n=10, m=4, seed=0)
+    p = rt.problem_from_reference(pr)
+    if "telemetry" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            rt.propagate_nodes(p, p.lb[None], p.ub[None], device="cpu", **kw)
+        return
+    port_kw, ref_kw = dict(kw), dict(kw)
+    if "policy" in kw:
+        port_kw["policy"], ref_kw["policy"] = rt.core.TierPolicy(), rc.TierPolicy()
+    got = rt.propagate_nodes(p, p.lb[None], p.ub[None], device="cpu", **port_kw)
+    want = rc.propagate_nodes(pr, pr.lb[None], pr.ub[None], use_pallas=False, **ref_kw)
+    for f in ("lb", "ub", "rounds", "converged", "infeasible", "tier_rounds"):
+        np.testing.assert_array_equal(np.asarray(getattr(got, f)), np.asarray(getattr(want, f)))
 
 
 def test_batched_step_rounds_matches_reference():
@@ -235,9 +247,15 @@ def test_batched_step_rounds_matches_reference():
                                       budget=2, with_progress=True)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12, equal_nan=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        rt.core.batched_step_rounds(t_fn, t(lb), t(ub), t(active), t(active), t(rounds), 4,
-                                    budget=2, stop_progress=0.1)
+    # The per-row early stop (item 5) on the same bounded step.
+    want = rc.batched_step_rounds(
+        r_fn, jnp.asarray(lb), jnp.asarray(ub), jnp.asarray(active), jnp.asarray(active),
+        jnp.asarray(rounds), cfg.max_rounds, budget=2, with_progress=True, stop_progress=0.1,
+    )
+    got = rt.core.batched_step_rounds(t_fn, t(lb), t(ub), t(active), t(active), t(rounds), 4,
+                                      budget=2, with_progress=True, stop_progress=0.1)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12, equal_nan=True)
 
 
 @pytest.mark.parametrize("tile_width", [4, 8])

@@ -516,22 +516,45 @@ def test_block_ell_outside_the_slice_raises(monkeypatch, case):
 
 
 @pytest.mark.parametrize("case", ["batch_policy", "batch_float32", "nodes_policy",
-                                  "nodes_float32", "service_stop", "service_float32"])
-def test_batched_engines_outside_the_slice_raise(case):
-    _, _, pt = _case("set_cover")
+                                  "nodes_float32", "service_stop", "service_float32",
+                                  "batch_past_the_limit", "nodes_past_the_limit"])
+def test_batched_engines_outside_the_slice_raise(monkeypatch, case):
+    """The batched engines' tier options: each case that the batched slice
+    ports now runs and is held to the reference's result (flags, tier
+    rounds, bounds bitwise on set cover, the service's early-stop count);
+    float32 past ``SCATTER_MAX_NPAD`` (the partitioned batch and node
+    rounds) still raises."""
+    _, pr, pt = _case("set_cover")
     lb, ub = np.asarray(pt.lb)[None], np.asarray(pt.ub)[None]
-    run = {
-        "batch_policy": lambda: rt.propagate_batch([pt], policy=rt.core.TierPolicy(),
-                                                   device="cpu"),
-        "batch_float32": lambda: rt.propagate_batch([pt], dtype=np.float32, device="cpu"),
-        "nodes_policy": lambda: rt.propagate_nodes(pt, lb, ub, policy=rt.core.TierPolicy(),
-                                                   device="cpu"),
-        "nodes_float32": lambda: rt.propagate_nodes(pt, lb, ub, dtype=np.float32,
-                                                    device="cpu"),
-        "service_stop": lambda: rt.PropagationService.from_problems(
-            [pt], slots=1, stop_progress=0.05, device="cpu"),
-        "service_float32": lambda: rt.PropagationService.from_problems(
-            [pt], slots=1, dtype=np.float32, device="cpu"),
-    }[case]
-    with pytest.raises(NotImplementedError, match="item 5, remainder"):
-        run()
+    rlb, rub = np.asarray(pr.lb)[None], np.asarray(pr.ub)[None]
+    if case.endswith("past_the_limit"):
+        monkeypatch.setattr(tops, "SCATTER_MAX_NPAD", 64)
+        run = (lambda: rt.propagate_batch([pt], dtype=np.float32, device="cpu")) if (
+            case.startswith("batch")) else (
+            lambda: rt.propagate_nodes(pt, lb, ub, dtype=np.float32, device="cpu"))
+        with pytest.raises(NotImplementedError, match="item 5, remainder"):
+            run()
+        return
+    kind, opt = case.split("_")
+    port_kw = {"policy": dict(policy=rt.core.TierPolicy()), "float32": dict(dtype=np.float32),
+               "stop": dict(stop_progress=0.05)}[opt]
+    ref_kw = {"policy": dict(policy=rc.TierPolicy()), "float32": dict(dtype=np.float32),
+              "stop": dict(stop_progress=0.05)}[opt]
+    if kind == "batch":
+        got = rt.propagate_batch([pt], device="cpu", **port_kw)[0]
+        want = rc.propagate_batch([pr], use_pallas=False, **ref_kw)[0]
+        _assert_flags(got, want)
+    elif kind == "nodes":
+        got = rt.propagate_nodes(pt, lb, ub, device="cpu", **port_kw)
+        want = rc.propagate_nodes(pr, rlb, rub, use_pallas=False, **ref_kw)
+        for f in ("rounds", "converged", "infeasible", "tier_rounds"):
+            np.testing.assert_array_equal(_np(getattr(got, f)), _np(getattr(want, f)))
+    else:
+        svc = rt.PropagationService.from_problems([pt], slots=1, device="cpu", **port_kw)
+        ref = rc.PropagationService.from_problems([pr], slots=1, use_pallas=False, **ref_kw)
+        got, want = svc.serve([pt])[0], ref.serve([pr])[0]
+        for f in ("rounds", "converged", "infeasible"):
+            assert int(getattr(got, f)) == int(getattr(want, f)), f
+        assert svc.stats()["early_stopped"] == ref.stats()["early_stopped"]
+    np.testing.assert_array_equal(_np(got.lb), np.asarray(want.lb, np.float64))
+    np.testing.assert_array_equal(_np(got.ub), np.asarray(want.ub, np.float64))
