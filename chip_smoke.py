@@ -8,8 +8,8 @@ numpy only, nothing of JAX) and, on one CUDA card:
 
   1. prints the card's name and power limit, builds the CUDA kernels of
      ``src/repro_torch/csrc/prop_round.cu``, ``slab_round.cu``,
-     ``tier_round.cu`` and ``batch_tier_round.cu`` from source (one ``nvcc``
-     per file, in parallel) and
+     ``tier_round.cu``, ``batch_tier_round.cu`` and ``slab_tier_round.cu``
+     from source (one ``nvcc`` per file, in parallel) and
      prints the build time and the compilers' register report;
   2. generates three instances at n = 60,000 columns, 150,000 rows (the
      paper's Set-5 size): ``pb`` (pseudo-boolean, exact arithmetic, rows in
@@ -164,7 +164,7 @@ numpy only, nothing of JAX) and, on one CUDA card:
      stop_progress=0.05, patience=1)``) on both drivers (same rounds and
      bounds); every float form must have been launched; the walls of the
      float64-only, float32-only and two-tier fixed points by driver;
- 15. (phase 14, last) the precision tiers on the batched engines: the float32
+ 15. (phase 14) the precision tiers on the batched engines: the float32
      forms of #8 (phase 9's fused bucket, 2 and 4 of 4 active), of #10 and
      the node-batched A', combine and E (128-slot pools of ``pbf``, int32
      ids, and ``pb30``, compact, with 8 and 128 active) and of #9, the flat
@@ -182,7 +182,25 @@ numpy only, nothing of JAX) and, on one CUDA card:
      bitwise, continuous within 1e-6 (1 + |b|); the early stop: no more
      rounds, an uncut run bitwise); the walls of the fused batch and the
      ``pbf`` nodes by variant; every float form must have been launched;
- 16. prints a ``kernels`` JSON line (the float forms as ``<wrapper>[<form>]``),
+ 16. (phase 15, last) the precision tiers on the segment and partitioned
+     engines: the float32 forms of A, B and C (``pb``, ``banded``, ``mixed``
+     with int32 ids; ``pb30``, ``mixed30`` with the compact int8 marks), of
+     #11, the straddle combine, #12 and #15 (``bandw``, ``pbw``), of #13 and
+     #14 (the ``pbw`` pool, 8 and 128 of 128 active), #15 with the early
+     stop folded into one instance's loop carry (float64 and float32, two
+     rounds: bounds, planes and the whole carry) and #15 with the per-row
+     measure (the partitioned bucket's two planes, timed, and the pool's
+     128 on the walk) against their plain versions, bitwise, timed beside
+     the float64 forms; then, with the launches counted, the segment engine
+     (float32-only on the five instances, ``TierPolicy()`` and the early
+     stop on ``pb`` and ``mixed``), ``scatter="auto"`` past 2^16 on
+     ``bandw`` and ``pbw`` (float32, two tiers, the early stop at float32
+     and float64), ``propagate_batch`` on ``[bandw, pbw]`` and
+     ``propagate_nodes`` on 8 ``pbw`` nodes, each on both drivers where it
+     has two, bitwise against the plain path and held to the float64-only
+     runs; the walls of each by variant; every new float form must have
+     been launched;
+ 17. prints a ``kernels`` JSON line (the float forms as ``<wrapper>[<form>]``),
      and last ``{"ok": true, "device": {...}}``.
 
 Each path runs with the launch counters at zero just before it and read just
@@ -425,7 +443,8 @@ class EventTimedLib:
         self.torch, self.lib, self.pairs = torch, lib, []
         # The kernels' entry points: SYMBOL's and the float forms'.
         self.timed = (set(SYMBOL.values()) | set(_build.SIGNATURES["tier_round.cu"])
-                      | set(_build.SIGNATURES["batch_tier_round.cu"]))
+                      | set(_build.SIGNATURES["batch_tier_round.cu"])
+                      | set(_build.SIGNATURES["slab_tier_round.cu"]))
 
     def __getattr__(self, name):
         entry = getattr(self.lib, name)
@@ -579,11 +598,13 @@ def needed_bytes(kname: str, prep, nnz: int) -> dict:
         return dict(partials=(2 * v + 8) * chunks, row_start=8 * (prep.m + 2),
                     classes=4 * (prep.m + 1), out=(2 * v + 8) * chunks)
     if kname == "activities_tiles":
-        return dict(val=8 * slots, bounds=16 * nnz, out=24 * chunks)
+        return dict(val=v * slots, bounds=2 * v * nnz, out=(2 * v + 8) * chunks)
     if kname == "candidates_tiles":
-        return dict(val=8 * slots, bounds_ii=20 * nnz, rows=40 * chunks, out=16 * slots)
+        return dict(val=v * slots, bounds_ii=(2 * v + mk) * nnz, rows=(4 * v + 8) * chunks,
+                    out=2 * v * slots)
     if kname == "fused_round_tiles":
-        return dict(val=8 * slots, bounds_ii=20 * nnz, sides=16 * chunks, out=16 * slots)
+        return dict(val=v * slots, bounds_ii=(2 * v + mk) * nnz, sides=2 * v * chunks,
+                    out=2 * v * slots)
     raise KeyError(kname)
 
 
@@ -976,6 +997,9 @@ def smoke(torch, dev):
     batch_tier_rows, batch_tier_launches = batch_tiers_phase(
         torch, np, rt, tk, tref, ops, _build, dev, batch_pops, pbf, prep8, tier_probs, results,
         measured)
+    engine_tier_rows, engine_tier_launches = engine_tiers_phase(
+        torch, np, rt, tk, tref, ops, _build, dev, problems, tier_probs, wide, wide_results,
+        batch_pops, measured)
     slab_path = ("batched_slab_partials_tiles", "straddle_combine_tiles",
                  "batched_slab_round_tiles", "apply_updates_slab_tiles")
     node_slab_path = ("node_slab_partials_tiles", "straddle_combine_tiles",
@@ -1063,6 +1087,17 @@ def smoke(torch, dev):
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, instance=inst, wrapper_ms=r["wrapper_ms"], bytes=r["bytes"],
             float64_ms=r.get("float64_ms"),
+        ))
+    for key, (r, inst) in engine_tier_rows.items():
+        base = key.split("[")[0]
+        kernels.append(dict(
+            name=key, route="cuda",
+            source=TIER_SOURCE if base in ("activities_tiles", "candidates_tiles",
+                                           "fused_round_tiles") else SLAB_TIER_SOURCE,
+            replaces=REPLACES[base], launches=engine_tier_launches[key],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None, instance=inst,
+            wrapper_ms=r["wrapper_ms"], bytes=r["bytes"], float64_ms=r.get("float64_ms"),
         ))
     log(json.dumps({"kernels": kernels}))
 
@@ -1567,12 +1602,12 @@ def log_row(kname, shape, r):
 
 
 def measured_row(torch, build, got, want, fn_k, fn_p, moved, n_ops, plain_reps=3, reset=None,
-                 launches=1):
+                 launches=1, flops=F64_FLOPS):
     """Kernel against plain version (equal as values), then timed: the
     kernel's launches (CUDA events around the C entries), the wrapper call,
     the plain version; and the bound of ``moved`` bytes and ``n_ops``
-    float64 operations."""
-    b_ms, b_by = bound(sum(moved.values()), n_ops)
+    operations at the rate ``flops`` (float64's by default)."""
+    b_ms, b_by = bound(sum(moved.values()), n_ops, flops)
     return dict(max_abs_err=max_abs_err(torch, got, want),
                 ms=kernel_ms(torch, build, fn_k, reset=reset, launches=launches),
                 wrapper_ms=time_ms(torch, fn_k, reps=3, trials=3),
@@ -1601,8 +1636,9 @@ def straddle_row(torch, tk, tref, build, part, partials, act, plain_reps=3):
     pos = int((part.a_seg[-1] - part.a_seg[1]).item())
     chunks = part.agg_slot.numel()
     index_bytes = 8 * pos + 8 * part.a_seg.numel() + 4 * chunks
-    moved = dict(partials=24 * pos * n_act, index=index_bytes if n_act else 0,
-                 out=24 * chunks * n_act, mask=mask)
+    agg = 2 * partials[0].element_size() + 8  # two sums and two int32 counts
+    moved = dict(partials=agg * pos * n_act, index=index_bytes if n_act else 0,
+                 out=agg * chunks * n_act, mask=mask)
     return measured_row(torch, build, tuple(map(on, got)), tuple(map(on, want)),
                         lambda: tk.straddle_combine_tiles(*partials, *index, act),
                         lambda: tref.straddle_combine_ref(*partials, *index, act), moved, 0,
@@ -1620,7 +1656,9 @@ def check_slab_kernels(torch, tk, tref, ops, build, name, prep, part):
     initial bounds, the single-instance shapes of the main path; timed.
     Returns {kernel: row}."""
     cfg = ops.DEFAULT_CONFIG
-    eps, width = cfg.eps_for(prep.lb0.dtype), prep.n_pad
+    dt = prep.lb0.dtype
+    eps, outward, width = cfg.eps_for(dt), cfg.outward_for(dt), prep.n_pad
+    v, flops = prep.lb0.element_size(), F64_FLOPS if dt == torch.float64 else F32_FLOPS
     act = torch.ones(1, dtype=torch.bool, device=prep.lb0.device)
     lbp, ubp = prep.lb0[None].clone(), prep.ub0[None].clone()
     rows = {}
@@ -1633,15 +1671,16 @@ def check_slab_kernels(torch, tk, tref, ops, build, name, prep, part):
         torch, build, tk.batched_slab_partials_tiles(*a_args), partials,
         lambda: tk.batched_slab_partials_tiles(*a_args),
         lambda: tref.batched_slab_partials_ref(*a_args),
-        dict(val=8 * ta * r * k, col=4 * a_nnz, bounds=16 * width, out=24 * ta * r),
-        4 * a_nnz)
+        dict(val=v * ta * r * k, col=4 * a_nnz, bounds=2 * v * width,
+             out=(2 * v + 8) * ta * r),
+        4 * a_nnz, flops=flops)
     rows["straddle_combine_tiles"] = straddle_row(torch, tk, tref, build, part, partials, None)
     strs = tref.straddle_tables(part, *partials)
     t, r, k = part.val.shape
     nnz = int((part.val != 0).sum().item())
     r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
               part.run_start, part.run_len, part.run_inst, part.run_slab, act)
-    tail = (part.slab, part.max_run_len, eps, cfg.int_eps)
+    tail = (part.slab, part.max_run_len, eps, cfg.int_eps, cfg.inf, outward)
     want = tref.batched_slab_round_ref(*r_args, lbp, ubp, *tail)
     # The accumulator planes kept across the launches, as the round closure
     # keeps them (the merge hands them back); the tile maps and chunk
@@ -1658,22 +1697,22 @@ def check_slab_kernels(torch, tk, tref, ops, build, name, prep, part):
     # nonzero; row_done, the straddle aggregates and the sides per chunk;
     # the window of each tile; the bounds; the accumulators written and read
     # once and handed back where they hold a candidate.
-    common = dict(col_ii=8 * nnz, rows=44 * t * r, tiles=8 * t, bounds=16 * width,
-                  stores=8 * stores(torch, want[:2], (lbp, ubp)), accumulators=32 * width,
-                  handback=8 * int((held[0] != -cfg.inf).sum() + (held[1] != cfg.inf).sum()),
+    common = dict(col_ii=8 * nnz, rows=(12 + 4 * v) * t * r, tiles=8 * t, bounds=2 * v * width,
+                  stores=v * stores(torch, want[:2], (lbp, ubp)), accumulators=4 * v * width,
+                  handback=v * int((held[0] != -cfg.inf).sum() + (held[1] != cfg.inf).sum()),
                   flags=4 * part.n_slabs)
     rows["batched_slab_round_tiles"] = measured_row(
         torch, build, got, want,
         lambda: tk.batched_slab_round_tiles(*r_args, lbw, ubw, *tail, **kw),
         lambda: tref.batched_slab_round_ref(*r_args, lbp, ubp, *tail),
-        dict(val=8 * nnz, chunk_len=4 * t * r, **common),
-        16 * nnz, reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp)]), launches=2)
+        dict(val=v * nnz, chunk_len=4 * t * r, **common),
+        16 * nnz, reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp)]), launches=2, flops=flops)
     rows["batched_slab_round_tiles"]["bound_all_slots_ms"] = bound(
-        8 * t * r * k + sum(common.values()), 16 * nnz)[0]
+        v * t * r * k + sum(common.values()), 16 * nnz, flops)[0]
     # #15 alone on the single plane, the scatter's candidates as its input
     # (it hands them back at the sentinels), restored before each timed
     # launch.
-    m_args = (act, part.slab, eps)
+    m_args = (act, part.slab, eps, cfg.inf, outward)
     want_m = tref.apply_updates_slab_ref(lbp, ubp, *held, *m_args)
     want_m = (*want_m[:2], want_m[2].any(dim=1))
     got_m = tk.apply_updates_slab_tiles(lbp.clone(), ubp.clone(), held[0].clone(),
@@ -1686,24 +1725,29 @@ def check_slab_kernels(torch, tk, tref, ops, build, name, prep, part):
         dict(merge_bytes(torch, ops.bnd, lbp, ubp, *held, eps, act, cfg.inf),
              flags=4 * part.n_slabs + 1),
         6 * width,
-        reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp), (blw, held[0]), (buw, held[1])]))
+        reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp), (blw, held[0]), (buw, held[1])]),
+        flops=flops)
     for kname, row in rows.items():
         row["instance"] = name
         log_row(kname, name, row)
     return rows
 
 
-def check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep, part):
+def check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep, part,
+                            acts=(0, 8, POOL)):
     """Kernels #13, the straddle combine, #14 (with #15's merge) and #15
     alone against their plain versions on pbw's K = 8 partition over a
-    (POOL, n_pad) pool of warm-started node bounds, with 0, 8 and POOL rows
+    (POOL, n_pad) pool of warm-started node bounds, with ``acts`` rows
     active (#13 and the straddle combine on the active planes: they leave
-    the others unwritten); timed.  Returns {kernel: {shape: row}}."""
+    the others unwritten); timed, at the prep's value type.  Returns
+    {kernel: {shape: row}}."""
     cfg = ops.DEFAULT_CONFIG
     width = prep.n_pad
     lb_h, ub_h = node_pool(np, rt, pbw, POOL, seed=3)
     lbp, ubp = ops._node_planes(prep, lb_h, ub_h)
-    eps = cfg.eps_for(lbp.dtype)
+    dt = lbp.dtype
+    eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
+    v, flops = lbp.element_size(), F64_FLOPS if dt == torch.float64 else F32_FLOPS
     ta, r, k = part.a_val.shape
     a_nnz = int((part.a_val != 0).sum().item())
     t, _, _ = part.val.shape
@@ -1721,7 +1765,7 @@ def check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep, part
     a_kw = dict(tile_slab=part.a_tile_slab, chunk_len=part.a_chunk_len,
                 max_chunk_len=part.a_max_chunk_len)
     straddle_chunks = int((part.row_done == 0).sum().item())
-    for n_act in (0, 8, POOL):
+    for n_act in acts:
         act = torch.zeros(POOL, dtype=torch.bool, device=lbp.device)
         if n_act:
             act[:: POOL // n_act] = True
@@ -1735,22 +1779,23 @@ def check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep, part
         # copy stopped at its hoisted length, col_s per nonzero, the length
         # per chunk and the slab per tile); each active node gathers its
         # bound row and writes its partials.
-        sub = dict(val=8 * a_nnz, col=4 * a_nnz, chunk_len=4 * ta * r, tiles=4 * ta)
-        rest = dict(bounds=16 * n_act * width, out=24 * n_act * ta * r)
+        sub = dict(val=v * a_nnz, col=4 * a_nnz, chunk_len=4 * ta * r, tiles=4 * ta)
+        rest = dict(bounds=2 * v * n_act * width, out=(2 * v + 8) * n_act * ta * r)
         out["node_slab_partials_tiles"][shape] = row = measured_row(
             torch, build, on(tk.node_slab_partials_tiles(*a_args, **a_kw)), on(partials),
             lambda: tk.node_slab_partials_tiles(*a_args, **a_kw),
             lambda: tref.node_slab_partials_ref(*a_args),
-            dict(**(sub if n_act else {}), **rest), 4 * a_nnz * n_act, plain_reps=reps)
+            dict(**(sub if n_act else {}), **rest), 4 * a_nnz * n_act, plain_reps=reps,
+            flops=flops)
         row["bound_all_slots_ms"] = bound(
-            (8 * ta * r * k + sum(sub.values()) - sub["val"] if n_act else 0)
-            + sum(rest.values()), 4 * a_nnz * n_act)[0]
+            (v * ta * r * k + sum(sub.values()) - sub["val"] if n_act else 0)
+            + sum(rest.values()), 4 * a_nnz * n_act, flops)[0]
         out["straddle_combine_tiles"][shape] = straddle_row(torch, tk, tref, build, part,
                                                             partials, act, plain_reps=reps)
         strs = tref.straddle_tables(part, *partials)
         r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g,
                   part.rhs_g, part.run_start, part.run_len, part.run_slab, act)
-        tail = (part.slab, part.max_run_len, eps, cfg.int_eps)
+        tail = (part.slab, part.max_run_len, eps, cfg.int_eps, cfg.inf, outward)
         want = tref.node_slab_round_ref(*r_args, lbp, ubp, *tail)
         got = tk.node_slab_round_tiles(*r_args, lbp.clone(), ubp.clone(), *tail, **kw)
         for i in act.nonzero().flatten().tolist()[:8]:
@@ -1765,24 +1810,25 @@ def check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep, part
         # row_done and sides per chunk); per active node the straddle
         # aggregates of the straddle chunks, the window bounds, the stores,
         # the accumulators written and read once and handed back.
-        stream = dict(val=8 * nnz, col_ii=8 * nnz, rows=20 * t * r, tiles=4 * t)
-        common = dict(aggregates=24 * n_act * straddle_chunks, bounds=16 * n_act * width,
-                      stores=8 * stores(torch, want[:2], (lbp, ubp)),
-                      accumulators=32 * n_act * width, flags=4 * POOL * part.n_slabs + POOL)
+        stream = dict(val=v * nnz, col_ii=8 * nnz, rows=(4 + 2 * v) * t * r, tiles=4 * t)
+        common = dict(aggregates=(2 * v + 8) * n_act * straddle_chunks,
+                      bounds=2 * v * n_act * width,
+                      stores=v * stores(torch, want[:2], (lbp, ubp)),
+                      accumulators=4 * v * n_act * width, flags=4 * POOL * part.n_slabs + POOL)
         row = out["node_slab_round_tiles"][shape] = measured_row(
             torch, build, got, want,
             lambda: tk.node_slab_round_tiles(*r_args, lbw, ubw, *tail, **kw),
             lambda: tref.node_slab_round_ref(*r_args, lbp, ubp, *tail),
             dict(**(stream if n_act else {}), **common),
             16 * nnz * n_act, plain_reps=reps,
-            reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp)]), launches=2)
+            reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp)]), launches=2, flops=flops)
         row["bound_all_slots_ms"] = bound(
-            (8 * t * r * k + sum(stream.values()) - stream["val"] if n_act else 0)
-            + sum(common.values()), 16 * nnz * n_act)[0]
+            (v * t * r * k + sum(stream.values()) - stream["val"] if n_act else 0)
+            + sum(common.values()), 16 * nnz * n_act, flops)[0]
         bl, bu = tref.node_partitioned_round_ref(part, lbp, ubp, cfg.int_eps, cfg.inf,
                                                  active=act)
         bl, bu = bl[:, :width].contiguous(), bu[:, :width].contiguous()
-        m_args = (act, part.slab, eps)
+        m_args = (act, part.slab, eps, cfg.inf, outward)
         want_m = tref.apply_updates_slab_ref(lbp, ubp, bl, bu, *m_args)
         want_m = (*want_m[:2], want_m[2].any(dim=1))
         got_m = tk.apply_updates_slab_tiles(lbp.clone(), ubp.clone(), bl.clone(), bu.clone(),
@@ -1797,7 +1843,8 @@ def check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep, part
             dict(merge_bytes(torch, ops.bnd, lbp, ubp, bl, bu, eps, act, cfg.inf),
                  flags=4 * POOL * part.n_slabs + POOL),
             6 * n_act * width,
-            reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp), (blw, bl), (buw, bu)]))
+            reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp), (blw, bl), (buw, bu)]),
+            flops=flops)
         for kname in out:
             log_row(kname, shape, out[kname][shape])
     return out
@@ -2014,13 +2061,15 @@ def check_segment_kernels(torch, tk, tref, ops, build, name, prep):
     cfg = ops.DEFAULT_CONFIG
     d = prep.d
     nnz = int((d.val != 0).sum().item())
-    lb_g, ub_g = ops.gather_bounds(prep.lb0, prep.ub0, d.col)
+    cols = prep.gather_columns()  # d.col, or a compact prep's widened once
+    lb_g, ub_g = ops.gather_bounds(prep.lb0, prep.ub0, cols)
+    flops = F64_FLOPS if d.val.dtype == torch.float64 else F32_FLOPS
     rows = {}
 
     def row(kname, got, want, fn_k, fn_p):
         rows[kname] = r = measured_row(torch, build, got, want, fn_k, fn_p,
                                        needed_bytes(kname, prep, nnz),
-                                       OPS_PER_NNZ[kname] * nnz)
+                                       OPS_PER_NNZ[kname] * nnz, flops=flops)
         r["instance"] = name
         log_row(kname, f"{name} (segment)", r)
 
@@ -2046,10 +2095,11 @@ def check_segment_kernels(torch, tk, tref, ops, build, name, prep):
     kept_ms = time_ms(torch, lambda: ops.segment_reduce(*want, index, prep.n_pad, cfg.inf))
     every_ms = time_ms(torch, lambda: tref.scatter_round_ref(*want, d.col, prep.n_pad, cfg.inf),
                        reps=1, trials=3)
-    gather_ms = time_ms(torch, lambda: ops.gather_bounds(prep.lb0, prep.ub0, d.col))
+    gather_ms = time_ms(torch, lambda: ops.gather_bounds(prep.lb0, prep.ub0, cols))
     # Its bound: the two candidates and the int64 position and column of
     # each nonzero slot read once, the two (n_pad,) results written once.
-    red_ms, _ = bound(32 * index[0].numel() + 16 * prep.n_pad, 0)
+    v = d.val.element_size()
+    red_ms, _ = bound((2 * v + 16) * index[0].numel() + 2 * v * prep.n_pad, 0)
     log(f"segment reduction on {name}: {index[0].numel()} nonzero slots of "
         f"{d.val.numel()}; over the nonzero slots {kept_ms:.4f} ms (bound {red_ms:.4f} ms), "
         f"over every slot {every_ms:.4f} ms (equal as values); bound gather {gather_ms:.4f} ms")
@@ -3536,6 +3586,394 @@ def batch_tiers_phase(torch, np, rt, tk, tref, ops, build, dev, pops, pbf, prep8
         r["max_abs_err"] = max(v["max_abs_err"] for v in rows[key].values())
     log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
     return out_rows, {key: launches.get(key, 0) for key in BATCH_TIER_PRIMARY}
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: the precision tiers on the segment and partitioned engines
+# ---------------------------------------------------------------------------
+
+SLAB_TIER_SOURCE = "src/repro_torch/csrc/slab_tier_round.cu"
+# The float32 forms of A, B, C, #11-#15 and the straddle combine, and #15's
+# early-stop forms (one instance's carry; a batch's per-row measure), each
+# with the instance its kernels-line entry is measured on.
+ENGINE_TIER_PRIMARY = {
+    "activities_tiles[f32]": "mixed",
+    "candidates_tiles[f32]": "mixed", "candidates_tiles[f32c]": "mixed30",
+    "fused_round_tiles[f32]": "pb", "fused_round_tiles[f32c]": "pb30",
+    "batched_slab_partials_tiles[f32]": "pbw",
+    "straddle_combine_tiles[f32]": "pbw",
+    "batched_slab_round_tiles[f32]": "pbw",
+    "apply_updates_slab_tiles[f32]": "pbw",
+    "apply_updates_slab_tiles[f64+stop]": "pbw",
+    "apply_updates_slab_tiles[f32+stop]": "pbw",
+    "apply_updates_slab_tiles[f64+stop_rows]": "partitioned bucket",
+    "apply_updates_slab_tiles[f32+stop_rows]": "partitioned bucket",
+    "node_slab_partials_tiles[f32]": f"pbw pool, 8 of {POOL} active",
+    "node_slab_round_tiles[f32]": f"pbw pool, 8 of {POOL} active",
+}
+SEGMENT_TIER = ("pb", "banded", "mixed", "pb30", "mixed30")
+
+
+def slab_stop_check(torch, tk, tref, ops, build, name, prep, part, timed, float64_ms=None):
+    """#15 with the early stop armed, for one instance's fixed point
+    (``slab_merge_stop``), against its plain fold on the candidates of the
+    plain partitioned round from the root, then on none (a measure of 0
+    that stops the loop): bounds, handed-back planes and the whole carry
+    (the measure's bits included) bitwise.  Returns the timed row (empty
+    when not ``timed``)."""
+    from repro_torch.core import carry as rt_carry
+
+    cfg = ops.DEFAULT_CONFIG
+    dt = prep.lb0.dtype
+    eps, outward, inf = cfg.eps_for(dt), cfg.outward_for(dt), cfg.inf
+    width = prep.n_pad
+    lbp, ubp = prep.lb0[None].clone(), prep.ub0[None].clone()
+    bl, bu = tref.partitioned_round_ref(part, lbp, ubp, cfg.int_eps, inf)
+    best = (bl[:, :width].contiguous(), bu[:, :width].contiguous())
+    empty = (torch.full_like(lbp, -inf), torch.full_like(ubp, inf))
+    stop = rt_carry.EarlyStop(1e-30, 1)
+    blocks = -(-width // tref.MERGE_BLOCK)
+    partials = torch.empty(blocks, dtype=dt, device=lbp.device)
+    st_k, st_p = rt_carry.armed_state(lbp.device), rt_carry.armed_state(lbp.device)
+    cur_k, cur_p = (lbp.clone(), ubp.clone()), (lbp, ubp)
+    for cand in (best, empty):
+        acc = (cand[0].clone(), cand[1].clone())
+        tk.apply_updates_slab_tiles(*cur_k, *acc, rt_carry.go_mask(st_k), part.slab, eps, inf,
+                                    outward, carry=st_k, stop=stop, partials=partials)
+        new = tref.apply_updates_slab_ref(*cur_p, *cand, rt_carry.go_mask(st_p), part.slab, eps,
+                                          inf, outward)
+        rt_carry.fold(st_p, new[2].any(), 0, 1, stop,
+                      tref.merge_progress(cur_p[0], cur_p[1], new[0], new[1]))
+        err = max_abs_err(torch, (*cur_k, st_k), (new[0], new[1], st_p))
+        planes_clean(torch, acc, inf, f"{name}: #15 with the early stop kept a candidate")
+        cur_p = new[:2]
+    fields = st_k.tolist()
+    if fields[rt_carry.GO] != 0 or fields[rt_carry.ROUNDS] != 2:
+        fail(f"{name}: #15 with the early stop left the carry at {fields[:8]}")
+    if not timed:
+        return {}
+    armed = rt_carry.armed_state(lbp.device)
+    carry = armed.clone()
+    lbw, ubw = lbp.clone(), ubp.clone()
+    acc = (best[0].clone(), best[1].clone())
+    reset = fresh_inputs(torch, [(lbw, lbp), (ubw, ubp), (acc[0], best[0]), (acc[1], best[1]),
+                                 (carry, armed)])
+    go = rt_carry.go_mask(carry)
+    moved = dict(merge_bytes(torch, ops.bnd, lbp, ubp, *best, eps, inf=inf), carry=4 * 8,
+                 partials=2 * lbp.element_size() * blocks)
+
+    def plain():
+        new = tref.apply_updates_slab_ref(lbp, ubp, *best, go, part.slab, eps, inf, outward)
+        return tref.merge_progress(lbp, ubp, new[0], new[1])
+
+    r = tier_row(torch, build, (st_k,), (st_p,),
+                 lambda: tk.apply_updates_slab_tiles(lbw, ubw, *acc, go, part.slab, eps, inf,
+                                                     outward, carry=carry, stop=stop,
+                                                     partials=partials),
+                 plain, moved, 10 * width, dt, reset=reset, float64_ms=float64_ms)
+    r["max_abs_err"] = err
+    return r
+
+
+def slab_rows_stop_check(torch, tk, tref, ops, build, label, lbp, ubp, best, act, slab, timed,
+                         float64_ms=None):
+    """#15 with the early stop's per-row measure (``slab_merge_rows_stop``)
+    on ``(B, W)`` planes against its plain version, through two rounds
+    (the candidates ``best``, then none): bounds, changed flags, each active
+    row's block partials and measure bitwise; inactive rows' entries
+    untouched, the ticket back at 0.  Returns the timed row (empty when
+    not ``timed``)."""
+    cfg = ops.DEFAULT_CONFIG
+    dt = lbp.dtype
+    eps, outward, inf = cfg.eps_for(dt), cfg.outward_for(dt), cfg.inf
+    bsz, width = lbp.shape
+    blocks = -(-width // tref.MERGE_BLOCK)
+    prog_k = torch.full((bsz,), 9.0, dtype=dt, device=lbp.device)
+    prog_p = prog_k.clone()
+    part_k = torch.full((bsz, blocks), 7.0, dtype=dt, device=lbp.device)
+    ticket = torch.zeros(1, dtype=torch.int32, device=lbp.device)
+    none = (torch.full_like(lbp, -inf), torch.full_like(ubp, inf))
+    lk, uk, lp, up = lbp.clone(), ubp.clone(), lbp, ubp
+    err = 0.0
+    for cand in (best, none):
+        flags = tk.apply_updates_slab_tiles(lk, uk, cand[0].clone(), cand[1].clone(), act,
+                                            slab, eps, inf, outward, progress=prog_k,
+                                            partials=part_k, ticket=ticket)[2]
+        new = tref.apply_updates_slab_ref(lp, up, *cand, act, slab, eps, inf, outward)
+        blocks_p, rows_p = tref.merge_rows_progress(lp, up, new[0], new[1])
+        prog_p = torch.where(act, rows_p, prog_p)
+        err = max(err, max_abs_err(torch, (lk, uk, flags, prog_k, part_k[act]),
+                                   (new[0], new[1], new[2].any(dim=1), prog_p, blocks_p[act])))
+        if int(ticket.item()) != 0:
+            fail(f"{label}: #15's row measure left its ticket at {int(ticket.item())}")
+        lp, up = new[0], new[1]
+    if bool((part_k[~act] != 7.0).any()) or bool((prog_k[~act] != 9.0).any()):
+        fail(f"{label}: #15's row measure wrote an inactive row's entries")
+    log(f"kernel apply_updates_slab_tiles[{'f64' if dt == torch.float64 else 'f32'}+stop_rows] "
+        f"on {label}: two rounds bitwise the plain version (bounds, changed flags, partials, "
+        f"measure {prog_k[act][:2].tolist()}); max_abs_err={err}")
+    if not timed:
+        return {}
+    lbw, ubw, blw, buw = lbp.clone(), ubp.clone(), best[0].clone(), best[1].clone()
+    reset = fresh_inputs(torch, [(lbw, lbp), (ubw, ubp), (blw, best[0]), (buw, best[1])])
+    n_act = int(act.sum())
+    n_slabs = -(-width // slab)
+    moved = dict(merge_bytes(torch, ops.bnd, lbp, ubp, *best, eps, act, inf),
+                 flags=4 * bsz * n_slabs + bsz,
+                 partials=2 * lbp.element_size() * n_act * blocks,
+                 measure=lbp.element_size() * n_act)
+    plain = lambda: tref.merge_rows_progress(  # noqa: E731
+        lbp, ubp, *tref.apply_updates_slab_ref(lbp, ubp, *best, act, slab, eps, inf,
+                                               outward)[:2])
+    r = tier_row(torch, build, (prog_k,), (prog_p,),
+                 lambda: tk.apply_updates_slab_tiles(lbw, ubw, blw, buw, act, slab, eps, inf,
+                                                     outward, progress=prog_k,
+                                                     partials=part_k, ticket=ticket),
+                 plain, moved, 16 * n_act * width, dt, reset=reset, float64_ms=float64_ms)
+    r["max_abs_err"] = err
+    return r
+
+
+def engine_tiers_phase(torch, np, rt, tk, tref, ops, build, dev, problems, probs13, wide,
+                       wide_results, pops, measured):
+    """Phase 15: the precision tiers on the segment and partitioned engines.
+    The float32 forms of A, B and C (int32 ids on pb, banded, mixed; the
+    compact int8 marks on pb30, mixed30), of #11, the straddle combine, #12
+    and #15 (bandw, pbw), of #13 and #14 (the pbw pool at 8 and 128 of 128
+    active) and #15's early-stop forms against their plain versions, timed;
+    then, with the launches counted, the segment engine, the partitioned
+    engine through ``auto`` (both drivers), the partitioned batch [bandw,
+    pbw] and the pbw node batch at float32, under TierPolicy() and with the
+    early stop, against the plain path (bitwise) and the float64-only runs;
+    and their walls.  Returns ({form key: (row, instance)}, {form key:
+    launches on the phase's main-path runs})."""
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    cfg = ops.DEFAULT_CONFIG
+    policy = rt.core.TierPolicy()
+    stop_pol = rt.core.TierPolicy(**EARLY_STOP)
+    rows = {}
+
+    def add(key, inst, r):
+        rows.setdefault(key, {})[inst] = r
+        log_tier_row(key, inst, r)
+
+    # A, B and C at float32.
+    seg_probs = {n: problems[n] if n in problems else probs13[n] for n in SEGMENT_TIER}
+    for name, p in seg_probs.items():
+        prep = rt.prepare_block_ell(p, dtype=f32, device=dev)
+        form = "f32c" if prep.ii_g.dtype == torch.int8 else "f32"
+        for kname, r in check_segment_kernels(torch, tk, tref, ops, build, name, prep).items():
+            r["float64_ms"] = measured.get(kname, {}).get(name, {}).get("ms")
+            add(f"{kname}[{'f32' if kname == 'activities_tiles' else form}]", name, r)
+    # #11, the straddle combine, #12 and #15 at float32 on bandw and pbw, and
+    # #15 with the early stop (float64 and float32) on their partitions.
+    wide32 = {}
+    for name in ("bandw", "pbw"):
+        prep = wide32[name] = rt.prepare_block_ell(wide[name], dtype=f32, device=dev)
+        part = prep.slab_partition()
+        for kname, r in check_slab_kernels(torch, tk, tref, ops, build, name, prep,
+                                           part).items():
+            r["float64_ms"] = measured[kname][name]["ms"]
+            add(f"{kname}[f32]", name, r)
+        prep64 = rt.prepare_block_ell(wide[name], device=dev)
+        r64 = slab_stop_check(torch, tk, tref, ops, build, name, prep64,
+                              prep64.slab_partition(), name == "pbw")
+        r32 = slab_stop_check(torch, tk, tref, ops, build, name, prep, part, name == "pbw",
+                              float64_ms=r64.get("ms"))
+        if name == "pbw":
+            add("apply_updates_slab_tiles[f64+stop]", name, r64)
+            add("apply_updates_slab_tiles[f32+stop]", name, r32)
+        else:
+            log(f"kernel apply_updates_slab_tiles[f64+stop], [f32+stop] on {name}: two rounds "
+                "bitwise the plain fold (bounds, planes, carry)")
+    # #15's per-row measure on the partitioned bucket's two planes (the
+    # grid) and on the pbw pool (the walk).
+    (batch,) = ops.packed_problems(pops["partitioned"])
+    on2 = torch.ones(batch.size, dtype=torch.bool, device=dev)
+    row64 = None
+    for dt in (torch.float64, f32):
+        bprep = ops.prepare_problem_batch(batch, dt, device=dev)
+        bpart = bprep.slab_partition()
+        lbp, ubp = bprep.d.lb0.clone(), bprep.d.ub0.clone()
+        bl, bu = tref.partitioned_round_ref(bpart, lbp, ubp, cfg.int_eps, cfg.inf)
+        best = (bl[:, : bprep.n_pad].contiguous(), bu[:, : bprep.n_pad].contiguous())
+        r = slab_rows_stop_check(torch, tk, tref, ops, build, "partitioned bucket", lbp, ubp,
+                                 best, on2, bpart.slab, True,
+                                 float64_ms=None if row64 is None else row64["ms"])
+        label = "f64" if dt == torch.float64 else "f32"
+        add(f"apply_updates_slab_tiles[{label}+stop_rows]", "partitioned bucket", r)
+        row64 = row64 or r
+    # #13, the straddle combine, #14 and #15 at float32 on the pbw pool (K = 8).
+    pbw = wide["pbw"]
+    prep8 = rt.prepare_block_ell(pbw, tile_width=SOLVER_TILE_WIDTH, dtype=f32, device=dev)
+    part8 = prep8.slab_partition()
+    for k, by_shape in check_node_slab_kernels(torch, np, rt, tk, tref, ops, build, pbw, prep8,
+                                               part8, acts=(8, POOL)).items():
+        for shape, r in by_shape.items():
+            r["float64_ms"] = measured.get(k, {}).get(shape, {}).get("ms")
+            rows.setdefault(f"{k}[f32]", {})[shape] = r
+    lb_h, ub_h = node_pool(np, rt, pbw, POOL, seed=3)
+    lbp, ubp = ops._node_planes(prep8, lb_h, ub_h)
+    act = pool_mask(torch, 8, dev)
+    bl, bu = tref.node_partitioned_round_ref(part8, lbp, ubp, cfg.int_eps, cfg.inf, active=act)
+    slab_rows_stop_check(torch, tk, tref, ops, build, f"pbw pool, 8 of {POOL} active", lbp, ubp,
+                         (bl[:, : prep8.n_pad].contiguous(), bu[:, : prep8.n_pad].contiguous()),
+                         act, part8.slab, False)
+
+    launches = {}
+
+    def main_path(fn):
+        """Run one main-path call, adding its launches by form."""
+        before = tk.form_counts()
+        out = fn()
+        for key, v in tk.form_counts().items():
+            launches[key] = launches.get(key, 0) + v - before.get(key, 0)
+        return out
+
+    def drivers(label, fn, plain):
+        """fn(driver) on both drivers, each bitwise ``plain`` (progress
+        included); returns the device_loop run."""
+        out = {d: main_path(lambda d=d: fn(d)) for d in ("host_loop", "device_loop")}
+        for d, r in out.items():
+            check_same(rt, f"{label} {d}", r, plain, True, "the plain path")
+            if not torch.equal(r.progress.isnan(), plain.progress.isnan()) or not torch.equal(
+                    r.progress.nan_to_num(), plain.progress.nan_to_num()):
+                fail(f"{label} {d}: progress differs from the plain path")
+            if int(r.tier_rounds) != int(plain.tier_rounds):
+                fail(f"{label} {d}: tier_rounds differ from the plain path")
+        return out["device_loop"]
+
+    # The segment engine: float32-only, two tiers and the early stop.
+    for name, p in seg_probs.items():
+        seg = dict(scatter="segment", device=dev)
+        modes = [("float32", dict(dtype=f32))]
+        if name in ("pb", "mixed"):
+            modes += [("two-tier", dict(policy=policy)),
+                      ("early stop", dict(policy=stop_pol, dtype=f32))]
+        base = None
+        for mode, kw in modes:
+            plain = rt.propagate_block_ell(p, use_kernels=False, driver="host_loop", **seg, **kw)
+            r = drivers(f"segment {name} {mode}", lambda d, kw=kw: rt.propagate_block_ell(
+                p, driver=d, **seg, **kw), plain)
+            extra = ""
+            if mode == "two-tier":
+                base = rt.propagate_block_ell(p, **seg)
+                gap = check_tier_contract(torch, np, name, p, r, base)
+                extra = (f" (float64-only: rounds={base.rounds.item()}, largest continuous "
+                         f"gap {gap:.3e})")
+            log(f"segment {name} {mode}: rounds={r.rounds.item()} tier_rounds="
+                f"{r.tier_rounds.item()} converged={r.converged.item()} infeasible="
+                f"{r.infeasible.item()}{extra}; both drivers bitwise the plain path")
+    # The partitioned engine through scatter="auto".
+    for name in ("bandw", "pbw"):
+        p, base = wide[name], wide_results[name]
+        for mode, kw in (("float32", dict(dtype=f32)), ("two-tier", dict(policy=policy)),
+                         ("early stop", dict(policy=stop_pol, dtype=f32)),
+                         ("early stop f64", dict(policy=stop_pol))):
+            plain = rt.propagate_block_ell(p, use_kernels=False, driver="host_loop", device=dev,
+                                           **kw)
+            r = drivers(f"partitioned {name} {mode}", lambda d, kw=kw: rt.propagate_block_ell(
+                p, driver=d, device=dev, **kw), plain)
+            extra = ""
+            if mode == "two-tier":
+                gap = check_tier_contract(torch, np, name, p, r, base)
+                extra = f", largest continuous gap {gap:.3e}"
+            elif mode.startswith("early stop") and int(r.rounds) > int(base.rounds):
+                fail(f"partitioned {name} {mode}: more rounds than the float64-only run")
+            log(f"partitioned {name} {mode}: rounds={r.rounds.item()} (float64-only "
+                f"{base.rounds.item()}) tier_rounds={r.tier_rounds.item()} converged="
+                f"{r.converged.item()} infeasible={r.infeasible.item()} progress="
+                f"{r.progress.item():.6g}{extra}; both drivers bitwise the plain path")
+    # The partitioned batch [bandw, pbw] and the pbw node batch.
+    fields = ("lb", "ub", "rounds", "converged", "infeasible", "progress", "tier_rounds")
+    pop = pops["partitioned"]
+    base = rt.propagate_batch(pop, device=dev)
+    for mode, kw in (("float32", dict(dtype=f32)), ("two-tier", dict(policy=policy)),
+                     ("early stop", dict(BATCH_STOP)),
+                     ("early stop", dict(BATCH_STOP, dtype=f32))):
+        got = main_path(lambda kw=kw: rt.propagate_batch(pop, device=dev, **kw))
+        plain = rt.propagate_batch(pop, device=dev, use_kernels=False, **kw)
+        label = f"batch partitioned {mode}{' f32' if kw.get('dtype') == f32 else ''}"
+        same_results(torch, label, got, plain, fields)
+        # A float32 stop is held as float32 runs are: never falsely infeasible.
+        check = "float32" if kw.get("dtype") == f32 else mode
+        for q, g, b in zip(pop, got, base):
+            check_tier_runs(torch, np, label, check,
+                            [(g.lb, g.ub, g.rounds, g.converged, g.infeasible, g.tier_rounds)],
+                            [(b.lb, b.ub, b.rounds, b.converged, b.infeasible, b.tier_rounds)],
+                            q.is_int)
+        log(f"{label}: rounds {[int(r.rounds) for r in got]} (float64-only "
+            f"{[int(r.rounds) for r in base]}), tier_rounds {[int(r.tier_rounds) for r in got]}, "
+            f"converged {[bool(r.converged) for r in got]}; bitwise the plain path")
+    lb, ub = node_pool(np, rt, pbw, TIER_NODES, seed=5)
+    base = rt.propagate_nodes(pbw, lb, ub, tile_width=SOLVER_TILE_WIDTH, device=dev)
+    zeros = torch.zeros(TIER_NODES, dtype=torch.int32)
+    for mode, kw in (("float32", dict(dtype=f32)), ("early stop", dict(BATCH_STOP)),
+                     ("early stop", dict(BATCH_STOP, dtype=f32))):
+        got = main_path(lambda kw=kw: rt.propagate_nodes(pbw, lb, ub,
+                                                         tile_width=SOLVER_TILE_WIDTH,
+                                                         device=dev, **kw))
+        plain = rt.propagate_nodes(pbw, lb, ub, tile_width=SOLVER_TILE_WIDTH, device=dev,
+                                   use_kernels=False, **kw)
+        label = f"nodes pbw {mode}{' f32' if kw.get('dtype') == f32 else ''}"
+        same_results(torch, label, [got], [plain], fields[:-1])
+        check_tier_runs(
+            torch, np, label, "float32" if kw.get("dtype") == f32 else mode,
+            list(zip(got.lb, got.ub, got.rounds, got.converged, got.infeasible, zeros)),
+            list(zip(base.lb, base.ub, base.rounds, base.converged, base.infeasible, zeros)),
+            pbw.is_int)
+        log(f"{label}: {TIER_NODES} nodes, rounds {got.rounds.tolist()} (float64-only "
+            f"{base.rounds.tolist()}), infeasible {int(got.infeasible.sum())}; bitwise the plain "
+            "path")
+    log(f"phase 15 launches by form: {json.dumps(launches)}")
+    missing = [k for k in ENGINE_TIER_PRIMARY if launches.get(k, 0) <= 0]
+    if missing:
+        fail(f"the engine tiers' runs never launched {missing}")
+
+    # Walls: the single-instance fixed points by driver, the partitioned
+    # batch and the pbw nodes, every variant once per trial in an order
+    # that rotates between trials.
+    variants = [("float64", {}), ("float32", dict(dtype=f32)), ("two-tier", dict(policy=policy)),
+                ("early stop", dict(BATCH_STOP))]
+    walls = [(kind, label, d) for kind in ("segment mixed", "bandw", "pbw")
+             for label, _ in variants for d in ("host_loop", "device_loop")]
+    walls += [(kind, label, None) for kind in ("batch partitioned", "nodes pbw")
+              for label, _ in variants if not (kind == "nodes pbw" and label == "two-tier")]
+    kws = dict(variants)
+    nodes = node_pool(np, rt, pbw, TIER_NODES, seed=5)
+
+    def call(kind, label, d):
+        kw = kws[label]
+        if kind == "segment mixed":
+            return rt.propagate_block_ell(problems["mixed"], scatter="segment", driver=d,
+                                          device=dev, **kw)
+        if kind in ("bandw", "pbw"):
+            return rt.propagate_block_ell(wide[kind], driver=d, device=dev, **kw)
+        if kind == "batch partitioned":
+            return rt.propagate_batch(pop, device=dev, **kw)
+        return rt.propagate_nodes(pbw, *nodes, tile_width=SOLVER_TILE_WIDTH, device=dev, **kw)
+
+    samples = {}
+    for trial in range(TIER_TRIALS):
+        order = walls[trial % len(walls):] + walls[: trial % len(walls)]
+        for kind, label, d in order:
+            samples.setdefault((kind, label, d), []).append(
+                wall_ms(torch, lambda: call(kind, label, d)))
+    for kind in ("segment mixed", "bandw", "pbw", "batch partitioned", "nodes pbw"):
+        cells = []
+        for label, _ in variants:
+            ds = [d for k, lab, d in walls if k == kind and lab == label]
+            if ds:
+                cells.append(f"{label} " + ", ".join(
+                    (f"{d} " if d else "") + f"{statistics.median(samples[kind, label, d]):.3f}"
+                    for d in ds))
+        log(f"engine tier walls {kind} (ms, medians of {TIER_TRIALS}): {'; '.join(cells)}")
+    out_rows = {key: (rows[key][inst], inst) for key, inst in ENGINE_TIER_PRIMARY.items()}
+    for key, (r, _) in out_rows.items():
+        r["max_abs_err"] = max(v["max_abs_err"] for v in rows[key].values())
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return out_rows, {key: launches.get(key, 0) for key in ENGINE_TIER_PRIMARY}
 
 
 def main() -> int:

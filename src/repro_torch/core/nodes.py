@@ -161,9 +161,9 @@ def propagate_nodes(
     with the infinite sentinels restored (a node with an fp32 infeasible
     verdict restarts from its original bounds, its ``tier_rounds`` 0), and
     the endgame of at most ``max(1, max_rounds - cap)`` rounds in
-    ``dtype``; ``rounds`` includes ``tier_rounds``.  Float32 or the early
-    stop past ``SCATTER_MAX_NPAD`` (item 5, remainder) and ``telemetry``
-    (item 6) raise ``NotImplementedError``."""
+    ``dtype``; ``rounds`` includes ``tier_rounds``; past ``SCATTER_MAX_NPAD``
+    too (the partitioned node round).  ``telemetry`` (item 6) raises
+    ``NotImplementedError``."""
     from ..kernels.ops import prepare_block_ell, propagate_nodes_prepared
 
     if telemetry is not None:

@@ -89,10 +89,9 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-# The part of ROADMAP Queue 1 item 5 (precision tiers) still to port: float32
-# on the segment and partitioned engines (the batched and node rounds past
-# SCATTER_MAX_NPAD included), the early stop on the partitioned engine, and
-# every value type but float32 and float64.
+# The part of ROADMAP Queue 1 item 5 (precision tiers) still to port: every
+# value type but float32 and float64 (bfloat16; float16 is no tier of the
+# reference).
 TIERS_REMAINDER = "item 5, remainder"
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32, "float16": torch.float16,

@@ -84,11 +84,13 @@
 // hands back.
 // The device code the chunk kernels share with slab_round.cu (lane groups,
 // chunk aggregates, candidates + scatter, chunk_round, the active-only
-// walk, the one-column merges) is in round_common.cuh; kernels D, A', E and
-// the long-row combine are in single_round.cuh, and #8, #10, the node
-// forms of A', the combine and E and #9's launchers in batch_round.cuh,
-// templated on the value and index types, which tier_round.cu and
-// batch_tier_round.cu instantiate at float32.
+// walk, the one-column merges) is in round_common.cuh; kernels D, A', E,
+// the long-row combine and the segment round's A, B and C are in
+// single_round.cuh, #8, #10, the node forms of A', the combine and E and
+// #9's launchers in batch_round.cuh, and the straddle combine with the
+// slab kernels in slab_round.cuh, templated on the value and index types,
+// which tier_round.cu, batch_tier_round.cu and slab_tier_round.cu
+// instantiate at float32.
 //
 // Build with --fmad=false: the activity products and the merge's
 // old + eps * max(1, |old|) must round like the oracle's separate multiply
@@ -98,76 +100,9 @@
 // Every entry point returns cudaGetLastError() after its launch.
 
 #include "batch_round.cuh"
+#include "slab_round.cuh"
 
 namespace {
-
-// The straddle combine of the partitioned round, over nb planes of copy
-// partials (n_pos = Ta * R per plane), in two launches.  First the compact
-// table: one thread per (active plane, table slot s) sums the partials at
-// positions a_seg[s] .. a_seg[s + 1] of the slot order a_order left to
-// right from 0, into (nb, n_slots) tables (slot 0, the dummy, gets +0.0 and
-// 0).  Then the spread: one thread per (active plane, main-stream chunk)
-// copies its slot's entry (agg_slot) to the chunk.  Grid (blocks, groups of
-// 32 planes); each warp ballots its group's flags (all planes when active
-// is null), and inactive planes are neither read nor written.
-__global__ void __launch_bounds__(kThreads)
-straddle_table_kernel(const double* __restrict__ mf, const int* __restrict__ mc,
-                      const double* __restrict__ xf, const int* __restrict__ xc,
-                      const int64_t* __restrict__ a_order, const int64_t* __restrict__ a_seg,
-                      const bool* __restrict__ active, double* __restrict__ tmf,
-                      int* __restrict__ tmc, double* __restrict__ txf, int* __restrict__ txc,
-                      int64_t n_slots, int64_t n_pos, int64_t nb) {
-  const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x % kWarp;
-  const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kWarp;
-  unsigned int todo =
-      __ballot_sync(0xffffffffu, b0 + lane < nb && (active == nullptr || active[b0 + lane]));
-  if (s >= n_slots || todo == 0u) return;
-  const int64_t p0 = s == 0 ? 0 : a_seg[s], p1 = s == 0 ? 0 : a_seg[s + 1];
-  while (todo != 0u) {
-    const int64_t b = b0 + __ffs(todo) - 1;
-    todo &= todo - 1u;
-    const int64_t off = b * n_pos;
-    double a = 0.0, c = 0.0;
-    int ca = 0, cc = 0;
-    for (int64_t p = p0; p < p1; ++p) {
-      const int64_t i = off + a_order[p];
-      a += mf[i];
-      ca += mc[i];
-      c += xf[i];
-      cc += xc[i];
-    }
-    const int64_t o = b * n_slots + s;
-    tmf[o] = a;
-    tmc[o] = ca;
-    txf[o] = c;
-    txc[o] = cc;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-straddle_spread_kernel(const double* __restrict__ tmf, const int* __restrict__ tmc,
-                       const double* __restrict__ txf, const int* __restrict__ txc,
-                       const int* __restrict__ agg_slot, const bool* __restrict__ active,
-                       double* __restrict__ omf, int* __restrict__ omc, double* __restrict__ oxf,
-                       int* __restrict__ oxc, int64_t n_slots, int64_t n_chunks, int64_t nb) {
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x % kWarp;
-  const int64_t b0 = static_cast<int64_t>(blockIdx.y) * kWarp;
-  unsigned int todo =
-      __ballot_sync(0xffffffffu, b0 + lane < nb && (active == nullptr || active[b0 + lane]));
-  if (c >= n_chunks || todo == 0u) return;
-  const int64_t slot = agg_slot[c];
-  while (todo != 0u) {
-    const int64_t b = b0 + __ffs(todo) - 1;
-    todo &= todo - 1u;
-    const int64_t t = b * n_slots + slot, o = b * n_chunks + c;
-    omf[o] = tmf[t];
-    omc[o] = tmc[t];
-    oxf[o] = txf[t];
-    oxc[o] = txc[t];
-  }
-}
 
 constexpr int kObjThreads = 1024;
 
@@ -207,69 +142,6 @@ node_objective_kernel(const double* __restrict__ lb, const double* __restrict__ 
       crossed[blockIdx.x] = cross != 0;
     }
   }
-}
-
-// Kernels A, B and C of the segment (seed) round: the bounds were gathered
-// at each slot's column before the launch ((T, R, K) lb_g / ub_g), and B and
-// C store both candidates at every slot -- the sentinels at padding -- for
-// the column max/min that follows outside.  The arithmetic is D's, A''s and
-// E's (round_common.cuh), with SlotBounds in place of ColumnBounds, so the
-// same bounds give the same bits.  Each returns at once on a clear `go` (a
-// round enqueued after the fixed point converged), as D does: its outputs
-// are then not written, and F merges nothing.
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-activities_kernel(const double* __restrict__ val, const double* __restrict__ lb_g,
-                  const double* __restrict__ ub_g, double* __restrict__ mf, int* __restrict__ mc,
-                  double* __restrict__ xf, int* __restrict__ xc, const bool* __restrict__ go,
-                  int64_t n_chunks, int k, double inf) {
-  if (skip_round(go)) return;
-  const Lanes L = lanes_for<G>(n_chunks);
-  const RowAgg a = chunk_aggregates<G>(val, SlotBounds{lb_g, ub_g}, L.chunk * k,
-                                       L.live ? k : 0, L, inf);
-  if (L.live && L.sl == 0) {
-    mf[L.chunk] = a.mf;
-    mc[L.chunk] = a.mc;
-    xf[L.chunk] = a.xf;
-    xc[L.chunk] = a.xc;
-  }
-}
-
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-candidates_kernel(const double* __restrict__ val, const double* __restrict__ lb_g,
-                  const double* __restrict__ ub_g, const int* __restrict__ ii,
-                  const double* __restrict__ rmf, const int* __restrict__ rmc,
-                  const double* __restrict__ rxf, const int* __restrict__ rxc,
-                  const double* __restrict__ lhs, const double* __restrict__ rhs,
-                  double* __restrict__ lcand, double* __restrict__ ucand,
-                  const bool* __restrict__ go, int64_t n_chunks, int k, double int_eps,
-                  double inf) {
-  if (skip_round(go)) return;
-  const Lanes L = lanes_for<G>(n_chunks);
-  if (!L.live) return;
-  const int64_t c = L.chunk;
-  const RowAgg a{rmf[c], rxf[c], rmc[c], rxc[c]};
-  chunk_candidates_store(val, SlotBounds{lb_g, ub_g}, ii, a, lhs[c], rhs[c], lcand, ucand,
-                         c * k, k, L, int_eps, inf);
-}
-
-template <int G>
-__global__ void __launch_bounds__(kThreads)
-fused_round_kernel(const double* __restrict__ val, const double* __restrict__ lb_g,
-                   const double* __restrict__ ub_g, const int* __restrict__ ii,
-                   const double* __restrict__ lhs, const double* __restrict__ rhs,
-                   double* __restrict__ lcand, double* __restrict__ ucand,
-                   const bool* __restrict__ go, int64_t n_chunks, int k, double int_eps,
-                   double inf) {
-  if (skip_round(go)) return;
-  const Lanes L = lanes_for<G>(n_chunks);
-  const SlotBounds b{lb_g, ub_g};
-  const int64_t base = L.chunk * k;
-  const RowAgg a = chunk_aggregates<G>(val, b, base, L.live ? k : 0, L, inf);
-  if (!L.live) return;
-  chunk_candidates_store(val, b, ii, a, lhs[L.chunk], rhs[L.chunk], lcand, ucand, base, k, L,
-                         int_eps, inf);
 }
 
 }  // namespace
@@ -355,17 +227,8 @@ int straddle_combine(const double* mf, const int* mc, const double* xf, const in
                      const bool* active, double* tmf, int* tmc, double* txf, int* txc,
                      double* omf, int* omc, double* oxf, int* oxc, int64_t n_slots,
                      int64_t n_pos, int64_t n_chunks, int64_t nb, cudaStream_t stream) {
-  const unsigned int groups = static_cast<unsigned int>((nb + kWarp - 1) / kWarp);
-  const dim3 tgrid(static_cast<unsigned int>((n_slots + kThreads - 1) / kThreads), groups);
-  straddle_table_kernel<<<tgrid, kThreads, 0, stream>>>(mf, mc, xf, xc, a_order, a_seg, active,
-                                                        tmf, tmc, txf, txc, n_slots, n_pos, nb);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_chunks == 0) return static_cast<int>(err);
-  const dim3 sgrid(static_cast<unsigned int>((n_chunks + kThreads - 1) / kThreads), groups);
-  straddle_spread_kernel<<<sgrid, kThreads, 0, stream>>>(tmf, tmc, txf, txc, agg_slot, active,
-                                                         omf, omc, oxf, oxc, n_slots, n_chunks,
-                                                         nb);
-  return static_cast<int>(cudaGetLastError());
+  return launch_straddle_combine(mf, mc, xf, xc, a_order, a_seg, agg_slot, active, tmf, tmc, txf,
+                                 txc, omf, omc, oxf, oxc, n_slots, n_pos, n_chunks, nb, stream);
 }
 
 int node_fused_scatter_round(const double* val, const int* col, const int* ii, const int* clen,
@@ -408,9 +271,7 @@ int node_objective(const double* lb, const double* ub, const double* c, const bo
 int activities(const double* val, const double* lb_g, const double* ub_g, double* mf, int* mc,
                double* xf, int* xc, const bool* go, int64_t n_chunks, int k, double inf,
                cudaStream_t stream) {
-  LAUNCH_FOR_WIDTH(activities_kernel, k, n_chunks, stream, val, lb_g, ub_g, mf, mc, xf, xc, go,
-                   n_chunks, k, inf);
-  return static_cast<int>(cudaGetLastError());
+  return launch_activities(val, lb_g, ub_g, mf, mc, xf, xc, go, n_chunks, k, inf, stream);
 }
 
 int candidates(const double* val, const double* lb_g, const double* ub_g, const int* ii,
@@ -418,18 +279,16 @@ int candidates(const double* val, const double* lb_g, const double* ub_g, const 
                const double* lhs, const double* rhs, double* lcand, double* ucand,
                const bool* go, int64_t n_chunks, int k, double int_eps, double inf,
                cudaStream_t stream) {
-  LAUNCH_FOR_WIDTH(candidates_kernel, k, n_chunks, stream, val, lb_g, ub_g, ii, rmf, rmc, rxf,
-                   rxc, lhs, rhs, lcand, ucand, go, n_chunks, k, int_eps, inf);
-  return static_cast<int>(cudaGetLastError());
+  return launch_candidates(val, lb_g, ub_g, ii, rmf, rmc, rxf, rxc, lhs, rhs, lcand, ucand, go,
+                           n_chunks, k, int_eps, inf, stream);
 }
 
 int fused_round(const double* val, const double* lb_g, const double* ub_g, const int* ii,
                 const double* lhs, const double* rhs, double* lcand, double* ucand,
                 const bool* go, int64_t n_chunks, int k, double int_eps, double inf,
                 cudaStream_t stream) {
-  LAUNCH_FOR_WIDTH(fused_round_kernel, k, n_chunks, stream, val, lb_g, ub_g, ii, lhs, rhs, lcand,
-                   ucand, go, n_chunks, k, int_eps, inf);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fused_round(val, lb_g, ub_g, ii, lhs, rhs, lcand, ucand, go, n_chunks, k,
+                            int_eps, inf, stream);
 }
 
 }  // extern "C"

@@ -10,13 +10,14 @@
 // #9, #15) on the walk or on a (column block, row) grid, and the loop
 // carry that F folds its flag into (CarryFlags), with the early stop's
 // progress measure where one is armed (StopCarryFlags), and #9's per-row
-// measure of the batched early stop (RowStopFlags).  The routines of the
-// single instance's round (D, A', E, the combine, F) and of the batched
-// rounds (#8, #10, the node-batched A', combine and E, #9) are templated on
-// the value type T (double, or float for the fp32 tier) and on the index
-// types (int32 columns and marks, or the compact int16 / int8 streams);
-// the other kernels instantiate them at double and int32 only.  See
-// prop_round.cu for the layout and the rounding rules (--fmad=false,
+// measure of the batched early stop (RowStopFlags, and #15's
+// WindowStopFlags).  The routines the port's kernels run are templated on
+// the value type T (double, or float for the fp32 tier), the chunk routines
+// also on the index types (int32 columns and marks, or the compact int16 /
+// int8 streams); the double-only ones (chunk_candidates_scatter,
+// atomic_max_f64 / atomic_min_f64, merge_one, merge_reset) are the
+// "before" variants that tools/*_variants.cu time.
+// See prop_round.cu for the layout and the rounding rules (--fmad=false,
 // division-first candidates).
 
 #pragma once
@@ -119,22 +120,26 @@ __device__ __forceinline__ SlotT<T> load_slot(T v, int c, const T* __restrict__ 
 // before the launch (kernels A, B and C of the segment round).  Both feed
 // the same arithmetic.  i is the slot's flat index; only real nonzeros are
 // loaded.
-struct ColumnBounds {
+template <typename T>
+struct ColumnBoundsT {
   const int* col;
-  const double* lb;
-  const double* ub;
-  __device__ __forceinline__ Slot at(double v, int64_t i, double inf) const {
+  const T* lb;
+  const T* ub;
+  __device__ __forceinline__ SlotT<T> at(T v, int64_t i, T inf) const {
     return load_slot(v, col[i], lb, ub, inf);
   }
 };
+using ColumnBounds = ColumnBoundsT<double>;
 
-struct SlotBounds {
-  const double* lb_g;
-  const double* ub_g;
-  __device__ __forceinline__ Slot at(double v, int64_t i, double inf) const {
+template <typename T>
+struct SlotBoundsT {
+  const T* lb_g;
+  const T* ub_g;
+  __device__ __forceinline__ SlotT<T> at(T v, int64_t i, T inf) const {
     return make_slot(v, lb_g[i], ub_g[i], inf);
   }
 };
+using SlotBounds = SlotBoundsT<double>;
 
 // Butterfly sum over aligned groups of G lanes (a power of two); every lane
 // of the warp must take part.
@@ -184,15 +189,15 @@ using RowAgg = RowAggT<double>;
 // tile_row_aggregates of one chunk, its bounds from B (ColumnBounds or
 // SlotBounds); every lane of the group gets the result.  All lanes of the
 // warp must call it (dead lanes with k = 0).
-template <int G, typename B>
-__device__ __forceinline__ RowAgg chunk_aggregates(const double* __restrict__ val, const B& b,
-                                                   int64_t base, int k, const Lanes& L,
-                                                   double inf) {
-  RowAgg a{0.0, 0.0, 0, 0};
+template <int G, typename B, typename T>
+__device__ __forceinline__ RowAggT<T> chunk_aggregates(const T* __restrict__ val, const B& b,
+                                                       int64_t base, int k, const Lanes& L,
+                                                       T inf) {
+  RowAggT<T> a{T(0), T(0), 0, 0};
   for (int j = L.sl; j < k; j += kWarp) {
-    const double v = val[base + j];
-    if (v == 0.0) continue;  // padding adds nothing; its bounds are never read
-    const Slot s = b.at(v, base + j, inf);
+    const T v = val[base + j];
+    if (v == T(0)) continue;  // padding adds nothing; its bounds are never read
+    const SlotT<T> s = b.at(v, base + j, inf);
     if (s.min_inf) a.mc += 1; else a.mf += v * s.bmin;
     if (s.max_inf) a.xc += 1; else a.xf += v * s.bmax;
   }
@@ -203,14 +208,13 @@ __device__ __forceinline__ RowAgg chunk_aggregates(const double* __restrict__ va
   return a;
 }
 
-template <int G>
-__device__ __forceinline__ RowAgg chunk_aggregates(const double* __restrict__ val,
-                                                   const int* __restrict__ col,
-                                                   const double* __restrict__ lb,
-                                                   const double* __restrict__ ub,
-                                                   int64_t base, int k, const Lanes& L,
-                                                   double inf) {
-  return chunk_aggregates<G>(val, ColumnBounds{col, lb, ub}, base, k, L, inf);
+template <int G, typename T>
+__device__ __forceinline__ RowAggT<T> chunk_aggregates(const T* __restrict__ val,
+                                                       const int* __restrict__ col,
+                                                       const T* __restrict__ lb,
+                                                       const T* __restrict__ ub, int64_t base,
+                                                       int k, const Lanes& L, T inf) {
+  return chunk_aggregates<G>(val, ColumnBoundsT<T>{col, lb, ub}, base, k, L, inf);
 }
 
 __device__ __forceinline__ void atomic_max_f64(double* addr, double v) {
@@ -305,16 +309,16 @@ __device__ __forceinline__ void chunk_candidates_scatter(
 // tile_candidates of one chunk, stored at each slot of the (T, R, K)
 // outputs: one store per lane per slot, a group's lanes on consecutive
 // slots.  Padding stores the sentinels without reading its bounds or mark.
-template <typename B>
+template <typename B, typename T, typename M>
 __device__ __forceinline__ void chunk_candidates_store(
-    const double* __restrict__ val, const B& b, const int* __restrict__ ii, const RowAgg& a,
-    double lhs, double rhs, double* __restrict__ lcand, double* __restrict__ ucand,
-    int64_t base, int k, const Lanes& L, double int_eps, double inf) {
+    const T* __restrict__ val, const B& b, const M* __restrict__ ii, const RowAggT<T>& a, T lhs,
+    T rhs, T* __restrict__ lcand, T* __restrict__ ucand, int64_t base, int k, const Lanes& L,
+    T int_eps, T inf) {
   for (int j = L.sl; j < k; j += kWarp) {
     const int64_t i = base + j;
-    const double v = val[i];
-    Cands q{-inf, inf};
-    if (v != 0.0) q = slot_candidates(v, b.at(v, i, inf), a, lhs, rhs, ii[i] != 0, int_eps, inf);
+    const T v = val[i];
+    CandsT<T> q{-inf, inf};
+    if (v != T(0)) q = slot_candidates(v, b.at(v, i, inf), a, lhs, rhs, ii[i] != 0, int_eps, inf);
     lcand[i] = q.lc;
     ucand[i] = q.uc;
   }
@@ -1156,6 +1160,46 @@ struct RowStopFlags {
       }
     }
   }
+};
+
+// #15's flags with the batched early stop's measure armed: WindowFlags'
+// window flags and RowStopFlags' per-row measure, so a row's measure is
+// summed over all its windows in #9's fixed order (each (row, block of
+// 1,024 columns) item's sum into `partials`, then the launch's last block
+// sums each active row's items in block order; ref.merge_order_sum per
+// row).  On the grid as on the walk an item is 1,024 columns, four a
+// thread, so one layout serves both, as #9's.
+template <typename T>
+struct WindowStopFlags {
+  static constexpr int kGridCols = 4;
+  static constexpr bool kProgress = true;
+  static constexpr bool kRowProgress = true;
+  int* flags;
+  int64_t n_slabs, slab;
+  int* clear;
+  int64_t n_clear;
+  T* partials;
+  T* prog;
+  int* ticket;
+  const bool* active;
+  int64_t n_blocks;
+  __device__ __forceinline__ WindowFlags windows() const {
+    return WindowFlags{flags, n_slabs, slab, clear, n_clear};
+  }
+  __device__ __forceinline__ RowStopFlags<T> rows() const {
+    return RowStopFlags<T>{nullptr, nullptr, 0, partials, prog, ticket, active, n_blocks};
+  }
+  __device__ __forceinline__ void prologue() const { clear_flags(clear, n_clear); }
+  __device__ __forceinline__ bool live() const { return true; }
+  __device__ __forceinline__ void finish() const {}
+  template <int C>
+  __device__ __forceinline__ void mark(int64_t plane, int64_t w0, const bool (&ch)[C]) const {
+    windows().template mark<C>(plane, w0, ch);
+  }
+  __device__ __forceinline__ void item_progress(T prog_t, int64_t plane, int64_t blk) const {
+    rows().item_progress(prog_t, plane, blk);
+  }
+  __device__ __forceinline__ void finish_rows(int64_t bsz) const { rows().finish_rows(bsz); }
 };
 
 // The merge of block `blk` of C * kThreads columns of row `plane`, C

@@ -1,10 +1,11 @@
-// The kernels of one instance's fused round, templated on the value type T
-// (double, or float for the fp32 tier) and on the index types (C for the
-// columns, M for the integrality marks: int32, or the fp32 tier's compact
-// int16 and int8 streams, widened in registers): D, A', E and the long-row
-// combine, with one launcher each.  prop_round.cu instantiates them at
-// double and int32 (its entry points fused_scatter_round,
-// activities_gather, candidates_scatter, combine_chunk_partials), and
+// The kernels of one instance's fused and segment rounds, templated on the
+// value type T (double, or float for the fp32 tier) and on the index types
+// (C for the columns, M for the integrality marks: int32, or the fp32
+// tier's compact int16 and int8 streams, widened in registers): D, A', E,
+// the long-row combine and the segment round's A, B and C, with one
+// launcher each.  prop_round.cu instantiates them at double and int32 (its
+// entry points fused_scatter_round, activities_gather, candidates_scatter,
+// combine_chunk_partials, activities, candidates, fused_round), and
 // tier_round.cu at float with both index forms.  The arithmetic runs in T
 // throughout, so a float instantiation rounds as the plain version does at
 // float32, and the double ones are the float64 kernels unchanged.  F is
@@ -146,6 +147,68 @@ combine_chunk_partials_kernel(const T* __restrict__ mf, const int* __restrict__ 
   combine_segment(mf, mc, xf, xc, omf, omc, oxf, oxc, row_start[seg], row_start[seg + 1]);
 }
 
+// Kernels A, B and C of the segment (seed) round: the bounds were gathered
+// at each slot's column before the launch ((T, R, K) lb_g / ub_g), and B and
+// C store both candidates at every slot -- the sentinels at padding -- for
+// the column max/min that follows outside.  The arithmetic is D's, A''s and
+// E's (round_common.cuh), with SlotBounds in place of ColumnBounds, so the
+// same bounds give the same bits.  Each returns at once on a clear `go` (a
+// round enqueued after the fixed point converged), as D does: its outputs
+// are then not written, and F merges nothing.  B and C read the marks as M
+// (int32, or the fp32 tier's compact int8); A reads none.
+template <int G, typename T>
+__global__ void __launch_bounds__(kThreads)
+activities_kernel(const T* __restrict__ val, const T* __restrict__ lb_g,
+                  const T* __restrict__ ub_g, T* __restrict__ mf, int* __restrict__ mc,
+                  T* __restrict__ xf, int* __restrict__ xc, const bool* __restrict__ go,
+                  int64_t n_chunks, int k, T inf) {
+  if (skip_round(go)) return;
+  const Lanes L = lanes_for<G>(n_chunks);
+  const RowAggT<T> a = chunk_aggregates<G>(val, SlotBoundsT<T>{lb_g, ub_g}, L.chunk * k,
+                                           L.live ? k : 0, L, inf);
+  if (L.live && L.sl == 0) {
+    mf[L.chunk] = a.mf;
+    mc[L.chunk] = a.mc;
+    xf[L.chunk] = a.xf;
+    xc[L.chunk] = a.xc;
+  }
+}
+
+template <int G, typename T, typename M>
+__global__ void __launch_bounds__(kThreads)
+candidates_kernel(const T* __restrict__ val, const T* __restrict__ lb_g,
+                  const T* __restrict__ ub_g, const M* __restrict__ ii,
+                  const T* __restrict__ rmf, const int* __restrict__ rmc,
+                  const T* __restrict__ rxf, const int* __restrict__ rxc,
+                  const T* __restrict__ lhs, const T* __restrict__ rhs, T* __restrict__ lcand,
+                  T* __restrict__ ucand, const bool* __restrict__ go, int64_t n_chunks, int k,
+                  T int_eps, T inf) {
+  if (skip_round(go)) return;
+  const Lanes L = lanes_for<G>(n_chunks);
+  if (!L.live) return;
+  const int64_t c = L.chunk;
+  const RowAggT<T> a{rmf[c], rxf[c], rmc[c], rxc[c]};
+  chunk_candidates_store(val, SlotBoundsT<T>{lb_g, ub_g}, ii, a, lhs[c], rhs[c], lcand, ucand,
+                         c * k, k, L, int_eps, inf);
+}
+
+template <int G, typename T, typename M>
+__global__ void __launch_bounds__(kThreads)
+fused_round_kernel(const T* __restrict__ val, const T* __restrict__ lb_g,
+                   const T* __restrict__ ub_g, const M* __restrict__ ii,
+                   const T* __restrict__ lhs, const T* __restrict__ rhs,
+                   T* __restrict__ lcand, T* __restrict__ ucand, const bool* __restrict__ go,
+                   int64_t n_chunks, int k, T int_eps, T inf) {
+  if (skip_round(go)) return;
+  const Lanes L = lanes_for<G>(n_chunks);
+  const SlotBoundsT<T> b{lb_g, ub_g};
+  const int64_t base = L.chunk * k;
+  const RowAggT<T> a = chunk_aggregates<G>(val, b, base, L.live ? k : 0, L, inf);
+  if (!L.live) return;
+  chunk_candidates_store(val, b, ii, a, lhs[L.chunk], rhs[L.chunk], lcand, ucand, base, k, L,
+                         int_eps, inf);
+}
+
 // Blocks of the combine: one warp per long segment, then one thread per
 // short segment.
 struct CombineGrid {
@@ -234,6 +297,54 @@ int launch_combine_chunk_partials(const T* mf, const int* mc, const T* xf, const
       mf, mc, xf, xc, row_start, short_seg, long_seg, omf, omc, oxf, oxc, go, n_short, n_long,
       g.long_blocks);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Run LAUNCH(G) for the group width of k slots (A, B, C).
+#define DISPATCH_GROUP(LAUNCH, k)  \
+  switch (group_width(k)) {         \
+    case 1: return LAUNCH(1);       \
+    case 2: return LAUNCH(2);       \
+    case 4: return LAUNCH(4);       \
+    case 8: return LAUNCH(8);       \
+    case 16: return LAUNCH(16);     \
+    default: return LAUNCH(32);     \
+  }
+
+template <typename T>
+int launch_activities(const T* val, const T* lb_g, const T* ub_g, T* mf, int* mc, T* xf, int* xc,
+                      const bool* go, int64_t n_chunks, int k, T inf, cudaStream_t stream) {
+  const unsigned int blocks = chunk_blocks(n_chunks, k);
+#define ACTIVITIES(G)                                                                   \
+  launch_blocks<activities_kernel<G, T>>(blocks, stream, val, lb_g, ub_g, mf, mc, xf, xc, go, \
+                                         n_chunks, k, inf)
+  DISPATCH_GROUP(ACTIVITIES, k)
+#undef ACTIVITIES
+}
+
+template <typename T, typename M>
+int launch_candidates(const T* val, const T* lb_g, const T* ub_g, const M* ii, const T* rmf,
+                      const int* rmc, const T* rxf, const int* rxc, const T* lhs, const T* rhs,
+                      T* lcand, T* ucand, const bool* go, int64_t n_chunks, int k, T int_eps,
+                      T inf, cudaStream_t stream) {
+  const unsigned int blocks = chunk_blocks(n_chunks, k);
+#define CANDIDATES(G)                                                                         \
+  launch_blocks<candidates_kernel<G, T, M>>(blocks, stream, val, lb_g, ub_g, ii, rmf, rmc, rxf, \
+                                            rxc, lhs, rhs, lcand, ucand, go, n_chunks, k,       \
+                                            int_eps, inf)
+  DISPATCH_GROUP(CANDIDATES, k)
+#undef CANDIDATES
+}
+
+template <typename T, typename M>
+int launch_fused_round(const T* val, const T* lb_g, const T* ub_g, const M* ii, const T* lhs,
+                       const T* rhs, T* lcand, T* ucand, const bool* go, int64_t n_chunks, int k,
+                       T int_eps, T inf, cudaStream_t stream) {
+  const unsigned int blocks = chunk_blocks(n_chunks, k);
+#define FUSED_ROUND(G)                                                                          \
+  launch_blocks<fused_round_kernel<G, T, M>>(blocks, stream, val, lb_g, ub_g, ii, lhs, rhs, lcand, \
+                                             ucand, go, n_chunks, k, int_eps, inf)
+  DISPATCH_GROUP(FUSED_ROUND, k)
+#undef FUSED_ROUND
 }
 
 }  // namespace

@@ -11,10 +11,18 @@
 //   apply_updates_f32              (F)  at float32
 //   apply_updates_stop[_f32]       (F)  with the early stop armed, float64
 //                                       and float32
+//   activities_f32                 (A)  the segment round's activities at
+//                                       float32 (it reads no marks)
+//   candidates_f32[c]              (B)  the segment round's candidates at
+//                                       float32
+//   fused_round_f32[c]             (C)  the segment round's fused pass at
+//                                       float32
 //
 // The `c` forms read the compact index streams of a float32 tier whose
 // padded columns fit int16 (n_pad <= 2^15): int16 columns and int8
 // integrality marks, widened to int in registers; the others read int32.
+// B and C read no columns (their bounds come gathered per slot), so their
+// `c` forms differ in the int8 marks alone.
 // Each is the float64 kernel's template (single_round.cuh, round_common.cuh)
 // instantiated at float, so it keeps the float64 kernel's layout, lane
 // groups, summation order and division-first candidates, and does all its
@@ -129,6 +137,45 @@ int apply_updates_stop_f32(float* lb, float* ub, float* best_l, float* best_u, i
   return launch_merge_grid<Flags, Flags::kGridCols, false>(
       lb, ub, best_l, best_u, nullptr, Flags{carry, partials, stop, patience}, 1, n, eps, inf,
       outward, stream);
+}
+
+int activities_f32(const float* val, const float* lb_g, const float* ub_g, float* mf, int* mc,
+                   float* xf, int* xc, const bool* go, int64_t n_chunks, int k, float inf,
+                   cudaStream_t stream) {
+  return launch_activities(val, lb_g, ub_g, mf, mc, xf, xc, go, n_chunks, k, inf, stream);
+}
+
+int candidates_f32(const float* val, const float* lb_g, const float* ub_g, const int* ii,
+                   const float* rmf, const int* rmc, const float* rxf, const int* rxc,
+                   const float* lhs, const float* rhs, float* lcand, float* ucand, const bool* go,
+                   int64_t n_chunks, int k, float int_eps, float inf, cudaStream_t stream) {
+  return launch_candidates(val, lb_g, ub_g, ii, rmf, rmc, rxf, rxc, lhs, rhs, lcand, ucand, go,
+                           n_chunks, k, int_eps, inf, stream);
+}
+
+int candidates_f32c(const float* val, const float* lb_g, const float* ub_g, const int8_t* ii,
+                    const float* rmf, const int* rmc, const float* rxf, const int* rxc,
+                    const float* lhs, const float* rhs, float* lcand, float* ucand,
+                    const bool* go, int64_t n_chunks, int k, float int_eps, float inf,
+                    cudaStream_t stream) {
+  return launch_candidates(val, lb_g, ub_g, ii, rmf, rmc, rxf, rxc, lhs, rhs, lcand, ucand, go,
+                           n_chunks, k, int_eps, inf, stream);
+}
+
+int fused_round_f32(const float* val, const float* lb_g, const float* ub_g, const int* ii,
+                    const float* lhs, const float* rhs, float* lcand, float* ucand,
+                    const bool* go, int64_t n_chunks, int k, float int_eps, float inf,
+                    cudaStream_t stream) {
+  return launch_fused_round(val, lb_g, ub_g, ii, lhs, rhs, lcand, ucand, go, n_chunks, k,
+                            int_eps, inf, stream);
+}
+
+int fused_round_f32c(const float* val, const float* lb_g, const float* ub_g, const int8_t* ii,
+                     const float* lhs, const float* rhs, float* lcand, float* ucand,
+                     const bool* go, int64_t n_chunks, int k, float int_eps, float inf,
+                     cudaStream_t stream) {
+  return launch_fused_round(val, lb_g, ub_g, ii, lhs, rhs, lcand, ucand, go, n_chunks, k,
+                            int_eps, inf, stream);
 }
 
 }  // extern "C"

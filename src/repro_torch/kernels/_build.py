@@ -1,7 +1,7 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
 Each source (``prop_round.cu``, ``slab_round.cu``, ``tier_round.cu``,
-``batch_tier_round.cu``) is compiled with ``nvcc``
+``batch_tier_round.cu``, ``slab_tier_round.cu``) is compiled with ``nvcc``
 into a shared library with a plain C interface, at first use, into
 ``build/<hash>/`` beside the package (a directory that git ignores), keyed
 by a hash of the sources, the shared header and the flags, and loaded with
@@ -25,8 +25,9 @@ from types import SimpleNamespace
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "prop_round.cu", CSRC / "slab_round.cu", CSRC / "tier_round.cu",
-           CSRC / "batch_tier_round.cu")
-HEADERS = (CSRC / "round_common.cuh", CSRC / "single_round.cuh", CSRC / "batch_round.cuh")
+           CSRC / "batch_tier_round.cu", CSRC / "slab_tier_round.cu")
+HEADERS = (CSRC / "round_common.cuh", CSRC / "single_round.cuh", CSRC / "batch_round.cuh",
+           CSRC / "slab_round.cuh")
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -75,6 +76,11 @@ SIGNATURES = {
         "apply_updates_f32": [P] * 5 + [I64, I32, I32, F32, F32, F32, P],
         "apply_updates_stop": [P] * 6 + [I64, F64, F64, F64, F64, I32, P],
         "apply_updates_stop_f32": [P] * 6 + [I64, F32, F32, F32, F32, I32, P],
+        "activities_f32": [P] * 8 + [I64, I32, F32, P],
+        "candidates_f32": [P] * 13 + [I64, I32, F32, F32, P],
+        "candidates_f32c": [P] * 13 + [I64, I32, F32, F32, P],
+        "fused_round_f32": [P] * 9 + [I64, I32, F32, F32, P],
+        "fused_round_f32c": [P] * 9 + [I64, I32, F32, F32, P],
     },
     "batch_tier_round.cu": {
         "batched_fused_scatter_round_f32": [P] * 12 + [I64, I32, I32, I64, I64, F32, F32, P],
@@ -88,6 +94,18 @@ SIGNATURES = {
         "apply_updates_batch_f32": [P] * 7 + [I64, I64, F32, F32, F32, P],
         "apply_updates_batch_stop": [P] * 10 + [I64, I64, F64, F64, F64, P],
         "apply_updates_batch_stop_f32": [P] * 10 + [I64, I64, F32, F32, F32, P],
+    },
+    "slab_tier_round.cu": {
+        "slab_partials_f32": [P] * 13 + [I32, I64, I32, I32, I64, I64, F32, P],
+        "node_slab_partials_f32": [P] * 11 + [I64, I32, I32, I32, I64, I64, I64, F32, P],
+        "slab_scatter_f32": [P] * 19 + [I64, I32, I32, I32, I64, I64, F32, F32, P],
+        "node_slab_scatter_f32": [P] * 17 + [I64, I32, I32, I32, I64, I64, I64, F32, F32, P],
+        "slab_merge_f32": [P] * 8 + [I64, I64, I64, I32, I32, F32, F32, F32, P],
+        "straddle_combine_f32": [P] * 16 + [I64, I64, I64, I64, P],
+        "slab_merge_stop": [P] * 7 + [I64, F64, F64, F64, F64, I32, P],
+        "slab_merge_stop_f32": [P] * 7 + [I64, F32, F32, F32, F32, I32, P],
+        "slab_merge_rows_stop": [P] * 10 + [I64, I64, I64, F64, F64, F64, P],
+        "slab_merge_rows_stop_f32": [P] * 10 + [I64, I64, I64, F32, F32, F32, P],
     },
 }
 

@@ -56,16 +56,21 @@ semantics so they converge to the same fixed points.
     the in-place merges never touch the cache.
   * The precision tiers (ROADMAP Queue 1 item 5): ``prepare_block_ell`` at
     float32 (the fp32 tier) narrows the index streams where ``n_pad <=
-    2**15`` (``col`` int16, ``ii_g`` int8), and the fused and multi-chunk
-    rounds run the float32 forms of D, A', the combine, E and F;
-    ``propagate_block_ell`` takes the two-tier ``policy`` and the
-    progress-based early stop (F folds the round's measure into the loop
-    carry).  ``prepare_problem_batch`` at float32 keeps int32 ids; the
+    2**15`` (``col`` int16, ``ii_g`` int8), and every engine runs its
+    kernels' float32 forms: the fused and multi-chunk rounds D, A', the
+    combine, E and F; the segment round A, B and C (B and C on the int8
+    marks; the bound gather on columns widened once per prep) and F; the
+    partitioned round #11, the straddle combine, #12 and #15 (the
+    partition widens the columns to int32).  ``propagate_block_ell`` takes
+    the two-tier ``policy`` and the progress-based early stop on every
+    engine (F, or #15 past the limit, folds the round's measure into the
+    loop carry).  ``prepare_problem_batch`` at float32 keeps int32 ids; the
     batched and node rounds run the float32 forms of #8, #10, the
-    node-batched A', combine and E and #9, and under a per-row early stop
-    #9 measures each active row's round (``propagate_batch_block_ell`` and
-    ``core.nodes.propagate_nodes`` take ``policy`` too).  The segment and
-    partitioned engines run float64 only so far.
+    node-batched A', combine and E and #9, or past ``SCATTER_MAX_NPAD`` of
+    #11/#13, the straddle combine and #12/#14 with #15; under a per-row
+    early stop #9 or #15 measures each active row's round
+    (``propagate_batch_block_ell`` and ``core.nodes.propagate_nodes`` take
+    ``policy`` too).
 
 Per-round device-memory traffic of the fused round: ``val``, ``col`` and
 ``is_int`` at the nonzeros (16 B each; every chunk stops at its hoisted
@@ -88,14 +93,12 @@ from ..core import carry as _carry
 from ..core.carry import LoopCarry
 from ..core.carry import EarlyStop, early_stop
 from ..core.propagator import (
-    TIERS_REMAINDER,
     _refuse_telemetry,
     _result,
     batched_fixed_point,
     check_dtype,
     device_fixed_point,
     fixed_point,
-    not_ported,
     resolve_device,
     run_tiers,
     two_tier_bounds_dtypes,
@@ -252,6 +255,19 @@ class PreparedBlockEll:
             idx = self._segment["index"] = segment_index(self.d.val, self.d.col)
         return idx
 
+    def gather_columns(self) -> torch.Tensor:
+        """The columns the segment round's bound gather reads
+        (:func:`gather_bounds`): ``d.col`` itself where it is int32, else
+        (a compact float32 prep's int16 columns) widened to int32 once and
+        kept, never per round."""
+        col = self.d.col
+        if col.dtype == torch.int32:
+            return col
+        wide = self._segment.get("columns")
+        if wide is None:
+            wide = self._segment["columns"] = col.to(torch.int32)
+        return wide
+
     def slab_partition(self, slab: int | None = None) -> SlabPartition:
         """This instance's tile stream re-bucketed into ``slab``-wide column
         windows (default: :func:`default_slab_width` under the module's
@@ -391,9 +407,13 @@ def segment_reduce(lcand, ucand, index, width: int, inf: float):
 
 def gather_bounds(lb, ub, col):
     """``lb[col]``, ``ub[col]`` as (T, R, K) tiles: the segment round's
-    per-round bound gather (``index_select`` takes the int32 columns as
-    they are)."""
+    per-round bound gather (``index_select`` takes int32 or int64 columns
+    as they are; int16 ones, which it refuses, are widened here: the
+    legacy round's, which redoes its structure work every round; the
+    prepared round passes :meth:`PreparedBlockEll.gather_columns`)."""
     flat = col.reshape(-1)
+    if flat.dtype == torch.int16:
+        flat = flat.to(torch.int32)
     return (lb.index_select(0, flat).view(col.shape), ub.index_select(0, flat).view(col.shape))
 
 
@@ -496,7 +516,8 @@ class RoundOps(NamedTuple):
     node_fused: Callable  # #10: tiles + (B, n_pad) planes + active + kept -> (best_l, best_u)
     merge_batch: Callable  # #9: (lb, ub, best_l, best_u, active, eps, inf, outward, flags=,
                            # progress=, partials=, ticket=)
-    partitioned: Callable  # (part, lb, ub, active, ..., kept, carry=) -> (lb, ub, (B,) changed)
+    partitioned: Callable  # (part, lb, ub, active, ..., kept, carry=, stop=, stop_partials=,
+                           # progress=) -> (lb, ub, (B,) changed)
     batched_fused: Callable  # #8: flat stream + tile_inst + (B, n_pad) planes + active + acc
     activities_tiles: Callable   # A: tiles + gathered bounds -> chunk partials
     candidates_tiles: Callable   # B: ... + row aggregates -> (T, R, K) candidates
@@ -585,6 +606,7 @@ def _plain_merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward=0.0, *,
 def _partitioned_kernel_round(
     part: SlabPartition, lb, ub, active, *, node: bool, eps: float, int_eps: float,
     inf: float, kept: KeptPlanes, outward: float = 0.0, carry=None,
+    stop: EarlyStop | None = None, stop_partials=None, progress=None,
 ):
     """One partitioned round on the kernels over ``(B, W)`` planes (``W`` the
     instance's ``n_pad``: no real nonzero reaches past it), IN PLACE:
@@ -600,7 +622,11 @@ def _partitioned_kernel_round(
     bool flags: the window flags OR-ed per plane.  With ``carry`` (``(state,
     k, unroll)`` of a single instance's loop carry, ``active`` its ``GO``)
     #11, the straddle combine and #12 return at once where ``GO`` is false,
-    #15 folds its flags into the carry and ``changed`` is None."""
+    #15 folds its flags into the carry and ``changed`` is None; the carry's
+    early stop ``stop`` then has #15 fold the round's progress measure too
+    (each block's sum into ``stop_partials``, kept by the closure).  Without a
+    carry, ``progress`` (a ``(B,)`` tensor) takes each active plane's
+    measure of the round from #15 (its buffers kept in ``kept``)."""
     bsz = lb.shape[0]
     go = active if carry is not None else None
     if part.has_straddle:
@@ -618,11 +644,12 @@ def _partitioned_kernel_round(
             partials = kern.batched_slab_partials_tiles(
                 part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_inst,
                 part.a_run_slab, active, lb, ub, part.slab, part.a_max_run_len, inf,
-                out=kept.scratch("slab_partials", kern.partial_specs(part.a_val.shape[:2]), lb),
+                out=kept.scratch("slab_partials",
+                                 kern.partial_specs(part.a_val.shape[:2], lb.dtype), lb),
                 go=go,
             )
             specs = kern.straddle_specs(tuple(partials[0].shape), tuple(part.agg_slot.shape),
-                                        part.a_seg.shape[0] - 1)
+                                        part.a_seg.shape[0] - 1, lb.dtype)
             strs = kern.straddle_combine_tiles(*partials, part.a_order, part.a_seg,
                                                part.agg_slot, go,
                                                out=kept.scratch("straddle", specs, lb))
@@ -636,6 +663,8 @@ def _partitioned_kernel_round(
     if carry is None:
         n_slabs = -(-lb.shape[1] // part.slab)
         hoisted["flags"] = kept.flags((bsz, n_slabs), torch.int32, lb)
+        if progress is not None:
+            hoisted.update(progress=progress, **kept.stop_buffers(lb))
     if node:
         lb, ub, ch = kern.node_slab_round_tiles(
             *common, part.run_slab, active, lb, ub, part.slab, part.max_run_len, eps, int_eps,
@@ -647,6 +676,7 @@ def _partitioned_kernel_round(
             *common, part.run_inst, part.run_slab, active, lb, ub, part.slab,
             part.max_run_len, eps, int_eps, inf, outward,
             tiles=(part.tile_inst, part.tile_slab), carry=state, k=k, unroll=unroll, go=go,
+            **(dict(stop=stop, partials=stop_partials) if carry is not None else {}),
             **hoisted,
         )
         if carry is not None:
@@ -658,14 +688,18 @@ def _partitioned_kernel_round(
 def _partitioned_plain_round(
     part: SlabPartition, lb, ub, active, *, node: bool, eps: float, int_eps: float,
     inf: float, kept: KeptPlanes, outward: float = 0.0, carry=None,
+    stop: EarlyStop | None = None, stop_partials=None, progress=None,
 ):
     """The plain partitioned round, as the reference's ``use_pallas=False``:
     ``ref.partitioned_round_ref`` (per active node under ``node=True``) and
     the shared merge; returns new ``(B, W)`` planes and ``(B,)`` flags, or
     with ``carry`` (as in :func:`_partitioned_kernel_round`) folds the
-    flags into it and returns None for them.  ``kept`` is not used: the
-    plain round allocates its own planes."""
-    del kept
+    flags, and with its ``stop`` the round's progress measure in #15's
+    order (:func:`ref.merge_progress`), into it and returns None for them.
+    ``progress`` takes each active plane's measure in #15's order
+    (:func:`ref.merge_rows_progress`).  ``kept`` and ``stop_partials`` are
+    not used: the plain round allocates its own planes."""
+    del kept, stop_partials
     if node:
         best_l, best_u = kref.node_partitioned_round_ref(part, lb, ub, int_eps, inf,
                                                          active=active)
@@ -675,8 +709,11 @@ def _partitioned_plain_round(
     new_lb, new_ub, ch = bnd.apply_updates_batch(lb, ub, best_l[:, :width], best_u[:, :width],
                                                  eps, inf, outward, active=active)
     if carry is None:
+        if progress is not None:
+            kern._plain_row_progress(lb, ub, new_lb, new_ub, active, progress)
         return new_lb, new_ub, ch
-    _carry.fold(carry[0], ch.any(), carry[1], carry[2])
+    prog = kref.merge_progress(lb, ub, new_lb, new_ub) if stop is not None else None
+    _carry.fold(carry[0], ch.any(), carry[1], carry[2], stop, prog)
     return new_lb, new_ub, None
 
 
@@ -719,7 +756,7 @@ PLAIN_OPS = RoundOps(
 def _segment_round(
     ops: RoundOps, d: DeviceBlockEll, lb, ub, ii_g, lhs_g, rhs_g, row_start, index,
     width: int, *, fused: bool, eps: float, int_eps: float, inf: float, outward: float = 0.0,
-    classes=None, carry=None, gate: bool = False, stop: EarlyStop | None = None,
+    classes=None, carry=None, gate: bool = False, stop: EarlyStop | None = None, col=None,
 ):
     """One round of the segment (seed) dataflow over ``(width,)`` bounds:
     bounds gathered per slot, kernel C (``fused``) or kernel A, the fused
@@ -733,11 +770,13 @@ def _segment_round(
     kernels and a carry) C, A, the combine and B return at once where the
     carry's GO is false; the bound gather and the column reduction, in
     PyTorch, still run.  ``stop`` (the carry's early stop) goes to F.
+    ``col`` is the gather's columns (default ``d.col``; the prepared round
+    passes them widened once, :meth:`PreparedBlockEll.gather_columns`).
     Returns ``(lb, ub, changed)``, ``changed`` the carry's ``GO``; with
     kernels the bounds are updated in place."""
     state, k, unroll = carry if carry is not None else (None, 0, 1)
     gate = dict(go=_carry.go_mask(state)) if gate and state is not None else {}
-    lb_g, ub_g = gather_bounds(lb, ub, d.col)
+    lb_g, ub_g = gather_bounds(lb, ub, d.col if col is None else col)
     if fused:
         lcand, ucand = ops.fused_round_tiles(d.val, lb_g, ub_g, ii_g, lhs_g, rhs_g, int_eps, inf,
                                              **gate)
@@ -791,18 +830,20 @@ def _prepared_round(
     round runs (it ignores ``fused``: split rows are straddle rows there),
     the carry's GO as the instance's active mask, #12 scattering into
     ``kept`` and #15 folding its flags into the carry.  With the carry's
-    early stop ``stop`` F also folds the round's progress measure, each
-    block's sum into a buffer kept in ``kept`` (the partitioned round does
-    not take it yet)."""
+    early stop ``stop`` F (or #15) also folds the round's progress measure,
+    each block's sum into a buffer kept in ``kept``."""
     d = prep.d
     state, k, unroll = carry
     go = _carry.go_mask(state)
-    if part is not None and stop is not None:
-        not_ported("stop_progress= on the partitioned engine", TIERS_REMAINDER)
+    # The early stop's block sums of the round's merge (F, or #15), kept.
+    stop_partials = None
+    if stop is not None:
+        blocks = -(-prep.n_pad // kref.MERGE_BLOCK)
+        (stop_partials,) = kept.scratch("progress", (((blocks,), lb.dtype),), lb)
     if part is not None:
         new_lb, new_ub, _ = ops.partitioned(
             part, lb[None], ub[None], go, node=False, eps=eps, int_eps=int_eps, inf=inf,
-            outward=outward, kept=kept, carry=carry,
+            outward=outward, kept=kept, carry=carry, stop=stop, stop_partials=stop_partials,
         )
         return new_lb[0], new_ub[0], _carry.go_flag(state)
     acc = kept.get(lb)
@@ -825,12 +866,8 @@ def _prepared_round(
             prep.lhs_g, prep.rhs_g, lb, ub, prep.n_pad, int_eps, inf, chunk_len=prep.chunk_len,
             acc=acc, **gate,
         )
-    partials = None
-    if stop is not None:
-        blocks = -(-prep.n_pad // kref.MERGE_BLOCK)
-        (partials,) = kept.scratch("progress", (((blocks,), lb.dtype),), lb)
     return ops.merge(lb, ub, best_l, best_u, eps, inf, outward, carry=state, k=k, unroll=unroll,
-                     **_merge_stop(stop, unroll, partials))
+                     **_merge_stop(stop, unroll, stop_partials))
 
 
 # A mirror of the reference's escape hatch, kept for parity only (callers
@@ -856,14 +893,11 @@ def _resolve_scatter(scatter: str, prep: PreparedBlockEll) -> str:
     round while ``n_pad <= SCATTER_MAX_NPAD`` (read at call time) and takes
     the column-slab ``partitioned`` round beyond it (or the one that
     :data:`AUTO_LARGE_SCATTER_ENV` names); ``fused``, ``segment`` and
-    ``partitioned`` run at any ``n_pad``.  At float32 only the fused engine
-    runs so far (the others raise ``NotImplementedError``)."""
+    ``partitioned`` run at any ``n_pad``, at float64 or float32."""
     if scatter == "auto":
         scatter = "fused" if prep.n_pad <= SCATTER_MAX_NPAD else _auto_large_scatter()
     if scatter not in ("fused", "segment", "partitioned"):
         raise ValueError(f"unknown scatter mode: {scatter!r}")
-    if scatter != "fused" and prep.d.val.dtype != torch.float64:
-        not_ported(f"float32 on the {scatter} engine", TIERS_REMAINDER)
     return scatter
 
 
@@ -907,6 +941,7 @@ def round_fn_for(
                 prep.segment_index(), prep.n_pad, fused=do_fuse, eps=eps,
                 int_eps=cfg.int_eps, inf=cfg.inf, outward=outward, classes=prep.seg_classes,
                 carry=carry.step(lb.device), gate=use_kernels, stop=carry.stop,
+                col=prep.gather_columns(),
             )
 
         round_fn.carry, round_fn.gated = carry, False
@@ -946,7 +981,9 @@ def block_ell_round(
     the reduction's :func:`segment_index`) redone every round, kernel C
     (``fused``) or kernel A, the fixed-order combine and kernel B, the
     candidates written out, a column reduction over ``n`` columns, then
-    the merge.  Returns ``(lb, ub, changed)``; with kernels the bounds are
+    the merge.  Float64 or float32 (a compact prep's int16 columns widened
+    with the rest of the structure work; its int8 marks are gathered anew
+    as int32).  Returns ``(lb, ub, changed)``; with kernels the bounds are
     updated in place."""
     col = d.col.long()
     crow = d.chunk_row.long()
@@ -964,10 +1001,9 @@ def legacy_round_fn_for(
     """The seed round (:func:`block_ell_round`) as a ``(lb, ub) -> (lb, ub,
     changed)`` closure over a prepared instance, bounds in the unpadded
     ``(n,)`` domain (src/repro/kernels/ops.py:1038).  Kept as the measured
-    baseline; it reads only the prep's tiles (float64 only so far)."""
+    baseline; it reads only the prep's tiles, at the prep's dtype (float32
+    widens the merges outward, as the reference's does)."""
     dt = prep.d.val.dtype
-    if dt != torch.float64:
-        not_ported("float32 on the legacy round", TIERS_REMAINDER)
     eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
 
     def round_fn(lb, ub):
@@ -1032,13 +1068,11 @@ def propagate_block_ell(
     host read.  ``"unrolled"`` raises ``ValueError``, as the reference's
     does.
 
-    ``dtype`` is float64 (the default) or float32 (the fused engine only,
-    below and past ``SCATTER_MAX_NPAD`` by name; ``auto`` past it, the
-    segment and the partitioned engine raise ``NotImplementedError``).
+    ``dtype`` is float64 (the default) or float32, on every engine.
     ``stop_progress``/``patience`` arm the progress-based early stop: F
-    folds each round's measure into the loop carry and clears its GO once
-    it stayed below ``stop_progress`` for ``patience`` rounds (not on the
-    partitioned engine yet).  ``policy`` (a
+    (#15 on the partitioned engine) folds each round's measure into the
+    loop carry and clears its GO once it stayed below ``stop_progress``
+    for ``patience`` rounds.  ``policy`` (a
     :class:`~repro_torch.core.types.TierPolicy`) runs the reference's
     two-tier scheme (:func:`core.propagator.run_tiers`): a float32 tier
     early-stopped at ``policy.switch_progress``, promotion, and the endgame
@@ -1122,15 +1156,17 @@ class PreparedBatch:
         """The bucket's flat stream re-bucketed into per-instance
         ``slab``-wide column windows (default :func:`default_slab_width`
         under :data:`SLAB_NPAD`, read at call time), built once per width
-        from the host-side packed arrays; instance ``i``'s padding chunks
-        sit on its dummy row, the last of its row range."""
+        from the host-side packed arrays at the bucket's value type (as the
+        reference's, src/repro/kernels/ops.py:1423); instance ``i``'s padding
+        chunks sit on its dummy row, the last of its row range."""
         s = default_slab_width(self.n_pad, SLAB_NPAD) if slab is None else int(slab)
         part = self._slabs.get(s)
         if part is None:
             ell = self.batch.ell
+            dt = np.dtype(str(self.d.val.dtype).removeprefix("torch."))
             part = self._slabs[s] = build_slab_partition(
-                ell.val, ell.col, ell.chunk_row, ell.tile_inst, self.batch.lhs1,
-                self.batch.rhs1, self.batch.is_int, self.n_pad, s,
+                np.asarray(ell.val, dtype=dt), ell.col, ell.chunk_row, ell.tile_inst,
+                self.batch.lhs1, self.batch.rhs1, self.batch.is_int, self.n_pad, s,
                 (ell.row_offset[1:] - 1).astype(np.int32), device=self.d.val.device,
             )
         return part
@@ -1248,17 +1284,6 @@ def _row_stop(kept: KeptPlanes, lb, progress) -> dict:
     return dict(progress=progress, **kept.stop_buffers(lb))
 
 
-def _refuse_past_limit(dtype: torch.dtype, progress) -> None:
-    """The batched and node rounds past ``SCATTER_MAX_NPAD`` (the
-    partitioned round) run float64 without the early stop only so far."""
-    if dtype != torch.float64:
-        not_ported(f"dtype={dtype} past SCATTER_MAX_NPAD (the partitioned batched round)",
-                   TIERS_REMAINDER)
-    if progress is not None:
-        not_ported("stop_progress= past SCATTER_MAX_NPAD (the partitioned batched round)",
-                   TIERS_REMAINDER)
-
-
 def _batched_prepared_round(
     prep: PreparedBatch, lb, ub, active, *, ops: RoundOps, eps: float, int_eps: float,
     inf: float, kept: KeptPlanes, slab: int | None = None, outward: float = 0.0,
@@ -1269,15 +1294,14 @@ def _batched_prepared_round(
     bucket's slab partition (#11, the straddle combine, #12 with #15:
     copies routed to their instance's plane by the hoisted tile maps,
     inactive instances skipped on the device, #12 scattering into
-    ``kept``; float64 without the early stop only, else
-    ``NotImplementedError``); otherwise :func:`batched_reference_round` (#8
-    scattering into ``kept``; ``progress`` as there)."""
+    ``kept``, #15 measuring each active row's round into ``progress`` where
+    given); otherwise :func:`batched_reference_round` (#8 scattering into
+    ``kept``; ``progress`` as there)."""
     if prep.n_pad > SCATTER_MAX_NPAD:
-        _refuse_past_limit(lb.dtype, progress)
         part = prep.slab_partition(slab)
         return ops.partitioned(
             part, lb, ub, active, node=False, eps=eps, int_eps=int_eps, inf=inf,
-            outward=outward, kept=kept,
+            outward=outward, kept=kept, progress=progress,
         )
     d = prep.d
     return batched_reference_round(
@@ -1514,8 +1538,7 @@ def propagate_batch_block_ell(
     tier's rounds where it was trusted, and ``tier_rounds`` is the tier's.
     The tier's verdicts are read on the host at once (reported to
     ``on_sync``).  ``device`` defaults to CUDA and raises where there is
-    none.  Float32 or the early stop past ``SCATTER_MAX_NPAD`` (item 5,
-    remainder) and ``telemetry=`` (item 6) raise ``NotImplementedError``."""
+    none.  ``telemetry=`` (item 6) raises ``NotImplementedError``."""
     if driver not in KERNEL_DRIVERS:
         raise ValueError(f"unknown driver: {driver!r}")
     _refuse_telemetry(telemetry)
@@ -1617,14 +1640,12 @@ def _node_round(
     the batched merge #9.  Each launch covers every node, so a round makes
     the same launches whatever the batch size.  #10 and #14 scatter into the
     closure's kept planes ``kept``, which #9 / #15 set back to the
-    sentinels.  With ``progress`` (a ``(B,)`` tensor) #9 also writes each
-    active node's early-stop measure of the round into it (the partitioned
-    round takes neither it nor float32 yet)."""
+    sentinels.  With ``progress`` (a ``(B,)`` tensor) #9 (or #15) also
+    writes each active node's early-stop measure of the round into it."""
     if part is not None:
-        _refuse_past_limit(lb.dtype, progress)
         return ops.partitioned(
             part, lb, ub, active, node=True, eps=eps, int_eps=int_eps, inf=inf,
-            kept=kept, outward=outward,
+            kept=kept, outward=outward, progress=progress,
         )
     d = prep.d
     if prep.fits_one_chunk:
@@ -1657,16 +1678,14 @@ def node_round_fn_for(
     partitioned node kernels, ``slab`` overriding the window width; the
     plain path there takes the engine of ``scatter="auto"`` as the
     reference's plain node round does (the segment round under
-    ``REPRO_AUTO_LARGE_SCATTER=segment``, read here).  A float32 prep
-    past ``SCATTER_MAX_NPAD`` raises ``NotImplementedError`` (item 5,
-    remainder).  The closure is ``measured`` as
-    :func:`batched_round_fn_for`'s (``progress=``)."""
+    ``REPRO_AUTO_LARGE_SCATTER=segment``, read here).  Float64 or float32
+    everywhere.  The closure is ``measured`` as
+    :func:`batched_round_fn_for`'s (``progress=``), except the plain
+    segment round's (the loop then measures from copies of the planes)."""
     dt = prep.d.val.dtype
     eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
     ops = KERNEL_OPS if use_kernels else PLAIN_OPS
     large = prep.n_pad > SCATTER_MAX_NPAD
-    if large:
-        _refuse_past_limit(dt, None)
     if large and not use_kernels and _auto_large_scatter() == "segment":
         def round_fn(lb, ub, active):
             return _node_segment_round(prep, lb, ub, active, eps=eps, int_eps=cfg.int_eps,

@@ -14,19 +14,20 @@ for #9 and #15 a kept pair of flag buffers (``flags``,
 (``go``); the long-row and straddle combines replace XLA segment sums.  On
 a CPU tensor it runs the kernel's plain-PyTorch version (``ref.py``); on a
 CUDA tensor it launches the hand-written Hopper kernel of
-``csrc/prop_round.cu``, ``csrc/slab_round.cu``, ``csrc/tier_round.cu`` or
-``csrc/batch_tier_round.cu`` on the current stream, or raises -- it never
-falls back.  Each wrapper counts
+``csrc/prop_round.cu``, ``csrc/slab_round.cu``, ``csrc/tier_round.cu``,
+``csrc/batch_tier_round.cu`` or ``csrc/slab_tier_round.cu`` on the current
+stream, or raises -- it never falls back.  Each wrapper counts
 its kernel launches in a plain integer attribute, ``<wrapper>.launches``
 (see :func:`launch_counts`), and by form (:func:`form_counts`).
 
-The precision tiers (ROADMAP Queue 1 item 5): D, A', E, F, the long-row
-combine, #8, #9, #10 and the node-batched A', combine and E also take
-float32 values (the fp32 tier), with int32 columns and marks or, where the
-tier's ``n_pad`` fits int16 (D, A', E and the node forms), the compact
-int16 columns and int8 marks (:data:`TIER_FORMS`); F takes the
-progress-based early stop (``stop``) and #9 the batched one's per-row
-measure (``progress``).  Every other wrapper takes float64 and int32 only.
+The precision tiers (ROADMAP Queue 1 item 5): every wrapper but #16's
+(the solver's node objective, float64 only) also takes float32 values (the
+fp32 tier), with int32 columns and marks or, where the tier's ``n_pad``
+fits int16 (D, A', E, the node forms, and B and C's marks), the compact
+int16 columns and int8 marks (:data:`TIER_FORMS`); the slab kernels take
+int32 ids at both value types.  F and #15 for one instance take the
+progress-based early stop (``stop``), #9 and #15 over a batch the batched
+one's per-row measure (``progress``).
 
 Layout of the tile arguments: ``val`` (T, R, K) float64 with 0 at padding,
 ``col`` (T, R, K) int32 with every id in ``[0, n_pad)``, ``is_int_g``
@@ -89,11 +90,11 @@ def _check_tiles(val, col, lb, ub, n_pad, is_int_g=None):
     return t * r, k
 
 
-# The forms of the tier kernels (D, A', E, F, the long-row combine, #8, #9,
-# #10 and the node-batched A', combine and E): float64 values with int32
-# columns and marks, float32 with int32, and float32 with the compact int16
-# columns and int8 marks; their C entry points carry the suffix.  The early
-# stop of F and #9 adds "+stop" to the form it counts.
+# The forms of the tier kernels (every kernel but #16): float64 values with
+# int32 columns and marks, float32 with int32, and float32 with the compact
+# int16 columns and int8 marks; their C entry points carry the suffix.  The
+# early stop of F, #9 and #15 adds "+stop" to the form it counts (#15's
+# per-row measure of a batch "+stop_rows").
 TIER_FORMS = ("f64", "f32", "f32c")
 _FORM_SUFFIX = {"f64": "", "f32": "_f32", "f32c": "_f32c"}
 _FLOATS = (torch.float64, torch.float32)
@@ -469,26 +470,31 @@ candidates_scatter_tiles.launches = 0
 def _int_operand(x: torch.Tensor) -> torch.Tensor:
     """Integrality marks as the kernels take them: bool widens to int32, as
     the reference's ``_int_operand`` does; other dtypes pass through (and
-    the checks below refuse anything but int32 on the card)."""
+    the checks below refuse anything but int32, or int8 beside float32
+    values, on the card)."""
     return x.to(torch.int32) if x.dtype == torch.bool else x
 
 
 def _check_gathered(val, lb_g, ub_g, is_int_g=None):
-    """(T, R, K) tiles with their bounds gathered at each slot; returns
-    (chunks, K)."""
+    """(T, R, K) tiles with their bounds gathered at each slot, float64 or
+    float32, and the marks int32 (or int8 beside float32 values: the
+    compact form); returns (chunks, K, form)."""
     t, r, k = val.shape
-    _expect("val", val, torch.float64, (t, r, k))
-    _expect("lb_g", lb_g, torch.float64, (t, r, k))
-    _expect("ub_g", ub_g, torch.float64, (t, r, k))
+    dt = _float_dtype("val", val)
+    compact = (dt == torch.float32 and is_int_g is not None and is_int_g.dtype == torch.int8)
+    _expect("val", val, dt, (t, r, k))
+    _expect("lb_g", lb_g, dt, (t, r, k))
+    _expect("ub_g", ub_g, dt, (t, r, k))
     if is_int_g is not None:
-        _expect("is_int_g", is_int_g, torch.int32, (t, r, k))
-    return t * r, k
+        _expect("is_int_g", is_int_g, torch.int8 if compact else torch.int32, (t, r, k))
+    form = "f64" if dt == torch.float64 else "f32c" if compact else "f32"
+    return t * r, k, form
 
 
 def activities_tiles(val, lb_g, ub_g, inf: float = INF, *, go=None):
     """Per-chunk activity partials from pre-gathered bounds: (T, R, K)
     ``val``, ``lb_g``, ``ub_g`` -> ``(mf, mc, xf, xc)``, each (T, R): finite
-    min/max sums (float64, in ``ref.warp_order_sum`` order) and infinity
+    min/max sums (of ``val``'s dtype, in ``ref.warp_order_sum`` order) and infinity
     counts (int32).  ``go`` (the loop carry's ``GO``, as for D) skips the
     launch's work where it is false; the outputs are then not written.
 
@@ -497,23 +503,27 @@ def activities_tiles(val, lb_g, ub_g, inf: float = INF, *, go=None):
     ``val`` per padded slot, 16 B of bounds per nonzero (padding's are never
     read) and 24 B of partials per chunk.  Design: kernel A''s lane group
     per chunk and shuffle sums, each slot's bounds read at the slot instead
-    of gathered at its column; the group's first lane writes the partials."""
+    of gathered at its column; the group's first lane writes the partials.
+    Float64 or float32 (``csrc/tier_round.cu`` ``activities_f32``, the same
+    template), at 4 B a value; A reads no marks, so it has no compact
+    form."""
     if not _on_cuda(val, lb_g, ub_g):
         return ref.activities_tiles_ref(val, lb_g, ub_g, inf)
-    n_chunks, k = _check_gathered(val, lb_g, ub_g)
+    n_chunks, k, form = _check_gathered(val, lb_g, ub_g)
     shape, dev = val.shape[:2], val.device
-    mf = torch.empty(shape, dtype=torch.float64, device=dev)
-    xf = torch.empty(shape, dtype=torch.float64, device=dev)
+    mf = torch.empty(shape, dtype=val.dtype, device=dev)
+    xf = torch.empty(shape, dtype=val.dtype, device=dev)
     mc = torch.empty(shape, dtype=torch.int32, device=dev)
     xc = torch.empty(shape, dtype=torch.int32, device=dev)
     if n_chunks == 0:
         return mf, mc, xf, xc
-    err = _build.lib().activities(
+    entry, symbol = _tier_entry("activities", form)
+    err = entry(
         _p(val), _p(lb_g), _p(ub_g), _p(mf), _p(mc), _p(xf), _p(xc), _go(go), n_chunks, k,
         inf, _stream(),
     )
-    activities_tiles.launches += 1
-    _build.check(err, "activities")
+    _launched(activities_tiles, form)
+    _build.check(err, symbol)
     return mf, mc, xf, xc
 
 
@@ -537,31 +547,29 @@ def candidates_tiles(
     data per chunk and the two (T, R, K) outputs (16 B per slot).  Design:
     kernel E's lane group per chunk and its candidate arithmetic, each lane
     storing both candidates of its slots (coalesced) instead of scattering
-    them."""
+    them.  Float64 or float32 (``csrc/tier_round.cu``, the same template;
+    with a float32 prep's compact int8 marks as they are), at 4 B a value
+    and 1 B a compact mark."""
     is_int_g = _int_operand(is_int_g)
     operands = (val, lb_g, ub_g, is_int_g, row_min_fin, row_min_cnt, row_max_fin,
                 row_max_cnt, lhs_g, rhs_g)
     if not _on_cuda(*operands):
         return ref.candidates_tiles_ref(*operands, int_eps, inf)
-    n_chunks, k = _check_gathered(val, lb_g, ub_g, is_int_g)
-    rows = val.shape[:2]
-    _expect("row_min_fin", row_min_fin, torch.float64, rows)
-    _expect("row_min_cnt", row_min_cnt, torch.int32, rows)
-    _expect("row_max_fin", row_max_fin, torch.float64, rows)
-    _expect("row_max_cnt", row_max_cnt, torch.int32, rows)
-    _expect("lhs_g", lhs_g, torch.float64, rows)
-    _expect("rhs_g", rhs_g, torch.float64, rows)
+    n_chunks, k, form = _check_gathered(val, lb_g, ub_g, is_int_g)
+    _check_rows(val.shape[:2], val.dtype, row_min_fin=row_min_fin, row_min_cnt=row_min_cnt,
+                row_max_fin=row_max_fin, row_max_cnt=row_max_cnt, lhs_g=lhs_g, rhs_g=rhs_g)
     lcand = torch.empty_like(val)
     ucand = torch.empty_like(val)
     if n_chunks == 0:
         return lcand, ucand
-    err = _build.lib().candidates(
+    entry, symbol = _tier_entry("candidates", form)
+    err = entry(
         _p(val), _p(lb_g), _p(ub_g), _p(is_int_g), _p(row_min_fin), _p(row_min_cnt),
         _p(row_max_fin), _p(row_max_cnt), _p(lhs_g), _p(rhs_g), _p(lcand), _p(ucand),
         _go(go), n_chunks, k, int_eps, inf, _stream(),
     )
-    candidates_tiles.launches += 1
-    _build.check(err, "candidates")
+    _launched(candidates_tiles, form)
+    _build.check(err, symbol)
     return lcand, ucand
 
 
@@ -582,24 +590,26 @@ def fused_round_tiles(val, lb_g, ub_g, is_int_g, lhs_g, rhs_g, int_eps: float,
     sides per chunk and the two outputs (16 B per slot).  Design: kernel D's
     lane group per chunk (row sums by shuffles, in ``ref.warp_order_sum``
     order), each slot's bounds read at the slot, both candidates stored per
-    slot instead of scattered."""
+    slot instead of scattered.  Float64 or float32 (``csrc/tier_round.cu``,
+    the same template; the compact int8 marks as B's), at 4 B a value."""
     is_int_g = _int_operand(is_int_g)
     operands = (val, lb_g, ub_g, is_int_g, lhs_g, rhs_g)
     if not _on_cuda(*operands):
         return ref.fused_round_tiles_ref(*operands, int_eps, inf)
-    n_chunks, k = _check_gathered(val, lb_g, ub_g, is_int_g)
-    _expect("lhs_g", lhs_g, torch.float64, val.shape[:2])
-    _expect("rhs_g", rhs_g, torch.float64, val.shape[:2])
+    n_chunks, k, form = _check_gathered(val, lb_g, ub_g, is_int_g)
+    _expect("lhs_g", lhs_g, val.dtype, val.shape[:2])
+    _expect("rhs_g", rhs_g, val.dtype, val.shape[:2])
     lcand = torch.empty_like(val)
     ucand = torch.empty_like(val)
     if n_chunks == 0:
         return lcand, ucand
-    err = _build.lib().fused_round(
+    entry, symbol = _tier_entry("fused_round", form)
+    err = entry(
         _p(val), _p(lb_g), _p(ub_g), _p(is_int_g), _p(lhs_g), _p(rhs_g), _p(lcand), _p(ucand),
         _go(go), n_chunks, k, int_eps, inf, _stream(),
     )
-    fused_round_tiles.launches += 1
-    _build.check(err, "fused_round")
+    _launched(fused_round_tiles, form)
+    _build.check(err, symbol)
     return lcand, ucand
 
 
@@ -656,6 +666,8 @@ def apply_updates_tiles(lb, ub, best_l, best_u, eps: float, inf: float = INF, ou
         carry, k, unroll = _carry.armed_state(lb.device), 0, 1
     if stop is not None and unroll != 1:
         raise ValueError(f"unroll={unroll}: kernel F's early stop takes one round a check group")
+    if stop is not None and partials is not None:
+        _expect("partials", partials, lb.dtype, (-(-lb.shape[0] // ref.MERGE_BLOCK),))
     if not _on_cuda(lb, ub, best_l, best_u, carry):
         new_lb, new_ub, go = ref.merge_carry_ref(lb, ub, best_l, best_u, eps, inf, outward,
                                                  carry, k, unroll, stop)
@@ -678,7 +690,6 @@ def apply_updates_tiles(lb, ub, best_l, best_u, eps: float, inf: float = INF, ou
         blocks = -(-n // ref.MERGE_BLOCK)
         if partials is None:
             partials = torch.empty(blocks, dtype=dt, device=lb.device)
-        _expect("partials", partials, dt, (blocks,))
         symbol = "apply_updates_stop" + ("" if form == "f64" else "_f32")
         err = getattr(_build.lib(), symbol)(
             _p(lb), _p(ub), _p(best_l), _p(best_u), _p(carry), _p(partials), n, eps, inf,
@@ -1142,10 +1153,7 @@ def apply_updates_batch_tiles(
             lb, ub, best_l, best_u, eps, inf, outward, active=active
         )
         if progress is not None:
-            blocks, prog = ref.merge_rows_progress(lb, ub, new_lb, new_ub)
-            progress.copy_(torch.where(active, prog, progress))
-            if partials is not None:
-                partials.copy_(torch.where(active[:, None], blocks, partials))
+            _plain_row_progress(lb, ub, new_lb, new_ub, active, progress, partials)
         _hand_back(best_l, best_u, active, inf)
         lb.copy_(new_lb)
         ub.copy_(new_ub)
@@ -1242,11 +1250,14 @@ def _check_runs(n_tiles: int, **runs) -> int:
 
 
 def _check_copies(val, col_s, lb, ub, active):
+    """Copy tiles (float64 or float32 values, int32 slab-local columns) and
+    their ``(B, W)`` planes; returns ``(T, R, K, B, W)``."""
     t, r, k = val.shape
-    _expect("val", val, torch.float64, (t, r, k))
+    dt = _float_dtype("val", val)
+    _expect("val", val, dt, (t, r, k))
     _expect("col_s", col_s, torch.int32, (t, r, k))
     bsz, width = lb.shape
-    _check_planes(bsz, width, lb=lb, ub=ub)
+    _check_planes(bsz, width, dt, lb=lb, ub=ub)
     _expect("active", active, torch.bool, (bsz,))
     if bsz > MAX_GRID_Y:
         raise ValueError(f"{bsz} planes exceed the grid's {MAX_GRID_Y}")
@@ -1282,7 +1293,9 @@ def batched_slab_partials_tiles(
     the TPU's grid and is not used here.  ``out`` (the four partials, kept
     by the round closure) is written instead of fresh tensors.  ``go`` (a
     single instance's loop carry's ``GO``, as for D) skips the launch's
-    work where it is false; the partials are then not written.
+    work where it is false; the partials are then not written.  Float64 or
+    float32 (``csrc/slab_tier_round.cu``, the same template, int32 ids), at
+    4 B a value.
 
     Replaces ``batched_slab_partials_tiles`` /
     ``_batched_slab_partials_kernel`` (src/repro/kernels/prop_round.py:1129
@@ -1297,16 +1310,18 @@ def batched_slab_partials_tiles(
     t, r, k, _, width = _check_copies(val, col_s, lb, ub, active)
     n_runs = _check_runs(t, run_start=run_start, run_len=run_len, run_inst=run_inst,
                          run_slab=run_slab)
-    mf, mc, xf, xc = _outputs(out, partial_specs((t, r)), val.device)
+    mf, mc, xf, xc = _outputs(out, partial_specs((t, r), val.dtype), val.device)
     if t == 0:
         return mf, mc, xf, xc
-    err = _build.lib().slab_partials(
+    form = _value_form("val", val)
+    entry, symbol = _tier_entry("slab_partials", form)
+    err = entry(
         _p(val), _p(col_s), _p(run_start), _p(run_inst), _p(run_slab), _p(active), _p(lb),
         _p(ub), _p(mf), _p(mc), _p(xf), _p(xc), _go(go), n_runs, t * r, r, k, width, slab, inf,
         _stream(),
     )
-    batched_slab_partials_tiles.launches += 1
-    _build.check(err, "slab_partials")
+    _launched(batched_slab_partials_tiles, form)
+    _build.check(err, symbol)
     return mf, mc, xf, xc
 
 
@@ -1315,43 +1330,126 @@ batched_slab_partials_tiles.launches = 0
 
 def _slab_merge(lb, ub, best_l, best_u, active, slab: int, eps: float, inf: float,
                 outward: float, flags: FlagPair | None = None, carry=None, k: int = 0,
-                unroll: int = 1):
+                unroll: int = 1, stop=None, partials=None, progress=None, ticket=None):
     """Launch kernel #15 on ``(B, W)`` planes, in place; returns the ``(B,
     n_slabs)`` int32 window flags (from the pair ``flags`` where given), or
     with a loop ``carry`` (one instance, ``active`` its ``GO``) folds the
-    flag into it, as F does, and returns the carry's ``GO``.  Counted as a
-    launch of :func:`apply_updates_slab_tiles`, whichever wrapper calls it.
-    The slab must be a multiple of 32: a warp flags the one window its 32
-    columns lie in (partition slabs are multiples of LANE, 128)."""
+    flag into it, as F does, and returns the carry's ``GO``.  With the
+    carry's early stop ``stop`` (one round a check group) the fold also
+    takes the round's progress measure, each block's sum into ``partials``
+    (``(ceil(W / ref.MERGE_BLOCK),)``), as F's
+    (``csrc/slab_tier_round.cu`` ``slab_merge_stop``).  Without a carry,
+    ``progress`` (a ``(B,)`` tensor) takes each active row's measure, as
+    #9's, through ``partials`` (``(B, ceil(W / ref.MERGE_BLOCK))``) and
+    ``ticket`` (``slab_merge_rows_stop``); both are allocated when omitted.
+    Counted as a launch of :func:`apply_updates_slab_tiles`, whichever
+    wrapper calls it.  The slab must be a multiple of 32: a warp flags the
+    one window its 32 columns lie in (partition slabs are multiples of
+    LANE, 128)."""
     if slab <= 0 or slab % ref.WARP:
         raise ValueError(f"slab={slab}: the window merge takes multiples of {ref.WARP}")
     bsz, width = lb.shape
+    form = _value_form("lb", lb)
+    suffix = _FORM_SUFFIX[form]
+    lib = _build.lib()
+    ptr = lambda t: None if t is None else _p(t)
+    head = (_p(lb), _p(ub), _p(best_l), _p(best_u), _p(active))
+    blocks = -(-width // ref.MERGE_BLOCK)
+    out = None
     if carry is not None:
         if bsz != 1:
             raise ValueError(f"a loop carry folds one instance's flags, got {bsz} planes")
         _expect("carry", carry, torch.int32, (_carry.FIELDS,))
-        out = clear = None
+        if stop is None:
+            symbol = "slab_merge" + suffix
+            err = getattr(lib, symbol)(*head, None, None, _p(carry), bsz, width, slab, k, unroll,
+                                       eps, inf, outward, _stream())
+        else:
+            if unroll != 1:
+                raise ValueError(f"unroll={unroll}: #15's early stop takes one round a check "
+                                 "group")
+            if partials is None:
+                partials = torch.empty(blocks, dtype=lb.dtype, device=lb.device)
+            _expect("partials", partials, lb.dtype, (blocks,))
+            symbol = "slab_merge_stop" + suffix
+            err = getattr(lib, symbol)(*head, _p(carry), _p(partials), width, eps, inf, outward,
+                                       stop.progress, int(stop.patience), _stream())
+            form += "+stop"
     else:
         out, clear = _flag_buffers(flags, (bsz, _n_slabs(width, slab)), torch.int32, lb.device)
-    ptr = lambda t: None if t is None else _p(t)
-    err = _build.lib().slab_merge(
-        _p(lb), _p(ub), _p(best_l), _p(best_u), _p(active), ptr(out), ptr(clear), ptr(carry),
-        bsz, width, slab, k, unroll, eps, inf, outward, _stream(),
-    )
-    apply_updates_slab_tiles.launches += 1
-    _build.check(err, "slab_merge")
+        if progress is None:
+            symbol = "slab_merge" + suffix
+            err = getattr(lib, symbol)(*head, _p(out), ptr(clear), None, bsz, width, slab, k,
+                                       unroll, eps, inf, outward, _stream())
+        else:
+            if partials is None:
+                partials = torch.empty((bsz, blocks), dtype=lb.dtype, device=lb.device)
+            if ticket is None:
+                ticket = torch.zeros(1, dtype=torch.int32, device=lb.device)
+            _expect("progress", progress, lb.dtype, (bsz,))
+            _expect("partials", partials, lb.dtype, (bsz, blocks))
+            _expect("ticket", ticket, torch.int32, (1,))
+            symbol = "slab_merge_rows_stop" + suffix
+            err = getattr(lib, symbol)(*head, _p(out), ptr(clear), _p(partials), _p(progress),
+                                       _p(ticket), bsz, width, slab, eps, inf, outward, _stream())
+            form += "+stop_rows"
+    _launched(apply_updates_slab_tiles, form)
+    _build.check(err, symbol)
     return _carry.go_flag(carry) if carry is not None else out
+
+
+def _plain_slab_merge(lb, ub, best_l, best_u, active, slab: int, eps: float, inf: float,
+                      outward: float, flags: FlagPair | None = None, carry=None, k: int = 0,
+                      unroll: int = 1, stop=None, partials=None, progress=None):
+    """#15's plain version, in place, as :func:`_slab_merge` launches it
+    (the CPU branch of the slab rounds and of #15's wrapper): the window
+    merge (:func:`ref.apply_updates_slab_ref`), the active rows' hand-back,
+    and the window flags through the kept pair ``flags``; or, with a loop
+    ``carry``, its fold (with the carry's ``stop``, of the round's measure
+    in #15's order, :func:`ref.merge_progress`), returning the carry's
+    ``GO``; ``progress`` as :func:`_plain_row_progress`."""
+    blocks = -(-lb.shape[1] // ref.MERGE_BLOCK)
+    if partials is not None and carry is not None and stop is not None:
+        _expect("partials", partials, lb.dtype, (blocks,))
+    elif partials is not None and carry is None and progress is not None:
+        _expect("partials", partials, lb.dtype, (lb.shape[0], blocks))
+    new_lb, new_ub, win = ref.apply_updates_slab_ref(lb, ub, best_l, best_u, active, slab, eps,
+                                                     inf, outward)
+    _hand_back(best_l, best_u, active, inf)
+    prog = None
+    if carry is not None and stop is not None:
+        prog = ref.merge_progress(lb, ub, new_lb, new_ub)
+    elif carry is None and progress is not None:
+        _plain_row_progress(lb, ub, new_lb, new_ub, active, progress, partials)
+    lb.copy_(new_lb)
+    ub.copy_(new_ub)
+    if carry is not None:
+        _carry.fold(carry, win.any(), k, unroll, stop, prog)
+        return _carry.go_flag(carry)
+    return _plain_flags(flags, win)
+
+
+def _plain_row_progress(lb, ub, new_lb, new_ub, active, progress, partials=None) -> None:
+    """The plain form of the batched merges' early-stop measure (#9, #15):
+    each active row's block partials and measure
+    (:func:`ref.merge_rows_progress`) written into ``partials`` (where
+    given) and ``progress``, in place; inactive rows' entries kept."""
+    blocks, prog = ref.merge_rows_progress(lb, ub, new_lb, new_ub)
+    progress.copy_(torch.where(active, prog, progress))
+    if partials is not None:
+        partials.copy_(torch.where(active[:, None], blocks, partials))
 
 
 def _check_round(val, col_s, is_int_g, row_done, lhs_g, rhs_g, strs, str_lead, lb, ub, active):
     t, r, k, bsz, width = _check_copies(val, col_s, lb, ub, active)
+    dt = val.dtype
     _expect("is_int_g", is_int_g, torch.int32, (t, r, k))
     _expect("row_done", row_done, torch.int32, (t, r))
-    _expect("lhs_g", lhs_g, torch.float64, (t, r))
-    _expect("rhs_g", rhs_g, torch.float64, (t, r))
-    for name, x, dt in zip(("str_min_fin", "str_min_cnt", "str_max_fin", "str_max_cnt"), strs,
-                           (torch.float64, torch.int32, torch.float64, torch.int32)):
-        _expect(name, x, dt, (*str_lead, t, r))
+    _expect("lhs_g", lhs_g, dt, (t, r))
+    _expect("rhs_g", rhs_g, dt, (t, r))
+    for name, x, d in zip(("str_min_fin", "str_min_cnt", "str_max_fin", "str_max_cnt"), strs,
+                          (dt, torch.int32, dt, torch.int32)):
+        _expect(name, x, d, (*str_lead, t, r))
     return t, r, k, bsz, width
 
 
@@ -1361,6 +1459,7 @@ def batched_slab_round_tiles(
     max_run_len: int, eps: float, int_eps: float, inf: float = INF, outward: float = 0.0,
     *, acc, tiles, chunk_len=None, max_chunk_len: int | None = None,
     flags: FlagPair | None = None, carry=None, k: int = 0, unroll: int = 1, go=None,
+    stop=None, partials=None, progress=None, ticket=None,
 ):
     """The slab round over a partitioned stream, IN PLACE: ``(T'', R, K)``
     copies + ``(T'', R)`` ``row_done`` and straddle aggregates ``str_*``
@@ -1380,7 +1479,13 @@ def batched_slab_round_tiles(
     ``k``/``unroll`` as for F) the window flags are folded into the carry
     instead, as F folds its flag, and the third output is the carry's
     ``GO``; ``go`` (that ``GO``) then skips the scatter's work where it is
-    false.
+    false.  With the carry, ``stop`` (its early stop, one round a check
+    group) folds the round's progress measure into it as F does
+    (``partials`` its kept block sums); without one, ``progress`` (a ``(B,)``
+    tensor) takes each active instance's measure of the round, as #9's
+    (``partials``, ``ticket`` kept with it): :func:`_slab_merge`.  Float64
+    or float32 (``csrc/slab_tier_round.cu``, the same templates, int32
+    ids), at 4 B a value.
 
     Replaces ``batched_slab_round_tiles`` / ``_batched_slab_round_kernel``
     (src/repro/kernels/prop_round.py:1258 / :1195), whose merge at each
@@ -1401,20 +1506,17 @@ def batched_slab_round_tiles(
     strs = (str_min_fin, str_min_cnt, str_max_fin, str_max_cnt)
     operands = (val, col_s, is_int_g, row_done, *strs, lhs_g, rhs_g, run_start, run_len,
                 run_inst, run_slab, active, lb, ub, *acc)
+    if stop is not None and unroll != 1:
+        raise ValueError(f"unroll={unroll}: #15's early stop takes one round a check group")
     if not _on_cuda(*operands):
         best_l, best_u = _fold(acc, ref.batched_slab_scatter_ref(
             val, col_s, is_int_g, row_done, *strs, lhs_g, rhs_g, run_start, run_inst, run_slab,
             active, lb, ub, slab, int_eps, inf,
         ))
-        new_lb, new_ub, win = ref.apply_updates_slab_ref(lb, ub, best_l, best_u, active, slab,
-                                                         eps, inf, outward)
-        _hand_back(best_l, best_u, active, inf)
-        lb.copy_(new_lb)
-        ub.copy_(new_ub)
-        if carry is not None:
-            _carry.fold(carry, win.any(), k, unroll)
-            return lb, ub, _carry.go_flag(carry)
-        return lb, ub, _plain_flags(flags, win).reshape(-1)
+        out = _plain_slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward, flags,
+                                carry, k, unroll, stop, partials, progress)
+        return lb, ub, out if carry is not None else out.reshape(-1)
+    form = _value_form("val", val)
     t, r, kw, bsz, width = _check_round(val, col_s, is_int_g, row_done, lhs_g, rhs_g, strs, (),
                                         lb, ub, active)
     n_runs = _check_runs(t, run_start=run_start, run_len=run_len, run_inst=run_inst,
@@ -1423,19 +1525,20 @@ def batched_slab_round_tiles(
         raise ValueError(f"{n_runs} runs, expected one per window ({bsz} x "
                          f"{_n_slabs(width, slab)})")
     best_l, best_u = acc
-    _check_planes(bsz, width, best_l=best_l, best_u=best_u)
+    _check_planes(bsz, width, val.dtype, best_l=best_l, best_u=best_u)
     for name, x in zip(("tile_inst", "tile_slab"), tiles):
         _expect(name, x, torch.int32, (t,))
     clen = _chunk_len(val, chunk_len)
-    err = _build.lib().slab_scatter(
+    entry, symbol = _tier_entry("slab_scatter", form)
+    err = entry(
         _p(val), _p(col_s), _p(is_int_g), _p(clen), _p(row_done), *map(_p, strs), _p(lhs_g),
         _p(rhs_g), *map(_p, tiles), _p(active), _p(lb), _p(ub), _p(best_l), _p(best_u), _go(go),
         t * r, r, kw, _max_len(kw, max_chunk_len), width, slab, int_eps, inf, _stream(),
     )
-    batched_slab_round_tiles.launches += 1
-    _build.check(err, "slab_scatter")
+    _launched(batched_slab_round_tiles, form)
+    _build.check(err, symbol)
     out = _slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward, flags, carry, k,
-                      unroll)
+                      unroll, stop, partials, progress, ticket)
     return lb, ub, out if carry is not None else out.reshape(-1)
 
 
@@ -1454,7 +1557,8 @@ def node_slab_partials_tiles(
     slabs (``a_tile_slab``), ``chunk_len`` the copies' lengths and
     ``max_chunk_len`` the longest (``a_chunk_len``, ``a_max_chunk_len``),
     all hoisted by the partition; computed from the run maps, from ``val``
-    and as K when omitted.
+    and as K when omitted.  Float64 or float32 (``csrc/slab_tier_round.cu``,
+    the same template, int32 ids), at 4 B a value.
 
     Replaces ``node_slab_partials_tiles`` / ``_node_slab_partials_kernel``
     (src/repro/kernels/prop_round.py:1383 / :1351).  Bound on the H100: the
@@ -1479,39 +1583,38 @@ def node_slab_partials_tiles(
         tile_slab = torch.repeat_interleave(run_slab, run_len).to(torch.int32)
     _expect("tile_slab", tile_slab, torch.int32, (t,))
     clen = _chunk_len(val, chunk_len)
-    dev = val.device
-    mf = torch.empty((bsz, t, r), dtype=torch.float64, device=dev)
-    xf = torch.empty((bsz, t, r), dtype=torch.float64, device=dev)
-    mc = torch.empty((bsz, t, r), dtype=torch.int32, device=dev)
-    xc = torch.empty((bsz, t, r), dtype=torch.int32, device=dev)
+    mf, mc, xf, xc = _outputs(None, partial_specs((bsz, t, r), val.dtype), val.device)
     if t == 0:
         return mf, mc, xf, xc
-    err = _build.lib().node_slab_partials(
+    form = _value_form("val", val)
+    entry, symbol = _tier_entry("node_slab_partials", form)
+    err = entry(
         _p(val), _p(col_s), _p(clen), _p(tile_slab), _p(active), _p(lb), _p(ub), _p(mf),
         _p(mc), _p(xf), _p(xc), t * r, r, k, _max_len(k, max_chunk_len), bsz, width, slab, inf,
         _stream(),
     )
-    node_slab_partials_tiles.launches += 1
-    _build.check(err, "node_slab_partials")
+    _launched(node_slab_partials_tiles, form)
+    _build.check(err, symbol)
     return mf, mc, xf, xc
 
 
 node_slab_partials_tiles.launches = 0
 
 
-def partial_specs(shape) -> tuple:
+def partial_specs(shape, dtype: torch.dtype = torch.float64) -> tuple:
     """``(shape, dtype)`` of the four partials or aggregates: min sums,
-    min counts, max sums, max counts."""
-    return ((shape, torch.float64), (shape, torch.int32), (shape, torch.float64),
-            (shape, torch.int32))
+    min counts, max sums, max counts (the sums of value type ``dtype``)."""
+    return ((shape, dtype), (shape, torch.int32), (shape, dtype), (shape, torch.int32))
 
 
-def straddle_specs(part_shape, agg_shape, n_slots: int) -> tuple:
+def straddle_specs(part_shape, agg_shape, n_slots: int,
+                   dtype: torch.dtype = torch.float64) -> tuple:
     """``(shape, dtype)`` of the straddle combine's outputs (the aggregates
     spread to ``agg_shape``, leading node axis included) and of its
-    compact tables, for partials of ``part_shape``."""
+    compact tables, for partials of ``part_shape`` with sums of
+    ``dtype``."""
     nb = part_shape[0] if len(part_shape) == 3 else 1
-    return partial_specs(tuple(agg_shape)) + partial_specs((nb, n_slots))
+    return partial_specs(tuple(agg_shape), dtype) + partial_specs((nb, n_slots), dtype)
 
 
 def straddle_combine_tiles(mf, mc, xf, xc, a_order, a_seg, agg_slot, active=None, *,
@@ -1540,14 +1643,17 @@ def straddle_combine_tiles(mf, mc, xf, xc, a_order, a_seg, agg_slot, active=None
     plane, table slot) walks the slot's positions through ``a_order`` into
     a compact ``(nb, n_straddle + 1)`` table, then one thread per (active
     plane, chunk) copies its slot's entry; each warp ballots its group of
-    32 planes' flags."""
+    32 planes' flags.  Float64 or float32 (``csrc/slab_tier_round.cu``
+    ``straddle_combine_f32``, the same template: each slot's partials summed
+    from +0.0 in sub-stream order), at 4 B a value."""
     operands = (mf, mc, xf, xc, a_order, a_seg, agg_slot)
     if active is not None:
         operands += (active,)
     if not _on_cuda(*operands):
         return ref.straddle_combine_ref(mf, mc, xf, xc, a_order, a_seg, agg_slot, active)
     lead = tuple(mf.shape[:-2])
-    _check_partials(mf, mc, xf, xc, tuple(mf.shape))
+    form = _value_form("mf", mf)
+    _check_partials(mf, mc, xf, xc, tuple(mf.shape), mf.dtype)
     if len(lead) > 1:
         raise ValueError(f"partials: expected (Ta, R) or (nb, Ta, R), got {tuple(mf.shape)}")
     nb = lead[0] if lead else 1
@@ -1561,17 +1667,18 @@ def straddle_combine_tiles(mf, mc, xf, xc, a_order, a_seg, agg_slot, active=None
         _expect("active", active, torch.bool, (nb,))
     n_slots = a_seg.shape[0] - 1
     dev = mf.device
-    specs = straddle_specs(tuple(mf.shape), (*lead, *agg_slot.shape), n_slots)
+    specs = straddle_specs(tuple(mf.shape), (*lead, *agg_slot.shape), n_slots, mf.dtype)
     omf, omc, oxf, oxc, tmf, tmc, txf, txc = _outputs(out, specs, dev)
     if nb == 0:
         return omf, omc, oxf, oxc
-    err = _build.lib().straddle_combine(
+    entry, symbol = _tier_entry("straddle_combine", form)
+    err = entry(
         _p(mf), _p(mc), _p(xf), _p(xc), _p(a_order), _p(a_seg), _p(agg_slot),
         None if active is None else _p(active), _p(tmf), _p(tmc), _p(txf), _p(txc), _p(omf),
         _p(omc), _p(oxf), _p(oxc), n_slots, n_pos, agg_slot.numel(), nb, _stream(),
     )
-    straddle_combine_tiles.launches += 1
-    _build.check(err, "straddle_combine")
+    _launched(straddle_combine_tiles, form)
+    _build.check(err, symbol)
     return omf, omc, oxf, oxc
 
 
@@ -1583,7 +1690,7 @@ def node_slab_round_tiles(
     lhs_g, rhs_g, run_start, run_len, run_slab, active, lb, ub, slab: int, max_run_len: int,
     eps: float, int_eps: float, inf: float = INF, outward: float = 0.0,
     *, acc, tile_slab, chunk_len=None, max_chunk_len: int | None = None,
-    flags: FlagPair | None = None,
+    flags: FlagPair | None = None, progress=None, partials=None, ticket=None,
 ):
     """The slab round over a node batch, IN PLACE: ONE instance's ``(T'',
     R, K)`` copies + ``(B, T'', R)`` per-node straddle aggregates + shared
@@ -1597,7 +1704,11 @@ def node_slab_round_tiles(
     chunk lengths and ``max_chunk_len`` the longest, all hoisted by the
     partition (the last two computed from ``val``, and K, when omitted);
     ``flags`` the window flags' pair kept by the round closure
-    (:class:`FlagPair`).
+    (:class:`FlagPair`).  ``progress`` (a ``(B,)`` tensor; ``partials`` and
+    ``ticket`` kept with it) takes each active node's early-stop measure of
+    the round, as #9's (:func:`_slab_merge`).  Float64 or float32
+    (``csrc/slab_tier_round.cu``, the same templates, int32 ids), at 4 B a
+    value.
 
     Replaces ``node_slab_round_tiles`` / ``_node_slab_round_kernel``
     (src/repro/kernels/prop_round.py:1498 / :1443).  Bound on the H100: the
@@ -1623,12 +1734,9 @@ def node_slab_round_tiles(
             val, col_s, is_int_g, row_done, *strs, lhs_g, rhs_g, run_start, run_slab, active,
             lb, ub, slab, int_eps, inf,
         ))
-        new_lb, new_ub, win = ref.apply_updates_slab_ref(lb, ub, best_l, best_u, active, slab,
-                                                         eps, inf, outward)
-        _hand_back(best_l, best_u, active, inf)
-        lb.copy_(new_lb)
-        ub.copy_(new_ub)
-        return lb, ub, _plain_flags(flags, win)
+        return lb, ub, _plain_slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward,
+                                         flags, progress=progress, partials=partials)
+    form = _value_form("val", val)
     bsz = lb.shape[0]
     t, r, k, bsz, width = _check_round(val, col_s, is_int_g, row_done, lhs_g, rhs_g, strs,
                                        (bsz,), lb, ub, active)
@@ -1636,17 +1744,19 @@ def node_slab_round_tiles(
     if n_runs != _n_slabs(width, slab):
         raise ValueError(f"{n_runs} runs, expected one per slab ({_n_slabs(width, slab)})")
     best_l, best_u = acc
-    _check_planes(bsz, width, best_l=best_l, best_u=best_u)
+    _check_planes(bsz, width, val.dtype, best_l=best_l, best_u=best_u)
     _expect("tile_slab", tile_slab, torch.int32, (t,))
     clen = _chunk_len(val, chunk_len)
-    err = _build.lib().node_slab_scatter(
+    entry, symbol = _tier_entry("node_slab_scatter", form)
+    err = entry(
         _p(val), _p(col_s), _p(is_int_g), _p(clen), _p(row_done), *map(_p, strs), _p(lhs_g),
         _p(rhs_g), _p(tile_slab), _p(active), _p(lb), _p(ub), _p(best_l), _p(best_u), t * r, r,
         k, _max_len(k, max_chunk_len), bsz, width, slab, int_eps, inf, _stream(),
     )
-    node_slab_round_tiles.launches += 1
-    _build.check(err, "node_slab_scatter")
-    return lb, ub, _slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward, flags)
+    _launched(node_slab_round_tiles, form)
+    _build.check(err, symbol)
+    return lb, ub, _slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward, flags,
+                               progress=progress, partials=partials, ticket=ticket)
 
 
 node_slab_round_tiles.launches = 0
@@ -1654,7 +1764,8 @@ node_slab_round_tiles.launches = 0
 
 def apply_updates_slab_tiles(
     lb, ub, best_l, best_u, active, slab: int, eps: float, inf: float = INF,
-    outward: float = 0.0, *, flags: FlagPair | None = None,
+    outward: float = 0.0, *, flags: FlagPair | None = None, carry=None, k: int = 0,
+    unroll: int = 1, stop=None, partials=None, progress=None, ticket=None,
 ):
     """Merge over ``(instance, slab)`` windows, IN PLACE: ``(B, W)``
     bounds and best candidates + ``(B,)`` ``active`` -> the planes, updated,
@@ -1663,7 +1774,12 @@ def apply_updates_slab_tiles(
     through.  The active rows of ``best_l``/``best_u`` are set back to the
     sentinels once read (the planes of #12 and #14 are kept for the whole
     fixed point).  ``flags`` is a kept pair for the window flags
-    (:class:`FlagPair`, ``(B, n_slabs)`` int32).
+    (:class:`FlagPair`, ``(B, n_slabs)`` int32).  With a loop ``carry``
+    (``B == 1``, ``active`` its ``GO``; ``k``/``unroll`` as for F) the flags
+    are folded into the carry, its early stop ``stop`` with the round's
+    measure (``partials`` its block sums), and the third output is the
+    carry's ``GO``; without one, ``progress`` takes each active row's
+    measure (``partials``, ``ticket`` kept with it): :func:`_slab_merge`.
 
     Replaces ``apply_updates_slab_tiles`` / ``_apply_updates_slab_kernel``
     (src/repro/kernels/prop_round.py:1595 / :1581).  The same kernel is the
@@ -1678,23 +1794,24 @@ def apply_updates_slab_tiles(
     tightening in a column stride stores its window's flag once (``slab``
     a multiple of 32), into flags zeroed by the previous launch with the
     pair (or allocated zeroed without one).  For one instance's fixed
-    point #12 folds the flags into the loop carry instead (F's
-    ``CarryFlags``)."""
+    point the flags are folded into the loop carry instead (F's
+    ``CarryFlags``, or with the early stop F's ``StopCarryFlags``); a
+    batch's per-row measure is #9's (``WindowStopFlags``).  Float64 or
+    float32 (``csrc/slab_tier_round.cu``), at 4 B a value."""
+    if stop is not None and unroll != 1:
+        raise ValueError(f"unroll={unroll}: #15's early stop takes one round a check group")
     if not _on_cuda(lb, ub, best_l, best_u, active):
-        new_lb, new_ub, win = ref.apply_updates_slab_ref(
-            lb, ub, best_l, best_u, active, slab, eps, inf, outward
-        )
-        _hand_back(best_l, best_u, active, inf)
-        lb.copy_(new_lb)
-        ub.copy_(new_ub)
-        return lb, ub, _plain_flags(flags, win).any(dim=1)
+        out = _plain_slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward, flags,
+                                carry, k, unroll, stop, partials, progress)
+        return lb, ub, out if carry is not None else out.any(dim=1)
     bsz, width = lb.shape
     if bsz > MAX_GRID_Y:
         raise ValueError(f"{bsz} planes exceed the grid's {MAX_GRID_Y}")
-    _check_planes(bsz, width, lb=lb, ub=ub, best_l=best_l, best_u=best_u)
+    _check_planes(bsz, width, _float_dtype("lb", lb), lb=lb, ub=ub, best_l=best_l, best_u=best_u)
     _expect("active", active, torch.bool, (bsz,))
-    win = _slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward, flags)
-    return lb, ub, win.any(dim=1)
+    out = _slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward, flags, carry, k,
+                      unroll, stop, partials, progress, ticket)
+    return lb, ub, out if carry is not None else out.any(dim=1)
 
 
 apply_updates_slab_tiles.launches = 0
@@ -1731,10 +1848,10 @@ def launch_counts() -> dict:
 
 
 def form_counts() -> dict:
-    """Launches of the tier kernels (D, A', E, F, the long-row combine, #8,
-    #9, #10 and the node-batched A', combine and E) by form since the last
-    :func:`reset_launch_counts`, keyed ``"<wrapper>[<form>]"``
-    (:data:`TIER_FORMS`, the early stop of F and #9 as ``"+stop"``)."""
+    """Launches of the tier kernels (every kernel but #16) by form since
+    the last :func:`reset_launch_counts`, keyed ``"<wrapper>[<form>]"``
+    (:data:`TIER_FORMS`, the early stop of F, #9 and #15 as ``"+stop"``,
+    #15's per-row measure of a batch as ``"+stop_rows"``)."""
     return {f"{name}[{form}]": n for (name, form), n in FORM_LAUNCHES.items()}
 
 

@@ -30,6 +30,7 @@ import repro.core.bounds as rbnd
 import repro.data as rd
 import repro.kernels as rk
 import repro.kernels.ref as rref
+from repro.kernels import ops as rops
 import repro_torch as rt
 from repro_torch import kernels as tk
 from repro_torch.kernels import ops as tops
@@ -703,7 +704,7 @@ def test_kept_stop_buffers_are_allocated_once():
 
 
 # ---------------------------------------------------------------------------
-# What stays outside the slice raises, naming the item
+# Past SCATTER_MAX_NPAD: the partitioned batch and node rounds
 # ---------------------------------------------------------------------------
 
 
@@ -711,17 +712,26 @@ def test_kept_stop_buffers_are_allocated_once():
                                   "nodes_stop", "nodes_tier"])
 def test_batched_tiers_past_the_limit_raise(monkeypatch, case):
     """Past ``SCATTER_MAX_NPAD`` (the partitioned batch and node rounds)
-    float32 and the early stop raise "item 5, remainder"; float64 without
-    a stop still runs there."""
+    float32, the early stop and the two tiers run (the engine slice ports
+    them) and match the reference's plain batched and node rounds with the
+    limit moved in both packages: flags, tier rounds, bounds bitwise on set
+    cover, the stop's progress within ``_progress_rtol``; float64 without a
+    stop still runs there."""
     _, pr, pt = next(c for c in _population() if c[0] == "set_cover")
     monkeypatch.setattr(tops, "SCATTER_MAX_NPAD", 64)
+    monkeypatch.setattr(rops, "SCATTER_MAX_NPAD", 64)
     lb, ub = _three_nodes(pr)
-    kw = {"float32": dict(dtype=np.float32), "stop": dict(stop_progress=STOP),
-          "tier": dict(policy=rt.core.TierPolicy())}[case.split("_")[1]]
+    opt = case.split("_")[1]
+    mode = {"float32": "f32", "stop": "stop", "tier": "tier"}[opt]
     if case.startswith("batch"):
-        run = lambda **k: rt.propagate_batch([pt], device="cpu", **k)  # noqa: E731
+        run = lambda **k: rt.propagate_batch([pt], device="cpu", **k)[0]  # noqa: E731
+        want = rc.propagate_batch([pr], use_pallas=False, **MODES[mode])[0]
     else:
         run = lambda **k: rt.propagate_nodes(pt, lb, ub, device="cpu", **k)  # noqa: E731
-    with pytest.raises(NotImplementedError, match="item 5, remainder"):
-        run(**kw)
+        want = rc.propagate_nodes(pr, lb, ub, use_pallas=False, **MODES[mode])
+    got = run(**_port_kw(mode))
+    _assert_flags(got, want, case)
+    _assert_bounds(case, got.lb, got.ub, want.lb, want.ub, True)
+    if mode == "stop":
+        _assert_progress(got.progress, want.progress, np.float64, case)
     run()  # float64 on the partitioned round

@@ -2170,3 +2170,266 @@ def test_node_and_service_tiers_on_card_match_cpu(cuda, tile_width):
             for f in ("rounds", "converged", "lb", "ub"):
                 _match(getattr(g, f), getattr(w, f))
         assert svc.stats()["early_stopped"] == ref.stats()["early_stopped"]
+
+
+# ---------------------------------------------------------------------------
+# The precision tiers on the segment and partitioned engines: the float32
+# forms of A, B, C, #11-#15 and the straddle combine, and #15 with the
+# early stop (one instance's carry; a batch's rows)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("compact", [True, False], ids=["f32c", "f32"])
+@pytest.mark.parametrize("exact", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("t,r,k,n", SHAPES)
+def test_float32_segment_kernels_match_plain_versions(cuda, gen, t, r, k, n, exact, compact):
+    """A, B and C at float32 over bounds gathered at each slot, B and C on
+    int32 or the compact int8 marks, bitwise equal to their plain versions,
+    each launching its float form."""
+    x = _tier_tiles(_tiles(gen, t, r, k, n, exact, cuda), compact)
+    c = x["col"].long()
+    lb_g, ub_g = x["lb"][c], x["ub"][c]
+    form = "f32c" if compact else "f32"
+    tk.reset_launch_counts()
+    partials = tk.activities_tiles(x["val"], lb_g, ub_g)
+    for g, w in zip(partials, tref.activities_tiles_ref(x["val"], lb_g, ub_g)):
+        _match(g, w)
+    b_args = (x["val"], lb_g, ub_g, x["ii"], *partials, x["lhs"], x["rhs"], 1e-6)
+    for g, w in zip(tk.candidates_tiles(*b_args), tref.candidates_tiles_ref(*b_args)):
+        _match(g, w)
+    c_args = (x["val"], lb_g, ub_g, x["ii"], x["lhs"], x["rhs"], 1e-6)
+    for g, w in zip(tk.fused_round_tiles(*c_args), tref.fused_round_tiles_ref(*c_args)):
+        _match(g, w)
+    assert tk.form_counts() == {"activities_tiles[f32]": 1, f"candidates_tiles[{form}]": 1,
+                                f"fused_round_tiles[{form}]": 1}
+
+
+SLAB_TIER_CASES = [
+    ("make_mixed", dict(m=600, n=450, seed=21), (8, 16), 128, False),
+    ("make_knapsack", dict(n=900, m=12, seed=5), (2, 8), 256, True),
+    ("make_pseudo_boolean", dict(n=3000, m=4000, seed=7), (8, 8), 1024, True),
+]
+
+
+@pytest.mark.parametrize("case", range(len(SLAB_TIER_CASES)))
+def test_float32_slab_kernels_match_plain_versions(cuda, case):
+    """#11, the straddle combine, #12 with #15, #15 alone, #13 and #14 at
+    float32 on a float32 prep's partition (int32 ids), on a single plane
+    and over seven node planes with every, some and no node active:
+    bitwise equal to their plain versions (inactive planes' partials
+    unwritten), each launching its float form."""
+    gen_name, kw, tile, slab, exact = SLAB_TIER_CASES[case]
+    p = getattr(td, gen_name)(**kw)
+    prep = rt.prepare_block_ell(p, *tile, dtype=torch.float32)
+    part = prep.slab_partition(slab)
+    cfg = rt.core.DEFAULT_CONFIG
+    eps, outward = cfg.eps_for(torch.float32), cfg.outward_for(torch.float32)
+    width = prep.n_pad
+    tail = (slab, part.max_run_len, eps, 1e-6, INF, outward)
+    one = torch.ones(1, dtype=torch.bool, device=cuda)
+    lbp, ubp = prep.lb0[None].clone(), prep.ub0[None].clone()
+    tk.reset_launch_counts()
+    a_args = (part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_inst,
+              part.a_run_slab, one, lbp, ubp, slab, part.a_max_run_len)
+    partials = tk.batched_slab_partials_tiles(*a_args)
+    for g, w in zip(partials, tref.batched_slab_partials_ref(*a_args)):
+        _match(g, w)
+    index = (part.a_order, part.a_seg, part.agg_slot)
+    strs = tk.straddle_combine_tiles(*partials, *index)
+    for g, w in zip(strs, tref.straddle_combine_ref(*partials, *index)):
+        _match(g, w)
+    r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
+              part.run_start, part.run_len, part.run_inst, part.run_slab, one)
+    acc = tk.accumulator_planes(lbp)
+    got = tk.batched_slab_round_tiles(*r_args, lbp.clone(), ubp.clone(), *tail, acc=acc,
+                                      tiles=(part.tile_inst, part.tile_slab),
+                                      chunk_len=part.chunk_len, max_chunk_len=part.max_chunk_len)
+    want = tref.batched_slab_round_ref(*r_args, lbp, ubp, *tail)
+    for g, w in zip(got, want):
+        _match(g, w)
+    assert _clean(acc)
+    best = tref.batched_slab_scatter_ref(
+        part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
+        part.run_start, part.run_inst, part.run_slab, one, lbp, ubp, slab, 1e-6)
+    got_m = tk.apply_updates_slab_tiles(lbp.clone(), ubp.clone(), best[0].clone(),
+                                        best[1].clone(), one, slab, eps, INF, outward)
+    want_m = tref.apply_updates_slab_ref(lbp, ubp, *best, one, slab, eps, INF, outward)
+    for g, w in zip(got_m[:2], want_m[:2]):
+        _match(g, w)
+    assert tk.form_counts() == {
+        "batched_slab_partials_tiles[f32]": 1, "straddle_combine_tiles[f32]": 1,
+        "batched_slab_round_tiles[f32]": 1, "apply_updates_slab_tiles[f32]": 2}
+    lb_n, ub_n = _nodes(p, 7)
+    nlb, nub = (torch.nn.functional.pad(torch.as_tensor(x, dtype=torch.float32, device=cuda),
+                                        (0, width - p.n)) for x in (lb_n, ub_n))
+    for act in (torch.ones(7, dtype=torch.bool), torch.arange(7) % 3 == 0,
+                torch.zeros(7, dtype=torch.bool)):
+        act = act.to(cuda)
+        n_args = (part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_slab,
+                  act, nlb, nub, slab, part.a_max_run_len)
+        parts_n = tk.node_slab_partials_tiles(*n_args, tile_slab=part.a_tile_slab,
+                                              chunk_len=part.a_chunk_len,
+                                              max_chunk_len=part.a_max_chunk_len)
+        for g, w in zip(parts_n, tref.node_slab_partials_ref(*n_args)):
+            _match(g[act], w[act])
+        strs_n = tk.straddle_combine_tiles(*parts_n, *index, act)
+        for g, w in zip(strs_n, tref.straddle_combine_ref(*parts_n, *index, act)):
+            _match(g[act], w[act])
+        nr_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs_n, part.lhs_g,
+                   part.rhs_g, part.run_start, part.run_len, part.run_slab, act)
+        nacc = tk.accumulator_planes(nlb)
+        got_n = tk.node_slab_round_tiles(*nr_args, nlb.clone(), nub.clone(), *tail, acc=nacc,
+                                         tile_slab=part.tile_slab, chunk_len=part.chunk_len,
+                                         max_chunk_len=part.max_chunk_len)
+        want_n = tref.node_slab_round_ref(*nr_args, nlb, nub, *tail)
+        for g, w in zip(got_n, want_n):
+            _match(g, w)
+        assert _clean(nacc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("bsz,n_act,width", [(1, 1, 2500), (1, 1, 150_016), (5, 3, 3000),
+                                             (45, 33, 5000)])
+def test_window_merge_stop_matches_plain_version(cuda, gen, dtype, bsz, n_act, width):
+    """#15 with the early stop against its plain version, bitwise: for one
+    plane, folded into a loop carry over six rounds (two of large progress,
+    two of low that stop the loop at patience 2, two enqueued after the
+    stop): bounds, window flags' fold and the whole carry; for a batch (on
+    the grid for at most 16 rows, on the walk beyond), each active row's
+    block partials and measure through three rounds with one ticket, window
+    flags and bounds; inactive rows' entries untouched."""
+    from repro_torch.core import carry as tcarry
+
+    cfg = rt.core.DEFAULT_CONFIG
+    eps, outward = cfg.eps_for(dtype), cfg.outward_for(dtype)
+    slab = 256
+    act = _holey_mask(bsz, n_act, cuda)
+    lb, ub = _planes(gen, bsz, width, False, cuda)
+    lb, ub = lb.to(dtype), ub.to(dtype)
+    blocks = -(-width // tref.MERGE_BLOCK)
+    tk.reset_launch_counts()
+    if bsz == 1:
+        stop = tcarry.EarlyStop(0.05, 2)
+        st_k, st_p = tcarry.armed_state(cuda), tcarry.armed_state(cuda)
+        partials = torch.empty(blocks, dtype=dtype, device=cuda)
+        for i, big in enumerate((True, True, False, False, True, True)):
+            pick = torch.from_numpy(gen.random((1, width)) < (0.3 if big else 3 / width)).to(cuda)
+            step = 0.5 if big else 1e-3
+            bl = torch.where(pick, lb + step, torch.full_like(lb, -INF))
+            bu = torch.where(pick, ub - step, torch.full_like(ub, INF))
+            acc = (bl.clone(), bu.clone())
+            got = tk.prop_round._slab_merge(lb.clone(), ub.clone(), *acc, tcarry.go_mask(st_k),
+                                            slab, eps, INF, outward, carry=st_k, stop=stop,
+                                            partials=partials)
+            new = tref.apply_updates_slab_ref(lb, ub, bl, bu, tcarry.go_mask(st_p), slab, eps,
+                                              INF, outward)
+            prog = tref.merge_progress(lb, ub, new[0], new[1])
+            tcarry.fold(st_p, new[2].any(), 0, 1, stop, prog)
+            _match_bits(st_k, st_p)
+            assert bool(got) == bool(tcarry.go_flag(st_p))
+            lb, ub = new[0], new[1]
+        fields = st_k.tolist()
+        assert fields[tcarry.GO] == 0 and fields[tcarry.FLAT] == 2 and fields[tcarry.ROUNDS] == 4
+        form = "f64+stop" if dtype == torch.float64 else "f32+stop"
+        assert tk.form_counts() == {f"apply_updates_slab_tiles[{form}]": 6}
+        return
+    part_k = torch.full((bsz, blocks), 7.0, dtype=dtype, device=cuda)
+    prog_k = torch.full((bsz,), 9.0, dtype=dtype, device=cuda)
+    prog_p = prog_k.clone()
+    ticket = torch.zeros(1, dtype=torch.int32, device=cuda)
+    for step in (0.5, 1e-3, 0.25):
+        pick = torch.from_numpy(gen.random((bsz, width)) < 0.3).to(cuda)
+        bl = torch.where(pick, lb + step, torch.full_like(lb, -INF))
+        bu = torch.where(~pick, ub - step, torch.full_like(ub, INF))
+        lbk, ubk = lb.clone(), ub.clone()
+        flags = tk.prop_round._slab_merge(lbk, ubk, bl.clone(), bu.clone(), act, slab, eps, INF,
+                                          outward, progress=prog_k, partials=part_k,
+                                          ticket=ticket)
+        new = tref.apply_updates_slab_ref(lb, ub, bl, bu, act, slab, eps, INF, outward)
+        blocks_p, rows_p = tref.merge_rows_progress(lb, ub, new[0], new[1])
+        prog_p = torch.where(act, rows_p, prog_p)
+        _match_bits(lbk, new[0])
+        _match_bits(ubk, new[1])
+        _match(flags, new[2])
+        _match_bits(prog_k, prog_p)
+        _match_bits(part_k[act], blocks_p[act])
+        assert int(ticket.item()) == 0
+        lb, ub = new[0], new[1]
+    assert bool((part_k[~act] == 7.0).all()) and bool((prog_k[~act] == 9.0).all())
+    form = "f64+stop_rows" if dtype == torch.float64 else "f32+stop_rows"
+    assert tk.form_counts() == {f"apply_updates_slab_tiles[{form}]": 3}
+
+
+ENGINE_TIER_RUNS = [dict(dtype=torch.float32), dict(policy=rt.core.TierPolicy()),
+                    dict(stop_progress=0.05, patience=1),
+                    dict(dtype=torch.float32, stop_progress=0.01, patience=2),
+                    dict(dtype=torch.float32, stop_progress=1e6, patience=1)]
+
+
+@pytest.mark.parametrize("gen_name,kw,tile,scatter,exact", [
+    ("make_pseudo_boolean", dict(n=3000, m=4000, seed=7), (8, 128), "segment", True),
+    ("make_mixed", dict(m=600, n=450, seed=21), (8, 16), "segment", False),
+    ("make_mixed", dict(m=6000, n=40_000, seed=3, density=0.002), (8, 128), "segment", False),
+    ("make_pseudo_boolean", dict(n=3000, m=4000, seed=7), (8, 8), "partitioned", True),
+    ("make_mixed", dict(m=600, n=450, seed=21), (8, 16), "partitioned", False),
+    ("make_knapsack", dict(n=900, m=12, seed=5), (2, 8), "partitioned", True),
+])
+def test_engine_tiers_on_card_match_cpu(cuda, gen_name, kw, tile, scatter, exact):
+    """float32-only, two-tier, early-stopped and eagerly stopped fixed
+    points on the segment and partitioned engines (128-column slabs) on the
+    card against the same runs on the CPU: rounds, flags, tier rounds,
+    progress and bounds (bitwise on exact data), both drivers."""
+    p = getattr(td, gen_name)(**kw)
+    for run in ENGINE_TIER_RUNS:
+        for driver in ("host_loop", "device_loop"):
+            args = dict(tile_rows=tile[0], tile_width=tile[1], scatter=scatter, slab=128,
+                        driver=driver, **run)
+            got = rt.propagate_block_ell(p, **args)
+            want = rt.propagate_block_ell(p, device="cpu", **args)
+            for f in ("rounds", "converged", "infeasible", "tier_rounds"):
+                assert getattr(got, f).item() == getattr(want, f).item(), (run, driver, f)
+            assert got.lb.dtype == want.lb.dtype
+            if exact:
+                _match(got.lb, want.lb)
+                _match(got.ub, want.ub)
+                if "stop_progress" in run:
+                    _match_bits(got.progress, want.progress)
+            else:
+                assert rt.bounds_equal(got.lb, got.ub, want.lb, want.ub)
+
+
+def test_batch_and_node_tiers_past_the_limit_on_card(cuda, small_limit):
+    """Past the (shrunk) limit: propagate_batch and propagate_nodes at
+    float32, under TierPolicy() and with the early stop (the partitioned
+    batched rounds; #15 measuring each active row) on the card against the
+    CPU: flags, tier rounds, progress and bounds bitwise, every float form
+    of the path launched."""
+    pop = [td.make_pseudo_boolean(n=3000, m=4000, seed=s, unit_frac=0.002) for s in (7, 8)]
+    for run in BATCH_TIER_RUNS:
+        tk.reset_launch_counts()
+        got = rt.propagate_batch(pop, tile_width=8, **run)
+        counts = tk.form_counts()
+        want = rt.propagate_batch(pop, tile_width=8, device="cpu", **run)
+        for g, w in zip(got, want):
+            for f in ("rounds", "converged", "infeasible", "tier_rounds", "lb", "ub"):
+                _match(getattr(g, f), getattr(w, f))
+            _match_bits(g.progress, w.progress)
+        if run.get("dtype") == torch.float32:
+            assert counts.get("batched_slab_round_tiles[f32]", 0) > 0
+        if "stop_progress" in run:
+            assert any(k.startswith("apply_updates_slab_tiles") and k.endswith("+stop_rows]")
+                       for k in counts)
+    p = pop[0]
+    lb, ub = _nodes(p, 6)
+    for run in BATCH_TIER_RUNS:
+        tk.reset_launch_counts()
+        got = rt.propagate_nodes(p, lb, ub, tile_width=8, **run)
+        counts = tk.form_counts()
+        want = rt.propagate_nodes(p, lb, ub, tile_width=8, device="cpu", **run)
+        for f in ("rounds", "converged", "infeasible", "lb", "ub"):
+            _match(getattr(got, f), getattr(want, f))
+        if "stop_progress" in run:
+            _match_bits(got.progress, want.progress)
+        if run.get("dtype") == torch.float32:
+            assert counts.get("node_slab_round_tiles[f32]", 0) > 0
+            assert counts.get("node_slab_partials_tiles[f32]", 0) > 0

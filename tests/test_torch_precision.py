@@ -41,6 +41,7 @@ import repro.core.types as rtypes
 import repro.data as rd
 import repro.kernels as rk
 import repro.kernels.ref as rref
+from repro.kernels import ops as rops
 import repro_torch as rt
 import repro_torch.core.propagator as tprop
 from repro_torch import kernels as tk
@@ -305,13 +306,13 @@ def test_merge_order_sum_is_the_kernels_order():
 
 
 @functools.lru_cache(maxsize=None)
-def _ref_block_ell_f32(name, tile_width):
+def _ref_block_ell_f32(name, tile_width, scatter="fused"):
     """The reference's block-ELL float32 fixed point on its round closure
-    (plain jnp versions, the tier's outward widening): bounds, rounds,
-    last flag."""
+    (plain jnp versions, the tier's outward widening) on the engine
+    ``scatter``: bounds, rounds, last flag."""
     _, pr, _ = _case(name)
     prep = rk.prepare_block_ell(pr, tile_width=tile_width, dtype=np.float32)
-    fn = jax.jit(rk.round_fn_for(prep, use_pallas=False))
+    fn = jax.jit(rk.round_fn_for(prep, use_pallas=False, scatter=scatter))
     lb, ub, rounds, changed = prep.lb0, prep.ub0, 0, True
     while changed and rounds < rc.DEFAULT_CONFIG.max_rounds:
         lb, ub, ch = fn(lb, ub)
@@ -347,14 +348,24 @@ def test_float32_propagate_matches_reference():
                 _assert_close((got.lb, got.ub), (want.lb, want.ub), name in EXACT)
 
 
-@pytest.mark.parametrize("engine", ["propagate", "fused-yes", "fused-no"])
+# The block-ELL engines of the tier tests: the partitioned one on 128-column
+# slabs (banded's n_pad of 384 splits into three).
+ENGINES = {"fused": dict(scatter="fused"), "segment": dict(scatter="segment"),
+           "partitioned": dict(scatter="partitioned", slab=128)}
+
+
+@pytest.mark.parametrize("engine", ["propagate", "fused-yes", "fused-no", "segment",
+                                    "partitioned"])
 def test_fp32_tier_never_tighter_than_f64_oracle(engine):
-    """The reference's test (tests/test_precision.py:112) on the port."""
+    """The reference's test (tests/test_precision.py:112) on the port, its
+    ``segment`` engine case included."""
     for name, pr, pt in _population():
         if engine == "propagate":
             r = rt.propagate(pt, dtype=np.float32, device="cpu")
-        else:
+        elif engine.startswith("fused"):
             r = rt.propagate_block_ell(pt, dtype=np.float32, fused=engine[6:], device="cpu")
+        else:
+            r = rt.propagate_block_ell(pt, dtype=np.float32, device="cpu", **ENGINES[engine])
         seq = rc.propagate_sequential(pr)
         if bool(r.infeasible):
             assert seq.infeasible, f"{name}/{engine}: false fp32 infeasibility"
@@ -365,7 +376,7 @@ def test_fp32_tier_never_tighter_than_f64_oracle(engine):
                               np.asarray(seq.ub), np.asarray(pr.is_int, bool), F32_BAND)
 
 
-@pytest.mark.parametrize("engine", ["propagate", "fused"])
+@pytest.mark.parametrize("engine", ["propagate", "fused", "segment", "partitioned"])
 def test_two_tier_lands_on_f64_fixed_point(engine):
     """The reference's test (tests/test_precision.py:218), plus the
     reference's own two-tier run's flags (its ``propagate``, whose tier
@@ -376,8 +387,8 @@ def test_two_tier_lands_on_f64_fixed_point(engine):
             r64 = rt.propagate(pt, device="cpu")
             tiered = rt.propagate(pt, policy=tp, device="cpu")
         else:
-            r64 = rt.propagate_block_ell(pt, scatter="fused", device="cpu")
-            tiered = rt.propagate_block_ell(pt, scatter="fused", policy=tp, device="cpu")
+            r64 = rt.propagate_block_ell(pt, device="cpu", **ENGINES[engine])
+            tiered = rt.propagate_block_ell(pt, policy=tp, device="cpu", **ENGINES[engine])
         if name in AGAINST_REFERENCE:
             _assert_flags(tiered, _ref_propagate(name, "tier"))
         assert tiered.lb.dtype == torch.float64
@@ -503,16 +514,48 @@ def test_kernel_early_stop_fold_matches_the_reference_cond():
 @pytest.mark.parametrize("case", ["bfloat16", "float16", "segment", "partitioned",
                                   "past_the_limit", "stop_partitioned"])
 def test_block_ell_outside_the_slice_raises(monkeypatch, case):
-    _, _, pt = _case("set_cover")
-    kw = {"bfloat16": dict(dtype=torch.bfloat16), "float16": dict(dtype=np.float16),
-          "segment": dict(dtype=np.float32, scatter="segment"),
-          "partitioned": dict(dtype=np.float32, scatter="partitioned"),
-          "past_the_limit": dict(dtype=np.float32),
-          "stop_partitioned": dict(stop_progress=0.05, scatter="partitioned")}[case]
+    """bfloat16 and float16 still raise, naming item 5's remainder.  The
+    cases that the engine slice ports run and are held to the reference:
+    float32 on the segment and partitioned engines and through ``auto``
+    past ``SCATTER_MAX_NPAD`` against its round closure on the same engine
+    (rounds, converged, bounds bitwise on set cover), and the early stop on
+    the partitioned engine against its ``propagate_block_ell`` there (which
+    at float64 merges as the port does; progress within 1e-12)."""
+    _, pr, pt = _case("set_cover")
+    if case in ("bfloat16", "float16"):
+        dtype = torch.bfloat16 if case == "bfloat16" else np.float16
+        with pytest.raises(NotImplementedError, match="item 5, remainder"):
+            rt.propagate_block_ell(pt, device="cpu", dtype=dtype)
+        return
+    if case == "stop_partitioned":
+        kw = dict(stop_progress=0.05, scatter="partitioned")
+        got = rt.propagate_block_ell(pt, device="cpu", **kw)
+        want = rk.propagate_block_ell(pr, use_pallas=False, **kw)
+        for f in ("rounds", "converged", "infeasible"):
+            assert int(getattr(got, f)) == int(getattr(want, f)), f
+        np.testing.assert_array_equal(got.lb.numpy(), np.asarray(want.lb))
+        np.testing.assert_array_equal(got.ub.numpy(), np.asarray(want.ub))
+        np.testing.assert_allclose(float(got.progress), float(want.progress), rtol=1e-12,
+                                   atol=1e-12)
+        return
+    scatter = {"segment": "segment", "partitioned": "partitioned",
+               "past_the_limit": "auto"}[case]
     if case == "past_the_limit":
         monkeypatch.setattr(tops, "SCATTER_MAX_NPAD", 64)
-    with pytest.raises(NotImplementedError, match="item 5, remainder"):
-        rt.propagate_block_ell(pt, device="cpu", **kw)
+        monkeypatch.setattr(rops, "SCATTER_MAX_NPAD", 64)
+        prep = rk.prepare_block_ell(pr, dtype=np.float32)
+        fn = jax.jit(rk.round_fn_for(prep, use_pallas=False, scatter="auto"))
+        lb, ub, rounds, changed = prep.lb0, prep.ub0, 0, True
+        while changed and rounds < rc.DEFAULT_CONFIG.max_rounds:
+            lb, ub, ch = fn(lb, ub)
+            rounds, changed = rounds + 1, bool(ch)
+        wl, wu = np.asarray(lb)[: pr.n], np.asarray(ub)[: pr.n]
+    else:
+        wl, wu, rounds, changed = _ref_block_ell_f32("set_cover", 128, scatter)
+    got = rt.propagate_block_ell(pt, device="cpu", dtype=np.float32, scatter=scatter)
+    assert got.lb.dtype == torch.float32
+    assert int(got.rounds) == rounds and bool(got.converged) == (not changed)
+    _assert_close((got.lb, got.ub), (wl, wu), True)
 
 
 @pytest.mark.parametrize("case", ["batch_policy", "batch_float32", "nodes_policy",
@@ -520,20 +563,29 @@ def test_block_ell_outside_the_slice_raises(monkeypatch, case):
                                   "batch_past_the_limit", "nodes_past_the_limit"])
 def test_batched_engines_outside_the_slice_raise(monkeypatch, case):
     """The batched engines' tier options: each case that the batched slice
-    ports now runs and is held to the reference's result (flags, tier
-    rounds, bounds bitwise on set cover, the service's early-stop count);
-    float32 past ``SCATTER_MAX_NPAD`` (the partitioned batch and node
-    rounds) still raises."""
+    ports runs and is held to the reference's result (flags, tier rounds,
+    bounds bitwise on set cover, the service's early-stop count); float32
+    past ``SCATTER_MAX_NPAD`` (the partitioned batch and node rounds, which
+    the engine slice ports) too, against the reference's plain batched and
+    node rounds with the limit moved in both packages."""
     _, pr, pt = _case("set_cover")
     lb, ub = np.asarray(pt.lb)[None], np.asarray(pt.ub)[None]
     rlb, rub = np.asarray(pr.lb)[None], np.asarray(pr.ub)[None]
     if case.endswith("past_the_limit"):
         monkeypatch.setattr(tops, "SCATTER_MAX_NPAD", 64)
-        run = (lambda: rt.propagate_batch([pt], dtype=np.float32, device="cpu")) if (
-            case.startswith("batch")) else (
-            lambda: rt.propagate_nodes(pt, lb, ub, dtype=np.float32, device="cpu"))
-        with pytest.raises(NotImplementedError, match="item 5, remainder"):
-            run()
+        monkeypatch.setattr(rops, "SCATTER_MAX_NPAD", 64)
+        if case.startswith("batch"):
+            got = rt.propagate_batch([pt], dtype=np.float32, device="cpu")[0]
+            want = rc.propagate_batch([pr], dtype=np.float32, use_pallas=False)[0]
+            _assert_flags(got, want)
+        else:
+            got = rt.propagate_nodes(pt, lb, ub, dtype=np.float32, device="cpu")
+            want = rc.propagate_nodes(pr, rlb, rub, dtype=np.float32, use_pallas=False)
+            for f in ("rounds", "converged", "infeasible"):
+                np.testing.assert_array_equal(_np(getattr(got, f)), _np(getattr(want, f)))
+        assert got.lb.dtype == torch.float32
+        np.testing.assert_array_equal(_np(got.lb), np.asarray(want.lb, np.float64))
+        np.testing.assert_array_equal(_np(got.ub), np.asarray(want.ub, np.float64))
         return
     kind, opt = case.split("_")
     port_kw = {"policy": dict(policy=rt.core.TierPolicy()), "float32": dict(dtype=np.float32),

@@ -13,7 +13,9 @@ or by the first words of their name, default all): ``propagate_block_ell`` with 
 defaults on ``pb`` and ``banded`` (D with F), ``mixed`` (A', the combine,
 E with F) and ``bandw`` and ``pbw`` (the partitioned engine: #11, the
 straddle combine, #12 with #15), ``fused``: the explicit fused engine
-(``scatter="fused"``: D with F) on ``bandw`` and ``pbw``,
+(``scatter="fused"``: D with F) on ``bandw`` and ``pbw``, ``segment``: the
+segment engine (``scatter="segment"``: C, or A, the combine and B, with F)
+on ``pb``, ``banded`` and ``mixed``,
 ``propagate_nodes`` on the 64 branched ``pbf`` nodes of
 ``chip_smoke.py`` phase 6 (#10 with #9) and on the 16 branched ``pbw``
 nodes of phase 8 (#13, the straddle combine, #14 with #15), ``solve`` on
@@ -77,7 +79,7 @@ def main() -> int:
                                             for x in picked)
     wide = {name: getattr(td, gen)(**kw) for name, gen, kw in cs.WIDE_SPECS}
     main = ({name: getattr(td, gen)(**kw) for name, gen, kw in cs.SPECS}
-            if want("propagate_block_ell") else {})
+            if want("propagate_block_ell", "segment") else {})
     pbf = td.make_pseudo_boolean(**cs.PBF)
     tw = cs.SOLVER_TILE_WIDTH
 
@@ -97,6 +99,10 @@ def main() -> int:
         for name, p in (*main.items(), *wide.items()):
             paths[f"propagate_block_ell {name}"] = (
                 lambda p=p: rt.propagate_block_ell(p, device=dev), rounds)
+    if want("segment"):
+        for name, p in main.items():
+            paths[f"segment {name}"] = (
+                lambda p=p: rt.propagate_block_ell(p, scatter="segment", device=dev), rounds)
     if want("fused"):
         for name, p in wide.items():
             paths[f"fused {name} (scatter='fused')"] = (
