@@ -8,8 +8,8 @@ numpy only, nothing of JAX) and, on one CUDA card:
 
   1. prints the card's name and power limit, builds the CUDA kernels of
      ``src/repro_torch/csrc/prop_round.cu``, ``slab_round.cu``,
-     ``tier_round.cu``, ``batch_tier_round.cu`` and ``slab_tier_round.cu``
-     from source (one ``nvcc`` per file, in parallel) and
+     ``tier_round.cu``, ``batch_tier_round.cu``, ``slab_tier_round.cu`` and
+     ``telemetry.cu`` from source (one ``nvcc`` per file, in parallel) and
      prints the build time and the compilers' register report;
   2. generates three instances at n = 60,000 columns, 150,000 rows (the
      paper's Set-5 size): ``pb`` (pseudo-boolean, exact arithmetic, rows in
@@ -200,7 +200,19 @@ numpy only, nothing of JAX) and, on one CUDA card:
      has two, bitwise against the plain path and held to the float64-only
      runs; the walls of each by variant; every new float form must have
      been launched;
- 17. prints a ``kernels`` JSON line (the float forms as ``<wrapper>[<form>]``),
+ 17. (phase 16, last) the device telemetry: the record kernels
+     (``record_round`` on ``pb``'s final and root bounds at float64 and at
+     float32, across a wrap, gated, with both latches and the host loop's
+     probe; ``record_round_batch`` on the fused bucket at 4 and 2 of 4
+     active) against their plain versions, bitwise, timed; then telemetry
+     on against off, every result field bitwise and the host reads equal,
+     the launches counted per run: ``pb``, ``mixed`` and ``bandw``
+     (partitioned) on both drivers, the fused batch, the 64 ``pbf`` nodes,
+     the ``pbf`` search and the service stream; the fp32 tier's and the
+     endgame's trajectories under ``TierPolicy()`` on ``pb``, ``pbf``,
+     ``mixed`` and ``bandw``; and the walls with telemetry on and off
+     (``pb`` and ``mixed`` device_loop, the fused batch);
+ 18. prints a ``kernels`` JSON line (the float forms as ``<wrapper>[<form>]``),
      and last ``{"ok": true, "device": {...}}``.
 
 Each path runs with the launch counters at zero just before it and read just
@@ -338,6 +350,10 @@ REPLACES = {
     "node_candidates_scatter_tiles": "src/repro/kernels/ops.py:2031",
     # Not a Pallas kernel: the XLA segment_sum of the straddle aggregates.
     "straddle_combine_tiles": "src/repro/kernels/ops.py:830",
+    # No Pallas twin: the reference records telemetry with jnp ops
+    # (obs.record_round) in its while_loop bodies.
+    "record_round_tiles": "src/repro/obs/telemetry.py:93",
+    "record_round_batch_tiles": "src/repro/obs/telemetry.py:93",
 }
 # The C entry point that launches each wrapper's kernel (the slab rounds
 # launch two: their scatter, then #15's window merge).
@@ -363,6 +379,8 @@ SYMBOL = {
     "node_combine_chunk_partials_tiles": "node_combine_chunk_partials",
     "node_candidates_scatter_tiles": "node_candidates_scatter",
     "straddle_combine_tiles": "straddle_combine",
+    "record_round_tiles": "record_round",
+    "record_round_batch_tiles": "record_round_batch",
 }
 # Nominal float64 operations per real nonzero (products, sums, residual
 # subtractions, divisions, rounding) -- the compute side of each bound.
@@ -444,7 +462,8 @@ class EventTimedLib:
         # The kernels' entry points: SYMBOL's and the float forms'.
         self.timed = (set(SYMBOL.values()) | set(_build.SIGNATURES["tier_round.cu"])
                       | set(_build.SIGNATURES["batch_tier_round.cu"])
-                      | set(_build.SIGNATURES["slab_tier_round.cu"]))
+                      | set(_build.SIGNATURES["slab_tier_round.cu"])
+                      | set(_build.SIGNATURES["telemetry.cu"]))
 
     def __getattr__(self, name):
         entry = getattr(self.lib, name)
@@ -989,7 +1008,8 @@ def smoke(torch, dev):
     batch_runs, batch_pops = batch_phase(torch, np, rt, td, tk, tref, ops, _build, dev, measured,
                                          {**problems, "pbf": pbf, **wide})
     runs.update(batch_runs)
-    runs.update(service_phase(torch, np, rt, td, tk, dev))
+    service_runs, stream = service_phase(torch, np, rt, td, tk, dev)
+    runs.update(service_runs)
     runs.update(drivers_phase(torch, np, rt, tk, tref, ops, dev, problems, preps, wide))
     tier_rows, tier_launches, tier_probs = precision_phase(torch, np, rt, td, tk, tref, ops,
                                                            _build, dev, problems, preps, results,
@@ -1000,6 +1020,9 @@ def smoke(torch, dev):
     engine_tier_rows, engine_tier_launches = engine_tiers_phase(
         torch, np, rt, tk, tref, ops, _build, dev, problems, tier_probs, wide, wide_results,
         batch_pops, measured)
+    telemetry_rows, telemetry_runs, telemetry_launches = telemetry_phase(
+        torch, np, rt, tk, tref, _build, dev, problems, wide, batch_pops, pbf, stream)
+    runs.update(telemetry_runs)
     slab_path = ("batched_slab_partials_tiles", "straddle_combine_tiles",
                  "batched_slab_round_tiles", "apply_updates_slab_tiles")
     node_slab_path = ("node_slab_partials_tiles", "straddle_combine_tiles",
@@ -1056,12 +1079,18 @@ def smoke(torch, dev):
             f"pbf K={MULTI_CHUNK_TILE_WIDTH} pool, 8 of {POOL} active",
         "straddle_combine_tiles": f"pbw pool, 8 of {POOL} active",
     }
+    for key, (r, inst) in telemetry_rows.items():
+        if "[" not in key:
+            measured.setdefault(key, {})[inst] = r
+            primary[key] = inst
     kernels = []
     for fn in tk.KERNELS:
         k = fn.__name__
         r = measured[k][primary[k]]
+        source = (TELEMETRY_SOURCE if k.startswith("record_round")
+                  else SLAB_SOURCE if "slab" in k else SOURCE)
         kernels.append(dict(
-            name=k, route="cuda", source=SLAB_SOURCE if "slab" in k else SOURCE,
+            name=k, route="cuda", source=source,
             replaces=REPLACES[k],
             launches=launches[k],
             max_abs_err=max(v["max_abs_err"] for v in measured[k].values()),
@@ -1099,6 +1128,15 @@ def smoke(torch, dev):
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None, instance=inst,
             wrapper_ms=r["wrapper_ms"], bytes=r["bytes"], float64_ms=r.get("float64_ms"),
         ))
+    for key, (r, inst) in telemetry_rows.items():
+        if "[" in key:
+            kernels.append(dict(
+                name=key, route="cuda", source=TELEMETRY_SOURCE,
+                replaces=REPLACES[key.split("[")[0]], launches=telemetry_launches[key],
+                max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None, instance=inst,
+                wrapper_ms=r["wrapper_ms"], bytes=r["bytes"], float64_ms=r.get("float64_ms"),
+            ))
     log(json.dumps({"kernels": kernels}))
 
 
@@ -2564,7 +2602,7 @@ def service_streams(np, td):
 
 def service_phase(torch, np, rt, td, tk, dev):
     """Phase 10: the continuous-batching service on two request streams.
-    Returns the launch counts of each checked serve."""
+    Returns the launch counts of each checked serve, and the first stream."""
     rows = service_rows(np)
     t = time.perf_counter()
     stream, mixed = service_streams(np, td)
@@ -2583,7 +2621,7 @@ def service_phase(torch, np, rt, td, tk, dev):
             "candidates_scatter_tiles")})
     counts, _ = service_run(torch, np, rt, tk, "mixed", mixed, dev, slots=2)
     runs["service mixed"] = counts
-    return runs
+    return runs, stream
 
 
 # ---------------------------------------------------------------------------
@@ -3974,6 +4012,306 @@ def engine_tiers_phase(torch, np, rt, tk, tref, ops, build, dev, problems, probs
         r["max_abs_err"] = max(v["max_abs_err"] for v in rows[key].values())
     log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
     return out_rows, {key: launches.get(key, 0) for key in ENGINE_TIER_PRIMARY}
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the device telemetry (Queue 1 item 6) and the record kernels
+# ---------------------------------------------------------------------------
+
+TELEMETRY_SOURCE = "src/repro_torch/csrc/telemetry.cu"
+TELEMETRY_CAP = 64
+TELEMETRY_TRIALS = 9
+# The record kernels' kernels-line entries and the instance each is
+# measured on.
+TELEMETRY_PRIMARY = {
+    "record_round_tiles": "pb",
+    "record_round_tiles[f32]": "pb",
+    "record_round_batch_tiles": "fused bucket, 4 of 4 active",
+}
+
+
+def plane_bits(torch, plane) -> tuple:
+    """A telemetry plane's fields as integers (the ring's bits: its unused
+    slots are NaN), for :func:`max_abs_err`'s bitwise comparison."""
+    ring = plane.ring
+    as_int = torch.int64 if ring.dtype == torch.float64 else torch.int32
+    return (ring.view(as_int),) + tuple(plane[1:])
+
+
+def record_check(torch, tk, tref, build, label, lb, ub, timed):
+    """``record_round`` against its plain version on ``(n_pad,)`` bounds: a
+    carry one round past the plane's ticks (its measure, a low-progress
+    streak at patience 1), a plane with ``ticks`` already past the ring's
+    capacity (the wrap), and a second launch that must record nothing;
+    plane and carry bitwise.  Then the host loop's probe into the carry.
+    Returns the timed row (empty when not ``timed``)."""
+    from repro_torch.core import DEFAULT_CONFIG, carry as rt_carry
+    from repro_torch.obs import device_plane
+
+    feas = DEFAULT_CONFIG.feas_eps
+    dt, dev = lb.dtype, lb.device
+    carry = rt_carry.armed_state(dev)
+    carry[rt_carry.ROUNDS] = TELEMETRY_CAP + 3
+    carry[rt_carry.FLAT] = 1
+    rt_carry.progress_view(carry, dt).fill_(0.125)
+    planes = []
+    for _ in range(2):
+        plane = device_plane(TELEMETRY_CAP, dtype=dt, device=dev)
+        plane.ticks.fill_(TELEMETRY_CAP + 2)
+        planes.append(plane)
+    got, want = planes
+    scratch = torch.zeros(2, dtype=torch.int32, device=dev)
+    for _ in range(2):
+        tk.record_round_tiles(lb, ub, carry, got, feas, patience=1, scratch=scratch)
+        tref.record_round_ref(lb, ub, carry, want, feas, 1, 1)
+    err = max_abs_err(torch, plane_bits(torch, got), plane_bits(torch, want))
+    state = carry.clone()
+    tk.record_round_tiles(lb, ub, carry, None, feas, scratch=scratch)
+    tref.record_round_ref(lb, ub, state, None, feas)
+    err = max(err, max_abs_err(torch, (carry,), (state,)))
+    if int(got.ticks) != TELEMETRY_CAP + 3:
+        fail(f"{label}: record_round recorded {int(got.ticks)} ticks")
+    if not timed:
+        return {}
+    pristine = [t.clone() for t in got]
+    pristine[1].fill_(TELEMETRY_CAP + 2)
+    reset = fresh_inputs(torch, list(zip(got, pristine)))
+    v = lb.element_size()
+    moved = dict(bounds=2 * v * lb.numel(), carry=64, plane=v + 3 * 4)
+    flops = F64_FLOPS if dt == torch.float64 else F32_FLOPS
+    r = measured_row(
+        torch, build, plane_bits(torch, got), plane_bits(torch, want),
+        lambda: tk.record_round_tiles(lb, ub, carry, got, feas, patience=1,
+                                      scratch=scratch),
+        lambda: tref.record_round_ref(lb, ub, carry, want, feas, 1, 1),
+        moved, 2 * lb.numel(), reset=reset, flops=flops)
+    r["max_abs_err"] = err
+    return r
+
+
+def record_batch_check(torch, tk, tref, build, lb, ub, prog, rounds, ran, timed):
+    """``record_round_batch`` against its plain version on a bucket's
+    ``(B, n_pad)`` planes with the mask ``ran``: plane bitwise, the scratch
+    left zeroed.  Returns the timed row (empty when not ``timed``)."""
+    from repro_torch.core import DEFAULT_CONFIG
+    from repro_torch.obs import device_plane
+
+    feas = DEFAULT_CONFIG.feas_eps
+    dev, dt = lb.device, lb.dtype
+    bsz = lb.shape[0]
+    flat = torch.ones(bsz, dtype=torch.int32, device=dev)
+    got = device_plane(TELEMETRY_CAP, batch=bsz, dtype=dt, device=dev)
+    want = device_plane(TELEMETRY_CAP, batch=bsz, dtype=dt, device=dev)
+    scratch = torch.zeros(bsz + 1, dtype=torch.int32, device=dev)
+    for _ in range(2):
+        tk.record_round_batch_tiles(lb, ub, prog, ran, rounds, flat, got, feas,
+                                    patience=1, scratch=scratch)
+        tref.record_round_batch_ref(lb, ub, prog, ran, rounds, flat, want, feas, 1)
+    err = max_abs_err(torch, plane_bits(torch, got), plane_bits(torch, want))
+    if bool(scratch.any()):
+        fail("record_round_batch left its scratch dirty")
+    if not timed:
+        return {}
+    pristine = [t.clone() for t in got]
+    reset = fresh_inputs(torch, list(zip(got, pristine)))
+    v = lb.element_size()
+    active = int(ran.sum())
+    moved = dict(bounds=2 * v * active * lb.shape[1], lanes=(v + 1 + 8) * bsz,
+                 plane=(v + 3 * 4) * active)
+    r = measured_row(
+        torch, build, plane_bits(torch, got), plane_bits(torch, want),
+        lambda: tk.record_round_batch_tiles(lb, ub, prog, ran, rounds, flat, got,
+                                            feas, patience=1, scratch=scratch),
+        lambda: tref.record_round_batch_ref(lb, ub, prog, ran, rounds, flat, want,
+                                            feas, 1),
+        moved, 2 * active * lb.shape[1], reset=reset)
+    r["max_abs_err"] = err
+    return r
+
+
+def telemetry_same(torch, label, off, on, reads_off, reads_on):
+    """Fail unless every field of the telemetry-on results ``on`` is bitwise
+    the telemetry-off results' ``off`` (NaNs in the same places) and the
+    host reads agree."""
+    if reads_off != reads_on:
+        fail(f"{label}: telemetry on made {reads_on} host reads, off {reads_off}")
+
+    def bits(x):
+        x = torch.as_tensor(x).reshape(-1)
+        return x.view(torch.uint8) if x.dtype.is_floating_point else x
+
+    for i, (a, b) in enumerate(zip(off, on)):
+        for f in ("lb", "ub", "rounds", "converged", "infeasible", "progress", "tier_rounds"):
+            x, y = bits(getattr(a, f)), bits(getattr(b, f))
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+                fail(f"{label}[{i}]: {f} differs with telemetry on")
+        if b.telemetry is None or b.telemetry.rounds_recorded != (
+                int(b.rounds) - int(b.tier_rounds)):
+            fail(f"{label}[{i}]: the snapshot recorded "
+                 f"{None if b.telemetry is None else b.telemetry.rounds_recorded} rounds of "
+                 f"{int(b.rounds)}")
+
+
+def telemetry_phase(torch, np, rt, tk, tref, build, dev, problems, wide, pops, pbf, stream):
+    """Phase 16: the device telemetry.  The record kernels against their
+    plain versions (``pb`` at float64 and float32, the fused bucket at 4
+    and 2 of 4 active), timed; then telemetry on against off, bitwise in
+    every field with equal host reads, with the launches counted per run:
+    ``pb``, ``mixed`` and ``bandw`` (partitioned) under both drivers, the
+    fused batch, the pbf nodes, the pbf search and the service stream; the
+    fp32 tier's trajectory under ``TierPolicy()`` on pb, pbf, mixed and
+    bandw; and the walls of telemetry on and off (CUDA events, medians of
+    rotating trials) on pb and mixed device_loop and the fused batch.
+    Returns ({kernels-line key: (row, instance)}, {run: launch counts})."""
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    cap = TELEMETRY_CAP
+    rows = {}
+    prep = rt.prepare_block_ell(problems["pb"], device=dev)
+    final = rt.propagate_block_ell(problems["pb"], device=dev)
+    lb_f, ub_f = prep.pad_bounds(final.lb, final.ub)
+    rows["record_round_tiles"] = record_check(torch, tk, tref, build, "pb", lb_f, ub_f, True)
+    record_check(torch, tk, tref, build, "pb root", prep.lb0, prep.ub0, False)
+    prep32 = rt.prepare_block_ell(problems["pb"], dtype=f32, device=dev)
+    rows["record_round_tiles[f32]"] = record_check(torch, tk, tref, build, "pb f32",
+                                                   prep32.lb0, prep32.ub0, True)
+    rows["record_round_tiles[f32]"]["float64_ms"] = rows["record_round_tiles"]["ms"]
+    (batch,) = rt.kernels.packed_problems(pops["fused"])
+    bprep = rt.kernels.prepare_problem_batch(batch, device=dev)
+    out = rt.kernels.batched_device_runner(bprep)(bprep.d.lb0.clone(), bprep.d.ub0.clone())
+    blb, bub, brounds, _, _, bprog = out
+    bprog = torch.nan_to_num(bprog)
+    for n_act in (4, 2):
+        ran = torch.arange(4, device=dev) < n_act
+        r = record_batch_check(torch, tk, tref, build, blb, bub, bprog, brounds, ran,
+                               n_act == 4)
+        if r:
+            rows["record_round_batch_tiles"] = r
+    for key, r in rows.items():
+        if "float64_ms" in r:
+            log_tier_row(key, TELEMETRY_PRIMARY[key], r)
+        else:
+            log_row(key, TELEMETRY_PRIMARY[key], r)
+
+    runs = {}
+
+    def counted(label, fn):
+        """Telemetry off, then on (its launches counted alone); both
+        bitwise equal with equal host reads.  Returns the on run."""
+        reads = [[], []]
+        off = fn(None, lambda: reads[0].append(1))
+        tk.reset_launch_counts()
+        on = fn(cap, lambda: reads[1].append(1))
+        torch.cuda.synchronize()
+        runs[label] = tk.launch_counts()
+        many = isinstance(on, list)
+        telemetry_same(torch, label, off if many else [off], on if many else [on],
+                       len(reads[0]), len(reads[1]))
+        return on
+
+    for name, p in (("pb", problems["pb"]), ("mixed", problems["mixed"]),
+                    ("bandw", wide["bandw"])):
+        for driver in ("host_loop", "device_loop"):
+            r = counted(f"telemetry {name} {driver}", lambda tel, s, p=p, d=driver:
+                        rt.propagate_block_ell(p, driver=d, telemetry=tel, device=dev,
+                                               on_sync=s))
+            t = r.telemetry
+            hist = t.progress_history()
+            log(f"telemetry {name} {driver}: rounds={r.rounds.item()} recorded="
+                f"{t.rounds_recorded} infeasible_round={t.infeasible_round} stop_round="
+                f"{t.stop_round}; history head {np.round(hist[:4], 6).tolist()} tail "
+                f"{np.round(hist[-3:], 9).tolist()}; bitwise telemetry off, equal reads")
+    got = counted("telemetry batch fused", lambda tel, s: rt.propagate_batch(
+        pops["fused"], telemetry=tel, device=dev, on_sync=s))
+    log(f"telemetry batch fused: recorded {[b.telemetry.rounds_recorded for b in got]} of "
+        f"rounds {[int(b.rounds) for b in got]}; bitwise telemetry off")
+    root = rt.propagate_block_ell(pbf, tile_width=SOLVER_TILE_WIDTH, device=dev)
+    lb_r, ub_r = root.lb.cpu().numpy(), root.ub.cpu().numpy()
+    lb, ub = branched(np, rt, lb_r, ub_r, most_fractional_order(np, lb_r, ub_r, pbf.is_int)[:6])
+    res = counted("telemetry nodes pbf", lambda tel, s: rt.propagate_nodes(
+        pbf, lb, ub, tile_width=SOLVER_TILE_WIDTH, telemetry=tel, device=dev,
+        on_sync=s).results())
+    log(f"telemetry nodes pbf: {len(res)} nodes, recorded "
+        f"{sorted({b.telemetry.rounds_recorded for b in res})}; bitwise telemetry off")
+    c = objective(np, pbf.n)
+    solved = {}
+    for tel in (None, cap):
+        reads = []
+        tk.reset_launch_counts()
+        solved[tel] = rt.solve(pbf, c, telemetry=tel, device=dev,
+                               on_flag_read=lambda: reads.append(1), **FULL_SEARCH)
+        solved[tel].reads = len(reads)
+        runs["telemetry solve pbf"] = tk.launch_counts()
+    a, b = solved[None], solved[cap]
+    for f in ("status", "objective", "nodes_expanded", "nodes_created", "levels", "host_syncs",
+              "incumbent_trajectory", "reads"):
+        if getattr(a, f) != getattr(b, f):
+            fail(f"telemetry solve pbf: {f} differs with telemetry on")
+    for x, y in zip(a.carry, b.carry):
+        if not torch.equal(x, y):
+            fail("telemetry solve pbf: the final pool differs with telemetry on")
+    t = b.telemetry
+    if t.rounds_recorded != b.levels:
+        fail(f"telemetry solve pbf: {t.rounds_recorded} samples for {b.levels} levels")
+    log(f"telemetry solve pbf: {b.levels} levels, frontier widths "
+        f"{t.progress_history().astype(int).tolist()}, first incumbent level {t.stop_round}, "
+        f"first infeasible fathom {t.infeasible_round}; the search bitwise telemetry off")
+    specs = rt.BucketSpec.for_problems(stream, slots=SERVICE_SLOTS,
+                                       size_classes=SERVICE_SIZE_CLASSES)
+    served = counted("telemetry service stream", lambda tel, s: rt.PropagationService(
+        specs, rounds_per_step=SERVICE_ROUNDS_PER_STEP, telemetry=tel, device=dev,
+        on_sync=s).serve(stream))
+    log(f"telemetry service stream: {len(served)} tickets, recorded "
+        f"{[x.telemetry.rounds_recorded for x in served]}; bitwise telemetry off")
+    need = ("record_round_tiles",)
+    require_launched(runs, {k: need for k in runs if not k.startswith(
+        ("telemetry batch", "telemetry nodes", "telemetry solve", "telemetry service"))})
+    require_launched(runs, {k: ("record_round_batch_tiles",) for k in (
+        "telemetry batch fused", "telemetry nodes pbf", "telemetry service stream")})
+
+    # The fp32 tier's trajectory under TierPolicy().
+    policy = rt.core.TierPolicy()
+    tk.reset_launch_counts()
+    for name, p in (("pb", problems["pb"]), ("pbf", pbf), ("mixed", problems["mixed"]),
+                    ("bandw", wide["bandw"])):
+        r = rt.propagate_block_ell(p, policy=policy, telemetry=cap, device=dev)
+        t, t32 = r.telemetry, r.telemetry.fp32
+        log(f"tier trajectory {name}: tier_rounds={r.tier_rounds.item()} rounds="
+            f"{r.rounds.item()} tier_switch_round={t.tier_switch_round} fp32 recorded "
+            f"{t32.rounds_recorded} infeasible_round={t32.infeasible_round} stop_round="
+            f"{t32.stop_round}")
+        log(f"  fp32 tier progress: {[float(f'{x:.4g}') for x in t32.progress_history()]}")
+        log(f"  endgame progress: {[float(f'{x:.4g}') for x in t.progress_history()]}")
+    runs["telemetry tier trajectories"] = tk.launch_counts()
+    f32_launches = tk.form_counts().get("record_round_tiles[f32]", 0)
+    if f32_launches <= 0:
+        fail("the fp32 tiers never launched record_round's float32 form")
+
+    # Walls, telemetry on against off.
+    variants = [("pb", "off"), ("pb", "on"), ("mixed", "off"), ("mixed", "on"),
+                ("batch fused", "off"), ("batch fused", "on")]
+
+    def call(kind, mode):
+        tel = cap if mode == "on" else None
+        if kind == "batch fused":
+            return rt.propagate_batch(pops["fused"], telemetry=tel, device=dev)
+        return rt.propagate_block_ell(problems[kind], telemetry=tel, device=dev)
+
+    samples = {}
+    for trial in range(TELEMETRY_TRIALS):
+        order = variants[trial % len(variants):] + variants[: trial % len(variants)]
+        for kind, mode in order:
+            samples.setdefault((kind, mode), []).append(wall_ms(torch, lambda: call(kind, mode)))
+    for kind in ("pb", "mixed", "batch fused"):
+        on, off = samples[kind, "on"], samples[kind, "off"]
+        ratio = statistics.median(a / b for a, b in zip(on, off))
+        log(f"telemetry walls {kind} device_loop (ms, medians of {TELEMETRY_TRIALS}): off "
+            f"{statistics.median(off):.3f} on {statistics.median(on):.3f}; median ratio "
+            f"on/off {ratio:.4f}")
+    out = {key: (rows[key], inst) for key, inst in TELEMETRY_PRIMARY.items()}
+    launches = {"record_round_tiles[f32]": f32_launches}
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return out, runs, launches
 
 
 def main() -> int:

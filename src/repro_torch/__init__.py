@@ -14,8 +14,10 @@ torch and numpy, never JAX or the reference.  Layout mirrors the reference:
   * ``kernels`` -- the block-ELL engines (``propagate_block_ell``, the batched
                    and node engines) over hand-written CUDA kernels for
                    Hopper (``csrc/``);
-  * ``obs``     -- span tracing and the metrics registry behind the
-                   service's ``stats()``.
+  * ``obs``     -- the device telemetry of every fixed point
+                   (``telemetry=``), span tracing, the metrics registry
+                   behind the service's ``stats()``, run metadata and
+                   fenced timing.
 
 Entry points run on CUDA unless called with ``device="cpu"``.
 """

@@ -28,6 +28,15 @@ reference's ``stop_progress`` and ``patience``,
   ``LAST``    the group's ``changed_any`` (the result's ``converged`` is
               its negation: GO no longer says it once the stop fired)
 
+Telemetry (``obs.telemetry``) arms that measure without a threshold
+(:data:`NO_STOP`: the stop's fold, a threshold that never trips), so each
+round's measure is in the carry whether or not an early stop is armed; the
+record kernel after the round copies it into the telemetry ring.  On the
+host loop the record kernel writes its infeasibility probe into the carry
+instead, read with the rest:
+
+  ``CROSS``   the round's bounds crossed (``lb > ub + feas_eps`` somewhere)
+
 :func:`fold` is the plain form of that last block's work.  Nothing here
 allocates or fills per round: the carry is armed once per fixed point.
 """
@@ -41,6 +50,7 @@ import torch
 
 FLAG, ANY, ROUNDS, GO, TICKET, FLAT, LAST = range(7)
 PROG = 8     # the progress measure's first int32 field (byte offset 32)
+CROSS = 10   # the host loop's infeasibility probe (telemetry)
 FIELDS = 16  # int32 fields, padded to 64 bytes
 
 
@@ -57,6 +67,12 @@ def early_stop(stop_progress: float | None, patience: int = 1) -> EarlyStop | No
     """The :class:`EarlyStop` of a driver's ``stop_progress=`` /
     ``patience=``, or None where no threshold is given."""
     return None if stop_progress is None else EarlyStop(float(stop_progress), int(patience))
+
+
+#: The early stop's fold without a threshold: ``prog < -inf`` never holds,
+#: so ``FLAT`` stays 0 and GO follows ``changed_any`` alone, as without a
+#: stop, while the carry keeps each check group's measure (telemetry's).
+NO_STOP = EarlyStop(float("-inf"), 1)
 
 
 def progress_view(state: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

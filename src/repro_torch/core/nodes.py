@@ -18,15 +18,17 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from .propagator import not_ported, two_tier_bounds_dtypes
+from .propagator import two_tier_bounds_dtypes
+from ..obs.telemetry import TelemetrySnapshot
 from .sparse import Problem
 from .types import DEFAULT_CONFIG, INF, PropagationResult, PropagatorConfig, TierPolicy
 
 
 class NodeBatchResult(NamedTuple):
     """Per-node results of one node-batch propagation (node axis leading).
-    ``telemetry`` and ``fp32_telemetry`` belong to the telemetry plane (item
-    6), not ported yet: always None."""
+    ``telemetry`` is the batched ``obs.TelemetryPlane`` of a run with a
+    telemetry capacity (None without), ``fp32_telemetry`` the fp32 tier's
+    under a two-tier policy."""
 
     lb: torch.Tensor          # (B, n) propagated lower bounds
     ub: torch.Tensor          # (B, n) propagated upper bounds
@@ -35,12 +37,29 @@ class NodeBatchResult(NamedTuple):
     infeasible: torch.Tensor  # (B,) bool: domain emptied -> prune this node
     progress: torch.Tensor | None = None  # (B,) last-round progress measure
     tier_rounds: object = 0   # (B,) int32 fp32-tier rounds (two-tier runs), else 0
-    telemetry: object = None
-    fp32_telemetry: object = None
+    telemetry: object = None       # batched obs.TelemetryPlane (or None)
+    fp32_telemetry: object = None  # the fp32 tier's plane under a TierPolicy
 
     @property
     def size(self) -> int:
         return int(self.lb.shape[0])
+
+    def node_telemetry(self, i: int):
+        """Node ``i``'s ``obs.TelemetrySnapshot`` (None with telemetry off).
+
+        A view of the shared batched plane, read only when an accessor is
+        called.  Under a two-tier run the fp32 tier's snapshot hangs off
+        ``.fp32`` and ``tier_switch_round`` is the node's fp32 round count
+        (``-1`` where its fp32 verdict was distrusted)."""
+        if self.telemetry is None:
+            return None
+        snap = TelemetrySnapshot(plane=self.telemetry, index=i)
+        if self.fp32_telemetry is not None:
+            snap.fp32 = TelemetrySnapshot(plane=self.fp32_telemetry, index=i)
+            # tier_rounds is 0 for nodes whose fp32 verdict was distrusted.
+            tr = int(np.asarray(torch.as_tensor(self.tier_rounds).cpu())[i])
+            snap.tier_switch_round = tr if tr > 0 else -1
+        return snap
 
     def result(self, i: int) -> PropagationResult:
         """Node ``i``'s result in single-instance form."""
@@ -50,6 +69,7 @@ class NodeBatchResult(NamedTuple):
         return PropagationResult(
             self.lb[i], self.ub[i], self.rounds[i], self.converged[i],
             self.infeasible[i], prog, torch.zeros_like(self.rounds[i]),
+            self.node_telemetry(i),
         )
 
     def results(self) -> "list[PropagationResult]":
@@ -134,6 +154,7 @@ def propagate_nodes(
     patience: int = 1,
     policy: TierPolicy | None = None,
     telemetry: int | None = None,
+    donate: bool | None = None,
     device="cuda",
     on_sync: Callable[[], None] | None = None,
 ) -> NodeBatchResult:
@@ -162,22 +183,27 @@ def propagate_nodes(
     verdict restarts from its original bounds, its ``tier_rounds`` 0), and
     the endgame of at most ``max(1, max_rounds - cap)`` rounds in
     ``dtype``; ``rounds`` includes ``tier_rounds``; past ``SCATTER_MAX_NPAD``
-    too (the partitioned node round).  ``telemetry`` (item 6) raises
-    ``NotImplementedError``."""
+    too (the partitioned node round).
+
+    ``telemetry`` (a ring capacity) records every node's trajectory on the
+    device (the batched record kernel after each round's merge); read it
+    with ``result.node_telemetry(i)`` or ``result.result(i).telemetry``.
+    ``donate`` is accepted for the reference's signature and changes
+    nothing: the planes are copied into private padded ones."""
     from ..kernels.ops import prepare_block_ell, propagate_nodes_prepared
 
-    if telemetry is not None:
-        not_ported("telemetry=", "item 6 (observability)")
-    run = dict(use_kernels=use_kernels, with_progress=True, on_sync=on_sync, slab=slab)
+    run = dict(use_kernels=use_kernels, with_progress=True, on_sync=on_sync, slab=slab,
+               donate=donate, telemetry=telemetry)
     pair = two_tier_bounds_dtypes(policy, dtype) if policy is not None else None
     if pair is not None:
         dt32, final = pair
         cap32 = max(1, int(cfg.max_rounds * policy.fp32_round_frac))
         prep32 = prepare_block_ell(p, tile_rows, tile_width, dt32, device)
-        lb32, ub32, r32, _, inf32, _ = propagate_nodes_prepared(
+        out32 = propagate_nodes_prepared(
             prep32, lb_nodes, ub_nodes, dataclasses.replace(cfg, max_rounds=cap32),
             stop_progress=policy.switch_progress, patience=policy.patience, **run,
         )
+        lb32, ub32, r32, _, inf32 = out32[:5]
         # Per-node promotion in float64; a node whose fp32 tier declared
         # infeasibility restarts from its original bounds.
         dev = lb32.device
@@ -190,19 +216,23 @@ def propagate_nodes(
         r32 = torch.where(inf32, 0, r32).to(torch.int32)
         rem = dataclasses.replace(cfg, max_rounds=max(1, cfg.max_rounds - cap32))
         prep = prepare_block_ell(p, tile_rows, tile_width, final, device)
-        lb, ub, rounds, converged, infeasible, progress = propagate_nodes_prepared(
+        out = propagate_nodes_prepared(
             prep, warm_lb, warm_ub, rem, stop_progress=policy.stop_progress,
             patience=policy.patience, **run,
         )
+        lb, ub, rounds, converged, infeasible, progress = out[:6]
         return NodeBatchResult(lb, ub, rounds + r32, converged, infeasible, progress=progress,
-                               tier_rounds=r32)
+                               tier_rounds=r32, telemetry=out[6] if telemetry else None,
+                               fp32_telemetry=out32[6] if telemetry else None)
     if policy is not None:
         stop_progress, patience = policy.stop_progress, policy.patience
     prep = prepare_block_ell(p, tile_rows, tile_width, dtype, device)
-    lb, ub, rounds, converged, infeasible, progress = propagate_nodes_prepared(
+    out = propagate_nodes_prepared(
         prep, lb_nodes, ub_nodes, cfg, stop_progress=stop_progress, patience=patience, **run,
     )
-    return NodeBatchResult(lb, ub, rounds, converged, infeasible, progress=progress)
+    lb, ub, rounds, converged, infeasible, progress = out[:6]
+    return NodeBatchResult(lb, ub, rounds, converged, infeasible, progress=progress,
+                           telemetry=out[6] if telemetry else None)
 
 
 def propagate_node_batch(

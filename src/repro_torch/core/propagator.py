@@ -29,6 +29,16 @@ per-row early stop (``stop_progress``) follows the reference's loop body,
 each row's measure taken by the round's merge (#9) where the round closure
 is ``measured``.
 
+Telemetry (``obs.telemetry``; ``telemetry=`` a ring capacity, ``plane=`` on
+the batched loops) records every round with no host read added: the loop
+carry keeps each round's progress measure (the early stop's fold, armed
+without a threshold, :data:`core.carry.NO_STOP`), and a record kernel after
+the round's last kernel (the round closure's ``record``, or its plain
+version) writes the sample, the infeasibility probe and the early stop into
+the plane on the device; the host loop builds the history on the host from
+the carry it reads each round anyway.  Every result field, and every host
+read count, is bitwise the telemetry-off run's.
+
 The precision tiers (the reference's, src/repro/core/propagator.py:595):
 every driver takes the progress-based early stop (``stop_progress``,
 ``patience``: the loop carry's ``FLAT``, folded by the round's last kernel
@@ -47,9 +57,11 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..obs import telemetry as obs
 from . import activities as act
 from . import bounds as bnd
-from .carry import GO, LAST, ROUNDS, EarlyStop, LoopCarry, early_stop, fold, go_flag, progress_of
+from .carry import (CROSS, FLAT, GO, LAST, NO_STOP, ROUNDS, EarlyStop, LoopCarry, early_stop,
+                    fold, go_flag, progress_of)
 from .sparse import Problem
 from .types import DEFAULT_CONFIG, INF, PropagationResult, PropagatorConfig, TierPolicy
 
@@ -199,10 +211,10 @@ def initial_bounds(defaults, lb0=None, ub0=None):
 
 def _stop_carry(round_fn, stop: EarlyStop | None):
     """The loop carry of ``round_fn`` (None if it has none); an early stop
-    needs one."""
+    (or telemetry, which arms the stop's fold) needs one."""
     carry = getattr(round_fn, "carry", None)
     if stop is not None and carry is None:
-        raise ValueError("the early stop needs a round closure with a loop carry")
+        raise ValueError("the early stop and telemetry need a round closure with a loop carry")
     return carry
 
 
@@ -212,9 +224,40 @@ def _carried_progress(state: list, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(progress_of(state, like.dtype), dtype=like.dtype, device=like.device)
 
 
+def _plain_record(lb, ub, carry, plane, feas_eps: float, *, unroll: int = 1,
+                  patience: int = 0):
+    """The record kernel's plain version (``kernels.ref.record_round_ref``)
+    for one fixed point, in the signature of ``kernels.prop_round.
+    RecordLaunch`` (a round closure's ``record``): returns ``launch(lb,
+    ub)``, called after each check group.  The plain rounds' ``record``."""
+    from ..kernels import ref as kref  # lazy: kernels imports core
+
+    del lb, ub
+    return lambda lb, ub: kref.record_round_ref(lb, ub, carry, plane, feas_eps, unroll,
+                                                patience)
+
+
+def _plain_record_batch(plane, feas_eps: float, *, patience: int = 0):
+    """The batched record kernel's plain version for one loop, in the
+    signature of ``kernels.prop_round.RecordBatchLaunch`` (a batched round
+    closure's ``record_batch``): returns ``launch(lb, ub, progress, ran,
+    rounds, flat)``."""
+    from ..kernels import ref as kref  # lazy: kernels imports core
+
+    return lambda *lanes: kref.record_round_batch_ref(*lanes, plane, feas_eps, patience)
+
+
+def _telemetry_stop(stop: EarlyStop | None, telemetry: int) -> EarlyStop | None:
+    """The early stop a fixed point's carry is armed with: ``stop``, or
+    with telemetry and no stop the fold without a threshold
+    (:data:`core.carry.NO_STOP`), which keeps each round's measure."""
+    return stop if stop is not None or not telemetry else NO_STOP
+
+
 def fixed_point(
     round_fn, lb, ub, max_rounds: int, on_sync: Callable[[], None] | None = None,
     with_progress: bool = True, stop: EarlyStop | None = None,
+    telemetry: int | None = None, feas_eps: float | None = None,
 ):
     """Iterate ``round_fn(lb, ub) -> (lb, ub, changed)`` until a round changes
     nothing or ``max_rounds`` rounds ran.
@@ -232,27 +275,50 @@ def fixed_point(
     clears GO once it stayed low ``stop.patience`` rounds: the host reads
     the whole carry instead of the flag (still one read a round) and stops
     on GO, and the measure is the carry's.  Returns ``(lb, ub, rounds,
-    changed, progress)``."""
+    changed, progress)``.
+
+    ``telemetry`` (a ring capacity) records the trajectory on the host, as
+    the reference's host loop does (src/repro/core/propagator.py:221-262):
+    the carry keeps each round's measure (the stop's fold, without a
+    threshold where no stop is armed), the round closure's ``record`` (or
+    its plain version) writes the infeasibility probe of the round's bounds
+    (``feas_eps``) into the carry, and the round's one read of the carry
+    brings flag, measure and probe together.  The reads, ``progress`` and
+    every other output stay telemetry-off's; an ``obs.TelemetrySnapshot``
+    of the history is appended to the return."""
     prog = torch.tensor(math.nan, dtype=lb.dtype, device=lb.device)
     lb_in, ub_in = lb, ub
     rounds, changed = 0, True
-    carry = _stop_carry(round_fn, stop)
+    tel = int(telemetry or 0)
+    armed = _telemetry_stop(stop, tel)
+    carry = _stop_carry(round_fn, armed)
     if carry is not None:
-        carry.arm(lb.device, stop=stop)
+        carry.arm(lb.device, stop=armed)
+    if tel:
+        launch = getattr(round_fn, "record", _plain_record)(lb, ub, carry.state, None, feas_eps)
+    history, stop_round, infeas_round = [], -1, -1
     try:
         while changed and rounds < max_rounds:
             if with_progress and stop is None and rounds + 1 == max_rounds:
                 lb_in, ub_in = lb.clone(), ub.clone()
             lb, ub, ch = round_fn(lb, ub)
             rounds += 1
-            if stop is None:
+            if armed is None:
                 changed = bool(ch)
             else:
+                if tel:
+                    launch(lb, ub)
                 state = carry.read()
                 changed = bool(state[LAST])
             if on_sync is not None:
                 on_sync()
-            if stop is not None and not state[GO]:
+            if tel:
+                history.append(progress_of(state, lb.dtype))
+                if infeas_round < 0 and state[CROSS]:
+                    infeas_round = rounds
+                if stop is not None and stop_round < 0 and state[FLAT] >= stop.patience:
+                    stop_round = rounds
+            if armed is not None and not state[GO]:
                 break
     finally:
         if carry is not None:
@@ -264,13 +330,18 @@ def fixed_point(
         prog = bnd.progress_measure(lb_in, ub_in, lb, ub) if changed else (
             bnd.progress_measure(lb, ub, lb, ub)
         )
-    return lb, ub, rounds, changed, prog
+    out = lb, ub, rounds, changed, prog
+    if tel:
+        out += (obs.host_snapshot(history, tel, stop_round=stop_round,
+                                  infeas_round=infeas_round),)
+    return out
 
 
 def device_fixed_point(
     round_fn, lb, ub, max_rounds: int, unroll: int = 1,
     on_sync: Callable[[], None] | None = None, with_progress: bool = True,
-    stop: EarlyStop | None = None,
+    stop: EarlyStop | None = None, telemetry: int | None = None,
+    feas_eps: float | None = None,
 ):
     """The reference's ``_device_fixed_point``
     (src/repro/core/propagator.py:272) over a round closure with a loop
@@ -291,17 +362,36 @@ def device_fixed_point(
     :func:`fixed_point`, per check group) GO also clears once the measure
     stayed low ``stop.patience`` groups; ``changed`` is then the carry's
     ``LAST`` and the measure its own.  Returns ``(lb, ub, rounds, changed,
-    progress)``."""
+    progress)``.
+
+    ``telemetry`` (a ring capacity) records every check group into an
+    ``obs.TelemetryPlane`` on the device, as the reference's
+    ``_device_fixed_point(plane=)`` does: the carry keeps each group's
+    measure (the stop's fold, without a threshold where no stop is armed),
+    and the round closure's ``record`` (the record kernel, or its plain
+    version) runs after each group's last round, adding no host read; a
+    group enqueued after convergence records nothing.  The probe tests the
+    group's bounds against ``feas_eps``.  Every output and read stays
+    telemetry-off's; an ``obs.TelemetrySnapshot`` of the plane is appended
+    to the return."""
     if unroll < 1:
         raise ValueError(f"unroll={unroll}: a check group holds at least one round")
     prog = torch.tensor(math.nan, dtype=lb.dtype, device=lb.device)
+    tel = int(telemetry or 0)
+    plane = obs.device_plane(tel, dtype=lb.dtype, device=lb.device) if tel else None
+    tail = (obs.TelemetrySnapshot(plane=plane),) if tel else ()
     groups = -(-max_rounds // unroll) if max_rounds > 0 else 0
     if groups == 0:
-        return lb, ub, 0, True, prog
-    carry: LoopCarry = _stop_carry(round_fn, stop) or round_fn.carry
+        return (lb, ub, 0, True, prog) + tail
+    armed = _telemetry_stop(stop, tel)
+    carry: LoopCarry = _stop_carry(round_fn, armed) or round_fn.carry
     lb_in = ub_in = None
     done, per_read = 0, loop_group(round_fn)
-    carry.arm(lb.device, unroll, stop)
+    carry.arm(lb.device, unroll, armed)
+    if tel:
+        launch = getattr(round_fn, "record", _plain_record)(
+            lb, ub, carry.state, plane, feas_eps, unroll=unroll,
+            patience=stop.patience if stop is not None else 0)
     try:
         while True:
             batch = min(per_read, groups - done)
@@ -310,6 +400,8 @@ def device_fixed_point(
                     lb_in, ub_in = lb.clone(), ub.clone()
                 for _ in range(unroll):
                     lb, ub, _ = round_fn(lb, ub)
+                if tel:
+                    launch(lb, ub)
             done += batch
             state = carry.read()
             if on_sync is not None:
@@ -319,19 +411,31 @@ def device_fixed_point(
     finally:
         carry.release()
     if stop is not None:
-        return lb, ub, state[ROUNDS], bool(state[LAST]), _carried_progress(state, lb)
+        return (lb, ub, state[ROUNDS], bool(state[LAST]), _carried_progress(state, lb)) + tail
     changed = bool(state[GO])
     if with_progress:
         # A group that changed nothing left its bounds as they were.
         prog = bnd.progress_measure(lb_in, ub_in, lb, ub) if changed else (
             bnd.progress_measure(lb, ub, lb, ub)
         )
-    return lb, ub, state[ROUNDS], changed, prog
+    return (lb, ub, state[ROUNDS], changed, prog) + tail
+
+
+def _batch_record(round_fn, plane, feas_eps, patience: int = 0):
+    """The per-round record of a batched loop with the telemetry ``plane``
+    (None without one): ``launch(lb, ub, progress, ran, rounds, flat)``,
+    the round closure's ``record_batch`` (the record kernel's prepared
+    launch) or its plain version."""
+    if plane is None:
+        return None
+    return getattr(round_fn, "record_batch", _plain_record_batch)(plane, feas_eps,
+                                                                   patience=patience)
 
 
 def _batched_rounds(
     round_fn, lb, ub, active, last_changed, rounds, max_rounds: int, *,
     rounds_hi: int, with_progress: bool, progress, on_sync, budget: int | None = None,
+    plane=None, feas_eps: float | None = None,
 ):
     """The loop of :func:`batched_step_rounds`: one round, then one host
     read of ``active.any()``, until no row is active or ``budget`` rounds
@@ -345,7 +449,18 @@ def _batched_rounds(
     count of an active row), and the budget's last round.  A row whose last
     round changed nothing has progress exactly 0.0; a row cut by
     ``max_rounds`` or still active at the budget's end gets the measure of
-    its last round."""
+    its last round.
+
+    With a telemetry ``plane`` every round is also measured for the
+    record: by the merge where ``round_fn`` is ``measured`` (#9 or #15's
+    row form, bitwise its plain merge), else from copies of the planes; the
+    record runs after the round (the closure's ``record_batch`` or its
+    plain version), and the returned ``progress`` stays the one above."""
+    measured = getattr(round_fn, "measured", False)
+    record = _batch_record(round_fn, plane, feas_eps)
+    if record is not None:
+        sample = torch.full_like(progress, math.nan)
+        no_flat = torch.zeros_like(rounds)
     lb_in = ub_in = None
     ran = torch.zeros_like(active)
     k = 0
@@ -357,8 +472,18 @@ def _batched_rounds(
             else:
                 lb_in = torch.where(active[:, None], lb, lb_in)
                 ub_in = torch.where(active[:, None], ub, ub_in)
-        lb, ub, changed = round_fn(lb, ub, active)
+        now = active
+        if record is None:
+            lb, ub, changed = round_fn(lb, ub, active)
+        elif measured:
+            lb, ub, changed = round_fn(lb, ub, active, progress=sample)
+        else:
+            tl_in, tu_in = lb.clone(), ub.clone()
+            lb, ub, changed = round_fn(lb, ub, active)
+            sample = torch.where(active, bnd.progress_measure(tl_in, tu_in, lb, ub), sample)
         rounds = rounds + active.to(rounds.dtype)
+        if record is not None:
+            record(lb, ub, sample, now, rounds, no_flat)
         ran = ran | active
         last_changed = torch.where(active, changed, last_changed)
         active = active & changed & (rounds < max_rounds)
@@ -379,7 +504,8 @@ def _batched_rounds(
 
 def _batched_stop_rounds(
     round_fn, lb, ub, active, last_changed, rounds, max_rounds: int, *, stop: EarlyStop,
-    progress, flat, on_sync, budget: int | None = None,
+    progress, flat, on_sync, budget: int | None = None, plane=None,
+    feas_eps: float | None = None,
 ):
     """The loop of :func:`batched_step_rounds` with the per-row early stop
     armed: the reference's loop body (src/repro/core/propagator.py:388-414).
@@ -390,9 +516,11 @@ def _batched_stop_rounds(
     (:func:`bounds.progress_measure`).  Then, as ``(B,)`` operations on the
     device, ``flat = where(active, where(prog < stop, flat + 1, 0), flat)``
     and ``active &= changed & (rounds < max_rounds) & (flat < patience)``;
-    one host read of ``active.any()`` a round.  Returns the state and
-    ``(progress, flat)``."""
+    one host read of ``active.any()`` a round.  With a telemetry ``plane``
+    each round is recorded after the streak's update (the reference's
+    order).  Returns the state and ``(progress, flat)``."""
     measured = getattr(round_fn, "measured", False)
+    record = _batch_record(round_fn, plane, feas_eps, stop.patience)
     progress = progress.clone()
     k = 0
     while True:
@@ -405,6 +533,8 @@ def _batched_stop_rounds(
         rounds = rounds + active.to(rounds.dtype)
         last_changed = torch.where(active, changed, last_changed)
         flat = torch.where(active, torch.where(progress < stop.progress, flat + 1, 0), flat)
+        if record is not None:
+            record(lb, ub, progress, active, rounds, flat)
         active = active & changed & (rounds < max_rounds) & (flat < stop.patience)
         k += 1
         go = bool(active.any())
@@ -413,11 +543,6 @@ def _batched_stop_rounds(
         if not go or (budget is not None and k >= budget):
             break
     return lb, ub, active, last_changed, rounds, progress, flat
-
-
-def _check_plane(plane):
-    if plane is not None:
-        not_ported("plane=", "item 6 (observability)")
 
 
 def batched_step_rounds(
@@ -451,26 +576,34 @@ def batched_step_rounds(
     every round a row runs is then measured, and ``(progress, flat)`` are
     carried as the rest of the state (:func:`_batched_stop_rounds`).
 
+    ``plane`` (an ``obs.TelemetryPlane``, batched layout) arms the device
+    telemetry: every round records each row that ran (its measure, the
+    infeasibility probe of its planes against ``feas_eps`` and the early
+    stop) with the round closure's ``record_batch`` (the record kernel) or
+    its plain version, in place, and the return is the 8-tuple ``(lb, ub,
+    active, last_changed, rounds, progress, flat, plane)``.  Passing a
+    step's plane back resumes its rings, as the rest of the state.  The
+    bounds, flags and reads stay telemetry-off's.
+
     The loop reads ``active.any()`` on the host once per round, reported to
     ``on_sync``; without a stop, ``with_progress`` takes one more read of
-    the incoming round counts.  ``plane=`` (item 6) raises
-    ``NotImplementedError``."""
-    del feas_eps  # the telemetry probe's tolerance; telemetry is not ported
-    _check_plane(plane)
+    the incoming round counts."""
     stop = early_stop(stop_progress, patience)
     bsz = lb.shape[0]
     if progress is None:
         progress = torch.full((bsz,), math.nan, dtype=lb.dtype, device=lb.device)
     if flat is None:
         flat = torch.zeros((bsz,), dtype=torch.int32, device=lb.device)
+    tail = (plane,) if plane is not None else ()
+    full = with_progress or plane is not None
     if budget is not None and budget < 1:
         out = (lb, ub, active, last_changed, rounds)
-        return out + (progress, flat) if with_progress else out
+        return out + (progress, flat) + tail if full else out
     if stop is not None:
         out = _batched_stop_rounds(round_fn, lb, ub, active, last_changed, rounds, max_rounds,
                                    stop=stop, progress=progress, flat=flat, on_sync=on_sync,
-                                   budget=budget)
-        return out if with_progress else out[:5]
+                                   budget=budget, plane=plane, feas_eps=feas_eps)
+        return out + tail if full else out[:5]
     rounds_hi = 0
     if with_progress:
         rounds_hi = int(torch.where(active, rounds, 0).max())
@@ -479,10 +612,10 @@ def batched_step_rounds(
     lb, ub, active, last_changed, rounds, progress = _batched_rounds(
         round_fn, lb, ub, active, last_changed, rounds, max_rounds,
         rounds_hi=rounds_hi, with_progress=with_progress, progress=progress,
-        on_sync=on_sync, budget=budget,
+        on_sync=on_sync, budget=budget, plane=plane, feas_eps=feas_eps,
     )
-    if with_progress:
-        return lb, ub, active, last_changed, rounds, progress, flat
+    if full:
+        return (lb, ub, active, last_changed, rounds, progress, flat) + tail
     return lb, ub, active, last_changed, rounds
 
 
@@ -506,33 +639,33 @@ def batched_fixed_point(
     the per-row last-round progress measure.  ``stop_progress``/
     ``patience`` arm the per-row early stop (:func:`batched_step_rounds`):
     a stopped row reports ``converged=False`` at ``rounds < max_rounds``.
-    One host read of ``active.any()`` per round, reported to
-    ``on_sync``."""
-    del feas_eps
-    _check_plane(plane)
+    ``plane``/``feas_eps`` arm the per-row device telemetry (as there); the
+    plane is appended to either return.  One host read of
+    ``active.any()`` per round, reported to ``on_sync``."""
     bsz = lb0.shape[0]
     dev = lb0.device
     if active0 is None:
         active0 = torch.ones((bsz,), dtype=torch.bool, device=dev)
     progress = torch.full((bsz,), math.nan, dtype=lb0.dtype, device=dev)
+    tail = (plane,) if plane is not None else ()
     stop = early_stop(stop_progress, patience)
     if stop is not None:
         lb, ub, _, last_changed, rounds, progress, _ = _batched_stop_rounds(
             round_fn, lb0, ub0, active0, active0,
             torch.zeros((bsz,), dtype=torch.int32, device=dev), max_rounds, stop=stop,
             progress=progress, flat=torch.zeros((bsz,), dtype=torch.int32, device=dev),
-            on_sync=on_sync,
+            on_sync=on_sync, plane=plane, feas_eps=feas_eps,
         )
-        return (lb, ub, rounds, ~last_changed) + ((progress,) if with_progress else ())
+        return (lb, ub, rounds, ~last_changed) + ((progress,) if with_progress else ()) + tail
     lb, ub, _, last_changed, rounds, progress = _batched_rounds(
         round_fn, lb0, ub0, active0, active0,
         torch.zeros((bsz,), dtype=torch.int32, device=dev), max_rounds,
         rounds_hi=0, with_progress=with_progress, progress=progress,
-        on_sync=on_sync,
+        on_sync=on_sync, plane=plane, feas_eps=feas_eps,
     )
     if with_progress:
-        return lb, ub, rounds, ~last_changed, progress
-    return lb, ub, rounds, ~last_changed
+        return (lb, ub, rounds, ~last_changed, progress) + tail
+    return (lb, ub, rounds, ~last_changed) + tail
 
 
 def propagate_batch(
@@ -548,7 +681,8 @@ def propagate_batch(
     stop_progress: float | None = None,
     patience: int = 1,
     policy=None,
-    telemetry=None,
+    telemetry: int | None = None,
+    donate: bool | None = None,
     device="cuda",
     on_sync: Callable[[], None] | None = None,
 ) -> "list[PropagationResult]":
@@ -568,7 +702,10 @@ def propagate_batch(
     none.  ``dtype`` is float64 (the default) or float32;
     ``stop_progress``/``patience`` arm the per-instance early stop and
     ``policy`` (a :class:`TierPolicy`) the two tiers (``tier_rounds`` per
-    instance).  ``telemetry=`` raises ``NotImplementedError``.  See
+    instance).  ``telemetry`` (a ring capacity) attaches per-instance
+    ``obs.TelemetrySnapshot``s, the rows of one plane per bucket.
+    ``donate`` is accepted for the reference's signature and changes
+    nothing: the fixed points already run in place on private copies.  See
     ``kernels.ops.propagate_batch_block_ell``."""
     from ..kernels.ops import propagate_batch_block_ell  # lazy: kernels imports core
 
@@ -576,11 +713,11 @@ def propagate_batch(
         problems, cfg=cfg, tile_rows=tile_rows, tile_width=tile_width, dtype=dtype,
         use_kernels=use_kernels, driver=driver, bounds=bounds, slab=slab,
         stop_progress=stop_progress, patience=patience, policy=policy, telemetry=telemetry,
-        device=device, on_sync=on_sync,
+        donate=donate, device=device, on_sync=on_sync,
     )
 
 
-def _result(lb, ub, rounds, changed, prog, feas_eps) -> PropagationResult:
+def _result(lb, ub, rounds, changed, prog, feas_eps, telemetry=None) -> PropagationResult:
     dev = lb.device
     return PropagationResult(
         lb=lb,
@@ -590,16 +727,8 @@ def _result(lb, ub, rounds, changed, prog, feas_eps) -> PropagationResult:
         infeasible=check_infeasible(lb, ub, feas_eps),
         progress=prog,
         tier_rounds=torch.zeros((), dtype=torch.int32, device=dev),
+        telemetry=telemetry,
     )
-
-
-def not_ported(name: str, entry: str):
-    raise NotImplementedError(f"{name} is not ported yet: ROADMAP Queue 1 {entry}")
-
-
-def _refuse_telemetry(telemetry) -> None:
-    if telemetry is not None:
-        not_ported("telemetry=", "item 6 (observability)")
 
 
 def _plain_round_fn(dp: DeviceProblem, eps: float, int_eps: float, inf: float,
@@ -648,7 +777,7 @@ def propagate_host_loop(
     ub0=None,
     stop_progress: float | None = None,
     patience: int = 1,
-    telemetry=None,
+    telemetry: int | None = None,
     *,
     on_sync: Callable[[], None] | None = None,
 ) -> PropagationResult:
@@ -658,13 +787,15 @@ def propagate_host_loop(
     ``ub0`` warm-start the fixed point from ``(n,)`` bounds.
     ``stop_progress``/``patience`` arm the progress-based early stop (the
     round's measure read with its flag, in the same read); progress is NaN
-    without it, as the reference's.  ``telemetry=`` (item 6) raises
-    ``NotImplementedError``."""
-    _refuse_telemetry(telemetry)
+    without it, as the reference's.  ``telemetry`` (a ring capacity)
+    records the per-round trajectory on the host, from the carry read each
+    round anyway, into ``result.telemetry`` (an ``obs.TelemetrySnapshot``,
+    the device loops' layout)."""
     lb, ub = initial_bounds((dp.lb0, dp.ub0), lb0, ub0)
     out = fixed_point(_round_fn(dp, cfg), lb, ub, cfg.max_rounds, on_sync, with_progress=False,
-                      stop=early_stop(stop_progress, patience))
-    return _result(*out, cfg.feas_eps)
+                      stop=early_stop(stop_progress, patience), telemetry=telemetry,
+                      feas_eps=cfg.feas_eps)
+    return _result(*out[:5], cfg.feas_eps, *out[5:])
 
 
 def propagate_device_loop(
@@ -675,7 +806,7 @@ def propagate_device_loop(
     ub0=None,
     stop_progress: float | None = None,
     patience: int = 1,
-    telemetry=None,
+    telemetry: int | None = None,
     *,
     on_sync: Callable[[], None] | None = None,
 ) -> PropagationResult:
@@ -685,12 +816,16 @@ def propagate_device_loop(
     read on the host once per :data:`UNGATED_LOOP_GROUP` groups (each read
     reported to ``on_sync``).  ``rounds`` is the reference's (a multiple of
     ``unroll``), ``progress`` the last check group's measure.  Options as
-    in :func:`propagate_host_loop` (the early stop per check group)."""
-    _refuse_telemetry(telemetry)
+    in :func:`propagate_host_loop` (the early stop per check group).
+    ``telemetry`` (a ring capacity) records each check group into a plane
+    on the device with the record kernel's plain version (the plain round
+    is torch ops too), adding no host read; ``result.telemetry`` is its
+    ``obs.TelemetrySnapshot``."""
     lb, ub = initial_bounds((dp.lb0, dp.ub0), lb0, ub0)
     out = device_fixed_point(_round_fn(dp, cfg), lb, ub, cfg.max_rounds, unroll, on_sync,
-                             stop=early_stop(stop_progress, patience))
-    return _result(*out, cfg.feas_eps)
+                             stop=early_stop(stop_progress, patience), telemetry=telemetry,
+                             feas_eps=cfg.feas_eps)
+    return _result(*out[:5], cfg.feas_eps, *out[5:])
 
 
 def propagate_unrolled(
@@ -701,7 +836,7 @@ def propagate_unrolled(
     ub0=None,
     stop_progress: float | None = None,
     patience: int = 1,
-    telemetry=None,
+    telemetry: int | None = None,
     *,
     on_sync: Callable[[], None] | None = None,
 ) -> PropagationResult:
@@ -748,7 +883,10 @@ def run_tiers(single: Callable, cfg: PropagatorConfig, dtype, lb0, ub0, policy,
     ``max(1, max_rounds - tier_rounds)`` rounds from them; ``rounds`` is
     both tiers' and ``tier_rounds`` the tier's.  The tier's verdict and
     round count are read on the host at once (one read, reported to
-    ``on_sync``)."""
+    ``on_sync``).  Where the fixed points carry telemetry snapshots, the
+    endgame's is returned with the tier's under ``fp32`` and, after a
+    promotion, ``tier_switch_round`` set to the tier's rounds (the
+    reference's, src/repro/core/propagator.py:664-695)."""
     pair = two_tier_bounds_dtypes(policy, dtype) if policy is not None else None
     if pair is None:
         if policy is not None:
@@ -763,10 +901,15 @@ def run_tiers(single: Callable, cfg: PropagatorConfig, dtype, lb0, ub0, policy,
         on_sync()
     if infeasible:
         r = single(cfg, final, lb0, ub0, policy.stop_progress, policy.patience)
+        if r.telemetry is not None:
+            r = r._replace(telemetry=dataclasses.replace(r.telemetry, fp32=r32.telemetry))
         return r._replace(tier_rounds=r32.rounds)
     rem = dataclasses.replace(cfg, max_rounds=max(1, cfg.max_rounds - tier_rounds))
     warm_lb, warm_ub = bnd.canonical_infinite(r32.lb.to(final), r32.ub.to(final))
     r = single(rem, final, warm_lb, warm_ub, policy.stop_progress, policy.patience)
+    if r.telemetry is not None:
+        r = r._replace(telemetry=dataclasses.replace(
+            r.telemetry, tier_switch_round=tier_rounds, fp32=r32.telemetry))
     return r._replace(rounds=r.rounds + r32.rounds, tier_rounds=r32.rounds)
 
 
@@ -778,7 +921,7 @@ def propagate(
     lb0=None,
     ub0=None,
     policy: TierPolicy | None = None,
-    telemetry=None,
+    telemetry: int | None = None,
     device="cuda",
     on_sync: Callable[[], None] | None = None,
 ) -> PropagationResult:
@@ -800,21 +943,27 @@ def propagate(
     control: with ``two_tier`` an fp32 tier, promotion and the endgame in
     ``dtype`` (:func:`run_tiers`; ``result.tier_rounds`` counts the tier's
     rounds), and ``stop_progress`` early-stops flatlined runs.
-    ``telemetry=`` (item 6) raises ``NotImplementedError``."""
-    _refuse_telemetry(telemetry)
+
+    ``telemetry`` (a ring capacity, e.g. ``obs.DEFAULT_CAPACITY``) attaches
+    an ``obs.TelemetrySnapshot`` to the result: the per-round progress
+    ring and the early-stop and infeasibility rounds, recorded with the
+    record kernel's plain version (this round is torch ops) and read only
+    when the snapshot is.  Under a two-tier policy the snapshot is the
+    endgame's, with ``tier_switch_round`` stamped and the fp32 tier's
+    snapshot under ``.fp32``.  Every other field is telemetry-off's."""
     if driver not in DRIVERS:
         raise ValueError(f"unknown driver: {driver}")
 
     def single(cfg_, dtype_, lb0_, ub0_, stop_progress, patience):
         return _propagate_single(p, cfg_, driver, dtype_, lb0_, ub0_, stop_progress, patience,
-                                 device=device, on_sync=on_sync)
+                                 telemetry=telemetry, device=device, on_sync=on_sync)
 
     return run_tiers(single, cfg, dtype, lb0, ub0, policy, on_sync=on_sync)
 
 
 def _propagate_single(
     p: Problem, cfg, driver, dtype, lb0, ub0, stop_progress=None, patience: int = 1, *,
-    device="cuda", on_sync: Callable[[], None] | None = None,
+    telemetry: int | None = None, device="cuda", on_sync: Callable[[], None] | None = None,
 ) -> PropagationResult:
     """One single-dtype fixed point of :func:`propagate` (the tiered front
     end calls this twice)."""
@@ -822,7 +971,7 @@ def _propagate_single(
     run = {"host_loop": propagate_host_loop, "device_loop": propagate_device_loop,
            "unrolled": propagate_unrolled}[driver]
     return run(dp, cfg, lb0=lb0, ub0=ub0, stop_progress=stop_progress, patience=patience,
-               on_sync=on_sync)
+               telemetry=telemetry, on_sync=on_sync)
 
 
 def fresh_instance_runner(p: Problem, cfg: PropagatorConfig = DEFAULT_CONFIG, device="cuda"):

@@ -44,9 +44,13 @@ inside the step and retires stopped, not converged (``stats()`` counts
 
 Observability: a host-side tracer (``obs.trace``) emits
 pump/admit/step/readback spans and one ``ticket`` span per request, and
-``stats()`` carries a metrics-registry snapshot (``obs.metrics``).  The
-device telemetry plane (``telemetry=``) is ROADMAP Queue 1 item 6; the
-resident state keeps its entries, zero-width or idle.
+``stats()`` carries a metrics-registry snapshot (``obs.metrics``).
+``telemetry=`` (a ring capacity) arms the per-slot device telemetry
+(``obs.telemetry``, state entries 13-16): admission resets a slot's rows,
+every round of a step records each slot that ran with the batched record
+kernel, and retirement copies the slot's rows out in the pinned read-back
+it already makes, into a scalar-layout snapshot per ticket.  Without it
+the entries are zero-width or idle.
 """
 from __future__ import annotations
 
@@ -60,8 +64,9 @@ import numpy as np
 import torch
 
 from ..obs.metrics import default_registry
+from ..obs.telemetry import TelemetryPlane, TelemetrySnapshot
 from ..obs.trace import NULL_TRACER
-from .propagator import batched_step_rounds, check_dtype, not_ported, resolve_device
+from .propagator import batched_step_rounds, check_dtype, resolve_device
 from .sparse import Problem, SlotPayload, col_pad, pack_into_slot
 from .types import DEFAULT_CONFIG, PropagationResult, PropagatorConfig
 
@@ -80,13 +85,13 @@ from .types import DEFAULT_CONFIG, PropagationResult, PropagatorConfig
 #  10 rounds (slots,) int32           per-slot rounds executed
 #  11 progress (slots,)               last round's progress measure (NaN fresh)
 #  12 flat   (slots,) int32           consecutive low-progress rounds (the early retire)
-#  13 ring   (slots, 0)               telemetry progress rings (item 6: zero-width)
+#  13 ring   (slots, cap)             telemetry progress rings (cap may be 0)
 #  14 ticks  (slots,) int32           telemetry rounds recorded per slot
 #  15 stop_round (slots,) int32       early-stop round latch (-1 = never)
 #  16 infeas_round (slots,) int32     first crossed-bounds round (-1 = never)
 _LB, _UB, _ACTIVE, _LAST_CHANGED, _ROUNDS = 6, 7, 8, 9, 10
 _PROGRESS, _FLAT = 11, 12
-_TICKS, _STOPR, _INFSR = 14, 15, 16
+_RING, _TICKS, _STOPR, _INFSR = 13, 14, 15, 16
 # The payload fields copied into a slot, in state order (val .. rhs_c, lb, ub).
 _PAYLOAD_FIELDS = ("val", "col", "ii", "chunk_row", "lhs_c", "rhs_c", "lb", "ub")
 
@@ -326,7 +331,8 @@ class _BucketEngine:
                  use_kernels: bool, device: torch.device, key: tuple,
                  dtype: torch.dtype = torch.float64, stop_progress: float | None = None,
                  patience: int = 1):
-        from ..kernels import ops as kops, ref as kref  # lazy: kernels imports core
+        # lazy: kernels imports core
+        from ..kernels import ops as kops, prop_round as kern, ref as kref
 
         self.spec, self.cfg, self.device, self.key = spec, cfg, device, key
         self.rounds_per_step = rounds_per_step
@@ -369,15 +375,17 @@ class _BucketEngine:
             )
 
         self.round_fn = self.kept.guard(round_fn)
+        self.record_batch = kern.RecordBatchLaunch if use_kernels else None
         _BucketEngine.builds[key] = _BucketEngine.builds.get(key, 0) + 1
 
-    def init_state(self) -> "tuple[list, tuple]":
+    def init_state(self, telemetry: int = 0) -> "tuple[list, tuple]":
         """A fresh all-empty resident state: zero tiles, every chunk parked
         on its slot's dummy row, every slot inactive (== unoccupied); and
         its derived tensors ``(col_g, seg, seg_start, dummy, chunk_len,
         classes, max_chunk_len)``: the first four and ``classes`` for the
         multi-chunk round (Nones on a bucket whose rows fit one chunk);
         ``chunk_len`` is where #8, or A' and E, stop each resident chunk,
+        ``telemetry`` the width of the slots' telemetry rings (0: none),
         ``classes`` (a list) the combine's short and long segments (fixed
         lengths, padded with -1), and ``max_chunk_len`` (a one-entry list)
         the longest chunk admitted so far, which only grows; all kept
@@ -395,7 +403,8 @@ class _BucketEngine:
             z((s, spec.n_pad)), z((s, spec.n_pad)),
             z((s,), torch.bool), z((s,), torch.bool), z((s,), torch.int32),
             torch.full((s,), float("nan"), dtype=dt, device=dev), z((s,), torch.int32),
-            z((s, 0)), z((s,), torch.int32),
+            torch.full((s, int(telemetry)), float("nan"), dtype=dt, device=dev),
+            z((s,), torch.int32),
             torch.full((s,), -1, dtype=torch.int32, device=dev),
             torch.full((s,), -1, dtype=torch.int32, device=dev),
         ]
@@ -458,8 +467,8 @@ class _BucketEngine:
             state[_LB].index_copy_(0, ids, st["lb"])
             state[_UB].index_copy_(0, ids, st["ub"])
             for idx, value in ((_ACTIVE, True), (_LAST_CHANGED, True), (_ROUNDS, 0),
-                               (_PROGRESS, float("nan")), (_FLAT, 0), (_TICKS, 0),
-                               (_STOPR, -1), (_INFSR, -1)):
+                               (_PROGRESS, float("nan")), (_FLAT, 0), (_RING, float("nan")),
+                               (_TICKS, 0), (_STOPR, -1), (_INFSR, -1)):
                 state[idx].index_fill_(0, ids, value)
             col_g, _, _, dummy, clen, _, max_len = aux
             clen.index_copy_(0, tix, self.chunk_lengths(st["val"].view(g * t, r, k)))
@@ -474,17 +483,23 @@ class _BucketEngine:
     def step(self, state: list, aux: tuple, on_sync: Callable[[], None] | None = None) -> None:
         """Up to ``rounds_per_step`` occupancy-masked rounds over the
         resident state, in place (bounds and loop state), with the early
-        stop where the engine arms one."""
+        stop where the engine arms one; where the state's telemetry rings
+        have a width, every round records each slot that ran into them (the
+        batched record kernel, in place)."""
         planes = state[_LB:_FLAT + 1]
 
         def round_fn(lb, ub, act, **kw):
             return self.round_fn(state, aux, lb, ub, act, **kw)
 
         round_fn.measured = True
+        if self.record_batch is not None:
+            round_fn.record_batch = self.record_batch
+        plane = TelemetryPlane(*state[_RING:_INFSR + 1]) if state[_RING].shape[1] else None
         out = batched_step_rounds(
             round_fn, *planes[:5], self.cfg.max_rounds, budget=self.rounds_per_step,
             stop_progress=self.stop_progress, patience=self.patience,
-            progress=planes[5], flat=planes[6], with_progress=True, on_sync=on_sync,
+            progress=planes[5], flat=planes[6], with_progress=True, plane=plane,
+            feas_eps=self.cfg.feas_eps, on_sync=on_sync,
         )
         for dst, src in zip(planes, out):
             if src is not dst:
@@ -552,10 +567,10 @@ class _Bucket:
     derived tensors, the slot -> ticket table (the host half of the
     occupancy mask) and the admission queue."""
 
-    def __init__(self, spec: BucketSpec, engine: _BucketEngine):
+    def __init__(self, spec: BucketSpec, engine: _BucketEngine, telemetry: int = 0):
         self.spec = spec
         self.engine = engine
-        self.state, self.aux = engine.init_state()
+        self.state, self.aux = engine.init_state(telemetry)
         self.slot_tickets: list[ServiceTicket | None] = [None] * spec.slots
         self.queue: deque[ServiceTicket] = deque()
         self.retired = 0
@@ -589,7 +604,10 @@ class PropagationService:
     converged, counted in ``stats()["early_stopped"]`` (a retired slot with
     ``last_changed`` set and ``rounds < max_rounds``).  There is no
     per-slot tier promotion (no ``policy=``), as in the reference.
-    ``telemetry=`` (item 6) raises ``NotImplementedError``.
+    ``telemetry`` (a ring capacity) arms the per-slot device telemetry:
+    each retired ticket's result carries an ``obs.TelemetrySnapshot`` (a
+    host copy in the scalar layout, taken in the retirement's read-back);
+    the engines and reads are the same as without it.
 
     Observability: ``tracer`` (an ``obs.trace.Tracer``) records a span for
     every pump/admit/step/readback plus one ``ticket`` span per retired
@@ -615,8 +633,7 @@ class PropagationService:
     ):
         if not specs:
             raise ValueError("PropagationService needs at least one BucketSpec")
-        if telemetry:
-            not_ported("telemetry=", "item 6 (observability)")
+        self._telemetry = int(telemetry or 0)
         self._dtype = check_dtype(dtype)
         self._np_dtype = np.float32 if self._dtype == torch.float32 else np.float64
         self._stop_progress = stop_progress
@@ -635,7 +652,7 @@ class PropagationService:
         self._submitted = 0
         self._buckets = [
             _Bucket(spec, _get_engine(spec, cfg, rounds_per_step, use_kernels, self._device,
-                                      self._dtype, stop_progress, patience))
+                                      self._dtype, stop_progress, patience), self._telemetry)
             for spec in specs
         ]
         self.metrics = default_registry()
@@ -748,7 +765,8 @@ class PropagationService:
                 if not done_slots:
                     continue
                 with tr.span("readback", bucket=label, retired=len(done_slots)):
-                    lb_h, ub_h, lc_h, rd_h, pg_h = self._read_rows(bk, done_slots)
+                    rows = self._read_rows(bk, done_slots)
+                lb_h, ub_h, lc_h, rd_h, pg_h = rows[:5]
                 now = time.perf_counter()
                 for j, i in enumerate(done_slots):
                     tk = bk.slot_tickets[i]
@@ -760,10 +778,17 @@ class PropagationService:
                     if (self._stop_progress is not None and not conv
                             and int(rd_h[j]) < self._cfg.max_rounds):
                         bk.early_stopped += 1
+                    tel = None
+                    if self._telemetry:
+                        # The slot will be recycled: its rows, copied out
+                        # of the shared plane, in the scalar layout.
+                        tel = TelemetrySnapshot(plane=TelemetryPlane(
+                            *(x[j].clone() for x in rows[5:])))
                     tk._result = PropagationResult(
                         lb=lb_i, ub=ub_i, rounds=rd_h[j].clone(), converged=~lc_h[j],
                         infeasible=(lb_i > ub_i + self._cfg.feas_eps).any(),
                         progress=pg_h[j].clone(), tier_rounds=torch.zeros_like(rd_h[j]),
+                        telemetry=tel,
                     )
                     tk.done_t = now
                     tr.record(
@@ -787,13 +812,17 @@ class PropagationService:
         }
 
     def _read_rows(self, bk: _Bucket, rows: "list[int]"):
-        """The retiring rows of the bound planes and loop state, on the
-        host: one gather and one copy per plane (into pinned memory, without
-        blocking, on a CUDA device), then one synchronize."""
+        """The retiring rows of the bound planes and loop state (and, with
+        telemetry, of the telemetry plane), on the host: one gather and one
+        copy per plane (into pinned memory, without blocking, on a CUDA
+        device), then one synchronize."""
         cuda = self._device.type == "cuda"
         idx = torch.as_tensor(rows, dtype=torch.int64).to(self._device)
         out = []
-        for plane in (_LB, _UB, _LAST_CHANGED, _ROUNDS, _PROGRESS):
+        planes = (_LB, _UB, _LAST_CHANGED, _ROUNDS, _PROGRESS)
+        if self._telemetry:
+            planes += (_RING, _TICKS, _STOPR, _INFSR)
+        for plane in planes:
             src = bk.state[plane].index_select(0, idx)
             host = torch.empty(src.shape, dtype=src.dtype, pin_memory=cuda)
             host.copy_(src, non_blocking=cuda)
@@ -879,7 +908,7 @@ class PropagationService:
                 "early_stopped": sum(bk.early_stopped for bk in self._buckets),
                 "pending": sum(len(bk.queue) for bk in self._buckets),
                 "occupied": sum(bk.occupied() for bk in self._buckets),
-                "telemetry_capacity": 0,
+                "telemetry_capacity": self._telemetry,
             }
 
     def stats(self) -> dict:

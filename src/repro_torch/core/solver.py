@@ -22,6 +22,13 @@ exactly while the search is neither done nor stuck).  Those flag reads are
 counted apart from the outer syncs (``solve(on_flag_read=...)``); removing
 them is ROADMAP H1.
 
+Telemetry (``solve(telemetry=)``) records the scalar plane at search
+granularity, as the reference's does: one sample per level (the next
+frontier's width, ``2 * k``), ``stop_round`` latching the first level that
+improved the incumbent and ``infeas_round`` the first that fathomed an
+infeasible node, recorded on the device with
+``obs.telemetry.record_round`` and read only when the snapshot is.
+
 Exactness contract, as the reference's: :func:`solve` targets pure-integer
 instances with integral data (coefficients, sides, bounds, objective).
 There every activity, candidate, objective sum and pseudo-cost gain is an
@@ -38,7 +45,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from .propagator import batched_fixed_point, not_ported
+from ..obs import telemetry as obs
+from .propagator import batched_fixed_point
 from .sparse import Problem
 from .types import DEFAULT_CONFIG, INF, PropagatorConfig
 
@@ -94,7 +102,8 @@ class SolveResult:
     ``created == 1 + 2 * expanded``; on a completed search ``created ==
     leaves + pruned_infeasible + pruned_bound + expanded``.
     ``incumbent_trajectory`` holds the incumbent at each host sync
-    (``host_syncs`` entries).  ``telemetry`` is not ported (None);
+    (``host_syncs`` entries).  ``telemetry`` is an
+    ``obs.TelemetrySnapshot`` of the per-level plane when requested;
     ``carry`` is the final :class:`SearchCarry` on the device."""
 
     status: str
@@ -159,12 +168,15 @@ def _add_drop(plane, flat, vals):
     return ext[:-1].reshape(plane.shape)
 
 
-def _make_level_step(prep, cfg, rule, use_kernels, prune_gap, expand_width, on_flag_read):
+def _make_level_step(prep, cfg, rule, use_kernels, prune_gap, expand_width, on_flag_read,
+                     plane=None):
     """Build the level step ``(carry, c_pad) -> carry`` over one prepared
     instance: propagate OPEN rows to their fixed points, score them, update
     the incumbent, prune, select branching variables and expand.  It
     returns None, having changed nothing, when no node is OPEN -- exactly
-    when the search is done or stuck."""
+    when the search is done or stuck.  With a telemetry ``plane`` (scalar
+    layout) each level records one sample into ``step.plane`` (the
+    reference's, src/repro/core/solver.py:289-300)."""
     from ..kernels import ref as kref
     from ..kernels.ops import node_round_fn_for
     from ..kernels.prop_round import node_objective_tiles
@@ -210,7 +222,7 @@ def _make_level_step(prep, cfg, rule, use_kernels, prune_gap, expand_width, on_f
 
         # (4) Incumbent: best feasible all-fixed node this level.
         leaf = open_m & ~infeas & fixed
-        inc, inc_x, _ = kref.incumbent_update_ref(leaf, obj, c.inc, c.inc_x, lb, cfg.inf)
+        inc, inc_x, improved = kref.incumbent_update_ref(leaf, obj, c.inc, c.inc_x, lb, cfg.inf)
 
         # (5) Pruning + status transitions.
         survivor = open_m & ~infeas & ~leaf
@@ -252,6 +264,12 @@ def _make_level_step(prep, cfg, rule, use_kernels, prune_gap, expand_width, on_f
         def stamp(lane, down_val, up_val):
             return _set_drop(_set_drop(lane, parent, down_val), child, up_val)
 
+        # (7) Telemetry: one sample per level, the next frontier's width;
+        # the first incumbent and the first fathom latched.
+        if step.plane is not None:
+            step.plane = obs.record_round(step.plane, (2 * k).to(lb.dtype), c.levels + 1,
+                                          infeas.any(), improved)
+
         bvar_new = pv.to(torch.int32)
         i32 = lambda x: x.to(torch.int32)
         return SearchCarry(
@@ -274,6 +292,7 @@ def _make_level_step(prep, cfg, rule, use_kernels, prune_gap, expand_width, on_f
             stuck=(n_ready > 0) & (k == 0),
         )
 
+    step.plane = plane
     return step
 
 
@@ -348,11 +367,11 @@ def solve(
     ``bound >= incumbent - prune_gap``; ``expand_width`` clamps each
     expansion wave (a DFS beam; completeness is kept).  ``use_kernels=False``
     runs the plain PyTorch versions of the kernels.  ``device`` defaults to
-    CUDA and raises where there is none.  ``telemetry=`` is not ported."""
+    CUDA and raises where there is none.  ``telemetry`` (a ring capacity)
+    records one sample per level (module docstring) into
+    ``result.telemetry``, adding no host read."""
     from ..kernels.ops import prepare_block_ell
 
-    if telemetry is not None:
-        not_ported("telemetry=", "item 6 (observability)")
     if not bool(np.all(np.asarray(p.is_int, bool))):
         raise ValueError("solve() requires a pure-integer problem (is_int all True)")
     c = np.asarray(c, np.float64)
@@ -371,8 +390,11 @@ def solve(
     c_pad = torch.zeros(prep.n_pad, dtype=prep.lb0.dtype, device=prep.lb0.device)
     c_pad[: p.n] = torch.as_tensor(c, dtype=c_pad.dtype)
     carry = _init_carry(prep, cap)
+    tel = int(telemetry or 0)
+    plane = (obs.device_plane(tel, dtype=prep.lb0.dtype, device=prep.lb0.device)
+             if tel else None)
     step = _make_level_step(
-        prep, cfg, rule, use_kernels, float(prune_gap), expand_width, on_flag_read
+        prep, cfg, rule, use_kernels, float(prune_gap), expand_width, on_flag_read, plane
     )
 
     syncs, levels = 0, 0
@@ -435,6 +457,7 @@ def solve(
         levels=levels,
         host_syncs=syncs,
         incumbent_trajectory=traj,
+        telemetry=obs.TelemetrySnapshot(plane=step.plane) if tel else None,
         carry=carry,
     )
 

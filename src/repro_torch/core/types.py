@@ -127,6 +127,9 @@ class PropagationResult(NamedTuple):
     infeasible: torch.Tensor  # () bool: some variable domain became empty
     progress: torch.Tensor    # () last round's progress measure (NaN if none)
     tier_rounds: torch.Tensor  # () int32: rounds run in the fp32 tier (0 if none ran)
+    # obs.telemetry.TelemetrySnapshot when the driver was called with a
+    # telemetry capacity (lazy: holds device tensors, no read on attach).
+    telemetry: object | None = None
 
 
 def is_pos_inf(v, inf: float = INF):

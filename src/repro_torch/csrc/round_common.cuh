@@ -947,6 +947,7 @@ constexpr int kCarryTicket = 4;  // blocks of this launch that are done
 constexpr int kCarryFlat = 5;    // the early stop: consecutive low-progress check groups
 constexpr int kCarryLast = 6;    // the early stop: the last check group's changed_any
 constexpr int kCarryProg = 8;    // the early stop: the last round's progress, a T at int 8
+constexpr int kCarryCross = 10;  // telemetry on the host loop: the round's bounds crossed
 
 // F's flags, and #15's for one instance: a warp that tightens stores the
 // carry's flag once.  A launch whose carry says `go` is false (a round

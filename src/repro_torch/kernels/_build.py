@@ -1,8 +1,8 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
 Each source (``prop_round.cu``, ``slab_round.cu``, ``tier_round.cu``,
-``batch_tier_round.cu``, ``slab_tier_round.cu``) is compiled with ``nvcc``
-into a shared library with a plain C interface, at first use, into
+``batch_tier_round.cu``, ``slab_tier_round.cu``, ``telemetry.cu``) is
+compiled with ``nvcc`` into a shared library with a plain C interface, at first use, into
 ``build/<hash>/`` beside the package (a directory that git ignores), keyed
 by a hash of the sources, the shared header and the flags, and loaded with
 ``ctypes``.  The compilers run in parallel, one process per source.
@@ -25,7 +25,7 @@ from types import SimpleNamespace
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "prop_round.cu", CSRC / "slab_round.cu", CSRC / "tier_round.cu",
-           CSRC / "batch_tier_round.cu", CSRC / "slab_tier_round.cu")
+           CSRC / "batch_tier_round.cu", CSRC / "slab_tier_round.cu", CSRC / "telemetry.cu")
 HEADERS = (CSRC / "round_common.cuh", CSRC / "single_round.cuh", CSRC / "batch_round.cuh",
            CSRC / "slab_round.cuh")
 BUILD_DIR = _PKG / "build"
@@ -106,6 +106,12 @@ SIGNATURES = {
         "slab_merge_stop_f32": [P] * 7 + [I64, F32, F32, F32, F32, I32, P],
         "slab_merge_rows_stop": [P] * 10 + [I64, I64, I64, F64, F64, F64, P],
         "slab_merge_rows_stop_f32": [P] * 10 + [I64, I64, I64, F32, F32, F32, P],
+    },
+    "telemetry.cu": {
+        "record_round": [P] * 8 + [I64, I32, I32, I32, F64, P],
+        "record_round_f32": [P] * 8 + [I64, I32, I32, I32, F32, P],
+        "record_round_batch": [P] * 11 + [I64, I64, I32, I32, F64, P],
+        "record_round_batch_f32": [P] * 11 + [I64, I64, I32, I32, F32, P],
     },
 }
 

@@ -72,6 +72,12 @@ semantics so they converge to the same fixed points.
     (``propagate_batch_block_ell`` and ``core.nodes.propagate_nodes`` take
     ``policy`` too).
 
+Telemetry (ROADMAP Queue 1 item 6): every engine takes ``telemetry=`` (a
+ring capacity); the round closures carry the record kernel's prepared
+launch (``record``, or ``record_batch`` for the batched and node rounds),
+which the loop drivers of ``core.propagator`` run after each round.
+``donate=`` is accepted for the reference's signatures and changes nothing.
+
 Per-round device-memory traffic of the fused round: ``val``, ``col`` and
 ``is_int`` at the nonzeros (16 B each; every chunk stops at its hoisted
 length), plus O(m + n_pad) for the lengths, the row data and the bound and
@@ -93,7 +99,6 @@ from ..core import carry as _carry
 from ..core.carry import LoopCarry
 from ..core.carry import EarlyStop, early_stop
 from ..core.propagator import (
-    _refuse_telemetry,
     _result,
     batched_fixed_point,
     check_dtype,
@@ -106,6 +111,7 @@ from ..core.propagator import (
 )
 from ..core.sparse import Problem, ProblemBatch, col_pad, csr_to_block_ell, pack_problems
 from ..core.types import DEFAULT_CONFIG, INF, PropagationResult, PropagatorConfig, TierPolicy
+from ..obs import telemetry as obs
 from . import prop_round as kern
 from . import ref as kref
 from .slab import (  # noqa: F401  (re-exported)
@@ -927,7 +933,10 @@ def round_fn_for(
     round does then (the fused and partitioned engines), which the device
     loop reads to size its read groups (:func:`core.propagator.loop_group`).
     The segment engine's bound gather and column reduction and the plain
-    versions run in full."""
+    versions run in full.  On the kernels the closure's ``record`` is the
+    telemetry's record kernel (``prop_round.RecordLaunch``, checked once a
+    fixed point), which the drivers launch after each round when asked for
+    telemetry; the plain closures leave it to its plain version."""
     scatter = _resolve_scatter(scatter, prep)
     do_fuse = prep.fits_one_chunk if fused is None else bool(fused)
     dt = prep.d.val.dtype
@@ -945,6 +954,8 @@ def round_fn_for(
             )
 
         round_fn.carry, round_fn.gated = carry, False
+        if use_kernels:
+            round_fn.record = kern.RecordLaunch
         return round_fn
     part = prep.slab_partition(slab) if scatter == "partitioned" else None
     kept = KeptPlanes(cfg.inf)
@@ -958,6 +969,8 @@ def round_fn_for(
 
     run = kept.guard(round_fn)
     run.carry, run.gated = carry, use_kernels
+    if use_kernels:
+        run.record = kern.RecordLaunch
     return run
 
 
@@ -1039,7 +1052,8 @@ def propagate_block_ell(
     stop_progress: float | None = None,
     patience: int = 1,
     policy=None,
-    telemetry=None,
+    telemetry: int | None = None,
+    donate: bool | None = None,
     device="cuda",
     on_sync: Callable[[], None] | None = None,
 ) -> PropagationResult:
@@ -1077,16 +1091,29 @@ def propagate_block_ell(
     two-tier scheme (:func:`core.propagator.run_tiers`): a float32 tier
     early-stopped at ``policy.switch_progress``, promotion, and the endgame
     in ``dtype``; each tier runs on its own dtype-keyed prep and round
-    closure.  ``telemetry`` raises ``NotImplementedError`` (item 6)."""
+    closure.
+
+    ``telemetry`` (a ring capacity) attaches an ``obs.TelemetrySnapshot``
+    to the result, on every engine and driver: on ``device_loop`` the
+    record kernel (``csrc/telemetry.cu``) runs after each round's last
+    kernel (F, or #15) and writes the round's measure (kept in the loop
+    carry by F's or #15's stop form, armed without a threshold where no
+    stop is), the infeasibility probe and the early stop into a plane on
+    the device; on ``host_loop`` it writes the probe into the carry and
+    the host builds the history from the carry's one read a round.  No
+    read is added and every other field is bitwise telemetry-off's; under
+    a two-tier ``policy`` the snapshot nests the fp32 tier's (``fp32``,
+    ``tier_switch_round``).  ``donate`` is accepted for the reference's
+    signature and changes nothing: the fixed point already runs in place
+    on private copies of the bounds, never on the prep's cached ones."""
     if driver not in KERNEL_DRIVERS:
         raise ValueError(f"unknown driver: {driver!r}")
-    _refuse_telemetry(telemetry)
 
     def single(cfg_, dtype_, lb0_, ub0_, stop_progress_, patience_):
         return _propagate_prepared(
             prepare_block_ell(p, tile_rows, tile_width, dtype_, device), cfg_, use_kernels,
             fused, driver, scatter, lb0_, ub0_, slab, early_stop(stop_progress_, patience_),
-            on_sync,
+            on_sync, telemetry,
         )
 
     return run_tiers(single, cfg, dtype, lb0, ub0, policy, stop_progress, patience, on_sync)
@@ -1094,17 +1121,20 @@ def propagate_block_ell(
 
 def _propagate_prepared(prep: PreparedBlockEll, cfg: PropagatorConfig, use_kernels: bool,
                         fused: str, driver: str, scatter: str, lb0, ub0, slab: int | None,
-                        stop: EarlyStop | None, on_sync) -> PropagationResult:
+                        stop: EarlyStop | None, on_sync,
+                        telemetry: int | None = None) -> PropagationResult:
     """One single-dtype fixed point of :func:`propagate_block_ell`."""
     do_fuse = prep.fits_one_chunk if fused == "auto" else bool(fused == "yes" or fused is True)
     round_fn = round_fn_for(prep, cfg, use_kernels, scatter, do_fuse, slab)
     lb, ub = _initial_padded_bounds(prep, lb0, ub0)
+    tel = dict(telemetry=telemetry, feas_eps=cfg.feas_eps)
     if driver == "host_loop":
-        out = fixed_point(round_fn, lb, ub, cfg.max_rounds, on_sync, stop=stop)
+        out = fixed_point(round_fn, lb, ub, cfg.max_rounds, on_sync, stop=stop, **tel)
     else:
-        out = device_fixed_point(round_fn, lb, ub, cfg.max_rounds, on_sync=on_sync, stop=stop)
-    lb, ub, rounds, changed, prog = out
-    return _result(lb[: prep.n], ub[: prep.n], rounds, changed, prog, cfg.feas_eps)
+        out = device_fixed_point(round_fn, lb, ub, cfg.max_rounds, on_sync=on_sync, stop=stop,
+                                 **tel)
+    lb, ub, rounds, changed, prog = out[:5]
+    return _result(lb[: prep.n], ub[: prep.n], rounds, changed, prog, cfg.feas_eps, *out[5:])
 
 
 # ---------------------------------------------------------------------------
@@ -1322,7 +1352,9 @@ def batched_round_fn_for(
     ``slab`` overrides the partitioned engine's window width.  The closure
     is ``measured``: with ``progress=`` (a ``(B,)`` tensor) #9 writes each
     active row's early-stop measure of the round into it
-    (``core.propagator.batched_step_rounds`` passes it under a stop)."""
+    (``core.propagator.batched_step_rounds`` passes it under a stop, or
+    for telemetry); on the kernels its ``record_batch`` is the batched
+    record kernel."""
     dt = prep.d.val.dtype
     eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
     ops = KERNEL_OPS if use_kernels else PLAIN_OPS
@@ -1334,23 +1366,31 @@ def batched_round_fn_for(
             slab=slab, outward=outward, kept=kept, progress=progress,
         )
 
-    return _measured(kept.guard(round_fn))
+    return _measured(kept.guard(round_fn), use_kernels)
 
 
-def _measured(round_fn: Callable) -> Callable:
+def _measured(round_fn: Callable, use_kernels: bool) -> Callable:
     """Mark a batched round closure as taking ``progress=`` (its merge
-    measures the round for the early stop)."""
+    measures the round for the early stop and the telemetry) and, on the
+    kernels, give it the batched record kernel as its ``record_batch``."""
     round_fn.measured = True
+    if use_kernels:
+        round_fn.record_batch = kern.RecordBatchLaunch
     return round_fn
 
 
-def _unpack_batch_results(prep: PreparedBatch, lb, ub, rounds, converged, infeasible, progress):
+def _unpack_batch_results(prep: PreparedBatch, lb, ub, rounds, converged, infeasible, progress,
+                          plane=None):
     """One :class:`PropagationResult` per instance (bucket order), each a
-    view of the bucket's tensors, unpadded to the instance's ``n``."""
+    view of the bucket's tensors, unpadded to the instance's ``n``; with a
+    telemetry ``plane`` each carries the snapshot of its row (one plane
+    shared by the bucket, read only when a snapshot is)."""
     no_tier = torch.zeros_like(rounds)
     return [
         PropagationResult(lb[i, : p.n], ub[i, : p.n], rounds[i], converged[i], infeasible[i],
-                          progress[i], no_tier[i])
+                          progress[i], no_tier[i],
+                          obs.TelemetrySnapshot(plane=plane, index=i) if plane is not None
+                          else None)
         for i, p in enumerate(prep.batch.problems)
     ]
 
@@ -1362,8 +1402,10 @@ _batch_runner_cache = LRU(maxsize=64)
 
 
 def _batch_runner(prep: PreparedBatch, cfg, use_kernels: bool, slab,
-                  stop_progress: float | None = None, patience: int = 1):
-    key = (id(prep), cfg, use_kernels, slab, stop_progress, patience)
+                  stop_progress: float | None = None, patience: int = 1,
+                  telemetry: int | None = None):
+    tel = int(telemetry or 0)
+    key = (id(prep), cfg, use_kernels, slab, stop_progress, patience, tel)
     run = _batch_runner_cache.get(key, (prep,))
     if run is not None:
         return run
@@ -1371,12 +1413,16 @@ def _batch_runner(prep: PreparedBatch, cfg, use_kernels: bool, slab,
     col_valid = prep.d.col_valid
 
     def run(lb0, ub0, on_sync: Callable[[], None] | None = None):
-        lb, ub, rounds, converged, progress = batched_fixed_point(
+        plane = (obs.device_plane(tel, batch=lb0.shape[0], dtype=lb0.dtype, device=lb0.device)
+                 if tel else None)
+        out = batched_fixed_point(
             round_fn, lb0, ub0, cfg.max_rounds, stop_progress=stop_progress,
-            patience=patience, with_progress=True, on_sync=on_sync
+            patience=patience, with_progress=True, plane=plane, feas_eps=cfg.feas_eps,
+            on_sync=on_sync,
         )
+        lb, ub, rounds, converged, progress = out[:5]
         infeasible = ((lb > ub + cfg.feas_eps) & col_valid).any(dim=-1)
-        return lb, ub, rounds, converged, infeasible, progress
+        return (lb, ub, rounds, converged, infeasible, progress) + out[5:]
 
     _batch_runner_cache.put(key, (prep,), run)
     return run
@@ -1385,14 +1431,21 @@ def _batch_runner(prep: PreparedBatch, cfg, use_kernels: bool, slab,
 def batched_device_runner(
     prep: PreparedBatch, cfg: PropagatorConfig = DEFAULT_CONFIG, use_kernels: bool = True,
     slab: int | None = None, stop_progress: float | None = None, patience: int = 1,
+    donate: bool | None = None, telemetry: int | None = None,
 ):
     """The bucket's whole fixed point as one function, cached: ``run(lb0,
     ub0, on_sync=None) -> (lb, ub, rounds, converged, infeasible,
     progress)``, all per instance, over private ``(B, n_pad)`` planes that
     it updates in place.  The loop reads ``active.any()`` on the host once
     per round (reported to ``on_sync``).  ``stop_progress``/``patience``
-    arm the per-instance early stop (#9 measures every round)."""
-    return _batch_runner(prep, cfg, use_kernels, slab, stop_progress, patience)
+    arm the per-instance early stop (#9 measures every round).
+    ``telemetry`` (a ring capacity) appends the bucket's
+    ``obs.TelemetryPlane``, recorded every round by the batched record
+    kernel (its plain version off the kernels).  ``donate`` is accepted for
+    the reference's signature and changes nothing (the planes are
+    private)."""
+    del donate
+    return _batch_runner(prep, cfg, use_kernels, slab, stop_progress, patience, telemetry)
 
 
 def _batch_initial_bounds(prep: PreparedBatch, lb0, ub0):
@@ -1423,8 +1476,9 @@ def propagate_batch_prepared(
     slab: int | None = None,
     stop_progress: float | None = None,
     patience: int = 1,
-    telemetry=None,
+    telemetry: int | None = None,
     on_sync: Callable[[], None] | None = None,
+    donate: bool | None = None,
 ):
     """Run one prepared bucket to its per-instance fixed points.  Returns one
     :class:`PropagationResult` per instance, bucket order.
@@ -1437,11 +1491,14 @@ def propagate_batch_prepared(
     the same prepared tiles.  ``stop_progress``/``patience`` arm the
     per-instance early stop: an instance whose round's progress measure
     stays below ``stop_progress`` for ``patience`` rounds stops (not
-    converged).  ``telemetry=`` (item 6) raises ``NotImplementedError``."""
+    converged).  ``telemetry`` (a ring capacity) attaches per-instance
+    ``obs.TelemetrySnapshot``s, the rows of one plane recorded on the
+    device every round (``TelemetrySnapshot(plane, index=i)``), on both
+    drivers.  ``donate`` changes nothing (the planes are private copies)."""
     if driver not in KERNEL_DRIVERS:
         raise ValueError(f"unknown driver: {driver!r}")
-    _refuse_telemetry(telemetry)
-    run = _batch_runner(prep, cfg, use_kernels, slab, stop_progress, patience)
+    del donate
+    run = _batch_runner(prep, cfg, use_kernels, slab, stop_progress, patience, telemetry)
     lb, ub = _batch_initial_bounds(prep, lb0, ub0)
     return _unpack_batch_results(prep, *run(lb, ub, on_sync))
 
@@ -1513,7 +1570,8 @@ def propagate_batch_block_ell(
     stop_progress: float | None = None,
     patience: int = 1,
     policy: TierPolicy | None = None,
-    telemetry=None,
+    telemetry: int | None = None,
+    donate: bool | None = None,
     device="cuda",
     on_sync: Callable[[], None] | None = None,
 ) -> "list[PropagationResult]":
@@ -1538,22 +1596,29 @@ def propagate_batch_block_ell(
     tier's rounds where it was trusted, and ``tier_rounds`` is the tier's.
     The tier's verdicts are read on the host at once (reported to
     ``on_sync``).  ``device`` defaults to CUDA and raises where there is
-    none.  ``telemetry=`` (item 6) raises ``NotImplementedError``."""
+    none.  ``telemetry`` (a ring capacity) attaches per-instance
+    ``obs.TelemetrySnapshot``s (rows of one plane per bucket; under a
+    policy the endgame's, with the tier's under ``fp32`` and
+    ``tier_switch_round`` the tier's rounds, ``-1`` where its verdict was
+    distrusted), as the reference's (src/repro/kernels/ops.py:1948-1961).
+    ``donate`` changes nothing (the planes are private copies)."""
     if driver not in KERNEL_DRIVERS:
         raise ValueError(f"unknown driver: {driver!r}")
-    _refuse_telemetry(telemetry)
     problems = list(problems)
     pair = two_tier_bounds_dtypes(policy, dtype) if policy is not None else None
     if pair is not None:
         dt32, final = pair
         kw = dict(tile_rows=tile_rows, tile_width=tile_width, use_kernels=use_kernels,
-                  driver=driver, slab=slab, patience=policy.patience, device=device,
-                  on_sync=on_sync)
+                  driver=driver, slab=slab, patience=policy.patience, telemetry=telemetry,
+                  device=device, on_sync=on_sync)
         cap32 = max(1, int(cfg.max_rounds * policy.fp32_round_frac))
         r32 = propagate_batch_block_ell(problems, dataclasses.replace(cfg, max_rounds=cap32),
                                         dtype=dt32, bounds=bounds,
                                         stop_progress=policy.switch_progress, **kw)
-        bad = torch.stack([t.infeasible for t in r32]).tolist() if r32 else []
+        # The tier's verdicts and round counts, in one read.
+        read = torch.stack([torch.stack([t.infeasible.to(torch.int32), t.rounds.to(torch.int32)])
+                            for t in r32]).tolist() if r32 else []
+        bad = [bool(v) for v, _ in read]
         if on_sync is not None:
             on_sync()
         orig = list(bounds) if bounds is not None else [None] * len(problems)
@@ -1562,8 +1627,16 @@ def propagate_batch_block_ell(
         rem = dataclasses.replace(cfg, max_rounds=max(1, cfg.max_rounds - cap32))
         res = propagate_batch_block_ell(problems, rem, dtype=final, bounds=warm,
                                         stop_progress=policy.stop_progress, **kw)
-        return [r._replace(rounds=r.rounds + (0 if b else t.rounds), tier_rounds=t.rounds)
-                for r, t, b in zip(res, r32, bad)]
+
+        def tiered(r, t, b, n32):
+            if r.telemetry is None:
+                return None
+            return dataclasses.replace(r.telemetry, tier_switch_round=-1 if b else n32,
+                                       fp32=t.telemetry)
+
+        return [r._replace(rounds=r.rounds + (0 if b else t.rounds), tier_rounds=t.rounds,
+                           telemetry=tiered(r, t, b, n32))
+                for r, t, b, (_, n32) in zip(res, r32, bad, read)]
     if policy is not None:
         stop_progress, patience = policy.stop_progress, policy.patience
     if bounds is not None:
@@ -1577,7 +1650,7 @@ def propagate_batch_block_ell(
         if bounds is not None:
             lb0, ub0 = _bound_planes_for_batch(prep, bounds)
         results = propagate_batch_prepared(prep, cfg, use_kernels, driver, lb0, ub0, slab,
-                                           stop_progress, patience, on_sync=on_sync)
+                                           stop_progress, patience, telemetry, on_sync=on_sync)
         for idx, res in zip(batch.indices, results):
             out[idx] = res
     return out
@@ -1701,7 +1774,7 @@ def node_round_fn_for(
             outward=outward, part=part, kept=kept, progress=progress,
         )
 
-    return _measured(kept.guard(round_fn))
+    return _measured(kept.guard(round_fn), use_kernels)
 
 
 def node_batch_runner(
@@ -1713,6 +1786,8 @@ def node_batch_runner(
     slab: int | None = None,
     stop_progress: float | None = None,
     patience: int = 1,
+    donate: bool | None = None,
+    telemetry: int | None = None,
 ):
     """The node batch's whole fixed point as one function: ``run(lb0, ub0)
     -> (lb, ub, rounds, converged, infeasible, progress)`` over ``(B,
@@ -1721,19 +1796,28 @@ def node_batch_runner(
     slab partitions are (see :func:`cache_info`).  ``on_sync`` is called
     once per host read of the loop's exit flag (one per round); ``slab``
     as in :func:`node_round_fn_for`; ``stop_progress``/``patience`` arm the
-    per-node early stop."""
+    per-node early stop.  ``telemetry`` (a ring capacity) appends the
+    per-node ``obs.TelemetryPlane``, recorded every round on the device.
+    ``donate`` is accepted for the reference's signature and changes
+    nothing (``run`` updates the planes it is given in place)."""
+    del donate
+    tel = int(telemetry or 0)
     round_fn = node_round_fn_for(prep, cfg, use_kernels, slab)
     col_valid = torch.arange(prep.n_pad, device=prep.lb0.device) < prep.n
 
     def run(lb0, ub0):
         if lb0.shape[0] != batch_size:
             raise ValueError(f"runner for {batch_size} nodes got {lb0.shape[0]}")
-        lb, ub, rounds, converged, progress = batched_fixed_point(
+        plane = (obs.device_plane(tel, batch=batch_size, dtype=lb0.dtype, device=lb0.device)
+                 if tel else None)
+        out = batched_fixed_point(
             round_fn, lb0, ub0, cfg.max_rounds, stop_progress=stop_progress,
-            patience=patience, with_progress=True, on_sync=on_sync
+            patience=patience, with_progress=True, plane=plane, feas_eps=cfg.feas_eps,
+            on_sync=on_sync,
         )
+        lb, ub, rounds, converged, progress = out[:5]
         infeasible = ((lb > ub + cfg.feas_eps) & col_valid[None, :]).any(dim=-1)
-        return lb, ub, rounds, converged, infeasible, progress
+        return (lb, ub, rounds, converged, infeasible, progress) + out[5:]
 
     return run
 
@@ -1771,6 +1855,8 @@ def propagate_nodes_prepared(
     slab: int | None = None,
     stop_progress: float | None = None,
     patience: int = 1,
+    donate: bool | None = None,
+    telemetry: int | None = None,
 ):
     """Run B warm-started nodes of one prepared instance to their fixed
     points together.
@@ -1784,13 +1870,19 @@ def propagate_nodes_prepared(
     ``propagate_block_ell`` run gives, round counts included.  Past
     ``SCATTER_MAX_NPAD`` the nodes run the partitioned node kernels
     (``slab`` overrides the window width).  ``stop_progress``/``patience``
-    arm the per-node early stop.  The planes take the prep's dtype."""
+    arm the per-node early stop.  The planes take the prep's dtype.
+    ``telemetry`` (a ring capacity) appends the per-node batched
+    ``obs.TelemetryPlane`` to either return (wrap rows in
+    ``obs.TelemetrySnapshot(plane, index=i)`` to read one node's).
+    ``donate`` changes nothing: the caller's planes are copied into private
+    padded ones."""
     lb0, ub0 = _node_planes(prep, lb_nodes, ub_nodes)
     run = node_batch_runner(prep, lb0.shape[0], cfg, use_kernels, on_sync, slab, stop_progress,
-                            patience)
-    lb, ub, rounds, converged, infeasible, progress = run(lb0, ub0)
+                            patience, donate, telemetry)
+    res = run(lb0, ub0)
+    lb, ub, rounds, converged, infeasible, progress = res[:6]
     out = (lb[:, : prep.n], ub[:, : prep.n], rounds, converged, infeasible)
-    return out + (progress,) if with_progress else out
+    return out + ((progress,) if with_progress else ()) + res[6:]
 
 
 def cache_info() -> dict:

@@ -15,8 +15,9 @@ for #9 and #15 a kept pair of flag buffers (``flags``,
 a CPU tensor it runs the kernel's plain-PyTorch version (``ref.py``); on a
 CUDA tensor it launches the hand-written Hopper kernel of
 ``csrc/prop_round.cu``, ``csrc/slab_round.cu``, ``csrc/tier_round.cu``,
-``csrc/batch_tier_round.cu`` or ``csrc/slab_tier_round.cu`` on the current
-stream, or raises -- it never falls back.  Each wrapper counts
+``csrc/batch_tier_round.cu``, ``csrc/slab_tier_round.cu`` or
+``csrc/telemetry.cu`` on the current stream, or raises -- it never falls
+back.  Each wrapper counts
 its kernel launches in a plain integer attribute, ``<wrapper>.launches``
 (see :func:`launch_counts`), and by form (:func:`form_counts`).
 
@@ -28,6 +29,12 @@ int16 columns and int8 marks (:data:`TIER_FORMS`); the slab kernels take
 int32 ids at both value types.  F and #15 for one instance take the
 progress-based early stop (``stop``), #9 and #15 over a batch the batched
 one's per-row measure (``progress``).
+
+The telemetry (ROADMAP Queue 1 item 6) adds two kernels of its own, with no
+Pallas twin: ``record_round_tiles`` after one instance's round and
+``record_round_batch_tiles`` after a batched round (their prepared forms
+:class:`RecordLaunch` and :class:`RecordBatchLaunch` check the operands
+once per fixed point).
 
 Layout of the tile arguments: ``val`` (T, R, K) float64 with 0 at padding,
 ``col`` (T, R, K) int32 with every id in ``[0, n_pad)``, ``is_int_g``
@@ -1817,6 +1824,228 @@ def apply_updates_slab_tiles(
 apply_updates_slab_tiles.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# Telemetry: the record kernels (no Pallas twin)
+# ---------------------------------------------------------------------------
+
+
+def _plane_ptrs(plane) -> tuple:
+    """The four fields of a telemetry plane as pointers (nulls for none)."""
+    return tuple(_p(t) for t in plane) if plane is not None else (None,) * 4
+
+
+def _check_telemetry_plane(plane, shape: tuple, dtype: torch.dtype) -> int:
+    """A plane of ``shape`` rows (``()`` or ``(B,)``) with its ring in
+    ``dtype``; returns its capacity."""
+    ring, ticks, stop_round, infeas_round = plane
+    cap = ring.shape[-1]
+    _expect("ring", ring, dtype, shape + (cap,))
+    for name, t in (("ticks", ticks), ("stop_round", stop_round),
+                    ("infeas_round", infeas_round)):
+        _expect(name, t, torch.int32, shape)
+    return cap
+
+
+def _record_args(lb, ub, carry, plane, feas_eps: float, unroll: int, patience: int, scratch):
+    """Check ``record_round``'s operands on the card; returns its entry
+    point, symbol, form and arguments (the stream apart)."""
+    (n,) = lb.shape
+    dt = _float_dtype("lb", lb)
+    _expect("lb", lb, dt, (n,))
+    _expect("ub", ub, dt, (n,))
+    _expect("carry", carry, torch.int32, (_carry.FIELDS,))
+    _expect("scratch", scratch, torch.int32, (2,))
+    cap = 0 if plane is None else _check_telemetry_plane(plane, (), dt)
+    form = _value_form("lb", lb)
+    symbol = "record_round" + _FORM_SUFFIX[form]
+    args = (_p(lb), _p(ub), _p(carry), *_plane_ptrs(plane), _p(scratch), n, cap, int(unroll),
+            int(patience), feas_eps)
+    return getattr(_build.lib(), symbol), symbol, form, args
+
+
+def record_round_tiles(lb, ub, carry, plane, feas_eps: float, *, unroll: int = 1,
+                       patience: int = 0, scratch=None):
+    """Record one check group of one instance's fixed point into the
+    telemetry ``plane`` (``obs.telemetry.TelemetryPlane``, scalar layout,
+    ring in the bounds' dtype), IN PLACE, after the group's last kernel:
+    where the loop carry ``carry``'s ``ROUNDS`` has passed ``unroll *
+    ticks``, the carry's progress measure to ``ring[ticks % cap]``,
+    ``ticks`` counted, ``infeas_round`` latched at ``ROUNDS`` where the
+    post-round ``(n_pad,)`` bounds ``lb``/``ub`` cross (``lb > ub +
+    feas_eps``), and with an early stop armed (``patience > 0``)
+    ``stop_round`` latched where the carry's ``FLAT`` reached it.  A group
+    enqueued after convergence records nothing.  With ``plane=None`` (the
+    host loop) the probe alone goes to the carry's ``CROSS`` field.
+    ``scratch`` is two zeroed int32 (the launch's ticket and hit flag, left
+    zeroed; allocated here when omitted).  Returns ``plane``.
+    :class:`RecordLaunch` is the same launch checked once per fixed point.
+
+    Replaces no Pallas kernel: the reference records with jnp ops in its
+    while_loop body (``obs.record_round``, src/repro/obs/telemetry.py:93,
+    called at src/repro/kernels/ops.py:1302 and
+    src/repro/core/propagator.py:309).  Bound on the H100: the two bound
+    vectors read once, 2 * n_pad values, and the carry.  Design
+    (``csrc/telemetry.cu``): a grid over the columns, each block's hits
+    ORed into the scratch and a ticket taken after a fence; the launch's
+    last block records (the pattern of F's carry fold).  Float64 or
+    float32."""
+    tensors = (lb, ub, carry) + (tuple(plane) if plane is not None else ())
+    if not _on_cuda(*tensors):
+        ref.record_round_ref(lb, ub, carry, plane, feas_eps, unroll, patience)
+        return plane
+    if scratch is None:
+        scratch = torch.zeros(2, dtype=torch.int32, device=lb.device)
+    entry, symbol, form, args = _record_args(lb, ub, carry, plane, feas_eps, unroll, patience,
+                                             scratch)
+    err = entry(*args, _stream())
+    _launched(record_round_tiles, form)
+    _build.check(err, symbol)
+    return plane
+
+
+record_round_tiles.launches = 0
+
+
+class RecordLaunch:
+    """:func:`record_round_tiles` for one fixed point: the carry, the plane,
+    the scratch and the scalars are fixed and checked once, and each call
+    ``(lb, ub)`` -- after a check group's last kernel -- launches the kernel
+    (its plain version on CPU tensors) with the bounds' addresses compared
+    to the checked ones (another address checks the operands again).  The
+    record runs every round of fixed points whose rounds are short, where
+    the host's enqueue time sets the wall: the checks cost more host time
+    than the launch.  Counted as :func:`record_round_tiles`."""
+
+    def __init__(self, lb, ub, carry, plane, feas_eps: float, *, unroll: int = 1,
+                 patience: int = 0, scratch=None):
+        self.carry, self.plane, self.feas_eps = carry, plane, feas_eps
+        self.unroll, self.patience = unroll, patience
+        self.cuda = _on_cuda(lb, ub, carry, *(plane if plane is not None else ()))
+        self.bounds = None
+        if self.cuda:
+            self.scratch = (scratch if scratch is not None
+                            else torch.zeros(2, dtype=torch.int32, device=lb.device))
+            self._check(lb, ub)
+
+    def _check(self, lb, ub):
+        self.entry, self.symbol, self.form, self.args = _record_args(
+            lb, ub, self.carry, self.plane, self.feas_eps, self.unroll, self.patience,
+            self.scratch)
+        self.bounds = (lb.data_ptr(), ub.data_ptr())
+
+    def __call__(self, lb, ub):
+        if not self.cuda:
+            ref.record_round_ref(lb, ub, self.carry, self.plane, self.feas_eps, self.unroll,
+                                 self.patience)
+            return
+        if (lb.data_ptr(), ub.data_ptr()) != self.bounds:
+            self._check(lb, ub)
+        err = self.entry(*self.args, _stream())
+        _launched(record_round_tiles, self.form)
+        if err:
+            _build.check(err, self.symbol)
+
+
+def _record_batch_args(lb, ub, progress, plane, scratch):
+    """Check ``record_round_batch``'s fixed operands on the card; returns its
+    entry point, symbol, form and the plane's capacity."""
+    bsz, n = lb.shape
+    if bsz > MAX_GRID_Y:
+        raise ValueError(f"{bsz} planes exceed the grid's {MAX_GRID_Y}")
+    dt = _float_dtype("lb", lb)
+    _expect("lb", lb, dt, (bsz, n))
+    _expect("ub", ub, dt, (bsz, n))
+    _expect("progress", progress, dt, (bsz,))
+    _expect("scratch", scratch, torch.int32, (bsz + 1,))
+    cap = _check_telemetry_plane(plane, (bsz,), dt)
+    form = _value_form("lb", lb)
+    symbol = "record_round_batch" + _FORM_SUFFIX[form]
+    return getattr(_build.lib(), symbol), symbol, form, cap
+
+
+def _check_lanes(bsz: int, ran, rounds, flat) -> None:
+    _expect("ran", ran, torch.bool, (bsz,))
+    _expect("rounds", rounds, torch.int32, (bsz,))
+    _expect("flat", flat, torch.int32, (bsz,))
+
+
+def record_round_batch_tiles(lb, ub, progress, ran, rounds, flat, plane, feas_eps: float, *,
+                             patience: int = 0, scratch=None):
+    """Record one round of a batched fixed point into the batched telemetry
+    ``plane`` (ring ``(B, cap)`` in the planes' dtype), IN PLACE, as
+    ``obs.telemetry.record_round(..., active=ran)`` does: for each row that
+    ran (``ran``, ``(B,)`` bool), ``progress[row]`` (its measure of the
+    round, written by #9's or #15's row form) to its ring, ``ticks``
+    counted, ``infeas_round`` latched at ``rounds[row]`` where its ``(B,
+    n_pad)`` planes ``lb``/``ub`` cross, and with an early stop armed
+    (``patience > 0``) ``stop_round`` latched where ``flat[row] >=
+    patience`` (``rounds``/``flat`` ``(B,)`` int32).  ``scratch`` is ``B +
+    1`` zeroed int32 (left zeroed; allocated here when omitted).  Returns
+    ``plane``.  :class:`RecordBatchLaunch` is the same launch with its fixed
+    operands checked once per loop.
+
+    Replaces no Pallas kernel: the reference's jnp ``obs.record_round`` in
+    its batched while_loop body (src/repro/core/propagator.py:408).  Bound
+    on the H100: the planes of the rows that ran read once, and the
+    ``(B,)`` lanes.  Design (``csrc/telemetry.cu``): a (column block, row)
+    grid whose rows that did not run read nothing; each row's hits ORed
+    into its scratch flag, and the launch's last block records every row.
+    Float64 or float32."""
+    if not _on_cuda(lb, ub, progress, ran, rounds, flat, *plane):
+        ref.record_round_batch_ref(lb, ub, progress, ran, rounds, flat, plane, feas_eps,
+                                   patience)
+        return plane
+    if scratch is None:
+        scratch = torch.zeros(lb.shape[0] + 1, dtype=torch.int32, device=lb.device)
+    RecordBatchLaunch(plane, feas_eps, patience=patience, scratch=scratch)(
+        lb, ub, progress, ran, rounds, flat)
+    return plane
+
+
+record_round_batch_tiles.launches = 0
+
+
+class RecordBatchLaunch:
+    """:func:`record_round_batch_tiles` for one batched loop: the plane, the
+    scratch and the scalars fixed, the planes and the measure checked at the
+    first call (and again where their addresses change), the ``(B,)``
+    lanes, new every round, checked each call.  Each call ``(lb, ub,
+    progress, ran, rounds, flat)`` launches the kernel (its plain version on
+    CPU tensors).  Counted as :func:`record_round_batch_tiles`."""
+
+    def __init__(self, plane, feas_eps: float, *, patience: int = 0, scratch=None):
+        self.plane, self.feas_eps, self.patience = plane, feas_eps, patience
+        self.scratch, self.fixed = scratch, None
+
+    def __call__(self, lb, ub, progress, ran, rounds, flat):
+        if not _on_cuda(lb, ran, *self.plane):
+            ref.record_round_batch_ref(lb, ub, progress, ran, rounds, flat, self.plane,
+                                       self.feas_eps, self.patience)
+            return
+        ptrs = (lb.data_ptr(), ub.data_ptr(), progress.data_ptr())
+        if ptrs != self.fixed:
+            if self.scratch is None:
+                self.scratch = torch.zeros(lb.shape[0] + 1, dtype=torch.int32, device=lb.device)
+            _on_cuda(lb, ub, progress, self.scratch, *self.plane)
+            self.entry, self.symbol, self.form, self.cap = _record_batch_args(
+                lb, ub, progress, self.plane, self.scratch)
+            self.tail = (*_plane_ptrs(self.plane), _p(self.scratch), lb.shape[0], lb.shape[1],
+                         self.cap, int(self.patience), self.feas_eps)
+            self.fixed = ptrs
+        lanes = (bsz,) = lb.shape[:1]
+        if not (ran.dtype is torch.bool and rounds.dtype is torch.int32
+                and flat.dtype is torch.int32 and ran.shape == rounds.shape == flat.shape == lanes
+                and ran.is_contiguous() and rounds.is_contiguous() and flat.is_contiguous()):
+            _check_lanes(bsz, ran, rounds, flat)
+        if not (ran.is_cuda and rounds.is_cuda and flat.is_cuda):
+            _on_cuda(lb, ran, rounds, flat)  # raises on a mix of devices
+        err = self.entry(*ptrs[:2], ptrs[2], _p(ran), _p(rounds), _p(flat), *self.tail,
+                         _stream())
+        _launched(record_round_batch_tiles, self.form)
+        if err:
+            _build.check(err, self.symbol)
+
+
 KERNELS = (
     fused_scatter_round_tiles,
     activities_gather_tiles,
@@ -1839,6 +2068,8 @@ KERNELS = (
     node_activities_gather_tiles,
     node_combine_chunk_partials_tiles,
     node_candidates_scatter_tiles,
+    record_round_tiles,
+    record_round_batch_tiles,
 )
 
 

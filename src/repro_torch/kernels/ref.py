@@ -13,6 +13,7 @@ import torch
 from ..core import bounds as bnd
 from ..core import carry as _carry
 from ..core.types import INF, int_round_slack
+from ..obs import telemetry as _tel
 
 
 def tile_contributions(val, lb_g, ub_g, inf: float = INF):
@@ -937,3 +938,58 @@ def incumbent_update_ref(leaf, obj, inc, inc_x, lb, inf: float = INF):
     inc_new = torch.where(improved, best, inc)
     x_new = torch.where(improved, lb[leaf_obj.argmin()], inc_x)
     return inc_new, x_new, improved
+
+
+# ---------------------------------------------------------------------------
+# Telemetry: the record kernels' plain versions
+# ---------------------------------------------------------------------------
+
+
+def crossed(lb, ub, feas_eps: float):
+    """The infeasibility probe over the last axis: some ``lb > ub +
+    feas_eps`` (computed in the bounds' dtype), padding columns included."""
+    return (lb > ub + feas_eps).any(dim=-1)
+
+
+def record_round_ref(lb, ub, carry, plane, feas_eps: float, unroll: int = 1,
+                     patience: int = 0):
+    """``record_round``'s plain version, IN PLACE, built on
+    ``obs.telemetry.record_round``: after a check group of ``unroll``
+    rounds of one instance's fixed point, where the loop carry's ``ROUNDS``
+    has passed ``unroll * ticks`` (a group begun while GO was set), the
+    carry's ``PROG`` (the group's measure, in ``lb``'s dtype) goes to
+    ``ring[ticks % cap]``, ``ticks`` counts it, ``infeas_round`` latches
+    ``ROUNDS`` where the post-round planes cross (:func:`crossed`) and,
+    with an early stop armed (``patience > 0``), ``stop_round`` latches it
+    where ``FLAT >= patience``; a group enqueued after GO cleared records
+    nothing.  Returns ``plane``.  With ``plane=None`` (the host loop) the
+    probe alone goes to the carry's ``CROSS`` field; returns None."""
+    hit = crossed(lb, ub, feas_eps)
+    if plane is None:
+        carry[_carry.CROSS : _carry.CROSS + 1] = hit.to(torch.int32).reshape(1)
+        return None
+    rounds = carry[_carry.ROUNDS]
+    prog = _carry.progress_view(carry, lb.dtype)[0]
+    stopped = carry[_carry.FLAT] >= patience if patience > 0 else None
+    new = _tel.record_round(plane, prog, rounds, hit, stopped)
+    go = rounds > plane.ticks * unroll
+    for dst, src in zip(plane, new):
+        dst.copy_(torch.where(go, src, dst))
+    return plane
+
+
+def record_round_batch_ref(lb, ub, progress, ran, rounds, flat, plane, feas_eps: float,
+                           patience: int = 0):
+    """``record_round_batch``'s plain version, IN PLACE: one round of a
+    batched fixed point over ``(B, n_pad)`` planes, recorded as
+    ``obs.telemetry.record_round(..., active=ran)`` does: for each row that
+    ran (``ran``), ``progress`` (its measure) to its ring, ``ticks``
+    counted, ``infeas_round`` latched at ``rounds`` where its planes cross,
+    and with an early stop armed (``patience > 0``) ``stop_round`` where
+    ``flat >= patience``.  Returns ``plane``."""
+    stopped = flat >= patience if patience > 0 else None
+    new = _tel.record_round(plane, progress, rounds, crossed(lb, ub, feas_eps), stopped,
+                            active=ran)
+    for dst, src in zip(plane, new):
+        dst.copy_(src)
+    return plane

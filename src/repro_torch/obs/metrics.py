@@ -9,12 +9,18 @@ top-level schema (:data:`SNAPSHOT_KEYS`), so
 
 Sources are zero-arg callables registered by name; a failing source lands
 in ``errors`` instead of taking the snapshot down -- observability must
-never crash the thing it observes.  Pure Python; the reference's
-``run_metadata`` (bench provenance) waits for the port's benchmark.
+never crash the thing it observes.
+
+:func:`run_metadata` stamps a benchmark's results with the environment that
+produced them (git commit, time, torch and CUDA versions, the card and its
+power limit).
 """
 from __future__ import annotations
 
+import datetime
+import subprocess
 import threading
+from pathlib import Path
 
 #: Pinned top-level snapshot schema.
 SNAPSHOT_KEYS = frozenset({"schema_version", "sources", "errors"})
@@ -83,3 +89,44 @@ def default_registry() -> MetricsRegistry:
     reg = MetricsRegistry()
     reg.register("kernel_caches", cache_info)
     return reg
+
+
+def _run(cmd: list, timeout: float = 10.0) -> str:
+    """``cmd``'s standard output, stripped, run beside the package; ``""``
+    where it cannot run or fails."""
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, check=True,
+                             cwd=Path(__file__).resolve().parent)
+    except Exception:  # noqa: BLE001 -- metadata never raises
+        return ""
+    return out.stdout.strip()
+
+
+def run_metadata() -> dict:
+    """Environment fingerprint for a benchmark's results: ``git_commit``,
+    ``timestamp`` (UTC), ``torch_version``, ``cuda_version``, ``backend``
+    (``"cuda"`` where a card is usable, else ``"cpu"``), and ``device`` and
+    ``power_limit`` as ``nvidia-smi --query-gpu=name,power.limit
+    --format=csv,noheader`` gives them (the first card's).  Never raises: a
+    field that cannot be read is ``"unknown"``."""
+    commit = _run(["git", "rev-parse", "--short", "HEAD"]) or "unknown"
+    try:
+        import torch
+
+        torch_version = str(torch.__version__)
+        cuda_version = str(torch.version.cuda) if torch.version.cuda else "unknown"
+        backend = "cuda" if torch.cuda.is_available() else "cpu"
+    except Exception:  # noqa: BLE001
+        torch_version = cuda_version = backend = "unknown"
+    smi = _run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    first = smi.splitlines()[0] if smi else ""
+    name, _, power = first.partition(",")
+    return {
+        "git_commit": commit,
+        "timestamp": datetime.datetime.now(datetime.timezone.utc).isoformat(timespec="seconds"),
+        "torch_version": torch_version,
+        "cuda_version": cuda_version,
+        "backend": backend,
+        "device": name.strip() or "unknown",
+        "power_limit": power.strip() or "unknown",
+    }

@@ -530,14 +530,10 @@ def test_results_unpadded_and_repeat_stable():
     (dict(dtype=np.float32), "item 5"),
 ])
 def test_options_outside_the_slice_raise(kw, item):
-    """``telemetry=`` (item 6) still raises; the precision-tier options of
-    item 5 now run and are held to the reference's result (flags, tier
-    rounds and bounds, bitwise on the knapsack)."""
+    """The options of items 5 and 6, ported since, run and are held to the
+    reference's result (flags, tier rounds and bounds, bitwise on the
+    knapsack; with telemetry the rounds the snapshot recorded)."""
     pr = rd.make_knapsack(n=20, m=8, seed=0)
-    if "telemetry" in kw:
-        with pytest.raises(NotImplementedError, match=item):
-            rt.propagate_batch(_port([pr]), device="cpu", **kw)
-        return
     port_kw, ref_kw = dict(kw), dict(kw)
     if "policy" in kw:
         port_kw["policy"], ref_kw["policy"] = rt.core.TierPolicy(), rc.TierPolicy()
@@ -545,5 +541,7 @@ def test_options_outside_the_slice_raise(kw, item):
     (want,) = rc.propagate_batch([pr], use_pallas=False, **ref_kw)
     for f in ("rounds", "converged", "infeasible", "tier_rounds"):
         assert int(getattr(got, f)) == int(getattr(want, f)), f
+    if "telemetry" in kw:
+        assert got.telemetry.rounds_recorded == want.telemetry.rounds_recorded == int(got.rounds)
     np.testing.assert_array_equal(got.lb.double().numpy(), np.asarray(want.lb, np.float64))
     np.testing.assert_array_equal(got.ub.double().numpy(), np.asarray(want.ub, np.float64))

@@ -411,14 +411,14 @@ def test_kept_flag_pairs_alternate(merge):
 @pytest.mark.parametrize("fn", ["propagate_host_loop", "propagate_device_loop",
                                 "propagate_unrolled"])
 def test_named_drivers_refuse_unported_options(fn, kw, item):
-    """Telemetry (item 6) raises.  The early stop's ``stop_progress`` and
-    ``patience`` (item 5, ported since) run and give the reference's named
-    driver's result: rounds, flags, bounds and progress."""
+    """The options of items 5 and 6, ported since, run and give the
+    reference's named driver's result: rounds, flags, bounds and progress
+    (the early stop's ``stop_progress`` and ``patience``), and the rounds
+    the telemetry snapshot recorded."""
     pr = rd.make_set_cover(n=20, m=8, seed=0)
     dp = rt.core.DeviceProblem(rt.problem_from_reference(pr), device="cpu")
-    if item == "item 6":
-        with pytest.raises(NotImplementedError, match=item):
-            getattr(rt.core, fn)(dp, **kw)
-        return
     want = getattr(rc, fn)(rc.DeviceProblem(pr), **kw)
-    assert_results_match(getattr(rt.core, fn)(dp, **kw), want, exact=True)
+    got = getattr(rt.core, fn)(dp, **kw)
+    assert_results_match(got, want, exact=True)
+    if item == "item 6":
+        assert got.telemetry.rounds_recorded == want.telemetry.rounds_recorded

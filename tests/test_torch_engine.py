@@ -139,19 +139,18 @@ def test_host_syncs_counted_once_per_round():
     (dict(telemetry=8), "item 6"),
 ])
 def test_requests_outside_the_slice_raise(kw, match):
-    """Telemetry (item 6) raises.  Item 5's options, ported since (the
-    precision tiers), run and give the reference's rounds, flags and
-    bounds: float32 and the two-tier policy against the reference's
-    ``propagate`` (whose fp32 tier widens outward as the port's does), the
-    early stop against its ``propagate_block_ell``."""
+    """The options of items 5 and 6, ported since, run and give the
+    reference's rounds, flags and bounds: float32 and the two-tier policy
+    against the reference's ``propagate`` (whose fp32 tier widens outward
+    as the port's does), the early stop and telemetry against its
+    ``propagate_block_ell`` (with the rounds the snapshot recorded)."""
     pr = rd.make_set_cover(n=20, m=8, seed=0)
     pt = rt.problem_from_reference(pr)
-    if match == "item 6":
-        with pytest.raises(NotImplementedError, match=match):
-            rt.propagate_block_ell(pt, device="cpu", **kw)
-        return
     got = rt.propagate_block_ell(pt, device="cpu", **kw)
-    if "stop_progress" in kw:
+    if match == "item 6":
+        want = rk.propagate_block_ell(pr, use_pallas=False, **kw)
+        assert got.telemetry.rounds_recorded == want.telemetry.rounds_recorded
+    elif "stop_progress" in kw:
         want = rk.propagate_block_ell(pr, **kw)
     elif "policy" in kw:
         want = rc.propagate(pr, policy=rc.TierPolicy())

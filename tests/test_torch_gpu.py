@@ -2433,3 +2433,156 @@ def test_batch_and_node_tiers_past_the_limit_on_card(cuda, small_limit):
         if run.get("dtype") == torch.float32:
             assert counts.get("node_slab_round_tiles[f32]", 0) > 0
             assert counts.get("node_slab_partials_tiles[f32]", 0) > 0
+
+
+# ---------------------------------------------------------------------------
+# Telemetry: the record kernels, and telemetry on against off on the card
+# ---------------------------------------------------------------------------
+
+
+def _planes_match(got, want):
+    for g, w in zip(got, want):
+        _match_bits(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [37, 5000, 70_000])
+def test_record_round_matches_plain_version(cuda, gen, dtype, n):
+    """``record_round`` against its plain version on the same carry: the
+    carry's measure at ``ticks % cap`` (across a wrap), the ``ROUNDS``
+    gate (a repeated launch records nothing), both latches, and the host
+    loop's probe into the carry's ``CROSS`` field; plane and carry bitwise."""
+    from repro_torch.core import carry as tcarry
+    from repro_torch.obs import device_plane
+
+    lb = torch.as_tensor(gen.integers(-3, 1, n), dtype=dtype, device=cuda)
+    ub = torch.as_tensor(gen.integers(1, 4, n), dtype=dtype, device=cuda)
+    carry = tcarry.armed_state(cuda)
+    got = device_plane(3, dtype=dtype, device=cuda)
+    want = device_plane(3, dtype=dtype, device=cuda)
+    scratch = torch.zeros(2, dtype=torch.int32, device=cuda)
+    tk.reset_launch_counts()
+    for r in range(1, 8):
+        carry[tcarry.ROUNDS] = r
+        carry[tcarry.FLAT] = r - 4
+        tcarry.progress_view(carry, dtype).fill_(float(gen.random()))
+        if r == 5:
+            ub[n // 2] = lb[n // 2] - 1.0
+        for _ in range(2):
+            tk.record_round_tiles(lb, ub, carry, got, 1e-6, patience=2, scratch=scratch)
+            tref.record_round_ref(lb, ub, carry, want, 1e-6, 1, 2)
+            _planes_match(got, want)
+    assert int(got.infeas_round) == 5 and int(got.stop_round) == 6
+    assert scratch.tolist() == [0, 0]
+    for cross in (True, False):
+        ub[n // 2] = lb[n // 2] - 1.0 if cross else lb[n // 2] + 1.0
+        state = carry.clone()
+        tk.record_round_tiles(lb, ub, carry, None, 1e-6, scratch=scratch)
+        tref.record_round_ref(lb, ub, state, None, 1e-6)
+        _match_bits(carry, state)
+        assert int(carry[tcarry.CROSS]) == int(cross)
+    form = "f64" if dtype == torch.float64 else "f32"
+    assert tk.form_counts() == {f"record_round_tiles[{form}]": 16}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("bsz,n", [(1, 37), (4, 5000), (130, 300)])
+def test_record_round_batch_matches_plain_version(cuda, gen, dtype, bsz, n):
+    """``record_round_batch`` against its plain version over rounds with
+    random masks, streaks and crossings (inactive rows untouched), across a
+    wrap; plane bitwise and the scratch left zeroed."""
+    from repro_torch.obs import device_plane
+
+    lb = torch.zeros(bsz, n, dtype=dtype, device=cuda)
+    ub = torch.ones(bsz, n, dtype=dtype, device=cuda)
+    got = device_plane(3, batch=bsz, dtype=dtype, device=cuda)
+    want = device_plane(3, batch=bsz, dtype=dtype, device=cuda)
+    scratch = torch.zeros(bsz + 1, dtype=torch.int32, device=cuda)
+    rounds = torch.zeros(bsz, dtype=torch.int32, device=cuda)
+    for _ in range(6):
+        rows = torch.as_tensor(gen.random(bsz) < 0.3, device=cuda)
+        ub[rows, gen.integers(0, n)] = -1.0
+        ran = torch.as_tensor(gen.random(bsz) < 0.7, device=cuda)
+        rounds = rounds + ran.to(torch.int32)
+        flat = torch.as_tensor(gen.integers(0, 3, bsz), dtype=torch.int32, device=cuda)
+        prog = torch.as_tensor(gen.random(bsz), dtype=dtype, device=cuda)
+        tk.record_round_batch_tiles(lb, ub, prog, ran, rounds, flat, got, 1e-6, patience=2,
+                                    scratch=scratch)
+        tref.record_round_batch_ref(lb, ub, prog, ran, rounds, flat, want, 1e-6, 2)
+        _planes_match(got, want)
+    assert not bool(scratch.any())
+
+
+def _same_result(got, want):
+    for f in ("lb", "ub", "rounds", "converged", "infeasible", "progress", "tier_rounds"):
+        _match_bits(torch.as_tensor(getattr(got, f)), torch.as_tensor(getattr(want, f)))
+
+
+def _snapshots_equal(got, want):
+    for f in ("capacity", "rounds_recorded", "stop_round", "infeasible_round",
+              "tier_switch_round"):
+        assert getattr(got, f) == getattr(want, f), f
+    np.testing.assert_array_equal(got.progress_history(), want.progress_history())
+
+
+@pytest.mark.parametrize("scatter", ["fused", "segment", "partitioned"])
+@pytest.mark.parametrize("run", [{}, dict(stop_progress=0.05, patience=1),
+                                 dict(policy="tier"), dict(dtype=torch.float32)])
+def test_telemetry_on_card_equals_off_and_cpu(cuda, scatter, run):
+    """Telemetry on against off on the card, every engine, both drivers:
+    every result field and the host reads bitwise; the snapshot equals the
+    same run's on the CPU (the plain record in the kernels' order), and the
+    record kernel launched at least once per recorded round."""
+    p = td.make_pseudo_boolean(n=3000, m=4000, seed=7)
+    run = {**run, "policy": rt.core.TierPolicy()} if "policy" in run else run
+    kw = dict(tile_width=16, scatter=scatter, **run)
+    if scatter == "partitioned":
+        kw["slab"] = 1024
+    for driver in ("host_loop", "device_loop"):
+        reads = [[], []]
+        off = rt.propagate_block_ell(p, driver=driver, on_sync=lambda: reads[0].append(1), **kw)
+        tk.reset_launch_counts()
+        on = rt.propagate_block_ell(p, driver=driver, telemetry=16,
+                                    on_sync=lambda: reads[1].append(1), **kw)
+        launches = tk.launch_counts()["record_round_tiles"]
+        _same_result(on, off)
+        assert len(reads[0]) == len(reads[1])
+        assert launches >= on.telemetry.rounds_recorded > 0
+        cpu = rt.propagate_block_ell(p, driver=driver, telemetry=16, device="cpu", **kw)
+        _snapshots_equal(on.telemetry, cpu.telemetry)
+
+
+def test_batched_telemetry_on_card_equals_off_and_cpu(cuda):
+    """Batches, nodes, the solver and the service with telemetry on the
+    card: results bitwise telemetry-off's, snapshots the CPU run's, the
+    batched record kernel launched."""
+    pop = [td.make_pseudo_boolean(n=3000, m=4000, seed=s, unit_frac=0.002) for s in (7, 8)]
+    pop.append(td.make_cascade_chain(length=40))
+    for run in ({}, dict(stop_progress=0.05), dict(policy=rt.core.TierPolicy())):
+        off = rt.propagate_batch(pop, tile_width=8, **run)
+        tk.reset_launch_counts()
+        on = rt.propagate_batch(pop, tile_width=8, telemetry=16, **run)
+        assert tk.launch_counts()["record_round_batch_tiles"] > 0
+        cpu = rt.propagate_batch(pop, tile_width=8, telemetry=16, device="cpu", **run)
+        for a, b, c in zip(off, on, cpu):
+            _same_result(b, a)
+            _snapshots_equal(b.telemetry, c.telemetry)
+    p = pop[0]
+    lb, ub = _nodes(p, 6)
+    off = rt.propagate_nodes(p, lb, ub, tile_width=8)
+    on = rt.propagate_nodes(p, lb, ub, tile_width=8, telemetry=16)
+    cpu = rt.propagate_nodes(p, lb, ub, tile_width=8, telemetry=16, device="cpu")
+    for f in ("lb", "ub", "rounds", "converged", "infeasible", "progress"):
+        _match_bits(getattr(on, f), getattr(off, f))
+    for i in range(6):
+        _snapshots_equal(on.node_telemetry(i), cpu.node_telemetry(i))
+    q = td.make_pseudo_boolean(n=12, m=16, seed=0)
+    c = np.arange(1, q.n + 1) * np.where(np.arange(q.n) % 3 == 0, -1.0, 1.0)
+    a, b = rt.solve(q, c), rt.solve(q, c, telemetry=16)
+    assert (a.status, a.nodes_created, a.levels) == (b.status, b.nodes_created, b.levels)
+    _snapshots_equal(b.telemetry, rt.solve(q, c, telemetry=16, device="cpu").telemetry)
+    svc_off = rt.PropagationService.from_problems(pop, slots=2, tile_width=8)
+    svc_on = rt.PropagationService.from_problems(pop, slots=2, tile_width=8, telemetry=16)
+    for a, b in zip(svc_off.serve(pop), svc_on.serve(pop)):
+        _same_result(b, a)
+        assert b.telemetry.rounds_recorded == int(b.rounds)

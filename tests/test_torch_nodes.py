@@ -187,14 +187,11 @@ def test_batched_fixed_point_counts_one_read_per_round():
 @pytest.mark.parametrize("kw", [dict(policy="TierPolicy"), dict(stop_progress=1e-3),
                                 dict(telemetry=8), dict(patience=2)])
 def test_node_requests_outside_the_slice_raise(kw):
-    """``telemetry=`` (item 6) still raises; the precision-tier options now
-    run and are held to the reference's result."""
+    """The options of items 5 and 6, ported since, run and are held to the
+    reference's result (with telemetry, the rounds each node's snapshot
+    recorded)."""
     pr = rd.make_knapsack(n=10, m=4, seed=0)
     p = rt.problem_from_reference(pr)
-    if "telemetry" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rt.propagate_nodes(p, p.lb[None], p.ub[None], device="cpu", **kw)
-        return
     port_kw, ref_kw = dict(kw), dict(kw)
     if "policy" in kw:
         port_kw["policy"], ref_kw["policy"] = rt.core.TierPolicy(), rc.TierPolicy()
@@ -202,6 +199,9 @@ def test_node_requests_outside_the_slice_raise(kw):
     want = rc.propagate_nodes(pr, pr.lb[None], pr.ub[None], use_pallas=False, **ref_kw)
     for f in ("lb", "ub", "rounds", "converged", "infeasible", "tier_rounds"):
         np.testing.assert_array_equal(np.asarray(getattr(got, f)), np.asarray(getattr(want, f)))
+    if "telemetry" in kw:
+        assert (got.node_telemetry(0).rounds_recorded
+                == want.node_telemetry(0).rounds_recorded == int(got.rounds[0]))
 
 
 def test_batched_step_rounds_matches_reference():

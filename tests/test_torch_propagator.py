@@ -180,9 +180,7 @@ def test_config_and_types_match_reference():
     assert rt.core.INF == rc.INF
     assert rt.core.int_round_slack(torch.float32) == rc.int_round_slack(jnp.float32)
     assert rt.core.int_round_slack(torch.float64) == rc.int_round_slack(jnp.float64)
-    assert list(rt.core.PropagationResult._fields) == [
-        f for f in rc.PropagationResult._fields if f != "telemetry"
-    ]
+    assert list(rt.core.PropagationResult._fields) == list(rc.PropagationResult._fields)
 
 
 @pytest.mark.parametrize("kw", [
@@ -190,20 +188,19 @@ def test_config_and_types_match_reference():
     dict(telemetry=8),
 ])
 def test_requests_outside_the_slice_raise(kw):
-    """Telemetry (item 6) raises.  float32 and the two-tier policy (item 5,
-    ported since) run and give the reference's result: rounds, flags,
-    ``tier_rounds`` and bounds."""
+    """float32, the two-tier policy (item 5) and telemetry (item 6), ported
+    since, run and give the reference's result: rounds, flags,
+    ``tier_rounds``, bounds, and the rounds the snapshot recorded."""
     pr = rd.make_set_cover(n=20, m=8, seed=0)
     p = rt.problem_from_reference(pr)
-    if "telemetry" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            rt.propagate(p, device="cpu", **kw)
-        return
     got = rt.propagate(p, device="cpu", **kw)
-    want = rc.propagate(pr, **({"policy": rc.TierPolicy()} if "policy" in kw
-                               else {"dtype": np.float32}))
+    ref_kw = ({"policy": rc.TierPolicy()} if "policy" in kw else
+              {"dtype": np.float32} if "dtype" in kw else kw)
+    want = rc.propagate(pr, **ref_kw)
     for f in ("rounds", "converged", "infeasible", "tier_rounds"):
         assert int(getattr(got, f)) == int(getattr(want, f))
-    assert got.lb.dtype == (torch.float64 if "policy" in kw else torch.float32)
+    assert got.lb.dtype == (torch.float32 if "dtype" in kw else torch.float64)
+    if "telemetry" in kw:
+        assert got.telemetry.rounds_recorded == want.telemetry.rounds_recorded
     np.testing.assert_array_equal(got.lb.double().numpy(), np.asarray(want.lb, np.float64))
     np.testing.assert_array_equal(got.ub.double().numpy(), np.asarray(want.ub, np.float64))

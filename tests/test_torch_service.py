@@ -461,18 +461,16 @@ def test_metrics_registry_isolates_failing_sources():
     (dict(dtype=np.float32), "item 5"),
 ])
 def test_options_outside_the_slice_raise(kw, item):
-    """``telemetry=`` (item 6) still raises; the early retire and the
-    float32 service (item 5) now run and are held to the reference's
-    service (flags, bounds, the early-stop count)."""
-    if "telemetry" in kw:
-        with pytest.raises(NotImplementedError, match=item):
-            PropagationService.from_problems(T_SET_COVERS[:1], slots=1, device="cpu", **kw)
-        return
+    """Telemetry (item 6), the early retire and the float32 service (item
+    5), ported since, run and are held to the reference's service (flags,
+    bounds, the early-stop count, the rounds each snapshot recorded)."""
     svc = PropagationService.from_problems(T_SET_COVERS[:2], slots=1, device="cpu", **kw)
     ref = rc.PropagationService.from_problems(SET_COVERS[:2], slots=1, use_pallas=False, **kw)
     for got, want in zip(svc.serve(T_SET_COVERS[:2]), ref.serve(SET_COVERS[:2])):
         for f in ("rounds", "converged", "infeasible"):
             assert int(getattr(got, f)) == int(getattr(want, f)), f
+        if "telemetry" in kw:
+            assert got.telemetry.rounds_recorded == want.telemetry.rounds_recorded
         np.testing.assert_array_equal(got.lb.double().numpy(), np.asarray(want.lb, np.float64))
         np.testing.assert_array_equal(got.ub.double().numpy(), np.asarray(want.ub, np.float64))
     assert svc.stats()["early_stopped"] == ref.stats()["early_stopped"]

@@ -132,8 +132,9 @@ def test_result_fields_match_reference():
 def test_solve_rejects_bad_input():
     p = rt.problem_from_reference(rd.make_pseudo_boolean(n=12, m=16, seed=0))
     c = _objective(p.n)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.solve(p, c, telemetry=8, device="cpu")
+    # telemetry= (item 6) is ported: it runs and records one sample a level.
+    res = rt.solve(p, c, telemetry=8, device="cpu")
+    assert res.telemetry.rounds_recorded == res.levels
     with pytest.raises(ValueError, match="objective"):
         rt.solve(p, c[:-1], device="cpu")
     with pytest.raises(ValueError, match="node_cap"):
