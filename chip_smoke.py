@@ -212,7 +212,24 @@ numpy only, nothing of JAX) and, on one CUDA card:
      endgame's trajectories under ``TierPolicy()`` on ``pb``, ``pbf``,
      ``mixed`` and ``bandw``; and the walls with telemetry on and off
      (``pb`` and ``mixed`` device_loop, the fused batch);
- 18. prints a ``kernels`` JSON line (the float forms as ``<wrapper>[<form>]``),
+ 18. (phase 17, last) the sharded engines (``repro_torch.core.sharded``)
+     on worlds started by ``run_world`` after the kernels are built: one
+     rank on NCCL, and four ranks sharing the card over ``gloo`` with CUDA
+     tensors (NCCL refuses two ranks on one card).  Each rank runs
+     ``propagate_sharded`` on ``mixed`` (A', the combine, the SUM
+     all-reduce, E, the MAX/MIN all-reduce, F) and ``pb``,
+     ``propagate_sharded_rows`` on ``pb`` and ``banded`` (D, MAX/MIN, F) and
+     ``propagate_batch_sharded`` on the fused bucket ``[pb, pbf, banded,
+     banded1]`` (#8 + #9) and the multi-chunk bucket ``[mixed, mixed1]``,
+     with its launches counted per run; every rank's results must be rank
+     0's bitwise, the row and batch partitions the unsharded port's
+     (``propagate_block_ell``, ``propagate_batch``) bitwise, the nnz
+     partition ``bounds_equal`` with equal rounds on ``mixed`` and bitwise
+     on ``pb``; walls are CUDA events after a barrier, medians of 5 (the
+     world of one beside the unsharded ``propagate_block_ell`` and
+     ``propagate_batch`` timed the same way in its process), with the
+     seconds each world took to start, run and stop;
+ 19. prints a ``kernels`` JSON line (the float forms as ``<wrapper>[<form>]``),
      and last ``{"ok": true, "device": {...}}``.
 
 Each path runs with the launch counters at zero just before it and read just
@@ -1023,6 +1040,7 @@ def smoke(torch, dev):
     telemetry_rows, telemetry_runs, telemetry_launches = telemetry_phase(
         torch, np, rt, tk, tref, _build, dev, problems, wide, batch_pops, pbf, stream)
     runs.update(telemetry_runs)
+    sharded_phase(torch, np, rt, dev, problems, results, batch_pops, pbf)
     slab_path = ("batched_slab_partials_tiles", "straddle_combine_tiles",
                  "batched_slab_round_tiles", "apply_updates_slab_tiles")
     node_slab_path = ("node_slab_partials_tiles", "straddle_combine_tiles",
@@ -4312,6 +4330,167 @@ def telemetry_phase(torch, np, rt, tk, tref, build, dev, problems, wide, pops, p
     launches = {"record_round_tiles[f32]": f32_launches}
     log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
     return out, runs, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: the sharded engines on worlds of ranks
+# ---------------------------------------------------------------------------
+
+# (label, entry point, instance or bucket) of each run a rank makes.
+SHARDED_RUNS = (
+    ("nnz mixed", "propagate_sharded", "mixed"),
+    ("nnz pb", "propagate_sharded", "pb"),
+    ("rows pb", "propagate_sharded_rows", "pb"),
+    ("rows banded", "propagate_sharded_rows", "banded"),
+    ("batch fused", "propagate_batch_sharded", "fused"),
+    ("batch multi-chunk", "propagate_batch_sharded", "multi-chunk"),
+)
+SHARDED_BUCKETS = {"fused": ("pb", "pbf", "banded", "banded1"),
+                   "multi-chunk": ("mixed", "mixed1")}
+SHARDED_REPS = 5
+SHARDED_NEED = {
+    "nnz": ("activities_gather_tiles", "combine_chunk_partials_tiles",
+            "candidates_scatter_tiles", "apply_updates_tiles"),
+    "rows": ("fused_scatter_round_tiles", "apply_updates_tiles"),
+    "batch fused": ("batched_fused_scatter_round_tiles", "apply_updates_batch_tiles"),
+    "batch multi-chunk": ("activities_gather_tiles", "combine_chunk_partials_tiles",
+                          "candidates_scatter_tiles", "apply_updates_batch_tiles"),
+}
+
+
+def sharded_rank(rank, world_size, instances, unsharded):
+    """One rank of phase 17: each run of :data:`SHARDED_RUNS` once with the
+    launch counters at zero (its result, launches and first wall), then its
+    wall as CUDA events after a barrier, the median of
+    :data:`SHARDED_REPS`; with ``unsharded`` also ``propagate_block_ell`` on
+    ``mixed``, ``pb`` and ``banded`` and ``propagate_batch`` on both buckets,
+    timed the same way.  ``clock`` holds the wall-clock times at which the
+    rank began and ended its runs."""
+    import torch
+    import torch.distributed as dist
+
+    import repro_torch as rt
+    from repro_torch import core
+    from repro_torch.kernels import prop_round as tk
+
+    del rank, world_size
+    ready = time.time()
+
+    def call(entry, arg):
+        if entry == "propagate_batch_sharded":
+            return core.propagate_batch_sharded([instances[n] for n in SHARDED_BUCKETS[arg]])
+        return getattr(core, entry)(instances[arg])
+
+    def wall(fn):
+        times = []
+        for _ in range(SHARDED_REPS):
+            dist.barrier()
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    out = {}
+    for label, entry, arg in SHARDED_RUNS:
+        dist.barrier()
+        tk.reset_launch_counts()
+        t = time.perf_counter()
+        res = call(entry, arg)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t
+        launched = {k: v for k, v in tk.launch_counts().items() if v}
+        out[label] = dict(result=res, launches=launched, first_s=first,
+                          ms=wall(lambda: call(entry, arg)))
+    if unsharded:
+        out["unsharded"] = {name: wall(lambda name=name: rt.propagate_block_ell(instances[name]))
+                            for name in ("mixed", "pb", "banded")}
+        for bucket, names in SHARDED_BUCKETS.items():
+            pop = [instances[n] for n in names]
+            out["unsharded"][bucket] = wall(lambda pop=pop: rt.propagate_batch(pop))
+    out["clock"] = (ready, time.time())
+    return out
+
+
+def sharded_phase(torch, np, rt, dev, problems, results, pops, pbf):
+    """Phase 17: the sharded engines on a world of one NCCL rank and a world
+    of four ``gloo`` ranks sharing the card (:func:`sharded_rank`), held to
+    rank 0, to the unsharded port and to their kernels (module docstring)."""
+    from repro_torch.core import run_world
+
+    t_phase = time.perf_counter()
+    instances = {**problems, "pbf": pbf}
+    for bucket, names in SHARDED_BUCKETS.items():
+        instances.update(zip(names, pops[bucket]))
+    want = {"pb": results["pb"], "banded": results["banded"], "mixed": results["mixed"]}
+    batches = {b: rt.propagate_batch(pops[b], device=dev) for b in SHARDED_BUCKETS}
+    host = lambda t: t.cpu().numpy()
+
+    def same(a, b, bitwise=True):
+        """Result ``a`` (numpy, from a rank) against ``b`` (tensors)."""
+        if any(int(getattr(a, f)) != int(getattr(b, f).item())
+               for f in ("rounds", "converged", "infeasible")):
+            return False
+        if bitwise:
+            return bool(np.array_equal(a.lb, host(b.lb)) and np.array_equal(a.ub, host(b.ub)))
+        return rt.bounds_equal(a.lb, a.ub, b.lb, b.ub)
+
+    for size, backend in ((1, "nccl"), (4, "gloo")):
+        t = time.time()
+        ranks = run_world(sharded_rank, size, backend=backend, device="cuda",
+                          args=(instances, size == 1), timeout=600)
+        ready = max(rk["clock"][0] for rk in ranks)
+        done = max(rk["clock"][1] for rk in ranks)
+        log(f"sharded world {size} ({backend}, one card): {time.time() - t:.1f} s: the ranks "
+            f"started and took their instances in {ready - t:.1f} s, ran in {done - ready:.1f} "
+            f"s, returned and stopped in {time.time() - done:.1f} s")
+        first = ranks[0]
+        for label, entry, arg in SHARDED_RUNS:
+            got = first[label]["result"]
+            listed = got if isinstance(got, list) else [got]
+            for r, other in enumerate(ranks[1:], start=1):
+                theirs = other[label]["result"]
+                for a, b in zip(listed, theirs if isinstance(theirs, list) else [theirs]):
+                    for f in ("lb", "ub", "rounds", "converged", "infeasible", "progress"):
+                        if not np.array_equal(getattr(a, f), getattr(b, f), equal_nan=True):
+                            fail(f"sharded world {size} {label}: rank {r} {f} differs from "
+                                 "rank 0's")
+            if entry == "propagate_batch_sharded":
+                for i, (a, b) in enumerate(zip(got, batches[arg])):
+                    if not same(a, b):
+                        fail(f"sharded world {size} {label}: instance {i} differs from "
+                             "propagate_batch")
+            elif not same(got, want[arg], bitwise=label != "nnz mixed"):
+                fail(f"sharded world {size} {label}: differs from propagate_block_ell")
+            if arg == "pb" and not (int(got.rounds) == REFERENCE_ROUNDS["pb"]
+                                    and bool(got.infeasible)):
+                fail(f"sharded world {size} {label}: pb must take 33 rounds and end infeasible")
+            launched = first[label]["launches"]
+            need = SHARDED_NEED.get(label, SHARDED_NEED.get(label.split()[0]))
+            missing = [k for k in need if launched.get(k, 0) <= 0]
+            if missing:
+                fail(f"sharded world {size} {label}: rank 0 never launched {missing}: {launched}")
+            walls = [rk[label]["ms"] for rk in ranks]
+            rounds = ([int(x.rounds) for x in got] if isinstance(got, list)
+                      else int(got.rounds))
+            log(f"sharded world {size} {label}: rounds={rounds} wall_ms (median of "
+                f"{SHARDED_REPS}) rank 0 {walls[0]:.3f}, slowest rank {max(walls):.3f}; first "
+                f"call {first[label]['first_s']:.2f} s (partition and prepare included); rank 0 "
+                f"launches {launched}; every rank equals rank 0 bitwise, "
+                + ("bounds_equal to" if label == "nnz mixed" else "bitwise equal to")
+                + (" propagate_batch" if isinstance(got, list) else " propagate_block_ell"))
+        if size == 1:
+            for label, entry, arg in SHARDED_RUNS:
+                ms = first["unsharded"][arg]
+                base = "propagate_batch" if arg in SHARDED_BUCKETS else "propagate_block_ell"
+                log(f"sharded world 1 {label} against the unsharded {base} (same process, "
+                    f"timed alike): {first[label]['ms']:.3f} ms against {ms:.3f} ms, ratio "
+                    f"{first[label]['ms'] / ms:.3f}")
+    log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:

@@ -66,6 +66,7 @@ import torch
 from ..obs.metrics import default_registry
 from ..obs.telemetry import TelemetryPlane, TelemetrySnapshot
 from ..obs.trace import NULL_TRACER
+from .lru import LRU
 from .propagator import batched_step_rounds, check_dtype, resolve_device
 from .sparse import Problem, SlotPayload, col_pad, pack_into_slot
 from .types import DEFAULT_CONFIG, PropagationResult, PropagatorConfig
@@ -527,19 +528,8 @@ def _longest_chunk(val: np.ndarray) -> int:
     return int(used[-1]) + 1 if used.size else 0
 
 
-_engine_cache = None
-_engine_cache_lock = threading.Lock()
-
-
-def _engine_lru():
-    """Process-wide engine cache (the thread-safe LRU of ``kernels.ops``)."""
-    global _engine_cache
-    with _engine_cache_lock:
-        if _engine_cache is None:
-            from ..kernels.ops import LRU  # lazy: kernels imports core
-
-            _engine_cache = LRU(16)
-        return _engine_cache
+# Process-wide engine cache, by bucket shape.
+_engine_cache = LRU(16)
 
 
 def _get_engine(spec, cfg, rounds_per_step, use_kernels, device, dtype=torch.float64,
@@ -548,12 +538,11 @@ def _get_engine(spec, cfg, rounds_per_step, use_kernels, device, dtype=torch.flo
     stop."""
     key = (spec, dataclasses.astuple(cfg), rounds_per_step, use_kernels, str(device), str(dtype),
            stop_progress, patience)
-    lru = _engine_lru()
-    eng = lru.get(key, ())
+    eng = _engine_cache.get(key, ())
     if eng is None:
         eng = _BucketEngine(spec, cfg, rounds_per_step, use_kernels, device, key, dtype,
                             stop_progress, patience)
-        lru.put(key, (), eng)
+        _engine_cache.put(key, (), eng)
     eng.warm()
     return eng
 
@@ -656,7 +645,7 @@ class PropagationService:
             for spec in specs
         ]
         self.metrics = default_registry()
-        self.metrics.register("engine_cache", lambda: _engine_lru().info())
+        self.metrics.register("engine_cache", _engine_cache.info)
         self.metrics.register("compile_counts", self.compile_counts)
         self.metrics.register("service", self._counters)
 
@@ -958,7 +947,7 @@ class PropagationService:
                 "pending": sum(len(bk.queue) for bk in self._buckets),
                 "occupied": sum(bk.occupied() for bk in self._buckets),
                 "buckets": buckets,
-                "engine_cache": _engine_lru().info(),
+                "engine_cache": _engine_cache.info(),
                 "kernel_caches": cache_info(),
                 "metrics": self.metrics.snapshot(),
             }

@@ -5,13 +5,17 @@ Each source (``prop_round.cu``, ``slab_round.cu``, ``tier_round.cu``,
 compiled with ``nvcc`` into a shared library with a plain C interface, at first use, into
 ``build/<hash>/`` beside the package (a directory that git ignores), keyed
 by a hash of the sources, the shared header and the flags, and loaded with
-``ctypes``.  The compilers run in parallel, one process per source.
+``ctypes``.  The compilers run in parallel, one process per source.  A
+file lock beside the build directory serialises builds across processes
+(the ranks of a world started together), a thread lock within one.
 Nothing is built or loaded when the package is imported; a CPU-only
 installation never reaches this module.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -141,13 +145,33 @@ def library_paths() -> list[Path]:
     return [build_path() / f"lib{src.stem}.so" for src in SOURCES]
 
 
+@contextlib.contextmanager
+def _file_lock(path: Path):
+    """An exclusive ``flock`` on ``path`` (created if missing), held for
+    the ``with`` block: one process of this host at a time."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build() -> list[Path]:
-    """Compile every source whose library does not exist yet, all at once.
+    """Compile every source whose library does not exist yet, all at once,
+    under the build directory's file lock: a process that finds another
+    compiling waits for it and then finds the libraries built.
 
     Each compiler writes into a temporary file that is renamed into place,
     so concurrent processes never load a half-written library.
     ``build_info`` records the seconds taken and the compilers' register
     reports."""
+    with _file_lock(build_path().with_suffix(".lock")):
+        return _build_unlocked()
+
+
+def _build_unlocked() -> list[Path]:
     global build_count
     outs = library_paths()
     todo = [(src, out) for src, out in zip(SOURCES, outs) if not out.exists()]

@@ -88,7 +88,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
-from collections import OrderedDict
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -98,6 +97,7 @@ from ..core import bounds as bnd
 from ..core import carry as _carry
 from ..core.carry import LoopCarry
 from ..core.carry import EarlyStop, early_stop
+from ..core.lru import LRU
 from ..core.propagator import (
     _result,
     batched_fixed_point,
@@ -173,55 +173,6 @@ def rows_fit_one_chunk(p: Problem, tile_width: int) -> bool:
     """True iff every row's nonzeros fit one ``tile_width``-wide chunk -- the
     condition for the single-kernel fused round."""
     return int(np.diff(p.csr.row_ptr).max(initial=0)) <= tile_width
-
-
-class LRU:
-    """Bounded LRU keyed by tuples that embed ``id()`` of host objects.
-
-    Every entry pins its ``anchors`` (the objects whose ids appear in the
-    key) so an id cannot be recycled while the entry is live, and a hit is
-    honoured only if every anchor is still the identical object.  Counts
-    hits and misses for :func:`cache_info`.  Thread-safe."""
-
-    def __init__(self, maxsize: int):
-        self.maxsize = maxsize
-        self._d: "OrderedDict[tuple, tuple[tuple, object]]" = OrderedDict()
-        self.hits = 0
-        self.misses = 0
-        self._lock = threading.RLock()
-
-    def get(self, key, anchors: tuple):
-        with self._lock:
-            hit = self._d.get(key)
-            if hit is not None and all(a is b for a, b in zip(hit[0], anchors)):
-                self._d.move_to_end(key)
-                self.hits += 1
-                return hit[1]
-            self.misses += 1
-            return None
-
-    def put(self, key, anchors: tuple, value) -> None:
-        with self._lock:
-            self._d[key] = (anchors, value)
-            while len(self._d) > self.maxsize:
-                self._d.popitem(last=False)
-
-    def clear(self) -> None:
-        with self._lock:
-            self._d.clear()
-
-    def __len__(self) -> int:
-        with self._lock:
-            return len(self._d)
-
-    def info(self) -> dict:
-        with self._lock:
-            return {
-                "hits": self.hits,
-                "misses": self.misses,
-                "size": len(self._d),
-                "maxsize": self.maxsize,
-            }
 
 
 @dataclasses.dataclass(frozen=True)

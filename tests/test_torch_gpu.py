@@ -12,6 +12,8 @@ and general-float inputs alike: the plain version sums each chunk in the
 kernels' order (``ref.warp_order_sum``) and the kernels are built without FMA
 contraction.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -2586,3 +2588,84 @@ def test_batched_telemetry_on_card_equals_off_and_cpu(cuda):
     for a, b in zip(svc_off.serve(pop), svc_on.serve(pop)):
         _same_result(b, a)
         assert b.telemetry.rounds_recorded == int(b.rounds)
+
+
+# ---------------------------------------------------------------------------
+# The sharded engines: a world of one rank on the card, over NCCL
+# ---------------------------------------------------------------------------
+
+NO_WIDENING = dataclasses.replace(rt.core.DEFAULT_CONFIG, outward_eps_f32=0.0)
+
+
+@pytest.fixture(scope="module")
+def nccl_world():
+    """``torch_sharded_world.cases`` on a world of one NCCL rank on the
+    card, and that rank's launches per sharded path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch_sharded_world as world
+
+    run = lambda fn: rt.core.run_world(fn, 1, backend="nccl", device="cuda", args=("cuda",),
+                                       timeout=600)[0]
+    return world, run(world.cases), run(world.launches)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("name", ["cascade", "pb", "set_cover", "knapsack", "mixed", "banded"])
+def test_sharded_rows_on_card_equal_unsharded(nccl_world, name, dtype):
+    """The row partition on the kernels equals the unsharded engine on the
+    card, bitwise (at float32 both without outward widening)."""
+    world, got, _ = nccl_world
+    p = world.build(td, name)
+    want = rt.propagate_block_ell(p, NO_WIDENING, tile_width=world.TILE_WIDTH,
+                                  dtype=np.dtype(dtype))
+    r = got[("rows", name, dtype)]
+    for f in ("lb", "ub", "rounds", "converged", "infeasible"):
+        np.testing.assert_array_equal(np.asarray(getattr(r, f)),
+                                      getattr(want, f).cpu().numpy(), err_msg=f)
+
+
+@pytest.mark.parametrize("name", ["cascade", "pb", "set_cover", "knapsack", "mixed", "banded"])
+def test_sharded_nnz_on_card_holds_unsharded(nccl_world, name):
+    """The nnz partition on the kernels: the unsharded engine's rounds and
+    verdict, its bounds under ``bounds_equal`` (bitwise on exact data)."""
+    world, got, _ = nccl_world
+    p = world.build(td, name)
+    want = rt.propagate_block_ell(p, tile_width=world.TILE_WIDTH)
+    r = got[("nnz", name, "float64")]
+    assert int(r.rounds) == int(want.rounds)
+    assert bool(r.infeasible) == bool(want.infeasible)
+    assert rt.bounds_equal(r.lb, r.ub, want.lb, want.ub)
+    if world.CASES[name][2]:
+        np.testing.assert_array_equal(r.lb, want.lb.cpu().numpy())
+        np.testing.assert_array_equal(r.ub, want.ub.cpu().numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("batch", ["six", "two"])
+def test_sharded_batch_on_card_equals_unsharded(nccl_world, batch, dtype):
+    world, got, _ = nccl_world
+    problems = [world.build(td, name) for name in world.BATCHES[batch]]
+    want = rt.propagate_batch(problems, NO_WIDENING, tile_width=world.TILE_WIDTH,
+                              dtype=np.dtype(dtype))
+    for g, w in zip(got[("batch", batch, dtype)], want):
+        for f in ("lb", "ub", "rounds", "converged", "infeasible", "progress"):
+            np.testing.assert_array_equal(np.asarray(getattr(g, f)),
+                                          getattr(w, f).cpu().numpy(), err_msg=f)
+
+
+def test_sharded_paths_launch_their_kernels(nccl_world):
+    _, _, launched = nccl_world
+    need = {
+        "nnz mixed": ("activities_gather_tiles", "combine_chunk_partials_tiles",
+                      "candidates_scatter_tiles", "apply_updates_tiles"),
+        "rows pb": ("fused_scatter_round_tiles", "apply_updates_tiles"),
+        "rows knapsack": ("activities_gather_tiles", "combine_chunk_partials_tiles",
+                          "candidates_scatter_tiles", "apply_updates_tiles"),
+        "batch six": ("activities_gather_tiles", "combine_chunk_partials_tiles",
+                      "candidates_scatter_tiles", "apply_updates_batch_tiles"),
+    }
+    for label, kernels in need.items():
+        for k in kernels:
+            assert launched[label].get(k, 0) > 0, (label, k, launched[label])
+    assert "fused_scatter_round_tiles" not in launched["nnz mixed"]

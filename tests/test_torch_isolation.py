@@ -23,7 +23,7 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.kernels.slab, repro_torch.kernels.prop_round\n"
         "import repro_torch.core.service, repro_torch.obs, repro_torch.obs.metrics\n"
         "import repro_torch.obs.trace, repro_torch.core.seq_ref, repro_torch.core.presolve\n"
-        "import repro_torch.data.mps\n"
+        "import repro_torch.data.mps, repro_torch.core.sharded\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
