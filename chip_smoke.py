@@ -229,7 +229,27 @@ numpy only, nothing of JAX) and, on one CUDA card:
      world of one beside the unsharded ``propagate_block_ell`` and
      ``propagate_batch`` timed the same way in its process), with the
      seconds each world took to start, run and stop;
- 19. prints a ``kernels`` JSON line (the float forms as ``<wrapper>[<form>]``),
+ 19. (phase 18, last) the LM serving path (``repro_torch.models``,
+     ``repro_torch.train.serve_step``; plain PyTorch, no kernel of its own)
+     at full width on the card, weights from a seeded ``torch.Generator``:
+     ``qwen2-0.5b`` and ``mamba2-780m`` FULL and ``recurrentgemma-9b`` at
+     full width cut to 5 layers (one pattern period and its 2-layer tail,
+     printed as ``reduced``).  Float32 gates, TF32 off: prefill of 24 tokens
+     + 4 decode steps against ``forward_train`` over all 28 on each of the
+     three (5e-2, greedy agreement >= 0.99, the reference test's property);
+     the port on the card against the port on the CPU, same weights, on
+     the eight SMOKE archs without experts (forward, prefill and 4 decode
+     logits) and on ``qwen2-0.5b`` FULL (one 8-token prompt), within 1e-3;
+     every logit finite.  Then, at the configs' bfloat16, ``generate`` at
+     ``serve_lm``'s shape (b = 4, prompt 16, 24 steps) on the three and
+     ``qwen2-0.5b`` at b = 32, prompt 512, 64 steps: prefill ms, decode ms
+     per step, tokens/s and peak memory (CUDA events, medians of 5), and
+     four decode steps traced (device items, busy time, idle share).  The
+     four example twins run meanwhile in processes of their own on the
+     card (and the presolve twin on the CPU), their launch counts printed:
+     exit 0, ``bounds match: True``, bnb's equal optimum of -126.0, the
+     presolve table equal to the CPU twin's;
+ 20. prints a ``kernels`` JSON line (the float forms as ``<wrapper>[<form>]``),
      and last ``{"ok": true, "device": {...}}``.
 
 Each path runs with the launch counters at zero just before it and read just
@@ -1041,6 +1061,7 @@ def smoke(torch, dev):
         torch, np, rt, tk, tref, _build, dev, problems, wide, batch_pops, pbf, stream)
     runs.update(telemetry_runs)
     sharded_phase(torch, np, rt, dev, problems, results, batch_pops, pbf)
+    lm_phase(torch, dev)
     slab_path = ("batched_slab_partials_tiles", "straddle_combine_tiles",
                  "batched_slab_round_tiles", "apply_updates_slab_tiles")
     node_slab_path = ("node_slab_partials_tiles", "straddle_combine_tiles",
@@ -4491,6 +4512,289 @@ def sharded_phase(torch, np, rt, dev, problems, results, pops, pbf):
                     f"timed alike): {first[label]['ms']:.3f} ms against {ms:.3f} ms, ratio "
                     f"{first[label]['ms'] / ms:.3f}")
     log(f"phase 17: {time.perf_counter() - t_phase:.1f} s")
+
+
+# Phase 18: the LM serving path (no kernel of its own: plain PyTorch).
+# (arch, layers kept or None for the full depth); recurrentgemma-9b keeps
+# its full width with one pattern period and the pattern_tail2 tail.
+LM_MODELS = (("qwen2-0.5b", None), ("mamba2-780m", None), ("recurrentgemma-9b", 5))
+LM_SEED = 0
+LM_REPS = 5
+LM_EXAMPLES = ("torch_quickstart.py", "torch_bnb_dive.py", "torch_presolve_service.py",
+               "torch_serve_lm.py")
+# The example twins' lines that carry a time or depend on it (the filter of
+# tests/test_torch_examples.py).
+LM_UNTIMED_DROP = ("ms wall", "latency p50=")
+
+
+def lm_close(torch, got, want, tol: float):
+    """Largest ``|got - want| - tol * |want|`` over ``tol``-scaled entries
+    is at most ``tol`` (``allclose`` with ``rtol = atol = tol``); returns the
+    largest absolute difference."""
+    g, w = got.double(), want.double()
+    if not (bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all())):
+        fail("phase 18: non-finite logits")
+    diff = (g - w).abs()
+    if bool((diff > tol + tol * w.abs()).any()):
+        fail(f"phase 18: logits differ by {float(diff.max()):.3e} (tolerance {tol})")
+    return float(diff.max())
+
+
+def lm_prefill_decode_gate(torch, tf, ss, model, cfg, dev, label):
+    """Gate 1: prefill of 24 tokens + 4 decode steps against
+    ``forward_train`` over all 28 (the reference test's property: 5e-2,
+    greedy agreement >= 0.99)."""
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 2)
+    toks = torch.randint(0, cfg.vocab_size, (2, 28), generator=gen, device=dev)
+    full, _ = tf.forward_train(model, cfg, toks)
+    lg, caches = tf.prefill(model, cfg, toks[:, :24])
+    errs = [lm_close(torch, lg[:, 0], full[:, 23], 5e-2)]
+    cache = ss.prefill_to_decode_cache(cfg, caches, 24, 48)
+    agree = []
+    for i in range(4):
+        lg, cache = tf.decode_step(model, cfg, toks[:, 24 + i : 25 + i], cache, 24 + i)
+        errs.append(lm_close(torch, lg[:, 0], full[:, 24 + i], 5e-2))
+        agree.append(float((lg[:, 0].argmax(-1) == full[:, 24 + i].argmax(-1)).float().mean()))
+    if min(agree) < 0.99:
+        fail(f"phase 18 {label}: greedy agreement {agree}")
+    log(f"phase 18 {label}: float32 prefill 24 + 4 decode steps against forward_train over "
+        f"28 tokens: max |diff| {max(errs):.3e} (tolerance 5e-2), greedy agreement "
+        f"{min(agree):.2f}, logits scale {float(full.abs().max()):.1f}")
+
+
+def lm_card_against_cpu(torch, tf, ss, model, cfg, dev, steps=4, s_prompt=16, b=2):
+    """Gate 2: the port on the card against the port on the CPU, same
+    weights: forward_train, prefill and ``steps`` decode logits within 1e-3."""
+    host = tf.params_from_reference(cfg, model.numpy_tree(), device="cpu")
+    gen = torch.Generator().manual_seed(LM_SEED + 3)
+    toks = torch.randint(0, cfg.vocab_size, (b, s_prompt + steps), generator=gen)
+    fe = None
+    if cfg.frontend != "none":
+        fe = torch.randn((b, cfg.n_frontend_tokens, cfg.d_model), generator=gen) * 0.1
+    errs = []
+    for m, d in ((model, dev), (host, "cpu")):
+        out = [tf.forward_train(m, cfg, toks.to(d), None if fe is None else fe.to(d))[0]]
+        if steps:
+            lg, caches = tf.prefill(m, cfg, toks[:, :s_prompt].to(d),
+                                    None if fe is None else fe.to(d))
+            out.append(lg)
+            s0 = s_prompt + (0 if fe is None else fe.shape[1])
+            cache = ss.prefill_to_decode_cache(cfg, caches, s0, s0 + steps)
+            for i in range(steps):
+                lg, cache = tf.decode_step(m, cfg, toks[:, s_prompt + i : s_prompt + i + 1].to(d),
+                                           cache, s0 + i)
+                out.append(lg)
+        errs.append([o.cpu() for o in out])
+    err = max(lm_close(torch, g, w, 1e-3) for g, w in zip(*errs))
+    return err
+
+
+def lm_serve_times(torch, ss, model, cfg, dev, b, s_prompt, steps, s_max):
+    """``generate`` at bfloat16 after a warm-up, and its prefill (with the
+    cache conversion) alone, as CUDA events: medians of :data:`LM_REPS`.
+    The decode time per step is the rest of ``generate`` over its
+    ``steps - 1`` decode steps.  Returns (prefill ms, decode ms per step,
+    generate ms, tokens per second, peak MiB, a traced decode step)."""
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s_prompt), generator=gen, device=dev)
+    fe = (torch.zeros((b, cfg.n_frontend_tokens, cfg.d_model), device=dev)
+          if cfg.frontend != "none" else None)
+    s0 = s_prompt + (0 if fe is None else fe.shape[1])
+    prefill_fn = ss.make_prefill_fn(cfg)
+
+    def timed(fn):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with torch.inference_mode():
+            e[0].record()
+            out = fn()
+            e[1].record()
+        torch.cuda.synchronize()
+        return e[0].elapsed_time(e[1]), out
+
+    def prefill():
+        _, caches = prefill_fn(model, prompt, fe)
+        return ss.prefill_to_decode_cache(cfg, caches, s0, s_max)
+
+    def whole():
+        return ss.generate(model, cfg, prompt, steps=steps, s_max=s_max, frontend_embeds=fe)
+
+    timed(whole)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    runs = [timed(whole) for _ in range(LM_REPS)]
+    if any(tuple(out.shape) != (b, steps) for _, out in runs):
+        fail(f"phase 18: generate returned {tuple(runs[0][1].shape)}")
+    gen_ms = statistics.median(ms for ms, _ in runs)
+    pre_ms = statistics.median(timed(prefill)[0] for _ in range(LM_REPS))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+
+    # Four decode steps traced: device items and busy time per step beside
+    # their CUDA-event wall, the device's idle share.
+    serve_fn, cache = ss.make_serve_step(cfg), timed(prefill)[1]
+    tok = prompt[:, -1:].to(torch.int32)
+
+    def four_steps():
+        c = cache
+        for i in range(4):
+            _, c = serve_fn(model, tok, c, s0 + i)
+
+    four_steps()
+    wall = statistics.median(timed(four_steps)[0] for _ in range(3)) / 4
+    items = device_items(torch, four_steps)
+    busy = sum(us for _, us in items) / 4e3
+    names = {}
+    for name, us in items:
+        key = name.replace("(anonymous namespace)::", "").split("(")[0][:40]
+        names[key] = names.get(key, 0.0) + us / 4e3
+    top = ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(names.items(), key=lambda kv: -kv[1])[:3])
+    trace = dict(items=len(items) / 4, busy=busy, wall=wall, top=top)
+    return (pre_ms, (gen_ms - pre_ms) / (steps - 1), gen_ms, b * steps / (gen_ms / 1e3), peak,
+            trace)
+
+
+def lm_examples():
+    """Starts the four example twins on the card (their default device) and
+    the presolve twin on the CPU, each in a process of its own that resets
+    the kernels' launch counters and prints them on its standard error."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    wrapper = ("import json, runpy, sys\n"
+               "from repro_torch.kernels import prop_round as tk\n"
+               "path = sys.argv[1]\n"
+               "sys.argv = sys.argv[1:]\n"
+               "tk.reset_launch_counts()\n"
+               "runpy.run_path(path, run_name='__main__')\n"
+               "print('LAUNCHES ' + json.dumps({k: v for k, v in tk.launch_counts().items() "
+               "if v}), file=sys.stderr)\n")
+    runs = {name: [name] for name in LM_EXAMPLES}
+    runs["torch_presolve_service.py --device cpu"] = ["torch_presolve_service.py", "--device",
+                                                      "cpu"]
+    return {label: subprocess.Popen(
+        [sys.executable, "-c", wrapper, str(root / "examples" / argv[0]), *argv[1:]],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for label, argv in runs.items()}
+
+
+def lm_untimed(text: str) -> list:
+    import re
+
+    out = []
+    for line in text.splitlines():
+        if any(s in line for s in LM_UNTIMED_DROP):
+            continue
+        line = re.sub(r"service up in [0-9.]+s:", "service up:", line)
+        out.append(re.sub(r"mean occupancy=[0-9.]+ ", "", line))
+    return out
+
+
+def lm_examples_check(procs) -> None:
+    outs = {}
+    for label, proc in procs.items():
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail(f"phase 18: example {label} did not finish in 300 s")
+        if proc.returncode != 0:
+            fail(f"phase 18: example {label} exited {proc.returncode}: {err[-2000:]}")
+        launches = [line for line in err.splitlines() if line.startswith("LAUNCHES ")]
+        outs[label] = out
+        log(f"phase 18 example {label}: exit 0, kernel launches "
+            f"{launches[-1][len('LAUNCHES '):] if launches else '{}'}")
+        for line in out.splitlines():
+            log(f"  | {line}")
+    if "bounds match: True" not in outs["torch_quickstart.py"]:
+        fail("phase 18: torch_quickstart.py: the bounds do not match the sequential reference")
+    bnb = outs["torch_bnb_dive.py"]
+    if "same optimum" not in bnb or "objective=-126.0" not in bnb:
+        fail("phase 18: torch_bnb_dive.py: no equal optimum of -126.0")
+    card = lm_untimed(outs["torch_presolve_service.py"])
+    host = lm_untimed(outs["torch_presolve_service.py --device cpu"])
+    if card != host:
+        fail(f"phase 18: the presolve table on the card differs from the CPU twin's: "
+             f"{card} != {host}")
+    if len(outs["torch_serve_lm.py"].splitlines()) != 3:
+        fail("phase 18: torch_serve_lm.py did not print its three archs")
+
+
+def lm_phase(torch, dev):
+    """Phase 18: the LM serving path (``repro_torch.models``,
+    ``repro_torch.train.serve_step``) at full width on the card, its float32
+    gates, its bfloat16 serving times, and the four example twins."""
+    import dataclasses
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import serve_step as ss
+
+    t_phase = time.perf_counter()
+    procs = lm_examples()  # the twins run beside the gates, not the timed runs
+    try:
+        tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            models = {}
+            for arch, layers in LM_MODELS:
+                full = get_config(arch)
+                cfg = full if layers is None else dataclasses.replace(full, num_layers=layers)
+                cfg32 = dataclasses.replace(cfg, dtype="float32")
+                t = time.perf_counter()
+                gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+                model = tf.init_params(cfg32, gen, device=dev)
+                torch.cuda.synchronize()
+                n = tf.param_count(cfg32)
+                log(f"phase 18 model {arch}: d_model={cfg.d_model} layers={cfg.num_layers} "
+                    f"segments={cfg.segments()} vocab={cfg.vocab_size} params={n} "
+                    f"({n * 4 / 2**30:.2f} GiB as fp32 masters), initialised on the card in "
+                    f"{time.perf_counter() - t:.1f} s")
+                if layers is not None:
+                    log(f"phase 18 reduced: {arch} num_layers {full.num_layers} -> {layers} "
+                        f"(segments {cfg.segments()}; full width kept: d_model {cfg.d_model}, "
+                        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size})")
+                lm_prefill_decode_gate(torch, tf, ss, model, cfg32, dev, arch)
+                models[arch] = (model, cfg)
+            qwen, qcfg = models["qwen2-0.5b"]
+            qcfg32 = dataclasses.replace(qcfg, dtype="float32")
+            err = lm_card_against_cpu(torch, tf, ss, qwen, qcfg32, dev, steps=0, s_prompt=8,
+                                      b=1)
+            log(f"phase 18 qwen2-0.5b FULL, card against CPU on one 8-token prompt (float32, "
+                f"same weights): forward logits max |diff| {err:.3e} (tolerance 1e-3)")
+            for arch in ARCH_IDS:
+                cfg = get_config(arch, smoke=True)
+                if cfg.attn_type == "mla" or cfg.n_experts:
+                    continue
+                model = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(LM_SEED),
+                                       device=dev)
+                err = lm_card_against_cpu(torch, tf, ss, model, cfg, dev)
+                log(f"phase 18 {arch} SMOKE, card against CPU (float32, same weights): "
+                    f"forward, prefill and 4 decode logits max |diff| {err:.3e} (tolerance "
+                    "1e-3)")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+        lm_examples_check(procs)
+
+        shapes = ([(arch, 4, 16, 24, 64) for arch, _ in LM_MODELS]
+                  + [("qwen2-0.5b", 32, 512, 64, 576)])
+        for arch, b, s_prompt, steps, s_max in shapes:
+            model, cfg = models[arch]
+            pre, dec, gen_ms, tps, peak, tr = lm_serve_times(torch, ss, model, cfg, dev, b, s_prompt,
+                                                             steps, s_max)
+            log(f"phase 18 serve {arch} ({cfg.dtype}, b={b}, prompt {s_prompt}, {steps} "
+                f"steps, s_max {s_max}): prefill {pre:.3f} ms, decode {dec:.3f} ms/step "
+                f"(generate less prefill, over {steps - 1} steps), "
+                f"generate {gen_ms:.3f} ms, {tps:.1f} tokens/s, peak {peak:.0f} MiB (medians "
+                f"of {LM_REPS}, CUDA events); a decode step traced: {tr['items']:.0f} device "
+                f"items, busy {tr['busy']:.3f} ms of {tr['wall']:.3f} ms wall, idle share "
+                f"{1 - tr['busy'] / tr['wall']:.3f}; largest: {tr['top']}")
+        del models
+        torch.cuda.empty_cache()
+    finally:  # stop every example process still running (a failed gate)
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> int:

@@ -1,0 +1,610 @@
+"""Composable decoder stack: the serving path of the architectures without
+experts or multi-head latent attention.
+
+Layers are grouped into homogeneous *segments* (``ModelConfig.segments()``)
+whose parameters are stacked ``(count, ...)`` as in the JAX package; the
+layer loop indexes ``w[i]`` where the JAX package scans.  Caches keep the
+same ``(count, B, ...)`` layout, so both packages' weights and caches match
+leaf for leaf.
+
+Block kinds:
+  dense     -- GQA attention + SwiGLU            (granite/qwen2/chatglm3/
+                                                  musicgen/internvl2 LM)
+  mamba2    -- Mamba-2 SSD block                 (mamba2-780m)
+  pattern   -- RecurrentGemma period: each sub-layer is (RG-LRU | local
+               attention) + SwiGLU, pattern e.g. ("rec","rec","attn")
+
+The ``moe`` kind and ``attn_type="mla"`` (deepseek-v2, qwen3-moe) raise
+``NotImplementedError``: ROADMAP Queue 1 item 15, part two.  Sharding
+(``shd=``, ``mesh=``) is item 15's ``launch/`` part and is accepted only as
+``None``.
+
+Every block has three modes: train (full seq, no cache), prefill (full seq,
+emit cache), decode (one token, consume+emit cache).  Parameters are fp32
+masters cast to the activation dtype at use.  Everything runs eagerly under
+``torch.no_grad`` (``forward_train``'s backward is item 15, part two).
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Any, Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core.propagator import resolve_device
+from ..nn import attention as attn_lib
+from ..nn import rglru as rglru_lib
+from ..nn import ssm as ssm_lib
+from ..nn.ffn import swiglu
+from ..nn.layers import dense, embed, normal_init, rmsnorm, sinusoidal_positions, unembed
+from ..nn.rope import apply_rope, rope_cos_sin
+from .config import ModelConfig, _cache_specs
+
+Params = Dict[str, Any]
+
+# The ROADMAP items that name what this module does not port yet.
+PART_TWO = "ROADMAP Queue 1 item 15, part two"
+LAUNCH_PART = "ROADMAP Queue 1 item 15, part three (launch/)"
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for the block kinds that are not ported yet (``moe``, MLA)."""
+    if cfg.attn_type == "mla" or any(kind == "moe" for kind, _ in cfg.segments()):
+        raise NotImplementedError(
+            f"{cfg.name}: mixture-of-experts and multi-head latent attention "
+            f"blocks are {PART_TWO}"
+        )
+
+
+def check_unsharded(shd=None, mesh=None) -> None:
+    if shd is not None or mesh is not None:
+        raise NotImplementedError(f"sharded models (shd=, mesh=) are {LAUNCH_PART}")
+
+
+def act_dtype(cfg: ModelConfig) -> torch.dtype:
+    if cfg.dtype == "bfloat16":
+        return torch.bfloat16
+    if cfg.dtype == "float64":
+        return torch.float64  # layout-equivalence tests / precision studies
+    return torch.float32
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    """Vocab padded to a multiple of 256 (MaxText-style padding).  The pad
+    rows are ordinary random rows of the table and the pad logits take
+    part in the greedy ``argmax``, as in the JAX package."""
+    v = cfg.vocab_size
+    return v if v % 256 == 0 else v + (256 - v % 256)
+
+
+def _mamba_cfg(cfg: ModelConfig) -> ssm_lib.Mamba2Config:
+    return ssm_lib.Mamba2Config(
+        d_model=cfg.d_model,
+        d_inner=cfg.d_inner,
+        n_heads=cfg.ssm_heads,
+        head_p=cfg.ssm_head_p,
+        n_groups=cfg.ssm_groups,
+        d_state=cfg.ssm_state,
+        chunk=cfg.ssm_chunk,
+    )
+
+
+def _rglru_cfg(cfg: ModelConfig) -> rglru_lib.RGLRUConfig:
+    return rglru_lib.RGLRUConfig(d_model=cfg.d_model, d_rnn=cfg.d_rnn)
+
+
+def _n_sub(cfg: ModelConfig, kind: str) -> int:
+    return len(cfg.layer_pattern) if kind == "pattern" else int(kind.replace("pattern_tail", ""))
+
+
+# ---------------------------------------------------------------------------
+# Parameter layout: leaf -> (shape, init rule), the JAX package's init_params
+# ---------------------------------------------------------------------------
+
+
+def _normal(*shape, scale):
+    return (tuple(shape), ("normal", scale))
+
+
+def _const(value, *shape):
+    return (tuple(shape), ("full", value))
+
+
+def _dense_spec(d_in: int, d_out: int, bias: bool):
+    p = {"w": _normal(d_in, d_out, scale=d_in**-0.5)}
+    if bias:
+        p["b"] = _const(0.0, d_out)
+    return p
+
+
+def _norm_spec(d: int):
+    return {"scale": _const(1.0, d)}
+
+
+def _gqa_spec(cfg: ModelConfig):
+    d, h, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {
+        "wq": _dense_spec(d, h * hd, cfg.qkv_bias),
+        "wk": _dense_spec(d, hkv * hd, cfg.qkv_bias),
+        "wv": _dense_spec(d, hkv * hd, cfg.qkv_bias),
+        "wo": _dense_spec(h * hd, d, False),
+    }
+
+
+def _swiglu_spec(d: int, d_ff: int):
+    return {
+        "w_gate": _normal(d, d_ff, scale=d**-0.5),
+        "w_up": _normal(d, d_ff, scale=d**-0.5),
+        "w_down": _normal(d_ff, d, scale=d_ff**-0.5),
+    }
+
+
+def _mamba_spec(cfg: ModelConfig):
+    mc = _mamba_cfg(cfg)
+    d, di, gn = mc.d_model, mc.d_inner, mc.n_groups * mc.d_state
+    conv_ch = di + 2 * gn
+    return {
+        "in_proj": _normal(d, 2 * di + 2 * gn + mc.n_heads, scale=d**-0.5),
+        "conv_w": _normal(mc.d_conv, conv_ch, scale=0.5),
+        "conv_b": _const(0.0, conv_ch),
+        "a_log": ((mc.n_heads,), ("a_log",)),  # log(linspace(1, 16, H))
+        "dt_bias": _const(0.0, mc.n_heads),
+        "d_skip": _const(1.0, mc.n_heads),
+        "gate_norm": _norm_spec(di),
+        "out_proj": _normal(di, d, scale=di**-0.5),
+    }
+
+
+def _rglru_spec(cfg: ModelConfig):
+    rc = _rglru_cfg(cfg)
+    d, dr = rc.d_model, rc.d_rnn
+    return {
+        "w_in": _normal(d, dr, scale=d**-0.5),
+        "w_gate_branch": _normal(d, dr, scale=d**-0.5),
+        "conv_w": _normal(rc.d_conv, dr, scale=0.5),
+        "conv_b": _const(0.0, dr),
+        "w_x": _normal(dr, dr, scale=dr**-0.5),
+        "b_x": _const(0.0, dr),
+        "w_a": _normal(dr, dr, scale=dr**-0.5),
+        "b_a": _const(0.0, dr),
+        "lam": _const(0.65, dr),
+        "w_out": _normal(dr, d, scale=dr**-0.5),
+    }
+
+
+def _block_spec(kind: str, cfg: ModelConfig):
+    if kind == "dense":
+        return {"ln1": _norm_spec(cfg.d_model), "ln2": _norm_spec(cfg.d_model),
+                "attn": _gqa_spec(cfg), "mlp": _swiglu_spec(cfg.d_model, cfg.d_ff)}
+    if kind == "mamba2":
+        return {"ln1": _norm_spec(cfg.d_model), "mix": _mamba_spec(cfg)}
+    if kind.startswith("pattern"):
+        p = {}
+        for i in range(_n_sub(cfg, kind)):
+            rec = cfg.layer_pattern[i] == "rec"
+            p[f"sub{i}"] = {
+                "ln1": _norm_spec(cfg.d_model),
+                "ln2": _norm_spec(cfg.d_model),
+                "mlp": _swiglu_spec(cfg.d_model, cfg.d_ff),
+                "mix": _rglru_spec(cfg) if rec else _gqa_spec(cfg),
+            }
+        return p
+    raise ValueError(kind)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def param_spec(cfg: ModelConfig):
+    """The parameter tree of ``cfg`` with ``(shape, init rule)`` leaves, in
+    the JAX package's ``init_params`` layout (segments stacked)."""
+    check_supported(cfg)
+    vpad = padded_vocab(cfg)
+    spec = {
+        "embed": {"table": _normal(vpad, cfg.d_model, scale=1.0)},
+        "final_norm": _norm_spec(cfg.d_model),
+    }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = {"w": _normal(cfg.d_model, vpad, scale=cfg.d_model**-0.5)}
+    spec["segments"] = [
+        _map(lambda leaf, c=count: ((c,) + leaf[0], leaf[1]), _block_spec(kind, cfg))
+        for kind, count in cfg.segments()
+    ]
+    return spec
+
+
+# ---------------------------------------------------------------------------
+# The module
+# ---------------------------------------------------------------------------
+
+
+class _Node(nn.Module):
+    """A dict of the parameter tree: sub-dicts are modules, leaves parameters."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, sub in tree.items():
+            if isinstance(sub, torch.Tensor):
+                self.register_parameter(name, nn.Parameter(sub))
+            else:
+                self.add_module(name, _module(sub))
+
+
+def _module(tree):
+    if isinstance(tree, list):
+        return nn.ModuleList([_module(t) for t in tree])
+    return _Node(tree)
+
+
+def _as_tree(mod: nn.Module):
+    if isinstance(mod, nn.ModuleList):
+        return [_as_tree(m) for m in mod]
+    out = dict(mod.named_parameters(recurse=False))
+    out.update((name, _as_tree(child)) for name, child in mod.named_children())
+    return out
+
+
+class Transformer(nn.Module):
+    """The parameters of one model under the JAX package's leaf names
+    (``embed.table``, ``segments.<i>.attn.wq.w``, ...), each segment's
+    leaves stacked ``(count, ...)``.  ``tree()`` is the nested-dict view the
+    functions of this module take; calling the module is
+    :func:`forward_train`."""
+
+    def __init__(self, cfg: ModelConfig, tree: Params):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        for name, sub in tree.items():
+            self.add_module(name, _module(sub))
+
+    def tree(self) -> Params:
+        return _as_tree(self)
+
+    def numpy_tree(self) -> Params:
+        """The weights as numpy arrays in the same tree: the form
+        :func:`params_from_reference` takes (a copy on another device is
+        ``params_from_reference(cfg, model.numpy_tree(), device)``)."""
+        return _map(lambda t: t.detach().cpu().numpy(), self.tree())
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.table.device
+
+    def forward(self, tokens, frontend_embeds=None):
+        return forward_train(self, self.cfg, tokens, frontend_embeds)
+
+
+def _params(params) -> Params:
+    return params.tree() if isinstance(params, Transformer) else params
+
+
+def _generator(generator, dev: torch.device) -> torch.Generator:
+    if isinstance(generator, torch.Generator):
+        return generator
+    return torch.Generator(device=dev).manual_seed(int(generator))
+
+
+def init_params(cfg: ModelConfig, generator, device="cuda") -> Transformer:
+    """Random fp32 master weights on ``device`` (CUDA by default; raises
+    where there is none), drawn from ``generator`` (a ``torch.Generator`` or
+    an int seed) with the JAX package's init rules.  JAX's PRNG is not
+    reproduced: to hold the port against the JAX package, carry its weights
+    over with :func:`params_from_reference`."""
+    dev = resolve_device(device)
+    gen = _generator(generator, dev)
+
+    def make(leaf):
+        shape, (rule, *arg) = leaf
+        if rule == "normal":
+            return normal_init(gen, shape, arg[0], dev)
+        if rule == "a_log":
+            h = shape[-1]
+            row = torch.log(torch.linspace(1.0, 16.0, h, dtype=torch.float32, device=dev))
+            return row.expand(shape).clone()
+        return torch.full(shape, arg[0], dtype=torch.float32, device=dev)
+
+    return Transformer(cfg, _map(make, param_spec(cfg)))
+
+
+def params_from_reference(cfg: ModelConfig, tree, device="cuda") -> Transformer:
+    """The port's model holding the JAX package's ``init_params`` weights.
+
+    ``tree`` is that pytree with numpy leaves
+    (``jax.tree.map(np.asarray, params)``): nested dicts, a list of
+    segments.  Raises ``ValueError`` if a reference leaf is left unused, a
+    port parameter is left unset or a shape differs."""
+    dev = resolve_device(device)
+
+    def fill(spec, ref, path):
+        if isinstance(spec, list):
+            if not isinstance(ref, (list, tuple)) or len(ref) != len(spec):
+                raise ValueError(f"{path}: {len(spec)} segments expected")
+            return [fill(s, r, f"{path}.{i}") for i, (s, r) in enumerate(zip(spec, ref))]
+        if isinstance(spec, dict):
+            if not isinstance(ref, dict):
+                raise ValueError(f"{path}: a dict of leaves expected")
+            unused = sorted(set(ref) - set(spec))
+            unset = sorted(set(spec) - set(ref))
+            if unused:
+                raise ValueError(f"reference leaves left unused: "
+                                 f"{[f'{path}.{k}'.lstrip('.') for k in unused]}")
+            if unset:
+                raise ValueError(f"port parameters left unset: "
+                                 f"{[f'{path}.{k}'.lstrip('.') for k in unset]}")
+            return {k: fill(spec[k], ref[k], f"{path}.{k}") for k in spec}
+        arr = np.asarray(ref)
+        if arr.shape != spec[0]:
+            raise ValueError(f"{path.lstrip('.')}: shape {arr.shape}, expected {spec[0]}")
+        return torch.tensor(arr, dtype=torch.float32, device=dev)
+
+    return Transformer(cfg, fill(param_spec(cfg), tree, ""))
+
+
+# ---------------------------------------------------------------------------
+# GQA attention sub-block
+# ---------------------------------------------------------------------------
+
+
+def _rot(cfg: ModelConfig) -> int:
+    """Rotated head dims, rounded down to an even number."""
+    rd = int(cfg.head_dim * cfg.partial_rotary)
+    return rd - rd % 2
+
+
+def gqa_apply(p, x, cfg: ModelConfig, mode, cos, sin, cache=None, pos=None,
+              window=None, q_offset=0, shd=None):
+    check_unsharded(shd)
+    b, s, d = x.shape
+    h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q = dense(p["wq"], x).reshape(b, s, h, hd).transpose(1, 2)
+    k = dense(p["wk"], x).reshape(b, s, hkv, hd).transpose(1, 2)
+    v = dense(p["wv"], x).reshape(b, s, hkv, hd).transpose(1, 2)
+    rd = _rot(cfg)
+    if cfg.pos_type == "rope" and rd > 0:
+        q = apply_rope(q, cos, sin, rotary_dim=rd)
+        k = apply_rope(k, cos, sin, rotary_dim=rd)
+
+    if mode == "decode":
+        kc, vc = attn_lib.cache_update(cache["k"], cache["v"], k, v, pos, window)
+        y = attn_lib.decode_attention(q, kc, vc, pos, window=window)
+        new_cache = {"k": kc, "v": vc}
+    else:
+        y = attn_lib.blockwise_attention(
+            q, k, v, causal=True, window=window,
+            chunk_q=min(cfg.attn_chunk, s), chunk_k=min(cfg.attn_chunk, s),
+            q_offset=q_offset, causal_skip=cfg.causal_skip,
+        )
+        new_cache = {"k": k, "v": v} if mode == "prefill" else None
+    y = y.transpose(1, 2).reshape(b, s, h * hd)
+    return dense(p["wo"], y), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Block apply (one layer of a segment)
+# ---------------------------------------------------------------------------
+
+
+def block_apply(kind: str, p, x, cfg: ModelConfig, mode, cos, sin,
+                cache=None, pos=None, q_offset=0, shd=None):
+    """Returns (x, new_cache, aux_loss)."""
+    check_unsharded(shd)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind == "dense":
+        check_supported(cfg)
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        y, new_cache = gqa_apply(
+            p["attn"], h, cfg, mode, cos, sin, cache, pos,
+            window=cfg.local_window, q_offset=q_offset,
+        )
+        x = x + y
+        h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        return x + swiglu(p["mlp"], h2), new_cache, aux
+
+    if kind == "mamba2":
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        if mode == "decode":
+            y, (conv, hs) = ssm_lib.mamba2_decode(
+                p["mix"], h, _mamba_cfg(cfg), (cache["conv"], cache["h"])
+            )
+            new_cache = {"conv": conv, "h": hs}
+        else:
+            y, (conv, hs) = ssm_lib.mamba2_forward(p["mix"], h, _mamba_cfg(cfg))
+            new_cache = (
+                {"conv": conv.to(x.dtype), "h": hs} if mode == "prefill" else None
+            )
+        return x + y, new_cache, aux
+
+    if kind.startswith("pattern"):
+        new_cache = {}
+        for i in range(_n_sub(cfg, kind)):
+            sk = cfg.layer_pattern[i]
+            sub = p[f"sub{i}"]
+            sub_cache = cache[f"sub{i}"] if cache is not None else None
+            h = rmsnorm(sub["ln1"], x, cfg.norm_eps)
+            if sk == "rec":
+                if mode == "decode":
+                    y, (hs, conv) = rglru_lib.rglru_block_decode(
+                        sub["mix"], h, _rglru_cfg(cfg),
+                        (sub_cache["h"], sub_cache["conv"]),
+                    )
+                    new_cache[f"sub{i}"] = {"h": hs, "conv": conv}
+                else:
+                    y, (hs, conv) = rglru_lib.rglru_block_forward(
+                        sub["mix"], h, _rglru_cfg(cfg)
+                    )
+                    if mode == "prefill":
+                        new_cache[f"sub{i}"] = {"h": hs, "conv": conv.to(x.dtype)}
+            else:
+                y, c_out = gqa_apply(
+                    sub["mix"], h, cfg, mode, cos, sin, sub_cache, pos,
+                    window=cfg.local_window, q_offset=q_offset,
+                )
+                if c_out is not None:
+                    new_cache[f"sub{i}"] = c_out
+            x = x + y
+            h2 = rmsnorm(sub["ln2"], x, cfg.norm_eps)
+            x = x + swiglu(sub["mlp"], h2)
+        return x, (new_cache if mode != "train" else None), aux
+
+    if kind == "moe":
+        check_supported(cfg)
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Whole model: forward / prefill / decode
+# ---------------------------------------------------------------------------
+
+
+def _entry(fn):
+    """An entry point over ``params`` (a :class:`Transformer` or its tree):
+    checks the config and ``shd``, and runs without autograd."""
+
+    @functools.wraps(fn)
+    def run(params, cfg, *args, shd=None, **kw):
+        check_supported(cfg)
+        check_unsharded(shd)
+        with torch.no_grad():
+            return fn(_params(params), cfg, *args, **kw)
+
+    return run
+
+
+def _device(params: Params) -> torch.device:
+    return params["embed"]["table"].device
+
+
+def _rope_tables(cfg: ModelConfig, positions):
+    rd = _rot(cfg)
+    if cfg.pos_type != "rope" or rd == 0:
+        return rope_cos_sin(positions, 2, cfg.rope_theta)  # dummy dim-2 tables
+    return rope_cos_sin(positions, rd, cfg.rope_theta)
+
+
+def _embed_inputs(params, cfg: ModelConfig, tokens, frontend_embeds=None):
+    dev = _device(params)
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    x = embed(params["embed"], tokens).to(act_dtype(cfg))
+    if frontend_embeds is not None:
+        # Modality stub: precomputed patch/frame embeddings prepended.
+        fe = torch.as_tensor(frontend_embeds, device=dev)
+        x = torch.cat([fe.to(x.dtype), x], dim=1)
+    if cfg.pos_type == "sinusoidal":
+        pos = torch.arange(x.shape[1], device=dev)
+        x = x + sinusoidal_positions(pos, cfg.d_model, x.dtype)
+    return x
+
+
+def _index(tree, i: int):
+    return _map(lambda a: a[i], tree)
+
+
+def _stack(trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def _run_segments(params, cfg: ModelConfig, x, mode, cos, sin, cache=None, pos=None):
+    """Each segment's layers in order (``w[i]`` of the stacked leaves).
+    Returns (x, new_caches, aux_total)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_caches = []
+    for idx, (kind, count) in enumerate(cfg.segments()):
+        seg_params = params["segments"][idx]
+        seg_cache = cache[idx] if cache is not None else None
+        ncs = []
+        for li in range(count):
+            lc = _index(seg_cache, li) if seg_cache is not None else None
+            x, nc, a = block_apply(kind, _index(seg_params, li), x, cfg, mode, cos, sin,
+                                   lc, pos)
+            aux_total = aux_total + a
+            ncs.append(nc)
+        new_caches.append(_stack(ncs) if mode != "train" else None)
+    return x, new_caches, aux_total
+
+
+def _logits(params, cfg: ModelConfig, x):
+    if cfg.tie_embeddings:
+        return unembed(params["embed"], x)
+    return dense(params["lm_head"], x)
+
+
+@_entry
+def forward_train(params, cfg: ModelConfig, tokens, frontend_embeds=None):
+    """Full training forward -> (logits (B, S, V), aux).  Forward only."""
+    x = _embed_inputs(params, cfg, tokens, frontend_embeds)
+    cos, sin = _rope_tables(cfg, torch.arange(x.shape[1], device=x.device))
+    x, _, aux = _run_segments(params, cfg, x, "train", cos, sin)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _logits(params, cfg, x), aux
+
+
+@_entry
+def prefill(params, cfg: ModelConfig, tokens, frontend_embeds=None):
+    """Prefill -> (logits_last (B, 1, V), caches)."""
+    x = _embed_inputs(params, cfg, tokens, frontend_embeds)
+    cos, sin = _rope_tables(cfg, torch.arange(x.shape[1], device=x.device))
+    x, caches, _ = _run_segments(params, cfg, x, "prefill", cos, sin)
+    x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+    return _logits(params, cfg, x), caches
+
+
+@_entry
+def decode_step(params, cfg: ModelConfig, tokens, cache, pos):
+    """One decode step. tokens: (B, 1); pos: int index being written.
+    Returns (logits (B, 1, V), new caches); ``cache`` is left as it was."""
+    dev = _device(params)
+    pos = int(pos)
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    x = embed(params["embed"], tokens).to(act_dtype(cfg))
+    if cfg.pos_type == "sinusoidal":
+        x = x + sinusoidal_positions(
+            torch.full((1,), pos, dtype=torch.int32, device=dev), cfg.d_model, x.dtype
+        )
+    cos, sin = _rope_tables(cfg, torch.arange(1, device=dev) + pos)
+    x, new_caches, _ = _run_segments(params, cfg, x, "decode", cos, sin, cache=cache, pos=pos)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _logits(params, cfg, x), new_caches
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None, device="cuda"):
+    """Zero-initialized decode cache (mirrors config._cache_specs).  ``dtype``
+    is accepted for the JAX package's signature and, as there, unused."""
+    del dtype
+    dev = resolve_device(device)
+    return _map(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=dev),
+                _cache_specs(cfg, batch, s_max))
+
+
+def param_count(cfg: ModelConfig) -> int:
+    return sum(math.prod(shape) for shape, _ in _leaves(param_spec(cfg)))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active params per token (MoE: top_k + shared experts only)."""
+    total = param_count(cfg)
+    if cfg.n_experts == 0:
+        return total
+    e, k = cfg.n_experts, cfg.top_k
+    moe_layers = cfg.num_layers - cfg.first_k_dense
+    per_expert = 3 * cfg.d_model * cfg.d_ff_expert
+    return total - moe_layers * e * per_expert + moe_layers * k * per_expert

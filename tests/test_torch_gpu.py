@@ -2669,3 +2669,47 @@ def test_sharded_paths_launch_their_kernels(nccl_world):
         for k in kernels:
             assert launched[label].get(k, 0) > 0, (label, k, launched[label])
     assert "fused_scatter_round_tiles" not in launched["nnz mixed"]
+
+
+LM_ARCHS = ["granite-3-2b", "granite-3-8b", "qwen2-0.5b", "chatglm3-6b", "musicgen-medium",
+            "internvl2-1b", "mamba2-780m", "recurrentgemma-9b"]
+
+
+def _lm_logits(tf, ss, model, cfg, toks, fe, s_prompt, steps, dev):
+    """forward_train, prefill and ``steps`` decode logits of ``model`` on ``dev``."""
+    fe = None if fe is None else fe.to(dev)
+    out = [tf.forward_train(model, cfg, toks.to(dev), fe)[0]]
+    lg, caches = tf.prefill(model, cfg, toks[:, :s_prompt].to(dev), fe)
+    out.append(lg)
+    s0 = s_prompt + (0 if fe is None else fe.shape[1])
+    cache = ss.prefill_to_decode_cache(cfg, caches, s0, s0 + steps)
+    for i in range(steps):
+        lg, cache = tf.decode_step(model, cfg, toks[:, s_prompt + i : s_prompt + i + 1].to(dev),
+                                   cache, s0 + i)
+        out.append(lg)
+    return [o.cpu() for o in out]
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_serving_on_card_equals_cpu(cuda, arch):
+    """The LM serving path (no kernel of its own) on the card against the CPU,
+    same float32 weights, no TF32: forward, prefill and 4 decode logits
+    within 1e-3 (``rtol = atol``), all finite."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import serve_step as ss
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(arch, smoke=True)
+    card = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    host = tf.params_from_reference(cfg, card.numpy_tree(), device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), generator=gen)
+    fe = None
+    if cfg.frontend != "none":
+        fe = torch.randn((2, cfg.n_frontend_tokens, cfg.d_model), generator=gen) * 0.1
+    got = _lm_logits(tf, ss, card, cfg, toks, fe, 16, 4, cuda)
+    want = _lm_logits(tf, ss, host, cfg, toks, fe, 16, 4, "cpu")
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.double().numpy(), w.double().numpy(), rtol=1e-3, atol=1e-3)
