@@ -229,7 +229,7 @@ numpy only, nothing of JAX) and, on one CUDA card:
      world of one beside the unsharded ``propagate_block_ell`` and
      ``propagate_batch`` timed the same way in its process), with the
      seconds each world took to start, run and stop;
- 19. (phase 18, last) the LM serving path (``repro_torch.models``,
+ 19. (phase 18) the LM serving path (``repro_torch.models``,
      ``repro_torch.train.serve_step``; plain PyTorch, no kernel of its own)
      at full width on the card, weights from a seeded ``torch.Generator``:
      ``qwen2-0.5b`` and ``mamba2-780m`` FULL and ``recurrentgemma-9b`` at
@@ -238,8 +238,8 @@ numpy only, nothing of JAX) and, on one CUDA card:
      + 4 decode steps against ``forward_train`` over all 28 on each of the
      three (5e-2, greedy agreement >= 0.99, the reference test's property);
      the port on the card against the port on the CPU, same weights, on
-     the eight SMOKE archs without experts (forward, prefill and 4 decode
-     logits) and on ``qwen2-0.5b`` FULL (one 8-token prompt), within 1e-3;
+     the ten SMOKE archs (forward, prefill and 4 decode logits) and on
+     ``qwen2-0.5b`` FULL (one 8-token prompt), within 1e-3;
      every logit finite.  Then, at the configs' bfloat16, ``generate`` at
      ``serve_lm``'s shape (b = 4, prompt 16, 24 steps) on the three and
      ``qwen2-0.5b`` at b = 32, prompt 512, 64 steps: prefill ms, decode ms
@@ -249,8 +249,31 @@ numpy only, nothing of JAX) and, on one CUDA card:
      card (and the presolve twin on the CPU), their launch counts printed:
      exit 0, ``bounds match: True``, bnb's equal optimum of -126.0, the
      presolve table equal to the CPU twin's;
- 20. prints a ``kernels`` JSON line (the float forms as ``<wrapper>[<form>]``),
-     and last ``{"ok": true, "device": {...}}``.
+ 20. (phase 19, last: after the ``kernels`` line, once the engines' caches
+     that pin phases 1-18's device buffers are released) the archs with
+     experts and MLA and the training path
+     (``repro_torch.nn.moe``/``mla``, ``repro_torch.train``; plain
+     PyTorch, no kernel of its own), weights from a seeded
+     ``torch.Generator``: ``qwen3-moe-30b-a3b`` at full width cut to 4 of
+     48 layers and ``deepseek-v2-236b`` cut to 2 of 60 (its dense first
+     layer and one MoE layer), printed as ``reduced``, each freed before the
+     next.  Float32 gates, TF32 off: prefill + 4 decodes against the full
+     forward (5e-2, greedy agreement >= 0.99); ``moe_apply`` of one qwen3
+     layer at t = 4,608 (the capacity path, at the config's capacity factor
+     and at 1.0, where routings drop) on the card against the CPU, the
+     routing and the drops compared first (a token routed apart must be a
+     near-tie), the outputs within 1e-3; the ``qwen2-0.5b`` FULL float32
+     loss, gradient (leaf by leaf) and one step's loss and gradient norm on
+     the card against the CPU within 1e-3.  ``examples/torch_train_lm.py``
+     runs meanwhile in a process of its own on the card and must end
+     ``improved``.  Then, at bfloat16, ``generate`` of both MoE models at
+     ``serve_lm``'s shape (prefill ms, decode ms a step, tokens/s, peak
+     memory, a traced decode step), and training steps of ``qwen2-0.5b``
+     FULL (b = 8, s = 512, 5 steps) and ``qwen3-moe-30b-a3b`` cut to 2
+     layers (b = 2, s = 1,024, 3 steps): step ms (CUDA events), tokens/s,
+     peak memory, finite losses, one step traced;
+ 21. prints (before phase 19) a ``kernels`` JSON line (the float forms as
+     ``<wrapper>[<form>]``), and last ``{"ok": true, "device": {...}}``.
 
 Each path runs with the launch counters at zero just before it and read just
 after; every kernel must have been launched by the main-path runs.
@@ -261,6 +284,7 @@ Without a CUDA device it exits with code 2 before doing anything.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -4527,37 +4551,38 @@ LM_EXAMPLES = ("torch_quickstart.py", "torch_bnb_dive.py", "torch_presolve_servi
 LM_UNTIMED_DROP = ("ms wall", "latency p50=")
 
 
-def lm_close(torch, got, want, tol: float):
+def lm_close(torch, got, want, tol: float, phase: int = 18):
     """Largest ``|got - want| - tol * |want|`` over ``tol``-scaled entries
     is at most ``tol`` (``allclose`` with ``rtol = atol = tol``); returns the
     largest absolute difference."""
     g, w = got.double(), want.double()
     if not (bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all())):
-        fail("phase 18: non-finite logits")
+        fail(f"phase {phase}: non-finite values")
     diff = (g - w).abs()
     if bool((diff > tol + tol * w.abs()).any()):
-        fail(f"phase 18: logits differ by {float(diff.max()):.3e} (tolerance {tol})")
+        fail(f"phase {phase}: values differ by {float(diff.max()):.3e} (tolerance {tol})")
     return float(diff.max())
 
 
-def lm_prefill_decode_gate(torch, tf, ss, model, cfg, dev, label):
+def lm_prefill_decode_gate(torch, tf, ss, model, cfg, dev, label, phase: int = 18):
     """Gate 1: prefill of 24 tokens + 4 decode steps against
     ``forward_train`` over all 28 (the reference test's property: 5e-2,
     greedy agreement >= 0.99)."""
     gen = torch.Generator(device=dev).manual_seed(LM_SEED + 2)
     toks = torch.randint(0, cfg.vocab_size, (2, 28), generator=gen, device=dev)
-    full, _ = tf.forward_train(model, cfg, toks)
+    with torch.no_grad():
+        full, _ = tf.forward_train(model, cfg, toks)
     lg, caches = tf.prefill(model, cfg, toks[:, :24])
-    errs = [lm_close(torch, lg[:, 0], full[:, 23], 5e-2)]
+    errs = [lm_close(torch, lg[:, 0], full[:, 23], 5e-2, phase)]
     cache = ss.prefill_to_decode_cache(cfg, caches, 24, 48)
     agree = []
     for i in range(4):
         lg, cache = tf.decode_step(model, cfg, toks[:, 24 + i : 25 + i], cache, 24 + i)
-        errs.append(lm_close(torch, lg[:, 0], full[:, 24 + i], 5e-2))
+        errs.append(lm_close(torch, lg[:, 0], full[:, 24 + i], 5e-2, phase))
         agree.append(float((lg[:, 0].argmax(-1) == full[:, 24 + i].argmax(-1)).float().mean()))
     if min(agree) < 0.99:
-        fail(f"phase 18 {label}: greedy agreement {agree}")
-    log(f"phase 18 {label}: float32 prefill 24 + 4 decode steps against forward_train over "
+        fail(f"phase {phase} {label}: greedy agreement {agree}")
+    log(f"phase {phase} {label}: float32 prefill 24 + 4 decode steps against forward_train over "
         f"28 tokens: max |diff| {max(errs):.3e} (tolerance 5e-2), greedy agreement "
         f"{min(agree):.2f}, logits scale {float(full.abs().max()):.1f}")
 
@@ -4573,7 +4598,8 @@ def lm_card_against_cpu(torch, tf, ss, model, cfg, dev, steps=4, s_prompt=16, b=
         fe = torch.randn((b, cfg.n_frontend_tokens, cfg.d_model), generator=gen) * 0.1
     errs = []
     for m, d in ((model, dev), (host, "cpu")):
-        out = [tf.forward_train(m, cfg, toks.to(d), None if fe is None else fe.to(d))[0]]
+        with torch.no_grad():
+            out = [tf.forward_train(m, cfg, toks.to(d), None if fe is None else fe.to(d))[0]]
         if steps:
             lg, caches = tf.prefill(m, cfg, toks[:, :s_prompt].to(d),
                                     None if fe is None else fe.to(d))
@@ -4762,8 +4788,6 @@ def lm_phase(torch, dev):
                 f"same weights): forward logits max |diff| {err:.3e} (tolerance 1e-3)")
             for arch in ARCH_IDS:
                 cfg = get_config(arch, smoke=True)
-                if cfg.attn_type == "mla" or cfg.n_experts:
-                    continue
                 model = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(LM_SEED),
                                        device=dev)
                 err = lm_card_against_cpu(torch, tf, ss, model, cfg, dev)
@@ -4797,6 +4821,301 @@ def lm_phase(torch, dev):
     log(f"phase 18: {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 19: MoE/MLA serving and the training path (no kernel of their own).
+# Serving: (arch, layers kept), full width; deepseek keeps its dense first
+# layer and one MoE layer.  Training: (arch, layers kept or None, batch,
+# sequence, steps) at bfloat16.
+LM_MOE_MODELS = (("qwen3-moe-30b-a3b", 4), ("deepseek-v2-236b", 2))
+LM_SERVE_SHAPE = (4, 16, 24, 64)  # serve_lm's: b, prompt, steps, s_max
+LM_CAPACITY_TOKENS = (2, 2304)    # t = 4,608 > 4,096: the capacity path
+LM_TRAIN_RUNS = (("qwen2-0.5b", None, 8, 512, 5), ("qwen3-moe-30b-a3b", 2, 2, 1024, 3))
+LM_TRAIN_GATE = (1, 64)           # b, s of the float32 card-against-CPU step
+LM_TRAIN_TOL = 1e-3
+
+
+def lm_example_train():
+    """``examples/torch_train_lm.py`` on the card in a process of its own."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    return subprocess.Popen([sys.executable, str(root / "examples" / "torch_train_lm.py")],
+                            cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def lm_reduced(cfg, full, phase: int = 19):
+    if cfg.num_layers != full.num_layers:
+        log(f"phase {phase} reduced: {cfg.name} num_layers {full.num_layers} -> "
+            f"{cfg.num_layers} (segments {cfg.segments()}; full width kept: d_model "
+            f"{cfg.d_model}, n_experts {cfg.n_experts}, d_ff_expert {cfg.d_ff_expert}, "
+            f"vocab {cfg.vocab_size})")
+
+
+def lm_moe_capacity_check(torch, moe, tree_map, model, cfg, dev, capacity_factor):
+    """``moe_apply`` of the first MoE layer at full width past 4,096 tokens
+    (the capacity path, at ``capacity_factor``) on the card against the CPU,
+    float32, same weights and input.  The routing and each routing's keep flag are compared
+    first: a token whose routing differs must be a near-tie of its
+    ``k``-th and ``k+1``-th probabilities (< 1e-5) and is left out of the
+    output comparison with every token whose keep flags differ; the rest
+    within 1e-3, the aux loss too."""
+    from repro_torch.models.transformer import _moe_cfg
+
+    mcfg = _moe_cfg(cfg)._replace(capacity_factor=capacity_factor)
+    seg = cfg.segments().index(("moe", cfg.num_layers - cfg.first_k_dense))
+    card = tree_map(lambda w: w[0].detach(), model.tree()["segments"][seg]["moe"])
+    host = tree_map(lambda w: w.cpu(), card)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED + 4)
+    x = torch.randn(LM_CAPACITY_TOKENS + (cfg.d_model,), generator=gen, device=dev)
+    t = x.shape[0] * x.shape[1]
+    out = {}
+    with torch.no_grad():
+        for name, p, xx in (("card", card, x), ("cpu", host, x.cpu())):
+            y, aux = moe.moe_apply(p, xx, mcfg)
+            probs, _, experts = moe.route(p, xx.reshape(t, -1), mcfg)
+            slot, keep = moe.slots(experts, mcfg.n_experts, moe.capacity(mcfg, t))
+            out[name] = (y.cpu().reshape(t, -1), aux.cpu(), probs.cpu(), experts.cpu(),
+                         keep.cpu().reshape(t, -1))
+    (yc, auxc, pc, ec, kc), (yh, auxh, ph, eh, kh) = out["card"], out["cpu"]
+    routed = (ec == eh).all(-1)
+    for i in torch.nonzero(~routed).flatten().tolist():
+        top = torch.sort(ph[i], descending=True).values
+        gap = float(top[mcfg.top_k - 1] - top[mcfg.top_k])
+        if gap >= 1e-5:
+            fail(f"phase 19: token {i} routed apart on card and CPU (gap {gap:.3e})")
+    same = routed & (kc == kh).all(-1)
+    err = lm_close(torch, yc[same], yh[same], LM_TRAIN_TOL, 19)
+    lm_close(torch, auxc, auxh, LM_TRAIN_TOL, 19)
+    cap = moe.capacity(mcfg, t)
+    log(f"phase 19 moe_apply {cfg.name} layer 0 at t = {t}, capacity factor "
+        f"{capacity_factor} (cap {cap} per expert, "
+        f"{mcfg.n_experts} experts, top {mcfg.top_k}), card against CPU (float32): "
+        f"{int((~kc).sum())} of {t * mcfg.top_k} routings dropped on the card, "
+        f"{int((~kh).sum())} on the CPU; {int((~routed).sum())} tokens routed apart (near-ties), "
+        f"{int((routed & ~same).sum())} with other drops; outputs max |diff| {err:.3e} over "
+        f"{int(same.sum())} tokens (tolerance {LM_TRAIN_TOL}), aux {float(auxc):.6f} against "
+        f"{float(auxh):.6f}")
+
+
+def lm_train_gate(torch, tf, ts, opt, tree_map, paths, model, cfg, dev):
+    """The port's float32 loss and gradient, then one ``make_train_step``
+    step, on the card against the CPU, same weights and batch: the loss,
+    the gradient norm and each leaf's gradient within 1e-3 (``atol`` scaled
+    by the leaf's largest magnitude, floored at 1e-6 of the model's largest
+    gradient: the key bias's exact gradient is zero, and its rounding noise
+    differs between the devices)."""
+    from repro_torch.data.tokens import DataConfig, make_batch
+
+    b, s = LM_TRAIN_GATE
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
+                                  seed=LM_SEED), 0)
+    host = tree_map(lambda w: w.detach(),
+                    tf.params_from_reference(cfg, model.numpy_tree(), device="cpu").tree())
+    card = tree_map(lambda w: w.detach(), model.tree())
+    grad_fn = ts.value_and_grad(ts.make_loss_fn(cfg))
+    opt_cfg = opt.OptimizerConfig(lr_peak=1e-4, warmup_steps=1, total_steps=10)
+    step = ts.make_train_step(cfg, opt_cfg)
+    res = {}
+    for name, p in (("card", card), ("cpu", host)):
+        (loss, _), g = grad_fn(p, batch)
+        _, _, metrics = step(p, opt.init_opt_state(p, opt_cfg), batch)
+        res[name] = (loss.cpu(), dict((k, v.cpu()) for k, v in paths(g)),
+                     {k: v.cpu() for k, v in metrics.items()})
+    (lc, gc, mc), (lh, gh, mh) = res["card"], res["cpu"]
+    lm_close(torch, lc, lh, LM_TRAIN_TOL, 19)
+    for k in ("loss", "grad_norm"):
+        lm_close(torch, mc[k], mh[k], LM_TRAIN_TOL, 19)
+    worst = 0.0
+    top = max(float(v.abs().max()) for v in gh.values())
+    for k, want in gh.items():
+        scale = float(want.abs().max())
+        diff = (gc[k].double() - want.double()).abs()
+        if not bool(torch.isfinite(gc[k]).all()) or bool(
+                (diff > LM_TRAIN_TOL * (scale + want.double().abs()) + 1e-6 * top).any()):
+            fail(f"phase 19: gradient {k} on the card differs from the CPU's by "
+                 f"{float(diff.max()):.3e} (leaf scale {scale:.3e})")
+        worst = max(worst, float(diff.max()) / max(scale, 1e-30))
+    log(f"phase 19 train gate {cfg.name} FULL (float32, b={b}, s={s}), card against CPU: loss "
+        f"{float(lc):.6f} against {float(lh):.6f}, step loss {float(mc['loss']):.6f}, grad norm "
+        f"{float(mc['grad_norm']):.6f} against {float(mh['grad_norm']):.6f}; {len(gh)} gradient "
+        f"leaves, largest |diff| / leaf scale {worst:.3e} (tolerance {LM_TRAIN_TOL})")
+
+
+def lm_train_times(torch, ts, opt, make_params, cfg, dev, b, s, steps):
+    """``steps`` bfloat16 train steps on the tree ``make_params()`` on
+    make_batch's tokens (nothing else holds the masters, so each step's
+    update frees the last): each step's CUDA-event ms, then one step
+    traced.  Returns (first ms, median ms of the rest, tokens/s, peak MiB,
+    losses, trace)."""
+    from repro_torch.data.tokens import DataConfig, make_batch
+
+    opt_cfg = opt.OptimizerConfig(lr_peak=1e-4, warmup_steps=1, total_steps=steps + 1)
+    step = ts.make_train_step(cfg, opt_cfg)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b, seed=LM_SEED)
+    state = [make_params(), None]
+    state[1] = opt.init_opt_state(state[0], opt_cfg)
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+
+    def one(i):
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in make_batch(data, i).items()}
+        state[0], state[1], metrics = step(state[0], state[1], batch)
+        return metrics
+
+    for i in range(steps):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        e[0].record()
+        metrics = one(i)
+        e[1].record()
+        torch.cuda.synchronize()
+        times.append(e[0].elapsed_time(e[1]))
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"phase 19: {cfg.name} train losses {losses}")
+    items = device_items(torch, lambda: one(steps))
+    busy = sum(us for _, us in items) / 1e3
+    names = {}
+    for name, us in items:
+        key = name.replace("(anonymous namespace)::", "").split("(")[0][:40]
+        names[key] = names.get(key, 0.0) + us / 1e3
+    top = ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(names.items(), key=lambda kv: -kv[1])[:3])
+    rest = statistics.median(times[1:])
+    return (times[0], rest, b * s / (rest / 1e3), peak, losses,
+            dict(items=len(items), busy=busy, top=top))
+
+
+def release_propagation_memory(torch):
+    """Drops what phases 1-18 leave on the card -- the engines' caches pin
+    their instances' prepared device buffers -- so phase 19's models have
+    the card to themselves."""
+    import gc
+
+    from repro_torch.core import service, sharded
+    from repro_torch.kernels import ops
+
+    before = torch.cuda.memory_allocated() / 2**20
+    for cache in (ops._prep_cache, ops._batch_prep_cache, ops._batch_runner_cache,
+                  ops._pack_cache, service._engine_cache, sharded._shard_cache,
+                  sharded._batch_shard_cache):
+        cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 19: {before:.0f} MiB allocated after phases 1-18, "
+        f"{torch.cuda.memory_allocated() / 2**20:.0f} MiB after releasing their caches")
+
+
+def lm_train_phase(torch, dev):
+    """Phase 19: serving for the two archs with experts and MLA at full width
+    (cut in depth), the capacity path of ``moe_apply``, and the training
+    path (``repro_torch.train``): a float32 step on the card against the
+    CPU, bfloat16 step times, and ``examples/torch_train_lm.py``.  The
+    float32 gates run while the example runs; the timed runs after it."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.nn import moe
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import serve_step as ss
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.tree import paths, tree_map
+
+    def cut(arch, layers):
+        full = get_config(arch)
+        return full, (full if layers is None else dataclasses.replace(full, num_layers=layers))
+
+    def make(cfg):
+        return tf.init_params(dataclasses.replace(cfg, dtype="float32"),
+                              torch.Generator(device=dev).manual_seed(LM_SEED), device=dev)
+
+    t_phase = time.perf_counter()
+    proc = lm_example_train()
+    try:
+        tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            for arch, layers in LM_MOE_MODELS:
+                full, cfg = cut(arch, layers)
+                cfg32 = dataclasses.replace(cfg, dtype="float32")
+                torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                model = make(cfg)
+                torch.cuda.synchronize()
+                n = tf.param_count(cfg32)
+                log(f"phase 19 model {arch}: d_model={cfg.d_model} layers={cfg.num_layers} "
+                    f"segments={cfg.segments()} experts={cfg.n_experts} top_k={cfg.top_k} "
+                    f"attn={cfg.attn_type} vocab={cfg.vocab_size} params={n} "
+                    f"({n * 4 / 2**30:.2f} GiB as fp32 masters), initialised on the card in "
+                    f"{time.perf_counter() - t:.1f} s")
+                lm_reduced(cfg, full)
+                lm_prefill_decode_gate(torch, tf, ss, model, cfg32, dev, arch, phase=19)
+                if arch == "qwen3-moe-30b-a3b":  # the config's factor, and one that drops
+                    for factor in (cfg.capacity_factor, 1.0):
+                        lm_moe_capacity_check(torch, moe, tree_map, model, cfg32, dev, factor)
+                log(f"phase 19 {arch}: peak {torch.cuda.max_memory_allocated() / 2**20:.0f} "
+                    f"MiB over its float32 gates")
+                del model
+                torch.cuda.empty_cache()
+            _, cfg = cut("qwen2-0.5b", None)
+            model = make(cfg)
+            lm_train_gate(torch, tf, ts, opt, tree_map, paths, model,
+                          dataclasses.replace(cfg, dtype="float32"), dev)
+            del model
+            torch.cuda.empty_cache()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            fail("phase 19: examples/torch_train_lm.py did not finish in 300 s")
+        if proc.returncode != 0:
+            fail(f"phase 19: examples/torch_train_lm.py exited {proc.returncode}: {err[-2000:]}")
+        lines = out.strip().splitlines()
+        log("phase 19 example torch_train_lm.py (the card): exit 0")
+        for line in lines:
+            log(f"  | {line}")
+        if not lines or "(improved)" not in lines[-1]:
+            fail("phase 19: examples/torch_train_lm.py did not end with 'improved'")
+
+        b, s_prompt, steps, s_max = LM_SERVE_SHAPE
+        for arch, layers in LM_MOE_MODELS:
+            _, cfg = cut(arch, layers)
+            model = make(cfg)
+            pre, dec, gen_ms, tps, peak, tr = lm_serve_times(torch, ss, model, cfg, dev,
+                                                             *LM_SERVE_SHAPE)
+            del model
+            torch.cuda.empty_cache()
+            log(f"phase 19 serve {arch} ({cfg.dtype}, {cfg.num_layers} layers, b={b}, prompt "
+                f"{s_prompt}, {steps} steps, s_max {s_max}): prefill {pre:.3f} ms, decode "
+                f"{dec:.3f} ms/step (generate less prefill, over {steps - 1} steps), generate "
+                f"{gen_ms:.3f} ms, {tps:.1f} tokens/s, peak {peak:.0f} MiB (medians of "
+                f"{LM_REPS}, CUDA events); a decode step traced: {tr['items']:.0f} device "
+                f"items, busy {tr['busy']:.3f} ms of {tr['wall']:.3f} ms wall, idle share "
+                f"{1 - tr['busy'] / tr['wall']:.3f}; largest: {tr['top']}")
+
+        for arch, layers, b, s, steps in LM_TRAIN_RUNS:
+            full, cfg = cut(arch, layers)
+            lm_reduced(cfg, full)
+            first, ms, tps, peak, losses, tr = lm_train_times(
+                torch, ts, opt, lambda: tree_map(lambda w: w.detach(), make(cfg).tree()), cfg,
+                dev, b, s, steps)
+            torch.cuda.empty_cache()
+            log(f"phase 19 train {arch} ({cfg.dtype}, {cfg.num_layers} layers, b={b}, s={s}, "
+                f"{steps} steps): first step {first:.3f} ms, then {ms:.3f} ms/step (median of "
+                f"{steps - 1}, CUDA events), {tps:.1f} tokens/s, peak {peak:.0f} MiB, losses "
+                f"{[round(x, 4) for x in losses]}; one more step traced: {tr['items']} device "
+                f"items, busy {tr['busy']:.3f} ms; largest: {tr['top']}")
+    finally:  # stop the example if a gate failed
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -4812,6 +5131,8 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     smoke(torch, torch.device("cuda"))
+    release_propagation_memory(torch)
+    lm_train_phase(torch, torch.device("cuda"))
     log(f"total: {time.perf_counter() - t0:.1f} s")
     log(f"gpu: {smi}")
     print(json.dumps({

@@ -1,10 +1,6 @@
 """Architecture registry: ``get_config(arch, smoke=False)`` -> the FULL or
 SMOKE :class:`~repro_torch.models.config.ModelConfig` of each of the ten
 architectures, field for field the JAX package's.
-
-Configs are data: the two with experts or MLA (``deepseek-v2-236b``,
-``qwen3-moe-30b-a3b``) are here too, although their modules are not ported
-yet (ROADMAP Queue 1 item 15, part two).
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
 """Synthetic MIP instance generation (MIPLIB-like structural mixes) and a
-free-format MPS reader/writer, numpy."""
+free-format MPS reader/writer, numpy.  The deterministic LM token pipeline
+is ``data.tokens`` (not exported here, as in the JAX package)."""
 from .instances import (
     FAMILIES,
     SIZE_SETS,

@@ -1,5 +1,5 @@
-"""Composable decoder stack: the serving path of the architectures without
-experts or multi-head latent attention.
+"""Composable decoder stack covering all ten assigned architectures:
+training (``forward_train`` with autograd), prefill and decode.
 
 Layers are grouped into homogeneous *segments* (``ModelConfig.segments()``)
 whose parameters are stacked ``(count, ...)`` as in the JAX package; the
@@ -10,19 +10,21 @@ leaf for leaf.
 Block kinds:
   dense     -- GQA attention + SwiGLU            (granite/qwen2/chatglm3/
                                                   musicgen/internvl2 LM)
+  moe       -- attention (GQA or MLA) + MoE      (qwen3-moe, deepseek-v2)
   mamba2    -- Mamba-2 SSD block                 (mamba2-780m)
   pattern   -- RecurrentGemma period: each sub-layer is (RG-LRU | local
                attention) + SwiGLU, pattern e.g. ("rec","rec","attn")
 
-The ``moe`` kind and ``attn_type="mla"`` (deepseek-v2, qwen3-moe) raise
-``NotImplementedError``: ROADMAP Queue 1 item 15, part two.  Sharding
-(``shd=``, ``mesh=``) is item 15's ``launch/`` part and is accepted only as
-``None``.
+Sharding (``shd=``, ``mesh=``) is item 15's ``launch/`` part (part three)
+and is accepted only as ``None``.
 
 Every block has three modes: train (full seq, no cache), prefill (full seq,
 emit cache), decode (one token, consume+emit cache).  Parameters are fp32
-masters cast to the activation dtype at use.  Everything runs eagerly under
-``torch.no_grad`` (``forward_train``'s backward is item 15, part two).
+masters cast to the activation dtype at use.  ``forward_train`` runs under
+the caller's grad mode, so autograd reaches every leaf through the ``w[i]``
+indexing; with ``cfg.remat`` each layer is recomputed in the backward
+(``torch.utils.checkpoint``, the JAX package's ``nothing_saveable``
+policy).  ``prefill`` and ``decode_step`` run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -33,30 +35,24 @@ from typing import Any, Dict
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.propagator import resolve_device
 from ..nn import attention as attn_lib
+from ..nn import mla as mla_lib
+from ..nn import moe as moe_lib
 from ..nn import rglru as rglru_lib
 from ..nn import ssm as ssm_lib
 from ..nn.ffn import swiglu
-from ..nn.layers import dense, embed, normal_init, rmsnorm, sinusoidal_positions, unembed
+from ..nn.layers import (dense, embed, full_leaf, init_leaf, normal_leaf, rmsnorm,
+                         sinusoidal_positions, unembed)
 from ..nn.rope import apply_rope, rope_cos_sin
 from .config import ModelConfig, _cache_specs
 
 Params = Dict[str, Any]
 
-# The ROADMAP items that name what this module does not port yet.
-PART_TWO = "ROADMAP Queue 1 item 15, part two"
+# The ROADMAP item that names what this module does not port yet.
 LAUNCH_PART = "ROADMAP Queue 1 item 15, part three (launch/)"
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the block kinds that are not ported yet (``moe``, MLA)."""
-    if cfg.attn_type == "mla" or any(kind == "moe" for kind, _ in cfg.segments()):
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts and multi-head latent attention "
-            f"blocks are {PART_TWO}"
-        )
 
 
 def check_unsharded(shd=None, mesh=None) -> None:
@@ -78,6 +74,30 @@ def padded_vocab(cfg: ModelConfig) -> int:
     part in the greedy ``argmax``, as in the JAX package."""
     v = cfg.vocab_size
     return v if v % 256 == 0 else v + (256 - v % 256)
+
+
+def _mla_cfg(cfg: ModelConfig) -> mla_lib.MLAConfig:
+    return mla_lib.MLAConfig(
+        d_model=cfg.d_model,
+        n_heads=cfg.n_heads,
+        q_lora_rank=cfg.q_lora_rank,
+        kv_lora_rank=cfg.kv_lora_rank,
+        qk_nope_dim=cfg.qk_nope_dim,
+        qk_rope_dim=cfg.qk_rope_dim,
+        v_dim=cfg.v_head_dim,
+    )
+
+
+def _moe_cfg(cfg: ModelConfig) -> moe_lib.MoEConfig:
+    return moe_lib.MoEConfig(
+        n_experts=cfg.n_experts,
+        top_k=cfg.top_k,
+        d_model=cfg.d_model,
+        d_ff_expert=cfg.d_ff_expert,
+        n_shared=cfg.n_shared,
+        d_ff_shared=cfg.d_ff_shared,
+        capacity_factor=cfg.capacity_factor,
+    )
 
 
 def _mamba_cfg(cfg: ModelConfig) -> ssm_lib.Mamba2Config:
@@ -106,11 +126,11 @@ def _n_sub(cfg: ModelConfig, kind: str) -> int:
 
 
 def _normal(*shape, scale):
-    return (tuple(shape), ("normal", scale))
+    return normal_leaf(shape, scale)
 
 
 def _const(value, *shape):
-    return (tuple(shape), ("full", value))
+    return full_leaf(shape, value)
 
 
 def _dense_spec(d_in: int, d_out: int, bias: bool):
@@ -176,9 +196,14 @@ def _rglru_spec(cfg: ModelConfig):
 
 
 def _block_spec(kind: str, cfg: ModelConfig):
-    if kind == "dense":
-        return {"ln1": _norm_spec(cfg.d_model), "ln2": _norm_spec(cfg.d_model),
-                "attn": _gqa_spec(cfg), "mlp": _swiglu_spec(cfg.d_model, cfg.d_ff)}
+    if kind in ("dense", "moe"):
+        attn = mla_lib.mla_spec(_mla_cfg(cfg)) if cfg.attn_type == "mla" else _gqa_spec(cfg)
+        p = {"ln1": _norm_spec(cfg.d_model), "ln2": _norm_spec(cfg.d_model), "attn": attn}
+        if kind == "dense":
+            p["mlp"] = _swiglu_spec(cfg.d_model, cfg.d_ff)
+        else:
+            p["moe"] = moe_lib.moe_spec(_moe_cfg(cfg))
+        return p
     if kind == "mamba2":
         return {"ln1": _norm_spec(cfg.d_model), "mix": _mamba_spec(cfg)}
     if kind.startswith("pattern"):
@@ -214,7 +239,6 @@ def _leaves(tree):
 def param_spec(cfg: ModelConfig):
     """The parameter tree of ``cfg`` with ``(shape, init rule)`` leaves, in
     the JAX package's ``init_params`` layout (segments stacked)."""
-    check_supported(cfg)
     vpad = padded_vocab(cfg)
     spec = {
         "embed": {"table": _normal(vpad, cfg.d_model, scale=1.0)},
@@ -269,7 +293,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, tree: Params):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         for name, sub in tree.items():
             self.add_module(name, _module(sub))
@@ -311,14 +334,12 @@ def init_params(cfg: ModelConfig, generator, device="cuda") -> Transformer:
     gen = _generator(generator, dev)
 
     def make(leaf):
-        shape, (rule, *arg) = leaf
-        if rule == "normal":
-            return normal_init(gen, shape, arg[0], dev)
+        shape, (rule, *_) = leaf
         if rule == "a_log":
             h = shape[-1]
             row = torch.log(torch.linspace(1.0, 16.0, h, dtype=torch.float32, device=dev))
             return row.expand(shape).clone()
-        return torch.full(shape, arg[0], dtype=torch.float32, device=dev)
+        return init_leaf(gen, leaf, dev)
 
     return Transformer(cfg, _map(make, param_spec(cfg)))
 
@@ -406,16 +427,29 @@ def block_apply(kind: str, p, x, cfg: ModelConfig, mode, cos, sin,
     """Returns (x, new_cache, aux_loss)."""
     check_unsharded(shd)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if kind == "dense":
-        check_supported(cfg)
+    if kind in ("dense", "moe"):
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-        y, new_cache = gqa_apply(
-            p["attn"], h, cfg, mode, cos, sin, cache, pos,
-            window=cfg.local_window, q_offset=q_offset,
-        )
+        if cfg.attn_type == "mla":
+            if mode == "decode":
+                y, (c, kr) = mla_lib.mla_decode(p["attn"], h, _mla_cfg(cfg), cos, sin,
+                                                (cache["c"], cache["kr"]), pos)
+                new_cache = {"c": c, "kr": kr}
+            else:
+                y, (c, kr) = mla_lib.mla_attention(p["attn"], h, _mla_cfg(cfg), cos, sin,
+                                                   chunk=cfg.attn_chunk,
+                                                   causal_skip=cfg.causal_skip)
+                new_cache = {"c": c, "kr": kr} if mode == "prefill" else None
+        else:
+            y, new_cache = gqa_apply(
+                p["attn"], h, cfg, mode, cos, sin, cache, pos,
+                window=cfg.local_window, q_offset=q_offset,
+            )
         x = x + y
         h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
-        return x + swiglu(p["mlp"], h2), new_cache, aux
+        if kind == "dense":
+            return x + swiglu(p["mlp"], h2), new_cache, aux
+        ym, aux = moe_lib.moe_apply(p["moe"], h2, _moe_cfg(cfg))
+        return x + ym, new_cache, aux
 
     if kind == "mamba2":
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -463,8 +497,6 @@ def block_apply(kind: str, p, x, cfg: ModelConfig, mode, cos, sin,
             x = x + swiglu(sub["mlp"], h2)
         return x, (new_cache if mode != "train" else None), aux
 
-    if kind == "moe":
-        check_supported(cfg)
     raise ValueError(kind)
 
 
@@ -474,12 +506,11 @@ def block_apply(kind: str, p, x, cfg: ModelConfig, mode, cos, sin,
 
 
 def _entry(fn):
-    """An entry point over ``params`` (a :class:`Transformer` or its tree):
-    checks the config and ``shd``, and runs without autograd."""
+    """A serving entry point over ``params`` (a :class:`Transformer` or its
+    tree): checks ``shd``, and runs without autograd."""
 
     @functools.wraps(fn)
     def run(params, cfg, *args, shd=None, **kw):
-        check_supported(cfg)
         check_unsharded(shd)
         with torch.no_grad():
             return fn(_params(params), cfg, *args, **kw)
@@ -492,6 +523,8 @@ def _device(params: Params) -> torch.device:
 
 
 def _rope_tables(cfg: ModelConfig, positions):
+    if cfg.attn_type == "mla":
+        return rope_cos_sin(positions, cfg.qk_rope_dim, cfg.rope_theta)
     rd = _rot(cfg)
     if cfg.pos_type != "rope" or rd == 0:
         return rope_cos_sin(positions, 2, cfg.rope_theta)  # dummy dim-2 tables
@@ -523,19 +556,29 @@ def _stack(trees):
     return torch.stack(trees)
 
 
+def _layer(kind, seg_params, li, x, cfg, mode, cos, sin, cache, pos):
+    return block_apply(kind, _index(seg_params, li), x, cfg, mode, cos, sin, cache, pos)
+
+
 def _run_segments(params, cfg: ModelConfig, x, mode, cos, sin, cache=None, pos=None):
     """Each segment's layers in order (``w[i]`` of the stacked leaves).
-    Returns (x, new_caches, aux_total)."""
+    Returns (x, new_caches, aux_total).  A training forward with autograd
+    on and ``cfg.remat`` keeps only each layer's input and recomputes the
+    layer in the backward."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     new_caches = []
+    remat = mode == "train" and cfg.remat and torch.is_grad_enabled()
     for idx, (kind, count) in enumerate(cfg.segments()):
         seg_params = params["segments"][idx]
         seg_cache = cache[idx] if cache is not None else None
         ncs = []
         for li in range(count):
             lc = _index(seg_cache, li) if seg_cache is not None else None
-            x, nc, a = block_apply(kind, _index(seg_params, li), x, cfg, mode, cos, sin,
-                                   lc, pos)
+            args = (kind, seg_params, li, x, cfg, mode, cos, sin, lc, pos)
+            if remat:
+                x, nc, a = checkpoint(_layer, *args, use_reentrant=False)
+            else:
+                x, nc, a = _layer(*args)
             aux_total = aux_total + a
             ncs.append(nc)
         new_caches.append(_stack(ncs) if mode != "train" else None)
@@ -548,9 +591,12 @@ def _logits(params, cfg: ModelConfig, x):
     return dense(params["lm_head"], x)
 
 
-@_entry
-def forward_train(params, cfg: ModelConfig, tokens, frontend_embeds=None):
-    """Full training forward -> (logits (B, S, V), aux).  Forward only."""
+def forward_train(params, cfg: ModelConfig, tokens, frontend_embeds=None, shd=None):
+    """Full training forward -> (logits (B, S, V), aux (float32 MoE
+    load-balance loss summed over layers)).  Runs under the caller's grad
+    mode: wrap it in ``torch.no_grad`` to serve, differentiate it to train."""
+    check_unsharded(shd)
+    params = _params(params)
     x = _embed_inputs(params, cfg, tokens, frontend_embeds)
     cos, sin = _rope_tables(cfg, torch.arange(x.shape[1], device=x.device))
     x, _, aux = _run_segments(params, cfg, x, "train", cos, sin)

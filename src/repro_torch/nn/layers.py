@@ -19,6 +19,34 @@ def normal_init(gen: torch.Generator, shape, scale: float = 0.02, device=None):
     return (x * scale).to(device or gen.device)
 
 
+def normal_leaf(shape, scale: float):
+    """A parameter-spec leaf: ``(shape, ("normal", scale))``."""
+    return (tuple(shape), ("normal", scale))
+
+
+def full_leaf(shape, value: float):
+    """A parameter-spec leaf: ``(shape, ("full", value))``."""
+    return (tuple(shape), ("full", value))
+
+
+def init_leaf(gen: torch.Generator, leaf, device=None):
+    """The fp32 tensor of one :func:`normal_leaf` / :func:`full_leaf`."""
+    shape, (rule, arg) = leaf
+    if rule == "normal":
+        return normal_init(gen, shape, arg, device)
+    if rule == "full":
+        return torch.full(shape, arg, dtype=torch.float32, device=device or gen.device)
+    raise ValueError(f"unknown init rule {rule!r}")
+
+
+def init_from_spec(gen: torch.Generator, spec, device=None):
+    """fp32 tensors for a dict tree of :func:`normal_leaf` / :func:`full_leaf`
+    leaves, the normal ones drawn from ``gen`` in the tree's order."""
+    if isinstance(spec, dict):
+        return {k: init_from_spec(gen, v, device) for k, v in spec.items()}
+    return init_leaf(gen, spec, device)
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------

@@ -1,2 +1,2 @@
-"""Serving substrate (``serve_step``).  The training half -- optimizer, train
-step, checkpointing -- is ROADMAP Queue 1 item 15, part two."""
+"""Training/serving substrate: optimizer, train step, checkpointing and the
+serving step."""

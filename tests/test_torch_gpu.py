@@ -2672,13 +2672,15 @@ def test_sharded_paths_launch_their_kernels(nccl_world):
 
 
 LM_ARCHS = ["granite-3-2b", "granite-3-8b", "qwen2-0.5b", "chatglm3-6b", "musicgen-medium",
-            "internvl2-1b", "mamba2-780m", "recurrentgemma-9b"]
+            "internvl2-1b", "mamba2-780m", "recurrentgemma-9b", "deepseek-v2-236b",
+            "qwen3-moe-30b-a3b"]
 
 
 def _lm_logits(tf, ss, model, cfg, toks, fe, s_prompt, steps, dev):
     """forward_train, prefill and ``steps`` decode logits of ``model`` on ``dev``."""
     fe = None if fe is None else fe.to(dev)
-    out = [tf.forward_train(model, cfg, toks.to(dev), fe)[0]]
+    with torch.no_grad():
+        out = [tf.forward_train(model, cfg, toks.to(dev), fe)[0]]
     lg, caches = tf.prefill(model, cfg, toks[:, :s_prompt].to(dev), fe)
     out.append(lg)
     s0 = s_prompt + (0 if fe is None else fe.shape[1])
@@ -2713,3 +2715,50 @@ def test_lm_serving_on_card_equals_cpu(cuda, arch):
     for g, w in zip(got, want):
         assert torch.isfinite(g).all()
         np.testing.assert_allclose(g.double().numpy(), w.double().numpy(), rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_lm_train_step_on_card_equals_cpu(cuda, arch):
+    """The training path (no kernel of its own) on the card against the
+    CPU, same float32 weights and batch, no TF32: the loss and every leaf's
+    gradient within 1e-3 (``atol`` scaled by the leaf's largest magnitude,
+    floored at ``1e-6 x`` the model's largest gradient: the key bias's exact
+    gradient is zero, and its rounding noise differs between the devices),
+    then one ``make_train_step`` step: its loss, gradient norm and learning
+    rate.  (The params after it are not compared: Adam's first update is
+    about ``lr * sign(g)``, and the key bias's exact gradient is zero.)"""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig, make_batch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.tree import paths, tree_map
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = get_config(arch, smoke=True)
+    card = tf.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    host = tf.params_from_reference(cfg, card.numpy_tree(), device="cpu")
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=32, global_batch=2), 0)
+    if cfg.frontend != "none":
+        batch["frontend_embeds"] = (torch.randn((2, cfg.n_frontend_tokens, cfg.d_model),
+                                                generator=torch.Generator().manual_seed(1))
+                                    * 0.02).numpy()
+    opt_cfg = opt.OptimizerConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    step = ts.make_train_step(cfg, opt_cfg)
+    out = []
+    for model in (card, host):
+        p = tree_map(lambda t: t.detach(), model.tree())
+        (loss, _), g = ts.value_and_grad(ts.make_loss_fn(cfg))(p, batch)
+        _, _, metrics = step(p, opt.init_opt_state(p, opt_cfg), batch)
+        out.append((float(loss), {k: v.cpu() for k, v in paths(g)},
+                    {k: float(v) for k, v in metrics.items()}))
+    (l_c, g_c, m_c), (l_h, g_h, m_h) = out
+    np.testing.assert_allclose(l_c, l_h, rtol=1e-3, atol=1e-3)
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(m_c[k], m_h[k], rtol=1e-3, atol=1e-3, err_msg=k)
+    top = max(float(v.abs().max()) for v in g_h.values())
+    for k, want in g_h.items():
+        assert torch.isfinite(g_c[k]).all(), k
+        scale = float(want.abs().max())
+        np.testing.assert_allclose(g_c[k].double().numpy(), want.double().numpy(), rtol=1e-3,
+                                   atol=1e-3 * scale + 1e-6 * top, err_msg=k)

@@ -25,7 +25,9 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.obs.trace, repro_torch.core.seq_ref, repro_torch.core.presolve\n"
         "import repro_torch.data.mps, repro_torch.core.sharded\n"
         "import repro_torch.models, repro_torch.nn, repro_torch.configs\n"
-        "import repro_torch.train.serve_step\n"
+        "import repro_torch.train.serve_step, repro_torch.nn.moe, repro_torch.nn.mla\n"
+        "import repro_torch.train.optimizer, repro_torch.train.train_step\n"
+        "import repro_torch.train.checkpoint, repro_torch.data.tokens, repro_torch.launch.train\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

@@ -145,13 +145,22 @@ def test_params_from_reference_refuses_a_mismatch():
 
 @pytest.mark.parametrize("arch", EXPERTS)
 def test_experts_and_mla_are_part_two(arch):
-    tcfg = t_configs.get_config(arch, smoke=True)
-    for call in (lambda: t_tf.init_params(tcfg, 0, device="cpu"),
-                 lambda: t_tf.param_count(tcfg),
-                 lambda: t_tf.params_from_reference(tcfg, {}, device="cpu"),
-                 lambda: t_tf.forward_train({}, tcfg, np.zeros((1, 2), np.int32))):
-        with pytest.raises(NotImplementedError, match="item 15, part two"):
-            call()
+    """The calls that raised before part two (item 15) was ported now run:
+    the parameter counts equal the reference's, ``params_from_reference``
+    checks its tree, and ``forward_train`` gives finite logits (the serving
+    and training contracts: ``test_torch_lm_serve_moe.py``,
+    ``test_torch_train_moe.py``, ``test_torch_train_deepseek.py``)."""
+    for smoke in (False, True):
+        cfg, tcfg = get_config(arch, smoke), t_configs.get_config(arch, smoke)
+        assert t_tf.param_count(tcfg) == r_tf.param_count(cfg)
+        assert t_tf.active_param_count(tcfg) == r_tf.active_param_count(cfg)
+    model = t_tf.init_params(tcfg, 0, device="cpu")
+    assert sum(p.numel() for p in model.parameters()) == t_tf.param_count(tcfg)
+    with pytest.raises(ValueError, match="left unset"):
+        t_tf.params_from_reference(tcfg, {}, device="cpu")
+    with torch.no_grad():
+        logits, aux = t_tf.forward_train(model, tcfg, np.zeros((1, 2), np.int32))
+    assert bool(torch.isfinite(logits).all()) and float(aux) > 0
 
 
 def test_sharding_is_refused():

@@ -1,0 +1,28 @@
+"""The port's training path against the reference's for ``musicgen-medium``
+(sinusoidal positions, audio frames prepended, the loss on the text
+positions), SMOKE config at float32 on the CPU, weights carried over from
+the reference's ``init_params``.
+
+One file per arch, so that ``--dist loadfile`` spreads the reference's
+compiles over workers.  Contracts and tolerances:
+``tests/torch_train_common.py``.
+"""
+import torch_train_common as tc
+
+ARCH = "musicgen-medium"
+
+
+def test_loss_and_parts():
+    tc.check_loss(ARCH)
+
+
+def test_grads_leaf_by_leaf():
+    tc.check_grads(ARCH)
+
+
+def test_two_train_steps():
+    print(ARCH, tc.check_steps(ARCH))
+
+
+def test_remat_grads_bitwise():
+    tc.check_remat_bitwise(ARCH)

@@ -48,10 +48,15 @@ def _np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-@functools.lru_cache(maxsize=None)
 def reference_run(arch: str, dtype: str = "float32", generate: bool = True) -> dict:
     """The reference's forward, prefill, decode-cache conversion, STEPS
-    decode steps (the prompt's next tokens fed in) and ``generate``."""
+    decode steps (the prompt's next tokens fed in) and ``generate``.
+    Cached by ``(arch, dtype, generate)`` however the call spells them."""
+    return _reference_run(arch, dtype, generate)
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_run(arch: str, dtype: str, generate: bool) -> dict:
     cfg, _ = configs(arch, dtype)
     params = jax.jit(functools.partial(r_tf.init_params, cfg))(jax.random.PRNGKey(0))
     toks, fe = inputs(cfg)
@@ -78,16 +83,21 @@ def reference_run(arch: str, dtype: str = "float32", generate: bool = True) -> d
     return out
 
 
-@functools.lru_cache(maxsize=None)
 def port_run(arch: str, dtype: str = "float32", generate: bool = True) -> dict:
     """The same calls through the port, on the reference's weights."""
+    return _port_run(arch, dtype, generate)
+
+
+@functools.lru_cache(maxsize=None)
+def _port_run(arch: str, dtype: str, generate: bool) -> dict:
     ref = reference_run(arch, dtype, generate)
     _, cfg = configs(arch, dtype)
     model = t_tf.params_from_reference(cfg, ref["params"], device="cpu")
     toks, fe = ref["toks"], ref["fe"]
     tfe = None if fe is None else torch.tensor(fe)
     out = {"model": model}
-    out["forward"] = t_tf.forward_train(model, cfg, toks, frontend_embeds=tfe)[0]
+    with torch.no_grad():  # serving: no graph
+        out["forward"] = t_tf.forward_train(model, cfg, toks, frontend_embeds=tfe)[0]
     logits, caches = t_tf.prefill(model, cfg, toks[:, :S_PROMPT], frontend_embeds=tfe)
     out["prefill"], out["prefill_caches"] = logits, caches
     cache = t_serve.prefill_to_decode_cache(cfg, caches, ref["s0"], S_MAX)
@@ -155,7 +165,8 @@ def self_consistency(arch: str, tol=dict(rtol=5e-2, atol=5e-2)):
     model = t_tf.init_params(cfg, 0, device="cpu")
     b, s_pre, s_max = 2, 24, 48
     toks = np.random.default_rng(2).integers(0, cfg.vocab_size, (b, s_pre + 4))
-    full, _ = t_tf.forward_train(model, cfg, toks)
+    with torch.no_grad():
+        full, _ = t_tf.forward_train(model, cfg, toks)
     lg, caches = t_tf.prefill(model, cfg, toks[:, :s_pre])
     assert lg.dtype == torch.float64
     assert_close(lg[:, 0], full[:, s_pre - 1], tol)
