@@ -272,7 +272,28 @@ numpy only, nothing of JAX) and, on one CUDA card:
      FULL (b = 8, s = 512, 5 steps) and ``qwen3-moe-30b-a3b`` cut to 2
      layers (b = 2, s = 1,024, 3 steps): step ms (CUDA events), tokens/s,
      peak memory, finite losses, one step traced;
- 21. prints (before phase 19) a ``kernels`` JSON line (the float forms as
+ 21. (phase 20, after phase 19) the sharded LM models, the counted
+     propagation rounds and the dry run (``repro_torch.launch``,
+     ``repro_torch.roofline``): (a) on a world of one NCCL rank,
+     ``qwen2-0.5b`` FULL (float32) through ``make_train_step(..., mesh=)``
+     on a ``(1, 1)`` mesh, its loss and every gradient leaf against the
+     unsharded port step within 1e-5 of the leaf's scale, one step's params
+     likewise (entries whose gradient is at the rounding level held to
+     Adam's bound), a prefill and 4 decodes through ``make_prefill_fn`` /
+     ``make_serve_step`` with the mesh against the unsharded ones; (c)
+     ``launch.perf.run_propagation_variants("single")``: one round of each
+     partition on rank 0 of a 256-rank fake world at the reference's size,
+     its kernels on the card, the counted collective bytes equal to
+     ``lower_sharded``'s, the launches printed; (d) ``launch.dryrun.run_cell
+     ("granite-3-2b", "train_4k", "single")``, run in a process of its own
+     from the start of the script (no card: minutes of one CPU core), and
+     ``run_propagation_dryrun``, their records and seconds printed, with the
+     card's ``total_memory``; (b) on four gloo ranks with CPU tensors
+     (gloo dies on DTensor's all-gather of CUDA tensors with the card's
+     PyTorch: ``tools/dtensor_gloo.py``), ``granite-3-2b`` SMOKE on a
+     ``(2, 2)`` mesh, one step and a prefill plus 4 decodes (the cache split
+     over its sequence) against the unsharded port within 1e-5;
+ 22. prints (before phase 19) a ``kernels`` JSON line (the float forms as
      ``<wrapper>[<form>]``), and last ``{"ok": true, "device": {...}}``.
 
 Each path runs with the launch counters at zero just before it and read just
@@ -283,6 +304,7 @@ Without a CUDA device it exits with code 2 before doing anything.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -5116,6 +5138,343 @@ def lm_train_phase(torch, dev):
     log(f"phase 19: {time.perf_counter() - t_phase:.1f} s")
 
 
+# Phase 20: sharded LM models on DTensor, the propagation rounds counted on a
+# fake world, and the dry run.
+LAUNCH_ARCH = "qwen2-0.5b"        # (a): FULL width on a (1, 1) mesh, float32
+LAUNCH_TRAIN = (2, 64)            # b, s of (a)'s train step
+LAUNCH_SERVE = (2, 16, 4, 32)     # b, prompt, decodes, cache slots of (a)'s serving
+LAUNCH_TOL = 1e-5                 # (a), (b) against the unsharded port
+LAUNCH_GLOO = "granite-3-2b"      # (b): SMOKE on a (2, 2) mesh of four gloo ranks, CPU tensors
+LAUNCH_GLOO_TRAIN = (4, 32)       # b, s of (b)'s train step
+
+
+def _launch_full(tree):
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.train.tree import tree_map
+
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor) else t, tree)
+
+
+def _launch_leaf_gap(torch, got, want, top) -> float:
+    """Largest ``|got - want|`` over the leaf's scale; raises past
+    ``LAUNCH_TOL`` of the scale (floored at 1e-6 of the model's largest)."""
+    scale = float(want.abs().max())
+    diff = float((got.double() - want.double()).abs().max())
+    if not bool(torch.isfinite(got).all()) or diff > LAUNCH_TOL * scale + 1e-6 * top:
+        raise AssertionError(f"gap {diff:.3e} at leaf scale {scale:.3e}")
+    return diff / max(scale, 1e-30)
+
+
+def _launch_serve_gap(cfg, tree, placed, mesh, toks, steps: int, s_max: int) -> float:
+    """A prefill of ``toks`` and ``steps`` greedy decodes (a cache of
+    ``s_max`` slots) through ``make_prefill_fn`` / ``make_serve_step``
+    unsharded on ``tree`` and with ``mesh`` on ``placed`` (the decode cache
+    placed by ``cache_spec``): the largest |difference| of their logits
+    over the unsharded logits' scale; raises past LAUNCH_TOL."""
+    import torch
+
+    from repro_torch.launch import sharding as sh
+    from repro_torch.train import serve_step as ss
+
+    shd = sh.Sharder(mesh)
+    prompt = toks.shape[1]
+    runs = []
+    for m in (None, mesh):
+        params = tree if m is None else placed
+        tk = toks if m is None else shd.batch(toks)
+        logits, caches = ss.make_prefill_fn(cfg, m)(params, tk)
+        with shd.region() if m is not None else contextlib.nullcontext():
+            cache = ss.prefill_to_decode_cache(cfg, caches, prompt, s_max)
+        if m is not None:  # placed by cache_spec: KV heads or the sequence over "model"
+            cache = sh.shard_tree(cache, sh.batch_shardings(cfg, m, {"cache": cache})["cache"])
+        seen = [_launch_full({"x": logits})["x"]]
+        serve = ss.make_serve_step(cfg, m)
+        for i in range(steps):
+            tok = torch.argmax(seen[-1][:, -1], dim=-1)[:, None].to(torch.int32)
+            logits, cache = serve(params, tok if m is None else shd.batch(tok), cache,
+                                  prompt + i)
+            seen.append(_launch_full({"x": logits})["x"])
+        runs.append(seen)
+    gap = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+              for a, b in zip(runs[1], runs[0]))
+    if gap > LAUNCH_TOL:
+        raise AssertionError(f"serving logits differ by {gap:.3e} of their scale")
+    return gap
+
+
+def launch_gloo_rank(rank, world_size):
+    """Phase 20 (b), on a world of four gloo ranks with CPU tensors:
+    ``granite-3-2b`` SMOKE (float32) on a ``(2, 2)`` mesh through
+    ``make_train_step(..., mesh=)``, one step against the unsharded port
+    step on the same weights in this rank (loss within LAUNCH_TOL relative,
+    every new parameter within LAUNCH_TOL), then a prefill and decodes with
+    the decode cache split over its sequence, as ``_launch_serve_gap``
+    holds them.  CPU tensors: with the card's PyTorch, gloo dies on
+    DTensor's all-gather, reduce-scatter and all-to-all of CUDA tensors
+    (``tools/dtensor_gloo.py``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig, make_batch
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.tree import paths, tree_map
+
+    del rank, world_size
+    cfg = get_config(LAUNCH_GLOO, smoke=True)
+    tree = tree_map(lambda w: w.detach(), tf.init_params(cfg, LM_SEED, device="cpu").tree())
+    mesh = lmesh.make_test_mesh((2, 2), device_type="cpu")
+    placed = sh.shard_tree(tree, sh.param_shardings(cfg, mesh))
+    b, s = LAUNCH_GLOO_TRAIN
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
+                                  seed=LM_SEED), 0)
+    batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+    oc = opt.OptimizerConfig(lr_peak=1e-3, warmup_steps=1, total_steps=10)
+    p0, _, m0 = ts.make_train_step(cfg, oc)(tree, opt.init_opt_state(tree, oc), batch)
+    state = sh.shard_tree(opt.init_opt_state(tree, oc), sh.opt_state_shardings(cfg, mesh, oc))
+    p1, _, m1 = ts.make_train_step(cfg, oc, mesh)(
+        placed, state, sh.shard_tree(batch, sh.batch_shardings(cfg, mesh, batch)))
+    p1 = dict(paths(_launch_full(p1)))
+    out = {"loss": (float(m0["loss"]), float(_launch_full({"l": m1["loss"]})["l"])),
+           "param_gap": max(float((p1[k] - v).abs().max()) for k, v in paths(p0))}
+    if out["param_gap"] > LAUNCH_TOL:
+        raise AssertionError(f"params differ by {out['param_gap']:.3e}")
+    bs, prompt, steps, s_max = LAUNCH_SERVE
+    toks = torch.randint(0, cfg.vocab_size, (bs, prompt),
+                         generator=torch.Generator().manual_seed(LM_SEED))
+    out["serve_gap"] = _launch_serve_gap(cfg, tree, placed, mesh, toks, steps, s_max)
+    return out
+
+
+def launch_nccl_rank(rank, world_size):
+    """Phase 20 (a), on a world of one NCCL rank: ``qwen2-0.5b`` FULL width
+    (float32) through ``make_train_step(..., mesh=)`` on a ``(1, 1)`` mesh
+    against the unsharded port step on the same weights (loss, every
+    gradient leaf and the new params within LAUNCH_TOL of the leaf's
+    scale), then a prefill and decodes through ``make_prefill_fn`` /
+    ``make_serve_step`` with the mesh against the unsharded ones."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import DataConfig, make_batch
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import sharding as sh
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.tree import paths, tree_map
+
+    del rank, world_size
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = dataclasses.replace(get_config(LAUNCH_ARCH), dtype="float32")
+    model = tf.init_params(cfg, torch.Generator(device=dev).manual_seed(LM_SEED), device=dev)
+    tree = tree_map(lambda w: w.detach(), model.tree())
+    del model
+    mesh = lmesh.make_test_mesh((1, 1), device_type="cuda")
+    shd = sh.Sharder(mesh)
+    placed = sh.shard_tree(tree, sh.param_shardings(cfg, mesh))
+    b, s = LAUNCH_TRAIN
+    batch = make_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=s, global_batch=b,
+                                  seed=LM_SEED), 0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    placed_batch = sh.shard_tree(batch, sh.batch_shardings(cfg, mesh, batch))
+    out = {}
+    t = time.perf_counter()
+    (l0, _), g0 = ts.value_and_grad(ts.make_loss_fn(cfg))(tree, batch)
+    with shd.region():
+        (l1, _), g1 = ts.value_and_grad(ts.make_loss_fn(cfg, shd))(placed, placed_batch)
+    g0, g1 = dict(paths(g0)), dict(paths(_launch_full(g1)))
+    top = max(float(v.abs().max()) for v in g0.values())
+    out["grad_gap"] = max(_launch_leaf_gap(torch, g1[k], g0[k], top) for k in g0)
+    out["leaves"] = len(g0)
+    out["loss"] = (float(l0), float(_launch_full({"l": l1})["l"]))
+    # Entries whose gradient is at the rounding level (the key bias's is
+    # exactly zero) take Adam's ~lr * sign(g) either way: held to 2 lr.
+    noise = {k: g.abs() <= 1e-6 * top for k, g in g0.items()}
+    out["noise_entries"] = int(sum(int(m.sum()) for m in noise.values()))
+    del g0, g1
+    opt_cfg = opt.OptimizerConfig(lr_peak=1e-4, warmup_steps=1, total_steps=10)
+    p0, _, m0 = ts.make_train_step(cfg, opt_cfg)(tree, opt.init_opt_state(tree, opt_cfg), batch)
+    state = sh.shard_tree(opt.init_opt_state(tree, opt_cfg),
+                          sh.opt_state_shardings(cfg, mesh, opt_cfg))
+    p1, _, m1 = ts.make_train_step(cfg, opt_cfg, mesh)(placed, state, placed_batch)
+    del state
+    p0, p1 = dict(paths(p0)), dict(paths(_launch_full(p1)))
+    top = max(float(v.abs().max()) for v in p0.values())
+    bound = 2 * opt_cfg.lr_peak
+    for k in p0:
+        if bool(((p1[k] - p0[k]).abs()[noise[k]] > bound).any()):
+            raise AssertionError(f"param {k}: a rounding-level entry moved past Adam's bound")
+        p1[k] = torch.where(noise[k], p0[k], p1[k])
+    out["param_gap"] = max(_launch_leaf_gap(torch, p1[k], p0[k], top) for k in p0)
+    out["step_loss"] = (float(m0["loss"]), float(_launch_full({"l": m1["loss"]})["l"]))
+    del p0, p1
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t
+    bs, prompt, steps, s_max = LAUNCH_SERVE
+    toks = torch.randint(0, cfg.vocab_size, (bs, prompt), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(LM_SEED))
+    out["serve_gap"] = _launch_serve_gap(cfg, tree, placed, mesh, toks, steps, s_max)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def launch_phase(torch, dev, parts: str = "abcd", dry: "DryRun | None" = None):
+    """Phase 20: (a) the sharded step and serving at full width on one NCCL
+    rank, (b) a SMOKE step and serving on a (2, 2) mesh of four gloo ranks
+    on the host (CPU tensors), (c) one counted round of each propagation partition on the card
+    at the reference's size (256 fake ranks) and (d) the dry run itself
+    (``parts`` picks some)."""
+    from repro_torch.core import run_world
+    from repro_torch.launch import dryrun, perf
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    log(f"phase 20 card memory: total_memory {torch.cuda.get_device_properties(0).total_memory} B "
+        f"({torch.cuda.get_device_name(0)})")
+    if "a" in parts:
+        launch_a(run_world)
+    if "b" in parts:
+        launch_b(run_world)
+    if "c" in parts:
+        launch_c(perf)
+    if "d" in parts:
+        launch_d(dryrun, dry)
+    log(f"phase 20: {time.perf_counter() - t_phase:.1f} s")
+
+
+def launch_a(run_world):
+    t = time.perf_counter()
+    try:
+        (a,) = run_world(launch_nccl_rank, 1, backend="nccl", device="cuda", timeout=600)
+    except RuntimeError as e:
+        fail(f"phase 20 (a): {e}")
+    log(f"phase 20 (a) {LAUNCH_ARCH} FULL (float32, b={LAUNCH_TRAIN[0]}, s={LAUNCH_TRAIN[1]}) "
+        f"on a (1, 1) mesh, one NCCL rank, against the unsharded port: loss {a['loss'][1]:.6f} "
+        f"against {a['loss'][0]:.6f}; {a['leaves']} gradient leaves, largest |diff| / leaf "
+        f"scale {a['grad_gap']:.3e}; step loss {a['step_loss'][1]:.6f} against "
+        f"{a['step_loss'][0]:.6f}, params {a['param_gap']:.3e} ({a['noise_entries']} entries with "
+        f"a rounding-level gradient held to Adam's bound 2 lr); prefill + "
+        f"{LAUNCH_SERVE[2]} decodes: logits {a['serve_gap']:.3e} of their scale (tolerance "
+        f"{LAUNCH_TOL}); peak {a['peak_gib']:.1f} GiB; {time.perf_counter() - t:.1f} s")
+    if abs(a["loss"][1] - a["loss"][0]) > LAUNCH_TOL * abs(a["loss"][0]):
+        fail(f"phase 20 (a): sharded loss {a['loss'][1]} against {a['loss'][0]}")
+
+
+def launch_b(run_world):
+    t = time.perf_counter()
+    try:
+        ranks = run_world(launch_gloo_rank, 4, backend="gloo", device="cpu", timeout=300)
+    except RuntimeError as e:
+        fail(f"phase 20 (b): {e}")
+    b = ranks[0]
+    log(f"phase 20 (b) {LAUNCH_GLOO} SMOKE (float32, b={LAUNCH_GLOO_TRAIN[0]}, "
+        f"s={LAUNCH_GLOO_TRAIN[1]}) on a (2, 2) mesh, four gloo ranks with CPU tensors, against "
+        f"the unsharded port: loss {b['loss'][1]:.6f} against {b['loss'][0]:.6f}; params "
+        f"{b['param_gap']:.3e}; prefill + {LAUNCH_SERVE[2]} decodes (cache of {LAUNCH_SERVE[3]} "
+        f"slots split over its sequence): logits {b['serve_gap']:.3e} of their scale "
+        f"(tolerance {LAUNCH_TOL}); {time.perf_counter() - t:.1f} s")
+    losses = {r["loss"][1] for r in ranks}
+    if len(losses) != 1 or abs(b["loss"][1] - b["loss"][0]) > LAUNCH_TOL * abs(b["loss"][0]):
+        fail(f"phase 20 (b): sharded losses {losses} against {b['loss'][0]}")
+
+
+def launch_c(perf):
+    t = time.perf_counter()
+    recs = perf.run_propagation_variants("single", device="cuda")
+    for r in recs:
+        log(f"phase 20 (c) {r['variant']} (m=250000, n=125000, nnz=4000000, float32, "
+            f"{r['world']} fake ranks, rank 0 on the card): counted "
+            f"{r['per_round_collective_bytes']} B per round; lower_sharded "
+            f"{r['lower_sharded_bytes']:.0f} B: equal={r['matches_lower_sharded']}; launches "
+            f"{r['launches']}; round host {r['round_host_s'] * 1e3:.1f} ms")
+        if not r["matches_lower_sharded"] or not r["launches"]:
+            fail(f"phase 20 (c): {r['variant']} counted or launched wrong")
+    log(f"phase 20 (c): {time.perf_counter() - t:.1f} s")
+
+
+# Phase 20 (d)'s dry-run cell: it needs no card and its trace takes minutes
+# of one CPU core, so it runs in a process of its own from the start of the
+# script (the card hidden from it), beside phases 1-19.
+DRYRUN_CELL = ("granite-3-2b", "train_4k", "single")
+DRYRUN_CODE = """
+import json, sys, time
+sys.path.insert(0, sys.argv[2])
+from repro_torch.launch import dryrun
+t = time.perf_counter()
+rec = dryrun.run_cell(*json.loads(sys.argv[3]))
+rec["wall_s"] = time.perf_counter() - t
+with open(sys.argv[1], "w") as f:
+    json.dump(rec, f)
+"""
+
+
+class DryRun:
+    """The dry-run cell's process, its output file and its log."""
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+        self.out = os.path.join(self.dir, "record.json")
+        self.err = open(os.path.join(self.dir, "stderr.txt"), "w")
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+        src = str(Path(__file__).resolve().parent / "src")
+        self.t0 = time.perf_counter()
+        # At the lowest priority: the phases beside it keep the host's cores.
+        self.proc = subprocess.Popen([sys.executable, "-c", DRYRUN_CODE, self.out, src,
+                                      json.dumps(DRYRUN_CELL)],
+                                     env=env, stdout=subprocess.DEVNULL, stderr=self.err,
+                                     preexec_fn=lambda: os.nice(19))
+
+    def result(self, timeout: float) -> dict:
+        try:
+            code = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            fail(f"phase 20 (d): the dry run of {DRYRUN_CELL} did not finish "
+                 f"{time.perf_counter() - self.t0:.0f} s after it started")
+        if code != 0:
+            self.err.flush()
+            with open(self.err.name) as f:
+                fail(f"phase 20 (d): the dry run exited {code}: {f.read()[-3000:]}")
+        with open(self.out) as f:
+            return json.load(f)
+
+    def close(self):
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.err.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def launch_d(dryrun, cell: "DryRun | None" = None):
+    t = time.perf_counter()
+    own = cell is None
+    cell = cell or DryRun()
+    try:
+        rec = cell.result(timeout=900)
+    finally:
+        if own:
+            cell.close()
+    log(f"phase 20 (d) dry run of {DRYRUN_CELL} (a model of 256 H100s from datasheet peaks, not "
+        f"a measurement): {json.dumps(rec)}; {rec['wall_s']:.1f} s in its own process (started "
+        f"with the script, waited {time.perf_counter() - t:.1f} s here)")
+    if not rec.get("fits_hbm") or not rec.get("flops_per_device"):
+        fail(f"phase 20 (d): the dry-run record is incomplete: {rec}")
+    t = time.perf_counter()
+    prop = dryrun.run_propagation_dryrun([], None, ["single"])
+    log(f"phase 20 (d) propagation dry run: {json.dumps(prop)}; {time.perf_counter() - t:.1f} s")
+
+
 def main() -> int:
     import torch
 
@@ -5130,9 +5489,14 @@ def main() -> int:
     log(f"gpu: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    smoke(torch, torch.device("cuda"))
-    release_propagation_memory(torch)
-    lm_train_phase(torch, torch.device("cuda"))
+    dry = DryRun()
+    try:
+        smoke(torch, torch.device("cuda"))
+        release_propagation_memory(torch)
+        lm_train_phase(torch, torch.device("cuda"))
+        launch_phase(torch, torch.device("cuda"), dry=dry)
+    finally:
+        dry.close()
     log(f"total: {time.perf_counter() - t0:.1f} s")
     log(f"gpu: {smi}")
     print(json.dumps({

@@ -1,5 +1,4 @@
-"""Launch layer: the training driver (``launch.train``).
-
-The JAX package's ``mesh``, ``sharding``, ``dryrun`` and ``perf`` modules
-are ROADMAP Queue 1 item 15, part three.
+"""Launch layer: meshes on ``torch.distributed`` (``mesh``), the sharding
+rules on DTensor (``sharding``), the dry run and the perf driver on a fake
+process group (``dryrun``, ``perf``) and the training driver (``train``).
 """

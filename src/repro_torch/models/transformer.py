@@ -15,8 +15,13 @@ Block kinds:
   pattern   -- RecurrentGemma period: each sub-layer is (RG-LRU | local
                attention) + SwiGLU, pattern e.g. ("rec","rec","attn")
 
-Sharding (``shd=``, ``mesh=``) is item 15's ``launch/`` part (part three)
-and is accepted only as ``None``.
+Sharding: ``shd=`` takes a ``launch.sharding.Sharder``.  With a mesh,
+the parameters (and the inputs, placed by ``launch.sharding.shard_tree``)
+are DTensors; the Sharder constrains the residual stream between blocks,
+K/V and the logits where the JAX package's does, and the model runs in its
+``region()``, where the tensors the model makes for itself (positions,
+masks, rope tables, scan states) are taken as replicated.  Without a mesh
+(or ``shd=None``) nothing changes.
 
 Every block has three modes: train (full seq, no cache), prefill (full seq,
 emit cache), decode (one token, consume+emit cache).  Parameters are fp32
@@ -28,6 +33,7 @@ policy).  ``prefill`` and ``decode_step`` run under ``torch.no_grad``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 from typing import Any, Dict
@@ -35,6 +41,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 from torch import nn
+from torch.autograd.profiler import record_function
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..core.propagator import resolve_device
@@ -50,15 +58,6 @@ from ..nn.rope import apply_rope, rope_cos_sin
 from .config import ModelConfig, _cache_specs
 
 Params = Dict[str, Any]
-
-# The ROADMAP item that names what this module does not port yet.
-LAUNCH_PART = "ROADMAP Queue 1 item 15, part three (launch/)"
-
-
-def check_unsharded(shd=None, mesh=None) -> None:
-    if shd is not None or mesh is not None:
-        raise NotImplementedError(f"sharded models (shd=, mesh=) are {LAUNCH_PART}")
-
 
 def act_dtype(cfg: ModelConfig) -> torch.dtype:
     if cfg.dtype == "bfloat16":
@@ -389,18 +388,35 @@ def _rot(cfg: ModelConfig) -> int:
     return rd - rd % 2
 
 
+def _kv_for(shd, q, k, v):
+    """K and V as the blockwise attention takes them.  Sharded over more
+    "model" ranks than there are KV heads, each query head gets its own
+    copy of its KV head, placed as the query heads are (each rank slices
+    its own): grouping the query heads under too few KV heads cannot be
+    split evenly, and DTensor would replicate every head on every rank.
+    The values are the same."""
+    if shd is None or shd.mesh is None or k.shape[1] % shd.model_size == 0:
+        return k, v
+    rep = q.shape[1] // k.shape[1]
+    place = lambda t: t.repeat_interleave(rep, dim=1).redistribute(shd.mesh, q.placements)
+    return place(k), place(v)
+
+
 def gqa_apply(p, x, cfg: ModelConfig, mode, cos, sin, cache=None, pos=None,
               window=None, q_offset=0, shd=None):
-    check_unsharded(shd)
     b, s, d = x.shape
     h, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = dense(p["wq"], x).reshape(b, s, h, hd).transpose(1, 2)
-    k = dense(p["wk"], x).reshape(b, s, hkv, hd).transpose(1, 2)
-    v = dense(p["wv"], x).reshape(b, s, hkv, hd).transpose(1, 2)
+    split = (lambda t, n: t) if shd is None else shd.heads
+    q = split(dense(p["wq"], x), h).reshape(b, s, h, hd).transpose(1, 2)
+    k = split(dense(p["wk"], x), hkv).reshape(b, s, hkv, hd).transpose(1, 2)
+    v = split(dense(p["wv"], x), hkv).reshape(b, s, hkv, hd).transpose(1, 2)
     rd = _rot(cfg)
     if cfg.pos_type == "rope" and rd > 0:
         q = apply_rope(q, cos, sin, rotary_dim=rd)
         k = apply_rope(k, cos, sin, rotary_dim=rd)
+    if shd is not None and mode != "decode":
+        k = shd.kv(k)
+        v = shd.kv(v)
 
     if mode == "decode":
         kc, vc = attn_lib.cache_update(cache["k"], cache["v"], k, v, pos, window)
@@ -408,7 +424,7 @@ def gqa_apply(p, x, cfg: ModelConfig, mode, cos, sin, cache=None, pos=None,
         new_cache = {"k": kc, "v": vc}
     else:
         y = attn_lib.blockwise_attention(
-            q, k, v, causal=True, window=window,
+            q, *_kv_for(shd, q, k, v), causal=True, window=window,
             chunk_q=min(cfg.attn_chunk, s), chunk_k=min(cfg.attn_chunk, s),
             q_offset=q_offset, causal_skip=cfg.causal_skip,
         )
@@ -422,10 +438,17 @@ def gqa_apply(p, x, cfg: ModelConfig, mode, cos, sin, cache=None, pos=None,
 # ---------------------------------------------------------------------------
 
 
+def _residual(shd, x):
+    """The residual stream after a sub-block's add, constrained as between
+    blocks: a TP projection leaves it a pending sum (``Partial``), which
+    DTensor would otherwise carry into the next norm and projection, where
+    it gathers the weights instead of reducing the activations."""
+    return x if shd is None else shd.hidden(x)
+
+
 def block_apply(kind: str, p, x, cfg: ModelConfig, mode, cos, sin,
                 cache=None, pos=None, q_offset=0, shd=None):
     """Returns (x, new_cache, aux_loss)."""
-    check_unsharded(shd)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in ("dense", "moe"):
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
@@ -442,9 +465,9 @@ def block_apply(kind: str, p, x, cfg: ModelConfig, mode, cos, sin,
         else:
             y, new_cache = gqa_apply(
                 p["attn"], h, cfg, mode, cos, sin, cache, pos,
-                window=cfg.local_window, q_offset=q_offset,
+                window=cfg.local_window, q_offset=q_offset, shd=shd,
             )
-        x = x + y
+        x = _residual(shd, x + y)
         h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
         if kind == "dense":
             return x + swiglu(p["mlp"], h2), new_cache, aux
@@ -488,13 +511,13 @@ def block_apply(kind: str, p, x, cfg: ModelConfig, mode, cos, sin,
             else:
                 y, c_out = gqa_apply(
                     sub["mix"], h, cfg, mode, cos, sin, sub_cache, pos,
-                    window=cfg.local_window, q_offset=q_offset,
+                    window=cfg.local_window, q_offset=q_offset, shd=shd,
                 )
                 if c_out is not None:
                     new_cache[f"sub{i}"] = c_out
-            x = x + y
+            x = _residual(shd, x + y)
             h2 = rmsnorm(sub["ln2"], x, cfg.norm_eps)
-            x = x + swiglu(sub["mlp"], h2)
+            x = _residual(shd, x + swiglu(sub["mlp"], h2))
         return x, (new_cache if mode != "train" else None), aux
 
     raise ValueError(kind)
@@ -507,19 +530,32 @@ def block_apply(kind: str, p, x, cfg: ModelConfig, mode, cos, sin,
 
 def _entry(fn):
     """A serving entry point over ``params`` (a :class:`Transformer` or its
-    tree): checks ``shd``, and runs without autograd."""
+    tree): runs without autograd, in ``shd``'s region."""
 
     @functools.wraps(fn)
     def run(params, cfg, *args, shd=None, **kw):
-        check_unsharded(shd)
-        with torch.no_grad():
-            return fn(_params(params), cfg, *args, **kw)
+        with torch.no_grad(), _region(shd):
+            return fn(_params(params), cfg, *args, shd=shd, **kw)
 
     return run
 
 
+def _region(shd):
+    if shd is None:
+        return contextlib.nullcontext()
+    if not callable(getattr(shd, "region", None)):
+        raise TypeError(f"shd= takes a launch.sharding.Sharder, not {type(shd).__name__}")
+    return shd.region()
+
+
 def _device(params: Params) -> torch.device:
     return params["embed"]["table"].device
+
+
+def _input(t, dev: torch.device):
+    """An input on the weights' device; a DTensor (placed by the caller) as
+    it is."""
+    return t if isinstance(t, DTensor) else torch.as_tensor(t, device=dev)
 
 
 def _rope_tables(cfg: ModelConfig, positions):
@@ -533,11 +569,11 @@ def _rope_tables(cfg: ModelConfig, positions):
 
 def _embed_inputs(params, cfg: ModelConfig, tokens, frontend_embeds=None):
     dev = _device(params)
-    tokens = torch.as_tensor(tokens, device=dev).long()
+    tokens = _input(tokens, dev).long()
     x = embed(params["embed"], tokens).to(act_dtype(cfg))
     if frontend_embeds is not None:
         # Modality stub: precomputed patch/frame embeddings prepended.
-        fe = torch.as_tensor(frontend_embeds, device=dev)
+        fe = _input(frontend_embeds, dev)
         x = torch.cat([fe.to(x.dtype), x], dim=1)
     if cfg.pos_type == "sinusoidal":
         pos = torch.arange(x.shape[1], device=dev)
@@ -556,12 +592,18 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def _layer(kind, seg_params, li, x, cfg, mode, cos, sin, cache, pos):
-    return block_apply(kind, _index(seg_params, li), x, cfg, mode, cos, sin, cache, pos)
+def _layer(kind, seg_params, li, x, cfg, mode, cos, sin, cache, pos, shd):
+    if shd is None:
+        return block_apply(kind, _index(seg_params, li), x, cfg, mode, cos, sin, cache, pos)
+    with shd.region():  # also where a remat recompute runs it, in the backward
+        return block_apply(kind, shd.gather(_index(seg_params, li)), shd.hidden(x), cfg, mode,
+                           cos, sin, cache, pos, shd=shd)
 
 
-def _run_segments(params, cfg: ModelConfig, x, mode, cos, sin, cache=None, pos=None):
-    """Each segment's layers in order (``w[i]`` of the stacked leaves).
+def _run_segments(params, cfg: ModelConfig, x, mode, cos, sin, cache=None, pos=None,
+                  shd=None):
+    """Each segment's layers in order (``w[i]`` of the stacked leaves), the
+    residual stream constrained by ``shd.hidden`` at each layer's entry.
     Returns (x, new_caches, aux_total).  A training forward with autograd
     on and ``cfg.remat`` keeps only each layer's input and recomputes the
     layer in the backward."""
@@ -574,62 +616,72 @@ def _run_segments(params, cfg: ModelConfig, x, mode, cos, sin, cache=None, pos=N
         ncs = []
         for li in range(count):
             lc = _index(seg_cache, li) if seg_cache is not None else None
-            args = (kind, seg_params, li, x, cfg, mode, cos, sin, lc, pos)
-            if remat:
-                x, nc, a = checkpoint(_layer, *args, use_reentrant=False)
-            else:
-                x, nc, a = _layer(*args)
+            args = (kind, seg_params, li, x, cfg, mode, cos, sin, lc, pos, shd)
+            with record_function(f"segments/{idx}/{kind}"):  # the cost counter's label
+                if remat:
+                    x, nc, a = checkpoint(_layer, *args, use_reentrant=False)
+                else:
+                    x, nc, a = _layer(*args)
             aux_total = aux_total + a
             ncs.append(nc)
         new_caches.append(_stack(ncs) if mode != "train" else None)
     return x, new_caches, aux_total
 
 
-def _logits(params, cfg: ModelConfig, x):
+def _logits(params, cfg: ModelConfig, x, shd=None):
     if cfg.tie_embeddings:
         return unembed(params["embed"], x)
-    return dense(params["lm_head"], x)
+    head = params["lm_head"] if shd is None else shd.gather(params["lm_head"])
+    return dense(head, x)
 
 
 def forward_train(params, cfg: ModelConfig, tokens, frontend_embeds=None, shd=None):
     """Full training forward -> (logits (B, S, V), aux (float32 MoE
     load-balance loss summed over layers)).  Runs under the caller's grad
     mode: wrap it in ``torch.no_grad`` to serve, differentiate it to train."""
-    check_unsharded(shd)
     params = _params(params)
-    x = _embed_inputs(params, cfg, tokens, frontend_embeds)
-    cos, sin = _rope_tables(cfg, torch.arange(x.shape[1], device=x.device))
-    x, _, aux = _run_segments(params, cfg, x, "train", cos, sin)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x), aux
+    with _region(shd):
+        x = _embed_inputs(params, cfg, tokens, frontend_embeds)
+        if shd is not None:
+            x = shd.hidden(x)
+        cos, sin = _rope_tables(cfg, torch.arange(x.shape[1], device=x.device))
+        x, _, aux = _run_segments(params, cfg, x, "train", cos, sin, shd=shd)
+        x = rmsnorm(params["final_norm"], _residual(shd, x), cfg.norm_eps)
+        logits = _logits(params, cfg, x, shd)
+        if shd is not None:
+            logits = shd.logits(logits)
+        return logits, aux
 
 
 @_entry
-def prefill(params, cfg: ModelConfig, tokens, frontend_embeds=None):
+def prefill(params, cfg: ModelConfig, tokens, frontend_embeds=None, shd=None):
     """Prefill -> (logits_last (B, 1, V), caches)."""
     x = _embed_inputs(params, cfg, tokens, frontend_embeds)
+    if shd is not None:
+        x = shd.hidden(x)
     cos, sin = _rope_tables(cfg, torch.arange(x.shape[1], device=x.device))
-    x, caches, _ = _run_segments(params, cfg, x, "prefill", cos, sin)
-    x = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
-    return _logits(params, cfg, x), caches
+    x, caches, _ = _run_segments(params, cfg, x, "prefill", cos, sin, shd=shd)
+    x = rmsnorm(params["final_norm"], _residual(shd, x)[:, -1:, :], cfg.norm_eps)
+    return _logits(params, cfg, x, shd), caches
 
 
 @_entry
-def decode_step(params, cfg: ModelConfig, tokens, cache, pos):
+def decode_step(params, cfg: ModelConfig, tokens, cache, pos, shd=None):
     """One decode step. tokens: (B, 1); pos: int index being written.
     Returns (logits (B, 1, V), new caches); ``cache`` is left as it was."""
     dev = _device(params)
     pos = int(pos)
-    tokens = torch.as_tensor(tokens, device=dev).long()
+    tokens = _input(tokens, dev).long()
     x = embed(params["embed"], tokens).to(act_dtype(cfg))
     if cfg.pos_type == "sinusoidal":
         x = x + sinusoidal_positions(
             torch.full((1,), pos, dtype=torch.int32, device=dev), cfg.d_model, x.dtype
         )
     cos, sin = _rope_tables(cfg, torch.arange(1, device=dev) + pos)
-    x, new_caches, _ = _run_segments(params, cfg, x, "decode", cos, sin, cache=cache, pos=pos)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _logits(params, cfg, x), new_caches
+    x, new_caches, _ = _run_segments(params, cfg, x, "decode", cos, sin, cache=cache, pos=pos,
+                                     shd=shd)
+    x = rmsnorm(params["final_norm"], _residual(shd, x), cfg.norm_eps)
+    return _logits(params, cfg, x, shd), new_caches
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, dtype=None, device="cuda"):

@@ -10,6 +10,8 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 
 
 def normal_init(gen: torch.Generator, shape, scale: float = 0.02, device=None):
@@ -86,7 +88,16 @@ def dense(params, x):
 
 
 def embed(params, tokens):
-    return params["table"][tokens]
+    """The table's rows of ``tokens``; a DTensor table (vocab-sharded)
+    looks them up by ``F.embedding``, which DTensor computes on each
+    rank's vocab slice, and the slices' rows are summed at once (the same
+    rows)."""
+    table = params["table"]
+    if isinstance(table, DTensor):
+        rows = F.embedding(tokens, table)
+        done = [Replicate() if p.is_partial() else p for p in rows.placements]
+        return rows.redistribute(rows.device_mesh, done)
+    return table[tokens]
 
 
 def unembed(params, x):

@@ -14,8 +14,9 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
-from .attention import NEG, blockwise_attention
+from .attention import NEG, blockwise_attention, softmax_across, split_dim, write_slots
 from .layers import full_leaf, init_from_spec, normal_leaf, rmsnorm
 from .rope import apply_rope
 
@@ -108,6 +109,8 @@ def _write(cache, new, pos: int):
     ``dynamic_update_slice_in_dim`` would clamp the start."""
     if not 0 <= pos < cache.shape[1]:
         raise IndexError(f"decode position {pos} outside the cache's {cache.shape[1]} slots")
+    if isinstance(cache, DTensor):
+        return write_slots(cache, new, pos, 1)
     out = cache.clone()
     out[:, pos : pos + 1] = new
     return out
@@ -139,9 +142,13 @@ def mla_decode(params, x, cfg: MLAConfig, cos, sin, cache, pos: int):
 
     # Absorb W_uk into the query: q_abs (B, H, r).
     q_abs = torch.einsum("bhon,rhn->bhor", q_nope, w_uk)[:, :, 0]
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    if isinstance(c_cache, DTensor):
+        ctx = _context_sharded(q_abs, q_rope, c_cache, kr_cache, pos, scale, x.dtype)
+        y = torch.einsum("bhr,rhv->bhv", ctx, w_uv).reshape(b, 1, h * cfg.v_dim)
+        return y @ params["wo"].to(x.dtype), (c_cache, kr_cache)
     s_nope = torch.einsum("bhr,bsr->bhs", q_abs, c_cache)
     s_rope = torch.einsum("bhoe,bse->bhs", q_rope, kr_cache)
-    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
     s = (s_nope + s_rope).to(torch.float32) * scale
     valid = torch.arange(c_cache.shape[1], device=x.device) <= pos
     s = s + torch.where(valid, 0.0, NEG).to(torch.float32)
@@ -150,3 +157,30 @@ def mla_decode(params, x, cfg: MLAConfig, cos, sin, cache, pos: int):
     ctx = torch.einsum("bhs,bsr->bhr", p, c_cache)           # latent context
     y = torch.einsum("bhr,rhv->bhv", ctx, w_uv).reshape(b, 1, h * cfg.v_dim)
     return y @ params["wo"].to(x.dtype), (c_cache, kr_cache)
+
+
+def _context_sharded(q_abs, q_rope, c_cache, kr_cache, pos: int, scale: float, dtype):
+    """The absorbed decode's latent context ``softmax(s) @ c`` (B, H, r) on
+    DTensor caches, split over their sequence as ``cache_spec`` places them
+    (batch rows over the data axes): each rank scores its own slots with
+    every head's query (gathered: (B, H, r), not the cache), and
+    ``softmax_across`` completes the softmax over the ranks that hold the
+    other slots.  The context is placed over the batch rows only."""
+    mesh = c_cache.device_mesh
+    rows = [p if isinstance(p, Shard) and p.dim == 0 else Replicate() for p in c_cache.placements]
+    qa, qr = (t.redistribute(mesh, rows).to_local() for t in (q_abs, q_rope))
+    c = c_cache.to_local()
+    kr = kr_cache.redistribute(mesh, c_cache.placements).to_local()
+    seq, lo = split_dim(c_cache, 1)
+    s = torch.einsum("bhr,bsr->bhs", qa, c) + torch.einsum("bhoe,bse->bhs", qr, kr)
+    s = s.to(torch.float32) * scale
+    s = s + torch.where(lo + torch.arange(c.shape[1], device=c.device) <= pos, 0.0,
+                        NEG).to(torch.float32)
+    weighted = lambda e: torch.einsum("bhs,bsr->bhr", e.to(dtype), c).to(torch.float32)
+    if seq is None:
+        ctx = weighted(torch.softmax(s, dim=-1))
+    else:
+        ctx = softmax_across(s, weighted, (mesh, seq))
+    shape = (q_abs.shape[0], q_abs.shape[1], c_cache.shape[2])
+    return DTensor.from_local(ctx.to(dtype), mesh, rows, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())

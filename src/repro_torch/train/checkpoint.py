@@ -13,6 +13,12 @@ checkpoint written by either package restores in the other.  numpy has no
 bfloat16, so bfloat16 leaves are saved widened to float32 (exact) and
 narrowed again on restore; a 2-byte raw array (what the JAX package's
 ``np.savez`` writes for its bfloat16 leaves) is read as bfloat16 bits.
+
+A state with DTensor leaves (``launch.sharding.shard_tree``) is saved by
+every rank of the world at once: each leaf is gathered whole
+(``full_tensor``, a collective) and rank 0 writes.  ``restore_checkpoint``
+puts it back onto any mesh (``shardings=`` a tree of
+``launch.sharding.NamedSharding``): the JAX package's elastic restart.
 """
 from __future__ import annotations
 
@@ -24,11 +30,15 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
-from .tree import map_with_path, paths, tree_map
+from .tree import leaves, map_with_path, paths, tree_map
 
 
 def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     t = torch.as_tensor(leaf).detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.to(torch.float32)
@@ -43,6 +53,13 @@ def _treedef_of(tree) -> str:
     return str(tree_map(lambda _: "*", tree))
 
 
+def _writes(state) -> bool:
+    """Whether this process writes ``state``: always, unless its leaves
+    are DTensors, which every rank gathers and rank 0 writes."""
+    sharded = any(isinstance(x, DTensor) for x in leaves(state))
+    return not sharded or dist.get_rank() == 0
+
+
 def save_checkpoint(
     ckpt_dir: str,
     step: int,
@@ -50,15 +67,19 @@ def save_checkpoint(
     keep_n: int = 3,
     extra_meta: Optional[dict] = None,
 ):
-    """Synchronous atomic save of a tree ``state``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Synchronous atomic save of a tree ``state`` (DTensor leaves: on
+    every rank, which gather; rank 0 writes)."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if not _writes(state):
+        _flatten(state)
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
+    flat = _flatten(state)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
 
-    flat = _flatten(state)
     np.savez(os.path.join(tmp, "arrays.npz"), **flat)
     manifest = {
         "step": step,
@@ -117,8 +138,10 @@ def restore_checkpoint(
 ) -> tuple[Any, int]:
     """Restore into the structure of ``like`` (a tree of tensors), each leaf
     in its dtype on its device, or on ``shardings``: a ``torch.device`` (or
-    its name) for every leaf, or a tree of them shaped like ``like`` (the
-    one-host form of restoring onto another placement).
+    its name) for every leaf, or a tree of them shaped like ``like``, or a
+    tree of ``launch.sharding.NamedSharding`` (``param_shardings``'
+    form): each leaf a DTensor on its mesh (every rank of the mesh calls
+    this; each reads the file and keeps its own part).
 
     Returns (state, step); (like, 0) if no checkpoint exists.
     """
@@ -135,8 +158,21 @@ def restore_checkpoint(
                 like)
         else:
             state = map_with_path(lambda key, leaf: _tensor(arrays[key], leaf, None), like)
-            state = tree_map(lambda t, dev: t.to(dev), state, shardings)
+            state = (tree_map(lambda t: _place(t, shardings), state)
+                     if hasattr(shardings, "mesh") else tree_map(_place, state, shardings))
     return state, int(manifest["step"])
+
+
+def _place(t: torch.Tensor, where):
+    """``t`` on a device, or (a ``NamedSharding``) a DTensor on its mesh."""
+    if isinstance(where, (str, torch.device)):
+        return t.to(where)
+    from ..launch.sharding import shard_tree
+
+    dev = torch.device(where.mesh.device_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return shard_tree(t.to(dev), where)
 
 
 class AsyncCheckpointer:
@@ -149,7 +185,10 @@ class AsyncCheckpointer:
 
     def save(self, step: int, state: Any, extra_meta: Optional[dict] = None):
         self.wait()  # one in flight at a time
+        writes = _writes(state)
         host_state = tree_map(_host, state)
+        if not writes:
+            return
         self._thread = threading.Thread(
             target=save_checkpoint,
             args=(self.ckpt_dir, step, host_state, self.keep_n, extra_meta),

@@ -4,32 +4,34 @@ greedy generation loop.
 ``serve_step`` is ONE new token against a KV cache of size ``s_max``.  The
 functions run on the device of the model's weights (see
 ``models.transformer.init_params``: CUDA unless the caller asks for the
-CPU).  ``mesh=`` is accepted only as ``None`` (sharding is ROADMAP Queue 1
-item 15's ``launch/`` part).
+CPU).  ``mesh=`` (a ``DeviceMesh``) builds ``Sharder(mesh,
+seq_shard=cfg.seq_shard)`` as the JAX package's does; the caller places
+params, tokens and cache with ``launch.sharding.shard_tree``.
 """
 from __future__ import annotations
 
 import torch
 
 from ..models.config import ModelConfig
-from ..models.transformer import _params, check_unsharded, decode_step, prefill
+from ..launch.sharding import Sharder
+from ..models.transformer import _params, decode_step, prefill
 
 
 def make_prefill_fn(cfg: ModelConfig, mesh=None):
-    check_unsharded(mesh=mesh)
+    shd = Sharder(mesh, seq_shard=cfg.seq_shard)
 
     def prefill_fn(params, tokens, frontend_embeds=None):
-        return prefill(params, cfg, tokens, frontend_embeds=frontend_embeds)
+        return prefill(params, cfg, tokens, frontend_embeds=frontend_embeds, shd=shd)
 
     return prefill_fn
 
 
 def make_serve_step(cfg: ModelConfig, mesh=None):
-    check_unsharded(mesh=mesh)
+    shd = Sharder(mesh, seq_shard=cfg.seq_shard)
 
     def serve_step(params, tokens, cache, pos):
         """tokens: (B, 1) new token ids; pos: int write position."""
-        return decode_step(params, cfg, tokens, cache, pos)
+        return decode_step(params, cfg, tokens, cache, pos, shd=shd)
 
     return serve_step
 

@@ -2762,3 +2762,68 @@ def test_lm_train_step_on_card_equals_cpu(cuda, arch):
         scale = float(want.abs().max())
         np.testing.assert_allclose(g_c[k].double().numpy(), want.double().numpy(), rtol=1e-3,
                                    atol=1e-3 * scale + 1e-6 * top, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# Phase 20's pieces: the sharded LM step on a world of one NCCL rank, and the
+# propagation rounds counted on a fake world with their kernels on the card
+# ---------------------------------------------------------------------------
+
+
+def test_launch_sharded_step_and_serving_on_one_nccl_rank(cuda):
+    """``make_train_step`` / ``make_prefill_fn`` / ``make_serve_step`` with a
+    ``(1, 1)`` mesh on a world of one NCCL rank (granite-3-2b SMOKE, float32)
+    against the unsharded port on the card, same weights: loss within 1e-5
+    (relative), params within 1e-5, logits within 1e-5 of their scale.  The
+    decode cache (32 slots) is placed by ``cache_spec``: its sequence over
+    the one "model" rank, so the split softmax's all-reduces run on NCCL."""
+    import torch_launch_world as world
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import serve_step as ss
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.tree import paths
+
+    arch = "granite-3-2b"
+    cfg = get_config(arch, smoke=True)
+    tree = tf.init_params(cfg, 0, device="cpu").numpy_tree()
+    toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (4, 32)).astype(np.int32)
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, 1)}
+    (got,) = rt.core.run_world(world.lm_cases, 1, backend="nccl", device="cuda", timeout=600,
+                               args=(arch, tree, batch, (1, 1), [("base", (), 1)],
+                                     (toks[:2, :16], 4, 32), "cuda"))
+    model = tf.params_from_reference(cfg, tree, device=cuda)
+    oc = opt.OptimizerConfig(**world.OPT)
+    p1, _, m1 = ts.make_train_step(cfg, oc)(model, opt.init_opt_state(model.tree(), oc), batch)
+    metrics, params = got["base"][0], dict(paths(got["base"][1]))
+    assert abs(metrics["loss"] - float(m1["loss"])) <= 1e-5 * abs(float(m1["loss"]))
+    for k, want in paths(p1):
+        assert np.abs(params[k] - want.cpu().numpy()).max() <= 1e-5, k
+    logits, caches = ss.make_prefill_fn(cfg)(model, torch.as_tensor(toks[:2, :16], device=cuda))
+    cache = ss.prefill_to_decode_cache(cfg, caches, 16, 32)
+    want = [logits.cpu().numpy()]
+    for i in range(4):
+        tok = torch.as_tensor(got["serve"][i][:, -1], device=cuda).argmax(-1)[:, None]
+        logits, cache = ss.make_serve_step(cfg)(model, tok.to(torch.int32), cache, 16 + i)
+        want.append(logits.cpu().numpy())
+    for a, b in zip(got["serve"], want):
+        assert np.abs(a - b).max() <= 1e-5 * np.abs(b).max()
+
+
+def test_launch_propagation_rounds_launch_their_kernels(cuda):
+    """One counted round of each partition on rank 0 of a fake world of 4,
+    its kernels on the card: 50,000 B and 10,000 B of all-reduce (equal to
+    ``lower_sharded``'s) and the rounds' kernels launched once each (A',
+    the long-row combine, E and F; D and F)."""
+    import torch_launch_world as world
+
+    nnz, rows = world.in_child(world.propagation_rounds, dict(m=2_500, n=1_250, nnz=40_000),
+                               "cuda")
+    assert nnz["per_round_collective_bytes"]["all-reduce"] == 50_000
+    assert rows["per_round_collective_bytes"]["all-reduce"] == 10_000
+    assert nnz["matches_lower_sharded"] and rows["matches_lower_sharded"]
+    assert nnz["launches"] == {"activities_gather_tiles": 1, "combine_chunk_partials_tiles": 1,
+                               "candidates_scatter_tiles": 1, "apply_updates_tiles": 1}
+    assert rows["launches"] == {"fused_scatter_round_tiles": 1, "apply_updates_tiles": 1}

@@ -28,6 +28,9 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.train.serve_step, repro_torch.nn.moe, repro_torch.nn.mla\n"
         "import repro_torch.train.optimizer, repro_torch.train.train_step\n"
         "import repro_torch.train.checkpoint, repro_torch.data.tokens, repro_torch.launch.train\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.sharding, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.perf, repro_torch.roofline, repro_torch.roofline.analysis\n"
+        "import repro_torch.roofline.counting, repro_torch.roofline.report\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

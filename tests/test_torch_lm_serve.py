@@ -164,12 +164,19 @@ def test_experts_and_mla_are_part_two(arch):
 
 
 def test_sharding_is_refused():
+    """Sharding runs on DTensor (``tests/test_torch_launch_*.py``); what is
+    refused is a ``shd=`` that is no Sharder, a ``mesh=`` that is no
+    ``DeviceMesh`` and a production mesh without a process group."""
+    from repro_torch.launch.mesh import make_production_mesh
+
     _, tcfg = lm.configs("granite-3-2b")
     model = lm.port_run("granite-3-2b")["model"]
-    with pytest.raises(NotImplementedError, match=r"launch/"):
+    with pytest.raises(TypeError, match=r"Sharder"):
         t_tf.forward_train(model, tcfg, np.zeros((1, 2), np.int32), shd=object())
-    with pytest.raises(NotImplementedError, match=r"launch/"):
+    with pytest.raises(TypeError, match=r"DeviceMesh"):
         t_serve.make_serve_step(tcfg, mesh=object())
+    with pytest.raises(RuntimeError, match=r"no process group"):
+        make_production_mesh(device_type="cpu")
 
 
 def test_entry_points_default_to_cuda():
