@@ -8,8 +8,9 @@ numpy only, nothing of JAX) and, on one CUDA card:
 
   1. prints the card's name and power limit, builds the CUDA kernels of
      ``src/repro_torch/csrc/prop_round.cu``, ``slab_round.cu``,
-     ``tier_round.cu``, ``batch_tier_round.cu``, ``slab_tier_round.cu`` and
-     ``telemetry.cu`` from source (one ``nvcc`` per file, in parallel) and
+     ``tier_round.cu``, ``batch_tier_round.cu``, ``slab_tier_round.cu``,
+     ``telemetry.cu`` and ``half_round.cu`` from source (one ``nvcc`` per
+     file, in parallel) and
      prints the build time and the compilers' register report;
   2. generates three instances at n = 60,000 columns, 150,000 rows (the
      paper's Set-5 size): ``pb`` (pseudo-boolean, exact arithmetic, rows in
@@ -293,7 +294,26 @@ numpy only, nothing of JAX) and, on one CUDA card:
      PyTorch: ``tools/dtensor_gloo.py``), ``granite-3-2b`` SMOKE on a
      ``(2, 2)`` mesh, one step and a prefill plus 4 decodes (the cache split
      over its sequence) against the unsharded port within 1e-5;
- 22. prints (before phase 19) a ``kernels`` JSON line (the float forms as
+ 22. (phase 21, after phase 16) bfloat16 and float16 on the single-instance
+     engines: every 16-bit form (``half_round.cu``) of D, A', the combine,
+     E and F (``pb``, ``banded``, ``mixed``; at bfloat16 the compact forms
+     on ``pb30`` and ``mixed30``), F with the early stop, A, B and C (the
+     segment round on ``pb``, ``mixed`` and, compact, ``pb30``,
+     ``mixed30``), #11, the straddle combine, #12, #15 and #15 with the
+     early stop (``bandw``, ``pbw``) and the record kernel (``pb``) against
+     its plain version on the card, bitwise (the scatters' float32 planes
+     hold the candidates widened), each timed on its float32 form's
+     instance beside this run's float32 and float64 times, its bound at 2 B
+     a value; then, with the launch counters at zero, ``propagate_block_ell``
+     at both types on ``pb``, ``mixed``, ``bandw`` (and ``pb30``,
+     ``mixed30`` at bfloat16), both drivers, against the plain path on the
+     card (bitwise), the segment engine against the fused one, the early
+     stop (F on ``pb``, #15 on ``bandw``) and telemetry on ``pb``; the
+     fixed points of ``pb``, ``mixed`` and ``bandw`` against the CPU plain
+     runs of the same instances (a process started with the script):
+     rounds, converged and infeasible exactly; every 16-bit form must have
+     been launched; the walls at float32, bfloat16 and float16;
+ 23. prints (before phase 19) a ``kernels`` JSON line (the float forms as
      ``<wrapper>[<form>]``), and last ``{"ok": true, "device": {...}}``.
 
 Each path runs with the launch counters at zero just before it and read just
@@ -546,7 +566,8 @@ class EventTimedLib:
         self.timed = (set(SYMBOL.values()) | set(_build.SIGNATURES["tier_round.cu"])
                       | set(_build.SIGNATURES["batch_tier_round.cu"])
                       | set(_build.SIGNATURES["slab_tier_round.cu"])
-                      | set(_build.SIGNATURES["telemetry.cu"]))
+                      | set(_build.SIGNATURES["telemetry.cu"])
+                      | set(_build.SIGNATURES["half_round.cu"]))
 
     def __getattr__(self, name):
         entry = getattr(self.lib, name)
@@ -671,6 +692,21 @@ def bound(nbytes: int, ops: float, flops: float = F64_FLOPS) -> tuple[float, str
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def round_scalars(ops, dt) -> tuple:
+    """``(eps, int_eps, inf, outward)`` of a round at ``dt``, rounded to it
+    as the engines pass them (the reference's weakly typed scalars; exact
+    at float64 and float32 as PyTorch and ctypes round them anyway)."""
+    from repro_torch.core.propagator import round_scalars as scalars
+
+    return scalars(ops.DEFAULT_CONFIG, dt)
+
+
+def flops_of(torch, dt) -> float:
+    """The vector rate of a kernel's arithmetic at ``dt``: float64's, or
+    float32's (the 16-bit forms compute in float32 and round)."""
+    return F64_FLOPS if dt == torch.float64 else F32_FLOPS
+
+
 def needed_bytes(kname: str, prep, nnz: int) -> dict:
     """Bytes the kernel's function must move, each input read once and each
     output written once: ``val`` for every padded slot (its zeros mark the
@@ -756,9 +792,10 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed, pla
     from repro_torch.core import carry as rt_carry
 
     d = prep.d
-    n_pad, cfg = prep.n_pad, ops.DEFAULT_CONFIG
+    n_pad = prep.n_pad
+    eps, int_eps, inf, outward = round_scalars(ops, d.val.dtype)
     nnz = int((d.val != 0).sum().item())  # real nonzeros in the tiles
-    flops = F64_FLOPS if d.val.dtype == torch.float64 else F32_FLOPS
+    flops = flops_of(torch, d.val.dtype)
     rows = {}
 
     def row(kname, got, want, fn_k, fn_p, moved=None, reset=None):
@@ -778,12 +815,14 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed, pla
     # The accumulator planes of D and E, kept as the round closure keeps
     # them: at the sentinels before each timed launch, as F leaves them (the
     # wrapper's time is taken over back-to-back calls into the same planes).
-    acc = tk.accumulator_planes(lb)
-    sentinels = lambda: (acc[0].fill_(-cfg.inf), acc[1].fill_(cfg.inf))
-    clean = lambda what: planes_clean(torch, acc, cfg.inf, f"{name}: {what}")
+    # Beside 16-bit bounds they are float32, holding the candidates widened.
+    acc = tk.accumulator_planes(lb, inf)
+    wide = lambda xs: tuple(x.to(acc[0].dtype) for x in xs)
+    sentinels = lambda: (acc[0].fill_(-inf), acc[1].fill_(inf))
+    clean = lambda what: planes_clean(torch, acc, inf, f"{name}: {what}")
     k = d.val.shape[-1]
     if prep.fits_one_chunk:
-        args = (d.val, d.col, prep.ii_g, prep.lhs_g, prep.rhs_g, lb, ub, n_pad, cfg.int_eps)
+        args = (d.val, d.col, prep.ii_g, prep.lhs_g, prep.rhs_g, lb, ub, n_pad, int_eps, inf)
         # The lengths and the longest chunk hoisted at prepare time: where
         # no chunk holds more than 16 slots, several chunks share a warp.
         hoisted = dict(chunk_len=prep.chunk_len, max_chunk_len=prep.max_chunk_len)
@@ -791,10 +830,10 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed, pla
         got = tk.fused_scatter_round_tiles(*args, acc=acc, **hoisted)
         # Fresh planes and the lengths computed by the wrapper; and a warp
         # with four strides per chunk whatever the chunks hold (no packing).
-        max_abs_err(torch, tk.fused_scatter_round_tiles(*args), want)
+        max_abs_err(torch, tk.fused_scatter_round_tiles(*args), wide(want))
         max_abs_err(torch, tk.fused_scatter_round_tiles(*args, chunk_len=prep.chunk_len,
-                                                        max_chunk_len=k), want)
-        row("fused_scatter_round_tiles", got, want,
+                                                        max_chunk_len=k), wide(want))
+        row("fused_scatter_round_tiles", got, wide(want),
             lambda: tk.fused_scatter_round_tiles(*args, acc=acc, **hoisted),
             lambda: tref.fused_scatter_round_tiles_ref(*args), reset=sentinels)
         rows["fused_scatter_round_tiles"].update(
@@ -803,7 +842,7 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed, pla
     else:
         # Each chunk's length as the engine hoists it (prepare time).
         clen = dict(chunk_len=prep.chunk_len)
-        a_args = (d.val, d.col, lb, ub, n_pad)
+        a_args = (d.val, d.col, lb, ub, n_pad, inf)
         got = tk.activities_gather_tiles(*a_args, **clen)
         want = tref.activities_gather_tiles_ref(*a_args)
         row("activities_gather_tiles", got, want,
@@ -820,17 +859,16 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed, pla
             rows["combine_chunk_partials_tiles"]["segment_reduce_ms"] = segment_reduce_ms(
                 torch, want, d.chunk_row, prep.row_start)
         e_args = (d.val, d.col, prep.ii_g, *aggs, prep.lhs_g, prep.rhs_g, lb, ub, n_pad,
-                  cfg.int_eps)
+                  int_eps, inf)
         want = tref.candidates_scatter_tiles_ref(*e_args)
         got = tk.candidates_scatter_tiles(*e_args, **clen, acc=acc)
-        max_abs_err(torch, tk.candidates_scatter_tiles(*e_args, **clen), want)  # fresh planes
-        row("candidates_scatter_tiles", got, want,
+        max_abs_err(torch, tk.candidates_scatter_tiles(*e_args, **clen), wide(want))  # fresh
+        row("candidates_scatter_tiles", got, wide(want),
             lambda: tk.candidates_scatter_tiles(*e_args, **clen, acc=acc),
             lambda: tref.candidates_scatter_tiles_ref(*e_args), reset=sentinels)
         best_l, best_u = want
 
-    eps, outward = cfg.eps_for(lb.dtype), cfg.outward_for(lb.dtype)
-    want = ops.bnd.apply_updates(lb, ub, best_l, best_u, eps, cfg.inf, outward)
+    want = ops.bnd.apply_updates(lb, ub, best_l, best_u, eps, inf, outward)
     # F hands the planes it reads back at the sentinels: here the kept
     # planes that the scatter filled (and the timing left full).  It folds
     # its flag into a loop carry, kept as the round closure keeps it: the
@@ -840,7 +878,7 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed, pla
     acc[1].copy_(best_u)
     carry = rt_carry.armed_state(lb.device)
     armed = carry.clone()
-    got = tk.apply_updates_tiles(lb.clone(), ub.clone(), *acc, eps, cfg.inf, outward, carry=carry,
+    got = tk.apply_updates_tiles(lb.clone(), ub.clone(), *acc, eps, inf, outward, carry=carry,
                                  k=0, unroll=2)
     clean("F did not hand its planes back")
     changed = bool(want[2])
@@ -851,13 +889,13 @@ def check_kernels(torch, tk, tref, ops, build, name, p, prep, lb, ub, timed, pla
     # accumulator entry is handed back after the first.
     lbw, ubw = lb.clone(), ub.clone()
     row("apply_updates_tiles", got[:2], want[:2],
-        lambda: tk.apply_updates_tiles(lbw, ubw, *acc, eps, cfg.inf, outward, carry=carry, k=0,
+        lambda: tk.apply_updates_tiles(lbw, ubw, *acc, eps, inf, outward, carry=carry, k=0,
                                        unroll=2),
-        lambda: ops.bnd.apply_updates(lb, ub, best_l, best_u, eps, cfg.inf, outward),
-        moved=dict(merge_bytes(torch, ops.bnd, lb, ub, best_l, best_u, eps, inf=cfg.inf),
+        lambda: ops.bnd.apply_updates(lb, ub, best_l, best_u, eps, inf, outward),
+        moved=dict(merge_bytes(torch, ops.bnd, lb, ub, best_l, best_u, eps, inf=inf),
                    carry=4 * 5),
-        reset=fresh_inputs(torch, [(lbw, lb), (ubw, ub), (acc[0], best_l), (acc[1], best_u),
-                                   (carry, armed)]))
+        reset=fresh_inputs(torch, [(lbw, lb), (ubw, ub), (acc[0], wide((best_l,))[0]),
+                                   (acc[1], wide((best_u,))[0]), (carry, armed)]))
     return rows
 
 
@@ -898,7 +936,7 @@ def require_launched(per_run: dict, need: dict) -> None:
                 fail(f"main path {run} never launched {k}: {per_run[run]}")
 
 
-def smoke(torch, dev):
+def smoke(torch, dev, half_cpu):
     import numpy as np
 
     import repro_torch as rt
@@ -1106,6 +1144,9 @@ def smoke(torch, dev):
     telemetry_rows, telemetry_runs, telemetry_launches = telemetry_phase(
         torch, np, rt, tk, tref, _build, dev, problems, wide, batch_pops, pbf, stream)
     runs.update(telemetry_runs)
+    half_rows, half_launches = half_phase(
+        torch, np, rt, tk, tref, ops, _build, dev, problems, tier_probs, wide,
+        {**tier_rows, **engine_tier_rows, **telemetry_rows}, half_cpu)
     sharded_phase(torch, np, rt, dev, problems, results, batch_pops, pbf)
     lm_phase(torch, dev)
     slab_path = ("batched_slab_partials_tiles", "straddle_combine_tiles",
@@ -1222,6 +1263,14 @@ def smoke(torch, dev):
                 bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None, instance=inst,
                 wrapper_ms=r["wrapper_ms"], bytes=r["bytes"], float64_ms=r.get("float64_ms"),
             ))
+    for key, (r, inst) in half_rows.items():
+        kernels.append(dict(
+            name=key, route="cuda", source=HALF_SOURCE, replaces=REPLACES[key.split("[")[0]],
+            launches=half_launches[key], max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=None, instance=inst, wrapper_ms=r["wrapper_ms"], bytes=r["bytes"],
+            float32_ms=r["float32_ms"], float64_ms=r["float64_ms"],
+        ))
     log(json.dumps({"kernels": kernels}))
 
 
@@ -1778,17 +1827,17 @@ def check_slab_kernels(torch, tk, tref, ops, build, name, prep, part):
     alone against their plain versions on the instance's partition at its
     initial bounds, the single-instance shapes of the main path; timed.
     Returns {kernel: row}."""
-    cfg = ops.DEFAULT_CONFIG
     dt = prep.lb0.dtype
-    eps, outward, width = cfg.eps_for(dt), cfg.outward_for(dt), prep.n_pad
-    v, flops = prep.lb0.element_size(), F64_FLOPS if dt == torch.float64 else F32_FLOPS
+    eps, int_eps, inf, outward = round_scalars(ops, dt)
+    width = prep.n_pad
+    v, flops = prep.lb0.element_size(), flops_of(torch, dt)
     act = torch.ones(1, dtype=torch.bool, device=prep.lb0.device)
     lbp, ubp = prep.lb0[None].clone(), prep.ub0[None].clone()
     rows = {}
     ta, r, k = part.a_val.shape
     a_nnz = int((part.a_val != 0).sum().item())
     a_args = (part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_inst,
-              part.a_run_slab, act, lbp, ubp, part.slab, part.a_max_run_len)
+              part.a_run_slab, act, lbp, ubp, part.slab, part.a_max_run_len, inf)
     partials = tref.batched_slab_partials_ref(*a_args)
     rows["batched_slab_partials_tiles"] = measured_row(
         torch, build, tk.batched_slab_partials_tiles(*a_args), partials,
@@ -1803,18 +1852,18 @@ def check_slab_kernels(torch, tk, tref, ops, build, name, prep, part):
     nnz = int((part.val != 0).sum().item())
     r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
               part.run_start, part.run_len, part.run_inst, part.run_slab, act)
-    tail = (part.slab, part.max_run_len, eps, cfg.int_eps, cfg.inf, outward)
+    tail = (part.slab, part.max_run_len, eps, int_eps, inf, outward)
     want = tref.batched_slab_round_ref(*r_args, lbp, ubp, *tail)
     # The accumulator planes kept across the launches, as the round closure
     # keeps them (the merge hands them back); the tile maps and chunk
     # lengths hoisted by the partition.
-    kw = dict(acc=tk.accumulator_planes(lbp), tiles=(part.tile_inst, part.tile_slab),
+    kw = dict(acc=tk.accumulator_planes(lbp, inf), tiles=(part.tile_inst, part.tile_slab),
               chunk_len=part.chunk_len, max_chunk_len=part.max_chunk_len)
     got = tk.batched_slab_round_tiles(*r_args, lbp.clone(), ubp.clone(), *tail, **kw)
     lbw, ubw = lbp.clone(), ubp.clone()
     held = tref.batched_slab_scatter_ref(
         part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
-        part.run_start, part.run_inst, part.run_slab, act, lbp, ubp, part.slab, cfg.int_eps)
+        part.run_start, part.run_inst, part.run_slab, act, lbp, ubp, part.slab, int_eps, inf)
     # val at the nonzeros (each copy stops at its length, 4 B per chunk) or,
     # for the all-slot bound, at every slot; col_s and is_int_g per kept
     # nonzero; row_done, the straddle aggregates and the sides per chunk;
@@ -1822,7 +1871,7 @@ def check_slab_kernels(torch, tk, tref, ops, build, name, prep, part):
     # once and handed back where they hold a candidate.
     common = dict(col_ii=8 * nnz, rows=(12 + 4 * v) * t * r, tiles=8 * t, bounds=2 * v * width,
                   stores=v * stores(torch, want[:2], (lbp, ubp)), accumulators=4 * v * width,
-                  handback=v * int((held[0] != -cfg.inf).sum() + (held[1] != cfg.inf).sum()),
+                  handback=v * int((held[0] != -inf).sum() + (held[1] != inf).sum()),
                   flags=4 * part.n_slabs)
     rows["batched_slab_round_tiles"] = measured_row(
         torch, build, got, want,
@@ -1835,20 +1884,23 @@ def check_slab_kernels(torch, tk, tref, ops, build, name, prep, part):
     # #15 alone on the single plane, the scatter's candidates as its input
     # (it hands them back at the sentinels), restored before each timed
     # launch.
-    m_args = (act, part.slab, eps, cfg.inf, outward)
+    m_args = (act, part.slab, eps, inf, outward)
     want_m = tref.apply_updates_slab_ref(lbp, ubp, *held, *m_args)
     want_m = (*want_m[:2], want_m[2].any(dim=1))
-    got_m = tk.apply_updates_slab_tiles(lbp.clone(), ubp.clone(), held[0].clone(),
-                                        held[1].clone(), *m_args)
-    lbw, ubw, blw, buw = lbp.clone(), ubp.clone(), held[0].clone(), held[1].clone()
+    # The candidates as #12 leaves them: planes of the scatters' value type.
+    planes = tuple(x.to(kw["acc"][0].dtype) for x in held)
+    got_m = tk.apply_updates_slab_tiles(lbp.clone(), ubp.clone(), planes[0].clone(),
+                                        planes[1].clone(), *m_args)
+    lbw, ubw, blw, buw = lbp.clone(), ubp.clone(), planes[0].clone(), planes[1].clone()
     rows["apply_updates_slab_tiles"] = measured_row(
         torch, build, got_m, want_m,
         lambda: tk.apply_updates_slab_tiles(lbw, ubw, blw, buw, *m_args),
         lambda: tref.apply_updates_slab_ref(lbp, ubp, *held, *m_args),
-        dict(merge_bytes(torch, ops.bnd, lbp, ubp, *held, eps, act, cfg.inf),
+        dict(merge_bytes(torch, ops.bnd, lbp, ubp, *held, eps, act, inf),
              flags=4 * part.n_slabs + 1),
         6 * width,
-        reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp), (blw, held[0]), (buw, held[1])]),
+        reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp), (blw, planes[0]),
+                                   (buw, planes[1])]),
         flops=flops)
     for kname, row in rows.items():
         row["instance"] = name
@@ -2181,12 +2233,12 @@ def check_segment_kernels(torch, tk, tref, ops, build, name, prep):
     reduction both ways (over the nonzero slots, as the engine runs it, and
     over every slot), held equal as values and timed.  Returns {kernel:
     row}."""
-    cfg = ops.DEFAULT_CONFIG
     d = prep.d
+    _, int_eps, inf, _ = round_scalars(ops, d.val.dtype)
     nnz = int((d.val != 0).sum().item())
     cols = prep.gather_columns()  # d.col, or a compact prep's widened once
     lb_g, ub_g = ops.gather_bounds(prep.lb0, prep.ub0, cols)
-    flops = F64_FLOPS if d.val.dtype == torch.float64 else F32_FLOPS
+    flops = flops_of(torch, d.val.dtype)
     rows = {}
 
     def row(kname, got, want, fn_k, fn_p):
@@ -2197,26 +2249,26 @@ def check_segment_kernels(torch, tk, tref, ops, build, name, prep):
         log_row(kname, f"{name} (segment)", r)
 
     if prep.fits_one_chunk:
-        args = (d.val, lb_g, ub_g, prep.ii_g, prep.lhs_g, prep.rhs_g, cfg.int_eps)
+        args = (d.val, lb_g, ub_g, prep.ii_g, prep.lhs_g, prep.rhs_g, int_eps, inf)
         want = tref.fused_round_tiles_ref(*args)
         row("fused_round_tiles", tk.fused_round_tiles(*args), want,
             lambda: tk.fused_round_tiles(*args), lambda: tref.fused_round_tiles_ref(*args))
     else:
-        a_args = (d.val, lb_g, ub_g)
+        a_args = (d.val, lb_g, ub_g, inf)
         partials = tref.activities_tiles_ref(*a_args)
         row("activities_tiles", tk.activities_tiles(*a_args), partials,
             lambda: tk.activities_tiles(*a_args), lambda: tref.activities_tiles_ref(*a_args))
         aggs = tref.combine_chunk_partials_ref(*partials, d.chunk_row, prep.row_start)
-        b_args = (d.val, lb_g, ub_g, prep.ii_g, *aggs, prep.lhs_g, prep.rhs_g, cfg.int_eps)
+        b_args = (d.val, lb_g, ub_g, prep.ii_g, *aggs, prep.lhs_g, prep.rhs_g, int_eps, inf)
         want = tref.candidates_tiles_ref(*b_args)
         row("candidates_tiles", tk.candidates_tiles(*b_args), want,
             lambda: tk.candidates_tiles(*b_args), lambda: tref.candidates_tiles_ref(*b_args))
     index = prep.segment_index()
-    kept = ops.segment_reduce(*want, index, prep.n_pad, cfg.inf)
-    every = tref.scatter_round_ref(*want, d.col, prep.n_pad, cfg.inf)
-    max_abs_err(torch, kept, every)
-    kept_ms = time_ms(torch, lambda: ops.segment_reduce(*want, index, prep.n_pad, cfg.inf))
-    every_ms = time_ms(torch, lambda: tref.scatter_round_ref(*want, d.col, prep.n_pad, cfg.inf),
+    kept = ops.segment_reduce(*want, index, prep.n_pad, inf)
+    every = tref.scatter_round_ref(*want, d.col, prep.n_pad, inf)
+    max_abs_err(torch, kept, tuple(e.to(kept[0].dtype) for e in every))
+    kept_ms = time_ms(torch, lambda: ops.segment_reduce(*want, index, prep.n_pad, inf))
+    every_ms = time_ms(torch, lambda: tref.scatter_round_ref(*want, d.col, prep.n_pad, inf),
                        reps=1, trials=3)
     gather_ms = time_ms(torch, lambda: ops.gather_bounds(prep.lb0, prep.ub0, cols))
     # Its bound: the two candidates and the int64 position and column of
@@ -2968,13 +3020,16 @@ def f_stop_check(torch, tk, tref, ops, build, name, lb, ub, best, timed):
     bitwise.  Returns the timed row."""
     from repro_torch.core import carry as rt_carry
 
-    cfg = ops.DEFAULT_CONFIG
-    eps, outward, inf = cfg.eps_for(lb.dtype), cfg.outward_for(lb.dtype), cfg.inf
-    # A threshold that only the second round's zero measure falls below.
-    stop = rt_carry.EarlyStop(1e-30, 1)
+    eps, _, inf, outward = round_scalars(ops, lb.dtype)
+    # A threshold that only the second round's zero measure falls below
+    # (float16's smallest subnormal: 1e-30 would round to 0 there).
+    stop = rt_carry.EarlyStop(1e-30 if lb.element_size() > 2 else 2.0**-24, 1)
     st_k, st_p = rt_carry.armed_state(lb.device), rt_carry.armed_state(lb.device)
     cur_k, cur_p = (lb.clone(), ub.clone()), (lb.clone(), ub.clone())
-    empty = (torch.full_like(lb, -inf), torch.full_like(ub, inf))
+    # The candidates as D leaves them: planes of the scatters' value type
+    # (float32 beside 16-bit bounds).
+    best = tuple(tk.accumulator_planes(lb, inf)[0].copy_(b) for b in best)
+    empty = tk.accumulator_planes(lb, inf)
     for cand in (best, empty):
         acc = (cand[0].clone(), cand[1].clone())
         got = tk.apply_updates_tiles(*cur_k, *acc, eps, inf, outward, carry=st_k, stop=stop)
@@ -2983,8 +3038,10 @@ def f_stop_check(torch, tk, tref, ops, build, name, lb, ub, best, timed):
         err = max_abs_err(torch, (*got[:2], st_k), (*want[:2], st_p))
         planes_clean(torch, acc, inf, f"{name}: F with the early stop kept a candidate")
         cur_p = want[:2]
+        first = first if cand is empty else st_p.tolist()[rt_carry.LAST]
+    # Two rounds counted, or one where the first tightened nothing.
     fields = st_k.tolist()
-    if fields[rt_carry.GO] != 0 or fields[rt_carry.ROUNDS] != 2:
+    if fields[rt_carry.GO] != 0 or fields[rt_carry.ROUNDS] != 1 + first:
         fail(f"{name}: F with the early stop left the carry at {fields[:8]}")
     row = dict(instance=name, max_abs_err=err)
     if timed:
@@ -2992,14 +3049,14 @@ def f_stop_check(torch, tk, tref, ops, build, name, lb, ub, best, timed):
         carry = armed.clone()
         lbw, ubw = lb.clone(), ub.clone()
         acc = (best[0].clone(), best[1].clone())
-        partials = torch.empty(-(-lb.numel() // tref.MERGE_BLOCK), dtype=lb.dtype,
+        partials = torch.empty(-(-lb.numel() // tref.MERGE_BLOCK), dtype=best[0].dtype,
                                device=lb.device)
         reset = fresh_inputs(torch, [(lbw, lb), (ubw, ub), (acc[0], best[0]), (acc[1], best[1]),
                                      (carry, armed)])
-        moved = dict(merge_bytes(torch, ops.bnd, lb, ub, best[0], best[1], eps, inf=inf),
-                     carry=4 * 8, partials=2 * lb.element_size() * partials.numel())
-        b_ms, b_by = bound(sum(moved.values()), 10 * lb.numel(),
-                           F64_FLOPS if lb.dtype == torch.float64 else F32_FLOPS)
+        narrow = (best[0].to(lb.dtype), best[1].to(lb.dtype))
+        moved = dict(merge_bytes(torch, ops.bnd, lb, ub, *narrow, eps, inf=inf),
+                     carry=4 * 8, partials=2 * partials.element_size() * partials.numel())
+        b_ms, b_by = bound(sum(moved.values()), 10 * lb.numel(), flops_of(torch, lb.dtype))
         run = lambda: tk.apply_updates_tiles(lbw, ubw, *acc, eps, inf, outward, carry=carry,
                                              stop=stop, partials=partials)
         row.update(ms=kernel_ms(torch, build, run, reset=reset),
@@ -3746,17 +3803,18 @@ def slab_stop_check(torch, tk, tref, ops, build, name, prep, part, timed, float6
     when not ``timed``)."""
     from repro_torch.core import carry as rt_carry
 
-    cfg = ops.DEFAULT_CONFIG
     dt = prep.lb0.dtype
-    eps, outward, inf = cfg.eps_for(dt), cfg.outward_for(dt), cfg.inf
+    eps, int_eps, inf, outward = round_scalars(ops, dt)
     width = prep.n_pad
     lbp, ubp = prep.lb0[None].clone(), prep.ub0[None].clone()
-    bl, bu = tref.partitioned_round_ref(part, lbp, ubp, cfg.int_eps, inf)
-    best = (bl[:, :width].contiguous(), bu[:, :width].contiguous())
-    empty = (torch.full_like(lbp, -inf), torch.full_like(ubp, inf))
-    stop = rt_carry.EarlyStop(1e-30, 1)
+    bl, bu = tref.partitioned_round_ref(part, lbp, ubp, int_eps, inf)
+    # The candidates as #12 leaves them: planes of the scatters' value type
+    # (float32 beside 16-bit bounds).
+    empty = tk.accumulator_planes(lbp, inf)
+    best = tuple(b[:, :width].to(empty[0].dtype).contiguous() for b in (bl, bu))
+    stop = rt_carry.EarlyStop(1e-30 if lbp.element_size() > 2 else 2.0**-24, 1)
     blocks = -(-width // tref.MERGE_BLOCK)
-    partials = torch.empty(blocks, dtype=dt, device=lbp.device)
+    partials = torch.empty(blocks, dtype=empty[0].dtype, device=lbp.device)
     st_k, st_p = rt_carry.armed_state(lbp.device), rt_carry.armed_state(lbp.device)
     cur_k, cur_p = (lbp.clone(), ubp.clone()), (lbp, ubp)
     for cand in (best, empty):
@@ -3770,8 +3828,11 @@ def slab_stop_check(torch, tk, tref, ops, build, name, prep, part, timed, float6
         err = max_abs_err(torch, (*cur_k, st_k), (new[0], new[1], st_p))
         planes_clean(torch, acc, inf, f"{name}: #15 with the early stop kept a candidate")
         cur_p = new[:2]
+        first = first if cand is empty else st_p.tolist()[rt_carry.LAST]
+    # Two rounds counted, or one where the first tightened nothing (float16
+    # on bandw: an infinite bound never tightens, its eps being 0).
     fields = st_k.tolist()
-    if fields[rt_carry.GO] != 0 or fields[rt_carry.ROUNDS] != 2:
+    if fields[rt_carry.GO] != 0 or fields[rt_carry.ROUNDS] != 1 + first:
         fail(f"{name}: #15 with the early stop left the carry at {fields[:8]}")
     if not timed:
         return {}
@@ -3782,8 +3843,8 @@ def slab_stop_check(torch, tk, tref, ops, build, name, prep, part, timed, float6
     reset = fresh_inputs(torch, [(lbw, lbp), (ubw, ubp), (acc[0], best[0]), (acc[1], best[1]),
                                  (carry, armed)])
     go = rt_carry.go_mask(carry)
-    moved = dict(merge_bytes(torch, ops.bnd, lbp, ubp, *best, eps, inf=inf), carry=4 * 8,
-                 partials=2 * lbp.element_size() * blocks)
+    moved = dict(merge_bytes(torch, ops.bnd, lbp, ubp, *(b.to(dt) for b in best), eps,
+                             inf=inf), carry=4 * 8, partials=2 * partials.element_size() * blocks)
 
     def plain():
         new = tref.apply_updates_slab_ref(lbp, ubp, *best, go, part.slab, eps, inf, outward)
@@ -4119,7 +4180,7 @@ def plane_bits(torch, plane) -> tuple:
     """A telemetry plane's fields as integers (the ring's bits: its unused
     slots are NaN), for :func:`max_abs_err`'s bitwise comparison."""
     ring = plane.ring
-    as_int = torch.int64 if ring.dtype == torch.float64 else torch.int32
+    as_int = {8: torch.int64, 4: torch.int32, 2: torch.int16}[ring.element_size()]
     return (ring.view(as_int),) + tuple(plane[1:])
 
 
@@ -4163,7 +4224,7 @@ def record_check(torch, tk, tref, build, label, lb, ub, timed):
     reset = fresh_inputs(torch, list(zip(got, pristine)))
     v = lb.element_size()
     moved = dict(bounds=2 * v * lb.numel(), carry=64, plane=v + 3 * 4)
-    flops = F64_FLOPS if dt == torch.float64 else F32_FLOPS
+    flops = flops_of(torch, dt)
     r = measured_row(
         torch, build, plane_bits(torch, got), plane_bits(torch, want),
         lambda: tk.record_round_tiles(lb, ub, carry, got, feas, patience=1,
@@ -4397,6 +4458,294 @@ def telemetry_phase(torch, np, rt, tk, tref, build, dev, problems, wide, pops, p
     launches = {"record_round_tiles[f32]": f32_launches}
     log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
     return out, runs, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 21: bfloat16 and float16 on the single-instance engines
+# ---------------------------------------------------------------------------
+
+HALF_SOURCE = "src/repro_torch/csrc/half_round.cu"
+# The 16-bit types: (form label, torch dtype name).
+HALF_TYPES = (("bf16", "bfloat16"), ("f16", "float16"))
+# The instances whose 16-bit fixed points are held to the CPU plain run.
+HALF_FIXED = ("pb", "mixed", "bandw")
+HALF_TRIALS = 3
+HALF_STOP = 0.05
+# Each 16-bit form's kernels-line entry and the instance it is measured on:
+# the instance of its float32 form's entry (phases 13, 15 and 16), so the
+# three times stand side by side.
+HALF_PRIMARY = {}
+for _label, _compact in (("bf16", True), ("f16", False)):
+    for _k, _inst, _c_inst in (
+            ("fused_scatter_round_tiles", "pb", "pb30"),
+            ("activities_gather_tiles", "mixed", "mixed30"),
+            ("combine_chunk_partials_tiles", "mixed", None),
+            ("candidates_scatter_tiles", "mixed", "mixed30"),
+            ("apply_updates_tiles", "pb", None),
+            ("activities_tiles", "mixed", None),
+            ("candidates_tiles", "mixed", "mixed30"),
+            ("fused_round_tiles", "pb", "pb30"),
+            ("batched_slab_partials_tiles", "pbw", None),
+            ("straddle_combine_tiles", "pbw", None),
+            ("batched_slab_round_tiles", "pbw", None),
+            ("apply_updates_slab_tiles", "pbw", None),
+            ("record_round_tiles", "pb", None)):
+        HALF_PRIMARY[f"{_k}[{_label}]"] = _inst
+        if _compact and _c_inst:
+            HALF_PRIMARY[f"{_k}[{_label}c]"] = _c_inst
+    HALF_PRIMARY[f"apply_updates_tiles[{_label}+stop]"] = "pb"
+    HALF_PRIMARY[f"apply_updates_slab_tiles[{_label}+stop]"] = "pbw"
+
+# The CPU plain runs of HALF_FIXED, in a process of their own started with
+# the script (minutes of a few CPU cores), so they overlap the card's
+# phases.
+HALF_CPU_CODE = r"""
+import json, sys, time
+import torch
+out, src, specs = sys.argv[1], sys.argv[2], json.loads(sys.argv[3])
+sys.path.insert(0, src)
+import repro_torch as rt, repro_torch.data as td
+torch.set_num_threads(4)
+res = {}
+for name, gen, kw in specs:
+    p = getattr(td, gen)(**kw)
+    for dt in ("bfloat16", "float16"):
+        t = time.perf_counter()
+        r = rt.propagate_block_ell(p, dtype=getattr(torch, dt), use_kernels=False, device="cpu")
+        res[f"{name} {dt}"] = dict(rounds=int(r.rounds), converged=bool(r.converged),
+                                   infeasible=bool(r.infeasible), lb=r.lb, ub=r.ub,
+                                   seconds=time.perf_counter() - t)
+torch.save(res, out)
+"""
+
+
+class HalfCpuRuns:
+    """The process of phase 21's CPU plain runs, its output and its log."""
+
+    def __init__(self):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_half_cpu_")
+        self.out = os.path.join(self.dir, "runs.pt")
+        self.err = open(os.path.join(self.dir, "stderr.txt"), "w")
+        specs = [s for s in SPECS + WIDE_SPECS if s[0] in HALF_FIXED]
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="4")
+        src = str(Path(__file__).resolve().parent / "src")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-c", HALF_CPU_CODE, self.out, src,
+                                      json.dumps(specs)],
+                                     env=env, stdout=subprocess.DEVNULL, stderr=self.err,
+                                     preexec_fn=lambda: os.nice(19))
+
+    def result(self, torch, timeout: float) -> dict:
+        try:
+            code = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            fail(f"phase 21: the CPU plain runs did not finish "
+                 f"{time.perf_counter() - self.t0:.0f} s after they started")
+        if code != 0:
+            self.err.flush()
+            with open(self.err.name) as f:
+                fail(f"phase 21: the CPU plain runs exited {code}: {f.read()[-3000:]}")
+        return torch.load(self.out)
+
+    def close(self):
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.err.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def half_form(prep) -> str:
+    """The form of a 16-bit prep's D, A' and E: bf16, bf16c (compact) or f16."""
+    import torch
+
+    label = "bf16" if prep.d.val.dtype == torch.bfloat16 else "f16"
+    return label + ("c" if prep.d.col.dtype == torch.int16 else "")
+
+
+def half_phase(torch, np, rt, tk, tref, ops, build, dev, problems, probs13, wide, f32_rows, cpu):
+    """Phase 21: bfloat16 and float16.  Every 16-bit form of D, A', the
+    combine, E, F (and its stop form), A, B, C, #11, the straddle combine,
+    #12, #15 (and its stop form) and the record kernel against its plain
+    version on the card, bitwise (the scatters' float32 planes holding the
+    candidates widened), timed on its float32 form's instance beside the
+    float32 and float64 forms' times of this run; then, with the launch
+    counters at zero, the fixed points at both types (each against the
+    plain path on the card, bitwise, and ``pb``, ``mixed`` and ``bandw``
+    against the CPU plain run of the same instance: rounds and verdicts
+    exactly), and their walls beside float32's.  Returns ({form key: (row,
+    instance)}, {form key: launches})."""
+    t_phase = time.perf_counter()
+    probs = {**problems, "pb30": probs13["pb30"], "mixed30": probs13["mixed30"], **wide}
+    rows = {}
+
+    def keep(kname, label, r, inst):
+        key = f"{kname}[{label}]"
+        rows.setdefault(key, {})[inst] = r
+        f32 = f32_rows.get(half_float32_key(key))
+        times = (f32[0]["ms"] if f32 is not None and f32[1] == inst else None,
+                 half_float64_ms(f32_rows, key, inst))
+        cell = lambda x: "not measured" if x is None else f"{x:.4f}"
+        log(f"kernel {key} on {inst}: max_abs_err={r['max_abs_err']} ms={r['ms']:.4f} "
+            f"(float32 form {cell(times[0])}, float64 form {cell(times[1])}) "
+            f"wrapper_ms={r['wrapper_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}, {sum(r['bytes'].values())} B: "
+            f"{r['bytes']})")
+
+    preps = {}
+    for label, dtn in HALF_TYPES:
+        dt = getattr(torch, dtn)
+        names = ("pb", "banded", "mixed") + (("pb30", "mixed30") if label == "bf16" else ())
+        for n in names:
+            preps[n, label] = pr = rt.prepare_block_ell(probs[n], dtype=dt, device=dev)
+            log(f"{dtn} prep {n}: n_pad={pr.n_pad} col {pr.d.col.dtype} ii_g {pr.ii_g.dtype} "
+                f"form {half_form(pr)} fits_one_chunk={pr.fits_one_chunk}")
+        # D, or A', the combine and E, then F, at the root bounds.
+        for n in names:
+            pr = preps[n, label]
+            timed = n != "banded"
+            got = check_kernels(torch, tk, tref, ops, build, n, probs[n], pr, pr.lb0, pr.ub0,
+                                timed=timed, plain_trials=2)
+            for kname, r in got.items():
+                form = label if kname in NO_INDEX_STREAMS else half_form(pr)
+                if timed:
+                    keep(kname, form, r, n)
+                else:
+                    log(f"kernel {kname}[{form}] on {n}: bitwise its plain version")
+        # F with the early stop on pb.
+        pr = preps["pb", label]
+        _, int_eps, inf, _ = round_scalars(ops, dt)
+        best = tref.fused_scatter_round_tiles_ref(pr.d.val, pr.d.col, pr.ii_g, pr.lhs_g,
+                                                  pr.rhs_g, pr.lb0, pr.ub0, pr.n_pad, int_eps,
+                                                  inf)
+        keep("apply_updates_tiles", f"{label}+stop",
+             f_stop_check(torch, tk, tref, ops, build, "pb", pr.lb0, pr.ub0, best, timed=True),
+             "pb")
+        # The segment round's A, B and C.
+        for n in ("pb", "mixed") + (("pb30", "mixed30") if label == "bf16" else ()):
+            for kname, r in check_segment_kernels(torch, tk, tref, ops, build, n,
+                                                  preps[n, label]).items():
+                form = label if kname == "activities_tiles" else half_form(preps[n, label])
+                keep(kname, form, r, n)
+        # The partitioned round's kernels and #15's stop form.
+        for n in ("bandw", "pbw"):
+            t = time.perf_counter()
+            pr = rt.prepare_block_ell(probs[n], dtype=dt, device=dev)
+            part = pr.slab_partition()
+            log(f"{dtn} partition {n}: slab {part.slab}, {part.n_straddle} straddle rows, "
+                f"{time.perf_counter() - t:.1f} s")
+            for kname, r in check_slab_kernels(torch, tk, tref, ops, build, n, pr, part).items():
+                keep(kname, label, r, n)
+            r = slab_stop_check(torch, tk, tref, ops, build, n, pr, part, timed=n == "pbw")
+            if r:
+                keep("apply_updates_slab_tiles", f"{label}+stop", r, "pbw")
+        # The record kernel on pb's root bounds.
+        pr = preps["pb", label]
+        keep("record_round_tiles", label,
+             record_check(torch, tk, tref, build, f"pb {label}", pr.lb0, pr.ub0, timed=True),
+             "pb")
+
+    # The fixed points, with the launches counted.
+    tk.reset_launch_counts()
+    fixed = {}
+    for label, dtn in HALF_TYPES:
+        dt = getattr(torch, dtn)
+        for n in HALF_FIXED + (("pb30", "mixed30") if label == "bf16" else ()):
+            r = rt.propagate_block_ell(probs[n], dtype=dt, device=dev)
+            check_same(rt, f"{n} {label}", r, rt.propagate_block_ell(
+                probs[n], dtype=dt, use_kernels=False, device=dev), True, "the plain path")
+            check_same(rt, f"{n} {label} host_loop", rt.propagate_block_ell(
+                probs[n], dtype=dt, driver="host_loop", device=dev), r, True, "device_loop")
+            fixed[n, label] = r
+            log(f"{dtn} {n}: rounds={r.rounds.item()} converged={r.converged.item()} "
+                f"infeasible={r.infeasible.item()}; device_loop, host_loop and the plain path "
+                "bitwise")
+        for n in ("pb", "mixed") + (("pb30", "mixed30") if label == "bf16" else ()):
+            seg = rt.propagate_block_ell(probs[n], dtype=dt, scatter="segment", device=dev)
+            base = fixed[n, label] if (n, label) in fixed else rt.propagate_block_ell(
+                probs[n], dtype=dt, device=dev)
+            check_same(rt, f"segment {n} {label}", seg, base, True, "the fused engine")
+        for n in ("pb", "bandw"):
+            kw = dict(dtype=dt, stop_progress=HALF_STOP, device=dev)
+            r = rt.propagate_block_ell(probs[n], **kw)
+            check_same(rt, f"early stop {n} {label}", r,
+                       rt.propagate_block_ell(probs[n], use_kernels=False, **kw), True,
+                       "the plain path")
+            log(f"early stop {n} {label}: rounds={r.rounds.item()} "
+                f"progress={r.progress.item():.6g}; bitwise the plain path")
+        tel = rt.propagate_block_ell(probs["pb"], dtype=dt, telemetry=TELEMETRY_CAP, device=dev)
+        telemetry_same(torch, f"telemetry pb {label}", [fixed["pb", label]], [tel], 0, 0)
+    launches = tk.form_counts()
+    log(f"phase 21 launches by form: {json.dumps(launches)}")
+    missing = [k for k in HALF_PRIMARY if launches.get(k, 0) <= 0]
+    if missing:
+        fail(f"the 16-bit runs never launched {missing}")
+
+    # Against the CPU plain runs of the same instances.
+    t = time.perf_counter()
+    cpu_res = cpu.result(torch, timeout=900)
+    log(f"phase 21: waited {time.perf_counter() - t:.1f} s for the CPU plain runs")
+    for label, dtn in HALF_TYPES:
+        for n in HALF_FIXED:
+            c, r = cpu_res[f"{n} {dtn}"], fixed[n, label]
+            got = (r.rounds.item(), r.converged.item(), r.infeasible.item())
+            want = (c["rounds"], c["converged"], c["infeasible"])
+            if got != want:
+                fail(f"{n} {label}: (rounds, converged, infeasible) {got} on the card, "
+                     f"{want} on the CPU")
+            diff = int((r.lb.cpu() != c["lb"]).sum() + (r.ub.cpu() != c["ub"]).sum())
+            log(f"{n} {label} against the CPU plain run ({c['seconds']:.1f} s there): rounds, "
+                f"converged and infeasible equal; bounds differing as values: {diff}")
+
+    # Walls: float32 and the 16-bit types, one each per trial, rotating.
+    variants = [("float32", torch.float32), ("bfloat16", torch.bfloat16),
+                ("float16", torch.float16)]
+    runs = [(n, v) for n in HALF_FIXED for v in variants]
+    samples = {}
+    for trial in range(HALF_TRIALS):
+        order = runs[trial % len(runs):] + runs[: trial % len(runs)]
+        for n, (vname, dt) in order:
+            samples.setdefault((n, vname), []).append(wall_ms(
+                torch, lambda: rt.propagate_block_ell(probs[n], dtype=dt, device=dev)))
+    for n in HALF_FIXED:
+        cells = ", ".join(f"{v} {statistics.median(samples[n, v]):.3f}" for v, _ in variants)
+        log(f"half walls {n} device_loop (ms, medians of {HALF_TRIALS}): {cells}")
+    out = {}
+    for key, inst in HALF_PRIMARY.items():
+        r = dict(rows[key][inst])
+        r["max_abs_err"] = max(v["max_abs_err"] for v in rows[key].values())
+        f32 = f32_rows.get(half_float32_key(key))
+        r["float32_ms"] = f32[0]["ms"] if f32 is not None and f32[1] == inst else None
+        r["float64_ms"] = half_float64_ms(f32_rows, key, inst)
+        out[key] = (r, inst)
+    log(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return out, {key: launches.get(key, 0) for key in HALF_PRIMARY}
+
+
+def half_float32_key(key: str) -> str:
+    """The float32 form's key of a 16-bit form's key."""
+    base, form = key[:-1].split("[")
+    form = form.replace("bf16c", "f32c").replace("bf16", "f32").replace("f16", "f32")
+    return f"{base}[{form}]"
+
+
+def half_float64_ms(f32_rows: dict, key: str, inst: str):
+    """The float64 form's time of this run on ``inst`` where an earlier
+    phase measured it there: the float32 entry's ``float64_ms``, or the
+    float64 stop form's and record kernel's own entries."""
+    base, form = key[:-1].split("[")
+    if form.endswith("+stop"):
+        f64 = f32_rows.get(f"{base}[f64+stop]")
+        return f64[0]["ms"] if f64 is not None and f64[1] == inst else None
+    if base == "record_round_tiles":
+        f64 = f32_rows.get(base)
+        return f64[0]["ms"] if f64 is not None and f64[1] == inst else None
+    f32 = f32_rows.get(half_float32_key(key))
+    return f32[0].get("float64_ms") if f32 is not None and f32[1] == inst else None
 
 
 # ---------------------------------------------------------------------------
@@ -5490,12 +5839,14 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     dry = DryRun()
+    half_cpu = HalfCpuRuns()
     try:
-        smoke(torch, torch.device("cuda"))
+        smoke(torch, torch.device("cuda"), half_cpu)
         release_propagation_memory(torch)
         lm_train_phase(torch, torch.device("cuda"))
         launch_phase(torch, torch.device("cuda"), dry=dry)
     finally:
+        half_cpu.close()
         dry.close()
     log(f"total: {time.perf_counter() - t0:.1f} s")
     log(f"gpu: {smi}")

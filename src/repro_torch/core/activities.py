@@ -42,7 +42,11 @@ def nnz_contributions(a, lb_col, ub_col, inf: float = INF):
 
 
 def segment_sum(x, segment_ids, num_segments: int):
-    """Sum of ``x`` per segment id (``index_add_``), zeros for empty segments."""
+    """Sum of ``x`` per segment id (``index_add_``), zeros for empty segments.
+    On the CPU it adds in index order, so a 16-bit sum rounds after every
+    add in that order, as the reference's ``segment_sum`` does; on the card
+    its atomics add in no fixed order (the plain ``propagate`` is no kernel
+    path)."""
     out = torch.zeros(num_segments, dtype=x.dtype, device=x.device)
     return out.index_add_(0, segment_ids, x)
 

@@ -45,8 +45,9 @@ from __future__ import annotations
 import threading
 from typing import NamedTuple
 
-import numpy as np
 import torch
+
+from .types import rounded
 
 FLAG, ANY, ROUNDS, GO, TICKET, FLAT, LAST = range(7)
 PROG = 8     # the progress measure's first int32 field (byte offset 32)
@@ -77,17 +78,16 @@ NO_STOP = EarlyStop(float("-inf"), 1)
 
 def progress_view(state: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """The carry's ``PROG`` slot as a ``(1,)`` tensor of ``dtype`` (a view
-    of ``state``, on its device)."""
-    width = torch.empty((), dtype=dtype).element_size() // 4
-    return state[PROG : PROG + width].view(dtype)
+    of ``state``, on its device; a 16-bit value in the field's low half)."""
+    width = max(1, torch.empty((), dtype=dtype).element_size() // 4)
+    return state[PROG : PROG + width].view(dtype)[:1]
 
 
 def progress_of(fields: list, dtype: torch.dtype) -> float:
     """The ``PROG`` slot of the carry's fields as read on the host
     (:meth:`LoopCarry.read`), as a float of ``dtype``."""
-    np_dt = np.dtype(str(dtype).removeprefix("torch."))
-    width = np_dt.itemsize // 4
-    return float(np.array(fields[PROG : PROG + width], dtype=np.int32).view(np_dt)[0])
+    width = max(1, torch.empty((), dtype=dtype).element_size() // 4)
+    return float(torch.tensor(fields[PROG : PROG + width], dtype=torch.int32).view(dtype)[0])
 
 
 # One armed carry per device, which a fresh or re-armed carry copies: one
@@ -169,7 +169,7 @@ def fold(state: torch.Tensor, flag: torch.Tensor, k: int, unroll: int,
             on = go.bool()
             slot = progress_view(state, prog.dtype)
             slot.copy_(torch.where(on, prog.reshape(1), slot))
-            low = (prog.reshape(1) < stop.progress).to(torch.int32)
+            low = (prog.reshape(1) < rounded(stop.progress, prog.dtype)).to(torch.int32)
             flat = torch.where(on, (state[FLAT : FLAT + 1] + 1) * low, state[FLAT : FLAT + 1])
             state[FLAT : FLAT + 1] = flat
             state[LAST : LAST + 1] = torch.where(on, any_, state[LAST : LAST + 1])

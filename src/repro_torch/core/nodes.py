@@ -18,7 +18,7 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from .propagator import two_tier_bounds_dtypes
+from .propagator import check_dtype, two_tier_bounds_dtypes
 from ..obs.telemetry import TelemetrySnapshot
 from .sparse import Problem
 from .types import DEFAULT_CONFIG, INF, PropagationResult, PropagatorConfig, TierPolicy
@@ -192,6 +192,7 @@ def propagate_nodes(
     nothing: the planes are copied into private padded ones."""
     from ..kernels.ops import prepare_block_ell, propagate_nodes_prepared
 
+    check_dtype(dtype)
     run = dict(use_kernels=use_kernels, with_progress=True, on_sync=on_sync, slab=slab,
                donate=donate, telemetry=telemetry)
     pair = two_tier_bounds_dtypes(policy, dtype) if policy is not None else None

@@ -63,7 +63,8 @@ from . import bounds as bnd
 from .carry import (CROSS, FLAT, GO, LAST, NO_STOP, ROUNDS, EarlyStop, LoopCarry, early_stop,
                     fold, go_flag, progress_of)
 from .sparse import Problem
-from .types import DEFAULT_CONFIG, INF, PropagationResult, PropagatorConfig, TierPolicy
+from .types import (DEFAULT_CONFIG, INF, PropagationResult, PropagatorConfig, TierPolicy,
+                    as_values, is_half, rounded)
 
 # The drivers of ``propagate`` and of ``kernels.propagate_block_ell`` (and
 # the batched front ends), as the reference's.
@@ -101,10 +102,12 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-# The part of ROADMAP Queue 1 item 5 (precision tiers) still to port: every
-# value type but float32 and float64 (bfloat16; float16 is no tier of the
-# reference).
-TIERS_REMAINDER = "item 5, remainder"
+# The part of ROADMAP Queue 1 item 5 (precision tiers) still to port:
+# bfloat16 and float16 on the batched, node, service and sharded entry
+# points.  float16 is no tier of the reference (its ``_is_low_precision``
+# leaves it out: no tighten, slack or outward scalar of its own), but every
+# entry point of the reference takes it as a value type.
+TIERS_REMAINDER = "item 5, remainder, part two"
 
 _DTYPES = {"float64": torch.float64, "float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16}
@@ -123,15 +126,20 @@ def torch_dtype(dtype) -> torch.dtype | None:
         return None
 
 
-def check_dtype(dtype) -> torch.dtype:
-    """The value type of a fixed point: float64 (the default) or float32 (the
-    fp32 tier); any other raises ``NotImplementedError``."""
+def check_dtype(dtype, halves: bool = False) -> torch.dtype:
+    """The value type of a fixed point: float64 (the default), float32 (the
+    fp32 tier) and, where ``halves`` (the single-instance entry points),
+    bfloat16 and float16; any other raises ``NotImplementedError``."""
     dt = torch_dtype(dtype)
-    if dt in (torch.float64, torch.float32):
+    if dt in (torch.float64, torch.float32) or (halves and is_half(dt)):
         return dt
+    if is_half(dt):
+        raise NotImplementedError(
+            f"dtype={dtype!r}: bfloat16 and float16 run on the single-instance entry points; "
+            f"on this one they are ROADMAP Queue 1 {TIERS_REMAINDER}"
+        )
     raise NotImplementedError(
-        f"dtype={dtype!r}: float64 and float32 are ported; other value types are "
-        f"ROADMAP Queue 1 {TIERS_REMAINDER}"
+        f"dtype={dtype!r}: the value types are float64, float32, bfloat16 and float16"
     )
 
 
@@ -140,9 +148,9 @@ class DeviceProblem:
 
     def __init__(self, p: Problem, dtype=None, device="cuda"):
         dev = resolve_device(device)
-        dt = check_dtype(dtype)
+        dt = check_dtype(dtype, halves=True)
         csr = p.csr
-        t = lambda x, d=dt: torch.as_tensor(np.asarray(x), dtype=d, device=dev)
+        t = lambda x, d=dt: as_values(x, d, dev)
         self.m = csr.m
         self.n = csr.n
         self.nnz = csr.nnz
@@ -184,7 +192,7 @@ def propagation_round(
 
 
 def check_infeasible(lb, ub, feas_eps: float):
-    return (lb > ub + feas_eps).any()
+    return (lb > ub + rounded(feas_eps, lb.dtype)).any()
 
 
 def initial_bounds(defaults, lb0=None, ub0=None):
@@ -199,7 +207,7 @@ def initial_bounds(defaults, lb0=None, ub0=None):
     def pick(override, default):
         if override is None:
             return default.clone()
-        arr = torch.as_tensor(override, dtype=default.dtype, device=default.device)
+        arr = as_values(override, default.dtype, default.device)
         if arr.shape != default.shape:
             raise ValueError(
                 f"bounds override has shape {tuple(arr.shape)}, expected {tuple(default.shape)}"
@@ -766,8 +774,15 @@ def _plain_round_fn(dp: DeviceProblem, eps: float, int_eps: float, inf: float,
 
 
 def _round_fn(dp: DeviceProblem, cfg: PropagatorConfig):
-    return _plain_round_fn(dp, cfg.eps_for(dp.dtype), cfg.int_eps, cfg.inf,
-                           cfg.outward_for(dp.dtype))
+    return _plain_round_fn(dp, *round_scalars(cfg, dp.dtype))
+
+
+def round_scalars(cfg: PropagatorConfig, dtype) -> tuple:
+    """``(eps, int_eps, inf, outward)`` of a round at ``dtype``, each rounded
+    to it (:func:`core.types.rounded`), as the reference's weakly typed
+    Python scalars are: at float16 ``eps`` is 0.0 and ``inf`` is ``inf``."""
+    return tuple(rounded(x, dtype) for x in (cfg.eps_for(dtype), cfg.int_eps, cfg.inf,
+                                             cfg.outward_for(dtype)))
 
 
 def propagate_host_loop(
@@ -932,7 +947,10 @@ def propagate(
     a flag on the host each round, ``device_loop`` keeps the loop state on
     the device and reads it once per :data:`UNGATED_LOOP_GROUP` rounds,
     ``unrolled`` checks convergence every 4 rounds.  ``dtype`` is float64
-    (the default) or float32.  ``lb0``/``ub0`` are ``(n,)`` warm-start
+    (the default), float32, bfloat16 or float16 (the row sums by
+    ``index_add_``, which on the CPU rounds after every add in nonzero
+    order, as the reference's ``segment_sum``; on the card its atomics add
+    in no fixed order).  ``lb0``/``ub0`` are ``(n,)`` warm-start
     overrides for this call only.  ``device`` defaults to CUDA and raises
     where there is none; pass ``device="cpu"`` to run on the CPU.
     ``on_sync`` is called once per host read of the loop state.

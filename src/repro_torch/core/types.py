@@ -12,6 +12,7 @@ Conventions (SCIP / PaPILO style, see paper §3.4):
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -23,6 +24,59 @@ INF = 1e20
 
 def _is_low_precision(dtype) -> bool:
     return dtype in (torch.float32, torch.bfloat16)
+
+
+# The 16-bit value types.  Their arithmetic rounds to the type after every
+# operation (computed in float32, which holds at least 2p + 2 bits of both
+# formats, so rounding twice is exact); their sums over a chunk or a merge
+# accumulate in float32 and round once, as XLA's reductions of them do.
+HALF_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def is_half(dtype) -> bool:
+    return dtype in HALF_DTYPES
+
+
+def plane_dtype(dtype) -> torch.dtype:
+    """The value type of the column max / min planes that the scatters of a
+    fixed point at ``dtype`` reduce into: float32 for the 16-bit types (the
+    card's atomics take 32-bit words; a 16-bit value widens and narrows
+    back exactly), else ``dtype`` itself."""
+    return torch.float32 if is_half(dtype) else dtype
+
+
+@functools.lru_cache(maxsize=256)
+def _rounded(x: float, dtype) -> float:
+    if dtype == torch.float16:
+        with np.errstate(over="ignore"):  # INF overflows to inf, as in the reference
+            return float(np.float16(x))  # numpy rounds float64 to float16 once
+    return float(torch.tensor(x, dtype=torch.float64).to(dtype))
+
+
+def rounded(x, dtype) -> float:
+    """The Python float ``x`` rounded to ``dtype`` (a torch float type):
+    the value that a weakly typed Python scalar takes in the reference's
+    arithmetic at that type.  At float16, ``1e-9`` and ``1e-8`` round to
+    0.0 and ``INF`` to ``inf``."""
+    x = float(x)
+    return x if dtype == torch.float64 else _rounded(x, dtype)
+
+
+def as_values(x, dtype, device=None) -> torch.Tensor:
+    """``x`` (numbers, a numpy array or a tensor) as a tensor of ``dtype`` on
+    ``device`` (``x``'s own for a tensor, else the CPU).  float16 converts
+    through numpy, which rounds float64 once, as the reference's
+    ``jnp.asarray`` does (torch goes through float32 first)."""
+    if device is None:
+        device = x.device if isinstance(x, torch.Tensor) else "cpu"
+    if dtype == torch.float16 and not (isinstance(x, torch.Tensor) and x.dtype in
+                                       (torch.float16, torch.float32, torch.bfloat16)):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        with np.errstate(over="ignore"):
+            x = np.asarray(x, dtype=np.float64).astype(np.float16)
+    return torch.as_tensor(x if isinstance(x, torch.Tensor) else np.asarray(x), dtype=dtype,
+                           device=device)
 
 
 def int_round_slack(dtype) -> float:

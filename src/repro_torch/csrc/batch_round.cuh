@@ -101,14 +101,14 @@ node_activities_gather_kernel(const T* __restrict__ val, const C* __restrict__ c
       const int64_t b = b0 + __ffs(todo) - 1;
       todo &= todo - 1u;
       const SplitBoundsT<T> bounds{lb + b * n_pad, ub + b * n_pad};
-      RowAggT<T> a{T(0), T(0), 0, 0};
-      add_strides(a, first, bounds, inf);
+      RowSumT<T> sums{};
+      add_strides(sums, first, bounds, inf);
       for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
         Loaded<U, T> s;
         load_strides(s, val, col, nullptr, base, j0, len, kk, L.sl);
-        add_strides(a, s, bounds, inf);
+        add_strides(sums, s, bounds, inf);
       }
-      a = group_reduce<G>(a);
+      const RowAggT<T> a = group_reduce<G>(sums);
       if (L.live && L.sl == 0) {
         const int64_t o = b * n_chunks + L.chunk;
         mf[o] = a.mf;

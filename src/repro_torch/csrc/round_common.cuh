@@ -12,9 +12,10 @@
 // progress measure where one is armed (StopCarryFlags), and #9's per-row
 // measure of the batched early stop (RowStopFlags, and #15's
 // WindowStopFlags).  The routines the port's kernels run are templated on
-// the value type T (double, or float for the fp32 tier), the chunk routines
-// also on the index types (int32 columns and marks, or the compact int16 /
-// int8 streams); the double-only ones (chunk_candidates_scatter,
+// the value type T (double, float for the fp32 tier, or Lo16<F> for
+// bfloat16 and float16: see Num<T>), the chunk routines also on the index
+// types (int32 columns and marks, or the compact int16 / int8 streams);
+// the double-only ones (chunk_candidates_scatter,
 // atomic_max_f64 / atomic_min_f64, merge_one, merge_reset) are the
 // "before" variants that tools/*_variants.cu time.
 // See prop_round.cu for the layout and the rounding rules (--fmad=false,
@@ -22,10 +23,72 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <cstddef>
+#include <type_traits>
+
+// A 16-bit value of format F (__nv_bfloat16 or __half), held as its bits.
+// Its arithmetic runs in float and rounds to F (to nearest even) after
+// every operation: float holds at least 2p + 2 bits of both formats, so
+// rounding twice gives the once-rounded result, the per-operation rounding
+// of the plain versions (PyTorch's at 16 bits, and XLA's for the
+// reference).  Sums that the plain versions take in float32 (a chunk's
+// activities, the merge's progress measure) accumulate in Num<T>::Acc.
+template <typename F>
+struct Lo16 {
+  unsigned short bits;
+  Lo16() = default;
+  __host__ __device__ __forceinline__ Lo16(float x) {
+    if constexpr (std::is_same_v<F, __half>) bits = __half_as_ushort(__float2half_rn(x));
+    else bits = __bfloat16_as_ushort(__float2bfloat16_rn(x));
+  }
+  __host__ __device__ __forceinline__ float f() const {
+    if constexpr (std::is_same_v<F, __half>) return __half2float(__ushort_as_half(bits));
+    else return __bfloat162float(__ushort_as_bfloat16(bits));
+  }
+  __device__ __forceinline__ Lo16& operator+=(Lo16 b) { return *this = Lo16(f() + b.f()); }
+};
+
+using Bf16 = Lo16<__nv_bfloat16>;
+using F16 = Lo16<__half>;
+
+template <typename F>
+__device__ __forceinline__ Lo16<F> operator+(Lo16<F> a, Lo16<F> b) {
+  return Lo16<F>(a.f() + b.f());
+}
+template <typename F>
+__device__ __forceinline__ Lo16<F> operator-(Lo16<F> a, Lo16<F> b) {
+  return Lo16<F>(a.f() - b.f());
+}
+template <typename F>
+__device__ __forceinline__ Lo16<F> operator*(Lo16<F> a, Lo16<F> b) {
+  return Lo16<F>(a.f() * b.f());
+}
+template <typename F>
+__device__ __forceinline__ Lo16<F> operator/(Lo16<F> a, Lo16<F> b) {
+  return Lo16<F>(a.f() / b.f());
+}
+template <typename F>
+__host__ __device__ __forceinline__ Lo16<F> operator-(Lo16<F> a) {
+  a.bits ^= 0x8000u;
+  return a;
+}
+template <typename F>
+__device__ __forceinline__ bool operator<(Lo16<F> a, Lo16<F> b) { return a.f() < b.f(); }
+template <typename F>
+__device__ __forceinline__ bool operator>(Lo16<F> a, Lo16<F> b) { return a.f() > b.f(); }
+template <typename F>
+__device__ __forceinline__ bool operator<=(Lo16<F> a, Lo16<F> b) { return a.f() <= b.f(); }
+template <typename F>
+__device__ __forceinline__ bool operator>=(Lo16<F> a, Lo16<F> b) { return a.f() >= b.f(); }
+template <typename F>
+__device__ __forceinline__ bool operator==(Lo16<F> a, Lo16<F> b) { return a.f() == b.f(); }
+template <typename F>
+__device__ __forceinline__ bool operator!=(Lo16<F> a, Lo16<F> b) { return a.f() != b.f(); }
 
 namespace {
 
@@ -33,15 +96,20 @@ constexpr int kWarp = 32;
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = kWarp * kWarpsPerBlock;
 
-// The value types of the precision tiers: float64 (the propagation
-// contract) and float32 (the fp32 tier).  Pair: a column's two bounds as
-// one vector load; SBits / UBits: the integer words of the
-// order-preserving column max / min (64-bit for double, 32-bit for float);
+// The value types: float64 (the propagation contract), float32 (the fp32
+// tier), bfloat16 and float16.  Pair: a column's two bounds as one vector
+// load (ldg loads a value or a pair through the read-only path); SBits /
+// UBits: the integer words of the order-preserving column max / min
+// (64-bit for double, 32-bit for float); Plane: the value type of the
+// column max / min planes the scatters reduce into, and Acc: the type the
+// chunk sums and the progress measure accumulate in (both float for the
+// 16-bit types, whose values widen to float exactly and narrow back
+// exactly; T itself otherwise); wide(x): x as an Acc or Plane value;
 // kExact: integrality rounding without the tier's slack
-// (core.types.int_round_slack), float64's exact `ceil(l - int_eps)`.  A
-// kernel does all its arithmetic in T: its scalars (eps, int_eps, inf,
-// outward) arrive already rounded to T, as the reference's weakly typed
-// Python scalars are.
+// (core.types.int_round_slack), float64's (and float16's: the reference
+// gives it none) exact `ceil(l - int_eps)`.  A kernel does all its
+// arithmetic in T: its scalars (eps, int_eps, inf, outward) arrive already
+// rounded to T, as the reference's weakly typed Python scalars are.
 template <typename T>
 struct Num;
 
@@ -50,10 +118,15 @@ struct Num<double> {
   using Pair = double2;
   using SBits = long long;
   using UBits = unsigned long long;
+  using Acc = double;
+  using Plane = double;
   static constexpr bool kExact = true;
   static constexpr double kSlack = 0.0;
   __device__ static __forceinline__ Pair pair(double a, double b) { return make_double2(a, b); }
   __device__ static __forceinline__ SBits bits(double v) { return __double_as_longlong(v); }
+  __device__ static __forceinline__ double ldg(const double* p) { return __ldg(p); }
+  __device__ static __forceinline__ Pair ldg(const Pair* p) { return __ldg(p); }
+  __device__ static __forceinline__ double wide(double x) { return x; }
 };
 
 template <>
@@ -61,10 +134,41 @@ struct Num<float> {
   using Pair = float2;
   using SBits = int;
   using UBits = unsigned int;
+  using Acc = float;
+  using Plane = float;
   static constexpr bool kExact = false;
   static constexpr float kSlack = 7.62939453125e-06f;  // 2**-17
   __device__ static __forceinline__ Pair pair(float a, float b) { return make_float2(a, b); }
   __device__ static __forceinline__ SBits bits(float v) { return __float_as_int(v); }
+  __device__ static __forceinline__ float ldg(const float* p) { return __ldg(p); }
+  __device__ static __forceinline__ Pair ldg(const Pair* p) { return __ldg(p); }
+  __device__ static __forceinline__ float wide(float x) { return x; }
+};
+
+template <typename F>
+struct Num<Lo16<F>> {
+  using T = Lo16<F>;
+  struct alignas(4) Pair {
+    T x, y;
+  };
+  using Acc = float;
+  using Plane = float;
+  static constexpr bool kExact = std::is_same_v<F, __half>;
+  static constexpr float kSlack = 0.015625f;  // 2**-6, bfloat16's (float16 has none)
+  __device__ static __forceinline__ Pair pair(T a, T b) { return Pair{a, b}; }
+  __device__ static __forceinline__ T ldg(const T* p) {
+    T v;
+    v.bits = __ldg(reinterpret_cast<const unsigned short*>(p));
+    return v;
+  }
+  __device__ static __forceinline__ Pair ldg(const Pair* p) {
+    const unsigned int w = __ldg(reinterpret_cast<const unsigned int*>(p));
+    Pair q;
+    q.x.bits = static_cast<unsigned short>(w & 0xFFFFu);  // little-endian: x first
+    q.y.bits = static_cast<unsigned short>(w >> 16);
+    return q;
+  }
+  __device__ static __forceinline__ float wide(T x) { return x.f(); }
 };
 
 // The math of both value types, by overload (so a float is never promoted
@@ -79,6 +183,27 @@ __device__ __forceinline__ double vceil(double x) { return ceil(x); }
 __device__ __forceinline__ float vceil(float x) { return ceilf(x); }
 __device__ __forceinline__ double vfloor(double x) { return floor(x); }
 __device__ __forceinline__ float vfloor(float x) { return floorf(x); }
+// The 16-bit types: abs flips no bit but the sign; max and min return one
+// of their operands; the ceil and floor of a 16-bit value are 16-bit
+// values again (every value at or past 2^p is an integer), so each is
+// exact.
+template <typename F>
+__device__ __forceinline__ Lo16<F> vabs(Lo16<F> x) {
+  x.bits &= 0x7FFFu;
+  return x;
+}
+template <typename F>
+__device__ __forceinline__ Lo16<F> vmax(Lo16<F> a, Lo16<F> b) {
+  return Lo16<F>(fmaxf(a.f(), b.f()));
+}
+template <typename F>
+__device__ __forceinline__ Lo16<F> vmin(Lo16<F> a, Lo16<F> b) {
+  return Lo16<F>(fminf(a.f(), b.f()));
+}
+template <typename F>
+__device__ __forceinline__ Lo16<F> vceil(Lo16<F> x) { return Lo16<F>(ceilf(x.f())); }
+template <typename F>
+__device__ __forceinline__ Lo16<F> vfloor(Lo16<F> x) { return Lo16<F>(floorf(x.f())); }
 
 // The gate of a round's kernels (D, A', the combine, E): true where the
 // loop carry's `go` (the low byte of its int32 field, passed as a bool
@@ -186,6 +311,22 @@ struct RowAggT {
 };
 using RowAgg = RowAggT<double>;
 
+// A lane's running activity sums, in Num<T>::Acc (each contribution
+// v * bound rounded to T first, as the plain version's product is).
+template <typename T>
+struct RowSumT {
+  typename Num<T>::Acc mf, xf;
+  int mc, xc;
+};
+
+// The group's sums of its lanes' running sums (the butterfly), rounded to
+// T once.
+template <int G, typename T>
+__device__ __forceinline__ RowAggT<T> group_reduce(const RowSumT<T>& a) {
+  return RowAggT<T>{T(group_sum<G>(a.mf)), T(group_sum<G>(a.xf)), group_sum<G>(a.mc),
+                    group_sum<G>(a.xc)};
+}
+
 // tile_row_aggregates of one chunk, its bounds from B (ColumnBounds or
 // SlotBounds); every lane of the group gets the result.  All lanes of the
 // warp must call it (dead lanes with k = 0).
@@ -193,19 +334,15 @@ template <int G, typename B, typename T>
 __device__ __forceinline__ RowAggT<T> chunk_aggregates(const T* __restrict__ val, const B& b,
                                                        int64_t base, int k, const Lanes& L,
                                                        T inf) {
-  RowAggT<T> a{T(0), T(0), 0, 0};
+  RowSumT<T> a{};
   for (int j = L.sl; j < k; j += kWarp) {
     const T v = val[base + j];
     if (v == T(0)) continue;  // padding adds nothing; its bounds are never read
     const SlotT<T> s = b.at(v, base + j, inf);
-    if (s.min_inf) a.mc += 1; else a.mf += v * s.bmin;
-    if (s.max_inf) a.xc += 1; else a.xf += v * s.bmax;
+    if (s.min_inf) a.mc += 1; else a.mf += Num<T>::wide(v * s.bmin);
+    if (s.max_inf) a.xc += 1; else a.xf += Num<T>::wide(v * s.bmax);
   }
-  a.mf = group_sum<G>(a.mf);
-  a.xf = group_sum<G>(a.xf);
-  a.mc = group_sum<G>(a.mc);
-  a.xc = group_sum<G>(a.xc);
-  return a;
+  return group_reduce<G>(a);
 }
 
 template <int G, typename T>
@@ -255,7 +392,7 @@ __device__ __forceinline__ T round_margin(T c, T int_eps) {
   if constexpr (Num<T>::kExact) {
     return int_eps;
   } else {
-    return int_eps + Num<T>::kSlack * vmax(T(1), vabs(c));
+    return int_eps + T(Num<T>::kSlack) * vmax(T(1), vabs(c));
   }
 }
 
@@ -462,7 +599,7 @@ struct SplitBoundsT {
   const T* lb;
   const T* ub;
   __device__ __forceinline__ typename Num<T>::Pair at(int c) const {
-    return Num<T>::pair(__ldg(lb + c), __ldg(ub + c));
+    return Num<T>::pair(Num<T>::ldg(lb + c), Num<T>::ldg(ub + c));
   }
 };
 using SplitBounds = SplitBoundsT<double>;
@@ -470,7 +607,9 @@ using SplitBounds = SplitBoundsT<double>;
 template <typename T>
 struct PairedBoundsT {
   const typename Num<T>::Pair* lub;
-  __device__ __forceinline__ typename Num<T>::Pair at(int c) const { return __ldg(lub + c); }
+  __device__ __forceinline__ typename Num<T>::Pair at(int c) const {
+    return Num<T>::ldg(lub + c);
+  }
 };
 using PairedBounds = PairedBoundsT<double>;
 
@@ -490,37 +629,30 @@ __device__ __forceinline__ void gather_strides(const Loaded<U, T>& s, const B& b
 // A batch's activity contributions, from its gathered bounds l, h, added to
 // the lane's sums in slot order.
 template <int U, typename T>
-__device__ __forceinline__ void add_gathered(RowAggT<T>& a, const Loaded<U, T>& s,
+__device__ __forceinline__ void add_gathered(RowSumT<T>& a, const Loaded<U, T>& s,
                                              const T (&l)[U], const T (&h)[U], T inf) {
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     if (s.v[u] == T(0)) continue;
     const SlotT<T> t = make_slot(s.v[u], l[u], h[u], inf);
-    if (t.min_inf) a.mc += 1; else a.mf += s.v[u] * t.bmin;
-    if (t.max_inf) a.xc += 1; else a.xf += s.v[u] * t.bmax;
+    if (t.min_inf) a.mc += 1; else a.mf += Num<T>::wide(s.v[u] * t.bmin);
+    if (t.max_inf) a.xc += 1; else a.xf += Num<T>::wide(s.v[u] * t.bmax);
   }
 }
 
 // The same, gathering the batch's bounds first.
 template <int U, typename B, typename T>
-__device__ __forceinline__ void add_strides(RowAggT<T>& a, const Loaded<U, T>& s, const B& b,
+__device__ __forceinline__ void add_strides(RowSumT<T>& a, const Loaded<U, T>& s, const B& b,
                                             T inf) {
   T l[U], h[U];
   gather_strides(s, b, l, h);
   add_gathered(a, s, l, h, inf);
 }
 
-template <int G, typename T>
-__device__ __forceinline__ RowAggT<T> group_reduce(RowAggT<T> a) {
-  a.mf = group_sum<G>(a.mf);
-  a.xf = group_sum<G>(a.xf);
-  a.mc = group_sum<G>(a.mc);
-  a.xc = group_sum<G>(a.xc);
-  return a;
-}
-
 // Column max / min of candidates by the card's integer atomics (64-bit
-// words for float64, 32-bit for float32), one fire-and-forget reduction
+// words for float64, 32-bit for float32 and for the float planes of the
+// 16-bit types: a 16-bit candidate widens exactly, so the planes hold
+// 16-bit values and narrow back exactly), one fire-and-forget reduction
 // each (no compare-and-swap loop, no returned value).  A non-negative
 // float orders as its bits read as a signed integer; a negative one in
 // reverse as its bits read unsigned, and above every non-negative one: so
@@ -561,22 +693,26 @@ __device__ __forceinline__ void red_min(T* addr, T v) {
 template <int U, bool CHECK = true, typename T>
 __device__ __forceinline__ void scatter_gathered(const Loaded<U, T>& s, const T (&l)[U],
                                                  const T (&h)[U], const RowAggT<T>& a, T lhs,
-                                                 T rhs, T* best_l, T* best_u, T int_eps, T inf) {
+                                                 T rhs, typename Num<T>::Plane* best_l,
+                                                 typename Num<T>::Plane* best_u, T int_eps,
+                                                 T inf) {
 #pragma unroll
   for (int u = 0; u < U; ++u) {
     if (s.v[u] == T(0)) continue;
     const CandsT<T> q = slot_candidates(s.v[u], make_slot(s.v[u], l[u], h[u], inf), a, lhs, rhs,
                                         s.m[u] != 0, int_eps, inf);
-    if (q.lc > -inf) red_max<CHECK>(best_l + s.c[u], q.lc);
-    if (q.uc < inf) red_min<CHECK>(best_u + s.c[u], q.uc);
+    if (q.lc > -inf) red_max<CHECK>(best_l + s.c[u], Num<T>::wide(q.lc));
+    if (q.uc < inf) red_min<CHECK>(best_u + s.c[u], Num<T>::wide(q.uc));
   }
 }
 
 // The same, gathering the batch's bounds first.
 template <int U, bool CHECK = true, typename B, typename T>
 __device__ __forceinline__ void scatter_strides(const Loaded<U, T>& s, const B& b,
-                                                const RowAggT<T>& a, T lhs, T rhs, T* best_l,
-                                                T* best_u, T int_eps, T inf) {
+                                                const RowAggT<T>& a, T lhs, T rhs,
+                                                typename Num<T>::Plane* best_l,
+                                                typename Num<T>::Plane* best_u, T int_eps,
+                                                T inf) {
   T l[U], h[U];
   gather_strides(s, b, l, h);
   scatter_gathered<U, CHECK>(s, l, h, a, lhs, rhs, best_l, best_u, int_eps, inf);
@@ -627,7 +763,7 @@ __device__ __forceinline__ RowAggT<T> chunk_sums(Loaded<U, T>& first, T (&l)[U],
                                                  int sl, T inf) {
   load_strides<U, true>(first, val, col, ii, base, 0, len, kk, sl);
   gather_strides(first, b, l, h);
-  RowAggT<T> a{T(0), T(0), 0, 0};
+  RowSumT<T> a{};
   if (sum) {
     add_gathered(a, first, l, h, inf);
     for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
@@ -650,8 +786,10 @@ __device__ __forceinline__ void chunk_round(const T* __restrict__ val,
                                             const C* __restrict__ col,
                                             const M* __restrict__ ii, const B& b,
                                             int64_t base, int kk, int len, bool sum,
-                                            const RowAggT<T>& given, T lhs, T rhs, T* best_l,
-                                            T* best_u, int sl, T int_eps, T inf) {
+                                            const RowAggT<T>& given, T lhs, T rhs,
+                                            typename Num<T>::Plane* best_l,
+                                            typename Num<T>::Plane* best_u, int sl, T int_eps,
+                                            T inf) {
   Loaded<U, T> first;
   T l[U], h[U];
   RowAggT<T> a = chunk_sums<G, U>(first, l, h, val, col, ii, b, base, kk, len, sum, sl, inf);
@@ -949,6 +1087,28 @@ constexpr int kCarryLast = 6;    // the early stop: the last check group's chang
 constexpr int kCarryProg = 8;    // the early stop: the last round's progress, a T at int 8
 constexpr int kCarryCross = 10;  // telemetry on the host loop: the round's bounds crossed
 
+// The carry's measure, a T at int32 field kCarryProg (a 16-bit one in the
+// field's low half: the card is little-endian), stored and loaded through
+// volatile accesses.
+template <typename T>
+__device__ __forceinline__ void store_prog(int* carry, T v) {
+  *reinterpret_cast<volatile T*>(carry + kCarryProg) = v;
+}
+template <typename F>
+__device__ __forceinline__ void store_prog(int* carry, Lo16<F> v) {
+  *reinterpret_cast<volatile unsigned short*>(carry + kCarryProg) = v.bits;
+}
+template <typename T>
+__device__ __forceinline__ T load_prog(const int* carry) {
+  if constexpr (std::is_same_v<T, double> || std::is_same_v<T, float>) {
+    return *reinterpret_cast<const volatile T*>(carry + kCarryProg);
+  } else {
+    T v;
+    v.bits = *reinterpret_cast<const volatile unsigned short*>(carry + kCarryProg);
+    return v;
+  }
+}
+
 // F's flags, and #15's for one instance: a warp that tightens stores the
 // carry's flag once.  A launch whose carry says `go` is false (a round
 // enqueued after the fixed point converged) merges nothing and counts
@@ -1016,14 +1176,17 @@ struct CarryFlags {
 // butterfly) and folds: rounds += 1, the measure stored at kCarryProg, flat
 // updated, last = changed_any, go = changed_any && flat < patience.
 // ref.merge_order_sum is this order.  A check group is one round here (the
-// wrapper takes unroll 1 only).
+// wrapper takes unroll 1 only).  The sums run in Num<T>::Acc (float for
+// the 16-bit types, whose measure is then rounded to T once, as the
+// reference's progress_measure reduces its terms in float32).
 template <typename T>
 struct StopCarryFlags {
+  using Acc = typename Num<T>::Acc;
   static constexpr int kGridCols = 4;
   static constexpr bool kProgress = true;
   static constexpr bool kRowProgress = false;
   int* carry;
-  T* partials;
+  Acc* partials;
   T stop;
   int patience;
   __device__ __forceinline__ void prologue() const {}
@@ -1038,15 +1201,15 @@ struct StopCarryFlags {
     if (__any_sync(0xffffffffu, any) && threadIdx.x % kWarp == 0) carry[kCarryFlag] = 1;
   }
   // Every thread of every live block calls it, last, with its own sum.
-  __device__ __forceinline__ void finish_progress(T prog) const {
-    __shared__ T warp_sums[kWarpsPerBlock];
+  __device__ __forceinline__ void finish_progress(Acc prog) const {
+    __shared__ Acc warp_sums[kWarpsPerBlock];
     __shared__ bool last;
     const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
     prog = group_sum<kWarp>(prog);
     if (lane == 0) warp_sums[warp] = prog;
     __syncthreads();
     if (threadIdx.x == 0) {
-      T sum = warp_sums[0];
+      Acc sum = warp_sums[0];
 #pragma unroll
       for (int w = 1; w < kWarpsPerBlock; ++w) sum += warp_sums[w];
       partials[static_cast<int64_t>(blockIdx.y) * gridDim.x + blockIdx.x] = sum;
@@ -1058,13 +1221,14 @@ struct StopCarryFlags {
     __syncthreads();
     if (!last || warp != 0) return;
     __threadfence();
-    T total = T(0);
-    for (int b = lane; b < blocks; b += kWarp) total += __ldcg(partials + b);
-    total = group_sum<kWarp>(total);
+    Acc sum = Acc(0);
+    for (int b = lane; b < blocks; b += kWarp) sum += __ldcg(partials + b);
+    sum = group_sum<kWarp>(sum);
     if (lane != 0) return;
+    const T total = T(sum);
     volatile int* c = carry;
     const int any = c[kCarryAny] | c[kCarryFlag];
-    *reinterpret_cast<volatile T*>(carry + kCarryProg) = total;
+    store_prog(carry, total);
     const int flat = total < stop ? c[kCarryFlat] + 1 : 0;
     c[kCarryRounds] = c[kCarryRounds] + 1;
     c[kCarryFlat] = flat;
@@ -1208,12 +1372,14 @@ struct WindowStopFlags {
 // take the early stop's progress (Flags::kProgress), it returns this
 // thread's sum of the progress measure's terms over its columns, in column
 // order from +0.0 (bounds.progress_measure's term: (l' - l) / (1 + max(|l|,
-// |l'|)) + (u - u') / (1 + max(|u|, |u'|))); else 0.
+// |l'|)) + (u - u') / (1 + max(|u|, |u'|)), in T; the sum in
+// Num<T>::Acc); else 0.  The candidates come from planes of Num<T>::Plane
+// (float beside 16-bit bounds: they narrow back exactly).
 template <int C, typename Flags, typename T>
-__device__ __forceinline__ T merge_item(T* __restrict__ lb, T* __restrict__ ub,
-                                        T* __restrict__ best_l, T* __restrict__ best_u,
-                                        const Flags& flags, int64_t plane, int64_t blk,
-                                        int64_t width, T eps, T inf, T outward) {
+__device__ __forceinline__ typename Num<T>::Acc merge_item(
+    T* __restrict__ lb, T* __restrict__ ub, typename Num<T>::Plane* __restrict__ best_l,
+    typename Num<T>::Plane* __restrict__ best_u, const Flags& flags, int64_t plane,
+    int64_t blk, int64_t width, T eps, T inf, T outward) {
   const int64_t j0 = blk * C * kThreads + threadIdx.x, row = plane * width;
   T l[C], u[C], bl[C], bu[C];
 #pragma unroll
@@ -1222,23 +1388,23 @@ __device__ __forceinline__ T merge_item(T* __restrict__ lb, T* __restrict__ ub,
     const bool in = j < width;
     l[v] = in ? lb[row + j] : T(0);
     u[v] = in ? ub[row + j] : T(0);
-    bl[v] = in ? best_l[row + j] : -inf;
-    bu[v] = in ? best_u[row + j] : inf;
+    bl[v] = in ? T(best_l[row + j]) : -inf;
+    bu[v] = in ? T(best_u[row + j]) : inf;
   }
   bool ch[C];
-  T prog = T(0);
+  typename Num<T>::Acc prog = 0;
 #pragma unroll
   for (int v = 0; v < C; ++v) {
     const int64_t j = j0 + v * kThreads, i = row + j;
-    if (bl[v] != -inf) best_l[i] = -inf;  // merge_reset's hand-back
-    if (bu[v] != inf) best_u[i] = inf;
+    if (bl[v] != -inf) best_l[i] = Num<T>::wide(-inf);  // merge_reset's hand-back
+    if (bu[v] != inf) best_u[i] = Num<T>::wide(inf);
     if constexpr (Flags::kProgress) {
       T nl = l[v], nu = u[v];
       ch[v] = j < width &&
               merge_loaded_into(lb, ub, i, l[v], u[v], bl[v], bu[v], eps, inf, outward, nl, nu);
       if (j < width)
-        prog += (nl - l[v]) / (T(1) + vmax(vabs(l[v]), vabs(nl))) +
-                (u[v] - nu) / (T(1) + vmax(vabs(u[v]), vabs(nu)));
+        prog += Num<T>::wide((nl - l[v]) / (T(1) + vmax(vabs(l[v]), vabs(nl))) +
+                             (u[v] - nu) / (T(1) + vmax(vabs(u[v]), vabs(nu))));
     } else {
       ch[v] = j < width && merge_loaded(lb, ub, i, l[v], u[v], bl[v], bu[v], eps, inf, outward);
     }
@@ -1250,32 +1416,35 @@ __device__ __forceinline__ T merge_item(T* __restrict__ lb, T* __restrict__ ub,
 // The hand-back alone, for a launch that merges nothing (F after the fixed
 // point converged: D or E may still have scattered).
 template <int C, typename T>
-__device__ __forceinline__ void hand_back_item(T* __restrict__ best_l, T* __restrict__ best_u,
+__device__ __forceinline__ void hand_back_item(typename Num<T>::Plane* __restrict__ best_l,
+                                               typename Num<T>::Plane* __restrict__ best_u,
                                                int64_t plane, int64_t blk, int64_t width,
                                                T inf) {
   const int64_t j0 = blk * C * kThreads + threadIdx.x, row = plane * width;
+  const typename Num<T>::Plane lo = Num<T>::wide(-inf), hi = Num<T>::wide(inf);
 #pragma unroll
   for (int v = 0; v < C; ++v) {
     const int64_t j = j0 + v * kThreads;
     if (j >= width) break;
-    if (best_l[row + j] != -inf) best_l[row + j] = -inf;
-    if (best_u[row + j] != inf) best_u[row + j] = inf;
+    if (best_l[row + j] != lo) best_l[row + j] = lo;
+    if (best_u[row + j] != hi) best_u[row + j] = hi;
   }
 }
 
 template <typename Flags, typename T>
 __global__ void __launch_bounds__(kThreads)
-merge_walk_kernel(T* __restrict__ lb, T* __restrict__ ub, T* __restrict__ best_l,
-                  T* __restrict__ best_u, const bool* __restrict__ active, Flags flags,
-                  int64_t bsz, int64_t width, T eps, T inf, T outward) {
+merge_walk_kernel(T* __restrict__ lb, T* __restrict__ ub,
+                  typename Num<T>::Plane* __restrict__ best_l,
+                  typename Num<T>::Plane* __restrict__ best_u, const bool* __restrict__ active,
+                  Flags flags, int64_t bsz, int64_t width, T eps, T inf, T outward) {
   flags.prologue();
   const EqualItems items_of{(width + kMergeBlock - 1) / kMergeBlock};
   const Walk walk = ballot_walk(active, bsz, items_of);
   WalkCursor cur;
   for (int64_t item = blockIdx.x; item < walk.items; item += gridDim.x) {
     cur.seek(item, walk, items_of);
-    const T prog = merge_item<kMergeCols>(lb, ub, best_l, best_u, flags, cur.plane,
-                                          item - cur.first, width, eps, inf, outward);
+    const auto prog = merge_item<kMergeCols>(lb, ub, best_l, best_u, flags, cur.plane,
+                                             item - cur.first, width, eps, inf, outward);
     if constexpr (Flags::kRowProgress) flags.item_progress(prog, cur.plane, item - cur.first);
   }
   if constexpr (Flags::kRowProgress) flags.finish_rows(bsz);
@@ -1286,9 +1455,10 @@ merge_walk_kernel(T* __restrict__ lb, T* __restrict__ ub, T* __restrict__ best_l
 // whose flags are not live (a converged carry) only hands its entries back.
 template <int C, typename Flags, bool kMasked, typename T>
 __global__ void __launch_bounds__(kThreads)
-merge_grid_kernel(T* __restrict__ lb, T* __restrict__ ub, T* __restrict__ best_l,
-                  T* __restrict__ best_u, const bool* __restrict__ active, Flags flags,
-                  int64_t width, T eps, T inf, T outward) {
+merge_grid_kernel(T* __restrict__ lb, T* __restrict__ ub,
+                  typename Num<T>::Plane* __restrict__ best_l,
+                  typename Num<T>::Plane* __restrict__ best_u, const bool* __restrict__ active,
+                  Flags flags, int64_t width, T eps, T inf, T outward) {
   flags.prologue();
   if (kMasked && !active[blockIdx.y]) {
     if constexpr (Flags::kRowProgress) flags.finish_rows(gridDim.y);
@@ -1298,8 +1468,8 @@ merge_grid_kernel(T* __restrict__ lb, T* __restrict__ ub, T* __restrict__ best_l
     hand_back_item<C>(best_l, best_u, blockIdx.y, blockIdx.x, width, inf);
     return;
   }
-  const T prog = merge_item<C>(lb, ub, best_l, best_u, flags, blockIdx.y, blockIdx.x, width, eps,
-                               inf, outward);
+  const auto prog = merge_item<C>(lb, ub, best_l, best_u, flags, blockIdx.y, blockIdx.x, width,
+                                  eps, inf, outward);
   if constexpr (Flags::kRowProgress) {
     flags.item_progress(prog, blockIdx.y, blockIdx.x);
     flags.finish_rows(gridDim.y);
@@ -1320,7 +1490,8 @@ inline cudaError_t clear_without_blocks(T* clear, int64_t n, cudaStream_t stream
 // The merge over (bsz, width) planes on the walk: at most one block per
 // item.
 template <typename Flags, typename T>
-int launch_merge_walk(T* lb, T* ub, T* best_l, T* best_u, const bool* active, Flags flags,
+int launch_merge_walk(T* lb, T* ub, typename Num<T>::Plane* best_l,
+                      typename Num<T>::Plane* best_u, const bool* active, Flags flags,
                       int64_t bsz, int64_t width, T eps, T inf, T outward, cudaStream_t stream) {
   const int64_t most = (width + kMergeBlock - 1) / kMergeBlock * bsz;
   if (most <= 0) clear_without_blocks(flags.clear, flags.n_clear, stream);
@@ -1331,7 +1502,8 @@ int launch_merge_walk(T* lb, T* ub, T* best_l, T* best_u, const bool* active, Fl
 // The merge over (bsz, width) planes on the (column block, row) grid, C
 // columns a thread; no mask read where kMasked is false.
 template <typename Flags, int C = Flags::kGridCols, bool kMasked = true, typename T>
-int launch_merge_grid(T* lb, T* ub, T* best_l, T* best_u, const bool* active, Flags flags,
+int launch_merge_grid(T* lb, T* ub, typename Num<T>::Plane* best_l,
+                      typename Num<T>::Plane* best_u, const bool* active, Flags flags,
                       int64_t bsz, int64_t width, T eps, T inf, T outward, cudaStream_t stream) {
   const int64_t blocks = (width + C * kThreads - 1) / (C * kThreads);
   if (blocks > 0 && bsz > 0)
@@ -1345,8 +1517,9 @@ int launch_merge_grid(T* lb, T* ub, T* best_l, T* best_u, const bool* active, Fl
 // The merge over (bsz, width) planes: the grid for at most kMergeGridRows
 // rows, else the walk.
 template <typename Flags, typename T>
-int launch_merge(T* lb, T* ub, T* best_l, T* best_u, const bool* active, Flags flags,
-                 int64_t bsz, int64_t width, T eps, T inf, T outward, cudaStream_t stream) {
+int launch_merge(T* lb, T* ub, typename Num<T>::Plane* best_l, typename Num<T>::Plane* best_u,
+                 const bool* active, Flags flags, int64_t bsz, int64_t width, T eps, T inf,
+                 T outward, cudaStream_t stream) {
   if (bsz <= kMergeGridRows) {
     const int64_t blocks = (width + Flags::kGridCols * kThreads - 1) /
                            (Flags::kGridCols * kThreads);

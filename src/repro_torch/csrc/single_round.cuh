@@ -1,15 +1,19 @@
 // The kernels of one instance's fused and segment rounds, templated on the
-// value type T (double, or float for the fp32 tier) and on the index types
-// (C for the columns, M for the integrality marks: int32, or the fp32
-// tier's compact int16 and int8 streams, widened in registers): D, A', E,
-// the long-row combine and the segment round's A, B and C, with one
+// value type T (double, float for the fp32 tier, or round_common.cuh's
+// Bf16 / F16 for the 16-bit types) and on the index types (C for the
+// columns, M for the integrality marks: int32, or the compact int16 and
+// int8 streams of a float32 or bfloat16 prep, widened in registers): D,
+// A', E, the long-row combine and the segment round's A, B and C, with one
 // launcher each.  prop_round.cu instantiates them at double and int32 (its
 // entry points fused_scatter_round, activities_gather, candidates_scatter,
-// combine_chunk_partials, activities, candidates, fused_round), and
-// tier_round.cu at float with both index forms.  The arithmetic runs in T
-// throughout, so a float instantiation rounds as the plain version does at
-// float32, and the double ones are the float64 kernels unchanged.  F is
-// round_common.cuh's merge body (launch_merge_grid).
+// combine_chunk_partials, activities, candidates, fused_round),
+// tier_round.cu at float with both index forms, and half_round.cu at the
+// 16-bit types.  The arithmetic runs in T throughout (at 16 bits each
+// operation rounds to T; a chunk's sums accumulate in Num<T>::Acc and
+// round once), so an instantiation rounds as the plain version does at its
+// type, and the double ones are the float64 kernels unchanged.  D and E
+// scatter into planes of Num<T>::Plane.  F is round_common.cuh's merge
+// body (launch_merge_grid).
 
 #pragma once
 
@@ -37,9 +41,10 @@ __global__ void __launch_bounds__(kThreads)
 fused_scatter_round_kernel(const T* __restrict__ val, const C* __restrict__ col,
                            const M* __restrict__ ii, const int* __restrict__ clen,
                            const T* __restrict__ lhs, const T* __restrict__ rhs,
-                           const T* __restrict__ lb, const T* __restrict__ ub, T* best_l,
-                           T* best_u, const bool* __restrict__ go, int64_t n_chunks, int k,
-                           T int_eps, T inf) {
+                           const T* __restrict__ lb, const T* __restrict__ ub,
+                           typename Num<T>::Plane* best_l, typename Num<T>::Plane* best_u,
+                           const bool* __restrict__ go, int64_t n_chunks, int k, T int_eps,
+                           T inf) {
   if (skip_round(go)) return;
   const Lanes L = lanes_for<G>(n_chunks);
   const int64_t c = L.chunk;
@@ -64,14 +69,14 @@ activities_gather_kernel(const T* __restrict__ val, const C* __restrict__ col,
   const int64_t base = L.chunk * k;
   const int kk = L.live ? k : 0;
   const int len = L.live ? clen[L.chunk] : 0;
-  RowAggT<T> a{T(0), T(0), 0, 0};
+  RowSumT<T> sums{};
   for (int j0 = 0; j0 < kk; j0 += U * kWarp) {
     if (j0 > 0 && j0 >= len) break;
     Loaded<U, T> s;
     load_strides(s, val, col, nullptr, base, j0, len, kk, L.sl);
-    add_strides(a, s, PairedBoundsT<T>{lub}, inf);
+    add_strides(sums, s, PairedBoundsT<T>{lub}, inf);
   }
-  a = group_reduce<G>(a);
+  const RowAggT<T> a = group_reduce<G>(sums);
   if (L.live && L.sl == 0) {
     mf[L.chunk] = a.mf;
     mc[L.chunk] = a.mc;
@@ -92,7 +97,8 @@ candidates_scatter_kernel(const T* __restrict__ val, const C* __restrict__ col,
                           const T* __restrict__ rmf, const int* __restrict__ rmc,
                           const T* __restrict__ rxf, const int* __restrict__ rxc,
                           const T* __restrict__ lhs, const T* __restrict__ rhs,
-                          const typename Num<T>::Pair* __restrict__ lub, T* best_l, T* best_u,
+                          const typename Num<T>::Pair* __restrict__ lub,
+                          typename Num<T>::Plane* best_l, typename Num<T>::Plane* best_u,
                           const bool* __restrict__ go, int64_t n_chunks, int k, T int_eps,
                           T inf) {
   if (skip_round(go)) return;
@@ -227,9 +233,10 @@ CombineGrid combine_grid(int64_t n_short, int64_t n_long) {
 
 template <typename T, typename C, typename M>
 int launch_fused_scatter_round(const T* val, const C* col, const M* ii, const int* clen,
-                               const T* lhs, const T* rhs, const T* lb, const T* ub, T* best_l,
-                               T* best_u, const bool* go, int64_t n_chunks, int k, int max_len,
-                               T int_eps, T inf, cudaStream_t stream) {
+                               const T* lhs, const T* rhs, const T* lb, const T* ub,
+                               typename Num<T>::Plane* best_l, typename Num<T>::Plane* best_u,
+                               const bool* go, int64_t n_chunks, int k, int max_len, T int_eps,
+                               T inf, cudaStream_t stream) {
   // The group width of the longest chunk (at most K's).
   const int width = max_len < k ? max_len : k;
   const unsigned int blocks = chunk_blocks(n_chunks, width);
@@ -265,7 +272,8 @@ int launch_activities_gather(const T* val, const C* col, const int* clen, const 
 template <typename T, typename C, typename M>
 int launch_candidates_scatter(const T* val, const C* col, const M* ii, const int* clen,
                               const T* rmf, const int* rmc, const T* rxf, const int* rxc,
-                              const T* lhs, const T* rhs, const T* lub, T* best_l, T* best_u,
+                              const T* lhs, const T* rhs, const T* lub,
+                              typename Num<T>::Plane* best_l, typename Num<T>::Plane* best_u,
                               const bool* go, int64_t n_chunks, int k, T int_eps, T inf,
                               cudaStream_t stream) {
   using Pair = typename Num<T>::Pair;

@@ -1,5 +1,6 @@
 // The kernels of the column-slab partitioned round, templated on the value
-// type T (double, or float for the fp32 tier): #11 (slab_partials), #13
+// type T (double, float for the fp32 tier, or Bf16 / F16 for the 16-bit
+// types, whose #12 scatters into float planes): #11 (slab_partials), #13
 // (node_slab_partials), the scatters of #12 and #14 (slab_scatter,
 // node_slab_scatter), the straddle combine's two launches, and the
 // launchers of #15, the window merge, without and with the early stop's
@@ -7,8 +8,10 @@
 // WindowStopFlags).  slab_round.cu instantiates them at double (its entry
 // points slab_partials, node_slab_partials, slab_scatter,
 // node_slab_scatter, slab_merge), prop_round.cu the straddle combine at
-// double (straddle_combine), and slab_tier_round.cu everything at float
-// and #15's early-stop forms at both.  Ids are int32 at every value type:
+// double (straddle_combine), slab_tier_round.cu everything at float and
+// #15's early-stop forms at both, and half_round.cu the single-instance
+// ones (#11, #12's scatter, #15 and its carry's stop form, the straddle
+// combine) at the 16-bit types.  Ids are int32 at every value type:
 // the partition widens a compact prep's int16 columns, as the reference's
 // does.  The arithmetic runs in T throughout, so a float instantiation
 // rounds as the plain version does at float32, and the double ones are the
@@ -139,7 +142,8 @@ slab_scatter_kernel(const T* __restrict__ val, const int* __restrict__ col,
                     const int* __restrict__ sxc, const T* __restrict__ lhs,
                     const T* __restrict__ rhs, const int* __restrict__ tile_inst,
                     const int* __restrict__ tile_slab, const bool* __restrict__ active,
-                    const T* __restrict__ lb, const T* __restrict__ ub, T* best_l, T* best_u,
+                    const T* __restrict__ lb, const T* __restrict__ ub,
+                    typename Num<T>::Plane* best_l, typename Num<T>::Plane* best_u,
                     const bool* __restrict__ go, int64_t n_chunks, int r, int k, int64_t width,
                     int64_t slab, T int_eps, T inf) {
   if (skip_round(go)) return;
@@ -329,9 +333,9 @@ int launch_slab_scatter(const T* val, const int* col, const int* ii, const int* 
                         const int* done, const T* smf, const int* smc, const T* sxf,
                         const int* sxc, const T* lhs, const T* rhs, const int* tile_inst,
                         const int* tile_slab, const bool* active, const T* lb, const T* ub,
-                        T* best_l, T* best_u, const bool* go, int64_t n_chunks, int r, int k,
-                        int max_len, int64_t width, int64_t slab, T int_eps, T inf,
-                        cudaStream_t stream) {
+                        typename Num<T>::Plane* best_l, typename Num<T>::Plane* best_u,
+                        const bool* go, int64_t n_chunks, int r, int k, int max_len,
+                        int64_t width, int64_t slab, T int_eps, T inf, cudaStream_t stream) {
   const unsigned int blocks = chunk_blocks(n_chunks, k);
 #define SLAB_SCATTER(G, U)                                                                     \
   launch_blocks<slab_scatter_kernel<G, U, T>>(blocks, stream, val, col, ii, clen, done, smf,   \
@@ -366,7 +370,8 @@ int launch_node_slab_scatter(const T* val, const int* col, const int* ii, const 
 // its loop carry (the mask is then the carry's go, so a converged
 // instance's blocks return at once, as an inactive one's do).
 template <typename T>
-int launch_slab_merge(T* lb, T* ub, T* best_l, T* best_u, const bool* active, int* flags,
+int launch_slab_merge(T* lb, T* ub, typename Num<T>::Plane* best_l,
+                      typename Num<T>::Plane* best_u, const bool* active, int* flags,
                       int* clear, int* carry, int64_t bsz, int64_t width, int64_t slab, int k,
                       int unroll, T eps, T inf, T outward, cudaStream_t stream) {
   // A warp's 32 columns of one stride must lie in one window.
@@ -388,9 +393,10 @@ int launch_slab_merge(T* lb, T* ub, T* best_l, T* best_u, const bool* active, in
 // carry's go, four columns a thread, so the measure's block partials and
 // their sum take F's order (ref.merge_order_sum).
 template <typename T>
-int launch_slab_merge_stop(T* lb, T* ub, T* best_l, T* best_u, const bool* active, int* carry,
-                           T* partials, int64_t width, T eps, T inf, T outward, T stop,
-                           int patience, cudaStream_t stream) {
+int launch_slab_merge_stop(T* lb, T* ub, typename Num<T>::Plane* best_l,
+                           typename Num<T>::Plane* best_u, const bool* active, int* carry,
+                           typename Num<T>::Acc* partials, int64_t width, T eps, T inf,
+                           T outward, T stop, int patience, cudaStream_t stream) {
   using Flags = StopCarryFlags<T>;
   return launch_merge_grid<Flags>(lb, ub, best_l, best_u, active,
                                   Flags{carry, partials, stop, patience}, 1, width, eps, inf,

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
 Each source (``prop_round.cu``, ``slab_round.cu``, ``tier_round.cu``,
-``batch_tier_round.cu``, ``slab_tier_round.cu``, ``telemetry.cu``) is
+``batch_tier_round.cu``, ``slab_tier_round.cu``, ``telemetry.cu``,
+``half_round.cu``) is
 compiled with ``nvcc`` into a shared library with a plain C interface, at first use, into
 ``build/<hash>/`` beside the package (a directory that git ignores), keyed
 by a hash of the sources, the shared header and the flags, and loaded with
@@ -29,9 +30,10 @@ from types import SimpleNamespace
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "prop_round.cu", CSRC / "slab_round.cu", CSRC / "tier_round.cu",
-           CSRC / "batch_tier_round.cu", CSRC / "slab_tier_round.cu", CSRC / "telemetry.cu")
+           CSRC / "batch_tier_round.cu", CSRC / "slab_tier_round.cu", CSRC / "telemetry.cu",
+           CSRC / "half_round.cu")
 HEADERS = (CSRC / "round_common.cuh", CSRC / "single_round.cuh", CSRC / "batch_round.cuh",
-           CSRC / "slab_round.cuh")
+           CSRC / "slab_round.cuh", CSRC / "record_round.cuh")
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -40,7 +42,7 @@ NVCC_FLAGS = (
 )
 
 P, I64, I32, F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
-F32 = ctypes.c_float  # the float32 entries' scalars, rounded to float by ctypes
+F32 = ctypes.c_float  # the float32 and 16-bit entries' scalars, passed as floats
 # C entry points of each source: argument types in order, every one returns
 # a cudaError_t.
 SIGNATURES = {
@@ -118,6 +120,33 @@ SIGNATURES = {
         "record_round_batch_f32": [P] * 11 + [I64, I64, I32, I32, F32, P],
     },
 }
+
+
+
+# The kernels with 16-bit forms (``half_round.cu``): those of the
+# single-instance engines.  The batched and node kernels have none yet.
+HALF_KERNELS = ("fused_scatter_round", "activities_gather", "candidates_scatter",
+                "combine_chunk_partials", "apply_updates", "apply_updates_stop", "activities",
+                "candidates", "fused_round", "slab_partials", "slab_scatter", "slab_merge",
+                "slab_merge_stop", "straddle_combine", "record_round")
+
+
+def _half_signatures() -> dict:
+    """The entries of ``half_round.cu``: each 16-bit form of a kernel of
+    :data:`HALF_KERNELS` takes its float32 form's arguments (its scalars as
+    floats holding 16-bit values), ``_bf16`` and ``_f16``, and ``_bf16c``
+    where float32 has a compact ``_f32c`` form."""
+    f32 = {name: sig for table in SIGNATURES.values() for name, sig in table.items()}
+    out = {}
+    for name in HALF_KERNELS:
+        for suffix in ("bf16", "f16"):
+            out[f"{name}_{suffix}"] = f32[f"{name}_f32"]
+        if f"{name}_f32c" in f32:
+            out[f"{name}_bf16c"] = f32[f"{name}_f32c"]
+    return out
+
+
+SIGNATURES["half_round.cu"] = _half_signatures()
 
 _lock = threading.Lock()
 _lib: SimpleNamespace | None = None

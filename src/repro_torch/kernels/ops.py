@@ -70,7 +70,11 @@ semantics so they converge to the same fixed points.
     #11/#13, the straddle combine and #12/#14 with #15; under a per-row
     early stop #9 or #15 measures each active row's round
     (``propagate_batch_block_ell`` and ``core.nodes.propagate_nodes`` take
-    ``policy`` too).
+    ``policy`` too).  At bfloat16 (compact ids too, where ``n_pad <=
+    2**15``) and float16 every single-instance engine runs its kernels'
+    16-bit forms (``csrc/half_round.cu``), the accumulator planes of D, E
+    and #12 kept in float32; the batched and node rounds refuse both
+    (ROADMAP Queue 1 item 5, remainder, part two).
 
 Telemetry (ROADMAP Queue 1 item 6): every engine takes ``telemetry=`` (a
 ring capacity); the round closures carry the record kernel's prepared
@@ -103,6 +107,7 @@ from ..core.propagator import (
     batched_fixed_point,
     check_dtype,
     device_fixed_point,
+    round_scalars,
     fixed_point,
     resolve_device,
     run_tiers,
@@ -110,7 +115,8 @@ from ..core.propagator import (
     KERNEL_DRIVERS,
 )
 from ..core.sparse import Problem, ProblemBatch, col_pad, csr_to_block_ell, pack_problems
-from ..core.types import DEFAULT_CONFIG, INF, PropagationResult, PropagatorConfig, TierPolicy
+from ..core.types import (DEFAULT_CONFIG, INF, PropagationResult, PropagatorConfig, TierPolicy,
+                          _is_low_precision, as_values, plane_dtype)
 from ..obs import telemetry as obs
 from . import prop_round as kern
 from . import ref as kref
@@ -137,8 +143,8 @@ _COMPACT_COL_MAX_NPAD = 1 << 15
 class DeviceBlockEll(NamedTuple):
     """One instance's block-ELL tiles and vectors as tensors on one device."""
 
-    val: torch.Tensor        # (T, R, K) float64 or float32; 0 == padding
-    col: torch.Tensor        # (T, R, K) int32 (int16 on compact float32 tiers); 0 at padding
+    val: torch.Tensor        # (T, R, K) float64, float32, bfloat16 or float16; 0 == padding
+    col: torch.Tensor        # (T, R, K) int32 (int16 on compact float32 / bfloat16 preps)
     chunk_row: torch.Tensor  # (T, R) int32 in [0, m]; m == padding
     lhs1: torch.Tensor       # (m+1,) sides padded with one dummy slot at index m
     rhs1: torch.Tensor       # (m+1,)
@@ -153,9 +159,9 @@ def device_block_ell(
     """Convert + upload one instance.  Prefer :func:`prepare_block_ell`,
     which caches this and hoists the round-constant gathers."""
     dev = resolve_device(device)
-    dt = check_dtype(dtype)
+    dt = check_dtype(dtype, halves=True)
     b = csr_to_block_ell(p.csr, tile_rows=tile_rows, tile_width=tile_width)
-    t = lambda x, d=dt: torch.as_tensor(np.asarray(x), dtype=d, device=dev)
+    t = lambda x, d=dt: as_values(x, d, dev)
     pad1 = lambda x: np.concatenate([np.asarray(x, np.float64), [0.0]])
     return DeviceBlockEll(
         val=t(b.val),
@@ -184,7 +190,7 @@ class PreparedBlockEll:
     so one prepared engine serves any bounds."""
 
     d: DeviceBlockEll
-    ii_g: torch.Tensor   # (T, R, K) int32 (int8 on compact float32 tiers): is_int[col], hoisted
+    ii_g: torch.Tensor   # (T, R, K) int32 (int8 on compact preps): is_int[col], hoisted
     lhs_g: torch.Tensor  # (T, R): lhs1[chunk_row], hoisted
     rhs_g: torch.Tensor  # (T, R): rhs1[chunk_row], hoisted
     lb0: torch.Tensor    # (n_pad,) default initial bounds (column-padded)
@@ -215,7 +221,7 @@ class PreparedBlockEll:
     def gather_columns(self) -> torch.Tensor:
         """The columns the segment round's bound gather reads
         (:func:`gather_bounds`): ``d.col`` itself where it is int32, else
-        (a compact float32 prep's int16 columns) widened to int32 once and
+        (a compact prep's int16 columns) widened to int32 once and
         kept, never per round."""
         col = self.d.col
         if col.dtype == torch.int32:
@@ -237,12 +243,13 @@ class PreparedBlockEll:
             d = self.d
             is_int_rows = np.zeros((1, self.n_pad), dtype=bool)
             is_int_rows[0, : self.n] = d.is_int.cpu().numpy()
-            host = lambda x: x.cpu().numpy()
+            # numpy has no bfloat16: its values go through float32 (exact).
+            host = lambda x: (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
             part = build_slab_partition(
                 host(d.val), host(d.col), host(d.chunk_row),
                 np.zeros(d.val.shape[0], dtype=np.int32), host(d.lhs1), host(d.rhs1),
                 is_int_rows, self.n_pad, s, np.array([self.m], dtype=np.int32),
-                device=d.val.device,
+                device=d.val.device, value_dtype=d.val.dtype,
             )
             self._slabs[s] = part
         return part
@@ -250,7 +257,7 @@ class PreparedBlockEll:
     def pad_bound(self, arr) -> torch.Tensor:
         """One caller bound vector -> the column-padded ``(n_pad,)`` domain
         (padded columns sit at 0, the trivially converged fill)."""
-        a = torch.as_tensor(arr, dtype=self.lb0.dtype, device=self.lb0.device)
+        a = as_values(arr, self.lb0.dtype, self.lb0.device)
         if tuple(a.shape) != (self.n,):
             raise ValueError(f"bounds have shape {tuple(a.shape)}, expected {(self.n,)}")
         out = torch.zeros(self.n_pad, dtype=a.dtype, device=a.device)
@@ -280,11 +287,12 @@ def prepare_block_ell(
 
     A hit from a problem whose bounds differ from the cached defaults
     returns a bounds-swapped view sharing every device tile.  ``dtype`` is
-    float64 (the default) or float32; a float32 prep whose ``n_pad`` fits
-    int16 (:data:`_COMPACT_COL_MAX_NPAD`) holds ``d.col`` as int16 and
-    ``ii_g`` as int8."""
+    float64 (the default), float32, bfloat16 or float16; a float32 or
+    bfloat16 prep whose ``n_pad`` fits int16 (:data:`_COMPACT_COL_MAX_NPAD`;
+    the reference's ``_is_low_precision``, which leaves float16 out) holds
+    ``d.col`` as int16 and ``ii_g`` as int8."""
     dev = resolve_device(device)
-    dt = check_dtype(dtype)
+    dt = check_dtype(dtype, halves=True)
     anchors = _structure_anchors(p)
     key = tuple(id(a) for a in anchors) + (tile_rows, tile_width, str(dt), str(dev))
     hit = _prep_cache.get(key, anchors)
@@ -294,14 +302,14 @@ def prepare_block_ell(
             return prep
         lb0, ub0 = prep.pad_bounds(p.lb, p.ub)
         d = prep.d._replace(
-            lb0=torch.as_tensor(np.asarray(p.lb), dtype=dt, device=dev),
-            ub0=torch.as_tensor(np.asarray(p.ub), dtype=dt, device=dev),
+            lb0=as_values(p.lb, dt, dev),
+            ub0=as_values(p.ub, dt, dev),
         )
         return dataclasses.replace(prep, d=d, lb0=lb0, ub0=ub0)
 
     d = device_block_ell(p, tile_rows, tile_width, dt, dev)
     n_pad = col_pad(p.n)
-    compact = dt == torch.float32 and n_pad <= _COMPACT_COL_MAX_NPAD
+    compact = _is_low_precision(dt) and n_pad <= _COMPACT_COL_MAX_NPAD
     col = d.col.long()
     crow = d.chunk_row.long()
     row_start = kref.row_starts(d.chunk_row, p.m + 1)
@@ -353,12 +361,15 @@ def segment_reduce(lcand, ucand, index, width: int, inf: float):
     from the sentinels -- ``ref.scatter_round_ref`` restricted to the
     nonzero slots.  The reference's XLA ``segment_max``/``segment_min``
     (src/repro/kernels/ops.py:1033), not a Pallas kernel: here
-    ``scatter_reduce_``."""
+    ``scatter_reduce_``, into planes of the candidates'
+    :func:`~repro_torch.core.types.plane_dtype` (float32 beside 16-bit
+    candidates, which widen exactly), as F reads them."""
     pos, cols = index
-    best_l = torch.full((width,), -inf, dtype=lcand.dtype, device=lcand.device)
-    best_u = torch.full((width,), inf, dtype=ucand.dtype, device=ucand.device)
-    best_l.scatter_reduce_(0, cols, lcand.reshape(-1).index_select(0, pos), "amax")
-    best_u.scatter_reduce_(0, cols, ucand.reshape(-1).index_select(0, pos), "amin")
+    dt = plane_dtype(lcand.dtype)
+    best_l = torch.full((width,), -inf, dtype=dt, device=lcand.device)
+    best_u = torch.full((width,), inf, dtype=dt, device=ucand.device)
+    best_l.scatter_reduce_(0, cols, lcand.reshape(-1).index_select(0, pos).to(dt), "amax")
+    best_u.scatter_reduce_(0, cols, ucand.reshape(-1).index_select(0, pos).to(dt), "amin")
     return best_l, best_u
 
 
@@ -400,10 +411,11 @@ class KeptPlanes:
         return getattr(self._local, "planes", None)
 
     def get(self, like: torch.Tensor):
-        """The pair for bound planes shaped like ``like`` (and of its dtype)."""
+        """The pair for bound planes shaped like ``like`` (of its
+        :func:`~repro_torch.core.types.plane_dtype`)."""
         planes = self.planes
         if (planes is None or planes[0].shape != like.shape or planes[0].device != like.device
-                or planes[0].dtype != like.dtype):
+                or planes[0].dtype != plane_dtype(like.dtype)):
             planes = self._local.planes = kern.accumulator_planes(like, self.inf)
         return planes
 
@@ -796,7 +808,7 @@ def _prepared_round(
     stop_partials = None
     if stop is not None:
         blocks = -(-prep.n_pad // kref.MERGE_BLOCK)
-        (stop_partials,) = kept.scratch("progress", (((blocks,), lb.dtype),), lb)
+        (stop_partials,) = kept.scratch("progress", (((blocks,), plane_dtype(lb.dtype)),), lb)
     if part is not None:
         new_lb, new_ub, _ = ops.partitioned(
             part, lb[None], ub[None], go, node=False, eps=eps, int_eps=int_eps, inf=inf,
@@ -850,7 +862,7 @@ def _resolve_scatter(scatter: str, prep: PreparedBlockEll) -> str:
     round while ``n_pad <= SCATTER_MAX_NPAD`` (read at call time) and takes
     the column-slab ``partitioned`` round beyond it (or the one that
     :data:`AUTO_LARGE_SCATTER_ENV` names); ``fused``, ``segment`` and
-    ``partitioned`` run at any ``n_pad``, at float64 or float32."""
+    ``partitioned`` run at any ``n_pad``, at every value type."""
     if scatter == "auto":
         scatter = "fused" if prep.n_pad <= SCATTER_MAX_NPAD else _auto_large_scatter()
     if scatter not in ("fused", "segment", "partitioned"):
@@ -890,8 +902,7 @@ def round_fn_for(
     telemetry; the plain closures leave it to its plain version."""
     scatter = _resolve_scatter(scatter, prep)
     do_fuse = prep.fits_one_chunk if fused is None else bool(fused)
-    dt = prep.d.val.dtype
-    eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
+    eps, int_eps, inf, outward = round_scalars(cfg, prep.d.val.dtype)
     ops = KERNEL_OPS if use_kernels else PLAIN_OPS
     carry = LoopCarry()
     if scatter == "segment":
@@ -899,7 +910,7 @@ def round_fn_for(
             return _segment_round(
                 ops, prep.d, lb, ub, prep.ii_g, prep.lhs_g, prep.rhs_g, prep.row_start,
                 prep.segment_index(), prep.n_pad, fused=do_fuse, eps=eps,
-                int_eps=cfg.int_eps, inf=cfg.inf, outward=outward, classes=prep.seg_classes,
+                int_eps=int_eps, inf=inf, outward=outward, classes=prep.seg_classes,
                 carry=carry.step(lb.device), gate=use_kernels, stop=carry.stop,
                 col=prep.gather_columns(),
             )
@@ -909,11 +920,11 @@ def round_fn_for(
             round_fn.record = kern.RecordLaunch
         return round_fn
     part = prep.slab_partition(slab) if scatter == "partitioned" else None
-    kept = KeptPlanes(cfg.inf)
+    kept = KeptPlanes(inf)
 
     def round_fn(lb, ub):
         return _prepared_round(
-            prep, lb, ub, ops=ops, eps=eps, int_eps=cfg.int_eps, inf=cfg.inf,
+            prep, lb, ub, ops=ops, eps=eps, int_eps=int_eps, inf=inf,
             fused=do_fuse, outward=outward, part=part, kept=kept, carry=carry.step(lb.device),
             gate=use_kernels, stop=carry.stop,
         )
@@ -945,7 +956,7 @@ def block_ell_round(
     the reduction's :func:`segment_index`) redone every round, kernel C
     (``fused``) or kernel A, the fixed-order combine and kernel B, the
     candidates written out, a column reduction over ``n`` columns, then
-    the merge.  Float64 or float32 (a compact prep's int16 columns widened
+    the merge.  Any value type (a compact prep's int16 columns widened
     with the rest of the structure work; its int8 marks are gathered anew
     as int32).  Returns ``(lb, ub, changed)``; with kernels the bounds are
     updated in place."""
@@ -967,12 +978,11 @@ def legacy_round_fn_for(
     ``(n,)`` domain (src/repro/kernels/ops.py:1038).  Kept as the measured
     baseline; it reads only the prep's tiles, at the prep's dtype (float32
     widens the merges outward, as the reference's does)."""
-    dt = prep.d.val.dtype
-    eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
+    eps, int_eps, inf, outward = round_scalars(cfg, prep.d.val.dtype)
 
     def round_fn(lb, ub):
         return block_ell_round(
-            prep.d, lb, ub, prep.m, prep.n, eps, cfg.int_eps, cfg.inf, use_kernels,
+            prep.d, lb, ub, prep.m, prep.n, eps, int_eps, inf, use_kernels,
             prep.fits_one_chunk, outward,
         )
 
@@ -1033,7 +1043,9 @@ def propagate_block_ell(
     host read.  ``"unrolled"`` raises ``ValueError``, as the reference's
     does.
 
-    ``dtype`` is float64 (the default) or float32, on every engine.
+    ``dtype`` is float64 (the default), float32, bfloat16 or float16, on
+    every engine (the 16-bit types' scalars rounded to the type, their
+    scatters into float32 planes; ``core.types``).
     ``stop_progress``/``patience`` arm the progress-based early stop: F
     (#15 on the partitioned engine) folds each round's measure into the
     loop carry and clears its GO once it stayed below ``stop_progress``
@@ -1555,6 +1567,7 @@ def propagate_batch_block_ell(
     ``donate`` changes nothing (the planes are private copies)."""
     if driver not in KERNEL_DRIVERS:
         raise ValueError(f"unknown driver: {driver!r}")
+    check_dtype(dtype)
     problems = list(problems)
     pair = two_tier_bounds_dtypes(policy, dtype) if policy is not None else None
     if pair is not None:
@@ -1705,8 +1718,10 @@ def node_round_fn_for(
     ``REPRO_AUTO_LARGE_SCATTER=segment``, read here).  Float64 or float32
     everywhere.  The closure is ``measured`` as
     :func:`batched_round_fn_for`'s (``progress=``), except the plain
-    segment round's (the loop then measures from copies of the planes)."""
-    dt = prep.d.val.dtype
+    segment round's (the loop then measures from copies of the planes).
+    A 16-bit prep raises ``NotImplementedError`` (ROADMAP Queue 1 item 5,
+    remainder, part two)."""
+    dt = check_dtype(prep.d.val.dtype)
     eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
     ops = KERNEL_OPS if use_kernels else PLAIN_OPS
     large = prep.n_pad > SCATTER_MAX_NPAD

@@ -15,9 +15,9 @@ for #9 and #15 a kept pair of flag buffers (``flags``,
 a CPU tensor it runs the kernel's plain-PyTorch version (``ref.py``); on a
 CUDA tensor it launches the hand-written Hopper kernel of
 ``csrc/prop_round.cu``, ``csrc/slab_round.cu``, ``csrc/tier_round.cu``,
-``csrc/batch_tier_round.cu``, ``csrc/slab_tier_round.cu`` or
-``csrc/telemetry.cu`` on the current stream, or raises -- it never falls
-back.  Each wrapper counts
+``csrc/batch_tier_round.cu``, ``csrc/slab_tier_round.cu``,
+``csrc/telemetry.cu`` or ``csrc/half_round.cu`` on the current stream, or
+raises -- it never falls back.  Each wrapper counts
 its kernel launches in a plain integer attribute, ``<wrapper>.launches``
 (see :func:`launch_counts`), and by form (:func:`form_counts`).
 
@@ -28,7 +28,12 @@ fits int16 (D, A', E, the node forms, and B and C's marks), the compact
 int16 columns and int8 marks (:data:`TIER_FORMS`); the slab kernels take
 int32 ids at both value types.  F and #15 for one instance take the
 progress-based early stop (``stop``), #9 and #15 over a batch the batched
-one's per-row measure (``progress``).
+one's per-row measure (``progress``).  The kernels of the single-instance
+engines (``_build.HALF_KERNELS``) also take bfloat16 (compact ids too) and
+float16 values: their scalars are rounded to the type here (as the
+reference's weakly typed scalars are), D, E and #12 scatter into float32
+planes, and F and #15 read them (and sum their stop's measure in float32).
+A 16-bit form of another kernel raises ``NotImplementedError``.
 
 The telemetry (ROADMAP Queue 1 item 6) adds two kernels of its own, with no
 Pallas twin: ``record_round_tiles`` after one instance's round and
@@ -54,7 +59,7 @@ import torch
 
 from ..core import bounds as bnd
 from ..core import carry as _carry
-from ..core.types import INF
+from ..core.types import INF, is_half, plane_dtype, rounded
 from . import _build
 from . import ref
 
@@ -98,41 +103,63 @@ def _check_tiles(val, col, lb, ub, n_pad, is_int_g=None):
 
 
 # The forms of the tier kernels (every kernel but #16): float64 values with
-# int32 columns and marks, float32 with int32, and float32 with the compact
-# int16 columns and int8 marks; their C entry points carry the suffix.  The
-# early stop of F, #9 and #15 adds "+stop" to the form it counts (#15's
+# int32 columns and marks, float32 with int32, float32 with the compact
+# int16 columns and int8 marks, and the 16-bit forms (bfloat16 with int32
+# or the compact ids, float16 with int32: csrc/half_round.cu, the
+# single-instance kernels only); their C entry points carry the suffix.
+# The early stop of F, #9 and #15 adds "+stop" to the form it counts (#15's
 # per-row measure of a batch "+stop_rows").
-TIER_FORMS = ("f64", "f32", "f32c")
-_FORM_SUFFIX = {"f64": "", "f32": "_f32", "f32c": "_f32c"}
-_FLOATS = (torch.float64, torch.float32)
+TIER_FORMS = ("f64", "f32", "f32c", "bf16", "bf16c", "f16")
+_FORM_SUFFIX = {"f64": "", "f32": "_f32", "f32c": "_f32c", "bf16": "_bf16", "bf16c": "_bf16c",
+                "f16": "_f16"}
+_FLOATS = (torch.float64, torch.float32, torch.bfloat16, torch.float16)
+_VALUE_FORM = {torch.float64: "f64", torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.float16: "f16"}
+# The value types whose preps may hold the compact ids (the reference's
+# _is_low_precision: float16 is not one).
+_COMPACT_FLOATS = (torch.float32, torch.bfloat16)
 
 
 def _float_dtype(name: str, t: torch.Tensor) -> torch.dtype:
-    """The value type of a tier kernel's operand ``t``: float64 or float32."""
+    """The value type of a tier kernel's operand ``t``: float64, float32,
+    bfloat16 or float16."""
     if t.dtype not in _FLOATS:
-        raise TypeError(f"{name}: expected float64 or float32, got {t.dtype}")
+        raise TypeError(f"{name}: expected float64, float32, bfloat16 or float16, got {t.dtype}")
     return t.dtype
+
+
+def _form(dt: torch.dtype, compact: bool = False) -> str:
+    """The form of a launch at value type ``dt``, with the compact ids or
+    not."""
+    return _VALUE_FORM[dt] + ("c" if compact else "")
+
+
+def _scalars(dt: torch.dtype, *xs):
+    """A launch's scalars at value type ``dt``: rounded to it where it is a
+    16-bit type (:func:`~repro_torch.core.types.rounded`, as the
+    reference's weakly typed scalars are), so that a caller may pass them
+    as configured; as given otherwise."""
+    return tuple(rounded(x, dt) for x in xs) if is_half(dt) else xs
 
 
 def _check_tier_stream(val, col, is_int_g=None, compact_ok: bool = True):
     """A tile stream in one of :data:`TIER_FORMS` (the compact ids only with
-    float32 values, and only where ``compact_ok``); returns ``(T, R, K,
-    form)``."""
+    float32 or bfloat16 values, and only where ``compact_ok``); returns
+    ``(T, R, K, form)``."""
     t, r, k = val.shape
     dt = _float_dtype("val", val)
-    compact = compact_ok and dt == torch.float32 and col.dtype == torch.int16
+    compact = compact_ok and dt in _COMPACT_FLOATS and col.dtype == torch.int16
     _expect("val", val, dt, (t, r, k))
     _expect("col", col, torch.int16 if compact else torch.int32, (t, r, k))
     if is_int_g is not None:
         _expect("is_int_g", is_int_g, torch.int8 if compact else torch.int32, (t, r, k))
-    form = "f64" if dt == torch.float64 else "f32c" if compact else "f32"
-    return t, r, k, form
+    return t, r, k, _form(dt, compact)
 
 
 def _check_tier_tiles(val, col, lb, ub, n_pad, is_int_g=None):
     """The tiles and bound vectors of D, A' or E in one of :data:`TIER_FORMS`
-    (the compact ids only with float32 values); returns ``(chunks, K,
-    form)``."""
+    (the compact ids only with float32 or bfloat16 values); returns
+    ``(chunks, K, form)``."""
     t, r, k, form = _check_tier_stream(val, col, is_int_g)
     _expect("lb", lb, val.dtype, (n_pad,))
     _expect("ub", ub, val.dtype, (n_pad,))
@@ -141,12 +168,19 @@ def _check_tier_tiles(val, col, lb, ub, n_pad, is_int_g=None):
 
 def _value_form(name: str, t: torch.Tensor) -> str:
     """The form of a kernel without index streams (the merges, the
-    combines): f64 or f32, by the value type of ``t``."""
-    return "f64" if _float_dtype(name, t) is torch.float64 else "f32"
+    combines): f64, f32, bf16 or f16, by the value type of ``t``."""
+    return _form(_float_dtype(name, t))
 
 
 def _tier_entry(name: str, form: str):
-    """The C entry point of a tier kernel's form, and its name."""
+    """The C entry point of a tier kernel's form, and its name.  A 16-bit
+    form of a kernel outside ``_build.HALF_KERNELS`` raises
+    ``NotImplementedError``."""
+    if form.startswith(("bf16", "f16")) and name not in _build.HALF_KERNELS:
+        raise NotImplementedError(
+            f"{name}: the 16-bit forms of the batched and node kernels are ROADMAP Queue 1 "
+            "item 5, remainder, part two"
+        )
     symbol = name + _FORM_SUFFIX[form]
     return getattr(_build.lib(), symbol), symbol
 
@@ -178,14 +212,16 @@ def _p(t: torch.Tensor) -> int:
 
 
 def accumulator_planes(like: torch.Tensor, inf: float = INF):
-    """``(best_l, best_u)``: two planes of the dtype and shape of the bound
-    vector or planes ``like``, filled with the sentinels ``-inf`` and
+    """``(best_l, best_u)``: two planes of the shape of the bound vector or
+    planes ``like`` and of its :func:`~repro_torch.core.types.plane_dtype`
+    (float32 beside 16-bit bounds), filled with the sentinels ``-inf`` and
     ``inf``, for kernels D, E, #8, #10, #12 and #14 to scatter into (their
     ``acc``).  The engines allocate one pair per round closure and keep it
     for the whole fixed point: the merge that reads the planes (F, #9, #15)
     sets every entry it reads -- every column, or the active rows -- back
     to the sentinel, so they are clean for the next round."""
-    shape, dev, dt = tuple(like.shape), like.device, like.dtype
+    shape, dev, dt = tuple(like.shape), like.device, plane_dtype(like.dtype)
+    (inf,) = _scalars(like.dtype, inf)
     return (torch.full(shape, -inf, dtype=dt, device=dev),
             torch.full(shape, inf, dtype=dt, device=dev))
 
@@ -264,7 +300,7 @@ def _acc_vectors(acc, lb, inf: float):
     if acc is None:
         return accumulator_planes(lb, inf)
     for name, t in zip(("acc[0]", "acc[1]"), acc):
-        _expect(name, t, lb.dtype, tuple(lb.shape))
+        _expect(name, t, plane_dtype(lb.dtype), tuple(lb.shape))
     return acc
 
 
@@ -309,7 +345,12 @@ def fused_scatter_round_tiles(
     shuffles in the group in ``ref.warp_order_sum`` order; the one-hot
     scatter of the TPU kernel as 64-bit integer max/min reductions that
     padding and sentinel candidates skip; no plane filled per launch when
-    the planes are kept."""
+    the planes are kept.  At bfloat16 and float16 (``csrc/half_round.cu``,
+    the same template) values take 2 B, the arithmetic rounds to the type
+    after every operation, each chunk's sums accumulate in float32 and
+    round once, and the planes are float32 (32-bit atomics; the candidates
+    widen exactly); bfloat16 also has the compact form."""
+    (int_eps, inf) = _scalars(val.dtype, int_eps, inf)
     operands = (val, col, is_int_g, lhs_g, rhs_g, lb, ub, *(acc or ()))
     if not _on_cuda(*operands):
         best = ref.fused_scatter_round_tiles_ref(
@@ -387,7 +428,9 @@ def activities_gather_tiles(val, col, lb, ub, n_pad: int, inf: float = INF, chun
     four strides (K = 128) before their bound gathers, and gathers a
     column's two bounds as one pair from an interleaved copy (half the
     requests); shuffle sums in the same order; the group's first lane
-    writes the chunk's four partials."""
+    writes the chunk's four partials.  Float64, float32, bfloat16 or
+    float16 (as D's forms), the partials in the value type."""
+    (inf,) = _scalars(val.dtype, inf)
     if not _on_cuda(val, col, lb, ub):
         return ref.activities_gather_tiles_ref(val, col, lb, ub, n_pad, inf)
     n_chunks, k, form = _check_tier_tiles(val, col, lb, ub, n_pad)
@@ -443,7 +486,8 @@ def candidates_scatter_tiles(
     D, and the column max/min by 64-bit integer atomics (one reduction, no
     compare-and-swap loop) behind a pre-check read from L2 that skips
     candidates that cannot win; no plane filled per launch when the planes
-    are kept."""
+    are kept.  Float64, float32, bfloat16 or float16 (as D's forms)."""
+    (int_eps, inf) = _scalars(val.dtype, int_eps, inf)
     operands = (val, col, is_int_g, row_min_fin, row_min_cnt, row_max_fin,
                 row_max_cnt, lhs_g, rhs_g, lb, ub)
     if not _on_cuda(*operands, *(acc or ())):
@@ -483,19 +527,19 @@ def _int_operand(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check_gathered(val, lb_g, ub_g, is_int_g=None):
-    """(T, R, K) tiles with their bounds gathered at each slot, float64 or
-    float32, and the marks int32 (or int8 beside float32 values: the
-    compact form); returns (chunks, K, form)."""
+    """(T, R, K) tiles with their bounds gathered at each slot, float64,
+    float32, bfloat16 or float16, and the marks int32 (or int8 beside
+    float32 or bfloat16 values: the compact form); returns (chunks, K,
+    form)."""
     t, r, k = val.shape
     dt = _float_dtype("val", val)
-    compact = (dt == torch.float32 and is_int_g is not None and is_int_g.dtype == torch.int8)
+    compact = dt in _COMPACT_FLOATS and is_int_g is not None and is_int_g.dtype == torch.int8
     _expect("val", val, dt, (t, r, k))
     _expect("lb_g", lb_g, dt, (t, r, k))
     _expect("ub_g", ub_g, dt, (t, r, k))
     if is_int_g is not None:
         _expect("is_int_g", is_int_g, torch.int8 if compact else torch.int32, (t, r, k))
-    form = "f64" if dt == torch.float64 else "f32c" if compact else "f32"
-    return t * r, k, form
+    return t * r, k, _form(dt, compact)
 
 
 def activities_tiles(val, lb_g, ub_g, inf: float = INF, *, go=None):
@@ -513,7 +557,9 @@ def activities_tiles(val, lb_g, ub_g, inf: float = INF, *, go=None):
     of gathered at its column; the group's first lane writes the partials.
     Float64 or float32 (``csrc/tier_round.cu`` ``activities_f32``, the same
     template), at 4 B a value; A reads no marks, so it has no compact
-    form."""
+    form.  bfloat16 and float16 (``csrc/half_round.cu``) at 2 B a value, the
+    sums in float32 rounded once."""
+    (inf,) = _scalars(val.dtype, inf)
     if not _on_cuda(val, lb_g, ub_g):
         return ref.activities_tiles_ref(val, lb_g, ub_g, inf)
     n_chunks, k, form = _check_gathered(val, lb_g, ub_g)
@@ -556,8 +602,10 @@ def candidates_tiles(
     storing both candidates of its slots (coalesced) instead of scattering
     them.  Float64 or float32 (``csrc/tier_round.cu``, the same template;
     with a float32 prep's compact int8 marks as they are), at 4 B a value
-    and 1 B a compact mark."""
+    and 1 B a compact mark; bfloat16 (with the compact marks too) and
+    float16 at 2 B a value (``csrc/half_round.cu``)."""
     is_int_g = _int_operand(is_int_g)
+    (int_eps, inf) = _scalars(val.dtype, int_eps, inf)
     operands = (val, lb_g, ub_g, is_int_g, row_min_fin, row_min_cnt, row_max_fin,
                 row_max_cnt, lhs_g, rhs_g)
     if not _on_cuda(*operands):
@@ -598,8 +646,10 @@ def fused_round_tiles(val, lb_g, ub_g, is_int_g, lhs_g, rhs_g, int_eps: float,
     lane group per chunk (row sums by shuffles, in ``ref.warp_order_sum``
     order), each slot's bounds read at the slot, both candidates stored per
     slot instead of scattered.  Float64 or float32 (``csrc/tier_round.cu``,
-    the same template; the compact int8 marks as B's), at 4 B a value."""
+    the same template; the compact int8 marks as B's), at 4 B a value;
+    bfloat16 and float16 as B's."""
     is_int_g = _int_operand(is_int_g)
+    (int_eps, inf) = _scalars(val.dtype, int_eps, inf)
     operands = (val, lb_g, ub_g, is_int_g, lhs_g, rhs_g)
     if not _on_cuda(*operands):
         return ref.fused_round_tiles_ref(*operands, int_eps, inf)
@@ -667,14 +717,20 @@ def apply_updates_tiles(lb, ub, best_l, best_u, eps: float, inf: float = INF, ou
     block sums them in block order (``ref.merge_order_sum``) and folds the
     measure into the carry, clearing GO once it stayed below
     ``stop.progress`` for ``stop.patience`` rounds.  Without it F runs as
-    before, to the bit."""
+    before, to the bit.  At bfloat16 and float16 (``csrc/half_round.cu``)
+    ``best_l``/``best_u`` are the float32 planes of D and E (narrowed back
+    exactly), the arithmetic rounds to the type after every operation, and
+    the measure's terms are summed in float32 (``partials`` float32) and
+    rounded once."""
     own = carry is None
     if own:
         carry, k, unroll = _carry.armed_state(lb.device), 0, 1
     if stop is not None and unroll != 1:
         raise ValueError(f"unroll={unroll}: kernel F's early stop takes one round a check group")
+    (eps, inf, outward) = _scalars(lb.dtype, eps, inf, outward)
     if stop is not None and partials is not None:
-        _expect("partials", partials, lb.dtype, (-(-lb.shape[0] // ref.MERGE_BLOCK),))
+        _expect("partials", partials, plane_dtype(lb.dtype),
+                (-(-lb.shape[0] // ref.MERGE_BLOCK),))
     if not _on_cuda(lb, ub, best_l, best_u, carry):
         new_lb, new_ub, go = ref.merge_carry_ref(lb, ub, best_l, best_u, eps, inf, outward,
                                                  carry, k, unroll, stop)
@@ -683,12 +739,16 @@ def apply_updates_tiles(lb, ub, best_l, best_u, eps: float, inf: float = INF, ou
         return lb, ub, go
     (n,) = lb.shape
     dt = lb.dtype
-    for name, t in (("lb", lb), ("ub", ub), ("best_l", best_l), ("best_u", best_u)):
-        if t.dtype is not dt or dt not in _FLOATS or t.shape != lb.shape or not t.is_contiguous():
-            _expect(name, t, _float_dtype("lb", lb), (n,))
+    pdt = plane_dtype(dt)
+    for name, t, want in (("lb", lb, dt), ("ub", ub, dt), ("best_l", best_l, pdt),
+                          ("best_u", best_u, pdt)):
+        if (t.dtype is not want or dt not in _FLOATS or t.shape != lb.shape
+                or not t.is_contiguous()):
+            _expect(name, t, plane_dtype(_float_dtype("lb", lb)) if name.startswith("best")
+                    else dt, (n,))
     if carry.dtype is not torch.int32 or carry.shape != (_carry.FIELDS,):
         _expect("carry", carry, torch.int32, (_carry.FIELDS,))
-    form = "f64" if dt is torch.float64 else "f32"
+    form = _VALUE_FORM[dt]
     if stop is None:
         entry, symbol = _tier_entry("apply_updates", form)
         err = entry(_p(lb), _p(ub), _p(best_l), _p(best_u), _p(carry), n, k, unroll, eps, inf,
@@ -696,11 +756,12 @@ def apply_updates_tiles(lb, ub, best_l, best_u, eps: float, inf: float = INF, ou
     else:
         blocks = -(-n // ref.MERGE_BLOCK)
         if partials is None:
-            partials = torch.empty(blocks, dtype=dt, device=lb.device)
-        symbol = "apply_updates_stop" + ("" if form == "f64" else "_f32")
-        err = getattr(_build.lib(), symbol)(
+            partials = torch.empty(blocks, dtype=pdt, device=lb.device)
+        entry, symbol = _tier_entry("apply_updates_stop", form)
+        (stop_at,) = _scalars(dt, stop.progress)
+        err = entry(
             _p(lb), _p(ub), _p(best_l), _p(best_u), _p(carry), _p(partials), n, eps, inf,
-            outward, stop.progress, int(stop.patience), _stream(),
+            outward, stop_at, int(stop.patience), _stream(),
         )
         form += "+stop"
     _launched(apply_updates_tiles, form)
@@ -1310,7 +1371,10 @@ def batched_slab_partials_tiles(
     slot, 4 B of ``col_s`` per nonzero) plus 24 B of partials per chunk.
     Design: kernel A''s lane group per chunk; a copy finds its run by a
     binary search over ``run_start`` and gathers from its window by an
-    indexed load; no grid step is padded."""
+    indexed load; no grid step is padded.  bfloat16 and float16
+    (``csrc/half_round.cu``) at 2 B a value, each copy's sums in float32
+    rounded once."""
+    (inf,) = _scalars(val.dtype, inf)
     operands = (val, col_s, run_start, run_len, run_inst, run_slab, active, lb, ub)
     if not _on_cuda(*operands):
         return ref.batched_slab_partials_ref(*operands, slab, max_run_len, inf)
@@ -1357,8 +1421,7 @@ def _slab_merge(lb, ub, best_l, best_u, active, slab: int, eps: float, inf: floa
         raise ValueError(f"slab={slab}: the window merge takes multiples of {ref.WARP}")
     bsz, width = lb.shape
     form = _value_form("lb", lb)
-    suffix = _FORM_SUFFIX[form]
-    lib = _build.lib()
+    (eps, inf, outward) = _scalars(lb.dtype, eps, inf, outward)
     ptr = lambda t: None if t is None else _p(t)
     head = (_p(lb), _p(ub), _p(best_l), _p(best_u), _p(active))
     blocks = -(-width // ref.MERGE_BLOCK)
@@ -1368,26 +1431,28 @@ def _slab_merge(lb, ub, best_l, best_u, active, slab: int, eps: float, inf: floa
             raise ValueError(f"a loop carry folds one instance's flags, got {bsz} planes")
         _expect("carry", carry, torch.int32, (_carry.FIELDS,))
         if stop is None:
-            symbol = "slab_merge" + suffix
-            err = getattr(lib, symbol)(*head, None, None, _p(carry), bsz, width, slab, k, unroll,
-                                       eps, inf, outward, _stream())
+            entry, symbol = _tier_entry("slab_merge", form)
+            err = entry(*head, None, None, _p(carry), bsz, width, slab, k, unroll, eps, inf,
+                        outward, _stream())
         else:
             if unroll != 1:
                 raise ValueError(f"unroll={unroll}: #15's early stop takes one round a check "
                                  "group")
+            pdt = plane_dtype(lb.dtype)
             if partials is None:
-                partials = torch.empty(blocks, dtype=lb.dtype, device=lb.device)
-            _expect("partials", partials, lb.dtype, (blocks,))
-            symbol = "slab_merge_stop" + suffix
-            err = getattr(lib, symbol)(*head, _p(carry), _p(partials), width, eps, inf, outward,
-                                       stop.progress, int(stop.patience), _stream())
+                partials = torch.empty(blocks, dtype=pdt, device=lb.device)
+            _expect("partials", partials, pdt, (blocks,))
+            entry, symbol = _tier_entry("slab_merge_stop", form)
+            (stop_at,) = _scalars(lb.dtype, stop.progress)
+            err = entry(*head, _p(carry), _p(partials), width, eps, inf, outward, stop_at,
+                        int(stop.patience), _stream())
             form += "+stop"
     else:
         out, clear = _flag_buffers(flags, (bsz, _n_slabs(width, slab)), torch.int32, lb.device)
         if progress is None:
-            symbol = "slab_merge" + suffix
-            err = getattr(lib, symbol)(*head, _p(out), ptr(clear), None, bsz, width, slab, k,
-                                       unroll, eps, inf, outward, _stream())
+            entry, symbol = _tier_entry("slab_merge", form)
+            err = entry(*head, _p(out), ptr(clear), None, bsz, width, slab, k, unroll, eps, inf,
+                        outward, _stream())
         else:
             if partials is None:
                 partials = torch.empty((bsz, blocks), dtype=lb.dtype, device=lb.device)
@@ -1396,9 +1461,9 @@ def _slab_merge(lb, ub, best_l, best_u, active, slab: int, eps: float, inf: floa
             _expect("progress", progress, lb.dtype, (bsz,))
             _expect("partials", partials, lb.dtype, (bsz, blocks))
             _expect("ticket", ticket, torch.int32, (1,))
-            symbol = "slab_merge_rows_stop" + suffix
-            err = getattr(lib, symbol)(*head, _p(out), ptr(clear), _p(partials), _p(progress),
-                                       _p(ticket), bsz, width, slab, eps, inf, outward, _stream())
+            entry, symbol = _tier_entry("slab_merge_rows_stop", form)
+            err = entry(*head, _p(out), ptr(clear), _p(partials), _p(progress), _p(ticket), bsz,
+                        width, slab, eps, inf, outward, _stream())
             form += "+stop_rows"
     _launched(apply_updates_slab_tiles, form)
     _build.check(err, symbol)
@@ -1417,9 +1482,10 @@ def _plain_slab_merge(lb, ub, best_l, best_u, active, slab: int, eps: float, inf
     ``GO``; ``progress`` as :func:`_plain_row_progress`."""
     blocks = -(-lb.shape[1] // ref.MERGE_BLOCK)
     if partials is not None and carry is not None and stop is not None:
-        _expect("partials", partials, lb.dtype, (blocks,))
+        _expect("partials", partials, plane_dtype(lb.dtype), (blocks,))
     elif partials is not None and carry is None and progress is not None:
         _expect("partials", partials, lb.dtype, (lb.shape[0], blocks))
+    (eps, inf, outward) = _scalars(lb.dtype, eps, inf, outward)
     new_lb, new_ub, win = ref.apply_updates_slab_ref(lb, ub, best_l, best_u, active, slab, eps,
                                                      inf, outward)
     _hand_back(best_l, best_u, active, inf)
@@ -1509,7 +1575,10 @@ def batched_slab_round_tiles(
     gathers each nonzero's bounds once and holds them from the sums to the
     candidates (as many strides as the longest copy needs: one on the
     copy streams seen so far), and reduces by fire-and-forget 64-bit
-    integer reductions into the kept planes."""
+    integer reductions into the kept planes.  bfloat16 and float16
+    (``csrc/half_round.cu``) at 2 B a value, into float32 planes (as D's
+    16-bit forms)."""
+    (eps, int_eps, inf, outward) = _scalars(val.dtype, eps, int_eps, inf, outward)
     strs = (str_min_fin, str_min_cnt, str_max_fin, str_max_cnt)
     operands = (val, col_s, is_int_g, row_done, *strs, lhs_g, rhs_g, run_start, run_len,
                 run_inst, run_slab, active, lb, ub, *acc)
@@ -1532,7 +1601,7 @@ def batched_slab_round_tiles(
         raise ValueError(f"{n_runs} runs, expected one per window ({bsz} x "
                          f"{_n_slabs(width, slab)})")
     best_l, best_u = acc
-    _check_planes(bsz, width, val.dtype, best_l=best_l, best_u=best_u)
+    _check_planes(bsz, width, plane_dtype(val.dtype), best_l=best_l, best_u=best_u)
     for name, x in zip(("tile_inst", "tile_slab"), tiles):
         _expect(name, x, torch.int32, (t,))
     clen = _chunk_len(val, chunk_len)
@@ -1804,7 +1873,11 @@ def apply_updates_slab_tiles(
     point the flags are folded into the loop carry instead (F's
     ``CarryFlags``, or with the early stop F's ``StopCarryFlags``); a
     batch's per-row measure is #9's (``WindowStopFlags``).  Float64 or
-    float32 (``csrc/slab_tier_round.cu``), at 4 B a value."""
+    float32 (``csrc/slab_tier_round.cu``), at 4 B a value; bfloat16 and
+    float16 for one instance (``csrc/half_round.cu``: the float32 planes of
+    #12 narrowed back exactly, the measure summed in float32 and rounded
+    once; the batched row measure is ROADMAP Queue 1 item 5, remainder,
+    part two)."""
     if stop is not None and unroll != 1:
         raise ValueError(f"unroll={unroll}: #15's early stop takes one round a check group")
     if not _on_cuda(lb, ub, best_l, best_u, active):
@@ -1814,7 +1887,9 @@ def apply_updates_slab_tiles(
     bsz, width = lb.shape
     if bsz > MAX_GRID_Y:
         raise ValueError(f"{bsz} planes exceed the grid's {MAX_GRID_Y}")
-    _check_planes(bsz, width, _float_dtype("lb", lb), lb=lb, ub=ub, best_l=best_l, best_u=best_u)
+    dt = _float_dtype("lb", lb)
+    _check_planes(bsz, width, dt, lb=lb, ub=ub)
+    _check_planes(bsz, width, plane_dtype(dt), best_l=best_l, best_u=best_u)
     _expect("active", active, torch.bool, (bsz,))
     out = _slab_merge(lb, ub, best_l, best_u, active, slab, eps, inf, outward, flags, carry, k,
                       unroll, stop, partials, progress, ticket)
@@ -1857,10 +1932,10 @@ def _record_args(lb, ub, carry, plane, feas_eps: float, unroll: int, patience: i
     _expect("scratch", scratch, torch.int32, (2,))
     cap = 0 if plane is None else _check_telemetry_plane(plane, (), dt)
     form = _value_form("lb", lb)
-    symbol = "record_round" + _FORM_SUFFIX[form]
+    entry, symbol = _tier_entry("record_round", form)
     args = (_p(lb), _p(ub), _p(carry), *_plane_ptrs(plane), _p(scratch), n, cap, int(unroll),
-            int(patience), feas_eps)
-    return getattr(_build.lib(), symbol), symbol, form, args
+            int(patience), rounded(feas_eps, dt))
+    return entry, symbol, form, args
 
 
 def record_round_tiles(lb, ub, carry, plane, feas_eps: float, *, unroll: int = 1,
@@ -1887,8 +1962,9 @@ def record_round_tiles(lb, ub, carry, plane, feas_eps: float, *, unroll: int = 1
     vectors read once, 2 * n_pad values, and the carry.  Design
     (``csrc/telemetry.cu``): a grid over the columns, each block's hits
     ORed into the scratch and a ticket taken after a fence; the launch's
-    last block records (the pattern of F's carry fold).  Float64 or
-    float32."""
+    last block records (the pattern of F's carry fold).  Float64, float32,
+    bfloat16 or float16 (``csrc/half_round.cu``; the carry's 16-bit measure
+    in its field's low half)."""
     tensors = (lb, ub, carry) + (tuple(plane) if plane is not None else ())
     if not _on_cuda(*tensors):
         ref.record_round_ref(lb, ub, carry, plane, feas_eps, unroll, patience)
@@ -1959,8 +2035,8 @@ def _record_batch_args(lb, ub, progress, plane, scratch):
     _expect("scratch", scratch, torch.int32, (bsz + 1,))
     cap = _check_telemetry_plane(plane, (bsz,), dt)
     form = _value_form("lb", lb)
-    symbol = "record_round_batch" + _FORM_SUFFIX[form]
-    return getattr(_build.lib(), symbol), symbol, form, cap
+    entry, symbol = _tier_entry("record_round_batch", form)
+    return entry, symbol, form, cap
 
 
 def _check_lanes(bsz: int, ran, rounds, flat) -> None:

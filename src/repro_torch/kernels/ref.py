@@ -12,7 +12,7 @@ import torch
 
 from ..core import bounds as bnd
 from ..core import carry as _carry
-from ..core.types import INF, int_round_slack
+from ..core.types import INF, int_round_slack, is_half, rounded
 from ..obs import telemetry as _tel
 
 
@@ -43,7 +43,10 @@ def warp_order_sum(x):
     slots fewer lanes (K rounded up to a power of two); the lanes they drop
     would only add +0.0, so the sum is the same.  Fixing this order makes
     kernel and plain version round alike on any data, not only where the
-    sums are exact."""
+    sums are exact.  A 16-bit ``x`` is summed in float32 and rounded once,
+    as XLA reduces it (and as the kernels' 16-bit forms do)."""
+    if is_half(x.dtype):
+        return warp_order_sum(x.float()).to(x.dtype)
     pad = (-x.shape[-1]) % WARP
     if pad:
         x = torch.nn.functional.pad(x, (0, pad))
@@ -218,7 +221,10 @@ def merge_order_sum(x):
     """Sum of the last axis of ``x`` in the order of the merges' early stop:
     the block sums of :func:`merge_block_sums`, reduced as
     :func:`warp_order_sum` reduces a row (kernel F's last block, and #9's
-    per row)."""
+    per row).  16-bit terms are summed in float32 and the sum rounded once,
+    as the reference's ``progress_measure`` reduces them."""
+    if is_half(x.dtype):
+        return merge_order_sum(x.float()).to(x.dtype)
     return warp_order_sum(merge_block_sums(x))
 
 
@@ -254,9 +260,12 @@ def merge_carry_ref(lb, ub, best_l, best_u, eps: float, inf: float, outward: flo
     and every accumulator entry set back to the sentinel (in place).  With
     an early stop ``stop`` (one round a check group) the fold also takes
     the round's progress measure in the kernel's order
-    (:func:`merge_progress`).  Returns new ``(lb, ub)`` and the carry's
-    ``GO`` (a 0-d bool view)."""
-    new_lb, new_ub, changed = bnd.apply_updates(lb, ub, best_l, best_u, eps, inf, outward)
+    (:func:`merge_progress`).  Planes of float32 beside 16-bit bounds
+    (:func:`~repro_torch.core.types.plane_dtype`) narrow back exactly
+    before the merge.  Returns new ``(lb, ub)`` and the carry's ``GO`` (a
+    0-d bool view)."""
+    new_lb, new_ub, changed = bnd.apply_updates(lb, ub, best_l.to(lb.dtype),
+                                                best_u.to(ub.dtype), eps, inf, outward)
     best_l.fill_(-inf)
     best_u.fill_(inf)
     go = _carry.go_flag(carry)
@@ -618,6 +627,7 @@ def apply_updates_slab_ref(lb, ub, best_l, best_u, active, slab: int, eps: float
     n_slabs)`` int32: 1 where the window changed."""
     bsz, width = lb.shape
     n_slabs = -(-width // slab)
+    best_l, best_u = best_l.to(lb.dtype), best_u.to(ub.dtype)  # float32 planes narrow exactly
     take = (bnd.improved_lb(best_l, lb, eps) | bnd.improved_ub(best_u, ub, eps))
     take = take & active[:, None]
     new_lb, new_ub, _ = bnd.apply_updates_batch(lb, ub, best_l, best_u, eps, inf, outward,
@@ -948,7 +958,7 @@ def incumbent_update_ref(leaf, obj, inc, inc_x, lb, inf: float = INF):
 def crossed(lb, ub, feas_eps: float):
     """The infeasibility probe over the last axis: some ``lb > ub +
     feas_eps`` (computed in the bounds' dtype), padding columns included."""
-    return (lb > ub + feas_eps).any(dim=-1)
+    return (lb > ub + rounded(feas_eps, lb.dtype)).any(dim=-1)
 
 
 def record_round_ref(lb, ub, carry, plane, feas_eps: float, unroll: int = 1,

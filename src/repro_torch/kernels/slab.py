@@ -241,10 +241,13 @@ def build_slab_partition(
     slab: int,
     dummy_rows: np.ndarray,
     device="cpu",
+    value_dtype=None,
 ) -> SlabPartition:
     """Host-side slab bucketing of a (possibly batched) block-ELL stream at
     chunk granularity (see :class:`SlabPartition` for the layout), as
-    tensors on ``device``.
+    tensors on ``device``, the values and sides of ``value_dtype`` (a torch
+    dtype; default ``val``'s: numpy has no bfloat16, whose values come
+    widened to float32).
 
     ``val``/``col`` are ``(T, R, K)`` tiles with instance-local columns;
     ``chunk_row`` carries the row ids; ``lhs1``/``rhs1`` are the side
@@ -318,15 +321,16 @@ def build_slab_partition(
     dev = torch.device(device)
     t_ = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     i32 = lambda x: t_(np.asarray(x).astype(np.int32))
+    v_ = t_ if value_dtype is None else lambda x: t_(x).to(value_dtype)
     return SlabPartition(
-        val=t_(main["val"]),
+        val=v_(main["val"]),
         col_s=t_(main["col"]),
         chunk_row=t_(main["row"]),
         tile_inst=i32(main["tile_inst"]),
         tile_slab=i32(main["tile_slab"]),
         ii_g=i32(main["ii"]),
-        lhs_g=t_(lhs1[main["row"]]),
-        rhs_g=t_(rhs1[main["row"]]),
+        lhs_g=v_(lhs1[main["row"]]),
+        rhs_g=v_(rhs1[main["row"]]),
         row_done=t_(main["done"]),
         agg_slot=t_(main["slot"]),
         chunk_len=chunk_lengths(t_(main["val"])),
@@ -334,7 +338,7 @@ def build_slab_partition(
         run_len=t_(run_len),
         run_inst=t_(run_inst),
         run_slab=t_(run_slab),
-        a_val=t_(sub["val"]),
+        a_val=v_(sub["val"]),
         a_col_s=t_(sub["col"]),
         a_slot=t_(sub["slot"]),
         a_tile_inst=i32(sub["tile_inst"]),

@@ -146,6 +146,8 @@ def reset_rows(plane: TelemetryPlane, rows) -> TelemetryPlane:
 
 def _host(arr) -> np.ndarray:
     if isinstance(arr, torch.Tensor):
+        if arr.dtype == torch.bfloat16:  # numpy has none: float32 holds it exactly
+            arr = arr.float()
         return arr.detach().cpu().numpy()
     return np.asarray(arr)
 

@@ -240,7 +240,8 @@ def _bits(x):
     """Bit patterns of a float64 or float32 tensor (ints as they are): -0.0
     differs from +0.0."""
     x = x.cpu()
-    ints = {torch.float64: torch.int64, torch.float32: torch.int32}
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16}
     return x.view(ints[x.dtype]) if x.dtype in ints else x
 
 
@@ -2827,3 +2828,234 @@ def test_launch_propagation_rounds_launch_their_kernels(cuda):
     assert nnz["launches"] == {"activities_gather_tiles": 1, "combine_chunk_partials_tiles": 1,
                                "candidates_scatter_tiles": 1, "apply_updates_tiles": 1}
     assert rows["launches"] == {"fused_scatter_round_tiles": 1, "apply_updates_tiles": 1}
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 and float16 on the single-instance engines (csrc/half_round.cu)
+# ---------------------------------------------------------------------------
+
+HALF_DTYPES = [torch.bfloat16, torch.float16]
+
+
+def _match_values(got, want):
+    """Equal as values (-0.0 equals +0.0; NaN where both hold it), 16-bit
+    tensors included; the scatters' float32 planes against 16-bit
+    candidates widened."""
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    g, w = got.cpu(), want.cpu().to(got.dtype)
+    same = g == w
+    if g.is_floating_point():
+        same |= torch.isnan(g) & torch.isnan(w)
+    assert bool(same.all()), int((~same).sum())
+
+
+def _half_tiles(x, dtype, compact):
+    """Tiles of :func:`_tiles` at a 16-bit type (bfloat16 with the compact
+    index streams where ``compact``)."""
+    f = lambda t: t.to(dtype)
+    y = dict(x, val=f(x["val"]), lb=f(x["lb"]), ub=f(x["ub"]), lhs=f(x["lhs"]),
+             rhs=f(x["rhs"]))
+    if compact:
+        y.update(col=x["col"].to(torch.int16), ii=x["ii"].to(torch.int8))
+    return y
+
+
+@pytest.mark.parametrize("compact", [True, False], ids=["compact", "int32"])
+@pytest.mark.parametrize("dtype", HALF_DTYPES, ids=["bf16", "f16"])
+@pytest.mark.parametrize("exact", [True, False], ids=["int", "float"])
+@pytest.mark.parametrize("t,r,k,n", LENGTH_SHAPES)
+def test_half_kernels_match_plain_versions(cuda, gen, t, r, k, n, exact, dtype, compact):
+    """D, A', the combine, E, F and F's stop form, and A, B, C, at bfloat16
+    (int32 or the compact ids) and float16 (int32), against their plain
+    versions: candidates in float32 planes holding the 16-bit values, the
+    rest bitwise as values; each launching its 16-bit form."""
+    from repro_torch.core import carry as tcarry
+
+    if compact and dtype == torch.float16:
+        pytest.skip("float16 preps never hold the compact ids")
+    x = _half_tiles(_tiles(gen, t, r, k, n, exact, cuda), dtype, compact)
+    eps, int_eps, inf, outward = rt.core.propagator.round_scalars(rt.core.DEFAULT_CONFIG, dtype)
+    label = ("bf16" if dtype == torch.bfloat16 else "f16") + ("c" if compact else "")
+    value = label.rstrip("c")
+    tk.reset_launch_counts()
+    d_args = (x["val"], x["col"], x["ii"], x["lhs"], x["rhs"], x["lb"], x["ub"], x["n_pad"],
+              int_eps, inf)
+    best = tref.fused_scatter_round_tiles_ref(*d_args)
+    got = tk.fused_scatter_round_tiles(*d_args)
+    for g, w in zip(got, best):
+        _match_values(g, w)
+    a_args = (x["val"], x["col"], x["lb"], x["ub"], x["n_pad"], inf)
+    aggs = tk.activities_gather_tiles(*a_args)
+    for g, w in zip(aggs, tref.activities_gather_tiles_ref(*a_args)):
+        _match_values(g, w)
+    crow = torch.arange(t * r, dtype=torch.int32, device=cuda).reshape(t, r) // 3
+    row_start = tref.row_starts(crow, int(crow.max()) + 2)
+    done = tk.combine_chunk_partials_tiles(*aggs, crow, row_start)
+    for g, w in zip(done, tref.combine_chunk_partials_ref(*aggs, crow, row_start)):
+        _match_values(g, w)
+    e_args = (x["val"], x["col"], x["ii"], *done, x["lhs"], x["rhs"], x["lb"], x["ub"],
+              x["n_pad"], int_eps, inf)
+    for g, w in zip(tk.candidates_scatter_tiles(*e_args),
+                    tref.candidates_scatter_tiles_ref(*e_args)):
+        _match_values(g, w)
+    planes = tk.accumulator_planes(x["lb"], inf)
+    for p_, b in zip(planes, best):
+        p_.copy_(b)
+    want = rt.core.apply_updates(x["lb"], x["ub"], *best, eps, inf, outward)
+    lb, ub = x["lb"].clone(), x["ub"].clone()
+    got = tk.apply_updates_tiles(lb, ub, *(p_.clone() for p_ in planes), eps, inf, outward)
+    for g, w in zip(got[:2], want[:2]):
+        _match_values(g, w)
+    stop = tcarry.EarlyStop(0.5, 1)
+    st_k, st_p = tcarry.armed_state(cuda), tcarry.armed_state(cuda)
+    got = tk.apply_updates_tiles(x["lb"].clone(), x["ub"].clone(), *(p_.clone() for p_ in planes),
+                                 eps, inf, outward, carry=st_k, stop=stop)
+    want = tref.merge_carry_ref(x["lb"], x["ub"], *(p_.clone() for p_ in planes), eps, inf,
+                                outward, st_p, 0, 1, stop)
+    for g, w in zip(got[:2], want[:2]):
+        _match_values(g, w)
+    _match_bits(st_k, st_p)
+    c = x["col"].long()
+    lb_g, ub_g = x["lb"][c], x["ub"][c]
+    partials = tk.activities_tiles(x["val"], lb_g, ub_g, inf)
+    for g, w in zip(partials, tref.activities_tiles_ref(x["val"], lb_g, ub_g, inf)):
+        _match_values(g, w)
+    b_args = (x["val"], lb_g, ub_g, x["ii"], *partials, x["lhs"], x["rhs"], int_eps, inf)
+    for g, w in zip(tk.candidates_tiles(*b_args), tref.candidates_tiles_ref(*b_args)):
+        _match_values(g, w)
+    c_args = (x["val"], lb_g, ub_g, x["ii"], x["lhs"], x["rhs"], int_eps, inf)
+    for g, w in zip(tk.fused_round_tiles(*c_args), tref.fused_round_tiles_ref(*c_args)):
+        _match_values(g, w)
+    assert tk.form_counts() == {
+        f"fused_scatter_round_tiles[{label}]": 1, f"activities_gather_tiles[{label}]": 1,
+        f"combine_chunk_partials_tiles[{value}]": 1, f"candidates_scatter_tiles[{label}]": 1,
+        f"apply_updates_tiles[{value}]": 1, f"apply_updates_tiles[{value}+stop]": 1,
+        f"activities_tiles[{value}]": 1, f"candidates_tiles[{label}]": 1,
+        f"fused_round_tiles[{label}]": 1}
+
+
+@pytest.mark.parametrize("dtype", HALF_DTYPES, ids=["bf16", "f16"])
+@pytest.mark.parametrize("case", range(len(SLAB_TIER_CASES)))
+def test_half_slab_kernels_match_plain_versions(cuda, case, dtype):
+    """#11, the straddle combine, #12 with #15, #15 alone and #15's stop
+    form (one instance's carry) at 16 bits on a 16-bit prep's partition,
+    against their plain versions, bitwise as values (the carry bitwise),
+    each launching its 16-bit form."""
+    from repro_torch.core import carry as tcarry
+
+    gen_name, kw, tile, slab, _ = SLAB_TIER_CASES[case]
+    p = getattr(td, gen_name)(**kw)
+    prep = rt.prepare_block_ell(p, *tile, dtype=dtype)
+    part = prep.slab_partition(slab)
+    eps, int_eps, inf, outward = rt.core.propagator.round_scalars(rt.core.DEFAULT_CONFIG, dtype)
+    tail = (slab, part.max_run_len, eps, int_eps, inf, outward)
+    one = torch.ones(1, dtype=torch.bool, device=cuda)
+    lbp, ubp = prep.lb0[None].clone(), prep.ub0[None].clone()
+    label = "bf16" if dtype == torch.bfloat16 else "f16"
+    tk.reset_launch_counts()
+    a_args = (part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_inst,
+              part.a_run_slab, one, lbp, ubp, slab, part.a_max_run_len, inf)
+    partials = tk.batched_slab_partials_tiles(*a_args)
+    for g, w in zip(partials, tref.batched_slab_partials_ref(*a_args)):
+        _match_values(g, w)
+    index = (part.a_order, part.a_seg, part.agg_slot)
+    strs = tk.straddle_combine_tiles(*partials, *index)
+    for g, w in zip(strs, tref.straddle_combine_ref(*partials, *index)):
+        _match_values(g, w)
+    r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
+              part.run_start, part.run_len, part.run_inst, part.run_slab, one)
+    acc = tk.accumulator_planes(lbp, inf)
+    got = tk.batched_slab_round_tiles(*r_args, lbp.clone(), ubp.clone(), *tail, acc=acc,
+                                      tiles=(part.tile_inst, part.tile_slab),
+                                      chunk_len=part.chunk_len, max_chunk_len=part.max_chunk_len)
+    want = tref.batched_slab_round_ref(*r_args, lbp, ubp, *tail)
+    for g, w in zip(got, want):
+        _match_values(g, w)
+    torch.cuda.synchronize()
+    assert bool((acc[0] == -inf).all() and (acc[1] == inf).all())
+    best = tref.batched_slab_scatter_ref(
+        part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g, part.rhs_g,
+        part.run_start, part.run_inst, part.run_slab, one, lbp, ubp, slab, int_eps, inf)
+    planes = tuple(b.float() for b in best)
+    got_m = tk.apply_updates_slab_tiles(lbp.clone(), ubp.clone(), *(b.clone() for b in planes),
+                                        one, slab, eps, inf, outward)
+    want_m = tref.apply_updates_slab_ref(lbp, ubp, *best, one, slab, eps, inf, outward)
+    for g, w in zip(got_m[:2], want_m[:2]):
+        _match_values(g, w)
+    stop = tcarry.EarlyStop(0.5, 1)
+    st_k, st_p = tcarry.armed_state(cuda), tcarry.armed_state(cuda)
+    lk, uk = lbp.clone(), ubp.clone()
+    tk.apply_updates_slab_tiles(lk, uk, *(b.clone() for b in planes), tcarry.go_mask(st_k), slab,
+                                eps, inf, outward, carry=st_k, stop=stop)
+    new = tref.apply_updates_slab_ref(lbp, ubp, *best, tcarry.go_mask(st_p), slab, eps, inf,
+                                      outward)
+    tcarry.fold(st_p, new[2].any(), 0, 1, stop, tref.merge_progress(lbp, ubp, new[0], new[1]))
+    for g, w in zip((lk, uk), new[:2]):
+        _match_values(g, w)
+    _match_bits(st_k, st_p)
+    assert tk.form_counts() == {
+        f"batched_slab_partials_tiles[{label}]": 1, f"straddle_combine_tiles[{label}]": 1,
+        f"batched_slab_round_tiles[{label}]": 1, f"apply_updates_slab_tiles[{label}]": 2,
+        f"apply_updates_slab_tiles[{label}+stop]": 1}
+
+
+@pytest.mark.parametrize("dtype", HALF_DTYPES, ids=["bf16", "f16"])
+@pytest.mark.parametrize("n", [37, 70_000])
+def test_half_record_round_matches_plain_version(cuda, gen, dtype, n):
+    """``record_round`` at 16 bits (the carry's measure in its field's low
+    half) against its plain version: plane and carry bitwise."""
+    from repro_torch.core import carry as tcarry
+    from repro_torch.obs import device_plane
+
+    lb = torch.as_tensor(gen.integers(-3, 1, n), dtype=dtype, device=cuda)
+    ub = torch.as_tensor(gen.integers(1, 4, n), dtype=dtype, device=cuda)
+    carry = tcarry.armed_state(cuda)
+    got = device_plane(3, dtype=dtype, device=cuda)
+    want = device_plane(3, dtype=dtype, device=cuda)
+    scratch = torch.zeros(2, dtype=torch.int32, device=cuda)
+    tk.reset_launch_counts()
+    for r in range(1, 6):
+        carry[tcarry.ROUNDS] = r
+        carry[tcarry.FLAT] = r - 3
+        tcarry.progress_view(carry, dtype).fill_(float(gen.random()))
+        if r == 4:
+            ub[n // 2] = lb[n // 2] - 1.0
+        tk.record_round_tiles(lb, ub, carry, got, 1e-6, patience=2, scratch=scratch)
+        tref.record_round_ref(lb, ub, carry, want, 1e-6, 1, 2)
+        _planes_match(got, want)
+    assert int(got.infeas_round) == 4 and int(got.stop_round) == 5
+    label = "bf16" if dtype == torch.bfloat16 else "f16"
+    assert tk.form_counts() == {f"record_round_tiles[{label}]": 5}
+
+
+HALF_ENGINES = [("fused", (8, 128)), ("fused", (8, 8)), ("segment", (8, 16)),
+                ("partitioned", (8, 16))]
+
+
+@pytest.mark.parametrize("dtype", HALF_DTYPES, ids=["bf16", "f16"])
+@pytest.mark.parametrize("gen_name,kw", [
+    ("make_pseudo_boolean", dict(n=3000, m=4000, seed=7)),
+    ("make_mixed", dict(m=600, n=450, seed=21)),
+    ("make_banded", dict(n=3000, m=4000, row_nnz=12, band=300, seed=0)),
+])
+def test_half_engines_on_card_match_cpu(cuda, gen_name, kw, dtype):
+    """``propagate_block_ell`` at 16 bits on every engine (128-column slabs
+    for the partitioned one), both drivers, plain, early-stopped and with
+    telemetry, on the card against the same run on the CPU (the plain
+    versions): rounds, flags and bounds bitwise as values -- the kernels
+    round as their plain versions do on any data."""
+    p = getattr(td, gen_name)(**kw)
+    for scatter, tile in HALF_ENGINES:
+        for run in ({}, dict(stop_progress=0.05, patience=1), dict(telemetry=16)):
+            for driver in ("host_loop", "device_loop"):
+                args = dict(tile_rows=tile[0], tile_width=tile[1], scatter=scatter, slab=128,
+                            driver=driver, dtype=dtype, **run)
+                got = rt.propagate_block_ell(p, **args)
+                want = rt.propagate_block_ell(p, device="cpu", **args)
+                for f in ("rounds", "converged", "infeasible"):
+                    assert getattr(got, f).item() == getattr(want, f).item(), (scatter, run, f)
+                assert got.lb.dtype == dtype
+                _match_values(got.lb, want.lb)
+                _match_values(got.ub, want.ub)
+
