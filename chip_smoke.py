@@ -567,7 +567,8 @@ class EventTimedLib:
                       | set(_build.SIGNATURES["batch_tier_round.cu"])
                       | set(_build.SIGNATURES["slab_tier_round.cu"])
                       | set(_build.SIGNATURES["telemetry.cu"])
-                      | set(_build.SIGNATURES["half_round.cu"]))
+                      | set(_build.SIGNATURES["half_round.cu"])
+                      | set(_build.SIGNATURES["half_batch_round.cu"]))
 
     def __getattr__(self, name):
         entry = getattr(self.lib, name)
@@ -936,7 +937,7 @@ def require_launched(per_run: dict, need: dict) -> None:
                 fail(f"main path {run} never launched {k}: {per_run[run]}")
 
 
-def smoke(torch, dev, half_cpu):
+def smoke(torch, dev, half_cpu, half_batch_cpu):
     import numpy as np
 
     import repro_torch as rt
@@ -1147,6 +1148,9 @@ def smoke(torch, dev, half_cpu):
     half_rows, half_launches = half_phase(
         torch, np, rt, tk, tref, ops, _build, dev, problems, tier_probs, wide,
         {**tier_rows, **engine_tier_rows, **telemetry_rows}, half_cpu)
+    half_batch_rows, half_batch_launches = half_batch_phase(
+        torch, np, rt, td, tk, tref, ops, _build, dev, problems, batch_pops, pbf, tier_probs,
+        wide, {**batch_tier_rows, **engine_tier_rows, **telemetry_rows}, half_batch_cpu)
     sharded_phase(torch, np, rt, dev, problems, results, batch_pops, pbf)
     lm_phase(torch, dev)
     slab_path = ("batched_slab_partials_tiles", "straddle_combine_tiles",
@@ -1270,6 +1274,15 @@ def smoke(torch, dev, half_cpu):
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, instance=inst, wrapper_ms=r["wrapper_ms"], bytes=r["bytes"],
             float32_ms=r["float32_ms"], float64_ms=r["float64_ms"],
+        ))
+    for key, (r, inst) in half_batch_rows.items():
+        kernels.append(dict(
+            name=key, route="cuda", source=HALF_BATCH_SOURCE,
+            replaces=REPLACES[key.split("[")[0]], launches=half_batch_launches[key],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None, instance=inst,
+            wrapper_ms=r["wrapper_ms"], bytes=r["bytes"], float32_ms=r["float32_ms"],
+            float64_ms=r["float64_ms"],
         ))
     log(json.dumps({"kernels": kernels}))
 
@@ -4520,20 +4533,32 @@ torch.save(res, out)
 
 
 class HalfCpuRuns:
-    """The process of phase 21's CPU plain runs, its output and its log."""
+    """The process of phase 21's (or, with ``batched``, phase 22's) CPU
+    plain runs, its output and its log."""
 
-    def __init__(self):
+    def __init__(self, batched: bool = False):
         import tempfile
 
-        self.dir = tempfile.mkdtemp(prefix="chip_smoke_half_cpu_")
+        import numpy as np
+
+        self.phase = 22 if batched else 21
+        self.dir = tempfile.mkdtemp(prefix=f"chip_smoke_phase{self.phase}_cpu_")
         self.out = os.path.join(self.dir, "runs.pt")
         self.err = open(os.path.join(self.dir, "stderr.txt"), "w")
-        specs = [s for s in SPECS + WIDE_SPECS if s[0] in HALF_FIXED]
-        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="4")
-        src = str(Path(__file__).resolve().parent / "src")
+        # Phase 22's child takes 3 threads beside phase 21's 4: the card's
+        # host-bound phases need the rest of the host's 8 cores.
+        threads = "3" if batched else "4"
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS=threads)
+        root = Path(__file__).resolve().parent
+        src = str(root / "src")
+        if batched:
+            argv = [HALF_BATCH_CPU_CODE, self.out, src, str(root),
+                    json.dumps(half_batch_cpu_specs(np, None))]
+        else:
+            specs = [s for s in SPECS + WIDE_SPECS if s[0] in HALF_FIXED]
+            argv = [HALF_CPU_CODE, self.out, src, json.dumps(specs)]
         self.t0 = time.perf_counter()
-        self.proc = subprocess.Popen([sys.executable, "-c", HALF_CPU_CODE, self.out, src,
-                                      json.dumps(specs)],
+        self.proc = subprocess.Popen([sys.executable, "-c", *argv],
                                      env=env, stdout=subprocess.DEVNULL, stderr=self.err,
                                      preexec_fn=lambda: os.nice(19))
 
@@ -4541,12 +4566,13 @@ class HalfCpuRuns:
         try:
             code = self.proc.wait(timeout=timeout)
         except subprocess.TimeoutExpired:
-            fail(f"phase 21: the CPU plain runs did not finish "
+            fail(f"phase {self.phase}: the CPU plain runs did not finish "
                  f"{time.perf_counter() - self.t0:.0f} s after they started")
         if code != 0:
             self.err.flush()
             with open(self.err.name) as f:
-                fail(f"phase 21: the CPU plain runs exited {code}: {f.read()[-3000:]}")
+                fail(f"phase {self.phase}: the CPU plain runs exited {code}: "
+                     f"{f.read()[-3000:]}")
         return torch.load(self.out)
 
     def close(self):
@@ -4736,16 +4762,693 @@ def half_float32_key(key: str) -> str:
 def half_float64_ms(f32_rows: dict, key: str, inst: str):
     """The float64 form's time of this run on ``inst`` where an earlier
     phase measured it there: the float32 entry's ``float64_ms``, or the
-    float64 stop form's and record kernel's own entries."""
+    float64 stop forms' and record kernels' own entries."""
     base, form = key[:-1].split("[")
-    if form.endswith("+stop"):
-        f64 = f32_rows.get(f"{base}[f64+stop]")
+    if "+" in form:  # the stop forms: the float64 stop form's own entry
+        f64 = f32_rows.get(f"{base}[f64{form[form.index('+'):]}]")
         return f64[0]["ms"] if f64 is not None and f64[1] == inst else None
-    if base == "record_round_tiles":
+    if base.startswith("record_round"):
         f64 = f32_rows.get(base)
         return f64[0]["ms"] if f64 is not None and f64[1] == inst else None
     f32 = f32_rows.get(half_float32_key(key))
     return f32[0].get("float64_ms") if f32 is not None and f32[1] == inst else None
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: bfloat16 and float16 on the batched, node, service and sharded
+# entry points
+# ---------------------------------------------------------------------------
+
+HALF_BATCH_SOURCE = "src/repro_torch/csrc/half_batch_round.cu"
+HALF_BATCH_NODES = 4  # pbf nodes of the fixed points held to the CPU plain run
+HALF_BATCH_WIDE_NODES = 17  # pbw nodes: past the merge grid's 16 rows (#15 on the walk)
+HALF_BATCH_SERVICE = 4  # requests of the short service stream: phase 10's first pb ones
+# Each new 16-bit form's kernels-line entry and the shape it is measured on:
+# its float32 form's (phases 14 and 15), so the three times stand side by
+# side.
+HALF_BATCH_PRIMARY = {}
+for _label in ("bf16", "f16"):
+    HALF_BATCH_PRIMARY.update({
+        f"batched_fused_scatter_round_tiles[{_label}]": "fused bucket, 4 of 4 active",
+        f"record_round_batch_tiles[{_label}]": "fused bucket, 4 of 4 active",
+        f"node_fused_scatter_round_tiles[{_label}]": f"pbf pool, 8 of {POOL} active",
+        f"apply_updates_batch_tiles[{_label}]": f"pbf pool, 8 of {POOL} active",
+        f"apply_updates_batch_tiles[{_label}+stop]": f"pbf pool, 8 of {POOL} active",
+        f"node_activities_gather_tiles[{_label}]": f"pbf K=4 pool, 8 of {POOL} active",
+        f"node_combine_chunk_partials_tiles[{_label}]": f"pbf K=4 pool, 8 of {POOL} active",
+        f"node_candidates_scatter_tiles[{_label}]": f"pbf K=4 pool, 8 of {POOL} active",
+        f"node_slab_partials_tiles[{_label}]": f"pbw pool, 8 of {POOL} active",
+        f"node_slab_round_tiles[{_label}]": f"pbw pool, 8 of {POOL} active",
+        f"apply_updates_slab_tiles[{_label}+stop_rows]": "partitioned bucket",
+    })
+HALF_BATCH_PRIMARY.update({
+    "node_fused_scatter_round_tiles[bf16c]": f"pb30 pool, 8 of {POOL} active",
+    "node_activities_gather_tiles[bf16c]": f"pb30 K=4 pool, 8 of {POOL} active",
+    "node_candidates_scatter_tiles[bf16c]": f"pb30 K=4 pool, 8 of {POOL} active",
+})
+
+# The CPU plain runs of phase 22's fixed points (the same calls as on the
+# card, ``use_kernels=False`` on the CPU), in a process of their own started
+# with the script, on a world of one gloo rank for the sharded ones.  The
+# plain 16-bit rounds take the host seconds a round at these sizes (a
+# batched round computes every slot of every instance), so the host runs
+# the longest of them at float16 only, where they end in a few rounds: the
+# bfloat16 fused and multi-chunk buckets (35 and 12 rounds) and nnz
+# partition (12) are held to the card's plain path alone, as every run of
+# the phase is.
+HALF_BATCH_CPU_RUNS = (
+    ("batch fused", "float16"), ("batch multi-chunk", "float16"), ("nodes pbf", "float16"),
+    ("service pb", "float16"), ("propagate_sharded_rows banded", "float16"),
+    ("propagate_sharded mixed", "float16"), ("nodes pbf", "bfloat16"),
+    ("service pb", "bfloat16"), ("propagate_sharded_rows banded", "bfloat16"))
+HALF_BATCH_CPU_CODE = r"""
+import json, sys, time
+import numpy as np
+import torch
+import torch.distributed as dist
+out, src, root, specs = sys.argv[1], sys.argv[2], sys.argv[3], json.loads(sys.argv[4])
+sys.path[:0] = [src, root]
+import repro_torch as rt, repro_torch.data as td
+import chip_smoke as cs
+torch.set_num_threads(3)
+dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+made = {}
+def make(spec):
+    key = json.dumps(spec)
+    if key not in made:
+        made[key] = getattr(td, spec[0])(**spec[1])
+    return made[key]
+def nodes(dt):
+    pbf = make(specs["pbf"])
+    lb, ub = cs.node_pool(np, rt, pbf, cs.HALF_BATCH_NODES, seed=3)
+    n = rt.propagate_nodes(pbf, lb, ub, tile_width=cs.SOLVER_TILE_WIDTH, dtype=dt,
+                           use_kernels=False, device="cpu")
+    return [n.result(i) for i in range(cs.HALF_BATCH_NODES)]
+def service(dt):
+    stream = [make(s) for s in specs["service"]]
+    return rt.PropagationService.from_problems(stream, slots=2, dtype=dt, use_kernels=False,
+                                               device="cpu").serve(stream)
+calls = {
+    "batch fused": lambda dt: rt.propagate_batch([make(s) for s in specs["fused"]], dtype=dt,
+                                                 use_kernels=False, device="cpu"),
+    "batch multi-chunk": lambda dt: rt.propagate_batch([make(s) for s in specs["multi-chunk"]],
+                                                       dtype=dt, use_kernels=False, device="cpu"),
+    "nodes pbf": nodes,
+    "service pb": service,
+    "propagate_sharded_rows banded": lambda dt: [rt.core.propagate_sharded_rows(
+        make(specs["banded"]), dtype=dt, device="cpu")],
+    "propagate_sharded mixed": lambda dt: [rt.core.propagate_sharded(
+        make(specs["mixed"]), dtype=dt, device="cpu")],
+}
+res = {}
+for label, dtn in specs["runs"]:
+    t = time.perf_counter()
+    rs = calls[label](getattr(torch, dtn))
+    res[f"{label} {dtn}"] = dict(
+        flags=[(int(r.rounds), bool(r.converged), bool(r.infeasible)) for r in rs],
+        seconds=time.perf_counter() - t)
+dist.destroy_process_group()
+torch.save(res, out)
+"""
+
+
+def half_batch_cpu_specs(np, td=None) -> dict:
+    """The generator specs of phase 22's CPU plain runs (by name, as the
+    card's instances are built)."""
+    del td
+    spec = {name: (gen, kw) for name, gen, kw in SPECS}
+    return {
+        "fused": [spec["pb"], ("make_pseudo_boolean", PBF), spec["banded"],
+                  ("make_banded", BANDED1)],
+        "multi-chunk": [spec["mixed"], ("make_mixed", MIXED1)],
+        "pbf": ("make_pseudo_boolean", PBF),
+        "service": [("make_pseudo_boolean", dict(n=60_000, m=int(m), seed=100 + i,
+                                                 unit_frac=0.002))
+                    for i, m in enumerate(service_rows(np)[:HALF_BATCH_SERVICE])],
+        "banded": spec["banded"],
+        "mixed": spec["mixed"],
+        "runs": HALF_BATCH_CPU_RUNS,
+    }
+
+
+def half_err(torch, got, want) -> float:
+    """:func:`max_abs_err` of 16-bit outputs: the scatters' float32 planes
+    against the plain version's 16-bit candidates widened (exactly), and a
+    NaN (the progress measure where a float16 bound is infinite) equal
+    where both hold it."""
+    got, want = list(got), list(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.dtype == torch.float32 and w.dtype in (torch.bfloat16, torch.float16):
+            want[i] = w = w.float()
+        if g.is_floating_point() and g.dtype == w.dtype and g.shape == w.shape:
+            both = torch.isnan(g) & torch.isnan(w)
+            got[i], want[i] = g.masked_fill(both, 0), w.masked_fill(both, 0)
+    return max_abs_err(torch, got, want)
+
+
+def half_row(torch, build, got, want, fn_k, fn_p, moved, n_ops, reset=None, launches=1,
+             plain_reps=1):
+    """A 16-bit form against its plain version (:func:`half_err`), timed:
+    the kernel's launches, the wrapper call and the plain version; its bound
+    at float32's rate (the 16-bit forms compute in float32 and round)."""
+    b_ms, b_by = bound(sum(moved.values()), n_ops, F32_FLOPS)
+    return dict(max_abs_err=half_err(torch, got, want),
+                ms=kernel_ms(torch, build, fn_k, reset=reset, launches=launches),
+                wrapper_ms=(call_ms(torch, fn_k, reset) if reset is not None
+                            else time_ms(torch, fn_k, reps=3, trials=3)),
+                plain_ms=time_ms(torch, fn_p, reps=1, trials=plain_reps),
+                bound_ms=b_ms, bound_by=b_by, bytes=moved)
+
+
+def half_merge_bytes(torch, bnd, lb, ub, best_l, best_u, eps, active, inf) -> dict:
+    """:func:`merge_bytes` at 16 bits: 2 B a bound, 4 B a float32
+    candidate (read, and written back at the sentinel where one was
+    held)."""
+    out = merge_bytes(torch, bnd, lb, ub, best_l.to(lb.dtype), best_u.to(ub.dtype), eps, active,
+                      inf)
+    out["best"] *= 2
+    out["handback"] *= 2
+    return out
+
+
+def half_batch_kernels(torch, np, rt, tk, tref, ops, build, dev, pops, pbf, pb30, pbw, pools,
+                       dt, label):
+    """Phase 22's kernel checks at one 16-bit type ``dt``: every new form
+    against its plain version on the card, timed.  Returns {form key:
+    {shape: row}}."""
+    eps, int_eps, inf, outward = round_scalars(ops, dt)
+    rows = {}
+
+    def add(key, shape, r):
+        rows.setdefault(key, {})[shape] = r
+        log(f"kernel {key} on {shape}: max_abs_err={r['max_abs_err']} ms={r['ms']:.4f} "
+            f"wrapper_ms={r['wrapper_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}, {sum(r['bytes'].values())} B: "
+            f"{r['bytes']})")
+
+    # #8 (int32 ids) on the fused bucket, 4 of 4 and 2 of 4 active, then the
+    # batched record kernel on its planes.
+    (batch,) = ops.packed_problems(pops["fused"])
+    prep = ops.prepare_problem_batch(batch, dt, device=dev)
+    d = prep.d
+    if d.col.dtype != torch.int32 or d.val.dtype != dt:
+        fail(f"{label} fused bucket: values {d.val.dtype}, ids {d.col.dtype}")
+    acc = tk.accumulator_planes(d.lb0, inf)
+    clean = lambda: (acc[0].fill_(-inf), acc[1].fill_(inf))
+    kw = dict(acc=acc, chunk_len=d.chunk_len, max_chunk_len=prep.max_chunk_len, chunks=d.chunks)
+    for n_act in (batch.size, 2):
+        act_h = np.zeros(batch.size, bool)
+        act_h[:: max(1, batch.size // n_act)][:n_act] = True
+        act = torch.as_tensor(act_h, device=dev)
+        args = (d.val, d.col, d.ii_g, d.lhs_g, d.rhs_g, d.lb0, d.ub0, d.tile_inst, act,
+                prep.n_pad, int_eps, inf)
+        clean()
+        got = tuple(x.clone() for x in tk.batched_fused_scatter_round_tiles(*args, **kw))
+        plain = lambda act=act: tref.batched_fused_scatter_round_ref(  # noqa: E731
+            d.val, d.col_g, d.ii_g, d.lhs_g, d.rhs_g, d.lb0, d.ub0, prep.n_pad, int_eps, inf,
+            active=act)
+        shape = f"fused bucket, {n_act} of {batch.size} active"
+        if n_act != batch.size:
+            log(f"kernel batched_fused_scatter_round_tiles[{label}] on {shape}: max_abs_err="
+                f"{half_err(torch, got, tuple(x.float() for x in plain()))}")
+            continue
+        chunks = int(d.chunks[-1].item())
+        nnz = int((d.val != 0).sum().item())
+        moved = dict(val=2 * nnz, col_ii=8 * nnz, rows=8 * chunks,
+                     bounds=4 * n_act * prep.n_pad, planes=8 * n_act * prep.n_pad)
+        add(f"batched_fused_scatter_round_tiles[{label}]", shape, half_row(
+            torch, build, got, plain(), lambda: tk.batched_fused_scatter_round_tiles(*args, **kw),
+            plain, moved, 16 * nnz, reset=clean))
+    clean()
+    bsz = batch.size
+    ran = torch.tensor([True, False, True, True], device=dev)
+    prog = torch.tensor([0.5, 0.25, 0.125, 2.0**-9], dtype=dt, device=dev)
+    rounds = torch.full((bsz,), 3, dtype=torch.int32, device=dev)
+    r = record_batch_check(torch, tk, tref, build, d.lb0, d.ub0, prog, rounds, ran, timed=True)
+    r["bound_ms"], r["bound_by"] = bound(sum(r["bytes"].values()), 2 * 3 * d.lb0.shape[1],
+                                         F32_FLOPS)
+    add(f"record_round_batch_tiles[{label}]", "fused bucket, 4 of 4 active", r)
+
+    # #10 on the pbf pool (int32 ids) and, at bfloat16, the pb30 pool (the
+    # compact ids), 8 and 128 active; #9 and its stop form on pbf's.
+    sets = [("pbf", pbf)] + ([("pb30", pb30)] if dt == torch.bfloat16 else [])
+    best8 = None
+    for name, p in sets:
+        pr = rt.prepare_block_ell(p, tile_width=SOLVER_TILE_WIDTH, dtype=dt, device=dev)
+        form = half_form(pr)
+        lbp, ubp = ops._node_planes(pr, *pools[name])
+        nacc = tk.accumulator_planes(lbp, inf)
+        sentinels = lambda nacc=nacc: (nacc[0].fill_(-inf), nacc[1].fill_(inf))
+        nnz = int((pr.d.val != 0).sum().item())
+        for n_act in (8, POOL):
+            act = pool_mask(torch, n_act, dev)
+            args = (pr.d.val, pr.d.col, pr.ii_g, pr.lhs_g, pr.rhs_g, lbp, ubp, act, pr.n_pad,
+                    int_eps, inf)
+            nkw = dict(acc=nacc, chunk_len=pr.chunk_len, max_chunk_len=pr.max_chunk_len)
+            sentinels()
+            got = tuple(x.clone() for x in tk.node_fused_scatter_round_tiles(*args, **nkw))
+            plain = lambda act=act: tref.node_fused_scatter_round_ref(  # noqa: E731
+                *args[:7], pr.n_pad, int_eps, inf, active=act)
+            want = plain()
+            shape = f"{name} pool, {n_act} of {POOL} active"
+            if n_act != 8:
+                log(f"kernel node_fused_scatter_round_tiles[{form}] on {shape}: max_abs_err="
+                    f"{half_err(torch, got, tuple(x.float() for x in want))}")
+                continue
+            if name == "pbf":
+                best8 = (tuple(x.float() for x in want), act, lbp, ubp)
+            moved = dict(stream_bytes(pr, nnz), bounds=4 * n_act * pr.n_pad,
+                         out=8 * n_act * pr.n_pad)
+            add(f"node_fused_scatter_round_tiles[{form}]", shape, half_row(
+                torch, build, got, want, lambda: tk.node_fused_scatter_round_tiles(*args, **nkw),
+                plain, moved, 16 * nnz * n_act, reset=sentinels))
+        sentinels()
+    want, act, lbp, ubp = best8
+    shape = f"pbf pool, 8 of {POOL} active"
+    lbw, ubw, blw, buw = lbp.clone(), ubp.clone(), want[0].clone(), want[1].clone()
+    reset = fresh_inputs(torch, [(lbw, lbp), (ubw, ubp), (blw, want[0]), (buw, want[1])])
+    m_plain = lambda: ops.bnd.apply_updates_batch(  # noqa: E731
+        lbp, ubp, want[0].to(dt), want[1].to(dt), eps, inf, outward, active=act)
+    got_m = tk.apply_updates_batch_tiles(lbp.clone(), ubp.clone(), want[0].clone(),
+                                         want[1].clone(), act, eps, inf, outward)
+    moved = dict(half_merge_bytes(torch, ops.bnd, lbp, ubp, *want, eps, act, inf),
+                 flags=2 * POOL)
+    add(f"apply_updates_batch_tiles[{label}]", shape, half_row(
+        torch, build, got_m, m_plain(),
+        lambda: tk.apply_updates_batch_tiles(lbw, ubw, blw, buw, act, eps, inf, outward),
+        m_plain, moved, 6 * 8 * lbp.shape[1], reset=reset, plain_reps=3))
+    # #9's stop form through two rounds of a stop (the candidates, then
+    # none: a measure of 0), with 8 and 128 active.
+    blocks = -(-lbp.shape[1] // tref.MERGE_BLOCK)
+    for n_act in (8, POOL):
+        act_s = pool_mask(torch, n_act, dev)
+        pr = rt.prepare_block_ell(pbf, tile_width=SOLVER_TILE_WIDTH, dtype=dt, device=dev)
+        cand = tuple(x.float() for x in tref.node_fused_scatter_round_ref(
+            pr.d.val, pr.d.col, pr.ii_g, pr.lhs_g, pr.rhs_g, lbp, ubp, pr.n_pad, int_eps, inf,
+            active=act_s))
+        none = (torch.full_like(cand[0], -inf), torch.full_like(cand[1], inf))
+        prog_k = torch.zeros(POOL, dtype=dt, device=dev)
+        prog_p = prog_k.clone()
+        part_k = torch.zeros((POOL, blocks), dtype=torch.float32, device=dev)
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        lk, uk, lp, up = lbp.clone(), ubp.clone(), lbp, ubp
+        err = 0.0
+        for c in (cand, none):
+            got = tk.apply_updates_batch_tiles(lk, uk, c[0].clone(), c[1].clone(), act_s, eps,
+                                               inf, outward, progress=prog_k, partials=part_k,
+                                               ticket=ticket)
+            new = ops.bnd.apply_updates_batch(lp, up, c[0].to(dt), c[1].to(dt), eps, inf,
+                                              outward, active=act_s)
+            blocks_p, rows_p = tref.merge_rows_progress(lp, up, new[0], new[1])
+            prog_p = torch.where(act_s, rows_p, prog_p)
+            err = max(err, half_err(torch, (*got, prog_k, part_k[act_s]),
+                                       (*new, prog_p, blocks_p[act_s])))
+            if int(ticket.item()) != 0:
+                fail(f"apply_updates_batch_tiles[{label}+stop]: the ticket is not back at 0")
+            lk, uk, lp, up = got[0], got[1], new[0], new[1]
+        if bool((part_k[~act_s] != 0).any()) or bool((prog_k[~act_s] != 0).any()):
+            fail(f"apply_updates_batch_tiles[{label}+stop]: an inactive row was written")
+        shape_s = f"pbf pool, {n_act} of {POOL} active"
+        log(f"kernel apply_updates_batch_tiles[{label}+stop] on {shape_s}: two rounds of a stop "
+            f"bitwise the plain version (bounds, flags, float32 partials, measure "
+            f"{prog_k[act_s][:2].tolist()}); max_abs_err={err}")
+        if n_act != 8:
+            continue
+        lbw, ubw, blw, buw = lbp.clone(), ubp.clone(), cand[0].clone(), cand[1].clone()
+        reset = fresh_inputs(torch, [(lbw, lbp), (ubw, ubp), (blw, cand[0]), (buw, cand[1])])
+        moved = dict(half_merge_bytes(torch, ops.bnd, lbp, ubp, *cand, eps, act_s, inf),
+                     flags=2 * POOL, partials=8 * n_act * blocks, measure=2 * n_act)
+        plain = lambda: tref.merge_rows_progress(  # noqa: E731
+            lbp, ubp, *ops.bnd.apply_updates_batch(lbp, ubp, cand[0].to(dt), cand[1].to(dt),
+                                                   eps, inf, outward, active=act_s)[:2])
+        r = half_row(torch, build, (prog_k,), (prog_p,),
+                     lambda: tk.apply_updates_batch_tiles(lbw, ubw, blw, buw, act_s, eps, inf,
+                                                          outward, progress=prog_k,
+                                                          partials=part_k, ticket=ticket),
+                     plain, moved, 16 * n_act * lbp.shape[1], reset=reset)
+        r["max_abs_err"] = err
+        add(f"apply_updates_batch_tiles[{label}+stop]", shape_s, r)
+
+    # The node-batched A', combine and E at tile width 4 on pbf (int32 ids)
+    # and, at bfloat16, pb30 (compact), 8 and 128 active.
+    for name, p in sets:
+        pr = rt.prepare_block_ell(p, tile_width=MULTI_CHUNK_TILE_WIDTH, dtype=dt, device=dev)
+        form = half_form(pr)
+        t, r_, _ = pr.d.val.shape
+        chunks, nnz = t * r_, int((pr.d.val != 0).sum().item())
+        lbp, ubp = ops._node_planes(pr, *pools[name])
+        for n_act in (8, POOL):
+            act = pool_mask(torch, n_act, dev)
+            shape = f"{name} K={MULTI_CHUNK_TILE_WIDTH} pool, {n_act} of {POOL} active"
+            on = lambda xs, act=act: tuple(x[act] for x in xs)
+            a_args = (pr.d.val, pr.d.col, lbp, ubp, act, pr.n_pad, inf)
+            parts = tref.node_activities_gather_ref(*a_args)
+            got_p = tk.node_activities_gather_tiles(*a_args, chunk_len=pr.chunk_len)
+            c_args = (*parts, pr.d.chunk_row, pr.row_start, act)
+            aggs = tref.node_combine_chunk_partials_ref(*c_args)
+            got_a = tk.node_combine_chunk_partials_tiles(*c_args, classes=pr.seg_classes)
+            e_args = (pr.d.val, pr.d.col, pr.ii_g, *aggs, pr.lhs_g, pr.rhs_g, lbp, ubp, act,
+                      pr.n_pad, int_eps, inf)
+            got_e = tk.node_candidates_scatter_tiles(*e_args, chunk_len=pr.chunk_len)
+            want_e = tref.node_candidates_scatter_ref(*e_args)
+            if n_act != 8:
+                err = max(half_err(torch, on(got_p), on(parts)),
+                          half_err(torch, on(got_a), on(aggs)),
+                          half_err(torch, got_e, want_e))
+                log(f"kernels node_activities_gather_tiles[{form}], node_combine_chunk_partials"
+                    f"_tiles[{label}], node_candidates_scatter_tiles[{form}] on {shape}: "
+                    f"max_abs_err={err}")
+                continue
+            ids = stream_bytes(pr, nnz)
+            add(f"node_activities_gather_tiles[{form}]", shape, half_row(
+                torch, build, on(got_p), on(parts),
+                lambda: tk.node_activities_gather_tiles(*a_args, chunk_len=pr.chunk_len),
+                lambda: tref.node_activities_gather_ref(*a_args),
+                dict(val=ids["val"], col=pr.d.col.element_size() * nnz, chunk_len=4 * chunks,
+                     bounds=4 * n_act * pr.n_pad, out=12 * n_act * chunks),
+                4 * nnz * n_act))
+            if form == label:
+                add(f"node_combine_chunk_partials_tiles[{label}]", shape, half_row(
+                    torch, build, on(got_a), on(aggs),
+                    lambda: tk.node_combine_chunk_partials_tiles(*c_args,
+                                                                 classes=pr.seg_classes),
+                    lambda: tref.node_combine_chunk_partials_ref(*c_args),
+                    dict(partials=12 * n_act * chunks, row_start=8 * (pr.m + 2),
+                         classes=4 * (pr.m + 1), out=12 * n_act * chunks, mask=POOL), 0))
+            else:
+                half_err(torch, on(got_a), on(aggs))
+            add(f"node_candidates_scatter_tiles[{form}]", shape, half_row(
+                torch, build, got_e, want_e,
+                lambda: tk.node_candidates_scatter_tiles(*e_args, chunk_len=pr.chunk_len),
+                lambda: tref.node_candidates_scatter_ref(*e_args),
+                dict(ids, aggregates=12 * n_act * chunks, bounds=4 * n_act * pr.n_pad,
+                     out=8 * n_act * pr.n_pad),
+                12 * nnz * n_act))
+
+    # #13, the straddle combine over the active planes, #14 (with #15's
+    # window merge, on the grid at 8 rows and the walk at 128) on the pbw
+    # pool at tile width 8; #15's row-stop form there and on the
+    # partitioned bucket.
+    pr = rt.prepare_block_ell(pbw, tile_width=SOLVER_TILE_WIDTH, dtype=dt, device=dev)
+    part = pr.slab_partition()
+    lbp, ubp = ops._node_planes(pr, *pools["pbw"])
+    width = pr.n_pad
+    ta, r_, k = part.a_val.shape
+    a_nnz = int((part.a_val != 0).sum().item())
+    t, _, _ = part.val.shape
+    nnz = int((part.val != 0).sum().item())
+    straddle_chunks = int((part.row_done == 0).sum().item())
+    kw = dict(acc=tk.accumulator_planes(lbp, inf), tile_slab=part.tile_slab,
+              chunk_len=part.chunk_len, max_chunk_len=part.max_chunk_len)
+    a_kw = dict(tile_slab=part.a_tile_slab, chunk_len=part.a_chunk_len,
+                max_chunk_len=part.a_max_chunk_len)
+    for n_act in (8, POOL):
+        act = pool_mask(torch, n_act, dev)
+        shape = f"pbw pool, {n_act} of {POOL} active"
+        on = lambda xs, act=act: tuple(x[act] for x in xs)
+        a_args = (part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_slab,
+                  act, lbp, ubp, part.slab, part.a_max_run_len, inf)
+        partials = tref.node_slab_partials_ref(*a_args)
+        got_p = tk.node_slab_partials_tiles(*a_args, **a_kw)
+        index = (part.a_order, part.a_seg, part.agg_slot)
+        strs_k = tk.straddle_combine_tiles(*partials, *index, act)
+        strs = tref.straddle_combine_ref(*partials, *index, act)
+        err = max(half_err(torch, on(got_p), on(partials)),
+                  half_err(torch, on(strs_k), on(strs)))
+        r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g,
+                  part.rhs_g, part.run_start, part.run_len, part.run_slab, act)
+        tail = (part.slab, part.max_run_len, eps, int_eps, inf, outward)
+        want = tref.node_slab_round_ref(*r_args, lbp, ubp, *tail)
+        got = tk.node_slab_round_tiles(*r_args, lbp.clone(), ubp.clone(), *tail, **kw)
+        planes_clean(torch, kw["acc"], inf, f"#14 [{label}] on {shape}: planes not handed back")
+        err = max(err, half_err(torch, got, want))
+        log(f"kernels node_slab_partials_tiles[{label}], straddle_combine_tiles[{label}] (the "
+            f"active planes), node_slab_round_tiles[{label}] with #15's "
+            f"{'walk' if n_act > 16 else 'grid'} on {shape}: bitwise their plain versions "
+            f"(max_abs_err {err})")
+        if n_act != 8:
+            continue
+        sub = dict(val=2 * a_nnz, col=4 * a_nnz, chunk_len=4 * ta * r_, tiles=4 * ta)
+        add(f"node_slab_partials_tiles[{label}]", shape, half_row(
+            torch, build, on(got_p), on(partials),
+            lambda: tk.node_slab_partials_tiles(*a_args, **a_kw),
+            lambda: tref.node_slab_partials_ref(*a_args),
+            dict(sub, bounds=4 * n_act * width, out=12 * n_act * ta * r_), 4 * a_nnz * n_act))
+        lbw, ubw = lbp.clone(), ubp.clone()
+        stream = dict(val=2 * nnz, col_ii=8 * nnz, rows=8 * t * r_, tiles=4 * t)
+        common = dict(aggregates=12 * n_act * straddle_chunks, bounds=4 * n_act * width,
+                      stores=2 * stores(torch, want[:2], (lbp, ubp)),
+                      accumulators=16 * n_act * width, flags=4 * POOL * part.n_slabs + POOL)
+        add(f"node_slab_round_tiles[{label}]", shape, half_row(
+            torch, build, got, want, lambda: tk.node_slab_round_tiles(*r_args, lbw, ubw, *tail,
+                                                                      **kw),
+            lambda: tref.node_slab_round_ref(*r_args, lbp, ubp, *tail), dict(stream, **common),
+            16 * nnz * n_act, reset=fresh_inputs(torch, [(lbw, lbp), (ubw, ubp)]), launches=2))
+    # #15's row-stop form on the partitioned bucket's two planes (the grid).
+    (pbatch,) = ops.packed_problems(pops["partitioned"])
+    bprep = ops.prepare_problem_batch(pbatch, dt, device=dev)
+    bpart = bprep.slab_partition()
+    lbp, ubp = bprep.d.lb0.clone(), bprep.d.ub0.clone()
+    bl, bu = tref.partitioned_round_ref(bpart, lbp, ubp, int_eps, inf)
+    best = (bl[:, : bprep.n_pad].float().contiguous(), bu[:, : bprep.n_pad].float().contiguous())
+    on2 = torch.ones(pbatch.size, dtype=torch.bool, device=dev)
+    bsz, width = lbp.shape
+    blocks = -(-width // tref.MERGE_BLOCK)
+    prog_k = torch.full((bsz,), 9.0, dtype=dt, device=dev)
+    prog_p = prog_k.clone()
+    part_k = torch.full((bsz, blocks), 7.0, dtype=torch.float32, device=dev)
+    ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+    none = (torch.full_like(best[0], -inf), torch.full_like(best[1], inf))
+    lk, uk, lp, up = lbp.clone(), ubp.clone(), lbp, ubp
+    err = 0.0
+    for cand in (best, none):
+        flags = tk.apply_updates_slab_tiles(lk, uk, cand[0].clone(), cand[1].clone(), on2,
+                                            bpart.slab, eps, inf, outward, progress=prog_k,
+                                            partials=part_k, ticket=ticket)[2]
+        new = tref.apply_updates_slab_ref(lp, up, *cand, on2, bpart.slab, eps, inf, outward)
+        blocks_p, rows_p = tref.merge_rows_progress(lp, up, new[0], new[1])
+        prog_p = torch.where(on2, rows_p, prog_p)
+        err = max(err, half_err(torch, (lk, uk, flags, prog_k, part_k),
+                                   (new[0], new[1], new[2].any(dim=1), prog_p, blocks_p)))
+        if int(ticket.item()) != 0:
+            fail(f"#15's row measure [{label}] left its ticket at {int(ticket.item())}")
+        lp, up = new[0], new[1]
+    log(f"kernel apply_updates_slab_tiles[{label}+stop_rows] on the partitioned bucket: two "
+        f"rounds bitwise the plain version (bounds, flags, float32 partials, measure "
+        f"{prog_k.tolist()}); max_abs_err={err}")
+    lbw, ubw, blw, buw = lbp.clone(), ubp.clone(), best[0].clone(), best[1].clone()
+    reset = fresh_inputs(torch, [(lbw, lbp), (ubw, ubp), (blw, best[0]), (buw, best[1])])
+    moved = dict(half_merge_bytes(torch, ops.bnd, lbp, ubp, *best, eps, on2, inf),
+                 flags=4 * bsz * bpart.n_slabs + bsz, partials=8 * bsz * blocks,
+                 measure=2 * bsz)
+    plain = lambda: tref.merge_rows_progress(  # noqa: E731
+        lbp, ubp, *tref.apply_updates_slab_ref(lbp, ubp, *best, on2, bpart.slab, eps, inf,
+                                               outward)[:2])
+    r = half_row(torch, build, (prog_k,), (prog_p,),
+                 lambda: tk.apply_updates_slab_tiles(lbw, ubw, blw, buw, on2, bpart.slab, eps,
+                                                     inf, outward, progress=prog_k,
+                                                     partials=part_k, ticket=ticket),
+                 plain, moved, 16 * bsz * width, reset=reset)
+    r["max_abs_err"] = err
+    add(f"apply_updates_slab_tiles[{label}+stop_rows]", "partitioned bucket", r)
+    return rows
+
+
+def half_sharded_rank(rank, world_size, instances, dtypes):
+    """One rank of phase 22's sharded runs (a world of one NCCL rank): the
+    row partition on banded and the nnz partition on mixed at each 16-bit
+    type, with the launch counters at zero; each result, its launches and
+    its wall (the median of :data:`SHARDED_REPS` after a barrier)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import core
+    from repro_torch.kernels import prop_round as tk
+
+    del rank, world_size
+    out = {}
+    for dtn in dtypes:
+        dt = getattr(torch, dtn)
+        for entry, name in (("propagate_sharded_rows", "banded"), ("propagate_sharded", "mixed")):
+            fn = lambda: getattr(core, entry)(instances[name], dtype=dt)  # noqa: E731
+            dist.barrier()
+            tk.reset_launch_counts()
+            res = fn()
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in tk.form_counts().items() if v}
+            times = []
+            for _ in range(SHARDED_REPS):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+            out[f"{entry} {name} {dtn}"] = dict(result=res, launches=launched,
+                                                ms=statistics.median(times))
+    return out
+
+
+def half_batch_phase(torch, np, rt, td, tk, tref, ops, build, dev, problems, pops, pbf, probs13,
+                     wide, f32_rows, cpu):
+    """Phase 22: bfloat16 and float16 on the batched, node, service and
+    sharded entry points.  Every new 16-bit form (#8, #9 and its stop form,
+    #10, the node-batched A', combine and E, #13, #14's scatter, #15's row
+    stop form and the batched record kernel; bfloat16's compact node forms)
+    against its plain version on the card, bitwise, timed beside the float32
+    and float64 forms' times of this run; then, with the launch counters at
+    zero, the fixed points at both types: ``propagate_batch`` on the fused,
+    multi-chunk and partitioned buckets (the fused one also with telemetry,
+    the partitioned one with the early stop), ``propagate_nodes`` on pbf
+    (K = 8 and 4), pb30 and 17 pbw nodes, a short service stream and
+    the sharded row and nnz partitions on one NCCL rank, each against the
+    plain path on the card (bitwise) and those of
+    :data:`HALF_BATCH_CPU_RUNS` against the CPU plain run of the same call
+    (rounds and verdicts exactly), with walls beside float32's.  Returns
+    ({form key: (row, instance)}, {form key: launches})."""
+    from repro_torch.core import run_world
+
+    t_phase = time.perf_counter()
+    pb30, pbw = probs13["pb30"], wide["pbw"]
+    rows = {}
+    pools = {name: node_pool(np, rt, p, POOL, seed=3)
+             for name, p in (("pbf", pbf), ("pb30", pb30), ("pbw", pbw))}
+    for label, dtn in HALF_TYPES:
+        dt = getattr(torch, dtn)
+        for key, by_shape in half_batch_kernels(torch, np, rt, tk, tref, ops, build, dev, pops,
+                                                pbf, pb30, pbw, pools, dt, label).items():
+            for shape, r in by_shape.items():
+                rows.setdefault(key, {})[shape] = r
+    log(f"phase 22 kernels: {time.perf_counter() - t_phase:.1f} s")
+
+    # The fixed points, with the launches counted.
+    stream = [getattr(td, gen)(**kw) for gen, kw in half_batch_cpu_specs(np)["service"]]
+    nodes = node_pool(np, rt, pbf, HALF_BATCH_NODES, seed=3)
+    nodes30 = node_pool(np, rt, pb30, 8, seed=3)
+    nodesw = node_pool(np, rt, pbw, HALF_BATCH_WIDE_NODES, seed=3)
+    calls = {
+        "batch fused": lambda dt, **kw: rt.propagate_batch(pops["fused"], dtype=dt, **kw),
+        "batch multi-chunk": lambda dt, **kw: rt.propagate_batch(pops["multi-chunk"], dtype=dt,
+                                                                 **kw),
+        "batch partitioned": lambda dt, **kw: rt.propagate_batch(pops["partitioned"], dtype=dt,
+                                                                 **kw),
+        "nodes pbf": lambda dt, **kw: rt.propagate_nodes(
+            pbf, *nodes, tile_width=SOLVER_TILE_WIDTH, dtype=dt, **kw),
+        "nodes pbf K=4": lambda dt, **kw: rt.propagate_nodes(
+            pbf, *nodes, tile_width=MULTI_CHUNK_TILE_WIDTH, dtype=dt, **kw),
+        "nodes pb30": lambda dt, **kw: rt.propagate_nodes(
+            pb30, *nodes30, tile_width=SOLVER_TILE_WIDTH, dtype=dt, **kw),
+        "nodes pb30 K=4": lambda dt, **kw: rt.propagate_nodes(
+            pb30, *nodes30, tile_width=MULTI_CHUNK_TILE_WIDTH, dtype=dt, **kw),
+        "nodes pbw": lambda dt, **kw: rt.propagate_nodes(
+            pbw, *nodesw, tile_width=SOLVER_TILE_WIDTH, dtype=dt, **kw),
+        "service pb": lambda dt, **kw: rt.PropagationService.from_problems(
+            stream, slots=2, dtype=dt, **kw).serve(stream),
+    }
+    listed = lambda res: ([res.result(i) for i in range(res.lb.shape[0])]
+                          if hasattr(res, "result") else list(res))
+    flags_of = lambda rs: [(int(r.rounds), bool(r.converged), bool(r.infeasible)) for r in rs]
+    tk.reset_launch_counts()
+    fixed = {}
+    for label, dtn in HALF_TYPES:
+        dt = getattr(torch, dtn)
+        for name, call in calls.items():
+            got = listed(call(dt, device=dev))
+            plain = listed(call(dt, device=dev, use_kernels=False))
+            for i, (a, b) in enumerate(zip(got, plain)):
+                check_same(rt, f"{name} {label} [{i}]", a, b, True, "the plain path")
+            fixed[name, label] = got
+            log(f"{dtn} {name}: (rounds, converged, infeasible) {flags_of(got)}; bitwise the "
+                "plain path")
+        # Telemetry on the fused bucket (T2, and #9 measuring every round),
+        # the early stop on the partitioned one (#15's row-stop form).
+        for name, kw in (("batch fused", dict(telemetry=TELEMETRY_CAP)),
+                         ("batch partitioned", dict(stop_progress=HALF_STOP))):
+            got = listed(calls[name](dt, device=dev, **kw))
+            plain = listed(calls[name](dt, device=dev, use_kernels=False, **kw))
+            for i, (a, b) in enumerate(zip(got, plain)):
+                check_same(rt, f"{name} {label} {kw} [{i}]", a, b, True, "the plain path")
+            log(f"{dtn} {name} {kw}: rounds {[int(r.rounds) for r in got]}; bitwise the plain "
+                "path")
+    launches = tk.form_counts()
+    log(f"phase 22 launches by form: {json.dumps(launches)}")
+    missing = [k for k in HALF_BATCH_PRIMARY if launches.get(k, 0) <= 0]
+    if missing:
+        fail(f"the 16-bit batched runs never launched {missing}")
+    need = {"straddle_combine_tiles[bf16]", "straddle_combine_tiles[f16]",
+            "apply_updates_slab_tiles[bf16]", "apply_updates_slab_tiles[f16]"}
+    if any(launches.get(k, 0) <= 0 for k in need):
+        fail(f"the 16-bit node and batch partitions never launched {sorted(need)}")
+
+    # The sharded partitions on a world of one NCCL rank.
+    instances = {"banded": problems["banded"], "mixed": problems["mixed"]}
+    t = time.perf_counter()
+    (rank0,) = run_world(half_sharded_rank, 1, backend="nccl", device="cuda",
+                         args=(instances, [dtn for _, dtn in HALF_TYPES]), timeout=600)
+    log(f"phase 22 sharded world 1 (nccl): {time.perf_counter() - t:.1f} s")
+    sharded_need = {"propagate_sharded_rows": ("fused_scatter_round_tiles", "apply_updates_tiles"),
+                    "propagate_sharded": ("activities_gather_tiles", "combine_chunk_partials_tiles",
+                                          "candidates_scatter_tiles", "apply_updates_tiles")}
+    for label, dtn in HALF_TYPES:
+        for entry, name in (("propagate_sharded_rows", "banded"), ("propagate_sharded", "mixed")):
+            run = rank0[f"{entry} {name} {dtn}"]
+            res = run["result"]
+            lb = res.lb if isinstance(res.lb, torch.Tensor) else torch.from_numpy(res.lb)
+            if lb.dtype != getattr(torch, dtn):
+                fail(f"{entry} {name} {label}: bounds of {lb.dtype}")
+            fixed[f"{entry} {name}", label] = [res]
+            missing = [k for k in sharded_need[entry] if run["launches"].get(f"{k}[{label}]", 0)
+                       <= 0]
+            if missing:
+                fail(f"{entry} {name} {label}: never launched {missing}: {run['launches']}")
+            log(f"{dtn} {entry} {name} (one NCCL rank): rounds={int(res.rounds)} "
+                f"converged={bool(res.converged)} infeasible={bool(res.infeasible)} wall_ms "
+                f"{run['ms']:.3f}; launches {run['launches']}")
+
+    # Against the CPU plain runs of the same calls.
+    t = time.perf_counter()
+    cpu_res = cpu.result(torch, timeout=600)
+    log(f"phase 22: waited {time.perf_counter() - t:.1f} s for the CPU plain runs")
+    labels = {dtn: label for label, dtn in HALF_TYPES}
+    for key, dtn in HALF_BATCH_CPU_RUNS:
+        label = labels[dtn]
+        c = cpu_res[f"{key} {dtn}"]
+        got = flags_of(fixed[key, label])
+        if got != [tuple(x) for x in c["flags"]]:
+            fail(f"{key} {label}: (rounds, converged, infeasible) {got} on the card, "
+                 f"{c['flags']} on the CPU")
+        log(f"{key} {label} against the CPU plain run ({c['seconds']:.1f} s there): rounds, "
+            f"converged and infeasible equal {got}")
+
+    # Walls: float32 and the 16-bit types, one each per trial, rotating.
+    variants = [("float32", torch.float32), ("bfloat16", torch.bfloat16),
+                ("float16", torch.float16)]
+    walled = ("batch fused", "batch multi-chunk", "nodes pbf", "service pb")
+    runs_w = [(n, v) for n in walled for v in variants]
+    for n, (_, dt) in runs_w:  # prepared and warm before the timed trials
+        calls[n](dt, device=dev)
+    samples = {}
+    for trial in range(HALF_TRIALS):
+        order = runs_w[trial % len(runs_w):] + runs_w[: trial % len(runs_w)]
+        for n, (vname, dt) in order:
+            samples.setdefault((n, vname), []).append(
+                wall_ms(torch, lambda: calls[n](dt, device=dev)))
+    for n in walled:
+        cells = ", ".join(f"{v} {statistics.median(samples[n, v]):.3f}" for v, _ in variants)
+        log(f"half walls {n} (ms, medians of {HALF_TRIALS}): {cells}")
+    out = {}
+    for key, shape in HALF_BATCH_PRIMARY.items():
+        r = dict(rows[key][shape])
+        r["max_abs_err"] = max(v["max_abs_err"] for v in rows[key].values())
+        f32 = f32_rows.get(half_float32_key(key))
+        r["float32_ms"] = f32[0]["ms"] if f32 is not None and f32[1] == shape else None
+        r["float64_ms"] = half_float64_ms(f32_rows, key, shape)
+        cell = lambda x: "not measured" if x is None else f"{x:.4f}"
+        log(f"kernel {key} on {shape}: ms={r['ms']:.4f} (float32 form {cell(r['float32_ms'])}, "
+            f"float64 form {cell(r['float64_ms'])})")
+        out[key] = (r, shape)
+    log(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+    return out, {key: launches.get(key, 0) for key in HALF_BATCH_PRIMARY}
 
 
 # ---------------------------------------------------------------------------
@@ -5840,13 +6543,15 @@ def main() -> int:
     t0 = time.perf_counter()
     dry = DryRun()
     half_cpu = HalfCpuRuns()
+    half_batch_cpu = HalfCpuRuns(batched=True)
     try:
-        smoke(torch, torch.device("cuda"), half_cpu)
+        smoke(torch, torch.device("cuda"), half_cpu, half_batch_cpu)
         release_propagation_memory(torch)
         lm_train_phase(torch, torch.device("cuda"))
         launch_phase(torch, torch.device("cuda"), dry=dry)
     finally:
         half_cpu.close()
+        half_batch_cpu.close()
         dry.close()
     log(f"total: {time.perf_counter() - t0:.1f} s")
     log(f"gpu: {smi}")

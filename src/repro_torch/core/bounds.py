@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .types import INF, int_round_slack
+from .types import INF, int_round_slack, is_half
 
 
 def bound_candidates(a, lhs_row, rhs_row, min_res, max_res, inf: float = INF):
@@ -152,4 +152,7 @@ def progress_measure(lb_old, ub_old, lb_new, ub_new):
     du = ub_old - ub_new
     sl = 1.0 + torch.maximum(lb_old.abs(), lb_new.abs())
     su = 1.0 + torch.maximum(ub_old.abs(), ub_new.abs())
-    return (dl / sl + du / su).sum(dim=-1)
+    terms = dl / sl + du / su
+    if is_half(terms.dtype):  # summed in float32 and rounded once, as XLA reduces it
+        return terms.float().sum(dim=-1).to(terms.dtype)
+    return terms.sum(dim=-1)

@@ -173,7 +173,9 @@ def propagate_nodes(
     ``use_kernels=False`` runs the kernels' plain PyTorch versions.
     ``device`` defaults to CUDA and raises where there is none.  ``on_sync``
     is called once per host read of the loop's exit flag (one per round).
-    ``dtype`` is float64 (the default) or float32.  ``stop_progress``/
+    ``dtype`` is float64 (the default), float32, bfloat16 or float16 (a
+    bfloat16 prep's compact ids where ``n_pad <= 2**15``; the node planes
+    converted once per value).  ``stop_progress``/
     ``patience`` arm the per-node early stop; ``policy`` (a
     :class:`TierPolicy`) runs the frontier through the two tiers, as the
     reference's (src/repro/core/nodes.py:203-241): a float32 pass of at
@@ -183,7 +185,9 @@ def propagate_nodes(
     verdict restarts from its original bounds, its ``tier_rounds`` 0), and
     the endgame of at most ``max(1, max_rounds - cap)`` rounds in
     ``dtype``; ``rounds`` includes ``tier_rounds``; past ``SCATTER_MAX_NPAD``
-    too (the partitioned node round).
+    too (the partitioned node round).  With a 16-bit ``dtype`` the policy
+    runs one tier at bfloat16 (already low-precision) and, at float16, a
+    float32 tier, then the float16 endgame.
 
     ``telemetry`` (a ring capacity) records every node's trajectory on the
     device (the batched record kernel after each round's merge); read it

@@ -102,13 +102,6 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-# The part of ROADMAP Queue 1 item 5 (precision tiers) still to port:
-# bfloat16 and float16 on the batched, node, service and sharded entry
-# points.  float16 is no tier of the reference (its ``_is_low_precision``
-# leaves it out: no tighten, slack or outward scalar of its own), but every
-# entry point of the reference takes it as a value type.
-TIERS_REMAINDER = "item 5, remainder, part two"
-
 _DTYPES = {"float64": torch.float64, "float32": torch.float32, "float16": torch.float16,
            "bfloat16": torch.bfloat16}
 
@@ -126,18 +119,16 @@ def torch_dtype(dtype) -> torch.dtype | None:
         return None
 
 
-def check_dtype(dtype, halves: bool = False) -> torch.dtype:
+def check_dtype(dtype) -> torch.dtype:
     """The value type of a fixed point: float64 (the default), float32 (the
-    fp32 tier) and, where ``halves`` (the single-instance entry points),
-    bfloat16 and float16; any other raises ``NotImplementedError``."""
+    fp32 tier), bfloat16 or float16, on every entry point; any other raises
+    ``NotImplementedError``.  float16 is no tier of the reference (its
+    ``_is_low_precision`` leaves it out: no slack, outward widening or
+    compact ids of its own), but every entry point takes it as a value
+    type."""
     dt = torch_dtype(dtype)
-    if dt in (torch.float64, torch.float32) or (halves and is_half(dt)):
+    if dt in (torch.float64, torch.float32) or is_half(dt):
         return dt
-    if is_half(dt):
-        raise NotImplementedError(
-            f"dtype={dtype!r}: bfloat16 and float16 run on the single-instance entry points; "
-            f"on this one they are ROADMAP Queue 1 {TIERS_REMAINDER}"
-        )
     raise NotImplementedError(
         f"dtype={dtype!r}: the value types are float64, float32, bfloat16 and float16"
     )
@@ -148,7 +139,7 @@ class DeviceProblem:
 
     def __init__(self, p: Problem, dtype=None, device="cuda"):
         dev = resolve_device(device)
-        dt = check_dtype(dtype, halves=True)
+        dt = check_dtype(dtype)
         csr = p.csr
         t = lambda x, d=dt: as_values(x, d, dev)
         self.m = csr.m
@@ -540,7 +531,8 @@ def _batched_stop_rounds(
             progress = torch.where(active, bnd.progress_measure(lb_in, ub_in, lb, ub), progress)
         rounds = rounds + active.to(rounds.dtype)
         last_changed = torch.where(active, changed, last_changed)
-        flat = torch.where(active, torch.where(progress < stop.progress, flat + 1, 0), flat)
+        low = progress < rounded(stop.progress, progress.dtype)
+        flat = torch.where(active, torch.where(low, flat + 1, 0), flat)
         if record is not None:
             record(lb, ub, progress, active, rounds, flat)
         active = active & changed & (rounds < max_rounds) & (flat < stop.patience)
@@ -707,7 +699,8 @@ def propagate_batch(
     and runners are cached on the identity of the problem list
     (``kernels.cache_info()``).  ``use_kernels=False`` runs the kernels'
     plain versions.  ``device`` defaults to CUDA and raises where there is
-    none.  ``dtype`` is float64 (the default) or float32;
+    none.  ``dtype`` is float64 (the default), float32, bfloat16 or
+    float16 (the packed ids int32 at every type, as the reference's);
     ``stop_progress``/``patience`` arm the per-instance early stop and
     ``policy`` (a :class:`TierPolicy`) the two tiers (``tier_rounds`` per
     instance).  ``telemetry`` (a ring capacity) attaches per-instance

@@ -36,8 +36,8 @@ an instance's arithmetic.
 
 Precision tiers (the reference's, src/repro/core/service.py:580-606): the
 whole service runs at ``dtype=np.float32`` (the engines widen the merge
-outward), and ``stop_progress``/``patience`` arm the progress-based early
-retire: a slot whose per-round progress measure stays below
+outward; ``torch.bfloat16`` and ``torch.float16`` run too), and
+``stop_progress``/``patience`` arm the progress-based early retire: a slot whose per-round progress measure stays below
 ``stop_progress`` for ``patience`` rounds drops out of the occupancy mask
 inside the step and retires stopped, not converged (``stats()`` counts
 ``early_stopped``).
@@ -67,9 +67,9 @@ from ..obs.metrics import default_registry
 from ..obs.telemetry import TelemetryPlane, TelemetrySnapshot
 from ..obs.trace import NULL_TRACER
 from .lru import LRU
-from .propagator import batched_step_rounds, check_dtype, resolve_device
+from .propagator import batched_step_rounds, check_dtype, resolve_device, round_scalars
 from .sparse import Problem, SlotPayload, col_pad, pack_into_slot
-from .types import DEFAULT_CONFIG, PropagationResult, PropagatorConfig
+from .types import DEFAULT_CONFIG, PropagationResult, PropagatorConfig, as_values, is_half
 
 # Resident bucket state: a list of 17 tensors, allocated once per bucket and
 # updated in place (the reference's layout):
@@ -95,6 +95,29 @@ _PROGRESS, _FLAT = 11, 12
 _RING, _TICKS, _STOPR, _INFSR = 13, 14, 15, 16
 # The payload fields copied into a slot, in state order (val .. rhs_c, lb, ub).
 _PAYLOAD_FIELDS = ("val", "col", "ii", "chunk_row", "lhs_c", "rhs_c", "lb", "ub")
+# The fields of a payload that hold values (the others hold ids).
+_VALUE_FIELDS = ("val", "lhs_c", "rhs_c", "lb", "ub")
+
+
+def _half_payload(payload: SlotPayload, dtype: torch.dtype) -> SlotPayload:
+    """A payload packed at float64 with its values as the 16-bit bit
+    patterns (int16 arrays: numpy has no bfloat16) of ``dtype``, each value
+    converted once, as :func:`~repro_torch.core.types.as_values` converts
+    it for ``kernels.prepare_problem_batch``: so a slot's values equal a
+    one-shot batch's bit for bit."""
+    return payload._replace(**{f: as_values(getattr(payload, f), dtype).view(torch.int16).numpy()
+                               for f in _VALUE_FIELDS})
+
+
+def _staged(arr: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """A stacked host field as a tensor for a staging buffer of ``dtype``:
+    16-bit bit patterns viewed as the type, other values converted once
+    (a caller's pre-packed payload), ids as they are."""
+    if arr.dtype == np.int16 and is_half(dtype):
+        return torch.from_numpy(arr).view(dtype)
+    if arr.dtype.kind == "f" and is_half(dtype):
+        return as_values(arr, dtype)
+    return torch.from_numpy(arr)
 
 _TW_CANDIDATES = (8, 16, 32, 64, 128)
 
@@ -321,8 +344,9 @@ class _BucketEngine:
     into accumulator planes the engine keeps (``kept``, one pair per thread,
     shared by the buckets of its shape: #9 hands the rows #8 scattered into
     back at the sentinels, so every round finds them clean; a round that
-    raises drops them).  The engine runs at ``dtype`` (float64 or float32:
-    tiles, bounds and the round's eps and outward widening); with
+    raises drops them).  The engine runs at ``dtype`` (float64, float32,
+    bfloat16 or float16: tiles, bounds and the round's scalars, rounded to
+    it; int32 ids at every type, as a packed batch's); with
     ``stop_progress`` its step arms the per-slot early stop, #9 measuring
     every round (its partials kept with the planes)."""
 
@@ -342,8 +366,8 @@ class _BucketEngine:
         self.warmed = False
         s, t, r, k = spec.slots, spec.slot_tiles, spec.tile_rows, spec.tile_width
         dt = dtype
-        n_pad, eps, int_eps, inf = spec.n_pad, cfg.eps_for(dt), cfg.int_eps, cfg.inf
-        outward = cfg.outward_for(dt)
+        n_pad = spec.n_pad
+        eps, int_eps, inf, outward = round_scalars(cfg, dt)
         ti = torch.arange(s, dtype=torch.int32, device=device).repeat_interleave(t)
         self.tile_inst = ti
         self.tile_arange = torch.arange(t, device=device)
@@ -458,7 +482,7 @@ class _BucketEngine:
         with self._lock:
             st = {f: x[:g] for f, x in self.stage.items()}
             for f in _PAYLOAD_FIELDS:
-                st[f].copy_(torch.from_numpy(np.stack([getattr(p, f) for p in payloads])))
+                st[f].copy_(_staged(np.stack([getattr(p, f) for p in payloads]), st[f].dtype))
             ids = st["slot_ids"]
             ids.copy_(torch.as_tensor(list(slot_ids), dtype=torch.int64))
             st["chunk_row"].add_((ids * (spec.slot_rows + 1)).to(torch.int32)[:, None, None])
@@ -524,7 +548,8 @@ class _BucketEngine:
 def _longest_chunk(val: np.ndarray) -> int:
     """One past the last nonzero slot of the longest chunk of ``(T, R, K)``
     host tiles (0 for all padding): the host's view of ``max(chunk_len)``."""
-    used = np.flatnonzero((val != 0).reshape(-1, val.shape[-1]).any(axis=0))
+    nonzero = (val & 0x7FFF) != 0 if val.dtype == np.int16 else val != 0  # 16-bit patterns
+    used = np.flatnonzero(nonzero.reshape(-1, val.shape[-1]).any(axis=0))
     return int(used[-1]) + 1 if used.size else 0
 
 
@@ -586,8 +611,11 @@ class PropagationService:
     called for every host read of a flag: each round of a step reads
     ``active.any()`` (and, without an early stop, each step once more for
     the round counts), and each pump reads a stepped bucket's ``active``
-    mask once.  ``dtype`` is float64 (the default) or float32 (the whole
-    service's fp32 tier; payloads are packed at it).  ``stop_progress``/
+    mask once.  ``dtype`` is float64 (the default), float32 (the whole
+    service's fp32 tier; payloads are packed at it), bfloat16 or float16
+    (payloads packed at float64, their values held as the type's bit
+    patterns, each converted once as ``kernels.prepare_problem_batch``
+    converts it).  ``stop_progress``/
     ``patience`` arm the early retire: a slot whose progress measure stays
     below ``stop_progress`` for ``patience`` rounds retires stopped, not
     converged, counted in ``stats()["early_stopped"]`` (a retired slot with
@@ -624,6 +652,8 @@ class PropagationService:
             raise ValueError("PropagationService needs at least one BucketSpec")
         self._telemetry = int(telemetry or 0)
         self._dtype = check_dtype(dtype)
+        # Payloads are packed at float32 or float64 on the host; at 16 bits
+        # at float64, then their values are held as the type's bit patterns.
         self._np_dtype = np.float32 if self._dtype == torch.float32 else np.float64
         self._stop_progress = stop_progress
         dev = resolve_device(device)
@@ -686,6 +716,8 @@ class PropagationService:
             for bk in self._buckets:
                 if bk.spec.fits_problem(problem):
                     payload = bk.spec.pack(problem, dtype=self._np_dtype)
+                    if is_half(self._dtype):
+                        payload = _half_payload(payload, self._dtype)
                     break
             else:
                 raise ValueError(f"no bucket fits instance m={problem.m} n={problem.n}")

@@ -37,10 +37,21 @@ including those enqueued after convergence (whose kernels return at once
 and whose collectives reduce sentinel planes), so every rank makes the same
 collectives.
 
-No outward widening: the reference's sharded rounds merge float32 bounds
-exactly (``bounds.apply_updates`` with no ``outward``, and its
-``batched_reference_round`` at ``outward=0.0``), and so do these, unlike
-``propagate`` and ``propagate_block_ell`` at float32.
+No outward widening: the reference's sharded rounds merge float32 and
+bfloat16 bounds exactly (``bounds.apply_updates`` with no ``outward``, and
+its ``batched_reference_round`` at ``outward=0.0``), and so do these,
+unlike ``propagate`` and ``propagate_block_ell`` at those types.
+
+At bfloat16 and float16 the ranks run the kernels' 16-bit forms; the
+column planes they all-reduce (MAX / MIN) are the kept float32 planes,
+which hold 16-bit values exactly, and the nnz partition's SUM of the
+stacked ``(4, m)`` row aggregates runs at the aggregates' 16-bit type, its
+counts held exactly (up to 256 at bfloat16, 2,048 at float16; a larger
+count rounds to another count of at least 2, which the candidates read
+alike).  On one rank that sum is the identity; over several it is the
+backend's own order (ring or tree), each add rounded to the type, so the
+bounds may differ from one rank's in the last bit where a row's partial
+sums are inexact.
 
 :func:`run_world` starts a world of processes on this host, the
 counterpart of ``jax.make_mesh`` plus the single controller's dispatch.
@@ -67,7 +78,7 @@ import torch.distributed as dist
 
 from .carry import LoopCarry
 from .lru import LRU
-from .propagator import _result, check_dtype, device_fixed_point, resolve_device
+from .propagator import _result, check_dtype, device_fixed_point, resolve_device, round_scalars
 from .sparse import CSR, Problem, col_pad, pack_problems
 from .types import DEFAULT_CONFIG, INF, PropagationResult, PropagatorConfig
 
@@ -243,13 +254,13 @@ def _sharded_round_fn(prep, cfg: PropagatorConfig, group, n: int, *, nnz: bool):
         collective["combine"] = combine
     rops = ops._replace(**collective)
     fused = prep.fits_one_chunk and not nnz
-    eps = cfg.eps_for(dt)
-    kept = kops.KeptPlanes(cfg.inf)
+    eps, int_eps, inf, _ = round_scalars(cfg, dt)
+    kept = kops.KeptPlanes(inf)
     carry = LoopCarry()
 
     def round_fn(lb, ub):
         return kops._prepared_round(
-            prep, lb, ub, ops=rops, eps=eps, int_eps=cfg.int_eps, inf=cfg.inf, fused=fused,
+            prep, lb, ub, ops=rops, eps=eps, int_eps=int_eps, inf=inf, fused=fused,
             outward=0.0, kept=kept, carry=carry.step(lb.device), gate=True,
         )
 
@@ -302,10 +313,10 @@ def propagate_sharded(
     the fixed point from caller-supplied ``(n,)`` bounds (default: the
     problem's own); the partition and its prepared tiles are cached per
     problem structure, so one partitioned matrix serves any node.  ``dtype``
-    is float64 or float32 (default: the matrix's); float32 merges with no
-    outward widening, as the reference's sharded rounds do (unlike
-    ``propagate``).  ``device`` defaults to the rank's current CUDA device
-    (``device="cpu"`` runs the kernels' plain versions: a ``gloo`` group).
+    is float64, float32, bfloat16 or float16 (default: the matrix's); the
+    merges run with no outward widening, as the reference's sharded rounds
+    do (unlike ``propagate``).  ``device`` defaults to the rank's current
+    CUDA device (``device="cpu"`` runs the kernels' plain versions: a ``gloo`` group).
     ``progress`` is the last round's measure; ``tier_rounds`` is 0."""
     return _propagate_shard(p, True, group, cfg, dtype, lb0, ub0, device, tile_rows,
                             tile_width)
@@ -388,9 +399,9 @@ def propagate_batch_sharded(
     hand every rank the whole list.  The partition and the prepared bucket are
     LRU-cached (4) per problem list (by identity), group, config, layout,
     dtype and device; every run starts from private copies of the cached
-    initial bounds.  float32 merges with no outward widening, as the
-    reference's ``batched_reference_round``.  Returns one result per
-    instance, input order, on every rank."""
+    initial bounds.  Every type (16-bit ones included) merges with no
+    outward widening, as the reference's ``batched_reference_round``.
+    Returns one result per instance, input order, on every rank."""
     from ..kernels.ops import propagate_batch_prepared
 
     problems = list(problems)
@@ -502,18 +513,44 @@ def lower_sharded(p: Problem, world_size: int, cfg: PropagatorConfig = DEFAULT_C
 # ---------------------------------------------------------------------------
 
 
-def _to_host(obj):
-    """Tensors in ``obj`` (tuples, named tuples, lists, dicts) as numpy
-    arrays, so a rank's result crosses the process boundary by value."""
-    if isinstance(obj, torch.Tensor):
-        return obj.detach().cpu().numpy()
+class _BFloat16Bits(NamedTuple):
+    """A bfloat16 tensor's bits (numpy has no bfloat16), as a rank sends
+    it; :func:`_from_host` makes the tensor again."""
+
+    bits: np.ndarray  # int16
+
+
+def _walk(obj, leaf):
+    """``obj`` (tuples, named tuples, lists, dicts) with ``leaf`` applied to
+    every other value."""
+    if isinstance(obj, _BFloat16Bits) or not isinstance(obj, (tuple, list, dict)):
+        return leaf(obj)
     if isinstance(obj, tuple) and hasattr(obj, "_fields"):
-        return type(obj)(*(_to_host(x) for x in obj))
+        return type(obj)(*(_walk(x, leaf) for x in obj))
     if isinstance(obj, (tuple, list)):
-        return type(obj)(_to_host(x) for x in obj)
-    if isinstance(obj, dict):
-        return {k: _to_host(v) for k, v in obj.items()}
-    return obj
+        return type(obj)(_walk(x, leaf) for x in obj)
+    return {k: _walk(v, leaf) for k, v in obj.items()}
+
+
+def _to_host(obj):
+    """Tensors in ``obj`` as numpy arrays (bfloat16 ones as their bits), so
+    a rank's result crosses the process boundary by value."""
+    def leaf(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return _BFloat16Bits(x.view(torch.int16).numpy())
+        return x.numpy()
+
+    return _walk(obj, leaf)
+
+
+def _from_host(obj):
+    """A rank's result as :func:`_to_host` sent it, its bfloat16 arrays as
+    CPU tensors again."""
+    return _walk(obj, lambda x: torch.from_numpy(x.bits).view(torch.bfloat16)
+                 if isinstance(x, _BFloat16Bits) else x)
 
 
 # PyTorch's flight recorder keeps a trace of every collective for a hang's
@@ -551,7 +588,8 @@ def run_world(fn: Callable, world_size: int, *, backend: str = "gloo", device="c
     """Run ``fn(rank, world_size, *args)`` on ``world_size`` new processes of
     this host, each a rank of a default process group of ``backend``, and
     return their results by rank (tensors in them come back as numpy
-    arrays; ``fn`` and ``args`` must pickle, ``fn`` by its module name).
+    arrays, bfloat16 ones as CPU tensors; ``fn`` and ``args`` must pickle,
+    ``fn`` by its module name).
 
     The ranks meet through a ``FileStore`` at ``init_file`` (default: a
     fresh file in a temporary directory, removed afterwards), so concurrent
@@ -610,7 +648,7 @@ def run_world(fn: Callable, world_size: int, *, backend: str = "gloo", device="c
                 continue
             if not ok:
                 raise RuntimeError(f"run_world: rank {rank} raised:\n{value}")
-            out[rank] = value
+            out[rank] = _from_host(value)
         for proc in procs:
             proc.join(max(deadline - time.monotonic(), 1.0))
     finally:

@@ -1,7 +1,8 @@
 // The kernels of the batched rounds, templated on the value type T (double,
-// or float for the fp32 tier) and on the index types (C for the columns, M
-// for the integrality marks: int32, or the fp32 tier's compact int16 and
-// int8 streams, widened in registers): kernel #8 (D over a packed batch),
+// float for the fp32 tier, or round_common.cuh's Bf16 / F16 for the 16-bit
+// types) and on the index types (C for the columns, M for the integrality
+// marks: int32, or the compact int16 and int8 streams of a float32 or
+// bfloat16 prep, widened in registers): kernel #8 (D over a packed batch),
 // kernel #10 (D over a node batch), and A', the long-row combine and E over
 // a node batch (the multi-chunk node round), with one launcher each; and
 // the launchers of #9, the batched merge, with and without the early
@@ -11,9 +12,13 @@
 // node_combine_chunk_partials, node_fused_scatter_round,
 // batched_fused_scatter_round, apply_updates_batch), and
 // batch_tier_round.cu at float with both index forms and #9 with the early
-// stop at both value types.  The arithmetic runs in T throughout, so a
-// float instantiation rounds as the plain version does at float32, and the
-// double ones are the float64 kernels unchanged.
+// stop at both value types, and half_batch_round.cu everything at the
+// 16-bit types.  The arithmetic runs in T throughout (at 16 bits each
+// operation rounds to T; a chunk's sums and #9's row measure accumulate in
+// Num<T>::Acc and round once), so an instantiation rounds as the plain
+// version does at its type, and the double ones are the float64 kernels
+// unchanged.  #8, #10 and the node E scatter into planes of
+// Num<T>::Plane, which #9 reads.
 
 #pragma once
 
@@ -128,9 +133,9 @@ node_candidates_scatter_kernel(const T* __restrict__ val, const C* __restrict__ 
                                const T* __restrict__ rxf, const int* __restrict__ rxc,
                                const T* __restrict__ lhs, const T* __restrict__ rhs,
                                const T* __restrict__ lb, const T* __restrict__ ub,
-                               const bool* __restrict__ active, T* best_l, T* best_u,
-                               int64_t n_chunks, int k, int64_t bsz, int64_t n_pad, T int_eps,
-                               T inf) {
+                               const bool* __restrict__ active, typename Num<T>::Plane* best_l,
+                               typename Num<T>::Plane* best_u, int64_t n_chunks, int k, int64_t bsz,
+                               int64_t n_pad, T int_eps, T inf) {
   constexpr int U = Strides<G>::U;
   const Lanes L = lanes_for<G>(n_chunks);
   const int lane = threadIdx.x % kWarp;
@@ -173,7 +178,8 @@ node_fused_scatter_round_kernel(const T* __restrict__ val, const C* __restrict__
                                 const M* __restrict__ ii, const int* __restrict__ clen,
                                 const T* __restrict__ lhs, const T* __restrict__ rhs,
                                 const T* __restrict__ lb, const T* __restrict__ ub,
-                                const bool* __restrict__ active, T* best_l, T* best_u,
+                                const bool* __restrict__ active,
+                                typename Num<T>::Plane* best_l, typename Num<T>::Plane* best_u,
                                 int64_t n_chunks, int k, int64_t bsz, int64_t n_pad,
                                 T int_eps, T inf) {
   const EqualItems items_of{(n_chunks + block_chunks<G>() - 1) / block_chunks<G>()};
@@ -209,7 +215,8 @@ batched_fused_scatter_round_kernel(const T* __restrict__ val, const C* __restric
                                    const T* __restrict__ lhs, const T* __restrict__ rhs,
                                    const T* __restrict__ lb, const T* __restrict__ ub,
                                    const int64_t* __restrict__ start,
-                                   const bool* __restrict__ active, T* best_l, T* best_u,
+                                   const bool* __restrict__ active,
+                                   typename Num<T>::Plane* best_l, typename Num<T>::Plane* best_u,
                                    int64_t bsz, int k, int64_t n_pad, T int_eps, T inf) {
   const RangeItems items_of{start, block_chunks<G>()};
   const Walk walk = ballot_walk(active, bsz, items_of);
@@ -257,8 +264,9 @@ template <typename T, typename C, typename M>
 int launch_node_candidates_scatter(const T* val, const C* col, const M* ii, const int* clen,
                                    const T* rmf, const int* rmc, const T* rxf, const int* rxc,
                                    const T* lhs, const T* rhs, const T* lb, const T* ub,
-                                   const bool* active, T* best_l, T* best_u, int64_t n_chunks,
-                                   int k, int64_t bsz, int64_t n_pad, T int_eps, T inf,
+                                   const bool* active, typename Num<T>::Plane* best_l,
+                                   typename Num<T>::Plane* best_u, int64_t n_chunks, int k,
+                                   int64_t bsz, int64_t n_pad, T int_eps, T inf,
                                    cudaStream_t stream) {
   const unsigned int blocks = chunk_blocks(n_chunks, k);
 #define NODE_SCATTER(G)                                                                        \
@@ -287,9 +295,10 @@ int launch_node_combine_chunk_partials(const T* mf, const int* mc, const T* xf, 
 template <typename T, typename C, typename M>
 int launch_node_fused_scatter_round(const T* val, const C* col, const M* ii, const int* clen,
                                     const T* lhs, const T* rhs, const T* lb, const T* ub,
-                                    const bool* active, T* best_l, T* best_u, int64_t n_chunks,
-                                    int k, int max_len, int64_t bsz, int64_t n_pad, T int_eps,
-                                    T inf, cudaStream_t stream) {
+                                    const bool* active, typename Num<T>::Plane* best_l,
+                                    typename Num<T>::Plane* best_u, int64_t n_chunks, int k,
+                                    int max_len, int64_t bsz, int64_t n_pad, T int_eps, T inf,
+                                    cudaStream_t stream) {
   // At most one pass over the chunk stream.
   const int64_t most = chunk_blocks(n_chunks, k);
 #define NODE_FUSED(G, U)                                                                    \
@@ -303,10 +312,11 @@ int launch_node_fused_scatter_round(const T* val, const C* col, const M* ii, con
 template <typename T, typename C, typename M>
 int launch_batched_fused_scatter_round(const T* val, const C* col, const M* ii, const int* clen,
                                        const T* lhs, const T* rhs, const T* lb, const T* ub,
-                                       const int64_t* start, const bool* active, T* best_l,
-                                       T* best_u, int64_t n_chunks, int k, int max_len,
-                                       int64_t bsz, int64_t n_pad, T int_eps, T inf,
-                                       cudaStream_t stream) {
+                                       const int64_t* start, const bool* active,
+                                       typename Num<T>::Plane* best_l,
+                                       typename Num<T>::Plane* best_u, int64_t n_chunks, int k,
+                                       int max_len, int64_t bsz, int64_t n_pad, T int_eps,
+                                       T inf, cudaStream_t stream) {
   // At most one pass over the stream: its chunk blocks, plus one partial
   // block per instance.
   const int64_t most = chunk_blocks(n_chunks, k) + bsz;
@@ -324,21 +334,25 @@ int launch_batched_fused_scatter_round(const T* val, const C* col, const M* ii, 
 // stores its row's flag once per item, and the launch zeroes the other flag
 // buffer of the pair (`clear`, bsz entries; null for none).
 template <typename T>
-int launch_apply_updates_batch(T* lb, T* ub, T* best_l, T* best_u, const bool* active,
-                               bool* changed, bool* clear, int64_t bsz, int64_t n_pad, T eps,
-                               T inf, T outward, cudaStream_t stream) {
+int launch_apply_updates_batch(T* lb, T* ub, typename Num<T>::Plane* best_l,
+                               typename Num<T>::Plane* best_u, const bool* active, bool* changed,
+                               bool* clear, int64_t bsz, int64_t n_pad, T eps, T inf, T outward,
+                               cudaStream_t stream) {
   return launch_merge(lb, ub, best_l, best_u, active, RowFlags{changed, clear, bsz}, bsz, n_pad,
                       eps, inf, outward, stream);
 }
 
 // #9 with the early stop's measure (RowStopFlags): as above, and each
 // active row's progress measure over its columns into prog[row], through
-// the (bsz, n_blocks) block partials and the launch's ticket.
+// the (bsz, n_blocks) block partials (of Num<T>::Acc) and the launch's
+// ticket.
 template <typename T>
-int launch_apply_updates_batch_stop(T* lb, T* ub, T* best_l, T* best_u, const bool* active,
-                                    bool* changed, bool* clear, T* partials, T* prog,
-                                    int* ticket, int64_t bsz, int64_t n_pad, T eps, T inf,
-                                    T outward, cudaStream_t stream) {
+int launch_apply_updates_batch_stop(T* lb, T* ub, typename Num<T>::Plane* best_l,
+                                    typename Num<T>::Plane* best_u, const bool* active,
+                                    bool* changed, bool* clear, typename Num<T>::Acc* partials,
+                                    T* prog, int* ticket,
+                                    int64_t bsz, int64_t n_pad, T eps, T inf, T outward,
+                                    cudaStream_t stream) {
   const int64_t n_blocks = (n_pad + kMergeBlock - 1) / kMergeBlock;
   const RowStopFlags<T> flags{changed, clear, bsz, partials, prog, ticket, active, n_blocks};
   return launch_merge(lb, ub, best_l, best_u, active, flags, bsz, n_pad, eps, inf, outward,

@@ -1,6 +1,7 @@
-// Hopper (sm_90a) kernels of the 16-bit value types (ROADMAP Queue 1 item 5,
-// remainder, part one): bfloat16 and float16 forms of every kernel of the
-// single-instance engines.
+// Hopper (sm_90a) kernels of the 16-bit value types: bfloat16 and float16
+// forms of every kernel of the single-instance engines (the batched, node
+// and service rounds' own kernels are half_batch_round.cu's; #15's batched
+// walk and the straddle combine over a node batch run these entries).
 //
 //   fused_scatter_round_{bf16,bf16c,f16}  (D)
 //   activities_gather_{bf16,bf16c,f16}    (A')

@@ -1255,16 +1255,20 @@ struct StopCarryFlags {
 // ref.merge_order_sum is this order, row by row.  Inactive rows' partials
 // and prog entries are not written.  The walk (kMergeCols) and the grid
 // (kGridCols) both take 1,024 columns an item, so one layout serves both.
-// The streak and the mask are the caller's (B,) operations on prog.
+// The streak and the mask are the caller's (B,) operations on prog.  The
+// sums run in Num<T>::Acc (float partials for the 16-bit types, each row's
+// measure rounded to T once, as the reference's progress_measure reduces
+// its terms in float32).
 template <typename T>
 struct RowStopFlags {
+  using Acc = typename Num<T>::Acc;
   static constexpr int kGridCols = 4;
   static constexpr bool kProgress = true;
   static constexpr bool kRowProgress = true;
   bool* changed;
   bool* clear;
   int64_t n_clear;
-  T* partials;
+  Acc* partials;
   T* prog;
   int* ticket;
   const bool* active;
@@ -1280,14 +1284,14 @@ struct RowStopFlags {
     if (__any_sync(0xffffffffu, any) && threadIdx.x % kWarp == 0) changed[plane] = true;
   }
   // Every thread of the block calls it after each item, with its own sum.
-  __device__ __forceinline__ void item_progress(T prog_t, int64_t plane, int64_t blk) const {
-    __shared__ T warp_sums[kWarpsPerBlock];
+  __device__ __forceinline__ void item_progress(Acc prog_t, int64_t plane, int64_t blk) const {
+    __shared__ Acc warp_sums[kWarpsPerBlock];
     const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
     prog_t = group_sum<kWarp>(prog_t);
     if (lane == 0) warp_sums[warp] = prog_t;
     __syncthreads();
     if (threadIdx.x == 0) {
-      T sum = warp_sums[0];
+      Acc sum = warp_sums[0];
 #pragma unroll
       for (int w = 1; w < kWarpsPerBlock; ++w) sum += warp_sums[w];
       partials[plane * n_blocks + blk] = sum;
@@ -1317,11 +1321,11 @@ struct RowStopFlags {
       while (todo != 0u) {
         const int64_t b = b0 + __ffs(todo) - 1;
         todo &= todo - 1u;
-        const T* row = partials + b * n_blocks;
-        T total = T(0);
+        const Acc* row = partials + b * n_blocks;
+        Acc total = Acc(0);
         for (int64_t i = lane; i < n_blocks; i += kWarp) total += __ldcg(row + i);
         total = group_sum<kWarp>(total);
-        if (lane == 0) prog[b] = total;
+        if (lane == 0) prog[b] = T(total);
       }
     }
   }
@@ -1336,6 +1340,7 @@ struct RowStopFlags {
 // thread, so one layout serves both, as #9's.
 template <typename T>
 struct WindowStopFlags {
+  using Acc = typename Num<T>::Acc;
   static constexpr int kGridCols = 4;
   static constexpr bool kProgress = true;
   static constexpr bool kRowProgress = true;
@@ -1343,7 +1348,7 @@ struct WindowStopFlags {
   int64_t n_slabs, slab;
   int* clear;
   int64_t n_clear;
-  T* partials;
+  Acc* partials;
   T* prog;
   int* ticket;
   const bool* active;
@@ -1361,7 +1366,7 @@ struct WindowStopFlags {
   __device__ __forceinline__ void mark(int64_t plane, int64_t w0, const bool (&ch)[C]) const {
     windows().template mark<C>(plane, w0, ch);
   }
-  __device__ __forceinline__ void item_progress(T prog_t, int64_t plane, int64_t blk) const {
+  __device__ __forceinline__ void item_progress(Acc prog_t, int64_t plane, int64_t blk) const {
     rows().item_progress(prog_t, plane, blk);
   }
   __device__ __forceinline__ void finish_rows(int64_t bsz) const { rows().finish_rows(bsz); }

@@ -1,7 +1,7 @@
 // The kernels of the column-slab partitioned round, templated on the value
 // type T (double, float for the fp32 tier, or Bf16 / F16 for the 16-bit
-// types, whose #12 scatters into float planes): #11 (slab_partials), #13
-// (node_slab_partials), the scatters of #12 and #14 (slab_scatter,
+// types, whose #12 and #14 scatter into float planes): #11 (slab_partials),
+// #13 (node_slab_partials), the scatters of #12 and #14 (slab_scatter,
 // node_slab_scatter), the straddle combine's two launches, and the
 // launchers of #15, the window merge, without and with the early stop's
 // measure (a single instance's loop carry, StopCarryFlags; a batch's rows,
@@ -9,9 +9,11 @@
 // points slab_partials, node_slab_partials, slab_scatter,
 // node_slab_scatter, slab_merge), prop_round.cu the straddle combine at
 // double (straddle_combine), slab_tier_round.cu everything at float and
-// #15's early-stop forms at both, and half_round.cu the single-instance
-// ones (#11, #12's scatter, #15 and its carry's stop form, the straddle
-// combine) at the 16-bit types.  Ids are int32 at every value type:
+// #15's early-stop forms at both, half_round.cu the single-instance ones
+// (#11, #12's scatter, #15 and its carry's stop form, the straddle
+// combine) at the 16-bit types, and half_batch_round.cu the node ones (#13,
+// #14's scatter) and #15's row stop form at the 16-bit types.  Ids are
+// int32 at every value type:
 // the partition widens a compact prep's int16 columns, as the reference's
 // does.  The arithmetic runs in T throughout, so a float instantiation
 // rounds as the plain version does at float32, and the double ones are the
@@ -187,9 +189,9 @@ node_slab_scatter_kernel(const T* __restrict__ val, const int* __restrict__ col,
                          const int* __restrict__ sxc, const T* __restrict__ lhs,
                          const T* __restrict__ rhs, const int* __restrict__ tile_slab,
                          const bool* __restrict__ active, const T* __restrict__ lb,
-                         const T* __restrict__ ub, T* best_l, T* best_u, int64_t n_chunks,
-                         int r, int k, int64_t bsz, int64_t width, int64_t slab, T int_eps,
-                         T inf) {
+                         const T* __restrict__ ub, typename Num<T>::Plane* best_l,
+                         typename Num<T>::Plane* best_u, int64_t n_chunks, int r, int k,
+                         int64_t bsz, int64_t width, int64_t slab, T int_eps, T inf) {
   const EqualItems items_of{(n_chunks + block_chunks<G>() - 1) / block_chunks<G>()};
   const Walk walk = ballot_walk(active, bsz, items_of);
   WalkCursor cur;
@@ -350,9 +352,10 @@ template <typename T>
 int launch_node_slab_scatter(const T* val, const int* col, const int* ii, const int* clen,
                              const int* done, const T* smf, const int* smc, const T* sxf,
                              const int* sxc, const T* lhs, const T* rhs, const int* tile_slab,
-                             const bool* active, const T* lb, const T* ub, T* best_l,
-                             T* best_u, int64_t n_chunks, int r, int k, int max_len,
-                             int64_t bsz, int64_t width, int64_t slab, T int_eps, T inf,
+                             const bool* active, const T* lb, const T* ub,
+                             typename Num<T>::Plane* best_l, typename Num<T>::Plane* best_u,
+                             int64_t n_chunks, int r, int k, int max_len, int64_t bsz,
+                             int64_t width, int64_t slab, T int_eps, T inf,
                              cudaStream_t stream) {
   // At most one pass over the copy stream.
   const int64_t most = chunk_blocks(n_chunks, k);
@@ -405,12 +408,14 @@ int launch_slab_merge_stop(T* lb, T* ub, typename Num<T>::Plane* best_l,
 
 // #15 over a batch's (B, W) planes with the early stop's measure: the
 // window flags and each active row's measure into prog[row], through the
-// (bsz, n_blocks) block partials and the launch's ticket (WindowStopFlags).
+// (bsz, n_blocks) block partials (of Num<T>::Acc) and the launch's ticket
+// (WindowStopFlags).
 template <typename T>
-int launch_slab_merge_rows_stop(T* lb, T* ub, T* best_l, T* best_u, const bool* active,
-                                int* flags, int* clear, T* partials, T* prog, int* ticket,
-                                int64_t bsz, int64_t width, int64_t slab, T eps, T inf,
-                                T outward, cudaStream_t stream) {
+int launch_slab_merge_rows_stop(T* lb, T* ub, typename Num<T>::Plane* best_l,
+                                typename Num<T>::Plane* best_u, const bool* active, int* flags,
+                                int* clear, typename Num<T>::Acc* partials, T* prog,
+                                int* ticket, int64_t bsz, int64_t width, int64_t slab, T eps,
+                                T inf, T outward, cudaStream_t stream) {
   if (slab <= 0 || slab % kWarp != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t n_slabs = (width + slab - 1) / slab;
   const int64_t n_blocks = (width + kMergeBlock - 1) / kMergeBlock;

@@ -2,7 +2,7 @@
 
 Each source (``prop_round.cu``, ``slab_round.cu``, ``tier_round.cu``,
 ``batch_tier_round.cu``, ``slab_tier_round.cu``, ``telemetry.cu``,
-``half_round.cu``) is
+``half_round.cu``, ``half_batch_round.cu``) is
 compiled with ``nvcc`` into a shared library with a plain C interface, at first use, into
 ``build/<hash>/`` beside the package (a directory that git ignores), keyed
 by a hash of the sources, the shared header and the flags, and loaded with
@@ -31,7 +31,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (CSRC / "prop_round.cu", CSRC / "slab_round.cu", CSRC / "tier_round.cu",
            CSRC / "batch_tier_round.cu", CSRC / "slab_tier_round.cu", CSRC / "telemetry.cu",
-           CSRC / "half_round.cu")
+           CSRC / "half_round.cu", CSRC / "half_batch_round.cu")
 HEADERS = (CSRC / "round_common.cuh", CSRC / "single_round.cuh", CSRC / "batch_round.cuh",
            CSRC / "slab_round.cuh", CSRC / "record_round.cuh")
 BUILD_DIR = _PKG / "build"
@@ -123,22 +123,31 @@ SIGNATURES = {
 
 
 
-# The kernels with 16-bit forms (``half_round.cu``): those of the
-# single-instance engines.  The batched and node kernels have none yet.
-HALF_KERNELS = ("fused_scatter_round", "activities_gather", "candidates_scatter",
-                "combine_chunk_partials", "apply_updates", "apply_updates_stop", "activities",
-                "candidates", "fused_round", "slab_partials", "slab_scatter", "slab_merge",
-                "slab_merge_stop", "straddle_combine", "record_round")
+# The kernels with 16-bit forms: those of the single-instance engines
+# (``half_round.cu``) and those of the batched, node and service rounds
+# (``half_batch_round.cu``).  Every kernel but #16 (``node_objective``: the
+# solver runs at the default type) has them.
+SINGLE_HALF_KERNELS = ("fused_scatter_round", "activities_gather", "candidates_scatter",
+                       "combine_chunk_partials", "apply_updates", "apply_updates_stop",
+                       "activities", "candidates", "fused_round", "slab_partials",
+                       "slab_scatter", "slab_merge", "slab_merge_stop", "straddle_combine",
+                       "record_round")
+BATCH_HALF_KERNELS = ("batched_fused_scatter_round", "node_fused_scatter_round",
+                      "node_activities_gather", "node_combine_chunk_partials",
+                      "node_candidates_scatter", "apply_updates_batch",
+                      "apply_updates_batch_stop", "node_slab_partials", "node_slab_scatter",
+                      "slab_merge_rows_stop", "record_round_batch")
+HALF_KERNELS = SINGLE_HALF_KERNELS + BATCH_HALF_KERNELS
 
 
-def _half_signatures() -> dict:
-    """The entries of ``half_round.cu``: each 16-bit form of a kernel of
-    :data:`HALF_KERNELS` takes its float32 form's arguments (its scalars as
-    floats holding 16-bit values), ``_bf16`` and ``_f16``, and ``_bf16c``
-    where float32 has a compact ``_f32c`` form."""
+def _half_signatures(names) -> dict:
+    """The 16-bit entries of the kernels ``names``: each takes its float32
+    form's arguments (its scalars as floats holding 16-bit values),
+    ``_bf16`` and ``_f16``, and ``_bf16c`` where float32 has a compact
+    ``_f32c`` form."""
     f32 = {name: sig for table in SIGNATURES.values() for name, sig in table.items()}
     out = {}
-    for name in HALF_KERNELS:
+    for name in names:
         for suffix in ("bf16", "f16"):
             out[f"{name}_{suffix}"] = f32[f"{name}_f32"]
         if f"{name}_f32c" in f32:
@@ -146,7 +155,8 @@ def _half_signatures() -> dict:
     return out
 
 
-SIGNATURES["half_round.cu"] = _half_signatures()
+SIGNATURES["half_round.cu"] = _half_signatures(SINGLE_HALF_KERNELS)
+SIGNATURES["half_batch_round.cu"] = _half_signatures(BATCH_HALF_KERNELS)
 
 _lock = threading.Lock()
 _lib: SimpleNamespace | None = None

@@ -71,10 +71,11 @@ semantics so they converge to the same fixed points.
     early stop #9 or #15 measures each active row's round
     (``propagate_batch_block_ell`` and ``core.nodes.propagate_nodes`` take
     ``policy`` too).  At bfloat16 (compact ids too, where ``n_pad <=
-    2**15``) and float16 every single-instance engine runs its kernels'
-    16-bit forms (``csrc/half_round.cu``), the accumulator planes of D, E
-    and #12 kept in float32; the batched and node rounds refuse both
-    (ROADMAP Queue 1 item 5, remainder, part two).
+    2**15``) and float16 every engine runs its kernels' 16-bit forms
+    (``csrc/half_round.cu`` for the single-instance engines,
+    ``csrc/half_batch_round.cu`` for the batched and node rounds: packed
+    batches keep int32 ids, node batches compact at bfloat16), the
+    accumulator planes of D, E, #8, #10, #12 and #14 kept in float32.
 
 Telemetry (ROADMAP Queue 1 item 6): every engine takes ``telemetry=`` (a
 ring capacity); the round closures carry the record kernel's prepared
@@ -159,7 +160,7 @@ def device_block_ell(
     """Convert + upload one instance.  Prefer :func:`prepare_block_ell`,
     which caches this and hoists the round-constant gathers."""
     dev = resolve_device(device)
-    dt = check_dtype(dtype, halves=True)
+    dt = check_dtype(dtype)
     b = csr_to_block_ell(p.csr, tile_rows=tile_rows, tile_width=tile_width)
     t = lambda x, d=dt: as_values(x, d, dev)
     pad1 = lambda x: np.concatenate([np.asarray(x, np.float64), [0.0]])
@@ -292,7 +293,7 @@ def prepare_block_ell(
     the reference's ``_is_low_precision``, which leaves float16 out) holds
     ``d.col`` as int16 and ``ii_g`` as int8."""
     dev = resolve_device(device)
-    dt = check_dtype(dtype, halves=True)
+    dt = check_dtype(dtype)
     anchors = _structure_anchors(p)
     key = tuple(id(a) for a in anchors) + (tile_rows, tile_width, str(dt), str(dev))
     hit = _prep_cache.get(key, anchors)
@@ -439,7 +440,7 @@ class KeptPlanes:
         partials and the zeroed ticket, kept like the scratch."""
         bsz, width = like.shape
         blocks = -(-width // kref.MERGE_BLOCK)
-        partials, ticket = self.scratch("row_progress", (((bsz, blocks), like.dtype),
+        partials, ticket = self.scratch("row_progress", (((bsz, blocks), plane_dtype(like.dtype)),
                                                          ((1,), torch.int32)), like)
         return dict(partials=partials, ticket=ticket)
 
@@ -564,7 +565,9 @@ def _plain_merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward=0.0, *,
     the kernel's order (:func:`ref.merge_rows_progress`); ``partials`` and
     ``ticket`` are not used."""
     del flags, partials, ticket
-    out = bnd.apply_updates_batch(lb, ub, best_l, best_u, eps, inf, outward, active=active)
+    # Float32 planes beside 16-bit bounds narrow back exactly.
+    out = bnd.apply_updates_batch(lb, ub, best_l.to(lb.dtype), best_u.to(ub.dtype), eps, inf,
+                                  outward, active=active)
     if progress is not None:
         _, prog = kref.merge_rows_progress(lb, ub, out[0], out[1])
         progress.copy_(torch.where(active, prog, progress))
@@ -1112,7 +1115,7 @@ class DeviceProblemBatch(NamedTuple):
     ``tile_inst``); ``col_g`` holds the global ids ``col + tile_inst *
     n_pad`` into the flattened planes for the multi-chunk round."""
 
-    val: torch.Tensor        # (T, R, K) float64 or float32
+    val: torch.Tensor        # (T, R, K) float64, float32, bfloat16 or float16
     col: torch.Tensor        # (T, R, K) int32 instance-local
     col_g: torch.Tensor      # (T, R, K) int32 global (bound-plane) columns
     chunk_row: torch.Tensor  # (T, R) int32 global row ids, ascending
@@ -1156,11 +1159,15 @@ class PreparedBatch:
         part = self._slabs.get(s)
         if part is None:
             ell = self.batch.ell
-            dt = np.dtype(str(self.d.val.dtype).removeprefix("torch."))
+            dt = self.d.val.dtype
+            # numpy has no bfloat16: its values go through float32, as
+            # torch's conversion from float64 does.
+            host = np.float32 if dt == torch.bfloat16 else str(dt).removeprefix("torch.")
             part = self._slabs[s] = build_slab_partition(
-                np.asarray(ell.val, dtype=dt), ell.col, ell.chunk_row, ell.tile_inst,
+                np.asarray(ell.val, dtype=host), ell.col, ell.chunk_row, ell.tile_inst,
                 self.batch.lhs1, self.batch.rhs1, self.batch.is_int, self.n_pad, s,
                 (ell.row_offset[1:] - 1).astype(np.int32), device=self.d.val.device,
+                value_dtype=dt,
             )
         return part
 
@@ -1173,8 +1180,10 @@ def prepare_problem_batch(batch: ProblemBatch, dtype=None, device="cuda") -> Pre
     ``ProblemBatch`` identity, dtype and device (maxsize 16, see
     :func:`cache_info`): a serving loop re-propagates the same packed batch
     with fresh bounds, which every driver takes per call.  ``dtype`` is
-    float64 (the default) or float32 (the fp32 tier; the ids stay int32,
-    as the reference's packed batch keeps them)."""
+    float64 (the default), float32 (the fp32 tier), bfloat16 or float16;
+    the ids stay int32 at every type, as the reference's packed batch keeps
+    them (it never narrows a packed batch).  The values convert from
+    float64 once per value (:func:`~repro_torch.core.types.as_values`)."""
     dev = resolve_device(device)
     dt = check_dtype(dtype)
     key = (id(batch), str(dt), str(dev))
@@ -1184,7 +1193,7 @@ def prepare_problem_batch(batch: ProblemBatch, dtype=None, device="cuda") -> Pre
     ell = batch.ell
     n_pad = batch.n_pad
     col_g = ell.col + ell.tile_inst[:, None, None] * np.int32(n_pad)
-    t = lambda x, d=dt: torch.as_tensor(np.asarray(x), dtype=d, device=dev)
+    t = lambda x, d=dt: as_values(x, d, dev)
     chunk_row = t(ell.chunk_row, torch.int32)
     tile_inst = t(ell.tile_inst, torch.int32)
     val = t(ell.val)
@@ -1318,14 +1327,13 @@ def batched_round_fn_for(
     (``core.propagator.batched_step_rounds`` passes it under a stop, or
     for telemetry); on the kernels its ``record_batch`` is the batched
     record kernel."""
-    dt = prep.d.val.dtype
-    eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
+    eps, int_eps, inf, outward = round_scalars(cfg, prep.d.val.dtype)
     ops = KERNEL_OPS if use_kernels else PLAIN_OPS
-    kept = KeptPlanes(cfg.inf)
+    kept = KeptPlanes(inf)
 
     def round_fn(lb, ub, active, progress=None):
         return _batched_prepared_round(
-            prep, lb, ub, active, ops=ops, eps=eps, int_eps=cfg.int_eps, inf=cfg.inf,
+            prep, lb, ub, active, ops=ops, eps=eps, int_eps=int_eps, inf=inf,
             slab=slab, outward=outward, kept=kept, progress=progress,
         )
 
@@ -1384,7 +1392,7 @@ def _batch_runner(prep: PreparedBatch, cfg, use_kernels: bool, slab,
             on_sync=on_sync,
         )
         lb, ub, rounds, converged, progress = out[:5]
-        infeasible = ((lb > ub + cfg.feas_eps) & col_valid).any(dim=-1)
+        infeasible = (kref.crossed_columns(lb, ub, cfg.feas_eps) & col_valid).any(dim=-1)
         return (lb, ub, rounds, converged, infeasible, progress) + out[5:]
 
     _batch_runner_cache.put(key, (prep,), run)
@@ -1420,7 +1428,7 @@ def _batch_initial_bounds(prep: PreparedBatch, lb0, ub0):
         if override is None:
             out.append(default.clone())
             continue
-        arr = torch.as_tensor(override, dtype=default.dtype, device=default.device)
+        arr = as_values(override, default.dtype, default.device)
         if arr.shape != default.shape:
             raise ValueError(
                 f"bound plane has shape {tuple(arr.shape)}, expected {tuple(default.shape)}"
@@ -1495,12 +1503,13 @@ def clear_batch_caches() -> None:
 
 def _bound_planes_for_batch(prep: PreparedBatch, bounds):
     """Per-problem ``(lb, ub)`` overrides (input order; ``None`` keeps the
-    problem's own bounds; arrays or tensors, cast to the prep's dtype) ->
+    problem's own bounds; arrays or tensors, each value converted once to
+    the prep's dtype, :func:`~repro_torch.core.types.as_values`) ->
     the bucket's ``(B, n_pad)`` planes on its device, or ``(None, None)``
     when no instance of the bucket is overridden."""
     batch = prep.batch
     lb_plane, ub_plane = prep.d.lb0.clone(), prep.d.ub0.clone()
-    as_plane = lambda x: torch.as_tensor(x, dtype=lb_plane.dtype, device=lb_plane.device)
+    as_plane = lambda x: as_values(x, lb_plane.dtype, lb_plane.device)
     touched = False
     for row, (idx, p) in enumerate(zip(batch.indices, batch.problems)):
         pair = bounds[idx]
@@ -1546,8 +1555,9 @@ def propagate_batch_block_ell(
     ``None``, per problem) warm-starts instances through the same packed
     tiles.  The public front end is ``core.propagate_batch``.
 
-    ``dtype`` is float64 (the default) or float32.  ``stop_progress``/
-    ``patience`` arm the per-instance early stop.  ``policy`` (a
+    ``dtype`` is float64 (the default), float32, bfloat16 or float16 (the
+    packed ids int32 at every type).  ``stop_progress``/``patience`` arm
+    the per-instance early stop.  ``policy`` (a
     :class:`TierPolicy`) runs the whole batch through the two tiers, as
     the reference's (src/repro/kernels/ops.py:1917-1963): a float32 pass
     of at most ``max(1, int(max_rounds * fp32_round_frac))`` rounds,
@@ -1567,7 +1577,6 @@ def propagate_batch_block_ell(
     ``donate`` changes nothing (the planes are private copies)."""
     if driver not in KERNEL_DRIVERS:
         raise ValueError(f"unknown driver: {driver!r}")
-    check_dtype(dtype)
     problems = list(problems)
     pair = two_tier_bounds_dtypes(policy, dtype) if policy is not None else None
     if pair is not None:
@@ -1715,28 +1724,28 @@ def node_round_fn_for(
     partitioned node kernels, ``slab`` overriding the window width; the
     plain path there takes the engine of ``scatter="auto"`` as the
     reference's plain node round does (the segment round under
-    ``REPRO_AUTO_LARGE_SCATTER=segment``, read here).  Float64 or float32
-    everywhere.  The closure is ``measured`` as
-    :func:`batched_round_fn_for`'s (``progress=``), except the plain
-    segment round's (the loop then measures from copies of the planes).
-    A 16-bit prep raises ``NotImplementedError`` (ROADMAP Queue 1 item 5,
-    remainder, part two)."""
-    dt = check_dtype(prep.d.val.dtype)
-    eps, outward = cfg.eps_for(dt), cfg.outward_for(dt)
+    ``REPRO_AUTO_LARGE_SCATTER=segment``, read here).  Every value type
+    (a bfloat16 prep's compact ids where ``n_pad <= 2**15``, as
+    :func:`prepare_block_ell` holds them; the scalars rounded to the type,
+    :func:`~repro_torch.core.propagator.round_scalars`).  The closure is
+    ``measured`` as :func:`batched_round_fn_for`'s (``progress=``), except
+    the plain segment round's (the loop then measures from copies of the
+    planes)."""
+    eps, int_eps, inf, outward = round_scalars(cfg, prep.d.val.dtype)
     ops = KERNEL_OPS if use_kernels else PLAIN_OPS
     large = prep.n_pad > SCATTER_MAX_NPAD
     if large and not use_kernels and _auto_large_scatter() == "segment":
         def round_fn(lb, ub, active):
-            return _node_segment_round(prep, lb, ub, active, eps=eps, int_eps=cfg.int_eps,
-                                       inf=cfg.inf, outward=outward)
+            return _node_segment_round(prep, lb, ub, active, eps=eps, int_eps=int_eps,
+                                       inf=inf, outward=outward)
 
         return round_fn
     part = prep.slab_partition(slab) if large else None
-    kept = KeptPlanes(cfg.inf)
+    kept = KeptPlanes(inf)
 
     def round_fn(lb, ub, active, progress=None):
         return _node_round(
-            prep, lb, ub, active, ops=ops, eps=eps, int_eps=cfg.int_eps, inf=cfg.inf,
+            prep, lb, ub, active, ops=ops, eps=eps, int_eps=int_eps, inf=inf,
             outward=outward, part=part, kept=kept, progress=progress,
         )
 
@@ -1782,7 +1791,8 @@ def node_batch_runner(
             on_sync=on_sync,
         )
         lb, ub, rounds, converged, progress = out[:5]
-        infeasible = ((lb > ub + cfg.feas_eps) & col_valid[None, :]).any(dim=-1)
+        infeasible = (kref.crossed_columns(lb, ub, cfg.feas_eps)
+                      & col_valid[None, :]).any(dim=-1)
         return (lb, ub, rounds, converged, infeasible, progress) + out[5:]
 
     return run
@@ -1790,10 +1800,11 @@ def node_batch_runner(
 
 def _node_planes(prep: PreparedBlockEll, lb_nodes, ub_nodes):
     """``(B, n)`` caller planes -> private column-padded ``(B, n_pad)``
-    tensors on the prepared device."""
+    tensors on the prepared device, each value converted once to the
+    prep's dtype (:func:`~repro_torch.core.types.as_values`)."""
     dev, dt = prep.lb0.device, prep.lb0.dtype
-    lb_t = torch.as_tensor(lb_nodes, dtype=dt, device=dev)
-    ub_t = torch.as_tensor(ub_nodes, dtype=dt, device=dev)
+    lb_t = as_values(lb_nodes, dt, dev)
+    ub_t = as_values(ub_nodes, dt, dev)
     if lb_t.ndim != 2 or lb_t.shape != ub_t.shape:
         raise ValueError(
             f"node bound planes must share a (B, n) shape, got "

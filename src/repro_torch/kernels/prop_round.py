@@ -16,8 +16,8 @@ a CPU tensor it runs the kernel's plain-PyTorch version (``ref.py``); on a
 CUDA tensor it launches the hand-written Hopper kernel of
 ``csrc/prop_round.cu``, ``csrc/slab_round.cu``, ``csrc/tier_round.cu``,
 ``csrc/batch_tier_round.cu``, ``csrc/slab_tier_round.cu``,
-``csrc/telemetry.cu`` or ``csrc/half_round.cu`` on the current stream, or
-raises -- it never falls back.  Each wrapper counts
+``csrc/telemetry.cu``, ``csrc/half_round.cu`` or ``csrc/half_batch_round.cu``
+on the current stream, or raises -- it never falls back.  Each wrapper counts
 its kernel launches in a plain integer attribute, ``<wrapper>.launches``
 (see :func:`launch_counts`), and by form (:func:`form_counts`).
 
@@ -26,14 +26,15 @@ The precision tiers (ROADMAP Queue 1 item 5): every wrapper but #16's
 fp32 tier), with int32 columns and marks or, where the tier's ``n_pad``
 fits int16 (D, A', E, the node forms, and B and C's marks), the compact
 int16 columns and int8 marks (:data:`TIER_FORMS`); the slab kernels take
-int32 ids at both value types.  F and #15 for one instance take the
+int32 ids at every value type.  F and #15 for one instance take the
 progress-based early stop (``stop``), #9 and #15 over a batch the batched
-one's per-row measure (``progress``).  The kernels of the single-instance
-engines (``_build.HALF_KERNELS``) also take bfloat16 (compact ids too) and
-float16 values: their scalars are rounded to the type here (as the
-reference's weakly typed scalars are), D, E and #12 scatter into float32
-planes, and F and #15 read them (and sum their stop's measure in float32).
-A 16-bit form of another kernel raises ``NotImplementedError``.
+one's per-row measure (``progress``).  Every kernel but #16
+(``_build.HALF_KERNELS``) also takes bfloat16 (compact ids too where
+float32 has them) and float16 values (``csrc/half_round.cu``,
+``csrc/half_batch_round.cu``): their scalars are rounded to the type here
+(as the reference's weakly typed scalars are), D, E, #8, #10, #12 and #14
+scatter into float32 planes, and F, #9 and #15 read them (and sum their
+stop's measure in float32).
 
 The telemetry (ROADMAP Queue 1 item 6) adds two kernels of its own, with no
 Pallas twin: ``record_round_tiles`` after one instance's round and
@@ -173,14 +174,7 @@ def _value_form(name: str, t: torch.Tensor) -> str:
 
 
 def _tier_entry(name: str, form: str):
-    """The C entry point of a tier kernel's form, and its name.  A 16-bit
-    form of a kernel outside ``_build.HALF_KERNELS`` raises
-    ``NotImplementedError``."""
-    if form.startswith(("bf16", "f16")) and name not in _build.HALF_KERNELS:
-        raise NotImplementedError(
-            f"{name}: the 16-bit forms of the batched and node kernels are ROADMAP Queue 1 "
-            "item 5, remainder, part two"
-        )
+    """The C entry point of a tier kernel's form, and its name."""
     symbol = name + _FORM_SUFFIX[form]
     return getattr(_build.lib(), symbol), symbol
 
@@ -882,7 +876,10 @@ def node_fused_scatter_round_tiles(
     reductions; no plane is allocated or filled per launch.  Float64 or
     float32 (``csrc/batch_tier_round.cu``, the same template; with the
     compact ids of a float32 prep whose ``n_pad`` fits int16), at 4 B a
-    value, 2 B a compact column and 1 B a compact mark."""
+    value, 2 B a compact column and 1 B a compact mark; bfloat16 (compact
+    ids too) and float16 (``csrc/half_batch_round.cu``) at 2 B a value,
+    into float32 planes (as D's 16-bit forms)."""
+    (int_eps, inf) = _scalars(val.dtype, int_eps, inf)
     operands = (val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, *acc)
     if not _on_cuda(*operands):
         return _fold(acc, ref.node_fused_scatter_round_ref(
@@ -893,7 +890,8 @@ def node_fused_scatter_round_tiles(
     _expect("rhs_g", rhs_g, val.dtype, (t, r))
     bsz = lb.shape[0]
     best_l, best_u = acc
-    _check_planes(bsz, n_pad, val.dtype, lb=lb, ub=ub, best_l=best_l, best_u=best_u)
+    _check_planes(bsz, n_pad, val.dtype, lb=lb, ub=ub)
+    _check_planes(bsz, n_pad, plane_dtype(val.dtype), best_l=best_l, best_u=best_u)
     _expect("active", active, torch.bool, (bsz,))
     clen = _chunk_len(val, chunk_len)
     entry, symbol = _tier_entry("node_fused_scatter_round", form)
@@ -945,8 +943,10 @@ def node_activities_gather_tiles(val, col, lb, ub, active, n_pad: int, inf: floa
     B of partials per (active node, chunk).  Design: kernel #10's scheme
     over A''s loads: each warp loads its chunks' strides once, ballots the
     mask 32 nodes at a time and visits the active nodes only.  Float64 or
-    float32 (``csrc/batch_tier_round.cu``), with the compact ids as
-    #10's."""
+    float32 (``csrc/batch_tier_round.cu``), bfloat16 or float16
+    (``csrc/half_batch_round.cu``, each chunk's sums in float32 rounded
+    once), with the compact ids as #10's."""
+    (inf,) = _scalars(val.dtype, inf)
     if not _on_cuda(val, col, lb, ub, active):
         return ref.node_activities_gather_ref(val, col, lb, ub, active, n_pad, inf)
     t, r, k, bsz, form = _check_node_tiles(val, col, lb, ub, active, n_pad)
@@ -985,7 +985,9 @@ def node_combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start, acti
     a (segment block, group of 32 nodes) grid; each warp ballots its
     group's flags and, for each active node, runs the single-instance
     combine's thread (short segments) or warp (long segments) on the
-    node's planes.  Float64 or float32 (``csrc/batch_tier_round.cu``)."""
+    node's planes.  Float64 or float32 (``csrc/batch_tier_round.cu``),
+    bfloat16 or float16 (``csrc/half_batch_round.cu``, rounding after every
+    add, in chunk order, as the reference's segment sum does)."""
     operands = (mf, mc, xf, xc, chunk_row, row_start, active)
     if not _on_cuda(*operands):
         return ref.node_combine_chunk_partials_ref(*operands)
@@ -1033,7 +1035,9 @@ def node_candidates_scatter_tiles(
     E's integer-atomic scatter into each node's row; the accumulator
     planes are filled with the sentinel before the launch.  Float64 or
     float32 (``csrc/batch_tier_round.cu``), with the compact ids as
-    #10's."""
+    #10's; bfloat16 or float16 (``csrc/half_batch_round.cu``) into float32
+    planes (the sentinels and the candidates exact in float32)."""
+    (int_eps, inf) = _scalars(val.dtype, int_eps, inf)
     operands = (val, col, is_int_g, row_min_fin, row_min_cnt, row_max_fin, row_max_cnt,
                 lhs_g, rhs_g, lb, ub, active)
     if not _on_cuda(*operands):
@@ -1043,8 +1047,9 @@ def node_candidates_scatter_tiles(
                 row_max_fin=row_max_fin, row_max_cnt=row_max_cnt)
     _check_rows((t, r), val.dtype, lhs_g=lhs_g, rhs_g=rhs_g)
     clen = _chunk_len(val, chunk_len)
-    best_l = torch.full((bsz, n_pad), -inf, dtype=val.dtype, device=val.device)
-    best_u = torch.full((bsz, n_pad), inf, dtype=val.dtype, device=val.device)
+    pdt = plane_dtype(val.dtype)
+    best_l = torch.full((bsz, n_pad), -inf, dtype=pdt, device=val.device)
+    best_u = torch.full((bsz, n_pad), inf, dtype=pdt, device=val.device)
     if t == 0 or bsz == 0:
         return best_l, best_u
     entry, symbol = _tier_entry("node_candidates_scatter", form)
@@ -1116,7 +1121,10 @@ def batched_fused_scatter_round_tiles(
     column max/min by fire-and-forget 64-bit integer reductions; no plane
     is allocated or filled per launch.  Float64 or float32
     (``csrc/batch_tier_round.cu``, the same template, int32 ids as the
-    reference's packed batch keeps them), at 4 B a value."""
+    reference's packed batch keeps them), at 4 B a value; bfloat16 and
+    float16 (``csrc/half_batch_round.cu``, int32 ids) at 2 B a value, into
+    float32 planes."""
+    (int_eps, inf) = _scalars(val.dtype, int_eps, inf)
     operands = (val, col, is_int_g, lhs_g, rhs_g, lb, ub, tile_inst, active, *acc)
     if not _on_cuda(*operands):
         return _fold(acc, ref.batched_fused_scatter_round_ref(
@@ -1129,7 +1137,8 @@ def batched_fused_scatter_round_tiles(
     _expect("tile_inst", tile_inst, torch.int32, (t,))
     bsz = lb.shape[0]
     best_l, best_u = acc
-    _check_planes(bsz, n_pad, val.dtype, lb=lb, ub=ub, best_l=best_l, best_u=best_u)
+    _check_planes(bsz, n_pad, val.dtype, lb=lb, ub=ub)
+    _check_planes(bsz, n_pad, plane_dtype(val.dtype), best_l=best_l, best_u=best_u)
     _expect("active", active, torch.bool, (bsz,))
     start = _instance_chunks(tile_inst, r, bsz, chunks)
     clen = _chunk_len(val, chunk_len)
@@ -1203,7 +1212,11 @@ def apply_updates_batch_tiles(
     ballot ahead of the first load.
 
     Float64 or float32 (the fp32 tier, whose merges widen outward by
-    ``outward``; ``csrc/batch_tier_round.cu``), at 4 B a value.
+    ``outward``; ``csrc/batch_tier_round.cu``), at 4 B a value; bfloat16
+    and float16 (``csrc/half_batch_round.cu``) at 2 B a value, ``best_l`` /
+    ``best_u`` the float32 planes of #8, #10 and E (narrowed back exactly),
+    the measure's terms summed in float32 (``partials`` float32) and each
+    row's sum rounded once.
     ``progress`` (a ``(B,)`` tensor of the bounds' dtype) arms the batched
     early stop's measure: the kernel (``apply_updates_batch_stop``) also
     writes each active row's progress measure of this merge into it, in
@@ -1216,9 +1229,10 @@ def apply_updates_batch_tiles(
     Inactive rows' entries are not written.  The streak and the mask are
     the caller's (``core.propagator.batched_step_rounds``).  Without it #9
     runs as before, to the bit."""
+    (eps, inf, outward) = _scalars(lb.dtype, eps, inf, outward)
     if not _on_cuda(lb, ub, best_l, best_u, active):
         new_lb, new_ub, changed = bnd.apply_updates_batch(
-            lb, ub, best_l, best_u, eps, inf, outward, active=active
+            lb, ub, best_l.to(lb.dtype), best_u.to(ub.dtype), eps, inf, outward, active=active
         )
         if progress is not None:
             _plain_row_progress(lb, ub, new_lb, new_ub, active, progress, partials)
@@ -1228,7 +1242,8 @@ def apply_updates_batch_tiles(
         return lb, ub, _plain_flags(flags, changed)
     bsz, n_pad = lb.shape
     form = _value_form("lb", lb)
-    _check_planes(bsz, n_pad, lb.dtype, lb=lb, ub=ub, best_l=best_l, best_u=best_u)
+    _check_planes(bsz, n_pad, lb.dtype, lb=lb, ub=ub)
+    _check_planes(bsz, n_pad, plane_dtype(lb.dtype), best_l=best_l, best_u=best_u)
     _expect("active", active, torch.bool, (bsz,))
     changed, clear = _flag_buffers(flags, (bsz,), torch.bool, lb.device)
     head = (_p(lb), _p(ub), _p(best_l), _p(best_u), _p(active), _p(changed),
@@ -1238,18 +1253,17 @@ def apply_updates_batch_tiles(
         err = entry(*head, bsz, n_pad, eps, inf, outward, _stream())
     else:
         blocks = -(-n_pad // ref.MERGE_BLOCK)
+        pdt = plane_dtype(lb.dtype)
         if partials is None:
-            partials = torch.empty((bsz, blocks), dtype=lb.dtype, device=lb.device)
+            partials = torch.empty((bsz, blocks), dtype=pdt, device=lb.device)
         if ticket is None:
             ticket = torch.zeros(1, dtype=torch.int32, device=lb.device)
         _expect("progress", progress, lb.dtype, (bsz,))
-        _expect("partials", partials, lb.dtype, (bsz, blocks))
+        _expect("partials", partials, pdt, (bsz, blocks))
         _expect("ticket", ticket, torch.int32, (1,))
-        symbol = "apply_updates_batch_stop" + ("" if form == "f64" else "_f32")
-        err = getattr(_build.lib(), symbol)(
-            *head, _p(partials), _p(progress), _p(ticket), bsz, n_pad, eps, inf, outward,
-            _stream(),
-        )
+        entry, symbol = _tier_entry("apply_updates_batch_stop", form)
+        err = entry(*head, _p(partials), _p(progress), _p(ticket), bsz, n_pad, eps, inf, outward,
+                    _stream())
         form += "+stop"
     _launched(apply_updates_batch_tiles, form)
     _build.check(err, symbol)
@@ -1318,8 +1332,8 @@ def _check_runs(n_tiles: int, **runs) -> int:
 
 
 def _check_copies(val, col_s, lb, ub, active):
-    """Copy tiles (float64 or float32 values, int32 slab-local columns) and
-    their ``(B, W)`` planes; returns ``(T, R, K, B, W)``."""
+    """Copy tiles (values of any type, int32 slab-local columns) and their
+    ``(B, W)`` planes; returns ``(T, R, K, B, W)``."""
     t, r, k = val.shape
     dt = _float_dtype("val", val)
     _expect("val", val, dt, (t, r, k))
@@ -1454,12 +1468,13 @@ def _slab_merge(lb, ub, best_l, best_u, active, slab: int, eps: float, inf: floa
             err = entry(*head, _p(out), ptr(clear), None, bsz, width, slab, k, unroll, eps, inf,
                         outward, _stream())
         else:
+            pdt = plane_dtype(lb.dtype)
             if partials is None:
-                partials = torch.empty((bsz, blocks), dtype=lb.dtype, device=lb.device)
+                partials = torch.empty((bsz, blocks), dtype=pdt, device=lb.device)
             if ticket is None:
                 ticket = torch.zeros(1, dtype=torch.int32, device=lb.device)
             _expect("progress", progress, lb.dtype, (bsz,))
-            _expect("partials", partials, lb.dtype, (bsz, blocks))
+            _expect("partials", partials, pdt, (bsz, blocks))
             _expect("ticket", ticket, torch.int32, (1,))
             entry, symbol = _tier_entry("slab_merge_rows_stop", form)
             err = entry(*head, _p(out), ptr(clear), _p(partials), _p(progress), _p(ticket), bsz,
@@ -1484,7 +1499,7 @@ def _plain_slab_merge(lb, ub, best_l, best_u, active, slab: int, eps: float, inf
     if partials is not None and carry is not None and stop is not None:
         _expect("partials", partials, plane_dtype(lb.dtype), (blocks,))
     elif partials is not None and carry is None and progress is not None:
-        _expect("partials", partials, lb.dtype, (lb.shape[0], blocks))
+        _expect("partials", partials, plane_dtype(lb.dtype), (lb.shape[0], blocks))
     (eps, inf, outward) = _scalars(lb.dtype, eps, inf, outward)
     new_lb, new_ub, win = ref.apply_updates_slab_ref(lb, ub, best_l, best_u, active, slab, eps,
                                                      inf, outward)
@@ -1634,7 +1649,9 @@ def node_slab_partials_tiles(
     ``max_chunk_len`` the longest (``a_chunk_len``, ``a_max_chunk_len``),
     all hoisted by the partition; computed from the run maps, from ``val``
     and as K when omitted.  Float64 or float32 (``csrc/slab_tier_round.cu``,
-    the same template, int32 ids), at 4 B a value.
+    the same template, int32 ids), at 4 B a value; bfloat16 and float16
+    (``csrc/half_batch_round.cu``) at 2 B a value, each copy's sums in
+    float32 rounded once.
 
     Replaces ``node_slab_partials_tiles`` / ``_node_slab_partials_kernel``
     (src/repro/kernels/prop_round.py:1383 / :1351).  Bound on the H100: the
@@ -1650,6 +1667,7 @@ def node_slab_partials_tiles(
     added), in ``ref.warp_order_sum``'s order; the lane group keyed on the
     longest copy, as D's is.  The outputs are allocated, not filled: the
     straddle combine reads the active planes only."""
+    (inf,) = _scalars(val.dtype, inf)
     operands = (val, col_s, run_start, run_len, run_slab, active, lb, ub)
     if not _on_cuda(*operands):
         return ref.node_slab_partials_ref(*operands, slab, max_run_len, inf)
@@ -1721,7 +1739,9 @@ def straddle_combine_tiles(mf, mc, xf, xc, a_order, a_seg, agg_slot, active=None
     plane, chunk) copies its slot's entry; each warp ballots its group of
     32 planes' flags.  Float64 or float32 (``csrc/slab_tier_round.cu``
     ``straddle_combine_f32``, the same template: each slot's partials summed
-    from +0.0 in sub-stream order), at 4 B a value."""
+    from +0.0 in sub-stream order), at 4 B a value; bfloat16 and float16
+    (``csrc/half_round.cu``, a rounding after every add), one plane or a
+    node batch's active planes."""
     operands = (mf, mc, xf, xc, a_order, a_seg, agg_slot)
     if active is not None:
         operands += (active,)
@@ -1784,7 +1804,8 @@ def node_slab_round_tiles(
     ``ticket`` kept with it) takes each active node's early-stop measure of
     the round, as #9's (:func:`_slab_merge`).  Float64 or float32
     (``csrc/slab_tier_round.cu``, the same templates, int32 ids), at 4 B a
-    value.
+    value; bfloat16 and float16 (``csrc/half_batch_round.cu``) at 2 B a
+    value, into float32 planes.
 
     Replaces ``node_slab_round_tiles`` / ``_node_slab_round_kernel``
     (src/repro/kernels/prop_round.py:1498 / :1443).  Bound on the H100: the
@@ -1802,6 +1823,7 @@ def node_slab_round_tiles(
     integer reductions) into the kept planes; #15's merge skips the
     inactive rows and hands the active ones back (counted as #15's
     launch).  No plane is allocated or filled per launch."""
+    (eps, int_eps, inf, outward) = _scalars(val.dtype, eps, int_eps, inf, outward)
     strs = (str_min_fin, str_min_cnt, str_max_fin, str_max_cnt)
     operands = (val, col_s, is_int_g, row_done, *strs, lhs_g, rhs_g, run_start, run_len,
                 run_slab, active, lb, ub, *acc, tile_slab)
@@ -1820,7 +1842,7 @@ def node_slab_round_tiles(
     if n_runs != _n_slabs(width, slab):
         raise ValueError(f"{n_runs} runs, expected one per slab ({_n_slabs(width, slab)})")
     best_l, best_u = acc
-    _check_planes(bsz, width, val.dtype, best_l=best_l, best_u=best_u)
+    _check_planes(bsz, width, plane_dtype(val.dtype), best_l=best_l, best_u=best_u)
     _expect("tile_slab", tile_slab, torch.int32, (t,))
     clen = _chunk_len(val, chunk_len)
     entry, symbol = _tier_entry("node_slab_scatter", form)
@@ -1874,10 +1896,10 @@ def apply_updates_slab_tiles(
     ``CarryFlags``, or with the early stop F's ``StopCarryFlags``); a
     batch's per-row measure is #9's (``WindowStopFlags``).  Float64 or
     float32 (``csrc/slab_tier_round.cu``), at 4 B a value; bfloat16 and
-    float16 for one instance (``csrc/half_round.cu``: the float32 planes of
-    #12 narrowed back exactly, the measure summed in float32 and rounded
-    once; the batched row measure is ROADMAP Queue 1 item 5, remainder,
-    part two)."""
+    float16 (``csrc/half_round.cu`` for one instance,
+    ``csrc/half_batch_round.cu`` for the batched row measure: the float32
+    planes of #12 and #14 narrowed back exactly, the measure summed in
+    float32 and rounded once)."""
     if stop is not None and unroll != 1:
         raise ValueError(f"unroll={unroll}: #15's early stop takes one round a check group")
     if not _on_cuda(lb, ub, best_l, best_u, active):
@@ -2066,7 +2088,8 @@ def record_round_batch_tiles(lb, ub, progress, ran, rounds, flat, plane, feas_ep
     ``(B,)`` lanes.  Design (``csrc/telemetry.cu``): a (column block, row)
     grid whose rows that did not run read nothing; each row's hits ORed
     into its scratch flag, and the launch's last block records every row.
-    Float64 or float32."""
+    Float64, float32, bfloat16 or float16 (``csrc/half_batch_round.cu``;
+    ``feas_eps`` rounded to the type)."""
     if not _on_cuda(lb, ub, progress, ran, rounds, flat, *plane):
         ref.record_round_batch_ref(lb, ub, progress, ran, rounds, flat, plane, feas_eps,
                                    patience)
@@ -2106,7 +2129,7 @@ class RecordBatchLaunch:
             self.entry, self.symbol, self.form, self.cap = _record_batch_args(
                 lb, ub, progress, self.plane, self.scratch)
             self.tail = (*_plane_ptrs(self.plane), _p(self.scratch), lb.shape[0], lb.shape[1],
-                         self.cap, int(self.patience), self.feas_eps)
+                         self.cap, int(self.patience), rounded(self.feas_eps, lb.dtype))
             self.fixed = ptrs
         lanes = (bsz,) = lb.shape[:1]
         if not (ran.dtype is torch.bool and rounds.dtype is torch.int32

@@ -12,7 +12,7 @@ import torch
 
 from ..core import bounds as bnd
 from ..core import carry as _carry
-from ..core.types import INF, int_round_slack, is_half, rounded
+from ..core.types import INF, int_round_slack, is_half, plane_dtype, rounded
 from ..obs import telemetry as _tel
 
 
@@ -247,9 +247,12 @@ def merge_progress(lb, ub, new_lb, new_ub):
 def merge_rows_progress(lb, ub, new_lb, new_ub):
     """#9's early-stop measure of one merge of ``(B, n)`` planes: each row's
     block sums ``(B, ceil(n / MERGE_BLOCK))`` (the kernel's partials) and
-    their sum in block order ``(B,)`` (the row's measure)."""
-    blocks = merge_block_sums(_progress_terms(lb, ub, new_lb, new_ub))
-    return blocks, warp_order_sum(blocks)
+    their sum in block order ``(B,)`` (the row's measure).  16-bit terms
+    are summed in float32 (float32 partials) and each row's sum rounded
+    once, as :func:`merge_order_sum`."""
+    terms = _progress_terms(lb, ub, new_lb, new_ub)
+    blocks = merge_block_sums(terms.to(plane_dtype(terms.dtype)))
+    return blocks, warp_order_sum(blocks).to(terms.dtype)
 
 
 def merge_carry_ref(lb, ub, best_l, best_u, eps: float, inf: float, outward: float, carry,
@@ -473,8 +476,9 @@ def node_candidates_scatter_ref(
     others."""
     del chunk_len
     bsz = lb.shape[0]
-    best_l = torch.full((bsz, n_pad), -inf, dtype=lb.dtype, device=lb.device)
-    best_u = torch.full((bsz, n_pad), inf, dtype=ub.dtype, device=ub.device)
+    dt = plane_dtype(lb.dtype)  # float32 planes beside 16-bit bounds, as the kernel's
+    best_l = torch.full((bsz, n_pad), -inf, dtype=dt, device=lb.device)
+    best_u = torch.full((bsz, n_pad), inf, dtype=dt, device=ub.device)
     rows = _active_rows(active)
     nb = rows.numel()
     if nb:
@@ -485,7 +489,7 @@ def node_candidates_scatter_ref(
         )
         plane = torch.arange(nb, device=c.device)[:, None, None, None] * n_pad
         bl, bu = scatter_round_ref(lcand, ucand, c[None] + plane, nb * n_pad, inf)
-        best_l[rows], best_u[rows] = bl.view(nb, n_pad), bu.view(nb, n_pad)
+        best_l[rows], best_u[rows] = bl.view(nb, n_pad).to(dt), bu.view(nb, n_pad).to(dt)
     return best_l, best_u
 
 
@@ -955,10 +959,16 @@ def incumbent_update_ref(leaf, obj, inc, inc_x, lb, inf: float = INF):
 # ---------------------------------------------------------------------------
 
 
+def crossed_columns(lb, ub, feas_eps: float):
+    """Where ``lb > ub + feas_eps``, computed in the bounds' dtype (the
+    scalar rounded to it, as the reference's weakly typed one is)."""
+    return lb > ub + rounded(feas_eps, lb.dtype)
+
+
 def crossed(lb, ub, feas_eps: float):
     """The infeasibility probe over the last axis: some ``lb > ub +
     feas_eps`` (computed in the bounds' dtype), padding columns included."""
-    return (lb > ub + rounded(feas_eps, lb.dtype)).any(dim=-1)
+    return crossed_columns(lb, ub, feas_eps).any(dim=-1)
 
 
 def record_round_ref(lb, ub, carry, plane, feas_eps: float, unroll: int = 1,

@@ -316,8 +316,9 @@ def build_slab_partition(
     )
     a_order, a_seg, agg_pos = straddle_combine_index(sub["slot"], main["slot"], n_straddle)
 
-    lhs1 = np.asarray(lhs1, dtype=dt)
-    rhs1 = np.asarray(rhs1, dtype=dt)
+    with np.errstate(over="ignore"):  # float16: the INF sentinel overflows to inf
+        lhs1 = np.asarray(lhs1, dtype=dt)
+        rhs1 = np.asarray(rhs1, dtype=dt)
     dev = torch.device(device)
     t_ = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     i32 = lambda x: t_(np.asarray(x).astype(np.int32))

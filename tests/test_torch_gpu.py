@@ -3059,3 +3059,167 @@ def test_half_engines_on_card_match_cpu(cuda, gen_name, kw, dtype):
                 _match_values(got.lb, want.lb)
                 _match_values(got.ub, want.ub)
 
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 and float16 on the batched, node, service and sharded entry
+# points (csrc/half_batch_round.cu)
+# ---------------------------------------------------------------------------
+
+
+def _half_same(got, want, fields=("rounds", "converged", "infeasible", "lb", "ub")):
+    for f in fields:
+        _match_values(torch.as_tensor(getattr(got, f)), torch.as_tensor(getattr(want, f)))
+
+
+@pytest.mark.parametrize("dtype", HALF_DTYPES, ids=["bf16", "f16"])
+@pytest.mark.parametrize("case", range(len(BATCHES)))
+def test_half_batch_on_card_matches_cpu(cuda, case, dtype):
+    """``propagate_batch`` at 16 bits (#8 + #9, or the flat A', combine and
+    E + #9), plain, early-stopped (#9's stop form) and with telemetry (the
+    batched record kernel), on the card against the same runs on the CPU:
+    flags and bounds bitwise as values; each launching its 16-bit forms."""
+    make, tile_width = BATCHES[case]
+    pop = make()
+    label = "bf16" if dtype == torch.bfloat16 else "f16"
+    tk.reset_launch_counts()
+    for run in ({}, dict(stop_progress=0.05, patience=1), dict(telemetry=16)):
+        got = rt.propagate_batch(pop, tile_width=tile_width, dtype=dtype, **run)
+        want = rt.propagate_batch(pop, tile_width=tile_width, dtype=dtype, device="cpu", **run)
+        for g, w in zip(got, want):
+            assert g.lb.dtype == dtype
+            _half_same(g, w)
+    forms = tk.form_counts()
+    assert forms.get(f"apply_updates_batch_tiles[{label}]", 0) > 0
+    assert forms.get(f"apply_updates_batch_tiles[{label}+stop]", 0) > 0
+    assert forms.get(f"record_round_batch_tiles[{label}]", 0) > 0
+    fused = all(int(np.diff(p.csr.row_ptr).max()) <= tile_width for p in pop)
+    if fused:
+        assert forms.get(f"batched_fused_scatter_round_tiles[{label}]", 0) > 0
+
+
+@pytest.mark.parametrize("dtype", HALF_DTYPES, ids=["bf16", "f16"])
+def test_half_batch_past_the_limit_on_card(cuda, small_limit, dtype):
+    """The partitioned batch at 16 bits (#11, the straddle combine, #12, #15
+    and its row-stop form) on the card against the CPU, bitwise."""
+    probs = [td.make_knapsack(n=280, m=8, seed=5), td.make_set_cover(n=270, m=25, seed=6)]
+    label = "bf16" if dtype == torch.bfloat16 else "f16"
+    tk.reset_launch_counts()
+    for run in ({}, dict(stop_progress=0.05, patience=1)):
+        got = rt.propagate_batch(probs, tile_rows=2, tile_width=8, dtype=dtype, **run)
+        want = rt.propagate_batch(probs, tile_rows=2, tile_width=8, dtype=dtype, device="cpu",
+                                  **run)
+        for g, w in zip(got, want):
+            _half_same(g, w)
+    forms = tk.form_counts()
+    assert forms.get(f"batched_slab_round_tiles[{label}]", 0) > 0
+    assert forms.get(f"apply_updates_slab_tiles[{label}+stop_rows]", 0) > 0
+
+
+@pytest.mark.parametrize("dtype", HALF_DTYPES, ids=["bf16", "f16"])
+@pytest.mark.parametrize("tile_width", [8, 4])
+def test_half_batch_nodes_and_service_on_card_match_cpu(cuda, tile_width, dtype):
+    """``propagate_nodes`` (#10, or the node-batched A', combine and E; #9)
+    at 16 bits, bfloat16 on the compact ids, with the early stop and a
+    float16 ``TierPolicy``, and the service through 2 slots, on the card
+    against the CPU: flags and bounds bitwise as values."""
+    p = td.make_pseudo_boolean(n=3000, m=4000, seed=7, unit_frac=0.002)
+    lb, ub = _nodes(p, 6)
+    label = "bf16c" if dtype == torch.bfloat16 else "f16"
+    runs = [{}, dict(stop_progress=0.05, patience=1)]
+    if dtype == torch.float16:
+        runs.append(dict(policy=rt.core.TierPolicy()))
+    tk.reset_launch_counts()
+    for run in runs:
+        got = rt.propagate_nodes(p, lb, ub, tile_width=tile_width, dtype=dtype, **run)
+        want = rt.propagate_nodes(p, lb, ub, tile_width=tile_width, dtype=dtype, device="cpu",
+                                  **run)
+        _half_same(got, want)
+    forms = tk.form_counts()
+    name = ("node_fused_scatter_round_tiles" if tile_width == 8
+            else "node_candidates_scatter_tiles")
+    assert forms.get(f"{name}[{label}]", 0) > 0
+    pop = [td.make_pseudo_boolean(n=3000, m=4000, seed=s, unit_frac=0.002) for s in (7, 8, 9)]
+    svc = rt.PropagationService.from_problems(pop, slots=2, tile_width=tile_width, dtype=dtype)
+    ref = rt.PropagationService.from_problems(pop, slots=2, tile_width=tile_width, dtype=dtype,
+                                              device="cpu")
+    for g, w in zip(svc.serve(pop), ref.serve(pop)):
+        _half_same(g, w, ("rounds", "converged", "lb", "ub"))
+
+
+@pytest.mark.parametrize("dtype", HALF_DTYPES, ids=["bf16", "f16"])
+def test_half_batch_node_slab_kernels_match_plain_versions(cuda, dtype):
+    """#13, the straddle combine over the active planes, #14 with #15 (on
+    the grid at 3 rows, on the walk at 20) and #15's row-stop form at 16
+    bits on a partition, against their plain versions on the card, bitwise
+    as values; each launching its 16-bit form."""
+    gen_name, kw, tile, slab, _ = SLAB_TIER_CASES[0]
+    p = getattr(td, gen_name)(**kw)
+    prep = rt.prepare_block_ell(p, *tile, dtype=dtype)
+    part = prep.slab_partition(slab)
+    eps, int_eps, inf, outward = rt.core.propagator.round_scalars(rt.core.DEFAULT_CONFIG, dtype)
+    label = "bf16" if dtype == torch.bfloat16 else "f16"
+    lbs, ubs = _nodes(p, 20)
+    from repro_torch.kernels import ops
+
+    lbp, ubp = ops._node_planes(prep, lbs, ubs)
+    tk.reset_launch_counts()
+    for bsz in (3, 20):
+        act = torch.arange(bsz, device=cuda) % 3 != 1
+        lb, ub = lbp[:bsz].contiguous(), ubp[:bsz].contiguous()
+        a_args = (part.a_val, part.a_col_s, part.a_run_start, part.a_run_len, part.a_run_slab,
+                  act, lb, ub, slab, part.a_max_run_len, inf)
+        got_p = tk.node_slab_partials_tiles(*a_args)
+        want_p = tref.node_slab_partials_ref(*a_args)
+        for g, w in zip(got_p, want_p):
+            _match_values(g[act], w[act])
+        index = (part.a_order, part.a_seg, part.agg_slot)
+        strs = tk.straddle_combine_tiles(*want_p, *index, act)
+        for g, w in zip(strs, tref.straddle_combine_ref(*want_p, *index, act)):
+            _match_values(g[act], w[act])
+        r_args = (part.val, part.col_s, part.ii_g, part.row_done, *strs, part.lhs_g,
+                  part.rhs_g, part.run_start, part.run_len, part.run_slab, act)
+        tail = (slab, part.max_run_len, eps, int_eps, inf, outward)
+        prog = torch.full((bsz,), 7.0, dtype=dtype, device=cuda)
+        got = tk.node_slab_round_tiles(*r_args, lb.clone(), ub.clone(), *tail,
+                                       acc=tk.accumulator_planes(lb, inf),
+                                       tile_slab=part.tile_slab, chunk_len=part.chunk_len,
+                                       progress=prog)
+        want = tref.node_slab_round_ref(*r_args, lb, ub, *tail)
+        for g, w in zip(got, want):
+            _match_values(g, w)
+        _, rows = tref.merge_rows_progress(lb, ub, want[0], want[1])
+        _match_values(prog, torch.where(act, rows, 7.0))
+    forms = tk.form_counts()
+    for name in ("node_slab_partials_tiles", "node_slab_round_tiles", "straddle_combine_tiles"):
+        assert forms.get(f"{name}[{label}]", 0) == 2, forms
+    assert forms.get(f"apply_updates_slab_tiles[{label}+stop_rows]", 0) == 2
+
+
+@pytest.mark.parametrize("dtype", HALF_DTYPES, ids=["bf16", "f16"])
+def test_half_batch_sharded_on_one_nccl_rank(cuda, dtype):
+    """The three sharded engines at 16 bits on a world of one NCCL rank
+    against the CPU: the row and batch partitions bitwise the unsharded
+    plain runs without widening, the nnz partition's flags equal."""
+    probs = [td.make_pseudo_boolean(n=3000, m=4000, seed=7), td.make_mixed(m=600, n=450, seed=21)]
+    ranks = rt.core.run_world(_half_sharded_rank, 1, backend="nccl", device="cuda",
+                              args=(probs, str(dtype).removeprefix("torch.")), timeout=300)
+    got = ranks[0]
+    exact = dataclasses.replace(rt.core.DEFAULT_CONFIG, outward_eps_f32=0.0)
+    for i, p in enumerate(probs):
+        want = rt.propagate_block_ell(p, exact, dtype=dtype, use_kernels=False, device="cpu")
+        _half_same(got["rows"][i], want)
+        nnz = got["nnz"][i]
+        assert (int(nnz.rounds), bool(nnz.infeasible)) == (int(want.rounds),
+                                                           bool(want.infeasible))
+    want = rt.propagate_batch(probs, exact, dtype=dtype, use_kernels=False, device="cpu")
+    for g, w in zip(got["batch"], want):
+        _half_same(g, w)
+
+
+def _half_sharded_rank(rank, world_size, probs, dtype):
+    del rank, world_size
+    dt = getattr(torch, dtype)
+    return dict(rows=[rt.core.propagate_sharded_rows(p, dtype=dt) for p in probs],
+                nnz=[rt.core.propagate_sharded(p, dtype=dt) for p in probs],
+                batch=rt.core.propagate_batch_sharded(probs, dtype=dt))

@@ -36,14 +36,12 @@ import functools
 
 import jax
 import jax.numpy as jnp
-import ml_dtypes
 import numpy as np
 import pytest
 import torch
 
 import repro.core as rc
 import repro.core.bounds as rbnd
-import repro.data as rd
 import repro.kernels as rk
 import repro.kernels.ref as rref
 from repro.kernels import ops as rops
@@ -54,28 +52,14 @@ from repro_torch.core import carry as tcarry
 from repro_torch.core.types import rounded
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from torch_half_common import (CFG, DTYPES, INSTANCES, RCFG, _REF_PROGRESS, _assert_same,
+                               _bitwise, _drive, _instance, _j, _t, _ulps)
+from torch_half_common import one_thread  # noqa: F401  (the module's autouse fixture)
 
 # float16 overflows INF to inf, on purpose: the reference's casts warn.
 pytestmark = pytest.mark.filterwarnings("ignore:overflow encountered in cast:RuntimeWarning")
 
-DTYPES = {"bf16": (torch.bfloat16, jnp.bfloat16), "f16": (torch.float16, jnp.float16)}
-CFG = rt.core.DEFAULT_CONFIG
-RCFG = rc.DEFAULT_CONFIG
-_REF_PROGRESS = jax.jit(rbnd.progress_measure)
 SLAB = 128
-# The reference's own float16 spread (plain round closure against its Pallas
-# kernels at their fixed points, mixed, every engine): 1 ulp.
-F16_ULPS = 1
-
-# name: (generator, kwargs, bitwise at float16).
-INSTANCES = {
-    "set_cover": ("make_set_cover", dict(seed=0), True),
-    "knapsack": ("make_knapsack", dict(seed=0), True),
-    "cascade": ("make_cascade_chain", dict(length=24), True),
-    "pb": ("make_pseudo_boolean", dict(n=120, m=240, seed=0), True),
-    "banded": ("make_banded", dict(n=150, m=300, row_nnz=12, band=40, seed=0), False),
-    "mixed": ("make_mixed", dict(m=300, n=150, seed=0, density=0.02), False),
-}
 # (scatter, (tile_rows, tile_width)) of each engine.
 ENGINES = {
     "fused": ("fused", (8, 128)),
@@ -83,78 +67,6 @@ ENGINES = {
     "segment": ("segment", (8, 128)),
     "partitioned": ("partitioned", (4, 32)),
 }
-
-
-@functools.lru_cache(maxsize=None)
-def _instance(name):
-    gen, kw, _ = INSTANCES[name]
-    pr = getattr(rd, gen)(**kw)
-    return pr, rt.problem_from_reference(pr)
-
-
-def _t(x):
-    """A reference array as a tensor, 16-bit ones through their bits."""
-    a = np.asarray(x)
-    if a.dtype == ml_dtypes.bfloat16:
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
-    return torch.from_numpy(a.copy())
-
-
-def _j(x):
-    """A tensor as a reference array, bfloat16 through its bits."""
-    if x.dtype == torch.bfloat16:
-        return jnp.asarray(x.contiguous().view(torch.int16).numpy().view(ml_dtypes.bfloat16))
-    return jnp.asarray(x.numpy())
-
-
-def _ulps(a, b):
-    """Distances in units in the last place of two 16-bit tensors; both
-    infinite (same sign) count 0."""
-    def ordered(x):
-        bits = x.contiguous().view(torch.int16).to(torch.int32)
-        return torch.where(bits < 0, -(bits & 0x7FFF), bits)
-
-    both = torch.isinf(a) & torch.isinf(b) & (torch.sign(a) == torch.sign(b))
-    return torch.where(both, 0, (ordered(a) - ordered(b)).abs())
-
-
-def _assert_same(got, want, bitwise=True, nan=False):
-    """16-bit values equal by value, or within F16_ULPS; NaN nowhere, or
-    (``nan``) where both hold it."""
-    for g, w in zip(got, want):
-        g, w = _t(g) if not isinstance(g, torch.Tensor) else g, (
-            _t(w) if not isinstance(w, torch.Tensor) else w)
-        assert g.shape == w.shape
-        if not g.is_floating_point():  # counts: the reference's are int64 under x64
-            assert bool((g.long() == w.long()).all())
-            continue
-        assert g.dtype == w.dtype
-        both = torch.isnan(g) & torch.isnan(w)
-        assert (nan or not both.any()) and not (torch.isnan(g) ^ torch.isnan(w)).any()
-        g, w = torch.where(both, 0, g), torch.where(both, 0, w)
-        if bitwise:
-            assert bool((g == w).all()), int((g != w).sum())
-        else:
-            assert g.numel() == 0 or int(_ulps(g, w).max()) <= F16_ULPS
-
-
-def _bitwise(name, dtype):
-    return dtype == "bf16" or INSTANCES[name][2]
-
-
-def _drive(fn, lb, ub, max_rounds=CFG.max_rounds, stop=None, patience=1):
-    """A reference round closure driven to its fixed point as its while loop
-    runs it (the early stop folded per round, src/repro/kernels/ops.py:
-    1290-1310): ``(lb, ub, rounds, changed, progress history)``."""
-    rounds, changed, flat, hist = 0, True, 0, []
-    while changed and rounds < max_rounds and (stop is None or flat < patience):
-        nlb, nub, ch = fn(lb, ub)
-        prog = _REF_PROGRESS(lb, ub, nlb, nub)
-        hist.append(prog)
-        if stop is not None:
-            flat = flat + 1 if bool(prog < stop) else 0
-        lb, ub, changed, rounds = nlb, nub, bool(ch), rounds + 1
-    return lb, ub, rounds, changed, hist
 
 
 @functools.lru_cache(maxsize=None)
@@ -185,17 +97,6 @@ def _check_run(got, want, bitwise):
     assert int(got.rounds) == rounds and bool(got.converged) == (not changed)
     assert bool(got.infeasible) == bool((wl > wu + rounded(CFG.feas_eps, wl.dtype)).any())
     _assert_same((got.lb, got.ub), (wl, wu), bitwise)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The port's CPU runs in one thread: the test workers share the host's
-    cores, and torch's threads at every small 16-bit op then cost more
-    than they save (a fixed point ran 15x slower with the default)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture
@@ -412,23 +313,34 @@ def test_compact_ids_at_bfloat16_only(monkeypatch):
 
 
 def test_other_entry_points_raise_part_two():
-    """The batched, node, service and sharded entry points refuse both
-    16-bit types, naming part two of the remainder."""
-    _, pt = _instance("set_cover")
+    """The batched, node, service and sharded entry points, which refused
+    both 16-bit types before their part of the port, run at both and
+    return the reference's round count on set cover (one round on every
+    entry point of the reference, sharded ones included; the port's sharded
+    engines on a world of one gloo rank in this process)."""
+    import torch.distributed as dist
+
+    pr, pt = _instance("set_cover")
     lbs, ubs = np.stack([pt.lb, pt.lb]), np.stack([pt.ub, pt.ub])
-    for tdt in (torch.bfloat16, torch.float16):
-        calls = [
-            lambda: rt.propagate_batch([pt, pt], dtype=tdt, device="cpu"),
-            lambda: rt.propagate_nodes(pt, lbs, ubs, dtype=tdt, device="cpu"),
-            lambda: rt.PropagationService.from_problems([pt], slots=1, dtype=tdt,
-                                                        device="cpu"),
-            lambda: rt.core.propagate_sharded(pt, dtype=tdt, device="cpu"),
-            lambda: rt.core.propagate_sharded_rows(pt, dtype=tdt, device="cpu"),
-            lambda: rt.core.propagate_batch_sharded([pt], dtype=tdt, device="cpu"),
-        ]
-        for call in calls:
-            with pytest.raises(NotImplementedError, match="item 5, remainder, part two"):
-                call()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        for tdt, jdt in DTYPES.values():
+            want = int(rc.propagate_batch([pr], dtype=jdt, use_pallas=False)[0].rounds)
+            calls = [
+                lambda: rt.propagate_batch([pt, pt], dtype=tdt, device="cpu")[1],
+                lambda: rt.propagate_nodes(pt, lbs, ubs, dtype=tdt, device="cpu"),
+                lambda: rt.PropagationService.from_problems([pt], slots=1, dtype=tdt,
+                                                            device="cpu").serve([pt])[0],
+                lambda: rt.core.propagate_sharded(pt, dtype=tdt, device="cpu"),
+                lambda: rt.core.propagate_sharded_rows(pt, dtype=tdt, device="cpu"),
+                lambda: rt.core.propagate_batch_sharded([pt], dtype=tdt, device="cpu")[0],
+            ]
+            for call in calls:
+                got = call()
+                assert got.lb.dtype == tdt
+                assert bool((torch.as_tensor(got.rounds) == want).all())
+    finally:
+        dist.destroy_process_group()
 
 
 # ---------------------------------------------------------------------------

@@ -32,7 +32,8 @@ def test_import_loads_no_jax_and_no_reference():
         "import repro_torch.launch.perf, repro_torch.roofline, repro_torch.roofline.analysis\n"
         "import repro_torch.roofline.counting, repro_torch.roofline.report\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "             or m == 'repro' or m.startswith('repro.'))\n"
+        "             or m == 'repro' or m.startswith('repro.') or m == 'ml_dtypes'\n"
+        "             or m.startswith('ml_dtypes.'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -44,12 +45,16 @@ def test_import_loads_no_jax_and_no_reference():
 
 
 def test_sources_name_no_jax():
+    """No module of the port and not ``chip_smoke.py`` imports JAX, the JAX
+    package or ``ml_dtypes`` (which the card's machine does not have: the
+    port's 16-bit host arrays are bit patterns)."""
     pkg = SRC / "repro_torch"
-    for path in pkg.rglob("*.py"):
+    for path in [*pkg.rglob("*.py"), SRC.parent / "chip_smoke.py"]:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
         assert "from repro." not in text and "import repro." not in text, path
         assert "from repro import" not in text, path
+        assert "import ml_dtypes" not in text and "from ml_dtypes" not in text, path
 
 
 def _call(name, p, **kw):

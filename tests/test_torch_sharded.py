@@ -1,18 +1,20 @@
 """The port's sharded engines (``repro_torch.core.sharded``) on worlds of 1,
 3 and 4 ``gloo`` ranks on the CPU, against the reference's
-``repro.core.sharded`` on a 1-device mesh, in-process.
+``repro.core.sharded`` on a 1-device mesh, in-process, at float64, float32
+and bfloat16 (bfloat16 results cross from the ranks as tensors and meet
+the reference's ``ml_dtypes`` arrays through their bits).
 
 Each world size starts once for the file (``run_world``, all three at
 once) and runs every case of ``torch_sharded_world.cases``; the tests read
 its results.  Contract: partitions array for array; results bitwise (as
 values) on the exact families (``make_cascade_chain``,
-``make_pseudo_boolean``, ``make_set_cover``, ``make_knapsack``) at float64
-and float32, ``bounds_equal`` on ``make_mixed`` and ``make_banded`` at
+``make_pseudo_boolean``, ``make_set_cover``, ``make_knapsack``) at float64,
+float32 and bfloat16, ``bounds_equal`` on ``make_mixed`` and ``make_banded`` at
 float64 (the packages sum in different orders); ``rounds``, ``converged``
 and ``infeasible`` exactly everywhere.  Against the port itself, whatever
 the data: every rank returns rank 0's result bitwise, the row partition and
-the batch partition equal the unsharded engines bitwise (at float32 run
-without outward widening, as the sharded paths merge).
+the batch partition equal the unsharded engines bitwise (at float32 and
+bfloat16 run without outward widening, as the sharded paths merge).
 """
 import dataclasses
 import functools
@@ -26,6 +28,7 @@ from pathlib import Path
 
 import jax
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -47,7 +50,7 @@ _REF_CASES = ([(n, dt) for n in EXACT for dt in DTYPES]
               + [(n, "float64") for n in CASES if n not in EXACT])
 # The reference's dtype arguments (``dtype or ...`` takes a type, not an
 # np.dtype, whose truth value is False).
-REF_DTYPE = {"float64": jnp.float64, "float32": jnp.float32}
+REF_DTYPE = {"float64": jnp.float64, "float32": jnp.float32, "bfloat16": jnp.bfloat16}
 NO_WIDENING = dataclasses.replace(tc.DEFAULT_CONFIG, outward_eps_f32=0.0)
 
 
@@ -93,8 +96,16 @@ def _reference(entry, name, dtype):
     return fn(_ref_problem(name), mesh, dtype=dt)
 
 
+def _np(x):
+    """A result field as a numpy array; a bfloat16 tensor through its
+    bits, as the reference's ``ml_dtypes`` array."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        return x.contiguous().view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return np.asarray(x)
+
+
 def _fields(r):
-    return [np.asarray(x) for x in r[:5]]
+    return [_np(x) for x in r[:5]]
 
 
 def _assert_against_reference(got, want, exact):
@@ -103,7 +114,8 @@ def _assert_against_reference(got, want, exact):
     assert (int(g_rounds), bool(g_conv), bool(g_inf)) == (int(w_rounds), bool(w_conv),
                                                           bool(w_inf))
     assert g_lb.shape == w_lb.shape and g_lb.dtype == w_lb.dtype
-    assert rt.bounds_equal(g_lb, g_ub, w_lb, w_ub)
+    wide = lambda x: x.astype(np.float64)  # bounds_equal takes no bfloat16 array
+    assert rt.bounds_equal(wide(g_lb), wide(g_ub), wide(w_lb), wide(w_ub))
     if exact:
         np.testing.assert_array_equal(g_lb, w_lb)
         np.testing.assert_array_equal(g_ub, w_ub)
@@ -112,7 +124,7 @@ def _assert_against_reference(got, want, exact):
 def _assert_same(a, b):
     """Two results of the port, bitwise (as values), progress included."""
     for f in ("lb", "ub", "rounds", "converged", "infeasible", "progress"):
-        x, y = np.asarray(getattr(a, f)), np.asarray(getattr(b, f))
+        x, y = _np(getattr(a, f)), _np(getattr(b, f))
         assert x.shape == y.shape, f
         np.testing.assert_array_equal(x, y, err_msg=f)
 
@@ -184,11 +196,10 @@ def test_every_rank_returns_rank_zeros_result(worlds, size):
 @pytest.mark.parametrize("size", WORLDS)
 def test_row_partition_equals_unsharded_port(worlds, size, name, dtype):
     want = rt.propagate_block_ell(_port_problem(name), NO_WIDENING, tile_width=TILE_WIDTH,
-                                  dtype=np.dtype(dtype), use_kernels=False, device="cpu")
+                                  dtype=getattr(torch, dtype), use_kernels=False, device="cpu")
     got = worlds[size][0][("rows", name, dtype)]
     for f in ("lb", "ub", "rounds", "converged", "infeasible"):
-        np.testing.assert_array_equal(np.asarray(getattr(got, f)), getattr(want, f).numpy(),
-                                      err_msg=f)
+        np.testing.assert_array_equal(_np(getattr(got, f)), _np(getattr(want, f)), err_msg=f)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -197,7 +208,7 @@ def test_row_partition_equals_unsharded_port(worlds, size, name, dtype):
 def test_batch_partition_equals_unsharded_port(worlds, size, batch, dtype):
     problems = [_port_problem(n) for n in BATCHES[batch]]
     want = rt.propagate_batch(problems, NO_WIDENING, tile_width=TILE_WIDTH,
-                              dtype=np.dtype(dtype), use_kernels=False, device="cpu")
+                              dtype=getattr(torch, dtype), use_kernels=False, device="cpu")
     for g, w in zip(worlds[size][0][("batch", batch, dtype)], want):
         _assert_same(g, w)
 

@@ -1,5 +1,6 @@
 """The cases of ``test_torch_sharded.py`` as one rank runs them: every
-sharded entry point of the port on every instance, at float64 and float32,
+sharded entry point of the port on every instance, at float64, float32 and
+bfloat16,
 on the CPU (or, for the GPU tests, on the card).  A world of ranks started by
 ``repro_torch.core.run_world`` imports this module (not the test file,
 which imports JAX) and returns its results to the test process.
@@ -23,7 +24,8 @@ BATCHES = {
     "six": ("knapsack", "set_cover", "pb", "mixed", "cascade", "banded"),
     "two": ("knapsack", "pb"),
 }
-DTYPES = ("float64", "float32")
+# Named as torch names them (numpy has no bfloat16).
+DTYPES = ("float64", "float32", "bfloat16")
 # Rows of up to 40 nonzeros span up to five chunks: ranks run D or A'/E.
 TILE_WIDTH = 8
 # The warm-start twin of the reference's test_sharded_warm_start_identity.
@@ -38,6 +40,8 @@ def build(data, name: str):
 def cases(rank: int, world_size: int, device: str = "cpu") -> dict:
     """Every sharded result of this rank, keyed ``(entry, case, dtype)``."""
     del rank, world_size
+    import torch
+
     import repro_torch.core as rc
     import repro_torch.data as td
 
@@ -45,12 +49,13 @@ def cases(rank: int, world_size: int, device: str = "cpu") -> dict:
     kw = dict(tile_width=TILE_WIDTH, device=device)
     out = {}
     for dt in DTYPES:
+        tdt = getattr(torch, dt)
         for name, p in problems.items():
-            out[("nnz", name, dt)] = rc.propagate_sharded(p, dtype=np.dtype(dt), **kw)
-            out[("rows", name, dt)] = rc.propagate_sharded_rows(p, dtype=np.dtype(dt), **kw)
+            out[("nnz", name, dt)] = rc.propagate_sharded(p, dtype=tdt, **kw)
+            out[("rows", name, dt)] = rc.propagate_sharded_rows(p, dtype=tdt, **kw)
         for batch, members in BATCHES.items():
             out[("batch", batch, dt)] = rc.propagate_batch_sharded(
-                [problems[name] for name in members], dtype=np.dtype(dt), **kw)
+                [problems[name] for name in members], dtype=tdt, **kw)
     gen, wkw = WARM
     p = getattr(td, gen)(**wkw)
     out[("warm", "base", "float64")] = rc.propagate_sharded(p, device=device)
