@@ -325,6 +325,7 @@ Without a CUDA device it exits with code 2 before doing anything.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import math
 import os
@@ -937,7 +938,7 @@ def require_launched(per_run: dict, need: dict) -> None:
                 fail(f"main path {run} never launched {k}: {per_run[run]}")
 
 
-def smoke(torch, dev, half_cpu, half_batch_cpu):
+def smoke(torch, dev, half_cpu, half_batch_cpu, parent):
     import numpy as np
 
     import repro_torch as rt
@@ -1114,7 +1115,8 @@ def smoke(torch, dev, half_cpu, half_batch_cpu):
         f"set-up={time.perf_counter() - t:.1f}s")
     for k, rows in node_kernel_phase(torch, np, rt, tk, tref, ops, _build, pbf, prep8, dev).items():
         measured.setdefault(k, {}).update(rows)
-    for k, rows in node_multichunk_phase(torch, np, rt, tk, tref, ops, _build, pbf, dev).items():
+    for k, rows in node_multichunk_phase(torch, np, rt, tk, tref, ops, _build, pbf, dev,
+                                         parent).items():
         measured.setdefault(k, {}).update(rows)
     for k, rows in combine_shapes_phase(torch, np, td, tk, tref, ops, _build, preps["mixed"],
                                         dev).items():
@@ -1138,7 +1140,7 @@ def smoke(torch, dev, half_cpu, half_batch_cpu):
                                                            pbf, measured)
     batch_tier_rows, batch_tier_launches = batch_tiers_phase(
         torch, np, rt, tk, tref, ops, _build, dev, batch_pops, pbf, prep8, tier_probs, results,
-        measured)
+        measured, parent)
     engine_tier_rows, engine_tier_launches = engine_tiers_phase(
         torch, np, rt, tk, tref, ops, _build, dev, problems, tier_probs, wide, wide_results,
         batch_pops, measured)
@@ -1150,7 +1152,8 @@ def smoke(torch, dev, half_cpu, half_batch_cpu):
         {**tier_rows, **engine_tier_rows, **telemetry_rows}, half_cpu)
     half_batch_rows, half_batch_launches = half_batch_phase(
         torch, np, rt, td, tk, tref, ops, _build, dev, problems, batch_pops, pbf, tier_probs,
-        wide, {**batch_tier_rows, **engine_tier_rows, **telemetry_rows}, half_batch_cpu)
+        wide, {**batch_tier_rows, **engine_tier_rows, **telemetry_rows}, half_batch_cpu,
+        parent)
     sharded_phase(torch, np, rt, dev, problems, results, batch_pops, pbf)
     lm_phase(torch, dev)
     slab_path = ("batched_slab_partials_tiles", "straddle_combine_tiles",
@@ -1227,7 +1230,8 @@ def smoke(torch, dev, half_cpu, half_batch_cpu):
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None, instance=primary[k],
             wrapper_ms=r["wrapper_ms"], bytes=r["bytes"],
-            **{key: r[key] for key in ("segment_reduce_ms", "bound_all_slots_ms") if key in r},
+            **{key: r[key] for key in ("segment_reduce_ms", "bound_all_slots_ms", "parent_ms",
+                                       "parent_wrapper_ms") if key in r},
         ))
     for key, (r, inst) in tier_rows.items():
         base = key.split("[")[0]
@@ -1238,6 +1242,7 @@ def smoke(torch, dev, half_cpu, half_batch_cpu):
             library_ms=None, instance=inst, wrapper_ms=r["wrapper_ms"], bytes=r["bytes"],
             float64_ms=r.get("float64_ms"),
         ))
+    parents = lambda r: {k: r[k] for k in ("parent_ms", "parent_wrapper_ms") if k in r}  # noqa
     for key, (r, inst) in batch_tier_rows.items():
         base = key.split("[")[0]
         kernels.append(dict(
@@ -1245,7 +1250,7 @@ def smoke(torch, dev, half_cpu, half_batch_cpu):
             launches=batch_tier_launches[key], max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=None, instance=inst, wrapper_ms=r["wrapper_ms"], bytes=r["bytes"],
-            float64_ms=r.get("float64_ms"),
+            float64_ms=r.get("float64_ms"), **parents(r),
         ))
     for key, (r, inst) in engine_tier_rows.items():
         base = key.split("[")[0]
@@ -1282,7 +1287,7 @@ def smoke(torch, dev, half_cpu, half_batch_cpu):
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None, instance=inst,
             wrapper_ms=r["wrapper_ms"], bytes=r["bytes"], float32_ms=r["float32_ms"],
-            float64_ms=r["float64_ms"],
+            float64_ms=r["float64_ms"], **parents(r),
         ))
     log(json.dumps({"kernels": kernels}))
 
@@ -1436,17 +1441,145 @@ def node_kernel_phase(torch, np, rt, tk, tref, ops, build, pbf, prep, dev):
     return out
 
 
-def node_multichunk_phase(torch, np, rt, tk, tref, ops, build, pbf, dev):
+PARENT_SOURCE = "tools/round_variants.cu"
+# The forms of node A' and node E, as variant 0 of the tool's entries takes them.
+PARENT_FORMS = {"f64": 0, "f32": 1, "f32c": 2, "bf16": 3, "bf16c": 4, "f16": 5}
+
+
+class ParentNodeKernels:
+    """Node A' and node E as the port shipped them before their redesign
+    (variant 0 of ``tools/round_variants.cu``, compiled with
+    ``-DNODE_ROUND_ONLY``: those kernels alone, at every form), timed beside
+    the redesigned kernels in the same run.  The compiler starts with the
+    script, beside the kernel library's; :meth:`lib` waits for it."""
+
+    def __init__(self):
+        from repro_torch.kernels import _build
+
+        root = Path(__file__).resolve().parent
+        self.out = _build.BUILD_DIR / "node_round_parent" / "libnode_round_parent.so"
+        self.out.parent.mkdir(parents=True, exist_ok=True)
+        self.proc = subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-DNODE_ROUND_ONLY", "-o", str(self.out),
+             str(root / PARENT_SOURCE)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self._lib = None
+
+    def lib(self):
+        if self._lib is None:
+            log_text, _ = self.proc.communicate()
+            if self.proc.returncode != 0:
+                fail(f"nvcc failed on {PARENT_SOURCE} (-DNODE_ROUND_ONLY): {log_text[-3000:]}")
+            lib = ctypes.CDLL(str(self.out))
+            P, I64, I32, F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
+            lib.node_gather_variant.argtypes = [I32, I32] + [P] * 10 + [I64, I32, I32, I64, I64,
+                                                                        F64, P]
+            lib.node_scatter_variant.argtypes = [I32, I32] + [P] * 15 + [I64, I32, I32, I64,
+                                                                         I64, F64, F64, P]
+            lib.node_gather_variant.restype = lib.node_scatter_variant.restype = I32
+            self._lib = lib
+        return self._lib
+
+    def gather(self, form, val, col, clen, lb, ub, act, outs, n_pad, inf):
+        t, r, k = val.shape
+        return self.lib().node_gather_variant(
+            0, PARENT_FORMS[form], val.data_ptr(), col.data_ptr(), clen.data_ptr(),
+            lb.data_ptr(), ub.data_ptr(), act.data_ptr(), *(o.data_ptr() for o in outs),
+            t * r, k, k, lb.shape[0], n_pad, float(inf), _raw_stream())
+
+    def scatter(self, form, val, col, ii, clen, aggs, lhs, rhs, lb, ub, act, acc, n_pad,
+                int_eps, inf):
+        t, r, k = val.shape
+        return self.lib().node_scatter_variant(
+            0, PARENT_FORMS[form], val.data_ptr(), col.data_ptr(), ii.data_ptr(),
+            clen.data_ptr(), *(a.data_ptr() for a in aggs), lhs.data_ptr(), rhs.data_ptr(),
+            lb.data_ptr(), ub.data_ptr(), act.data_ptr(), acc[0].data_ptr(), acc[1].data_ptr(),
+            t * r, k, k, lb.shape[0], n_pad, float(int_eps), float(inf), _raw_stream())
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def _raw_stream() -> int:
+    import torch
+
+    return torch.cuda.current_stream().cuda_stream
+
+
+def launch_ms(torch, launch, reset=None, reps: int = 20) -> float:
+    """Median device time of ``launch`` (a C entry call, checked), queued
+    behind a sleep on the card, CUDA events around it; ``reset`` (untimed)
+    first."""
+    out = []
+    for _ in range(reps):
+        if reset is not None:
+            reset()
+        torch.cuda._sleep(1_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = launch()
+        end.record()
+        if err:
+            fail(f"a parent kernel failed to launch: CUDA error {err}")
+        out.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in out)
+
+
+def parent_rows(torch, tk, parent, form, row_a, row_e, pr, lbp, ubp, act, parts, aggs, want_e,
+                inf, int_eps):
+    """The parents of node A' and node E on the same inputs as ``row_a`` /
+    ``row_e`` (the redesigned kernels' rows): held against the plain
+    versions (A' on the active rows, E on whole planes fresh at the
+    sentinels) and timed, kernel (``parent_ms``: E after a fill of its
+    planes, as the parent's wrapper filled them) and wrapper
+    (``parent_wrapper_ms``: A''s four outputs allocated, E's two planes
+    allocated at the sentinels, then the launch)."""
+    d, n_pad = pr.d, pr.n_pad
+    err = half_err if form in ("bf16", "bf16c", "f16") else max_abs_err
+    on = lambda xs: tuple(x[act] for x in xs)
+    outs = [torch.empty_like(x) for x in parts]
+    g_args = (form, d.val, d.col, pr.chunk_len, lbp, ubp, act)
+    if parent.gather(*g_args, outs, n_pad, inf):
+        fail(f"the parent node A' [{form}] failed to launch")
+    err(torch, on(outs), on(parts))
+    row_a["parent_ms"] = launch_ms(torch, lambda: parent.gather(*g_args, outs, n_pad, inf))
+    row_a["parent_wrapper_ms"] = time_ms(torch, lambda: parent.gather(
+        *g_args, [torch.empty_like(x) for x in parts], n_pad, inf), reps=3, trials=3)
+    if row_e is None:
+        return
+    acc = tk.accumulator_planes(lbp, inf)
+    fill = lambda: (acc[0].fill_(-inf), acc[1].fill_(inf))  # noqa: E731
+    e_args = (form, d.val, d.col, pr.ii_g, pr.chunk_len, aggs, pr.lhs_g, pr.rhs_g, lbp, ubp,
+              act)
+    fill()
+    if parent.scatter(*e_args, acc, n_pad, int_eps, inf):
+        fail(f"the parent node E [{form}] failed to launch")
+    err(torch, acc, want_e)
+    row_e["parent_ms"] = launch_ms(torch, lambda: parent.scatter(*e_args, acc, n_pad, int_eps,
+                                                                 inf), reset=fill)
+    row_e["parent_wrapper_ms"] = time_ms(torch, lambda: parent.scatter(
+        *e_args, tk.accumulator_planes(lbp, inf), n_pad, int_eps, inf), reps=3, trials=3)
+
+
+def node_multichunk_phase(torch, np, rt, tk, tref, ops, build, pbf, dev, parent):
     """Phase 5b: the multi-chunk node round's kernels -- A', the combine and
     E over a node batch -- against their plain versions on pbf's tiles at
     tile width MULTI_CHUNK_TILE_WIDTH (rows of 5 to 8 nonzeros span two
-    chunks) and a (POOL, n_pad) pool of warm-started node bounds with 8 and
-    POOL rows active: bitwise on the active nodes' planes (the kernels
-    leave the partials of inactive nodes unwritten) and on every
-    accumulator row; the first eight active nodes also against the
-    single-instance kernels on their own rows.  Timed.  Then one node round
-    over 4 and over POOL nodes, whose launches must be the same.  Returns
-    {kernel: {shape: row of measurements}}."""
+    chunks) and a (POOL, n_pad) pool of warm-started node bounds with 0, 8
+    and POOL rows active, called as the node round calls them (the longest
+    chunk hoisted, E into kept planes): bitwise on the active nodes' planes
+    (the kernels leave the partials of inactive nodes unwritten) and on
+    every accumulator row; the first eight active nodes also against the
+    single-instance kernels on their own rows.  Timed, beside the parents
+    of A' and E (the kernels before their redesign, ``parent``) on the same
+    inputs.  Then one node round over 4 and over POOL nodes, whose launches
+    must be the same, and a second round over POOL nodes, which must
+    allocate nothing on the card.  Returns {kernel: {shape: row of
+    measurements}}."""
     cfg = ops.DEFAULT_CONFIG
     t0 = time.perf_counter()
     prep = rt.prepare_block_ell(pbf, tile_width=MULTI_CHUNK_TILE_WIDTH, device=dev)
@@ -1455,28 +1588,34 @@ def node_multichunk_phase(torch, np, rt, tk, tref, ops, build, pbf, dev):
     chunks = t * r
     nnz = int((d.val != 0).sum().item())
     log(f"pbf at tile width {k}: tiles={(t, r, k)} fits_one_chunk={prep.fits_one_chunk} "
-        f"prepare={time.perf_counter() - t0:.2f}s")
+        f"longest chunk {prep.max_chunk_len} prepare={time.perf_counter() - t0:.2f}s")
     lb_h, ub_h = node_pool(np, rt, pbf, POOL, seed=3)
     lbp, ubp = ops._node_planes(prep, lb_h, ub_h)
     clen = dict(chunk_len=prep.chunk_len)
+    hoisted = dict(clen, max_chunk_len=prep.max_chunk_len)
+    acc = tk.accumulator_planes(lbp)
+    fill = lambda: (acc[0].fill_(-cfg.inf), acc[1].fill_(cfg.inf))  # noqa: E731
     names = ("node_activities_gather_tiles", "node_combine_chunk_partials_tiles",
              "node_candidates_scatter_tiles")
     out = {name: {} for name in names}
-    for n_act in (8, POOL):
-        act = torch.zeros(POOL, dtype=torch.bool, device=dev)
-        act[:: POOL // n_act] = True
+    for n_act in (0, 8, POOL):
+        act = pool_mask(torch, n_act, dev)
         shape = f"pbf K={k} pool, {n_act} of {POOL} active"
         reps = 1 if n_act == POOL else 3
         on = lambda xs: tuple(x[act] for x in xs)
+        # With no node active A' and E read the mask alone: every block
+        # returns after the ballot, so their bound is the mask's bytes and
+        # the launch sets their time.
+        stream = (dict(val=8 * nnz, col=4 * nnz, chunk_len=4 * chunks) if n_act
+                  else dict(val=0, col=0, chunk_len=0))
         a_args = (d.val, d.col, lbp, ubp, act, n_pad)
         parts = tref.node_activities_gather_ref(*a_args)
-        got_p = tk.node_activities_gather_tiles(*a_args, **clen)
+        got_p = tk.node_activities_gather_tiles(*a_args, **hoisted)
         out[names[0]][shape] = measured_row(
             torch, build, on(got_p), on(parts),
-            lambda: tk.node_activities_gather_tiles(*a_args, **clen),
+            lambda: tk.node_activities_gather_tiles(*a_args, **hoisted),
             lambda: tref.node_activities_gather_ref(*a_args),
-            dict(val=8 * nnz, col=4 * nnz, chunk_len=4 * chunks, bounds=16 * n_act * n_pad,
-                 out=24 * n_act * chunks),
+            dict(stream, bounds=16 * n_act * n_pad, out=24 * n_act * chunks, mask=POOL),
             4 * nnz * n_act, plain_reps=reps)
         c_args = (*parts, d.chunk_row, prep.row_start, act)
         cls = dict(classes=prep.seg_classes)  # the split the engine hoists
@@ -1492,15 +1631,23 @@ def node_multichunk_phase(torch, np, rt, tk, tref, ops, build, pbf, dev):
         e_args = (d.val, d.col, prep.ii_g, *aggs, prep.lhs_g, prep.rhs_g, lbp, ubp, act, n_pad,
                   cfg.int_eps)
         want = tref.node_candidates_scatter_ref(*e_args)
-        got = tk.node_candidates_scatter_tiles(*e_args, **clen)
+        fill()
+        got = tk.node_candidates_scatter_tiles(*e_args, **hoisted, acc=acc)
+        # Timed after a fill of the kept planes, as the parent after its
+        # wrapper's; the wrapper as the round calls it, into the kept planes.
         out[names[2]][shape] = measured_row(
             torch, build, got, want,
-            lambda: tk.node_candidates_scatter_tiles(*e_args, **clen),
+            lambda: tk.node_candidates_scatter_tiles(*e_args, **hoisted, acc=acc),
             lambda: tref.node_candidates_scatter_ref(*e_args),
-            dict(val=8 * nnz, col=4 * nnz, is_int=4 * nnz, chunk_len=4 * chunks,
-                 sides=16 * chunks, aggregates=24 * n_act * chunks, bounds=16 * n_act * n_pad,
-                 out=16 * n_act * n_pad),
-            12 * nnz * n_act, plain_reps=reps)
+            dict(stream, is_int=4 * nnz if n_act else 0, sides=16 * chunks if n_act else 0,
+                 aggregates=24 * n_act * chunks, bounds=16 * n_act * n_pad,
+                 out=16 * n_act * n_pad, mask=POOL),
+            12 * nnz * n_act, plain_reps=reps, reset=fill)
+        fill()
+        got = tk.node_candidates_scatter_tiles(*e_args, **hoisted, acc=acc)
+        max_abs_err(torch, got, want)
+        parent_rows(torch, tk, parent, "f64", out[names[0]][shape], out[names[2]][shape], prep, lbp,
+                    ubp, act, parts, aggs, want, cfg.inf, cfg.int_eps)
         for i in act.nonzero().flatten().tolist()[:8]:
             one = tk.activities_gather_tiles(d.val, d.col, lbp[i], ubp[i], n_pad, **clen)
             max_abs_err(torch, tuple(x[i] for x in got_p), one)
@@ -1526,6 +1673,17 @@ def node_multichunk_phase(torch, np, rt, tk, tref, ops, build, pbf, dev):
         fail(f"a multi-chunk node round's launches grow with the batch: {counts}")
     log(f"multi-chunk node round (tile width {k}): launches with 4 nodes {counts[4]}, with "
         f"{POOL} nodes {counts[POOL]}: the same")
+    lbr, ubr = lbp.clone(), ubp.clone()
+    act = torch.ones(POOL, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    round_fn(lbr, ubr, act)
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    if grown:
+        fail(f"a second multi-chunk node round over {POOL} nodes allocated {grown} blocks")
+    log(f"multi-chunk node round over {POOL} nodes, the second: no allocation on the card "
+        "(A' and the combine into buffers kept by the closure, E into its kept planes)")
     return out
 
 
@@ -1537,7 +1695,10 @@ def combine_shapes_phase(torch, np, td, tk, tref, ops, build, prep, dev):
     of the service's mixed requests packed at tile width 8 (rows of 3,000
     chunks; the service holds them in two slots, its padding in one-chunk
     segments).  Bitwise against the plain versions, timed, beside the
-    ``torch.segment_reduce`` yardstick.  Returns {kernel: {shape: row}}."""
+    ``torch.segment_reduce`` yardstick.  With the node form, node A' and
+    node E on the same 4 nodes (E into kept planes), where chunks of 128
+    slots take their G-lane kernels: bitwise, timed.  Returns {kernel:
+    {shape: row}}."""
     out = {"combine_chunk_partials_tiles": {}, "node_combine_chunk_partials_tiles": {}}
 
     def measure(kname, shape, fn_k, fn_p, parts, chunk_row, row_start, planes, act=None):
@@ -1557,15 +1718,48 @@ def combine_shapes_phase(torch, np, td, tk, tref, ops, build, prep, dev):
 
     d = prep.d
     bsz = 4
+    t, r, k = d.val.shape
+    chunks, nnz = t * r, int((d.val != 0).sum().item())
+    shape = f"nodes mixed K={k}, {bsz} nodes"
     act = torch.ones(bsz, dtype=torch.bool, device=dev)
-    parts = tk.node_activities_gather_tiles(d.val, d.col, prep.lb0.repeat(bsz, 1),
-                                            prep.ub0.repeat(bsz, 1), act, prep.n_pad,
-                                            chunk_len=prep.chunk_len)
+    lbp, ubp = prep.lb0.repeat(bsz, 1), prep.ub0.repeat(bsz, 1)
+    hoisted = dict(chunk_len=prep.chunk_len, max_chunk_len=prep.max_chunk_len)
+    # A' and E where chunks are wider than kSerialWidth (8 slots): their
+    # G-lane kernels, which the pbf K = 4 cells of phase 5b never take.
+    a_args = (d.val, d.col, lbp, ubp, act, prep.n_pad)
+    parts = tk.node_activities_gather_tiles(*a_args, **hoisted)
+    stream = dict(val=8 * nnz, col=4 * nnz, chunk_len=4 * chunks)
+    out["node_activities_gather_tiles"] = {shape: measured_row(
+        torch, build, parts, tref.node_activities_gather_ref(*a_args),
+        lambda: tk.node_activities_gather_tiles(*a_args, **hoisted),
+        lambda: tref.node_activities_gather_ref(*a_args),
+        dict(stream, bounds=16 * bsz * prep.n_pad, out=24 * bsz * chunks, mask=bsz),
+        4 * nnz * bsz, plain_reps=1)}
     c_args = (*parts, d.chunk_row, prep.row_start, act)
-    measure("node_combine_chunk_partials_tiles", f"nodes mixed K={d.val.shape[2]}, {bsz} nodes",
+    measure("node_combine_chunk_partials_tiles", shape,
             lambda: tk.node_combine_chunk_partials_tiles(*c_args, classes=prep.seg_classes),
             lambda: tref.node_combine_chunk_partials_ref(*c_args), parts, d.chunk_row,
             prep.row_start, bsz, act)
+    aggs = tref.node_combine_chunk_partials_ref(*c_args)
+    cfg = ops.DEFAULT_CONFIG
+    e_args = (d.val, d.col, prep.ii_g, *aggs, prep.lhs_g, prep.rhs_g, lbp, ubp, act, prep.n_pad,
+              cfg.int_eps)
+    acc = tk.accumulator_planes(lbp)
+    fill = lambda: (acc[0].fill_(-cfg.inf), acc[1].fill_(cfg.inf))  # noqa: E731
+    fill()
+    out["node_candidates_scatter_tiles"] = {shape: measured_row(
+        torch, build, tk.node_candidates_scatter_tiles(*e_args, **hoisted, acc=acc),
+        tref.node_candidates_scatter_ref(*e_args),
+        lambda: tk.node_candidates_scatter_tiles(*e_args, **hoisted, acc=acc),
+        lambda: tref.node_candidates_scatter_ref(*e_args),
+        dict(stream, is_int=4 * nnz, sides=16 * chunks, aggregates=24 * bsz * chunks,
+             bounds=16 * bsz * prep.n_pad, out=16 * bsz * prep.n_pad, mask=bsz),
+        12 * nnz * bsz, plain_reps=1, reset=fill)}
+    for name in ("node_activities_gather_tiles", "node_candidates_scatter_tiles"):
+        out[name][shape]["instance"] = shape
+        log_row(name, shape, out[name][shape])
+    log(f"kernels node_activities_gather_tiles, node_candidates_scatter_tiles on {shape}: "
+        f"longest chunk {prep.max_chunk_len} slots, G-lane kernels")
 
     t = time.perf_counter()
     rows = service_rows(np)[2 * SERVICE_REQUESTS:][:2]
@@ -1767,7 +1961,7 @@ def solve_phase(torch, np, rt, td, tk, pbf, dev):
             "measured")
     else:
         busy, top = prof
-        log(f"profile solve pbf multi-chunk: device busy {busy:.3f} ms of {m_ms:.3f} ms search, "
+        log(f"profile solve pbf multi-chunk: wall {m_ms:.3f} ms, device busy {busy:.3f} ms, "
             f"idle share {1 - busy / m_ms:.3f}; top: {top}")
     return runs
 
@@ -1780,6 +1974,9 @@ def log_row(kname, shape, r):
     extra = ""
     if "bound_all_slots_ms" in r:
         extra = f" bound_all_slots_ms={r['bound_all_slots_ms']:.4f}"
+    if "parent_ms" in r:
+        extra += (f" (before the redesign, same run: ms={r['parent_ms']:.4f} "
+                  f"wrapper_ms={r['parent_wrapper_ms']:.4f})")
     log(f"kernel {kname} on {shape}: max_abs_err={r['max_abs_err']} ms={r['ms']:.4f} "
         f"wrapper_ms={r['wrapper_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
         f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}, {sum(r['bytes'].values())} B: "
@@ -3296,7 +3493,9 @@ def tier_row(torch, build, got, want, fn_k, fn_p, moved, n_ops, dtype, reset=Non
 
 def log_tier_row(key, inst, r):
     f64 = r.get("float64_ms")
-    log(f"kernel {key} on {inst}: max_abs_err={r['max_abs_err']} ms={r['ms']:.4f} "
+    parent = (f" (before the redesign, same run: ms={r['parent_ms']:.4f} "
+              f"wrapper_ms={r['parent_wrapper_ms']:.4f})" if "parent_ms" in r else "")
+    log(f"kernel {key} on {inst}: max_abs_err={r['max_abs_err']} ms={r['ms']:.4f}{parent} "
         f"(float64 form {'not measured' if f64 is None else f'{f64:.4f}'}) "
         f"wrapper_ms={r['wrapper_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
         f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}, {sum(r['bytes'].values())} B: "
@@ -3322,7 +3521,7 @@ def stream_bytes(prep, nnz: int) -> dict:
 
 
 def batched_tier_kernels(torch, np, rt, tk, tref, ops, build, dev, pops, pbf, prep8_64, pb30,
-                         measured):
+                         measured, parent):
     """Phase 14's kernel checks.  Returns {form key: {instance: row}}."""
     cfg = ops.DEFAULT_CONFIG
     f32 = torch.float32
@@ -3462,19 +3661,23 @@ def batched_tier_kernels(torch, np, rt, tk, tref, ops, build, dev, pops, pbf, pr
         t, r, _ = pr.d.val.shape
         chunks, nnz = t * r, int((pr.d.val != 0).sum().item())
         lbp, ubp = ops._node_planes(pr, lbh, ubh)
+        hoisted = dict(chunk_len=pr.chunk_len, max_chunk_len=pr.max_chunk_len)
+        acc = tk.accumulator_planes(lbp)
+        fill = lambda acc=acc: (acc[0].fill_(-cfg.inf), acc[1].fill_(cfg.inf))  # noqa: E731
         for n_act in (8, POOL):
             act = pool_mask(torch, n_act, dev)
             shape = f"{name} K={MULTI_CHUNK_TILE_WIDTH} pool, {n_act} of {POOL} active"
             on = lambda xs, act=act: tuple(x[act] for x in xs)
             a_args = (pr.d.val, pr.d.col, lbp, ubp, act, pr.n_pad)
             parts = tref.node_activities_gather_ref(*a_args)
-            got_p = tk.node_activities_gather_tiles(*a_args, chunk_len=pr.chunk_len)
+            got_p = tk.node_activities_gather_tiles(*a_args, **hoisted)
             c_args = (*parts, pr.d.chunk_row, pr.row_start, act)
             aggs = tref.node_combine_chunk_partials_ref(*c_args)
             got_a = tk.node_combine_chunk_partials_tiles(*c_args, classes=pr.seg_classes)
             e_args = (pr.d.val, pr.d.col, pr.ii_g, *aggs, pr.lhs_g, pr.rhs_g, lbp, ubp, act,
                       pr.n_pad, cfg.int_eps)
-            got_e = tk.node_candidates_scatter_tiles(*e_args, chunk_len=pr.chunk_len)
+            fill()
+            got_e = tk.node_candidates_scatter_tiles(*e_args, **hoisted, acc=acc)
             want_e = tref.node_candidates_scatter_ref(*e_args)
             if n_act != 8:
                 err = max(max_abs_err(torch, on(got_p), on(parts)),
@@ -3486,13 +3689,13 @@ def batched_tier_kernels(torch, np, rt, tk, tref, ops, build, dev, pops, pbf, pr
                 continue
             base = lambda k: (measured[k].get(shape, {}).get("ms") if name == "pbf" else None)
             ids = stream_bytes(pr, nnz)
-            add(f"node_activities_gather_tiles[{form}]", shape, tier_row(
+            row_a = tier_row(
                 torch, build, on(got_p), on(parts),
-                lambda: tk.node_activities_gather_tiles(*a_args, chunk_len=pr.chunk_len),
+                lambda: tk.node_activities_gather_tiles(*a_args, **hoisted),
                 lambda: tref.node_activities_gather_ref(*a_args),
                 dict(val=ids["val"], col=pr.d.col.element_size() * nnz, chunk_len=4 * chunks,
                      bounds=8 * n_act * pr.n_pad, out=16 * n_act * chunks),
-                4 * nnz * n_act, f32, float64_ms=base("node_activities_gather_tiles")))
+                4 * nnz * n_act, f32, float64_ms=base("node_activities_gather_tiles"))
             if form == "f32":
                 add("node_combine_chunk_partials_tiles[f32]", shape, tier_row(
                     torch, build, on(got_a), on(aggs),
@@ -3504,13 +3707,20 @@ def batched_tier_kernels(torch, np, rt, tk, tref, ops, build, dev, pops, pbf, pr
                     0, f32, float64_ms=base("node_combine_chunk_partials_tiles")))
             else:
                 max_abs_err(torch, on(got_a), on(aggs))
-            add(f"node_candidates_scatter_tiles[{form}]", shape, tier_row(
-                torch, build, got_e, want_e,
-                lambda: tk.node_candidates_scatter_tiles(*e_args, chunk_len=pr.chunk_len),
+            e_call = lambda: tk.node_candidates_scatter_tiles(*e_args, **hoisted, acc=acc)
+            row_e = tier_row(
+                torch, build, got_e, want_e, e_call,
                 lambda: tref.node_candidates_scatter_ref(*e_args),
                 dict(ids, aggregates=16 * n_act * chunks, bounds=8 * n_act * pr.n_pad,
                      out=8 * n_act * pr.n_pad),
-                12 * nnz * n_act, f32, float64_ms=base("node_candidates_scatter_tiles")))
+                12 * nnz * n_act, f32, reset=fill,
+                float64_ms=base("node_candidates_scatter_tiles"))
+            # The wrapper as the round calls it: into its kept planes.
+            row_e["wrapper_ms"] = time_ms(torch, e_call, reps=3, trials=3)
+            parent_rows(torch, tk, parent, form, row_a, row_e, pr, lbp, ubp, act, parts, aggs,
+                        want_e, cfg.inf, cfg.int_eps)
+            add(f"node_activities_gather_tiles[{form}]", shape, row_a)
+            add(f"node_candidates_scatter_tiles[{form}]", shape, row_e)
     return rows
 
 
@@ -3643,7 +3853,7 @@ def same_results(torch, label, got, want, fields):
 
 
 def batch_tiers_phase(torch, np, rt, tk, tref, ops, build, dev, pops, pbf, prep8_64, probs13,
-                      results, measured):
+                      results, measured, parent):
     """Phase 14: the precision tiers on the batched engines.  The float32
     forms of #8, #9, #10 and the node-batched A', combine and E and #9's
     early-stop forms against their plain versions, timed; then, with the
@@ -3656,7 +3866,7 @@ def batch_tiers_phase(torch, np, rt, tk, tref, ops, build, dev, pops, pbf, prep8
     f32 = torch.float32
     pb30 = probs13["pb30"]
     rows = batched_tier_kernels(torch, np, rt, tk, tref, ops, build, dev, pops, pbf, prep8_64,
-                                pb30, measured)
+                                pb30, measured, parent)
     policy = rt.core.TierPolicy()
     fields = ("lb", "ub", "rounds", "converged", "infeasible", "progress", "tier_rounds")
     modes_kw = {"float32": dict(dtype=f32), "two-tier": dict(policy=policy),
@@ -4932,7 +5142,7 @@ def half_merge_bytes(torch, bnd, lb, ub, best_l, best_u, eps, active, inf) -> di
 
 
 def half_batch_kernels(torch, np, rt, tk, tref, ops, build, dev, pops, pbf, pb30, pbw, pools,
-                       dt, label):
+                       dt, label, parent):
     """Phase 22's kernel checks at one 16-bit type ``dt``: every new form
     against its plain version on the card, timed.  Returns {form key:
     {shape: row}}."""
@@ -4941,7 +5151,9 @@ def half_batch_kernels(torch, np, rt, tk, tref, ops, build, dev, pops, pbf, pb30
 
     def add(key, shape, r):
         rows.setdefault(key, {})[shape] = r
-        log(f"kernel {key} on {shape}: max_abs_err={r['max_abs_err']} ms={r['ms']:.4f} "
+        parent = (f" (before the redesign, same run: ms={r['parent_ms']:.4f} "
+                  f"wrapper_ms={r['parent_wrapper_ms']:.4f})" if "parent_ms" in r else "")
+        log(f"kernel {key} on {shape}: max_abs_err={r['max_abs_err']} ms={r['ms']:.4f}{parent} "
             f"wrapper_ms={r['wrapper_ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}, {sum(r['bytes'].values())} B: "
             f"{r['bytes']})")
@@ -5097,19 +5309,23 @@ def half_batch_kernels(torch, np, rt, tk, tref, ops, build, dev, pops, pbf, pb30
         t, r_, _ = pr.d.val.shape
         chunks, nnz = t * r_, int((pr.d.val != 0).sum().item())
         lbp, ubp = ops._node_planes(pr, *pools[name])
+        hoisted = dict(chunk_len=pr.chunk_len, max_chunk_len=pr.max_chunk_len)
+        acc = tk.accumulator_planes(lbp, inf)
+        fill = lambda acc=acc: (acc[0].fill_(-inf), acc[1].fill_(inf))  # noqa: E731
         for n_act in (8, POOL):
             act = pool_mask(torch, n_act, dev)
             shape = f"{name} K={MULTI_CHUNK_TILE_WIDTH} pool, {n_act} of {POOL} active"
             on = lambda xs, act=act: tuple(x[act] for x in xs)
             a_args = (pr.d.val, pr.d.col, lbp, ubp, act, pr.n_pad, inf)
             parts = tref.node_activities_gather_ref(*a_args)
-            got_p = tk.node_activities_gather_tiles(*a_args, chunk_len=pr.chunk_len)
+            got_p = tk.node_activities_gather_tiles(*a_args, **hoisted)
             c_args = (*parts, pr.d.chunk_row, pr.row_start, act)
             aggs = tref.node_combine_chunk_partials_ref(*c_args)
             got_a = tk.node_combine_chunk_partials_tiles(*c_args, classes=pr.seg_classes)
             e_args = (pr.d.val, pr.d.col, pr.ii_g, *aggs, pr.lhs_g, pr.rhs_g, lbp, ubp, act,
                       pr.n_pad, int_eps, inf)
-            got_e = tk.node_candidates_scatter_tiles(*e_args, chunk_len=pr.chunk_len)
+            fill()
+            got_e = tk.node_candidates_scatter_tiles(*e_args, **hoisted, acc=acc)
             want_e = tref.node_candidates_scatter_ref(*e_args)
             if n_act != 8:
                 err = max(half_err(torch, on(got_p), on(parts)),
@@ -5120,13 +5336,13 @@ def half_batch_kernels(torch, np, rt, tk, tref, ops, build, dev, pops, pbf, pb30
                     f"max_abs_err={err}")
                 continue
             ids = stream_bytes(pr, nnz)
-            add(f"node_activities_gather_tiles[{form}]", shape, half_row(
+            row_a = half_row(
                 torch, build, on(got_p), on(parts),
-                lambda: tk.node_activities_gather_tiles(*a_args, chunk_len=pr.chunk_len),
+                lambda: tk.node_activities_gather_tiles(*a_args, **hoisted),
                 lambda: tref.node_activities_gather_ref(*a_args),
                 dict(val=ids["val"], col=pr.d.col.element_size() * nnz, chunk_len=4 * chunks,
                      bounds=4 * n_act * pr.n_pad, out=12 * n_act * chunks),
-                4 * nnz * n_act))
+                4 * nnz * n_act)
             if form == label:
                 add(f"node_combine_chunk_partials_tiles[{label}]", shape, half_row(
                     torch, build, on(got_a), on(aggs),
@@ -5137,13 +5353,19 @@ def half_batch_kernels(torch, np, rt, tk, tref, ops, build, dev, pops, pbf, pb30
                          classes=4 * (pr.m + 1), out=12 * n_act * chunks, mask=POOL), 0))
             else:
                 half_err(torch, on(got_a), on(aggs))
-            add(f"node_candidates_scatter_tiles[{form}]", shape, half_row(
-                torch, build, got_e, want_e,
-                lambda: tk.node_candidates_scatter_tiles(*e_args, chunk_len=pr.chunk_len),
+            e_call = lambda: tk.node_candidates_scatter_tiles(*e_args, **hoisted, acc=acc)
+            row_e = half_row(
+                torch, build, got_e, want_e, e_call,
                 lambda: tref.node_candidates_scatter_ref(*e_args),
                 dict(ids, aggregates=12 * n_act * chunks, bounds=4 * n_act * pr.n_pad,
                      out=8 * n_act * pr.n_pad),
-                12 * nnz * n_act))
+                12 * nnz * n_act, reset=fill)
+            # The wrapper as the round calls it: into its kept planes.
+            row_e["wrapper_ms"] = time_ms(torch, e_call, reps=3, trials=3)
+            parent_rows(torch, tk, parent, form, row_a, row_e, pr, lbp, ubp, act, parts, aggs,
+                        want_e, inf, int_eps)
+            add(f"node_activities_gather_tiles[{form}]", shape, row_a)
+            add(f"node_candidates_scatter_tiles[{form}]", shape, row_e)
 
     # #13, the straddle combine over the active planes, #14 (with #15's
     # window merge, on the grid at 8 rows and the walk at 128) on the pbw
@@ -5290,7 +5512,7 @@ def half_sharded_rank(rank, world_size, instances, dtypes):
 
 
 def half_batch_phase(torch, np, rt, td, tk, tref, ops, build, dev, problems, pops, pbf, probs13,
-                     wide, f32_rows, cpu):
+                     wide, f32_rows, cpu, parent):
     """Phase 22: bfloat16 and float16 on the batched, node, service and
     sharded entry points.  Every new 16-bit form (#8, #9 and its stop form,
     #10, the node-batched A', combine and E, #13, #14's scatter, #15's row
@@ -5316,7 +5538,8 @@ def half_batch_phase(torch, np, rt, td, tk, tref, ops, build, dev, problems, pop
     for label, dtn in HALF_TYPES:
         dt = getattr(torch, dtn)
         for key, by_shape in half_batch_kernels(torch, np, rt, tk, tref, ops, build, dev, pops,
-                                                pbf, pb30, pbw, pools, dt, label).items():
+                                                pbf, pb30, pbw, pools, dt, label,
+                                                parent).items():
             for shape, r in by_shape.items():
                 rows.setdefault(key, {})[shape] = r
     log(f"phase 22 kernels: {time.perf_counter() - t_phase:.1f} s")
@@ -6541,15 +6764,17 @@ def main() -> int:
     log(f"gpu: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     t0 = time.perf_counter()
+    parent = ParentNodeKernels()
     dry = DryRun()
     half_cpu = HalfCpuRuns()
     half_batch_cpu = HalfCpuRuns(batched=True)
     try:
-        smoke(torch, torch.device("cuda"), half_cpu, half_batch_cpu)
+        smoke(torch, torch.device("cuda"), half_cpu, half_batch_cpu, parent)
         release_propagation_memory(torch)
         lm_train_phase(torch, torch.device("cuda"))
         launch_phase(torch, torch.device("cuda"), dry=dry)
     finally:
+        parent.close()
         half_cpu.close()
         half_batch_cpu.close()
         dry.close()

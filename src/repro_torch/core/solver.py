@@ -40,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 import enum
 import math
+import weakref
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -266,9 +267,10 @@ def _make_level_step(prep, cfg, rule, use_kernels, prune_gap, expand_width, on_f
 
         # (7) Telemetry: one sample per level, the next frontier's width;
         # the first incumbent and the first fathom latched.
-        if step.plane is not None:
-            step.plane = obs.record_round(step.plane, (2 * k).to(lb.dtype), c.levels + 1,
-                                          infeas.any(), improved)
+        me = this()
+        if me.plane is not None:
+            me.plane = obs.record_round(me.plane, (2 * k).to(lb.dtype), c.levels + 1,
+                                        infeas.any(), improved)
 
         bvar_new = pv.to(torch.int32)
         i32 = lambda x: x.to(torch.int32)
@@ -293,6 +295,10 @@ def _make_level_step(prep, cfg, rule, use_kernels, prune_gap, expand_width, on_f
         )
 
     step.plane = plane
+    # A weak reference: were the closure to name `step`, the function and
+    # its cell would form a cycle, and the round closure's kept planes and
+    # buffers would outlive the search until the garbage collector ran.
+    this = weakref.ref(step)
     return step
 
 

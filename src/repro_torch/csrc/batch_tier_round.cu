@@ -89,17 +89,19 @@ int node_fused_scatter_round_f32c(const float* val, const int16_t* col, const in
 int node_activities_gather_f32(const float* val, const int* col, const int* clen,
                                const float* lb, const float* ub, const bool* active, float* mf,
                                int* mc, float* xf, int* xc, int64_t n_chunks, int k,
-                               int64_t bsz, int64_t n_pad, float inf, cudaStream_t stream) {
+                               int max_len, int64_t bsz, int64_t n_pad, float inf,
+                               cudaStream_t stream) {
   return launch_node_activities_gather(val, col, clen, lb, ub, active, mf, mc, xf, xc, n_chunks,
-                                       k, bsz, n_pad, inf, stream);
+                                       k, max_len, bsz, n_pad, inf, stream);
 }
 
 int node_activities_gather_f32c(const float* val, const int16_t* col, const int* clen,
                                 const float* lb, const float* ub, const bool* active, float* mf,
                                 int* mc, float* xf, int* xc, int64_t n_chunks, int k,
-                                int64_t bsz, int64_t n_pad, float inf, cudaStream_t stream) {
+                                int max_len, int64_t bsz, int64_t n_pad, float inf,
+                                cudaStream_t stream) {
   return launch_node_activities_gather(val, col, clen, lb, ub, active, mf, mc, xf, xc, n_chunks,
-                                       k, bsz, n_pad, inf, stream);
+                                       k, max_len, bsz, n_pad, inf, stream);
 }
 
 int node_combine_chunk_partials_f32(const float* mf, const int* mc, const float* xf,
@@ -118,11 +120,11 @@ int node_candidates_scatter_f32(const float* val, const int* col, const int* ii,
                                 const int* rxc, const float* lhs, const float* rhs,
                                 const float* lb, const float* ub, const bool* active,
                                 float* best_l, float* best_u, int64_t n_chunks, int k,
-                                int64_t bsz, int64_t n_pad, float int_eps, float inf,
-                                cudaStream_t stream) {
+                                int max_len, int64_t bsz, int64_t n_pad, float int_eps,
+                                float inf, cudaStream_t stream) {
   return launch_node_candidates_scatter(val, col, ii, clen, rmf, rmc, rxf, rxc, lhs, rhs, lb, ub,
-                                        active, best_l, best_u, n_chunks, k, bsz, n_pad, int_eps,
-                                        inf, stream);
+                                        active, best_l, best_u, n_chunks, k, max_len, bsz, n_pad,
+                                        int_eps, inf, stream);
 }
 
 int node_candidates_scatter_f32c(const float* val, const int16_t* col, const int8_t* ii,
@@ -130,11 +132,11 @@ int node_candidates_scatter_f32c(const float* val, const int16_t* col, const int
                                  const float* rxf, const int* rxc, const float* lhs,
                                  const float* rhs, const float* lb, const float* ub,
                                  const bool* active, float* best_l, float* best_u,
-                                 int64_t n_chunks, int k, int64_t bsz, int64_t n_pad,
-                                 float int_eps, float inf, cudaStream_t stream) {
+                                 int64_t n_chunks, int k, int max_len, int64_t bsz,
+                                 int64_t n_pad, float int_eps, float inf, cudaStream_t stream) {
   return launch_node_candidates_scatter(val, col, ii, clen, rmf, rmc, rxf, rxc, lhs, rhs, lb, ub,
-                                        active, best_l, best_u, n_chunks, k, bsz, n_pad, int_eps,
-                                        inf, stream);
+                                        active, best_l, best_u, n_chunks, k, max_len, bsz, n_pad,
+                                        int_eps, inf, stream);
 }
 
 int apply_updates_batch_f32(float* lb, float* ub, float* best_l, float* best_u,

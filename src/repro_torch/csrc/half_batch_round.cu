@@ -84,10 +84,10 @@
   }                                                                                               \
   int node_activities_gather_##S(const T* val, const int* col, const int* clen, const T* lb,      \
                                  const T* ub, const bool* active, T* mf, int* mc, T* xf, int* xc, \
-                                 int64_t n_chunks, int k, int64_t bsz, int64_t n_pad, float inf,  \
-                                 cudaStream_t stream) {                                           \
+                                 int64_t n_chunks, int k, int max_len, int64_t bsz,               \
+                                 int64_t n_pad, float inf, cudaStream_t stream) {                 \
     return launch_node_activities_gather(val, col, clen, lb, ub, active, mf, mc, xf, xc,          \
-                                         n_chunks, k, bsz, n_pad, T(inf), stream);                \
+                                         n_chunks, k, max_len, bsz, n_pad, T(inf), stream);       \
   }                                                                                               \
   int node_combine_chunk_partials_##S(const T* mf, const int* mc, const T* xf, const int* xc,     \
                                       const int64_t* row_start, const int* short_seg,             \
@@ -102,11 +102,11 @@
                                   const T* rmf, const int* rmc, const T* rxf, const int* rxc,     \
                                   const T* lhs, const T* rhs, const T* lb, const T* ub,           \
                                   const bool* active, float* best_l, float* best_u,               \
-                                  int64_t n_chunks, int k, int64_t bsz, int64_t n_pad,            \
-                                  float int_eps, float inf, cudaStream_t stream) {                \
+                                  int64_t n_chunks, int k, int max_len, int64_t bsz,              \
+                                  int64_t n_pad, float int_eps, float inf, cudaStream_t stream) { \
     return launch_node_candidates_scatter(val, col, ii, clen, rmf, rmc, rxf, rxc, lhs, rhs, lb,   \
-                                          ub, active, best_l, best_u, n_chunks, k, bsz, n_pad,    \
-                                          T(int_eps), T(inf), stream);                            \
+                                          ub, active, best_l, best_u, n_chunks, k, max_len, bsz,  \
+                                          n_pad, T(int_eps), T(inf), stream);                     \
   }                                                                                               \
   int apply_updates_batch_##S(T* lb, T* ub, float* best_l, float* best_u, const bool* active,     \
                               bool* changed, bool* clear, int64_t bsz, int64_t n_pad, float eps,  \
@@ -173,20 +173,20 @@
   }                                                                                               \
   int node_activities_gather_##S(const T* val, const int16_t* col, const int* clen, const T* lb,  \
                                  const T* ub, const bool* active, T* mf, int* mc, T* xf, int* xc, \
-                                 int64_t n_chunks, int k, int64_t bsz, int64_t n_pad, float inf,  \
-                                 cudaStream_t stream) {                                           \
+                                 int64_t n_chunks, int k, int max_len, int64_t bsz,               \
+                                 int64_t n_pad, float inf, cudaStream_t stream) {                 \
     return launch_node_activities_gather(val, col, clen, lb, ub, active, mf, mc, xf, xc,          \
-                                         n_chunks, k, bsz, n_pad, T(inf), stream);                \
+                                         n_chunks, k, max_len, bsz, n_pad, T(inf), stream);       \
   }                                                                                               \
   int node_candidates_scatter_##S(const T* val, const int16_t* col, const int8_t* ii,             \
                                   const int* clen, const T* rmf, const int* rmc, const T* rxf,    \
                                   const int* rxc, const T* lhs, const T* rhs, const T* lb,        \
                                   const T* ub, const bool* active, float* best_l, float* best_u,  \
-                                  int64_t n_chunks, int k, int64_t bsz, int64_t n_pad,            \
-                                  float int_eps, float inf, cudaStream_t stream) {                \
+                                  int64_t n_chunks, int k, int max_len, int64_t bsz,              \
+                                  int64_t n_pad, float int_eps, float inf, cudaStream_t stream) { \
     return launch_node_candidates_scatter(val, col, ii, clen, rmf, rmc, rxf, rxc, lhs, rhs, lb,   \
-                                          ub, active, best_l, best_u, n_chunks, k, bsz, n_pad,    \
-                                          T(int_eps), T(inf), stream);                            \
+                                          ub, active, best_l, best_u, n_chunks, k, max_len, bsz,  \
+                                          n_pad, T(int_eps), T(inf), stream);                     \
   }
 
 extern "C" {

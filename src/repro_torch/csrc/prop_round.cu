@@ -176,10 +176,10 @@ int candidates_scatter(const double* val, const int* col, const int* ii, const i
 
 int node_activities_gather(const double* val, const int* col, const int* clen, const double* lb,
                            const double* ub, const bool* active, double* mf, int* mc,
-                           double* xf, int* xc, int64_t n_chunks, int k, int64_t bsz,
-                           int64_t n_pad, double inf, cudaStream_t stream) {
+                           double* xf, int* xc, int64_t n_chunks, int k, int max_len,
+                           int64_t bsz, int64_t n_pad, double inf, cudaStream_t stream) {
   return launch_node_activities_gather(val, col, clen, lb, ub, active, mf, mc, xf, xc, n_chunks,
-                                       k, bsz, n_pad, inf, stream);
+                                       k, max_len, bsz, n_pad, inf, stream);
 }
 
 int node_candidates_scatter(const double* val, const int* col, const int* ii, const int* clen,
@@ -187,11 +187,11 @@ int node_candidates_scatter(const double* val, const int* col, const int* ii, co
                             const int* rxc, const double* lhs, const double* rhs,
                             const double* lb, const double* ub, const bool* active,
                             double* best_l, double* best_u, int64_t n_chunks, int k,
-                            int64_t bsz, int64_t n_pad, double int_eps, double inf,
-                            cudaStream_t stream) {
+                            int max_len, int64_t bsz, int64_t n_pad, double int_eps,
+                            double inf, cudaStream_t stream) {
   return launch_node_candidates_scatter(val, col, ii, clen, rmf, rmc, rxf, rxc, lhs, rhs, lb, ub,
-                                        active, best_l, best_u, n_chunks, k, bsz, n_pad, int_eps,
-                                        inf, stream);
+                                        active, best_l, best_u, n_chunks, k, max_len, bsz, n_pad,
+                                        int_eps, inf, stream);
 }
 
 int apply_updates(double* lb, double* ub, double* best_l, double* best_u, int* carry, int64_t n,

@@ -626,18 +626,23 @@ __device__ __forceinline__ void gather_strides(const Loaded<U, T>& s, const B& b
   }
 }
 
+// One slot's activity contribution (value v, its column's bounds l, h),
+// added to the sums a; padding (v == 0) adds nothing.
+template <typename T>
+__device__ __forceinline__ void add_slot(RowSumT<T>& a, T v, T l, T h, T inf) {
+  if (v == T(0)) return;
+  const SlotT<T> t = make_slot(v, l, h, inf);
+  if (t.min_inf) a.mc += 1; else a.mf += Num<T>::wide(v * t.bmin);
+  if (t.max_inf) a.xc += 1; else a.xf += Num<T>::wide(v * t.bmax);
+}
+
 // A batch's activity contributions, from its gathered bounds l, h, added to
 // the lane's sums in slot order.
 template <int U, typename T>
 __device__ __forceinline__ void add_gathered(RowSumT<T>& a, const Loaded<U, T>& s,
                                              const T (&l)[U], const T (&h)[U], T inf) {
 #pragma unroll
-  for (int u = 0; u < U; ++u) {
-    if (s.v[u] == T(0)) continue;
-    const SlotT<T> t = make_slot(s.v[u], l[u], h[u], inf);
-    if (t.min_inf) a.mc += 1; else a.mf += Num<T>::wide(s.v[u] * t.bmin);
-    if (t.max_inf) a.xc += 1; else a.xf += Num<T>::wide(s.v[u] * t.bmax);
-  }
+  for (int u = 0; u < U; ++u) add_slot(a, s.v[u], l[u], h[u], inf);
 }
 
 // The same, gathering the batch's bounds first.

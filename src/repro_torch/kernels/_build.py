@@ -50,8 +50,8 @@ SIGNATURES = {
         "fused_scatter_round": [P] * 11 + [I64, I32, I32, F64, F64, P],
         "activities_gather": [P] * 9 + [I64, I32, F64, P],
         "candidates_scatter": [P] * 14 + [I64, I32, F64, F64, P],
-        "node_activities_gather": [P] * 10 + [I64, I32, I64, I64, F64, P],
-        "node_candidates_scatter": [P] * 15 + [I64, I32, I64, I64, F64, F64, P],
+        "node_activities_gather": [P] * 10 + [I64, I32, I32, I64, I64, F64, P],
+        "node_candidates_scatter": [P] * 15 + [I64, I32, I32, I64, I64, F64, F64, P],
         "node_combine_chunk_partials": [P] * 12 + [I64, I64, I64, I64, P],
         "apply_updates": [P] * 5 + [I64, I32, I32, F64, F64, F64, P],
         "combine_chunk_partials": [P] * 12 + [I64, I64, P],
@@ -92,11 +92,11 @@ SIGNATURES = {
         "batched_fused_scatter_round_f32": [P] * 12 + [I64, I32, I32, I64, I64, F32, F32, P],
         "node_fused_scatter_round_f32": [P] * 11 + [I64, I32, I32, I64, I64, F32, F32, P],
         "node_fused_scatter_round_f32c": [P] * 11 + [I64, I32, I32, I64, I64, F32, F32, P],
-        "node_activities_gather_f32": [P] * 10 + [I64, I32, I64, I64, F32, P],
-        "node_activities_gather_f32c": [P] * 10 + [I64, I32, I64, I64, F32, P],
+        "node_activities_gather_f32": [P] * 10 + [I64, I32, I32, I64, I64, F32, P],
+        "node_activities_gather_f32c": [P] * 10 + [I64, I32, I32, I64, I64, F32, P],
         "node_combine_chunk_partials_f32": [P] * 12 + [I64, I64, I64, I64, P],
-        "node_candidates_scatter_f32": [P] * 15 + [I64, I32, I64, I64, F32, F32, P],
-        "node_candidates_scatter_f32c": [P] * 15 + [I64, I32, I64, I64, F32, F32, P],
+        "node_candidates_scatter_f32": [P] * 15 + [I64, I32, I32, I64, I64, F32, F32, P],
+        "node_candidates_scatter_f32c": [P] * 15 + [I64, I32, I32, I64, I64, F32, F32, P],
         "apply_updates_batch_f32": [P] * 7 + [I64, I64, F32, F32, F32, P],
         "apply_updates_batch_stop": [P] * 10 + [I64, I64, F64, F64, F64, P],
         "apply_updates_batch_stop_f32": [P] * 10 + [I64, I64, F32, F32, F32, P],

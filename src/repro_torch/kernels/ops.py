@@ -388,7 +388,7 @@ def gather_bounds(lb, ub, col):
 
 class KeptPlanes:
     """The accumulator planes of kernels D and E (``(n_pad,)``) and #8, #10,
-    #12 and #14 (``(B, W)``), kept by the round closure that owns them (or
+    node E, #12 and #14 (``(B, W)``), kept by the round closure that owns them (or
     the service's bucket engine) for its whole fixed point: allocated and
     filled with the sentinels at the first round
     (:func:`prop_round.accumulator_planes`), scattered into by the kernel,
@@ -400,7 +400,8 @@ class KeptPlanes:
     scattered without merging).  The merges #9 and #15 also take their
     flags from here: a :class:`prop_round.FlagPair` per shape, written in
     turn (:meth:`flags`); and the partitioned round its straddle partials
-    and aggregates (:meth:`scratch`)."""
+    and aggregates, the multi-chunk node round its partials and aggregates
+    (:meth:`scratch`)."""
 
     def __init__(self, inf: float):
         self.inf = inf
@@ -492,9 +493,9 @@ class RoundOps(NamedTuple):
     activities_tiles: Callable   # A: tiles + gathered bounds -> chunk partials
     candidates_tiles: Callable   # B: ... + row aggregates -> (T, R, K) candidates
     fused_round_tiles: Callable  # C: tiles + gathered bounds -> (T, R, K) candidates
-    node_activities: Callable  # A' over (B, n_pad) planes + active -> (B, T, R) partials
-    node_combine: Callable     # the combine over (B, T, R) partials + active
-    node_candidates: Callable  # E over (B, T, R) aggregates + planes + active
+    node_activities: Callable  # A' over (B, n_pad) planes + active + kept -> (B, T, R) partials
+    node_combine: Callable     # the combine over (B, T, R) partials + active + kept
+    node_candidates: Callable  # E over (B, T, R) aggregates + planes + active + kept
 
 
 def _kernel_node_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, int_eps, inf,
@@ -502,6 +503,37 @@ def _kernel_node_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, 
     return kern.node_fused_scatter_round_tiles(
         val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, int_eps, inf,
         acc=kept.get(lb), chunk_len=chunk_len, max_chunk_len=max_chunk_len,
+    )
+
+
+def _kernel_node_activities(val, col, lb, ub, active, n_pad, inf, *, kept: KeptPlanes,
+                            chunk_len=None, max_chunk_len=None):
+    """Node A' into partials kept by the round closure (stale in the rows
+    of inactive nodes, which the combine and E never read)."""
+    shape = (lb.shape[0], *val.shape[:2])
+    return kern.node_activities_gather_tiles(
+        val, col, lb, ub, active, n_pad, inf, chunk_len=chunk_len, max_chunk_len=max_chunk_len,
+        out=kept.scratch("node_partials", kern.partial_specs(shape, lb.dtype), lb),
+    )
+
+
+def _kernel_node_combine(mf, mc, xf, xc, chunk_row, row_start, active, *, kept: KeptPlanes,
+                         classes=None):
+    """The node combine into aggregates kept by the round closure (stale in
+    the rows of inactive nodes, which E never reads)."""
+    return kern.node_combine_chunk_partials_tiles(
+        mf, mc, xf, xc, chunk_row, row_start, active, classes=classes,
+        out=kept.scratch("node_aggregates", kern.partial_specs(tuple(mf.shape), mf.dtype), mf),
+    )
+
+
+def _kernel_node_candidates(val, col, is_int_g, mf, mc, xf, xc, lhs_g, rhs_g, lb, ub, active,
+                            n_pad, int_eps, inf, *, kept: KeptPlanes, chunk_len=None,
+                            max_chunk_len=None):
+    """Node E into the closure's kept planes, which #9 hands back."""
+    return kern.node_candidates_scatter_tiles(
+        val, col, is_int_g, mf, mc, xf, xc, lhs_g, rhs_g, lb, ub, active, n_pad, int_eps, inf,
+        chunk_len=chunk_len, max_chunk_len=max_chunk_len, acc=kept.get(lb),
     )
 
 
@@ -543,6 +575,21 @@ def _plain_node_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, active, n_pad, i
     return kref.node_fused_scatter_round_ref(
         val, col, is_int_g, lhs_g, rhs_g, lb, ub, n_pad, int_eps, inf, active=active
     )
+
+
+def _plain_node_activities(*args, kept, chunk_len=None, max_chunk_len=None):
+    del kept, chunk_len, max_chunk_len  # the plain round allocates its own outputs
+    return kref.node_activities_gather_ref(*args)
+
+
+def _plain_node_combine(*args, kept, classes=None):
+    del kept
+    return kref.node_combine_chunk_partials_ref(*args, classes=classes)
+
+
+def _plain_node_candidates(*args, kept, chunk_len=None, max_chunk_len=None):
+    del kept, max_chunk_len
+    return kref.node_candidates_scatter_ref(*args, chunk_len=chunk_len)
 
 
 def _plain_batched_fused(val, col, is_int_g, lhs_g, rhs_g, lb, ub, tile_inst, active, n_pad,
@@ -702,9 +749,9 @@ KERNEL_OPS = RoundOps(
     kern.activities_tiles,
     kern.candidates_tiles,
     kern.fused_round_tiles,
-    kern.node_activities_gather_tiles,
-    kern.node_combine_chunk_partials_tiles,
-    kern.node_candidates_scatter_tiles,
+    _kernel_node_activities,
+    _kernel_node_combine,
+    _kernel_node_candidates,
 )
 PLAIN_OPS = RoundOps(
     _plain_fused,
@@ -719,9 +766,9 @@ PLAIN_OPS = RoundOps(
     kref.activities_tiles_ref,
     kref.candidates_tiles_ref,
     kref.fused_round_tiles_ref,
-    kref.node_activities_gather_ref,
-    kref.node_combine_chunk_partials_ref,
-    kref.node_candidates_scatter_ref,
+    _plain_node_activities,
+    _plain_node_combine,
+    _plain_node_candidates,
 )
 
 
@@ -1684,9 +1731,11 @@ def _node_round(
     kernel #10, and rows that span chunks A', the combine and E over the
     node batch (where the reference vmaps its single-instance round); then
     the batched merge #9.  Each launch covers every node, so a round makes
-    the same launches whatever the batch size.  #10 and #14 scatter into the
-    closure's kept planes ``kept``, which #9 / #15 set back to the
-    sentinels.  With ``progress`` (a ``(B,)`` tensor) #9 (or #15) also
+    the same launches whatever the batch size.  #10, E and #14 scatter into
+    the closure's kept planes ``kept``, which #9 / #15 set back to the
+    sentinels; A' and the combine write into partials and aggregates kept
+    there (``kept.scratch``), so the round allocates nothing (the plain
+    round allocates its own).  With ``progress`` (a ``(B,)`` tensor) #9 (or #15) also
     writes each active node's early-stop measure of the round into it."""
     if part is not None:
         return ops.partitioned(
@@ -1701,13 +1750,13 @@ def _node_round(
             max_chunk_len=prep.max_chunk_len,
         )
     else:
-        partials = ops.node_activities(d.val, d.col, lb, ub, active, prep.n_pad, inf,
-                                       chunk_len=prep.chunk_len)
-        aggs = ops.node_combine(*partials, d.chunk_row, prep.row_start, active,
+        hoisted = dict(kept=kept, chunk_len=prep.chunk_len, max_chunk_len=prep.max_chunk_len)
+        partials = ops.node_activities(d.val, d.col, lb, ub, active, prep.n_pad, inf, **hoisted)
+        aggs = ops.node_combine(*partials, d.chunk_row, prep.row_start, active, kept=kept,
                                 classes=prep.seg_classes)
         best_l, best_u = ops.node_candidates(
             d.val, d.col, prep.ii_g, *aggs, prep.lhs_g, prep.rhs_g, lb, ub, active,
-            prep.n_pad, int_eps, inf, chunk_len=prep.chunk_len,
+            prep.n_pad, int_eps, inf, **hoisted,
         )
     return ops.merge_batch(lb, ub, best_l, best_u, active, eps, inf, outward,
                            flags=kept.flags(active.shape, torch.bool, lb),

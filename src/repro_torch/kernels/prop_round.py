@@ -915,7 +915,9 @@ node_fused_scatter_round_tiles.launches = 0
 # The reference runs its single-instance jnp round vmapped over the nodes
 # here (src/repro/kernels/ops.py:2031): these three have no Pallas twin.
 # Their (B, T, R) partial and aggregate planes are written for the active
-# nodes only; the rows of inactive nodes are left as allocated.
+# nodes only; the rows of inactive nodes are left as they were (stale rows
+# of a buffer kept by the round closure, ``out=``), and neither the combine
+# nor E reads them.
 
 
 def _check_node_tiles(val, col, lb, ub, active, n_pad, is_int_g=None):
@@ -928,40 +930,58 @@ def _check_node_tiles(val, col, lb, ub, active, n_pad, is_int_g=None):
     return t, r, k, bsz, form
 
 
+def _active_into(out, result, active):
+    """The plain form of a node kernel's outputs into kept buffers ``out``:
+    the active rows of ``result`` copied, the others left as they were."""
+    if out is None:
+        return result
+    for o, x in zip(out, result):
+        o[active] = x[active]
+    return tuple(out)
+
+
 def node_activities_gather_tiles(val, col, lb, ub, active, n_pad: int, inf: float = INF,
-                                 chunk_len=None):
+                                 chunk_len=None, *, max_chunk_len: int | None = None, out=None):
     """Kernel A' over a node batch: ONE instance's ``(T, R, K)`` tiles +
     ``(B, n_pad)`` per-node bound planes + ``(B,)`` bool ``active`` -> 4 x
     ``(B, T, R)`` partials (``chunk_len`` as in
-    :func:`activities_gather_tiles`).  Per active node exactly
+    :func:`activities_gather_tiles`; ``max_chunk_len`` the longest chunk,
+    hoisted by the prep, K when omitted).  Per active node exactly
     :func:`activities_gather_tiles` on its row; inactive nodes' rows are
-    not written (the plain version leaves them at zero).
+    not written (the plain version leaves them at zero).  ``out`` (the four
+    partials, :func:`partial_specs`, kept by the round closure) is written
+    instead of fresh tensors: its inactive rows keep what they held.
 
     No Pallas twin (the reference vmaps its jnp round over the nodes).
     Bound on the H100: the tile stream once per launch (in L2 at the
     solver's sizes), each active node's gathers from its bound rows and 24
-    B of partials per (active node, chunk).  Design: kernel #10's scheme
-    over A''s loads: each warp loads its chunks' strides once, ballots the
-    mask 32 nodes at a time and visits the active nodes only.  Float64 or
+    B of partials per (active node, chunk); on the card its bound gathers
+    (8 B each, from L2) set the pace.  Design: the active-only walk of #10,
+    #13 and #14 over (group of ``kNodeGatherGroup`` = 2 active nodes, chunk
+    block) items, group by group, so with no node active every block
+    returns after its ballot; an item loads its chunks once (values and
+    columns together, each chunk stopped at its length) and sums each node
+    of the group in ``ref.warp_order_sum``'s order, storing its partials
+    (consecutive threads on consecutive chunks).  Keyed on the longest
+    chunk: up to 8 slots one thread a chunk runs the lane group's butterfly
+    in registers (bitwise the same), wider chunks take the group's lanes,
+    one node an item, as #10's and #13's.  Float64 or
     float32 (``csrc/batch_tier_round.cu``), bfloat16 or float16
     (``csrc/half_batch_round.cu``, each chunk's sums in float32 rounded
     once), with the compact ids as #10's."""
     (inf,) = _scalars(val.dtype, inf)
-    if not _on_cuda(val, col, lb, ub, active):
-        return ref.node_activities_gather_ref(val, col, lb, ub, active, n_pad, inf)
+    if not _on_cuda(val, col, lb, ub, active, *(out or ())):
+        return _active_into(out, ref.node_activities_gather_ref(val, col, lb, ub, active, n_pad,
+                                                                inf), active)
     t, r, k, bsz, form = _check_node_tiles(val, col, lb, ub, active, n_pad)
     clen = _chunk_len(val, chunk_len)
-    dev = val.device
-    mf = torch.empty((bsz, t, r), dtype=val.dtype, device=dev)
-    xf = torch.empty((bsz, t, r), dtype=val.dtype, device=dev)
-    mc = torch.empty((bsz, t, r), dtype=torch.int32, device=dev)
-    xc = torch.empty((bsz, t, r), dtype=torch.int32, device=dev)
+    mf, mc, xf, xc = _outputs(out, partial_specs((bsz, t, r), val.dtype), val.device)
     if t == 0 or bsz == 0:
         return mf, mc, xf, xc
     entry, symbol = _tier_entry("node_activities_gather", form)
     err = entry(
         _p(val), _p(col), _p(clen), _p(lb), _p(ub), _p(active), _p(mf), _p(mc), _p(xf),
-        _p(xc), t * r, k, bsz, n_pad, inf, _stream(),
+        _p(xc), t * r, k, _max_len(k, max_chunk_len), bsz, n_pad, inf, _stream(),
     )
     _launched(node_activities_gather_tiles, form)
     _build.check(err, symbol)
@@ -972,13 +992,16 @@ node_activities_gather_tiles.launches = 0
 
 
 def node_combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start, active,
-                                      classes=None):
+                                      classes=None, *, out=None):
     """The long-row combine over a node batch: ``(B, T, R)`` partials ->
     ``(B, T, R)`` completed aggregates, every node's segments those of
     ``row_start`` (one instance, split by ``classes`` as in
     :func:`combine_chunk_partials_tiles`), summed left to right; per active
     node exactly :func:`combine_chunk_partials_tiles` on its planes,
-    inactive nodes' planes not written (zeros in the plain version).
+    inactive nodes' planes neither read nor written (zeros in the plain
+    version).  ``out`` (the four aggregates, kept by the round closure) is
+    written instead of fresh tensors: its inactive rows keep what they
+    held.
 
     No Pallas twin (the reference's XLA ``segment_sum``, vmapped).  Bound
     on the H100: 48 B per (active node, chunk) (32 B at float32).  Design:
@@ -989,8 +1012,8 @@ def node_combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start, acti
     bfloat16 or float16 (``csrc/half_batch_round.cu``, rounding after every
     add, in chunk order, as the reference's segment sum does)."""
     operands = (mf, mc, xf, xc, chunk_row, row_start, active)
-    if not _on_cuda(*operands):
-        return ref.node_combine_chunk_partials_ref(*operands)
+    if not _on_cuda(*operands, *(out or ())):
+        return _active_into(out, ref.node_combine_chunk_partials_ref(*operands), active)
     bsz = mf.shape[0]
     shape = (bsz, *chunk_row.shape)
     form = _value_form("mf", mf)
@@ -999,8 +1022,7 @@ def node_combine_chunk_partials_tiles(mf, mc, xf, xc, chunk_row, row_start, acti
     _expect("row_start", row_start, torch.int64, (row_start.shape[0],))
     _expect("active", active, torch.bool, (bsz,))
     short, long = _classes(row_start, chunk_row.numel(), classes)
-    omf, oxf = torch.empty_like(mf), torch.empty_like(xf)
-    omc, oxc = torch.empty_like(mc), torch.empty_like(xc)
+    omf, omc, oxf, oxc = _outputs(out, partial_specs(shape, mf.dtype), mf.device)
     if bsz == 0 or short.numel() + long.numel() == 0:
         return omf, omc, oxf, oxc
     entry, symbol = _tier_entry("node_combine_chunk_partials", form)
@@ -1019,44 +1041,59 @@ node_combine_chunk_partials_tiles.launches = 0
 
 def node_candidates_scatter_tiles(
     val, col, is_int_g, row_min_fin, row_min_cnt, row_max_fin, row_max_cnt, lhs_g, rhs_g,
-    lb, ub, active, n_pad: int, int_eps: float, inf: float = INF, chunk_len=None,
+    lb, ub, active, n_pad: int, int_eps: float, inf: float = INF, chunk_len=None, *,
+    max_chunk_len: int | None = None, acc=None,
 ):
     """Kernel E over a node batch: ONE instance's ``(T, R, K)`` tiles +
     ``(B, T, R)`` completed row aggregates + shared ``(T, R)`` sides +
     ``(B, n_pad)`` planes + ``(B,)`` ``active`` -> ``(B, n_pad)`` ``best_l``
     / ``best_u``.  Per active node exactly :func:`candidates_scatter_tiles`
-    on its rows; inactive nodes get sentinel rows.
+    on its rows; only the active nodes' aggregates are read.  ``acc`` is a
+    pair of ``(B, n_pad)`` accumulator planes (:func:`accumulator_planes`,
+    kept by the round closure: #9 sets the rows it reads back to the
+    sentinels), scattered into and returned; without it fresh sentinel
+    planes are (inactive nodes' rows stay at the sentinels).
+    ``max_chunk_len`` is the longest chunk (hoisted by the prep, K when
+    omitted).
 
     No Pallas twin (the reference vmaps its jnp round over the nodes).
     Bound on the H100: the tile stream once per launch (in L2 at the
     solver's sizes), 32 B of aggregates per (active node, chunk), each
-    active node's bound rows read and accumulator rows written.  Design:
-    kernel #10's ballot over E's loads (strides loaded once per warp) and
-    E's integer-atomic scatter into each node's row; the accumulator
-    planes are filled with the sentinel before the launch.  Float64 or
-    float32 (``csrc/batch_tier_round.cu``), with the compact ids as
-    #10's; bfloat16 or float16 (``csrc/half_batch_round.cu``) into float32
-    planes (the sentinels and the candidates exact in float32)."""
+    active node's bound rows read and accumulator rows written; on the card
+    its gathers and reductions in L2 set the pace.  Design: node A''s walk
+    over (group of ``kNodeScatterGroup`` = 4 active nodes, chunk block)
+    items, one node an item where chunks take lanes, and its threads or
+    lanes per chunk; an item loads its chunks once
+    (values, columns and marks together, stopped at their lengths), gathers
+    each node's bounds once and holds them through the node's candidates,
+    which go to its accumulator row by fire-and-forget integer reductions
+    (no L2 pre-check).  Float64 or
+    float32 (``csrc/batch_tier_round.cu``), with the compact ids as #10's;
+    bfloat16 or float16 (``csrc/half_batch_round.cu``) into float32 planes
+    (the sentinels and the candidates exact in float32)."""
     (int_eps, inf) = _scalars(val.dtype, int_eps, inf)
     operands = (val, col, is_int_g, row_min_fin, row_min_cnt, row_max_fin, row_max_cnt,
                 lhs_g, rhs_g, lb, ub, active)
-    if not _on_cuda(*operands):
-        return ref.node_candidates_scatter_ref(*operands, n_pad, int_eps, inf)
+    if not _on_cuda(*operands, *(acc or ())):
+        best = ref.node_candidates_scatter_ref(*operands, n_pad, int_eps, inf)
+        return best if acc is None else _fold(acc, best)
     t, r, k, bsz, form = _check_node_tiles(val, col, lb, ub, active, n_pad, is_int_g)
     _check_rows((bsz, t, r), val.dtype, row_min_fin=row_min_fin, row_min_cnt=row_min_cnt,
                 row_max_fin=row_max_fin, row_max_cnt=row_max_cnt)
     _check_rows((t, r), val.dtype, lhs_g=lhs_g, rhs_g=rhs_g)
     clen = _chunk_len(val, chunk_len)
-    pdt = plane_dtype(val.dtype)
-    best_l = torch.full((bsz, n_pad), -inf, dtype=pdt, device=val.device)
-    best_u = torch.full((bsz, n_pad), inf, dtype=pdt, device=val.device)
+    if acc is None:
+        acc = accumulator_planes(lb, inf)
+    best_l, best_u = acc
+    _check_planes(bsz, n_pad, plane_dtype(val.dtype), best_l=best_l, best_u=best_u)
     if t == 0 or bsz == 0:
         return best_l, best_u
     entry, symbol = _tier_entry("node_candidates_scatter", form)
     err = entry(
         _p(val), _p(col), _p(is_int_g), _p(clen), _p(row_min_fin), _p(row_min_cnt),
         _p(row_max_fin), _p(row_max_cnt), _p(lhs_g), _p(rhs_g), _p(lb), _p(ub), _p(active),
-        _p(best_l), _p(best_u), t * r, k, bsz, n_pad, int_eps, inf, _stream(),
+        _p(best_l), _p(best_u), t * r, k, _max_len(k, max_chunk_len), bsz, n_pad, int_eps, inf,
+        _stream(),
     )
     _launched(node_candidates_scatter_tiles, form)
     _build.check(err, symbol)

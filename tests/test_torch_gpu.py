@@ -310,13 +310,18 @@ def test_combine_long_segments_match_plain_version(cuda, gen, kind, threshold):
             _match_bits(g[i], w)
 
 
-def _packed_tiles(gen, t, r, k, n, integer, dev):
+def _packed_tiles(gen, t, r, k, n, integer, dev, longest=None):
     """Tiles laid out as the block-ELL conversion lays them out, each
     chunk's nonzeros at its front: lengths 0 (all padding), 1, up to 31
-    (shorter than a stride), half of K and K; bounds and sides as
+    (shorter than a stride), half of K and K (``longest`` in place of K,
+    reached by the first chunk, where given); bounds and sides as
     :func:`_tiles`.  ``clen`` holds the lengths."""
     x = _tiles(gen, t, r, k, n, integer, dev)
-    lengths = gen.choice(sorted({0, 1, min(k, 7), min(k, 31), max(1, k // 2), k}), size=(t, r))
+    top = k if longest is None else longest
+    lengths = gen.choice(sorted({0, 1, min(top, 7), min(top, 31), max(1, top // 2), top}),
+                         size=(t, r))
+    if longest is not None:
+        lengths[0, 0] = longest
     keep = np.arange(k) < lengths[..., None]
     val = np.where(keep, gen.choice([-2.0, -1.0, 1.0, 3.0], size=(t, r, k)), 0.0)
     col = np.where(keep, gen.integers(0, n, size=(t, r, k)), 0).astype(np.int32)
@@ -408,6 +413,125 @@ def test_node_multichunk_kernels_match_plain_versions(cuda, gen, t, r, k, n, bsz
         counts = tk.launch_counts()
         assert (counts["node_activities_gather_tiles"] == counts["node_combine_chunk_partials_tiles"]
                 == counts["node_candidates_scatter_tiles"] == 1)
+
+
+# The forms of node A' and node E (csrc/prop_round.cu, batch_tier_round.cu,
+# half_batch_round.cu) and (K, longest chunk) pairs: one thread a chunk at
+# group widths 1, 2, 4 and 8 (below or at K), 16 lanes, a warp holding one
+# stride and two.
+NODE_FORMS = ["f64", "f32", "f32c", "bf16", "bf16c", "f16"]
+NODE_LENGTHS = [(4, 1), (4, 2), (4, 3), (4, 4), (8, 5), (8, 8), (64, 1), (64, 9), (64, 17),
+                (64, 33)]
+POOL_ACTIVE = (0, 1, 8, 33, 128)
+
+
+def _form_tiles(x, form):
+    """Tiles of :func:`_packed_tiles` in one of :data:`NODE_FORMS`."""
+    if form == "f64":
+        return x
+    if form.startswith("f32"):
+        return _tier_tiles(x, form == "f32c")
+    dtype = torch.bfloat16 if form.startswith("bf16") else torch.float16
+    return _half_tiles(x, dtype, form == "bf16c")
+
+
+def _row_index(gen, t, r, dev):
+    """``(chunk_row, row_start)``: rows of one to three adjacent chunks over
+    a (T, R) stream, then the padding row."""
+    m = t * r // 3 + 1
+    crow = np.zeros(t * r, np.int32)
+    crow[np.sort(gen.choice(np.arange(1, t * r), size=m - 1, replace=False))] = 1
+    crow_t = torch.from_numpy(np.cumsum(crow).astype(np.int32).reshape(t, r)).to(dev)
+    return crow_t, tref.row_starts(crow_t, int(crow_t.max()) + 1)
+
+
+@pytest.mark.parametrize("k,longest", NODE_LENGTHS)
+@pytest.mark.parametrize("form", NODE_FORMS)
+def test_node_multichunk_kernels_every_form_over_a_pool(cuda, gen, form, k, longest):
+    """Node A', the node combine and node E in every form over a 128-node
+    pool with 0, 1, 8, 33 and 128 nodes active (scattered, with holes), the
+    lanes keyed on the longest chunk (hoisted or K): bitwise as values
+    equal to their plain versions on the active rows, fresh or into kept
+    buffers (A' and the combine leave the inactive rows of ``out`` as they
+    were; E folds into ``acc``, which then holds the plain planes), each
+    launching its form."""
+    bsz, t, r, n = 128, 24, 8, 700
+    x = _form_tiles(_packed_tiles(gen, t, r, k, n, True, cuda, longest=longest), form)
+    dt = x["val"].dtype
+    lb, ub = (p.to(dt) for p in _planes(gen, bsz, x["n_pad"], True, cuda))
+    _, int_eps, inf, _ = rt.core.propagator.round_scalars(rt.core.DEFAULT_CONFIG, dt)
+    crow_t, row_start = _row_index(gen, t, r, cuda)
+    value_form = {"f32c": "f32", "bf16c": "bf16"}.get(form, form)
+    tk.reset_launch_counts()
+    for n_act in POOL_ACTIVE:
+        act = torch.zeros(bsz, dtype=torch.bool)
+        act[gen.choice(bsz, size=n_act, replace=False)] = True
+        act = act.to(cuda)
+        a_args = (x["val"], x["col"], lb, ub, act, x["n_pad"], inf)
+        want_p = tref.node_activities_gather_ref(*a_args)
+        out = tuple(torch.full_like(w, 7) for w in want_p)
+        for hoisted in (dict(max_chunk_len=longest), {}):
+            for g, w in zip(tk.node_activities_gather_tiles(*a_args, chunk_len=x["clen"],
+                                                            **hoisted), want_p):
+                _match_values(g[act], w[act])
+        kept = tk.node_activities_gather_tiles(*a_args, chunk_len=x["clen"],
+                                               max_chunk_len=longest, out=out)
+        for g, o, w in zip(kept, out, want_p):
+            assert g is o
+            _match_values(g[act], w[act])
+            assert bool((g[~act] == 7).all())
+        c_args = (*want_p, crow_t, row_start, act)
+        want_a = tref.node_combine_chunk_partials_ref(*c_args)
+        out = tuple(torch.full_like(w, 7) for w in want_a)
+        for got in (tk.node_combine_chunk_partials_tiles(*c_args),
+                    tk.node_combine_chunk_partials_tiles(*c_args, out=out)):
+            for g, w in zip(got, want_a):
+                _match_values(g[act], w[act])
+        assert all(bool((o[~act] == 7).all()) for o in out)
+        e_args = (x["val"], x["col"], x["ii"], *want_a, x["lhs"], x["rhs"], lb, ub, act,
+                  x["n_pad"], int_eps, inf)
+        want_e = tref.node_candidates_scatter_ref(*e_args)
+        acc = tk.accumulator_planes(lb, inf)
+        for hoisted in (dict(max_chunk_len=longest), {}, dict(max_chunk_len=longest, acc=acc)):
+            got = tk.node_candidates_scatter_tiles(*e_args, chunk_len=x["clen"], **hoisted)
+            for g, w in zip(got, want_e):
+                _match_values(g, w)
+        assert got[0] is acc[0] and got[1] is acc[1]
+    n = len(POOL_ACTIVE)
+    assert tk.form_counts() == {f"node_activities_gather_tiles[{form}]": 3 * n,
+                                f"node_combine_chunk_partials_tiles[{value_form}]": 2 * n,
+                                f"node_candidates_scatter_tiles[{form}]": 3 * n}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32, torch.bfloat16, torch.float16])
+def test_multichunk_node_rounds_in_a_row_match_plain_rounds(cuda, dtype):
+    """Two multi-chunk node rounds in a row through one closure, on other
+    masks each time: each equals the plain round bitwise as values (node E
+    scatters into the closure's kept planes, which #9 hands back: clean
+    after each round), and the second round allocates nothing on the card
+    (A' and the combine write into buffers kept by the closure)."""
+    p = td.make_pseudo_boolean(n=3000, m=4000, seed=7, unit_frac=0.002)
+    prep = rt.prepare_block_ell(p, tile_width=4, dtype=dtype, device=cuda)
+    assert not prep.fits_one_chunk
+    kernel = tk.node_round_fn_for(prep)
+    plain = tk.node_round_fn_for(prep, use_kernels=False)
+    lb_h, ub_h = _nodes(p, 40, seed=5)
+    lb, ub = tk.ops._node_planes(prep, lb_h, ub_h)
+    lbk, ubk, lbp, ubp = lb.clone(), ub.clone(), lb.clone(), ub.clone()
+    inf = rt.core.propagator.round_scalars(rt.core.DEFAULT_CONFIG, prep.d.val.dtype)[2]
+    for i, act in enumerate((torch.arange(40) % 3 != 1, torch.arange(40) % 4 == 0)):
+        act = act.to(cuda)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        lbk, ubk, ch_k = kernel(lbk, ubk, act)
+        torch.cuda.synchronize()
+        if i:
+            assert torch.cuda.memory_stats()["allocation.all.allocated"] == before
+        lbp, ubp, ch_p = plain(lbp, ubp, act)
+        for g, w in ((lbk, lbp), (ubk, ubp), (ch_k, ch_p)):
+            _match_values(g, w)
+        planes = kernel.kept.planes
+        assert bool((planes[0] == -inf).all() and (planes[1] == inf).all())
 
 
 @pytest.mark.parametrize("tile_width", [2, 4])

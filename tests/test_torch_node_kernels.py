@@ -387,6 +387,89 @@ def test_node_multichunk_plain_versions_equal_single_instance_versions(bsz, kind
             assert torch.equal(g[i], w)
 
 
+@pytest.mark.parametrize("bsz,kind", BATCHES)
+def test_node_multichunk_plain_versions_into_kept_buffers(bsz, kind, rng):
+    """The wrappers' CPU branches as the node round calls them: A' and the
+    combine into kept buffers (``out``) equal their fresh outputs on the
+    active rows and leave the others as they were; E into kept planes
+    (``acc``) folds its candidates into what they hold (the fresh planes
+    on the active rows, the held values elsewhere) and returns them."""
+    t, r, k, n = 3, 8, 16, 150
+    n_pad = 256
+    val, col, ii, lhs, rhs = _tiles(rng, t, r, k, n, True)
+    lb, ub = map(_t, _planes(rng, bsz, n_pad, True))
+    act = _t(_mask(rng, bsz, kind))
+    crow, m = _chunk_rows(rng, t, r)
+    row_start = tref.row_starts(_t(crow), m)
+    a_args = (_t(val), _t(col), lb, ub, act, n_pad)
+    fresh_p = node_activities_gather_tiles(*a_args)
+    out = tuple(torch.full_like(x, 7) for x in fresh_p)
+    kept_p = node_activities_gather_tiles(*a_args, max_chunk_len=k, out=out)
+    c_args = (_t(crow), row_start, act)
+    fresh_a = node_combine_chunk_partials_tiles(*fresh_p, *c_args)
+    out_a = tuple(torch.full_like(x, 7) for x in fresh_a)
+    kept_a = node_combine_chunk_partials_tiles(*kept_p, *c_args, out=out_a)
+    for kept, fresh, buf in ((kept_p, fresh_p, out), (kept_a, fresh_a, out_a)):
+        for g, w, o in zip(kept, fresh, buf):
+            assert g is o
+            assert torch.equal(g[act], w[act]) and bool((g[~act] == 7).all())
+    e_args = (_t(val), _t(col), _t(ii), *fresh_a, _t(lhs), _t(rhs), lb, ub, act, n_pad, 1e-6)
+    fresh = node_candidates_scatter_tiles(*e_args)
+    held = (torch.full((bsz, n_pad), -3.0), torch.full((bsz, n_pad), 4.0))
+    acc = tuple(x.clone() for x in held)
+    got = node_candidates_scatter_tiles(*e_args, max_chunk_len=k, acc=acc)
+    assert got[0] is acc[0] and got[1] is acc[1]
+    assert torch.equal(got[0], torch.maximum(held[0], fresh[0]))
+    assert torch.equal(got[1], torch.minimum(held[1], fresh[1]))
+    clean = accumulator_planes(lb)
+    got = node_candidates_scatter_tiles(*e_args, acc=clean)
+    for g, w in zip(got, fresh):
+        assert torch.equal(g, w)
+
+
+def test_multichunk_node_round_matches_reference_vmapped_round():
+    """The node round closure at tile width 4, where rows span chunks (node
+    A', the node combine and node E into buffers and planes kept by the
+    closure, then #9), round after round with the active mask changing, on
+    the kernel path's CPU branches and the plain path: both equal the
+    reference's round (its single-instance round vmapped over the nodes)
+    on integer data, and the kept planes are clean after every round."""
+    import repro.data as rd
+    from repro.kernels import ops as rops
+
+    import repro_torch as rt
+    from repro_torch.kernels import ops as tops
+
+    pr = rd.make_pseudo_boolean(n=60, m=80, seed=7)
+    p = rt.problem_from_reference(pr)
+    prep = tops.prepare_block_ell(p, tile_width=4, device="cpu")
+    assert not prep.fits_one_chunk
+    r_fn = rops.node_round_fn_for(rops.prepare_block_ell(pr, tile_width=4))
+    kernel, plain = tops.node_round_fn_for(prep), tops.node_round_fn_for(prep, use_kernels=False)
+    gen = np.random.default_rng(3)
+    bsz = 6
+    lb = np.tile(np.asarray(prep.lb0), (bsz, 1))
+    ub = np.tile(np.asarray(prep.ub0), (bsz, 1))
+    for i in range(bsz):
+        for var in gen.choice(p.n, size=2, replace=False):
+            (ub if i % 2 else lb)[i, var] = 0.0 if i % 2 else 1.0
+    rl, ru = _j(lb), _j(ub)
+    kl, ku, pl, pu = _t(lb), _t(ub), _t(lb), _t(ub)
+    tightened = 0
+    for act in ([True] * bsz, [True, False, True, True, False, True], [False] * bsz,
+                [False, True, False, True, True, False]):
+        rl, ru, rch = r_fn(rl, ru, _j(np.array(act)))
+        kl, ku, kch = kernel(kl, ku, _t(np.array(act)))
+        pl, pu, pch = plain(pl, pu, _t(np.array(act)))
+        for got in ((kl, ku, kch), (pl, pu, pch)):
+            for g, w in zip(got, (rl, ru, rch)):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        planes = kernel.kept.planes
+        assert bool((planes[0] == -INF).all() and (planes[1] == INF).all())
+        tightened += int(kch.sum())
+    assert tightened > 0
+
+
 @pytest.mark.parametrize("k", [1, 4, 8, 16, 128])
 def test_chunk_lengths_stop_after_the_last_nonzero(k, rng):
     """Where A' and E stop: one past each chunk's last nonzero, 0 for a

@@ -17,10 +17,13 @@ straddle combine, #12 with #15), ``fused``: the explicit fused engine
 segment engine (``scatter="segment"``: C, or A, the combine and B, with F)
 on ``pb``, ``banded`` and ``mixed``,
 ``propagate_nodes`` on the 64 branched ``pbf`` nodes of
-``chip_smoke.py`` phase 6 (#10 with #9) and on the 16 branched ``pbw``
-nodes of phase 8 (#13, the straddle combine, #14 with #15), ``solve`` on
-``pbf`` with its full 128-slot search (#10, #9, #16) and on ``pbw`` with
-phase 8's 128-slot search (#14), ``propagate_batch`` on ``[bandw, pbw]``
+``chip_smoke.py`` phase 6 (#10 with #9) and at tile width 4 (the multi-chunk
+node round: node A', the node combine, node E with #9), and on the 16
+branched ``pbw`` nodes of phase 8 (#13, the straddle combine, #14 with
+#15), ``solve`` on ``pbf`` with its full 128-slot search (#10, #9, #16),
+the same search at tile width 4 (phase 7's multi-chunk search) and on
+``pbw`` with phase 8's 128-slot search (#14), ``propagate_batch`` on
+``[bandw, pbw]``
 (the batch-partitioned round) and on phase 9's fused bucket ``[pb, pbf,
 banded, banded1]`` (#8 with #9), and phase 10's service stream of 24
 requests through 4 slots (#8 with #9, A', the combine and E), served
@@ -30,8 +33,9 @@ search counts), the median wall time of ``--reps`` calls (CUDA events
 around the call, host syncs included), the device busy time of one more
 call (``torch.profiler`` device items), the idle share and the largest
 device items, with ``--count`` the number and time of the device items
-whose names hold each given substring (e.g. ``node_slab_partials``), and
-the card's name and power limit.
+whose names hold each given substring (e.g. ``node_slab_partials``), the
+caching allocator's device segments allocated and freed and its retries
+over one call, and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -111,6 +115,9 @@ def main() -> int:
         nodes_pbf, nodes_pbw = branched(pbf, 6), branched(wide["pbw"], cs.WIDE_BRANCHED)
         paths["nodes pbf (64 nodes)"] = (
             lambda: rt.propagate_nodes(pbf, *nodes_pbf, tile_width=tw, device=dev), rounds)
+        paths[f"nodes pbf K = {cs.MULTI_CHUNK_TILE_WIDTH} (64 nodes)"] = (
+            lambda: rt.propagate_nodes(pbf, *nodes_pbf, tile_width=cs.MULTI_CHUNK_TILE_WIDTH,
+                                       device=dev), rounds)
         paths["nodes pbw (16 nodes)"] = (
             lambda: rt.propagate_nodes(wide["pbw"], *nodes_pbw, tile_width=tw, device=dev),
             rounds)
@@ -118,6 +125,9 @@ def main() -> int:
         c, cw = cs.objective(np, pbf.n), cs.objective(np, wide["pbw"].n)
         paths["solve pbf (128 slots)"] = (
             lambda: rt.solve(pbf, c, device=dev, **cs.FULL_SEARCH), search)
+        paths[f"solve pbf multi-chunk (K = {cs.MULTI_CHUNK_TILE_WIDTH})"] = (
+            lambda: rt.solve(pbf, c, device=dev, tile_width=cs.MULTI_CHUNK_TILE_WIDTH,
+                             **cs.FULL_SEARCH), search)
         paths["solve pbw (128 slots)"] = (
             lambda: rt.solve(wide["pbw"], cw, device=dev, **cs.WIDE_SEARCH), search)
     if want("propagate_batch"):
@@ -143,6 +153,14 @@ def main() -> int:
     for name, (fn, summary) in paths.items():
         result = summary(fn())
         torch.cuda.synchronize()
+        # The caching allocator's device segments (cudaMalloc calls) and
+        # retries (cudaFree of cached blocks, then again) over one more call.
+        before = torch.cuda.memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_stats()
+        segs = {k: after.get(k, 0) - before.get(k, 0)
+                for k in ("segment.all.allocated", "segment.all.freed", "num_alloc_retries")}
         wall = cs.time_ms(torch, fn, reps=1, trials=args.reps)
         prof = cs.busy_profile(torch, fn, counted)
         if prof is None:
@@ -151,7 +169,7 @@ def main() -> int:
             busy, top = prof
             busy_txt = f"busy {busy:.3f} ms, idle share {1 - busy / wall:.3f}; top: {top}"
         print(f"path {name}: result {result}; wall {wall:.3f} ms (median of {args.reps}); "
-              f"{busy_txt}", flush=True)
+              f"{busy_txt}; allocator over one call: {segs}", flush=True)
     print(f"gpu: {smi}", flush=True)
     return 0
 

@@ -94,6 +94,21 @@
 //   2  chunk once: an item is (group of 4 active nodes, chunk block); a warp
 //      loads its chunks' values and columns once, issues the bound gathers
 //      of the 4 nodes, then sums each
+// Node A' and node E variants (node_gather_variant, node_scatter_variant),
+// one matrix over B node planes, the multi-chunk node round:
+//   0  the kernels before the redesign: a group of group_width(K) lanes per
+//      chunk over the whole chunk grid; each warp loads its chunks' first
+//      strides once, ballots the mask 32 nodes at a time and runs every
+//      active node in turn (E: integer atomics behind the L2 pre-check); at
+//      every value type and index form of the port (`form`)
+//   1, 2, 4, 8  the port's kernels (batch_round.cuh) at Q = 1, 2, 4, 8: the
+//      active-only walk over (group of Q active nodes, chunk block) items,
+//      the chunk loaded once for the group, the lanes keyed on the longest
+//      chunk (one thread a chunk up to 8 slots; wider chunks G lanes, one
+//      node an item whatever Q), E without the pre-check; at float64
+//   11  as 1 with G lanes a chunk at every width (short chunks too)
+// Built with -DNODE_ROUND_ONLY, the file holds these alone (chip_smoke.py
+// times the parents beside the port's kernels).
 // Merge variants (merge_variant):
 //   0  #9 reading the accumulator planes only (before the hand-back)
 //   1  #9 handing them back at the sentinels, a (column block, row) grid
@@ -122,9 +137,11 @@
 //   15, 16 #15 / #9 on the shared body's grid, one column a thread (15: the
 //      port's #15 for at most kMergeGridRows rows)
 
-#include "../src/repro_torch/csrc/round_common.cuh"
+#include "../src/repro_torch/csrc/batch_round.cuh"
 
 namespace {
+
+#ifndef NODE_ROUND_ONLY
 
 // PRE: the integer atomics behind the L2 pre-check (the port's); without it
 // each candidate goes to the atomic unit.
@@ -214,16 +231,16 @@ __device__ __forceinline__ void held_chunk(const double* __restrict__ val,
   load_batch<U, EAGER>(first, val, col, ii, base, 0, len, kk, sl);
   double l[U], h[U];
   gather_strides(first, b, l, h);
-  RowAgg a{0.0, 0.0, 0, 0};
+  RowSumT<double> sums{};
   if (sum) {
-    add_gathered(a, first, l, h, inf);
+    add_gathered(sums, first, l, h, inf);
     for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
       Loaded<U> s;
       load_batch<U, EAGER>(s, val, col, nullptr, base, j0, len, kk, sl);
-      add_strides(a, s, b, inf);
+      add_strides(sums, s, b, inf);
     }
   }
-  a = group_reduce<G>(a);
+  RowAgg a = group_reduce<G>(sums);
   if (kk == 0) return;
   if (!sum) a = given;
   put_batch<U, RED, PRE>(first, l, h, a, lhs, rhs, best_l, best_u, int_eps, inf);
@@ -710,16 +727,16 @@ __device__ __forceinline__ void held_round(const Loaded<U>& first, const Slab& s
   const SplitBounds b{s.lb + off, s.ub + off};
   double l[U], h[U];
   gather_strides(first, b, l, h);
-  RowAgg a{0.0, 0.0, 0, 0};
+  RowSumT<double> sums{};
   if (sum) {
-    add_gathered(a, first, l, h, s.inf);
+    add_gathered(sums, first, l, h, s.inf);
     for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
       Loaded<U> t;
       load_strides<U, true>(t, s.val, s.col, nullptr, c * s.k, j0, len, kk, sl);
-      add_strides(a, t, b, s.inf);
+      add_strides(sums, t, b, s.inf);
     }
   }
-  a = group_reduce<G>(a);
+  RowAgg a = group_reduce<G>(sums);
   if (kk == 0) return;
   if (!sum) a = given;
   scatter_gathered<U, false>(first, l, h, a, lhs, rhs, s.best_l + off, s.best_u + off,
@@ -957,15 +974,14 @@ __global__ void __launch_bounds__(kThreads) partials_once(const Partials s) {
       if (j >= last) break;
       const int64_t off = plane[j] * s.width + slab_off;
       const SplitBounds b{s.lb + off, s.ub + off};
-      RowAgg a{0.0, 0.0, 0, 0};
-      add_gathered(a, held, l[j], h[j], s.inf);
+      RowSumT<double> sums{};
+      add_gathered(sums, held, l[j], h[j], s.inf);
       for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
         Loaded<U> t;
         load_strides<U, true>(t, s.val, s.col, nullptr, c * s.k, j0, len, kk, sl);
-        add_strides(a, t, b, s.inf);
+        add_strides(sums, t, b, s.inf);
       }
-      a = group_reduce<G>(a);
-      if (live && sl == 0) put_partials(s, a, plane[j] * s.n_chunks + c);
+      if (live && sl == 0) put_partials(s, group_reduce<G>(sums), plane[j] * s.n_chunks + c);
     }
   }
 }
@@ -1065,9 +1081,296 @@ merge_groups(double* __restrict__ lb, double* __restrict__ ub, double* __restric
   }
 }
 
+#endif  // NODE_ROUND_ONLY
+
+// ---- node A' and node E -------------------------------------------------------
+
+// The kernels before the redesign (variant 0), as the port shipped them.
+template <int G, typename T, typename C>
+__global__ void __launch_bounds__(kThreads)
+parent_gather_kernel(const T* __restrict__ val, const C* __restrict__ col,
+                     const int* __restrict__ clen, const T* __restrict__ lb,
+                     const T* __restrict__ ub, const bool* __restrict__ active,
+                     T* __restrict__ mf, int* __restrict__ mc, T* __restrict__ xf,
+                     int* __restrict__ xc, int64_t n_chunks, int k, int64_t bsz, int64_t n_pad,
+                     T inf) {
+  constexpr int U = Strides<G>::U;
+  const Lanes L = lanes_for<G>(n_chunks);
+  const int lane = threadIdx.x % kWarp;
+  const int64_t base = L.chunk * k;
+  const int kk = L.live ? k : 0;
+  const int len = L.live ? clen[L.chunk] : 0;
+  Loaded<U, T> first;
+  load_strides(first, val, col, nullptr, base, 0, len, kk, L.sl);
+  for (int64_t b0 = 0; b0 < bsz; b0 += kWarp) {
+    unsigned int todo = __ballot_sync(0xffffffffu, b0 + lane < bsz && active[b0 + lane]);
+    while (todo != 0u) {
+      const int64_t b = b0 + __ffs(todo) - 1;
+      todo &= todo - 1u;
+      const SplitBoundsT<T> bounds{lb + b * n_pad, ub + b * n_pad};
+      RowSumT<T> sums{};
+      add_strides(sums, first, bounds, inf);
+      for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
+        Loaded<U, T> s;
+        load_strides(s, val, col, nullptr, base, j0, len, kk, L.sl);
+        add_strides(sums, s, bounds, inf);
+      }
+      const RowAggT<T> a = group_reduce<G>(sums);
+      if (L.live && L.sl == 0) {
+        const int64_t o = b * n_chunks + L.chunk;
+        mf[o] = a.mf;
+        mc[o] = a.mc;
+        xf[o] = a.xf;
+        xc[o] = a.xc;
+      }
+    }
+  }
+}
+
+template <int G, typename T, typename C, typename M>
+__global__ void __launch_bounds__(kThreads, kEMinBlocks)
+parent_scatter_kernel(const T* __restrict__ val, const C* __restrict__ col,
+                      const M* __restrict__ ii, const int* __restrict__ clen,
+                      const T* __restrict__ rmf, const int* __restrict__ rmc,
+                      const T* __restrict__ rxf, const int* __restrict__ rxc,
+                      const T* __restrict__ lhs, const T* __restrict__ rhs,
+                      const T* __restrict__ lb, const T* __restrict__ ub,
+                      const bool* __restrict__ active, typename Num<T>::Plane* best_l,
+                      typename Num<T>::Plane* best_u, int64_t n_chunks, int k, int64_t bsz,
+                      int64_t n_pad, T int_eps, T inf) {
+  constexpr int U = Strides<G>::U;
+  const Lanes L = lanes_for<G>(n_chunks);
+  const int lane = threadIdx.x % kWarp;
+  const int64_t c = L.chunk;
+  const int kk = L.live ? k : 0;
+  const int len = L.live ? clen[c] : 0;
+  const T lo = L.live ? lhs[c] : T(0), hi = L.live ? rhs[c] : T(0);
+  Loaded<U, T> first;
+  load_strides(first, val, col, ii, c * k, 0, len, kk, L.sl);
+  for (int64_t b0 = 0; b0 < bsz; b0 += kWarp) {
+    unsigned int todo = __ballot_sync(0xffffffffu, b0 + lane < bsz && active[b0 + lane]);
+    if (!L.live) continue;
+    while (todo != 0u) {
+      const int64_t b = b0 + __ffs(todo) - 1;
+      todo &= todo - 1u;
+      const int64_t o = b * n_chunks + c, row = b * n_pad;
+      const RowAggT<T> a{rmf[o], rxf[o], rmc[o], rxc[o]};
+      const SplitBoundsT<T> bounds{lb + row, ub + row};
+      scatter_strides(first, bounds, a, lo, hi, best_l + row, best_u + row, int_eps, inf);
+      for (int j0 = U * kWarp; j0 < len; j0 += U * kWarp) {
+        Loaded<U, T> s;
+        load_strides(s, val, col, ii, c * k, j0, len, kk, L.sl);
+        scatter_strides(s, bounds, a, lo, hi, best_l + row, best_u + row, int_eps, inf);
+      }
+    }
+  }
+}
+
+// A scalar of the entries (a double holding a value of T) as T.
+template <typename T>
+T scalar(double x) {
+  if constexpr (std::is_same_v<T, double>) return x;
+  else return T(static_cast<float>(x));
+}
+
+struct GatherArgs {
+  const void *val, *col;
+  const int* clen;
+  const void *lb, *ub;
+  const bool* active;
+  void* mf;
+  int* mc;
+  void* xf;
+  int* xc;
+  int64_t n_chunks;
+  int k, max_len;
+  int64_t bsz, n_pad;
+  double inf;
+};
+
+struct ScatterArgs {
+  const void *val, *col, *ii;
+  const int* clen;
+  const void* rmf;
+  const int* rmc;
+  const void* rxf;
+  const int* rxc;
+  const void *lhs, *rhs, *lb, *ub;
+  const bool* active;
+  void *best_l, *best_u;
+  int64_t n_chunks;
+  int k, max_len;
+  int64_t bsz, n_pad;
+  double int_eps, inf;
+};
+
+template <typename T, typename C>
+int gather_parent(const GatherArgs& a, cudaStream_t stream) {
+  const T *val = static_cast<const T*>(a.val), *lb = static_cast<const T*>(a.lb),
+          *ub = static_cast<const T*>(a.ub);
+  const C* col = static_cast<const C*>(a.col);
+  T *mf = static_cast<T*>(a.mf), *xf = static_cast<T*>(a.xf);
+  const unsigned int blocks = chunk_blocks(a.n_chunks, a.k);
+#define PARENT_GATHER(G)                                                                         \
+  launch_blocks<parent_gather_kernel<G, T, C>>(blocks, stream, val, col, a.clen, lb, ub,         \
+                                               a.active, mf, a.mc, xf, a.xc, a.n_chunks, a.k,    \
+                                               a.bsz, a.n_pad, scalar<T>(a.inf))
+  switch (group_width(a.k)) {
+    case 1: return PARENT_GATHER(1);
+    case 2: return PARENT_GATHER(2);
+    case 4: return PARENT_GATHER(4);
+    case 8: return PARENT_GATHER(8);
+    case 16: return PARENT_GATHER(16);
+    default: return PARENT_GATHER(32);
+  }
+#undef PARENT_GATHER
+}
+
+template <typename T, typename C, typename M>
+int scatter_parent(const ScatterArgs& a, cudaStream_t stream) {
+  using P = typename Num<T>::Plane;
+  const T *val = static_cast<const T*>(a.val), *rmf = static_cast<const T*>(a.rmf),
+          *rxf = static_cast<const T*>(a.rxf), *lhs = static_cast<const T*>(a.lhs),
+          *rhs = static_cast<const T*>(a.rhs), *lb = static_cast<const T*>(a.lb),
+          *ub = static_cast<const T*>(a.ub);
+  const C* col = static_cast<const C*>(a.col);
+  const M* ii = static_cast<const M*>(a.ii);
+  P *best_l = static_cast<P*>(a.best_l), *best_u = static_cast<P*>(a.best_u);
+  const unsigned int blocks = chunk_blocks(a.n_chunks, a.k);
+#define PARENT_SCATTER(G)                                                                       \
+  launch_blocks<parent_scatter_kernel<G, T, C, M>>(                                             \
+      blocks, stream, val, col, ii, a.clen, rmf, a.rmc, rxf, a.rxc, lhs, rhs, lb, ub, a.active, \
+      best_l, best_u, a.n_chunks, a.k, a.bsz, a.n_pad, scalar<T>(a.int_eps), scalar<T>(a.inf))
+  switch (group_width(a.k)) {
+    case 1: return PARENT_SCATTER(1);
+    case 2: return PARENT_SCATTER(2);
+    case 4: return PARENT_SCATTER(4);
+    case 8: return PARENT_SCATTER(8);
+    case 16: return PARENT_SCATTER(16);
+    default: return PARENT_SCATTER(32);
+  }
+#undef PARENT_SCATTER
+}
+
+// The port's kernels at group size Q, float64.
+template <int Q>
+int gather_groups(const GatherArgs& a, cudaStream_t stream) {
+  return launch_node_activities_gather<double, int, Q>(
+      static_cast<const double*>(a.val), static_cast<const int*>(a.col), a.clen,
+      static_cast<const double*>(a.lb), static_cast<const double*>(a.ub), a.active,
+      static_cast<double*>(a.mf), a.mc, static_cast<double*>(a.xf), a.xc, a.n_chunks, a.k,
+      a.max_len, a.bsz, a.n_pad, a.inf, stream);
+}
+
+template <int Q>
+int scatter_groups(const ScatterArgs& a, cudaStream_t stream) {
+  return launch_node_candidates_scatter<double, int, int, Q>(
+      static_cast<const double*>(a.val), static_cast<const int*>(a.col),
+      static_cast<const int*>(a.ii), a.clen, static_cast<const double*>(a.rmf), a.rmc,
+      static_cast<const double*>(a.rxf), a.rxc, static_cast<const double*>(a.lhs),
+      static_cast<const double*>(a.rhs), static_cast<const double*>(a.lb),
+      static_cast<const double*>(a.ub), a.active, static_cast<double*>(a.best_l),
+      static_cast<double*>(a.best_u), a.n_chunks, a.k, a.max_len, a.bsz, a.n_pad, a.int_eps,
+      a.inf, stream);
+}
+
+// The port's lane-group kernels at every width (G lanes a chunk, short
+// chunks too), float64.
+int gather_lanes(const GatherArgs& a, cudaStream_t stream) {
+  const int g = a.max_len < a.k ? a.max_len : a.k;
+  const int64_t most = chunk_blocks(a.n_chunks, g);
+  const double *val = static_cast<const double*>(a.val), *lb = static_cast<const double*>(a.lb),
+               *ub = static_cast<const double*>(a.ub);
+  const int* col = static_cast<const int*>(a.col);
+  double *mf = static_cast<double*>(a.mf), *xf = static_cast<double*>(a.xf);
+#define LANES(G, U)                                                                            \
+  launch_walk<node_activities_gather_kernel<G, U, double, int>>(                               \
+      most, a.bsz, stream, val, col, a.clen, lb, ub, a.active, mf, a.mc, xf, a.xc, a.n_chunks, \
+      a.k, a.bsz, a.n_pad, a.inf)
+  DISPATCH_HELD(LANES, g, held_strides(a.max_len))
+#undef LANES
+}
+
+int scatter_lanes(const ScatterArgs& a, cudaStream_t stream) {
+  const int g = a.max_len < a.k ? a.max_len : a.k;
+  const int64_t most = chunk_blocks(a.n_chunks, g);
+  const double *val = static_cast<const double*>(a.val), *rmf = static_cast<const double*>(a.rmf),
+               *rxf = static_cast<const double*>(a.rxf), *lhs = static_cast<const double*>(a.lhs),
+               *rhs = static_cast<const double*>(a.rhs), *lb = static_cast<const double*>(a.lb),
+               *ub = static_cast<const double*>(a.ub);
+  const int *col = static_cast<const int*>(a.col), *ii = static_cast<const int*>(a.ii);
+  double *best_l = static_cast<double*>(a.best_l), *best_u = static_cast<double*>(a.best_u);
+#define LANES(G, U)                                                                             \
+  launch_walk<node_candidates_scatter_kernel<G, U, double, int, int>>(                          \
+      most, a.bsz, stream, val, col, ii, a.clen, rmf, a.rmc, rxf, a.rxc, lhs, rhs, lb, ub,      \
+      a.active, best_l, best_u, a.n_chunks, a.k, a.bsz, a.n_pad, a.int_eps, a.inf)
+  DISPATCH_HELD(LANES, g, held_strides(a.max_len))
+#undef LANES
+}
+
 }  // namespace
 
 extern "C" {
+
+// form: 0 float64, 1 float32, 2 float32 compact ids, 3 bfloat16, 4 bfloat16
+// compact ids, 5 float16 (variant 0 only; the others run at float64).
+int node_gather_variant(int v, int form, const void* val, const void* col, const int* clen,
+                        const void* lb, const void* ub, const bool* active, void* mf, int* mc,
+                        void* xf, int* xc, int64_t n_chunks, int k, int max_len, int64_t bsz,
+                        int64_t n_pad, double inf, cudaStream_t stream) {
+  const GatherArgs a{val, col, clen, lb, ub, active, mf, mc, xf, xc, n_chunks, k, max_len,
+                     bsz, n_pad, inf};
+  if (v != 0 && form != 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (v) {
+    case 0:
+      switch (form) {
+        case 0: return gather_parent<double, int>(a, stream);
+        case 1: return gather_parent<float, int>(a, stream);
+        case 2: return gather_parent<float, int16_t>(a, stream);
+        case 3: return gather_parent<Bf16, int>(a, stream);
+        case 4: return gather_parent<Bf16, int16_t>(a, stream);
+        case 5: return gather_parent<F16, int>(a, stream);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+      }
+    case 1: return gather_groups<1>(a, stream);
+    case 2: return gather_groups<2>(a, stream);
+    case 4: return gather_groups<4>(a, stream);
+    case 8: return gather_groups<8>(a, stream);
+    case 11: return gather_lanes(a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int node_scatter_variant(int v, int form, const void* val, const void* col, const void* ii,
+                         const int* clen, const void* rmf, const int* rmc, const void* rxf,
+                         const int* rxc, const void* lhs, const void* rhs, const void* lb,
+                         const void* ub, const bool* active, void* best_l, void* best_u,
+                         int64_t n_chunks, int k, int max_len, int64_t bsz, int64_t n_pad,
+                         double int_eps, double inf, cudaStream_t stream) {
+  const ScatterArgs a{val, col, ii, clen, rmf, rmc, rxf, rxc, lhs, rhs, lb, ub, active,
+                      best_l, best_u, n_chunks, k, max_len, bsz, n_pad, int_eps, inf};
+  if (v != 0 && form != 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (v) {
+    case 0:
+      switch (form) {
+        case 0: return scatter_parent<double, int, int>(a, stream);
+        case 1: return scatter_parent<float, int, int>(a, stream);
+        case 2: return scatter_parent<float, int16_t, int8_t>(a, stream);
+        case 3: return scatter_parent<Bf16, int, int>(a, stream);
+        case 4: return scatter_parent<Bf16, int16_t, int8_t>(a, stream);
+        case 5: return scatter_parent<F16, int, int>(a, stream);
+        default: return static_cast<int>(cudaErrorInvalidValue);
+      }
+    case 1: return scatter_groups<1>(a, stream);
+    case 2: return scatter_groups<2>(a, stream);
+    case 4: return scatter_groups<4>(a, stream);
+    case 8: return scatter_groups<8>(a, stream);
+    case 11: return scatter_lanes(a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+#ifndef NODE_ROUND_ONLY
 
 int node_variant(int v, const double* val, const int* col, const int* ii, const int* clen,
                  const double* lhs, const double* rhs, const double* lb, const double* ub,
@@ -1258,5 +1561,7 @@ int merge_variant(int v, double* lb, double* ub, double* best_l, double* best_u,
                                                      width, s, windows, eps, inf, outward);
   return static_cast<int>(cudaGetLastError());
 }
+
+#endif  // NODE_ROUND_ONLY
 
 }  // extern "C"

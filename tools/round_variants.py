@@ -34,7 +34,17 @@ merge; #13 cold, its outputs filled first, which evicts the L2, and warm,
 the same launch or sequence run untimed just before), the time of the two
 ``torch.full`` sentinel planes that the wrappers no longer fill per
 launch, and the card's name and power limit.
-``--only`` picks the kernels (of 1 (D), 8, 9, 10, 12, 13, 14, 15).
+``--only`` picks the kernels (of 1 (D), 8, 9, 10, 12, 13, 14, 15, and
+``node_ae``: node A' and node E, the multi-chunk node round, before the
+redesign and on the walk at groups of Q = 1, 2, 4 and 8 active nodes, on
+``pbf`` at tile width 4 with its 128-node pool at 0, 1, 8, 32 and 128
+active, over the masks of their launches in ``chip_smoke.py``'s ``pbf``
+search at tile width 4 (phase 7), logged and timed warm and cold as #13's,
+the variants of each launch in turn, so that every repetition pairs their
+sums over the search (the report gives each variant's paired difference
+from Q = 1 and from the shipped Q, with its range), and on ``mixed`` at
+tile width 128 with 4 nodes, where chunks of 128 slots take the G-lane
+kernels).
 """
 from __future__ import annotations
 
@@ -131,6 +141,21 @@ PARTIALS_VARIANTS = {
     2: "chunk once: a warp's chunks loaded once for a group of 4 active nodes, their "
        "gathers issued before any sum",
 }
+NODE_AE_VARIANTS = {
+    0: "before the redesign (K's lane group over the whole chunk grid, a warp's chunks loaded "
+       "once and run for every active node in turn; E behind the L2 pre-check)",
+    1: "the active-only walk, node-major (Q = 1), lanes keyed on the longest chunk (one thread "
+       "a chunk up to 8 slots), E without the pre-check",
+    2: "the walk over groups of Q = 2 active nodes: a chunk loaded once for the group (one "
+       "node an item where chunks take G lanes)",
+    4: "as 2, Q = 4",
+    8: "as 2, Q = 8",
+    11: "as 1 with G lanes a chunk at every width",
+}
+# The group sizes the port ships (batch_round.cuh kNodeGatherGroup,
+# kNodeScatterGroup): the variants the search's paired report holds the
+# others against, beside Q = 1.
+NODE_GATHER_GROUP, NODE_SCATTER_GROUP = 2, 4
 FUSED_VARIANTS = {
     0: "before the redesign (group_width(K) lanes a chunk, two gathers per slot, CAS, every "
        "slot, planes filled per launch)",
@@ -144,14 +169,18 @@ FUSED_VARIANTS = {
 }
 
 
-def build() -> ctypes.CDLL:
+def build(node_only: bool = False) -> ctypes.CDLL:
+    """Compile the tool's source (``node_only``: its node A' and node E
+    variants alone, ``-DNODE_ROUND_ONLY``) and load it."""
     from repro_torch.kernels import _build
 
-    out = _build.BUILD_DIR / "round_variants" / "libround_variants.so"
+    name = "libnode_round_variants.so" if node_only else "libround_variants.so"
+    out = _build.BUILD_DIR / "round_variants" / name
     out.parent.mkdir(parents=True, exist_ok=True)
     t = time.perf_counter()
-    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(SOURCE)],
-                          capture_output=True, text=True)
+    defines = ["-DNODE_ROUND_ONLY"] if node_only else []
+    done = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-o", str(out),
+                           str(SOURCE)], capture_output=True, text=True)
     if done.returncode:
         raise SystemExit(f"round_variants: nvcc failed:\n{done.stderr[-4000:]}")
     print(f"build: {time.perf_counter() - t:.1f} s", flush=True)
@@ -166,6 +195,12 @@ def build() -> ctypes.CDLL:
                   flush=True)
     lib = ctypes.CDLL(str(out))
     P, I64, I32, F64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_double
+    lib.node_gather_variant.argtypes = [I32, I32] + [P] * 10 + [I64, I32, I32, I64, I64, F64, P]
+    lib.node_scatter_variant.argtypes = [I32, I32] + [P] * 15 + [I64, I32, I32, I64, I64, F64,
+                                                                 F64, P]
+    lib.node_gather_variant.restype = lib.node_scatter_variant.restype = I32
+    if node_only:
+        return lib
     lib.node_variant.argtypes = [I32] + [P] * 11 + [I64, I32, I64, I64, F64, F64, P]
     lib.slab_variant.argtypes = [I32] + [P] * 21 + [I32, I64, I32, I32, I64, I64, F64, F64, P]
     lib.merge_variant.argtypes = [I32] + [P] * 6 + [I64, I64, I64, F64, F64, F64, P]
@@ -203,9 +238,9 @@ def event_ms(torch, launch, reset=None) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--only", default="1,8,9,10,12,13,14,15")
+    ap.add_argument("--only", default="1,8,9,10,12,13,14,15,node_ae")
     args = ap.parse_args()
-    only = {int(x) for x in args.only.split(",")}
+    only = {int(x) if x.isdigit() else x for x in args.only.split(",")}
     import numpy as np
     import torch
 
@@ -222,7 +257,7 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(f"gpu: {smi}", flush=True)
-    lib = build()
+    lib = build(node_only=only <= {"node_ae"})
     cfg = rt.core.DEFAULT_CONFIG
     inf, eps = cfg.inf, cfg.eps_for(torch.float64)
     ptr = lambda x: None if x is None else x.data_ptr()
@@ -616,6 +651,9 @@ def main() -> int:
         fills["pbw pool"] = statistics.median(event_ms(torch, lambda: fill(lbw))
                                               for _ in range(args.reps))
 
+    if "node_ae" in only:
+        node_ae_cases(torch, np, rt, td, cs, tref, ops, lib, cases, fills, args.reps)
+
     for _ in range(args.reps):
         for label, kind, v, launch, reset in cases:
             try:
@@ -626,17 +664,219 @@ def main() -> int:
             times.setdefault((label, kind, v), []).append(ms)
     names = {"node": NODE_VARIANTS, "slab": SLAB_VARIANTS, "merge": MERGE_VARIANTS,
              "batched": BATCHED_VARIANTS, "node_slab": NODE_SLAB_VARIANTS,
-             "fused": FUSED_VARIANTS, "partials": PARTIALS_VARIANTS}
+             "fused": FUSED_VARIANTS, "partials": PARTIALS_VARIANTS,
+             "node_gather": NODE_AE_VARIANTS, "node_scatter": NODE_AE_VARIANTS}
     rows = []
     for (label, kind, v), ms in times.items():
         row = dict(case=label, variant=v, what=names[kind][v], ms=statistics.median(ms))
         rows.append(row)
-        print(f"{label} variant {v}: {row['ms']:.4f} ms  {row['what']}", flush=True)
+        if ", launch " not in label:  # the search's launches are summed below
+            print(f"{label} variant {v}: {row['ms']:.4f} ms  {row['what']}", flush=True)
     print("sentinel planes the wrappers no longer fill per launch (a pair of the case's "
           "planes): " + "; ".join(f"{n} {ms:.4f} ms" for n, ms in fills.items()), flush=True)
+    search_report(times, {"node A'": NODE_GATHER_GROUP, "node E": NODE_SCATTER_GROUP})
     print(json.dumps({"gpu": smi, "variants": rows, "fill_ms": fills}), flush=True)
     print(f"gpu: {smi}", flush=True)
     return 0
+
+
+def node_ae_cases(torch, np, rt, td, cs, tref, ops, lib, cases, fills, reps):
+    """Node A' and node E (``NODE_AE_VARIANTS``) on pbf at tile width 4:
+    the 128-node pool at 0, 1, 8, 32 and 128 active (each variant held
+    against the plain versions: A''s active rows, E's whole planes), and
+    the masks of the kernels' launches in the pbf search at tile width 4,
+    applied to the pool in the search's order, each launch timed warm (the
+    previous launch of the sequence just before) and cold (the outputs or
+    the planes filled first, which evicts the L2), the variants of one
+    launch in turn, so each repetition holds a pair of every two variants'
+    sums over the search.  Then ``mixed`` at tile width 128 (chunks of up
+    to 128 slots: the G-lane kernels) with 4 nodes at its root bounds, 1,
+    2 and 4 active, as ``nodes mixed`` runs it."""
+    from repro_torch.kernels import accumulator_planes, prop_round
+
+    cfg = rt.core.DEFAULT_CONFIG
+    inf, int_eps = cfg.inf, cfg.int_eps
+    stream = lambda: torch.cuda.current_stream().cuda_stream
+    ptr = lambda x: x.data_ptr()
+
+    def instance(prep, lbp, ubp, variants):
+        """The launches of every variant on ``prep``'s tiles and the
+        (B, n_pad) pool ``lbp`` / ``ubp``, checked: (gather, scatter, spoil,
+        sentinels, acc, check)."""
+        d, n_pad = prep.d, prep.n_pad
+        t, r, k = d.val.shape
+        bsz = lbp.shape[0]
+        outs = [torch.empty((bsz, t, r), dtype=dt, device="cuda")
+                for dt in (torch.float64, torch.int32, torch.float64, torch.int32)]
+        acc = accumulator_planes(lbp)
+        everyone = torch.ones(bsz, dtype=torch.bool, device="cuda")
+        # Each node's aggregates depend on its own bounds only: the full
+        # pool's serve every mask (E reads the active rows').
+        aggs = tref.node_combine_chunk_partials_ref(
+            *tref.node_activities_gather_ref(d.val, d.col, lbp, ubp, everyone, n_pad),
+            d.chunk_row, prep.row_start, everyone)
+
+        def spoil():
+            for o in outs:
+                o.fill_(-7)
+
+        def sentinels():
+            acc[0].fill_(-inf)
+            acc[1].fill_(inf)
+
+        def gather(v, act):
+            return lib.node_gather_variant(
+                v, 0, ptr(d.val), ptr(d.col), ptr(prep.chunk_len), ptr(lbp), ptr(ubp), ptr(act),
+                *map(ptr, outs), t * r, k, prep.max_chunk_len, bsz, n_pad, inf, stream())
+
+        def scatter(v, act):
+            return lib.node_scatter_variant(
+                v, 0, ptr(d.val), ptr(d.col), ptr(prep.ii_g), ptr(prep.chunk_len),
+                *map(ptr, aggs), ptr(prep.lhs_g), ptr(prep.rhs_g), ptr(lbp), ptr(ubp), ptr(act),
+                ptr(acc[0]), ptr(acc[1]), t * r, k, prep.max_chunk_len, bsz, n_pad, int_eps,
+                inf, stream())
+
+        def check(act, label):
+            """Every variant on mask ``act`` against the plain versions."""
+            want_a = tref.node_activities_gather_ref(d.val, d.col, lbp, ubp, act, n_pad)
+            want_e = tref.node_candidates_scatter_ref(d.val, d.col, prep.ii_g, *aggs,
+                                                      prep.lhs_g, prep.rhs_g, lbp, ubp, act,
+                                                      n_pad, int_eps)
+            for v in variants:
+                spoil()
+                err = gather(v, act)
+                if err or not all(torch.equal(o[act], w[act]) for o, w in zip(outs, want_a)):
+                    raise SystemExit(f"round_variants: node A' {label} variant {v} disagrees "
+                                     "with the plain version")
+                sentinels()
+                err = scatter(v, act)
+                if err or not (torch.equal(acc[0], want_e[0])
+                               and torch.equal(acc[1], want_e[1])):
+                    raise SystemExit(f"round_variants: node E {label} variant {v} disagrees "
+                                     "with the plain version")
+
+        return gather, scatter, spoil, sentinels, acc, check
+
+    def masked(label, n_acts, bsz, variants, gather, scatter, spoil, sentinels, check):
+        for n_act in n_acts:
+            act = torch.zeros(bsz, dtype=torch.bool, device="cuda")
+            if n_act:
+                act[:: bsz // n_act] = True
+            case = f"{label}, {n_act} of {bsz} active"
+            check(act, case)
+            for v in variants:
+                g = lambda v=v, act=act: gather(v, act)
+                e = lambda v=v, act=act: scatter(v, act)
+                cases.append((f"node A' {case}", "node_gather", v, g, spoil))
+                cases.append((f"node A' {case}, warm", "node_gather", v, g, g))
+                cases.append((f"node E {case}", "node_scatter", v, e, sentinels))
+                cases.append((f"node E {case}, warm", "node_scatter", v, e,
+                              lambda e=e: (sentinels(), e())))
+
+    pbf = td.make_pseudo_boolean(**cs.PBF)
+    prep = rt.prepare_block_ell(pbf, tile_width=cs.MULTI_CHUNK_TILE_WIDTH, device="cuda")
+    d = prep.d
+    t, r, k = d.val.shape
+    lbp, ubp = ops._node_planes(prep, *cs.node_pool(np, rt, pbf, cs.POOL, seed=3))
+    print(f"node A'/E pbf K = {k}: tiles {(t, r, k)}, {int((d.val != 0).sum())} nonzeros, "
+          f"longest chunk {prep.max_chunk_len}, pool {tuple(lbp.shape)}", flush=True)
+    gather, scatter, spoil, sentinels, acc, check = instance(prep, lbp, ubp, NODE_AE_VARIANTS)
+    masked(f"pbf K={k} pool", (0, 1, 8, 32, cs.POOL), cs.POOL, NODE_AE_VARIANTS, gather,
+           scatter, spoil, sentinels, check)
+
+    # The masks of the search's launches: the wrapper, logged through the
+    # module (the engine calls it there; its counter is bumped by name).
+    masks, kernel = [], prop_round.node_activities_gather_tiles
+
+    def logged(*a, **kw):
+        masks.append(a[4].clone())  # the (B,) active mask
+        return kernel(*a, **kw)
+
+    logged.launches = 0
+    prop_round.node_activities_gather_tiles = logged
+    try:
+        res = rt.solve(pbf, cs.objective(np, pbf.n), device="cuda",
+                       tile_width=cs.MULTI_CHUNK_TILE_WIDTH, **cs.FULL_SEARCH)
+    finally:
+        prop_round.node_activities_gather_tiles = kernel
+    counts = [int(m.sum()) for m in masks]
+    print(f"node A'/E in the pbf search at tile width {k} "
+          f"{(res.status, res.nodes_expanded, res.levels)}: {len(masks)} launches, active nodes "
+          f"at each {counts}", flush=True)
+    label = f"pbf search's {len(masks)} launches"
+    for i, m in enumerate(masks):
+        check(m, f"{label} (launch {i})")
+
+    def handback(m):
+        """#9's hand-back of a launch's active rows: the planes at the
+        sentinels there, the L2 as the search leaves it."""
+        acc[0].masked_fill_(m[:, None], -inf)
+        acc[1].masked_fill_(m[:, None], inf)
+
+    # Each launch timed alone after its reset (untimed), summed over the
+    # search by the report: warm, the previous launch of the sequence just
+    # before (E: then the hand-back of this launch's rows, as #9 leaves
+    # them); cold, the outputs or the planes filled first.  The variants of
+    # one launch run in turn.
+    for i, (prev, m) in enumerate(zip([masks[-1], *masks[:-1]], masks)):
+        for v in NODE_AE_VARIANTS:
+            g = lambda v=v, m=m: gather(v, m)
+            e = lambda v=v, m=m: scatter(v, m)
+            cases.append((f"node A' {label}, warm, launch {i}", "node_gather", v, g,
+                          lambda v=v, p=prev: gather(v, p)))
+            cases.append((f"node A' {label}, cold, launch {i}", "node_gather", v, g, spoil))
+            cases.append((f"node E {label}, warm, launch {i}", "node_scatter", v, e,
+                          lambda v=v, p=prev, m=m: (scatter(v, p), handback(m))))
+            cases.append((f"node E {label}, cold, launch {i}", "node_scatter", v, e,
+                          sentinels))
+    fills["pbf K=4 pool"] = statistics.median(
+        event_ms(torch, lambda: (accumulator_planes(lbp), 0)[1]) for _ in range(reps))
+
+    # The G-lane kernels, one node an item whatever Q: variants 2-11 are 1
+    # there, so they are left out.
+    _, gen, kw = next(spec for spec in cs.SPECS if spec[0] == "mixed")
+    mixed = getattr(td, gen)(**kw)
+    mprep = rt.prepare_block_ell(mixed, device="cuda")
+    bsz = 4
+    mlb, mub = mprep.lb0.repeat(bsz, 1), mprep.ub0.repeat(bsz, 1)
+    wide = {v: NODE_AE_VARIANTS[v] for v in (0, 1)}
+    print(f"node A'/E mixed K = {mprep.d.val.shape[2]}: tiles {tuple(mprep.d.val.shape)}, "
+          f"longest chunk {mprep.max_chunk_len}, {bsz} nodes at the root bounds", flush=True)
+    m_gather, m_scatter, m_spoil, m_sentinels, _, m_check = instance(mprep, mlb, mub, wide)
+    masked(f"mixed K={mprep.d.val.shape[2]}", (1, 2, bsz), bsz, wide, m_gather, m_scatter,
+           m_spoil, m_sentinels, m_check)
+
+
+def search_report(times: dict, shipped: dict) -> None:
+    """Node A' and node E summed over the pbf search's launches: the sum of
+    each launch's median, and the sums within each repetition (the variants
+    of a launch run in turn, so each repetition pairs them): their median
+    and range, and each variant's paired difference from Q = 1 and from the
+    shipped Q (median and range over the repetitions, and in how many the
+    variant was faster)."""
+    for name in ("node A'", "node E"):
+        per_rep, medians = {}, {}
+        for (label, _, v), ms in times.items():
+            if label.startswith(f"{name} pbf search"):
+                sums = per_rep.setdefault(v, [0.0] * len(ms))
+                for i, x in enumerate(ms):
+                    sums[i] += x
+                medians[v] = medians.get(v, 0.0) + statistics.median(ms)
+        if not per_rep:
+            continue
+        print(f"{name} over the pbf search's launches, warm + cold (sum of each launch's median; "
+              "per repetition: median [min, max]): " + ", ".join(
+                  f"variant {v} {medians[v]:.4f}; {statistics.median(s):.4f} "
+                  f"[{min(s):.4f}, {max(s):.4f}]" for v, s in sorted(per_rep.items()))
+              + f"; least: variant {min(medians, key=medians.get)}", flush=True)
+        for ref in sorted({1, shipped[name]}):
+            base = per_rep[ref]
+            print(f"{name} paired against variant {ref} over {len(base)} repetitions "
+                  "(variant - it, ms: median [min, max], repetitions faster): " + ", ".join(
+                      f"variant {v} {statistics.median(dx):+.4f} [{min(dx):+.4f}, "
+                      f"{max(dx):+.4f}] {sum(x < 0 for x in dx)}/{len(dx)}"
+                      for v, s in sorted(per_rep.items()) if v != ref
+                      for dx in [[a - b for a, b in zip(s, base)]]), flush=True)
 
 
 if __name__ == "__main__":
